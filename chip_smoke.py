@@ -13,17 +13,23 @@ Phases (each failure raises, so the exit code is non-zero):
    ``distmlip_tpu_torch/kernels/csrc`` (one process per source, in
    parallel) into ``build/kernels``;
 3. kernels vs plain — each kernel's wrapper on card tensors at the shapes
-   the main path gives it, held against its plain PyTorch version with the
+   the main paths give it, held against its plain PyTorch version with the
    stated tolerance, plus edge cases; times of the kernel, the plain
-   version, one library call and the least time the card could take;
-4. the main path — MACE at the MACE-MP-0-medium widths (channels 128,
+   version, one library call and the least time the card could take. The
+   segment sum at MACE's chunk shapes; the two TensorNet edge aggregations
+   on the graph of the TensorNet path's 16384-atom structure;
+4. the MACE path — MACE at the MACE-MP-0-medium widths (channels 128,
    l_max = a_lmax = 3, correlation 3, 2 interactions; random weights from
    seed 0) through ``DistPotential(device="cuda", skin=0.5)`` on a
    2048-atom Si crystal: one calculate plus 3 MD-like steps. The kernels'
    launch counts are set to 0 just before and read just after, and must
    equal the count derived from the code. The same 4 geometries through a
    ``kernels=False`` potential on the card are the reference;
-5. a small structure on the card (kernels) against the CPU (plain).
+5. the TensorNet path — TensorNet at the matgl TensorNet-MatPES-PBE layout
+   (89 species, 64 channels, 32 RBF, 2 layers, cutoff 5 Å; random weights
+   from seed 0) on bench.py's 16384-atom Si crystal, the same way;
+6. a small structure of each model on the card (kernels) against the CPU
+   (plain).
 
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -39,9 +45,15 @@ import time
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
-REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142"}
-SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu"}
+REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
+            "tensornet_embed_aggregate": "distmlip_tpu/kernels/segment.py:224",
+            "tensornet_interaction_aggregate": "distmlip_tpu/kernels/segment.py:224"}
+SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
+           "tensornet_embed_aggregate": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
+           "tensornet_interaction_aggregate":
+               "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu"}
 STEPS = 3
+TENSORNET_REPS = 16  # bench.py's default structure: 16384 atoms
 
 
 def log(*args):
@@ -102,6 +114,14 @@ def check_segment_sum(torch, data, ids, mask, n):
     return float(err.max()) if err.numel() else 0.0
 
 
+def bound(nbytes, ops):
+    """(bound ms, what bounds it): the larger of bytes over the HBM rate and
+    float32 operations over the card's peak rate."""
+    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
+    t_ops = ops / H100_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
 def time_segment_sum(torch, data, ids, mask, n):
     from distmlip_tpu_torch.kernels import segment_sum_cuda, segment_sum_reference
 
@@ -117,13 +137,10 @@ def time_segment_sum(torch, data, ids, mask, n):
     # bytes the function must move: each valid data row read once (masked
     # rows need not be read), ids and mask read once, the output written once
     nbytes = n_valid * w * 4 + e * ids.element_size() + e + n * w * 4
-    ops = n_valid * w
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_FP32_FLOPS * 1e3
+    bound_ms, bound_by = bound(nbytes, n_valid * w)
     return {"shape": [e] + list(data.shape[1:]), "n_segments": n,
             "valid_rows": n_valid, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "bytes": nbytes}
 
 
@@ -152,6 +169,151 @@ def phase_kernels(torch):
     return max(errs), timed, pad_time
 
 
+def tensornet_graph(torch):
+    """dst ids, src ids and mask of the TensorNet path's graph (bench.py's
+    crystal at TENSORNET_REPS, built at cutoff + skin), on the card."""
+    from distmlip_tpu_torch.neighbors import neighbor_list
+    from distmlip_tpu_torch.partition import (CapacityPolicy, build_partitioned_graph,
+                                              build_plan)
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
+
+    atoms, _ = bench_atoms(TENSORNET_REPS)
+    r = TENSORNET_KW["cutoff"] + 0.5
+    nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r)
+    plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r)
+    g, _ = build_partitioned_graph(plan, nl, atoms.numbers, atoms.cell,
+                                   caps=CapacityPolicy())
+    to = lambda x: torch.as_tensor(x[0]).to("cuda")  # noqa: E731
+    return to(g.edge_dst), to(g.edge_src), to(g.edge_mask), g.n_cap
+
+
+def edge_inputs(torch, gen, which, e, c, n_node, src=None):
+    """Random inputs of one TensorNet message at (E, C): the embed's
+    Z, W1, W2, W3 (E, C) and A_e, S_e (E, 3, 3, 1); the interaction's
+    f (E, C, 3), I, A, S (N_node, 3, 3, C) and src."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    if which == "embed":
+        return [r(e, c) for _ in range(4)] + [r(e, 3, 3, 1) for _ in range(2)]
+    if src is None:
+        src = torch.randint(0, n_node, (e,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    return [r(e, c, 3)] + [r(n_node, 3, 3, c) for _ in range(3)] + [src]
+
+
+def check_edge_aggregate(torch, which, arrays, ids, mask, n):
+    """Kernel vs plain on one input; returns max |kernel - plain|.
+    Per output element |kernel - plain| <= 2 (k + 3) u T: k is the row's
+    valid-edge count, u = 2^-24, T the plain version on |inputs| (the
+    exact sum of |terms|)."""
+    from distmlip_tpu_torch import kernels as K
+
+    cuda, ref = {
+        "embed": (K.tensornet_embed_aggregate_cuda, K.tensornet_embed_aggregate_reference),
+        "interaction": (K.tensornet_interaction_aggregate_cuda,
+                        K.tensornet_interaction_aggregate_reference)}[which]
+    got = cuda(*arrays, ids, n, mask)
+    want = ref(*arrays, ids, n, mask)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{which} shape/dtype {got.shape} {got.dtype} "
+                             f"vs {want.shape} {want.dtype}")
+    abs_arrays = [x.abs() if x.is_floating_point() else x for x in arrays]
+    t = ref(*abs_arrays, ids, n, mask)
+    valid = ids.long() if mask is None else ids.long()[mask]
+    k = torch.bincount(valid, minlength=n)[:n].to(torch.float32)
+    tol = 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * t
+    err = (got - want).abs()
+    if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{which} disagrees with its plain version: max |err| "
+                             f"{float(err.max())}, max tolerance {float(tol.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def time_edge_aggregate(torch, which, arrays, ids, mask, n):
+    from distmlip_tpu_torch import kernels as K
+
+    cuda, ref, message = {
+        "embed": (K.tensornet_embed_aggregate_cuda, K.tensornet_embed_aggregate_reference,
+                  K.TENSORNET_EMBED.fn),
+        "interaction": (K.tensornet_interaction_aggregate_cuda,
+                        K.tensornet_interaction_aggregate_reference,
+                        K.TENSORNET_INTERACTION.fn)}[which]
+    ms = cuda_ms(torch, lambda: cuda(*arrays, ids, n, mask))
+    plain_ms = cuda_ms(torch, lambda: ref(*arrays, ids, n, mask), iters=5)
+    e = ids.shape[0]
+    c = arrays[0].shape[1]
+    if which == "embed":
+        msg = message(*arrays)
+    else:
+        src = arrays[4]
+        msg = message(arrays[0], *(x.index_select(0, src) for x in arrays[1:4]))
+    masked = torch.where(mask[:, None, None, None], msg, 0.0).reshape(e, 9 * c)
+    del msg
+    out = torch.zeros((n, 9 * c), device="cuda")
+    ids_long = ids.long()
+    # the scatter alone: one index_add_ of the already-materialised message
+    library_ms = cuda_ms(torch, lambda: out.index_add_(0, ids_long, masked))
+    del masked, out
+    n_valid = int(mask.sum())
+    io = e * ids.element_size() + e + n * 9 * c * 4  # ids, mask, output
+    if which == "embed":
+        nbytes = n_valid * (4 * c + 18) * 4 + io
+        ops = n_valid * c * (9 * 6 + 3)
+    else:
+        n_src = int(torch.unique(arrays[4][mask]).numel())
+        nbytes = n_valid * (3 * c * 4 + arrays[4].element_size()) + n_src * 3 * 9 * c * 4 + io
+        ops = n_valid * c * 9 * 6
+    bound_ms, bound_by = bound(nbytes, ops)
+    out = {"which": which, "e": e, "valid_edges": n_valid, "channels": c,
+           "n_segments": n, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "library": "index_add_ of the materialised "
+           "(E, 9C) message: the scatter alone", "bound_ms": bound_ms,
+           "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+    if which == "interaction":
+        out["unique_src_rows"] = n_src
+    return out
+
+
+def phase_edge_aggregate_kernels(torch):
+    """Both TensorNet kernels at the TensorNet path's shapes (its graph,
+    C = 64), then the edge cases."""
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW
+
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    ids, src, mask, n = tensornet_graph(torch)
+    c = TENSORNET_KW["units"]
+    errs, timed = {}, {}
+    for which in ("embed", "interaction"):
+        arrays = edge_inputs(torch, gen, which, ids.shape[0], c, n, src)
+        errs[which] = [check_edge_aggregate(torch, which, arrays, ids, mask, n)]
+        timed[which] = time_edge_aggregate(torch, which, arrays, ids, mask, n)
+        log(f"[kernels] tensornet {which}: {json.dumps(timed[which])}")
+        # a fully masked input, and the padding-only tail on one dst row
+        errs[which].append(check_edge_aggregate(torch, which, arrays, ids,
+                                                torch.zeros_like(mask), n))
+        one_row = torch.full_like(ids, int(ids[-1]))
+        errs[which].append(check_edge_aggregate(torch, which, arrays, one_row,
+                                                torch.zeros_like(mask), n))
+        last5 = torch.arange(len(ids), device="cuda") >= len(ids) - 5
+        errs[which].append(check_edge_aggregate(torch, which, arrays, one_row, last5, n))
+        del arrays
+        # E not a multiple of any block, empty dst rows, C not a multiple
+        # of 4, C past one block of threads
+        for e, rows, cc in ((1003, 300, 7), (517, 45, 5), (300, 900, 64), (90, 13, 300)):
+            sub_ids = torch.sort(torch.randint(0, rows, (e,), generator=gen,
+                                               device="cuda"))[0].to(torch.int32)
+            sub_mask = torch.rand(e, generator=gen, device="cuda") > 0.1
+            sub_mask[-17:] = False
+            sub_ids[-17:] = sub_ids[-18]
+            sub = edge_inputs(torch, gen, which, e, cc, 37)
+            errs[which].append(check_edge_aggregate(torch, which, sub, sub_ids, sub_mask,
+                                                    rows))
+        torch.cuda.empty_cache()
+        log(f"[kernels] tensornet {which}: all cases agree with the plain version; "
+            f"max |err| {max(errs[which])}")
+    return {w: max(v) for w, v in errs.items()}, timed
+
+
 def check_result(res, n_atoms):
     import numpy as np
 
@@ -161,21 +323,11 @@ def check_result(res, n_atoms):
         raise AssertionError("non-finite or misshapen outputs")
 
 
-def phase_main_path(torch):
-    import numpy as np
-
-    from distmlip_tpu_torch.calculators import DistPotential
+def drive(torch, pot, atoms, rng):
+    """One calculate plus STEPS MD-like moves through ``pot``, with every
+    launch count set to 0 just before and read just after. Returns the
+    geometries, results, per-step seconds, launches and peak memory."""
     from distmlip_tpu_torch.kernels import launch_counts
-    from distmlip_tpu_torch.models import MACE, MACEConfig
-    from distmlip_tpu_torch.ops.chunk import chunk_layout
-    from distmlip_tpu_torch.tools.workload import MACE_KW, bench_atoms
-
-    t0 = time.perf_counter()
-    model = MACE(MACEConfig(**MACE_KW))
-    params = model.init(0)
-    atoms, rng = bench_atoms()
-    pot = DistPotential(model, params, device="cuda", skin=0.5, compute_stress=True)
-    log(f"[main] model + params + potential built in {time.perf_counter() - t0:.2f} s")
 
     geometries, results, step_s = [], [], []
     torch.cuda.synchronize()
@@ -193,74 +345,161 @@ def phase_main_path(torch):
         results.append(res)
     launches = dict(launch_counts)
     peak = torch.cuda.max_memory_allocated()
-
     for res in results:
         check_result(res, len(atoms))
     if pot.rebuild_count != 1:
         raise AssertionError(f"graph rebuilt after step 1 ({pot.rebuild_count} builds)")
-    stats = pot.last_stats
-    K = chunk_layout(stats["e_cap"], MACE_KW["edge_chunk"])[2]
-    n_calc = 1 + STEPS
-    per_calc = MACE_KW["num_interactions"] * 2 * K
-    expected = n_calc * per_calc
-    log(f"[main] segment_sum launches: {n_calc} calculates x "
-        f"{MACE_KW['num_interactions']} interactions x (K={K} forward chunks + "
-        f"K={K} backward recomputes of the checkpointed chunk bodies) = "
-        f"{expected}; counted {launches['segment_sum']} "
-        f"(e_cap {stats['e_cap']}, edge_chunk {MACE_KW['edge_chunk']})")
-    if launches["segment_sum"] != expected:
-        raise AssertionError("kernel launch count differs from the derivation")
+    return geometries, results, step_s, launches, peak
 
-    # reference: the same geometries through the plain versions on the card
-    ref_pot = DistPotential(model, params, device="cuda", skin=0.5, kernels=False)
+
+def compare_with_plain(torch, ref_pot, atoms, geometries, results, tag):
+    """The same geometries through a ``kernels=False`` potential on the
+    card, which must launch nothing; returns the worst deltas and the
+    reference path's step times and peak memory."""
+    import numpy as np
+
+    from distmlip_tpu_torch.kernels import launch_counts
+
+    before = dict(launch_counts)
     worst = {"rel_dE": 0.0, "max_dF": 0.0, "max_dS": 0.0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
     for pos, res in zip(geometries, results):
         atoms.positions = pos.copy()
+        t = time.perf_counter()
         ref = ref_pot.calculate(atoms)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
         worst["rel_dE"] = max(worst["rel_dE"],
                               abs(res["energy"] - ref["energy"]) / abs(ref["energy"]))
         worst["max_dF"] = max(worst["max_dF"],
                               float(np.abs(res["forces"] - ref["forces"]).max()))
         worst["max_dS"] = max(worst["max_dS"],
                               float(np.abs(res["stress"] - ref["stress"]).max()))
-    if launch_counts["segment_sum"] != expected:
+    peak = torch.cuda.max_memory_allocated()
+    if dict(launch_counts) != before:
         raise AssertionError("the kernels=False reference launched a kernel")
-    log(f"[main] kernels vs plain on the card over {n_calc} geometries: {json.dumps(worst)}")
+    log(f"[{tag}] kernels vs plain on the card over {len(geometries)} geometries: "
+        f"{json.dumps(worst)}")
     if not (worst["rel_dE"] < 1e-5 and worst["max_dF"] < 1e-4 and worst["max_dS"] < 1e-4):
-        raise AssertionError("main path disagrees with its plain reference")
+        raise AssertionError(f"{tag}: main path disagrees with its plain reference")
+    return worst, step_s, peak
 
-    steady = step_s[1:]
-    summary = {
+
+def summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results, launches,
+              expected):
+    steady, ref_steady = step_s[1:], ref_step_s[1:]
+    return {
         "n_atoms": len(atoms), "n_edges": stats["n_edges"], "e_cap": stats["e_cap"],
-        "n_cap": stats["n_cap"], "edge_chunks": K,
+        "n_cap": stats["n_cap"],
         "first_calculate_ms": step_s[0] * 1e3,
-        "step_ms": [s * 1e3 for s in steady],
+        "step_ms": [x * 1e3 for x in steady],
         "atoms_per_s": len(atoms) / (sum(steady) / len(steady)),
         "max_memory_allocated_bytes": peak,
+        "plain": {"first_calculate_ms": ref_step_s[0] * 1e3,
+                  "step_ms": [x * 1e3 for x in ref_steady],
+                  "atoms_per_s": len(atoms) / (sum(ref_steady) / len(ref_steady)),
+                  "max_memory_allocated_bytes": ref_peak},
         "energy": results[-1]["energy"],
-        "launches": launches, "launches_expected": {"segment_sum": expected},
+        "launches": launches, "launches_expected": expected,
     }
+
+
+def phase_main_path(torch):
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import MACE_KW, bench_atoms
+
+    t0 = time.perf_counter()
+    model = MACE(MACEConfig(**MACE_KW))
+    params = model.init(0)
+    atoms, rng = bench_atoms()
+    pot = DistPotential(model, params, device="cuda", skin=0.5, compute_stress=True)
+    log(f"[main] model + params + potential built in {time.perf_counter() - t0:.2f} s")
+
+    geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
+    stats = pot.last_stats
+    K = chunk_layout(stats["e_cap"], MACE_KW["edge_chunk"])[2]
+    n_calc = 1 + STEPS
+    per_calc = MACE_KW["num_interactions"] * 2 * K
+    expected = {k: 0 for k in launches}
+    expected["segment_sum"] = n_calc * per_calc
+    log(f"[main] segment_sum launches: {n_calc} calculates x "
+        f"{MACE_KW['num_interactions']} interactions x (K={K} forward chunks + "
+        f"K={K} backward recomputes of the checkpointed chunk bodies) = "
+        f"{expected['segment_sum']}; counted {launches['segment_sum']} "
+        f"(e_cap {stats['e_cap']}, edge_chunk {MACE_KW['edge_chunk']})")
+    if launches != expected:
+        raise AssertionError(f"kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+
+    ref_pot = DistPotential(model, params, device="cuda", skin=0.5, kernels=False)
+    _, ref_step_s, ref_peak = compare_with_plain(torch, ref_pot, atoms, geometries,
+                                                 results, "main")
+    summary = summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results,
+                        launches, expected)
+    summary["edge_chunks"] = K
     log(f"[main] {json.dumps(summary)}")
     return launches
 
 
-def phase_small_reference(torch):
-    """A 32-atom structure: the port on the card (kernels) vs on the CPU
-    (plain versions), same params."""
+def phase_tensornet(torch):
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
+
+    t0 = time.perf_counter()
+    model = TensorNet(TensorNetConfig(**TENSORNET_KW))
+    params = model.init(0)
+    atoms, rng = bench_atoms(TENSORNET_REPS)
+    pot = DistPotential(model, params, device="cuda", skin=0.5)
+    log(f"[main-tensornet] model + params + potential built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
+    n_calc = 1 + STEPS
+    expected = {k: 0 for k in launches}
+    expected["tensornet_embed_aggregate"] = n_calc
+    expected["tensornet_interaction_aggregate"] = n_calc * TENSORNET_KW["num_layers"]
+    log(f"[main-tensornet] edge-aggregate launches: {n_calc} calculates x (1 embed + "
+        f"{TENSORNET_KW['num_layers']} interactions) = {n_calc * (1 + TENSORNET_KW['num_layers'])}"
+        f" forward launches, none in the backward; counted {launches}")
+    if launches != expected:
+        raise AssertionError(f"kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+
+    ref_pot = DistPotential(model, params, device="cuda", skin=0.5, kernels=False)
+    _, ref_step_s, ref_peak = compare_with_plain(torch, ref_pot, atoms, geometries,
+                                                 results, "main-tensornet")
+    summary = summarize(atoms, pot.last_stats, step_s, peak, ref_step_s, ref_peak,
+                        results, launches, expected)
+    log(f"[main-tensornet] {json.dumps(summary)}")
+    return launches
+
+
+def small_structure():
     import numpy as np
 
     from distmlip_tpu_torch import geometry
-    from distmlip_tpu_torch.calculators import Atoms, DistPotential
-    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.calculators import Atoms
 
     rng = np.random.default_rng(0)
     unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
     frac, lat = geometry.make_supercell(unit, np.eye(3) * 4.0, (2, 2, 2))
     cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.05, (32, 3))
-    atoms = Atoms(numbers=rng.integers(0, 3, 32), positions=cart, cell=lat)
-    model = MACE(MACEConfig(num_species=4, channels=16, l_max=3, a_lmax=3,
-                            hidden_lmax=1, correlation=3, cutoff=4.0,
-                            edge_chunk=64, node_chunk=16))
+    return Atoms(numbers=rng.integers(0, 3, 32), positions=cart, cell=lat)
+
+
+def phase_small_reference(torch, model, tag):
+    """A 32-atom structure: the port on the card (kernels) vs on the CPU
+    (plain versions), same params."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DistPotential
+
+    atoms = small_structure()
     params = model.init(0)
     gpu = DistPotential(model, params, device="cuda").calculate(atoms)
     cpu = DistPotential(model, params, device="cpu").calculate(atoms)
@@ -268,9 +507,9 @@ def phase_small_reference(torch):
     d = {"rel_dE": abs(gpu["energy"] - cpu["energy"]) / abs(cpu["energy"]),
          "max_dF": float(np.abs(gpu["forces"] - cpu["forces"]).max()),
          "max_dS": float(np.abs(gpu["stress"] - cpu["stress"]).max())}
-    log(f"[small] card (kernels) vs CPU (plain), 32 atoms: {json.dumps(d)}")
+    log(f"[{tag}] card (kernels) vs CPU (plain), 32 atoms: {json.dumps(d)}")
     if not (d["rel_dE"] < 1e-5 and d["max_dF"] < 1e-4 and d["max_dS"] < 1e-4):
-        raise AssertionError("small structure: card disagrees with CPU")
+        raise AssertionError(f"{tag}: card disagrees with CPU")
 
 
 def main() -> int:
@@ -307,9 +546,19 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"[build]   {line.strip()}")
 
+    from distmlip_tpu_torch.models import MACE, MACEConfig, TensorNet, TensorNetConfig
+
     max_err, timed, _ = phase_kernels(torch)
+    edge_errs, edge_timed = phase_edge_aggregate_kernels(torch)
     launches = phase_main_path(torch)
-    phase_small_reference(torch)
+    torch.cuda.empty_cache()
+    tn_launches = phase_tensornet(torch)
+    torch.cuda.empty_cache()
+    phase_small_reference(torch, MACE(MACEConfig(
+        num_species=4, channels=16, l_max=3, a_lmax=3, hidden_lmax=1, correlation=3,
+        cutoff=4.0, edge_chunk=64, node_chunk=16)), "small")
+    phase_small_reference(torch, TensorNet(TensorNetConfig(
+        num_species=4, units=16, num_rbf=8, cutoff=4.0)), "small-tensornet")
 
     headline = timed[-1]  # the (32768, 40, 128) chunk of interaction 1
     kernels = [{
@@ -321,6 +570,17 @@ def main() -> int:
         "library_ms": headline["library_ms"], "shape": headline["shape"],
         "per_shape": timed,
     }]
+    for which in ("embed", "interaction"):
+        name = f"tensornet_{which}_aggregate"
+        t = edge_timed[which]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": tn_launches[name],
+            "max_abs_err": edge_errs[which], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "shape": [t["e"], 3, 3, t["channels"]], "n_segments": t["n_segments"],
+        })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -2,15 +2,28 @@
 
 - :mod:`segment` — ``segment_sum_cuda`` (the wrapper of
   ``csrc/segment_sum.cu``, replacing the TPU ``pallas_segment_sum``), its
-  plain version ``segment_sum_reference`` and the launch counts.
-- :mod:`dispatch` — ``fused_segment_sum``, the autograd Function every call
-  site goes through.
+  plain version ``segment_sum_reference``, the shared CSR row offsets and
+  the launch counts of every kernel.
+- :mod:`edge_aggregate` — ``tensornet_embed_aggregate_cuda`` and
+  ``tensornet_interaction_aggregate_cuda`` (the wrappers of
+  ``csrc/edge_aggregate.cu``, replacing the TPU ``pallas_edge_aggregate``
+  at TensorNet's two call sites), their ``*_reference`` plain versions and
+  the named messages ``TENSORNET_EMBED`` / ``TENSORNET_INTERACTION``.
+- :mod:`dispatch` — ``fused_segment_sum`` and ``fused_edge_aggregate``
+  (with its ``Gather`` marker), the autograd Functions every call site
+  goes through.
 - :mod:`build` — ``nvcc`` at first use into ``build/kernels/``, ctypes load.
 
-The TPU's ``pallas_edge_aggregate`` (TensorNet, CHGNet) and
-``so2_conv_pallas`` (eSCN) are queued in ROADMAP.md.
+Still to port (ROADMAP.md): ``pallas_edge_aggregate`` at CHGNet's call
+sites (new messages for the same dispatcher) and ``so2_conv_pallas``
+(eSCN).
 """
 
-from .dispatch import fused_segment_sum  # noqa: F401
-from .segment import (launch_counts, segment_sum_cuda,  # noqa: F401
-                      segment_sum_reference)
+from .dispatch import Gather, fused_edge_aggregate, fused_segment_sum  # noqa: F401
+from .edge_aggregate import (TENSORNET_EMBED, TENSORNET_INTERACTION,  # noqa: F401
+                             EdgeMessage, tensornet_embed_aggregate_cuda,
+                             tensornet_embed_aggregate_reference,
+                             tensornet_interaction_aggregate_cuda,
+                             tensornet_interaction_aggregate_reference)
+from .segment import (csr_row_offsets, launch_counts,  # noqa: F401
+                      segment_sum_cuda, segment_sum_reference)

@@ -1,22 +1,40 @@
 """Kernel dispatch: the CUDA kernel for CUDA tensors, the plain version
 for CPU tensors or ``kernels=False``.
 
-Every kernel call site goes through here, never through ``segment`` directly.
-The routing is by where the tensors live and by semantics — there is no
-fallback: a CUDA tensor with ``kernels=True`` launches the kernel or raises.
+Every kernel call site goes through here, never through ``segment`` or
+``edge_aggregate`` directly. The routing is by where the tensors live and
+by semantics — there is no fallback: a CUDA tensor with ``kernels=True``
+launches the kernel or raises.
 
-``fused_segment_sum`` is a ``torch.autograd.Function``: its backward is the
-transpose of a masked segment sum, the gather ``g[ids] * mask``
-(``distmlip_tpu/kernels/dispatch.py:220-240``), written in differentiable
-torch ops so a later double backward (force-loss training) works.
+- ``fused_segment_sum`` is a ``torch.autograd.Function``: its backward is
+  the transpose of a masked segment sum, the gather ``g[ids] * mask``
+  (``distmlip_tpu/kernels/dispatch.py:220-240``), written in
+  differentiable torch ops so a later double backward (force-loss
+  training) works.
+- ``fused_edge_aggregate`` (``distmlip_tpu/kernels/dispatch.py:306``) is
+  one too: forward the fused gather -> message -> masked dst sum, backward
+  the JAX package's chunked recompute (``_edge_aggregate_bwd``, ``:482``)
+  in plain torch ops. The message is an ``EdgeMessage`` (a torch function
+  plus its kernel), not an arbitrary callable, because a CUDA kernel cannot
+  run a Python function. The JAX package's VMEM budget and its pre-gather
+  route have no counterpart: the kernels gather node rows from global
+  memory at every size.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Any
+
 import torch
 
 from ..ops.segment import masked_segment_sum
+from .edge_aggregate import EdgeMessage
 from .segment import segment_sum_cuda, segment_sum_reference
+
+# edges per chunk of the edge-aggregate backward (bounds the recomputed
+# message and its cotangent), distmlip_tpu/kernels/dispatch.py:49
+DEFAULT_BWD_CHUNK = 32768
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -54,3 +72,164 @@ def fused_segment_sum(data, segment_ids, num_segments: int, mask=None,
     use_kernel = kernels is not False and data.is_cuda
     return _SegmentSum.apply(data, segment_ids, mask, int(num_segments),
                              use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# fused gather -> edge message -> scatter
+# ---------------------------------------------------------------------------
+
+@dataclass
+class Gather:
+    """A node-row gather input to :func:`fused_edge_aggregate`: the rows
+    ``idx`` (E,) of ``node`` (N, ...). The kernel gathers inside; the plain
+    version and the backward index the rows out."""
+
+    node: Any
+    idx: Any
+
+
+def _items(kinds, tensors):
+    """Per input: the per-edge tensor, or ``(node, idx)`` for a gather."""
+    n_in = len(kinds)
+    arrs, idxs = tensors[:n_in], tensors[n_in:]
+    return [a if k is None else (a, idxs[k]) for a, k in zip(arrs, kinds)]
+
+
+def _rows(items):
+    """Per input: the per-edge tensor, or the gathered node rows."""
+    return [x[0].index_select(0, x[1]) if isinstance(x, tuple) else x for x in items]
+
+
+class _EdgeAggregate(torch.autograd.Function):
+    # positional layout of apply(): 7 non-differentiable leading arguments,
+    # then one tensor per input (a per-edge array or a gathered node array),
+    # then the distinct gather index tensors
+    N_LEAD = 7
+
+    @staticmethod
+    def forward(ctx, message, kinds, use_kernel, chunk, num_segments,
+                segment_ids, mask, *tensors):
+        items = _items(kinds, tensors)
+        if use_kernel:
+            out = message.cuda(items, segment_ids, num_segments, mask)
+        else:
+            out = masked_segment_sum(message.fn(*_rows(items)), segment_ids,
+                                     num_segments, mask)
+        ctx.save_for_backward(segment_ids, mask, *tensors)
+        ctx.message, ctx.kinds, ctx.chunk = message, kinds, chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        segment_ids, mask, *tensors = ctx.saved_tensors
+        n_in = len(ctx.kinds)
+        lead = _EdgeAggregate.N_LEAD
+        needs = ctx.needs_input_grad[lead:lead + n_in]
+        grads = _edge_aggregate_bwd(ctx.message.fn, ctx.kinds, tensors[:n_in],
+                                    tensors[n_in:], segment_ids, mask, g,
+                                    ctx.chunk, needs)
+        return (None,) * lead + tuple(grads) + (None,) * (len(tensors) - n_in)
+
+
+def _edge_aggregate_bwd(fn, kinds, arrs, idxs, segment_ids, mask, g, chunk,
+                        needs):
+    """Chunked backward (``distmlip_tpu/kernels/dispatch.py:482-606``): per
+    chunk of edges, recompute the messages and pull the gathered message
+    cotangent ``g[dst] * mask`` back through them with
+    ``torch.autograd.grad``. Per-edge inputs get their chunk rows (joined in
+    edge order); gathered node arrays get the rows' cotangents scatter-added
+    onto their source rows. The working set is one chunk of messages. Under
+    grad mode (double backward) the graph of this computation is kept."""
+    create = torch.is_grad_enabled()
+    e = segment_ids.shape[0]
+    edge_cts = {k: [] for k, kind in enumerate(kinds) if kind is None and needs[k]}
+    node_cts = {k: torch.zeros_like(a) for k, (a, kind) in enumerate(zip(arrs, kinds))
+                if kind is not None and needs[k]}
+    want = [k for k in range(len(arrs)) if needs[k]]
+    with torch.enable_grad():
+        for s in range(0, e, chunk):
+            sl = slice(s, min(s + chunk, e))
+            rows = []
+            for k, (a, kind) in enumerate(zip(arrs, kinds)):
+                r = a[sl] if kind is None else a.index_select(0, idxs[kind][sl])
+                if needs[k] and not create:
+                    r = r.detach().requires_grad_(True)
+                rows.append(r)
+            gm = g.index_select(0, segment_ids[sl])
+            if mask is not None:
+                m = mask[sl].to(gm.dtype)
+                gm = gm * m.reshape(m.shape + (1,) * (gm.ndim - 1))
+            cts = torch.autograd.grad(fn(*rows), [rows[k] for k in want], gm,
+                                      create_graph=create, allow_unused=True)
+            for k, ct in zip(want, cts):
+                if ct is None:
+                    ct = torch.zeros_like(rows[k])
+                if kinds[k] is None:
+                    edge_cts[k].append(ct)
+                elif create:  # keep the graph: out of place
+                    node_cts[k] = node_cts[k].index_add(0, idxs[kinds[k]][sl], ct)
+                else:
+                    node_cts[k].index_add_(0, idxs[kinds[k]][sl], ct)
+    out = []
+    for k in range(len(arrs)):
+        if not needs[k]:
+            out.append(None)
+        elif kinds[k] is None:
+            out.append(torch.cat(edge_cts[k]))
+        else:
+            out.append(node_cts[k])
+    return out
+
+
+def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
+                         mask=None, indices_are_sorted: bool = True,
+                         kernels: bool = True, bwd_chunk: int = DEFAULT_BWD_CHUNK):
+    """Fused gather + per-edge message + dst-sorted masked segment sum.
+
+    ``message``: an :class:`EdgeMessage`. ``inputs``: per-edge tensors
+    (E, ...) and/or :class:`Gather` markers, in the order ``message.fn``
+    takes its rows.
+    The result is ``sum_{e: dst[e] = n} mask[e] * message.fn(rows)[e]``
+    with ``masked_segment_sum``'s padding semantics.
+
+    Sorted ids with edges and rows go through the autograd Function: the
+    message's CUDA kernel for CUDA tensors unless ``kernels=False``, the
+    plain version for CPU tensors. A message with no kernel raises on CUDA
+    tensors with ``kernels=True``. Unsorted ids, or no edges or rows, take
+    the plain path, as the JAX dispatcher routes them to XLA (``:338-344``).
+    ``bwd_chunk`` bounds the backward's edge chunk.
+    """
+    if not isinstance(message, EdgeMessage):
+        raise TypeError("fused_edge_aggregate: message must be an EdgeMessage "
+                        f"(a torch function plus its kernel), got {message!r}")
+    if mask is not None and mask.dtype != torch.bool:
+        raise TypeError(f"fused_edge_aggregate: mask must be bool, got {mask.dtype}")
+    inputs = list(inputs)
+    num_segments = int(num_segments)
+    if not indices_are_sorted or segment_ids.shape[0] == 0 or num_segments == 0:
+        rows = [i.node.index_select(0, i.idx) if isinstance(i, Gather) else i
+                for i in inputs]
+        return masked_segment_sum(message.fn(*rows), segment_ids, num_segments, mask)
+    use_kernel = kernels is not False and segment_ids.is_cuda
+    if use_kernel and message.cuda is None:
+        raise NotImplementedError(
+            f"fused_edge_aggregate: message {message.name!r} has no CUDA kernel; "
+            "pass kernels=False to run its plain version on the card")
+    chunk = int(bwd_chunk)
+    if chunk < 1:
+        raise ValueError(f"bwd_chunk={chunk} must be >= 1")
+    kinds, arrs, idxs = [], [], []
+    for item in inputs:
+        if isinstance(item, Gather):
+            # one index tensor gathered by several inputs is passed once
+            pos = next((k for k, t in enumerate(idxs) if t is item.idx), None)
+            if pos is None:
+                idxs.append(item.idx)
+                pos = len(idxs) - 1
+            kinds.append(pos)
+            arrs.append(item.node)
+        else:
+            kinds.append(None)
+            arrs.append(item)
+    return _EdgeAggregate.apply(message, tuple(kinds), use_kernel, chunk,
+                                num_segments, segment_ids, mask, *arrs, *idxs)

@@ -4,9 +4,8 @@ plain PyTorch version.
 Replaces ``distmlip_tpu/kernels/segment.py::pallas_segment_sum``. The
 kernel (``csrc/segment_sum.cu``) walks each dst row's contiguous edge range
 given as CSR offsets; this wrapper computes those offsets on the device
-(``searchsorted`` of the ids at ``arange(N + 1)``, the JAX package's
-``dst_tile_offsets`` at tile size 1), checks what the kernel takes, and
-launches it on PyTorch's current stream.
+(``csr_row_offsets``, shared with the edge-aggregate kernels), checks what
+the kernel takes, and launches it on PyTorch's current stream.
 
 ``segment_sum_cuda`` takes CUDA tensors only and raises on anything else;
 ``segment_sum_reference`` is the plain version (``masked_segment_sum``),
@@ -22,9 +21,29 @@ import torch
 
 from ..ops.segment import masked_segment_sum
 
-# launches of each kernel of this module: one per kernel launch, and only
-# there (a run resets it to 0 to show the main path went through the kernel)
+# launches of each kernel of the package, by name: one per kernel launch,
+# and only there (a run resets them to 0 to show the main path went through
+# the kernels). kernels/edge_aggregate.py adds its own names.
 launch_counts = {"segment_sum": 0}
+
+
+def csr_row_offsets(segment_ids, num_segments: int, mask=None):
+    """(num_segments + 1,) int64 CSR offsets of nondecreasing ids on their
+    device: row r owns edges [offsets[r], offsets[r + 1]) (``searchsorted``
+    at ``arange(N + 1)``, the JAX package's ``dst_tile_offsets`` at tile
+    size 1). With a mask, every offset is clamped to one past the last
+    valid edge, so the repeated-tail padding (all masked, all on the last
+    real dst row) is never walked; what it drops is masked anyway. No host
+    sync."""
+    ids = segment_ids.contiguous()
+    bounds = torch.arange(num_segments + 1, dtype=ids.dtype, device=ids.device)
+    offsets = torch.searchsorted(ids, bounds)
+    if mask is not None:
+        pos = torch.arange(1, ids.shape[0] + 1, device=ids.device)
+        end = torch.where(mask, pos, torch.zeros((), dtype=pos.dtype,
+                                                  device=pos.device)).amax()
+        offsets = torch.minimum(offsets, end)
+    return offsets
 
 
 def segment_sum_reference(data, segment_ids, num_segments: int, mask=None):
@@ -77,11 +96,11 @@ def segment_sum_cuda(data, segment_ids, num_segments: int, mask=None):
     if e == 0 or num_segments == 0 or width == 0:
         return torch.zeros(out_shape, dtype=data.dtype, device=data.device)
     with torch.cuda.device(data.device):
-        ids = segment_ids.contiguous()
-        bounds = torch.arange(num_segments + 1, dtype=ids.dtype, device=ids.device)
-        row_ptr = torch.searchsorted(ids, bounds)          # (N + 1,) int64
-        out = torch.empty(out_shape, dtype=data.dtype, device=data.device)
         m = None if mask is None else mask.contiguous()
+        # no mask clamp: the kernel skips fully masked tiles itself, and the
+        # clamp's extra small launches cost more host time than it saves
+        row_ptr = csr_row_offsets(segment_ids, num_segments)
+        out = torch.empty(out_shape, dtype=data.dtype, device=data.device)
         vec = 4 if (width % 4 == 0 and data.data_ptr() % 16 == 0
                     and out.data_ptr() % 16 == 0) else 1
         stream = torch.cuda.current_stream(data.device).cuda_stream

@@ -1,3 +1,4 @@
 from .mace import MACE, MACEConfig
+from .tensornet import TensorNet, TensorNetConfig
 
-__all__ = ["MACE", "MACEConfig"]
+__all__ = ["MACE", "MACEConfig", "TensorNet", "TensorNetConfig"]

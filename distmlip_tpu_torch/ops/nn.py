@@ -1,8 +1,9 @@
 """Minimal neural-net building blocks on plain parameter trees.
 
 Models are functions over nested-dict parameter trees of tensors (the JAX
-package's pytree layout, so weights carry across by path): ``linear`` and
-``mlp`` match ``distmlip_tpu/ops/nn.py:36,100``. The init helpers draw from
+package's pytree layout, so weights carry across by path): ``linear``,
+``mlp``, ``layernorm``, ``embedding`` and ``gather_rows`` match
+``distmlip_tpu/ops/nn.py:36,100,129-158``. The init helpers draw from
 a ``torch.Generator`` so a seed fixes the weights.
 """
 
@@ -73,3 +74,25 @@ def mlp_init_vp(gen, dims: list[int]):
 
 def mlp_init(gen, dims: list[int], bias: bool = True):
     return [linear_init(gen, a, b, bias=bias) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def layernorm_init(dim: int):
+    return {"g": torch.ones((dim,)), "b": torch.zeros((dim,))}
+
+
+def layernorm(p, x, eps: float = 1e-5):
+    """``distmlip_tpu/ops/nn.py:129``: the population variance, as
+    ``jnp.var`` (``unbiased=False``, not ``torch.var``'s default)."""
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return (x - mu) / torch.sqrt(var + eps) * p["g"] + p["b"]
+
+
+def gather_rows(table, idx):
+    """Rows ``idx`` of ``table`` (float32 here: the JAX package's fp32
+    gradient view for half tables belongs to the bf16 path, not ported)."""
+    return table.index_select(0, idx)
+
+
+def embedding(p, idx):
+    return gather_rows(p["w"], idx)

@@ -1,8 +1,8 @@
 """Radial basis functions and cutoff envelopes (torch, differentiable).
 
-The MACE pair: ``spherical_bessel_basis`` and ``polynomial_cutoff``
-(``distmlip_tpu/ops/radial.py:25,106``). Both are smooth at the cutoff so
-forces stay continuous.
+``spherical_bessel_basis``, ``polynomial_cutoff`` (MACE) and
+``cosine_cutoff`` (TensorNet), as ``distmlip_tpu/ops/radial.py:25,106,116``.
+All are smooth at the cutoff so forces stay continuous.
 """
 
 from __future__ import annotations
@@ -35,3 +35,9 @@ def polynomial_cutoff(d, cutoff: float, p: int = 6):
     c2 = p * (p + 2.0)
     c3 = -p * (p + 1.0) / 2.0
     return 1.0 + c1 * x**p + c2 * x ** (p + 1) + c3 * x ** (p + 2)
+
+
+def cosine_cutoff(d, cutoff: float):
+    """0.5 (cos(pi d / rc) + 1), zero beyond the cutoff."""
+    return torch.where(d < cutoff, 0.5 * (torch.cos(math.pi * d / cutoff) + 1.0),
+                       torch.zeros((), dtype=d.dtype, device=d.device))

@@ -12,7 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any
 
-from ..kernels.dispatch import fused_segment_sum
+from ..kernels.dispatch import fused_edge_aggregate, fused_segment_sum
 
 
 @dataclass
@@ -43,9 +43,15 @@ class LocalGraph:
         return feats
 
     def edge_vectors(self, positions, lattice=None):
-        """(E_cap, 3) displacement vectors dst - src + offsets @ lattice."""
+        """(E_cap, 3) displacement vectors dst - src + offsets @ lattice.
+
+        ``index_select``, not ``positions[ids]``: its backward is an
+        ``index_add_``, where advanced indexing's is a sort-based
+        ``index_put_`` that took ~34 ms per gather at 918k edges on an
+        H100 80GB HBM3 at 700 W (``tools/step_profile.py``, PERF.md)."""
         lat = self.lattice if lattice is None else lattice
-        disp = positions[self.edge_dst] - positions[self.edge_src]
+        disp = (positions.index_select(0, self.edge_dst)
+                - positions.index_select(0, self.edge_src))
         return disp + self.edge_offset.to(positions.dtype) @ lat
 
     def aggregate_edges(self, data, mask=None):
@@ -53,6 +59,19 @@ class LocalGraph:
         through the kernel dispatcher."""
         return fused_segment_sum(data, self.edge_dst, self.n_cap, mask,
                                  indices_are_sorted=True, kernels=self.kernels)
+
+    def aggregate_edge_messages(self, message, edge_inputs, mask=None):
+        """Fused per-edge message + dst aggregation ((n_cap, ...)), through
+        the kernel dispatcher (``distmlip_tpu/parallel/halo.py:308``, its
+        unsplit branch: the interior/frontier split is P>1 work).
+
+        ``message`` is a ``kernels.EdgeMessage``; ``edge_inputs`` mixes
+        per-edge tensors with ``kernels.Gather`` markers. With the kernel
+        the (E, ...) message tensor is never written out.
+        """
+        return fused_edge_aggregate(message, edge_inputs, self.edge_dst, self.n_cap,
+                                    mask, indices_are_sorted=True,
+                                    kernels=self.kernels)
 
     def owned_sum(self, per_atom):
         """Sum a per-atom quantity over owned nodes."""

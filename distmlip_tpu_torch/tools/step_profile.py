@@ -1,15 +1,21 @@
-"""Where one MD step's time goes on the card: ``torch.profiler`` over the
+"""Where one MD step's time goes on the card: ``torch.profiler`` over a
 smoke workload (``tools/workload.py``).
 
-    python -m distmlip_tpu_torch.tools.step_profile [--reps 8] [--out DIR]
+    python -m distmlip_tpu_torch.tools.step_profile [--model mace|tensornet]
+        [--reps N] [--out DIR]
+
+``--model mace`` (the default) runs MACE at the MACE-MP-0-medium widths on
+2048 atoms (reps 8); ``--model tensornet`` runs TensorNet at the MatPES
+layout on 16384 atoms (reps 16).
 
 1. The first ``calculate`` (cold: CUDA context, library handles, the graph
    build and upload) under a CPU-only profile: its wall time and the ops
    that take the most host time.
 2. One warm step (skin-cache hit) under a CPU + CUDA profile: its wall
-   time, the device time by op and by kernel, and the device's busy share
-   of the step (kernel, memcpy and memset time on the trace's device
-   timeline over wall time; one stream, so they do not overlap).
+   time, the device time by op and by kernel, the device's busy share of
+   the step (kernel, memcpy and memset time on the trace's device timeline
+   over wall time; one stream, so they do not overlap), and the share of
+   device time in each of the port's own kernels.
 
 Prints one JSON line per part and writes the warm step's Chrome trace and
 both profile tables under ``--out``. Needs a card; exits non-zero without
@@ -33,9 +39,13 @@ def _top(events, key, n):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--reps", type=int, default=8, help="crystal repeats (4 reps^3 atoms)")
-    ap.add_argument("--out", default="build/step_profile",
-                    help="directory for trace and tables")
+    ap.add_argument("--model", choices=("mace", "tensornet"), default="mace")
+    ap.add_argument("--reps", type=int, default=None,
+                    help="crystal repeats (4 reps^3 atoms); default 8 for mace, "
+                         "16 for tensornet")
+    ap.add_argument("--out", default=None,
+                    help="directory for trace and tables (default "
+                         "build/step_profile/<model>)")
     args = ap.parse_args(argv)
 
     import torch
@@ -47,12 +57,16 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ..calculators import DistPotential
-    from ..models import MACE, MACEConfig
-    from .workload import MACE_KW, bench_atoms
+    from ..models import MACE, MACEConfig, TensorNet, TensorNetConfig
+    from .workload import MACE_KW, TENSORNET_KW, bench_atoms
 
-    os.makedirs(args.out, exist_ok=True)
-    model = MACE(MACEConfig(**MACE_KW))
-    atoms, rng = bench_atoms(args.reps)
+    out_dir = args.out or os.path.join("build", "step_profile", args.model)
+    os.makedirs(out_dir, exist_ok=True)
+    if args.model == "mace":
+        model, reps = MACE(MACEConfig(**MACE_KW)), args.reps or 8
+    else:
+        model, reps = TensorNet(TensorNetConfig(**TENSORNET_KW)), args.reps or 16
+    atoms, rng = bench_atoms(reps)
     pot = DistPotential(model, model.init(0), device="cuda", skin=0.5)
 
     with profile(activities=[ProfilerActivity.CPU]) as cold:
@@ -61,9 +75,10 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t
     ev = cold.key_averages()
-    print(json.dumps({"part": "first_calculate", "wall_ms": cold_s * 1e3,
+    print(json.dumps({"part": "first_calculate", "model": args.model,
+                      "wall_ms": cold_s * 1e3,
                       "top_self_cpu": _top(ev, "self_cpu_time_total", 15)}))
-    with open(os.path.join(args.out, "step_profile_cold.txt"), "w") as f:
+    with open(os.path.join(out_dir, "step_profile_cold.txt"), "w") as f:
         f.write(ev.table(sort_by="self_cpu_time_total", row_limit=60))
 
     atoms.positions += rng.normal(0, 0.01, atoms.positions.shape)
@@ -78,7 +93,7 @@ def main(argv=None) -> int:
     if pot.rebuild_count != 1:
         raise AssertionError("the profiled step rebuilt the graph")
     ev = warm.key_averages()
-    trace = os.path.join(args.out, "step_profile_warm.json")
+    trace = os.path.join(out_dir, "step_profile_warm.json")
     warm.export_chrome_trace(trace)
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
@@ -87,16 +102,27 @@ def main(argv=None) -> int:
                     if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
     # device-side kernel rows only: op rows repeat their kernels' time
     kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    own = {}  # the port's kernels, by their __global__ names
+    for e in kernels:
+        for name in ("segment_sum_kernel", "tensornet_embed_kernel",
+                     "tensornet_interaction_kernel"):
+            if name in e.key:
+                row = own.setdefault(name, {"calls": 0, "ms": 0.0})
+                row["calls"] += e.count
+                row["ms"] += e.self_device_time_total / 1e3
+    for row in own.values():
+        row["device_share"] = row["ms"] / device_ms if device_ms else 0.0
     print(json.dumps({
-        "part": "warm_step", "n_atoms": len(atoms), "wall_ms": warm_s * 1e3,
-        "device_ms": device_ms,
+        "part": "warm_step", "model": args.model, "n_atoms": len(atoms),
+        "wall_ms": warm_s * 1e3, "device_ms": device_ms,
         "device_busy_share": device_ms / (warm_s * 1e3),
+        "own_kernels": own,
         "top_ops_device_inclusive": _top(
             [e for e in ev if e.key.startswith("aten::")], "device_time_total", 20),
         "top_kernels": _top(kernels, "self_device_time_total", 25),
         "card": torch.cuda.get_device_name(0),
     }))
-    with open(os.path.join(args.out, "step_profile_warm.txt"), "w") as f:
+    with open(os.path.join(out_dir, "step_profile_warm.txt"), "w") as f:
         f.write(ev.table(sort_by="self_device_time_total", row_limit=80))
     return 0
 

@@ -1,10 +1,15 @@
-"""The workload ``chip_smoke.py`` and the profiling tools drive.
+"""The workloads ``chip_smoke.py`` and the profiling tools drive.
 
-MACE at the MACE-MP-0-medium widths (the values of ``bench_mace_config``
-in ``tools/bench_common.py``, copied as literals), float32, full remat,
-edge chunks of 32768 and node chunks of 4096, on bench.py's perturbed Si
-crystal (lattice 3.9 Å per 4-atom cell, 0.04 Å noise, seed 0). ``reps=8``
-gives 2048 atoms; bench.py's own default is reps=16 (16384 atoms).
+- MACE at the MACE-MP-0-medium widths (the values of ``bench_mace_config``
+  in ``tools/bench_common.py``, copied as literals), float32, full remat,
+  edge chunks of 32768 and node chunks of 4096.
+- TensorNet at the matgl TensorNet-MatPES-PBE layout (89 species, 64
+  channels, 32 RBF, 2 layers, cutoff 5.0 Å; the full-size layout that
+  ``tests/test_convert_tensornet.py:228-240`` converts), float32.
+
+Both run on bench.py's perturbed Si crystal (lattice 3.9 Å per 4-atom
+cell, 0.04 Å noise, seed 0): ``reps=8`` gives 2048 atoms; bench.py's own
+default is reps=16 (16384 atoms).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ MACE_KW = dict(num_species=95, channels=128, l_max=3, a_lmax=3, hidden_lmax=1,
                correlation=3, num_interactions=2, num_bessel=8, radial_mlp=64,
                cutoff=5.0, avg_num_neighbors=14.0, remat=True,
                edge_chunk=32768, node_chunk=4096)
+TENSORNET_KW = dict(num_species=89, units=64, num_rbf=32, num_layers=2, cutoff=5.0)
 
 
 def bench_atoms(reps: int = 8, seed: int = 0):

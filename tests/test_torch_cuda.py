@@ -6,8 +6,10 @@ This file imports no JAX, so it also runs on a GPU machine without JAX
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
 Without a card every test here skips with its reason. The dst-sorted cases
-are shared with ``tests/test_torch_segment.py``, which holds the port's
-plain version against the JAX package on the same cases.
+and the TensorNet message inputs are shared with
+``tests/test_torch_segment.py`` and ``tests/test_torch_edge_aggregate.py``,
+which hold the port's plain versions against the JAX package on the same
+cases.
 """
 
 import numpy as np
@@ -45,6 +47,44 @@ CASES = {
 def case_data(seed, e, trailing):
     return np.random.default_rng(100 + seed).normal(
         size=(e,) + trailing).astype(np.float32)
+
+
+def embed_inputs(seed, e, c):
+    """TensorNet embed inputs: Z, W1, W2, W3 (E, C); A_e, S_e (E, 3, 3, 1)."""
+    rng = np.random.default_rng(200 + seed)
+    rows = [rng.normal(size=(e, c)).astype(np.float32) for _ in range(4)]
+    geo = [rng.normal(size=(e, 3, 3, 1)).astype(np.float32) for _ in range(2)]
+    return rows + geo
+
+
+def interaction_inputs(seed, e, n_node, c):
+    """TensorNet interaction inputs: f (E, C, 3); I, A, S (N_node, 3, 3, C);
+    src (E,) int32."""
+    rng = np.random.default_rng(300 + seed)
+    f = rng.normal(size=(e, c, 3)).astype(np.float32)
+    nodes = [rng.normal(size=(n_node, 3, 3, c)).astype(np.float32) for _ in range(3)]
+    src = rng.integers(0, n_node, e).astype(np.int32)
+    return [f] + nodes + [src]
+
+
+# name: (seed, e, n, pad, interior_masked, hi, channels)
+EDGE_AGG_CASES = {
+    "repeated_tail_padding": (0, 300, 37, 40, 0, None, 8),
+    "empty_rows": (1, 120, 60, 10, 5, 20, 16),
+    "e_not_multiple_of_block": (2, 517, 45, 3, 9, None, 5),
+    "channels_not_multiple_of_4": (3, 260, 29, 12, 4, None, 7),
+    "channels_past_a_block": (4, 90, 13, 6, 2, None, 300),
+    "long_padded_tail": (5, 400, 50, 5000, 3, None, 4),
+}
+
+
+def edge_bound(ids, mask, n, abs_ref):
+    """|kernel - plain| <= 2 (k + 3) u T per output element: k is the row's
+    valid-edge count, u = 2^-24, T the plain version on |inputs| (the sum
+    of |terms|); each term carries a few roundings, the sum k more."""
+    k = np.bincount(ids[mask], minlength=n)[:n].astype(np.float64)
+    k = torch.as_tensor(k, dtype=abs_ref.dtype, device=abs_ref.device)
+    return 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * abs_ref
 
 
 @pytest.fixture
@@ -123,6 +163,100 @@ def test_mace_on_card_matches_cpu(card):
     before = launch_counts["segment_sum"]
     gpu = DistPotential(model, params, device=card).calculate(atoms)
     assert launch_counts["segment_sum"] > before
+    cpu = DistPotential(model, params, device="cpu").calculate(atoms)
+    assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
+    np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)
+    np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-4)
+
+
+def _edge_case_on_card(card, name, which):
+    seed, e, n, pad, im, hi, c = EDGE_AGG_CASES[name]
+    ids, mask, n = sorted_case(seed, e, n, pad, im, hi)
+    if which == "embed":
+        arrays = embed_inputs(seed, len(ids), c)
+    else:
+        arrays = interaction_inputs(seed, len(ids), 23, c)
+    to = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    return [to(x) for x in arrays], to(ids), to(mask), ids, mask, n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["embed", "interaction"])
+@pytest.mark.parametrize("name", sorted(EDGE_AGG_CASES))
+def test_edge_aggregate_kernels_match_plain_on_card(card, name, which):
+    """Both TensorNet kernels vs their plain versions on the card, within
+    2 (k + 3) u T (``edge_bound``), on the shared cases and on an
+    all-masked input."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, ti, tm, ids, mask, n = _edge_case_on_card(card, name, which)
+    if which == "embed":
+        cuda, ref = K.tensornet_embed_aggregate_cuda, K.tensornet_embed_aggregate_reference
+        count = "tensornet_embed_aggregate"
+    else:
+        cuda = K.tensornet_interaction_aggregate_cuda
+        ref = K.tensornet_interaction_aggregate_reference
+        count = "tensornet_interaction_aggregate"
+    before = K.launch_counts[count]
+    got = cuda(*arrays, ti, n, tm)
+    want = ref(*arrays, ti, n, tm)
+    torch.cuda.synchronize()
+    assert K.launch_counts[count] == before + 1
+    assert got.shape == want.shape and got.dtype == torch.float32
+    abs_arrays = [x.abs() if x.is_floating_point() else x for x in arrays]
+    bound = edge_bound(ids, mask, n, ref(*abs_arrays, ti, n, tm))
+    assert bool(((got - want).abs() <= bound + 1e-30).all()), name
+    none = torch.zeros_like(tm)
+    assert not cuda(*arrays, ti, n, none).any()
+
+
+@pytest.mark.cuda
+def test_edge_aggregate_dispatch_on_card(card):
+    """The Function on the card: kernels=True launches, kernels=False runs
+    the plain version, a message without a kernel raises, and the backward
+    matches the plain path's."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, ti, tm, ids, mask, n = _edge_case_on_card(card, "empty_rows", "interaction")
+    f, node_i, node_a, node_s, src = arrays
+    inputs = lambda *xs: (xs[0], K.Gather(xs[1], src), K.Gather(xs[2], src),  # noqa: E731
+                          K.Gather(xs[3], src))
+    leaves = [x.clone().requires_grad_(True) for x in (f, node_i, node_a, node_s)]
+    before = K.launch_counts["tensornet_interaction_aggregate"]
+    out = K.fused_edge_aggregate(K.TENSORNET_INTERACTION, inputs(*leaves), ti, n, tm)
+    assert K.launch_counts["tensornet_interaction_aggregate"] == before + 1
+    got = torch.autograd.grad((out ** 2).sum(), leaves)
+    plain = K.fused_edge_aggregate(K.TENSORNET_INTERACTION, inputs(*leaves), ti, n, tm,
+                                   kernels=False)
+    assert K.launch_counts["tensornet_interaction_aggregate"] == before + 1
+    want = torch.autograd.grad((plain ** 2).sum(), leaves)
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    no_kernel = K.EdgeMessage("no_kernel", K.TENSORNET_INTERACTION.fn)
+    with pytest.raises(NotImplementedError, match="no CUDA kernel"):
+        K.fused_edge_aggregate(no_kernel, inputs(f, node_i, node_a, node_s), ti, n, tm)
+
+
+@pytest.mark.cuda
+def test_tensornet_on_card_matches_cpu(card):
+    """TensorNet at small size: the port on the card (kernels on) vs on the
+    CPU (plain versions), same params and structure."""
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+
+    rng = np.random.default_rng(0)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lat = geometry.make_supercell(unit, np.eye(3) * 4.0, (2, 2, 2))
+    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.05, (32, 3))
+    atoms = Atoms(numbers=rng.integers(0, 3, 32), positions=cart, cell=lat)
+    model = TensorNet(TensorNetConfig(num_species=4, units=16, num_rbf=8, cutoff=4.0))
+    params = model.init(0)
+    before = launch_counts["tensornet_interaction_aggregate"]
+    gpu = DistPotential(model, params, device=card).calculate(atoms)
+    assert launch_counts["tensornet_interaction_aggregate"] == before + 2
     cpu = DistPotential(model, params, device="cpu").calculate(atoms)
     assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
     np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)
