@@ -17,7 +17,16 @@ Phases (each failure raises, so the exit code is non-zero):
    stated tolerance, plus edge cases; times of the kernel, the plain
    version, one library call and the least time the card could take. The
    segment sum at MACE's chunk shapes; the two TensorNet edge aggregations
-   on the graph of the TensorNet path's 16384-atom structure;
+   on the graph of the TensorNet path's 16384-atom structure; the two
+   CHGNet aggregations (``[kernels] chgnet``) on the graph of the CHGNet
+   path's structure at its real ids (``edge_dst`` under ``in_r`` for the
+   atom conv, ``line_dst`` under ``line_ok`` for the line conv) with random
+   inputs and weights at C = H = 64, then all-masked, the padding-only tail
+   on one dst row, E not a multiple of any block, empty dst rows, C = 16
+   and C = 7. Their tolerance is derived in
+   ``kernels.chgnet_aggregate_error_bound``: first-order rounding of both
+   layers' dot products (K + 2) u, the activations' slopes and ulps, the
+   gating products and the k-term dst sum, for each side;
 4. the MACE path — MACE at the MACE-MP-0-medium widths (channels 128,
    l_max = a_lmax = 3, correlation 3, 2 interactions; random weights from
    seed 0) through ``DistPotential(device="cuda", skin=0.5)`` on a
@@ -28,8 +37,17 @@ Phases (each failure raises, so the exit code is non-zero):
 5. the TensorNet path — TensorNet at the matgl TensorNet-MatPES-PBE layout
    (89 species, 64 channels, 32 RBF, 2 layers, cutoff 5 Å; random weights
    from seed 0) on bench.py's 16384-atom Si crystal, the same way;
-6. a small structure of each model on the card (kernels) against the CPU
-   (plain).
+6. the CHGNet path (``[main-chgnet]``) — CHGNet at the matgl MPtrj layout
+   (89 species, 64 units, 31 RBF, max_f 4, 4 blocks, cutoff 6 Å, bond
+   cutoff 3 Å; random weights from seed 0, ``species_ref`` and
+   ``data_std`` off their defaults) through ``DistPotential(device="cuda",
+   skin=0.5, compute_magmom=True)`` on bench.py's 16384-atom Si crystal, the
+   same way, magmoms held to max |dm| < 1e-4 too. Launches derived: each
+   calculate runs one atom-conv aggregation per block (4) and one line
+   aggregation per bond block (num_blocks - 1 = 3); the backward is the
+   plain chunked recompute and launches none. 4 calculates give 16 and 12;
+7. a small structure of each model on the card (kernels) against the CPU
+   (plain), CHGNet's with magmoms.
 
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -47,13 +65,18 @@ H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             "tensornet_embed_aggregate": "distmlip_tpu/kernels/segment.py:224",
-            "tensornet_interaction_aggregate": "distmlip_tpu/kernels/segment.py:224"}
+            "tensornet_interaction_aggregate": "distmlip_tpu/kernels/segment.py:224",
+            "chgnet_atom_conv_aggregate": "distmlip_tpu/kernels/segment.py:224",
+            "chgnet_line_aggregate": "distmlip_tpu/kernels/segment.py:224"}
 SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "tensornet_embed_aggregate": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "tensornet_interaction_aggregate":
-               "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu"}
+               "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
+           "chgnet_atom_conv_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
+           "chgnet_line_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu"}
 STEPS = 3
 TENSORNET_REPS = 16  # bench.py's default structure: 16384 atoms
+CHGNET_REPS = 16
 
 
 def log(*args):
@@ -314,6 +337,222 @@ def phase_edge_aggregate_kernels(torch):
     return {w: max(v) for w, v in errs.items()}, timed
 
 
+def chgnet_graph(torch):
+    """The CHGNet path's graph on the card (bench.py's crystal at
+    CHGNET_REPS, built at cutoff + skin and bond_cutoff + skin) as a
+    LocalGraph, with the model's masks: ``in_r`` (edges within the cutoff)
+    and ``line_ok`` (lines whose two bonds lie within the bond cutoff)."""
+    from distmlip_tpu_torch.neighbors import neighbor_list
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+    from distmlip_tpu_torch.partition import (CapacityPolicy, build_partitioned_graph,
+                                              build_plan)
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW, bench_atoms
+
+    atoms, _ = bench_atoms(CHGNET_REPS)
+    r, br = CHGNET_KW["cutoff"] + 0.5, CHGNET_KW["bond_cutoff"] + 0.5
+    nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r, bond_r=br)
+    plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r, br, True)
+    g, _ = build_partitioned_graph(plan, nl, atoms.numbers, atoms.cell,
+                                   caps=CapacityPolicy())
+    g = g.to("cuda")
+    lg = local_graph_from_stacked(g)
+    vec = lg.edge_vectors(g.positions[0])
+    d = torch.linalg.norm(torch.where(lg.edge_mask[:, None], vec, torch.ones_like(vec)),
+                          dim=-1)
+    in_r = lg.edge_mask & (d <= CHGNET_KW["cutoff"])
+    b_d = lg.edge_to_bond(d[:, None], torch.zeros((lg.b_cap, 1), device="cuda"))[:, 0]
+    b_real = (b_d > 1e-6) & (b_d <= CHGNET_KW["bond_cutoff"])
+    line_ok = lg.line_mask & b_real[lg.line_src] & b_real[lg.line_dst]
+    return lg, in_r, line_ok
+
+
+def chgnet_inputs(torch, gen, which, e, c, h, n_node, idx=None):
+    """Random inputs of one CHGNet message at (E, C), hidden width H, in the
+    order of its plain version up to ``weights``: ``n_node`` rows of the
+    node array (atom conv) or (bond rows, atom rows) (line conv); ``idx``
+    gives the gather ids (src, dst) or (line_src, line_dst, center), random
+    otherwise. The gated MLP's 8 weights at a linear init's scale."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def ids(k, rows):
+        if idx is not None:
+            return idx[k]
+        return torch.randint(0, rows, (e,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    if which == "atom":
+        node = r(n_node, c)
+        arrays = [node, ids(0, n_node), node, ids(1, n_node), r(e, c), r(e, c)]
+        k1 = 3 * c
+    else:
+        n_bond, n_atom = n_node
+        bond = r(n_bond, c)
+        arrays = [bond, ids(0, n_bond), bond, ids(1, n_bond), r(e, c), r(n_atom, c),
+                  ids(2, n_atom)]
+        k1 = 4 * c
+    weights = []
+    for _ in range(2):
+        weights += [r(k1, h) / k1 ** 0.5, r(h) / k1 ** 0.5, r(h, c) / h ** 0.5,
+                    r(c) / h ** 0.5]
+    return arrays, weights
+
+
+def chgnet_rows(torch, which, arrays):
+    """The concat rows (E, K1) of a CHGNet message and its abw (or None)."""
+    if which == "atom":
+        node_src, src, node_dst, dst, edge, abw = arrays
+        return torch.cat([node_src[src.long()], node_dst[dst.long()], edge], -1), abw
+    bond_src, ls, bond_dst, ld, angle, node, ctr = arrays
+    return torch.cat([bond_src[ls.long()], bond_dst[ld.long()], angle,
+                      node[ctr.long()]], -1), None
+
+
+def _chgnet_fns(which):
+    from distmlip_tpu_torch import kernels as K
+
+    if which == "atom":
+        return (K.chgnet_atom_conv_aggregate_cuda, K.chgnet_atom_conv_aggregate_reference,
+                "chgnet_atom_conv_aggregate")
+    return (K.chgnet_line_aggregate_cuda, K.chgnet_line_aggregate_reference,
+            "chgnet_line_aggregate")
+
+
+def check_chgnet(torch, which, arrays, weights, ids, mask, n):
+    """Kernel vs plain on one input, within the derived bound
+    ``chgnet_aggregate_error_bound`` (for each side: (K + 2) u on each dot
+    product's sum of |terms|, activation slopes and ulps, the gating
+    products, k u on the dst sum; |kernel - plain| <= twice that). Returns
+    (max |kernel - plain|, max |kernel - plain| / bound)."""
+    from distmlip_tpu_torch.kernels import chgnet_aggregate_error_bound
+
+    cuda, ref, _ = _chgnet_fns(which)
+    got = cuda(*arrays, weights, ids, n, mask)
+    want = ref(*arrays, weights, ids, n, mask)
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"chgnet {which} shape/dtype {got.shape} {got.dtype} "
+                             f"vs {want.shape} {want.dtype}")
+    x, abw = chgnet_rows(torch, which, arrays)
+    tol = chgnet_aggregate_error_bound(x, abw, weights, ids, n, mask)
+    del x
+    err = (got - want).abs()
+    if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"chgnet {which} disagrees with its plain version: max "
+                             f"|err| {float(err.max())}, max tolerance {float(tol.max())}")
+    if not err.numel():
+        return 0.0, 0.0
+    return float(err.max()), float((err / (tol + 1e-30)).max())
+
+
+def time_chgnet(torch, which, arrays, weights, ids, mask, n):
+    from distmlip_tpu_torch import kernels as K
+
+    cuda, ref, _ = _chgnet_fns(which)
+    ms = cuda_ms(torch, lambda: cuda(*arrays, weights, ids, n, mask))
+    plain_ms = cuda_ms(torch, lambda: ref(*arrays, weights, ids, n, mask), iters=5)
+    e, c = ids.shape[0], arrays[4].shape[1]
+    h = weights[0].shape[1]
+    x, abw = chgnet_rows(torch, which, arrays)
+    msg = (K.CHGNET_ATOM_CONV if which == "atom" else K.CHGNET_LINE_CONV).fn(
+        *x.split(c, dim=-1), *(() if abw is None else (abw,)), weights=weights)
+    del x
+    masked = torch.where(mask[:, None], msg, 0.0)
+    del msg
+    out = torch.zeros((n, c), device="cuda")
+    ids_long = ids.long()
+    # the scatter alone: one index_add_ of the already-materialised message
+    library_ms = cuda_ms(torch, lambda: out.index_add_(0, ids_long, masked))
+    del masked, out
+    n_valid = int(mask.sum())
+    k1 = (3 if which == "atom" else 4) * c
+    # the gather ids of each gathered segment: (src, dst) or (line_src,
+    # line_dst, center), on the valid edges
+    gathers = [arrays[i][mask] for i in ((1, 3) if which == "atom" else (1, 3, 6))]
+    rows_per_segment = [int(torch.unique(g).numel()) for g in gathers]
+    n_seg = k1 // c
+    # operations, the least the function needs. Layer 1 is linear, so a
+    # gathered segment's products (C -> H, core and gate: 4 C H) are taken
+    # once per distinct row the valid edges gather from it, with the
+    # layer-1 bias folded into the first segment's rows (2 H). Per valid
+    # edge: the per-edge segment's products (4 C H), the adds joining the
+    # n_seg partial products (2 (n_seg - 1) H), layer 2 of core and gate
+    # with its bias (4 H C + 2 C), the gating product (and the abw product
+    # of the atom conv) and the add onto the dst row. The activations are
+    # not counted.
+    ops = (4 * c * h * sum(rows_per_segment) + 2 * h * rows_per_segment[0]
+           + n_valid * (4 * c * h + 2 * (n_seg - 1) * h + 4 * h * c + 2 * c
+                        + (3 if which == "atom" else 2) * c))
+    # bytes: each node row used by a valid edge read once, the valid edges'
+    # per-edge rows and gather ids, all ids and the mask, the weights, the
+    # output written once
+    if which == "atom":
+        node_rows = int(torch.unique(torch.cat(gathers)).numel())
+        per_edge = 2 * c * 4 + 2 * 4
+    else:
+        node_rows = (int(torch.unique(torch.cat(gathers[:2])).numel())
+                     + rows_per_segment[2])
+        per_edge = c * 4 + 3 * 4
+    w_floats = sum(w.numel() for w in weights)
+    nbytes = (node_rows * c * 4 + n_valid * per_edge + e * (ids.element_size() + 1)
+              + w_floats * 4 + n * c * 4)
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"which": which, "e": e, "valid_edges": n_valid, "channels": c, "hidden": h,
+            "in_dim": k1, "n_segments": n, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "library": "index_add_ of the materialised (E, C) "
+            "message: the scatter alone", "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes, "ops": ops, "gathered_rows": rows_per_segment}
+
+
+def phase_chgnet_kernels(torch):
+    """Both CHGNet kernels at the CHGNet path's shapes (its graph, its real
+    dst ids and masks, C = H = 64), then the edge cases."""
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    lg, in_r, line_ok = chgnet_graph(torch)
+    c = CHGNET_KW["units"]
+    errs, ratios, timed = {}, {}, {}
+    for which in ("atom", "line"):
+        if which == "atom":
+            ids, mask, n = lg.edge_dst, in_r, lg.n_cap
+            arrays, weights = chgnet_inputs(torch, gen, which, ids.shape[0], c, c, n,
+                                            (lg.edge_src, lg.edge_dst))
+        else:
+            ids, mask, n = lg.line_dst, line_ok, lg.b_cap
+            arrays, weights = chgnet_inputs(torch, gen, which, ids.shape[0], c, c,
+                                            (lg.b_cap, lg.n_cap),
+                                            (lg.line_src, lg.line_dst, lg.line_center))
+        cases = [(arrays, weights, ids, mask, n)]
+        # a fully masked input, and the padding-only tail on one dst row
+        one_row = torch.full_like(ids, int(ids[-1]))
+        last5 = torch.arange(len(ids), device="cuda") >= len(ids) - 5
+        cases += [(arrays, weights, ids, torch.zeros_like(mask), n),
+                  (arrays, weights, one_row, torch.zeros_like(mask), n),
+                  (arrays, weights, one_row, last5, n)]
+        # E not a multiple of any block, empty dst rows, C = 7 and 16
+        for e, rows, cc, hh in ((1003, 300, 7, 7), (517, 45, 16, 16), (300, 900, 64, 64),
+                                (90, 13, 16, 12)):
+            sub_ids = torch.sort(torch.randint(0, rows, (e,), generator=gen,
+                                               device="cuda"))[0].to(torch.int32)
+            sub_mask = torch.rand(e, generator=gen, device="cuda") > 0.1
+            sub_mask[-17:] = False
+            sub_ids[-17:] = sub_ids[-18]
+            sub, sub_w = chgnet_inputs(torch, gen, which, e, cc, hh,
+                                       37 if which == "atom" else (41, 37))
+            cases.append((sub, sub_w, sub_ids, sub_mask, rows))
+        found = [check_chgnet(torch, which, *case) for case in cases]
+        errs[which] = max(f[0] for f in found)
+        ratios[which] = max(f[1] for f in found)
+        timed[which] = time_chgnet(torch, which, arrays, weights, ids, mask, n)
+        log(f"[kernels] chgnet {which}: {json.dumps(timed[which])}")
+        log(f"[kernels] chgnet {which}: all {len(cases)} cases agree with the plain "
+            f"version; max |err| {errs[which]}, max |err| / tolerance {ratios[which]}")
+        del arrays, weights, cases
+        torch.cuda.empty_cache()
+    return errs, timed
+
+
 def check_result(res, n_atoms):
     import numpy as np
 
@@ -321,6 +560,9 @@ def check_result(res, n_atoms):
             and res["stress"].shape == (3, 3)
             and np.isfinite(res["forces"]).all() and np.isfinite(res["stress"]).all()):
         raise AssertionError("non-finite or misshapen outputs")
+    if "magmoms" in res and not (res["magmoms"].shape == (n_atoms,)
+                                 and np.isfinite(res["magmoms"]).all()):
+        raise AssertionError("non-finite or misshapen magmoms")
 
 
 def drive(torch, pot, atoms, rng):
@@ -362,6 +604,8 @@ def compare_with_plain(torch, ref_pot, atoms, geometries, results, tag):
 
     before = dict(launch_counts)
     worst = {"rel_dE": 0.0, "max_dF": 0.0, "max_dS": 0.0}
+    if "magmoms" in results[0]:
+        worst["max_dm"] = 0.0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     step_s = []
@@ -377,12 +621,16 @@ def compare_with_plain(torch, ref_pot, atoms, geometries, results, tag):
                               float(np.abs(res["forces"] - ref["forces"]).max()))
         worst["max_dS"] = max(worst["max_dS"],
                               float(np.abs(res["stress"] - ref["stress"]).max()))
+        if "max_dm" in worst:
+            worst["max_dm"] = max(worst["max_dm"],
+                                  float(np.abs(res["magmoms"] - ref["magmoms"]).max()))
     peak = torch.cuda.max_memory_allocated()
     if dict(launch_counts) != before:
         raise AssertionError("the kernels=False reference launched a kernel")
     log(f"[{tag}] kernels vs plain on the card over {len(geometries)} geometries: "
         f"{json.dumps(worst)}")
-    if not (worst["rel_dE"] < 1e-5 and worst["max_dF"] < 1e-4 and worst["max_dS"] < 1e-4):
+    if not (worst["rel_dE"] < 1e-5 and worst["max_dF"] < 1e-4 and worst["max_dS"] < 1e-4
+            and worst.get("max_dm", 0.0) < 1e-4):
         raise AssertionError(f"{tag}: main path disagrees with its plain reference")
     return worst, step_s, peak
 
@@ -479,7 +727,49 @@ def phase_tensornet(torch):
     return launches
 
 
-def small_structure():
+def phase_chgnet(torch):
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW, bench_atoms
+
+    t0 = time.perf_counter()
+    model = CHGNet(CHGNetConfig(**CHGNET_KW))
+    params = model.init(0)
+    gen = torch.Generator().manual_seed(0)
+    # readout terms off their defaults, so a dropped one would show
+    params["species_ref"]["w"] = torch.randn((CHGNET_KW["num_species"], 1), generator=gen)
+    params["data_std"] = torch.tensor(1.3)
+    atoms, rng = bench_atoms(CHGNET_REPS)
+    pot = DistPotential(model, params, device="cuda", skin=0.5, compute_magmom=True)
+    log(f"[main-chgnet] model + params + potential built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
+    n_calc, blocks = 1 + STEPS, CHGNET_KW["num_blocks"]
+    expected = {k: 0 for k in launches}
+    expected["chgnet_atom_conv_aggregate"] = n_calc * blocks
+    expected["chgnet_line_aggregate"] = n_calc * (blocks - 1)
+    log(f"[main-chgnet] edge-aggregate launches: {n_calc} calculates x ({blocks} atom "
+        f"convs + {blocks - 1} line convs) = {n_calc * blocks} + "
+        f"{n_calc * (blocks - 1)} forward launches, none in the backward; counted "
+        f"{launches}")
+    if launches != expected:
+        raise AssertionError(f"kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+
+    ref_pot = DistPotential(model, params, device="cuda", skin=0.5, kernels=False,
+                            compute_magmom=True)
+    _, ref_step_s, ref_peak = compare_with_plain(torch, ref_pot, atoms, geometries,
+                                                 results, "main-chgnet")
+    stats = pot.last_stats
+    summary = summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results,
+                        launches, expected)
+    summary.update({k: stats[k] for k in ("b_cap", "n_bonds", "l_cap", "n_lines")})
+    log(f"[main-chgnet] {json.dumps(summary)}")
+    return launches
+
+
+def small_structure(a=4.0, noise=0.05, n_species=3):
     import numpy as np
 
     from distmlip_tpu_torch import geometry
@@ -487,28 +777,31 @@ def small_structure():
 
     rng = np.random.default_rng(0)
     unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
-    frac, lat = geometry.make_supercell(unit, np.eye(3) * 4.0, (2, 2, 2))
-    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.05, (32, 3))
-    return Atoms(numbers=rng.integers(0, 3, 32), positions=cart, cell=lat)
+    frac, lat = geometry.make_supercell(unit, np.eye(3) * a, (2, 2, 2))
+    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, noise, (32, 3))
+    return Atoms(numbers=rng.integers(0, n_species, 32), positions=cart, cell=lat)
 
 
-def phase_small_reference(torch, model, tag):
+def phase_small_reference(torch, model, tag, atoms=None, **kw):
     """A 32-atom structure: the port on the card (kernels) vs on the CPU
-    (plain versions), same params."""
+    (plain versions), same params; ``kw`` goes to both potentials."""
     import numpy as np
 
     from distmlip_tpu_torch.calculators import DistPotential
 
-    atoms = small_structure()
+    atoms = small_structure() if atoms is None else atoms
     params = model.init(0)
-    gpu = DistPotential(model, params, device="cuda").calculate(atoms)
-    cpu = DistPotential(model, params, device="cpu").calculate(atoms)
+    gpu = DistPotential(model, params, device="cuda", **kw).calculate(atoms)
+    cpu = DistPotential(model, params, device="cpu", **kw).calculate(atoms)
     check_result(gpu, 32)
     d = {"rel_dE": abs(gpu["energy"] - cpu["energy"]) / abs(cpu["energy"]),
          "max_dF": float(np.abs(gpu["forces"] - cpu["forces"]).max()),
          "max_dS": float(np.abs(gpu["stress"] - cpu["stress"]).max())}
+    if "magmoms" in cpu:
+        d["max_dm"] = float(np.abs(gpu["magmoms"] - cpu["magmoms"]).max())
     log(f"[{tag}] card (kernels) vs CPU (plain), 32 atoms: {json.dumps(d)}")
-    if not (d["rel_dE"] < 1e-5 and d["max_dF"] < 1e-4 and d["max_dS"] < 1e-4):
+    if not (d["rel_dE"] < 1e-5 and d["max_dF"] < 1e-4 and d["max_dS"] < 1e-4
+            and d.get("max_dm", 0.0) < 1e-4):
         raise AssertionError(f"{tag}: card disagrees with CPU")
 
 
@@ -546,19 +839,28 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"[build]   {line.strip()}")
 
-    from distmlip_tpu_torch.models import MACE, MACEConfig, TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, MACE, MACEConfig, TensorNet,
+                                           TensorNetConfig)
 
     max_err, timed, _ = phase_kernels(torch)
     edge_errs, edge_timed = phase_edge_aggregate_kernels(torch)
+    chg_errs, chg_timed = phase_chgnet_kernels(torch)
     launches = phase_main_path(torch)
     torch.cuda.empty_cache()
     tn_launches = phase_tensornet(torch)
+    torch.cuda.empty_cache()
+    chg_launches = phase_chgnet(torch)
     torch.cuda.empty_cache()
     phase_small_reference(torch, MACE(MACEConfig(
         num_species=4, channels=16, l_max=3, a_lmax=3, hidden_lmax=1, correlation=3,
         cutoff=4.0, edge_chunk=64, node_chunk=16)), "small")
     phase_small_reference(torch, TensorNet(TensorNetConfig(
         num_species=4, units=16, num_rbf=8, cutoff=4.0)), "small-tensornet")
+    # fcc at a = 3.5 (nn 2.47 Å) rattled by 0.1 Å: bonds within 2.6 Å, and
+    # skin-shell edges and bonds with the 0.5 Å skin
+    phase_small_reference(torch, CHGNet(CHGNetConfig(
+        num_species=4, units=16, num_rbf=6, num_blocks=3, cutoff=3.2, bond_cutoff=2.6)),
+        "small-chgnet", small_structure(3.5, 0.1, 4), skin=0.5, compute_magmom=True)
 
     headline = timed[-1]  # the (32768, 40, 128) chunk of interaction 1
     kernels = [{
@@ -580,6 +882,18 @@ def main() -> int:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": [t["e"], 3, 3, t["channels"]], "n_segments": t["n_segments"],
+        })
+    for which, name in (("atom", "chgnet_atom_conv_aggregate"),
+                        ("line", "chgnet_line_aggregate")):
+        t = chg_timed[which]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": chg_launches[name],
+            "max_abs_err": chg_errs[which], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "shape": [t["e"], t["channels"]], "hidden": t["hidden"],
+            "valid_edges": t["valid_edges"], "n_segments": t["n_segments"],
         })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -10,10 +10,16 @@ once, and REUSED across steps — only positions are re-uploaded — until any
 atom moves skin/2 from its build-time position (Verlet-list criterion:
 results stay exact because the model envelopes zero the extra skin edges).
 
+For a model with a bond graph (CHGNet: ``cfg.use_bond_graph``) the host
+also builds the bond and line graphs at ``bond_cutoff + skin``. With
+``compute_magmom=True`` the magmoms ride the energy forward as an aux
+output (the fused site readout, ``model.energy_and_aux_fn``).
+
 Not ported yet (queued in ROADMAP.md): the background prefetch rebuild,
 the on-device graph refresh, telemetry records and timings, the contract
-audit, magmoms, per-system conditioning (charge/spin/dataset), a compute
-dtype other than float32, and ``num_partitions > 1``.
+audit, the separate-forward site readout (``fused_site_readout=False``),
+per-system conditioning (charge/spin/dataset), a compute dtype other than
+float32, and ``num_partitions > 1``.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ class DistPotential:
     Parameters
     ----------
     model : object with ``energy_fn(params, lg, positions)`` and a ``cfg``
-        carrying ``cutoff``.
+        carrying ``cutoff`` (and optionally ``bond_cutoff`` and
+        ``use_bond_graph``).
     params : parameter tree — numpy arrays (e.g. the JAX package's params
         through ``jax.tree.map(np.asarray, params)``) or torch tensors;
         moved to ``device``.
@@ -43,6 +50,10 @@ class DistPotential:
     species_map : optional (max_Z+1,) int array mapping atomic numbers to
         the model's species indices. Default: identity.
     skin : Verlet skin (Å) of the graph cache; 0 rebuilds every call.
+    compute_magmom : also return ``"magmoms"`` (N,), from the same forward
+        (needs ``model.energy_and_aux_fn``; CHGNet).
+    fused_site_readout : only True is ported: the magmoms ride the energy
+        forward.
     kernels : True runs the CUDA kernels on a CUDA device; False runs their
         plain PyTorch versions on whatever device is given (the reference
         side of an on-card comparison — never taken silently).
@@ -60,6 +71,8 @@ class DistPotential:
         caps: CapacityPolicy | None = None,
         skin: float = 0.0,
         compute_dtype: str | None = None,
+        compute_magmom: bool = False,
+        fused_site_readout: bool = True,
         kernels: bool = True,
         device=None,
     ):
@@ -75,6 +88,14 @@ class DistPotential:
                 "bfloat16 is queued in ROADMAP.md")
         if not isinstance(kernels, bool):
             raise TypeError(f"kernels must be True or False, got {kernels!r}")
+        if not fused_site_readout:
+            raise NotImplementedError(
+                "fused_site_readout=False (a separate forward for the site "
+                "readout) is not ported; the magmoms ride the energy forward")
+        if compute_magmom and not hasattr(model, "energy_and_aux_fn"):
+            raise ValueError(
+                f"{type(model).__name__} has no energy_and_aux_fn (sitewise "
+                f"readout); compute_magmom is a CHGNet-family capability")
         self.device = resolve_device(device)
         self.model = model
         self.params = params_from_numpy(params, self.device)
@@ -82,16 +103,21 @@ class DistPotential:
         self.species_map = species_map
         self.caps = caps or CapacityPolicy()
         self.cutoff = float(model.cfg.cutoff)
+        self.bond_cutoff = float(getattr(model.cfg, "bond_cutoff", 0.0))
+        self.use_bond_graph = bool(getattr(model.cfg, "use_bond_graph", False))
         self.compute_stress = bool(compute_stress)
+        self.compute_magmom = bool(compute_magmom)
         self.skin = float(skin)
         self.kernels = kernels
         self._potential = make_potential_fn(
-            model.energy_fn, None, compute_stress=self.compute_stress,
-            kernels=kernels)
+            model.energy_and_aux_fn if self.compute_magmom else model.energy_fn, None,
+            compute_stress=self.compute_stress, kernels=kernels,
+            aux=self.compute_magmom)
         # (graph on device, host, build positions, numbers, cell, pbc)
         self._cache = None
         # graph shape of the LAST calculate() (n_atoms, n_cap, e_cap,
-        # n_edges), as the JAX package's last_stats
+        # n_edges; with a bond graph b_cap, n_bonds, l_cap, n_lines), as
+        # the JAX package's last_stats
         self.last_stats: dict = {}
         # graphs built by calculate() (host neighbor search + upload)
         self.rebuild_count = 0
@@ -101,13 +127,19 @@ class DistPotential:
 
     def _build_graph(self, atoms: Atoms):
         r_build = self.cutoff + self.skin
-        nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r_build)
-        plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r_build)
+        b_build = (self.bond_cutoff + self.skin) if self.use_bond_graph else 0.0
+        nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r_build, bond_r=b_build)
+        plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r_build, b_build,
+                          self.use_bond_graph)
         graph, host = build_partitioned_graph(
             plan, nl, self._species(atoms.numbers), atoms.cell, caps=self.caps)
         host.stats = {"n_atoms": len(atoms), "n_cap": graph.n_cap,
                       "e_cap": graph.e_cap,
                       "n_edges": int(graph.edge_mask.sum())}
+        if graph.has_bond_graph:
+            host.stats.update(b_cap=graph.b_cap, n_bonds=int(graph.bond_map_mask.sum()),
+                              l_cap=graph.line_mask.shape[1],
+                              n_lines=int(graph.line_mask.sum()))
         return graph.to(self.device), host
 
     def _cache_valid(self, atoms: Atoms) -> bool:
@@ -141,17 +173,22 @@ class DistPotential:
         return graph, host, torch.as_tensor(positions).to(self.device)
 
     def calculate(self, atoms: Atoms) -> dict:
-        """Energy (eV), forces (eV/Å), stress (eV/Å^3, ASE sign convention)."""
+        """Energy (eV), forces (eV/Å), stress (eV/Å^3, ASE sign convention),
+        and magmoms (N,) with ``compute_magmom``."""
         graph, host, positions = self._prepare(atoms)
         out = self._potential(self.params, graph, positions)
         energy = float(out["energy"])
         forces = host.gather_owned(out["forces"].detach().cpu().numpy(), len(atoms))
         stress = out["stress"].detach().cpu().numpy()
         self.last_stats = dict(host.stats)
-        return {
+        result = {
             "energy": energy,
             "free_energy": energy,
             "forces": forces,
             "stress": stress,
             "stress_GPa": stress * EV_A3_TO_GPA,
         }
+        if "aux" in out:
+            m = out["aux"]["magmoms"].cpu().numpy()
+            result["magmoms"] = host.gather_owned(m, len(atoms))
+        return result

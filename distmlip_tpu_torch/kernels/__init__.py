@@ -6,22 +6,29 @@
   the launch counts of every kernel.
 - :mod:`edge_aggregate` — ``tensornet_embed_aggregate_cuda`` and
   ``tensornet_interaction_aggregate_cuda`` (the wrappers of
-  ``csrc/edge_aggregate.cu``, replacing the TPU ``pallas_edge_aggregate``
-  at TensorNet's two call sites), their ``*_reference`` plain versions and
-  the named messages ``TENSORNET_EMBED`` / ``TENSORNET_INTERACTION``.
+  ``csrc/edge_aggregate.cu``) and ``chgnet_atom_conv_aggregate_cuda`` and
+  ``chgnet_line_aggregate_cuda`` (of ``csrc/chgnet_aggregate.cu``), which
+  replace the TPU ``pallas_edge_aggregate`` at TensorNet's and CHGNet's
+  call sites; their ``*_reference`` plain versions and the named messages
+  ``TENSORNET_EMBED``, ``TENSORNET_INTERACTION``, ``CHGNET_ATOM_CONV`` and
+  ``CHGNET_LINE_CONV``.
 - :mod:`dispatch` — ``fused_segment_sum`` and ``fused_edge_aggregate``
   (with its ``Gather`` marker), the autograd Functions every call site
   goes through.
 - :mod:`build` — ``nvcc`` at first use into ``build/kernels/``, ctypes load.
 
-Still to port (ROADMAP.md): ``pallas_edge_aggregate`` at CHGNet's call
-sites (new messages for the same dispatcher) and ``so2_conv_pallas``
-(eSCN).
+Still to port (ROADMAP.md): ``so2_conv_pallas`` (eSCN).
 """
 
 from .dispatch import Gather, fused_edge_aggregate, fused_segment_sum  # noqa: F401
-from .edge_aggregate import (TENSORNET_EMBED, TENSORNET_INTERACTION,  # noqa: F401
-                             EdgeMessage, tensornet_embed_aggregate_cuda,
+from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
+                             TENSORNET_EMBED, TENSORNET_INTERACTION, EdgeMessage,
+                             chgnet_aggregate_error_bound,
+                             chgnet_atom_conv_aggregate_cuda,
+                             chgnet_atom_conv_aggregate_reference,
+                             chgnet_line_aggregate_cuda,
+                             chgnet_line_aggregate_reference,
+                             tensornet_embed_aggregate_cuda,
                              tensornet_embed_aggregate_reference,
                              tensornet_interaction_aggregate_cuda,
                              tensornet_interaction_aggregate_reference)

@@ -16,7 +16,9 @@ launches the kernel or raises.
   the JAX package's chunked recompute (``_edge_aggregate_bwd``, ``:482``)
   in plain torch ops. The message is an ``EdgeMessage`` (a torch function
   plus its kernel), not an arbitrary callable, because a CUDA kernel cannot
-  run a Python function. The JAX package's VMEM budget and its pre-gather
+  run a Python function; an edge MLP's weights, which the JAX dispatcher
+  hoists from the closure, are explicit ``weights``. The JAX package's VMEM
+  budget and its pre-gather
   route have no counterpart: the kernels gather node rows from global
   memory at every size.
 """
@@ -101,52 +103,64 @@ def _rows(items):
 
 
 class _EdgeAggregate(torch.autograd.Function):
-    # positional layout of apply(): 7 non-differentiable leading arguments,
+    # positional layout of apply(): 8 non-differentiable leading arguments,
     # then one tensor per input (a per-edge array or a gathered node array),
-    # then the distinct gather index tensors
-    N_LEAD = 7
+    # then the message's weight tensors, then the distinct gather index
+    # tensors
+    N_LEAD = 8
 
     @staticmethod
-    def forward(ctx, message, kinds, use_kernel, chunk, num_segments,
+    def forward(ctx, message, kinds, n_weights, use_kernel, chunk, num_segments,
                 segment_ids, mask, *tensors):
-        items = _items(kinds, tensors)
+        n_in = len(kinds)
+        weights = tensors[n_in:n_in + n_weights]
+        items = _items(kinds, tensors[:n_in] + tensors[n_in + n_weights:])
         if use_kernel:
-            out = message.cuda(items, segment_ids, num_segments, mask)
+            out = message.cuda(items, weights, segment_ids, num_segments, mask)
         else:
-            out = masked_segment_sum(message.fn(*_rows(items)), segment_ids,
-                                     num_segments, mask)
+            out = masked_segment_sum(message.fn(*_rows(items), weights=weights),
+                                     segment_ids, num_segments, mask)
         ctx.save_for_backward(segment_ids, mask, *tensors)
-        ctx.message, ctx.kinds, ctx.chunk = message, kinds, chunk
+        ctx.message, ctx.kinds, ctx.n_weights, ctx.chunk = message, kinds, n_weights, chunk
         return out
 
     @staticmethod
     def backward(ctx, g):
         segment_ids, mask, *tensors = ctx.saved_tensors
-        n_in = len(ctx.kinds)
+        n_in, n_w = len(ctx.kinds), ctx.n_weights
         lead = _EdgeAggregate.N_LEAD
-        needs = ctx.needs_input_grad[lead:lead + n_in]
+        needs = ctx.needs_input_grad[lead:lead + n_in + n_w]
         grads = _edge_aggregate_bwd(ctx.message.fn, ctx.kinds, tensors[:n_in],
-                                    tensors[n_in:], segment_ids, mask, g,
-                                    ctx.chunk, needs)
-        return (None,) * lead + tuple(grads) + (None,) * (len(tensors) - n_in)
+                                    tensors[n_in:n_in + n_w], tensors[n_in + n_w:],
+                                    segment_ids, mask, g, ctx.chunk, needs)
+        return ((None,) * lead + tuple(grads)
+                + (None,) * (len(tensors) - n_in - n_w))
 
 
-def _edge_aggregate_bwd(fn, kinds, arrs, idxs, segment_ids, mask, g, chunk,
+def _edge_aggregate_bwd(fn, kinds, arrs, weights, idxs, segment_ids, mask, g, chunk,
                         needs):
     """Chunked backward (``distmlip_tpu/kernels/dispatch.py:482-606``): per
     chunk of edges, recompute the messages and pull the gathered message
     cotangent ``g[dst] * mask`` back through them with
     ``torch.autograd.grad``. Per-edge inputs get their chunk rows (joined in
     edge order); gathered node arrays get the rows' cotangents scatter-added
-    onto their source rows. The working set is one chunk of messages. Under
-    grad mode (double backward) the graph of this computation is kept."""
+    onto their source rows; weights get their cotangents summed over the
+    chunks. ``needs`` covers the inputs, then the weights: an input or
+    weight not needed gets ``None`` and costs nothing (the force program
+    asks for no weight gradient). The working set is one chunk of messages.
+    Under grad mode (double backward) the graph of this computation is
+    kept."""
     create = torch.is_grad_enabled()
+    n_in = len(arrs)
     e = segment_ids.shape[0]
     edge_cts = {k: [] for k, kind in enumerate(kinds) if kind is None and needs[k]}
     node_cts = {k: torch.zeros_like(a) for k, (a, kind) in enumerate(zip(arrs, kinds))
                 if kind is not None and needs[k]}
-    want = [k for k in range(len(arrs)) if needs[k]]
+    w_cts = {j: None for j in range(len(weights)) if needs[n_in + j]}
+    want = [k for k in range(n_in) if needs[k]]
     with torch.enable_grad():
+        ws = tuple(w.detach().requires_grad_(True) if needs[n_in + j] and not create
+                   else w for j, w in enumerate(weights))
         for s in range(0, e, chunk):
             sl = slice(s, min(s + chunk, e))
             rows = []
@@ -159,7 +173,8 @@ def _edge_aggregate_bwd(fn, kinds, arrs, idxs, segment_ids, mask, g, chunk,
             if mask is not None:
                 m = mask[sl].to(gm.dtype)
                 gm = gm * m.reshape(m.shape + (1,) * (gm.ndim - 1))
-            cts = torch.autograd.grad(fn(*rows), [rows[k] for k in want], gm,
+            targets = [rows[k] for k in want] + [ws[j] for j in w_cts]
+            cts = torch.autograd.grad(fn(*rows, weights=ws), targets, gm,
                                       create_graph=create, allow_unused=True)
             for k, ct in zip(want, cts):
                 if ct is None:
@@ -170,25 +185,38 @@ def _edge_aggregate_bwd(fn, kinds, arrs, idxs, segment_ids, mask, g, chunk,
                     node_cts[k] = node_cts[k].index_add(0, idxs[kinds[k]][sl], ct)
                 else:
                     node_cts[k].index_add_(0, idxs[kinds[k]][sl], ct)
+            for j, ct in zip(w_cts, cts[len(want):]):
+                if ct is not None:
+                    w_cts[j] = ct if w_cts[j] is None else w_cts[j] + ct
     out = []
-    for k in range(len(arrs)):
+    for k in range(n_in):
         if not needs[k]:
             out.append(None)
         elif kinds[k] is None:
             out.append(torch.cat(edge_cts[k]))
         else:
             out.append(node_cts[k])
+    for j, w in enumerate(weights):
+        if j not in w_cts:
+            out.append(None)
+        else:
+            out.append(torch.zeros_like(w) if w_cts[j] is None else w_cts[j])
     return out
 
 
 def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
                          mask=None, indices_are_sorted: bool = True,
-                         kernels: bool = True, bwd_chunk: int = DEFAULT_BWD_CHUNK):
+                         kernels: bool = True, bwd_chunk: int = DEFAULT_BWD_CHUNK,
+                         weights=()):
     """Fused gather + per-edge message + dst-sorted masked segment sum.
 
     ``message``: an :class:`EdgeMessage`. ``inputs``: per-edge tensors
     (E, ...) and/or :class:`Gather` markers, in the order ``message.fn``
-    takes its rows.
+    takes its rows. ``weights``: the message's weight tensors (an edge
+    MLP's), passed to ``message.fn`` as ``weights=`` and to its kernel;
+    they are explicit inputs of the autograd Function, so the backward
+    returns their gradients when asked for them and nothing otherwise
+    (the JAX dispatcher's hoisted consts and ``diff_params``, ``:377-399``).
     The result is ``sum_{e: dst[e] = n} mask[e] * message.fn(rows)[e]``
     with ``masked_segment_sum``'s padding semantics.
 
@@ -205,11 +233,13 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
     if mask is not None and mask.dtype != torch.bool:
         raise TypeError(f"fused_edge_aggregate: mask must be bool, got {mask.dtype}")
     inputs = list(inputs)
+    weights = tuple(weights)
     num_segments = int(num_segments)
     if not indices_are_sorted or segment_ids.shape[0] == 0 or num_segments == 0:
         rows = [i.node.index_select(0, i.idx) if isinstance(i, Gather) else i
                 for i in inputs]
-        return masked_segment_sum(message.fn(*rows), segment_ids, num_segments, mask)
+        return masked_segment_sum(message.fn(*rows, weights=weights), segment_ids,
+                                  num_segments, mask)
     use_kernel = kernels is not False and segment_ids.is_cuda
     if use_kernel and message.cuda is None:
         raise NotImplementedError(
@@ -231,5 +261,5 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
         else:
             kinds.append(None)
             arrs.append(item)
-    return _EdgeAggregate.apply(message, tuple(kinds), use_kernel, chunk,
-                                num_segments, segment_ids, mask, *arrs, *idxs)
+    return _EdgeAggregate.apply(message, tuple(kinds), len(weights), use_kernel, chunk,
+                                num_segments, segment_ids, mask, *arrs, *weights, *idxs)

@@ -2,9 +2,9 @@
 
 Models are functions over nested-dict parameter trees of tensors (the JAX
 package's pytree layout, so weights carry across by path): ``linear``,
-``mlp``, ``layernorm``, ``embedding`` and ``gather_rows`` match
-``distmlip_tpu/ops/nn.py:36,100,129-158``. The init helpers draw from
-a ``torch.Generator`` so a seed fixes the weights.
+``mlp``, ``gated_mlp``, ``layernorm``, ``embedding`` and ``gather_rows``
+match ``distmlip_tpu/ops/nn.py:36,100,110-123,129-158``. The init helpers
+draw from a ``torch.Generator`` so a seed fixes the weights.
 """
 
 from __future__ import annotations
@@ -14,6 +14,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from ..utils.checkpoint import as_list
 
 
 def linear(p, x):
@@ -74,6 +76,39 @@ def mlp_init_vp(gen, dims: list[int]):
 
 def mlp_init(gen, dims: list[int], bias: bool = True):
     return [linear_init(gen, a, b, bias=bias) for a, b in zip(dims[:-1], dims[1:])]
+
+
+def gated_mlp_init(gen, d_in: int, dims: list[int]):
+    """CHGNet-style gated MLP: core MLP * sigmoid(gate MLP)."""
+    return {"core": mlp_init(gen, [d_in] + dims), "gate": mlp_init(gen, [d_in] + dims)}
+
+
+def gated_mlp(p, x, act=F.silu):
+    """``silu``-activated core MLP (its last layer too) times the gate MLP
+    (``sigmoid`` on its last layer)."""
+    return gated_mlp_flat(x, gated_mlp_weights(p), act)
+
+
+def gated_mlp_weights(p) -> tuple:
+    """The gated MLP's tensors as one flat tuple: the core layers' ``(w,
+    b)`` pairs in order, then the gate's. The form in which the fused edge
+    aggregations take weights (``gated_mlp_flat``)."""
+    return tuple(t for half in ("core", "gate") for layer in as_list(p[half])
+                 for t in (layer["w"], layer["b"]))
+
+
+def gated_mlp_flat(x, weights, act=F.silu):
+    """The gated MLP on the flat tuple of ``gated_mlp_weights``."""
+    half = len(weights) // 2
+
+    def run(ws, final_act):
+        h = x
+        for i in range(0, len(ws), 2):
+            h = h @ ws[i] + ws[i + 1]
+            h = act(h) if i + 2 < len(ws) else final_act(h)
+        return h
+
+    return run(weights[:half], act) * run(weights[half:], torch.sigmoid)
 
 
 def layernorm_init(dim: int):

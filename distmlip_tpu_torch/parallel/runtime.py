@@ -10,6 +10,9 @@ forces = -dE/dx, stress = (dE/deps) / |det L| in eV/Å^3 (ASE sign).
 Model contract:
     model_energy_fn(params, lg: LocalGraph, positions) -> per-atom energies
 with shape (N_cap,); padded rows may hold garbage — the runtime masks them.
+With ``aux=True`` the model returns ``(e_atoms, aux)``, a dict of per-atom
+outputs of the same forward (CHGNet's magmoms); they come back with a
+leading P axis, and the forces come from the energy alone.
 """
 
 from __future__ import annotations
@@ -20,8 +23,10 @@ from ..geometry import apply_strain
 from .halo import local_graph_from_stacked
 
 
-def make_total_energy(model_energy_fn, mesh=None, kernels: bool = True):
-    """Total-energy fn: (params, graph, positions, strain) -> scalar.
+def make_total_energy(model_energy_fn, mesh=None, kernels: bool = True,
+                      aux: bool = False):
+    """Total-energy fn: (params, graph, positions, strain) -> scalar, or
+    (scalar, aux dict of (P, N_cap, ...) tensors) with ``aux=True``.
 
     ``positions`` is (P, N_cap, 3); ``strain`` a (3, 3) symmetric strain
     applied to positions and lattice (for stress). Only ``mesh=None`` (a
@@ -38,20 +43,27 @@ def make_total_energy(model_energy_fn, mesh=None, kernels: bool = True):
             positions[0], lg.lattice.to(dtype), strain.to(dtype))
         pos = lg.halo_exchange(pos)
         out = model_energy_fn(params, lg, pos)
+        if aux:
+            e_atoms, aux_out = out
+            return (lg.owned_sum(e_atoms.reshape(-1, 1)),
+                    {k: x[None] for k, x in aux_out.items()})
         return lg.owned_sum(out.reshape(-1, 1))
 
     return total_energy
 
 
 def make_potential_fn(model_energy_fn, mesh=None, compute_stress: bool = True,
-                      kernels: bool = True):
+                      kernels: bool = True, aux: bool = False):
     """(params, graph, positions) -> dict(energy, forces, stress).
 
     forces: (P, N_cap, 3) — per-partition owned rows (reassemble with
     HostGraphData.gather_owned); stress: (3, 3) in eV/Å^3, dE/deps / V.
-    Parameters are not differentiated (the force/stress program).
+    Parameters are not differentiated (the force/stress program). With
+    ``aux=True`` (the fused site readout) the model returns ``(e_atoms,
+    aux)`` and the result gains ``"aux"``: its (P, N_cap, ...) per-atom
+    outputs from the SAME forward.
     """
-    total_energy = make_total_energy(model_energy_fn, mesh, kernels=kernels)
+    total_energy = make_total_energy(model_energy_fn, mesh, kernels=kernels, aux=aux)
 
     def potential(params, graph, positions):
         positions = positions.detach().requires_grad_(True)
@@ -60,6 +72,8 @@ def make_potential_fn(model_energy_fn, mesh=None, compute_stress: bool = True,
                              requires_grad=compute_stress)
         with torch.enable_grad():
             energy = total_energy(params, graph, positions, strain)
+            if aux:
+                energy, aux_out = energy
             inputs = [positions, strain] if compute_stress else [positions]
             grads = torch.autograd.grad(energy, inputs)
         if compute_stress:
@@ -72,6 +86,9 @@ def make_potential_fn(model_energy_fn, mesh=None, compute_stress: bool = True,
             g_pos = grads[0]
             stress = torch.zeros((3, 3), dtype=positions.dtype,
                                  device=positions.device)
-        return {"energy": energy.detach(), "forces": -g_pos, "stress": stress}
+        out = {"energy": energy.detach(), "forces": -g_pos, "stress": stress}
+        if aux:
+            out["aux"] = {k: x.detach() for k, x in aux_out.items()}
+        return out
 
     return potential

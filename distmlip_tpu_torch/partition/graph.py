@@ -6,9 +6,10 @@ shapes everywhere; validity is carried by masks. ``build_partitioned_graph``
 returns numpy arrays; ``PartitionedGraph.to(device)`` turns them into torch
 tensors on that device.
 
-Only the fields a single-partition model reads are kept. The halo tables,
-ring shifts and interior/frontier split of the JAX graph serve P>1 and
-come with it (ROADMAP.md queue A).
+Only the fields a single-partition model reads are kept, among them the
+bond section of CHGNet's bond and line graphs. The halo tables (atom and
+bond), ring shifts and interior/frontier split of the JAX graph serve P>1
+and come with it (ROADMAP.md queue A).
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ _default_caps = CapacityPolicy()
 
 # array fields (everything but the statics)
 ARRAY_FIELDS = ("positions", "species", "owned_mask", "edge_src", "edge_dst",
-                "edge_offset", "edge_mask", "lattice")
+                "edge_offset", "edge_mask", "lattice", "line_src", "line_dst",
+                "line_mask", "line_center", "bond_map_edge", "bond_map_bond",
+                "bond_map_mask")
 
 
 @dataclass
@@ -46,12 +49,25 @@ class PartitionedGraph:
     edge_mask: Any          # (P, E_cap) bool
     lattice: Any            # (3, 3) replicated
 
+    # --- bond graph (CHGNet), width 0 without one ---
+    has_bond_graph: bool = False
+    b_cap: int = 0
+    line_src: Any = None    # (P, L_cap) int32 local bond ids
+    line_dst: Any = None    # (P, L_cap) int32, nondecreasing; pads repeat the last
+    line_mask: Any = None   # (P, L_cap) bool
+    line_center: Any = None  # (P, L_cap) int32 local atom id of the angle's center
+    bond_map_edge: Any = None  # (P, M_cap) int32 local (dst-sorted) edge id of a bond
+    bond_map_bond: Any = None  # (P, M_cap) int32 local bond id
+    bond_map_mask: Any = None  # (P, M_cap) bool
+
     def to(self, device) -> "PartitionedGraph":
         """A copy whose array fields are torch tensors on ``device``
         (dtypes kept: int32 ids, bool masks, the build's float dtype)."""
         import torch
 
         def conv(x):
+            if x is None:
+                return None
             if isinstance(x, torch.Tensor):
                 return x.to(device)
             return torch.as_tensor(np.asarray(x)).to(device)
@@ -101,8 +117,11 @@ def build_partitioned_graph(
 
     Edges are sorted by dst (stable) so segment reductions see sorted
     indices; padded edge rows repeat the last real dst (nondecreasing,
-    in-bounds) and are masked. The same arrays as the JAX package's
-    ``build_partitioned_graph`` at P=1, bit for bit.
+    in-bounds) and are masked. With a bond graph, line edges are sorted by
+    dst bond (stable, padding repeating the last) and the bond map's edge
+    ids follow the edge sort (``distmlip_tpu/partition/graph.py:347-382``).
+    The same arrays as the JAX package's ``build_partitioned_graph`` at
+    P=1, bit for bit.
     """
     if plan.num_partitions != 1:
         raise NotImplementedError(
@@ -139,6 +158,41 @@ def build_partitioned_graph(
     edge_dst[0, ne:] = plan.dst_local[0][perm[-1]] if ne else 0
     if np.any(np.diff(edge_dst[0]) < 0):
         raise RuntimeError("internal error: edge_dst must be sorted")
+    # padded slot of each plan edge (the inverse of the dst sort)
+    edge_perm_inv = np.empty(ne, dtype=np.int64)
+    edge_perm_inv[perm] = np.arange(ne, dtype=np.int64)
+
+    if plan.has_bond_graph:
+        b_cap = caps.get("bonds", int(plan.bond_markers[0][-1]))
+        l_cap = caps.get("lines", len(plan.line_src[0]))
+        m_cap = caps.get("bond_map", len(plan.bond_mapping_edge[0]))
+        line_src = np.zeros((P, l_cap), dtype=np.int32)
+        line_dst = np.zeros((P, l_cap), dtype=np.int32)
+        line_mask = np.zeros((P, l_cap), dtype=bool)
+        line_center = np.zeros((P, l_cap), dtype=np.int32)
+        bm_edge = np.zeros((P, m_cap), dtype=np.int32)
+        bm_bond = np.zeros((P, m_cap), dtype=np.int32)
+        bm_mask = np.zeros((P, m_cap), dtype=bool)
+        # line edges sorted by dst bond node for sorted segment sums
+        lperm = np.argsort(plan.line_dst[0], kind="stable")
+        nl_0 = len(plan.line_src[0])
+        line_src[0, :nl_0] = plan.line_src[0][lperm]
+        line_dst[0, :nl_0] = plan.line_dst[0][lperm]
+        line_dst[0, nl_0:] = plan.line_dst[0][lperm][-1] if nl_0 else 0
+        line_center[0, :nl_0] = plan.line_center_local[0][lperm]
+        line_mask[0, :nl_0] = True
+        if np.any(np.diff(line_dst[0]) < 0):
+            raise RuntimeError("internal error: line_dst must be sorted")
+        nm = len(plan.bond_mapping_edge[0])
+        bm_edge[0, :nm] = edge_perm_inv[plan.bond_mapping_edge[0]]
+        bm_bond[0, :nm] = plan.bond_mapping_bond[0]
+        bm_mask[0, :nm] = True
+    else:
+        b_cap = 0
+        line_src = line_dst = line_center = np.zeros((P, 0), dtype=np.int32)
+        line_mask = np.zeros((P, 0), dtype=bool)
+        bm_edge = bm_bond = np.zeros((P, 0), dtype=np.int32)
+        bm_mask = np.zeros((P, 0), dtype=bool)
 
     graph = PartitionedGraph(
         num_partitions=P,
@@ -152,6 +206,15 @@ def build_partitioned_graph(
         edge_offset=edge_offset,
         edge_mask=edge_mask,
         lattice=np.asarray(lattice, dtype=dtype),
+        has_bond_graph=plan.has_bond_graph,
+        b_cap=b_cap,
+        line_src=line_src,
+        line_dst=line_dst,
+        line_mask=line_mask,
+        line_center=line_center,
+        bond_map_edge=bm_edge,
+        bond_map_bond=bm_bond,
+        bond_map_mask=bm_mask,
     )
     host = HostGraphData(plan=plan, global_ids=plan.global_ids,
                          owned_counts=owned_counts)

@@ -14,6 +14,9 @@ cumulative-count vectors of length 2P+2):
     - owned nodes  = locals [0, owned_count)   (pure + all to-sections)
     - halo nodes   = locals [owned_count, total)
 
+The same layout is used for bond-graph nodes (directed edges within the
+bond cutoff promoted to line-graph nodes); at P=1 every bond node is owned.
+
 This port builds single-partition plans only (P=1); multi-partition slab
 and block plans are queued in ROADMAP.md.
 """
@@ -43,6 +46,17 @@ class PartitionPlan:
     src_local: list = field(default_factory=list)
     dst_local: list = field(default_factory=list)
     edge_offsets: list = field(default_factory=list)   # [p] -> (E_p, 3) int32
+
+    # bond graph (optional)
+    has_bond_graph: bool = False
+    bond_markers: list = field(default_factory=list)       # [p] -> (2P+2,)
+    bond_global_edge: list = field(default_factory=list)   # [p] -> (B_p,) global DE ids
+    bond_needs_in_line: list = field(default_factory=list) # [p] -> (B_p,) bool
+    line_src: list = field(default_factory=list)           # [p] -> (L_p,) local bond ids
+    line_dst: list = field(default_factory=list)
+    line_center_local: list = field(default_factory=list)  # [p] -> (L_p,) local atom ids
+    bond_mapping_edge: list = field(default_factory=list)  # [p] -> (M_p,) local edge ids
+    bond_mapping_bond: list = field(default_factory=list)  # [p] -> (M_p,) local bond ids
 
     @property
     def owned_counts(self) -> np.ndarray:

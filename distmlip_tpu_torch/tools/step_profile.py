@@ -1,12 +1,13 @@
 """Where one MD step's time goes on the card: ``torch.profiler`` over a
 smoke workload (``tools/workload.py``).
 
-    python -m distmlip_tpu_torch.tools.step_profile [--model mace|tensornet]
-        [--reps N] [--out DIR]
+    python -m distmlip_tpu_torch.tools.step_profile
+        [--model mace|tensornet|chgnet] [--reps N] [--out DIR]
 
 ``--model mace`` (the default) runs MACE at the MACE-MP-0-medium widths on
 2048 atoms (reps 8); ``--model tensornet`` runs TensorNet at the MatPES
-layout on 16384 atoms (reps 16).
+layout on 16384 atoms (reps 16); ``--model chgnet`` runs CHGNet at the
+MPtrj layout on 16384 atoms (reps 16) with magmoms.
 
 1. The first ``calculate`` (cold: CUDA context, library handles, the graph
    build and upload) under a CPU-only profile: its wall time and the ops
@@ -39,10 +40,10 @@ def _top(events, key, n):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("mace", "tensornet"), default="mace")
+    ap.add_argument("--model", choices=("mace", "tensornet", "chgnet"), default="mace")
     ap.add_argument("--reps", type=int, default=None,
                     help="crystal repeats (4 reps^3 atoms); default 8 for mace, "
-                         "16 for tensornet")
+                         "16 for tensornet and chgnet")
     ap.add_argument("--out", default=None,
                     help="directory for trace and tables (default "
                          "build/step_profile/<model>)")
@@ -57,17 +58,21 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ..calculators import DistPotential
-    from ..models import MACE, MACEConfig, TensorNet, TensorNetConfig
-    from .workload import MACE_KW, TENSORNET_KW, bench_atoms
+    from ..models import CHGNet, CHGNetConfig, MACE, MACEConfig, TensorNet, TensorNetConfig
+    from .workload import CHGNET_KW, MACE_KW, TENSORNET_KW, bench_atoms
 
     out_dir = args.out or os.path.join("build", "step_profile", args.model)
     os.makedirs(out_dir, exist_ok=True)
+    extra = {}
     if args.model == "mace":
         model, reps = MACE(MACEConfig(**MACE_KW)), args.reps or 8
-    else:
+    elif args.model == "tensornet":
         model, reps = TensorNet(TensorNetConfig(**TENSORNET_KW)), args.reps or 16
+    else:
+        model, reps = CHGNet(CHGNetConfig(**CHGNET_KW)), args.reps or 16
+        extra = {"compute_magmom": True}
     atoms, rng = bench_atoms(reps)
-    pot = DistPotential(model, model.init(0), device="cuda", skin=0.5)
+    pot = DistPotential(model, model.init(0), device="cuda", skin=0.5, **extra)
 
     with profile(activities=[ProfilerActivity.CPU]) as cold:
         t = time.perf_counter()
@@ -105,7 +110,8 @@ def main(argv=None) -> int:
     own = {}  # the port's kernels, by their __global__ names
     for e in kernels:
         for name in ("segment_sum_kernel", "tensornet_embed_kernel",
-                     "tensornet_interaction_kernel"):
+                     "tensornet_interaction_kernel", "chgnet_atom_conv_kernel",
+                     "chgnet_line_conv_kernel"):
             if name in e.key:
                 row = own.setdefault(name, {"calls": 0, "ms": 0.0})
                 row["calls"] += e.count

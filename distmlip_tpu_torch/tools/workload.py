@@ -6,8 +6,11 @@
 - TensorNet at the matgl TensorNet-MatPES-PBE layout (89 species, 64
   channels, 32 RBF, 2 layers, cutoff 5.0 Å; the full-size layout that
   ``tests/test_convert_tensornet.py:228-240`` converts), float32.
+- CHGNet at the matgl MPtrj layout (89 species, 64 units, 31 RBF,
+  max_f 4, 4 blocks, cutoff 6.0 Å, bond cutoff 3.0 Å; the full-size layout
+  that ``tests/test_convert_chgnet.py:328-342`` converts), float32.
 
-Both run on bench.py's perturbed Si crystal (lattice 3.9 Å per 4-atom
+All run on bench.py's perturbed Si crystal (lattice 3.9 Å per 4-atom
 cell, 0.04 Å noise, seed 0): ``reps=8`` gives 2048 atoms; bench.py's own
 default is reps=16 (16384 atoms).
 """
@@ -21,6 +24,8 @@ MACE_KW = dict(num_species=95, channels=128, l_max=3, a_lmax=3, hidden_lmax=1,
                cutoff=5.0, avg_num_neighbors=14.0, remat=True,
                edge_chunk=32768, node_chunk=4096)
 TENSORNET_KW = dict(num_species=89, units=64, num_rbf=32, num_layers=2, cutoff=5.0)
+CHGNET_KW = dict(num_species=89, units=64, num_rbf=31, num_angle=4, num_blocks=4,
+                 cutoff=6.0, bond_cutoff=3.0)
 
 
 def bench_atoms(reps: int = 8, seed: int = 0):

@@ -6,7 +6,7 @@ This file imports no JAX, so it also runs on a GPU machine without JAX
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
 Without a card every test here skips with its reason. The dst-sorted cases
-and the TensorNet message inputs are shared with
+and the TensorNet and CHGNet message inputs are shared with
 ``tests/test_torch_segment.py`` and ``tests/test_torch_edge_aggregate.py``,
 which hold the port's plain versions against the JAX package on the same
 cases.
@@ -76,6 +76,57 @@ EDGE_AGG_CASES = {
     "channels_past_a_block": (4, 90, 13, 6, 2, None, 300),
     "long_padded_tail": (5, 400, 50, 5000, 3, None, 4),
 }
+
+
+# name: (seed, e, n, pad, interior_masked, hi, channels, hidden)
+CHGNET_CASES = {
+    "repeated_tail_padding": (0, 300, 37, 40, 0, None, 8, 8),
+    "empty_rows": (1, 120, 60, 10, 5, 20, 16, 16),
+    "e_not_multiple_of_block": (2, 517, 45, 3, 9, None, 16, 12),
+    "channels_7": (3, 260, 29, 12, 4, None, 7, 7),
+    "long_padded_tail": (5, 400, 50, 5000, 3, None, 4, 6),
+    "matgl_widths": (6, 700, 40, 30, 20, None, 64, 64),
+}
+
+
+def chgnet_inputs(seed, which, e, c, h, n_node=23):
+    """Inputs of one CHGNet message at (E, C), hidden width H, in the order
+    of its plain version up to ``weights``: the atom conv's node array
+    (N, C) gathered at src and at dst, e and abw (E, C); the line conv's
+    bond array (N, C) gathered at line_src and at line_dst, the angle rows
+    (E, C) and the node array (N, C) at the centers. Then the gated MLP's
+    8 weights (core w1 (K1, H), b1, w2 (H, C), b2, then the gate's) at the
+    scale of a linear init."""
+    rng = np.random.default_rng(400 + seed)
+
+    def f32(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    def idx():
+        return rng.integers(0, n_node, e).astype(np.int32)
+
+    if which == "atom":
+        node = f32(n_node, c)
+        arrays, k1 = [node, idx(), node, idx(), f32(e, c), f32(e, c)], 3 * c
+    else:
+        bond = f32(n_node, c)
+        arrays, k1 = [bond, idx(), bond, idx(), f32(e, c), f32(n_node, c), idx()], 4 * c
+    weights = []
+    for _ in range(2):
+        weights += [f32(k1, h) / k1 ** 0.5, f32(h) / k1 ** 0.5,
+                    f32(h, c) / h ** 0.5, f32(c) / h ** 0.5]
+    return arrays, [w.astype(np.float32) for w in weights]
+
+
+def chgnet_rows(which, arrays):
+    """(the concat rows (E, K1) of a CHGNet message, its abw or None) from
+    torch tensors in ``chgnet_inputs``' order."""
+    g = lambda node, i: node.index_select(0, i.long())  # noqa: E731
+    if which == "atom":
+        node_src, src, node_dst, dst, edge, abw = arrays
+        return torch.cat([g(node_src, src), g(node_dst, dst), edge], -1), abw
+    bond_src, ls, bond_dst, ld, angle, node, ctr = arrays
+    return torch.cat([g(bond_src, ls), g(bond_dst, ld), angle, g(node, ctr)], -1), None
 
 
 def edge_bound(ids, mask, n, abs_ref):
@@ -261,3 +312,103 @@ def test_tensornet_on_card_matches_cpu(card):
     assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
     np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)
     np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-4)
+
+
+def _chgnet_case_on_card(card, name, which):
+    seed, e, n, pad, im, hi, c, h = CHGNET_CASES[name]
+    ids, mask, n = sorted_case(seed, e, n, pad, im, hi)
+    arrays, weights = chgnet_inputs(seed, which, len(ids), c, h)
+    to = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    return [to(x) for x in arrays], [to(w) for w in weights], to(ids), to(mask), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["atom", "line"])
+@pytest.mark.parametrize("name", sorted(CHGNET_CASES))
+def test_chgnet_kernels_match_plain_on_card(card, name, which):
+    """Both CHGNet kernels vs their plain versions on the card, within the
+    derived bound ``chgnet_aggregate_error_bound``, on the shared cases and
+    on an all-masked input."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, weights, ti, tm, n = _chgnet_case_on_card(card, name, which)
+    if which == "atom":
+        cuda, ref = K.chgnet_atom_conv_aggregate_cuda, K.chgnet_atom_conv_aggregate_reference
+        count = "chgnet_atom_conv_aggregate"
+    else:
+        cuda, ref = K.chgnet_line_aggregate_cuda, K.chgnet_line_aggregate_reference
+        count = "chgnet_line_aggregate"
+    before = K.launch_counts[count]
+    got = cuda(*arrays, weights, ti, n, tm)
+    want = ref(*arrays, weights, ti, n, tm)
+    torch.cuda.synchronize()
+    assert K.launch_counts[count] == before + 1
+    assert got.shape == want.shape == (n, arrays[4].shape[1]) and got.dtype == torch.float32
+    x, abw = chgnet_rows(which, arrays)
+    bound = K.chgnet_aggregate_error_bound(x, abw, weights, ti, n, tm)
+    assert bool(((got - want).abs() <= bound + 1e-30).all()), name
+    assert not cuda(*arrays, weights, ti, n, torch.zeros_like(tm)).any()
+    if which == "atom":  # no per-edge weights (shared_bond_weights=None)
+        got = cuda(*arrays[:5], None, weights, ti, n, tm)
+        want = ref(*arrays[:5], None, weights, ti, n, tm)
+        bound = K.chgnet_aggregate_error_bound(x, None, weights, ti, n, tm)
+        assert bool(((got - want).abs() <= bound + 1e-30).all()), name
+
+
+@pytest.mark.cuda
+def test_chgnet_dispatch_on_card(card):
+    """The Function on the card with weights: the kernel launches once, the
+    backward (inputs and weights) matches the plain path's, and weights
+    that need no gradient get none."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, weights, ti, tm, n = _chgnet_case_on_card(card, "empty_rows", "line")
+    bond, ls, _, ld, angle, node, ctr = arrays
+    leaves = [x.clone().requires_grad_(True) for x in (bond, angle, node)]
+    wl = [w.clone().requires_grad_(True) for w in weights]
+
+    def run(kernels):
+        b, a, v = leaves
+        out = K.fused_edge_aggregate(
+            K.CHGNET_LINE_CONV, [K.Gather(b, ls), K.Gather(b, ld), a, K.Gather(v, ctr)],
+            ti, n, tm, kernels=kernels, weights=wl)
+        return out, torch.autograd.grad((out ** 2).sum(), leaves + wl)
+
+    before = K.launch_counts["chgnet_line_aggregate"]
+    out, got = run(True)
+    assert K.launch_counts["chgnet_line_aggregate"] == before + 1
+    plain, want = run(False)
+    assert K.launch_counts["chgnet_line_aggregate"] == before + 1
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_chgnet_on_card_matches_cpu(card):
+    """CHGNet at small size with magmoms: the port on the card (kernels on)
+    vs on the CPU (plain versions), same params and structure."""
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
+
+    rng = np.random.default_rng(0)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lat = geometry.make_supercell(unit, np.eye(3) * 3.5, (2, 2, 2))
+    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.1, (32, 3))
+    atoms = Atoms(numbers=rng.integers(0, 4, 32), positions=cart, cell=lat)
+    model = CHGNet(CHGNetConfig(num_species=4, units=16, num_rbf=6, num_blocks=3,
+                                cutoff=3.2, bond_cutoff=2.6))
+    params = model.init(0)
+    before = dict(launch_counts)
+    gpu = DistPotential(model, params, device=card, skin=0.5,
+                        compute_magmom=True).calculate(atoms)
+    assert launch_counts["chgnet_atom_conv_aggregate"] == before["chgnet_atom_conv_aggregate"] + 3
+    assert launch_counts["chgnet_line_aggregate"] == before["chgnet_line_aggregate"] + 2
+    cpu = DistPotential(model, params, device="cpu", skin=0.5,
+                        compute_magmom=True).calculate(atoms)
+    assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
+    np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)
+    np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-4)
+    np.testing.assert_allclose(gpu["magmoms"], cpu["magmoms"], atol=1e-4)

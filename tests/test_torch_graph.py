@@ -1,7 +1,8 @@
 """The port's host graph layer and tables against the JAX package's.
 
-Neighbor lists, the P=1 partition plan and the capacity-padded graph are
-numpy on both sides and must agree bit for bit; so must the chunk layout,
+Neighbor lists, the P=1 partition plan and the capacity-padded graph,
+CHGNet's bond and line graphs included, are numpy on both sides and must
+agree bit for bit; so must the chunk layout,
 the Clebsch-Gordan tensors and MACE's U bases (the port reads its own copy
 of the tracked U cache). The torch device helpers (spherical harmonics,
 radial bases, strain, edge vectors) agree with the JAX ones to float32
@@ -85,12 +86,99 @@ def test_neighbor_list_and_p1_graph_bit_for_bit(name):
 
 
 def test_p_gt_1_and_bond_graph_raise():
+    """P>1 raises, with a bond graph too; a P=1 bond graph builds (below)."""
     cart, lat, spec, r = STRUCTS["crystal"]
-    nl = port_nl(cart, lat, [1, 1, 1], r)
+    nl = port_nl(cart, lat, [1, 1, 1], r, bond_r=3.0)
     with pytest.raises(NotImplementedError, match="P>1"):
         build_plan(nl, lat, [1, 1, 1], 2, r)
-    with pytest.raises(NotImplementedError, match="CHGNet"):
-        build_plan(nl, lat, [1, 1, 1], 1, r, use_bond_graph=True)
+    with pytest.raises(NotImplementedError, match="P>1"):
+        build_plan(nl, lat, [1, 1, 1], 2, r, 3.0, use_bond_graph=True)
+    with pytest.raises(NotImplementedError, match="P>1"):
+        build_plan(nl, lat, [1, 1, 1], 1, r, 3.0, use_bond_graph=True, grid=(2, 1, 1))
+    assert build_plan(nl, lat, [1, 1, 1], 1, r, 3.0, use_bond_graph=True).has_bond_graph
+
+
+BOND_STRUCTS = {
+    # fcc a = 3.5 (nn 2.47 Å) rattled by 0.1 Å, CHGNet's test cutoffs
+    # (3.2 / 2.6 Å) plus a 0.5 Å skin: skin-shell edges AND bonds
+    "fcc_skin": (make_crystal(np.random.default_rng(1), reps=(2, 2, 2), a=3.5, noise=0.1,
+                              n_species=4), 3.7, 3.1),
+    "triclinic": (STRUCTS["triclinic"][:3], 4.2, 3.0),
+    "crystal_no_skin": (STRUCTS["crystal"][:3], 5.0, 3.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BOND_STRUCTS))
+def test_bond_graph_bit_for_bit(name):
+    """The plan's bond section (markers, bond edges, line joins, maps) and
+    the graph's (b_cap, line_*, bond_map_* and their caps l_cap, m_cap)
+    equal the JAX package's; the LocalGraph remaps do what the JAX ones do."""
+    (cart, lat, spec), r, br = BOND_STRUCTS[name]
+    a = jax_nl(cart, lat, [1, 1, 1], r, bond_r=br)
+    b = port_nl(cart, lat, [1, 1, 1], r, bond_r=br)
+    np.testing.assert_array_equal(a.bond_mask, b.bond_mask)
+    jp = jax_build_plan(a, lat, [1, 1, 1], 1, r, br, True)
+    tp = build_plan(b, lat, [1, 1, 1], 1, r, br, True)
+    assert jp.has_bond_graph and tp.has_bond_graph
+    for k in ("bond_markers", "bond_global_edge", "bond_needs_in_line", "line_src",
+              "line_dst", "line_center_local", "bond_mapping_edge", "bond_mapping_bond"):
+        x, y = getattr(jp, k)[0], getattr(tp, k)[0]
+        assert x.dtype == y.dtype, k
+        np.testing.assert_array_equal(x, y, err_msg=k)
+    jg, _ = jax_build_graph(jp, a, spec, lat, caps=JCaps())
+    tg, _ = build_partitioned_graph(tp, b, spec, lat, caps=CapacityPolicy())
+    assert jg.has_bond_graph and tg.has_bond_graph and jg.b_cap == tg.b_cap
+    assert tg.line_src.shape[1] > 0 and tg.line_mask.sum() > 0
+    for k in ARRAY_FIELDS:
+        x, y = np.asarray(getattr(jg, k)), np.asarray(getattr(tg, k))
+        assert x.dtype == y.dtype and x.shape == y.shape, k
+        np.testing.assert_array_equal(x, y, err_msg=k)
+    if name == "fcc_skin":  # bonds and edges in the skin shell
+        assert (b.distances[b.bond_mask] > 2.6).any() and (b.distances > 3.2).any()
+    # edge_to_bond / bond_to_edge set the same rows as the JAX scatters
+    jl = jax_local_graph(jg, None)[0]
+    tl = local_graph_from_stacked(tg.to("cpu"))
+    rng = np.random.default_rng(2)
+    ef = rng.normal(size=(tg.e_cap, 3)).astype(np.float32)
+    bf = rng.normal(size=(tg.b_cap, 3)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tl.edge_to_bond(torch.from_numpy(ef), torch.from_numpy(bf)).numpy(),
+        np.asarray(jl.edge_to_bond(jnp.asarray(ef), jnp.asarray(bf))))
+    np.testing.assert_array_equal(
+        tl.bond_to_edge(torch.from_numpy(bf), torch.from_numpy(ef)).numpy(),
+        np.asarray(jl.bond_to_edge(jnp.asarray(bf), jnp.asarray(ef))))
+
+
+def test_bond_remaps_have_set_semantics_in_autograd():
+    """An overwritten target row gets no gradient; each written row's
+    gradient goes to its source row; masked map rows move nothing."""
+    from distmlip_tpu_torch.parallel.halo import _set_rows
+
+    target = torch.randn(5, 2, dtype=torch.float64, requires_grad=True)
+    vals = torch.randn(4, 2, dtype=torch.float64, requires_grad=True)
+    idx = torch.tensor([3, 0, 1, 0], dtype=torch.int32)
+    mask = torch.tensor([True, True, False, False])
+    out = _set_rows(target, idx, mask, vals)
+    want = target.detach().clone()
+    want[3], want[0] = vals.detach()[0], vals.detach()[1]
+    torch.testing.assert_close(out, want)
+    g = torch.arange(10, dtype=torch.float64).reshape(5, 2)
+    gt, gv = torch.autograd.grad(out, (target, vals), g)
+    torch.testing.assert_close(gt, g * torch.tensor([0, 1, 1, 0, 1.0])[:, None])
+    torch.testing.assert_close(gv, torch.stack([g[3], g[0], torch.zeros(2), torch.zeros(2)]))
+    assert torch.autograd.gradcheck(lambda t, v: _set_rows(t, idx, mask, v), (target, vals))
+
+
+def test_self_loop_bond_warns_like_jax():
+    """A cell smaller than the bond cutoff gives self-loop bonds: both
+    packages warn."""
+    cart, lat = np.array([[0.1, 0.2, 0.3]]), np.eye(3) * 2.0
+    nl = port_nl(cart, lat, [1, 1, 1], 2.9, bond_r=2.5)
+    with pytest.warns(UserWarning, match="self-loop"):
+        build_plan(nl, lat, [1, 1, 1], 1, 2.9, 2.5, True)
+    with pytest.warns(UserWarning, match="self-loop"):
+        jax_build_plan(jax_nl(cart, lat, [1, 1, 1], 2.9, bond_r=2.5), lat, [1, 1, 1], 1,
+                       2.9, 2.5, True)
 
 
 @pytest.mark.parametrize("e_cap,chunk,split", [
@@ -122,6 +210,31 @@ def test_u_basis_and_cg_match_jax():
     for ls in ((0, 1, 1), (1, 1, 2), (2, 3, 1), (3, 3, 2)):
         np.testing.assert_array_equal(jso3.real_clebsch_gordan(*ls),
                                       tso3.real_clebsch_gordan(*ls))
+
+
+def test_chgnet_bases_match_jax():
+    """matgl's bessel basis (learnable frequencies, safe at d = 0), the
+    interleaved Fourier expansion and the unclamped polynomial cutoff on
+    negative, in-range and beyond-cutoff values."""
+    rng = np.random.default_rng(6)
+    d = np.concatenate([[0.0], rng.uniform(0.3, 6.5, 40)]).astype(np.float32)
+    freq = (np.pi * np.arange(1, 8) * rng.uniform(0.9, 1.1, 7)).astype(np.float32)
+    np.testing.assert_allclose(
+        tradial.radial_bessel(torch.from_numpy(d), torch.from_numpy(freq), 6.0).numpy(),
+        np.asarray(jradial.radial_bessel(jnp.asarray(d), jnp.asarray(freq), 6.0)),
+        atol=2e-6)
+    theta = rng.uniform(0, np.pi, 30).astype(np.float32)
+    fa = np.arange(0, 5, dtype=np.float32) * rng.uniform(0.9, 1.1, 5).astype(np.float32)
+    np.testing.assert_allclose(
+        tradial.matgl_fourier_expansion(torch.from_numpy(theta), torch.from_numpy(fa)).numpy(),
+        np.asarray(jradial.matgl_fourier_expansion(jnp.asarray(theta), jnp.asarray(fa))),
+        atol=2e-6)
+    x = np.concatenate([rng.uniform(-2.0, 7.0, 40), [6.0]]).astype(np.float32)
+    got = tradial.matgl_polynomial_cutoff(torch.from_numpy(x), 6.0, 5).numpy()
+    np.testing.assert_allclose(
+        got, np.asarray(jradial.matgl_polynomial_cutoff(jnp.asarray(x), 6.0, 5)),
+        rtol=1e-5, atol=1e-5)
+    assert not got[x > 6.0].any() and (got[x < 0] > 1).all()
 
 
 def test_device_helpers_match_jax():
