@@ -26,7 +26,15 @@ Phases (each failure raises, so the exit code is non-zero):
    and C = 7. Their tolerance is derived in
    ``kernels.chgnet_aggregate_error_bound``: first-order rounding of both
    layers' dot products (K + 2) u, the activations' slopes and ulps, the
-   gating products and the k-term dst sum, for each side;
+   gating products and the k-term dst sum, for each side. The SO(2)
+   kernel (``[kernels] so2_conv``) at the eSCN path's chunk shape (32768,
+   25, 128) with l_max-4 weights from a seed, reading and writing the e3nn
+   order through its row table as the model calls it, then at E of 1, 37
+   and 1003 for l_max 1, 2, 4, 6 and C 8, 16, 128, and C = 7 (the
+   scalar-load path); tolerance ``kernels.so2_conv_error_bound``,
+   |kernel - plain| <= 2 k u (|f| @ |W|) with k the contraction length (d,
+   or 2d for m > 0) and u = 2^-24. The segment sum also at eSCN's
+   (32768, 25 * 128) row width;
 4. the MACE path — MACE at the MACE-MP-0-medium widths (channels 128,
    l_max = a_lmax = 3, correlation 3, 2 interactions; random weights from
    seed 0) through ``DistPotential(device="cuda", skin=0.5)`` on a
@@ -46,8 +54,16 @@ Phases (each failure raises, so the exit code is non-zero):
    calculate runs one atom-conv aggregation per block (4) and one line
    aggregation per bond block (num_blocks - 1 = 3); the backward is the
    plain chunked recompute and launches none. 4 calculates give 16 and 12;
-7. a small structure of each model on the card (kernels) against the CPU
-   (plain), CHGNet's with magmoms.
+7. the eSCN path (``[main-escn]``) — eSCN at the single-chip UMA widths
+   (channels 128, l_max 4, 2 layers, 8 experts, cutoff 5 Å; random weights
+   from seed 0, ``species_ref`` off its default) with charge 1, spin 1 and
+   dataset 2 through ``DistPotential(device="cuda", skin=0.5)`` on the
+   2048-atom Si crystal, the same way. Launches derived: per calculate, K
+   edge chunks forward and K recomputes of the checkpointed chunk bodies in
+   the backward, so the SO(2) kernel runs 2 layers x 2K and the segment
+   sum 3 scans (the edge-degree pass and 2 layers) x 2K;
+8. a small structure of each model on the card (kernels) against the CPU
+   (plain), CHGNet's with magmoms, eSCN's with conditioning set.
 
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -67,13 +83,15 @@ REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             "tensornet_embed_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "tensornet_interaction_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "chgnet_atom_conv_aggregate": "distmlip_tpu/kernels/segment.py:224",
-            "chgnet_line_aggregate": "distmlip_tpu/kernels/segment.py:224"}
+            "chgnet_line_aggregate": "distmlip_tpu/kernels/segment.py:224",
+            "so2_conv": "distmlip_tpu/kernels/so3.py:89"}
 SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "tensornet_embed_aggregate": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "tensornet_interaction_aggregate":
                "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "chgnet_atom_conv_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
-           "chgnet_line_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu"}
+           "chgnet_line_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
+           "so2_conv": "distmlip_tpu_torch/kernels/csrc/so2_conv.cu"}
 STEPS = 3
 TENSORNET_REPS = 16  # bench.py's default structure: 16384 atoms
 CHGNET_REPS = 16
@@ -553,6 +571,128 @@ def phase_chgnet_kernels(torch):
     return errs, timed
 
 
+def so2_case(torch, gen, e, l_max, c):
+    """Random eSCN SO(2) inputs on the card: h (E, S, C) in the e3nn order,
+    the model's m_idx and weights [W0, W1r, W1i, ...] at the init's
+    1/sqrt(d) scale."""
+    from distmlip_tpu_torch.ops.so3_e3nn import CoeffLayout
+
+    lay = CoeffLayout(l_max)
+    m_idx = {m: (lay.plus_idx[m], lay.minus_idx[m]) for m in range(l_max + 1)}
+    h = torch.randn((e, (l_max + 1) ** 2, c), generator=gen, device="cuda")
+    weights = []
+    for m in range(l_max + 1):
+        d = (l_max + 1 - m) * c
+        weights += [torch.randn((d, d), generator=gen, device="cuda") / d ** 0.5
+                    for _ in range(1 if m == 0 else 2)]
+    return h, weights, m_idx
+
+
+def check_so2(torch, h, weights, m_idx, c):
+    """The kernel, reading and writing the e3nn order through its row table
+    (as ``fused_so2_conv`` calls it), vs the plain version on the packed
+    rows, within ``so2_conv_error_bound``. Returns (max |err|, max |err| /
+    bound)."""
+    from distmlip_tpu_torch import kernels as K
+
+    perm, inv, segments = K.packed_m_layout(m_idx)
+    got = K.so2_conv_cuda(h, weights, segments, c, perm)
+    hp = h[:, torch.as_tensor(perm, device="cuda").long()]
+    inv_t = torch.as_tensor(inv, device="cuda").long()
+    want = K.so2_conv_reference(hp, weights, segments, c)[:, inv_t]
+    tol = K.so2_conv_error_bound(hp, weights, segments, c)[:, inv_t]
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"so2_conv shape/dtype {got.shape} {got.dtype} vs "
+                             f"{want.shape} {want.dtype}")
+    err = (got - want).abs()
+    if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"so2_conv disagrees with its plain version: max |err| "
+                             f"{float(err.max())}, max tolerance {float(tol.max())}")
+    if not err.numel():
+        return 0.0, 0.0
+    return float(err.max()), float((err / (tol + 1e-30)).max())
+
+
+def time_so2(torch, h, weights, m_idx, c, iters=20):
+    """Kernel, plain and library times of one SO(2) convolution. The plain
+    version is the dispatcher's ``kernels=False`` path (the reference on the
+    packed rows, permuted in and out); the library call is the five cuBLAS
+    products on operands already packed in the complex-pair form
+    ([f+ | f-] and [[Wr, Wi], [-Wi, Wr]] built beforehand): the GEMM work
+    alone."""
+    from distmlip_tpu_torch import kernels as K
+
+    perm, _, segments = K.packed_m_layout(m_idx)
+    e = h.shape[0]
+    ms = cuda_ms(torch, lambda: K.so2_conv_cuda(h, weights, segments, c, perm),
+                 iters=iters)
+    with torch.no_grad():
+        plain_ms = cuda_ms(torch, lambda: K.fused_so2_conv(h, weights, m_idx, c,
+                                                           kernels=False), iters=iters)
+    hp = h[:, torch.as_tensor(perm, device="cuda").long()]
+    operands, wi = [], 0
+    for m, start, nl in segments:
+        d = nl * c
+        if m == 0:
+            operands.append((hp[:, start:start + nl].reshape(e, d).contiguous(), weights[wi]))
+            wi += 1
+        else:
+            wr, wim = weights[wi], weights[wi + 1]
+            wi += 2
+            b = torch.cat([torch.cat([wr, wim], 1), torch.cat([-wim, wr], 1)], 0)
+            operands.append((hp[:, start:start + 2 * nl].reshape(e, 2 * d).contiguous(), b))
+    library_ms = cuda_ms(torch, lambda: [torch.matmul(a, b) for a, b in operands],
+                         iters=iters)
+    del operands, hp
+    widths = [nl * c * (1 if m == 0 else 2) for m, _, nl in segments]
+    ops = 2 * e * sum(w * w for w in widths)
+    # h read once, the output written once, the weights read once
+    nbytes = 2 * h.numel() * 4 + sum(w.numel() for w in weights) * 4
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"e": e, "s": h.shape[1], "channels": c, "widths": widths, "ms": ms,
+            "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "five cuBLAS products on pre-packed [f+|f-] and [[Wr,Wi],[-Wi,Wr]]",
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops, "bytes": nbytes}
+
+
+def phase_so2_kernels(torch):
+    """The SO(2) kernel at the eSCN path's chunk shape, then the small and
+    ragged cases; and the segment sum at eSCN's row width."""
+    from distmlip_tpu_torch.tools.workload import ESCN_KW
+
+    gen = torch.Generator(device="cuda").manual_seed(97531)
+    c, l_max, chunk = ESCN_KW["channels"], ESCN_KW["l_max"], ESCN_KW["edge_chunk"]
+    h, weights, m_idx = so2_case(torch, gen, chunk, l_max, c)
+    found = [check_so2(torch, h, weights, m_idx, c)]
+    headline = time_so2(torch, h, weights, m_idx, c)
+    log(f"[kernels] so2_conv {[chunk, (l_max + 1) ** 2, c]}: {json.dumps(headline)}")
+    del h, weights
+    torch.cuda.empty_cache()
+    cases = []
+    for e in (1, 37, 1003):
+        for lm in (1, 2, 4, 6):
+            for cc in (8, 16, 128, 7):
+                if cc == 7 and lm not in (1, 4):
+                    continue
+                sub = so2_case(torch, gen, e, lm, cc)
+                found.append(check_so2(torch, *sub, cc))
+                t = time_so2(torch, *sub, cc, iters=5)
+                cases.append({k: t[k] for k in ("e", "s", "channels", "ms", "bound_ms",
+                                                "bound_by", "plain_ms", "library_ms")})
+    for t in cases:
+        log(f"[kernels] so2_conv case {json.dumps(t)}")
+    err, ratio = max(f[0] for f in found), max(f[1] for f in found)
+    log(f"[kernels] so2_conv: all {len(found)} cases agree with the plain version; "
+        f"max |err| {err}, max |err| / tolerance {ratio}")
+    seg = slice_case(torch, gen, chunk, ((l_max + 1) ** 2, c))
+    seg_err = check_segment_sum(torch, *seg)
+    seg_time = time_segment_sum(torch, *seg)
+    log(f"[kernels] segment_sum at eSCN's row width: {json.dumps(seg_time)} "
+        f"(max |err| {seg_err})")
+    return err, headline, seg_time
+
+
 def check_result(res, n_atoms):
     import numpy as np
 
@@ -769,6 +909,52 @@ def phase_chgnet(torch):
     return launches
 
 
+def phase_escn(torch):
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import ESCN, ESCNConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import ESCN_INFO, ESCN_KW, bench_atoms
+
+    t0 = time.perf_counter()
+    model = ESCN(ESCNConfig(**ESCN_KW))
+    params = model.init(0)
+    # the readout's reference energies off their zero default, so a dropped
+    # term would show
+    params["species_ref"]["w"] = torch.randn((ESCN_KW["num_species"],),
+                                             generator=torch.Generator().manual_seed(0))
+    atoms, rng = bench_atoms()
+    atoms.info = dict(ESCN_INFO)
+    pot = DistPotential(model, params, device="cuda", skin=0.5)
+    log(f"[main-escn] model + params + potential built in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
+    stats = pot.last_stats
+    K = chunk_layout(stats["e_cap"], ESCN_KW["edge_chunk"])[2]
+    n_calc, layers = 1 + STEPS, ESCN_KW["num_layers"]
+    expected = {k: 0 for k in launches}
+    expected["so2_conv"] = n_calc * layers * 2 * K
+    expected["segment_sum"] = n_calc * (1 + layers) * 2 * K
+    log(f"[main-escn] launches: {n_calc} calculates x (K={K} forward chunks + K={K} "
+        f"backward recomputes of the checkpointed chunk bodies) x ({layers} layers "
+        f"for so2_conv = {expected['so2_conv']}; 1 edge-degree pass + {layers} layers "
+        f"for segment_sum = {expected['segment_sum']}); counted {launches} "
+        f"(e_cap {stats['e_cap']}, edge_chunk {ESCN_KW['edge_chunk']})")
+    if launches != expected:
+        raise AssertionError(f"kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+
+    ref_pot = DistPotential(model, params, device="cuda", skin=0.5, kernels=False)
+    _, ref_step_s, ref_peak = compare_with_plain(torch, ref_pot, atoms, geometries,
+                                                 results, "main-escn")
+    summary = summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results,
+                        launches, expected)
+    summary["edge_chunks"] = K
+    summary["rebuilds"] = pot.rebuild_count
+    log(f"[main-escn] {json.dumps(summary)}")
+    return launches
+
+
 def small_structure(a=4.0, noise=0.05, n_species=3):
     import numpy as np
 
@@ -839,17 +1025,20 @@ def main() -> int:
                 if "registers" in line or "spill" in line:
                     log(f"[build]   {line.strip()}")
 
-    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, MACE, MACEConfig, TensorNet,
-                                           TensorNetConfig)
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
+                                           MACEConfig, TensorNet, TensorNetConfig)
 
     max_err, timed, _ = phase_kernels(torch)
     edge_errs, edge_timed = phase_edge_aggregate_kernels(torch)
     chg_errs, chg_timed = phase_chgnet_kernels(torch)
+    so2_err, so2_timed, seg_escn = phase_so2_kernels(torch)
     launches = phase_main_path(torch)
     torch.cuda.empty_cache()
     tn_launches = phase_tensornet(torch)
     torch.cuda.empty_cache()
     chg_launches = phase_chgnet(torch)
+    torch.cuda.empty_cache()
+    escn_launches = phase_escn(torch)
     torch.cuda.empty_cache()
     phase_small_reference(torch, MACE(MACEConfig(
         num_species=4, channels=16, l_max=3, a_lmax=3, hidden_lmax=1, correlation=3,
@@ -861,6 +1050,12 @@ def main() -> int:
     phase_small_reference(torch, CHGNet(CHGNetConfig(
         num_species=4, units=16, num_rbf=6, num_blocks=3, cutoff=3.2, bond_cutoff=2.6)),
         "small-chgnet", small_structure(3.5, 0.1, 4), skin=0.5, compute_magmom=True)
+    small_escn_atoms = small_structure(3.5, 0.1, 4)
+    small_escn_atoms.info = {"charge": 1, "spin": 2, "dataset": 3}
+    phase_small_reference(torch, ESCN(ESCNConfig(
+        num_species=4, channels=16, l_max=2, num_layers=2, num_bessel=6, num_experts=4,
+        cutoff=3.2, avg_num_neighbors=12.0, edge_chunk=256)), "small-escn",
+        small_escn_atoms, skin=0.5)
 
     headline = timed[-1]  # the (32768, 40, 128) chunk of interaction 1
     kernels = [{
@@ -870,7 +1065,8 @@ def main() -> int:
         "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
         "library_ms": headline["library_ms"], "shape": headline["shape"],
-        "per_shape": timed,
+        "per_shape": timed + [seg_escn],
+        "escn_launches": escn_launches["segment_sum"],
     }]
     for which in ("embed", "interaction"):
         name = f"tensornet_{which}_aggregate"
@@ -895,6 +1091,14 @@ def main() -> int:
             "shape": [t["e"], t["channels"]], "hidden": t["hidden"],
             "valid_edges": t["valid_edges"], "n_segments": t["n_segments"],
         })
+    kernels.append({
+        "name": "so2_conv", "route": "cuda", "source": SOURCES["so2_conv"],
+        "replaces": REPLACES["so2_conv"], "launches": escn_launches["so2_conv"],
+        "max_abs_err": so2_err, "ms": so2_timed["ms"], "plain_ms": so2_timed["plain_ms"],
+        "bound_ms": so2_timed["bound_ms"], "bound_by": so2_timed["bound_by"],
+        "library_ms": so2_timed["library_ms"], "library": so2_timed["library"],
+        "shape": [so2_timed["e"], so2_timed["s"], so2_timed["channels"]],
+    })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

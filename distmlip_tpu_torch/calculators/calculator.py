@@ -18,8 +18,12 @@ output (the fused site readout, ``model.energy_and_aux_fn``).
 Not ported yet (queued in ROADMAP.md): the background prefetch rebuild,
 the on-device graph refresh, telemetry records and timings, the contract
 audit, the separate-forward site readout (``fused_site_readout=False``),
-per-system conditioning (charge/spin/dataset), a compute dtype other than
-float32, and ``num_partitions > 1``.
+a compute dtype other than float32, and ``num_partitions > 1``.
+
+Per-system conditioning (eSCN's charge, spin and dataset) is read from
+``atoms.info`` (the ASE convention), range-checked against the model's
+config, carried by the graph, and part of the skin cache's key: a change of
+charge rebuilds.
 """
 
 from __future__ import annotations
@@ -113,7 +117,7 @@ class DistPotential:
             model.energy_and_aux_fn if self.compute_magmom else model.energy_fn, None,
             compute_stress=self.compute_stress, kernels=kernels,
             aux=self.compute_magmom)
-        # (graph on device, host, build positions, numbers, cell, pbc)
+        # (graph on device, host, build positions, numbers, cell, pbc, system)
         self._cache = None
         # graph shape of the LAST calculate() (n_atoms, n_cap, e_cap,
         # n_edges; with a bond graph b_cap, n_bonds, l_cap, n_lines), as
@@ -132,7 +136,8 @@ class DistPotential:
         plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r_build, b_build,
                           self.use_bond_graph)
         graph, host = build_partitioned_graph(
-            plan, nl, self._species(atoms.numbers), atoms.cell, caps=self.caps)
+            plan, nl, self._species(atoms.numbers), atoms.cell, caps=self.caps,
+            system=self._system(atoms))
         host.stats = {"n_atoms": len(atoms), "n_cap": graph.n_cap,
                       "e_cap": graph.e_cap,
                       "n_edges": int(graph.edge_mask.sum())}
@@ -142,16 +147,42 @@ class DistPotential:
                               n_lines=int(graph.line_mask.sum()))
         return graph.to(self.device), host
 
+    @staticmethod
+    def _system(atoms: Atoms) -> dict:
+        """Per-system conditioning scalars (charge/spin/dataset), read from
+        ``atoms.info`` (``distmlip_tpu/calculators/calculator.py:336``)."""
+        info = getattr(atoms, "info", {}) or {}
+        return {k: int(info.get(k, 0)) for k in ("charge", "spin", "dataset")}
+
+    def _validate_system(self, system: dict) -> None:
+        """Range-check the conditioning scalars against the model config
+        (``calculator.py:346-365``): the device-side embedding lookups clip,
+        which would silently alias an out-of-range charge, spin or dataset
+        onto the table's edge."""
+        cfg = self.model.cfg
+        if hasattr(cfg, "num_charges"):
+            lo = cfg.charge_min
+            hi = cfg.charge_min + cfg.num_charges - 1
+            if not lo <= system["charge"] <= hi:
+                raise ValueError(f"charge {system['charge']} outside [{lo}, {hi}]")
+        if hasattr(cfg, "num_spins") and not 0 <= system["spin"] < cfg.num_spins:
+            raise ValueError(f"spin {system['spin']} outside [0, {cfg.num_spins})")
+        if hasattr(cfg, "num_datasets") and not 0 <= system["dataset"] < cfg.num_datasets:
+            raise ValueError(
+                f"dataset {system['dataset']} outside [0, {cfg.num_datasets})")
+
     def _cache_valid(self, atoms: Atoms) -> bool:
-        """The cached graph holds while the structure is the same and no
-        atom has moved skin/2 from its build position (Verlet criterion)."""
+        """The cached graph holds while the structure (and its conditioning
+        scalars) is the same and no atom has moved skin/2 from its build
+        position (Verlet criterion)."""
         if self.skin <= 0.0 or self._cache is None:
             return False
-        _, _, pos0, numbers0, cell0, pbc0 = self._cache
+        _, _, pos0, numbers0, cell0, pbc0, system0 = self._cache
         return (len(numbers0) == len(atoms)
                 and np.array_equal(numbers0, atoms.numbers)
                 and np.array_equal(cell0, atoms.cell)
                 and np.array_equal(pbc0, atoms.pbc)
+                and system0 == self._system(atoms)
                 and max_displacement(atoms.positions, pos0) < 0.5 * self.skin)
 
     def _prepare(self, atoms: Atoms):
@@ -163,7 +194,7 @@ class DistPotential:
             if self.skin > 0.0:
                 self._cache = (graph, host, atoms.positions.copy(),
                                atoms.numbers.copy(), atoms.cell.copy(),
-                               atoms.pbc.copy())
+                               atoms.pbc.copy(), self._system(atoms))
             return graph, host, graph.positions
         graph, host = self._cache[:2]
         dtype = graph.positions.dtype
@@ -175,6 +206,7 @@ class DistPotential:
     def calculate(self, atoms: Atoms) -> dict:
         """Energy (eV), forces (eV/Å), stress (eV/Å^3, ASE sign convention),
         and magmoms (N,) with ``compute_magmom``."""
+        self._validate_system(self._system(atoms))
         graph, host, positions = self._prepare(atoms)
         out = self._potential(self.params, graph, positions)
         energy = float(out["energy"])

@@ -11,6 +11,12 @@ launches the kernel or raises.
   (``distmlip_tpu/kernels/dispatch.py:220-240``), written in
   differentiable torch ops so a later double backward (force-loss
   training) works.
+- ``fused_so2_conv`` (``distmlip_tpu/kernels/dispatch.py:613``) is one
+  too: forward the SO(2)-convolution kernel, which reads and writes the
+  model's coefficient order through a row table (no permuted copy);
+  backward the VJP of ``so2_conv_reference`` in differentiable torch ops,
+  as the JAX package's custom VJP (``:650-657``), with weight cotangents
+  only when asked for (the force program asks for none).
 - ``fused_edge_aggregate`` (``distmlip_tpu/kernels/dispatch.py:306``) is
   one too: forward the fused gather -> message -> masked dst sum, backward
   the JAX package's chunked recompute (``_edge_aggregate_bwd``, ``:482``)
@@ -25,6 +31,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any
 
@@ -33,6 +40,7 @@ import torch
 from ..ops.segment import masked_segment_sum
 from .edge_aggregate import EdgeMessage
 from .segment import segment_sum_cuda, segment_sum_reference
+from .so3 import packed_m_layout, so2_conv_cuda, so2_conv_reference
 
 # edges per chunk of the edge-aggregate backward (bounds the recomputed
 # message and its cotangent), distmlip_tpu/kernels/dispatch.py:49
@@ -263,3 +271,112 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
             arrs.append(item)
     return _EdgeAggregate.apply(message, tuple(kinds), len(weights), use_kernel, chunk,
                                 num_segments, segment_ids, mask, *arrs, *weights, *idxs)
+
+
+# ---------------------------------------------------------------------------
+# fused SO(2) convolution (eSCN channel mixing)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _row_tables(perm: tuple, inv: tuple, device):
+    """The packed order's gather tables on ``device``, made once: a host
+    copy per call would synchronise the host with the card."""
+    return (torch.tensor(perm, dtype=torch.long, device=device),
+            torch.tensor(inv, dtype=torch.long, device=device))
+
+
+def _so2_plain(h, weights, perm, inv, segments, channels):
+    """``so2_conv_reference`` in the model's coefficient order."""
+    return so2_conv_reference(h.index_select(1, perm), weights, segments,
+                              channels).index_select(1, inv)
+
+
+class _SO2Conv(torch.autograd.Function):
+    # positional layout of apply(): 6 non-differentiable leading arguments
+    # (the host row order for the kernel, its device copies for the plain
+    # ops), then h, then the weight matrices
+    N_LEAD = 6
+
+    @staticmethod
+    def forward(ctx, use_kernel, perm_np, perm, inv, segments, channels, h, *weights):
+        if use_kernel:
+            out = so2_conv_cuda(h.contiguous(), [w.contiguous() for w in weights],
+                                segments, channels, perm_np)
+        else:
+            out = _so2_plain(h, weights, perm, inv, segments, channels)
+        ctx.save_for_backward(perm, inv, h, *weights)
+        ctx.segments, ctx.channels = segments, channels
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, inv, h, *weights = ctx.saved_tensors
+        lead = _SO2Conv.N_LEAD
+        need_h = ctx.needs_input_grad[lead]
+        need_w = ctx.needs_input_grad[lead + 1:]
+        gh, gws = _so2_vjp(h, weights, g, perm, inv, ctx.segments, ctx.channels,
+                           need_h, need_w)
+        return (None,) * lead + (gh,) + tuple(gws)
+
+
+def _so2_vjp(h, weights, g, perm, inv, segments, channels, need_h, need_w):
+    """The VJP of ``_so2_plain`` in differentiable torch ops
+    (``distmlip_tpu/kernels/dispatch.py:650-657``), per |m| in the packed
+    order: with g the output cotangent,
+        m = 0:  gf0 = g0 W0^T,                 gW0 = f0^T g0
+        m > 0:  gf+ = g+ Wr^T + g- Wi^T,       gWr = f+^T g+ + f-^T g-
+                gf- = g- Wr^T - g+ Wi^T,       gWi = f+^T g- - f-^T g+
+    ``need_w`` flags each weight; one not needed gets ``None`` and costs
+    nothing, and the input rows are gathered only when a weight is."""
+    e, c = g.shape[0], channels
+    gp = g.index_select(1, perm)
+    hp = h.index_select(1, perm) if any(need_w) else None
+    gh_parts, gws = [], [None] * len(weights)
+    wi = 0
+    for m, start, nl in segments:
+        d = nl * c
+        if m == 0:
+            g0 = gp[:, start:start + nl].reshape(e, d)
+            if need_h:
+                gh_parts.append((g0 @ weights[wi].transpose(0, 1)).reshape(e, nl, c))
+            if need_w[wi]:
+                gws[wi] = hp[:, start:start + nl].reshape(e, d).transpose(0, 1) @ g0
+            wi += 1
+            continue
+        gplus = gp[:, start:start + nl].reshape(e, d)
+        gminus = gp[:, start + nl:start + 2 * nl].reshape(e, d)
+        wr, wim = weights[wi], weights[wi + 1]
+        if need_h:
+            gh_parts.append((gplus @ wr.transpose(0, 1) + gminus @ wim.transpose(0, 1)
+                             ).reshape(e, nl, c))
+            gh_parts.append((gminus @ wr.transpose(0, 1) - gplus @ wim.transpose(0, 1)
+                             ).reshape(e, nl, c))
+        if need_w[wi] or need_w[wi + 1]:
+            fpt = hp[:, start:start + nl].reshape(e, d).transpose(0, 1)
+            fmt = hp[:, start + nl:start + 2 * nl].reshape(e, d).transpose(0, 1)
+            if need_w[wi]:
+                gws[wi] = fpt @ gplus + fmt @ gminus
+            if need_w[wi + 1]:
+                gws[wi + 1] = fpt @ gminus - fmt @ gplus
+        wi += 2
+    gh = torch.cat(gh_parts, dim=1).index_select(1, inv) if need_h else None
+    return gh, gws
+
+
+def fused_so2_conv(h, weights, m_idx: dict, channels: int, kernels: bool = True):
+    """SO(2) convolution over all |m| blocks, dispatched.
+
+    ``h``: (E, S, C) coefficients in the model's (e3nn) order;
+    ``weights``: ``[W0, W1r, W1i, ...]`` mixed (d, d) matrices per m;
+    ``m_idx``: the model's per-|m| (plus, minus) index sets. Returns the
+    convolved coefficients in the SAME order. A CUDA tensor with
+    ``kernels=True`` launches the kernel (or raises); CPU tensors and
+    ``kernels=False`` take the plain version; no edges take the plain
+    path, as in the JAX dispatcher (``:634``). The backward is the plain
+    VJP; the weights get cotangents only when they require them.
+    """
+    perm_np, inv_np, segments = packed_m_layout(m_idx)
+    perm, inv = _row_tables(tuple(perm_np.tolist()), tuple(inv_np.tolist()), h.device)
+    use_kernel = kernels is not False and h.is_cuda and h.shape[0] > 0
+    return _SO2Conv.apply(use_kernel, perm_np, perm, inv, segments, int(channels), h,
+                          *weights)

@@ -1,0 +1,275 @@
+"""eSCN / UMA-style equivariant spherical channel network, torch.
+
+Port of ``distmlip_tpu/models/escn.py`` (Passaro & Zitnick 2023, with the
+UMA conditioning and MOLE expert mixing). Same configuration, parameter
+tree, layouts and arithmetic, so weights carried across from the JAX
+package give the same energies:
+
+- node features h (N, S, C): S = (l_max+1)^2 real spherical-harmonic
+  coefficients in the e3nn order, channels last;
+- per edge chunk: rotate the sender's features into the edge-aligned frame
+  (``ops/so3_e3nn.wigner_blocks_from_edges``), add the edge scalars to the
+  l=0 row, run the SO(2) convolution (``kernels/dispatch.fused_so2_conv``,
+  the call that launches the CUDA SO(2) kernel), rotate back, and sum onto
+  the receivers with ONE dst-sorted segment sum per chunk
+  (``fused_segment_sum``, the segment-sum kernel);
+- the edge-degree embedding, the charge/spin/dataset (csd) system
+  embedding, the non-batched MOLE gate (per-layer expert weights mixed once
+  in weight space from a whole-system composition + csd softmax), the gated
+  nonlinearity and the energy readout.
+
+Rematerialization: with ``remat=True`` each edge chunk runs under a
+non-reentrant ``torch.utils.checkpoint``, so the backward holds one chunk's
+rotated features and Wigner blocks at a time and re-runs the chunk body
+(one more SO(2) and segment-sum launch per chunk).
+
+Not ported (raise ``NotImplementedError``): ``dtype="bfloat16"``, a batched
+graph (``struct_id`` set with ``num_experts > 1``: the per-edge MOLE gate
+of the JAX package's batched engine), and ``l_max > 6``.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..kernels.dispatch import fused_segment_sum, fused_so2_conv
+from ..ops import radial
+from ..ops.chunk import chunk_layout, scan_accumulate
+from ..ops.nn import linear, linear_init, mlp, mlp_init
+from ..ops.so3_e3nn import CoeffLayout, wigner_blocks_from_edges
+from ..utils.checkpoint import as_list
+
+
+@dataclass(frozen=True)
+class ESCNConfig:
+    num_species: int = 95
+    channels: int = 64
+    l_max: int = 2              # <= 6 (SH table limit)
+    num_layers: int = 3
+    num_bessel: int = 8
+    num_experts: int = 1        # > 1 enables UMA-style MOLE weight mixing
+    cutoff: float = 5.0
+    avg_num_neighbors: float = 14.0
+    # UMA charge/spin/dataset (csd) conditioning: per-system embeddings
+    # mixed into the node scalars and the MOLE gate
+    num_charges: int = 25       # charge index = charge - charge_min
+    charge_min: int = -12
+    num_spins: int = 10
+    num_datasets: int = 4
+    edge_channels: int = 32     # source/target species embeddings feeding the
+                                # edge-degree embedding
+    edge_chunk: int = 32768     # edges per chunk of every edge pass: the
+                                # per-edge rotated features (E, S, C) and
+                                # Wigner blocks are rebuilt per chunk
+                                # (0 disables chunking)
+    remat: bool = True          # checkpoint each edge chunk
+    dtype: str = "float32"
+
+    @property
+    def sphere_dim(self) -> int:
+        return (self.l_max + 1) ** 2
+
+
+def _l_slices(l_max):
+    out = {}
+    o = 0
+    for l in range(l_max + 1):
+        out[l] = slice(o, o + 2 * l + 1)
+        o += 2 * l + 1
+    return out
+
+
+class ESCN:
+    def __init__(self, config: ESCNConfig = ESCNConfig()):
+        if config.l_max > 6:
+            raise NotImplementedError(
+                "l_max > 6: extend the SH tables backing ops/so3_e3nn.jd_np")
+        if config.dtype != "float32":
+            raise NotImplementedError(
+                f"dtype={config.dtype!r}: only float32 is ported; eSCN bfloat16 "
+                "is queued in ROADMAP.md")
+        self.cfg = config
+        # per |m|, the stacked indices of the (l, +m) / (l, -m) pair over
+        # l = m..l_max: the complex pairs the SO(2) convolutions mix
+        lay = CoeffLayout(config.l_max)
+        self.m_idx = {m: (lay.plus_idx[m], lay.minus_idx[m])
+                      for m in range(config.l_max + 1)}
+
+    # ---- parameters ----
+    def init(self, seed: int = 0) -> dict:
+        """Random parameters in the JAX package's tree layout, drawn from a
+        ``torch.Generator`` seeded with ``seed`` (not JAX's RNG stream)."""
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(int(seed))
+        C, E, Ce = cfg.channels, cfg.num_experts, cfg.edge_channels
+        randn = lambda *shape: torch.randn(shape, generator=gen)  # noqa: E731
+        params = {
+            "species_emb": {"w": randn(cfg.num_species, C)},
+            "charge_emb": {"w": randn(cfg.num_charges, C)},
+            "spin_emb": {"w": randn(cfg.num_spins, C)},
+            "dataset_emb": {"w": randn(cfg.num_datasets, C)},
+            "csd_mlp": mlp_init(gen, [C, C]),
+            "sys_node_proj": linear_init(gen, C, C),
+            "source_emb": {"w": randn(cfg.num_species, Ce)},
+            "target_emb": {"w": randn(cfg.num_species, Ce)},
+            "edge_deg": linear_init(gen, cfg.num_bessel + 2 * Ce, C * (cfg.l_max + 1)),
+            "mole_gate": mlp_init(gen, [2 * C, C, E]) if E > 1 else None,
+            "layers": [],
+            "energy_mlp": mlp_init(gen, [C, C, 1]),
+            "species_ref": {"w": torch.zeros((cfg.num_species,))},
+        }
+        for _ in range(cfg.num_layers):
+            layer = {
+                "edge_mlp": mlp_init(gen, [cfg.num_bessel + 2 * C, C, C]),
+                "so2": {},
+                "gate_mlp": mlp_init(gen, [C, C, C]),
+                "scalar_mlp": mlp_init(gen, [C, C, C]),
+            }
+            for m in range(cfg.l_max + 1):
+                d = (cfg.l_max + 1 - m) * C
+                names = ["m0"] if m == 0 else [f"m{m}r", f"m{m}i"]
+                for name in names:
+                    layer["so2"][name] = randn(E, d, d) / np.sqrt(d)
+            params["layers"].append(layer)
+        return params
+
+    # ---- forward ----
+    def energy_fn(self, params, lg, positions):
+        cfg = self.cfg
+        C, S, L = cfg.channels, cfg.sphere_dim, cfg.l_max
+        if cfg.num_experts > 1 and lg.struct_id is not None and lg.batch_size > 0:
+            raise NotImplementedError(
+                "a batched (block-diagonally packed) graph needs the per-edge "
+                "MOLE gate of the batched engine, which is not ported")
+        dev, dtype = positions.device, positions.dtype
+
+        vec = lg.edge_vectors(positions)
+        emask = lg.edge_mask
+        d = torch.linalg.norm(
+            torch.where(emask[:, None], vec, torch.ones_like(vec)), dim=-1)
+        rhat = vec / torch.clamp(d, min=1e-9)[:, None]
+        env = radial.polynomial_cutoff(d, cfg.cutoff) * emask
+        bessel = radial.spherical_bessel_basis(d, cfg.cutoff, cfg.num_bessel)
+        sl = _l_slices(L)
+
+        def rotate(hvecs, D, to_edge=False, add_scalar=None):
+            # per l block: D_l maps edge-frame coefficients to the lab frame,
+            # D_l^T (to_edge) maps lab features into the edge frame;
+            # add_scalar (E_c, C) is added to the l=0 row before the blocks
+            # are joined, sparing a full-size copy
+            parts = []
+            for l in range(L + 1):
+                Dl = D[l].transpose(1, 2) if to_edge else D[l]
+                parts.append(torch.bmm(Dl, hvecs[:, sl[l], :]))
+            if add_scalar is not None:
+                parts[0] = parts[0] + add_scalar[:, None, :]
+            return torch.cat(parts, dim=1)
+
+        # --- edge-chunked passes: every chunk's dst stays sorted ---------
+        row_idx, row_valid, K, _ = chunk_layout(lg.e_cap, cfg.edge_chunk)
+        rows = torch.as_tensor(row_idx, dtype=torch.long, device=dev)
+        take = lambda x: x.index_select(0, rows)  # noqa: E731
+        edge_xs = (take(lg.edge_src), take(lg.edge_dst),
+                   take(emask) & torch.as_tensor(row_valid, device=dev),
+                   take(rhat), take(bessel), take(env))
+        # one chunk: build D once and share it across the edge-degree pass
+        # and every layer
+        D_shared = wigner_blocks_from_edges(L, edge_xs[3]) if K == 1 else None
+
+        def edge_scan(per_chunk):
+            """Sum over the edge chunks of per_chunk(...)'s (E_c, S, C)
+            message rows, segment-summed onto their dst in each chunk."""
+
+            def body(srcc, dstc, maskc, rhatc, besc, envc):
+                D = D_shared if D_shared is not None else wigner_blocks_from_edges(L, rhatc)
+                msg = per_chunk(srcc, dstc, D, besc, envc)
+                return fused_segment_sum(msg, dstc, lg.n_cap, maskc,
+                                         indices_are_sorted=True, kernels=lg.kernels)
+
+            return scan_accumulate(body, edge_xs, K, remat=cfg.remat)
+
+        z = lg.species
+        zemb = params["species_emb"]["w"].index_select(0, z)  # (N, C)
+
+        # csd (charge/spin/dataset) system embedding
+        sys_state = lg.system or {}
+
+        def sys_index(key, offset, size):
+            v = torch.as_tensor(sys_state.get(key, 0), device=dev).reshape(1).long()
+            return torch.clamp(v - offset, 0, size - 1)
+
+        csd = mlp(params["csd_mlp"], (
+            params["charge_emb"]["w"].index_select(
+                0, sys_index("charge", cfg.charge_min, cfg.num_charges))
+            + params["spin_emb"]["w"].index_select(0, sys_index("spin", 0, cfg.num_spins))
+            + params["dataset_emb"]["w"].index_select(
+                0, sys_index("dataset", 0, cfg.num_datasets)))[0])  # (C,)
+
+        # node scalars: species embedding + the system embedding
+        h0 = zemb + linear(params["sys_node_proj"], csd)[None, :]
+        h = torch.cat([h0[:, None, :], h0.new_zeros((h0.shape[0], S - 1, C))], dim=1)
+
+        # edge-degree embedding: per-edge scalars (distance expansion +
+        # source/target species embeddings) -> m=0 coefficients in the edge
+        # frame, rotated back and degree-summed onto the receiver. Only the
+        # (l, m=0) centre column of each D_l meets a nonzero coefficient.
+        def deg_chunk(srcc, dstc, D, besc, envc):
+            x_edge = torch.cat([
+                besc,
+                params["source_emb"]["w"].index_select(0, z.index_select(0, srcc)),
+                params["target_emb"]["w"].index_select(0, z.index_select(0, dstc)),
+            ], dim=-1)
+            w_deg = linear(params["edge_deg"], x_edge).reshape(-1, L + 1, C)
+            y = torch.cat([D[l][:, :, l:l + 1] * w_deg[:, l:l + 1, :]
+                           for l in range(L + 1)], dim=1)
+            return y * envc[:, None, None]
+
+        inv_avg = 1.0 / cfg.avg_num_neighbors
+        h = h + edge_scan(deg_chunk) * inv_avg
+        h = lg.halo_exchange(h)
+
+        # MOLE coefficients: whole-system composition embedding + csd ->
+        # softmax gate, the same on every partition (psum'd mean)
+        if cfg.num_experts > 1:
+            owned = lg.owned_mask.to(dtype)[:, None]
+            comp_sum = lg.psum((zemb * owned).sum(0))
+            count = lg.psum(owned.sum())
+            gate_in = torch.cat([comp_sum / torch.clamp(count, min=1.0), csd], dim=-1)
+            mole = torch.softmax(mlp(params["mole_gate"], gate_in), dim=-1)
+        else:
+            mole = torch.ones((1,), dtype=dtype, device=dev)
+
+        for layer in as_list(params["layers"]):
+            # mix experts ONCE in weight space per layer; the SO(2) kernel then
+            # runs every per-|m| product on the mixed weights
+            so2 = layer["so2"]
+            mixw = lambda Wk: torch.einsum("k,kab->ab", mole, Wk)  # noqa: E731
+            ws_mixed = [mixw(so2["m0"])]
+            for m in range(1, L + 1):
+                ws_mixed += [mixw(so2[f"m{m}r"]), mixw(so2[f"m{m}i"])]
+
+            def so2_chunk(srcc, dstc, D, besc, envc, layer=layer, ws_mixed=ws_mixed,
+                          h=h):
+                ef = torch.cat([besc, zemb.index_select(0, srcc),
+                                zemb.index_select(0, dstc)], dim=-1)
+                g_e = mlp(layer["edge_mlp"], ef) * envc[:, None]  # (E_c, C)
+                # rotate into the edge frame, the edge scalars injected into
+                # the l=0 row
+                h_rot = rotate(h.index_select(0, srcc), D, to_edge=True, add_scalar=g_e)
+                y = fused_so2_conv(h_rot, ws_mixed, self.m_idx, C, kernels=lg.kernels)
+                return rotate(y, D) * envc[:, None, None]
+
+            agg = edge_scan(so2_chunk) * inv_avg
+
+            # gated nonlinearity: scalars via MLP, higher l scaled by gates
+            s = agg[:, 0, :]
+            gates = torch.sigmoid(mlp(layer["gate_mlp"], s))
+            upd = torch.cat([mlp(layer["scalar_mlp"], s)[:, None],
+                             agg[:, 1:] * gates[:, None, :]], dim=1)
+            h = lg.halo_exchange(h + upd)
+
+        e_atom = mlp(params["energy_mlp"], h[:, 0, :])[:, 0]
+        return e_atom + params["species_ref"]["w"].index_select(0, z)

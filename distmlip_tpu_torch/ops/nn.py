@@ -26,6 +26,9 @@ def linear(p, x):
 
 
 def mlp(p, x, act=F.silu, final_act=None):
+    """Layers ``p`` (a list, or a loaded checkpoint's dict keyed "0", "1",
+    ...) with ``act`` between them and ``final_act`` after the last."""
+    p = as_list(p)
     for i, layer in enumerate(p):
         x = linear(layer, x)
         if i < len(p) - 1:

@@ -48,6 +48,13 @@ class LocalGraph:
     bond_map_edge: Any = None
     bond_map_bond: Any = None
     bond_map_mask: Any = None
+    # per-system scalars {"charge", "spin", "dataset"} (0-d int32 tensors)
+    system: Any = None
+    # batched multi-structure packing (the JAX package's batched engine,
+    # not ported): 0 / None on every graph this package builds, so a model
+    # can refuse a packed graph
+    batch_size: int = 0
+    struct_id: Any = None
 
     def halo_exchange(self, feats):
         """Refresh halo rows of a node feature array: the identity at P=1,
@@ -64,6 +71,11 @@ class LocalGraph:
         (``distmlip_tpu/parallel/halo.py:239``); returns ``(node_feats,
         bond_feats)`` tuples in input order. The identity at P=1."""
         return tuple(node_feats), tuple(bond_feats)
+
+    def psum(self, x):
+        """Sum over the partitions (``distmlip_tpu/parallel/halo.py:271``):
+        the identity at P=1."""
+        return x
 
     def edge_vectors(self, positions, lattice=None):
         """(E_cap, 3) displacement vectors dst - src + offsets @ lattice.
@@ -173,4 +185,5 @@ def local_graph_from_stacked(g, kernels: bool = True) -> LocalGraph:
         bond_map_edge=g.bond_map_edge[0],
         bond_map_bond=g.bond_map_bond[0],
         bond_map_mask=g.bond_map_mask[0],
+        system=g.system,
     )

@@ -60,9 +60,15 @@ class PartitionedGraph:
     bond_map_bond: Any = None  # (P, M_cap) int32 local bond id
     bond_map_mask: Any = None  # (P, M_cap) bool
 
+    # per-system replicated scalars (eSCN/UMA charge/spin/dataset
+    # conditioning, distmlip_tpu/partition/graph.py:103-105):
+    # {"charge", "spin", "dataset"}, () int32 each
+    system: Any = None
+
     def to(self, device) -> "PartitionedGraph":
-        """A copy whose array fields are torch tensors on ``device``
-        (dtypes kept: int32 ids, bool masks, the build's float dtype)."""
+        """A copy whose array fields (and system scalars) are torch tensors
+        on ``device`` (dtypes kept: int32 ids and scalars, bool masks, the
+        build's float dtype)."""
         import torch
 
         def conv(x):
@@ -72,8 +78,10 @@ class PartitionedGraph:
                 return x.to(device)
             return torch.as_tensor(np.asarray(x)).to(device)
 
+        system = (None if self.system is None
+                  else {k: conv(v) for k, v in self.system.items()})
         return dataclasses.replace(
-            self, **{k: conv(getattr(self, k)) for k in ARRAY_FIELDS})
+            self, system=system, **{k: conv(getattr(self, k)) for k in ARRAY_FIELDS})
 
 
 @dataclass
@@ -112,8 +120,12 @@ def build_partitioned_graph(
     lattice: np.ndarray,
     caps: CapacityPolicy | None = None,
     dtype=np.float32,
+    system: dict | None = None,
 ) -> tuple[PartitionedGraph, HostGraphData]:
     """Pad a single-partition plan into a PartitionedGraph (numpy arrays).
+
+    ``system``: optional per-system scalars (charge, spin, dataset ints),
+    the conditioning inputs of eSCN; missing ones default to 0.
 
     Edges are sorted by dst (stable) so segment reductions see sorted
     indices; padded edge rows repeat the last real dst (nondecreasing,
@@ -215,6 +227,8 @@ def build_partitioned_graph(
         bond_map_edge=bm_edge,
         bond_map_bond=bm_bond,
         bond_map_mask=bm_mask,
+        system={k: np.int32((system or {}).get(k, 0))
+                for k in ("charge", "spin", "dataset")},
     )
     host = HostGraphData(plan=plan, global_ids=plan.global_ids,
                          owned_counts=owned_counts)

@@ -2,12 +2,14 @@
 smoke workload (``tools/workload.py``).
 
     python -m distmlip_tpu_torch.tools.step_profile
-        [--model mace|tensornet|chgnet] [--reps N] [--out DIR]
+        [--model mace|tensornet|chgnet|escn] [--reps N] [--out DIR]
 
 ``--model mace`` (the default) runs MACE at the MACE-MP-0-medium widths on
 2048 atoms (reps 8); ``--model tensornet`` runs TensorNet at the MatPES
 layout on 16384 atoms (reps 16); ``--model chgnet`` runs CHGNet at the
-MPtrj layout on 16384 atoms (reps 16) with magmoms.
+MPtrj layout on 16384 atoms (reps 16) with magmoms; ``--model escn`` runs
+eSCN at the single-chip UMA widths (channels 128, l_max 4, 8 experts) on
+2048 atoms (reps 8) with the workload's charge, spin and dataset.
 
 1. The first ``calculate`` (cold: CUDA context, library handles, the graph
    build and upload) under a CPU-only profile: its wall time and the ops
@@ -40,10 +42,11 @@ def _top(events, key, n):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("mace", "tensornet", "chgnet"), default="mace")
+    ap.add_argument("--model", choices=("mace", "tensornet", "chgnet", "escn"),
+                    default="mace")
     ap.add_argument("--reps", type=int, default=None,
-                    help="crystal repeats (4 reps^3 atoms); default 8 for mace, "
-                         "16 for tensornet and chgnet")
+                    help="crystal repeats (4 reps^3 atoms); default 8 for mace "
+                         "and escn, 16 for tensornet and chgnet")
     ap.add_argument("--out", default=None,
                     help="directory for trace and tables (default "
                          "build/step_profile/<model>)")
@@ -58,8 +61,10 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from ..calculators import DistPotential
-    from ..models import CHGNet, CHGNetConfig, MACE, MACEConfig, TensorNet, TensorNetConfig
-    from .workload import CHGNET_KW, MACE_KW, TENSORNET_KW, bench_atoms
+    from ..models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE, MACEConfig,
+                          TensorNet, TensorNetConfig)
+    from .workload import (CHGNET_KW, ESCN_INFO, ESCN_KW, MACE_KW, TENSORNET_KW,
+                           bench_atoms)
 
     out_dir = args.out or os.path.join("build", "step_profile", args.model)
     os.makedirs(out_dir, exist_ok=True)
@@ -68,10 +73,14 @@ def main(argv=None) -> int:
         model, reps = MACE(MACEConfig(**MACE_KW)), args.reps or 8
     elif args.model == "tensornet":
         model, reps = TensorNet(TensorNetConfig(**TENSORNET_KW)), args.reps or 16
-    else:
+    elif args.model == "chgnet":
         model, reps = CHGNet(CHGNetConfig(**CHGNET_KW)), args.reps or 16
         extra = {"compute_magmom": True}
+    else:
+        model, reps = ESCN(ESCNConfig(**ESCN_KW)), args.reps or 8
     atoms, rng = bench_atoms(reps)
+    if args.model == "escn":
+        atoms.info = dict(ESCN_INFO)
     pot = DistPotential(model, model.init(0), device="cuda", skin=0.5, **extra)
 
     with profile(activities=[ProfilerActivity.CPU]) as cold:
@@ -111,7 +120,7 @@ def main(argv=None) -> int:
     for e in kernels:
         for name in ("segment_sum_kernel", "tensornet_embed_kernel",
                      "tensornet_interaction_kernel", "chgnet_atom_conv_kernel",
-                     "chgnet_line_conv_kernel"):
+                     "chgnet_line_conv_kernel", "so2_conv_kernel"):
             if name in e.key:
                 row = own.setdefault(name, {"calls": 0, "ms": 0.0})
                 row["calls"] += e.count

@@ -10,9 +10,22 @@
   max_f 4, 4 blocks, cutoff 6.0 Å, bond cutoff 3.0 Å; the full-size layout
   that ``tests/test_convert_chgnet.py:328-342`` converts), float32.
 
+- eSCN at the repo's single-chip eSCN/UMA configuration
+  (``examples/05_scale_ladder.py:188-190``: channels 128, l_max 4, 2
+  layers, 8 experts, cutoff 5.0 Å, 40 average neighbours; the config's
+  default 8 Bessel functions, 32 edge channels, edge chunks of 32768 and
+  remat), with the example's conditioning (``ESCN_INFO``: charge 1, spin
+  1, dataset 2) set on the atoms. Two changes from the example:
+  ``num_species=95`` (the config's default) in place of 8, so Si (Z = 14)
+  needs no species map (only the embedding tables' row counts change);
+  and float32 in place of bfloat16, which the port does not have yet.
+
 All run on bench.py's perturbed Si crystal (lattice 3.9 Å per 4-atom
 cell, 0.04 Å noise, seed 0): ``reps=8`` gives 2048 atoms; bench.py's own
-default is reps=16 (16384 atoms).
+default is reps=16 (16384 atoms). MACE and eSCN run at reps=8, cut from
+bench.py's 16384 atoms to keep each step of ``chip_smoke.py`` short: at
+l_max 4 and C 128 eSCN's SO(2) products alone are 4.75 MFLOP per edge row
+per layer, and 16384 atoms would make every eSCN step ~8x longer.
 """
 
 from __future__ import annotations
@@ -26,6 +39,10 @@ MACE_KW = dict(num_species=95, channels=128, l_max=3, a_lmax=3, hidden_lmax=1,
 TENSORNET_KW = dict(num_species=89, units=64, num_rbf=32, num_layers=2, cutoff=5.0)
 CHGNET_KW = dict(num_species=89, units=64, num_rbf=31, num_angle=4, num_blocks=4,
                  cutoff=6.0, bond_cutoff=3.0)
+ESCN_KW = dict(num_species=95, channels=128, l_max=4, num_layers=2, num_experts=8,
+               cutoff=5.0, avg_num_neighbors=40.0, num_bessel=8, edge_channels=32,
+               edge_chunk=32768, remat=True)
+ESCN_INFO = {"charge": 1, "spin": 1, "dataset": 2}
 
 
 def bench_atoms(reps: int = 8, seed: int = 0):

@@ -5,9 +5,10 @@ This file imports no JAX, so it also runs on a GPU machine without JAX
 
     python -m pytest tests/test_torch_cuda.py --noconftest -m cuda -q
 
-Without a card every test here skips with its reason. The dst-sorted cases
-and the TensorNet and CHGNet message inputs are shared with
-``tests/test_torch_segment.py`` and ``tests/test_torch_edge_aggregate.py``,
+Without a card every test here skips with its reason. The dst-sorted cases,
+the TensorNet and CHGNet message inputs and the eSCN SO(2) inputs are
+shared with ``tests/test_torch_segment.py``,
+``tests/test_torch_edge_aggregate.py`` and ``tests/test_torch_so2_conv.py``,
 which hold the port's plain versions against the JAX package on the same
 cases.
 """
@@ -127,6 +128,38 @@ def chgnet_rows(which, arrays):
         return torch.cat([g(node_src, src), g(node_dst, dst), edge], -1), abw
     bond_src, ls, bond_dst, ld, angle, node, ctr = arrays
     return torch.cat([g(bond_src, ls), g(bond_dst, ld), angle, g(node, ctr)], -1), None
+
+
+# name: (seed, e, l_max, channels): the slice's l_max 4 at small E, the
+# ragged edges (E of 1, 37 and 1003, output widths that are no multiple of
+# the kernel's 128-column tile) and C = 7, which takes the scalar-load path
+SO2_CASES = {
+    "e1_lmax1_c8": (0, 1, 1, 8),
+    "e37_lmax2_c16": (1, 37, 2, 16),
+    "e1003_lmax4_c8": (2, 1003, 4, 8),
+    "e37_lmax6_c16": (3, 37, 6, 16),
+    "e1003_lmax2_c128": (4, 1003, 2, 128),
+    "e300_lmax4_c128": (5, 300, 4, 128),
+    "e1003_lmax1_c7": (6, 1003, 1, 7),
+}
+
+
+def so2_inputs(seed, e, l_max, c):
+    """eSCN SO(2) inputs: h (E, S, C) in the e3nn order, the model's m_idx
+    (``CoeffLayout(l_max)``) and the weights [W0, W1r, W1i, ...], (d, d)
+    with d = (l_max + 1 - m) C, at the init's 1/sqrt(d) scale."""
+    from distmlip_tpu_torch.ops.so3_e3nn import CoeffLayout
+
+    rng = np.random.default_rng(500 + seed)
+    lay = CoeffLayout(l_max)
+    m_idx = {m: (lay.plus_idx[m], lay.minus_idx[m]) for m in range(l_max + 1)}
+    h = rng.normal(size=(e, (l_max + 1) ** 2, c)).astype(np.float32)
+    weights = []
+    for m in range(l_max + 1):
+        d = (l_max + 1 - m) * c
+        for _ in range(1 if m == 0 else 2):
+            weights.append((rng.normal(size=(d, d)) / np.sqrt(d)).astype(np.float32))
+    return h, weights, m_idx
 
 
 def edge_bound(ids, mask, n, abs_ref):
@@ -412,3 +445,125 @@ def test_chgnet_on_card_matches_cpu(card):
     np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)
     np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-4)
     np.testing.assert_allclose(gpu["magmoms"], cpu["magmoms"], atol=1e-4)
+
+
+def _so2_case_on_card(card, name):
+    from distmlip_tpu_torch.kernels import packed_m_layout
+
+    seed, e, l_max, c = SO2_CASES[name]
+    h, weights, m_idx = so2_inputs(seed, e, l_max, c)
+    perm, inv, segments = packed_m_layout(m_idx)
+    to = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    return to(h), [to(w) for w in weights], perm, inv, segments, c, m_idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SO2_CASES))
+def test_so2_conv_kernel_matches_plain_on_card(card, name):
+    """The SO(2) kernel vs its plain version on the card, in the packed
+    order and reading/writing the e3nn order through its row table, within
+    the derived bound ``so2_conv_error_bound`` (2 k u sum|terms|, k the
+    contraction length)."""
+    from distmlip_tpu_torch import kernels as K
+
+    h, weights, perm, inv, segments, c, _ = _so2_case_on_card(card, name)
+    hp = h[:, torch.as_tensor(perm, device=card).long()].contiguous()
+    bound = K.so2_conv_error_bound(hp, weights, segments, c)
+    before = K.launch_counts["so2_conv"]
+    got = K.so2_conv_cuda(hp, weights, segments, c, np.arange(h.shape[1]))
+    want = K.so2_conv_reference(hp, weights, segments, c)
+    torch.cuda.synchronize()
+    assert K.launch_counts["so2_conv"] == before + 1
+    assert got.shape == want.shape == h.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= bound + 1e-30).all()), name
+    # the model's order through the row table: the same values, permuted
+    got_src = K.so2_conv_cuda(h, weights, segments, c, perm)
+    inv_t = torch.as_tensor(inv, device=card).long()
+    assert bool(((got_src - want[:, inv_t]).abs() <= bound[:, inv_t] + 1e-30).all())
+
+
+@pytest.mark.cuda
+def test_so2_conv_gradients_on_card(card):
+    """fused_so2_conv on the card: the kernel forward launches once (the
+    plain path none), and the h and weight gradients through it match the
+    plain path's; a force-style backward (weights without grad) asks for
+    no weight cotangent."""
+    from distmlip_tpu_torch import kernels as K
+
+    h, weights, _, _, _, c, m_idx = _so2_case_on_card(card, "e1003_lmax4_c8")
+    hl = h.clone().requires_grad_(True)
+    wl = [w.clone().requires_grad_(True) for w in weights]
+
+    def run(kernels):
+        out = K.fused_so2_conv(hl, wl, m_idx, c, kernels=kernels)
+        return out, torch.autograd.grad((out ** 2).sum(), [hl] + wl)
+
+    before = K.launch_counts["so2_conv"]
+    out, got = run(True)
+    assert K.launch_counts["so2_conv"] == before + 1
+    plain, want = run(False)
+    assert K.launch_counts["so2_conv"] == before + 1
+    torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    out = K.fused_so2_conv(hl, weights, m_idx, c)
+    (gh,) = torch.autograd.grad(out.sum(), hl)
+    assert gh.shape == h.shape
+
+
+@pytest.mark.cuda
+def test_so2_conv_wrapper_refuses_what_it_does_not_take(card):
+    from distmlip_tpu_torch import kernels as K
+
+    h, weights, perm, _, segments, c, _ = _so2_case_on_card(card, "e37_lmax2_c16")
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.so2_conv_cuda(h.cpu(), [w.cpu() for w in weights], segments, c, perm)
+    with pytest.raises(ValueError, match="contiguous"):
+        K.so2_conv_cuda(h.transpose(0, 1).contiguous().transpose(0, 1), weights,
+                        segments, c, perm)
+    with pytest.raises(TypeError, match="float32"):
+        K.so2_conv_cuda(h.double(), weights, segments, c, perm)
+    with pytest.raises(ValueError, match="weight"):
+        K.so2_conv_cuda(h, weights[:-1] + [weights[-1].t()[:, :1].contiguous()],
+                        segments, c, perm)
+    with pytest.raises(ValueError, match="permutation"):
+        K.so2_conv_cuda(h, weights, segments, c, np.zeros(len(perm), np.int32))
+    assert K.so2_conv_cuda(h[:0], weights, segments, c, perm).shape == (0,) + h.shape[1:]
+
+
+@pytest.mark.cuda
+def test_escn_on_card_matches_cpu(card):
+    """A small eSCN (C 16, l_max 2, 4 experts, conditioning set) on the card
+    with kernels vs on the CPU with the plain versions, and its launches:
+    per calculate, each layer's SO(2) kernel and each of the 1 + num_layers
+    segment sums once per chunk forward and once in the backward's
+    recompute of the checkpointed chunk body."""
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import ESCN, ESCNConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    rng = np.random.default_rng(0)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lat = geometry.make_supercell(unit, np.eye(3) * 3.5, (2, 2, 2))
+    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.1, (32, 3))
+    atoms = Atoms(numbers=rng.integers(0, 4, 32), positions=cart, cell=lat,
+                  info={"charge": 1, "spin": 2, "dataset": 3})
+    cfg = ESCNConfig(num_species=4, channels=16, l_max=2, num_layers=2, num_bessel=6,
+                     num_experts=4, cutoff=3.2, avg_num_neighbors=12.0, edge_chunk=256)
+    model = ESCN(cfg)
+    params = model.init(0)
+    before = dict(launch_counts)
+    pot = DistPotential(model, params, device=card, skin=0.5)
+    gpu = pot.calculate(atoms)
+    k = chunk_layout(pot.last_stats["e_cap"], cfg.edge_chunk)[2]
+    assert k > 1
+    assert launch_counts["so2_conv"] - before["so2_conv"] == cfg.num_layers * 2 * k
+    assert (launch_counts["segment_sum"] - before["segment_sum"]
+            == (1 + cfg.num_layers) * 2 * k)
+    cpu = DistPotential(model, params, device="cpu", skin=0.5).calculate(atoms)
+    assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
+    np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)
+    np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-4)

@@ -84,7 +84,8 @@ def test_default_device_is_cuda_and_raises_without_a_card(monkeypatch):
 def test_build_needs_nvcc_and_never_runs_at_import(monkeypatch):
     """Importing the kernels builds nothing; the build names every source
     and fails clearly when nvcc is missing."""
-    assert build.kernel_names() == ["chgnet_aggregate", "edge_aggregate", "segment_sum"]
+    assert build.kernel_names() == ["chgnet_aggregate", "edge_aggregate", "segment_sum",
+                                    "so2_conv"]
     for name in build.kernel_names():
         assert build.library_path(name).startswith(build.BUILD_DIR)
     monkeypatch.setattr(build.shutil, "which", lambda _: None)
