@@ -7,11 +7,13 @@ Run from the root of a checkout on a machine with one NVIDIA card (H100):
 
 Phases (each failure raises, so the exit code is non-zero):
 
-1. environment — the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions, both TF32 flags (off: this port computes in float32);
+1. environment — the card's name, power limit and UUID (``nvidia-smi``) and
+   the host name, torch and CUDA versions, both TF32 flags (off: this port
+   computes in float32);
 2. build — ``nvcc`` compiles every kernel under
    ``distmlip_tpu_torch/kernels/csrc`` (one process per source, in
-   parallel) into ``build/kernels``;
+   parallel) into ``build/kernels``, and prints each kernel's registers,
+   spills and shared memory (``-Xptxas -v``);
 3. kernels vs plain — each kernel's wrapper on card tensors at the shapes
    the main paths give it, held against its plain PyTorch version with the
    stated tolerance, plus edge cases; times of the kernel, the plain
@@ -23,7 +25,14 @@ Phases (each failure raises, so the exit code is non-zero):
    atom conv, ``line_dst`` under ``line_ok`` for the line conv) with random
    inputs and weights at C = H = 64, then all-masked, the padding-only tail
    on one dst row, E not a multiple of any block, empty dst rows, C = 16
-   and C = 7. Their tolerance is derived in
+   and C = 7, H != C (64/32, 24/64, 16/12), NaN in the node and bond rows
+   no valid edge gathers, distinct tensors at the two gathered ends, and
+   the atom conv without abw. Each wrapper's time includes its row
+   projections (the gathered segments' layer-1 products, once per node or
+   bond row), which are also timed alone at the same shapes and held
+   against ``x @ w + b`` within ``kernels.chgnet_projection_error_bound``
+   (2 (K + 2) u on each dot product's sum of |terms|; library call one
+   ``addmm``). Their tolerance is derived in
    ``kernels.chgnet_aggregate_error_bound``: first-order rounding of both
    layers' dot products (K + 2) u, the activations' slopes and ulps, the
    gating products and the k-term dst sum, for each side. The SO(2)
@@ -53,7 +62,8 @@ Phases (each failure raises, so the exit code is non-zero):
    same way, magmoms held to max |dm| < 1e-4 too. Launches derived: each
    calculate runs one atom-conv aggregation per block (4) and one line
    aggregation per bond block (num_blocks - 1 = 3); the backward is the
-   plain chunked recompute and launches none. 4 calculates give 16 and 12;
+   plain chunked recompute and launches none. 4 calculates give 16 and 12,
+   and 40 row projections (one per atom conv, two per line conv);
 7. the eSCN path (``[main-escn]``) — eSCN at the single-chip UMA widths
    (channels 128, l_max 4, 2 layers, 8 experts, cutoff 5 Å; random weights
    from seed 0, ``species_ref`` off its default) with charge 1, spin 1 and
@@ -73,6 +83,7 @@ card, or outside a checkout, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import socket
 import subprocess
 import sys
 import time
@@ -84,6 +95,7 @@ REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             "tensornet_interaction_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "chgnet_atom_conv_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "chgnet_line_aggregate": "distmlip_tpu/kernels/segment.py:224",
+            "chgnet_row_projection": "distmlip_tpu/kernels/segment.py:224",
             "so2_conv": "distmlip_tpu/kernels/so3.py:89"}
 SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "tensornet_embed_aggregate": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
@@ -91,6 +103,7 @@ SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
                "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "chgnet_atom_conv_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
            "chgnet_line_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
+           "chgnet_row_projection": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
            "so2_conv": "distmlip_tpu_torch/kernels/csrc/so2_conv.cu"}
 STEPS = 3
 TENSORNET_REPS = 16  # bench.py's default structure: 16384 atoms
@@ -522,15 +535,82 @@ def time_chgnet(torch, which, arrays, weights, ids, mask, n):
             "bytes": nbytes, "ops": ops, "gathered_rows": rows_per_segment}
 
 
+def projection_inputs(which, arrays, weights):
+    """The row projections the wrapper runs for one CHGNet aggregation, as
+    (x, w, bias) triples, from the wrapper's own table plan: the atom
+    conv's node rows against the src and dst blocks side by side; the line
+    conv's bond rows the same way and its atom rows against the center
+    block."""
+    from distmlip_tpu_torch.kernels import chgnet_pack_weights, chgnet_row_tables
+
+    nodes = [arrays[0], arrays[2]] + ([arrays[5]] if which == "line" else [])
+    packed = chgnet_pack_weights(weights, len(nodes) + 1, 2, arrays[4].shape[1])
+    calls = []
+    chgnet_row_tables(nodes, packed, lambda x, w, b: calls.append((x, w, b)))
+    return calls
+
+
+def check_projection(torch, x, w, b):
+    """The row projection kernel vs ``x @ w + b`` within
+    ``chgnet_projection_error_bound`` (2 (K + 2) u on each dot product's sum
+    of |terms|); returns max |kernel - plain|."""
+    from distmlip_tpu_torch import kernels as K
+
+    got = K.chgnet_row_projection_cuda(x, w, b)
+    want = K.chgnet_row_projection_reference(x, w, b)
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    tol = K.chgnet_projection_error_bound(x, w, b)
+    if not bool((err <= tol + 1e-30).all()) or got.shape != want.shape:
+        raise AssertionError(f"row projection disagrees with its plain version: max |err| "
+                             f"{float(err.max())}, max tolerance {float(tol.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def time_projection(torch, x, w, b):
+    """Kernel, plain and library (one ``addmm``) times of one row
+    projection, and its bound: x, W, the bias read once and the table
+    written once; 2 R K M + R M operations."""
+    from distmlip_tpu_torch import kernels as K
+
+    rows, k = x.shape
+    m = w.shape[1]
+    ms = cuda_ms(torch, lambda: K.chgnet_row_projection_cuda(x, w, b))
+    plain_ms = cuda_ms(torch, lambda: K.chgnet_row_projection_reference(x, w, b))
+    bias = torch.zeros(m, device="cuda") if b is None else b
+    library_ms = cuda_ms(torch, lambda: torch.addmm(bias, x, w))
+    nbytes = (rows * k + k * m + m + rows * m) * 4
+    bound_ms, bound_by = bound(nbytes, 2 * rows * k * m + rows * m)
+    return {"shape": [rows, k, m], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": "torch.addmm", "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": nbytes}
+
+
+def chgnet_sub_case(torch, gen, which, e, rows, c, h, n_node=None):
+    """A small CHGNet case: dst-sorted ids over ``rows`` rows with ~10%
+    masked and a 17-edge padding tail on the last row, random inputs."""
+    sub_ids = torch.sort(torch.randint(0, rows, (e,), generator=gen,
+                                       device="cuda"))[0].to(torch.int32)
+    sub_mask = torch.rand(e, generator=gen, device="cuda") > 0.1
+    sub_mask[-17:] = False
+    sub_ids[-17:] = sub_ids[-18]
+    if n_node is None:
+        n_node = 37 if which == "atom" else (41, 37)
+    sub, sub_w = chgnet_inputs(torch, gen, which, e, c, h, n_node)
+    return sub, sub_w, sub_ids, sub_mask, rows
+
+
 def phase_chgnet_kernels(torch):
     """Both CHGNet kernels at the CHGNet path's shapes (its graph, its real
-    dst ids and masks, C = H = 64), then the edge cases."""
+    dst ids and masks, C = H = 64), then the edge cases; the row projection
+    at the shapes the wrappers give it."""
     from distmlip_tpu_torch.tools.workload import CHGNET_KW
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
     lg, in_r, line_ok = chgnet_graph(torch)
     c = CHGNET_KW["units"]
     errs, ratios, timed = {}, {}, {}
+    proj_errs, proj_timed = [], []
     for which in ("atom", "line"):
         if which == "atom":
             ids, mask, n = lg.edge_dst, in_r, lg.n_cap
@@ -548,27 +628,50 @@ def phase_chgnet_kernels(torch):
         cases += [(arrays, weights, ids, torch.zeros_like(mask), n),
                   (arrays, weights, one_row, torch.zeros_like(mask), n),
                   (arrays, weights, one_row, last5, n)]
-        # E not a multiple of any block, empty dst rows, C = 7 and 16
+        # E not a multiple of any block, empty dst rows, C = 7 and 16, H != C
         for e, rows, cc, hh in ((1003, 300, 7, 7), (517, 45, 16, 16), (300, 900, 64, 64),
-                                (90, 13, 16, 12)):
-            sub_ids = torch.sort(torch.randint(0, rows, (e,), generator=gen,
-                                               device="cuda"))[0].to(torch.int32)
-            sub_mask = torch.rand(e, generator=gen, device="cuda") > 0.1
-            sub_mask[-17:] = False
-            sub_ids[-17:] = sub_ids[-18]
-            sub, sub_w = chgnet_inputs(torch, gen, which, e, cc, hh,
-                                       37 if which == "atom" else (41, 37))
-            cases.append((sub, sub_w, sub_ids, sub_mask, rows))
+                                (90, 13, 16, 12), (517, 45, 64, 32), (333, 41, 24, 64)):
+            cases.append(chgnet_sub_case(torch, gen, which, e, rows, cc, hh))
+        # NaN in the node (bond) rows no valid edge gathers
+        sub, sub_w, sub_ids, sub_mask, rows = chgnet_sub_case(
+            torch, gen, which, 700, 40, c, c, 2000 if which == "atom" else (2000, 2000))
+        gathers = {0: (1, 3)} if which == "atom" else {0: (1, 3), 5: (6,)}
+        for k, idx in gathers.items():
+            used = torch.zeros(sub[k].shape[0], dtype=torch.bool, device="cuda")
+            for i in idx:
+                used[sub[i][sub_mask].long()] = True
+            sub[k][~used] = float("nan")
+        cases.append((sub, sub_w, sub_ids, sub_mask, rows))
+        # distinct tensors at the two gathered ends (two projection passes)
+        sub, sub_w, sub_ids, sub_mask, rows = chgnet_sub_case(torch, gen, which, 600, 50, c, c)
+        sub[2] = torch.randn(sub[0].shape, generator=gen, device="cuda")
+        cases.append((sub, sub_w, sub_ids, sub_mask, rows))
+        if which == "atom":  # no per-edge weights
+            cases.append((arrays[:5] + [None], weights, ids, mask, n))
         found = [check_chgnet(torch, which, *case) for case in cases]
         errs[which] = max(f[0] for f in found)
         ratios[which] = max(f[1] for f in found)
         timed[which] = time_chgnet(torch, which, arrays, weights, ids, mask, n)
+        proj = projection_inputs(which, arrays, weights)
+        proj_errs += [check_projection(torch, *p) for p in proj]
+        shapes = [time_projection(torch, *p) for p in proj]
+        proj_timed += shapes
+        timed[which]["projection_ms"] = sum(t["ms"] for t in shapes)
         log(f"[kernels] chgnet {which}: {json.dumps(timed[which])}")
+        for t in shapes:
+            log(f"[kernels] chgnet {which} row projection {t['shape']}: {json.dumps(t)}")
         log(f"[kernels] chgnet {which}: all {len(cases)} cases agree with the plain "
             f"version; max |err| {errs[which]}, max |err| / tolerance {ratios[which]}")
         del arrays, weights, cases
         torch.cuda.empty_cache()
-    return errs, timed
+    for rows, k, m, has_bias in ((1, 8, 48, True), (517, 7, 24, True), (300, 16, 64, False)):
+        x = torch.randn((rows, k), generator=gen, device="cuda")
+        w = torch.randn((k, m), generator=gen, device="cuda") / k ** 0.5
+        b = torch.randn(m, generator=gen, device="cuda") if has_bias else None
+        proj_errs.append(check_projection(torch, x, w, b))
+    log(f"[kernels] chgnet row projection: all {len(proj_errs)} cases agree with the plain "
+        f"version; max |err| {max(proj_errs)}")
+    return errs, timed, max(proj_errs), proj_timed
 
 
 def so2_case(torch, gen, e, l_max, c):
@@ -889,10 +992,15 @@ def phase_chgnet(torch):
     expected = {k: 0 for k in launches}
     expected["chgnet_atom_conv_aggregate"] = n_calc * blocks
     expected["chgnet_line_aggregate"] = n_calc * (blocks - 1)
+    # row projections: the atom conv gathers v_post at src and dst (one
+    # tensor, halo.py overlapped_edge_sum): one pass; the line conv gathers
+    # b at both ends (one pass) and v at the centers (one more)
+    expected["chgnet_row_projection"] = n_calc * (blocks * 1 + (blocks - 1) * 2)
     log(f"[main-chgnet] edge-aggregate launches: {n_calc} calculates x ({blocks} atom "
         f"convs + {blocks - 1} line convs) = {n_calc * blocks} + "
-        f"{n_calc * (blocks - 1)} forward launches, none in the backward; counted "
-        f"{launches}")
+        f"{n_calc * (blocks - 1)} forward launches, none in the backward; row projections "
+        f"{n_calc} x ({blocks} x 1 + {blocks - 1} x 2) = "
+        f"{expected['chgnet_row_projection']}; counted {launches}")
     if launches != expected:
         raise AssertionError(f"kernel launch counts {launches} differ from the "
                              f"derivation {expected}")
@@ -1010,7 +1118,9 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    log(f"[env] {smi}")
+    uuid = subprocess.run(["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(f"[env] {smi}; {uuid}; host {socket.gethostname()}")
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
@@ -1022,7 +1132,7 @@ def main() -> int:
         log(f"[build] {name}: {s:.2f} s")
         with open(build.library_path(name)[:-3] + ".log") as f:
             for line in f:
-                if "registers" in line or "spill" in line:
+                if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                     log(f"[build]   {line.strip()}")
 
     from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
@@ -1030,7 +1140,7 @@ def main() -> int:
 
     max_err, timed, _ = phase_kernels(torch)
     edge_errs, edge_timed = phase_edge_aggregate_kernels(torch)
-    chg_errs, chg_timed = phase_chgnet_kernels(torch)
+    chg_errs, chg_timed, proj_err, proj_timed = phase_chgnet_kernels(torch)
     so2_err, so2_timed, seg_escn = phase_so2_kernels(torch)
     launches = phase_main_path(torch)
     torch.cuda.empty_cache()
@@ -1090,7 +1200,17 @@ def main() -> int:
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": [t["e"], t["channels"]], "hidden": t["hidden"],
             "valid_edges": t["valid_edges"], "n_segments": t["n_segments"],
+            "projection_ms": t["projection_ms"],
         })
+    name = "chgnet_row_projection"
+    t = max(proj_timed, key=lambda p: p["shape"][0])  # the line conv's bond table
+    kernels.append({
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": chg_launches[name], "max_abs_err": proj_err, "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"], "library": t["library"], "shape": t["shape"],
+        "per_shape": proj_timed,
+    })
     kernels.append({
         "name": "so2_conv", "route": "cuda", "source": SOURCES["so2_conv"],
         "replaces": REPLACES["so2_conv"], "launches": escn_launches["so2_conv"],

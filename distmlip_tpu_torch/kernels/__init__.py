@@ -7,9 +7,12 @@
 - :mod:`edge_aggregate` — ``tensornet_embed_aggregate_cuda`` and
   ``tensornet_interaction_aggregate_cuda`` (the wrappers of
   ``csrc/edge_aggregate.cu``) and ``chgnet_atom_conv_aggregate_cuda`` and
-  ``chgnet_line_aggregate_cuda`` (of ``csrc/chgnet_aggregate.cu``), which
-  replace the TPU ``pallas_edge_aggregate`` at TensorNet's and CHGNet's
-  call sites; their ``*_reference`` plain versions and the named messages
+  ``chgnet_line_aggregate_cuda`` (of ``csrc/chgnet_aggregate.cu``, with
+  its row projection ``chgnet_row_projection_cuda``), which replace the TPU
+  ``pallas_edge_aggregate`` at TensorNet's and CHGNet's call sites; their
+  ``*_reference`` plain versions, the CHGNet weight packing
+  ``chgnet_pack_weights`` and table plan ``chgnet_row_tables``, and the
+  named messages
   ``TENSORNET_EMBED``, ``TENSORNET_INTERACTION``, ``CHGNET_ATOM_CONV`` and
   ``CHGNET_LINE_CONV``.
 - :mod:`so3` — ``so2_conv_cuda`` (the wrapper of ``csrc/so2_conv.cu``,
@@ -32,7 +35,9 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              chgnet_atom_conv_aggregate_cuda,
                              chgnet_atom_conv_aggregate_reference,
                              chgnet_line_aggregate_cuda,
-                             chgnet_line_aggregate_reference,
+                             chgnet_line_aggregate_reference, chgnet_pack_weights,
+                             chgnet_projection_error_bound, chgnet_row_projection_cuda,
+                             chgnet_row_projection_reference, chgnet_row_tables,
                              tensornet_embed_aggregate_cuda,
                              tensornet_embed_aggregate_reference,
                              tensornet_interaction_aggregate_cuda,

@@ -17,41 +17,54 @@
 // over the valid edges (lines) of dst row n, where
 //   GatedMLP(x) = silu(silu(x W1c + b1c) W2c + b2c) * sigmoid(silu(x W1g + b1g) W2g + b2g)
 // with W in the JAX layout (in, out). Every segment of the concat row is C
-// wide; the hidden width H and C are runtime ints.
+// wide; C and the hidden width H are runtime ints, at most 64 each.
 //
-// Design. One persistent block of 256 threads per SM stages the weights
-// once in shared memory: [W1c | W1g] as one (K1, 2H) matrix, W2c and W2g
-// side by side as (H, 2C) (216 KB at C = H = 64 with the line conv's 4C
-// inputs, so one block per SM, set by the dynamic shared-memory attribute).
-// It then walks chunks of consecutive dst rows (~1024 candidate edges
-// each, round robin over the blocks); a chunk is one contiguous edge
-// range, and its rows are written by this block alone: deterministic, no
-// atomics. The block screens a chunk 256 candidates at a time, compacts
-// the valid edges (warp ballots and a block prefix) into a queue, and runs
-// the queue in tiles of TE edges (64, or 32 when 64 does not fit the
-// shared memory):
-//   1. each warp gathers its edges' concat rows into shared memory: all
-//      row ids, then all loads of a 32-channel slab, then the stores, so
-//      EPW * NSEG coalesced 128-byte loads are in flight per warp;
-//   2. layer 1 as a register-tiled product: a warp owns EPW edges, a lane 4
-//      hidden columns, so each step is one broadcast float4 of the inputs
-//      and one float4 of the weights per lane for 4 EPW fused multiply-adds;
-//   3. layer 2 the same way, core and gate columns side by side, with silu
-//      and sigmoid applied in registers and the core half scaled by abw;
-//   4. C threads walk the tile in edge order and add core * gate into the
-//      running sum of the current dst row, writing each row out when the
-//      walk passes it (empty rows as zeros).
-// Masked edges and lines are never gathered or computed: ~30% of the atom
-// graph's rows at the smoke size are skin-shell or padding rows.
+// What bounds it on an H100: float32 operations. Layer 1 is linear, so it
+// distributes over the concat: [v[src] | v[dst] | e] W1 = (v W1_0)[src] +
+// (v W1_1)[dst] + e W1_2. A gathered segment's product belongs to its node
+// or bond row, not to the edge, and is taken once per row by
+// chgnet_row_projection_kernel below (the wrapper packs W1's row block of
+// each segment as [core | gate], (C, 2hp), and folds the layer-1 bias into
+// the first segment's table). The per-edge kernel then does only per-edge
+// work: the edge segment's product (C -> 2H), layer 2 of core and gate
+// (H -> C each) and the gating, 32,768 FLOP per edge at C = H = 64 against
+// 65,536 (atom) and 81,920 (line) for the whole concat row. No tensor cores:
+// TF32 would break the float32 parity bar of this port. Beside the FMAs the
+// products keep shared memory busy (12 loads per 128 FMAs), and each edge
+// takes 256 activations, each an exact expf and a division.
 //
-// What bounds it on an H100: float32 operations. At C = H = 64 a valid edge
-// costs 65,536 FLOP (atom conv) or 81,920 (line conv) against ~0.5-1 KB of
-// bytes, far above the card's ~20 FLOP per byte in float32; no tensor
-// cores, because TF32 would break the float32 parity bar of this port.
+// Design of the per-edge kernel. One block of up to 12 warps per SM stages
+// W1's edge block (cp, 2hp) and [W2c | W2g] (hp, 2cp) once in shared
+// memory (64 KB at C = H = 64); everything else is per warp, and no warp
+// waits on another after the weights are staged:
+//   - each warp owns a contiguous range of dst rows, cut so that every warp
+//     gets about the same number of candidate edges plus 4 per row (a
+//     32-way search of row_ptr); its rows are written by it alone, in edge
+//     order: deterministic, no atomics;
+//   - it screens its candidates 32 at a time (their mask, dst row and
+//     gather ids loaded one batch ahead, so the loads land while a tile
+//     computes), compacts the valid ones with a ballot into a ring of edge
+//     ids and takes them in tiles of 8;
+//   - while tile t computes, tile t + 1's staged rows (the src segment's
+//     partial row, 2hp floats, and the edge or angle row) are in flight
+//     into the warp's second shared-memory buffer with cp.async; the
+//     row-local partials (the dst row's, and the center atom's for the line
+//     conv) are read at the top of the tile (consecutive edges share them,
+//     so they come from L1), abw during layer 2;
+//   - layer 1 and layer 2 are register-tiled 4 x 8 per lane (4 edges; 4
+//     hidden units, core and gate, or 8 output channels), laid out so that
+//     every shared-memory load of a step takes two wavefronts (see
+//     run_tile): 12 loads for 128 fused multiply-adds. The hidden and the
+//     activated outputs go through the warp's own buffer;
+//   - the dst sum is a segmented reduction in registers: lane c keeps the
+//     running sum of channels c and c + 32 of the current row, adds the
+//     tile's messages in edge order and writes a row when the walk passes
+//     it (empty rows as zeros).
 //
 // Semantics (those of the plain versions in kernels/edge_aggregate.py):
 //   - masked edges are never read and never added, so non-finite padding
-//     cannot leak into a sum;
+//     (or a non-finite node row that only masked edges gather) cannot leak
+//     into a sum;
 //   - every output row is written, empty rows as zeros;
 //   - offsets are 64-bit, edge ids 32-bit; gathered row ids of valid edges
 //     must lie in range.
@@ -61,452 +74,700 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kCand = kThreads;          // candidate edges screened per pass
-constexpr int kSmemLimit = 232448;       // bytes a block can use on sm_90
-constexpr int kEdgesPerChunk = 1024;     // target candidate edges per row chunk
+constexpr int kEPW = 8;                 // edges per warp tile
+constexpr int kMaxWarps = 12;           // warps per block
+constexpr int kMaxThreads = 32 * kMaxWarps;
+constexpr int kSmemLimit = 232448;      // bytes a block can use on sm_90
+constexpr int kRing = kEPW + 32;        // a tile's leftovers plus one screened batch
+constexpr int kMaxWidth = 64;           // C and H: 16 lanes x 4 units or channels
+constexpr int kRowCost = 4;             // a row's weight against a candidate edge
+                                        // when the rows are shared out
 
-struct Segment {
-  const float* base;    // (rows, C)
-  const int32_t* idx;   // (E) row ids, or null: the edge's own row
+__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
+
+// rows of per-row layer-1 partial products (2hp floats each) in a table
+struct Table {
+  const float* base;    // the first row's first column of this segment's block
+  const int32_t* idx;   // (E) the row each edge gathers
+  int64_t stride;       // floats per table row
 };
 
 struct Args {
-  Segment seg[4];
-  const float* scale;   // (E, C) per-edge multiplier, or null
-  const float* w1c;     // (K1, H)
-  const float* b1c;     // (H)
-  const float* w2c;     // (H, C)
-  const float* b2c;     // (C)
-  const float* w1g;
-  const float* b1g;
-  const float* w2g;
-  const float* b2g;
+  Table staged;         // src: staged through shared memory with cp.async
+  Table direct[2];      // dst (and the line conv's center): read directly
+  const float* edge;    // (E, C) the per-edge segment
+  const float* abw;     // (E, C) per-edge multiplier, or null
+  const float* w1e;     // (cp, 2hp) W1's edge block, [core | gate]
+  const float* w2;      // (hp, 2cp) [W2c | W2g]
+  const float* b2;      // (2cp) [b2c | b2g]
   const int64_t* row_ptr;  // (n_rows + 1)
   const int32_t* seg_ids;  // (E) dst row of each edge
   const uint8_t* mask;     // (E) or null
   float* out;              // (n_rows, C)
   int64_t n_rows;
-  int rows_per_block;      // rows of one chunk
   int channels;
   int hidden;
 };
 
-__host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
-
-// shared-memory layout, in floats (every region starts 16-byte aligned)
+// shared-memory layout, in 4-byte words (every region starts 16-byte aligned)
 struct Layout {
-  int k1, k1p, hp, cp, w1s, w2s, xs, te;
-  int o_b1, o_w2, o_b2, o_x, o_h, o_q;
-  __host__ __device__ Layout(int n_seg, int c, int h, int epw) {
-    k1 = n_seg * c;
-    k1p = round4(k1);
-    hp = round4(h);
+  int cp, hp, w1s, w2s, xs, hs, slot, o_w2, o_b2, o_warp, per_warp, warps;
+  __host__ __device__ Layout(int c, int h, int nw) {
     cp = round4(c);
-    w1s = 2 * hp;             // row stride of [W1c | W1g] and of the hidden tile
-    w2s = 2 * cp;             // row stride of [W2c | W2g] and of the output tile
-    xs = k1p > w2s ? k1p : w2s;  // row stride of the input tile (outputs alias it)
-    te = kWarps * epw;
-    o_b1 = k1p * w1s;
-    o_w2 = o_b1 + w1s;
+    hp = round4(h);
+    w1s = 2 * hp;  // row stride of W1's edge block and of a partial row
+    w2s = 2 * cp;  // row stride of [W2c | W2g] and of the output tile
+    xs = cp + 4;   // row stride of the edge rows in a tile buffer
+    hs = w1s + 4;  // row stride of the hidden tile (padded like xs: other banks)
+    // one tile buffer: the edge rows (8, xs) and the staged partial rows
+    // (8, 2hp); the hidden tile and then the output tile are written over it
+    int words = xs + w1s;
+    if (hs > words) words = hs;
+    if (w2s > words) words = w2s;
+    slot = kEPW * words;
+    o_w2 = cp * w1s;
     o_b2 = o_w2 + hp * w2s;
-    o_x = o_b2 + w2s;
-    o_h = o_x + te * xs;
-    o_q = o_h + te * w1s;
+    o_warp = round4(o_b2 + w2s);
+    // two tile buffers, the ring (edge, row, src, dst, center) and each
+    // buffer's tile metadata (edge, row, dst, center)
+    per_warp = round4(2 * slot + 5 * kRing + 2 * 4 * kEPW);
+    warps = nw;
   }
-  __host__ __device__ int bytes() const {
-    return o_q * 4 + 2 * (te + kCand) * 4 + kWarps * 4;
-  }
+  __host__ __device__ int bytes() const { return (o_warp + warps * per_warp) * 4; }
 };
 
 __device__ __forceinline__ float silu(float z) { return z / (1.0f + expf(-z)); }
 __device__ __forceinline__ float sigmoid(float z) { return 1.0f / (1.0f + expf(-z)); }
 
-// acc[i][0..3] += x_i[k..k+3] . W[k..k+3][col..col+3]
-template <int EPW>
-__device__ __forceinline__ void fma_step(float (&acc)[EPW][4],
-                                         const float* __restrict__ xrow0, int xstride,
-                                         const float* __restrict__ wk, int wstride) {
-  const float4 w0 = *reinterpret_cast<const float4*>(wk);
-  const float4 w1 = *reinterpret_cast<const float4*>(wk + wstride);
-  const float4 w2 = *reinterpret_cast<const float4*>(wk + 2 * wstride);
-  const float4 w3 = *reinterpret_cast<const float4*>(wk + 3 * wstride);
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One 4-deep step of a lane's 4 x 8 tile: for its edges t (rows x + t xs),
+//   acc[t][0..3] += x_t[k..k+3] . Wa[k..k+3][0..3]
+//   acc[t][4..7] += x_t[k..k+3] . Wb[k..k+3][0..3]
+// with wa, wb the weights' row k at the lane's two column groups.
+__device__ __forceinline__ void fma_step(float (&acc)[4][8], const float* __restrict__ x, int xs,
+                                         const float* __restrict__ wa,
+                                         const float* __restrict__ wb, int ws) {
+  float4 pa[4], pb[4];
 #pragma unroll
-  for (int i = 0; i < EPW; ++i) {
-    const float4 x = *reinterpret_cast<const float4*>(xrow0 + i * xstride);
-    acc[i][0] = fmaf(x.x, w0.x, acc[i][0]);
-    acc[i][1] = fmaf(x.x, w0.y, acc[i][1]);
-    acc[i][2] = fmaf(x.x, w0.z, acc[i][2]);
-    acc[i][3] = fmaf(x.x, w0.w, acc[i][3]);
-    acc[i][0] = fmaf(x.y, w1.x, acc[i][0]);
-    acc[i][1] = fmaf(x.y, w1.y, acc[i][1]);
-    acc[i][2] = fmaf(x.y, w1.z, acc[i][2]);
-    acc[i][3] = fmaf(x.y, w1.w, acc[i][3]);
-    acc[i][0] = fmaf(x.z, w2.x, acc[i][0]);
-    acc[i][1] = fmaf(x.z, w2.y, acc[i][1]);
-    acc[i][2] = fmaf(x.z, w2.z, acc[i][2]);
-    acc[i][3] = fmaf(x.z, w2.w, acc[i][3]);
-    acc[i][0] = fmaf(x.w, w3.x, acc[i][0]);
-    acc[i][1] = fmaf(x.w, w3.y, acc[i][1]);
-    acc[i][2] = fmaf(x.w, w3.z, acc[i][2]);
-    acc[i][3] = fmaf(x.w, w3.w, acc[i][3]);
+  for (int r = 0; r < 4; ++r) {
+    pa[r] = *reinterpret_cast<const float4*>(wa + r * ws);
+    pb[r] = *reinterpret_cast<const float4*>(wb + r * ws);
+  }
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float4 v = *reinterpret_cast<const float4*>(x + t * xs);
+    const float xv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      acc[t][0] = fmaf(xv[r], pa[r].x, acc[t][0]);
+      acc[t][1] = fmaf(xv[r], pa[r].y, acc[t][1]);
+      acc[t][2] = fmaf(xv[r], pa[r].z, acc[t][2]);
+      acc[t][3] = fmaf(xv[r], pa[r].w, acc[t][3]);
+      acc[t][4] = fmaf(xv[r], pb[r].x, acc[t][4]);
+      acc[t][5] = fmaf(xv[r], pb[r].y, acc[t][5]);
+      acc[t][6] = fmaf(xv[r], pb[r].z, acc[t][6]);
+      acc[t][7] = fmaf(xv[r], pb[r].w, acc[t][7]);
+    }
   }
 }
 
-// stage [W1c | W1g], the biases and [W2c | W2g] in shared memory, zero-padded
-__device__ __forceinline__ void stage_weights(const Args& a, const Layout& L, float* smem) {
-  const int C = a.channels, H = a.hidden;
-  const int tid = threadIdx.x;
-  float* W1s = smem;
-  for (int i = tid; i < L.k1p * L.w1s; i += kThreads) {
-    const int k = i / L.w1s, j = i % L.w1s;
-    float v = 0.0f;
-    if (k < L.k1) {
-      if (j < H) v = __ldg(a.w1c + static_cast<int64_t>(k) * H + j);
-      else if (j >= L.hp && j < L.hp + H) v = __ldg(a.w1g + static_cast<int64_t>(k) * H + j - L.hp);
+// The smallest row r in [0, n_rows] with row_ptr[r] + kRowCost r >= t
+// (t <= row_ptr[n_rows] + kRowCost n_rows): a 32-way search by one warp.
+__device__ int64_t find_row(const int64_t* row_ptr, int64_t n_rows, int64_t t, int lane) {
+  int64_t lo = 0, hi = n_rows;
+  while (lo < hi) {
+    const int64_t p = lo + (hi - lo) * lane / 32;
+    const bool ge = row_ptr[p] + kRowCost * p >= t;
+    const unsigned b = __ballot_sync(0xffffffffu, ge);
+    if (b == 0u) {
+      lo = __shfl_sync(0xffffffffu, p, 31) + 1;
+    } else {
+      const int j = __ffs(b) - 1;
+      hi = __shfl_sync(0xffffffffu, p, j);
+      if (j > 0) lo = __shfl_sync(0xffffffffu, p, j - 1) + 1;
+      else lo = hi;
     }
-    W1s[i] = v;
   }
-  float* b1s = smem + L.o_b1;
-  for (int j = tid; j < L.w1s; j += kThreads) {
-    b1s[j] = j < H ? __ldg(a.b1c + j)
-                   : (j >= L.hp && j < L.hp + H ? __ldg(a.b1g + j - L.hp) : 0.0f);
-  }
-  float* W2s = smem + L.o_w2;
-  for (int i = tid; i < L.hp * L.w2s; i += kThreads) {
-    const int j = i / L.w2s, c = i % L.w2s;
-    float v = 0.0f;
-    if (j < H) {
-      if (c < C) v = __ldg(a.w2c + static_cast<int64_t>(j) * C + c);
-      else if (c >= L.cp && c < L.cp + C) v = __ldg(a.w2g + static_cast<int64_t>(j) * C + c - L.cp);
-    }
-    W2s[i] = v;
-  }
-  float* b2s = smem + L.o_b2;
-  for (int c = tid; c < L.w2s; c += kThreads) {
-    b2s[c] = c < C ? __ldg(a.b2c + c)
-                   : (c >= L.cp && c < L.cp + C ? __ldg(a.b2g + c - L.cp) : 0.0f);
+  return lo;
+}
+
+// The padded widths cp and hp: compile-time constants when CP, HP > 0 (the
+// matgl widths, so the products unroll with immediate offsets), else the
+// launch's.
+template <int CP, int HP>
+struct Dims {
+  int cp_, hp_;
+  __device__ explicit Dims(const Layout& L) : cp_(L.cp), hp_(L.hp) {}
+  __device__ int cp() const { return CP > 0 ? CP : cp_; }
+  __device__ int hp() const { return HP > 0 ? HP : hp_; }
+  __device__ int w1s() const { return 2 * hp(); }
+  __device__ int w2s() const { return 2 * cp(); }
+  __device__ int xs() const { return cp() + 4; }
+  __device__ int hs() const { return w1s() + 4; }
+};
+
+// A warp's screening state: its candidate range, the ring of screened
+// valid edges and the next batch of 32 candidates, loaded one batch ahead.
+struct Screen {
+  int64_t cand, e_end;   // the next candidate, the end of the warp's range
+  int head, count;       // the ring's first entry and its length
+  bool ok;               // the batch: this lane's candidate is valid,
+  int row, src, d0, d1;  // its dst row and gather ids
+};
+
+template <int NDIR>
+__device__ __forceinline__ void prefetch_batch(const Args& a, Screen& sc, int lane) {
+  const int64_t e = sc.cand + lane;
+  const bool in = e < sc.e_end;
+  sc.ok = in && (a.mask == nullptr || a.mask[e] != 0);
+  if (in) {
+    sc.row = a.seg_ids[e];
+    sc.src = a.staged.idx[e];
+    sc.d0 = a.direct[0].idx[e];
+    if (NDIR > 1) sc.d1 = a.direct[1].idx[e];
   }
 }
 
-// one tile of n <= TE queued edges: gather, two layers, and the ordered
-// walk that adds (core [* scale]) * gate into the current row's sum
-template <int NSEG, int EPW>
-__device__ __forceinline__ void run_tile(const Args& a, const Layout& L, float* smem,
-                         const int* q_e, const int* q_row, int n,
-                         int64_t& cur, float& acc_row) {
+// The warp's own region of shared memory.
+struct WarpMem {
+  float* buf;   // two tile buffers of L.slot words
+  int* ring;    // ring_e, ring_r, ring_s, ring_d0, ring_d1: kRing each
+  int* meta;    // per buffer: edge, row, dst, center: kEPW each
+  __device__ float* slot(const Layout& L, int s) const { return buf + s * L.slot; }
+  __device__ int* tile(int s, int field) const { return meta + (s * 4 + field) * kEPW; }
+};
+
+// Fill the ring until it holds a tile (or the range is screened), move the
+// next tile into buffer s, start its copies and return its edge count.
+template <int NDIR, bool VEC, int CP, int HP>
+__device__ int take_tile(const Args& a, const Layout& L, const WarpMem& m, int s, Screen& sc,
+                         int lane) {
+  const Dims<CP, HP> D(L);
+  int* ring_e = m.ring;
+  int* ring_r = ring_e + kRing;
+  int* ring_s = ring_r + kRing;
+  int* ring_d0 = ring_s + kRing;
+  int* ring_d1 = ring_d0 + kRing;
+  __syncwarp();  // every lane is done with the ring entries of the last tile
+  while (sc.count < kEPW && sc.cand < sc.e_end) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, sc.ok);
+    if (sc.ok) {
+      const int pos = (sc.head + sc.count + __popc(ballot & ((1u << lane) - 1u))) % kRing;
+      ring_e[pos] = static_cast<int>(sc.cand + lane);
+      ring_r[pos] = sc.row;
+      ring_s[pos] = sc.src;
+      ring_d0[pos] = sc.d0;
+      ring_d1[pos] = sc.d1;
+    }
+    sc.count += __popc(ballot);
+    sc.cand += 32;
+    prefetch_batch<NDIR>(a, sc, lane);  // lands while the tile computes
+  }
+  __syncwarp();
+  const int n = sc.count < kEPW ? sc.count : kEPW;
+  if (lane < n) {
+    const int pos = (sc.head + lane) % kRing;
+    m.tile(s, 0)[lane] = ring_e[pos];
+    m.tile(s, 1)[lane] = ring_r[pos];
+    m.tile(s, 2)[lane] = ring_d0[pos];
+    m.tile(s, 3)[lane] = ring_d1[pos];
+  }
+  // the tile's staged rows: the src partial rows (2hp floats, 16-byte
+  // chunks) and the edge rows (C floats; 16-byte chunks when C % 4 == 0)
+  float* x = m.slot(L, s);
+  float* ps = x + kEPW * D.xs();
   const int C = a.channels;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* Xs = smem + L.o_x;
-  float* Hs = smem + L.o_h;
-
-  // 1. gather the concat rows: every row id first, then every value of a
-  //    32-channel slab, then the stores, so a warp keeps EPW * NSEG loads in
-  //    flight instead of waiting on each one
-  int rid[EPW][NSEG];
-#pragma unroll
-  for (int i = 0; i < EPW; ++i) {
-    const int t = warp * EPW + i;
-    const int e = t < n ? q_e[t] : 0;
-#pragma unroll
-    for (int s = 0; s < NSEG; ++s)
-      rid[i][s] = t < n && a.seg[s].idx != nullptr ? __ldg(a.seg[s].idx + e) : e;
+  const int qp = D.w1s() / 4;
+  for (int t = lane; t < n * qp; t += 32) {
+    const int i = t / qp, q = t - i * qp;
+    const int64_t r = ring_s[(sc.head + i) % kRing];
+    cp_async16(ps + i * D.w1s() + 4 * q, a.staged.base + r * a.staged.stride + 4 * q);
   }
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + lane;
-    float v[EPW][NSEG];
-#pragma unroll
-    for (int i = 0; i < EPW; ++i) {
-#pragma unroll
-      for (int s = 0; s < NSEG; ++s) {
-        v[i][s] = warp * EPW + i < n && c < C
-                      ? __ldg(a.seg[s].base + static_cast<int64_t>(rid[i][s]) * C + c)
-                      : 0.0f;
-      }
+  if (VEC) {
+    const int qx = C / 4;
+    for (int t = lane; t < n * qx; t += 32) {
+      const int i = t / qx, q = t - i * qx;
+      const int64_t e = ring_e[(sc.head + i) % kRing];
+      cp_async16(x + i * D.xs() + 4 * q, a.edge + e * C + 4 * q);
     }
-#pragma unroll
-    for (int i = 0; i < EPW; ++i) {
-      const int t = warp * EPW + i;
-      if (t < n && c < C) {
-#pragma unroll
-        for (int s = 0; s < NSEG; ++s) Xs[t * L.xs + s * C + c] = v[i][s];
-      }
+  } else {
+    for (int t = lane; t < n * D.cp(); t += 32) {
+      const int i = t / D.cp(), c = t - i * D.cp();
+      const int64_t e = ring_e[(sc.head + i) % kRing];
+      if (c < C) cp_async4(x + i * D.xs() + c, a.edge + e * C + c);
+      else x[i * D.xs() + c] = 0.0f;  // zero padding up to cp
     }
   }
-#pragma unroll
-  for (int i = 0; i < EPW; ++i) {
-    const int t = warp * EPW + i;
-    if (t < n) {
-      for (int k = L.k1 + lane; k < L.k1p; k += 32) Xs[t * L.xs + k] = 0.0f;
-    }
-  }
-  __syncthreads();
-
-  // 2. hidden = silu(x [W1c | W1g] + [b1c | b1g])
-  {
-    const float* W1s = smem;
-    const float* b1s = smem + L.o_b1;
-    const float* xrow0 = Xs + warp * EPW * L.xs;
-    for (int cb = 0; cb < L.w1s; cb += 128) {
-      const int col = cb + lane * 4;
-      if (col < L.w1s) {
-        float acc[EPW][4];
-        const float4 b = *reinterpret_cast<const float4*>(b1s + col);
-#pragma unroll
-        for (int i = 0; i < EPW; ++i) {
-          acc[i][0] = b.x; acc[i][1] = b.y; acc[i][2] = b.z; acc[i][3] = b.w;
-        }
-        for (int k = 0; k < L.k1p; k += 4)
-          fma_step<EPW>(acc, xrow0 + k, L.xs, W1s + k * L.w1s + col, L.w1s);
-#pragma unroll
-        for (int i = 0; i < EPW; ++i) {
-          float4 h;
-          h.x = silu(acc[i][0]); h.y = silu(acc[i][1]);
-          h.z = silu(acc[i][2]); h.w = silu(acc[i][3]);
-          *reinterpret_cast<float4*>(Hs + (warp * EPW + i) * L.w1s + col) = h;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. [core * scale | gate] = [silu | sigmoid](hidden_{c|g} [W2c | W2g]
-  //    + [b2c | b2g]), written over the input tile
-  {
-    const float* W2s = smem + L.o_w2;
-    const float* b2s = smem + L.o_b2;
-    for (int cb = 0; cb < L.w2s; cb += 128) {
-      const int col = cb + lane * 4;
-      if (col < L.w2s) {
-        const bool gate = col >= L.cp;
-        const float* hrow0 = Hs + warp * EPW * L.w1s + (gate ? L.hp : 0);
-        float acc[EPW][4];
-        const float4 b = *reinterpret_cast<const float4*>(b2s + col);
-#pragma unroll
-        for (int i = 0; i < EPW; ++i) {
-          acc[i][0] = b.x; acc[i][1] = b.y; acc[i][2] = b.z; acc[i][3] = b.w;
-        }
-        for (int j = 0; j < L.hp; j += 4)
-          fma_step<EPW>(acc, hrow0 + j, L.w1s, W2s + j * L.w2s + col, L.w2s);
-        // the per-edge scale (abw) multiplies the core half here, loaded
-        // for all EPW edges at once
-        float sc[EPW][4];
-#pragma unroll
-        for (int i = 0; i < EPW; ++i) {
-          const int t = warp * EPW + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            sc[i][j] = a.scale != nullptr && !gate && t < n && col + j < C
-                           ? __ldg(a.scale + static_cast<int64_t>(q_e[t]) * C + col + j)
-                           : 1.0f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < EPW; ++i) {
-          float4 o;
-          if (gate) {
-            o.x = sigmoid(acc[i][0]); o.y = sigmoid(acc[i][1]);
-            o.z = sigmoid(acc[i][2]); o.w = sigmoid(acc[i][3]);
-          } else {
-            o.x = silu(acc[i][0]) * sc[i][0]; o.y = silu(acc[i][1]) * sc[i][1];
-            o.z = silu(acc[i][2]) * sc[i][2]; o.w = silu(acc[i][3]) * sc[i][3];
-          }
-          // the input tile is dead once every warp has passed layer 1
-          *reinterpret_cast<float4*>(Xs + (warp * EPW + i) * L.xs + col) = o;
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // 4. ordered walk: thread c adds edge t's message into its row's sum
-  if (tid < C) {
-    for (int t = 0; t < n; ++t) {
-      const int64_t r = q_row[t];
-      while (cur < r) {
-        a.out[cur * C + tid] = acc_row;
-        acc_row = 0.0f;
-        ++cur;
-      }
-      acc_row += Xs[t * L.xs + tid] * Xs[t * L.xs + L.cp + tid];
-    }
-  }
-  __syncthreads();
+  cp_async_commit();
+  sc.head = (sc.head + n) % kRing;
+  sc.count -= n;
+  return n;
 }
 
-template <int NSEG, int EPW>
+// flush the running sums into row `cur` and move on
+__device__ __forceinline__ void flush_row(const Args& a, int64_t& cur, float (&acc_row)[2],
+                                          int lane) {
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int c = lane + 32 * g;
+    if (c < a.channels) a.out[cur * a.channels + c] = acc_row[g];
+    acc_row[g] = 0.0f;
+  }
+  ++cur;
+}
+
+// One tile of n <= 8 edges whose staged rows are in buffer s: layer 1
+// (staged src partial + row-local partials + the edge row's product), silu,
+// layer 2, the gating, and the ordered add into the running row sums.
+//
+// Lane (q, j) = (lane / 8, lane % 8) owns the tile's edges g, g + 2, g + 4,
+// g + 6 with g = j % 2, and in layer 1 the hidden units u..u+3, core and
+// gate, u = 16 q + 4 (j / 2). A quarter-warp then reads two input rows
+// (padded strides put them in different banks) and, for the weights, 64
+// contiguous bytes that the neighbouring quarter-warp continues, so every
+// shared-memory load of a step is two wavefronts: 12 loads for 128 FMAs.
+// In layer 2 quarter-warps 0-1 take the core channels and 2-3 the gate
+// channels: c and c + 32 with c = 16 (q % 2) + 4 (j / 2).
+template <int NDIR, int CP, int HP>
+__device__ void run_tile(const Args& a, const Layout& L, const float* smem, const WarpMem& m,
+                         int s, int n, int lane, int64_t& cur, float (&acc_row)[2]) {
+  const Dims<CP, HP> D(L);
+  const int C = a.channels;
+  float* x = m.slot(L, s);
+  const float* ps = x + kEPW * D.xs();
+  float* hs = x;  // the hidden tile, written over the edge and partial rows
+  float* os = x;  // the output tile, written over the hidden tile
+  const int* te = m.tile(s, 0);
+  const int* tr = m.tile(s, 1);
+  const int q = lane >> 3, j = lane & 7;
+  const int g = j & 1;
+  const int u = 16 * q + 4 * (j >> 1);
+  float acc[4][8];
+
+  // 1. hidden = silu(P_src[src] + P_dst[dst] (+ P_ctr[ctr]) + e W1e); the
+  //    bias is folded into P_src
+  if (u < D.hp()) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const float* p = ps + (2 * t + g) * D.w1s() + u;
+      const float4 c = *reinterpret_cast<const float4*>(p);
+      const float4 h = *reinterpret_cast<const float4*>(p + D.hp());
+      acc[t][0] = c.x; acc[t][1] = c.y; acc[t][2] = c.z; acc[t][3] = c.w;
+      acc[t][4] = h.x; acc[t][5] = h.y; acc[t][6] = h.z; acc[t][7] = h.w;
+    }
+#pragma unroll
+    for (int d = 0; d < NDIR; ++d) {
+      const int* ti = m.tile(s, 2 + d);
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        if (2 * t + g < n) {
+          const float* p = a.direct[d].base + static_cast<int64_t>(ti[2 * t + g]) * a.direct[d].stride + u;
+          const float4 c = __ldg(reinterpret_cast<const float4*>(p));
+          const float4 h = __ldg(reinterpret_cast<const float4*>(p + D.hp()));
+          acc[t][0] += c.x; acc[t][1] += c.y; acc[t][2] += c.z; acc[t][3] += c.w;
+          acc[t][4] += h.x; acc[t][5] += h.y; acc[t][6] += h.z; acc[t][7] += h.w;
+        }
+      }
+    }
+    const float* w1e = smem + u;
+#pragma unroll 4
+    for (int k = 0; k < D.cp(); k += 4) {
+      fma_step(acc, x + g * D.xs() + k, 2 * D.xs(), w1e + k * D.w1s(),
+               w1e + k * D.w1s() + D.hp(), D.w1s());
+    }
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) acc[t][i] = silu(acc[t][i]);
+    }
+  }
+  __syncwarp();  // every lane is done reading the edge rows
+  if (u < D.hp()) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float* h = hs + (2 * t + g) * D.hs() + u;
+      *reinterpret_cast<float4*>(h) = make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+      *reinterpret_cast<float4*>(h + D.hp()) =
+          make_float4(acc[t][4], acc[t][5], acc[t][6], acc[t][7]);
+    }
+  }
+  __syncwarp();
+
+  // abw of the tile's edges in the reduction's layout (channels lane, lane
+  // + 32), in flight during layer 2
+  float ab[kEPW][2];
+#pragma unroll
+  for (int i = 0; i < kEPW; ++i) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int c = lane + 32 * r;
+      ab[i][r] = a.abw != nullptr && i < n && c < C
+                     ? __ldg(a.abw + static_cast<int64_t>(te[i]) * C + c)
+                     : 1.0f;
+    }
+  }
+
+  // 2. [silu(core) | sigmoid(gate)] = act(hidden_{c|g} [W2c | W2g] + [b2c | b2g])
+  const int half = q >> 1;                  // 0: core, 1: gate
+  const int c0 = 16 * (q & 1) + 4 * (j >> 1);  // channels c0..c0+3 and c0+32..c0+35
+  const int col = half * D.cp() + c0;
+  if (c0 < D.cp()) {
+    const float4 b0 = *reinterpret_cast<const float4*>(smem + L.o_b2 + col);
+    const float4 b1 = c0 + 32 < D.cp()
+                          ? *reinterpret_cast<const float4*>(smem + L.o_b2 + col + 32)
+                          : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      acc[t][0] = b0.x; acc[t][1] = b0.y; acc[t][2] = b0.z; acc[t][3] = b0.w;
+      acc[t][4] = b1.x; acc[t][5] = b1.y; acc[t][6] = b1.z; acc[t][7] = b1.w;
+    }
+    const float* w2 = smem + L.o_w2 + col;
+    const float* h0 = hs + g * D.hs() + half * D.hp();
+    // past cp (narrow widths) the second group reads other weights and is
+    // never written
+#pragma unroll 4
+    for (int k = 0; k < D.hp(); k += 4)
+      fma_step(acc, h0 + k, 2 * D.hs(), w2 + k * D.w2s(), w2 + k * D.w2s() + 32, D.w2s());
+  }
+  __syncwarp();  // every lane is done reading the hidden tile
+  if (c0 < D.cp()) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float o[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) o[i] = half ? sigmoid(acc[t][i]) : silu(acc[t][i]);
+      float* out = os + (2 * t + g) * D.w2s() + col;
+      *reinterpret_cast<float4*>(out) = make_float4(o[0], o[1], o[2], o[3]);
+      if (c0 + 32 < D.cp()) *reinterpret_cast<float4*>(out + 32) = make_float4(o[4], o[5], o[6], o[7]);
+    }
+  }
+  __syncwarp();
+
+  // 3. segmented sum in edge order: every lane adds channels lane and
+  //    lane + 32 of each message to the running sum of its row
+#pragma unroll
+  for (int i = 0; i < kEPW; ++i) {
+    if (i < n) {
+      const int64_t r = tr[i];
+      while (cur < r) flush_row(a, cur, acc_row, lane);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = lane + 32 * k;
+        if (c < C) acc_row[k] += os[i * D.w2s() + c] * os[i * D.w2s() + D.cp() + c] * ab[i][k];
+      }
+    }
+  }
+}
+
+template <int NDIR, bool VEC, int CP, int HP>
 __device__ __forceinline__ void gated_aggregate(const Args& a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const Layout L(NSEG, a.channels, a.hidden, EPW);
+  const int nw = blockDim.x >> 5;
+  const Layout L(a.channels, a.hidden, nw);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  int* q_e = reinterpret_cast<int*>(smem + L.o_q);
-  int* q_row = q_e + L.te + kCand;
-  int* wcount = q_row + L.te + kCand;
-  stage_weights(a, L, smem);
+
+  // the weights, already packed and padded by the wrapper: straight copies
+  for (int i = tid; i < L.cp * L.w1s / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(smem)[i] = __ldg(reinterpret_cast<const float4*>(a.w1e) + i);
+  for (int i = tid; i < L.hp * L.w2s / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(smem + L.o_w2)[i] = __ldg(reinterpret_cast<const float4*>(a.w2) + i);
+  for (int i = tid; i < L.w2s; i += blockDim.x) smem[L.o_b2 + i] = __ldg(a.b2 + i);
   __syncthreads();
 
-  // persistent: the block stages the weights once and walks the row chunks
-  // blockIdx.x, blockIdx.x + gridDim.x, ...
-  const int64_t n_chunks = (a.n_rows + a.rows_per_block - 1) / a.rows_per_block;
-  for (int64_t chunk = blockIdx.x; chunk < n_chunks; chunk += gridDim.x) {
-    const int64_t r0 = chunk * a.rows_per_block;
-    const int64_t r1 = r0 + a.rows_per_block < a.n_rows ? r0 + a.rows_per_block : a.n_rows;
-    const int64_t e0 = a.row_ptr[r0], e1 = a.row_ptr[r1];
-    int64_t cur = r0;       // the row the walk is in (threads < C)
-    float acc_row = 0.0f;   // its running sum of channel tid
-    int qn = 0;             // queued valid edges (the same in every thread)
-    for (int64_t base = e0; base < e1; base += kCand) {
-      const int64_t e = base + tid;
-      const bool valid = e < e1 && (a.mask == nullptr || a.mask[e] != 0);
-      const unsigned ballot = __ballot_sync(0xffffffffu, valid);
-      if (lane == 0) wcount[warp] = __popc(ballot);
-      __syncthreads();
-      int off = 0, total = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const int c = wcount[w];
-        off += w < warp ? c : 0;
-        total += c;
-      }
-      if (valid) {
-        const int pos = qn + off + __popc(ballot & ((1u << lane) - 1u));
-        q_e[pos] = static_cast<int>(e);
-        q_row[pos] = a.seg_ids[e];
-      }
-      qn += total;
-      __syncthreads();
-      while (qn >= L.te) {
-        run_tile<NSEG, EPW>(a, L, smem, q_e, q_row, L.te, cur, acc_row);
-        const int rest = qn - L.te;  // < kCand
-        int qe = 0, qr = 0;
-        if (tid < rest) {
-          qe = q_e[L.te + tid];
-          qr = q_row[L.te + tid];
-        }
-        __syncthreads();
-        if (tid < rest) {
-          q_e[tid] = qe;
-          q_row[tid] = qr;
-        }
-        __syncthreads();
-        qn = rest;
-      }
-    }
-    if (qn > 0) run_tile<NSEG, EPW>(a, L, smem, q_e, q_row, qn, cur, acc_row);
-    if (tid < a.channels) {
-      while (cur < r1) {
-        a.out[cur * a.channels + tid] = acc_row;
-        acc_row = 0.0f;
-        ++cur;
-      }
-    }
+  WarpMem m;
+  m.buf = smem + L.o_warp + warp * L.per_warp;
+  m.ring = reinterpret_cast<int*>(m.buf + 2 * L.slot);
+  m.meta = m.ring + 5 * kRing;
+
+  // this warp's rows [ra, rb): equal shares of candidate edges + kRowCost per row
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * nw;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * nw + warp;
+  const int64_t total = a.row_ptr[a.n_rows] + kRowCost * a.n_rows;
+  const int64_t ra = w == 0 ? 0 : find_row(a.row_ptr, a.n_rows, w * total / n_warps, lane);
+  const int64_t rb = w + 1 == n_warps ? a.n_rows
+                                      : find_row(a.row_ptr, a.n_rows, (w + 1) * total / n_warps, lane);
+  if (ra >= rb) return;
+  Screen sc{};
+  sc.cand = a.row_ptr[ra];
+  sc.e_end = a.row_ptr[rb];
+  prefetch_batch<NDIR>(a, sc, lane);
+
+  int64_t cur = ra;               // the row the walk is in
+  float acc_row[2] = {0.0f, 0.0f};  // its running sums of channels lane, lane + 32
+  int s = 0;
+  int n = take_tile<NDIR, VEC, CP, HP>(a, L, m, s, sc, lane);
+  while (n > 0) {
+    // the next tile's rows fly while this one computes
+    const int n_next = take_tile<NDIR, VEC, CP, HP>(a, L, m, s ^ 1, sc, lane);
+    cp_async_wait<1>();
+    __syncwarp();
+    run_tile<NDIR, CP, HP>(a, L, smem, m, s, n, lane, cur, acc_row);
+    __syncwarp();
+    s ^= 1;
+    n = n_next;
   }
+  cp_async_wait<0>();
+  while (cur < rb) flush_row(a, cur, acc_row, lane);
 }
 
-template <int EPW>
-__global__ void __launch_bounds__(kThreads, 1) chgnet_atom_conv_kernel(const Args a) {
-  gated_aggregate<3, EPW>(a);
+// VEC: C % 4 == 0 (16-byte copies of the edge rows). CP, HP: the padded
+// widths as constants (64, 64: matgl's), or 0 for any.
+template <bool VEC, int CP, int HP>
+__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_atom_conv_kernel(const Args a) {
+  gated_aggregate<1, VEC, CP, HP>(a);
 }
 
-template <int EPW>
-__global__ void __launch_bounds__(kThreads, 1) chgnet_line_conv_kernel(const Args a) {
-  gated_aggregate<4, EPW>(a);
+template <bool VEC, int CP, int HP>
+__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_line_conv_kernel(const Args a) {
+  gated_aggregate<2, VEC, CP, HP>(a);
 }
 
-// edges per warp of the tile: 8 when the shared memory holds it, else 4;
-// 0 when neither fits
-int pick_epw(int n_seg, int channels, int hidden) {
-  if (Layout(n_seg, channels, hidden, 8).bytes() <= kSmemLimit) return 8;
-  if (Layout(n_seg, channels, hidden, 4).bytes() <= kSmemLimit) return 4;
+// Warps per block that the shared memory holds at (C, H), at most
+// kMaxWarps; 0 when C or H is past kMaxWidth or not even one warp fits.
+int pick_warps(int channels, int hidden) {
+  if (channels < 1 || hidden < 1 || channels > kMaxWidth || hidden > kMaxWidth) return 0;
+  for (int nw = kMaxWarps; nw >= 1; --nw) {
+    if (Layout(channels, hidden, nw).bytes() <= kSmemLimit) return nw;
+  }
   return 0;
 }
 
-template <int NSEG>
-int launch(Args a, int64_t n_edges, void* stream) {
+template <int NDIR>
+int launch(const Args& a, int64_t n_edges, void* stream) {
   if (a.n_rows <= 0 || a.channels <= 0) return 0;
-  if (a.channels > kThreads || a.hidden <= 0 || n_edges >= 2147483647LL)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int epw = pick_epw(NSEG, a.channels, a.hidden);
-  if (epw == 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t avg = n_edges / a.n_rows > 0 ? n_edges / a.n_rows : 1;
-  int64_t rpb = (kEdgesPerChunk + avg - 1) / avg;
-  if (rpb > a.n_rows) rpb = a.n_rows;
-  a.rows_per_block = static_cast<int>(rpb);
-  const int64_t chunks = (a.n_rows + rpb - 1) / rpb;
+  const int nw = pick_warps(a.channels, a.hidden);
+  if (nw == 0 || n_edges >= 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = chunks < sms ? chunks : sms;  // one resident block per SM
-  const int bytes = Layout(NSEG, a.channels, a.hidden, epw).bytes();
-  auto kernel = NSEG == 3 ? (epw == 8 ? chgnet_atom_conv_kernel<8> : chgnet_atom_conv_kernel<4>)
-                          : (epw == 8 ? chgnet_line_conv_kernel<8> : chgnet_line_conv_kernel<4>);
+  // one resident block per SM; fewer for small inputs (~256 candidates a warp)
+  const int64_t want = (n_edges + a.n_rows * kRowCost + 256LL * nw - 1) / (256LL * nw);
+  const int64_t blocks = want < sms ? (want > 0 ? want : 1) : sms;
+  const int bytes = Layout(a.channels, a.hidden, nw).bytes();
+  const bool vec = a.channels % 4 == 0;
+  const bool matgl = a.channels == 64 && a.hidden == 64;
+  auto kernel = NDIR == 1
+      ? (matgl ? chgnet_atom_conv_kernel<true, 64, 64>
+               : vec ? chgnet_atom_conv_kernel<true, 0, 0> : chgnet_atom_conv_kernel<false, 0, 0>)
+      : (matgl ? chgnet_line_conv_kernel<true, 64, 64>
+               : vec ? chgnet_line_conv_kernel<true, 0, 0> : chgnet_line_conv_kernel<false, 0, 0>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned>(blocks), kThreads, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  kernel<<<static_cast<unsigned>(blocks), 32 * nw, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-void set_weights(Args& a, const float* const* w) {
-  a.w1c = w[0]; a.b1c = w[1]; a.w2c = w[2]; a.b2c = w[3];
-  a.w1g = w[4]; a.b1g = w[5]; a.w2g = w[6]; a.b2g = w[7];
+// ---------------------------------------------------------------------------
+// The row projection: y (rows, m) = x (rows, k) W (k, m) [+ bias (m)], the
+// layer-1 products of the gathered segments taken once per node or bond
+// row. A register-tiled FMA GEMM as in so2_conv.cu: 128 x 128 output tiles
+// (blockIdx.x walks the row tiles), 8-deep slices of x (transposed) and W
+// double-buffered through shared memory, 8 x 8 outputs per thread in two
+// 4 x 4 quadrants 64 apart. k is C (<= 64), m a multiple of 4.
+
+constexpr int kPM = 128;
+constexpr int kPN = 128;
+constexpr int kPK = 8;
+constexpr int kPThreads = 256;
+
+template <bool VEC4>
+__device__ __forceinline__ void load_x(const float* __restrict__ row, bool live, int k_dim,
+                                       int k, float (&v)[4]) {
+  if constexpr (VEC4) {
+    if (live && k < k_dim) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(row + k));
+      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+    } else {
+      v[0] = v[1] = v[2] = v[3] = 0.0f;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = live && k + i < k_dim ? __ldg(row + k + i) : 0.0f;
+  }
+}
+
+__device__ __forceinline__ void load_w(const float* __restrict__ w, int k_dim, int m, int k,
+                                       int j, float (&v)[4]) {
+  if (k < k_dim && j < m) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(w + static_cast<int64_t>(k) * m + j));
+    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
+  } else {
+    v[0] = v[1] = v[2] = v[3] = 0.0f;
+  }
+}
+
+template <bool VEC4>
+__global__ void __launch_bounds__(kPThreads)
+chgnet_row_projection_kernel(const float* __restrict__ x, int64_t rows, int k_dim,
+                             const float* __restrict__ w, int m, const float* __restrict__ bias,
+                             float* __restrict__ y) {
+  __shared__ __align__(16) float As[2][kPK][kPM];
+  __shared__ __align__(16) float Bs[2][kPK][kPN];
+  const int tid = threadIdx.x;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kPM;
+  const int n0 = static_cast<int>(blockIdx.y) * kPN;
+  const int a_row = tid >> 1;
+  const int a_k = (tid & 1) * 4;
+  const int b_k = tid >> 5;
+  const int b_j = (tid & 31) * 4;
+  const bool a_live = m0 + a_row < rows;
+  const float* __restrict__ a_base = x + (a_live ? m0 + a_row : 0) * k_dim;
+  const int tx = tid & 15;
+  const int ty = tid >> 4;
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  }
+  const int nk = (k_dim + kPK - 1) / kPK;
+  float ra[4], rb[4];
+  load_x<VEC4>(a_base, a_live, k_dim, a_k, ra);
+  load_w(w, k_dim, m, b_k, n0 + b_j, rb);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) As[0][a_k + i][a_row] = ra[i];
+  *reinterpret_cast<float4*>(&Bs[0][b_k][b_j]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+  __syncthreads();
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    const bool more = kt + 1 < nk;
+    if (more) {
+      const int k0 = (kt + 1) * kPK;
+      load_x<VEC4>(a_base, a_live, k_dim, k0 + a_k, ra);
+      load_w(w, k_dim, m, k0 + b_k, n0 + b_j, rb);
+    }
+#pragma unroll
+    for (int k = 0; k < kPK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4 + 64]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4 + 64]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+    }
+    if (more) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) As[cur ^ 1][a_k + i][a_row] = ra[i];
+      *reinterpret_cast<float4*>(&Bs[cur ^ 1][b_k][b_j]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int jh = 0; jh < 2; ++jh) {
+    const int n = n0 + tx * 4 + jh * 64;
+    if (n >= m) continue;
+    const float4 b = bias != nullptr ? __ldg(reinterpret_cast<const float4*>(bias + n))
+                                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int64_t r = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
+      if (r >= rows) continue;
+      *reinterpret_cast<float4*>(y + r * m + n) =
+          make_float4(acc[i][jh * 4] + b.x, acc[i][jh * 4 + 1] + b.y, acc[i][jh * 4 + 2] + b.z,
+                      acc[i][jh * 4 + 3] + b.w);
+    }
+  }
 }
 
 }  // namespace
 
-// Shared memory a launch takes (bytes), for n_seg segments of `channels`
-// floats and `hidden` hidden units; -1 when the weights do not fit a block.
-extern "C" int distmlip_chgnet_aggregate_smem_bytes(int n_seg, int channels, int hidden) {
-  const int epw = pick_epw(n_seg, channels, hidden);
-  return epw == 0 ? -1 : Layout(n_seg, channels, hidden, epw).bytes();
+// Shared memory a launch of either per-edge kernel takes (bytes) at C
+// channels and H hidden units; -1 when C or H is past 64 or the weights and
+// one warp's buffers do not fit a block.
+extern "C" int distmlip_chgnet_aggregate_smem_bytes(int channels, int hidden) {
+  const int nw = pick_warps(channels, hidden);
+  return nw == 0 ? -1 : Layout(channels, hidden, nw).bytes();
 }
 
-// Atom conv. node_src (N, C) gathered at src (E) int32; node_dst (N, C) at
-// dst (E) int32; edge (E, C); abw (E, C) or null; weights = w1c (3C, H),
-// b1c (H), w2c (H, C), b2c (C), w1g, b1g, w2g, b2g; row_ptr (n_rows + 1)
-// int64; seg_ids (E) int32; mask (E) bytes or null; out (n_rows, C).
-// float32, contiguous, on the current device. Launches on `stream`, does not
+// Row projection. x (rows, k) float32 contiguous; w (k, m) with m % 4 == 0;
+// bias (m) or null; y (rows, m). 16-byte aligned w, bias and y, and x when
+// k % 4 == 0. Launches on `stream`, does not synchronise, and returns the
+// launch's cudaError_t (0 = success).
+extern "C" int distmlip_chgnet_row_projection_f32(const float* x, int64_t rows, int k_dim,
+                                                  const float* w, int m, const float* bias,
+                                                  float* y, void* stream) {
+  if (rows <= 0 || m <= 0) return 0;
+  if (k_dim < 1 || m % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t row_tiles = (rows + kPM - 1) / kPM;
+  if (row_tiles > 2147483647LL || (m + kPN - 1) / kPN > 65535)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  const dim3 grid(static_cast<unsigned>(row_tiles), static_cast<unsigned>((m + kPN - 1) / kPN));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k_dim % 4 == 0) {
+    chgnet_row_projection_kernel<true><<<grid, kPThreads, 0, st>>>(x, rows, k_dim, w, m, bias, y);
+  } else {
+    chgnet_row_projection_kernel<false><<<grid, kPThreads, 0, st>>>(x, rows, k_dim, w, m, bias, y);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Atom conv. p_src: the src segment's partial rows (row stride src_stride
+// floats, 2hp used) gathered at src (E) int32, layer-1 bias folded in;
+// p_dst the same for dst; edge (E, C); abw (E, C) or null; w1e (cp, 2hp),
+// w2 (hp, 2cp), b2 (2cp) packed as by kernels.edge_aggregate's
+// chgnet_pack_weights; row_ptr (n_rows + 1) int64; seg_ids (E) int32; mask
+// (E) bytes or null; out (n_rows, C). float32, 16-byte aligned tables and
+// packed weights, on the current device. Launches on `stream`, does not
 // synchronise, and returns the launch's cudaError_t (0 = success).
 extern "C" int distmlip_chgnet_atom_conv_f32(
-    const float* node_src, const int32_t* src, const float* node_dst,
-    const int32_t* dst, const float* edge, const float* abw,
-    const float* const* weights, const int64_t* row_ptr, const int32_t* seg_ids,
-    const uint8_t* mask, float* out, int64_t n_rows, int64_t n_edges,
-    int channels, int hidden, void* stream) {
-  Args a{};
-  a.seg[0] = {node_src, src};
-  a.seg[1] = {node_dst, dst};
-  a.seg[2] = {edge, nullptr};
-  a.scale = abw;
-  set_weights(a, weights);
-  a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
-  a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
-  return launch<3>(a, n_edges, stream);
-}
-
-// Line conv. bond_src (B, C) gathered at line_src (L) int32; bond_dst (B, C)
-// at line_dst (L) int32; angle (L, C); node (N, C) at center (L) int32;
-// weights = w1c (4C, H), b1c, w2c (H, C), b2c, w1g, b1g, w2g, b2g; row_ptr
-// (n_rows + 1) int64; seg_ids (L) int32; mask (L) bytes or null; out
-// (n_rows, C). float32, contiguous, on the current device. Launches on
-// `stream`, does not synchronise, and returns the launch's cudaError_t.
-extern "C" int distmlip_chgnet_line_conv_f32(
-    const float* bond_src, const int32_t* line_src, const float* bond_dst,
-    const int32_t* line_dst, const float* angle, const float* node,
-    const int32_t* center, const float* const* weights, const int64_t* row_ptr,
+    const float* p_src, int64_t src_stride, const int32_t* src, const float* p_dst,
+    int64_t dst_stride, const int32_t* dst, const float* edge, const float* abw,
+    const float* w1e, const float* w2, const float* b2, const int64_t* row_ptr,
     const int32_t* seg_ids, const uint8_t* mask, float* out, int64_t n_rows,
     int64_t n_edges, int channels, int hidden, void* stream) {
   Args a{};
-  a.seg[0] = {bond_src, line_src};
-  a.seg[1] = {bond_dst, line_dst};
-  a.seg[2] = {angle, nullptr};
-  a.seg[3] = {node, center};
-  a.scale = nullptr;
-  set_weights(a, weights);
+  a.staged = {p_src, src, src_stride};
+  a.direct[0] = {p_dst, dst, dst_stride};
+  a.direct[1] = a.direct[0];
+  a.edge = edge; a.abw = abw;
+  a.w1e = w1e; a.w2 = w2; a.b2 = b2;
   a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
   a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
-  return launch<4>(a, n_edges, stream);
+  return launch<1>(a, n_edges, stream);
+}
+
+// Line conv. p_src, p_dst: the bond segments' partial rows gathered at
+// line_src, line_dst (L) int32, layer-1 bias folded into p_src; angle (L,
+// C); p_ctr the center atoms' partial rows gathered at center (L); w1e, w2,
+// b2 packed; row_ptr (n_rows + 1) int64; seg_ids (L) int32; mask (L) bytes
+// or null; out (n_rows, C). As the atom conv otherwise.
+extern "C" int distmlip_chgnet_line_conv_f32(
+    const float* p_src, int64_t src_stride, const int32_t* line_src, const float* p_dst,
+    int64_t dst_stride, const int32_t* line_dst, const float* angle, const float* p_ctr,
+    int64_t ctr_stride, const int32_t* center, const float* w1e, const float* w2,
+    const float* b2, const int64_t* row_ptr, const int32_t* seg_ids, const uint8_t* mask,
+    float* out, int64_t n_rows, int64_t n_edges, int channels, int hidden, void* stream) {
+  Args a{};
+  a.staged = {p_src, line_src, src_stride};
+  a.direct[0] = {p_dst, line_dst, dst_stride};
+  a.direct[1] = {p_ctr, center, ctr_stride};
+  a.edge = angle; a.abw = nullptr;
+  a.w1e = w1e; a.w2 = w2; a.b2 = b2;
+  a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
+  a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
+  return launch<2>(a, n_edges, stream);
 }

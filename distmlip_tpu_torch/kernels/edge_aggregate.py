@@ -28,15 +28,24 @@ CHGNet. CHGNet's messages take the gated MLP's tensors as ``weights``
 hidden layer for the kernels. The ``*_cuda`` wrappers take CUDA tensors
 only and raise on anything else; the ``*_reference`` versions build the
 message with torch ops and ``masked_segment_sum`` it.
+
+The CHGNet wrappers split layer 1 over the concat row: each gathered
+segment's product is taken once per node or bond row by the row projection
+kernel (``chgnet_row_projection_cuda``, launch count
+``chgnet_row_projection``), with the weights packed by
+``chgnet_pack_weights`` and the tables planned by ``chgnet_row_tables``
+(plain torch, which the CPU tests run too); the per-edge kernel then
+gathers those partial rows and does only the per-edge work.
 """
 
 from __future__ import annotations
 
 import ctypes
 from dataclasses import dataclass
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from ..ops.nn import gated_mlp_flat
 from ..ops.segment import masked_segment_sum
@@ -46,7 +55,8 @@ EMBED = "tensornet_embed_aggregate"
 INTERACTION = "tensornet_interaction_aggregate"
 ATOM_CONV = "chgnet_atom_conv_aggregate"
 LINE_CONV = "chgnet_line_aggregate"
-launch_counts.update({EMBED: 0, INTERACTION: 0, ATOM_CONV: 0, LINE_CONV: 0})
+PROJECTION = "chgnet_row_projection"
+launch_counts.update({EMBED: 0, INTERACTION: 0, ATOM_CONV: 0, LINE_CONV: 0, PROJECTION: 0})
 
 
 # ---------------------------------------------------------------------------
@@ -163,10 +173,119 @@ def chgnet_aggregate_error_bound(x, abw, weights, segment_ids, num_segments: int
 
 
 # ---------------------------------------------------------------------------
+# the layer-1 split of the CHGNet kernels (plain torch: the wrappers and the
+# CPU tests run the same packing and table plan)
+# ---------------------------------------------------------------------------
+
+CHGNET_MAX_WIDTH = 64  # C and H the CHGNet kernels take
+
+
+def _round4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+class ChgnetPacked(NamedTuple):
+    """The gated MLP as the CHGNet kernels read it (see
+    ``chgnet_pack_weights``)."""
+
+    blocks: list   # per gathered segment: its (C, 2 hp) layer-1 block
+    b1: torch.Tensor   # (2 hp,)
+    w1e: torch.Tensor  # (cp, 2 hp) the edge segment's layer-1 block
+    w2: torch.Tensor   # (hp, 2 cp)
+    b2: torch.Tensor   # (2 cp,)
+
+
+def chgnet_pack_weights(weights, n_seg: int, edge_seg: int, channels: int) -> ChgnetPacked:
+    """Pack the gated MLP's 8 tensors (one hidden layer; w1 (n_seg C, H))
+    for the CHGNet kernels. Layer 1 is linear, so it splits over the concat
+    row's ``n_seg`` segments of C: ``[x_0 | x_1 | ...] W1 = sum_s x_s
+    W1[sC:(s+1)C]``. With hp and cp the hidden width and C rounded up to 4
+    and zero padding, core and gate side by side:
+
+    - ``blocks``: per segment but ``edge_seg``, in order, ``[W1c_s | 0 |
+      W1g_s | 0]`` (C, 2 hp), the row projection's weights;
+    - ``b1``: ``[b1c | 0 | b1g | 0]`` (2 hp,), folded into the first
+      gathered segment's table;
+    - ``w1e``: the edge segment's block (cp, 2 hp), rows past C zero;
+    - ``w2``: ``[W2c | 0 | W2g | 0]`` (hp, 2 cp), rows past H zero;
+    - ``b2``: ``[b2c | 0 | b2g | 0]`` (2 cp,).
+
+    Plain torch ops on the weights' device; every result is contiguous."""
+    w1c, b1c, w2c, b2c, w1g, b1g, w2g, b2g = weights
+    c, h = channels, w1c.shape[1]
+    cp, hp = _round4(c), _round4(h)
+
+    def pad(t, cols, rows=None):  # zeros up to (rows, cols); no copy when none are needed
+        extra = (0, cols - t.shape[-1]) + (() if rows is None else (0, rows - t.shape[0]))
+        return F.pad(t, extra) if any(extra) else t
+
+    def side_by_side(core, gate, width):
+        return torch.cat([pad(core, width), pad(gate, width)], -1)
+
+    blocks = [side_by_side(w1c[s * c:(s + 1) * c], w1g[s * c:(s + 1) * c], hp)
+              for s in range(n_seg)]
+    return ChgnetPacked(
+        blocks=[b for s, b in enumerate(blocks) if s != edge_seg],
+        b1=side_by_side(b1c, b1g, hp),
+        w1e=pad(blocks[edge_seg], 2 * hp, cp),
+        w2=pad(side_by_side(w2c, w2g, cp), 2 * cp, hp),
+        b2=side_by_side(b2c, b2g, cp))
+
+
+def chgnet_row_tables(nodes, packed: ChgnetPacked, project):
+    """The gathered segments' layer-1 partial rows, taken once per node or
+    bond row: per segment ``s``, ``(table, offset)`` with ``table[r, offset
+    : offset + 2 hp] = nodes[s][r] @ packed.blocks[s]``, plus ``packed.b1``
+    for segment 0. Segments that gather the same tensor share one pass with
+    their blocks side by side (the atom conv's v at src and dst, the line
+    conv's b at both ends). ``project(x, w, bias)`` is
+    ``chgnet_row_projection_cuda`` or ``chgnet_row_projection_reference``."""
+    w1s = packed.b1.shape[0]
+    tables = [None] * len(nodes)
+    for s, node in enumerate(nodes):
+        if tables[s] is not None:
+            continue
+        segs = [t for t in range(s, len(nodes)) if nodes[t] is node]
+        w = (packed.blocks[s] if len(segs) == 1
+             else torch.cat([packed.blocks[t] for t in segs], -1))
+        bias = F.pad(packed.b1, (0, w1s * (len(segs) - 1))) if s == 0 else None
+        table = project(node, w, bias)
+        for j, t in enumerate(segs):
+            tables[t] = (table, j * w1s)
+    return tables
+
+
+def chgnet_row_projection_reference(x, w, bias=None):
+    """Plain version of the row projection: ``x @ w (+ bias)``."""
+    y = x @ w
+    return y if bias is None else y + bias
+
+
+def chgnet_projection_error_bound(x, w, bias=None):
+    """Per element, a bound on |kernel - plain| of the row projection: each
+    side's dot product of length K plus its bias is within (K + 2) u of its
+    sum of |terms| (any summation order; u = 2^-24), so twice that."""
+    k = x.shape[1]
+    t = x.abs() @ w.abs()
+    if bias is not None:
+        t = t + bias.abs()
+    return 2 * (k + 2) * 2.0 ** -24 * t
+
+
+# ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
 
 _fns: dict = {}
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+_TABLE = [_P, _I64, _P]  # partial rows, row stride, gather ids
+_TAIL = [_I64, _I64, _I, _I, _P]  # n_rows, n_edges, C, H, stream
+_CHGNET_ARGTYPES = {
+    "distmlip_chgnet_aggregate_smem_bytes": [_I, _I],
+    "distmlip_chgnet_row_projection_f32": [_P, _I64, _I, _P, _I, _P, _P, _P],
+    "distmlip_chgnet_atom_conv_f32": _TABLE * 2 + [_P] * 9 + _TAIL,
+    "distmlip_chgnet_line_conv_f32": _TABLE * 2 + [_P] + _TABLE + [_P] * 7 + _TAIL,
+}
 
 
 def _fn(symbol: str, n_ptr: int):
@@ -178,24 +297,6 @@ def _fn(symbol: str, n_ptr: int):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr
                        + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p])
-        _fns[symbol] = fn
-    return fn
-
-
-def _chgnet_fn(symbol: str, n_ptr: int = 0):
-    """A function of ``csrc/chgnet_aggregate.cu``: ``n_ptr`` pointers, then
-    n_rows, n_edges, C, H and the stream; ``n_ptr = 0`` is the
-    shared-memory query."""
-    fn = _fns.get(symbol)
-    if fn is None:
-        from .build import load
-
-        fn = getattr(load("chgnet_aggregate"), symbol)
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] * 3 if n_ptr == 0 else
-                       [ctypes.c_void_p] * n_ptr
-                       + [ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
         _fns[symbol] = fn
     return fn
 
@@ -320,27 +421,83 @@ def _index32(name, what, idx, e, device):
     return idx.to(torch.int32).contiguous()
 
 
-def _launch_chgnet(name, symbol, n_seg, ptrs, weights, segment_ids, num_segments, mask,
-                   channels, hidden, device):
+def _chgnet_fn(symbol: str):
+    """A function of ``csrc/chgnet_aggregate.cu`` with its argument types."""
+    fn = _fns.get(symbol)
+    if fn is None:
+        from .build import load
+
+        fn = getattr(load("chgnet_aggregate"), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _CHGNET_ARGTYPES[symbol]
+        _fns[symbol] = fn
+    return fn
+
+
+def chgnet_row_projection_cuda(x, w, bias=None):
+    """Launch the row projection kernel: ``x`` (R, K), ``w`` (K, M) with M
+    a multiple of 4, ``bias`` (M,) or None, float32 contiguous on one card.
+    Returns (R, M) float32 ``x @ w (+ bias)``."""
+    name = PROJECTION
+    _require_cuda(name, x, 2)
+    rows, k = x.shape
+    dev = x.device
+    _check(name, x, (rows, k), dev)
+    _require_cuda(name, w, 2)
+    m = w.shape[1]
+    _check(name, w, (k, m), dev)
+    if m % 4 or k == 0:
+        raise ValueError(f"{name}: takes K >= 1 and M a multiple of 4, got K={k}, M={m}")
+    if bias is not None:
+        _check(name, bias, (m,), dev)
+    y = torch.empty((rows, m), dtype=torch.float32, device=dev)
+    if rows == 0:
+        return y
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _chgnet_fn("distmlip_chgnet_row_projection_f32")(
+            x.data_ptr(), rows, k, w.data_ptr(), m,
+            None if bias is None else bias.data_ptr(), y.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    launch_counts[name] += 1
+    return y
+
+
+def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segment_ids,
+                   num_segments, mask, channels, hidden, device):
+    """Project the gathered segments' rows (``gathered``: (node rows, int32
+    ids) per gathered segment, in segment order), then launch the per-edge
+    kernel with the tables, the edge rows at ``edge_seg`` and ``extra``
+    (abw) after the segments."""
     e = segment_ids.shape[0]
     out = torch.empty((num_segments, channels), dtype=torch.float32, device=device)
     if e == 0 or num_segments == 0 or channels == 0:
         return out.zero_()
     if e >= 2 ** 31 - 1:
         raise ValueError(f"{name}: {e} edges exceed the kernel's int32 edge ids")
-    smem = _chgnet_fn("distmlip_chgnet_aggregate_smem_bytes")(n_seg, channels, hidden)
-    if smem < 0 or channels > 256:
-        raise ValueError(f"{name}: C={channels}, H={hidden} is too wide for the "
-                         "weights to stay in one block's shared memory (227 KB)")
+    if _chgnet_fn("distmlip_chgnet_aggregate_smem_bytes")(channels, hidden) < 0:
+        raise ValueError(f"{name}: C={channels}, H={hidden} is too wide: the kernel takes C "
+                         f"and H up to {CHGNET_MAX_WIDTH}, with W1's edge block and "
+                         "[W2c | W2g] in one block's shared memory")
     with torch.cuda.device(device):
+        packed = chgnet_pack_weights(weights, len(gathered) + 1, edge_seg, channels)
+        tables = chgnet_row_tables([node for node, _ in gathered], packed,
+                                   chgnet_row_projection_cuda)
+        ptrs, it = [], iter(zip(tables, gathered))
+        for s in range(len(gathered) + 1):
+            if s == edge_seg:
+                ptrs.append(edge.data_ptr())
+                continue
+            (table, offset), (_, idx) = next(it)
+            ptrs += [table.data_ptr() + 4 * offset, table.shape[1], idx.data_ptr()]
         ids32 = segment_ids.to(torch.int32).contiguous()
         row_ptr = csr_row_offsets(segment_ids, num_segments, mask)
-        wptrs = (ctypes.c_void_p * 8)(*(w.data_ptr() for w in weights))
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _chgnet_fn(symbol, len(ptrs) + 5)(
-            *ptrs, wptrs, row_ptr.data_ptr(), ids32.data_ptr(),
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            num_segments, e, channels, hidden, stream)
+        err = _chgnet_fn(symbol)(
+            *ptrs, *extra, packed.w1e.data_ptr(), packed.w2.data_ptr(), packed.b2.data_ptr(),
+            row_ptr.data_ptr(), ids32.data_ptr(), None if mask is None else mask.data_ptr(),
+            out.data_ptr(), num_segments, e, channels, hidden, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     launch_counts[name] += 1
@@ -349,12 +506,14 @@ def _launch_chgnet(name, symbol, n_seg, ptrs, weights, segment_ids, num_segments
 
 def chgnet_atom_conv_aggregate_cuda(node_src, src, node_dst, dst, edge, abw, weights,
                                     segment_ids, num_segments: int, mask=None):
-    """Launch the atom-conv kernel: ``node_src``, ``node_dst`` (N, C)
+    """Launch the atom-conv kernels: ``node_src``, ``node_dst`` (N, C)
     gathered at ``src``, ``dst`` (E,) int32/int64; ``edge`` (E, C);
     ``abw`` (E, C) or None; ``weights`` the gated MLP's 8 tensors with
     w1 (3C, H); ``segment_ids`` (E,) nondecreasing (not checked: it would
-    cost a device sync); ``mask`` (E,) bool or None. float32 contiguous.
-    Returns (num_segments, C) float32."""
+    cost a device sync); ``mask`` (E,) bool or None. float32 contiguous,
+    C and H at most 64. One row projection (two when ``node_src`` and
+    ``node_dst`` are different tensors), then the per-edge kernel. Returns
+    (num_segments, C) float32."""
     name = ATOM_CONV
     _require_cuda(name, edge, 2)
     e, channels = edge.shape
@@ -367,21 +526,23 @@ def chgnet_atom_conv_aggregate_cuda(node_src, src, node_dst, dst, edge, abw, wei
     dst32 = src32 if dst is src else _index32(name, "dst", dst, e, dev)
     mask = _ids_and_mask(name, segment_ids, mask, e, dev)
     hidden = _check_gated_weights(name, weights, 3 * channels, channels, dev)
-    ptrs = (node_src.data_ptr(), src32.data_ptr(), node_dst.data_ptr(), dst32.data_ptr(),
-            edge.data_ptr(), None if abw is None else abw.data_ptr())
-    return _launch_chgnet(name, "distmlip_chgnet_atom_conv_f32", 3, ptrs, weights,
-                          segment_ids, int(num_segments), mask, channels, hidden, dev)
+    return _launch_chgnet(name, "distmlip_chgnet_atom_conv_f32", 2,
+                          [(node_src, src32), (node_dst, dst32)], edge,
+                          [None if abw is None else abw.data_ptr()], weights, segment_ids,
+                          int(num_segments), mask, channels, hidden, dev)
 
 
 def chgnet_line_aggregate_cuda(bond_src, line_src, bond_dst, line_dst, angle, node,
                                center, weights, segment_ids, num_segments: int,
                                mask=None):
-    """Launch the line-conv kernel: ``bond_src``, ``bond_dst`` (B, C)
+    """Launch the line-conv kernels: ``bond_src``, ``bond_dst`` (B, C)
     gathered at ``line_src``, ``line_dst`` (L,) int32/int64; ``angle``
     (L, C); ``node`` (N, C) gathered at ``center`` (L,); ``weights`` the
     gated MLP's 8 tensors with w1 (4C, H); ``segment_ids`` (L,)
-    nondecreasing; ``mask`` (L,) bool or None. float32 contiguous. Returns
-    (num_segments, C) float32."""
+    nondecreasing; ``mask`` (L,) bool or None. float32 contiguous, C and H
+    at most 64. Two row projections (the bond rows, one pass when
+    ``bond_src`` and ``bond_dst`` are one tensor, and the atom rows), then
+    the per-edge kernel. Returns (num_segments, C) float32."""
     name = LINE_CONV
     _require_cuda(name, angle, 2)
     e, channels = angle.shape
@@ -394,10 +555,10 @@ def chgnet_line_aggregate_cuda(bond_src, line_src, bond_dst, line_dst, angle, no
     ctr32 = _index32(name, "center", center, e, dev)
     mask = _ids_and_mask(name, segment_ids, mask, e, dev)
     hidden = _check_gated_weights(name, weights, 4 * channels, channels, dev)
-    ptrs = (bond_src.data_ptr(), ls32.data_ptr(), bond_dst.data_ptr(), ld32.data_ptr(),
-            angle.data_ptr(), node.data_ptr(), ctr32.data_ptr())
-    return _launch_chgnet(name, "distmlip_chgnet_line_conv_f32", 4, ptrs, weights,
-                          segment_ids, int(num_segments), mask, channels, hidden, dev)
+    return _launch_chgnet(name, "distmlip_chgnet_line_conv_f32", 2,
+                          [(bond_src, ls32), (bond_dst, ld32), (node, ctr32)], angle, [],
+                          weights, segment_ids, int(num_segments), mask, channels, hidden,
+                          dev)
 
 
 # ---------------------------------------------------------------------------

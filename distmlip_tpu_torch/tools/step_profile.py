@@ -120,7 +120,8 @@ def main(argv=None) -> int:
     for e in kernels:
         for name in ("segment_sum_kernel", "tensornet_embed_kernel",
                      "tensornet_interaction_kernel", "chgnet_atom_conv_kernel",
-                     "chgnet_line_conv_kernel", "so2_conv_kernel"):
+                     "chgnet_line_conv_kernel", "chgnet_row_projection_kernel",
+                     "so2_conv_kernel"):
             if name in e.key:
                 row = own.setdefault(name, {"calls": 0, "ms": 0.0})
                 row["calls"] += e.count

@@ -87,6 +87,8 @@ CHGNET_CASES = {
     "channels_7": (3, 260, 29, 12, 4, None, 7, 7),
     "long_padded_tail": (5, 400, 50, 5000, 3, None, 4, 6),
     "matgl_widths": (6, 700, 40, 30, 20, None, 64, 64),
+    "hidden_32_channels_64": (8, 600, 50, 20, 10, None, 64, 32),
+    "hidden_64_channels_24": (9, 333, 41, 7, 5, None, 24, 64),
 }
 
 
@@ -439,12 +441,129 @@ def test_chgnet_on_card_matches_cpu(card):
                         compute_magmom=True).calculate(atoms)
     assert launch_counts["chgnet_atom_conv_aggregate"] == before["chgnet_atom_conv_aggregate"] + 3
     assert launch_counts["chgnet_line_aggregate"] == before["chgnet_line_aggregate"] + 2
+    # one row projection per atom conv (v at src and dst is one tensor), two
+    # per line conv (the bond rows, the atom rows)
+    assert launch_counts["chgnet_row_projection"] == before["chgnet_row_projection"] + 3 + 2 * 2
     cpu = DistPotential(model, params, device="cpu", skin=0.5,
                         compute_magmom=True).calculate(atoms)
     assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
     np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)
     np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-4)
     np.testing.assert_allclose(gpu["magmoms"], cpu["magmoms"], atol=1e-4)
+
+
+# name: (rows, K, M, bias): the row projection's tiles, ragged rows and
+# columns, K not a multiple of 4 or of the 8-deep slice
+PROJECTION_CASES = {
+    "one_row": (1, 8, 48, True),
+    "k7_ragged": (517, 7, 24, True),
+    "k16_no_bias": (300, 16, 64, False),
+    "matgl_node_table": (1003, 64, 256, True),
+    "matgl_center_table": (129, 64, 128, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PROJECTION_CASES))
+def test_chgnet_row_projection_matches_plain_on_card(card, name):
+    """The row projection kernel vs ``x @ w + bias`` within
+    ``chgnet_projection_error_bound``; one launch counted."""
+    from distmlip_tpu_torch import kernels as K
+
+    rows, k, m, has_bias = PROJECTION_CASES[name]
+    rng = np.random.default_rng(700 + rows)
+    x = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.normal(size=(k, m)) / np.sqrt(k)).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(card) if has_bias else None
+    before = K.launch_counts["chgnet_row_projection"]
+    got = K.chgnet_row_projection_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert K.launch_counts["chgnet_row_projection"] == before + 1
+    want = K.chgnet_row_projection_reference(x, w, b)
+    bound = K.chgnet_projection_error_bound(x, w, b)
+    assert got.shape == (rows, m) and bool(((got - want).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["atom", "line"])
+def test_chgnet_kernels_nonfinite_unreached_rows_on_card(card, which):
+    """NaN in the node and bond rows that no valid edge gathers: their
+    partial rows are projected but never read, so the output stays finite
+    and within the bound of the plain version."""
+    from distmlip_tpu_torch import kernels as K
+
+    seed, e, n, pad, im, hi, c, h = CHGNET_CASES["matgl_widths"]
+    ids, mask, n = sorted_case(seed, e, n, pad, im, hi)
+    arrays, weights = chgnet_inputs(seed, which, len(ids), c, h, n_node=2000)
+    t = [torch.from_numpy(x).to(card) for x in arrays]
+    t[2] = t[0]  # one node (bond) tensor at both ends, as the model calls it
+    tw = [torch.from_numpy(w).to(card) for w in weights]
+    ti, tm = torch.from_numpy(ids).to(card), torch.from_numpy(mask).to(card)
+    gathers = {0: [1, 3]} if which == "atom" else {0: [1, 3], 5: [6]}
+    for k, idx in gathers.items():
+        used = torch.zeros(t[k].shape[0], dtype=torch.bool, device=card)
+        for i in idx:
+            used[t[i][tm].long()] = True
+        assert not bool(used.all())
+        t[k][~used] = float("nan")
+    cuda, ref = ((K.chgnet_atom_conv_aggregate_cuda, K.chgnet_atom_conv_aggregate_reference)
+                 if which == "atom" else
+                 (K.chgnet_line_aggregate_cuda, K.chgnet_line_aggregate_reference))
+    got = cuda(*t, tw, ti, n, tm)
+    want = ref(*t, tw, ti, n, tm)
+    torch.cuda.synchronize()
+    x, abw = chgnet_rows(which, t)
+    bound = K.chgnet_aggregate_error_bound(x, abw, tw, ti, n, tm)
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["atom", "line"])
+def test_chgnet_kernels_two_row_tensors_on_card(card, which):
+    """Distinct tensors at the two gathered ends (node_src, node_dst; bond_src,
+    bond_dst): one projection pass each, and the result within the bound;
+    one tensor at both ends takes one pass for the two."""
+    from distmlip_tpu_torch import kernels as K
+
+    seed, e, n, pad, im, hi, c, h = CHGNET_CASES["hidden_32_channels_64"]
+    ids, mask, n = sorted_case(seed, e, n, pad, im, hi)
+    arrays, weights = chgnet_inputs(seed, which, len(ids), c, h)
+    t = [torch.from_numpy(x).to(card) for x in arrays]
+    tw = [torch.from_numpy(w).to(card) for w in weights]
+    ti, tm = torch.from_numpy(ids).to(card), torch.from_numpy(mask).to(card)
+    cuda, ref = ((K.chgnet_atom_conv_aggregate_cuda, K.chgnet_atom_conv_aggregate_reference)
+                 if which == "atom" else
+                 (K.chgnet_line_aggregate_cuda, K.chgnet_line_aggregate_reference))
+    extra = 0 if which == "atom" else 1  # the line conv's atom rows
+    for same in (True, False):
+        t[2] = t[0] if same else t[0].flip(0).contiguous() * 0.5
+        before = K.launch_counts["chgnet_row_projection"]
+        got = cuda(*t, tw, ti, n, tm)
+        want = ref(*t, tw, ti, n, tm)
+        torch.cuda.synchronize()
+        assert K.launch_counts["chgnet_row_projection"] == before + (1 if same else 2) + extra
+        x, abw = chgnet_rows(which, t)
+        bound = K.chgnet_aggregate_error_bound(x, abw, tw, ti, n, tm)
+        assert bool(((got - want).abs() <= bound + 1e-30).all()), same
+
+
+@pytest.mark.cuda
+def test_chgnet_kernels_refuse_widths_past_64_on_card(card):
+    """C or H past 64 raises before any launch (the kernels keep W1's edge
+    block and [W2c | W2g] in shared memory, one 128-column pass a layer)."""
+    from distmlip_tpu_torch import kernels as K
+
+    for c, h in ((65, 8), (8, 65)):
+        ids, mask, n = sorted_case(1, 40, 9, 3)
+        arrays, weights = chgnet_inputs(1, "atom", len(ids), c, h)
+        t = [torch.from_numpy(x).to(card) for x in arrays]
+        tw = [torch.from_numpy(w).to(card) for w in weights]
+        before = dict(K.launch_counts)
+        with pytest.raises(ValueError, match="too wide"):
+            K.chgnet_atom_conv_aggregate_cuda(*t, tw, torch.from_numpy(ids).to(card), n,
+                                              torch.from_numpy(mask).to(card))
+        assert K.launch_counts == before
 
 
 def _so2_case_on_card(card, name):
