@@ -36,14 +36,20 @@ Phases (each failure raises, so the exit code is non-zero):
    ``kernels.chgnet_aggregate_error_bound``: first-order rounding of both
    layers' dot products (K + 2) u, the activations' slopes and ulps, the
    gating products and the k-term dst sum, for each side. The SO(2)
-   kernel (``[kernels] so2_conv``) at the eSCN path's chunk shape (32768,
-   25, 128) with l_max-4 weights from a seed, reading and writing the e3nn
-   order through its row table as the model calls it, then at E of 1, 37
-   and 1003 for l_max 1, 2, 4, 6 and C 8, 16, 128, and C = 7 (the
-   scalar-load path); tolerance ``kernels.so2_conv_error_bound``,
-   |kernel - plain| <= 2 k u (|f| @ |W|) with k the contraction length (d,
-   or 2d for m > 0) and u = 2^-24. The segment sum also at eSCN's
-   (32768, 25 * 128) row width;
+   kernel (``[kernels] so2_conv``, 3xTF32 on the tensor cores) at the eSCN
+   path's chunk shape (32768, 25, 128) with l_max-4 weights from a seed,
+   reading and writing the e3nn order through its row table with the
+   weights packed once, as the model calls it, forward and on the
+   backward's route (the transposed weight set against the plain VJP's
+   input cotangent), then at E of 1, 37 and 1003 for l_max 1, 2, 4, 6 and
+   C 8, 16, 128, and C = 7 (the 4-byte-copy path); tolerance
+   ``kernels.so2_conv_error_bound``, |kernel - plain| <= (60 ceil(k / 8) +
+   k + 13) u (|f| @ |W|) with k the contraction length (d, or 2d for
+   m > 0) and u = 2^-24: the split, the tensor cores' fp32 accumulation
+   without assuming round to nearest, and the plain side. Its bound is the
+   3xTF32 one (3 x operations at 495 TFLOP/s), with the float32-core one
+   beside it; the weight packing is timed alone. The segment sum also at
+   eSCN's (32768, 25 * 128) row width;
 4. the MACE path — MACE at the MACE-MP-0-medium widths (channels 128,
    l_max = a_lmax = 3, correlation 3, 2 interactions; random weights from
    seed 0) through ``DistPotential(device="cuda", skin=0.5)`` on a
@@ -70,8 +76,9 @@ Phases (each failure raises, so the exit code is non-zero):
    dataset 2 through ``DistPotential(device="cuda", skin=0.5)`` on the
    2048-atom Si crystal, the same way. Launches derived: per calculate, K
    edge chunks forward and K recomputes of the checkpointed chunk bodies in
-   the backward, so the SO(2) kernel runs 2 layers x 2K and the segment
-   sum 3 scans (the edge-degree pass and 2 layers) x 2K;
+   the backward, and the SO(2) kernel once more per chunk for its input
+   cotangent, so the SO(2) kernel runs 2 layers x 3K and the segment sum 3
+   scans (the edge-degree pass and 2 layers) x 2K;
 8. a small structure of each model on the card (kernels) against the CPU
    (plain), CHGNet's with magmoms, eSCN's with conditioning set.
 
@@ -90,6 +97,7 @@ import time
 
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
+H100_TF32_FLOPS = 495e12         # TF32 in the tensor cores, dense
 REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             "tensornet_embed_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "tensornet_interaction_aggregate": "distmlip_tpu/kernels/segment.py:224",
@@ -168,11 +176,12 @@ def check_segment_sum(torch, data, ids, mask, n):
     return float(err.max()) if err.numel() else 0.0
 
 
-def bound(nbytes, ops):
+def bound(nbytes, ops, flops=H100_FP32_FLOPS):
     """(bound ms, what bounds it): the larger of bytes over the HBM rate and
-    float32 operations over the card's peak rate."""
+    operations over the card's peak rate for their type (float32 outside
+    the tensor cores unless ``flops`` says otherwise)."""
     t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_FP32_FLOPS * 1e3
+    t_ops = ops / flops * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -693,43 +702,74 @@ def so2_case(torch, gen, e, l_max, c):
 
 def check_so2(torch, h, weights, m_idx, c):
     """The kernel, reading and writing the e3nn order through its row table
-    (as ``fused_so2_conv`` calls it), vs the plain version on the packed
-    rows, within ``so2_conv_error_bound``. Returns (max |err|, max |err| /
-    bound)."""
+    with the weights packed once (as ``fused_so2_conv`` calls it from the
+    model), vs the plain version on the packed rows, within
+    ``so2_conv_error_bound``; then the backward's route, the kernel on the
+    transposed weight set and the swapped packed buffers, vs the plain VJP's
+    input cotangent (``_so2_vjp``) on a random g, within the same bound of
+    that set. Returns (max |err|, max |err| / bound) over both."""
     from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import dispatch
 
     perm, inv, segments = K.packed_m_layout(m_idx)
-    got = K.so2_conv_cuda(h, weights, segments, c, perm)
-    hp = h[:, torch.as_tensor(perm, device="cuda").long()]
+    packed = K.pack_so2_weights(weights, segments, c)
+    perm_t = torch.as_tensor(perm, device="cuda").long()
     inv_t = torch.as_tensor(inv, device="cuda").long()
-    want = K.so2_conv_reference(hp, weights, segments, c)[:, inv_t]
-    tol = K.so2_conv_error_bound(hp, weights, segments, c)[:, inv_t]
+    g = torch.randn(h.shape, generator=torch.Generator(device="cuda").manual_seed(h.shape[0]),
+                    device="cuda")
+    wt = dispatch._so2_transposed_weights(weights, segments)
+    checks = []
+    got = K.so2_conv_cuda(h, weights, segments, c, perm, packed=packed)
+    hp = h[:, perm_t]
+    checks.append(("forward", got, K.so2_conv_reference(hp, weights, segments, c)[:, inv_t],
+                   K.so2_conv_error_bound(hp, weights, segments, c)[:, inv_t]))
+    got = K.so2_conv_cuda(g, wt, segments, c, perm, packed=packed.transposed())
+    want = dispatch._so2_vjp(h, weights, g, perm_t, inv_t, segments, c, True,
+                             [False] * len(weights))[0]
+    checks.append(("backward", got, want,
+                   K.so2_conv_error_bound(g[:, perm_t], wt, segments, c)[:, inv_t]))
     torch.cuda.synchronize()
-    if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"so2_conv shape/dtype {got.shape} {got.dtype} vs "
-                             f"{want.shape} {want.dtype}")
-    err = (got - want).abs()
-    if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"so2_conv disagrees with its plain version: max |err| "
-                             f"{float(err.max())}, max tolerance {float(tol.max())}")
-    if not err.numel():
-        return 0.0, 0.0
-    return float(err.max()), float((err / (tol + 1e-30)).max())
+    err_max, ratio = 0.0, 0.0
+    for route, got, want, tol in checks:
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"so2_conv {route} shape/dtype {got.shape} {got.dtype} vs "
+                                 f"{want.shape} {want.dtype}")
+        err = (got - want).abs()
+        if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"so2_conv {route} disagrees with its plain version: "
+                                 f"max |err| {float(err.max())}, max tolerance "
+                                 f"{float(tol.max())}")
+        if err.numel():
+            err_max = max(err_max, float(err.max()))
+            ratio = max(ratio, float((err / (tol + 1e-30)).max()))
+    return err_max, ratio
 
 
 def time_so2(torch, h, weights, m_idx, c, iters=20):
-    """Kernel, plain and library times of one SO(2) convolution. The plain
-    version is the dispatcher's ``kernels=False`` path (the reference on the
-    packed rows, permuted in and out); the library call is the five cuBLAS
-    products on operands already packed in the complex-pair form
-    ([f+ | f-] and [[Wr, Wi], [-Wi, Wr]] built beforehand): the GEMM work
-    alone."""
+    """Kernel, plain and library times of one SO(2) convolution. The kernel
+    is timed on weights packed beforehand, as the model calls it (the
+    packing, once per layer, is timed alone: ``pack_ms``, both directions),
+    and on the backward's route (the transposed set, ``backward_ms``). The
+    plain version is the dispatcher's ``kernels=False`` path (the reference
+    on the packed rows, permuted in and out); the library call is the five
+    cuBLAS float32 products on operands already packed in the complex-pair
+    form ([f+ | f-] and [[Wr, Wi], [-Wi, Wr]] built beforehand): the GEMM
+    work alone. ``bound_ms`` is the kernel's route, 3xTF32: three TF32
+    products per float32 product at the tensor cores' rate;
+    ``bound_ms_fp32_cores`` the same work as float32 FMAs."""
     from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import dispatch
 
     perm, _, segments = K.packed_m_layout(m_idx)
     e = h.shape[0]
-    ms = cuda_ms(torch, lambda: K.so2_conv_cuda(h, weights, segments, c, perm),
-                 iters=iters)
+    packed = K.pack_so2_weights(weights, segments, c)
+    ms = cuda_ms(torch, lambda: K.so2_conv_cuda(h, weights, segments, c, perm,
+                                                packed=packed), iters=iters)
+    wt = dispatch._so2_transposed_weights(weights, segments)
+    back = packed.transposed()
+    backward_ms = cuda_ms(torch, lambda: K.so2_conv_cuda(h, wt, segments, c, perm,
+                                                         packed=back), iters=iters)
+    pack_ms = cuda_ms(torch, lambda: K.pack_so2_weights(weights, segments, c), iters=iters)
     with torch.no_grad():
         plain_ms = cuda_ms(torch, lambda: K.fused_so2_conv(h, weights, m_idx, c,
                                                            kernels=False), iters=iters)
@@ -752,11 +792,17 @@ def time_so2(torch, h, weights, m_idx, c, iters=20):
     ops = 2 * e * sum(w * w for w in widths)
     # h read once, the output written once, the weights read once
     nbytes = 2 * h.numel() * 4 + sum(w.numel() for w in weights) * 4
-    bound_ms, bound_by = bound(nbytes, ops)
+    bound_ms, bound_by = bound(nbytes, 3 * ops, H100_TF32_FLOPS)
+    fp32_ms, fp32_by = bound(nbytes, ops)
     return {"e": e, "s": h.shape[1], "channels": c, "widths": widths, "ms": ms,
+            "backward_ms": backward_ms, "pack_ms": pack_ms,
             "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "five cuBLAS products on pre-packed [f+|f-] and [[Wr,Wi],[-Wi,Wr]]",
-            "bound_ms": bound_ms, "bound_by": bound_by, "ops": ops, "bytes": nbytes}
+            "library": "five cuBLAS float32 products on pre-packed [f+|f-] and "
+                       "[[Wr,Wi],[-Wi,Wr]]",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_route": "3xTF32 tensor cores (3 x ops / 495e12)",
+            "bound_ms_fp32_cores": fp32_ms, "bound_by_fp32_cores": fp32_by,
+            "ops": ops, "bytes": nbytes}
 
 
 def phase_so2_kernels(torch):
@@ -781,13 +827,14 @@ def phase_so2_kernels(torch):
                 sub = so2_case(torch, gen, e, lm, cc)
                 found.append(check_so2(torch, *sub, cc))
                 t = time_so2(torch, *sub, cc, iters=5)
-                cases.append({k: t[k] for k in ("e", "s", "channels", "ms", "bound_ms",
-                                                "bound_by", "plain_ms", "library_ms")})
+                cases.append({k: t[k] for k in ("e", "s", "channels", "ms", "backward_ms",
+                                                "bound_ms", "bound_by", "plain_ms",
+                                                "library_ms")})
     for t in cases:
         log(f"[kernels] so2_conv case {json.dumps(t)}")
     err, ratio = max(f[0] for f in found), max(f[1] for f in found)
-    log(f"[kernels] so2_conv: all {len(found)} cases agree with the plain version; "
-        f"max |err| {err}, max |err| / tolerance {ratio}")
+    log(f"[kernels] so2_conv: all {len(found)} cases agree with the plain version, "
+        f"forward and backward route; max |err| {err}, max |err| / tolerance {ratio}")
     seg = slice_case(torch, gen, chunk, ((l_max + 1) ** 2, c))
     seg_err = check_segment_sum(torch, *seg)
     seg_time = time_segment_sum(torch, *seg)
@@ -1041,12 +1088,13 @@ def phase_escn(torch):
     K = chunk_layout(stats["e_cap"], ESCN_KW["edge_chunk"])[2]
     n_calc, layers = 1 + STEPS, ESCN_KW["num_layers"]
     expected = {k: 0 for k in launches}
-    expected["so2_conv"] = n_calc * layers * 2 * K
+    expected["so2_conv"] = n_calc * layers * 3 * K
     expected["segment_sum"] = n_calc * (1 + layers) * 2 * K
     log(f"[main-escn] launches: {n_calc} calculates x (K={K} forward chunks + K={K} "
-        f"backward recomputes of the checkpointed chunk bodies) x ({layers} layers "
-        f"for so2_conv = {expected['so2_conv']}; 1 edge-degree pass + {layers} layers "
-        f"for segment_sum = {expected['segment_sum']}); counted {launches} "
+        f"backward recomputes of the checkpointed chunk bodies + K={K} input cotangents "
+        f"of so2_conv's backward) x {layers} layers for so2_conv = "
+        f"{expected['so2_conv']}; {n_calc} x 2K x (1 edge-degree pass + {layers} layers) "
+        f"for segment_sum = {expected['segment_sum']}; counted {launches} "
         f"(e_cap {stats['e_cap']}, edge_chunk {ESCN_KW['edge_chunk']})")
     if launches != expected:
         raise AssertionError(f"kernel launch counts {launches} differ from the "
@@ -1142,6 +1190,11 @@ def main() -> int:
     edge_errs, edge_timed = phase_edge_aggregate_kernels(torch)
     chg_errs, chg_timed, proj_err, proj_timed = phase_chgnet_kernels(torch)
     so2_err, so2_timed, seg_escn = phase_so2_kernels(torch)
+    # the packing's gather tables of the shapes above: each path below
+    # counts only its own in its peak memory
+    from distmlip_tpu_torch.kernels import so3
+    so3._pack_index.cache_clear()
+    torch.cuda.empty_cache()
     launches = phase_main_path(torch)
     torch.cuda.empty_cache()
     tn_launches = phase_tensornet(torch)
@@ -1218,6 +1271,9 @@ def main() -> int:
         "bound_ms": so2_timed["bound_ms"], "bound_by": so2_timed["bound_by"],
         "library_ms": so2_timed["library_ms"], "library": so2_timed["library"],
         "shape": [so2_timed["e"], so2_timed["s"], so2_timed["channels"]],
+        "bound_route": so2_timed["bound_route"],
+        "bound_ms_fp32_cores": so2_timed["bound_ms_fp32_cores"],
+        "backward_ms": so2_timed["backward_ms"], "pack_ms": so2_timed["pack_ms"],
     })
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -17,10 +17,13 @@
   ``CHGNET_LINE_CONV``.
 - :mod:`so3` — ``so2_conv_cuda`` (the wrapper of ``csrc/so2_conv.cu``,
   replacing the TPU ``so2_conv_pallas`` of eSCN), its plain version
-  ``so2_conv_reference``, the packed per-|m| layout ``packed_m_layout`` and
-  the derived kernel tolerance ``so2_conv_error_bound``.
+  ``so2_conv_reference``, the packed per-|m| layout ``packed_m_layout``,
+  the kernel's weight packing ``pack_so2_weights`` (K-major blocks split
+  into TF32 hi and lo by ``tf32_round``) and the derived kernel tolerance
+  ``so2_conv_error_bound``.
 - :mod:`dispatch` — ``fused_segment_sum``, ``fused_edge_aggregate`` (with
-  its ``Gather`` marker) and ``fused_so2_conv``, the autograd Functions
+  its ``Gather`` marker) and ``fused_so2_conv`` (with
+  ``so2_packed_weights``, its weights packed once per layer), the autograd Functions
   every call site goes through.
 - :mod:`build` — ``nvcc`` at first use into ``build/kernels/``, ctypes load.
 
@@ -28,7 +31,7 @@ Every TPU kernel of the JAX package has its CUDA counterpart here.
 """
 
 from .dispatch import (Gather, fused_edge_aggregate, fused_segment_sum,  # noqa: F401
-                       fused_so2_conv)
+                       fused_so2_conv, so2_packed_weights)
 from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              TENSORNET_EMBED, TENSORNET_INTERACTION, EdgeMessage,
                              chgnet_aggregate_error_bound,
@@ -44,5 +47,6 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              tensornet_interaction_aggregate_reference)
 from .segment import (csr_row_offsets, launch_counts,  # noqa: F401
                       segment_sum_cuda, segment_sum_reference)
-from .so3 import (packed_m_layout, so2_conv_cuda, so2_conv_error_bound,  # noqa: F401
-                  so2_conv_reference)
+from .so3 import (PackedSO2Weights, pack_so2_weights, packed_m_layout,  # noqa: F401
+                  so2_block_matrices, so2_conv_cuda, so2_conv_error_bound,
+                  so2_conv_reference, tf32_round)

@@ -1,6 +1,7 @@
-// SO(2) convolution of eSCN on per-|m| coefficient blocks, float32, sm_90a.
+// SO(2) convolution of eSCN on per-|m| coefficient blocks, float32 in and
+// out, on the H100's tensor cores (sm_90a).
 //
-// Replaces distmlip_tpu/kernels/so3.py::so2_conv_pallas (body _so2_kernel).
+// Replaces distmlip_tpu/kernels/so3.py:89 so2_conv_pallas (body _so2_kernel).
 // Per edge, with f the (nl * C)-flattened coefficient block of one |m|:
 //   m = 0:  y0 = f0 W0
 //   m > 0:  y+ = f+ Wr - f- Wi,   y- = f+ Wi + f- Wr
@@ -8,58 +9,102 @@
 // plus and minus blocks of one |m| are adjacent, so each m > 0 is ONE
 // product of contraction 2d: [f+ | f-] B with B = [[Wr, Wi], [-Wi, Wr]].
 // The whole convolution is the (E, S*C) rows times a block-diagonal matrix
-// of one square block per |m| (widths d0, 2d1, 2d2, ...).
-//
-// The TPU kernel keeps every weight matrix resident in VMEM and runs one
-// MXU matmul per block per 256-edge step. On Hopper the weights (5.57 MB
-// per layer at l_max 4, C 128) are ~25x a block's shared memory, so this
-// is a tiled GEMM that streams weight tiles instead: blockIdx.x walks
-// (segment, 128-column output tile), blockIdx.y 128-edge row tiles. Each
-// block stages 8-deep slices of its A rows (transposed) and of B in shared
-// memory, double-buffered through registers, and accumulates a 128 x 128
-// output tile in registers, 8 x 8 per thread (two 4 x 4 quadrants 64 apart
-// so the shared-memory reads are float4 and conflict-free). B is never
-// built: a tile element (k, j) is read from Wr or Wi by quadrant, with the
-// sign of the lower-left -Wi applied while loading.
+// of one square block per |m| (widths d0, 2d1, 2d2, ...). The backward's
+// input cotangent is the same function on the transposed blocks, so the
+// dispatcher launches this kernel for it too, with the other packed buffer.
 //
 // What bounds it on an H100: operations. Per edge row the products cost
 // 2 sum_m width_m^2 FLOP (4,751,360 at l_max 4, C 128) against 2 x 12.8 KB
-// of row traffic, ~190 FLOP per byte, far above the float32 ridge (67e12 /
-// 3.35e12 = 20). The tiling is what keeps it there: each staged element
-// feeds 128 FMAs, the A rows of one row tile are read from HBM once and
-// served from L2 to the segment's other column tiles (x is the fast grid
-// axis, so they run together), and the weights (<= 5.6 MB) stay in the
-// 50 MB L2. No tensor cores: float32 FMA in CUDA cores, fp32 accumulation,
-// no TF32 rounding.
+// of row traffic. float32 FMAs in the CUDA cores top out at 67 TFLOP/s
+// (2.324 ms for the 155.7 GFLOP of a (32768, 25, 128) chunk), which is why
+// the first version of this kernel could not beat cuBLAS's SGEMM.
 //
-// Layout: h and out are (E, S, C) with row stride S*C; `rows` maps each
-// packed row to its row in h and out, so the caller's coefficient order
-// (e3nn's) is read and written in place, with no permuted copy. Rows past
-// E and columns past a segment's width are masked inside the kernel; every
-// output element is written exactly once.
+// The tensor cores run TF32 (10 explicit mantissa bits) at 495 TFLOP/s.
+// To stay float32-exact each operand is split, x = hi + lo with
+// hi = tf32(x) and lo = tf32(x - hi), and each product is taken as
+// a_hi b_hi + a_hi b_lo + a_lo b_hi (3xTF32): the dropped a_lo b_lo and the
+// lo parts' own rounding stay within ~3 * 2^-22 |ab|, products of TF32
+// values are exact in fp32, and the sums accumulate in fp32
+// (kernels/so3.py so2_conv_error_bound derives the tolerance). Three
+// products per float32 product bound a chunk at 3 x 155.7e9 / 495e12 =
+// 0.944 ms; the row traffic (0.84 GB) is 0.252 ms, so operations still
+// bound it.
+//
+// Design (one block of 3 consumer warpgroups + 1 producer warp per SM):
+// - wgmma.mma_async m64n128k8 .f32.tf32.tf32, fp32 accumulators in
+//   registers: each consumer warpgroup owns 64 edge rows x 128 output
+//   columns (64 accumulators a thread), the block 192 x 128. A (the edge
+//   rows) enters wgmma from registers, split into hi and lo there
+//   (cvt.rna.tf32.f32); B comes from shared memory, where TF32 requires it
+//   K-major.
+// - B is packed once per layer on the device (so3.py pack_so2_weights):
+//   per segment the K-major block B^T split into hi and lo halves, each
+//   zero-padded to whole 128 x 32 tiles with its own TMA tensor map.
+//   The explicit blocks are 9.5 MB per layer at l_max 4, C 128 (19 MB with
+//   hi and lo) and stay in the 50 MB L2.
+// - The producer warp keeps a ring of 4 stages (32 contraction entries,
+//   56 KB each) full, up to 4 slices ahead: per stage one TMA box of B's hi
+//   and of its lo (128-byte swizzle, as the wgmma descriptor reads it) and
+//   A's 192 x 32 entries, all completing on the stage's `full` mbarrier.
+//   A comes as one TMA box of a 3D map over h's (C, S, E) when C % 32 == 0
+//   (the coefficient row from the `rows` table in the coordinate, rows past
+//   E zero-filled); for other C the producer copies it with cp.async
+//   (16 bytes a copy when C % 4 == 0, else 4, zero-filled past E and past
+//   the width) into the same swizzled layout. So any E >= 1 and any C are
+//   taken, and the caller's (e3nn) row order is read and written in place
+//   with no permuted copy.
+// - Consumers wait only on `full`, and each warp arrives on the stage's
+//   `empty` mbarrier when its wgmma is done; only the producer waits on
+//   `empty`. No block-wide barrier after the set-up, so the three
+//   warpgroups drift apart and one's fragment loads, waits and epilogue
+//   overlap the others' products. (Loads issued by the consumer threads
+//   and a block-wide wait per slice kept an earlier version far from the
+//   bound.)
+// - Schedule: blockIdx.x walks (segment, 128-column tile), blockIdx.y the
+//   192-row edge tiles. x is the fast axis, so the 25 column tiles of one
+//   row tile (at l_max 4, C 128) run together: the A rows are read from
+//   HBM once and served from L2 to the others.
+// - The output is written from the accumulators, two adjacent columns a
+//   store, through the row table; rows past E and columns past a segment's
+//   width are masked, and every output element is written exactly once.
+// - ptxas (-Xptxas -v, CUDA 12.8): 128 registers, no spills; 230,660 bytes
+//   of dynamic shared memory.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBM = 128;       // edge rows per block
-constexpr int kBN = 128;       // output columns per block
-constexpr int kBK = 8;         // contraction slice staged per step
-constexpr int kThreads = 256;  // 16 x 16 threads, 8 x 8 outputs each
-constexpr int kMaxSeg = 7;     // |m| = 0..6
-constexpr int kMaxRows = 49;   // S = (l_max + 1)^2 at l_max = 6
+constexpr int kConsumerWGs = 3;                      // warpgroups of 64 edge rows each
+constexpr int kBM = 64 * kConsumerWGs;               // edge rows per block
+constexpr int kBN = 128;                             // output columns per block
+constexpr int kBK = 32;                              // contraction entries per stage: 128 bytes
+constexpr int kStages = 4;
+constexpr int kConsumers = 128 * kConsumerWGs;
+constexpr int kThreads = kConsumers + 32;            // + one producer warp
+constexpr int kMaxSeg = 7;                           // |m| = 0..6
+constexpr int kMaxRows = 49;                         // S at l_max = 6
+constexpr int kBTileBytes = kBN * kBK * 4;           // one of hi, lo: 16 KB
+constexpr int kBStageBytes = 2 * kBTileBytes;
+constexpr int kAStageBytes = kBM * kBK * 4;
+constexpr int kSmemBytes =
+    1024 + kStages * (kBStageBytes + kAStageBytes) + 2 * kStages * 8 + kMaxRows * 4;
+
+// How the edge rows reach shared memory: a TMA box when C % 32 == 0 (the
+// 32 entries of a slice then lie in one coefficient row), else cp.async
+// from the producer warp, 16 bytes a copy when C % 4 == 0, else 4.
+enum AMode { kATma = 0, kACopy16 = 1, kACopy4 = 2 };
 
 struct Segment {
-  const float* wr;  // W0 (m = 0) or Wr (m > 0), (d, d) row-major
-  const float* wi;  // Wi (m > 0); W0 again for m = 0, never read
-  int d;            // nl * C, the size of one weight matrix
-  int width;        // contraction length = output width: d or 2d
-  int row0;         // first packed row of the segment
-  int tile0;        // first column tile of the segment along blockIdx.x
+  int width;  // contraction length = output width: d or 2d
+  int row0;   // first packed row of the segment
+  int tile0;  // first column tile of the segment along blockIdx.x
 };
 
 struct Params {
+  CUtensorMap maps[2 * kMaxSeg];  // per segment: its packed hi block, then its lo block
+  CUtensorMap h_map;              // h as (C, S, E), for kATma
   const float* h;
   float* out;
   int64_t e;  // edge rows
@@ -70,82 +115,171 @@ struct Params {
   int rows[kMaxRows];  // packed row -> row of h and out
 };
 
-// Four consecutive contraction entries k..k+3 of one A row (zeros past the
-// segment's width). VEC4 needs C % 4 == 0, so the four share one row of h.
-template <bool VEC4>
-__device__ __forceinline__ void load_a(const float* __restrict__ base, bool live,
-                                       const int* s_rows, int row0, int c, int width,
-                                       int k, float (&v)[4]) {
-  if constexpr (VEC4) {
-    if (live && k < width) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(
-          base + static_cast<int64_t>(s_rows[row0 + k / c]) * c + k % c));
-      v[0] = t.x;
-      v[1] = t.y;
-      v[2] = t.z;
-      v[3] = t.w;
-    } else {
-      v[0] = v[1] = v[2] = v[3] = 0.0f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int kk = k + i;
-      v[i] = (live && kk < width)
-                 ? __ldg(base + static_cast<int64_t>(s_rows[row0 + kk / c]) * c + kk % c)
-                 : 0.0f;
-    }
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Entries (k, j..j+3) of the segment's virtual (width x width) matrix:
-// W0 for m = 0, [[Wr, Wi], [-Wi, Wr]] for m > 0 (zeros past the width).
-// VEC4 needs d % 4 == 0, so the four share one quadrant.
-template <bool VEC4>
-__device__ __forceinline__ void load_b(const Segment& sg, int k, int j, float (&v)[4]) {
-  const int d = sg.d;
-  if constexpr (VEC4) {
-    if (k < sg.width && j < sg.width) {
-      const bool kq = k >= d;
-      const bool jq = j >= d;
-      const float* src = kq == jq ? sg.wr : sg.wi;
-      const float4 t = __ldg(reinterpret_cast<const float4*>(
-          src + static_cast<int64_t>(kq ? k - d : k) * d + (jq ? j - d : j)));
-      const float sign = (kq && !jq) ? -1.0f : 1.0f;
-      v[0] = sign * t.x;
-      v[1] = sign * t.y;
-      v[2] = sign * t.z;
-      v[3] = sign * t.w;
-    } else {
-      v[0] = v[1] = v[2] = v[3] = 0.0f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int jj = j + i;
-      if (k < sg.width && jj < sg.width) {
-        const bool kq = k >= d;
-        const bool jq = jj >= d;
-        const float* src = kq == jq ? sg.wr : sg.wi;
-        const float t = __ldg(src + static_cast<int64_t>(kq ? k - d : k) * d +
-                              (jq ? jj - d : jj));
-        v[i] = (kq && !jq) ? -t : t;
-      } else {
-        v[i] = 0.0f;
-      }
-    }
-  }
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
 }
 
-template <bool VEC4>
-__global__ void __launch_bounds__(kThreads)
-so2_conv_kernel(const Params p) {
-  __shared__ __align__(16) float As[2][kBK][kBM];
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
-  __shared__ int s_rows[kMaxRows];
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Arrives on `bar` once every cp.async this thread issued so far has landed
+// (counted in the barrier's initial count: .noinc).
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// One TMA box of the packed weights: x along K, y along the rows.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y)
+      : "memory");
+}
+
+// One TMA box of h: x the channel, y the coefficient row, z the edge.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int x, int y, int z) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(x), "r"(y), "r"(z)
+      : "memory");
+}
+
+// cp.async with zero fill: `live` false copies no bytes and writes zeros.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(live ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool live) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_u32(dst)), "l"(src),
+               "r"(live ? 4 : 0)
+               : "memory");
+}
+
+// Round to TF32, nearest with ties away from zero (so3.py tf32_round).
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// Float offset of entry (r, k) of a 128-byte-swizzled tile of 32-float
+// rows, as TMA writes it: the 16-byte chunk index XOR the row mod 8.
+__device__ __forceinline__ int swz(int r, int k) {
+  return r * kBK + ((((k >> 2) ^ (r & 7))) << 2) + (k & 3);
+}
+
+// Descriptor of a K-major 128 x 32 float32 tile stored with the 128-byte
+// swizzle (as TMA writes it): 8-row groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t sw128_desc(const void* tile) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3FFFF) >> 4) | (uint64_t(1) << 16) | (uint64_t(1024 >> 4) << 32) |
+         (uint64_t(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x 128 fp32, this warpgroup's) += A (64 x 8 TF32, registers) B (from
+// shared memory through `desc`, 8 x 128 K-major TF32).
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <int AMODE>
+__global__ void __launch_bounds__(kThreads, 1)
+so2_conv_kernel(const __grid_constant__ Params p) {
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: tiles start on that
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* b_ring = smem;  // kStages x [hi | lo]
+  float* a_ring = reinterpret_cast<float*>(smem + kStages * kBStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * (kBStageBytes + kAStageBytes));
+  uint64_t* empty = full + kStages;
+  int* s_rows = reinterpret_cast<int*>(empty + kStages);
 
   const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
   if (tid < p.s) s_rows[tid] = p.rows[tid];
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 33);                 // the producer's 32 lanes + its TMA bytes
+      mbar_init(&empty[i], kConsumers / 32);   // every consumer warp done with the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
 
   int si = 0;
   while (si + 1 < p.n_seg && static_cast<int>(blockIdx.x) >= p.seg[si + 1].tile0) ++si;
@@ -155,116 +289,170 @@ so2_conv_kernel(const Params p) {
   const int n0 = (static_cast<int>(blockIdx.x) - sg.tile0) * kBN;
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
   const int64_t ld = static_cast<int64_t>(p.s) * c;  // floats per edge row
+  const int nk = (width + kBK - 1) / kBK;
+  __syncthreads();  // s_rows and the barriers are ready; the roles part here for good
 
-  // loader coordinates: A as 128 rows x 2 float4, B as 8 rows x 32 float4
-  const int a_row = tid >> 1;
-  const int a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5;
-  const int b_j = (tid & 31) * 4;
-  const bool a_live = m0 + a_row < p.e;
-  const float* __restrict__ a_base = p.h + (a_live ? m0 + a_row : 0) * ld;
-
-  // compute coordinates: rows ty*4 + {0..3, 64..67}, columns tx*4 + {...}
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  if (warp == kConsumers / 32) {
+    // ---- producer warp: keeps the ring full, kStages slices ahead ----
+    for (int kt = 0; kt < nk; ++kt) {
+      const int stage = kt % kStages;
+      if (kt >= kStages) mbar_wait(&empty[stage], (kt / kStages - 1) & 1);
+      const int k0 = kt * kBK;
+      uint64_t* bar = &full[stage];
+      float* as = a_ring + stage * (kBM * kBK);
+      if (lane == 0) {
+        uint8_t* bs = b_ring + stage * kBStageBytes;
+        mbar_expect_tx(bar, kBStageBytes + (AMODE == kATma ? kAStageBytes : 0));
+        tma_load_2d(bs, &p.maps[2 * si], bar, k0, n0);
+        tma_load_2d(bs + kBTileBytes, &p.maps[2 * si + 1], bar, k0, n0);
+        if constexpr (AMODE == kATma) {
+          tma_load_3d(as, &p.h_map, bar, k0 % c, s_rows[sg.row0 + k0 / c],
+                      static_cast<int>(m0));
+        }
+      }
+      if constexpr (AMODE == kACopy16) {
+        for (int chunk = lane; chunk < kBM * kBK / 4; chunk += 32) {
+          const int r = chunk >> 3;
+          const int kc = (chunk & 7) * 4;
+          const int k = k0 + kc;
+          const bool live = m0 + r < p.e && k < width;
+          const float* src = live ? p.h + (m0 + r) * ld +
+                                        static_cast<int64_t>(s_rows[sg.row0 + k / c]) * c + k % c
+                                  : p.h;
+          cp_async16(as + swz(r, kc), src, live);
+        }
+      } else if constexpr (AMODE == kACopy4) {
+        for (int idx = lane; idx < kBM * kBK; idx += 32) {
+          const int r = idx >> 5;
+          const int kk = idx & 31;
+          const int k = k0 + kk;
+          const bool live = m0 + r < p.e && k < width;
+          const float* src = live ? p.h + (m0 + r) * ld +
+                                        static_cast<int64_t>(s_rows[sg.row0 + k / c]) * c + k % c
+                                  : p.h;
+          cp_async4(as + swz(r, kk), src, live);
+        }
+      }
+      cp_async_arrive(bar);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
   }
 
-  __syncthreads();  // s_rows is ready
-  const int nk = (width + kBK - 1) / kBK;
-  float ra[4], rb[4];
-  load_a<VEC4>(a_base, a_live, s_rows, sg.row0, c, width, a_k, ra);
-  load_b<VEC4>(sg, b_k, n0 + b_j, rb);
+  // ---- consumer warpgroups: 64 edge rows x 128 columns each ----
+  // fragment coordinates (wgmma's TF32 A layout, as mma.m16n8k8's per
+  // warp): rows fr and fr + 8, columns fc and fc + 4 of each k step
+  const int fr = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int fc = lane & 3;
+  float acc[64];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) As[0][a_k + i][a_row] = ra[i];
-  *reinterpret_cast<float4*>(&Bs[0][b_k][b_j]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
-  __syncthreads();
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
 
   for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) {  // the next slice's loads are in flight during this one's FMAs
-      const int k0 = (kt + 1) * kBK;
-      load_a<VEC4>(a_base, a_live, s_rows, sg.row0, c, width, k0 + a_k, ra);
-      load_b<VEC4>(sg, k0 + b_k, n0 + b_j, rb);
-    }
+    const int stage = kt % kStages;
+    mbar_wait(&full[stage], (kt / kStages) & 1);
+    const float* as = a_ring + stage * (kBM * kBK);
+    uint32_t a_hi[4][4], a_lo[4][4];
 #pragma unroll
-    for (int k = 0; k < kBK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4 + 64]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4 + 64]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+    for (int j = 0; j < 4; ++j) {
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      for (int q = 0; q < 4; ++q) {
+        const float x = as[swz(fr + (q & 1) * 8, j * 8 + fc + (q >> 1) * 4)];
+        const uint32_t hi = to_tf32(x);
+        a_hi[j][q] = hi;
+        a_lo[j][q] = to_tf32(x - __uint_as_float(hi));
       }
     }
-    if (more) {
-      // the other buffer: every thread finished reading it before the
-      // barrier that closed the previous step
+    const uint8_t* bs = b_ring + stage * kBStageBytes;
+    const uint64_t d_hi = sw128_desc(bs);
+    const uint64_t d_lo = sw128_desc(bs + kBTileBytes);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < 4; ++i) As[cur ^ 1][a_k + i][a_row] = ra[i];
-      *reinterpret_cast<float4*>(&Bs[cur ^ 1][b_k][b_j]) =
-          make_float4(rb[0], rb[1], rb[2], rb[3]);
+    for (int j = 0; j < 4; ++j) {  // k steps of 8 entries = 32 bytes = 2 descriptor units
+      wgmma_tf32(acc, a_hi[j], d_hi + 2 * j);
+      wgmma_tf32(acc, a_hi[j], d_lo + 2 * j);
+      wgmma_tf32(acc, a_lo[j], d_hi + 2 * j);
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait_all();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
   }
+  fence_acc(acc);
 
+  // accumulator j*4 + {0, 1, 2, 3}: (row fr, columns 8j + 2fc, +1) and
+  // (row fr + 8, the same columns)
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int64_t edge = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
+  for (int half = 0; half < 2; ++half) {
+    const int64_t edge = m0 + fr + half * 8;
     if (edge >= p.e) continue;
     float* __restrict__ out_row = p.out + edge * ld;
 #pragma unroll
-    for (int jh = 0; jh < 2; ++jh) {
-      const int n = n0 + tx * 4 + jh * 64;
-      if constexpr (VEC4) {
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int n = n0 + j * 8 + 2 * fc;
+      const float v0 = acc[j * 4 + half * 2];
+      const float v1 = acc[j * 4 + half * 2 + 1];
+      if constexpr (AMODE != kACopy4) {  // C even: columns n, n + 1 share a row
         if (n < width) {
           float* dst = out_row + static_cast<int64_t>(s_rows[sg.row0 + n / c]) * c + n % c;
-          *reinterpret_cast<float4*>(dst) =
-              make_float4(acc[i][jh * 4], acc[i][jh * 4 + 1], acc[i][jh * 4 + 2],
-                          acc[i][jh * 4 + 3]);
+          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
         }
       } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int nn = n + j;
-          if (nn < width) {
-            out_row[static_cast<int64_t>(s_rows[sg.row0 + nn / c]) * c + nn % c] =
-                acc[i][jh * 4 + j];
-          }
+        if (n < width) out_row[static_cast<int64_t>(s_rows[sg.row0 + n / c]) * c + n % c] = v0;
+        if (n + 1 < width) {
+          out_row[static_cast<int64_t>(s_rows[sg.row0 + (n + 1) / c]) * c + (n + 1) % c] = v1;
         }
       }
     }
   }
 }
 
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled is a driver API: reached through the runtime's
+// entry-point query, so the library needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult status{};
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &status) !=
+            cudaSuccess ||
+        status != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiled>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiled>(ptr);
+  }();
+  return fn;
+}
+
 }  // namespace
 
 // h, out: (e, s, c) float32 contiguous on the current device. Segments in
 // packed order: seg_m[i] = |m|, seg_row0[i] its first packed row, seg_nl[i]
-// its l count (m > 0 segments span 2 nl rows). weights: device pointers
-// [W0, W1r, W1i, ...], each (nl c, nl c) float32 row-major. rows: the
-// packed row -> row of h/out map (host array of s ints). vec == 4 requires
-// c % 4 == 0 and 16-byte aligned h, out and weights. Launches on `stream`
-// and returns the launch's cudaError_t (0 = success); it does not
+// its l count (m > 0 segments span 2 nl rows). packed: the (2, total)
+// buffer of so3.py pack_so2_weights, hi then lo; segment i's block at float
+// offset block_off[i] of each, (npad, kpad) row-major with npad = width
+// rounded up to 128 and kpad = width rounded up to 32, holding B^T
+// (K-major) in TF32 parts, zero past the width. rows: the packed row ->
+// row of h/out map (host array of s ints). vec == 4 requires c % 4 == 0
+// and 16-byte aligned h and out. Launches on `stream` and returns the
+// launch's cudaError_t (0 = success), -1 when the driver has no
+// cuTensorMapEncodeTiled, -2 when it refuses a tensor map; it does not
 // synchronise.
 extern "C" int distmlip_so2_conv_f32(const float* h, float* out, int64_t e, int s, int c,
                                      int n_seg, const int* seg_m, const int* seg_row0,
-                                     const int* seg_nl, const float* const* weights,
-                                     const int* rows, int vec, void* stream) {
+                                     const int* seg_nl, const float* packed, int64_t total,
+                                     const int64_t* block_off, const int* rows, int vec,
+                                     void* stream) {
   if (e <= 0) return 0;
   if (n_seg < 1 || n_seg > kMaxSeg || s < 1 || s > kMaxRows || c < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
   Params p = {};
   p.h = h;
   p.out = out;
@@ -272,18 +460,42 @@ extern "C" int distmlip_so2_conv_f32(const float* h, float* out, int64_t e, int 
   p.s = s;
   p.c = c;
   p.n_seg = n_seg;
-  int wi = 0;
   int tiles = 0;
   for (int i = 0; i < n_seg; ++i) {
     Segment& sg = p.seg[i];
-    sg.d = seg_nl[i] * c;
-    sg.width = seg_m[i] == 0 ? sg.d : 2 * sg.d;
+    sg.width = seg_nl[i] * c * (seg_m[i] == 0 ? 1 : 2);
+    const int npad = (sg.width + kBN - 1) / kBN * kBN;
+    const int kpad = (sg.width + kBK - 1) / kBK * kBK;
     sg.row0 = seg_row0[i];
-    sg.wr = weights[wi];
-    sg.wi = seg_m[i] == 0 ? weights[wi] : weights[wi + 1];
-    wi += seg_m[i] == 0 ? 1 : 2;
     sg.tile0 = tiles;
-    tiles += (sg.width + kBN - 1) / kBN;
+    tiles += npad / kBN;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kpad), static_cast<cuuint64_t>(npad)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kpad) * 4};
+    const cuuint32_t box[2] = {kBK, kBN};
+    const cuuint32_t elem_strides[2] = {1, 1};
+    for (int part = 0; part < 2; ++part) {  // hi, lo
+      const CUresult r = encode(&p.maps[2 * i + part], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                                const_cast<float*>(packed + part * total + block_off[i]), dims,
+                                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+      if (r != CUDA_SUCCESS) return -2;
+    }
+  }
+  const int amode = c % 32 == 0 && vec == 4 ? kATma : vec == 4 ? kACopy16 : kACopy4;
+  if (amode == kATma) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(s),
+                                static_cast<cuuint64_t>(e)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 4,
+                                   static_cast<cuuint64_t>(s) * c * 4};
+    const cuuint32_t box[3] = {kBK, 1, kBM};
+    const cuuint32_t elem_strides[3] = {1, 1, 1};
+    const CUresult r = encode(&p.h_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+                              const_cast<float*>(h), dims, strides, box, elem_strides,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return -2;
   }
   for (int i = 0; i < s; ++i) p.rows[i] = rows[i];
   const int64_t row_tiles = (e + kBM - 1) / kBM;
@@ -292,10 +504,12 @@ extern "C" int distmlip_so2_conv_f32(const float* h, float* out, int64_t e, int 
   }
   const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(row_tiles));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (vec == 4) {
-    so2_conv_kernel<true><<<grid, kThreads, 0, st>>>(p);
-  } else {
-    so2_conv_kernel<false><<<grid, kThreads, 0, st>>>(p);
-  }
+  auto kernel = amode == kATma      ? so2_conv_kernel<kATma>
+                : amode == kACopy16 ? so2_conv_kernel<kACopy16>
+                                    : so2_conv_kernel<kACopy4>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, kThreads, kSmemBytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,10 +13,13 @@ launches the kernel or raises.
   training) works.
 - ``fused_so2_conv`` (``distmlip_tpu/kernels/dispatch.py:613``) is one
   too: forward the SO(2)-convolution kernel, which reads and writes the
-  model's coefficient order through a row table (no permuted copy);
-  backward the VJP of ``so2_conv_reference`` in differentiable torch ops,
-  as the JAX package's custom VJP (``:650-657``), with weight cotangents
-  only when asked for (the force program asks for none).
+  model's coefficient order through a row table (no permuted copy). The
+  backward's input cotangent is the same Function on the transposed
+  weight set, so on the card it is one more launch of the kernel; the
+  weight cotangents, only when asked for (the force program asks for
+  none), and the whole backward on the plain path are the VJP of
+  ``so2_conv_reference`` in differentiable torch ops, as the JAX
+  package's custom VJP (``:650-657``).
 - ``fused_edge_aggregate`` (``distmlip_tpu/kernels/dispatch.py:306``) is
   one too: forward the fused gather -> message -> masked dst sum, backward
   the JAX package's chunked recompute (``_edge_aggregate_bwd``, ``:482``)
@@ -40,7 +43,8 @@ import torch
 from ..ops.segment import masked_segment_sum
 from .edge_aggregate import EdgeMessage
 from .segment import segment_sum_cuda, segment_sum_reference
-from .so3 import packed_m_layout, so2_conv_cuda, so2_conv_reference
+from .so3 import (pack_so2_weights, packed_m_layout, so2_conv_cuda,
+                  so2_conv_reference)
 
 # edges per chunk of the edge-aggregate backward (bounds the recomputed
 # message and its cotangent), distmlip_tpu/kernels/dispatch.py:49
@@ -292,19 +296,22 @@ def _so2_plain(h, weights, perm, inv, segments, channels):
 
 
 class _SO2Conv(torch.autograd.Function):
-    # positional layout of apply(): 6 non-differentiable leading arguments
+    # positional layout of apply(): 7 non-differentiable leading arguments
     # (the host row order for the kernel, its device copies for the plain
-    # ops), then h, then the weight matrices
-    N_LEAD = 6
+    # ops, the packed weights for the kernel or None), then h, then the
+    # weight matrices
+    N_LEAD = 7
 
     @staticmethod
-    def forward(ctx, use_kernel, perm_np, perm, inv, segments, channels, h, *weights):
+    def forward(ctx, use_kernel, perm_np, perm, inv, segments, channels, packed, h,
+                *weights):
         if use_kernel:
-            out = so2_conv_cuda(h.contiguous(), [w.contiguous() for w in weights],
-                                segments, channels, perm_np)
+            out = so2_conv_cuda(h.contiguous(), list(weights), segments, channels, perm_np,
+                                packed=packed)
         else:
             out = _so2_plain(h, weights, perm, inv, segments, channels)
         ctx.save_for_backward(perm, inv, h, *weights)
+        ctx.use_kernel, ctx.perm_np, ctx.packed = use_kernel, perm_np, packed
         ctx.segments, ctx.channels = segments, channels
         return out
 
@@ -314,9 +321,35 @@ class _SO2Conv(torch.autograd.Function):
         lead = _SO2Conv.N_LEAD
         need_h = ctx.needs_input_grad[lead]
         need_w = ctx.needs_input_grad[lead + 1:]
-        gh, gws = _so2_vjp(h, weights, g, perm, inv, ctx.segments, ctx.channels,
-                           need_h, need_w)
+        plain_h = need_h and not ctx.use_kernel
+        gh, gws = None, [None] * len(weights)
+        if plain_h or any(need_w):
+            gh, gws = _so2_vjp(h, weights, g, perm, inv, ctx.segments, ctx.channels,
+                               plain_h, need_w)
+        if need_h and ctx.use_kernel:
+            # the input cotangent is the same convolution on the transposed
+            # weight set, so the kernel runs it (and its own backward, for a
+            # double backward, swaps the packed buffers back)
+            gh = _SO2Conv.apply(True, ctx.perm_np, perm, inv, ctx.segments, ctx.channels,
+                                ctx.packed.transposed(), g,
+                                *_so2_transposed_weights(weights, ctx.segments))
         return (None,) * lead + (gh,) + tuple(gws)
+
+
+def _so2_transposed_weights(weights, segments):
+    """The weight set whose convolution is the input cotangent: W0^T for
+    m = 0, and Wr^T, -Wi^T for m > 0, since [[Wr, Wi], [-Wi, Wr]]^T =
+    [[Wr^T, -Wi^T], [Wi^T, Wr^T]] is the same form. Differentiable, so a
+    double backward reaches the weights."""
+    out, wi = [], 0
+    for m, _, _ in segments:
+        if m == 0:
+            out.append(weights[wi].t())
+            wi += 1
+        else:
+            out += [weights[wi].t(), -weights[wi + 1].t()]
+            wi += 2
+    return out
 
 
 def _so2_vjp(h, weights, g, perm, inv, segments, channels, need_h, need_w):
@@ -363,20 +396,36 @@ def _so2_vjp(h, weights, g, perm, inv, segments, channels, need_h, need_w):
     return gh, gws
 
 
-def fused_so2_conv(h, weights, m_idx: dict, channels: int, kernels: bool = True):
+def so2_packed_weights(weights, m_idx: dict, channels: int, kernels: bool = True):
+    """The kernel's packed form of ``weights`` (``pack_so2_weights``, with
+    the transposed set for the backward) when ``fused_so2_conv`` will
+    launch the kernel for them, else None. A model builds it once per layer
+    and passes it to every chunk's call."""
+    if kernels is False or not weights[0].is_cuda:
+        return None
+    return pack_so2_weights(weights, packed_m_layout(m_idx)[2], int(channels))
+
+
+def fused_so2_conv(h, weights, m_idx: dict, channels: int, kernels: bool = True,
+                   packed=None):
     """SO(2) convolution over all |m| blocks, dispatched.
 
     ``h``: (E, S, C) coefficients in the model's (e3nn) order;
     ``weights``: ``[W0, W1r, W1i, ...]`` mixed (d, d) matrices per m;
-    ``m_idx``: the model's per-|m| (plus, minus) index sets. Returns the
-    convolved coefficients in the SAME order. A CUDA tensor with
-    ``kernels=True`` launches the kernel (or raises); CPU tensors and
-    ``kernels=False`` take the plain version; no edges take the plain
-    path, as in the JAX dispatcher (``:634``). The backward is the plain
-    VJP; the weights get cotangents only when they require them.
+    ``m_idx``: the model's per-|m| (plus, minus) index sets; ``packed``:
+    ``so2_packed_weights`` of the same weights, packed here when not given.
+    Returns the convolved coefficients in the SAME order. A CUDA tensor with
+    ``kernels=True`` launches the kernel (or raises), forward and, for the
+    input cotangent, backward; CPU tensors and ``kernels=False`` take the
+    plain version and its plain VJP; no edges take the plain path, as in
+    the JAX dispatcher (``:634``). The weights get cotangents only when
+    they require them, from the plain VJP's products.
     """
     perm_np, inv_np, segments = packed_m_layout(m_idx)
     perm, inv = _row_tables(tuple(perm_np.tolist()), tuple(inv_np.tolist()), h.device)
     use_kernel = kernels is not False and h.is_cuda and h.shape[0] > 0
-    return _SO2Conv.apply(use_kernel, perm_np, perm, inv, segments, int(channels), h,
-                          *weights)
+    if use_kernel and packed is None:
+        packed = pack_so2_weights(weights, segments, int(channels),
+                                  backward=h.requires_grad)
+    return _SO2Conv.apply(use_kernel, perm_np, perm, inv, segments, int(channels),
+                          packed if use_kernel else None, h, *weights)

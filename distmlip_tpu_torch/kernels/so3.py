@@ -14,8 +14,11 @@ m=2 plus | ...]``) the plus and minus blocks of one |m| sit side by side,
 so each m > 0 is ONE product of contraction 2d, ``[f+ | f-] @ [[Wr, Wi],
 [-Wi, Wr]]``, and the whole convolution is a block-diagonal product of the
 (E, S * C) rows. The kernel (``csrc/so2_conv.cu``) runs it as one tiled
-GEMM over (segment, column tile) x (edge row tile) and never builds the
-2d x 2d matrix.
+GEMM over (segment, column tile) x (edge row tile) on the tensor cores,
+float32-exact through a 3xTF32 split. Its weight operand is the explicit
+block of each segment, K-major and split into TF32 hi and lo parts,
+packed on the device once per layer by ``pack_so2_weights``; the same
+packing, untransposed, is the operand of the backward's input cotangent.
 
 ``so2_conv_cuda`` takes CUDA tensors only and raises on anything else;
 ``so2_conv_reference`` is the plain version, used on the CPU and by the
@@ -26,6 +29,8 @@ on-card comparison. The dispatcher (``kernels/dispatch.py``
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -86,32 +91,164 @@ def so2_conv_reference(h_packed, weights, segments, channels: int):
 
 def so2_conv_error_bound(h_packed, weights, segments, channels: int):
     """Elementwise bound on |kernel - plain| in the packed layout:
-    ``2 k u T`` per output, with ``k`` the contraction length (d for m = 0,
-    2d for m > 0, the pair's two products summed), u = 2^-24 and ``T`` the
-    sum of |terms| of that output (``|f0| @ |W0|``; ``|f+| @ |Wr| + |f-| @
-    |Wi|`` for y+ and ``|f+| @ |Wi| + |f-| @ |Wr|`` for y-). Each side's
-    float32 dot products are within about k u T of the exact value in any
-    summation order; the plain side's two length-d products and their add
-    stay within (d + 1) u T."""
+    ``(60 ceil(k / 8) + k + 13) u T`` per output, with ``k`` the
+    contraction length (d for m = 0, 2d for m > 0, the pair's two products
+    summed), u = 2^-24 and ``T`` the sum of |terms| of that output
+    (``|f0| @ |W0|``; ``|f+| @ |Wr| + |f-| @ |Wi|`` for y+ and ``|f+| @
+    |Wi| + |f-| @ |Wr|`` for y-).
+
+    The kernel (3xTF32 on the tensor cores, ``csrc/so2_conv.cu``) is within
+    ``(60 ceil(k / 8) + 13) u T`` of the exact value:
+    - the split: each operand is x = hi + lo + r with hi = tf32(x),
+      lo = tf32(x - hi), both rounded to nearest at 11 significant bits, so
+      |x - hi| <= 2^-11 |x| and |r| <= 2^-22 |x|. A product is taken as
+      a_hi b_hi + a_hi b_lo + a_lo b_hi; the dropped a_lo b_lo and the r
+      terms stay within (3 + 2^-9) 2^-22 |ab| < 13 u |ab|: 13 u T;
+    - products of TF32 values (11 x 11 significant bits) are exact in fp32;
+    - the accumulation: 3 wgmma instructions per 8 contraction entries,
+      3 ceil(k / 8) in all, each adding 8 products to the fp32
+      accumulator. The bound does not assume round to nearest: each
+      instruction's 9 addends may be aligned to the largest and truncated,
+      and its sum truncated, each losing less than one ulp (2u of a
+      magnitude of at most T): 20 u T an instruction, 60 ceil(k / 8) u T.
+
+    The plain side's float32 dot products are within about k u T of the
+    exact value in any summation order (the pair's two length-d products
+    and their add within (d + 1) u T)."""
     u = 2.0 ** -24
     e, c = h_packed.shape[0], channels
     ha = h_packed.abs()
     wa = [w.abs() for w in weights]
+
+    def factor(k):
+        return (60 * -(-k // 8) + k + 13) * u
+
     out = []
     wi = 0
     for m, start, nl in segments:
         d = nl * c
         fp = ha[:, start:start + nl, :].reshape(e, d)
         if m == 0:
-            out.append((fp @ wa[wi] * (2 * d * u)).reshape(e, nl, c))
+            out.append((fp @ wa[wi] * factor(d)).reshape(e, nl, c))
             wi += 1
             continue
         fm = ha[:, start + nl:start + 2 * nl, :].reshape(e, d)
         wr, wim = wa[wi], wa[wi + 1]
         wi += 2
-        out.append(((fp @ wr + fm @ wim) * (4 * d * u)).reshape(e, nl, c))
-        out.append(((fp @ wim + fm @ wr) * (4 * d * u)).reshape(e, nl, c))
+        out.append(((fp @ wr + fm @ wim) * factor(2 * d)).reshape(e, nl, c))
+        out.append(((fp @ wim + fm @ wr) * factor(2 * d)).reshape(e, nl, c))
     return torch.cat(out, dim=1)
+
+
+def tf32_round(x):
+    """``x`` (float32) rounded to TF32, 10 explicit mantissa bits, to
+    nearest with ties away from zero: what ``cvt.rna.tf32.f32`` does in the
+    kernel. Works on the bit pattern, so it is exact on any device."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def so2_block_matrices(weights, segments):
+    """The (width, width) block of each segment: ``W0`` for m = 0,
+    ``[[Wr, Wi], [-Wi, Wr]]`` for m > 0, so that the packed rows of a
+    segment times its block is the convolution."""
+    blocks, wi = [], 0
+    for m, _, _ in segments:
+        if m == 0:
+            blocks.append(weights[wi])
+            wi += 1
+        else:
+            wr, wim = weights[wi], weights[wi + 1]
+            wi += 2
+            blocks.append(torch.cat([torch.cat([wr, wim], 1), torch.cat([-wim, wr], 1)], 0))
+    return blocks
+
+
+def _block_layout(segments, channels: int):
+    """Per segment ``(offset, width, npad, kpad)`` in each half of the
+    packed buffer (floats), and the half's size: width rounded up to the
+    kernel's 128 output columns (npad) and to its 32 contraction entries
+    (kpad)."""
+    layout, off = [], 0
+    for m, _, nl in segments:
+        w = nl * channels * (1 if m == 0 else 2)
+        npad, kpad = -(-w // 128) * 128, -(-w // 32) * 32
+        layout.append((off, w, npad, kpad))
+        off += npad * kpad
+    return tuple(layout), off
+
+
+@functools.lru_cache(maxsize=4)
+def _pack_index(segments: tuple, channels: int, backward: bool, device):
+    """Gather table of the packing, made once per layout and device (the
+    last 4 kept; a model uses one): entry i of direction r's buffer half
+    takes ``src[index[r, i]]``, with ``src`` the flattened weights, then the
+    same negated, then one zero (the padding). Direction 0 is each segment's K-major block B^T (element
+    (n, k) = B[k, n]); direction 1, when ``backward``, is B itself, the
+    K-major form of the transposed set's block."""
+    layout, total = _block_layout(segments, channels)
+    sizes = [(nl * channels) ** 2 for m, _, nl in segments for _ in range(1 if m == 0 else 2)]
+    w_off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    n_w = int(sum(sizes))
+    zero = 2 * n_w
+    dirs = (True, False) if backward else (True,)
+    index = np.full((len(dirs), total), zero, dtype=np.int32)
+    wi = 0
+    for (off, w, npad, kpad), (m, _, nl) in zip(layout, segments):
+        d = nl * channels
+        rows, cols = np.meshgrid(np.arange(w), np.arange(w), indexing="ij")
+        for r, transpose in enumerate(dirs):
+            k, n = (cols, rows) if transpose else (rows, cols)  # block element B[k, n]
+            if m == 0:
+                src = w_off[wi] + k * d + n
+            else:
+                kq, nq = k >= d, n >= d
+                kk, nn = np.where(kq, k - d, k), np.where(nq, n - d, n)
+                # [[Wr, Wi], [-Wi, Wr]]: Wr on the diagonal quadrants, Wi
+                # above, -Wi (the negated copy) below
+                src = np.where(kq == nq, w_off[wi], w_off[wi + 1]) + kk * d + nn
+                src = np.where(kq & ~nq, src + n_w, src)
+            index[r, off:off + npad * kpad].reshape(npad, kpad)[:w, :w] = src
+        wi += 1 if m == 0 else 2
+    return torch.as_tensor(index.reshape(-1), device=device)  # int32: half the memory
+
+
+@dataclass(frozen=True)
+class PackedSO2Weights:
+    """The SO(2) weights in the kernel's form, built by ``pack_so2_weights``.
+
+    ``fwd`` is a (2, total) float32 buffer, the TF32 hi parts then the lo
+    parts, holding per segment at ``layout[i][0]`` the K-major block B^T
+    ((npad, kpad) row-major, zero past the width): the operand of
+    ``y = f B``. ``bwd`` holds B the same way: the operand of the input
+    cotangent ``g B^T``, which is the same convolution on the transposed
+    weight set (W0^T; Wr^T and -Wi^T per m). ``transposed()`` swaps the
+    two. ``bwd`` is None when no backward was asked for."""
+
+    fwd: torch.Tensor
+    bwd: torch.Tensor | None
+    layout: tuple
+
+    def transposed(self) -> "PackedSO2Weights":
+        if self.bwd is None:
+            raise ValueError("PackedSO2Weights: packed without the backward's blocks")
+        return PackedSO2Weights(self.bwd, self.fwd, self.layout)
+
+
+def pack_so2_weights(weights, segments, channels: int, backward: bool = True):
+    """Pack ``[W0, W1r, W1i, ...]`` for the kernel: once per layer, on the
+    weights' device, in a dozen plain torch ops (one gather through
+    ``_pack_index``, then the TF32 split); no gradient flows through it,
+    the dispatcher keeps the weights themselves for their cotangents."""
+    with torch.no_grad():
+        flat = torch.cat([w.detach().float().reshape(-1) for w in weights])
+        src = torch.cat([flat, -flat, flat.new_zeros(1)])
+        index = _pack_index(tuple(segments), int(channels), bool(backward), flat.device)
+        blocks = src.index_select(0, index).view(2 if backward else 1, -1)
+        hi = tf32_round(blocks)
+        packed = torch.stack([hi, tf32_round(blocks - hi)], dim=1)
+    layout = _block_layout(segments, channels)[0]
+    return PackedSO2Weights(packed[0], packed[1] if backward else None, layout)
 
 
 def _lib():
@@ -121,23 +258,24 @@ def _lib():
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
-def so2_conv_cuda(h, weights, segments, channels: int, rows):
+def so2_conv_cuda(h, weights, segments, channels: int, rows, packed=None):
     """Launch the CUDA SO(2)-convolution kernel.
 
     ``h``: (E, S, C) float32, contiguous, on a CUDA device. ``weights``:
-    ``[W0, W1r, W1i, ...]`` as in ``so2_conv_reference``, (d, d) float32
-    contiguous on ``h``'s device. ``segments``: ``packed_m_layout``'s.
-    ``rows``: host (S,) ints, packed row i read from and written to row
-    ``rows[i]`` of ``h`` and the output: the ``perm`` of
-    ``packed_m_layout`` for the model's (e3nn) order, so no permuted copy
-    is made; ``range(S)`` for packed input. Returns (E, S, C) float32 in
-    ``h``'s order. Raises on anything the kernel does not take, and when
-    the launch is refused.
+    ``[W0, W1r, W1i, ...]`` as in ``so2_conv_reference``, (d, d) float32 on
+    ``h``'s device. ``segments``: ``packed_m_layout``'s. ``rows``: host
+    (S,) ints, packed row i read from and written to row ``rows[i]`` of
+    ``h`` and the output: the ``perm`` of ``packed_m_layout`` for the
+    model's (e3nn) order, so no permuted copy is made; ``range(S)`` for
+    packed input. ``packed``: the weights' ``pack_so2_weights`` (the kernel
+    reads its ``fwd`` buffer); packed here when not given. Returns
+    (E, S, C) float32 in ``h``'s order. Raises on anything the kernel does
+    not take, and when the launch is refused.
     """
     if not (isinstance(h, torch.Tensor) and h.is_cuda):
         raise ValueError("so2_conv_cuda takes CUDA tensors; use so2_conv_reference "
@@ -167,28 +305,40 @@ def so2_conv_cuda(h, weights, segments, channels: int, rows):
                          f"got {len(weights)}")
     for w, d in zip(weights, dims):
         if (not isinstance(w, torch.Tensor) or w.device != h.device
-                or w.dtype != torch.float32 or tuple(w.shape) != (d, d)
-                or not w.is_contiguous()):
-            raise ValueError(f"so2_conv_cuda: each weight must be a contiguous "
-                             f"({d}, {d}) float32 tensor on h's device")
+                or w.dtype != torch.float32 or tuple(w.shape) != (d, d)):
+            raise ValueError(f"so2_conv_cuda: each weight must be a ({d}, {d}) float32 "
+                             f"tensor on h's device")
     rows = np.asarray(rows, dtype=np.int32)
     if rows.shape != (s,) or not np.array_equal(np.sort(rows), np.arange(s)):
         raise ValueError("so2_conv_cuda: rows must be a permutation of range(S)")
     n_seg = len(seg_m)
     if n_seg > 7 or s > 49:
         raise ValueError("so2_conv_cuda: at most 7 |m| segments (l_max <= 6)")
+    if packed is None:
+        packed = pack_so2_weights(weights, segments, c, backward=False)
+    layout, total = _block_layout(segments, c)
+    buf = packed.fwd
+    if (packed.layout != layout or buf.device != h.device or buf.dtype != torch.float32
+            or tuple(buf.shape) != (2, total) or not buf.is_contiguous()
+            or buf.data_ptr() % 16 != 0):
+        raise ValueError("so2_conv_cuda: packed weights do not match the segments, "
+                         "the channels or h's device")
     out = torch.empty_like(h)
     if e == 0:
         return out
-    vec = 4 if (c % 4 == 0 and h.data_ptr() % 16 == 0
-                and all(w.data_ptr() % 16 == 0 for w in weights)) else 1
+    vec = 4 if (c % 4 == 0 and h.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0) else 1
     i32 = lambda xs: (ctypes.c_int * len(xs))(*xs)  # noqa: E731
-    w_ptrs = (ctypes.c_void_p * len(weights))(*(w.data_ptr() for w in weights))
+    offsets = (ctypes.c_int64 * n_seg)(*(blk[0] for blk in layout))
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
         err = _lib()(h.data_ptr(), out.data_ptr(), e, s, c, n_seg, i32(seg_m),
-                     i32(seg_row0), i32(seg_nl), w_ptrs, i32(rows.tolist()), vec,
-                     stream)
+                     i32(seg_row0), i32(seg_nl), buf.data_ptr(), total, offsets,
+                     i32(rows.tolist()), vec, stream)
+    if err == -1:
+        raise RuntimeError("so2_conv kernel: the CUDA driver has no cuTensorMapEncodeTiled")
+    if err == -2:
+        raise RuntimeError("so2_conv kernel: the driver refused a TMA tensor map (of the "
+                           "packed weights or of h)")
     if err != 0:
         raise RuntimeError(f"so2_conv kernel launch failed: cudaError_t {err}")
     launch_counts["so2_conv"] += 1

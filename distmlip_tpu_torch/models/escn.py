@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..kernels.dispatch import fused_segment_sum, fused_so2_conv
+from ..kernels.dispatch import fused_segment_sum, fused_so2_conv, so2_packed_weights
 from ..ops import radial
 from ..ops.chunk import chunk_layout, scan_accumulate
 from ..ops.nn import linear, linear_init, mlp, mlp_init
@@ -250,16 +250,20 @@ class ESCN:
             ws_mixed = [mixw(so2["m0"])]
             for m in range(1, L + 1):
                 ws_mixed += [mixw(so2[f"m{m}r"]), mixw(so2[f"m{m}i"])]
+            # the kernel's form of the mixed weights, once per layer for
+            # every chunk, forward and backward (None on the plain path)
+            packed = so2_packed_weights(ws_mixed, self.m_idx, C, kernels=lg.kernels)
 
             def so2_chunk(srcc, dstc, D, besc, envc, layer=layer, ws_mixed=ws_mixed,
-                          h=h):
+                          packed=packed, h=h):
                 ef = torch.cat([besc, zemb.index_select(0, srcc),
                                 zemb.index_select(0, dstc)], dim=-1)
                 g_e = mlp(layer["edge_mlp"], ef) * envc[:, None]  # (E_c, C)
                 # rotate into the edge frame, the edge scalars injected into
                 # the l=0 row
                 h_rot = rotate(h.index_select(0, srcc), D, to_edge=True, add_scalar=g_e)
-                y = fused_so2_conv(h_rot, ws_mixed, self.m_idx, C, kernels=lg.kernels)
+                y = fused_so2_conv(h_rot, ws_mixed, self.m_idx, C, kernels=lg.kernels,
+                                   packed=packed)
                 return rotate(y, D) * envc[:, None, None]
 
             agg = edge_scan(so2_chunk) * inv_avg

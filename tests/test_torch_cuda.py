@@ -604,10 +604,12 @@ def test_so2_conv_kernel_matches_plain_on_card(card, name):
 
 @pytest.mark.cuda
 def test_so2_conv_gradients_on_card(card):
-    """fused_so2_conv on the card: the kernel forward launches once (the
-    plain path none), and the h and weight gradients through it match the
-    plain path's; a force-style backward (weights without grad) asks for
-    no weight cotangent."""
+    """fused_so2_conv on the card: the kernel launches once forward and once
+    more in the backward for h's cotangent (the same Function on the
+    transposed weight set; the plain path launches none), and the h and
+    weight gradients through it match the plain path's within the kernel's
+    bound; a force-style backward (weights without grad) asks for no weight
+    cotangent."""
     from distmlip_tpu_torch import kernels as K
 
     h, weights, _, _, _, c, m_idx = _so2_case_on_card(card, "e1003_lmax4_c8")
@@ -620,15 +622,43 @@ def test_so2_conv_gradients_on_card(card):
 
     before = K.launch_counts["so2_conv"]
     out, got = run(True)
-    assert K.launch_counts["so2_conv"] == before + 1
+    assert K.launch_counts["so2_conv"] == before + 2
     plain, want = run(False)
-    assert K.launch_counts["so2_conv"] == before + 1
+    assert K.launch_counts["so2_conv"] == before + 2
     torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     out = K.fused_so2_conv(hl, weights, m_idx, c)
     (gh,) = torch.autograd.grad(out.sum(), hl)
     assert gh.shape == h.shape
+    assert K.launch_counts["so2_conv"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SO2_CASES))
+def test_so2_conv_backward_route_matches_the_plain_vjp_on_card(card, name):
+    """The backward's route: the kernel on the transposed weight set with the
+    swapped packed buffers, against the plain VJP's input cotangent
+    (``_so2_vjp``), within ``so2_conv_error_bound`` of that set; and the
+    Function's own backward launches exactly that."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import dispatch
+
+    h, weights, perm, inv, segments, c, m_idx = _so2_case_on_card(card, name)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=h.shape).astype(np.float32)).to(card)
+    perm_t = torch.as_tensor(perm, device=card).long()
+    inv_t = torch.as_tensor(inv, device=card).long()
+    packed = K.pack_so2_weights(weights, segments, c)
+    wt = dispatch._so2_transposed_weights(weights, segments)
+    got = K.so2_conv_cuda(g, wt, segments, c, perm, packed=packed.transposed())
+    want = dispatch._so2_vjp(h, weights, g, perm_t, inv_t, segments, c, True,
+                             [False] * len(weights))[0]
+    bound = K.so2_conv_error_bound(g[:, perm_t], wt, segments, c)[:, inv_t]
+    torch.cuda.synchronize()
+    assert bool(((got - want).abs() <= bound + 1e-30).all()), name
+    hl = h.clone().requires_grad_(True)
+    (gh,) = torch.autograd.grad(K.fused_so2_conv(hl, weights, m_idx, c, packed=packed), hl, g)
+    torch.testing.assert_close(gh, got, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -648,6 +678,14 @@ def test_so2_conv_wrapper_refuses_what_it_does_not_take(card):
                         segments, c, perm)
     with pytest.raises(ValueError, match="permutation"):
         K.so2_conv_cuda(h, weights, segments, c, np.zeros(len(perm), np.int32))
+    # packed for 8 channels, not h's 16
+    other = K.pack_so2_weights([w[:w.shape[0] // 2, :w.shape[1] // 2] for w in weights],
+                               segments, 8)
+    with pytest.raises(ValueError, match="packed weights"):
+        K.so2_conv_cuda(h, weights, segments, c, perm, packed=other)
+    with pytest.raises(ValueError, match="packed weights"):
+        K.so2_conv_cuda(h, weights, segments, c, perm,
+                        packed=K.pack_so2_weights([w.cpu() for w in weights], segments, c))
     assert K.so2_conv_cuda(h[:0], weights, segments, c, perm).shape == (0,) + h.shape[1:]
 
 
@@ -657,7 +695,8 @@ def test_escn_on_card_matches_cpu(card):
     with kernels vs on the CPU with the plain versions, and its launches:
     per calculate, each layer's SO(2) kernel and each of the 1 + num_layers
     segment sums once per chunk forward and once in the backward's
-    recompute of the checkpointed chunk body."""
+    recompute of the checkpointed chunk body, and the SO(2) kernel once
+    more per chunk for its input cotangent."""
     from distmlip_tpu_torch import geometry
     from distmlip_tpu_torch.calculators import Atoms, DistPotential
     from distmlip_tpu_torch.kernels import launch_counts
@@ -679,7 +718,7 @@ def test_escn_on_card_matches_cpu(card):
     gpu = pot.calculate(atoms)
     k = chunk_layout(pot.last_stats["e_cap"], cfg.edge_chunk)[2]
     assert k > 1
-    assert launch_counts["so2_conv"] - before["so2_conv"] == cfg.num_layers * 2 * k
+    assert launch_counts["so2_conv"] - before["so2_conv"] == cfg.num_layers * 3 * k
     assert (launch_counts["segment_sum"] - before["segment_sum"]
             == (1 + cfg.num_layers) * 2 * k)
     cpu = DistPotential(model, params, device="cpu", skin=0.5).calculate(atoms)

@@ -300,10 +300,11 @@ def test_kernel_calls_per_calculate(monkeypatch, remat):
     calls = {"so2": 0, "segment_sum": 0}
     real_so2, real_seg = escn_module.fused_so2_conv, escn_module.fused_segment_sum
 
-    def so2(h, weights, m_idx, channels, kernels=True):
+    def so2(h, weights, m_idx, channels, kernels=True, packed=None):
         calls["so2"] += 1
         assert h.shape[1:] == (9, 16) and len(weights) == 5
-        return real_so2(h, weights, m_idx, channels, kernels=kernels)
+        assert packed is None  # the weights are packed for the kernel only on the card
+        return real_so2(h, weights, m_idx, channels, kernels=kernels, packed=packed)
 
     def seg(data, ids, n, mask=None, indices_are_sorted=False, kernels=True):
         calls["segment_sum"] += 1

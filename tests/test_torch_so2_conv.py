@@ -143,3 +143,200 @@ def test_cpu_routing_and_the_wrapper_refusing_cpu_tensors():
     _, _, segments = K.packed_m_layout(m_idx)
     with pytest.raises(ValueError, match="CUDA tensors"):
         K.so2_conv_cuda(ht, wt, segments, 4, np.arange(4))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's route: weight packing, the 3xTF32 split, the backward through
+# the same Function on the transposed weight set
+# ---------------------------------------------------------------------------
+
+def _jax_input_cotangent(h, weights, m_idx, c, g):
+    _, vjp = jax.vjp(lambda h_: jax_dispatch.fused_so2_conv(h_, list(weights), m_idx, c,
+                                                            kernels=False), jnp.asarray(h))
+    return np.asarray(vjp(jnp.asarray(g))[0])
+
+
+@pytest.mark.parametrize("seed,e,l_max,c", [(10, 37, 2, 16), (11, 200, 4, 8),
+                                            (12, 9, 3, 7)])
+def test_transposed_weight_set_gives_the_jax_input_cotangent(seed, e, l_max, c):
+    """The backward's kernel route computes gh as the forward convolution of
+    g with (W0^T; Wr^T, -Wi^T per m): held against ``jax.vjp`` of the JAX
+    package's ``fused_so2_conv`` on its reference path."""
+    h, weights, m_idx = so2_inputs(seed, e, l_max, c)
+    g = np.random.default_rng(seed).normal(size=h.shape).astype(np.float32)
+    want = _jax_input_cotangent(h, weights, m_idx, c, g)
+    _, _, segments = K.packed_m_layout(m_idx)
+    wt = dispatch._so2_transposed_weights([torch.from_numpy(w) for w in weights], segments)
+    got = K.fused_so2_conv(torch.from_numpy(g), wt, m_idx, c)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+
+
+class _KernelStandIn:
+    """Stands in for ``so2_conv_cuda`` on the CPU so the kernel route of the
+    autograd Function runs here: it checks that the packed operand it is
+    handed is the K-major TF32 split of the weights it is handed (so the
+    backward's swap of the packed buffers matches its transposed weight
+    set), then computes the plain convolution in the inputs' precision."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __call__(self, h, weights, segments, channels, rows, packed=None):
+        self.calls += 1
+        for (off, w, npad, kpad), b in zip(packed.layout,
+                                           K.so2_block_matrices(weights, segments)):
+            parts = packed.fwd[:, off:off + npad * kpad].view(2, npad, kpad).double()
+            bt = b.detach().t().double()
+            assert bool(((parts[0, :w, :w] + parts[1, :w, :w] - bt).abs()
+                         <= 2.0 ** -21 * bt.abs() + 1e-30).all())
+            assert not bool(parts[:, w:].any()) and not bool(parts[:, :, w:].any())
+        rows_t = torch.as_tensor(rows, dtype=torch.long)
+        return K.so2_conv_reference(h[:, rows_t], weights, segments,
+                                    channels)[:, torch.argsort(rows_t)]
+
+
+def _kernel_route(h, ws, m_idx, c):
+    perm_np, inv_np, segments = K.packed_m_layout(m_idx)
+    perm = torch.as_tensor(perm_np, dtype=torch.long)
+    inv = torch.as_tensor(inv_np, dtype=torch.long)
+    packed = K.pack_so2_weights(ws, segments, c)
+    return dispatch._SO2Conv.apply(True, perm_np, perm, inv, segments, c, packed, h, *ws)
+
+
+def test_kernel_route_backward_gradcheck_float64(monkeypatch):
+    """gradcheck and gradgradcheck through the kernel route's backward (the
+    Function again, on the transposed set and the swapped packed buffers),
+    with the kernel stood in by its plain version in float64."""
+    stand_in = _KernelStandIn()
+    monkeypatch.setattr(dispatch, "so2_conv_cuda", stand_in)
+    h, weights, m_idx = so2_inputs(13, 6, 2, 3)
+    ht = torch.from_numpy(h).double().requires_grad_(True)
+    wt = [torch.from_numpy(w).double().requires_grad_(True) for w in weights]
+
+    def f(h_, *ws):
+        return _kernel_route(h_, list(ws), m_idx, 3)
+
+    assert torch.autograd.gradcheck(f, (ht, *wt))
+    assert torch.autograd.gradgradcheck(f, (ht, *wt))
+    calls = stand_in.calls
+    (gh,) = torch.autograd.grad(f(ht, *wt).sum(), ht)
+    assert stand_in.calls == calls + 2  # forward, then the input cotangent
+
+
+def test_kernel_route_weight_cotangents_match_the_plain_route(monkeypatch):
+    """Weights that require grad get the plain VJP's products on the kernel
+    route too; h's cotangent comes from the Function on the transposed set
+    and the plain VJP computes none."""
+    stand_in = _KernelStandIn()
+    monkeypatch.setattr(dispatch, "so2_conv_cuda", stand_in)
+    seen = []
+    real = dispatch._so2_vjp
+
+    def spy(h, weights, g, perm, inv, segments, channels, need_h, need_w):
+        seen.append((need_h, tuple(need_w)))
+        return real(h, weights, g, perm, inv, segments, channels, need_h, need_w)
+
+    monkeypatch.setattr(dispatch, "_so2_vjp", spy)
+    h, weights, m_idx = so2_inputs(14, 50, 3, 8)
+    ht = torch.from_numpy(h).requires_grad_(True)
+    wt = [torch.from_numpy(w).requires_grad_(True) for w in weights]
+    got = torch.autograd.grad((_kernel_route(ht, wt, m_idx, 8) ** 2).sum(), [ht] + wt)
+    assert seen == [(False, (True,) * 7)]
+    want = torch.autograd.grad((K.fused_so2_conv(ht, wt, m_idx, 8) ** 2).sum(), [ht] + wt)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    # the force program's backward: no weight cotangent, no plain VJP at all
+    seen.clear()
+    wn = [w.detach() for w in wt]
+    torch.autograd.grad(_kernel_route(ht, wn, m_idx, 8).sum(), ht)
+    assert seen == []
+
+
+def test_tf32_round_is_round_to_nearest_ties_away_at_ten_bits():
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, -(1.0 + 2 ** -11), 1.0 + 3 * 2 ** -11,
+                      1.0 + 2 ** -11 - 2 ** -23, -0.0, 65504.0])
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, -(1.0 + 2 ** -10), 1.0 + 2 ** -9,
+                         1.0, -0.0, 65504.0])
+    torch.testing.assert_close(K.tf32_round(x), want, rtol=0, atol=0)
+    r = torch.from_numpy(np.random.default_rng(0).normal(size=10000).astype(np.float32))
+    hi = K.tf32_round(r)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().sum()) == 0
+    assert bool(((r - hi).abs() <= 2.0 ** -11 * r.abs()).all())
+
+
+def test_pack_so2_weights_layout():
+    """fwd holds each segment's block B^T and bwd holds B, both split into
+    TF32 hi + lo within 2^-22 |B| (the hi parts, then the lo parts),
+    zero-padded to 128-row, 32-column tiles; ``transposed`` swaps them."""
+    h, weights, m_idx = so2_inputs(15, 3, 3, 7)
+    _, _, segments = K.packed_m_layout(m_idx)
+    ws = [torch.from_numpy(w) for w in weights]
+    packed = K.pack_so2_weights(ws, segments, 7)
+    blocks = K.so2_block_matrices(ws, segments)
+    assert len(packed.layout) == len(segments) == len(blocks)
+    for (off, w, npad, kpad), b in zip(packed.layout, blocks):
+        assert b.shape == (w, w) and npad % 128 == 0 and kpad % 32 == 0
+        assert npad >= w and kpad >= w and off % 4096 == 0
+        for buf, want in ((packed.fwd, b.t()), (packed.bwd, b)):
+            parts = buf[:, off:off + npad * kpad].view(2, npad, kpad)
+            hi, lo = parts[0, :w, :w], parts[1, :w, :w]
+            torch.testing.assert_close(hi, K.tf32_round(want), rtol=0, atol=0)
+            torch.testing.assert_close(lo, K.tf32_round(want - hi), rtol=0, atol=0)
+            err = (hi.double() + lo.double() - want.double()).abs()
+            assert bool((err <= 2.0 ** -22 * want.double().abs()).all())
+            assert not bool(parts[:, w:].any()) and not bool(parts[:, :, w:].any())
+    swapped = packed.transposed()
+    assert swapped.fwd is packed.bwd and swapped.bwd is packed.fwd
+    assert K.pack_so2_weights(ws, segments, 7, backward=False).bwd is None
+    assert K.so2_packed_weights(ws, m_idx, 7) is None  # CPU weights: the plain path
+
+
+def _emulate_3xtf32(hp, packed, segments, c, dtype, split=True):
+    """The kernel's arithmetic on the CPU from the packed buffer: the edge
+    rows split into TF32 hi and lo, a_hi b_hi + a_hi b_lo + a_lo b_hi per
+    segment, summed in ``dtype`` (``split=False``: a_hi b_hi alone, plain
+    TF32)."""
+    e = hp.shape[0]
+    a_hi = K.tf32_round(hp)
+    a_lo = K.tf32_round(hp - a_hi)
+    out = []
+    for (off, w, npad, kpad), (m, start, nl) in zip(packed.layout, segments):
+        rows = nl * (1 if m == 0 else 2)
+        parts = packed.fwd[:, off:off + npad * kpad].view(2, npad, kpad)
+        b_hi, b_lo = parts[0, :w, :w].t().to(dtype), parts[1, :w, :w].t().to(dtype)
+        ah = a_hi[:, start:start + rows].reshape(e, w).to(dtype)
+        al = a_lo[:, start:start + rows].reshape(e, w).to(dtype)
+        y = ah @ b_hi + ah @ b_lo + al @ b_hi if split else ah @ b_hi
+        out.append(y.reshape(e, rows, c))
+    return torch.cat(out, dim=1)
+
+
+@pytest.mark.parametrize("seed,e,l_max,c", [(16, 300, 4, 16), (17, 64, 6, 8),
+                                            (18, 100, 2, 7)])
+def test_3xtf32_emulation_is_within_the_derived_bound(seed, e, l_max, c):
+    """The CPU's proof of the split term: the kernel's 3xTF32 arithmetic,
+    emulated from the packed buffer, against the float64 product. With the
+    three products summed exactly (float64) it stays within the split term
+    13 u T; summed in float32 it stays within ``so2_conv_error_bound``."""
+    h, weights, m_idx = so2_inputs(seed, e, l_max, c)
+    perm, _, segments = K.packed_m_layout(m_idx)
+    hp = torch.from_numpy(h)[:, torch.as_tensor(perm, dtype=torch.long)].contiguous()
+    ws = [torch.from_numpy(w) for w in weights]
+    packed = K.pack_so2_weights(ws, segments, c, backward=False)
+    exact = K.so2_conv_reference(hp.double(), [w.double() for w in ws], segments, c)
+    # T, the sum of |terms| of each output: |rows| @ |block| per segment
+    t_abs = torch.cat([
+        (hp[:, start:start + w // c].abs().reshape(e, w).double() @ b.abs().double()
+         ).reshape(e, w // c, c)
+        for (_, w, _, _), (_, start, _), b in zip(packed.layout, segments,
+                                                  K.so2_block_matrices(ws, segments))], 1)
+    split = _emulate_3xtf32(hp, packed, segments, c, torch.float64)
+    assert bool(((split - exact).abs() <= 13 * 2.0 ** -24 * t_abs).all())
+    # plain TF32 (one product) would break the term: the check can fail
+    one = _emulate_3xtf32(hp, packed, segments, c, torch.float64, split=False)
+    assert not bool(((one - exact).abs() <= 13 * 2.0 ** -24 * t_abs).all())
+    got = _emulate_3xtf32(hp, packed, segments, c, torch.float32)
+    bound = K.so2_conv_error_bound(hp, ws, segments, c)
+    assert bool(((got.double() - exact).abs() <= bound.double()).all())
+    plain = K.so2_conv_reference(hp, ws, segments, c)
+    assert bool(((got - plain).abs() <= bound).all())
