@@ -19,7 +19,13 @@ Phases (each failure raises, so the exit code is non-zero):
    stated tolerance, plus edge cases; times of the kernel, the plain
    version, one library call and the least time the card could take. The
    segment sum at MACE's chunk shapes; the two TensorNet edge aggregations
-   on the graph of the TensorNet path's 16384-atom structure; the two
+   on the graph of the TensorNet path's 16384-atom structure (the
+   interaction on compact I/A/S rows, tolerance
+   ``kernels.tensornet_interaction_error_bound``), and the interaction's
+   backward kernel there and on the edge cases (all four cotangents within
+   ``kernels.tensornet_interaction_backward_error_bound``, 2 (k + 3) u T;
+   timed against today's plain chunked recompute and against one
+   ``index_add_`` of the (E, 10 C) node-row cotangent by src); the two
    CHGNet aggregations (``[kernels] chgnet``) on the graph of the CHGNet
    path's structure at its real ids (``edge_dst`` under ``in_r`` for the
    atom conv, ``line_dst`` under ``line_ok`` for the line conv) with random
@@ -59,7 +65,12 @@ Phases (each failure raises, so the exit code is non-zero):
    ``kernels=False`` potential on the card are the reference;
 5. the TensorNet path — TensorNet at the matgl TensorNet-MatPES-PBE layout
    (89 species, 64 channels, 32 RBF, 2 layers, cutoff 5 Å; random weights
-   from seed 0) on bench.py's 16384-atom Si crystal, the same way;
+   from seed 0) on bench.py's 16384-atom Si crystal, the same way. Launches
+   derived: per calculate 1 embed, one interaction forward per layer and
+   one interaction backward kernel per layer (the force program's backward
+   runs outside grad mode); the plain backward recompute
+   (``kernels.recompute_chunks``) runs ceil(e_cap / 32768) chunks per
+   calculate for the embed and none for the interaction;
 6. the CHGNet path (``[main-chgnet]``) — CHGNet at the matgl MPtrj layout
    (89 species, 64 units, 31 RBF, max_f 4, 4 blocks, cutoff 6 Å, bond
    cutoff 3 Å; random weights from seed 0, ``species_ref`` and
@@ -101,6 +112,8 @@ H100_TF32_FLOPS = 495e12         # TF32 in the tensor cores, dense
 REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             "tensornet_embed_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "tensornet_interaction_aggregate": "distmlip_tpu/kernels/segment.py:224",
+            # the custom VJP's chunked recompute around pallas_edge_aggregate
+            "tensornet_interaction_backward": "distmlip_tpu/kernels/dispatch.py:482",
             "chgnet_atom_conv_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "chgnet_line_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "chgnet_row_projection": "distmlip_tpu/kernels/segment.py:224",
@@ -108,6 +121,8 @@ REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
 SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "tensornet_embed_aggregate": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "tensornet_interaction_aggregate":
+               "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
+           "tensornet_interaction_backward":
                "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "chgnet_atom_conv_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
            "chgnet_line_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
@@ -253,21 +268,24 @@ def tensornet_graph(torch):
 def edge_inputs(torch, gen, which, e, c, n_node, src=None):
     """Random inputs of one TensorNet message at (E, C): the embed's
     Z, W1, W2, W3 (E, C) and A_e, S_e (E, 3, 3, 1); the interaction's
-    f (E, C, 3), I, A, S (N_node, 3, 3, C) and src."""
+    f (E, C, 3), the compact node rows i (N_node, C), a (N_node, 3, C),
+    s (N_node, 6, C) and src."""
     r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
     if which == "embed":
         return [r(e, c) for _ in range(4)] + [r(e, 3, 3, 1) for _ in range(2)]
     if src is None:
         src = torch.randint(0, n_node, (e,), generator=gen, device="cuda",
                             dtype=torch.int32)
-    return [r(e, c, 3)] + [r(n_node, 3, 3, c) for _ in range(3)] + [src]
+    return [r(e, c, 3), r(n_node, c), r(n_node, 3, c), r(n_node, 6, c), src]
 
 
 def check_edge_aggregate(torch, which, arrays, ids, mask, n):
     """Kernel vs plain on one input; returns max |kernel - plain|.
     Per output element |kernel - plain| <= 2 (k + 3) u T: k is the row's
-    valid-edge count, u = 2^-24, T the plain version on |inputs| (the
-    exact sum of |terms|)."""
+    valid-edge count, u = 2^-24, T the exact sum of |terms| (the plain
+    version on |inputs|; for the interaction
+    ``kernels.tensornet_interaction_error_bound``, whose T takes the lower
+    triangle's terms from the upper one)."""
     from distmlip_tpu_torch import kernels as K
 
     cuda, ref = {
@@ -280,11 +298,13 @@ def check_edge_aggregate(torch, which, arrays, ids, mask, n):
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{which} shape/dtype {got.shape} {got.dtype} "
                              f"vs {want.shape} {want.dtype}")
-    abs_arrays = [x.abs() if x.is_floating_point() else x for x in arrays]
-    t = ref(*abs_arrays, ids, n, mask)
-    valid = ids.long() if mask is None else ids.long()[mask]
-    k = torch.bincount(valid, minlength=n)[:n].to(torch.float32)
-    tol = 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * t
+    if which == "interaction":
+        tol = K.tensornet_interaction_error_bound(*arrays, ids, n, mask)
+    else:
+        t = ref(*[x.abs() for x in arrays], ids, n, mask)
+        valid = ids.long() if mask is None else ids.long()[mask]
+        k = torch.bincount(valid, minlength=n)[:n].to(torch.float32)
+        tol = 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * t
     err = (got - want).abs()
     if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{which} disagrees with its plain version: max |err| "
@@ -323,9 +343,12 @@ def time_edge_aggregate(torch, which, arrays, ids, mask, n):
         nbytes = n_valid * (4 * c + 18) * 4 + io
         ops = n_valid * c * (9 * 6 + 3)
     else:
+        # f and src of each valid edge, each gathered src row's 10 C
+        # compact floats once; 10 multiply-adds per (edge, channel) and
+        # 9 adds per (row, channel) to assemble the 3x3
         n_src = int(torch.unique(arrays[4][mask]).numel())
-        nbytes = n_valid * (3 * c * 4 + arrays[4].element_size()) + n_src * 3 * 9 * c * 4 + io
-        ops = n_valid * c * 9 * 6
+        nbytes = n_valid * (3 * c * 4 + arrays[4].element_size()) + n_src * 10 * c * 4 + io
+        ops = n_valid * c * 10 * 2 + n * c * 9
     bound_ms, bound_by = bound(nbytes, ops)
     out = {"which": which, "e": e, "valid_edges": n_valid, "channels": c,
            "n_segments": n, "ms": ms, "plain_ms": plain_ms,
@@ -337,9 +360,84 @@ def time_edge_aggregate(torch, which, arrays, ids, mask, n):
     return out
 
 
+def check_interaction_backward(torch, g, arrays, ids, mask):
+    """The backward kernel vs its plain version on one input, all four
+    cotangents within ``kernels.tensornet_interaction_backward_error_bound``
+    (2 (k + 3) u T: k the src row's valid-edge count for d i, d a, d s and
+    the dot product's length 1, 3, 6 for d f's columns; T the same
+    computation on |inputs|); masked edges' d f rows must be zero. Returns
+    max |kernel - plain|."""
+    from distmlip_tpu_torch import kernels as K
+
+    got = K.tensornet_interaction_backward_cuda(g, *arrays, ids, mask)
+    want = K.tensornet_interaction_backward_reference(g, *arrays, ids, mask)
+    torch.cuda.synchronize()
+    tols = K.tensornet_interaction_backward_error_bound(g, *arrays, ids, mask)
+    worst = 0.0
+    for name, x, y, tol in zip(("d_f", "d_i", "d_a", "d_s"), got, want, tols):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"interaction backward {name} shape/dtype {x.shape} "
+                                 f"{x.dtype} vs {y.shape} {y.dtype}")
+        err = (x - y).abs()
+        if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"interaction backward {name} disagrees with its plain "
+                                 f"version: max |err| {float(err.max())}, max tolerance "
+                                 f"{float(tol.max())}")
+        worst = max(worst, float(err.max()) if err.numel() else 0.0)
+    if bool(got[0][~mask].any()):
+        raise AssertionError("interaction backward: a masked edge got a nonzero d f row")
+    return worst
+
+
+def time_interaction_backward(torch, g, arrays, ids, mask):
+    """The backward kernel's time (its wrapper: the src sort, the CSR
+    offsets and the launch), the sort alone, the plain chunked recompute of
+    today's backward for this message (``dispatch._edge_aggregate_bwd``,
+    32,768-edge chunks) and one ``index_add_`` of the materialised (E, 10 C)
+    node-row cotangent by src: the scatter alone."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import dispatch
+
+    f, node_i, node_a, node_s, src = arrays
+    n_node = node_i.shape[0]
+    ms = cuda_ms(torch, lambda: K.tensornet_interaction_backward_cuda(g, *arrays, ids, mask))
+    sort_ms = cuda_ms(torch, lambda: K.src_order(src, n_node, mask))
+
+    def plain():
+        with torch.no_grad():
+            dispatch._edge_aggregate_bwd(K.TENSORNET_INTERACTION, (None, 0, 0, 0),
+                                         [f, node_i, node_a, node_s], (), [src], ids, mask, g,
+                                         dispatch.DEFAULT_BWD_CHUNK, (True,) * 4)
+
+    plain_ms = cuda_ms(torch, plain, iters=3, warmup=1)
+    e, c = f.shape[0], f.shape[1]
+    rows = torch.where(mask[:, None], torch.randn((e, 10 * c), device="cuda"), 0.0)
+    out = torch.zeros((n_node, 10 * c), device="cuda")
+    src_long = src.long()
+    library_ms = cuda_ms(torch, lambda: out.index_add_(0, src_long, rows))
+    del rows, out
+    n_valid = int(mask.sum())
+    n_src = int(torch.unique(src[mask]).numel())
+    n_dst = int(torch.unique(ids[mask]).numel())
+    # f of each valid edge read, d f of every edge written, each gathered g
+    # row and x row read once, d x written, src, dst ids and mask read
+    nbytes = (n_valid * 3 * c * 4 + e * 3 * c * 4 + n_dst * 9 * c * 4 + n_src * 10 * c * 4
+              + n_node * 10 * c * 4 + e * (src.element_size() + ids.element_size() + 1))
+    # per valid (edge, channel): 8 adds for t, u, v; 10 multiply-adds into
+    # d x; 1 + 5 + 11 for d f's three columns
+    ops = n_valid * c * (8 + 20 + 17)
+    bound_ms, bound_by = bound(nbytes, ops)
+    return {"e": e, "valid_edges": n_valid, "channels": c, "n_node": n_node, "ms": ms,
+            "sort_ms": sort_ms, "plain_ms": plain_ms,
+            "plain": "the chunked recompute (dispatch._edge_aggregate_bwd)",
+            "library_ms": library_ms, "library": "index_add_ of the materialised (E, 10C) "
+            "node-row cotangent by src: the scatter alone", "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+
+
 def phase_edge_aggregate_kernels(torch):
-    """Both TensorNet kernels at the TensorNet path's shapes (its graph,
-    C = 64), then the edge cases."""
+    """Both TensorNet kernels and the interaction's backward kernel at the
+    TensorNet path's shapes (its graph, C = 64), then the edge cases."""
     from distmlip_tpu_torch.tools.workload import TENSORNET_KW
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
@@ -351,6 +449,14 @@ def phase_edge_aggregate_kernels(torch):
         errs[which] = [check_edge_aggregate(torch, which, arrays, ids, mask, n)]
         timed[which] = time_edge_aggregate(torch, which, arrays, ids, mask, n)
         log(f"[kernels] tensornet {which}: {json.dumps(timed[which])}")
+        if which == "interaction":
+            g = torch.randn((n, 3, 3, c), generator=gen, device="cuda")
+            errs["backward"] = [check_interaction_backward(torch, g, arrays, ids, mask)]
+            torch.cuda.empty_cache()
+            timed["backward"] = time_interaction_backward(torch, g, arrays, ids, mask)
+            log(f"[kernels] tensornet interaction backward: {json.dumps(timed['backward'])}")
+            errs["backward"].append(check_interaction_backward(torch, g, arrays, ids,
+                                                               torch.zeros_like(mask)))
         # a fully masked input, and the padding-only tail on one dst row
         errs[which].append(check_edge_aggregate(torch, which, arrays, ids,
                                                 torch.zeros_like(mask), n))
@@ -360,6 +466,7 @@ def phase_edge_aggregate_kernels(torch):
         last5 = torch.arange(len(ids), device="cuda") >= len(ids) - 5
         errs[which].append(check_edge_aggregate(torch, which, arrays, one_row, last5, n))
         del arrays
+        torch.cuda.empty_cache()
         # E not a multiple of any block, empty dst rows, C not a multiple
         # of 4, C past one block of threads
         for e, rows, cc in ((1003, 300, 7), (517, 45, 5), (300, 900, 64), (90, 13, 300)):
@@ -371,9 +478,15 @@ def phase_edge_aggregate_kernels(torch):
             sub = edge_inputs(torch, gen, which, e, cc, 37)
             errs[which].append(check_edge_aggregate(torch, which, sub, sub_ids, sub_mask,
                                                     rows))
+            if which == "interaction":
+                sub_g = torch.randn((rows, 3, 3, cc), generator=gen, device="cuda")
+                errs["backward"].append(check_interaction_backward(torch, sub_g, sub, sub_ids,
+                                                                   sub_mask))
         torch.cuda.empty_cache()
         log(f"[kernels] tensornet {which}: all cases agree with the plain version; "
             f"max |err| {max(errs[which])}")
+    log(f"[kernels] tensornet interaction backward: all cases agree with the plain "
+        f"version; max |err| {max(errs['backward'])}")
     return {w: max(v) for w, v in errs.items()}, timed
 
 
@@ -857,15 +970,18 @@ def check_result(res, n_atoms):
 
 def drive(torch, pot, atoms, rng):
     """One calculate plus STEPS MD-like moves through ``pot``, with every
-    launch count set to 0 just before and read just after. Returns the
-    geometries, results, per-step seconds, launches and peak memory."""
-    from distmlip_tpu_torch.kernels import launch_counts
+    launch count, and the chunk counts of the edge aggregations' plain
+    backward (``kernels.recompute_chunks``), set to 0 just before; the
+    launches are read just after. Returns the geometries, results, per-step
+    seconds, launches and peak memory."""
+    from distmlip_tpu_torch.kernels import launch_counts, recompute_chunks
 
     geometries, results, step_s = [], [], []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in launch_counts:
         launch_counts[k] = 0
+    recompute_chunks.clear()
     for step in range(1 + STEPS):
         if step:
             atoms.positions += rng.normal(0, 0.01, atoms.positions.shape)
@@ -985,6 +1101,8 @@ def phase_main_path(torch):
 
 def phase_tensornet(torch):
     from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import recompute_chunks
+    from distmlip_tpu_torch.kernels.dispatch import DEFAULT_BWD_CHUNK
     from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
     from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
 
@@ -997,16 +1115,27 @@ def phase_tensornet(torch):
         f"{time.perf_counter() - t0:.2f} s")
 
     geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
-    n_calc = 1 + STEPS
+    chunks = dict(recompute_chunks)  # reset by drive; read just after it
+    n_calc, layers = 1 + STEPS, TENSORNET_KW["num_layers"]
     expected = {k: 0 for k in launches}
     expected["tensornet_embed_aggregate"] = n_calc
-    expected["tensornet_interaction_aggregate"] = n_calc * TENSORNET_KW["num_layers"]
+    expected["tensornet_interaction_aggregate"] = n_calc * layers
+    expected["tensornet_interaction_backward"] = n_calc * layers
+    # the embed's backward is still the plain chunked recompute; the
+    # interaction's backward is the kernel, with no recompute chunk
+    e_cap = pot.last_stats["e_cap"]
+    chunks_expected = {"tensornet_embed_aggregate": n_calc * -(-e_cap // DEFAULT_BWD_CHUNK)}
     log(f"[main-tensornet] edge-aggregate launches: {n_calc} calculates x (1 embed + "
-        f"{TENSORNET_KW['num_layers']} interactions) = {n_calc * (1 + TENSORNET_KW['num_layers'])}"
-        f" forward launches, none in the backward; counted {launches}")
+        f"{layers} interactions forward + {layers} interaction backwards) = "
+        f"{n_calc * (1 + 2 * layers)}; counted {launches}. Plain backward recompute chunks: "
+        f"{n_calc} x ceil({e_cap} / {DEFAULT_BWD_CHUNK}) for the embed, none for the "
+        f"interaction; counted {chunks}")
     if launches != expected:
         raise AssertionError(f"kernel launch counts {launches} differ from the "
                              f"derivation {expected}")
+    if chunks != chunks_expected:
+        raise AssertionError(f"plain backward chunks {chunks} differ from the derivation "
+                             f"{chunks_expected}")
 
     ref_pot = DistPotential(model, params, device="cuda", skin=0.5, kernels=False)
     _, ref_step_s, ref_peak = compare_with_plain(torch, ref_pot, atoms, geometries,
@@ -1242,6 +1371,14 @@ def main() -> int:
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": [t["e"], 3, 3, t["channels"]], "n_segments": t["n_segments"],
         })
+    name, t = "tensornet_interaction_backward", edge_timed["backward"]
+    kernels.append({
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": tn_launches[name], "max_abs_err": edge_errs["backward"], "ms": t["ms"],
+        "plain_ms": t["plain_ms"], "plain": t["plain"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
+        "shape": [t["e"], t["channels"], 3], "n_node": t["n_node"], "sort_ms": t["sort_ms"],
+    })
     for which, name in (("atom", "chgnet_atom_conv_aggregate"),
                         ("line", "chgnet_line_aggregate")):
         t = chg_timed[which]

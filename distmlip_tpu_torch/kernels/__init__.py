@@ -4,9 +4,13 @@
   ``csrc/segment_sum.cu``, replacing the TPU ``pallas_segment_sum``), its
   plain version ``segment_sum_reference``, the shared CSR row offsets and
   the launch counts of every kernel.
-- :mod:`edge_aggregate` — ``tensornet_embed_aggregate_cuda`` and
-  ``tensornet_interaction_aggregate_cuda`` (the wrappers of
-  ``csrc/edge_aggregate.cu``) and ``chgnet_atom_conv_aggregate_cuda`` and
+- :mod:`edge_aggregate` — ``tensornet_embed_aggregate_cuda``,
+  ``tensornet_interaction_aggregate_cuda`` (on compact I/A/S node rows,
+  ``tensornet_full`` assembling a 3x3 from them) and
+  ``tensornet_interaction_backward_cuda`` (both cotangents in one pass over
+  the edges in ``src_order``), the wrappers of ``csrc/edge_aggregate.cu``,
+  with their tolerances ``tensornet_interaction_error_bound`` and
+  ``tensornet_interaction_backward_error_bound``; and ``chgnet_atom_conv_aggregate_cuda`` and
   ``chgnet_line_aggregate_cuda`` (of ``csrc/chgnet_aggregate.cu``, with
   its row projection ``chgnet_row_projection_cuda``), which replace the TPU
   ``pallas_edge_aggregate`` at TensorNet's and CHGNet's call sites; their
@@ -22,7 +26,8 @@
   into TF32 hi and lo by ``tf32_round``) and the derived kernel tolerance
   ``so2_conv_error_bound``.
 - :mod:`dispatch` — ``fused_segment_sum``, ``fused_edge_aggregate`` (with
-  its ``Gather`` marker) and ``fused_so2_conv`` (with
+  its ``Gather`` marker and the ``recompute_chunks`` count of its plain
+  backward) and ``fused_so2_conv`` (with
   ``so2_packed_weights``, its weights packed once per layer), the autograd Functions
   every call site goes through.
 - :mod:`build` — ``nvcc`` at first use into ``build/kernels/``, ctypes load.
@@ -31,7 +36,7 @@ Every TPU kernel of the JAX package has its CUDA counterpart here.
 """
 
 from .dispatch import (Gather, fused_edge_aggregate, fused_segment_sum,  # noqa: F401
-                       fused_so2_conv, so2_packed_weights)
+                       fused_so2_conv, recompute_chunks, so2_packed_weights)
 from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              TENSORNET_EMBED, TENSORNET_INTERACTION, EdgeMessage,
                              chgnet_aggregate_error_bound,
@@ -41,10 +46,14 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              chgnet_line_aggregate_reference, chgnet_pack_weights,
                              chgnet_projection_error_bound, chgnet_row_projection_cuda,
                              chgnet_row_projection_reference, chgnet_row_tables,
-                             tensornet_embed_aggregate_cuda,
-                             tensornet_embed_aggregate_reference,
+                             src_order, tensornet_embed_aggregate_cuda,
+                             tensornet_embed_aggregate_reference, tensornet_full,
                              tensornet_interaction_aggregate_cuda,
-                             tensornet_interaction_aggregate_reference)
+                             tensornet_interaction_aggregate_reference,
+                             tensornet_interaction_backward_cuda,
+                             tensornet_interaction_backward_error_bound,
+                             tensornet_interaction_backward_reference,
+                             tensornet_interaction_error_bound)
 from .segment import (csr_row_offsets, launch_counts,  # noqa: F401
                       segment_sum_cuda, segment_sum_reference)
 from .so3 import (PackedSO2Weights, pack_so2_weights, packed_m_layout,  # noqa: F401

@@ -1,9 +1,12 @@
-// TensorNet's two edge aggregations: per-edge message built in registers
-// and summed onto dst-sorted rows, float32, sm_90a.
+// TensorNet's two edge aggregations, per-edge message built in registers
+// and summed onto dst-sorted rows, and the interaction's backward. float32,
+// sm_90a.
 //
 // Replaces distmlip_tpu/kernels/segment.py::pallas_edge_aggregate (body
 // _edge_aggregate_kernel, in-kernel gather _gather_rows) at TensorNet's two
-// call sites (distmlip_tpu/models/tensornet.py:178 and :232). The TPU kernel
+// call sites (distmlip_tpu/models/tensornet.py:178 and :232), and, for the
+// interaction, the JAX custom VJP's chunked recompute around it
+// (distmlip_tpu/kernels/dispatch.py:482 _edge_aggregate_bwd). The TPU kernel
 // takes any traced edge_fn, owns a tile of 128 dst rows per grid step,
 // builds a (256, width) message block in VMEM and scatters it with a one-hot
 // MXU matmul. A CUDA kernel cannot take a Python edge_fn, so each message has
@@ -18,31 +21,37 @@
 //
 // with the sum over the valid edges e of dst row n. Layouts are the model's:
 // channels last, (E, C) per-edge rows, (E, 3, 3) geometric scalars, f in
-// torchmd-net's (E, C, 3) order (read at stride 3), node arrays and out
-// (N, 3, 3, C) with a row of 9 C contiguous floats.
+// torchmd-net's (E, C, 3) order (read at stride 3), out (N, 3, 3, C) with a
+// row of 9 C contiguous floats. The interaction's I, A and S come as compact
+// rows (see below): the TPU's (8, 128) tile made the full 3x3 free, but here
+// every gathered float is L2 traffic.
 //
-// Design. One thread owns one (dst row, channel) and the 9 matrix entries of
+// Design. One thread owns one (dst row, channel) and the matrix entries of
 // it, accumulated in registers in edge order: no atomics, deterministic.
 // A block holds 256 / tpr rows of tpr threads (tpr = C rounded up to a warp,
 // at most 256; 4 rows of 64 at TensorNet's C = 64); grid.y walks channel
 // slabs when C > 256. Every load along the channel axis is coalesced: a warp
-// reads 128 contiguous bytes of Z/W or of a gathered node row (a node row of
-// one array is 9 C floats, 2304 bytes at C = 64). The 18 geometric scalars
-// of an embed edge and the src index of an interaction edge are the same
-// address for a whole warp (one broadcast load). Two edges are loaded before
-// either is added, to keep more loads in flight. The interaction's node
-// arrays are gathered from global memory through L2 at every size: there is
-// no staging budget, unlike the TPU's 2 MiB VMEM.
+// reads 128 contiguous bytes of Z/W or of a gathered node row. The 18
+// geometric scalars of an embed edge and the src index of an interaction
+// edge are the same address for a whole warp (one broadcast load). The embed
+// loads two edges before adding either, the interaction four and its
+// backward two (kBwdInFlight), to keep more loads in flight. The
+// interaction's node rows are gathered from global memory through L2 at
+// every size: there is no staging budget, unlike the TPU's 2 MiB VMEM.
 //
-// What bounds it on an H100: HBM bytes. Per valid edge the embed reads
-// 4 C + 18 floats once and the interaction 3 C floats of f plus 27 C
-// gathered floats, which come from L2 when the dst-sorted order keeps the
-// src rows of neighbouring dst rows resident (the node arrays are read from
-// HBM about once; 50 MB of L2 against ~113 MB of node arrays at 16384 atoms).
+// What bounds it on an H100: HBM bytes, and for the gathers L2. Per valid
+// edge the embed reads 4 C + 18 floats once; the interaction reads 3 C
+// floats of f and gathers 10 C floats of compact rows (27 C with full 3x3
+// arrays: 5.28 GB through L2 per call at 16384 atoms, ~9 TB/s at the old
+// kernel's time, against 1.96 GB now), which come from L2 when the
+// dst-sorted order keeps the src rows of neighbouring dst rows resident.
+// The backward reads f and gathers 9 C floats of g per edge, and writes the
+// 3 C floats of d f.
 //
 // Semantics (those of the plain versions in kernels/edge_aggregate.py):
-//   - masked edges are screened by a branch, never read and never added, so
-//     non-finite padding cannot leak into a sum;
+//   - masked edges are screened by a branch (forward) or sorted past the
+//     last src row (backward), never read and never added, so non-finite
+//     padding cannot leak into a sum; their d f rows are written as zeros;
 //   - every output row is written, empty rows as zeros;
 //   - offsets are 64-bit; src ids of valid edges must lie in [0, N_node).
 
@@ -141,11 +150,34 @@ tensornet_embed_kernel(const float* __restrict__ z, const float* __restrict__ w1
   store_row(out, row, channels, c, acc);
 }
 
-// ---- interaction --------------------------------------------------------
+// ---- interaction, forward ------------------------------------------------
+//
+// The node arrays come as compact rows (N_node, k, C): I as its trace / 3
+// (k = 1), A as its entries (0,1), (0,2), (1,2) (k = 3), S as (0,0), (1,1),
+// (2,2), (0,1), (0,2), (1,2) (k = 6): 10 C floats per src row instead of
+// the 27 C of the three full 3x3 arrays. The sum is linear, so the thread
+// sums the 10 gated components f0 i, f1 a, f2 s over its row's edges and
+// assembles the 3x3 once at the end: diagonal i + s_pp, upper a_pq + s_pq,
+// lower s_pq - a_pq.
+
+constexpr int kInFlight = 4;  // edges whose loads are issued before any is added
 
 struct InteractionEdge {
-  float f[3], i[9], a[9], s[9];
+  float f[3], x[10];  // x: i, a01, a02, a12, s00, s11, s22, s01, s02, s12
 };
+
+__device__ __forceinline__ void compact_load(float (&x)[10],
+                                             const float* __restrict__ node_i,
+                                             const float* __restrict__ node_a,
+                                             const float* __restrict__ node_s,
+                                             int64_t j, int channels, int c) {
+  const int64_t ch = channels;
+  x[0] = __ldg(node_i + j * ch + c);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) x[1 + k] = __ldg(node_a + (j * 3 + k) * ch + c);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) x[4 + k] = __ldg(node_s + (j * 6 + k) * ch + c);
+}
 
 __device__ __forceinline__ void interaction_load(
     InteractionEdge& v, const float* __restrict__ f,
@@ -156,22 +188,16 @@ __device__ __forceinline__ void interaction_load(
   v.f[0] = __ldg(fe);
   v.f[1] = __ldg(fe + 1);
   v.f[2] = __ldg(fe + 2);
-  const int64_t base = static_cast<int64_t>(__ldg(src + e)) * 9 * channels + c;
-#pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    const int64_t o = base + static_cast<int64_t>(k) * channels;
-    v.i[k] = __ldg(node_i + o);
-    v.a[k] = __ldg(node_a + o);
-    v.s[k] = __ldg(node_s + o);
-  }
+  compact_load(v.x, node_i, node_a, node_s, __ldg(src + e), channels, c);
 }
 
-__device__ __forceinline__ void interaction_add(float (&acc)[9],
+__device__ __forceinline__ void interaction_add(float (&acc)[10],
                                                 const InteractionEdge& v) {
+  acc[0] += v.f[0] * v.x[0];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) {
-    acc[k] += v.f[0] * v.i[k] + v.f[1] * v.a[k] + v.f[2] * v.s[k];
-  }
+  for (int k = 1; k < 4; ++k) acc[k] += v.f[1] * v.x[k];
+#pragma unroll
+  for (int k = 4; k < 10; ++k) acc[k] += v.f[2] * v.x[k];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -188,26 +214,166 @@ tensornet_interaction_kernel(const float* __restrict__ f,
   int c;
   if (!thread_slot(n_rows, channels, tpr, row, c)) return;
   const int64_t e1 = row_ptr[row + 1];
-  float acc[9];
+  float acc[10];
 #pragma unroll
-  for (int k = 0; k < 9; ++k) acc[k] = 0.0f;
+  for (int k = 0; k < 10; ++k) acc[k] = 0.0f;
 
   int64_t e = row_ptr[row];
-  for (; e + 2 <= e1; e += 2) {
-    const bool m0 = valid_edge(mask, e);
-    const bool m1 = valid_edge(mask, e + 1);
-    InteractionEdge v0, v1;
-    if (m0) interaction_load(v0, f, node_i, node_a, node_s, src, e, channels, c);
-    if (m1) interaction_load(v1, f, node_i, node_a, node_s, src, e + 1, channels, c);
-    if (m0) interaction_add(acc, v0);
-    if (m1) interaction_add(acc, v1);
+  for (; e + kInFlight <= e1; e += kInFlight) {
+    bool m[kInFlight];
+    InteractionEdge v[kInFlight];
+#pragma unroll
+    for (int q = 0; q < kInFlight; ++q) {
+      m[q] = valid_edge(mask, e + q);
+      if (m[q]) interaction_load(v[q], f, node_i, node_a, node_s, src, e + q, channels, c);
+    }
+#pragma unroll
+    for (int q = 0; q < kInFlight; ++q) {
+      if (m[q]) interaction_add(acc, v[q]);
+    }
   }
-  if (e < e1 && valid_edge(mask, e)) {
+  for (; e < e1; ++e) {
+    if (!valid_edge(mask, e)) continue;
     InteractionEdge v;
     interaction_load(v, f, node_i, node_a, node_s, src, e, channels, c);
     interaction_add(acc, v);
   }
-  store_row(out, row, channels, c, acc);
+  // k = 3 i + j: diagonal i + s_pp, upper a_pq + s_pq, lower s_pq - a_pq
+  const float full[9] = {acc[0] + acc[4], acc[1] + acc[7], acc[2] + acc[8],
+                         acc[7] - acc[1], acc[0] + acc[5], acc[3] + acc[9],
+                         acc[8] - acc[2], acc[9] - acc[3], acc[0] + acc[6]};
+  store_row(out, row, channels, c, full);
+}
+
+// ---- interaction, backward ----------------------------------------------
+//
+// The cotangents of the forward above, from g = d out (n_dst, 3, 3, C):
+// over the valid edges e with src_e = j,
+//   d i[j]  += f0_e t,  t = g00 + g11 + g22,
+//   d a[j]  += f1_e u,  u = (g01 - g10, g02 - g20, g12 - g21),
+//   d s[j]  += f2_e v,  v = (g00, g11, g22, g01 + g10, g02 + g20, g12 + g21),
+//   d f[e]   = (t i[j], u . a[j], v . s[j]),
+// with g taken at dst_e, and d f zero on masked edges. The edges come sorted
+// by src (perm, stable, so equal src keep edge order and the sums are
+// deterministic; masked edges sorted past the last row), with CSR offsets
+// row_ptr over the n_rows src rows. One thread owns one (src row, channel):
+// it reads its row's x = (i, a, s) once, and for each edge gathers the 9
+// floats of g[dst], projects them in registers, adds to d x and writes the
+// edge's d f row; nothing of size (E, 9 C) is written. Blocks past the row
+// grid write the zero d f rows of the masked edges.
+
+// Two edges in flight and at most 64 registers (four blocks per SM): the
+// loads perm -> dst -> g depend on each other, so warps in flight matter
+// more than edges in flight. On the H100 at the TensorNet path's graph this
+// ran faster than four edges at 110 registers (two blocks per SM); deeper
+// unrolls or a tighter register cap spilled or lost occupancy.
+constexpr int kBwdInFlight = 2;
+constexpr int kBwdMinBlocks = 4;
+
+struct BackwardEdge {
+  int64_t p;  // the edge's row in f and d f
+  float f[3], g[9];
+};
+
+__device__ __forceinline__ void backward_load(BackwardEdge& v,
+                                              const float* __restrict__ g,
+                                              const float* __restrict__ f,
+                                              const int64_t* __restrict__ perm,
+                                              const int32_t* __restrict__ dst,
+                                              int64_t e, int channels, int c) {
+  v.p = __ldg(perm + e);
+  const float* __restrict__ fe = f + v.p * 3 * channels + 3 * c;
+  v.f[0] = __ldg(fe);
+  v.f[1] = __ldg(fe + 1);
+  v.f[2] = __ldg(fe + 2);
+  const float* __restrict__ gd =
+      g + static_cast<int64_t>(__ldg(dst + v.p)) * 9 * channels + c;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) v.g[k] = __ldg(gd + static_cast<int64_t>(k) * channels);
+}
+
+__device__ __forceinline__ void backward_add(float (&acc)[10], const float (&x)[10],
+                                             const BackwardEdge& v,
+                                             float* __restrict__ d_f, int channels,
+                                             int c) {
+  const float* g = v.g;  // k = 3 i + j
+  const float t = g[0] + g[4] + g[8];
+  const float u[3] = {g[1] - g[3], g[2] - g[6], g[5] - g[7]};
+  const float w[6] = {g[0], g[4], g[8], g[1] + g[3], g[2] + g[6], g[5] + g[7]};
+  acc[0] += v.f[0] * t;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[1 + k] += v.f[1] * u[k];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) acc[4 + k] += v.f[2] * w[k];
+  float da = u[0] * x[1];
+#pragma unroll
+  for (int k = 1; k < 3; ++k) da += u[k] * x[1 + k];
+  float ds = w[0] * x[4];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) ds += w[k] * x[4 + k];
+  float* __restrict__ out = d_f + v.p * 3 * channels + 3 * c;
+  out[0] = t * x[0];
+  out[1] = da;
+  out[2] = ds;
+}
+
+__global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
+tensornet_interaction_bwd_kernel(const float* __restrict__ g,
+                                 const float* __restrict__ f,
+                                 const float* __restrict__ node_i,
+                                 const float* __restrict__ node_a,
+                                 const float* __restrict__ node_s,
+                                 const int64_t* __restrict__ perm,
+                                 const int32_t* __restrict__ dst,
+                                 const int64_t* __restrict__ row_ptr,
+                                 float* __restrict__ d_f, float* __restrict__ d_i,
+                                 float* __restrict__ d_a, float* __restrict__ d_s,
+                                 int64_t n_rows, int64_t n_edges, int channels,
+                                 int tpr, int64_t row_blocks) {
+  if (static_cast<int64_t>(blockIdx.x) >= row_blocks) {
+    // the masked edges, sorted past the last row: zero d f rows
+    if (blockIdx.y != 0) return;
+    const int64_t start = row_ptr[n_rows];
+    const int64_t width = 3 * static_cast<int64_t>(channels);
+    const int64_t total = (n_edges - start) * width;
+    const int64_t stride = (static_cast<int64_t>(gridDim.x) - row_blocks) * kThreads;
+    for (int64_t k = (static_cast<int64_t>(blockIdx.x) - row_blocks) * kThreads + threadIdx.x;
+         k < total; k += stride) {
+      const int64_t e = start + k / width;
+      d_f[__ldg(perm + e) * width + k % width] = 0.0f;
+    }
+    return;
+  }
+  int64_t row;
+  int c;
+  if (!thread_slot(n_rows, channels, tpr, row, c)) return;
+  float x[10], acc[10];
+  compact_load(x, node_i, node_a, node_s, row, channels, c);
+#pragma unroll
+  for (int k = 0; k < 10; ++k) acc[k] = 0.0f;
+
+  const int64_t e1 = row_ptr[row + 1];
+  int64_t e = row_ptr[row];
+  for (; e + kBwdInFlight <= e1; e += kBwdInFlight) {
+    BackwardEdge v[kBwdInFlight];
+#pragma unroll
+    for (int q = 0; q < kBwdInFlight; ++q) {
+      backward_load(v[q], g, f, perm, dst, e + q, channels, c);
+    }
+#pragma unroll
+    for (int q = 0; q < kBwdInFlight; ++q) backward_add(acc, x, v[q], d_f, channels, c);
+  }
+  for (; e < e1; ++e) {
+    BackwardEdge v;
+    backward_load(v, g, f, perm, dst, e, channels, c);
+    backward_add(acc, x, v, d_f, channels, c);
+  }
+  const int64_t ch = channels;
+  d_i[row * ch + c] = acc[0];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) d_a[(row * 3 + k) * ch + c] = acc[1 + k];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) d_s[(row * 6 + k) * ch + c] = acc[4 + k];
 }
 
 // launch shape: tpr threads per row (channels rounded up to a warp, at most
@@ -245,10 +411,11 @@ extern "C" int distmlip_tensornet_embed_f32(
   return static_cast<int>(cudaGetLastError());
 }
 
-// f (E, C, 3); node_i, node_a, node_s (N_node, 9, C); src (E) int32;
-// row_ptr (n_rows + 1) int64; mask (E) bytes or null; out (n_rows, 9, C).
-// float32, contiguous, on the current device. Launches on `stream`, does not
-// synchronise, and returns the launch's cudaError_t (0 = success).
+// f (E, C, 3); node_i (N_node, C), node_a (N_node, 3, C), node_s
+// (N_node, 6, C); src (E) int32; row_ptr (n_rows + 1) int64; mask (E) bytes
+// or null; out (n_rows, 9, C). float32, contiguous, on the current device.
+// Launches on `stream`, does not synchronise, and returns the launch's
+// cudaError_t (0 = success).
 extern "C" int distmlip_tensornet_interaction_f32(
     const float* f, const float* node_i, const float* node_a,
     const float* node_s, const int32_t* src, const int64_t* row_ptr,
@@ -262,5 +429,36 @@ extern "C" int distmlip_tensornet_interaction_f32(
   tensornet_interaction_kernel<<<grid, kThreads, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       f, node_i, node_a, node_s, src, row_ptr, mask, out, n_rows, channels, tpr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// g (n_dst, 9, C); f (E, C, 3); node_i, node_a, node_s as above (n_rows
+// src rows); perm (E) int64, the edges in src order with the masked ones
+// last; dst (E) int32, indexed by edge; row_ptr (n_rows + 1) int64 into
+// perm, row_ptr[n_rows] the first masked position; outputs d_f (E, C, 3),
+// d_i, d_a, d_s shaped as the node arrays. float32, contiguous, on the
+// current device. Launches on `stream`, does not synchronise, and returns
+// the launch's cudaError_t (0 = success).
+extern "C" int distmlip_tensornet_interaction_bwd_f32(
+    const float* g, const float* f, const float* node_i, const float* node_a,
+    const float* node_s, const int64_t* perm, const int32_t* dst,
+    const int64_t* row_ptr, float* d_f, float* d_i, float* d_a, float* d_s,
+    int64_t n_rows, int64_t n_edges, int channels, void* stream) {
+  dim3 grid;
+  int tpr;
+  const int shape = launch_shape(n_rows, channels, grid, tpr);
+  if (shape < 0) return 0;
+  if (shape > 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t row_blocks = grid.x;
+  // enough blocks to stream the masked rows' zeros; each loops over its share
+  int64_t tail = (n_edges * 3 * static_cast<int64_t>(channels) + kThreads * 8 - 1) /
+                 (kThreads * 8);
+  tail = tail < 1 ? 1 : (tail > 1056 ? 1056 : tail);
+  if (row_blocks + tail > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  grid.x = static_cast<unsigned>(row_blocks + tail);
+  tensornet_interaction_bwd_kernel<<<grid, kThreads, 0,
+                                     static_cast<cudaStream_t>(stream)>>>(
+      g, f, node_i, node_a, node_s, perm, dst, row_ptr, d_f, d_i, d_a, d_s,
+      n_rows, n_edges, channels, tpr, row_blocks);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,15 +21,20 @@ launches the kernel or raises.
   ``so2_conv_reference`` in differentiable torch ops, as the JAX
   package's custom VJP (``:650-657``).
 - ``fused_edge_aggregate`` (``distmlip_tpu/kernels/dispatch.py:306``) is
-  one too: forward the fused gather -> message -> masked dst sum, backward
-  the JAX package's chunked recompute (``_edge_aggregate_bwd``, ``:482``)
-  in plain torch ops. The message is an ``EdgeMessage`` (a torch function
-  plus its kernel), not an arbitrary callable, because a CUDA kernel cannot
-  run a Python function; an edge MLP's weights, which the JAX dispatcher
-  hoists from the closure, are explicit ``weights``. The JAX package's VMEM
-  budget and its pre-gather
-  route have no counterpart: the kernels gather node rows from global
-  memory at every size.
+  one too: forward the fused gather -> message -> masked dst sum. Backward:
+  a message with a kernel backward (TensorNet's interaction) launches it
+  when the forward launched its kernel and no graph is being built (the
+  force program); otherwise, under ``create_graph`` (a double backward)
+  and on the plain path, the JAX package's chunked recompute
+  (``_edge_aggregate_bwd``, ``:482``) in differentiable torch ops, by
+  semantics and not as a fallback. ``recompute_chunks`` counts that
+  recompute's chunks per message. The message is an ``EdgeMessage`` (a
+  torch function plus its kernels), not an arbitrary callable, because a
+  CUDA kernel cannot run a Python function; an edge MLP's weights, which
+  the JAX dispatcher hoists from the closure, are explicit ``weights``.
+  The JAX package's VMEM budget and its pre-gather route have no
+  counterpart: the kernels gather node rows from global memory at every
+  size.
 """
 
 from __future__ import annotations
@@ -49,6 +54,10 @@ from .so3 import (pack_so2_weights, packed_m_layout, so2_conv_cuda,
 # edges per chunk of the edge-aggregate backward (bounds the recomputed
 # message and its cotangent), distmlip_tpu/kernels/dispatch.py:49
 DEFAULT_BWD_CHUNK = 32768
+
+# chunks of the edge-aggregate backward's plain recompute, by message name:
+# a run resets them to 0 to show which backwards took the kernel route
+recompute_chunks: dict = {}
 
 
 class _SegmentSum(torch.autograd.Function):
@@ -134,6 +143,7 @@ class _EdgeAggregate(torch.autograd.Function):
                                      segment_ids, num_segments, mask)
         ctx.save_for_backward(segment_ids, mask, *tensors)
         ctx.message, ctx.kinds, ctx.n_weights, ctx.chunk = message, kinds, n_weights, chunk
+        ctx.use_kernel = use_kernel
         return out
 
     @staticmethod
@@ -142,14 +152,20 @@ class _EdgeAggregate(torch.autograd.Function):
         n_in, n_w = len(ctx.kinds), ctx.n_weights
         lead = _EdgeAggregate.N_LEAD
         needs = ctx.needs_input_grad[lead:lead + n_in + n_w]
-        grads = _edge_aggregate_bwd(ctx.message.fn, ctx.kinds, tensors[:n_in],
-                                    tensors[n_in:n_in + n_w], tensors[n_in + n_w:],
-                                    segment_ids, mask, g, ctx.chunk, needs)
+        message = ctx.message
+        if ctx.use_kernel and message.backward is not None and not torch.is_grad_enabled():
+            items = _items(ctx.kinds, tensors[:n_in] + tensors[n_in + n_w:])
+            grads = message.backward(items, tensors[n_in:n_in + n_w], g, segment_ids, mask,
+                                     needs)
+        else:
+            grads = _edge_aggregate_bwd(message, ctx.kinds, tensors[:n_in],
+                                        tensors[n_in:n_in + n_w], tensors[n_in + n_w:],
+                                        segment_ids, mask, g, ctx.chunk, needs)
         return ((None,) * lead + tuple(grads)
                 + (None,) * (len(tensors) - n_in - n_w))
 
 
-def _edge_aggregate_bwd(fn, kinds, arrs, weights, idxs, segment_ids, mask, g, chunk,
+def _edge_aggregate_bwd(message, kinds, arrs, weights, idxs, segment_ids, mask, g, chunk,
                         needs):
     """Chunked backward (``distmlip_tpu/kernels/dispatch.py:482-606``): per
     chunk of edges, recompute the messages and pull the gathered message
@@ -161,7 +177,8 @@ def _edge_aggregate_bwd(fn, kinds, arrs, weights, idxs, segment_ids, mask, g, ch
     weight not needed gets ``None`` and costs nothing (the force program
     asks for no weight gradient). The working set is one chunk of messages.
     Under grad mode (double backward) the graph of this computation is
-    kept."""
+    kept. Each chunk adds one to ``recompute_chunks[message.name]``."""
+    fn = message.fn
     create = torch.is_grad_enabled()
     n_in = len(arrs)
     e = segment_ids.shape[0]
@@ -188,6 +205,7 @@ def _edge_aggregate_bwd(fn, kinds, arrs, weights, idxs, segment_ids, mask, g, ch
             targets = [rows[k] for k in want] + [ws[j] for j in w_cts]
             cts = torch.autograd.grad(fn(*rows, weights=ws), targets, gm,
                                       create_graph=create, allow_unused=True)
+            recompute_chunks[message.name] = recompute_chunks.get(message.name, 0) + 1
             for k, ct in zip(want, cts):
                 if ct is None:
                     ct = torch.zeros_like(rows[k])

@@ -14,8 +14,13 @@ kernel, in ``csrc/edge_aggregate.cu`` (TensorNet) and
   per-edge (E, C) rows and (E, 3, 3, 1) geometric tensors
   (``distmlip_tpu/models/tensornet.py:171-179``);
 - ``TENSORNET_INTERACTION``: ``f0 * I[src] + f1 * A[src] + f2 * S[src]``
-  from per-edge gates (E, C, 3) and three (N, 3, 3, C) node arrays
-  gathered at the same src ids (``tensornet.py:227-236``);
+  from per-edge gates (E, C, 3) and I, A, S as compact node rows gathered
+  at the same src ids (``tensornet.py:227-236``): ``i`` (N, C) the trace
+  / 3, ``a`` (N, 3, C) A's entries (0,1), (0,2), (1,2), ``s`` (N, 6, C) S's
+  (0,0), (1,1), (2,2), (0,1), (0,2), (1,2) (``tensornet_full`` assembles a
+  3x3 from such rows). Its backward has a kernel too
+  (``tensornet_interaction_backward_cuda``): both cotangents, of the gates
+  and of the node rows, in one pass over the edges sorted by src;
 - ``CHGNET_ATOM_CONV``: ``GatedMLP([v[src] | v[dst] | e]) * abw`` per edge
   (``distmlip_tpu/models/chgnet.py:333-339``);
 - ``CHGNET_LINE_CONV``: ``GatedMLP([b[line_src] | b[line_dst] | a |
@@ -27,7 +32,8 @@ CHGNet. CHGNet's messages take the gated MLP's tensors as ``weights``
 (``ops.nn.gated_mlp_weights``: core w1, b1, w2, b2, then the gate's), one
 hidden layer for the kernels. The ``*_cuda`` wrappers take CUDA tensors
 only and raise on anything else; the ``*_reference`` versions build the
-message with torch ops and ``masked_segment_sum`` it.
+message with torch ops and ``masked_segment_sum`` it. The ``*_error_bound``
+functions give each kernel's tolerance against its plain version.
 
 The CHGNet wrappers split layer 1 over the concat row: each gathered
 segment's product is taken once per node or bond row by the row projection
@@ -53,10 +59,12 @@ from .segment import csr_row_offsets, launch_counts
 
 EMBED = "tensornet_embed_aggregate"
 INTERACTION = "tensornet_interaction_aggregate"
+INTERACTION_BWD = "tensornet_interaction_backward"
 ATOM_CONV = "chgnet_atom_conv_aggregate"
 LINE_CONV = "chgnet_line_aggregate"
 PROJECTION = "chgnet_row_projection"
-launch_counts.update({EMBED: 0, INTERACTION: 0, ATOM_CONV: 0, LINE_CONV: 0, PROJECTION: 0})
+launch_counts.update({EMBED: 0, INTERACTION: 0, INTERACTION_BWD: 0, ATOM_CONV: 0,
+                      LINE_CONV: 0, PROJECTION: 0})
 
 
 # ---------------------------------------------------------------------------
@@ -72,12 +80,32 @@ def tensornet_embed_message(zij, w1, w2, w3, a_e, s_e, *, weights=()):
         + w3[:, None, None, :] * s_e)
 
 
+# the compact rows' entries: (0,1), (0,2), (1,2) above the diagonal, their
+# transposes below it
+_UPPER = ((0, 0, 1), (1, 2, 2))
+_DIAG = ((0, 1, 2), (0, 1, 2))
+
+
+def tensornet_full(diag, upper, lower):
+    """(..., 3, C) rows of the diagonal (0,0), (1,1), (2,2), the upper
+    triangle (0,1), (0,2), (1,2) and the lower (1,0), (2,0), (2,1) ->
+    (..., 3, 3, C)."""
+    d0, d1, d2 = diag.unbind(-2)
+    u01, u02, u12 = upper.unbind(-2)
+    l10, l20, l21 = lower.unbind(-2)
+    return torch.stack([torch.stack([d0, u01, u02], -2), torch.stack([l10, d1, u12], -2),
+                        torch.stack([l20, l21, d2], -2)], -3)
+
+
 def tensornet_interaction_message(f, i_s, a_s, s_s, *, weights=()):
-    """(E, C, 3) gates and (E, 3, 3, C) gathered rows -> (E, 3, 3, C);
-    takes no weights."""
-    return (f[:, None, None, :, 0] * i_s
-            + f[:, None, None, :, 1] * a_s
-            + f[:, None, None, :, 2] * s_s)
+    """(E, C, 3) gates and the gathered compact rows i (E, C), a (E, 3, C),
+    s (E, 6, C) -> (E, 3, 3, C): ``f0 I + f1 A + f2 S`` entry for entry as
+    the full arrays give it (diagonal f0 i + f2 s_pp, upper f1 a + f2 s_pq,
+    lower -(f1 a) + f2 s_pq); takes no weights."""
+    fa = f[:, None, :, 1] * a_s
+    fs = f[:, None, :, 2] * s_s
+    off = fs[:, 3:]
+    return tensornet_full((f[:, :, 0] * i_s)[:, None] + fs[:, :3], fa + off, -fa + off)
 
 
 def chgnet_atom_message(v_src, v_dst, e, abw=None, *, weights):
@@ -110,6 +138,92 @@ def tensornet_interaction_aggregate_reference(f, node_i, node_a, node_s, src,
         f, node_i.index_select(0, src), node_a.index_select(0, src),
         node_s.index_select(0, src))
     return masked_segment_sum(msg, segment_ids, num_segments, mask)
+
+
+def _g_rows(g, segment_ids, mask):
+    """The message cotangent ``g[dst] * mask`` (E, 3, 3, C)."""
+    gm = g.index_select(0, segment_ids)
+    if mask is not None:
+        gm = gm * mask.to(gm.dtype)[:, None, None, None]
+    return gm
+
+
+def _projections(gm, sign=-1.0):
+    """t (E, C), u (E, 3, C), v (E, 6, C) of the cotangent rows: the trace,
+    g_pq + sign g_qp above the diagonal, and (g_pp, g_pq + g_qp) — the
+    cotangents of the compact rows per unit gate (sign -1; +1 gives the sums
+    of |terms| for the error bound)."""
+    diag = gm[:, _DIAG[0], _DIAG[1]]
+    up, lo = gm[:, _UPPER[0], _UPPER[1]], gm[:, _UPPER[1], _UPPER[0]]
+    t = diag[:, 0] + diag[:, 1] + diag[:, 2]
+    return t, up + sign * lo, torch.cat([diag, up + lo], 1)
+
+
+def _backward_terms(f, i_s, a_s, s_s, t, u, v):
+    """Per edge: d f (E, C, 3) and the node rows' per-edge cotangents."""
+    d_f = torch.stack([t * i_s, (u * a_s).sum(1), (v * s_s).sum(1)], -1)
+    return d_f, f[:, :, 0] * t, f[:, None, :, 1] * u, f[:, None, :, 2] * v
+
+
+def tensornet_interaction_backward_reference(g, f, node_i, node_a, node_s, src,
+                                             segment_ids, mask=None):
+    """Plain version of the interaction's backward: from g (num_segments,
+    3, 3, C), the cotangent of ``tensornet_interaction_aggregate_reference``,
+    return (d f (E, C, 3), d i, d a, d s shaped as the node rows). With
+    t, u, v the projections of g[dst] (``_projections``): d f = (t i,
+    u . a, v . s) per edge (zero on masked edges), and d i, d a, d s the
+    sums of f0 t, f1 u, f2 v onto the src rows. Differentiable torch ops."""
+    t, u, v = _projections(_g_rows(g, segment_ids, mask))
+    d_f, ci, ca, cs = _backward_terms(f, node_i.index_select(0, src),
+                                      node_a.index_select(0, src),
+                                      node_s.index_select(0, src), t, u, v)
+    return (d_f, torch.zeros_like(node_i).index_add(0, src, ci),
+            torch.zeros_like(node_a).index_add(0, src, ca),
+            torch.zeros_like(node_s).index_add(0, src, cs))
+
+
+def _edge_counts(ids, n, mask, dtype):
+    valid = ids.long() if mask is None else ids.long()[mask]
+    return torch.bincount(valid, minlength=n)[:n].to(dtype)
+
+
+def tensornet_interaction_error_bound(f, node_i, node_a, node_s, src, segment_ids,
+                                      num_segments: int, mask=None):
+    """Per output element, a bound on |kernel - plain| of the interaction:
+    2 (k + 3) u T, with k the dst row's valid-edge count, u = 2^-24 and T
+    the sum of |terms| (the plain version on |inputs|, its lower triangle
+    taken from the upper, where the plain version subtracts). Each side is
+    within (k + 2) u T: a message entry is two products and a sum, the dst
+    sum k - 1 more roundings; the kernel sums the compact components and
+    assembles the 3x3 once (one more)."""
+    t = tensornet_interaction_aggregate_reference(
+        f.abs(), node_i.abs(), node_a.abs(), node_s.abs(), src, segment_ids,
+        num_segments, mask)
+    t = torch.maximum(t, t.transpose(1, 2))
+    k = _edge_counts(segment_ids, num_segments, mask, t.dtype)
+    return 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * t
+
+
+def tensornet_interaction_backward_error_bound(g, f, node_i, node_a, node_s, src,
+                                               segment_ids, mask=None):
+    """Per element of (d f, d i, d a, d s), a bound on |kernel - plain| of
+    the interaction's backward, of the form 2 (k + 3) u T (u = 2^-24, T the
+    same computation on |inputs| with every difference a sum): for d x, k
+    is the src row's valid-edge count (a term is at most three roundings,
+    the sum k - 1 more); for d f's three columns k = 1, 3, 6, the length of
+    the dot product (at most 2, 4 and 7 roundings)."""
+    n_node = node_i.shape[0]
+    t, u, v = _projections(_g_rows(g.abs(), segment_ids, mask), 1.0)
+    d_f, ci, ca, cs = _backward_terms(f.abs(), node_i.abs().index_select(0, src),
+                                      node_a.abs().index_select(0, src),
+                                      node_s.abs().index_select(0, src), t, u, v)
+    k = _edge_counts(src, n_node, mask, t.dtype)
+    scale = 2 * 2.0 ** -24
+    kf = torch.tensor([1.0, 3.0, 6.0], dtype=t.dtype, device=t.device)
+    return (scale * (kf + 3) * d_f,
+            scale * (k + 3)[:, None] * torch.zeros_like(node_i).index_add(0, src, ci),
+            scale * (k + 3)[:, None, None] * torch.zeros_like(node_a).index_add(0, src, ca),
+            scale * (k + 3)[:, None, None] * torch.zeros_like(node_s).index_add(0, src, cs))
 
 
 def chgnet_atom_conv_aggregate_reference(node_src, src, node_dst, dst, edge, abw,
@@ -369,35 +483,105 @@ def tensornet_embed_aggregate_cuda(zij, w1, w2, w3, a_e, s_e, segment_ids,
                        (zij, w1, w2, w3, a_e, s_e), row_ptr, mask, channels)
 
 
+def _check_compact(name, node_i, node_a, node_s, channels, device):
+    """The compact node rows (N, C), (N, 3, C), (N, 6, C); returns N."""
+    _require_cuda(name, node_i, 2)
+    n_node = node_i.shape[0]
+    _check(name, node_i, (n_node, channels), device)
+    _check(name, node_a, (n_node, 3, channels), device)
+    _check(name, node_s, (n_node, 6, channels), device)
+    if n_node >= 2 ** 31:
+        raise ValueError(f"{name}: {n_node} node rows exceed int32 src ids")
+    return n_node
+
+
 def tensornet_interaction_aggregate_cuda(f, node_i, node_a, node_s, src,
                                          segment_ids, num_segments: int,
                                          mask=None):
-    """Launch the interaction kernel: ``f`` (E, C, 3) and ``node_i, node_a,
-    node_s`` (N_node, 3, 3, C), float32 contiguous; ``src`` (E,) int32/int64
-    row ids into the node arrays (in range on every valid edge);
-    ``segment_ids`` (E,) nondecreasing; ``mask`` (E,) bool or None. Returns
-    (num_segments, 3, 3, C) float32."""
+    """Launch the interaction kernel: ``f`` (E, C, 3) and the compact node
+    rows ``node_i`` (N_node, C), ``node_a`` (N_node, 3, C), ``node_s``
+    (N_node, 6, C), float32 contiguous; ``src`` (E,) int32/int64 row ids
+    into the node rows (in range on every valid edge); ``segment_ids`` (E,)
+    nondecreasing; ``mask`` (E,) bool or None. Returns (num_segments, 3, 3,
+    C) float32."""
     name = INTERACTION
     _require_cuda(name, f, 3)
     e, channels = f.shape[0], f.shape[1]
     dev = f.device
     _check(name, f, (e, channels, 3), dev)
-    n_node = node_i.shape[0]
-    for x in (node_i, node_a, node_s):
-        _check(name, x, (n_node, 3, 3, channels), dev)
+    _check_compact(name, node_i, node_a, node_s, channels, dev)
     _check_index(name, "src", src, e, dev)
     mask = _ids_and_mask(name, segment_ids, mask, e, dev)
     num_segments = int(num_segments)
     out = torch.empty((num_segments, 3, 3, channels), dtype=torch.float32, device=dev)
     if e == 0 or num_segments == 0 or channels == 0:
         return out.zero_()
-    if n_node >= 2 ** 31:
-        raise ValueError(f"{name}: {n_node} node rows exceed int32 src ids")
     with torch.cuda.device(dev):
         src32 = src.to(torch.int32).contiguous()
         row_ptr = csr_row_offsets(segment_ids, num_segments, mask)
         return _launch(name, "distmlip_tensornet_interaction_f32", out,
                        (f, node_i, node_a, node_s, src32), row_ptr, mask, channels)
+
+
+def src_order(src, n_node: int, mask=None):
+    """The valid edges in src order, on the ids' device with no host sync:
+    (perm (E,) int64, row_ptr (n_node + 1,) int64). One stable sort of the
+    src ids with the masked edges keyed past the last row, so edges of one
+    src row keep their edge order and the masked ones come last, from
+    ``row_ptr[n_node]`` on."""
+    key = src if mask is None else torch.where(mask, src, n_node)
+    keys, perm = torch.sort(key, stable=True)
+    return perm, csr_row_offsets(keys, n_node)
+
+
+def tensornet_interaction_backward_cuda(g, f, node_i, node_a, node_s, src,
+                                        segment_ids, mask=None):
+    """Launch the interaction's backward kernel: ``g`` (num_segments, 3, 3,
+    C), the cotangent of the forward's output; the forward's ``f``, compact
+    node rows, ``src``, ``segment_ids`` and ``mask`` as
+    ``tensornet_interaction_aggregate_cuda`` takes them. float32
+    contiguous. Returns (d f (E, C, 3), d i, d a, d s shaped as the node
+    rows), with the edges ordered by ``src_order``."""
+    name = INTERACTION_BWD
+    _require_cuda(name, f, 3)
+    e, channels = f.shape[0], f.shape[1]
+    dev = f.device
+    _check(name, f, (e, channels, 3), dev)
+    n_node = _check_compact(name, node_i, node_a, node_s, channels, dev)
+    _require_cuda(name, g, 4)
+    _check(name, g, (g.shape[0], 3, 3, channels), dev)
+    _check_index(name, "src", src, e, dev)
+    mask = _ids_and_mask(name, segment_ids, mask, e, dev)
+    if e >= 2 ** 31:
+        raise ValueError(f"{name}: {e} edges exceed the kernel's int32 dst ids")
+    out = [torch.empty_like(x) for x in (f, node_i, node_a, node_s)]
+    if e == 0 or n_node == 0 or channels == 0:
+        return tuple(x.zero_() for x in out)
+    with torch.cuda.device(dev):
+        perm, row_ptr = src_order(src, n_node, mask)
+        dst32 = segment_ids.to(torch.int32).contiguous()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _interaction_bwd_fn()(
+            g.data_ptr(), f.data_ptr(), node_i.data_ptr(), node_a.data_ptr(),
+            node_s.data_ptr(), perm.data_ptr(), dst32.data_ptr(), row_ptr.data_ptr(),
+            *(x.data_ptr() for x in out), n_node, e, channels, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
+    launch_counts[name] += 1
+    return tuple(out)
+
+
+def _interaction_bwd_fn():
+    symbol = "distmlip_tensornet_interaction_bwd_f32"
+    fn = _fns.get(symbol)
+    if fn is None:
+        from .build import load
+
+        fn = getattr(load("edge_aggregate"), symbol)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_P] * 12 + [_I64, _I64, _I, _P]
+        _fns[symbol] = fn
+    return fn
 
 
 def _check_gated_weights(name, weights, k1, channels, device):
@@ -576,12 +760,17 @@ class EdgeMessage:
     segment_ids, num_segments, mask)`` launches the fused kernel, with each
     gathered input given as a ``(node, idx)`` pair; ``None`` means the
     message has no kernel, and the dispatcher raises for it on CUDA tensors
-    with ``kernels=True``.
+    with ``kernels=True``. ``backward(items, weights, g, segment_ids, mask,
+    needs)``, when given, launches the kernel of the backward: the
+    cotangents of the inputs, then of the weights (``None`` where ``needs``
+    is False); the dispatcher takes it after a forward that launched the
+    kernel, outside grad mode.
     """
 
     name: str
     fn: Callable
     cuda: Callable | None = None
+    backward: Callable | None = None
 
 
 def _no_weights(name, weights):
@@ -601,15 +790,26 @@ def _embed_cuda(items, weights, segment_ids, num_segments, mask):
                                           segment_ids, num_segments, mask)
 
 
-def _interaction_cuda(items, weights, segment_ids, num_segments, mask):
-    _no_weights(INTERACTION, weights)
+def _interaction_items(items):
     f, (node_i, src), (node_a, src_a), (node_s, src_s) = items
     if not (src is src_a and src is src_s):
         raise ValueError(f"{INTERACTION}: I, A and S must be gathered at the "
                          "same src ids (one index tensor)")
-    return tensornet_interaction_aggregate_cuda(
-        f.contiguous(), node_i.contiguous(), node_a.contiguous(),
-        node_s.contiguous(), src, segment_ids, num_segments, mask)
+    return (f.contiguous(), node_i.contiguous(), node_a.contiguous(), node_s.contiguous(),
+            src)
+
+
+def _interaction_cuda(items, weights, segment_ids, num_segments, mask):
+    _no_weights(INTERACTION, weights)
+    return tensornet_interaction_aggregate_cuda(*_interaction_items(items), segment_ids,
+                                                num_segments, mask)
+
+
+def _interaction_backward_cuda(items, weights, g, segment_ids, mask, needs):
+    _no_weights(INTERACTION, weights)
+    grads = tensornet_interaction_backward_cuda(g.contiguous(), *_interaction_items(items),
+                                                segment_ids, mask)
+    return [d if need else None for d, need in zip(grads, needs)]
 
 
 def _atom_conv_cuda(items, weights, segment_ids, num_segments, mask):
@@ -636,6 +836,6 @@ def _line_conv_cuda(items, weights, segment_ids, num_segments, mask):
 
 TENSORNET_EMBED = EdgeMessage(EMBED, tensornet_embed_message, _embed_cuda)
 TENSORNET_INTERACTION = EdgeMessage(INTERACTION, tensornet_interaction_message,
-                                    _interaction_cuda)
+                                    _interaction_cuda, _interaction_backward_cuda)
 CHGNET_ATOM_CONV = EdgeMessage(ATOM_CONV, chgnet_atom_message, _atom_conv_cuda)
 CHGNET_LINE_CONV = EdgeMessage(LINE_CONV, chgnet_line_message, _line_conv_cuda)

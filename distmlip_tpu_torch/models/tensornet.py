@@ -11,7 +11,12 @@ JAX package give the same energies:
   ``LocalGraph.aggregate_edge_messages`` with the named messages
   ``TENSORNET_EMBED`` / ``TENSORNET_INTERACTION``: on the card, the fused
   CUDA kernels of ``kernels/csrc/edge_aggregate.cu``, so the (E, 3, 3, C)
-  message never exists in device memory;
+  message never exists in device memory, and the interaction's backward
+  is a kernel too;
+- an interaction carries I, A and S as compact rows (``decompose_compact``:
+  the trace / 3, A's 3 and S's 6 distinct entries, 10 numbers per channel
+  instead of 27), mixes and gathers those, and expands to 3x3 only for the
+  matrix products; the values are the full path's, entry for entry;
 - the scalar gates unflatten in torchmd-net's (C, 3) order, so matgl
   weights convert unchanged;
 - readout: decompose -> per-channel norms -> LayerNorm -> linear -> MLP,
@@ -28,7 +33,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from ..kernels import TENSORNET_EMBED, TENSORNET_INTERACTION, Gather
+from ..kernels import TENSORNET_EMBED, TENSORNET_INTERACTION, Gather, tensornet_full
 from ..ops import radial
 from ..ops.nn import embedding, layernorm, layernorm_init, linear, linear_init, mlp, mlp_init
 from ..utils.checkpoint import as_list
@@ -61,6 +66,28 @@ def decompose(X):
     return I, A, S
 
 
+def decompose_compact(X):
+    """``decompose`` of (N, 3, 3, C) as compact rows, by the same
+    operations: i (N, C) the trace / 3; a (N, 3, C) A's entries (0,1),
+    (0,2), (1,2); s (N, 6, C) S's entries (0,0), (1,1), (2,2), (0,1),
+    (0,2), (1,2). ``expand_compact`` of them equals ``decompose(X)``."""
+    i = (X[:, 0, 0] + X[:, 1, 1] + X[:, 2, 2]) / 3.0
+    diag = X[:, (0, 1, 2), (0, 1, 2)]
+    up, lo = X[:, (0, 0, 1), (1, 2, 2)], X[:, (1, 2, 2), (0, 0, 1)]
+    a = 0.5 * (up - lo)
+    s = torch.cat([0.5 * (diag + diag) - i[:, None], 0.5 * (up + lo)], dim=1)
+    return i, a, s
+
+
+def expand_compact(i, a, s):
+    """Compact rows (``decompose_compact``) -> the full (N, 3, 3, C) I, A
+    and S."""
+    eye = torch.eye(3, dtype=i.dtype, device=i.device)[:, :, None]
+    off = s[:, 3:]
+    return (i[:, None, None, :] * eye, tensornet_full(torch.zeros_like(a), a, -a),
+            tensornet_full(s[:, :3], off, off))
+
+
 def tensor_norm(X):
     """Per-channel squared Frobenius norm: (..., 3, 3, C) -> (..., C)."""
     return (X * X).sum(dim=(-3, -2))
@@ -80,7 +107,8 @@ def _vector_to_skew(v):
 
 def _mix(lin, comp):
     """torchmd-net channel mix: a Linear over the channel axis of a
-    (..., 3, 3, C) component (one GEMM, channels already last)."""
+    (..., 3, 3, C) component or its compact rows (one GEMM, channels
+    already last)."""
     return comp @ lin["w"]
 
 
@@ -201,15 +229,19 @@ class TensorNet:
 
         lin_tensor = as_list(lp["lin_tensor"])
         X = X / (tensor_norm(X) + 1.0)[..., None, None, :]
-        I, A, S = decompose(X)
-        I = _mix(lin_tensor[0], I)
-        A = _mix(lin_tensor[1], A)
-        S = _mix(lin_tensor[2], S)
+        # compact rows: mixing is row-wise, so mixing the 10 distinct rows
+        # per node gives the full mix's entries (A's lower triangle is the
+        # negation of its upper one)
+        i, a, s = decompose_compact(X)
+        i = _mix(lin_tensor[0], i)
+        a = _mix(lin_tensor[1], a)
+        s = _mix(lin_tensor[2], s)
+        I, A, S = expand_compact(i, a, s)
         Y = I + A + S
 
         src = lg.edge_src
         M = lg.aggregate_edge_messages(
-            TENSORNET_INTERACTION, (f, Gather(I, src), Gather(A, src), Gather(S, src)),
+            TENSORNET_INTERACTION, (f, Gather(i, src), Gather(a, src), Gather(s, src)),
             mask=lg.edge_mask)
 
         B = _matmul3(Y, M) + _matmul3(M, Y)

@@ -119,7 +119,8 @@ def main(argv=None) -> int:
     own = {}  # the port's kernels, by their __global__ names
     for e in kernels:
         for name in ("segment_sum_kernel", "tensornet_embed_kernel",
-                     "tensornet_interaction_kernel", "chgnet_atom_conv_kernel",
+                     "tensornet_interaction_kernel", "tensornet_interaction_bwd_kernel",
+                     "chgnet_atom_conv_kernel",
                      "chgnet_line_conv_kernel", "chgnet_row_projection_kernel",
                      "so2_conv_kernel"):
             if name in e.key:

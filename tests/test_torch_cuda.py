@@ -59,11 +59,13 @@ def embed_inputs(seed, e, c):
 
 
 def interaction_inputs(seed, e, n_node, c):
-    """TensorNet interaction inputs: f (E, C, 3); I, A, S (N_node, 3, 3, C);
-    src (E,) int32."""
+    """TensorNet interaction inputs: f (E, C, 3); the compact node rows
+    i (N_node, C), a (N_node, 3, C), s (N_node, 6, C), every entry drawn
+    on its own (so a swapped or mis-signed entry shows); src (E,) int32."""
     rng = np.random.default_rng(300 + seed)
     f = rng.normal(size=(e, c, 3)).astype(np.float32)
-    nodes = [rng.normal(size=(n_node, 3, 3, c)).astype(np.float32) for _ in range(3)]
+    nodes = [rng.normal(size=(n_node,) + k + (c,)).astype(np.float32)
+             for k in ((), (3,), (6,))]
     src = rng.integers(0, n_node, e).astype(np.int32)
     return [f] + nodes + [src]
 
@@ -289,18 +291,51 @@ def test_edge_aggregate_kernels_match_plain_on_card(card, name, which):
     torch.cuda.synchronize()
     assert K.launch_counts[count] == before + 1
     assert got.shape == want.shape and got.dtype == torch.float32
-    abs_arrays = [x.abs() if x.is_floating_point() else x for x in arrays]
-    bound = edge_bound(ids, mask, n, ref(*abs_arrays, ti, n, tm))
+    if which == "embed":
+        abs_arrays = [x.abs() for x in arrays]
+        bound = edge_bound(ids, mask, n, ref(*abs_arrays, ti, n, tm))
+    else:
+        bound = K.tensornet_interaction_error_bound(*arrays, ti, n, tm)
     assert bool(((got - want).abs() <= bound + 1e-30).all()), name
     none = torch.zeros_like(tm)
     assert not cuda(*arrays, ti, n, none).any()
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EDGE_AGG_CASES))
+def test_interaction_backward_kernel_matches_plain_on_card(card, name):
+    """The interaction's backward kernel vs its plain version on the card,
+    within ``tensornet_interaction_backward_error_bound``, on the shared
+    cases (masked tail, empty rows, C = 5 and 300), then all masked (every
+    output zero); a second call gives the same bits (fixed order)."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, ti, tm, ids, mask, n = _edge_case_on_card(card, name, "interaction")
+    c = arrays[0].shape[1]
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(n, 3, 3, c)).astype(
+        np.float32)).to(card)
+    before = K.launch_counts["tensornet_interaction_backward"]
+    got = K.tensornet_interaction_backward_cuda(g, *arrays, ti, tm)
+    want = K.tensornet_interaction_backward_reference(g, *arrays, ti, tm)
+    torch.cuda.synchronize()
+    assert K.launch_counts["tensornet_interaction_backward"] == before + 1
+    bounds = K.tensornet_interaction_backward_error_bound(g, *arrays, ti, tm)
+    for x, y, b in zip(got, want, bounds):
+        assert x.shape == y.shape and x.dtype == torch.float32
+        assert bool(((x - y).abs() <= b + 1e-30).all()), name
+    assert not got[0][~tm].any()
+    none = K.tensornet_interaction_backward_cuda(g, *arrays, ti, torch.zeros_like(tm))
+    assert all(not x.any() for x in none)
+    for x, y in zip(K.tensornet_interaction_backward_cuda(g, *arrays, ti, tm), got):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
 def test_edge_aggregate_dispatch_on_card(card):
-    """The Function on the card: kernels=True launches, kernels=False runs
-    the plain version, a message without a kernel raises, and the backward
-    matches the plain path's."""
+    """The Function on the card: kernels=True launches the forward and, in
+    the backward, the backward kernel (no plain recompute); kernels=False
+    runs the plain version; a message without a kernel raises; both
+    backwards agree."""
     from distmlip_tpu_torch import kernels as K
 
     arrays, ti, tm, ids, mask, n = _edge_case_on_card(card, "empty_rows", "interaction")
@@ -308,20 +343,59 @@ def test_edge_aggregate_dispatch_on_card(card):
     inputs = lambda *xs: (xs[0], K.Gather(xs[1], src), K.Gather(xs[2], src),  # noqa: E731
                           K.Gather(xs[3], src))
     leaves = [x.clone().requires_grad_(True) for x in (f, node_i, node_a, node_s)]
-    before = K.launch_counts["tensornet_interaction_aggregate"]
+    fwd, bwd = "tensornet_interaction_aggregate", "tensornet_interaction_backward"
+    before = dict(K.launch_counts)
+    chunks = K.recompute_chunks.get(fwd, 0)
     out = K.fused_edge_aggregate(K.TENSORNET_INTERACTION, inputs(*leaves), ti, n, tm)
-    assert K.launch_counts["tensornet_interaction_aggregate"] == before + 1
     got = torch.autograd.grad((out ** 2).sum(), leaves)
+    assert K.launch_counts[fwd] == before[fwd] + 1
+    assert K.launch_counts[bwd] == before[bwd] + 1
+    assert K.recompute_chunks.get(fwd, 0) == chunks
     plain = K.fused_edge_aggregate(K.TENSORNET_INTERACTION, inputs(*leaves), ti, n, tm,
                                    kernels=False)
-    assert K.launch_counts["tensornet_interaction_aggregate"] == before + 1
     want = torch.autograd.grad((plain ** 2).sum(), leaves)
+    assert K.launch_counts[fwd] == before[fwd] + 1
+    assert K.launch_counts[bwd] == before[bwd] + 1
     torch.testing.assert_close(out, plain, rtol=1e-5, atol=1e-5)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
     no_kernel = K.EdgeMessage("no_kernel", K.TENSORNET_INTERACTION.fn)
     with pytest.raises(NotImplementedError, match="no CUDA kernel"):
         K.fused_edge_aggregate(no_kernel, inputs(f, node_i, node_a, node_s), ti, n, tm)
+
+
+@pytest.mark.cuda
+def test_interaction_double_backward_on_card_takes_the_plain_route(card):
+    """Under create_graph (force-loss training) the backward is the plain
+    chunked recompute, in differentiable ops, even with kernels=True; the
+    second pass reaches the forward's Function once more, first order, and
+    launches the backward kernel once. The second-order gradients match
+    kernels=False."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, ti, tm, ids, mask, n = _edge_case_on_card(card, "repeated_tail_padding",
+                                                      "interaction")
+    src = arrays[4]
+
+    def second_order(kernels):
+        leaves = [x.clone().requires_grad_(True) for x in arrays[:4]]
+        out = K.fused_edge_aggregate(
+            K.TENSORNET_INTERACTION,
+            [leaves[0]] + [K.Gather(x, src) for x in leaves[1:]], ti, n, tm,
+            kernels=kernels, bwd_chunk=64)
+        grads = torch.autograd.grad((out ** 2).sum(), leaves, create_graph=True)
+        return torch.autograd.grad(sum((x ** 2).sum() for x in grads), leaves)
+
+    bwd = "tensornet_interaction_backward"
+    before = K.launch_counts[bwd]
+    chunks = K.recompute_chunks.get("tensornet_interaction_aggregate", 0)
+    got = second_order(True)
+    assert K.launch_counts[bwd] == before + 1
+    assert K.recompute_chunks["tensornet_interaction_aggregate"] == chunks + 6  # 340 / 64
+    # float32 in other summation orders, against each tensor's scale (its
+    # entries reach ~5e5 here, some cancel to ~10): 1e-5 of the largest
+    for a, b in zip(got, second_order(False)):
+        assert float((a - b).abs().max()) <= 1e-5 * max(1.0, float(b.abs().max()))
 
 
 @pytest.mark.cuda
@@ -340,9 +414,10 @@ def test_tensornet_on_card_matches_cpu(card):
     atoms = Atoms(numbers=rng.integers(0, 3, 32), positions=cart, cell=lat)
     model = TensorNet(TensorNetConfig(num_species=4, units=16, num_rbf=8, cutoff=4.0))
     params = model.init(0)
-    before = launch_counts["tensornet_interaction_aggregate"]
+    before = dict(launch_counts)
     gpu = DistPotential(model, params, device=card).calculate(atoms)
-    assert launch_counts["tensornet_interaction_aggregate"] == before + 2
+    for name in ("tensornet_interaction_aggregate", "tensornet_interaction_backward"):
+        assert launch_counts[name] == before[name] + 2
     cpu = DistPotential(model, params, device="cpu").calculate(atoms)
     assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
     np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)

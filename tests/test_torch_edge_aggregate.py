@@ -10,6 +10,12 @@ tail and masked interior rows (``tests/test_kernels.py:39``). The CUDA
 kernels themselves run only on a card: ``tests/test_torch_cuda.py`` holds
 them against the plain versions there on the same cases.
 
+TensorNet's interaction takes I, A and S as compact rows on the port's
+side (``interaction_inputs``: the trace / 3, A's upper triangle, S's
+diagonal and upper triangle); the JAX side gets them expanded to full 3x3
+arrays (``_expand``), and its dense cotangents come back to compact ones
+by the chain rule (``_compact_cotangents``).
+
 CHGNet's messages carry the gated MLP's weights: on the JAX side the
 ``edge_fn`` closes over them and the dispatcher hoists them as kernel
 consts (``diff_params=True`` gives their cotangents); on the port's they
@@ -30,7 +36,7 @@ from distmlip_tpu.kernels import Gather as JGather
 from distmlip_tpu.kernels import fused_edge_aggregate as jax_fused_edge_aggregate
 from distmlip_tpu.kernels import pallas_edge_aggregate
 from distmlip_tpu.ops.nn import gated_mlp as jax_gated_mlp
-from distmlip_tpu_torch.kernels import edge_aggregate
+from distmlip_tpu_torch.kernels import dispatch, edge_aggregate
 from distmlip_tpu_torch.kernels import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,
                                         TENSORNET_EMBED, TENSORNET_INTERACTION,
                                         EdgeMessage, Gather,
@@ -42,7 +48,11 @@ from distmlip_tpu_torch.kernels import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,
                                         tensornet_embed_aggregate_cuda,
                                         tensornet_embed_aggregate_reference,
                                         tensornet_interaction_aggregate_cuda,
-                                        tensornet_interaction_aggregate_reference)
+                                        tensornet_interaction_aggregate_reference,
+                                        tensornet_interaction_backward_cuda,
+                                        tensornet_interaction_backward_error_bound,
+                                        tensornet_interaction_backward_reference,
+                                        tensornet_interaction_error_bound)
 from tests.test_torch_cuda import (CHGNET_CASES, EDGE_AGG_CASES, chgnet_inputs,
                                    embed_inputs, interaction_inputs, sorted_case)
 
@@ -66,6 +76,33 @@ def _jax_interaction_msg(f, i_s, a_s, s_s):
             + f[:, None, None, :, 2] * s_s)
 
 
+def _expand(node_i, node_a, node_s):
+    """Compact rows (numpy) -> the full (N, 3, 3, C) I, A, S."""
+    n, c = node_i.shape
+    eye = np.eye(3, dtype=node_i.dtype)[:, :, None]
+    full_i = node_i[:, None, None, :] * eye
+    full_a = np.zeros((n, 3, 3, c), node_a.dtype)
+    full_s = np.zeros((n, 3, 3, c), node_s.dtype)
+    for k, (p, q) in enumerate(((0, 1), (0, 2), (1, 2))):
+        full_a[:, p, q], full_a[:, q, p] = node_a[:, k], -node_a[:, k]
+        full_s[:, p, q] = full_s[:, q, p] = node_s[:, 3 + k]
+        full_s[:, k, k] = node_s[:, k]
+    return full_i, full_a, full_s
+
+
+def _compact_cotangents(d_i, d_a, d_s):
+    """Dense cotangents of the full I, A, S -> those of the compact rows,
+    by the chain rule of ``_expand``: d i = dI00 + dI11 + dI22, d a_pq =
+    dA_pq - dA_qp, d s_pp = dS_pp, d s_pq = dS_pq + dS_qp."""
+    d_i, d_a, d_s = (np.asarray(x) for x in (d_i, d_a, d_s))
+    pairs = ((0, 1), (0, 2), (1, 2))
+    ci = d_i[:, 0, 0] + d_i[:, 1, 1] + d_i[:, 2, 2]
+    ca = np.stack([d_a[:, p, q] - d_a[:, q, p] for p, q in pairs], 1)
+    cs = np.stack([d_s[:, k, k] for k in range(3)]
+                  + [d_s[:, p, q] + d_s[:, q, p] for p, q in pairs], 1)
+    return ci, ca, cs
+
+
 def _case(name, which):
     seed, e, n, pad, im, hi, c = EDGE_AGG_CASES[name]
     ids, mask, n = sorted_case(seed, e, n, pad, im, hi)
@@ -87,7 +124,8 @@ def _jax_pallas(which, arrays, ids, mask, n, c):
     if which == "embed":
         fn, items, consts = _jax_embed_msg, j, (jnp.eye(3)[:, :, None],)
     else:
-        f, node_i, node_a, node_s, src = j
+        f, src = j[0], j[4]
+        node_i, node_a, node_s = (jnp.asarray(x) for x in _expand(*arrays[1:4]))
         fn, consts = _jax_interaction_msg, ()
         items = [f, ("gather", node_i, src), ("gather", node_a, src),
                  ("gather", node_s, src)]
@@ -140,8 +178,13 @@ def test_gradients_match_jax_chunked_vjp(which):
                                        bwd_chunk=64)
         return jnp.sum(jw * out ** 2)
 
-    jx = [jnp.asarray(x) for x in arrays[:n_diff]]
-    jv, jg = jax.value_and_grad(jloss, argnums=tuple(range(n_diff)))(*jx)
+    jx = list(arrays[:n_diff])
+    if which == "interaction":  # JAX differentiates the full I, A, S
+        jx[1:4] = _expand(*jx[1:4])
+    jv, jg = jax.value_and_grad(jloss, argnums=tuple(range(n_diff)))(
+        *[jnp.asarray(x) for x in jx])
+    if which == "interaction":
+        jg = [jg[0], *_compact_cotangents(*jg[1:4])]
 
     leaves = [torch.from_numpy(x).requires_grad_(True) for x in arrays[:n_diff]]
     message, inputs = _port_inputs(
@@ -176,6 +219,182 @@ def test_gradcheck_and_gradgradcheck_float64(which):
 
     assert torch.autograd.gradcheck(fn, xs)
     assert torch.autograd.gradgradcheck(fn, xs)
+
+
+def _jax_interaction_vjp(arrays, ids, mask, n, g, kernels):
+    """The JAX dispatcher's VJP at cotangent ``g`` on the expanded rows,
+    brought back to compact cotangents: (d f, d i, d a, d s). With
+    ``kernels="interpret"`` the custom VJP of the interpret-mode kernel
+    (64-edge backward chunks); with False the XLA path's autodiff."""
+    f, node_i, node_a, node_s, src = arrays
+    js = jnp.asarray(src)
+
+    def agg(f_, i_, a_, s_):
+        return jax_fused_edge_aggregate(
+            _jax_interaction_msg, [f_, JGather(i_, js), JGather(a_, js), JGather(s_, js)],
+            jnp.asarray(ids), n, jnp.asarray(mask), kernels=kernels, bwd_chunk=64)
+
+    _, vjp = jax.vjp(agg, *[jnp.asarray(x) for x in [f, *_expand(node_i, node_a, node_s)]])
+    d_f, *dense = vjp(jnp.asarray(g))
+    return [np.asarray(d_f), *_compact_cotangents(*dense)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_interaction_backward_reference_matches_autograd_and_jax(dtype):
+    """``tensornet_interaction_backward_reference`` (the plain version of
+    the backward kernel) vs torch autograd of the plain forward and vs the
+    JAX package's VJP with the chain rule to compact rows; float32 within
+    ``_close`` against the chunked custom VJP of the interpret-mode kernel,
+    float64 within 1e-12 of each array's scale against the XLA path's VJP
+    (the interpret-mode kernel does not trace with 64-bit types on). Masked
+    edges get zero d f rows."""
+    arrays, ids, mask, n, c = _case("repeated_tail_padding", "interaction")
+    np_dtype = np.dtype(dtype)
+    arrays = [x.astype(np_dtype) if x.dtype.kind == "f" else x for x in arrays]
+    g = np.random.default_rng(6).normal(size=(n, 3, 3, c)).astype(np_dtype)
+    t = [torch.from_numpy(x) for x in arrays]
+    ti, tm, tg = torch.from_numpy(ids), torch.from_numpy(mask), torch.from_numpy(g)
+    got = tensornet_interaction_backward_reference(tg, *t, ti, tm)
+    leaves = [x.clone().requires_grad_(True) for x in t[:4]]
+    out = tensornet_interaction_aggregate_reference(*leaves, t[4], ti, n, tm)
+    auto = torch.autograd.grad(out, leaves, tg)
+    if dtype == "float64":
+        jax.config.update("jax_enable_x64", True)
+    try:
+        jref = _jax_interaction_vjp(arrays, ids, mask, n, g,
+                                    "interpret" if dtype == "float32" else False)
+    finally:
+        jax.config.update("jax_enable_x64", False)
+    assert jref[0].dtype == np_dtype
+    for x, a, j in zip(got, auto, jref):
+        assert x.dtype == getattr(torch, dtype) and x.shape == a.shape == j.shape
+        if dtype == "float32":
+            _close(x.numpy(), a.numpy())
+            _close(x.numpy(), j)
+        else:
+            for want in (a.numpy(), j):
+                np.testing.assert_allclose(x.numpy(), want, rtol=0,
+                                           atol=1e-12 * max(1.0, np.abs(want).max()))
+    assert not got[0][~tm].any()
+
+
+def test_interaction_backward_takes_the_kernel_route_outside_grad_mode():
+    """The dispatcher's backward after a kernel forward: outside grad mode
+    (the force program) it launches the message's kernel backward and runs
+    no plain recompute; under create_graph (a double backward) it takes the
+    chunked recompute, which keeps its graph. The kernels are stood in by
+    their plain versions here (CPU tensors), counted; the gradients equal
+    kernels=False ones, first and second order."""
+    arrays, ids, mask, n, c = _case("e_not_multiple_of_block", "interaction")
+    t = [torch.from_numpy(x.astype(np.float64) if x.dtype.kind == "f" else x)
+         for x in arrays]
+    ti, tm = torch.from_numpy(ids), torch.from_numpy(mask)
+    calls = []
+
+    def fwd(items, weights, segment_ids, num_segments, mask_):
+        f, *gathered = items
+        return tensornet_interaction_aggregate_reference(
+            f, *(x for x, _ in gathered), gathered[0][1], segment_ids, num_segments, mask_)
+
+    def bwd(items, weights, g, segment_ids, mask_, needs):
+        calls.append(needs)
+        f, *gathered = items
+        grads = tensornet_interaction_backward_reference(
+            g, f, *(x for x, _ in gathered), gathered[0][1], segment_ids, mask_)
+        return [x if need else None for x, need in zip(grads, needs)]
+
+    stand_in = EdgeMessage(TENSORNET_INTERACTION.name, TENSORNET_INTERACTION.fn, fwd, bwd)
+
+    def run(use_kernel, create_graph):
+        leaves = [x.clone().requires_grad_(True) for x in t[:4]]
+        out = dispatch._EdgeAggregate.apply(stand_in, (None, 0, 0, 0), 0, use_kernel, 64, n,
+                                            ti, tm, *leaves, t[4])
+        grads = torch.autograd.grad((out ** 2).sum(), leaves, create_graph=create_graph)
+        if not create_graph:
+            return grads
+        return torch.autograd.grad(sum((x ** 2).sum() for x in grads), leaves)
+
+    name = TENSORNET_INTERACTION.name
+    chunks = dispatch.recompute_chunks.get(name, 0)
+    got = run(True, False)
+    assert calls == [(True,) * 4] and dispatch.recompute_chunks.get(name, 0) == chunks
+    for a, b in zip(got, run(False, False)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12)
+    # the double backward: the first pass (create_graph) recomputes in 9
+    # chunks of 64 edges; the second reaches the forward's Function once
+    # more, first order, outside grad mode: the kernel route
+    chunks = dispatch.recompute_chunks[name]
+    got = run(True, True)
+    assert len(calls) == 2 and dispatch.recompute_chunks[name] == chunks + 9
+    for a, b in zip(got, run(False, True)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("which", ["forward", "backward"])
+def test_interaction_kernel_arithmetic_within_bounds(which):
+    """The kernels' float32 arithmetic, emulated on the CPU, and the plain
+    float32 version each sit within half of the stated tolerance
+    (``tensornet_interaction_error_bound`` and its backward's) of the
+    float64 value: the forward sums the compact components f0 i, f1 a,
+    f2 s per dst row in edge order and assembles the 3x3 once; the backward
+    walks the valid edges in ``src_order``, projects g[dst] to t, u, v and
+    sums f0 t, f1 u, f2 v per src row."""
+    arrays, ids, mask, n, c = _case("repeated_tail_padding", "interaction")
+    t = [torch.from_numpy(x) for x in arrays]
+    f, node_i, node_a, node_s, src = t
+    ti, tm = torch.from_numpy(ids), torch.from_numpy(mask)
+    t64 = [x.double() if x.is_floating_point() else x for x in t]
+    valid = torch.nonzero(tm)[:, 0]
+    if which == "forward":
+        exact = tensornet_interaction_aggregate_reference(*t64, ti, n, tm)
+        plain = tensornet_interaction_aggregate_reference(*t, ti, n, tm)
+        sv = src[valid].long()
+        comps = torch.cat([(f[valid, :, 0] * node_i[sv])[:, None],
+                           f[valid, None, :, 1] * node_a[sv],
+                           f[valid, None, :, 2] * node_s[sv]], 1)
+        acc = torch.zeros((n, 10, c)).index_add_(0, ti[valid].long(), comps)
+        off = acc[:, 4 + 3:]
+        emulated = edge_aggregate.tensornet_full(acc[:, :1] + acc[:, 4:7], acc[:, 1:4] + off,
+                                                 off - acc[:, 1:4])
+        bounds = [tensornet_interaction_error_bound(*t, ti, n, tm)]
+        checks = [(plain, exact, bounds[0]), (emulated, exact, bounds[0])]
+    else:
+        g = torch.from_numpy(np.random.default_rng(4).normal(size=(n, 3, 3, c)).astype(
+            np.float32))
+        exact = tensornet_interaction_backward_reference(g.double(), *t64, ti, tm)
+        plain = tensornet_interaction_backward_reference(g, *t, ti, tm)
+        perm, row_ptr = edge_aggregate.src_order(src, node_i.shape[0], tm)
+        order = perm[:int(row_ptr[-1])]
+        gm = g[ti[order].long()]
+        tt = gm[:, 0, 0] + gm[:, 1, 1] + gm[:, 2, 2]
+        pairs_ = ((0, 1), (0, 2), (1, 2))
+        u = torch.stack([gm[:, p, q] - gm[:, q, p] for p, q in pairs_], 1)
+        v = torch.cat([torch.stack([gm[:, k, k] for k in range(3)], 1),
+                       torch.stack([gm[:, p, q] + gm[:, q, p] for p, q in pairs_], 1)], 1)
+        so, fo = src[order].long(), f[order]
+        d_f = torch.zeros_like(f)
+        d_f[order] = torch.stack([tt * node_i[so], (u * node_a[so]).sum(1),
+                                  (v * node_s[so]).sum(1)], -1)
+        emulated = (d_f,
+                    torch.zeros_like(node_i).index_add_(0, so, fo[:, :, 0] * tt),
+                    torch.zeros_like(node_a).index_add_(0, so, fo[:, None, :, 1] * u),
+                    torch.zeros_like(node_s).index_add_(0, so, fo[:, None, :, 2] * v))
+        bounds = tensornet_interaction_backward_error_bound(g, *t, ti, tm)
+        checks = [(x, y, b) for got in (plain, emulated) for x, y, b in zip(got, exact, bounds)]
+    for got, want, bound in checks:
+        err = (got.double() - want).abs()
+        assert bool((err <= bound.double() / 2 + 1e-30).all())
+        assert float(err.max()) > 0  # float32 roundoff is there to bound
+
+
+def test_src_order_is_stable_with_masked_edges_last():
+    src = torch.tensor([3, 1, 3, 0, 1, 2, 3, 0], dtype=torch.int32)
+    mask = torch.tensor([True, True, False, True, True, True, True, False])
+    perm, row_ptr = edge_aggregate.src_order(src, 5, mask)
+    assert perm.tolist() == [3, 1, 4, 5, 0, 6, 2, 7]
+    assert row_ptr.tolist() == [0, 1, 3, 4, 6, 6]
+    perm, row_ptr = edge_aggregate.src_order(src, 4)
+    assert perm.tolist() == [3, 7, 1, 4, 5, 0, 2, 6] and row_ptr.tolist() == [0, 2, 4, 5, 8]
 
 
 def test_kernelless_message_unsorted_and_empty_take_the_plain_path():
@@ -240,6 +459,9 @@ def test_cuda_wrappers_reject_cpu_tensors():
         tensornet_embed_aggregate_cuda(*[torch.from_numpy(x) for x in embed], ti, n, tm)
     with pytest.raises(ValueError, match="CUDA tensors"):
         tensornet_interaction_aggregate_cuda(*[torch.from_numpy(x) for x in inter], ti, n, tm)
+    g = torch.zeros((n, 3, 3, inter[0].shape[1]))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tensornet_interaction_backward_cuda(g, *[torch.from_numpy(x) for x in inter], ti, tm)
     assert launch_counts == before
 
 

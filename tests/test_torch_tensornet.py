@@ -23,9 +23,11 @@ from distmlip_tpu.calculators import Atoms as JAtoms
 from distmlip_tpu.calculators import DistPotential as JDistPotential
 from distmlip_tpu.models import TensorNet as JTensorNet
 from distmlip_tpu.models import TensorNetConfig as JTensorNetConfig
+from distmlip_tpu.models.tensornet import decompose as jax_decompose
 from distmlip_tpu.utils.checkpoint import save_params
 from distmlip_tpu_torch.calculators import Atoms, DistPotential
 from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+from distmlip_tpu_torch.models.tensornet import decompose, decompose_compact, expand_compact
 from distmlip_tpu_torch.parallel import halo
 from distmlip_tpu_torch.tools.workload import TENSORNET_KW
 from distmlip_tpu_torch.utils import load_params, params_from_numpy
@@ -158,7 +160,9 @@ def test_edge_aggregate_calls_per_calculate(monkeypatch, num_layers):
     """The count chip_smoke.py checks against the kernels' launch counters:
     per calculate, one embed aggregation and one per interaction layer, all
     on sorted ids with edges (the route that launches a kernel on the card).
-    The backward recomputes messages in plain torch and aggregates nothing."""
+    The backward aggregates nothing: on the card it launches the
+    interaction's backward kernel once per layer, on the CPU it recomputes
+    messages in plain torch."""
     calls = []
     real = halo.fused_edge_aggregate
 
@@ -176,6 +180,23 @@ def test_edge_aggregate_calls_per_calculate(monkeypatch, num_layers):
     atoms.positions += 0.01
     pot.calculate(atoms)
     assert len(calls) == 2 * (1 + num_layers)
+
+
+def test_compact_rows_expand_to_decompose_bit_for_bit():
+    """The interaction's compact I, A, S rows (the trace / 3; A's (0,1),
+    (0,2), (1,2); S's diagonal and (0,1), (0,2), (1,2)) expand to the port's
+    full ``decompose`` bit for bit, and agree with the JAX package's to
+    float32 roundoff."""
+    X = np.random.default_rng(2).normal(size=(40, 3, 3, 7)).astype(np.float32)
+    i, a, s = decompose_compact(torch.from_numpy(X))
+    assert i.shape == (40, 7) and a.shape == (40, 3, 7) and s.shape == (40, 6, 7)
+    expanded = expand_compact(i, a, s)
+    for got, want, jwant in zip(expanded, decompose(torch.from_numpy(X)),
+                                jax_decompose(jax.numpy.asarray(X))):
+        assert torch.equal(got, want)
+        np.testing.assert_allclose(got.numpy(), np.asarray(jwant), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(a.numpy(), expanded[1][:, (0, 0, 1), (1, 2, 2)].numpy())
+    np.testing.assert_array_equal(s[:, 3:].numpy(), expanded[2][:, (1, 2, 2), (0, 0, 1)].numpy())
 
 
 def test_unported_options_and_workload():
