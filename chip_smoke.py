@@ -91,7 +91,28 @@ Phases (each failure raises, so the exit code is non-zero):
    cotangent, so the SO(2) kernel runs 2 layers x 3K and the segment sum 3
    scans (the edge-degree pass and 2 layers) x 2K;
 8. a small structure of each model on the card (kernels) against the CPU
-   (plain), CHGNet's with magmoms, eSCN's with conditioning set.
+   (plain), CHGNet's with magmoms, eSCN's with conditioning set;
+9. the end of the main path, ``MolecularDynamics`` and ``Relaxer``
+   (``examples/01_static_and_md.py``, ``02_relax_chgnet.py``), each with
+   every launch count set to 0 just before its driver is made and read
+   after its last step, and held to a count derived per calculate:
+   ``[md]`` MACE at the MACE-MP-0-medium widths on the 2048-atom crystal
+   (``skin=0.5``; Maxwell-Boltzmann velocities at 600 K, 60 ``nvt_bussi``
+   steps, seed 0, of 0.35 fs: random weights make a potential that
+   collapses the crystal at 2 fs); ``[md-tensornet]`` TensorNet at the
+   MatPES layout on the 16384-atom crystal, 40 such steps of 2 fs, then
+   the same 40 with ``device_rebuild=False``; ``[relax-chgnet]`` CHGNet at the MPtrj layout
+   with magmoms on 864 Li (cell x 1.02, 0.08 Å noise, seed 1), FIRE with
+   the cell relaxed, 30 steps (``RELAX_TOL``), a host rebuild at every
+   step. Each prints step ms by what the skin cache did (median of hits,
+   device refreshes, host rebuilds), atoms/s, the refresh's ms, the host
+   build's s, the rebuild counters, the largest displacement per step and
+   peak memory; it fails on a non-finite value, on fewer than 2 device
+   refreshes in an MD phase or a host rebuild after the first that is not
+   an overflow, and where a refresh frame or the last frame disagrees with
+   a fresh host-built graph (``skin=0``) beyond the float32 bar, or a
+   refreshed graph's pairs closer than r_build - 1e-4 Å differ from a
+   float64 host search's.
 
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -102,6 +123,7 @@ from __future__ import annotations
 
 import json
 import socket
+import statistics
 import subprocess
 import sys
 import time
@@ -1276,6 +1298,354 @@ def phase_small_reference(torch, model, tag, atoms=None, **kw):
         raise AssertionError(f"{tag}: card disagrees with CPU")
 
 
+# ---------------------------------------------------------------------------
+# the end of the main path: MolecularDynamics and Relaxer
+# ---------------------------------------------------------------------------
+
+MD_KW = dict(ensemble="nvt_bussi", timestep=2.0, temperature=600.0, seed=0)
+MD_STEPS = 60
+# random MACE-MP-0-medium weights are not a stable potential: they pull
+# the 2048-atom crystal together and heat it, and at the example's 2 fs its
+# 60 steps end in non-finite forces. 60 steps of 0.35 fs (21 fs) still fire
+# the skin twice, before the forces grow large.
+MACE_MD_TIMESTEP = 0.35
+MD_TENSORNET_STEPS = 40
+RELAX_STEPS = 30
+# random CHGNet weights push little (|F| max 0.026 eV/Å, |stress| max 6e-4
+# eV/Å^3 on the relax structure), under the Relaxer's default fmax 0.05 and
+# smax 0.005: tighter tolerances let the relaxation take all its steps
+RELAX_TOL = dict(fmax=1e-4, smax=1e-5)
+PAIR_BAND = 1e-4  # Å below r_build: the float32 and float64 searches may differ inside
+
+
+class Probe:
+    """Stands between a driver and its ``DistPotential``: notes what each
+    calculate did (a skin-cache hit, a device refresh or a host rebuild),
+    its seconds, timings and e_cap, and keeps every result on the host;
+    checks that energy, forces, stress and positions are finite. The
+    refreshed graph of the last calculate stays in ``pending`` until the
+    caller takes it (after its own timing)."""
+
+    def __init__(self, pot):
+        self.pot = pot
+        self.calls = []
+        self.pending = None
+
+    def calculate(self, atoms):
+        import numpy as np
+
+        pot = self.pot
+        on_device, builds = pot.rebuild_on_device_count, pot.rebuild_count
+        t = time.perf_counter()
+        res = pot.calculate(atoms)
+        seconds = time.perf_counter() - t
+        kind = ("refresh" if pot.rebuild_on_device_count > on_device
+                else "host" if pot.rebuild_count > builds else "hit")
+        check_result(res, len(atoms))
+        if not np.isfinite(atoms.positions).all():
+            raise AssertionError("non-finite positions")
+        self.calls.append({"kind": kind, "s": seconds, "e_cap": pot.last_stats["e_cap"],
+                           "positions": atoms.positions.copy(), "cell": atoms.cell.copy(),
+                           "result": res, **pot.last_timings})
+        if kind == "refresh":
+            self.pending = pot._cache[:2]
+        return res
+
+    def take_pending(self):
+        """The last refresh's edges on the host (global src, dst, offset),
+        then the device graph is let go."""
+        graph, host = self.pending
+        self.pending = None
+        mask = graph.edge_mask[0].cpu().numpy()
+        ids = host.global_ids[0]
+        self.calls[-1]["edges"] = (ids[graph.edge_src[0].cpu().numpy()[mask]],
+                                   ids[graph.edge_dst[0].cpu().numpy()[mask]],
+                                   graph.edge_offset[0].cpu().numpy()[mask].round().astype(int))
+
+
+def pair_set_check(call, pbc, r_build):
+    """The refreshed graph's pairs closer than r_build - PAIR_BAND against a
+    float64 host search's at the same positions; returns the number of pairs
+    within PAIR_BAND of r_build in either list."""
+    import numpy as np
+
+    from distmlip_tpu_torch.neighbors import neighbor_list_numpy
+
+    pos, cell = call["positions"], call["cell"]
+    nl = neighbor_list_numpy(pos, cell, pbc, r_build)
+
+    def near(src, dst, off):
+        d = np.linalg.norm(pos[src] + off @ cell - pos[dst], axis=1)
+        keep = d < r_build - PAIR_BAND
+        pairs = set(zip(src[keep].tolist(), dst[keep].tolist(), map(tuple, off[keep].tolist())))
+        return pairs, int(np.sum(np.abs(d - r_build) < PAIR_BAND))
+
+    got, band_got = near(*call["edges"])
+    want, band_want = near(nl.src, nl.dst, nl.offsets.astype(int))
+    if got != want:
+        raise AssertionError(f"refreshed graph's pairs differ from the host build's: "
+                             f"{len(got - want)} extra, {len(want - got)} missing")
+    return max(band_got, band_want)
+
+
+def fresh_host_check(fresh, atoms, calls, tag):
+    """Each given frame through ``fresh`` (a skin=0 potential: a host-built
+    graph at every call), held to the float32 bar."""
+    import numpy as np
+
+    worst = {"rel_dE": 0.0, "max_dF": 0.0, "max_dS": 0.0}
+    for call in calls:
+        atoms.positions, atoms.cell = call["positions"].copy(), call["cell"].copy()
+        ref, res = fresh.calculate(atoms), call["result"]
+        worst["rel_dE"] = max(worst["rel_dE"],
+                              abs(res["energy"] - ref["energy"]) / abs(ref["energy"]))
+        worst["max_dF"] = max(worst["max_dF"], float(np.abs(res["forces"] - ref["forces"]).max()))
+        worst["max_dS"] = max(worst["max_dS"], float(np.abs(res["stress"] - ref["stress"]).max()))
+        if "magmoms" in ref:
+            worst["max_dm"] = max(worst.get("max_dm", 0.0),
+                                  float(np.abs(res["magmoms"] - ref["magmoms"]).max()))
+    log(f"[{tag}] against a fresh host-built graph (skin=0) at {len(calls)} frames: "
+        f"{json.dumps(worst)}")
+    if not (worst["rel_dE"] < 1e-5 and worst["max_dF"] < 1e-4 and worst["max_dS"] < 1e-4
+            and worst.get("max_dm", 0.0) < 1e-4):
+        raise AssertionError(f"{tag}: disagrees with a fresh host-built graph")
+    return worst
+
+
+def median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def run_md(torch, pot, atoms, steps, tag, **kw):
+    """Maxwell-Boltzmann velocities at 600 K from the structure's seeded
+    generator, then ``examples/01_static_and_md.py``'s loop: MD_KW (``kw``
+    overriding) for ``steps`` steps. Every launch count is set to 0 just before the driver
+    is made (its constructor makes the first calculate) and read just after
+    the last step. Returns the probe, per-step seconds, launches and peak
+    memory."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import MolecularDynamics
+    from distmlip_tpu_torch.kernels import launch_counts
+
+    atoms, rng = atoms
+    atoms.set_maxwell_boltzmann_velocities(MD_KW["temperature"], rng=rng)
+    probe = Probe(pot)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    md = MolecularDynamics(atoms, probe, **{**MD_KW, **kw})
+    step_s = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        md.step()
+        step_s.append(time.perf_counter() - t)
+        if probe.pending is not None:
+            probe.take_pending()
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    if not np.isfinite(atoms.velocities).all():
+        raise AssertionError(f"{tag}: non-finite velocities")
+    if (pot.device_rebuild and pot.rebuild_count - 1 - pot.rebuild_on_device_count
+            != pot.rebuild_overflow_count):
+        raise AssertionError(f"{tag}: a host rebuild after the first that is not an overflow "
+                             f"({pot.rebuild_count} builds, {pot.rebuild_on_device_count} on "
+                             f"the device, {pot.rebuild_overflow_count} overflows)")
+    return probe, step_s, launches, peak
+
+
+def md_summary(pot, probe, step_s, peak, launches, expected):
+    """Step times by what the skin cache did (the constructor's calculate
+    apart), refresh and host-build times, counters, displacements, memory."""
+    import numpy as np
+
+    kinds = [c["kind"] for c in probe.calls[1:]]
+    by = {k: [s * 1e3 for s, kk in zip(step_s, kinds) if kk == k]
+          for k in ("hit", "refresh", "host")}
+    pos = [c["positions"] for c in probe.calls]
+    disp = [float(np.sqrt(((b - a) ** 2).sum(axis=1)).max()) for a, b in zip(pos, pos[1:])]
+    return {
+        "n_atoms": len(pos[0]), "steps": len(step_s), "e_cap": pot.last_stats["e_cap"],
+        "n_edges": pot.last_stats["n_edges"],
+        "first_calculate_ms": probe.calls[0]["s"] * 1e3,
+        "first_host_build_s": probe.calls[0]["neighbor_s"],
+        "step_ms_median": {k: median(v) for k, v in by.items()},
+        "steps_by_kind": {k: len(v) for k, v in by.items()},
+        "atoms_per_s": len(pos[0]) * len(step_s) / sum(step_s),
+        "refresh_ms": [c["rebuild_s"] * 1e3 for c in probe.calls if c["kind"] == "refresh"],
+        "host_rebuild_s": [c["neighbor_s"] for c in probe.calls[1:] if c["kind"] == "host"],
+        "rebuild_count": pot.rebuild_count,
+        "rebuild_on_device_count": pot.rebuild_on_device_count,
+        "rebuild_overflow_count": pot.rebuild_overflow_count,
+        "max_displacement_per_step": {"max": max(disp), "median": median(disp)},
+        "max_memory_allocated_bytes": peak,
+        "launches": launches, "launches_expected": expected,
+    }
+
+
+def check_md(tag, probe, atoms, fresh, r_build):
+    """At least 2 device refreshes; at each refresh frame and the last
+    frame the result against a fresh host-built graph; at each refresh frame
+    the pair set against a float64 host search."""
+    refreshes = [c for c in probe.calls if c["kind"] == "refresh"]
+    if len(refreshes) < 2:
+        raise AssertionError(f"{tag}: {len(refreshes)} device refreshes, fewer than 2")
+    band = [pair_set_check(c, atoms.pbc, r_build) for c in refreshes]
+    log(f"[{tag}] pair sets of {len(refreshes)} refreshed graphs equal the host search's "
+        f"below r_build - {PAIR_BAND} Å; pairs within {PAIR_BAND} Å of r_build = {r_build}: "
+        f"{band}")
+    frames = refreshes + ([probe.calls[-1]] if probe.calls[-1] is not refreshes[-1] else [])
+    return fresh_host_check(fresh, atoms, frames, tag), band
+
+
+def phase_md(torch):
+    """``[md]``: MACE at MACE_KW on the 2048-atom crystal, 60 nvt_bussi
+    steps of MACE_MD_TIMESTEP."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import MACE_KW, bench_atoms
+
+    model = MACE(MACEConfig(**MACE_KW))
+    params = model.init(0)
+    pot = DistPotential(model, params, device="cuda", skin=0.5)
+    structure = bench_atoms()
+    atoms = structure[0]
+    probe, step_s, launches, peak = run_md(torch, pot, structure, MD_STEPS, "md",
+                                           timestep=MACE_MD_TIMESTEP)
+    per_calc = [MACE_KW["num_interactions"] * 2 * chunk_layout(c["e_cap"], MACE_KW["edge_chunk"])[2]
+                for c in probe.calls]
+    expected = {k: 0 for k in launches}
+    expected["segment_sum"] = sum(per_calc)
+    log(f"[md] segment_sum launches: {len(probe.calls)} calculates ({MD_STEPS} steps + the "
+        f"constructor's) x {MACE_KW['num_interactions']} interactions x 2K (K edge chunks "
+        f"of each calculate's e_cap) = {expected['segment_sum']}; counted {launches}")
+    if launches != expected:
+        raise AssertionError(f"[md] kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+    summary = md_summary(pot, probe, step_s, peak, launches, expected)
+    fresh = DistPotential(model, params, device="cuda", skin=0.0)
+    summary["vs_fresh_host_graph"], summary["pairs_in_band"] = check_md(
+        "md", probe, atoms, fresh, MACE_KW["cutoff"] + 0.5)
+    log(f"[md] {json.dumps(summary)}")
+    return launches
+
+
+def phase_md_tensornet(torch):
+    """``[md-tensornet]``: TensorNet at TENSORNET_KW on the 16384-atom
+    crystal, 40 nvt_bussi steps with the device refresh, then the same 40
+    from the same seed with ``device_rebuild=False``."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
+
+    model = TensorNet(TensorNetConfig(**TENSORNET_KW))
+    params = model.init(0)
+    layers = TENSORNET_KW["num_layers"]
+    out = {}
+    for device_rebuild in (True, False):
+        tag = "md-tensornet" if device_rebuild else "md-tensornet host-rebuild"
+        pot = DistPotential(model, params, device="cuda", skin=0.5,
+                            device_rebuild=device_rebuild)
+        structure = bench_atoms(TENSORNET_REPS)
+        probe, step_s, launches, peak = run_md(torch, pot, structure, MD_TENSORNET_STEPS, tag)
+        n_calc = len(probe.calls)
+        expected = {k: 0 for k in launches}
+        expected["tensornet_embed_aggregate"] = n_calc
+        expected["tensornet_interaction_aggregate"] = n_calc * layers
+        expected["tensornet_interaction_backward"] = n_calc * layers
+        log(f"[{tag}] edge-aggregate launches: {n_calc} calculates x (1 embed + {layers} "
+            f"interactions + {layers} interaction backwards); counted {launches}")
+        if launches != expected:
+            raise AssertionError(f"[{tag}] kernel launch counts {launches} differ from the "
+                                 f"derivation {expected}")
+        summary = md_summary(pot, probe, step_s, peak, launches, expected)
+        if device_rebuild:
+            fresh = DistPotential(model, params, device="cuda", skin=0.0)
+            summary["vs_fresh_host_graph"], summary["pairs_in_band"] = check_md(
+                tag, probe, structure[0], fresh, TENSORNET_KW["cutoff"] + 0.5)
+            del fresh
+        elif pot.rebuild_on_device_count:
+            raise AssertionError(f"[{tag}] refreshed on the device with device_rebuild=False")
+        log(f"[{tag}] {json.dumps(summary)}")
+        out[device_rebuild] = launches
+        del pot, probe
+        torch.cuda.empty_cache()
+    return out[True]
+
+
+def phase_relax_chgnet(torch):
+    """``[relax-chgnet]``: CHGNet at CHGNET_KW with magmoms on
+    ``examples/02_relax_chgnet.py``'s structure (864 Li, cell x 1.02, 0.08 Å
+    noise, seed 1): FIRE with the cell relaxed, 30 steps. Every step
+    changes the cell, so every calculate is a host rebuild."""
+    import numpy as np
+
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms, DistPotential, Relaxer
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW
+
+    rng = np.random.default_rng(1)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lattice = geometry.make_supercell(unit, np.eye(3) * 3.6, (6, 6, 6))
+    cart = geometry.frac_to_cart(frac, lattice) + rng.normal(0, 0.08, (len(frac), 3))
+    atoms = Atoms(numbers=np.full(len(cart), 3), positions=cart, cell=lattice * 1.02)
+    model = CHGNet(CHGNetConfig(**CHGNET_KW))
+    params = model.init(0)
+    pot = DistPotential(model, params, device="cuda", skin=0.4, compute_magmom=True)
+    probe = Probe(pot)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    t = time.perf_counter()
+    out = Relaxer(probe, optimizer="fire", relax_cell=True, **RELAX_TOL).relax(
+        atoms, steps=RELAX_STEPS)
+    wall = time.perf_counter() - t
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    n_calc, blocks = len(probe.calls), CHGNET_KW["num_blocks"]
+    if n_calc != out.nsteps + (0 if out.converged else 1):
+        raise AssertionError(f"[relax-chgnet] {n_calc} calculates for {out.nsteps} steps")
+    expected = {k: 0 for k in launches}
+    expected["chgnet_atom_conv_aggregate"] = n_calc * blocks
+    expected["chgnet_line_aggregate"] = n_calc * (blocks - 1)
+    expected["chgnet_row_projection"] = n_calc * (blocks + 2 * (blocks - 1))
+    log(f"[relax-chgnet] launches: {n_calc} calculates x ({blocks} atom convs + {blocks - 1} "
+        f"line convs + {blocks + 2 * (blocks - 1)} row projections); counted {launches}")
+    if launches != expected:
+        raise AssertionError(f"[relax-chgnet] kernel launch counts {launches} differ from "
+                             f"the derivation {expected}")
+    if pot.rebuild_on_device_count or pot.rebuild_count != n_calc:
+        raise AssertionError(f"[relax-chgnet] {pot.rebuild_count} builds for {n_calc} "
+                             f"calculates, {pot.rebuild_on_device_count} on the device: every "
+                             f"calculate of a cell relaxation is a host rebuild")
+    fresh = DistPotential(model, params, device="cuda", skin=0.0, compute_magmom=True)
+    worst = fresh_host_check(fresh, atoms.copy(), [probe.calls[-1]], "relax-chgnet")
+    ms = [c["s"] * 1e3 for c in probe.calls[1:]]
+    summary = {
+        "n_atoms": len(atoms), "converged": out.converged, "nsteps": out.nsteps,
+        "energy": out.energy, "fmax": float(np.abs(out.forces).max()),
+        "volume_ratio": abs(np.linalg.det(out.atoms.cell)) / abs(np.linalg.det(atoms.cell)),
+        "wall_s": wall, "calculate_ms_median": median(ms), "calculate_ms_max": max(ms),
+        "host_build_s_median": median([c["neighbor_s"] for c in probe.calls]),
+        "atoms_per_s": len(atoms) * len(ms) / (sum(ms) / 1e3),
+        "rebuild_count": pot.rebuild_count,
+        "rebuild_on_device_count": pot.rebuild_on_device_count,
+        "rebuild_overflow_count": pot.rebuild_overflow_count,
+        "max_displacement_per_step": max(
+            float(np.sqrt(((b["positions"] - a["positions"]) ** 2).sum(axis=1)).max())
+            for a, b in zip(probe.calls, probe.calls[1:])),
+        "max_memory_allocated_bytes": peak, "vs_fresh_host_graph": worst,
+        "launches": launches, "launches_expected": expected,
+    }
+    log(f"[relax-chgnet] {json.dumps(summary)}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1348,6 +1718,14 @@ def main() -> int:
         num_species=4, channels=16, l_max=2, num_layers=2, num_bessel=6, num_experts=4,
         cutoff=3.2, avg_num_neighbors=12.0, edge_chunk=256)), "small-escn",
         small_escn_atoms, skin=0.5)
+    torch.cuda.empty_cache()
+    md_launches = phase_md(torch)
+    torch.cuda.empty_cache()
+    md_tn_launches = phase_md_tensornet(torch)
+    torch.cuda.empty_cache()
+    relax_launches = phase_relax_chgnet(torch)
+    md_launches = {k: md_launches[k] + md_tn_launches[k] + relax_launches[k]
+                   for k in md_launches}
 
     headline = timed[-1]  # the (32768, 40, 128) chunk of interaction 1
     kernels = [{
@@ -1412,6 +1790,8 @@ def main() -> int:
         "bound_ms_fp32_cores": so2_timed["bound_ms_fp32_cores"],
         "backward_ms": so2_timed["backward_ms"], "pack_ms": so2_timed["pack_ms"],
     })
+    for k in kernels:  # each kernel's launches in [md], [md-tensornet], [relax-chgnet]
+        k["md_launches"] = md_launches[k["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

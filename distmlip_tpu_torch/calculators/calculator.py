@@ -9,6 +9,11 @@ With ``skin > 0`` the neighbor graph is built at cutoff+skin, uploaded
 once, and REUSED across steps — only positions are re-uploaded — until any
 atom moves skin/2 from its build-time position (Verlet-list criterion:
 results stay exact because the model envelopes zero the extra skin edges).
+Such an invalidation, with the structure unchanged and no bond graph, is
+served on the graph's device (``device_rebuild``): the cell list of
+``neighbors/device.py`` rebuilds the edge arrays and ``refresh_edges``
+swaps them into the cached graph in place; only an overflow of its
+capacities takes the host rebuild, with grown caps.
 
 For a model with a bond graph (CHGNet: ``cfg.use_bond_graph``) the host
 also builds the bond and line graphs at ``bond_cutoff + skin``. With
@@ -16,9 +21,9 @@ also builds the bond and line graphs at ``bond_cutoff + skin``. With
 output (the fused site readout, ``model.energy_and_aux_fn``).
 
 Not ported yet (queued in ROADMAP.md): the background prefetch rebuild,
-the on-device graph refresh, telemetry records and timings, the contract
-audit, the separate-forward site readout (``fused_site_readout=False``),
-a compute dtype other than float32, and ``num_partitions > 1``.
+telemetry records, the contract audit, the separate-forward site readout
+(``fused_site_readout=False``), a compute dtype other than float32, and
+``num_partitions > 1``.
 
 Per-system conditioning (eSCN's charge, spin and dataset) is read from
 ``atoms.info`` (the ASE convention), range-checked against the model's
@@ -28,13 +33,18 @@ charge rebuilds.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..neighbors import neighbor_list
+from ..neighbors.device import (as_device_arrays, build_cell_list_spec,
+                                grow_caps_after_overflow)
 from ..parallel import make_potential_fn
-from ..partition import CapacityPolicy, build_partitioned_graph, build_plan
+from ..partition import (CapacityPolicy, build_partitioned_graph, build_plan,
+                         device_refresh_graph)
 from ..utils.checkpoint import params_from_numpy
 from .atoms import EV_A3_TO_GPA, Atoms, map_species, max_displacement
 
@@ -63,6 +73,13 @@ class DistPotential:
         side of an on-card comparison — never taken silently).
     device : "cuda" (the default, also for None) or "cpu". Requesting CUDA
         without a card raises.
+    device_rebuild : "auto" (the default) or True rebuilds the neighbor
+        graph on the device when the skin cache invalidates, for potentials
+        with ``skin > 0`` and no bond graph (the cell list of
+        ``neighbors.device`` and an in-place edge swap: no host search, no
+        upload). A capacity overflow takes the host rebuild with grown caps
+        (counted in ``rebuild_overflow_count``). False always rebuilds on
+        the host.
     """
 
     def __init__(
@@ -79,6 +96,7 @@ class DistPotential:
         fused_site_readout: bool = True,
         kernels: bool = True,
         device=None,
+        device_rebuild: bool | str = "auto",
     ):
         if num_partitions not in (None, 1):
             raise NotImplementedError(
@@ -92,6 +110,9 @@ class DistPotential:
                 "bfloat16 is queued in ROADMAP.md")
         if not isinstance(kernels, bool):
             raise TypeError(f"kernels must be True or False, got {kernels!r}")
+        if not (isinstance(device_rebuild, bool) or device_rebuild == "auto"):
+            raise TypeError(
+                f"device_rebuild must be 'auto', True or False, got {device_rebuild!r}")
         if not fused_site_readout:
             raise NotImplementedError(
                 "fused_site_readout=False (a separate forward for the site "
@@ -123,11 +144,32 @@ class DistPotential:
         # n_edges; with a bond graph b_cap, n_bonds, l_cap, n_lines), as
         # the JAX package's last_stats
         self.last_stats: dict = {}
-        # graphs built by calculate() (host neighbor search + upload)
+        # graphs used by calculate(): host builds plus on-device refreshes
         self.rebuild_count = 0
+        # on-device neighbor rebuild (neighbors/device.py): when the skin
+        # cache invalidates on a potential without a bond graph, the edge
+        # arrays are rebuilt on the device and swapped in place
+        self.device_rebuild = device_rebuild == "auto" or device_rebuild
+        self.rebuild_on_device_count = 0
+        self.rebuild_overflow_count = 0
+        self._nbr_spec = None       # (CellListStatic, arrays on the device) or None
+        self._cell_cap_floor = 4    # grown after device-cell overflows
+        # whether the last calculate() used a graph built at its positions
+        self.last_build_fresh = False
+        # seconds of the last calculate()'s phases: neighbor_s (host build,
+        # or the cache check), partition_s (cache install or positions
+        # upload), rebuild_s (the device refresh), device_s (the potential)
+        self.last_timings: dict = {}
 
     def _species(self, numbers: np.ndarray) -> np.ndarray:
         return map_species(numbers, self.species_map)
+
+    def _device_refresh_eligible(self) -> bool:
+        """Whether the on-device neighbor rebuild can serve skin-cache
+        invalidations: skin reuse on, no bond graph (the line-graph arrays
+        cannot be refreshed in place), and ``device_rebuild`` set. The port
+        runs one partition, so there is no halo to re-partition."""
+        return self.device_rebuild and self.skin > 0.0 and not self.use_bond_graph
 
     def _build_graph(self, atoms: Atoms):
         r_build = self.cutoff + self.skin
@@ -145,6 +187,14 @@ class DistPotential:
             host.stats.update(b_cap=graph.b_cap, n_bonds=int(graph.bond_map_mask.sum()),
                               l_cap=graph.line_mask.shape[1],
                               n_lines=int(graph.line_mask.sum()))
+        if self._device_refresh_eligible():
+            # the spec for refreshing THIS graph's capacity bucket on the
+            # device; its arrays go to the device once, here
+            static, arrays = build_cell_list_spec(
+                atoms.cell, atoms.pbc, r_build, len(atoms), graph.n_cap,
+                graph.e_cap, positions=atoms.positions,
+                min_cell_cap=self._cell_cap_floor, dtype=graph.lattice.dtype)
+            self._nbr_spec = (static, as_device_arrays(arrays, self.device))
         return graph.to(self.device), host
 
     @staticmethod
@@ -171,43 +221,110 @@ class DistPotential:
             raise ValueError(
                 f"dataset {system['dataset']} outside [0, {cfg.num_datasets})")
 
+    def _structure_matches(self, atoms: Atoms) -> bool:
+        """The cached graph's structure (species, cell, pbc, conditioning
+        scalars) is ``atoms``'."""
+        _, _, _, numbers0, cell0, pbc0, system0 = self._cache
+        return (len(numbers0) == len(atoms)
+                and np.array_equal(numbers0, atoms.numbers)
+                and np.array_equal(cell0, atoms.cell)
+                and np.array_equal(pbc0, atoms.pbc)
+                and system0 == self._system(atoms))
+
     def _cache_valid(self, atoms: Atoms) -> bool:
         """The cached graph holds while the structure (and its conditioning
         scalars) is the same and no atom has moved skin/2 from its build
         position (Verlet criterion)."""
         if self.skin <= 0.0 or self._cache is None:
             return False
-        _, _, pos0, numbers0, cell0, pbc0, system0 = self._cache
-        return (len(numbers0) == len(atoms)
-                and np.array_equal(numbers0, atoms.numbers)
-                and np.array_equal(cell0, atoms.cell)
-                and np.array_equal(pbc0, atoms.pbc)
-                and system0 == self._system(atoms)
-                and max_displacement(atoms.positions, pos0) < 0.5 * self.skin)
+        return (self._structure_matches(atoms)
+                and max_displacement(atoms.positions, self._cache[2]) < 0.5 * self.skin)
+
+    def _positions(self, host, graph, atoms: Atoms) -> torch.Tensor:
+        """``atoms.positions`` as the graph's (1, N_cap, 3) tensor on the device."""
+        dtype = np.float32 if graph.positions.dtype == torch.float32 else np.float64
+        return torch.as_tensor(
+            host.scatter_global(atoms.positions.astype(dtype), graph.n_cap)).to(self.device)
+
+    def _install_refreshed(self, graph, build_positions) -> None:
+        """Swap a device-refreshed graph (same structure, same shapes) into
+        the skin cache with the positions it was rebuilt at."""
+        _g, host, _pos0, numbers, cell, pbc, system = self._cache
+        self._cache = (graph, host, np.array(build_positions, dtype=np.float64),
+                       numbers, cell, pbc, system)
+
+    def _try_device_refresh(self, atoms: Atoms):
+        """Rebuild the cached graph's edges on the device at the current
+        positions (skin-cache invalidation, structure unchanged). Returns
+        ``(graph, host, positions)`` for the potential, or None when
+        ineligible, when the structure changed, or when a capacity
+        overflowed; the caller then takes the host rebuild, with the caps
+        grown here after an overflow."""
+        if (self._cache is None or self._nbr_spec is None
+                or not self._device_refresh_eligible()
+                or not self._structure_matches(atoms)):
+            return None
+        graph, host = self._cache[:2]
+        t0 = time.perf_counter()
+        positions = self._positions(host, graph, atoms)
+        t1 = time.perf_counter()
+        static, arrays = self._nbr_spec
+        graph2, n_edges, overflow = device_refresh_graph(static, arrays, graph, positions)
+        # the refresh's one device-to-host copy: the count and the flag
+        n_edges, overflow = torch.stack([n_edges, overflow.to(n_edges.dtype)]).tolist()
+        t2 = time.perf_counter()
+        if overflow:
+            self.rebuild_overflow_count += 1
+            # grow the sticky edge cap (the count is exact past e_cap) or
+            # double the cell capacity, so the host rebuild's buckets fit
+            self._cell_cap_floor = grow_caps_after_overflow(
+                self.caps, n_edges, graph.e_cap, static.cell_cap, self._cell_cap_floor)
+            self._nbr_spec = None  # made again, with the grown caps, by the host build
+            return None
+        self.rebuild_count += 1
+        self.rebuild_on_device_count += 1
+        self.last_build_fresh = True
+        host.stats["n_edges"] = n_edges
+        self._install_refreshed(graph2, atoms.positions)
+        self.last_timings = {"neighbor_s": 0.0, "partition_s": t1 - t0,
+                             "rebuild_s": t2 - t1}
+        return graph2, host, positions
 
     def _prepare(self, atoms: Atoms):
-        """Build or reuse the graph; returns (graph, host, positions) ready
-        for the potential."""
+        """Build, refresh or reuse the graph; returns (graph, host,
+        positions) ready for the potential."""
+        t0 = time.perf_counter()
         if not self._cache_valid(atoms):
+            # same structure, positions past the skin budget: rebuild the
+            # edges on the device instead of on the host
+            refreshed = self._try_device_refresh(atoms)
+            if refreshed is not None:
+                return refreshed
             graph, host = self._build_graph(atoms)
             self.rebuild_count += 1
+            self.last_build_fresh = True
+            t1 = time.perf_counter()
             if self.skin > 0.0:
                 self._cache = (graph, host, atoms.positions.copy(),
                                atoms.numbers.copy(), atoms.cell.copy(),
                                atoms.pbc.copy(), self._system(atoms))
+            self.last_timings = {"neighbor_s": t1 - t0,
+                                 "partition_s": time.perf_counter() - t1}
             return graph, host, graph.positions
+        self.last_build_fresh = False
         graph, host = self._cache[:2]
-        dtype = graph.positions.dtype
-        positions = host.scatter_global(
-            atoms.positions.astype(np.float32 if dtype == torch.float32
-                                   else np.float64), graph.n_cap)
-        return graph, host, torch.as_tensor(positions).to(self.device)
+        t1 = time.perf_counter()
+        positions = self._positions(host, graph, atoms)
+        self.last_timings = {"neighbor_s": t1 - t0,
+                             "partition_s": time.perf_counter() - t1}
+        return graph, host, positions
 
     def calculate(self, atoms: Atoms) -> dict:
         """Energy (eV), forces (eV/Å), stress (eV/Å^3, ASE sign convention),
         and magmoms (N,) with ``compute_magmom``."""
         self._validate_system(self._system(atoms))
         graph, host, positions = self._prepare(atoms)
+        t0 = time.perf_counter()
         out = self._potential(self.params, graph, positions)
         energy = float(out["energy"])
         forces = host.gather_owned(out["forces"].detach().cpu().numpy(), len(atoms))
@@ -223,4 +340,5 @@ class DistPotential:
         if "aux" in out:
             m = out["aux"]["magmoms"].cpu().numpy()
             result["magmoms"] = host.gather_owned(m, len(atoms))
+        self.last_timings["device_s"] = time.perf_counter() - t0
         return result

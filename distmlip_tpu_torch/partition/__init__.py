@@ -1,5 +1,6 @@
 from .capacity import CapacityPolicy, round_capacity
-from .graph import HostGraphData, PartitionedGraph, build_partitioned_graph
+from .graph import (HostGraphData, PartitionedGraph, build_partitioned_graph,
+                    device_refresh_graph, refresh_edges)
 from .partitioner import PartitionError, build_plan
 from .plan import PartitionPlan
 
@@ -10,6 +11,8 @@ __all__ = [
     "PartitionedGraph",
     "HostGraphData",
     "build_partitioned_graph",
+    "refresh_edges",
+    "device_refresh_graph",
     "CapacityPolicy",
     "round_capacity",
 ]

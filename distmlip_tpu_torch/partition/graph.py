@@ -7,9 +7,13 @@ returns numpy arrays; ``PartitionedGraph.to(device)`` turns them into torch
 tensors on that device.
 
 Only the fields a single-partition model reads are kept, among them the
-bond section of CHGNet's bond and line graphs. The halo tables (atom and
-bond), ring shifts and interior/frontier split of the JAX graph serve P>1
-and come with it (ROADMAP.md queue A).
+bond section of CHGNet's bond and line graphs, and ``e_split`` (always
+``e_cap`` at P=1). The halo tables (atom and bond), ring shifts and an
+active interior/frontier split of the JAX graph serve P>1 and come with it
+(ROADMAP.md queue A).
+
+``refresh_edges`` and ``device_refresh_graph`` swap edges rebuilt on the
+graph's device (``neighbors.device``) into a graph in place.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from typing import Any
 
 import numpy as np
 
+from ..neighbors.device import cell_list_neighbors
 from .capacity import CapacityPolicy
 from .plan import PartitionPlan
 
@@ -38,6 +43,9 @@ class PartitionedGraph:
     num_partitions: int
     n_cap: int
     e_cap: int
+    # interior/frontier boundary of the edge rows; e_split == e_cap is the
+    # one unsplit segment that every P=1 graph has
+    e_split: int
 
     # --- per-partition arrays, leading axis P ---
     positions: Any          # (P, N_cap, 3) owned rows valid
@@ -210,6 +218,7 @@ def build_partitioned_graph(
         num_partitions=P,
         n_cap=n_cap,
         e_cap=e_cap,
+        e_split=e_cap,
         positions=positions,
         species=spec,
         owned_mask=owned_mask,
@@ -233,3 +242,61 @@ def build_partitioned_graph(
     host = HostGraphData(plan=plan, global_ids=plan.global_ids,
                          owned_counts=owned_counts)
     return graph, host
+
+
+def refresh_edges(graph: PartitionedGraph, edge_src, edge_dst, edge_offset,
+                  n_edges) -> PartitionedGraph:
+    """Shape-preserving edge swap (``distmlip_tpu/partition/graph.py:440``).
+
+    Swaps freshly built edge arrays (from ``neighbors.device``, on the
+    graph's device) into an existing single-partition ``PartitionedGraph``
+    without changing any static field: same caps, same shapes. It
+    re-establishes the padding contract, so the search stays contract-free:
+    padded slots are masked, their ``dst`` repeats the last real value
+    (nondecreasing, in-bounds), their ``src`` and ``offset`` are zeroed.
+    ``n_edges`` is a 0-d tensor or an int.
+
+    Refuses a graph of more than one partition, a split edge layout
+    (``e_split != e_cap``) and a bond graph (the line-graph arrays would
+    go stale; bond-graph models keep the host rebuild).
+    """
+    import torch
+
+    if graph.num_partitions != 1:
+        raise ValueError(
+            f"refresh_edges requires a single-partition graph (got "
+            f"P={graph.num_partitions}); multi-partition graphs rebuild on "
+            f"the host")
+    if graph.e_split != graph.e_cap:
+        raise ValueError(
+            "refresh_edges requires an unsplit edge layout "
+            f"(e_split={graph.e_split} != e_cap={graph.e_cap})")
+    if graph.has_bond_graph:
+        raise ValueError(
+            "refresh_edges cannot rebuild bond/line-graph arrays; "
+            "bond-graph models use the host rebuild path")
+    e_cap = graph.e_cap
+    dev = graph.edge_dst.device
+    n_edges = torch.as_tensor(n_edges, device=dev)
+    mask = torch.arange(e_cap, device=dev) < n_edges
+    last = edge_dst[torch.clamp(n_edges - 1, 0, e_cap - 1)]
+    dst = torch.where(mask, edge_dst, last).to(graph.edge_dst.dtype)
+    src = torch.where(mask, edge_src, 0).to(graph.edge_src.dtype)
+    off = torch.where(mask[:, None], edge_offset, 0).to(graph.edge_offset.dtype)
+    return dataclasses.replace(graph, edge_src=src[None], edge_dst=dst[None],
+                               edge_offset=off[None], edge_mask=mask[None])
+
+
+def device_refresh_graph(static, arrays, graph: PartitionedGraph, positions):
+    """Cell-list rebuild + in-place swap for a single-structure graph
+    (``distmlip_tpu/partition/graph.py:487-517``).
+
+    ``positions``: (1, N_cap, 3) input-frame coordinates on the graph's
+    device; ``arrays`` the spec's arrays on that device. Returns ``(graph',
+    n_edges, overflow)`` with 0-d tensors; on overflow the caller must
+    discard ``graph'`` and rebuild on the host with grown caps.
+    """
+    src, dst, off, n_edges, overflow = cell_list_neighbors(
+        static, arrays, positions[0])
+    graph = refresh_edges(graph, src, dst, off.to(positions.dtype), n_edges)
+    return graph, n_edges, overflow

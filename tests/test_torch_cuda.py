@@ -800,3 +800,90 @@ def test_escn_on_card_matches_cpu(card):
     assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
     np.testing.assert_allclose(gpu["forces"], cpu["forces"], atol=1e-4)
     np.testing.assert_allclose(gpu["stress"], cpu["stress"], atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_device_refresh_on_card_matches_cpu(card):
+    """The on-device neighbor rebuild on card tensors against the same
+    rebuild on the CPU: identical arrays (its float arithmetic is
+    elementwise and in a fixed order, so both devices round alike). The
+    cell list on a triclinic cell, a cell smaller than the cutoff and
+    padded rows, then the refresh of a 2048-atom graph moved by ~0.2 Å."""
+    from distmlip_tpu_torch.neighbors import (build_cell_list_spec, device_neighbor_list,
+                                              neighbor_list_numpy)
+    from distmlip_tpu_torch.partition import (build_partitioned_graph, build_plan,
+                                              device_refresh_graph)
+    from distmlip_tpu_torch.tools.workload import bench_atoms
+
+    rng = np.random.default_rng(0)
+    tri = np.array([[8.0, 0, 0], [2.5, 7.0, 0], [1.5, -2.0, 6.5]])
+    for cart, lat, r, n_cap in ((rng.random((30, 3)) @ tri, tri, 3.2, 30),
+                                (np.array([[0.5, 0.5, 0.5], [1.2, 0.4, 1.7]]),
+                                 np.eye(3) * 2.0, 2.9, 2),
+                                (rng.random((25, 3)) @ (np.eye(3) * 7.0), np.eye(3) * 7.0,
+                                 2.8, 64)):
+        pos = np.zeros((n_cap, 3), np.float32)
+        pos[:len(cart)] = cart
+        static, arrays = build_cell_list_spec(lat, [1, 1, 1], r, len(cart), n_cap, 8192,
+                                              positions=cart)
+        cpu = device_neighbor_list(static, arrays, torch.from_numpy(pos))
+        gpu = device_neighbor_list(static, arrays, torch.from_numpy(pos).to(card))
+        for a, b in zip(cpu, gpu):
+            assert torch.equal(a, b.cpu())
+
+    atoms, _ = bench_atoms(8)
+    r = 5.5
+    nl = neighbor_list_numpy(atoms.positions, atoms.cell, atoms.pbc, r)
+    plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r)
+    graph, host = build_partitioned_graph(plan, nl, atoms.numbers, atoms.cell)
+    static, arrays = build_cell_list_spec(atoms.cell, atoms.pbc, r, len(atoms), graph.n_cap,
+                                          graph.e_cap, positions=atoms.positions)
+    moved = atoms.positions + rng.normal(0, 0.12, atoms.positions.shape)
+    pos = torch.from_numpy(host.scatter_global(moved.astype(np.float32), graph.n_cap))
+    outs = []
+    for dev in ("cpu", card):
+        g, n_edges, overflow = device_refresh_graph(
+            static, {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()},
+            graph.to(dev), pos.to(dev))
+        assert not bool(overflow)
+        outs.append((g, int(n_edges)))
+    (gc, nc), (gg, ng) = outs
+    assert nc == ng > 0
+    for name in ("edge_src", "edge_dst", "edge_offset", "edge_mask"):
+        assert torch.equal(getattr(gc, name), getattr(gg, name).cpu()), name
+
+
+@pytest.mark.cuda
+def test_mace_nve_on_card_matches_cpu(card):
+    """10 nve steps of a small MACE on light atoms, with skin-cache
+    invalidations refreshed on the device: the card's run (kernels) and the
+    CPU's (plain) take the same refreshes and drift in total energy alike,
+    within the float32 bar (1e-5 of the potential energy)."""
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms, DistPotential, MolecularDynamics
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+
+    rng = np.random.default_rng(0)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lat = geometry.make_supercell(unit, np.eye(3) * 4.0, (2, 2, 2))
+    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.05, (32, 3))
+    model = MACE(MACEConfig(num_species=4, channels=16, l_max=3, a_lmax=3,
+                            hidden_lmax=1, correlation=3, cutoff=4.0,
+                            edge_chunk=64, node_chunk=16))
+    params = model.init(0)
+    runs = []
+    for dev in (card, "cpu"):
+        atoms = Atoms(numbers=np.arange(32) % 3 + 1, positions=cart, cell=lat)
+        atoms.set_maxwell_boltzmann_velocities(1000.0, rng=np.random.default_rng(3))
+        pot = DistPotential(model, params, device=dev, skin=0.5)
+        md = MolecularDynamics(atoms, pot, ensemble="nve", timestep=1.0)
+        e0 = md.results["energy"] + atoms.kinetic_energy()
+        md.run(10)
+        drift = md.results["energy"] + atoms.kinetic_energy() - e0
+        runs.append((drift, md.results["energy"], atoms.positions.copy(),
+                     pot.rebuild_on_device_count, pot.rebuild_count))
+    (dg, eg, pg, rg, cg), (dc, ec, pc, rc, cc) = runs
+    assert rg >= 1 and (rg, cg) == (rc, cc) and cg == 1 + rg
+    assert abs(dg - dc) < 1e-5 * abs(ec)
+    assert abs(eg - ec) < 1e-5 * abs(ec)
+    np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-4)

@@ -61,7 +61,7 @@ def test_neighbor_list_and_p1_graph_bit_for_bit(name):
                              caps=JCaps())
     tg, th = build_partitioned_graph(build_plan(b, lat, [1, 1, 1], 1, r), b, spec, lat,
                                      caps=CapacityPolicy())
-    for k in ("num_partitions", "n_cap", "e_cap"):
+    for k in ("num_partitions", "n_cap", "e_cap", "e_split"):
         assert getattr(jg, k) == getattr(tg, k), k
     assert jg.e_split == jg.e_cap and tuple(jg.shifts) == ()  # P=1: unsplit, no halo
     for k in ARRAY_FIELDS:
