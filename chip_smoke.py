@@ -1646,6 +1646,361 @@ def phase_relax_chgnet(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slab graph parallelism: P partitions as one flattened graph on one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_CALCS = 6  # per potential: the first calculate (host build) + 5 warm ones
+PARALLEL_MD_STEPS = 10
+
+
+def parallel_geometries(atoms, rng):
+    """The structure, then PARALLEL_CALCS - 1 MD-like moves of 0.01 Å (inside
+    the 0.5 Å skin: every calculate after the first is a cache hit)."""
+    pos = [atoms.positions.copy()]
+    for _ in range(PARALLEL_CALCS - 1):
+        pos.append(pos[-1] + rng.normal(0, 0.01, pos[-1].shape))
+    return pos
+
+
+def run_calcs(torch, pot, atoms, geometries):
+    """``pot`` over the geometries: results, seconds per calculate, peak
+    memory from just before."""
+    results, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for pos in geometries:
+        atoms.positions = pos.copy()
+        t = time.perf_counter()
+        res = pot.calculate(atoms)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        check_result(res, len(atoms))
+        results.append(res)
+    if pot.rebuild_count != 1:
+        raise AssertionError(f"graph rebuilt after the first calculate ({pot.rebuild_count} "
+                             f"builds)")
+    return results, step_s, torch.cuda.max_memory_allocated()
+
+
+def worst_deltas(results, refs, border):
+    """The largest differences over the geometries: rel dE, max |dF| (and on
+    the border atoms alone), max |dS|, max |dm| with magmoms."""
+    import numpy as np
+
+    d = {"rel_dE": 0.0, "max_dF": 0.0, "max_dF_border": 0.0, "max_dS": 0.0}
+    if "magmoms" in refs[0]:
+        d["max_dm"] = 0.0
+    for res, ref in zip(results, refs):
+        df = np.abs(res["forces"] - ref["forces"])
+        d["rel_dE"] = max(d["rel_dE"], abs(res["energy"] - ref["energy"]) / abs(ref["energy"]))
+        d["max_dF"] = max(d["max_dF"], float(df.max()))
+        d["max_dF_border"] = max(d["max_dF_border"], float(df[border].max()))
+        d["max_dS"] = max(d["max_dS"], float(np.abs(res["stress"] - ref["stress"]).max()))
+        if "max_dm" in d:
+            d["max_dm"] = max(d["max_dm"],
+                              float(np.abs(res["magmoms"] - ref["magmoms"]).max()))
+    return d
+
+
+def within_bar(d):
+    return (d["rel_dE"] < 1e-5 and d["max_dF"] < 1e-4 and d["max_dS"] < 1e-4
+            and d.get("max_dm", 0.0) < 1e-4)
+
+
+def phase_parallel(torch, tag, model, params, atoms, rng, parts, per_calc, pot_kw,
+                   segment_check=None):
+    """``[parallel-*]``: the structure through ``DistPotential(num_partitions=P)``
+    for each P in ``parts``, the P partitions as one flattened graph on the
+    card, against P = 1 (kernels on) and against P with ``kernels=False``, on
+    the same PARALLEL_CALCS geometries. Every launch count is set to 0 just
+    before P's potential is made and read after its last calculate, and must
+    equal ``per_calc(P, stats)`` per calculate. Prints the plan (slab axis
+    and width, owned and halo rows per partition, e_split / e_cap, shifts,
+    halo copies), step ms (median of the warm calculates) at P and P = 1,
+    peak memory and the deltas. ``segment_check(lg)`` then holds the kernels
+    against their plain versions on the flattened graph's segments (not
+    counted). Returns the launches summed over ``parts`` and the segment
+    checks' worst errors by kernel."""
+    import numpy as np
+
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+
+    geometries = parallel_geometries(atoms, rng)
+    pot = DistPotential(model, params, device="cuda", skin=0.5, **pot_kw)
+    ref1, s1, peak1 = run_calcs(torch, pot, atoms, geometries)
+    del pot
+    torch.cuda.empty_cache()
+    total, seg_errs = {}, {}
+    for P in parts:
+        for k in launch_counts:
+            launch_counts[k] = 0
+        pot = DistPotential(model, params, device="cuda", skin=0.5, num_partitions=P,
+                            **pot_kw)
+        res, sP, peakP = run_calcs(torch, pot, atoms, geometries)
+        launches = dict(launch_counts)
+        stats = dict(pot.last_stats)
+        graph, host = pot._cache[:2]
+        per = per_calc(P, stats)
+        expected = {k: len(geometries) * per.get(k, 0) for k in launches}
+        log(f"[{tag}] P={P}: launches per calculate {json.dumps(per)} x {len(geometries)} "
+            f"calculates; counted {launches}")
+        if launches != expected:
+            raise AssertionError(f"[{tag}] P={P}: kernel launch counts {launches} differ "
+                                 f"from the derivation {expected}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        border = np.nonzero(host.plan.nodes_to_partition >= 0)[0]
+        plan = {k: stats[k] for k in ("axis", "owned_per_part", "halo_per_part",
+                                      "edges_per_part", "frontier_per_part", "e_split",
+                                      "e_cap", "n_cap", "shifts", "halo_copies",
+                                      "bond_halo_copies")}
+        plan["slab_width_A"] = float(geometry.plane_spacings(atoms.cell)[stats["axis"]] / P)
+        plan["border_atoms"] = int(len(border))
+        log(f"[{tag}] P={P} plan: {json.dumps(plan)}")
+        if segment_check is not None:
+            for name, err in segment_check(local_graph_from_stacked(graph)).items():
+                seg_errs[name] = max(seg_errs.get(name, 0.0), err)
+        del pot, graph, host
+        torch.cuda.empty_cache()
+        before = dict(launch_counts)
+        plain = DistPotential(model, params, device="cuda", skin=0.5, num_partitions=P,
+                              kernels=False, **pot_kw)
+        refp, sp, peakp = run_calcs(torch, plain, atoms, geometries)
+        if dict(launch_counts) != before:
+            raise AssertionError(f"[{tag}] the kernels=False reference launched a kernel")
+        del plain
+        torch.cuda.empty_cache()
+        vs_p1, vs_plain = worst_deltas(res, ref1, border), worst_deltas(res, refp, border)
+        summary = {
+            "n_atoms": len(atoms), "num_partitions": P,
+            "step_ms_median": statistics.median(sP[1:]) * 1e3,
+            "step_ms": [x * 1e3 for x in sP[1:]], "first_calculate_ms": sP[0] * 1e3,
+            "p1_step_ms_median": statistics.median(s1[1:]) * 1e3,
+            "plain_step_ms_median": statistics.median(sp[1:]) * 1e3,
+            "max_memory_allocated_bytes": peakP, "p1_max_memory_allocated_bytes": peak1,
+            "plain_max_memory_allocated_bytes": peakp,
+            "vs_p1": vs_p1, "vs_plain": vs_plain, "energy": res[-1]["energy"],
+            "launches": launches, "launches_expected": expected,
+        }
+        log(f"[{tag}] P={P}: {json.dumps(summary)}")
+        if not (within_bar(vs_p1) and within_bar(vs_plain)):
+            raise AssertionError(f"[{tag}] P={P} disagrees with P=1 or with its plain "
+                                 f"reference")
+    if segment_check is not None:
+        log(f"[{tag}] kernels on the flattened graphs' segments agree with their plain "
+            f"versions: max |err| {json.dumps(seg_errs)}")
+    return total, seg_errs
+
+
+def _segments(lg):
+    """(name, edge-row slice) of the flattened graph's sorted segments."""
+    s = lg.e_split
+    return (("interior", slice(0, s)), ("frontier", slice(s, None)))
+
+
+def _chunk_checks(torch, lg, chunk, width, seed):
+    """B1 on the first edge chunk of each segment of the model's chunk
+    layout (``chunk_layout`` with e_split), random rows of the model's width."""
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, valid, K, c = chunk_layout(lg.e_cap, chunk, lg.e_split)
+    rows = torch.as_tensor(rows, dtype=torch.long, device="cuda")
+    valid = torch.as_tensor(valid, device="cuda")
+    errs = []
+    for k in sorted({0, int((rows < lg.e_split).sum()) // c}):  # first interior, first frontier
+        sl = slice(k * c, (k + 1) * c)
+        ids, mask = lg.edge_dst[rows[sl]], lg.edge_mask[rows[sl]] & valid[sl]
+        data = torch.randn((c,) + width, generator=gen, device="cuda")
+        errs.append(check_segment_sum(torch, data, ids, mask, lg.n_cap))
+    return {"segment_sum": max(errs)}
+
+
+def phase_parallel_tensornet(torch):
+    """``[parallel-tensornet]``: TensorNet at TENSORNET_KW on the 16384-atom
+    crystal at P = 2 and 4. Per calculate: the embed once per segment, each
+    layer's interaction and its backward kernel once per segment."""
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
+
+    model = TensorNet(TensorNetConfig(**TENSORNET_KW))
+    layers, c = TENSORNET_KW["num_layers"], TENSORNET_KW["units"]
+
+    def per_calc(P, stats):
+        return {"tensornet_embed_aggregate": 2, "tensornet_interaction_aggregate": 2 * layers,
+                "tensornet_interaction_backward": 2 * layers}
+
+    def segment_check(lg):
+        gen = torch.Generator(device="cuda").manual_seed(97)
+        errs = {}
+        for _, sl in _segments(lg):
+            ids, src, mask = lg.edge_dst[sl], lg.edge_src[sl], lg.edge_mask[sl]
+            for which in ("embed", "interaction"):
+                arrays = edge_inputs(torch, gen, which, ids.shape[0], c, lg.n_cap, src)
+                name = f"tensornet_{which}_aggregate"
+                errs[name] = max(errs.get(name, 0.0),
+                                 check_edge_aggregate(torch, which, arrays, ids, mask, lg.n_cap))
+            g = torch.randn((lg.n_cap, 3, 3, c), generator=gen, device="cuda")
+            errs["tensornet_interaction_backward"] = max(
+                errs.get("tensornet_interaction_backward", 0.0),
+                check_interaction_backward(torch, g, arrays, ids, mask))
+            del arrays, g
+        return errs
+
+    atoms, rng = bench_atoms(TENSORNET_REPS)
+    return phase_parallel(torch, "parallel-tensornet", model, model.init(0), atoms, rng,
+                          (2, 4), per_calc, {}, segment_check)
+
+
+def phase_parallel_chgnet(torch):
+    """``[parallel-chgnet]``: CHGNet at CHGNET_KW with magmoms on the
+    16384-atom crystal at P = 2. Per calculate: each block's atom conv once
+    per segment, each bond block's line conv once (the line graph is one
+    segment); row projections: the interior reads v before the exchange at
+    both ends (one pass), the frontier the exchanged v at src and v before
+    it at dst (two), the line conv b and v (two)."""
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW, bench_atoms
+
+    model = CHGNet(CHGNetConfig(**CHGNET_KW))
+    params = model.init(0)
+    gen = torch.Generator().manual_seed(0)
+    params["species_ref"]["w"] = torch.randn((CHGNET_KW["num_species"], 1), generator=gen)
+    params["data_std"] = torch.tensor(1.3)
+    blocks, c = CHGNET_KW["num_blocks"], CHGNET_KW["units"]
+
+    def per_calc(P, stats):
+        return {"chgnet_atom_conv_aggregate": 2 * blocks, "chgnet_line_aggregate": blocks - 1,
+                "chgnet_row_projection": 3 * blocks + 2 * (blocks - 1)}
+
+    def segment_check(lg):
+        cgen = torch.Generator(device="cuda").manual_seed(98)
+        n = lg.n_cap
+        errs = {}
+        for name, sl in _segments(lg):
+            ids, src, mask = lg.edge_dst[sl], lg.edge_src[sl], lg.edge_mask[sl]
+            arrays, weights = chgnet_inputs(torch, cgen, "atom", ids.shape[0], c, c, n,
+                                            (src, ids))
+            if name == "frontier":  # v after the exchange at src, before it at dst
+                arrays[2] = torch.randn(arrays[0].shape, generator=cgen, device="cuda")
+            errs["chgnet_atom_conv_aggregate"] = max(
+                errs.get("chgnet_atom_conv_aggregate", 0.0),
+                check_chgnet(torch, "atom", arrays, weights, ids, mask, n)[0])
+            del arrays
+        arrays, weights = chgnet_inputs(torch, cgen, "line", lg.line_dst.shape[0], c, c,
+                                        (lg.b_cap, n), (lg.line_src, lg.line_dst,
+                                                        lg.line_center))
+        errs["chgnet_line_aggregate"] = check_chgnet(
+            torch, "line", arrays, weights, lg.line_dst, lg.line_mask, lg.b_cap)[0]
+        return errs
+
+    atoms, rng = bench_atoms(CHGNET_REPS)
+    return phase_parallel(torch, "parallel-chgnet", model, params, atoms, rng, (2,),
+                          per_calc, {"compute_magmom": True}, segment_check)
+
+
+def phase_parallel_mace(torch):
+    """``[parallel-mace]``: MACE at MACE_KW on the 2048-atom crystal at
+    P = 2. Per calculate: each interaction's segment sum once per edge chunk
+    forward and once in the backward's recompute, K chunks of the split
+    layout (each segment chunked on its own)."""
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import MACE_KW, bench_atoms
+
+    model = MACE(MACEConfig(**MACE_KW))
+
+    def per_calc(P, stats):
+        K = chunk_layout(P * stats["e_cap"], MACE_KW["edge_chunk"], P * stats["e_split"])[2]
+        return {"segment_sum": MACE_KW["num_interactions"] * 2 * K}
+
+    atoms, rng = bench_atoms()
+    return phase_parallel(torch, "parallel-mace", model, model.init(0), atoms, rng, (2,),
+                          per_calc, {},
+                          lambda lg: _chunk_checks(torch, lg, MACE_KW["edge_chunk"],
+                                                   (40, MACE_KW["channels"]), 99))
+
+
+def phase_parallel_escn(torch):
+    """``[parallel-escn]``: eSCN at ESCN_KW with ESCN_INFO on the 2048-atom
+    crystal at P = 2. Per calculate and edge chunk of the split layout: each
+    layer's SO(2) kernel forward, in the checkpoint recompute and for its
+    input cotangent; the segment sum of the edge-degree pass and of each
+    layer forward and in the recompute. The MOLE gate pools every
+    partition's owned atoms (``psum`` is the identity on the flattened
+    graph)."""
+    from distmlip_tpu_torch.models import ESCN, ESCNConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import ESCN_INFO, ESCN_KW, bench_atoms
+
+    model = ESCN(ESCNConfig(**ESCN_KW))
+    params = model.init(0)
+    params["species_ref"]["w"] = torch.randn((ESCN_KW["num_species"],),
+                                             generator=torch.Generator().manual_seed(0))
+    layers = ESCN_KW["num_layers"]
+
+    def per_calc(P, stats):
+        K = chunk_layout(P * stats["e_cap"], ESCN_KW["edge_chunk"], P * stats["e_split"])[2]
+        return {"so2_conv": layers * 3 * K, "segment_sum": (1 + layers) * 2 * K}
+
+    atoms, rng = bench_atoms()
+    atoms.info = dict(ESCN_INFO)
+    return phase_parallel(torch, "parallel-escn", model, params, atoms, rng, (2,),
+                          per_calc, {},
+                          lambda lg: _chunk_checks(torch, lg, ESCN_KW["edge_chunk"],
+                                                   (25, ESCN_KW["channels"]), 100))
+
+
+def phase_parallel_md(torch):
+    """``[parallel-md]``: PARALLEL_MD_STEPS nvt_bussi steps (MD_KW) of
+    TensorNet at TENSORNET_KW on the 16384-atom crystal at P = 2, then the
+    same steps from the same seed at P = 1: the drivers run unchanged on a
+    P > 1 potential, whose skin invalidations are rebuilt on the host (the
+    JAX package's rule); per-step energies and the last positions agree."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
+
+    model = TensorNet(TensorNetConfig(**TENSORNET_KW))
+    params = model.init(0)
+    layers = TENSORNET_KW["num_layers"]
+    runs = {}
+    for P in (2, 1):
+        tag = f"parallel-md P={P}"
+        pot = DistPotential(model, params, device="cuda", skin=0.5, num_partitions=P)
+        structure = bench_atoms(TENSORNET_REPS)
+        probe, step_s, launches, peak = run_md(torch, pot, structure, PARALLEL_MD_STEPS, tag)
+        n_calc, segs = len(probe.calls), 2 if P > 1 else 1
+        expected = {k: 0 for k in launches}
+        expected["tensornet_embed_aggregate"] = n_calc * segs
+        expected["tensornet_interaction_aggregate"] = n_calc * layers * segs
+        expected["tensornet_interaction_backward"] = n_calc * layers * segs
+        if launches != expected:
+            raise AssertionError(f"[{tag}] kernel launch counts {launches} differ from the "
+                                 f"derivation {expected}")
+        if P > 1 and pot.rebuild_on_device_count:
+            raise AssertionError(f"[{tag}] refreshed a P>1 graph on the device")
+        summary = md_summary(pot, probe, step_s, peak, launches, expected)
+        log(f"[{tag}] {json.dumps(summary)}")
+        runs[P] = (structure[0].positions.copy(),
+                   np.array([c["result"]["energy"] for c in probe.calls]), launches)
+        del pot, probe
+        torch.cuda.empty_cache()
+    (x2, e2, launches), (x1, e1, _) = runs[2], runs[1]
+    d = {"max_dx_A": float(np.abs(x2 - x1).max()),
+         "max_rel_dE": float((np.abs(e2 - e1) / np.abs(e1)).max())}
+    log(f"[parallel-md] P=2 vs P=1 over {PARALLEL_MD_STEPS} steps: {json.dumps(d)}")
+    if not (d["max_dx_A"] < 1e-4 and d["max_rel_dE"] < 1e-5):
+        raise AssertionError("[parallel-md] P=2 trajectory departs from P=1")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1726,6 +2081,19 @@ def main() -> int:
     relax_launches = phase_relax_chgnet(torch)
     md_launches = {k: md_launches[k] + md_tn_launches[k] + relax_launches[k]
                    for k in md_launches}
+    # slab graph parallelism: each phase counts its own launches
+    par_launches, par_errs = {k: 0 for k in md_launches}, {}
+    for phase in (phase_parallel_tensornet, phase_parallel_chgnet, phase_parallel_mace,
+                  phase_parallel_escn):
+        torch.cuda.empty_cache()
+        launched, errs = phase(torch)
+        for k, v in launched.items():
+            par_launches[k] += v
+        for k, v in errs.items():
+            par_errs[k] = max(par_errs.get(k, 0.0), v)
+    torch.cuda.empty_cache()
+    for k, v in phase_parallel_md(torch).items():
+        par_launches[k] += v
 
     headline = timed[-1]  # the (32768, 40, 128) chunk of interaction 1
     kernels = [{
@@ -1792,6 +2160,10 @@ def main() -> int:
     })
     for k in kernels:  # each kernel's launches in [md], [md-tensornet], [relax-chgnet]
         k["md_launches"] = md_launches[k["name"]]
+        # ... in the [parallel-*] phases, and its worst error against its
+        # plain version on the flattened graphs' segments (where checked)
+        k["parallel_launches"] = par_launches[k["name"]]
+        k["parallel_segments_max_abs_err"] = par_errs.get(k["name"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

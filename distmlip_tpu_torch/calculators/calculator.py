@@ -1,9 +1,13 @@
 """User-facing potential: the Atoms -> (E, F, sigma) pipeline on one card.
 
-``DistPotential`` ports ``distmlip_tpu/calculators/calculator.py:77`` at one
-partition (P=1): the host builds the neighbor list and the capacity-padded
-graph, uploads it once, and the model's energy and its autograd forces and
-stress run on the device.
+``DistPotential`` ports ``distmlip_tpu/calculators/calculator.py:77``: the
+host builds the neighbor list, the slab plan and the capacity-padded graph,
+uploads it once, and the model's energy and its autograd forces and stress
+run on the device. With ``num_partitions=P > 1`` the structure is split
+into P slabs with halos (zero redundancy: every edge is computed once, by
+its dst atom's owner), and the P partitions run on the one card as one
+flattened graph with the halo exchange as index copies
+(``parallel/halo.py``); forces come back to each atom's owner.
 
 With ``skin > 0`` the neighbor graph is built at cutoff+skin, uploaded
 once, and REUSED across steps — only positions are re-uploaded — until any
@@ -22,8 +26,9 @@ output (the fused site readout, ``model.energy_and_aux_fn``).
 
 Not ported yet (queued in ROADMAP.md): the background prefetch rebuild,
 telemetry records, the contract audit, the separate-forward site readout
-(``fused_site_readout=False``), a compute dtype other than float32, and
-``num_partitions > 1``.
+(``fused_site_readout=False``), a compute dtype other than float32, the
+automatic partition count, partitions placed on several cards, and block
+plans.
 
 Per-system conditioning (eSCN's charge, spin and dataset) is read from
 ``atoms.info`` (the ASE convention), range-checked against the model's
@@ -60,7 +65,8 @@ class DistPotential:
     params : parameter tree — numpy arrays (e.g. the JAX package's params
         through ``jax.tree.map(np.asarray, params)``) or torch tensors;
         moved to ``device``.
-    num_partitions : only 1 is ported.
+    num_partitions : slabs the structure is split into (None means 1).
+        All run on ``device``, as one flattened graph.
     species_map : optional (max_Z+1,) int array mapping atomic numbers to
         the model's species indices. Default: identity.
     skin : Verlet skin (Å) of the graph cache; 0 rebuilds every call.
@@ -75,11 +81,12 @@ class DistPotential:
         without a card raises.
     device_rebuild : "auto" (the default) or True rebuilds the neighbor
         graph on the device when the skin cache invalidates, for potentials
-        with ``skin > 0`` and no bond graph (the cell list of
+        with ``skin > 0``, one partition and no bond graph (the cell list of
         ``neighbors.device`` and an in-place edge swap: no host search, no
         upload). A capacity overflow takes the host rebuild with grown caps
         (counted in ``rebuild_overflow_count``). False always rebuilds on
-        the host.
+        the host, and so does "auto" at P > 1, by the JAX package's rule
+        (``_device_refresh_eligible``); True at P > 1 raises.
     """
 
     def __init__(
@@ -98,10 +105,11 @@ class DistPotential:
         device=None,
         device_rebuild: bool | str = "auto",
     ):
-        if num_partitions not in (None, 1):
-            raise NotImplementedError(
-                f"num_partitions={num_partitions}: only P=1 is ported "
-                "(ROADMAP.md queue A item 'P>1 graph parallelism')")
+        num_partitions = 1 if num_partitions is None else num_partitions
+        if (isinstance(num_partitions, bool)
+                or not isinstance(num_partitions, (int, np.integer)) or num_partitions < 1):
+            raise ValueError(f"num_partitions must be an int >= 1, got {num_partitions!r}")
+        num_partitions = int(num_partitions)
         if compute_dtype is None:
             from .. import _compute_dtype as compute_dtype  # the global switch
         if compute_dtype != "float32":
@@ -113,6 +121,11 @@ class DistPotential:
         if not (isinstance(device_rebuild, bool) or device_rebuild == "auto"):
             raise TypeError(
                 f"device_rebuild must be 'auto', True or False, got {device_rebuild!r}")
+        if device_rebuild is True and num_partitions > 1:
+            raise ValueError(
+                f"device_rebuild=True needs one partition (got num_partitions="
+                f"{num_partitions}): a P>1 graph is rebuilt on the host, where its "
+                "slabs and halos are planned")
         if not fused_site_readout:
             raise NotImplementedError(
                 "fused_site_readout=False (a separate forward for the site "
@@ -124,7 +137,7 @@ class DistPotential:
         self.device = resolve_device(device)
         self.model = model
         self.params = params_from_numpy(params, self.device)
-        self.num_partitions = 1
+        self.num_partitions = num_partitions
         self.species_map = species_map
         self.caps = caps or CapacityPolicy()
         self.cutoff = float(model.cfg.cutoff)
@@ -135,21 +148,25 @@ class DistPotential:
         self.skin = float(skin)
         self.kernels = kernels
         self._potential = make_potential_fn(
-            model.energy_and_aux_fn if self.compute_magmom else model.energy_fn, None,
-            compute_stress=self.compute_stress, kernels=kernels,
-            aux=self.compute_magmom)
+            model.energy_and_aux_fn if self.compute_magmom else model.energy_fn,
+            compute_stress=self.compute_stress, kernels=kernels, aux=self.compute_magmom)
         # (graph on device, host, build positions, numbers, cell, pbc, system)
         self._cache = None
-        # graph shape of the LAST calculate() (n_atoms, n_cap, e_cap,
-        # n_edges; with a bond graph b_cap, n_bonds, l_cap, n_lines), as
-        # the JAX package's last_stats
+        # graph shape of the LAST calculate() (n_atoms, num_partitions,
+        # n_cap, e_cap, e_split, n_edges; at P > 1 the slab axis, shifts,
+        # owned and halo rows per partition and the halo copies; with a
+        # bond graph b_cap, n_bonds, l_cap, n_lines), as the JAX package's
+        # last_stats
         self.last_stats: dict = {}
         # graphs used by calculate(): host builds plus on-device refreshes
         self.rebuild_count = 0
         # on-device neighbor rebuild (neighbors/device.py): when the skin
         # cache invalidates on a potential without a bond graph, the edge
         # arrays are rebuilt on the device and swapped in place
-        self.device_rebuild = device_rebuild == "auto" or device_rebuild
+        # ("auto" takes it at one partition only: a P > 1 graph's slabs and
+        # halos are planned on the host)
+        self.device_rebuild = device_rebuild is True or (
+            device_rebuild == "auto" and num_partitions == 1)
         self.rebuild_on_device_count = 0
         self.rebuild_overflow_count = 0
         self._nbr_spec = None       # (CellListStatic, arrays on the device) or None
@@ -166,23 +183,35 @@ class DistPotential:
 
     def _device_refresh_eligible(self) -> bool:
         """Whether the on-device neighbor rebuild can serve skin-cache
-        invalidations: skin reuse on, no bond graph (the line-graph arrays
-        cannot be refreshed in place), and ``device_rebuild`` set. The port
-        runs one partition, so there is no halo to re-partition."""
-        return self.device_rebuild and self.skin > 0.0 and not self.use_bond_graph
+        invalidations: skin reuse on, one partition (no halo to
+        re-partition), no bond graph (the line-graph arrays cannot be
+        refreshed in place), and ``device_rebuild`` set
+        (``distmlip_tpu/calculators/calculator.py:388-398``)."""
+        return (self.device_rebuild and self.skin > 0.0 and self.num_partitions == 1
+                and not self.use_bond_graph)
 
     def _build_graph(self, atoms: Atoms):
         r_build = self.cutoff + self.skin
         b_build = (self.bond_cutoff + self.skin) if self.use_bond_graph else 0.0
         nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r_build, bond_r=b_build)
-        plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r_build, b_build,
+        plan = build_plan(nl, atoms.cell, atoms.pbc, self.num_partitions, r_build, b_build,
                           self.use_bond_graph)
         graph, host = build_partitioned_graph(
             plan, nl, self._species(atoms.numbers), atoms.cell, caps=self.caps,
             system=self._system(atoms))
-        host.stats = {"n_atoms": len(atoms), "n_cap": graph.n_cap,
-                      "e_cap": graph.e_cap,
+        host.stats = {"n_atoms": len(atoms), "num_partitions": graph.num_partitions,
+                      "n_cap": graph.n_cap, "e_cap": graph.e_cap, "e_split": graph.e_split,
                       "n_edges": int(graph.edge_mask.sum())}
+        if graph.num_partitions > 1:
+            owned = plan.owned_counts
+            host.stats.update(
+                axis=plan.axis, shifts=list(graph.shifts),
+                owned_per_part=[int(x) for x in owned],
+                halo_per_part=[int(m[-1]) - int(o) for m, o in zip(plan.node_markers, owned)],
+                edges_per_part=[int(x) for x in graph.edge_mask.sum(axis=1)],
+                frontier_per_part=[int(x) for x in graph.edge_mask[:, graph.e_split:].sum(axis=1)],
+                halo_copies=len(graph.flat["halo_recv"]),
+                bond_halo_copies=len(graph.flat["bond_halo_recv"]))
         if graph.has_bond_graph:
             host.stats.update(b_cap=graph.b_cap, n_bonds=int(graph.bond_map_mask.sum()),
                               l_cap=graph.line_mask.shape[1],
@@ -241,7 +270,7 @@ class DistPotential:
                 and max_displacement(atoms.positions, self._cache[2]) < 0.5 * self.skin)
 
     def _positions(self, host, graph, atoms: Atoms) -> torch.Tensor:
-        """``atoms.positions`` as the graph's (1, N_cap, 3) tensor on the device."""
+        """``atoms.positions`` as the graph's (P, N_cap, 3) tensor on the device."""
         dtype = np.float32 if graph.positions.dtype == torch.float32 else np.float64
         return torch.as_tensor(
             host.scatter_global(atoms.positions.astype(dtype), graph.n_cap)).to(self.device)

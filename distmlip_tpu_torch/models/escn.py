@@ -168,8 +168,10 @@ class ESCN:
                 parts[0] = parts[0] + add_scalar[:, None, :]
             return torch.cat(parts, dim=1)
 
-        # --- edge-chunked passes: every chunk's dst stays sorted ---------
-        row_idx, row_valid, K, _ = chunk_layout(lg.e_cap, cfg.edge_chunk)
+        # --- edge-chunked passes, aligned to the interior/frontier split:
+        # every chunk's dst stays sorted ---------------------------------
+        row_idx, row_valid, K, _ = chunk_layout(
+            lg.e_cap, cfg.edge_chunk, lg.e_split if lg.has_frontier_split else None)
         rows = torch.as_tensor(row_idx, dtype=torch.long, device=dev)
         take = lambda x: x.index_select(0, rows)  # noqa: E731
         edge_xs = (take(lg.edge_src), take(lg.edge_dst),

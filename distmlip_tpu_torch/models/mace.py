@@ -302,9 +302,11 @@ class MACE:
             [spherical_harmonics(l, rhat) for l in range(cfg.l_max + 1)],
             dim=-1)                                        # (E, S_Y)
 
-        # edge-chunk layout, shared by every interaction; every chunk's dst
-        # stays sorted (the kernel's CSR offsets depend on it)
-        row_idx, row_valid, K, _ = chunk_layout(lg.e_cap, cfg.edge_chunk)
+        # edge-chunk layout, shared by every interaction, aligned to the
+        # interior/frontier split: every chunk's dst stays sorted (the
+        # kernel's CSR offsets depend on it)
+        row_idx, row_valid, K, _ = chunk_layout(
+            lg.e_cap, cfg.edge_chunk, lg.e_split if lg.has_frontier_split else None)
         rows = torch.as_tensor(row_idx, dtype=torch.long, device=positions.device)
         valid = torch.as_tensor(row_valid, device=positions.device)
         edges = (lg.edge_src[rows], lg.edge_dst[rows], emask[rows] & valid,

@@ -1,10 +1,25 @@
-"""The LocalGraph shard view and its edge/node reductions.
+"""The LocalGraph view of a PartitionedGraph and its edge/node reductions.
 
-At P=1 the whole graph is one shard: the halo exchanges (atom and bond)
-are the identity and the global reductions are local sums. The ring
-exchange of P>1 slabs (``distmlip_tpu/parallel/halo.py``
-``_exchange``/``_coalesced_round``; ``torch.distributed`` here), and with
-it the interior/frontier edge split, are queued in ROADMAP.md.
+At P=1 the whole graph is one partition: the halo exchanges (atom and
+bond) are the identity and the global reductions are local sums.
+
+At P > 1 the port runs the P partitions on one card as ONE flattened graph
+(``partition/graph.py``, ``PartitionedGraph.flat``): partition p owns node
+rows ``[p n_cap, (p+1) n_cap)``, and the edges are laid out as [interior
+of every partition | frontier of every partition]. The JAX package's ring
+exchange (``distmlip_tpu/parallel/halo.py`` ``_exchange`` /
+``_coalesced_round``: gather, ``ppermute``, scatter) becomes one
+``index_select`` of the owners' rows and one out-of-place ``index_copy``
+into the halo rows, over index vectors built on the host. Autograd
+carries each halo row's gradient back to its owner's row through the
+copy, as JAX transposes the ``ppermute`` and as the reference's autograd
+runs through device copies. The sums over partitions (``psum``) are the
+identity: a sum over the flattened rows already covers every partition.
+
+The edge aggregations honour the interior/frontier split as the JAX
+package's do: each segment is dst-sorted, their concatenation is not, so
+each goes to the kernel dispatcher on its own and the two partial sums are
+added, interior first.
 """
 
 from __future__ import annotations
@@ -17,14 +32,26 @@ import torch
 from ..kernels.dispatch import Gather, fused_edge_aggregate, fused_segment_sum
 
 
+def _copy_rows(feats, send, recv):
+    """``feats`` with rows ``recv`` replaced by rows ``send`` (out of place,
+    so autograd routes each copied row's gradient to its source row)."""
+    return feats.index_copy(0, recv, feats.index_select(0, send))
+
+
 @dataclass
 class LocalGraph:
-    """Per-shard view of a PartitionedGraph (leading P axis squeezed away).
+    """The graph a model runs on: one partition (P=1), or the P partitions
+    flattened into one graph (module docstring).
 
-    Passed to model functions; carries the local edge lists and masks.
-    Models call the methods below instead of touching communication
-    directly. ``edge_dst`` is nondecreasing (the dst-sorted layout
-    contract the segment-sum kernel relies on); so is ``line_dst``.
+    Models call the methods below instead of touching the layout or the
+    exchange. Edge layout contract: ``edge_dst`` is nondecreasing within
+    each of the interior ``[0, e_split)`` and frontier ``[e_split, e_cap)``
+    segments (``e_split == e_cap``: one unsplit segment); each segment
+    holds its real rows first and its masked padding after them, on the
+    segment's last real dst (a kernel walks a dst row's whole edge range,
+    padding in the middle of a segment included); interior edges read
+    owned rows only, frontier edges read halo src rows. ``line_dst`` is
+    nondecreasing over the whole array, its padding likewise at the tail.
     """
 
     n_cap: int
@@ -55,26 +82,44 @@ class LocalGraph:
     # can refuse a packed graph
     batch_size: int = 0
     struct_id: Any = None
+    # interior/frontier boundary of the edge rows (== e_cap: unsplit)
+    e_split: int = -1
+    # halo exchange index vectors (P > 1; None at P = 1): rows copied
+    # from, rows copied into; atom rows and bond rows
+    halo_send: Any = None
+    halo_recv: Any = None
+    bond_halo_send: Any = None
+    bond_halo_recv: Any = None
+
+    @property
+    def has_frontier_split(self) -> bool:
+        return 0 <= self.e_split < self.e_cap
 
     def halo_exchange(self, feats):
-        """Refresh halo rows of a node feature array: the identity at P=1,
-        where every row is owned."""
-        return feats
+        """Refresh the halo rows of a node feature array from their
+        owners' rows: the identity at P=1."""
+        if self.halo_send is None:
+            return feats
+        return _copy_rows(feats, self.halo_send, self.halo_recv)
 
     def bond_halo_exchange(self, feats):
-        """Refresh halo rows of a bond-node feature array: the identity at
-        P=1."""
-        return feats
+        """Refresh the halo rows of a bond-node feature array: the identity
+        at P=1 and without a bond graph."""
+        if self.bond_halo_send is None or not self.has_bond_graph:
+            return feats
+        return _copy_rows(feats, self.bond_halo_send, self.bond_halo_recv)
 
     def exchange_all(self, node_feats=(), bond_feats=()):
         """Refresh several node and bond feature arrays at one sync point
         (``distmlip_tpu/parallel/halo.py:239``); returns ``(node_feats,
-        bond_feats)`` tuples in input order. The identity at P=1."""
-        return tuple(node_feats), tuple(bond_feats)
+        bond_feats)`` tuples in input order. One copy per array: on one
+        card there is no collective to coalesce them into."""
+        return (tuple(self.halo_exchange(f) for f in node_feats),
+                tuple(self.bond_halo_exchange(f) for f in bond_feats))
 
     def psum(self, x):
         """Sum over the partitions (``distmlip_tpu/parallel/halo.py:271``):
-        the identity at P=1."""
+        the identity, since the flattened rows are every partition's."""
         return x
 
     def edge_vectors(self, positions, lattice=None):
@@ -89,38 +134,69 @@ class LocalGraph:
                 - positions.index_select(0, self.edge_src))
         return disp + self.edge_offset.to(positions.dtype) @ lat
 
+    def _segments(self):
+        """The edge row slices of the sorted segments: one, or interior
+        then frontier."""
+        if not self.has_frontier_split:
+            return (slice(None),)
+        return slice(0, self.e_split), slice(self.e_split, None)
+
     def aggregate_edges(self, data, mask=None):
         """Segment-sum per-edge rows onto their dst nodes ((n_cap, ...)),
-        through the kernel dispatcher."""
-        return fused_segment_sum(data, self.edge_dst, self.n_cap, mask,
-                                 indices_are_sorted=True, kernels=self.kernels)
+        through the kernel dispatcher, once per sorted segment
+        (``distmlip_tpu/parallel/halo.py:284``)."""
+        out = None
+        for sl in self._segments():
+            part = fused_segment_sum(data[sl], self.edge_dst[sl], self.n_cap,
+                                     None if mask is None else mask[sl],
+                                     indices_are_sorted=True, kernels=self.kernels)
+            out = part if out is None else out + part
+        return out
 
     def aggregate_edge_messages(self, message, edge_inputs, mask=None):
         """Fused per-edge message + dst aggregation ((n_cap, ...)), through
-        the kernel dispatcher (``distmlip_tpu/parallel/halo.py:308``, its
-        unsplit branch: the interior/frontier split is P>1 work).
+        the kernel dispatcher, once per sorted segment
+        (``distmlip_tpu/parallel/halo.py:308``).
 
         ``message`` is a ``kernels.EdgeMessage``; ``edge_inputs`` mixes
         per-edge tensors with ``kernels.Gather`` markers. With the kernel
         the (E, ...) message tensor is never written out.
         """
-        return fused_edge_aggregate(message, edge_inputs, self.edge_dst, self.n_cap,
-                                    mask, indices_are_sorted=True,
-                                    kernels=self.kernels)
+        out = None
+        for sl in self._segments():
+            # one slice per distinct index tensor: inputs gathered at the
+            # same ids keep sharing one (the TensorNet interaction's kernel
+            # takes I, A and S at one src tensor)
+            idx = {}
+            sliced = [Gather(i.node, idx.setdefault(id(i.idx), i.idx[sl]))
+                      if isinstance(i, Gather) else i[sl] for i in edge_inputs]
+            part = fused_edge_aggregate(message, sliced, self.edge_dst[sl], self.n_cap,
+                                        None if mask is None else mask[sl],
+                                        indices_are_sorted=True, kernels=self.kernels)
+            out = part if out is None else out + part
+        return out
 
     def overlapped_edge_sum(self, message, v_pre, v_post, edge_data=(), mask=None,
                             weights=()):
-        """Per-edge messages ``message(v_post[src], v_post[dst], *edge_data)``
-        summed to dst (``distmlip_tpu/parallel/halo.py:349``, its unsplit
-        branch). ``v_pre`` is the node array before the halo exchange that
-        gave ``v_post``; with the interior/frontier split (P>1) interior
-        edges read it so their compute overlaps the exchange. ``weights``
-        go to the message as explicit tensors."""
-        return fused_edge_aggregate(
-            message, [Gather(v_post, self.edge_src), Gather(v_post, self.edge_dst),
-                      *edge_data],
-            self.edge_dst, self.n_cap, mask, indices_are_sorted=True,
-            kernels=self.kernels, weights=weights)
+        """Per-edge messages ``message(v[src], v_pre[dst], *edge_data)``
+        summed to dst (``distmlip_tpu/parallel/halo.py:349``). ``v_post`` is
+        the node array after the halo exchange of ``v_pre``. The interior
+        segment reads ``v_pre`` at both ends (its rows are owned, equal in
+        both) and the frontier segment ``v_post`` at src and ``v_pre`` at
+        dst, as in the JAX package, where the interior's work overlaps the
+        exchange in flight; the partial sums are added interior first. An
+        unsplit graph is one interior segment: at P=1 ``v_post is v_pre``,
+        and at P > 1 no edge of it reads a halo row. ``weights`` go to the
+        message as explicit tensors."""
+        out = None
+        for sl, v in zip(self._segments(), (v_pre, v_post)):
+            part = fused_edge_aggregate(
+                message, [Gather(v, self.edge_src[sl]), Gather(v_pre, self.edge_dst[sl]),
+                          *[d[sl] for d in edge_data]],
+                self.edge_dst[sl], self.n_cap, None if mask is None else mask[sl],
+                indices_are_sorted=True, kernels=self.kernels, weights=weights)
+            out = part if out is None else out + part
+        return out
 
     # ---- bond-graph index remaps (distmlip_tpu/parallel/halo.py:394-425) ----
     def edge_to_bond(self, edge_feats, bond_feats):
@@ -159,31 +235,29 @@ def _set_rows(target, idx, mask, vals):
 
 
 def local_graph_from_stacked(g, kernels: bool = True) -> LocalGraph:
-    """Build a LocalGraph from a single-partition PartitionedGraph of
-    tensors (leading P=1 axis squeezed)."""
-    if g.num_partitions != 1:
-        raise NotImplementedError(
-            f"P={g.num_partitions}: only single-partition graphs are ported "
-            "(ROADMAP.md queue A item 'P>1 graph parallelism')")
+    """The LocalGraph of a PartitionedGraph of tensors: its one partition
+    (P=1, the leading axis squeezed), or its flattened view (P > 1)."""
+    common = dict(lattice=g.lattice, kernels=kernels, has_bond_graph=g.has_bond_graph,
+                  system=g.system)
+    if g.num_partitions == 1:
+        return LocalGraph(
+            n_cap=g.n_cap, e_cap=g.e_cap, e_split=g.e_split,
+            species=g.species[0], owned_mask=g.owned_mask[0],
+            edge_src=g.edge_src[0], edge_dst=g.edge_dst[0],
+            edge_offset=g.edge_offset[0], edge_mask=g.edge_mask[0],
+            b_cap=g.b_cap, line_src=g.line_src[0], line_dst=g.line_dst[0],
+            line_mask=g.line_mask[0], line_center=g.line_center[0],
+            bond_map_edge=g.bond_map_edge[0], bond_map_bond=g.bond_map_bond[0],
+            bond_map_mask=g.bond_map_mask[0], **common)
+    P, f = g.num_partitions, g.flat
     return LocalGraph(
-        n_cap=g.n_cap,
-        e_cap=g.e_cap,
-        species=g.species[0],
-        owned_mask=g.owned_mask[0],
-        edge_src=g.edge_src[0],
-        edge_dst=g.edge_dst[0],
-        edge_offset=g.edge_offset[0],
-        edge_mask=g.edge_mask[0],
-        lattice=g.lattice,
-        kernels=kernels,
-        has_bond_graph=g.has_bond_graph,
-        b_cap=g.b_cap,
-        line_src=g.line_src[0],
-        line_dst=g.line_dst[0],
-        line_mask=g.line_mask[0],
-        line_center=g.line_center[0],
-        bond_map_edge=g.bond_map_edge[0],
-        bond_map_bond=g.bond_map_bond[0],
-        bond_map_mask=g.bond_map_mask[0],
-        system=g.system,
-    )
+        n_cap=P * g.n_cap, e_cap=P * g.e_cap, e_split=P * g.e_split,
+        species=g.species.reshape(-1), owned_mask=g.owned_mask.reshape(-1),
+        edge_src=f["edge_src"], edge_dst=f["edge_dst"], edge_offset=f["edge_offset"],
+        edge_mask=f["edge_mask"], b_cap=P * g.b_cap,
+        line_src=f["line_src"], line_dst=f["line_dst"], line_mask=f["line_mask"],
+        line_center=f["line_center"], bond_map_edge=f["bond_map_edge"],
+        bond_map_bond=f["bond_map_bond"], bond_map_mask=f["bond_map_mask"],
+        halo_send=f["halo_send"], halo_recv=f["halo_recv"],
+        bond_halo_send=f["bond_halo_send"], bond_halo_recv=f["bond_halo_recv"],
+        **common)

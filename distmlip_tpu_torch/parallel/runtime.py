@@ -1,18 +1,26 @@
 """Potential runtime: energy, then forces and stress by autograd.
 
 Builds ``(params, graph, positions) -> dict(energy, forces, stress)`` from a
-model's per-shard energy function (``distmlip_tpu/parallel/runtime.py:114``
-``make_total_energy``, its ``mesh is None`` branch, and ``:244``
-``make_potential_fn``). Forces and stress come from ONE
-``torch.autograd.grad`` over the positions and a zero symmetric strain:
-forces = -dE/dx, stress = (dE/deps) / |det L| in eV/Å^3 (ASE sign).
+model's energy function (``distmlip_tpu/parallel/runtime.py:114``
+``make_total_energy`` and ``:244`` ``make_potential_fn``). Forces and
+stress come from ONE ``torch.autograd.grad`` over the positions and a zero
+symmetric strain: forces = -dE/dx, stress = (dE/deps) / |det L| in eV/Å^3
+(ASE sign).
+
+The partition count comes from the graph. At P > 1 the P partitions run
+as one flattened graph on one device (``parallel/halo.py``), so the
+factories take no device mesh, where the JAX package's take one: the
+positions (P, N_cap, 3) are flattened, strained and
+halo-exchanged before the model (the JAX runtime's ``:157``), and the
+gradient flows back through the exchange to each atom's owner row.
 
 Model contract:
     model_energy_fn(params, lg: LocalGraph, positions) -> per-atom energies
-with shape (N_cap,); padded rows may hold garbage — the runtime masks them.
-With ``aux=True`` the model returns ``(e_atoms, aux)``, a dict of per-atom
-outputs of the same forward (CHGNet's magmoms); they come back with a
-leading P axis, and the forces come from the energy alone.
+with shape (lg.n_cap,); padded and halo rows may hold anything: the runtime
+sums owned rows only. With ``aux=True`` the model returns ``(e_atoms,
+aux)``, a dict of per-atom outputs of the same forward (CHGNet's magmoms);
+they come back as (P, N_cap, ...), and the forces come from the energy
+alone.
 """
 
 from __future__ import annotations
@@ -23,37 +31,35 @@ from ..geometry import apply_strain
 from .halo import local_graph_from_stacked
 
 
-def make_total_energy(model_energy_fn, mesh=None, kernels: bool = True,
-                      aux: bool = False):
+def make_total_energy(model_energy_fn, *, kernels: bool = True, aux: bool = False):
     """Total-energy fn: (params, graph, positions, strain) -> scalar, or
     (scalar, aux dict of (P, N_cap, ...) tensors) with ``aux=True``.
 
-    ``positions`` is (P, N_cap, 3); ``strain`` a (3, 3) symmetric strain
-    applied to positions and lattice (for stress). Only ``mesh=None`` (a
-    single-partition graph) is ported.
+    ``positions`` is (P, N_cap, 3); only owned rows are read, halo rows are
+    refreshed by the halo exchange. ``strain`` is a (3, 3) symmetric strain
+    applied to positions and lattice (for stress).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh is ROADMAP.md queue A item 'P>1 graph parallelism'")
 
     def total_energy(params, graph, positions, strain):
         lg = local_graph_from_stacked(graph, kernels=kernels)
         dtype = positions.dtype
+        P, n_cap = positions.shape[:2]
         pos, lg.lattice = apply_strain(
-            positions[0], lg.lattice.to(dtype), strain.to(dtype))
+            positions.reshape(P * n_cap, 3), lg.lattice.to(dtype), strain.to(dtype))
         pos = lg.halo_exchange(pos)
         out = model_energy_fn(params, lg, pos)
         if aux:
             e_atoms, aux_out = out
             return (lg.owned_sum(e_atoms.reshape(-1, 1)),
-                    {k: x[None] for k, x in aux_out.items()})
+                    {k: x.reshape((P, n_cap) + tuple(x.shape[1:]))
+                     for k, x in aux_out.items()})
         return lg.owned_sum(out.reshape(-1, 1))
 
     return total_energy
 
 
-def make_potential_fn(model_energy_fn, mesh=None, compute_stress: bool = True,
-                      kernels: bool = True, aux: bool = False):
+def make_potential_fn(model_energy_fn, *, compute_stress: bool = True, kernels: bool = True,
+                      aux: bool = False):
     """(params, graph, positions) -> dict(energy, forces, stress).
 
     forces: (P, N_cap, 3) — per-partition owned rows (reassemble with
@@ -63,7 +69,7 @@ def make_potential_fn(model_energy_fn, mesh=None, compute_stress: bool = True,
     aux)`` and the result gains ``"aux"``: its (P, N_cap, ...) per-atom
     outputs from the SAME forward.
     """
-    total_energy = make_total_energy(model_energy_fn, mesh, kernels=kernels, aux=aux)
+    total_energy = make_total_energy(model_energy_fn, kernels=kernels, aux=aux)
 
     def potential(params, graph, positions):
         positions = positions.detach().requires_grad_(True)

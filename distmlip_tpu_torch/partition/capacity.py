@@ -5,7 +5,12 @@ keeps tensor shapes (and with them the memory allocator's block sizes and
 the chunk count of the edge loop) stable until a count outgrows its bucket.
 
 ``CapacityPolicy`` (sticky): caps only grow, per process — right for a long
-MD/relax run of ONE system. The geometric ``BucketPolicy`` of the serving
+MD/relax run of ONE system. Each capacity has a name: ``nodes``, and
+``edges`` for an unsplit edge layout, or ``edges_interior`` and
+``edges_frontier`` for the two segments of a split one (P > 1), each the
+largest count over the partitions; ``halo`` and ``bond_halo`` for the
+per-shift halo tables; ``bonds``, ``lines`` and ``bond_map`` for the bond
+graph. The geometric ``BucketPolicy`` of the serving
 stack is queued in ROADMAP.md with the batched engine.
 """
 

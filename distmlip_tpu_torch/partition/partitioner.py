@@ -1,24 +1,107 @@
-"""Spatial graph partitioner, single-partition branch.
+"""Spatial graph partitioner (numpy): one partition, or P slabs with halos.
 
-At P=1 the whole structure is one partition: every node is owned, there is
-no halo, and every edge is local. With ``use_bond_graph`` the plan also
-carries CHGNet's bond graph (edges within the bond cutoff) and its directed
-line graph (``distmlip_tpu/partition/partitioner.py:526-650``, the P=1
-branch). Multi-partition slab and block plans (the halo sets,
-owner-computes edge assignment across slabs, bond halos, and the native
-partitioner) are queued in ROADMAP.md ("P>1 graph parallelism").
+Splits the periodic atom graph into P slabs along the longest periodic
+lattice vector and assigns every directed edge to the partition owning
+its destination node (zero-redundancy owner-computes; the JAX package's
+``distmlip_tpu/partition/partitioner.py``, its numpy path). At P=1 the
+whole structure is one partition: every node is owned, there is no halo,
+and every edge is local. With ``use_bond_graph`` the plan also carries
+CHGNet's bond graph (edges within the bond cutoff), its directed line
+graph and the bond halo sections.
+
+Invariants (``tests/test_torch_partition.py`` holds them against the JAX
+package): owned nodes are a disjoint cover of all nodes; every edge lands
+on exactly one partition; a border node is sent to exactly ONE other
+partition (a node that reaches two peers raises: lower P); to/from halo
+sections are index-aligned between the two sides of every pair, so the
+halo exchange is a slot-to-slot copy.
+
+Not ported (ROADMAP.md): the native C++ partitioner (queue A item 2) and
+block plans over a grid of blocks (queue A item 4).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from .. import geometry
 from ..neighbors.python_ref import NeighborList
 from .plan import PartitionPlan
+
+EPSILON = 1e-10
 
 
 class PartitionError(RuntimeError):
     pass
+
+
+def choose_axis(lattice: np.ndarray, pbc) -> int:
+    """Slab axis = the Cartesian-longest periodic lattice vector."""
+    lengths = np.linalg.norm(np.asarray(lattice, dtype=np.float64), axis=1)
+    pbc_mask = np.asarray(pbc, dtype=bool)
+    lengths = np.where(pbc_mask, lengths, -np.inf)
+    return int(np.argmax(lengths))
+
+
+def make_walls(frac_axis: np.ndarray, num_partitions: int) -> np.ndarray:
+    """P-1 equally spaced fractional walls, nudged off atoms by EPSILON.
+
+    Perfect supercells place whole atom planes exactly at k/P fractions;
+    the nudge searches both directions (smallest excursion first), and
+    every wall is kept strictly above the previous one and strictly below
+    min(1, base + half a slab), so the order never inverts.
+    """
+    P = int(num_partitions)
+    base_walls = np.arange(1, P) / P
+    walls = np.empty_like(base_walls)
+    half = 0.5 / P  # max excursion: half a slab width
+    step = 10 * EPSILON
+    prev = 0.0
+    for i, base in enumerate(base_walls):
+        lo = max(prev + step, base - half)
+        hi = min(1.0, base + half)
+
+        def clear(w):
+            return lo <= w < hi and not np.any(np.abs(frac_axis - w) < EPSILON)
+
+        chosen = base if clear(base) else None
+        k = 1
+        while chosen is None:
+            if k * step > half:
+                raise PartitionError(
+                    f"could not nudge wall {i} (base {base:.6f}) off atom "
+                    f"planes within its slab; reduce num_partitions."
+                )
+            for cand in (base + k * step, base - k * step):
+                if clear(cand):
+                    chosen = cand
+                    break
+            k += 1
+        walls[i] = prev = chosen
+    return walls
+
+
+def which_partition(walls: np.ndarray, frac_axis: np.ndarray) -> np.ndarray:
+    return np.searchsorted(walls, frac_axis, side="right").astype(np.int64)
+
+
+def check_partition_size(lattice, axis, num_partitions, r, bond_r) -> None:
+    """Raise when slabs are thinner than the interaction range; warn when
+    they are thinner than twice it."""
+    width = geometry.plane_spacings(lattice)[axis] / num_partitions
+    if width <= r:
+        raise PartitionError(
+            f"Slab width {width:.3f} Å <= cutoff {r:.3f} Å with P={num_partitions}: "
+            "border regions would overlap beyond adjacent slabs. Reduce the number "
+            "of partitions or enlarge the cell."
+        )
+    if width <= 2 * max(r, bond_r):
+        import warnings
+
+        warnings.warn(
+            f"Slab width {width:.3f} Å <= 2x cutoff: halo regions may dominate.",
+            stacklevel=2,
+        )
 
 
 def build_plan(
@@ -29,23 +112,111 @@ def build_plan(
     r: float,
     bond_r: float = 0.0,
     use_bond_graph: bool = False,
+    impl: str = "auto",
     grid: tuple | None = None,
 ) -> PartitionPlan:
-    """Partition a neighbor graph; only ``num_partitions == 1`` is ported.
+    """Partition a neighbor graph into ``num_partitions`` slabs with halos.
 
     ``use_bond_graph`` adds the bond and line graphs over the edges the
-    neighbor list marks within ``bond_r`` (``nl.bond_mask``). Raises
-    ``NotImplementedError`` for P>1 and block grids, naming the ROADMAP
-    item that ports them.
+    neighbor list marks within ``bond_r`` (``nl.bond_mask``), with their
+    halo sections at P > 1.
+
+    ``impl``: ``"auto"`` and ``"numpy"`` both take the numpy path (the JAX
+    package's ``"auto"`` prefers its native partitioner, whose plans equal
+    the numpy ones); ``"native"`` raises ``NotImplementedError``: the
+    native partitioner is ROADMAP.md queue A item 2. ``grid`` (a block
+    decomposition) raises ``NotImplementedError`` too (queue A item 4).
     """
-    if int(num_partitions) < 1:
-        raise PartitionError("num_partitions must be >= 1")
-    if int(num_partitions) != 1 or (grid is not None and int(np.prod(grid)) != 1):
+    if impl == "native":
         raise NotImplementedError(
-            f"num_partitions={num_partitions}: only P=1 is ported; P>1 slab "
-            "and block plans are ROADMAP.md queue A item 'P>1 graph "
-            "parallelism'")
-    return _single_partition_plan(nl, use_bond_graph)
+            "impl='native': the native C++ partitioner is not ported "
+            "(ROADMAP.md queue A item 2); impl='numpy' builds the same plan")
+    if impl not in ("auto", "numpy"):
+        raise ValueError(f"impl={impl!r}: expected 'auto', 'numpy' or 'native'")
+    if grid is not None:
+        raise NotImplementedError(
+            f"grid={tuple(grid)}: block plans are not ported (ROADMAP.md queue "
+            "A item 4); slab plans take num_partitions alone")
+    lattice = np.asarray(lattice, dtype=np.float64)
+    n = nl.wrapped_cart.shape[0]
+    P = int(num_partitions)
+    src, dst = nl.src, nl.dst
+
+    if P == 1:
+        return _single_partition_plan(nl, use_bond_graph)
+    if P < 1:
+        raise PartitionError("num_partitions must be >= 1")
+    axis = choose_axis(lattice, pbc)
+    check_partition_size(lattice, axis, P, r, max(bond_r, 0.0))
+
+    frac = geometry.cart_to_frac(nl.wrapped_cart, lattice)
+    walls = make_walls(frac[:, axis], P)
+    node_part = which_partition(walls, frac[:, axis])
+
+    # --- border classification: src must be visible wherever its edges land ---
+    cross = node_part[src] != node_part[dst]
+    ntp = np.full(n, -1, dtype=np.int64)  # nodes_to_partition
+    if np.any(cross):
+        cs, cd = src[cross], node_part[dst[cross]]
+        order = np.argsort(cs, kind="stable")
+        cs, cd = cs[order], cd[order]
+        uniq, start = np.unique(cs, return_index=True)
+        for k, u in enumerate(uniq):
+            end = start[k + 1] if k + 1 < len(uniq) else len(cs)
+            dests = np.unique(cd[start[k]:end])
+            if len(dests) > 1:
+                raise PartitionError(
+                    f"Node {u} has neighbors in {len(dests)} other partitions "
+                    f"({dests.tolist()}); slab decomposition requires border nodes to "
+                    "reach exactly one peer. Reduce num_partitions."
+                )
+            ntp[u] = dests[0]
+
+    plan = PartitionPlan(P, axis, walls, node_part, ntp)
+
+    # --- per-partition node layout [pure | to_* | from_*] ---
+    for p in range(P):
+        owned = np.nonzero(node_part == p)[0]
+        is_border = ntp[owned] != -1
+        pure = owned[~is_border]
+        sections = [pure]
+        counts = [len(pure)]
+        for q in range(P):
+            to_q = owned[is_border & (ntp[owned] == q)]
+            sections.append(to_q)
+            counts.append(len(to_q))
+        for q in range(P):
+            if q == p:
+                from_q = np.zeros(0, dtype=np.int64)
+            else:
+                q_owned = np.nonzero(node_part == q)[0]
+                from_q = q_owned[ntp[q_owned] == p]
+            sections.append(from_q)
+            counts.append(len(from_q))
+        gids = np.concatenate(sections)
+        markers = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        g2l = np.full(n, -1, dtype=np.int64)
+        g2l[gids] = np.arange(len(gids))
+        plan.global_ids.append(gids)
+        plan.node_markers.append(markers)
+        plan.g2l.append(g2l)
+
+    # --- owner-computes edge assignment + localization ---
+    edge_part = node_part[dst]
+    for p in range(P):
+        eids = np.nonzero(edge_part == p)[0]
+        ls = plan.g2l[p][src[eids]]
+        ld = plan.g2l[p][dst[eids]]
+        if np.any(ls < 0) or np.any(ld < 0):
+            raise PartitionError("internal error: edge endpoint missing from partition")
+        plan.edge_ids.append(eids)
+        plan.src_local.append(ls)
+        plan.dst_local.append(ld)
+        plan.edge_offsets.append(nl.offsets[eids])
+
+    if use_bond_graph:
+        _build_bond_graph(plan, nl)
+    return plan
 
 
 def _line_graph_join(g2l, src, dst, b_edge, needs_in_line):
@@ -101,15 +272,21 @@ def _single_partition_plan(nl: NeighborList, use_bond_graph: bool = False) -> Pa
 
 
 def _build_bond_graph(plan: PartitionPlan, nl: NeighborList) -> None:
-    """Directed line graph over the edges within the bond cutoff, at P=1.
+    """Directed line graph over the edges within the bond cutoff.
 
     Bond-graph node = directed atom-graph edge with d <= bond_r, in edge
     order. Line-graph edge a->b exists when a = (s->d), b = (d->k), k != s
-    (no backtracking); the angle's center atom is d. At one partition every
-    bond node is owned and computed here, so every one takes in-lines and
-    maps back onto its own edge.
+    (no backtracking), and b is computed locally (``needs_in_line``); the
+    angle's center atom is d. A bond node lives wherever its dst atom is
+    visible, in the layout [pure | to_* | from_*] of its dst atom's
+    section; owned bonds (pure + to) are computed here and map back onto
+    their local edge, halo bonds (from) receive their features by the bond
+    exchange. At P=1 every bond node is owned.
     """
+    P = plan.num_partitions
     src, dst = nl.src, nl.dst
+    ntp = plan.nodes_to_partition
+    node_part = plan.node_part
     W = np.nonzero(nl.bond_mask)[0]  # global edge ids within bond_r, edge order
     if np.any(src[W] == dst[W]):
         import warnings
@@ -119,16 +296,42 @@ def _build_bond_graph(plan: PartitionPlan, nl: NeighborList) -> None:
             "graph cutoff); line-graph results may be incorrect.",
             stacklevel=3,
         )
+
     plan.has_bond_graph = True
-    nb = len(W)
-    plan.bond_markers.append(np.array([0, nb, nb, nb], dtype=np.int64))
-    plan.bond_global_edge.append(W)
-    needs_in_line = np.ones(nb, dtype=bool)
-    plan.bond_needs_in_line.append(needs_in_line)
-    # edge ids are the global ones at P=1
-    plan.bond_mapping_edge.append(W.astype(np.int64))
-    plan.bond_mapping_bond.append(np.arange(nb, dtype=np.int64))
-    l_src, l_dst, centers = _line_graph_join(plan.g2l[0], src, dst, W, needs_in_line)
-    plan.line_src.append(l_src)
-    plan.line_dst.append(l_dst)
-    plan.line_center_local.append(centers)
+    for p in range(P):
+        g2l = plan.g2l[p]
+        Wv = W[g2l[dst[W]] != -1]
+        d_v = dst[Wv]
+        is_from = ntp[d_v] == p if P > 1 else np.zeros(len(Wv), bool)
+        is_to = (ntp[d_v] != -1) & (ntp[d_v] != p) if P > 1 else np.zeros(len(Wv), bool)
+        is_pure = (~is_from) & (~is_to) & (node_part[d_v] == p)
+
+        sections = [Wv[is_pure]]
+        for q in range(P):
+            sections.append(Wv[is_to & (ntp[d_v] == q)])
+        for q in range(P):
+            sections.append(Wv[is_from & (node_part[d_v] == q)] if q != p
+                            else np.zeros(0, np.int64))
+        b_edge = np.concatenate(sections)  # bond-node -> global edge id
+        markers = np.concatenate([[0], np.cumsum([len(x) for x in sections])]).astype(np.int64)
+        owned_b = int(markers[1 + P])
+        needs_in_line = np.zeros(len(b_edge), dtype=bool)
+        needs_in_line[:owned_b] = True  # pure + to sections are computed here
+
+        plan.bond_markers.append(markers)
+        plan.bond_global_edge.append(b_edge)
+        plan.bond_needs_in_line.append(needs_in_line)
+
+        # edge<->bond feature mapping for locally computed bond nodes
+        e_g2l = np.full(nl.num_edges, -1, dtype=np.int64)
+        e_g2l[plan.edge_ids[p]] = np.arange(len(plan.edge_ids[p]))
+        local_e = e_g2l[b_edge[:owned_b]]
+        if np.any(local_e < 0):
+            raise PartitionError("internal error: owned bond node's edge not local")
+        plan.bond_mapping_edge.append(local_e)
+        plan.bond_mapping_bond.append(np.arange(owned_b, dtype=np.int64))
+
+        l_src, l_dst, centers = _line_graph_join(g2l, src, dst, b_edge, needs_in_line)
+        plan.line_src.append(l_src)
+        plan.line_dst.append(l_dst)
+        plan.line_center_local.append(centers)

@@ -17,8 +17,9 @@ cumulative-count vectors of length 2P+2):
 The same layout is used for bond-graph nodes (directed edges within the
 bond cutoff promoted to line-graph nodes); at P=1 every bond node is owned.
 
-This port builds single-partition plans only (P=1); multi-partition slab
-and block plans are queued in ROADMAP.md.
+The port builds single-partition plans and 1-D slab plans (P > 1, per-peer
+to/from marker sections). Block plans (a grid decomposition with explicit
+halo send/recv lists) are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -59,7 +60,54 @@ class PartitionPlan:
     bond_mapping_bond: list = field(default_factory=list)  # [p] -> (M_p,) local bond ids
 
     @property
+    def kind(self) -> str:
+        """Layout family of this plan: ``"single"`` (P == 1) or ``"slab"``
+        (1-D slabs, per-peer to/from marker sections)."""
+        return "single" if self.num_partitions == 1 else "slab"
+
+    @property
     def owned_counts(self) -> np.ndarray:
         """Number of owned (pure + to) nodes per partition."""
         P = self.num_partitions
         return np.array([m[1 + P] for m in self.node_markers])
+
+    def edge_is_frontier(self, p: int) -> np.ndarray:
+        """(E_p,) bool: edges whose src row is a halo node (dst is always
+        owned under owner-computes). Interior edges (both endpoints owned)
+        need no halo row; frontier edges read the exchanged rows."""
+        oc = int(self.owned_counts[p])
+        return np.asarray(self.src_local[p]) >= oc
+
+    def section(self, p: int, kind: str, q: int) -> tuple[int, int]:
+        """Local index range of a node section of partition ``p``: ``kind``
+        in {"to", "from"}, peer ``q``."""
+        return _section(self.node_markers[p], self.num_partitions, kind, q)
+
+    def bond_section(self, p: int, kind: str, q: int) -> tuple[int, int]:
+        """The same for the bond-graph nodes."""
+        return _section(self.bond_markers[p], self.num_partitions, kind, q)
+
+    def summary(self) -> str:
+        """Partition-balance report: owned (pure), halo and edge counts per
+        partition, and bond and line counts with a bond graph."""
+        P = self.num_partitions
+        lines = [f"PartitionPlan(P={P}, axis={self.axis})"]
+        for p in range(P):
+            m = self.node_markers[p]
+            owned = m[1 + P]
+            halo = m[-1] - owned
+            ne = len(self.edge_ids[p]) if self.edge_ids else 0
+            extra = ""
+            if self.has_bond_graph:
+                extra = f", bonds={self.bond_markers[p][-1]}, lines={len(self.line_src[p])}"
+            lines.append(
+                f"  partition {p}: owned={owned} (pure={m[1]}), halo={halo}, edges={ne}{extra}")
+        return "\n".join(lines)
+
+
+def _section(markers, P: int, kind: str, q: int) -> tuple[int, int]:
+    if kind == "to":
+        return int(markers[1 + q]), int(markers[2 + q])
+    if kind == "from":
+        return int(markers[1 + P + q]), int(markers[2 + P + q])
+    raise ValueError(kind)

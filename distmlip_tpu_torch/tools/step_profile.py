@@ -2,7 +2,8 @@
 smoke workload (``tools/workload.py``).
 
     python -m distmlip_tpu_torch.tools.step_profile
-        [--model mace|tensornet|chgnet|escn] [--reps N] [--out DIR]
+        [--model mace|tensornet|chgnet|escn] [--reps N] [--num-partitions P]
+        [--out DIR]
 
 ``--model mace`` (the default) runs MACE at the MACE-MP-0-medium widths on
 2048 atoms (reps 8); ``--model tensornet`` runs TensorNet at the MatPES
@@ -10,6 +11,8 @@ layout on 16384 atoms (reps 16); ``--model chgnet`` runs CHGNet at the
 MPtrj layout on 16384 atoms (reps 16) with magmoms; ``--model escn`` runs
 eSCN at the single-chip UMA widths (channels 128, l_max 4, 8 experts) on
 2048 atoms (reps 8) with the workload's charge, spin and dataset.
+``--num-partitions P`` splits the structure into P slabs, run on the card
+as one flattened graph (``parallel/halo.py``).
 
 1. The first ``calculate`` (cold: CUDA context, library handles, the graph
    build and upload) under a CPU-only profile: its wall time and the ops
@@ -47,9 +50,11 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=None,
                     help="crystal repeats (4 reps^3 atoms); default 8 for mace "
                          "and escn, 16 for tensornet and chgnet")
+    ap.add_argument("--num-partitions", type=int, default=1,
+                    help="slabs of the structure (default 1)")
     ap.add_argument("--out", default=None,
                     help="directory for trace and tables (default "
-                         "build/step_profile/<model>)")
+                         "build/step_profile/<model>, with _p<P> at P > 1)")
     args = ap.parse_args(argv)
 
     import torch
@@ -66,7 +71,9 @@ def main(argv=None) -> int:
     from .workload import (CHGNET_KW, ESCN_INFO, ESCN_KW, MACE_KW, TENSORNET_KW,
                            bench_atoms)
 
-    out_dir = args.out or os.path.join("build", "step_profile", args.model)
+    P = args.num_partitions
+    out_dir = args.out or os.path.join("build", "step_profile",
+                                       args.model + (f"_p{P}" if P > 1 else ""))
     os.makedirs(out_dir, exist_ok=True)
     extra = {}
     if args.model == "mace":
@@ -81,7 +88,8 @@ def main(argv=None) -> int:
     atoms, rng = bench_atoms(reps)
     if args.model == "escn":
         atoms.info = dict(ESCN_INFO)
-    pot = DistPotential(model, model.init(0), device="cuda", skin=0.5, **extra)
+    pot = DistPotential(model, model.init(0), device="cuda", skin=0.5, num_partitions=P,
+                        **extra)
 
     with profile(activities=[ProfilerActivity.CPU]) as cold:
         t = time.perf_counter()
@@ -89,7 +97,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t
     ev = cold.key_averages()
-    print(json.dumps({"part": "first_calculate", "model": args.model,
+    print(json.dumps({"part": "first_calculate", "model": args.model, "num_partitions": P,
                       "wall_ms": cold_s * 1e3,
                       "top_self_cpu": _top(ev, "self_cpu_time_total", 15)}))
     with open(os.path.join(out_dir, "step_profile_cold.txt"), "w") as f:
@@ -130,7 +138,8 @@ def main(argv=None) -> int:
     for row in own.values():
         row["device_share"] = row["ms"] / device_ms if device_ms else 0.0
     print(json.dumps({
-        "part": "warm_step", "model": args.model, "n_atoms": len(atoms),
+        "part": "warm_step", "model": args.model, "num_partitions": P,
+        "n_atoms": len(atoms),
         "wall_ms": warm_s * 1e3, "device_ms": device_ms,
         "device_busy_share": device_ms / (warm_s * 1e3),
         "own_kernels": own,

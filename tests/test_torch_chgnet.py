@@ -152,7 +152,7 @@ def test_chgnet_matches_jax_float64():
     g, h = build_partitioned_graph(build_plan(nl, lat, [1, 1, 1], 1, r, br, True), nl,
                                    spec, lat, caps=CapacityPolicy(), dtype=np.float64)
     g = g.to("cpu")
-    out = make_potential_fn(CHGNet(CHGNetConfig(**CFG)).energy_and_aux_fn, None, aux=True)(
+    out = make_potential_fn(CHGNet(CHGNetConfig(**CFG)).energy_and_aux_fn, aux=True)(
         params_from_numpy(params64), g, g.positions)
     res = {"energy": float(out["energy"]),
            "forces": h.gather_owned(out["forces"].numpy(), len(cart)),

@@ -887,3 +887,147 @@ def test_mace_nve_on_card_matches_cpu(card):
     assert abs(dg - dc) < 1e-5 * abs(ec)
     assert abs(eg - ec) < 1e-5 * abs(ec)
     np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-4)
+
+
+def _long_cell(n_species=4, seed=1):
+    """64 rattled fcc atoms (a = 3.5 Å, 1 x 2 x 8 cells): 28 Å along the
+    slab axis, so P = 2 slabs are wider than twice a 3.0 Å cutoff."""
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms
+
+    rng = np.random.default_rng(seed)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lat = geometry.make_supercell(unit, np.eye(3) * 3.5, (1, 2, 8))
+    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.08, (len(frac), 3))
+    return Atoms(numbers=rng.integers(0, n_species, len(cart)), positions=cart, cell=lat)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["tensornet", "chgnet", "mace", "escn"])
+def test_parallel_on_card_matches_cpu(card, family):
+    """``DistPotential(num_partitions=2)`` on the card (kernels on, the two
+    partitions as one flattened graph) against the same at P = 2 on the CPU
+    (plain versions), and its launches: every edge aggregation once per
+    segment (interior, frontier); the CHGNet line graph is one segment; the
+    CHGNet atom conv projects v once in the interior (both ends read the
+    pre-exchange rows) and twice in the frontier (src the exchanged rows,
+    dst the pre-exchange ones); MACE and eSCN chunk each segment on its
+    own."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
+                                           MACEConfig, TensorNet, TensorNetConfig)
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    atoms = _long_cell()
+    kw = {}
+    if family == "tensornet":
+        model = TensorNet(TensorNetConfig(num_species=4, units=16, num_rbf=8, cutoff=3.0))
+    elif family == "chgnet":
+        model = CHGNet(CHGNetConfig(num_species=4, units=16, num_rbf=6, num_blocks=3,
+                                    cutoff=3.0, bond_cutoff=2.6))
+        kw = dict(compute_magmom=True)
+    elif family == "mace":
+        model = MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2,
+                                hidden_lmax=1, correlation=2, cutoff=3.0, edge_chunk=128))
+    else:
+        model = ESCN(ESCNConfig(num_species=4, channels=16, l_max=2, num_layers=2,
+                                num_bessel=6, num_experts=4, cutoff=3.0,
+                                avg_num_neighbors=12.0, edge_chunk=128))
+        atoms.info = {"charge": 1, "spin": 2, "dataset": 3}
+    params = model.init(0)
+    pot = DistPotential(model, params, device=card, num_partitions=2, **kw)
+    before = dict(launch_counts)
+    gpu = pot.calculate(atoms)
+    got = {k: launch_counts[k] - before[k] for k in launch_counts}
+    st = pot.last_stats
+    assert st["num_partitions"] == 2 and st["e_split"] < st["e_cap"]
+    want = {k: 0 for k in got}
+    if family == "tensornet":
+        layers = model.cfg.num_layers
+        want.update(tensornet_embed_aggregate=2, tensornet_interaction_aggregate=2 * layers,
+                    tensornet_interaction_backward=2 * layers)
+    elif family == "chgnet":
+        blocks = model.cfg.num_blocks
+        want.update(chgnet_atom_conv_aggregate=2 * blocks,
+                    chgnet_line_aggregate=blocks - 1,
+                    chgnet_row_projection=3 * blocks + 2 * (blocks - 1))
+    else:
+        k = chunk_layout(2 * st["e_cap"], model.cfg.edge_chunk, 2 * st["e_split"])[2]
+        if family == "mace":
+            want["segment_sum"] = model.cfg.num_interactions * 2 * k
+        else:
+            want.update(so2_conv=model.cfg.num_layers * 3 * k,
+                        segment_sum=(1 + model.cfg.num_layers) * 2 * k)
+    assert got == want
+    cpu = DistPotential(model, params, device="cpu", num_partitions=2, **kw).calculate(atoms)
+    assert abs(gpu["energy"] - cpu["energy"]) < 1e-5 * abs(cpu["energy"])
+    np.testing.assert_allclose(gpu["forces"], cpu["forces"], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(gpu["stress"], cpu["stress"], rtol=0, atol=1e-4)
+    if "magmoms" in cpu:
+        np.testing.assert_allclose(gpu["magmoms"], cpu["magmoms"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_split_segments_on_card_match_plain(card):
+    """B1 and the B2 kernels on the segment slices (``x[:s]``, ``x[s:]``) of
+    a flattened P = 2 graph on the card, through the LocalGraph methods the
+    models call, against the same methods with ``kernels=False`` on the
+    card: each launches its kernel once per segment, and the results and
+    the node-row cotangents (the TensorNet interaction's backward kernel
+    on each segment) agree."""
+    import dataclasses
+
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.neighbors import neighbor_list_numpy
+    from distmlip_tpu_torch.ops.nn import gated_mlp_weights
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+    from distmlip_tpu_torch.partition import build_partitioned_graph, build_plan
+
+    atoms = _long_cell()
+    nl = neighbor_list_numpy(atoms.positions, atoms.cell, atoms.pbc, 3.0, bond_r=2.6)
+    plan = build_plan(nl, atoms.cell, atoms.pbc, 2, 3.0, 2.6, True)
+    graph, _ = build_partitioned_graph(plan, nl, atoms.numbers, atoms.cell)
+    lg = local_graph_from_stacked(graph.to(card))
+    plain = dataclasses.replace(lg, kernels=False)
+    s, n, e, c = lg.e_split, lg.n_cap, lg.e_cap, 16
+    assert 0 < s < e and n == 2 * graph.n_cap
+    rng = np.random.default_rng(0)
+    to = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(card)
+
+    def launched(name, fn):
+        before = K.launch_counts[name]
+        out = fn(lg)
+        assert K.launch_counts[name] - before == 2, name  # interior, frontier
+        torch.testing.assert_close(out, fn(plain), rtol=1e-5, atol=1e-4)
+        assert K.launch_counts[name] - before == 2, name
+
+    data = to(e, 12)
+    launched("segment_sum", lambda g: g.aggregate_edges(data, g.edge_mask))
+    embed = [to(e, c) for _ in range(4)] + [to(e, 3, 3, 1) for _ in range(2)]
+    launched("tensornet_embed_aggregate",
+             lambda g: g.aggregate_edge_messages(K.TENSORNET_EMBED, embed, g.edge_mask))
+    f = to(e, c, 3)
+    rows = [to(n, c), to(n, 3, c), to(n, 6, c)]
+
+    def interaction(g):
+        leaves = [r.clone().requires_grad_(True) for r in rows]
+        out = g.aggregate_edge_messages(
+            K.TENSORNET_INTERACTION, [f] + [K.Gather(r, g.edge_src) for r in leaves],
+            g.edge_mask)
+        grads = torch.autograd.grad((out * out.detach()).sum(), leaves)
+        return torch.cat([out.reshape(-1)] + [x.reshape(-1) for x in grads])
+
+    before = K.launch_counts["tensornet_interaction_backward"]
+    launched("tensornet_interaction_aggregate", interaction)
+    assert K.launch_counts["tensornet_interaction_backward"] - before == 2
+    weights = tuple(w.to(card) for w in gated_mlp_weights(
+        CHGNet(CHGNetConfig(num_species=4, units=c)).init(0)["atom_blocks"][0]["node_update"]))
+    v = to(n, c)
+    v_post = lg.halo_exchange(v)
+    edge = to(e, c)
+    launched("chgnet_atom_conv_aggregate",
+             lambda g: g.overlapped_edge_sum(K.CHGNET_ATOM_CONV, v, v_post, (edge,),
+                                             g.edge_mask, weights))

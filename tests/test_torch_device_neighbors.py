@@ -187,7 +187,7 @@ def test_refresh_contract_and_exactness():
 
     model = TensorNet(TensorNetConfig(**CFG))
     params = model.init(0)
-    pot = make_potential_fn(model.energy_fn, None)
+    pot = make_potential_fn(model.energy_fn)
     out_dev = pot(params, graph2, pos)
     graph3, host3 = _host_graph(drift, lat, spec, r, caps)
     graph3 = graph3.to("cpu")

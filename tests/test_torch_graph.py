@@ -32,7 +32,8 @@ from distmlip_tpu_torch.neighbors import neighbor_list_numpy as port_nl
 from distmlip_tpu_torch.ops import radial as tradial
 from distmlip_tpu_torch.ops.chunk import chunk_layout as port_chunk_layout
 from distmlip_tpu_torch.parallel import local_graph_from_stacked
-from distmlip_tpu_torch.partition import CapacityPolicy, build_partitioned_graph, build_plan
+from distmlip_tpu_torch.partition import (CapacityPolicy, PartitionError,
+                                          build_partitioned_graph, build_plan)
 from distmlip_tpu_torch.partition.graph import ARRAY_FIELDS
 from tests.utils import make_crystal
 
@@ -86,16 +87,23 @@ def test_neighbor_list_and_p1_graph_bit_for_bit(name):
 
 
 def test_p_gt_1_and_bond_graph_raise():
-    """P>1 raises, with a bond graph too; a P=1 bond graph builds (below)."""
+    """What is not ported raises: the native partitioner and block plans
+    (grid=), with a bond graph too; slab plans at P>1 build (their parity
+    is tests/test_torch_partition.py), and so does a P=1 bond graph."""
     cart, lat, spec, r = STRUCTS["crystal"]
     nl = port_nl(cart, lat, [1, 1, 1], r, bond_r=3.0)
-    with pytest.raises(NotImplementedError, match="P>1"):
-        build_plan(nl, lat, [1, 1, 1], 2, r)
-    with pytest.raises(NotImplementedError, match="P>1"):
-        build_plan(nl, lat, [1, 1, 1], 2, r, 3.0, use_bond_graph=True)
-    with pytest.raises(NotImplementedError, match="P>1"):
-        build_plan(nl, lat, [1, 1, 1], 1, r, 3.0, use_bond_graph=True, grid=(2, 1, 1))
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        build_plan(nl, lat, [1, 1, 1], 2, r, impl="native")
+    with pytest.raises(NotImplementedError, match="block plans"):
+        build_plan(nl, lat, [1, 1, 1], 2, r, 3.0, use_bond_graph=True, grid=(2, 1, 1))
+    with pytest.raises(NotImplementedError, match="block plans"):
+        build_plan(nl, lat, [1, 1, 1], 1, r, 3.0, use_bond_graph=True, grid=(1, 1, 1))
+    with pytest.raises(ValueError, match="impl"):
+        build_plan(nl, lat, [1, 1, 1], 1, r, impl="c++")
     assert build_plan(nl, lat, [1, 1, 1], 1, r, 3.0, use_bond_graph=True).has_bond_graph
+    # the 8 Å crystal holds two slabs of 4 Å, each thinner than the 5 Å cutoff
+    with pytest.raises(PartitionError, match="Slab width"):
+        build_plan(nl, lat, [1, 1, 1], 2, r)
 
 
 BOND_STRUCTS = {

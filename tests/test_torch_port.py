@@ -100,8 +100,12 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="float32"):
         MACE(MACEConfig(**TINY, dtype="bfloat16"))
     model = MACE(MACEConfig(**TINY))
-    with pytest.raises(NotImplementedError, match="P>1"):
-        DistPotential(model, model.init(0), num_partitions=2, device="cpu")
+    # P>1 runs (tests/test_torch_parallel*.py); what it does not take raises
+    with pytest.raises(ValueError, match="device_rebuild=True"):
+        DistPotential(model, model.init(0), num_partitions=2, device="cpu",
+                      device_rebuild=True)
+    with pytest.raises(ValueError, match="num_partitions"):
+        DistPotential(model, model.init(0), num_partitions=0, device="cpu")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         DistPotential(model, model.init(0), compute_dtype="bfloat16", device="cpu")
     with pytest.raises(NotImplementedError, match="checkpoint"):
