@@ -112,7 +112,28 @@ Phases (each failure raises, so the exit code is non-zero):
    an overflow, and where a refresh frame or the last frame disagrees with
    a fresh host-built graph (``skin=0``) beyond the float32 bar, or a
    refreshed graph's pairs closer than r_build - 1e-4 Å differ from a
-   float64 host search's.
+   float64 host search's;
+10. slab graph parallelism on the card (``[parallel-*]``): each family at
+   P = 2 (TensorNet also 4) against P = 1 and ``kernels=False``
+   (``phase_parallel``);
+11. the batched engine on block-diagonally packed graphs: ``[batched-mace]``,
+   ``[batched-tensornet]``, ``[batched-chgnet]`` (magmoms) and
+   ``[batched-escn]`` (8 experts: the per-structure MOLE gate mixes the
+   outputs of one SO(2) kernel call per expert) run
+   ``BatchedPotential(device="cuda", skin=0.5)``
+   at B = 1 and 8 on bench.py's 32-atom pool and on a mixed batch (32, 108,
+   256 atoms and a lone atom without an edge), each structure held against
+   ``DistPotential`` on it alone and against ``kernels=False``, the kernels
+   against their plain versions on the packed graph's own arrays;
+   ``[batched-md]`` (TensorNet, 8 x 32 atoms, ``nvt_berendsen`` at 300 /
+   600 K, 40 steps of 2 fs, the packed device refresh checked against a
+   fresh host pack) and ``[batched-relax]`` (CHGNet, FIRE; each host repack
+   and the last frame against a fresh pack); ``[serve]``: ``ServeEngine``
+   over MACE at ``max_batch`` 1 and 8, open- and closed-loop traffic, the
+   2048-atom crystal through the ``DistPotential`` fallback lane and a NaN
+   request that fails alone, the measured open loop's results and a last
+   round's against ``DistPotential``. Launch counts derived per calculate,
+   as above.
 
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -1683,19 +1704,23 @@ def run_calcs(torch, pot, atoms, geometries):
     return results, step_s, torch.cuda.max_memory_allocated()
 
 
-def worst_deltas(results, refs, border):
-    """The largest differences over the geometries: rel dE, max |dF| (and on
-    the border atoms alone), max |dS|, max |dm| with magmoms."""
+def worst_deltas(results, refs, border=None):
+    """The largest differences over paired results (geometries, or the
+    structures of a batch): rel dE, max |dF| (and on the ``border`` atoms
+    alone, when given), max |dS|, max |dm| with magmoms."""
     import numpy as np
 
-    d = {"rel_dE": 0.0, "max_dF": 0.0, "max_dF_border": 0.0, "max_dS": 0.0}
+    d = {"rel_dE": 0.0, "max_dF": 0.0, "max_dS": 0.0}
+    if border is not None:
+        d["max_dF_border"] = 0.0
     if "magmoms" in refs[0]:
         d["max_dm"] = 0.0
     for res, ref in zip(results, refs):
         df = np.abs(res["forces"] - ref["forces"])
         d["rel_dE"] = max(d["rel_dE"], abs(res["energy"] - ref["energy"]) / abs(ref["energy"]))
         d["max_dF"] = max(d["max_dF"], float(df.max()))
-        d["max_dF_border"] = max(d["max_dF_border"], float(df[border].max()))
+        if border is not None:
+            d["max_dF_border"] = max(d["max_dF_border"], float(df[border].max()))
         d["max_dS"] = max(d["max_dS"], float(np.abs(res["stress"] - ref["stress"]).max()))
         if "max_dm" in d:
             d["max_dm"] = max(d["max_dm"],
@@ -1797,7 +1822,11 @@ def phase_parallel(torch, tag, model, params, atoms, rng, parts, per_calc, pot_k
 
 
 def _segments(lg):
-    """(name, edge-row slice) of the flattened graph's sorted segments."""
+    """(name, edge-row slice) of the graph's sorted segments: interior and
+    frontier of a flattened graph, or the one segment of an unsplit
+    (packed) graph."""
+    if not lg.has_frontier_split:
+        return (("all", slice(None)),)
     s = lg.e_split
     return (("interior", slice(0, s)), ("frontier", slice(s, None)))
 
@@ -1808,11 +1837,13 @@ def _chunk_checks(torch, lg, chunk, width, seed):
     from distmlip_tpu_torch.ops.chunk import chunk_layout
 
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    rows, valid, K, c = chunk_layout(lg.e_cap, chunk, lg.e_split)
+    split = lg.e_split if lg.has_frontier_split else None
+    rows, valid, K, c = chunk_layout(lg.e_cap, chunk, split)
     rows = torch.as_tensor(rows, dtype=torch.long, device="cuda")
     valid = torch.as_tensor(valid, device="cuda")
     errs = []
-    for k in sorted({0, int((rows < lg.e_split).sum()) // c}):  # first interior, first frontier
+    firsts = {0} if split is None else {0, int((rows < split).sum()) // c}
+    for k in sorted(firsts):  # the first chunk of each segment
         sl = slice(k * c, (k + 1) * c)
         ids, mask = lg.edge_dst[rows[sl]], lg.edge_mask[rows[sl]] & valid[sl]
         data = torch.randn((c,) + width, generator=gen, device="cuda")
@@ -1834,26 +1865,31 @@ def phase_parallel_tensornet(torch):
         return {"tensornet_embed_aggregate": 2, "tensornet_interaction_aggregate": 2 * layers,
                 "tensornet_interaction_backward": 2 * layers}
 
-    def segment_check(lg):
-        gen = torch.Generator(device="cuda").manual_seed(97)
-        errs = {}
-        for _, sl in _segments(lg):
-            ids, src, mask = lg.edge_dst[sl], lg.edge_src[sl], lg.edge_mask[sl]
-            for which in ("embed", "interaction"):
-                arrays = edge_inputs(torch, gen, which, ids.shape[0], c, lg.n_cap, src)
-                name = f"tensornet_{which}_aggregate"
-                errs[name] = max(errs.get(name, 0.0),
-                                 check_edge_aggregate(torch, which, arrays, ids, mask, lg.n_cap))
-            g = torch.randn((lg.n_cap, 3, 3, c), generator=gen, device="cuda")
-            errs["tensornet_interaction_backward"] = max(
-                errs.get("tensornet_interaction_backward", 0.0),
-                check_interaction_backward(torch, g, arrays, ids, mask))
-            del arrays, g
-        return errs
-
     atoms, rng = bench_atoms(TENSORNET_REPS)
     return phase_parallel(torch, "parallel-tensornet", model, model.init(0), atoms, rng,
-                          (2, 4), per_calc, {}, segment_check)
+                          (2, 4), per_calc, {},
+                          lambda lg: tensornet_segment_checks(torch, lg, c))
+
+
+def tensornet_segment_checks(torch, lg, c):
+    """The three TensorNet kernels against their plain versions on each
+    sorted segment of ``lg`` at its real ids and masks, random rows of
+    width ``c``; returns the worst error by kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    errs = {}
+    for _, sl in _segments(lg):
+        ids, src, mask = lg.edge_dst[sl], lg.edge_src[sl], lg.edge_mask[sl]
+        for which in ("embed", "interaction"):
+            arrays = edge_inputs(torch, gen, which, ids.shape[0], c, lg.n_cap, src)
+            name = f"tensornet_{which}_aggregate"
+            errs[name] = max(errs.get(name, 0.0),
+                             check_edge_aggregate(torch, which, arrays, ids, mask, lg.n_cap))
+        g = torch.randn((lg.n_cap, 3, 3, c), generator=gen, device="cuda")
+        errs["tensornet_interaction_backward"] = max(
+            errs.get("tensornet_interaction_backward", 0.0),
+            check_interaction_backward(torch, g, arrays, ids, mask))
+        del arrays, g
+    return errs
 
 
 def phase_parallel_chgnet(torch):
@@ -1877,30 +1913,34 @@ def phase_parallel_chgnet(torch):
         return {"chgnet_atom_conv_aggregate": 2 * blocks, "chgnet_line_aggregate": blocks - 1,
                 "chgnet_row_projection": 3 * blocks + 2 * (blocks - 1)}
 
-    def segment_check(lg):
-        cgen = torch.Generator(device="cuda").manual_seed(98)
-        n = lg.n_cap
-        errs = {}
-        for name, sl in _segments(lg):
-            ids, src, mask = lg.edge_dst[sl], lg.edge_src[sl], lg.edge_mask[sl]
-            arrays, weights = chgnet_inputs(torch, cgen, "atom", ids.shape[0], c, c, n,
-                                            (src, ids))
-            if name == "frontier":  # v after the exchange at src, before it at dst
-                arrays[2] = torch.randn(arrays[0].shape, generator=cgen, device="cuda")
-            errs["chgnet_atom_conv_aggregate"] = max(
-                errs.get("chgnet_atom_conv_aggregate", 0.0),
-                check_chgnet(torch, "atom", arrays, weights, ids, mask, n)[0])
-            del arrays
-        arrays, weights = chgnet_inputs(torch, cgen, "line", lg.line_dst.shape[0], c, c,
-                                        (lg.b_cap, n), (lg.line_src, lg.line_dst,
-                                                        lg.line_center))
-        errs["chgnet_line_aggregate"] = check_chgnet(
-            torch, "line", arrays, weights, lg.line_dst, lg.line_mask, lg.b_cap)[0]
-        return errs
-
     atoms, rng = bench_atoms(CHGNET_REPS)
     return phase_parallel(torch, "parallel-chgnet", model, params, atoms, rng, (2,),
-                          per_calc, {"compute_magmom": True}, segment_check)
+                          per_calc, {"compute_magmom": True},
+                          lambda lg: chgnet_segment_checks(torch, lg, c))
+
+
+def chgnet_segment_checks(torch, lg, c):
+    """Both CHGNet kernels (their row projections inside) against their
+    plain versions at ``lg``'s real ids and masks: the atom conv on each
+    sorted edge segment, the line conv on the line graph; random rows and
+    weights at C = H = ``c``. Returns the worst error by kernel."""
+    cgen = torch.Generator(device="cuda").manual_seed(98)
+    n = lg.n_cap
+    errs = {}
+    for name, sl in _segments(lg):
+        ids, src, mask = lg.edge_dst[sl], lg.edge_src[sl], lg.edge_mask[sl]
+        arrays, weights = chgnet_inputs(torch, cgen, "atom", ids.shape[0], c, c, n, (src, ids))
+        if name == "frontier":  # v after the exchange at src, before it at dst
+            arrays[2] = torch.randn(arrays[0].shape, generator=cgen, device="cuda")
+        errs["chgnet_atom_conv_aggregate"] = max(
+            errs.get("chgnet_atom_conv_aggregate", 0.0),
+            check_chgnet(torch, "atom", arrays, weights, ids, mask, n)[0])
+        del arrays
+    arrays, weights = chgnet_inputs(torch, cgen, "line", lg.line_dst.shape[0], c, c,
+                                    (lg.b_cap, n), (lg.line_src, lg.line_dst, lg.line_center))
+    errs["chgnet_line_aggregate"] = check_chgnet(
+        torch, "line", arrays, weights, lg.line_dst, lg.line_mask, lg.b_cap)[0]
+    return errs
 
 
 def phase_parallel_mace(torch):
@@ -2001,6 +2041,461 @@ def phase_parallel_md(torch):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# batched engine and serving (block-diagonally packed graphs)
+# ---------------------------------------------------------------------------
+
+BATCH_STEPS = 3             # 0.01 Å moves after the warm calculate (bench.py:359-367)
+BATCHED_MD_STEPS = 40
+BATCHED_RELAX_STEPS = 30
+SERVE_REQUESTS = 24
+# the engine routes a structure to the fallback lane when n_atoms >
+# max_batch_atoms, so the 2048-atom structure needs a ceiling below 2048
+SERVE_MAX_BATCH_ATOMS = 1024
+
+
+def batched_family(torch, family):
+    """(model, params, potential kwargs, per-calculate launches from the
+    packed graph's stats, the kernels-vs-plain checks on a packed graph's
+    LocalGraph, atoms.info) of one family at its full published width."""
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
+                                           MACEConfig, TensorNet, TensorNetConfig)
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import (CHGNET_KW, ESCN_INFO, ESCN_KW, MACE_KW,
+                                                   TENSORNET_KW)
+
+    gen = torch.Generator().manual_seed(0)
+    if family == "mace":
+        model = MACE(MACEConfig(**MACE_KW))
+        return (model, model.init(0), {},
+                lambda st: {"segment_sum": MACE_KW["num_interactions"] * 2
+                            * chunk_layout(st["e_cap"], MACE_KW["edge_chunk"])[2]},
+                lambda lg: _chunk_checks(torch, lg, MACE_KW["edge_chunk"],
+                                         (40, MACE_KW["channels"]), 99), {})
+    if family == "tensornet":
+        model, layers = TensorNet(TensorNetConfig(**TENSORNET_KW)), TENSORNET_KW["num_layers"]
+        return (model, model.init(0), {},
+                lambda st: {"tensornet_embed_aggregate": 1,
+                            "tensornet_interaction_aggregate": layers,
+                            "tensornet_interaction_backward": layers},
+                lambda lg: tensornet_segment_checks(torch, lg, TENSORNET_KW["units"]), {})
+    if family == "chgnet":
+        model, blocks = CHGNet(CHGNetConfig(**CHGNET_KW)), CHGNET_KW["num_blocks"]
+        params = model.init(0)
+        params["species_ref"]["w"] = torch.randn((CHGNET_KW["num_species"], 1), generator=gen)
+        params["data_std"] = torch.tensor(1.3)
+        return (model, params, {"compute_magmom": True},
+                lambda st: {"chgnet_atom_conv_aggregate": blocks,
+                            "chgnet_line_aggregate": blocks - 1,
+                            "chgnet_row_projection": blocks + 2 * (blocks - 1)},
+                lambda lg: chgnet_segment_checks(torch, lg, CHGNET_KW["units"]), {})
+    model, layers = ESCN(ESCNConfig(**ESCN_KW)), ESCN_KW["num_layers"]
+    experts = ESCN_KW["num_experts"]
+    params = model.init(0)
+    params["species_ref"]["w"] = torch.randn((ESCN_KW["num_species"],), generator=gen)
+
+    def escn_per_calc(st):
+        # 8 experts on a packed graph: the per-structure MOLE gate mixes the
+        # outputs of one SO(2) kernel call per expert (forward, checkpoint
+        # recompute, input cotangent) in every layer and edge chunk
+        K = chunk_layout(st["e_cap"], ESCN_KW["edge_chunk"])[2]
+        return {"so2_conv": layers * 3 * K * experts, "segment_sum": (1 + layers) * 2 * K}
+
+    def escn_checks(lg):
+        # B1 on the first edge chunk, B3 at the packed graph's chunk rows
+        out = _chunk_checks(torch, lg, ESCN_KW["edge_chunk"], (25, ESCN_KW["channels"]), 100)
+        rows = chunk_layout(lg.e_cap, ESCN_KW["edge_chunk"])[3]
+        case = so2_case(torch, torch.Generator(device="cuda").manual_seed(101), rows,
+                        ESCN_KW["l_max"], ESCN_KW["channels"])
+        out["so2_conv"] = check_so2(torch, *case, ESCN_KW["channels"])[0]
+        return out
+
+    return model, params, {}, escn_per_calc, escn_checks, dict(ESCN_INFO)
+
+
+def phase_batched(torch, family):
+    """``[batched-<family>]``: ``BatchedPotential(device="cuda", skin=0.5)`` at
+    B = 1 and B = 8 on the 32-atom pool, then the mixed batch (32, 108, 256
+    atoms and a lone atom; 4 structures in 4 slots): one warm calculate and
+    BATCH_STEPS moves of 0.01 Å, each launch count set to 0 just before and
+    held to the per-calculate derivation; then the kernels against their
+    plain versions on the packed graph's own arrays, and each structure at
+    the last geometry against ``DistPotential`` on it alone and against a
+    ``kernels=False`` ``BatchedPotential``. Returns the launches summed over
+    the three runs and the packed kernel checks' worst errors."""
+    from distmlip_tpu_torch.calculators import BatchedPotential, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+    from distmlip_tpu_torch.tools.workload import batched_pool, mixed_batch
+
+    t_phase = time.perf_counter()
+    tag = f"batched-{family}"
+    model, params, kw, per_calc, kernel_check, info = batched_family(torch, family)
+    pool, rng = batched_pool(8)
+    total, errs, runs = {k: 0 for k in launch_counts}, {}, {}
+    for name, structs in (("B1", pool[:1]), ("B8", pool), ("mixed", mixed_batch())):
+        for a in structs:
+            a.info = dict(info)
+        pot = BatchedPotential(model, params, device="cuda", skin=0.5, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in launch_counts:
+            launch_counts[k] = 0
+        results, step_s, stats = [], [], []
+        for step in range(1 + BATCH_STEPS):
+            if step:
+                for a in structs:
+                    a.positions += rng.normal(0, 0.01, a.positions.shape)
+            t = time.perf_counter()
+            res = pot.calculate(structs)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            results.append(res)
+            stats.append(dict(pot.last_stats))
+        launches = dict(launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: sum(per_calc(st).get(k, 0) for st in stats) for k in launches}
+        log(f"[{tag}] {name}: launches per calculate {json.dumps(per_calc(stats[-1]))} x "
+            f"{len(stats)} calculates; counted {launches}")
+        if launches != expected:
+            raise AssertionError(f"[{tag}] {name}: kernel launch counts {launches} differ "
+                                 f"from the derivation {expected}")
+        if pot.rebuild_count != 1:
+            raise AssertionError(f"[{tag}] {name}: packed graph rebuilt after the first "
+                                 f"calculate ({pot.rebuild_count} builds)")
+        for res in results:
+            for r, a in zip(res, structs):
+                check_result(r, len(a))
+        for k, v in launches.items():
+            total[k] += v
+        for k, v in kernel_check(local_graph_from_stacked(pot._cache[0])).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        single = DistPotential(model, params, device="cuda", **kw)
+        vs_single = worst_deltas(results[-1], [single.calculate(a) for a in structs])
+        del single
+        plain = BatchedPotential(model, params, device="cuda", kernels=False, **kw)
+        before = dict(launch_counts)
+        vs_plain = worst_deltas(results[-1], plain.calculate(structs))
+        if dict(launch_counts) != before:
+            raise AssertionError(f"[{tag}] the kernels=False reference launched a kernel")
+        del plain
+        st = stats[-1]
+        steady = statistics.median(step_s[1:])
+        runs[name] = {
+            "structures": len(structs), "n_atoms": [len(a) for a in structs],
+            "bucket_key": st["bucket_key"], "padding_waste_frac": st["padding_waste_frac"],
+            "batch_occupancy": st["batch_occupancy"], "compile_count": pot.compile_count,
+            "first_calculate_ms": step_s[0] * 1e3, "step_ms": [x * 1e3 for x in step_s[1:]],
+            "step_ms_median": steady * 1e3, "structures_per_s": len(structs) / steady,
+            "max_memory_allocated_bytes": peak,
+            "first_calculate_peak_bytes": stats[0]["batch_peak_bytes"],
+            "vs_single": vs_single, "vs_plain": vs_plain, "launches": launches,
+        }
+        log(f"[{tag}] {name}: {json.dumps(runs[name])}")
+        if not (within_bar(vs_single) and within_bar(vs_plain)):
+            raise AssertionError(f"[{tag}] {name}: the batch disagrees with DistPotential or "
+                                 f"with its plain reference")
+        del pot
+        torch.cuda.empty_cache()
+    log(f"[{tag}] kernels on the packed graphs agree with their plain versions: max |err| "
+        f"{json.dumps(errs)}; phase {time.perf_counter() - t_phase:.1f} s")
+    return total, errs
+
+
+def phase_batched_md(torch):
+    """``[batched-md]``: ``BatchedMD`` with TensorNet at TENSORNET_KW on the
+    8 x 32-atom pool, ``nvt_berendsen`` at targets alternating 300 / 600 K
+    (Maxwell-Boltzmann velocities at the targets), BATCHED_MD_STEPS steps of
+    2 fs, ``skin=0.5`` and ``device_rebuild="auto"``. Launch counts from just
+    before the driver is made (its first calculate) to just after the last
+    step: per calculate 1 embed + L interactions + L backwards. Fails without
+    an in-place packed refresh, on a host repack that is not an overflow,
+    and where a refreshed frame (or the last) disagrees with a fresh host
+    pack beyond the float32 bar."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import Atoms, BatchedMD, BatchedPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, batched_pool
+
+    t_phase = time.perf_counter()
+    model = TensorNet(TensorNetConfig(**TENSORNET_KW))
+    params = model.init(0)
+    pool, rng = batched_pool(8, seed=2)
+    temps = [300.0, 600.0] * 4
+    for a, t in zip(pool, temps):
+        a.set_maxwell_boltzmann_velocities(t, rng=rng)
+    pot = BatchedPotential(model, params, device="cuda", skin=0.5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    md = BatchedMD(pool, pot, ensemble="nvt_berendsen", timestep=2.0, temperature=temps)
+    step_s, kinds, refresh_ms, frames = [], [], [], []
+    for _ in range(BATCHED_MD_STEPS):
+        t = time.perf_counter()
+        md.step()
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+        st = pot.last_stats
+        kind = ("refresh" if st["rebuild_on_device"] else
+                "host" if st["rebuild_count"] else "hit")
+        kinds.append(kind)
+        if kind == "refresh":
+            refresh_ms.append(pot.last_timings["rebuild_s"] * 1e3)
+            frames.append(([a.positions.copy() for a in md.atoms_list], md.results))
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    frames.append(([a.positions.copy() for a in md.atoms_list], md.results))
+    n_calc, layers = 1 + BATCHED_MD_STEPS, TENSORNET_KW["num_layers"]
+    expected = {k: 0 for k in launches}
+    expected.update(tensornet_embed_aggregate=n_calc,
+                    tensornet_interaction_aggregate=n_calc * layers,
+                    tensornet_interaction_backward=n_calc * layers)
+    log(f"[batched-md] launches: {n_calc} calculates x (1 embed + {layers} interactions + "
+        f"{layers} backwards); counted {launches}")
+    if launches != expected:
+        raise AssertionError(f"[batched-md] kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+    if pot.rebuild_on_device_count < 1:
+        raise AssertionError("[batched-md] no in-place packed refresh happened")
+    if pot.rebuild_count - 1 - pot.rebuild_on_device_count != pot.rebuild_overflow_count:
+        raise AssertionError(f"[batched-md] a host repack after the first that is not an "
+                             f"overflow ({pot.rebuild_count} builds, "
+                             f"{pot.rebuild_on_device_count} on the device)")
+    if not all(np.isfinite(a.velocities).all() for a in md.atoms_list):
+        raise AssertionError("[batched-md] non-finite velocities")
+    fresh = BatchedPotential(model, params, device="cuda", skin=0.0)
+    worst = {}
+    for positions, results in frames:
+        structs = [Atoms(numbers=a.numbers, positions=p, cell=a.cell)
+                   for a, p in zip(md.atoms_list, positions)]
+        for k, v in worst_deltas(results, fresh.calculate(structs)).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    by = {k: [s * 1e3 for s, kk in zip(step_s, kinds) if kk == k]
+          for k in ("hit", "refresh", "host")}
+    summary = {
+        "structures": len(pool), "n_atoms": int(sum(len(a) for a in pool)),
+        "steps": BATCHED_MD_STEPS, "step_ms_median": {k: median(v) for k, v in by.items()},
+        "steps_by_kind": {k: len(v) for k, v in by.items()}, "refresh_ms": refresh_ms,
+        "structures_per_s": len(pool) * len(step_s) / sum(step_s),
+        "rebuild_count": pot.rebuild_count,
+        "rebuild_on_device_count": pot.rebuild_on_device_count,
+        "rebuild_overflow_count": pot.rebuild_overflow_count,
+        "temperatures_K": [float(x) for x in md.temperatures()],
+        "max_memory_allocated_bytes": peak, "vs_fresh_host_pack": worst,
+        "frames_checked": len(frames), "launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"[batched-md] {json.dumps(summary)}")
+    if not within_bar(worst):
+        raise AssertionError("[batched-md] a refreshed frame disagrees with a fresh host pack")
+    return launches
+
+
+def phase_batched_relax(torch):
+    """``[batched-relax]``: ``BatchedRelaxer`` (FIRE, fmax 0.05 eV/Å, at most
+    BATCHED_RELAX_STEPS steps) with CHGNet at CHGNET_KW (magmoms on) on 8
+    32-atom structures rattled by a further 0.05 Å. Launches per calculate
+    as in ``[batched-chgnet]``; the bond graph is repacked on the host when
+    the skin budget is spent. Each calculate after such a repack, and the
+    last, is held against a fresh ``skin=0`` pack of its geometries at the
+    float32 bar."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import BatchedPotential, BatchedRelaxer
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.tools.workload import batched_pool
+
+    t_phase = time.perf_counter()
+    model, params, kw, per_calc, _, _ = batched_family(torch, "chgnet")
+    pool, rng = batched_pool(8, seed=3)
+    for a in pool:
+        a.positions += rng.normal(0, 0.05, a.positions.shape)
+    pot = BatchedPotential(model, params, device="cuda", skin=0.5, **kw)
+    calls, frames, calculate = [], [], pot.calculate
+
+    def timed(structs):
+        t = time.perf_counter()
+        out = calculate(structs)
+        torch.cuda.synchronize()
+        calls.append((time.perf_counter() - t, dict(pot.last_stats)))
+        if len(calls) > 1 and pot.last_stats["rebuild_count"]:
+            frames.append(([a.copy() for a in structs], out))
+        return out
+
+    pot.calculate = timed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    out = BatchedRelaxer(pot, optimizer="fire", fmax=0.05).relax(pool,
+                                                                 steps=BATCHED_RELAX_STEPS)
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    expected = {k: sum(per_calc(st).get(k, 0) for _, st in calls) for k in launches}
+    log(f"[batched-relax] launches: {len(calls)} calculates x {json.dumps(per_calc({}))}; "
+        f"counted {launches}")
+    if launches != expected:
+        raise AssertionError(f"[batched-relax] kernel launch counts {launches} differ from "
+                             f"the derivation {expected}")
+    for r in out:
+        if not (np.isfinite(r.energy) and np.isfinite(r.forces).all()
+                and np.isfinite(r.atoms.positions).all()):
+            raise AssertionError("[batched-relax] non-finite result")
+    frames.append(([r.atoms for r in out],
+                   [{"energy": r.energy, "forces": r.forces, "stress": r.stress} for r in out]))
+    fresh = BatchedPotential(model, params, device="cuda", skin=0.0, **kw)
+    worst = {}
+    for structs, results in frames:
+        refs = fresh.calculate(structs)
+        if "magmoms" not in results[0]:  # a RelaxResult carries no magmoms
+            refs = [{k: v for k, v in r.items() if k != "magmoms"} for r in refs]
+        for k, v in worst_deltas(results, refs).items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    summary = {
+        "structures": len(pool), "calculates": len(calls),
+        "nsteps": [r.nsteps for r in out], "converged": [bool(r.converged) for r in out],
+        "fmax_final": [float(np.abs(r.forces).max()) for r in out],
+        "step_ms_median": median([s * 1e3 for s, _ in calls[1:]]),
+        "first_calculate_ms": calls[0][0] * 1e3,
+        "host_repacks": sum(st["rebuild_count"] for _, st in calls),
+        "max_memory_allocated_bytes": peak, "vs_fresh_pack": worst,
+        "frames_checked": len(frames), "launches": launches,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log(f"[batched-relax] {json.dumps(summary)}")
+    if not within_bar(worst):
+        raise AssertionError("[batched-relax] a relax frame disagrees with a fresh pack")
+    return launches
+
+
+def phase_serve(torch):
+    """``[serve]``: ``ServeEngine(BatchedPotential(MACE), fallback=DistPotential(
+    MACE), max_batch=B, max_wait_s=0.005, admission="block",
+    max_batch_atoms=SERVE_MAX_BATCH_ATOMS)`` at B = 1 and 8 (MACE at MACE_KW,
+    skin 0.5): ``run_open_loop`` of SERVE_REQUESTS burst requests over the 8
+    structure pool, once to warm and once measured (bench.py:415-426), then
+    ``run_closed_loop`` with 4 clients; then one round of the pool, the mixed
+    batch, the 2048-atom crystal (the fallback lane) and a NaN-position
+    request (its own Future fails, no other). Every result of the measured
+    open loop and of that round is held against ``DistPotential`` on the
+    same structure. Launch counts from just before
+    the engine is made to just after ``drain()``, each calculate of either
+    lane giving 2 interactions x 2K segment sums for its e_cap."""
+    from distmlip_tpu_torch.calculators import BatchedPotential, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.serve import ServeEngine, run_closed_loop, run_open_loop
+    from distmlip_tpu_torch.tools.workload import (MACE_KW, batched_pool, bench_atoms,
+                                                   mixed_batch)
+
+    t_phase = time.perf_counter()
+    model, params, _, _, _, _ = batched_family(torch, "mace")
+    pool, _ = batched_pool(8, seed=4)
+    big = bench_atoms()[0]
+    extra = mixed_batch(5) + [big]
+    nan = pool[0].copy()
+    nan.positions[3, 1] = float("nan")
+    total = {k: 0 for k in launch_counts}
+    summaries = {}
+    for B in (1, 8):
+        e_caps = []
+
+        def recorded(p):
+            calculate = p.calculate
+
+            def call(x):
+                out = calculate(x)
+                e_caps.append(p.last_stats["e_cap"])
+                return out
+            p.calculate = call
+            return p
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in launch_counts:
+            launch_counts[k] = 0
+        pot = recorded(BatchedPotential(model, params, device="cuda", skin=0.5))
+        fallback = recorded(DistPotential(model, params, device="cuda", skin=0.5))
+        engine = ServeEngine(pot, fallback=fallback, max_batch=B, max_wait_s=0.005,
+                             admission="block", max_batch_atoms=SERVE_MAX_BATCH_ATOMS)
+        run_open_loop(engine, pool, SERVE_REQUESTS, rate_hz=0.0)   # warm
+        submit, served = engine.submit, []
+
+        def keep(a, **kw):  # the measured open loop's futures, to check
+            fut = submit(a, **kw)
+            served.append((a, fut))
+            return fut
+        engine.submit = keep
+        open_rep = run_open_loop(engine, pool, SERVE_REQUESTS, rate_hz=0.0)
+        engine.submit = submit
+        closed_rep = run_closed_loop(engine, pool, SERVE_REQUESTS, concurrency=4)
+        structs = pool + extra
+        futs = [engine.submit(a) for a in structs]
+        bad = engine.submit(nan)
+        results = [f.result(timeout=600) for f in futs]
+        try:
+            bad.result(timeout=600)
+            raise AssertionError("[serve] the NaN request returned a result")
+        except ValueError as e:
+            if "non-finite" not in str(e):
+                raise
+        if not engine.drain(timeout=600):
+            raise AssertionError("[serve] drain() timed out")
+        launches = dict(launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        snap = engine.stats.snapshot()
+        compiles = engine.compile_count
+        engine.close()
+        if engine.queue_depth or engine.scheduler_alive:
+            raise AssertionError("[serve] close() left work or the scheduler behind")
+        per = MACE_KW["num_interactions"] * 2
+        expected = {k: 0 for k in launches}
+        expected["segment_sum"] = sum(per * chunk_layout(e, MACE_KW["edge_chunk"])[2]
+                                      for e in e_caps)
+        log(f"[serve] B={B}: {len(e_caps)} calculates of the two lanes x "
+            f"{MACE_KW['num_interactions']} interactions x 2K (K edge chunks of each "
+            f"calculate's e_cap) = {expected['segment_sum']}; counted {launches}")
+        if launches != expected:
+            raise AssertionError(f"[serve] B={B}: kernel launch counts {launches} differ "
+                                 f"from the derivation {expected}")
+        if snap["fallback_requests"] != 1 or snap["failed"] != 1:
+            raise AssertionError(f"[serve] B={B}: expected 1 fallback and 1 failed request, "
+                                 f"got {snap['fallback_requests']} and {snap['failed']}")
+        for r, a in zip(results, structs):
+            check_result(r, len(a))
+        single = DistPotential(model, params, device="cuda")
+        refs = [single.calculate(a) for a in structs]
+        vs_single = worst_deltas(results, refs)
+        by_id = {id(a): r for a, r in zip(structs, refs)}
+        vs_open = worst_deltas([f.result() for _, f in served], [by_id[id(a)] for a, _ in served])
+        del single
+        buckets = snap["buckets"].values()
+        occupancy = (sum(b["mean_batch_occupancy"] * b["batches"] for b in buckets)
+                     / max(sum(b["batches"] for b in buckets), 1))
+        summaries[B] = {
+            "max_batch": B, "open_loop": open_rep.summary(), "closed_loop": closed_rep.summary(),
+            "mean_batch_occupancy": occupancy, "batches": snap["batches"],
+            "compile_count": compiles, "fallback_requests": snap["fallback_requests"],
+            "failed": snap["failed"], "completed": snap["completed"],
+            "max_memory_allocated_bytes": peak, "vs_single": vs_single,
+            "open_loop_vs_single": vs_open, "open_loop_checked": len(served),
+            "launches": launches,
+        }
+        log(f"[serve] B={B}: {json.dumps(summaries[B])}")
+        if len(served) != SERVE_REQUESTS or not (within_bar(vs_single) and within_bar(vs_open)):
+            raise AssertionError(f"[serve] B={B}: a served result disagrees with "
+                                 f"DistPotential")
+        for k, v in launches.items():
+            total[k] += v
+        del pot, fallback, engine
+        torch.cuda.empty_cache()
+    log(f"[serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -2094,6 +2589,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     for k, v in phase_parallel_md(torch).items():
         par_launches[k] += v
+    # the batched engine and serving: each phase counts its own launches
+    bat_launches, bat_errs = {k: 0 for k in md_launches}, {}
+    for family in ("mace", "tensornet", "chgnet", "escn"):
+        torch.cuda.empty_cache()
+        launched, errs = phase_batched(torch, family)
+        for k, v in launched.items():
+            bat_launches[k] += v
+        for k, v in errs.items():
+            bat_errs[k] = max(bat_errs.get(k, 0.0), v)
+    for phase in (phase_batched_md, phase_batched_relax, phase_serve):
+        torch.cuda.empty_cache()
+        for k, v in phase(torch).items():
+            bat_launches[k] += v
 
     headline = timed[-1]  # the (32768, 40, 128) chunk of interaction 1
     kernels = [{
@@ -2164,6 +2672,10 @@ def main() -> int:
         # plain version on the flattened graphs' segments (where checked)
         k["parallel_launches"] = par_launches[k["name"]]
         k["parallel_segments_max_abs_err"] = par_errs.get(k["name"])
+        # ... in the [batched-*] and [serve] phases, and its worst error
+        # against its plain version on the packed graphs (where checked)
+        k["batched_launches"] = bat_launches[k["name"]]
+        k["batched_packed_max_abs_err"] = bat_errs.get(k["name"])
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,4 +1,5 @@
 from .atoms import AMU_A2_FS2_TO_EV, EV_A3_TO_GPA, KB, Atoms
+from .batched import BatchedMD, BatchedPotential, BatchedRelaxer
 from .calculator import DistPotential
 from .elements import MASSES, SYMBOLS, symbols_to_numbers
 from .md import ENSEMBLES, MolecularDynamics, TrajectoryObserver
@@ -8,6 +9,7 @@ __all__ = [
     "Atoms", "KB", "AMU_A2_FS2_TO_EV", "EV_A3_TO_GPA",
     "MASSES", "SYMBOLS", "symbols_to_numbers",
     "DistPotential",
+    "BatchedPotential", "BatchedRelaxer", "BatchedMD",
     "ENSEMBLES", "MolecularDynamics", "TrajectoryObserver",
     "Relaxer", "RelaxResult",
 ]

@@ -54,6 +54,29 @@ from ..utils.checkpoint import params_from_numpy
 from .atoms import EV_A3_TO_GPA, Atoms, map_species, max_displacement
 
 
+def atoms_system(atoms: Atoms) -> dict:
+    """Per-system conditioning scalars (charge/spin/dataset), read from
+    ``atoms.info`` (``distmlip_tpu/calculators/calculator.py:336``)."""
+    info = getattr(atoms, "info", {}) or {}
+    return {k: int(info.get(k, 0)) for k in ("charge", "spin", "dataset")}
+
+
+def validate_system(cfg, system: dict) -> None:
+    """Range-check the conditioning scalars against the model config
+    (``distmlip_tpu/calculators/calculator.py:346-365``): the device-side
+    embedding lookups clip, which would silently alias an out-of-range
+    charge, spin or dataset onto the table's edge."""
+    if hasattr(cfg, "num_charges"):
+        lo = cfg.charge_min
+        hi = cfg.charge_min + cfg.num_charges - 1
+        if not lo <= system["charge"] <= hi:
+            raise ValueError(f"charge {system['charge']} outside [{lo}, {hi}]")
+    if hasattr(cfg, "num_spins") and not 0 <= system["spin"] < cfg.num_spins:
+        raise ValueError(f"spin {system['spin']} outside [0, {cfg.num_spins})")
+    if hasattr(cfg, "num_datasets") and not 0 <= system["dataset"] < cfg.num_datasets:
+        raise ValueError(f"dataset {system['dataset']} outside [0, {cfg.num_datasets})")
+
+
 class DistPotential:
     """Potential over a model + parameter tree, on one device.
 
@@ -198,7 +221,7 @@ class DistPotential:
                           self.use_bond_graph)
         graph, host = build_partitioned_graph(
             plan, nl, self._species(atoms.numbers), atoms.cell, caps=self.caps,
-            system=self._system(atoms))
+            system=atoms_system(atoms))
         host.stats = {"n_atoms": len(atoms), "num_partitions": graph.num_partitions,
                       "n_cap": graph.n_cap, "e_cap": graph.e_cap, "e_split": graph.e_split,
                       "n_edges": int(graph.edge_mask.sum())}
@@ -226,30 +249,6 @@ class DistPotential:
             self._nbr_spec = (static, as_device_arrays(arrays, self.device))
         return graph.to(self.device), host
 
-    @staticmethod
-    def _system(atoms: Atoms) -> dict:
-        """Per-system conditioning scalars (charge/spin/dataset), read from
-        ``atoms.info`` (``distmlip_tpu/calculators/calculator.py:336``)."""
-        info = getattr(atoms, "info", {}) or {}
-        return {k: int(info.get(k, 0)) for k in ("charge", "spin", "dataset")}
-
-    def _validate_system(self, system: dict) -> None:
-        """Range-check the conditioning scalars against the model config
-        (``calculator.py:346-365``): the device-side embedding lookups clip,
-        which would silently alias an out-of-range charge, spin or dataset
-        onto the table's edge."""
-        cfg = self.model.cfg
-        if hasattr(cfg, "num_charges"):
-            lo = cfg.charge_min
-            hi = cfg.charge_min + cfg.num_charges - 1
-            if not lo <= system["charge"] <= hi:
-                raise ValueError(f"charge {system['charge']} outside [{lo}, {hi}]")
-        if hasattr(cfg, "num_spins") and not 0 <= system["spin"] < cfg.num_spins:
-            raise ValueError(f"spin {system['spin']} outside [0, {cfg.num_spins})")
-        if hasattr(cfg, "num_datasets") and not 0 <= system["dataset"] < cfg.num_datasets:
-            raise ValueError(
-                f"dataset {system['dataset']} outside [0, {cfg.num_datasets})")
-
     def _structure_matches(self, atoms: Atoms) -> bool:
         """The cached graph's structure (species, cell, pbc, conditioning
         scalars) is ``atoms``'."""
@@ -258,7 +257,7 @@ class DistPotential:
                 and np.array_equal(numbers0, atoms.numbers)
                 and np.array_equal(cell0, atoms.cell)
                 and np.array_equal(pbc0, atoms.pbc)
-                and system0 == self._system(atoms))
+                and system0 == atoms_system(atoms))
 
     def _cache_valid(self, atoms: Atoms) -> bool:
         """The cached graph holds while the structure (and its conditioning
@@ -336,7 +335,7 @@ class DistPotential:
             if self.skin > 0.0:
                 self._cache = (graph, host, atoms.positions.copy(),
                                atoms.numbers.copy(), atoms.cell.copy(),
-                               atoms.pbc.copy(), self._system(atoms))
+                               atoms.pbc.copy(), atoms_system(atoms))
             self.last_timings = {"neighbor_s": t1 - t0,
                                  "partition_s": time.perf_counter() - t1}
             return graph, host, graph.positions
@@ -351,7 +350,7 @@ class DistPotential:
     def calculate(self, atoms: Atoms) -> dict:
         """Energy (eV), forces (eV/Å), stress (eV/Å^3, ASE sign convention),
         and magmoms (N,) with ``compute_magmom``."""
-        self._validate_system(self._system(atoms))
+        validate_system(self.model.cfg, atoms_system(atoms))
         graph, host, positions = self._prepare(atoms)
         t0 = time.perf_counter()
         out = self._potential(self.params, graph, positions)

@@ -1,7 +1,9 @@
 from .chgnet import CHGNet, CHGNetConfig
 from .escn import ESCN, ESCNConfig
 from .mace import MACE, MACEConfig
+from .pair import PairConfig, PairPotential, zbl_edge_energy
 from .tensornet import TensorNet, TensorNetConfig
 
 __all__ = ["CHGNet", "CHGNetConfig", "ESCN", "ESCNConfig", "MACE", "MACEConfig",
-           "TensorNet", "TensorNetConfig"]
+           "PairConfig", "PairPotential", "TensorNet", "TensorNetConfig",
+           "zbl_edge_energy"]

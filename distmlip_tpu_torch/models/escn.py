@@ -14,18 +14,27 @@ package give the same energies:
   the receivers with ONE dst-sorted segment sum per chunk
   (``fused_segment_sum``, the segment-sum kernel);
 - the edge-degree embedding, the charge/spin/dataset (csd) system
-  embedding, the non-batched MOLE gate (per-layer expert weights mixed once
-  in weight space from a whole-system composition + csd softmax), the gated
+  embedding, the MOLE gate (per-layer expert weights mixed once in weight
+  space from a whole-system composition + csd softmax), the gated
   nonlinearity and the energy readout.
+
+On a block-diagonally packed batch (``lg.struct_id`` set, ``partition/
+batch.py``) with ``num_experts > 1`` the composition is a per-STRUCTURE
+quantity (``distmlip_tpu/models/escn.py:331-353``): the gate is a (B, E)
+softmax of each structure's mean species embedding and the replicated csd,
+and each edge mixes the expert products with its dst structure's gate
+(``:405-437``). The convolution is linear in its weights, so the mixture
+is taken over outputs: y_e = sum_k gate_e[k] SO2(h_e; W_k), one SO(2)
+kernel call per expert on that expert's own weight set (the kernel's
+contract), packed once per layer.
 
 Rematerialization: with ``remat=True`` each edge chunk runs under a
 non-reentrant ``torch.utils.checkpoint``, so the backward holds one chunk's
 rotated features and Wigner blocks at a time and re-runs the chunk body
 (one more SO(2) and segment-sum launch per chunk).
 
-Not ported (raise ``NotImplementedError``): ``dtype="bfloat16"``, a batched
-graph (``struct_id`` set with ``num_experts > 1``: the per-edge MOLE gate
-of the JAX package's batched engine), and ``l_max > 6``.
+Not ported (raise ``NotImplementedError``): ``dtype="bfloat16"`` and
+``l_max > 6``.
 """
 
 from __future__ import annotations
@@ -140,10 +149,7 @@ class ESCN:
     def energy_fn(self, params, lg, positions):
         cfg = self.cfg
         C, S, L = cfg.channels, cfg.sphere_dim, cfg.l_max
-        if cfg.num_experts > 1 and lg.struct_id is not None and lg.batch_size > 0:
-            raise NotImplementedError(
-                "a batched (block-diagonally packed) graph needs the per-edge "
-                "MOLE gate of the batched engine, which is not ported")
+        batched_gate = cfg.num_experts > 1 and lg.struct_id is not None and lg.batch_size > 0
         dev, dtype = positions.device, positions.dtype
 
         vec = lg.edge_vectors(positions)
@@ -234,8 +240,18 @@ class ESCN:
         h = lg.halo_exchange(h)
 
         # MOLE coefficients: whole-system composition embedding + csd ->
-        # softmax gate, the same on every partition (psum'd mean)
-        if cfg.num_experts > 1:
+        # softmax gate, the same on every partition (psum'd mean); on a
+        # packed batch one gate per structure (padded rows sum into the
+        # sentinel slot B, dropped)
+        if batched_gate:
+            owned = lg.owned_mask.to(dtype)[:, None]
+            B, sid = lg.batch_size, lg.struct_id.long()
+            comp_sum = lg.psum(zemb.new_zeros((B + 1, C)).index_add(0, sid, zemb * owned)[:B])
+            count = lg.psum(owned.new_zeros(B + 1).index_add(0, sid, owned[:, 0])[:B])
+            gate_in = torch.cat([comp_sum / torch.clamp(count, min=1.0)[:, None],
+                                 csd.expand(B, C)], dim=-1)
+            mole = torch.softmax(mlp(params["mole_gate"], gate_in), dim=-1)  # (B, E)
+        elif cfg.num_experts > 1:
             owned = lg.owned_mask.to(dtype)[:, None]
             comp_sum = lg.psum((zemb * owned).sum(0))
             count = lg.psum(owned.sum())
@@ -245,27 +261,39 @@ class ESCN:
             mole = torch.ones((1,), dtype=dtype, device=dev)
 
         for layer in as_list(params["layers"]):
-            # mix experts ONCE in weight space per layer; the SO(2) kernel then
-            # runs every per-|m| product on the mixed weights
             so2 = layer["so2"]
-            mixw = lambda Wk: torch.einsum("k,kab->ab", mole, Wk)  # noqa: E731
-            ws_mixed = [mixw(so2["m0"])]
-            for m in range(1, L + 1):
-                ws_mixed += [mixw(so2[f"m{m}r"]), mixw(so2[f"m{m}i"])]
-            # the kernel's form of the mixed weights, once per layer for
-            # every chunk, forward and backward (None on the plain path)
-            packed = so2_packed_weights(ws_mixed, self.m_idx, C, kernels=lg.kernels)
+            per_m = lambda f: [f(so2["m0"])] + [  # noqa: E731
+                f(so2[f"m{m}{part}"]) for m in range(1, L + 1) for part in "ri"]
+            if batched_gate:
+                # one weight set per expert: the gate mixes their outputs
+                ws_sets = [per_m(lambda Wk, k=k: Wk[k]) for k in range(cfg.num_experts)]
+            else:
+                # mix experts ONCE in weight space per layer; the SO(2) kernel
+                # then runs every per-|m| product on the mixed weights
+                ws_sets = [per_m(lambda Wk: torch.einsum("k,kab->ab", mole, Wk))]
+            # the kernel's form of each weight set, once per layer for every
+            # chunk, forward and backward (None on the plain path)
+            packs = [so2_packed_weights(ws, self.m_idx, C, kernels=lg.kernels)
+                     for ws in ws_sets]
 
-            def so2_chunk(srcc, dstc, D, besc, envc, layer=layer, ws_mixed=ws_mixed,
-                          packed=packed, h=h):
+            def so2_chunk(srcc, dstc, D, besc, envc, layer=layer, ws_sets=ws_sets,
+                          packs=packs, h=h):
                 ef = torch.cat([besc, zemb.index_select(0, srcc),
                                 zemb.index_select(0, dstc)], dim=-1)
                 g_e = mlp(layer["edge_mlp"], ef) * envc[:, None]  # (E_c, C)
                 # rotate into the edge frame, the edge scalars injected into
                 # the l=0 row
                 h_rot = rotate(h.index_select(0, srcc), D, to_edge=True, add_scalar=g_e)
-                y = fused_so2_conv(h_rot, ws_mixed, self.m_idx, C, kernels=lg.kernels,
-                                   packed=packed)
+                conv = lambda k: fused_so2_conv(  # noqa: E731
+                    h_rot, ws_sets[k], self.m_idx, C, kernels=lg.kernels, packed=packs[k])
+                if batched_gate:
+                    # the edge's structure gate (dst rows are real atoms)
+                    mole_e = mole.index_select(
+                        0, torch.clamp(lg.struct_id.index_select(0, dstc).long(),
+                                       max=lg.batch_size - 1))
+                    y = sum(mole_e[:, k, None, None] * conv(k) for k in range(len(ws_sets)))
+                else:
+                    y = conv(0)
                 return rotate(y, D) * envc[:, None, None]
 
             agg = edge_scan(so2_chunk) * inv_avg

@@ -33,8 +33,15 @@ kernel, element for element):
   from the dst row), the ``python_ref`` convention.
 
 Gathers index with int64; the emitted ``src``, ``dst`` and ``off`` are
-int32, as the host-built graph's. The packed (block-diagonal batch) half of
-the JAX module waits for the batched engine (ROADMAP.md queue A).
+int32, as the host-built graph's.
+
+``packed_neighbors`` is the packed half (``:325-447``): the search for a
+block-diagonally packed batch (``partition/batch.py``), each structure with
+its own cell, as a dense all-pairs x images check per block (the packed
+regime is many SMALL structures), compacted in (structure, center,
+neighbor, image) order, so ``dst`` is nondecreasing over the whole batch.
+Its offsets are CARTESIAN (each block's integer image offset times its own
+cell), as the packed graph's.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import numpy as np
 import torch
 
 from .. import geometry
-from .python_ref import NUMERICAL_TOL
+from .python_ref import NUMERICAL_TOL, _image_ranges
 
 
 @dataclass(frozen=True)
@@ -296,3 +303,129 @@ def device_neighbor_list(static: CellListStatic, arrays, positions):
     positions = torch.as_tensor(positions)
     return cell_list_neighbors(static, as_device_arrays(arrays, positions.device),
                                positions)
+
+
+# ---------------------------------------------------------------------------
+# Packed (block-diagonal) batch
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class PackedStatic:
+    """The static half of a packed-batch spec."""
+
+    n_struct: int        # real structures
+    n_max: int           # max atoms over structures
+    m_max: int           # max periodic images over structures
+    n_cap: int           # packed node rows
+    e_cap: int           # packed edge slots
+    r: float             # build cutoff (cutoff + skin)
+
+
+def build_packed_spec(cells, pbcs, n_atoms, node_offsets, r: float, n_cap: int,
+                      e_cap: int, dtype=np.float32):
+    """Spec for refreshing a block-diagonally packed graph on its device
+    (``distmlip_tpu/neighbors/device.py:338``): per-structure cells, pbc and
+    image sets padded to the batch maxima. Returns ``(static, arrays)``,
+    ``arrays`` as numpy (``as_device_arrays`` moves them once)."""
+    B = len(n_atoms)
+    n_max = int(max(int(n) for n in n_atoms))
+    imgs_list = []
+    for cell, pbc in zip(cells, pbcs):
+        n = _image_ranges(np.asarray(cell, dtype=np.float64), pbc, r)
+        ax = [np.arange(-k, k + 1) for k in n]
+        imgs_list.append(np.stack(np.meshgrid(*ax, indexing="ij"), axis=-1).reshape(-1, 3))
+    m_max = max(len(m) for m in imgs_list)
+    imgs = np.zeros((B, m_max, 3), dtype=np.int32)
+    img_mask = np.zeros((B, m_max), dtype=bool)
+    for b, m in enumerate(imgs_list):
+        imgs[b, :len(m)] = m
+        img_mask[b, :len(m)] = True
+    gather_idx = np.zeros((B, n_max), dtype=np.int32)
+    atom_mask = np.zeros((B, n_max), dtype=bool)
+    for b, n in enumerate(n_atoms):
+        n = int(n)
+        gather_idx[b, :n] = np.arange(n) + int(node_offsets[b])
+        atom_mask[b, :n] = True
+    cells_np = np.stack([np.asarray(c, dtype=np.float64) for c in cells])
+    static = PackedStatic(n_struct=B, n_max=n_max, m_max=m_max, n_cap=int(n_cap),
+                          e_cap=int(e_cap), r=float(r))
+    arrays = {
+        "gather_idx": gather_idx,
+        "atom_mask": atom_mask,
+        "cells": cells_np.astype(dtype),
+        "inv_cells": np.stack([np.linalg.inv(c) for c in cells_np]).astype(dtype),
+        "pbc": np.stack([np.asarray(p, dtype=bool) for p in pbcs]),
+        "imgs": imgs,
+        "img_mask": img_mask,
+    }
+    return static, arrays
+
+
+def _times_cells(x, cells):
+    """``x @ cells[b]`` per structure for a (B, ..., 3) x and (B, 3, 3)
+    cells, in the fixed order of ``_times_3x3``."""
+    c = cells.reshape((cells.shape[0],) + (1,) * (x.dim() - 2) + (3, 3))
+    return x[..., 0:1] * c[..., 0, :] + x[..., 1:2] * c[..., 1, :] + x[..., 2:3] * c[..., 2, :]
+
+
+def packed_neighbors(static: PackedStatic, arrays, positions):
+    """Packed-batch neighbor search on ``positions``' device, in its dtype
+    (``distmlip_tpu/neighbors/device.py:387``).
+
+    ``positions``: (n_cap, 3) packed input-frame coordinates; ``arrays`` the
+    spec's arrays as tensors on that device. Returns ``(src, dst, off_cart,
+    n_edges, overflow)``: packed-row int32 ``src`` and ``dst`` (``dst``
+    nondecreasing: blocks in packing order, centers within), CARTESIAN
+    offsets in ``positions``' dtype (0 in empty slots), the 0-d true edge
+    count and the overflow flag (``n_edges > e_cap``).
+    """
+    st = static
+    dev, dtype = positions.device, positions.dtype
+    gi = arrays["gather_idx"].to(device=dev, dtype=torch.int64)
+    am = arrays["atom_mask"].to(dev)
+    cells = arrays["cells"].to(device=dev, dtype=dtype)
+    invs = arrays["inv_cells"].to(device=dev, dtype=dtype)
+    pbc = arrays["pbc"].to(dev)
+    imgs = arrays["imgs"].to(device=dev, dtype=torch.int64)
+    img_mask = arrays["img_mask"].to(dev)
+    n, m = st.n_max, st.m_max
+
+    p = positions[gi]                                         # (B, n, 3)
+    frac = _times_cells(p, invs)
+    shift = torch.where(pbc[:, None, :], torch.floor(frac), torch.zeros_like(frac))
+    wc = _times_cells(frac - shift, cells)                    # wrapped cartesian
+    shift = shift.to(torch.int64)
+    imgc = _times_cells(imgs.to(dtype), cells)                # (B, m, 3)
+    # diff[b, k (center), j (neighbor), m] = wc[b, j] + imgc[b, m] - wc[b, k]
+    diff = (wc[:, None, :, None, :] + imgc[:, None, None, :, :]) - wc[:, :, None, None, :]
+    diff *= diff
+    d2 = diff[..., 0] + diff[..., 1] + diff[..., 2]            # (B, k, j, m)
+    del diff
+    r2 = torch.tensor((st.r + NUMERICAL_TOL) ** 2, dtype=dtype, device=dev)
+    tiny = torch.tensor(NUMERICAL_TOL ** 2, dtype=dtype, device=dev)
+    valid = (am[:, :, None, None] & am[:, None, :, None] & img_mask[:, None, None, :]
+             & (d2 < r2) & (d2 > tiny))
+    del d2
+
+    index, n_edges, overflow = _compact_edges(valid.reshape(-1), st.e_cap)
+    kept = torch.arange(st.e_cap, dtype=torch.int64, device=dev) < n_edges
+    index = torch.where(kept, index, torch.zeros_like(index))
+    b = index // (n * n * m)
+    k = (index // (n * m)) % n
+    j = (index // m) % n
+    mi = index % m
+    off_int = -imgs[b, mi] + shift[b, j] - shift[b, k]        # (e_cap, 3)
+    off = _times_cells(off_int.to(dtype)[:, None, :], cells[b])[:, 0]
+    src = torch.where(kept, gi[b, j], 0).to(torch.int32)
+    dst = torch.where(kept, gi[b, k], 0).to(torch.int32)
+    off = torch.where(kept[:, None], off, torch.zeros_like(off))
+    return src, dst, off, n_edges, overflow
+
+
+def device_packed_neighbor_list(static: PackedStatic, arrays, positions):
+    """Host entry of :func:`packed_neighbors`: ``arrays`` as numpy or
+    tensors, ``positions`` a (n_cap, 3) array or tensor; runs on the
+    positions' device."""
+    positions = torch.as_tensor(positions)
+    return packed_neighbors(static, as_device_arrays(arrays, positions.device), positions)

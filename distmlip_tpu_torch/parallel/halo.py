@@ -77,9 +77,9 @@ class LocalGraph:
     bond_map_mask: Any = None
     # per-system scalars {"charge", "spin", "dataset"} (0-d int32 tensors)
     system: Any = None
-    # batched multi-structure packing (the JAX package's batched engine,
-    # not ported): 0 / None on every graph this package builds, so a model
-    # can refuse a packed graph
+    # block-diagonally packed batch (``partition/batch.py``): structure
+    # slots and the (n_cap,) slot of each node row, the sentinel
+    # ``batch_size`` on padded rows; 0 / None on a single-structure graph
     batch_size: int = 0
     struct_id: Any = None
     # interior/frontier boundary of the edge rows (== e_cap: unsplit)
@@ -123,7 +123,10 @@ class LocalGraph:
         return x
 
     def edge_vectors(self, positions, lattice=None):
-        """(E_cap, 3) displacement vectors dst - src + offsets @ lattice.
+        """(E_cap, 3) displacement vectors dst - src + offsets @ lattice;
+        with no lattice on the graph (``lattice is None``, a packed batch
+        whose offsets the batched runtime made Cartesian and strained per
+        structure) dst - src + offsets.
 
         ``index_select``, not ``positions[ids]``: its backward is an
         ``index_add_``, where advanced indexing's is a sort-based
@@ -132,6 +135,8 @@ class LocalGraph:
         lat = self.lattice if lattice is None else lattice
         disp = (positions.index_select(0, self.edge_dst)
                 - positions.index_select(0, self.edge_src))
+        if lat is None:
+            return disp + self.edge_offset.to(positions.dtype)
         return disp + self.edge_offset.to(positions.dtype) @ lat
 
     def _segments(self):
@@ -214,6 +219,21 @@ class LocalGraph:
         return _set_rows(edge_feats, self.bond_map_edge, self.bond_map_mask,
                          bond_feats.index_select(0, self.bond_map_bond))
 
+    def structure_sum(self, per_atom):
+        """Per-structure sums of a per-atom quantity over the owned rows of
+        a packed graph: (batch_size,) in ``per_atom``'s dtype
+        (``distmlip_tpu/parallel/halo.py:428``). Padded rows carry the
+        sentinel slot ``batch_size``: they sum into one extra slot that is
+        dropped, as ``jax.ops.segment_sum`` drops an out-of-range id (an
+        index of ``batch_size`` into ``batch_size`` slots would be a device
+        assert on the card)."""
+        if self.struct_id is None or self.batch_size <= 0:
+            raise ValueError("structure_sum requires a packed graph (struct_id + "
+                             "batch_size); build it with pack_structures()")
+        e = torch.where(self.owned_mask, per_atom.reshape(-1), per_atom.new_zeros(()))
+        out = per_atom.new_zeros(self.batch_size + 1).index_add(0, self.struct_id.long(), e)
+        return self.psum(out[:-1])
+
     def owned_sum(self, per_atom):
         """Sum a per-atom quantity over owned nodes."""
         m = self.owned_mask.to(per_atom.dtype)
@@ -238,7 +258,7 @@ def local_graph_from_stacked(g, kernels: bool = True) -> LocalGraph:
     """The LocalGraph of a PartitionedGraph of tensors: its one partition
     (P=1, the leading axis squeezed), or its flattened view (P > 1)."""
     common = dict(lattice=g.lattice, kernels=kernels, has_bond_graph=g.has_bond_graph,
-                  system=g.system)
+                  system=g.system, batch_size=g.batch_size)
     if g.num_partitions == 1:
         return LocalGraph(
             n_cap=g.n_cap, e_cap=g.e_cap, e_split=g.e_split,
@@ -248,7 +268,8 @@ def local_graph_from_stacked(g, kernels: bool = True) -> LocalGraph:
             b_cap=g.b_cap, line_src=g.line_src[0], line_dst=g.line_dst[0],
             line_mask=g.line_mask[0], line_center=g.line_center[0],
             bond_map_edge=g.bond_map_edge[0], bond_map_bond=g.bond_map_bond[0],
-            bond_map_mask=g.bond_map_mask[0], **common)
+            bond_map_mask=g.bond_map_mask[0],
+            struct_id=None if g.struct_id is None else g.struct_id[0], **common)
     P, f = g.num_partitions, g.flat
     return LocalGraph(
         n_cap=P * g.n_cap, e_cap=P * g.e_cap, e_split=P * g.e_split,

@@ -14,6 +14,11 @@ positions (P, N_cap, 3) are flattened, strained and
 halo-exchanged before the model (the JAX runtime's ``:157``), and the
 gradient flows back through the exchange to each atom's owner row.
 
+``make_batched_potential_fn`` is the batched counterpart
+(``distmlip_tpu/parallel/runtime.py:421``, ``mesh=None``): per-structure
+energies, forces and strain gradients of a block-diagonally packed batch
+(``partition/batch.py``) from one autograd pass.
+
 Model contract:
     model_energy_fn(params, lg: LocalGraph, positions) -> per-atom energies
 with shape (lg.n_cap,); padded and halo rows may hold anything: the runtime
@@ -95,6 +100,79 @@ def make_potential_fn(model_energy_fn, *, compute_stress: bool = True, kernels: 
         out = {"energy": energy.detach(), "forces": -g_pos, "stress": stress}
         if aux:
             out["aux"] = {k: x.detach() for k, x in aux_out.items()}
+        return out
+
+    return potential
+
+
+def make_batched_potential_fn(model_energy_fn, *, compute_stress: bool = True,
+                              aux: bool = False, mesh=None, kernels: bool = True):
+    """(params, graph, positions) -> dict over a packed batch
+    (``distmlip_tpu/parallel/runtime.py:362-558``, the single-device path).
+
+    ``graph`` is a ``PartitionedGraph`` of tensors from
+    ``partition.pack_structures`` (``batch_size`` slots, ``struct_id`` per
+    node row, Cartesian edge offsets, identity lattice); ``positions`` is
+    (1, N_cap, 3). Each structure b gets its own symmetric strain eps_b:
+    its rows x -> x (I + eps_b), and each edge's Cartesian offset deforms
+    with its dst row's structure (the offsets carry the cell, so no lattice
+    is applied on top: the LocalGraph's lattice is set to None). Returns
+
+    - ``energies``: (batch_size,) per-structure energies, one
+      ``structure_sum`` of the per-atom energies (empty slots read 0);
+    - ``forces``: (1, N_cap, 3) from ONE autograd pass through the whole
+      batch; the blocks share no edge, so d(sum_b E_b)/dx_i is
+      dE_{b(i)}/dx_i exactly;
+    - ``strain_grad``: (batch_size, 3, 3) dE_b/deps_b (zeros without
+      ``compute_stress``); the caller divides by each structure's volume;
+    - ``aux`` with ``aux=True``: the model's per-atom outputs as
+      (1, N_cap, ...).
+
+    ``mesh`` other than None (the 2-D batch x spatial placement) raises:
+    ROADMAP.md item A7.
+    """
+    if mesh is not None:
+        raise NotImplementedError(
+            "make_batched_potential_fn(mesh=...): the 2-D (batch x spatial) mesh "
+            "placement is not ported (ROADMAP.md A7); the batched engine runs on one "
+            "device")
+
+    def batched_energy(params, graph, positions, strain):
+        if graph.num_partitions != 1 or graph.batch_size < 1 or graph.struct_id is None:
+            raise ValueError(
+                "make_batched_potential_fn requires a single-partition packed graph (got "
+                f"P={graph.num_partitions}, batch_size={graph.batch_size}); build it "
+                "with pack_structures()")
+        lg = local_graph_from_stacked(graph, kernels=kernels)
+        dtype = positions.dtype
+        B = graph.batch_size
+        # padded rows carry the sentinel slot B: clamp it onto the last slot
+        # for the gathers below (those rows are masked everywhere)
+        sid = torch.clamp(lg.struct_id.long(), max=B - 1)
+        sym = 0.5 * (strain + strain.transpose(-1, -2)).to(dtype)
+        defm = torch.eye(3, dtype=dtype, device=positions.device)[None] + sym
+        pos = torch.einsum("ni,nij->nj", positions[0], defm.index_select(0, sid))
+        esid = sid.index_select(0, lg.edge_dst.long())
+        lg.edge_offset = torch.einsum("ei,eij->ej", lg.edge_offset.to(dtype),
+                                      defm.index_select(0, esid))
+        lg.lattice = None
+        out = model_energy_fn(params, lg, pos)
+        e_atoms, aux_out = out if aux else (out, None)
+        return lg.structure_sum(e_atoms.reshape(-1).to(dtype)), aux_out
+
+    def potential(params, graph, positions):
+        positions = positions.detach().requires_grad_(True)
+        strain = torch.zeros((graph.batch_size, 3, 3), dtype=positions.dtype,
+                             device=positions.device, requires_grad=compute_stress)
+        with torch.enable_grad():
+            energies, aux_out = batched_energy(params, graph, positions, strain)
+            inputs = [positions, strain] if compute_stress else [positions]
+            grads = torch.autograd.grad(energies.sum(), inputs)
+        out = {"energies": energies.detach(), "forces": -grads[0],
+               "strain_grad": grads[1] if compute_stress else torch.zeros_like(strain)}
+        if aux:
+            out["aux"] = {k: x.detach().reshape((1,) + tuple(x.shape))
+                          for k, x in aux_out.items()}
         return out
 
     return potential

@@ -20,7 +20,8 @@ it is built here, on the host, once per graph.
 
 ``refresh_edges`` and ``device_refresh_graph`` swap edges rebuilt on the
 graph's device (``neighbors.device``) into a single-partition graph in
-place.
+place; a packed batch (``partition/batch.py``) is refreshed through the
+same swap.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ ARRAY_FIELDS = ("positions", "species", "node_mask", "owned_mask", "edge_src",
                 "halo_send_mask", "halo_recv_idx", "lattice", "line_src", "line_dst",
                 "line_mask", "line_center", "bond_map_edge", "bond_map_bond",
                 "bond_map_mask", "bond_halo_send_idx", "bond_halo_send_mask",
-                "bond_halo_recv_idx")
+                "bond_halo_recv_idx", "struct_id")
 # the array fields a P > 1 graph reads on its device beside ``flat``
 FLAT_DEVICE_FIELDS = ("positions", "species", "owned_mask", "lattice")
 
@@ -98,11 +99,18 @@ class PartitionedGraph:
     # P > 1: the flattened one-graph view (module docstring), a dict of
     # arrays; None at P = 1
     flat: Any = None
+    # block-diagonally packed batch (``partition/batch.py``): structure
+    # slots (0 on a single-structure graph) and (1, N_cap) int32 slot of
+    # each node row, the sentinel ``batch_size`` on padded rows
+    # (``distmlip_tpu/partition/graph.py:107-113``)
+    batch_size: int = 0
+    struct_id: Any = None
 
     def to(self, device) -> "PartitionedGraph":
-        """A copy whose array fields (system scalars and flat view too) are
-        torch tensors on ``device`` (dtypes kept: int32 ids and scalars,
-        bool masks, the build's float dtype; int64 flat index vectors).
+        """A copy whose array fields (system scalars, flat view and a packed
+        batch's ``struct_id`` too) are torch tensors on ``device`` (dtypes
+        kept: int32 ids and scalars, bool masks, the build's float dtype;
+        int64 flat index vectors).
 
         At P > 1 only the fields the flattened graph reads move
         (``FLAT_DEVICE_FIELDS`` and ``flat``): the stacked edge, bond-graph
@@ -309,16 +317,25 @@ def _flat_view(g: PartitionedGraph) -> dict:
     flat["bond_halo_send"], flat["bond_halo_recv"] = _flat_halo(
         g.shifts, g.bond_halo_send_idx, g.bond_halo_send_mask, g.bond_halo_recv_idx,
         b_cap) if g.has_bond_graph else (empty, empty)
-    for name, bounds in (("edge", (0, P * s, P * e_cap)), ("line", (0, line_mask.size))):
-        d, m = flat[f"{name}_dst"], flat[f"{name}_mask"]
-        for a, b in zip(bounds, bounds[1:]):
-            if np.any(np.diff(d[a:b]) < 0):
-                raise RuntimeError(f"internal error: flattened {name}_dst must be sorted "
-                                   "within each segment")
-            if np.any(m[a + 1:b] & ~m[a:b - 1]):
-                raise RuntimeError(f"internal error: flattened {name}_mask must hold each "
-                                   "segment's real rows before its padding")
+    check_segments("flattened edge", flat["edge_dst"], flat["edge_mask"],
+                   (0, P * s, P * e_cap))
+    check_segments("flattened line", flat["line_dst"], flat["line_mask"],
+                   (0, line_mask.size))
     return flat
+
+
+def check_segments(name, dst, mask, bounds):
+    """Raise unless each segment ``[bounds[i], bounds[i+1])`` of a (host)
+    dst array is nondecreasing and holds its real rows before its padding:
+    the layout the kernels walk (``LocalGraph``'s edge contract)."""
+    dst, mask = np.asarray(dst), np.asarray(mask)
+    for a, b in zip(bounds, bounds[1:]):
+        if np.any(np.diff(dst[a:b]) < 0):
+            raise RuntimeError(f"internal error: {name} dst must be sorted within each "
+                               "segment")
+        if np.any(mask[a + 1:b] & ~mask[a:b - 1]):
+            raise RuntimeError(f"internal error: {name} mask must hold each segment's "
+                               "real rows before its padding")
 
 
 def build_partitioned_graph(

@@ -20,7 +20,13 @@
   needs no species map (only the embedding tables' row counts change);
   and float32 in place of bfloat16, which the port does not have yet.
 
-All run on bench.py's perturbed Si crystal (lattice 3.9 Å per 4-atom
+The batched and serving phases run on bench.py's batched/serving pool
+(``batched_pool``: copies of the 32-atom reps=2 crystal, each with its own
+0.04 Å noise, ``bench.py:343-365``, ``:407-414``) and on a mixed batch of
+reps 2, 3 and 4 plus one atom alone in a 12 Å box (``mixed_batch``: 32,
+108, 256 and 1 atoms; the lone atom has no edge).
+
+All single-structure phases run on bench.py's perturbed Si crystal (lattice 3.9 Å per 4-atom
 cell, 0.04 Å noise, seed 0): ``reps=8`` gives 2048 atoms; bench.py's own
 default is reps=16 (16384 atoms). MACE and eSCN run at reps=8, cut from
 bench.py's 16384 atoms to keep each step of ``chip_smoke.py`` short: at
@@ -56,3 +62,29 @@ def bench_atoms(reps: int = 8, seed: int = 0):
     frac, lattice = geometry.make_supercell(unit, np.eye(3) * 3.9, (reps, reps, reps))
     cart = geometry.frac_to_cart(frac, lattice) + rng.normal(0, 0.04, (len(frac), 3))
     return Atoms(numbers=np.full(len(cart), 14), positions=cart, cell=lattice), rng
+
+
+def batched_pool(n: int, reps: int = 2, seed: int = 0):
+    """bench.py's batched and serving pool: ``n`` copies of the 4 * reps^3
+    atom Si crystal, each with its own 0.04 Å noise, and the generator."""
+    from .. import geometry
+    from ..calculators import Atoms
+
+    rng = np.random.default_rng(seed)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lattice = geometry.make_supercell(unit, np.eye(3) * 3.9, (reps, reps, reps))
+    base = geometry.frac_to_cart(frac, lattice)
+    pool = [Atoms(numbers=np.full(len(base), 14),
+                  positions=base + rng.normal(0, 0.04, base.shape), cell=lattice)
+            for _ in range(n)]
+    return pool, rng
+
+
+def mixed_batch(seed: int = 1):
+    """Structures of 32, 108 and 256 atoms (reps 2, 3, 4 of the crystal) and
+    one Si atom alone in a 12 Å cubic box, which has no edge."""
+    from ..calculators import Atoms
+
+    out = [batched_pool(1, reps, seed + reps)[0][0] for reps in (2, 3, 4)]
+    out.append(Atoms(numbers=[14], positions=[[0.3, 0.2, 0.1]], cell=np.eye(3) * 12.0))
+    return out

@@ -1031,3 +1031,183 @@ def test_split_segments_on_card_match_plain(card):
     launched("chgnet_atom_conv_aggregate",
              lambda g: g.overlapped_edge_sum(K.CHGNET_ATOM_CONV, v, v_post, (edge,),
                                              g.edge_mask, weights))
+
+
+def _packed_batch(n_species=4, seed=2):
+    """3 structures in 4 slots: 32 rattled fcc atoms, one atom alone in a
+    12 Å box (no edge) and 16 atoms in a sheared cell."""
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms
+
+    rng = np.random.default_rng(seed)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    out = []
+    for reps, shear in (((2, 2, 2), 0.0), ((2, 2, 1), 0.15)):
+        frac, lat = geometry.make_supercell(unit, np.eye(3) * 3.5, reps)
+        cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.1, (len(frac), 3))
+        m = np.eye(3)
+        m[1, 0] = shear
+        out.append(Atoms(numbers=rng.integers(0, n_species, len(cart)), positions=cart @ m,
+                         cell=lat @ m))
+    out.insert(1, Atoms(numbers=[1], positions=[[0.3, 0.2, 0.1]], cell=np.eye(3) * 12.0))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["tensornet", "chgnet", "mace", "escn"])
+def test_batched_on_card_matches_cpu(card, family):
+    """``BatchedPotential`` on the card (kernels on, one packed graph) against
+    the same on the CPU (plain versions), and its launches per calculate:
+    as a single-structure calculate of the packed graph, except eSCN with
+    experts, whose per-structure gate mixes the experts' outputs per edge
+    and so runs the SO(2) kernel once per expert. The first calculate after
+    a reset of the allocator's peak is measured for the bytes model."""
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
+                                           MACEConfig, TensorNet, TensorNetConfig)
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    structs = _packed_batch()
+    kw = {}
+    if family == "tensornet":
+        model = TensorNet(TensorNetConfig(num_species=4, units=16, num_rbf=8, cutoff=3.2))
+    elif family == "chgnet":
+        model = CHGNet(CHGNetConfig(num_species=4, units=16, num_rbf=6, num_blocks=3,
+                                    cutoff=3.2, bond_cutoff=2.6))
+        kw = dict(compute_magmom=True)
+    elif family == "mace":
+        model = MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2,
+                                hidden_lmax=1, correlation=2, cutoff=3.2, edge_chunk=128))
+    else:
+        model = ESCN(ESCNConfig(num_species=4, channels=16, l_max=2, num_layers=2,
+                                num_bessel=6, num_experts=4, cutoff=3.2,
+                                avg_num_neighbors=12.0, edge_chunk=128))
+    params = model.init(0)
+    pot = BatchedPotential(model, params, device=card, skin=0.5, **kw)
+    before = dict(launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    gpu = pot.calculate(structs)
+    got = {k: launch_counts[k] - before[k] for k in launch_counts}
+    st = pot.last_stats
+    assert st["batch_slots"] == 4 and pot.hbm_budget_bytes > 0
+    assert st["batch_peak_bytes"] > 0 and pot.estimate_batch_bytes(len(structs[0])) > 0
+    want = {k: 0 for k in got}
+    if family == "tensornet":
+        layers = model.cfg.num_layers
+        want.update(tensornet_embed_aggregate=1, tensornet_interaction_aggregate=layers,
+                    tensornet_interaction_backward=layers)
+    elif family == "chgnet":
+        blocks = model.cfg.num_blocks
+        want.update(chgnet_atom_conv_aggregate=blocks, chgnet_line_aggregate=blocks - 1,
+                    chgnet_row_projection=blocks + 2 * (blocks - 1))
+    else:
+        k = chunk_layout(st["e_cap"], model.cfg.edge_chunk)[2]
+        if family == "mace":
+            want["segment_sum"] = model.cfg.num_interactions * 2 * k
+        else:
+            want["segment_sum"] = (1 + model.cfg.num_layers) * 2 * k
+            want["so2_conv"] = model.cfg.num_layers * 3 * k * model.cfg.num_experts
+    assert got == want
+    cpu = BatchedPotential(model, params, device="cpu", **kw).calculate(structs)
+    for g, c in zip(gpu, cpu):
+        assert abs(g["energy"] - c["energy"]) <= 1e-5 * max(abs(c["energy"]), 1e-6)
+        np.testing.assert_allclose(g["forces"], c["forces"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(g["stress"], c["stress"], rtol=0, atol=1e-4)
+        if "magmoms" in c:
+            np.testing.assert_allclose(g["magmoms"], c["magmoms"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_packed_refresh_on_card_matches_cpu(card):
+    """The packed search on card tensors against the same on the CPU
+    (identical arrays: elementwise float arithmetic in a fixed order), and
+    a ``BatchedPotential`` refresh on the card against a host repack."""
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.neighbors.device import (build_packed_spec,
+                                                     device_packed_neighbor_list)
+    from distmlip_tpu_torch.partition import BucketPolicy, pack_structures
+
+    structs = _packed_batch()
+    graph, host = pack_structures(structs, 3.2, skin=0.5, caps=BucketPolicy())
+    static, arrays = build_packed_spec(host.cells, host.pbcs, host.n_atoms, host.node_offsets,
+                                       3.7, graph.n_cap, graph.e_cap)
+    pos = torch.from_numpy(host.scatter_positions([a.positions for a in structs])[0])
+    for a, b in zip(device_packed_neighbor_list(static, arrays, pos),
+                    device_packed_neighbor_list(static, arrays, pos.to(card))):
+        assert torch.equal(a, b.cpu())
+    model = TensorNet(TensorNetConfig(num_species=4, units=16, num_rbf=8, cutoff=3.2))
+    params = model.init(0)
+    pot = BatchedPotential(model, params, device=card, skin=0.5)
+    pot.calculate(structs)
+    rng = np.random.default_rng(1)
+    for a in structs:
+        a.positions = a.positions + rng.normal(0, 0.2, a.positions.shape)
+    res = pot.calculate(structs)
+    assert pot.rebuild_on_device_count == 1
+    ref = BatchedPotential(model, params, device=card).calculate(structs)
+    for g, c in zip(res, ref):
+        assert abs(g["energy"] - c["energy"]) <= 1e-5 * max(abs(c["energy"]), 1e-6)
+        np.testing.assert_allclose(g["forces"], c["forces"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_packed_kernels_on_card_match_plain(card):
+    """B1 and the B2 kernels on a packed graph (one unsplit segment, a
+    lone atom's empty dst row, padding at the tail) through the LocalGraph
+    methods the models call, against the same with ``kernels=False`` on
+    the card: each launches its kernel once."""
+    import dataclasses
+
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
+    from distmlip_tpu_torch.ops.nn import gated_mlp_weights
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+    from distmlip_tpu_torch.partition import BucketPolicy, pack_structures
+
+    graph, _ = pack_structures(_packed_batch(), 3.2, bond_cutoff=2.6, use_bond_graph=True,
+                               caps=BucketPolicy())
+    lg = local_graph_from_stacked(graph.to(card))
+    plain = dataclasses.replace(lg, kernels=False)
+    n, e, c = lg.n_cap, lg.e_cap, 16
+    assert not lg.has_frontier_split and lg.batch_size == 4
+    rng = np.random.default_rng(0)
+    to = lambda *shape: torch.from_numpy(  # noqa: E731
+        rng.normal(size=shape).astype(np.float32)).to(card)
+
+    def launched(name, fn):
+        before = K.launch_counts[name]
+        out = fn(lg)
+        assert K.launch_counts[name] - before == 1, name
+        torch.testing.assert_close(out, fn(plain), rtol=1e-5, atol=1e-4)
+
+    data = to(e, 12)
+    launched("segment_sum", lambda g: g.aggregate_edges(data, g.edge_mask))
+    embed = [to(e, c) for _ in range(4)] + [to(e, 3, 3, 1) for _ in range(2)]
+    launched("tensornet_embed_aggregate",
+             lambda g: g.aggregate_edge_messages(K.TENSORNET_EMBED, embed, g.edge_mask))
+    f, rows = to(e, c, 3), [to(n, c), to(n, 3, c), to(n, 6, c)]
+    launched("tensornet_interaction_aggregate",
+             lambda g: g.aggregate_edge_messages(
+                 K.TENSORNET_INTERACTION, [f] + [K.Gather(r, g.edge_src) for r in rows],
+                 g.edge_mask))
+    blocks = CHGNet(CHGNetConfig(num_species=4, units=c)).init(0)
+    weights = tuple(w.to(card) for w in gated_mlp_weights(blocks["atom_blocks"][0]["node_update"]))
+    v, edge = to(n, c), to(e, c)
+    launched("chgnet_atom_conv_aggregate",
+             lambda g: g.overlapped_edge_sum(K.CHGNET_ATOM_CONV, v, v, (edge,), g.edge_mask,
+                                             weights))
+    b, angle = to(lg.b_cap, c), to(lg.line_dst.shape[0], c)
+    k1 = 4 * c  # the line conv's gated MLP reads [b_src | b_dst | angle | v_center]
+    lw = (to(k1, c) / k1 ** 0.5, to(c) / k1 ** 0.5, to(c, c) / c ** 0.5, to(c) / c ** 0.5,
+          to(k1, c) / k1 ** 0.5, to(c) / k1 ** 0.5, to(c, c) / c ** 0.5, to(c) / c ** 0.5)
+
+    def line(g):
+        items = [K.Gather(b, g.line_src), K.Gather(b, g.line_dst), angle,
+                 K.Gather(v, g.line_center)]
+        return K.fused_edge_aggregate(K.CHGNET_LINE_CONV, items, g.line_dst, g.b_cap,
+                                      g.line_mask, indices_are_sorted=True, kernels=g.kernels,
+                                      weights=lw)
+
+    launched("chgnet_line_aggregate", line)

@@ -283,8 +283,13 @@ def test_unported_options_raise():
     g = g.to("cpu")
     lg = halo.local_graph_from_stacked(g)
     lg.batch_size, lg.struct_id = 1, torch.zeros(g.n_cap, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="batched"):
-        model.energy_fn(model.init(0), lg, g.positions[0])
+    # a packed graph of one structure: its per-structure MOLE gate is the
+    # whole-system gate (the batched gate itself is held against the JAX
+    # package in tests/test_torch_batched.py)
+    params = model.init(0)
+    torch.testing.assert_close(model.energy_fn(params, lg, g.positions[0]),
+                               model.energy_fn(params, halo.local_graph_from_stacked(g),
+                                               g.positions[0]), rtol=1e-5, atol=1e-5)
     # one expert has no gate to batch: the packed graph's fields are ignored
     one = ESCN(ESCNConfig(**dict(CFG, num_experts=1)))
     assert one.energy_fn(one.init(0), lg, g.positions[0]).shape == (g.n_cap,)
