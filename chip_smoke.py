@@ -56,6 +56,13 @@ Phases (each failure raises, so the exit code is non-zero):
    3xTF32 one (3 x operations at 495 TFLOP/s), with the float32-core one
    beside it; the weight packing is timed alone. The segment sum also at
    eSCN's (32768, 25 * 128) row width;
+2b. the host graph build (``[host-graph]``) — the native C++/OpenMP
+   neighbor search (built by g++, its first call apart) against the numpy
+   search on bench.py's 16,384-atom Si crystal at 5.5 Å and at 6.5 / 3.5
+   Å and on ``[relax-chgnet]``'s 864 Li, sorted edge sets equal and
+   distances within 1e-10 Å; the native slab plans against the numpy ones
+   at P = 2 and 4 with and without bonds, every field equal; the first
+   call and the median of 5 warm calls of each, and the host's CPU;
 4. the MACE path — MACE at the MACE-MP-0-medium widths (channels 128,
    l_max = a_lmax = 3, correlation 3, 2 interactions; random weights from
    seed 0) through ``DistPotential(device="cuda", skin=0.5)`` on a
@@ -63,6 +70,12 @@ Phases (each failure raises, so the exit code is non-zero):
    launch counts are set to 0 just before and read just after, and must
    equal the count derived from the code. The same 4 geometries through a
    ``kernels=False`` potential on the card are the reference;
+4b. ``[main-zbl]`` — the same with ``zbl=True`` (MACE-MP-0b's ZBL pair
+   term): 2 interactions x 2K + 1 width-1 segment sums per calculate,
+   against ``kernels=False`` at the repo's bar; the width-1 call alone
+   against its plain version, ``index_add_`` and its bound; a small MACE
+   on 32 Si packed to 2.19 Å (where the pair term is not 0) against
+   ``kernels=False`` and the CPU;
 5. the TensorNet path — TensorNet at the matgl TensorNet-MatPES-PBE layout
    (89 species, 64 channels, 32 RBF, 2 layers, cutoff 5 Å; random weights
    from seed 0) on bench.py's 16384-atom Si crystal, the same way. Launches
@@ -115,7 +128,10 @@ Phases (each failure raises, so the exit code is non-zero):
    float64 host search's;
 10. slab graph parallelism on the card (``[parallel-*]``): each family at
    P = 2 (TensorNet also 4) against P = 1 and ``kernels=False``
-   (``phase_parallel``);
+   (``phase_parallel``); ``[parallel-md]``: 20 MD steps at P = 2 with the
+   background prefetch rebuild (hits, waits, adopted and hit step ms),
+   then with ``async_rebuild=False`` and at P = 1 from the same seed, the
+   trajectories held to each other;
 11. the batched engine on block-diagonally packed graphs: ``[batched-mace]``,
    ``[batched-tensornet]``, ``[batched-chgnet]`` (magmoms) and
    ``[batched-escn]`` (8 experts: the per-structure MOLE gate mixes the
@@ -1142,6 +1158,107 @@ def phase_main_path(torch):
     return launches
 
 
+def zbl_energy(torch, model, pot):
+    """The ZBL pair term of ``pot``'s cached P = 1 graph at its build
+    positions, in eV (``models/pair.py`` ``zbl_edge_energy``, half per
+    directed edge), on the card's plain path."""
+    from distmlip_tpu_torch.models.pair import zbl_edge_energy
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+
+    graph = pot._cache[0]
+    lg = local_graph_from_stacked(graph, kernels=False)
+    vec = lg.edge_vectors(graph.positions[0])
+    d = torch.linalg.norm(torch.where(lg.edge_mask[:, None], vec, torch.ones_like(vec)), dim=-1)
+    z = torch.as_tensor(model.cfg.atomic_numbers, device=d.device)[lg.species]
+    e = zbl_edge_energy(z[lg.edge_src], z[lg.edge_dst], d, p=model.cfg.cutoff_p)
+    return float(0.5 * torch.where(lg.edge_mask, e, torch.zeros_like(e)).sum())
+
+
+def phase_main_zbl(torch):
+    """``[main-zbl]``: MACE at MACE_KW with ``zbl=True`` (MACE-MP-0b's ZBL
+    pair term under the learned potential; ``atomic_numbers`` the identity,
+    since the species index is the atomic number here, where the config's
+    default would read index i as Z = i + 1) on the 2048-atom crystal, as
+    ``[main]``: one calculate plus STEPS moves, launches derived, against
+    ``kernels=False`` on the card at the repo's bar. The pair term's edge
+    sum is one segment sum of width 1 per calculate (the kernel's
+    one-float-per-row path). Si's nearest neighbours there (2.76 Å) lie
+    beyond twice silicon's covalent radius (2.22 Å), where the pair term is
+    exactly 0; so the width-1 call alone at that graph's own dst ids and
+    mask (kernel against plain, its time beside the plain version's,
+    ``index_add_`` and its bytes bound), then a small MACE on 32 Si packed
+    closer, where the term is not 0, on the card against ``kernels=False``
+    and the CPU."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+    from distmlip_tpu_torch.tools.workload import MACE_KW, bench_atoms
+
+    model = MACE(MACEConfig(**MACE_KW, zbl=True,
+                            atomic_numbers=tuple(range(MACE_KW["num_species"]))))
+    params = model.init(0)
+    atoms, rng = bench_atoms()
+    pot = DistPotential(model, params, device="cuda", skin=0.5)
+    geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
+    stats = pot.last_stats
+    K = chunk_layout(stats["e_cap"], MACE_KW["edge_chunk"])[2]
+    n_calc = 1 + STEPS
+    expected = {k: 0 for k in launches}
+    expected["segment_sum"] = n_calc * (MACE_KW["num_interactions"] * 2 * K + 1)
+    log(f"[main-zbl] segment_sum launches: {n_calc} calculates x ({MACE_KW['num_interactions']}"
+        f" interactions x 2K (K={K}) + 1 width-1 ZBL edge sum) = {expected['segment_sum']}; "
+        f"counted {launches['segment_sum']}")
+    if launches != expected:
+        raise AssertionError(f"[main-zbl] kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+    e_zbl = zbl_energy(torch, model, pot)
+    ref_pot = DistPotential(model, params, device="cuda", skin=0.5, kernels=False)
+    _, ref_step_s, ref_peak = compare_with_plain(torch, ref_pot, atoms, geometries,
+                                                 results, "main-zbl")
+    # the width-1 call alone, at the crystal's graph's own ids and mask
+    lg = local_graph_from_stacked(pot._cache[0])
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    data = torch.randn((lg.e_cap, 1), generator=gen, device="cuda")
+    err = check_segment_sum(torch, data, lg.edge_dst, lg.edge_mask, lg.n_cap)
+    width1 = time_segment_sum(torch, data, lg.edge_dst, lg.edge_mask, lg.n_cap)
+    width1["max_abs_err"] = err
+    log(f"[main-zbl] width-1 segment sum at the graph's rows: {json.dumps(width1)}")
+    del lg, data, ref_pot
+    # where the pair term is not 0: 32 Si at a = 3.1 Å (nearest neighbours
+    # ~2.19 Å, rattled by 0.1 Å) through a small MACE with zbl=True, on the
+    # card against kernels=False and against the CPU (the 2048-atom crystal
+    # compressed that far drives the random full-width weights to ~1e5 eV,
+    # where float32 forces leave the absolute bar)
+    small = MACE(MACEConfig(num_species=MACE_KW["num_species"], channels=16, l_max=2, a_lmax=2,
+                            hidden_lmax=1, correlation=2, cutoff=4.0, edge_chunk=128,
+                            zbl=True, atomic_numbers=tuple(range(MACE_KW["num_species"]))))
+    small_params = small.init(0)
+    close = small_structure(3.1, 0.1, 1)
+    close.numbers[:] = 14
+    outs = {}
+    for name, kw in (("kernels", dict(device="cuda")), ("plain", dict(device="cuda", kernels=False)),
+                     ("cpu", dict(device="cpu"))):
+        p = DistPotential(small, small_params, skin=0.5, **kw)
+        outs[name] = p.calculate(close)
+        check_result(outs[name], len(close))
+        if name == "kernels":
+            e_zbl_close = zbl_energy(torch, small, p)
+    d_close = {k: worst_deltas([outs["kernels"]], [outs[k]]) for k in ("plain", "cpu")}
+    log(f"[main-zbl] 32 Si at a = 3.1 Å (ZBL {e_zbl_close:.6f} eV of "
+        f"{outs['kernels']['energy']:.6f} eV): card kernels vs {json.dumps(d_close)}")
+    if not (all(within_bar(d) for d in d_close.values()) and e_zbl_close > 0.0):
+        raise AssertionError("[main-zbl] the close-packed structure disagrees with its plain "
+                             "references, or its ZBL term is 0")
+    summary = summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results, launches,
+                        expected)
+    summary.update(edge_chunks=K, zbl_energy=e_zbl, close_zbl_energy=e_zbl_close,
+                   close_energy=outs["kernels"]["energy"], close_vs=d_close)
+    log(f"[main-zbl] {json.dumps(summary)}")
+    del pot
+    return launches, width1
+
+
 def phase_tensornet(torch):
     from distmlip_tpu_torch.calculators import DistPotential
     from distmlip_tpu_torch.kernels import recompute_chunks
@@ -1341,8 +1458,10 @@ PAIR_BAND = 1e-4  # Å below r_build: the float32 and float64 searches may diffe
 
 class Probe:
     """Stands between a driver and its ``DistPotential``: notes what each
-    calculate did (a skin-cache hit, a device refresh or a host rebuild),
-    its seconds, timings and e_cap, and keeps every result on the host;
+    calculate did (a skin-cache hit, a device refresh, an adopted
+    background build or a host rebuild) and whether a background build was
+    in flight as it started, its seconds, timings and e_cap, and keeps
+    every result on the host;
     checks that energy, forces, stress and positions are finite. The
     refreshed graph of the last calculate stays in ``pending`` until the
     caller takes it (after its own timing)."""
@@ -1357,15 +1476,18 @@ class Probe:
 
         pot = self.pot
         on_device, builds = pot.rebuild_on_device_count, pot.rebuild_count
+        hits, in_flight = pot.prefetch_hits, pot._prefetch is not None
         t = time.perf_counter()
         res = pot.calculate(atoms)
         seconds = time.perf_counter() - t
         kind = ("refresh" if pot.rebuild_on_device_count > on_device
+                else "adopted" if pot.prefetch_hits > hits
                 else "host" if pot.rebuild_count > builds else "hit")
         check_result(res, len(atoms))
         if not np.isfinite(atoms.positions).all():
             raise AssertionError("non-finite positions")
         self.calls.append({"kind": kind, "s": seconds, "e_cap": pot.last_stats["e_cap"],
+                           "build_in_flight": in_flight,
                            "positions": atoms.positions.copy(), "cell": atoms.cell.copy(),
                            "result": res, **pot.last_timings})
         if kind == "refresh":
@@ -1483,7 +1605,12 @@ def md_summary(pot, probe, step_s, peak, launches, expected):
 
     kinds = [c["kind"] for c in probe.calls[1:]]
     by = {k: [s * 1e3 for s, kk in zip(step_s, kinds) if kk == k]
-          for k in ("hit", "refresh", "host")}
+          for k in ("hit", "refresh", "adopted", "host")}
+    # hits while a background build ran (its OpenMP threads beside the
+    # step's launches) against hits without one
+    flight = [c["build_in_flight"] for c in probe.calls[1:]]
+    hit_ms = {w: [s * 1e3 for s, k, f in zip(step_s, kinds, flight) if k == "hit" and f == w]
+              for w in (True, False)}
     pos = [c["positions"] for c in probe.calls]
     disp = [float(np.sqrt(((b - a) ** 2).sum(axis=1)).max()) for a, b in zip(pos, pos[1:])]
     return {
@@ -1496,6 +1623,13 @@ def md_summary(pot, probe, step_s, peak, launches, expected):
         "atoms_per_s": len(pos[0]) * len(step_s) / sum(step_s),
         "refresh_ms": [c["rebuild_s"] * 1e3 for c in probe.calls if c["kind"] == "refresh"],
         "host_rebuild_s": [c["neighbor_s"] for c in probe.calls[1:] if c["kind"] == "host"],
+        "prefetch_hits": pot.prefetch_hits,
+        "prefetch_skipped_hbm": pot.prefetch_skipped_hbm,
+        "prefetch_wait_s": [c["prefetch_wait_s"] for c in probe.calls[1:]
+                            if c["kind"] == "adopted"],
+        "hit_ms_median_build_in_flight": median(hit_ms[True]),
+        "hit_ms_median_no_build": median(hit_ms[False]),
+        "hits_build_in_flight": len(hit_ms[True]),
         "rebuild_count": pot.rebuild_count,
         "rebuild_on_device_count": pot.rebuild_on_device_count,
         "rebuild_overflow_count": pot.rebuild_overflow_count,
@@ -1596,6 +1730,21 @@ def phase_md_tensornet(torch):
     return out[True]
 
 
+def relax_structure():
+    """``examples/02_relax_chgnet.py``'s structure: 864 Li (fcc a = 3.6 Å,
+    6 x 6 x 6 cells), 0.08 Å noise from seed 1, the cell stretched by 2%."""
+    import numpy as np
+
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms
+
+    rng = np.random.default_rng(1)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lattice = geometry.make_supercell(unit, np.eye(3) * 3.6, (6, 6, 6))
+    cart = geometry.frac_to_cart(frac, lattice) + rng.normal(0, 0.08, (len(frac), 3))
+    return Atoms(numbers=np.full(len(cart), 3), positions=cart, cell=lattice * 1.02)
+
+
 def phase_relax_chgnet(torch):
     """``[relax-chgnet]``: CHGNet at CHGNET_KW with magmoms on
     ``examples/02_relax_chgnet.py``'s structure (864 Li, cell x 1.02, 0.08 Å
@@ -1603,17 +1752,12 @@ def phase_relax_chgnet(torch):
     changes the cell, so every calculate is a host rebuild."""
     import numpy as np
 
-    from distmlip_tpu_torch import geometry
-    from distmlip_tpu_torch.calculators import Atoms, DistPotential, Relaxer
+    from distmlip_tpu_torch.calculators import DistPotential, Relaxer
     from distmlip_tpu_torch.kernels import launch_counts
     from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
     from distmlip_tpu_torch.tools.workload import CHGNET_KW
 
-    rng = np.random.default_rng(1)
-    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
-    frac, lattice = geometry.make_supercell(unit, np.eye(3) * 3.6, (6, 6, 6))
-    cart = geometry.frac_to_cart(frac, lattice) + rng.normal(0, 0.08, (len(frac), 3))
-    atoms = Atoms(numbers=np.full(len(cart), 3), positions=cart, cell=lattice * 1.02)
+    atoms = relax_structure()
     model = CHGNet(CHGNetConfig(**CHGNET_KW))
     params = model.init(0)
     pot = DistPotential(model, params, device="cuda", skin=0.4, compute_magmom=True)
@@ -1668,11 +1812,143 @@ def phase_relax_chgnet(torch):
 
 
 # ---------------------------------------------------------------------------
+# the host graph build: the native search and partitioner against numpy
+# ---------------------------------------------------------------------------
+
+HOST_GRAPH_WARM = 5  # warm calls timed (median) after the first of each
+
+
+def host_cpu() -> str:
+    """The host's CPU as ``/proc/cpuinfo`` names it (vendor, family, model,
+    model name, MHz, AVX-512), and the cores this process may use."""
+    import os
+
+    fields = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                key = key.strip()
+                if key in ("vendor_id", "cpu family", "model", "model name", "cpu MHz"):
+                    fields.setdefault(key, value.strip())
+                elif key == "flags":
+                    fields.setdefault("avx512f", "avx512f" in value.split())
+    except OSError:
+        pass
+    return f"{json.dumps(fields)}, {len(os.sched_getaffinity(0))} cores usable"
+
+
+def timed_calls(fn, warm=HOST_GRAPH_WARM):
+    """(first call's s, median of ``warm`` more calls' s, last result)."""
+    t = time.perf_counter()
+    out = fn()
+    first = time.perf_counter() - t
+    ts = []
+    for _ in range(warm):
+        t = time.perf_counter()
+        out = fn()
+        ts.append(time.perf_counter() - t)
+    return first, statistics.median(ts), out
+
+
+def same_edge_sets(got, want):
+    """The two searches' edges as sorted sets: (src, dst, offset) and bond
+    flags equal, distances within 1e-10 Å; shifts equal, wrapped positions
+    within 1e-12 Å. Returns the largest distance difference."""
+    import numpy as np
+
+    a, b = got.sorted_copy(), want.sorted_copy()
+    if a.num_edges != b.num_edges:
+        raise AssertionError(f"native found {a.num_edges} edges, numpy {b.num_edges}")
+    for name in ("src", "dst", "offsets", "bond_mask", "shift"):
+        if not np.array_equal(getattr(a, name), getattr(b, name)):
+            raise AssertionError(f"native and numpy searches differ in {name}")
+    dd = float(np.abs(a.distances - b.distances).max()) if a.num_edges else 0.0
+    dw = float(np.abs(a.wrapped_cart - b.wrapped_cart).max())
+    if dd > 1e-10 or dw > 1e-12:
+        raise AssertionError(f"native and numpy distances differ by {dd}, wrapped "
+                             f"positions by {dw}")
+    return dd
+
+
+def same_plans(a, b):
+    """Every ``PartitionPlan`` field equal, array for array."""
+    import dataclasses
+
+    import numpy as np
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, list):
+            ok = len(x) == len(y) and all(u.dtype == v.dtype and np.array_equal(u, v)
+                                          for u, v in zip(x, y))
+        elif isinstance(x, np.ndarray):
+            ok = x.dtype == y.dtype and np.array_equal(x, y)
+        else:
+            ok = x == y
+        if not ok:
+            raise AssertionError(f"native and numpy plans differ in {f.name}")
+
+
+def phase_host_graph(torch):
+    """``[host-graph]``: on the card's host, the native FPIS search
+    (``neighbors/native.py``, built here by g++: its first call apart)
+    against ``neighbor_list_numpy`` on bench.py's 16,384-atom Si crystal at
+    TensorNet's build cutoff (5.5 Å) and at CHGNet's (6.5 Å, bonds 3.5 Å),
+    and on ``[relax-chgnet]``'s 864 Li at its build cutoffs (6.4 / 3.4 Å):
+    the sorted edge sets equal, distances within 1e-10 Å. Then
+    ``build_plan(impl="native")`` against ``impl="numpy"`` at P = 2 and 4,
+    with and without bonds, on the 16,384 atoms: every plan field equal.
+    Times: the first call and the median of HOST_GRAPH_WARM warm calls of
+    each, on the threads the knob resolves to (all cores by default)."""
+    from distmlip_tpu_torch.neighbors import native, neighbor_list, neighbor_list_numpy
+    from distmlip_tpu_torch.partition import build_plan
+    from distmlip_tpu_torch.tools.workload import bench_atoms
+
+    t_phase = time.perf_counter()
+    log(f"[host-graph] host CPU: {host_cpu()}; native threads "
+        f"{native.resolve_num_threads() or 'all (OpenMP default)'}")
+    build_s = native.build()
+    log(f"[host-graph] g++ build of {native.library_path()}: {build_s:.2f} s")
+    si, li = bench_atoms(TENSORNET_REPS)[0], relax_structure()
+    nls = {}
+    for tag, atoms, r, bond_r in (("si16384", si, 5.5, 0.0), ("si16384", si, 6.5, 3.5),
+                                  ("li864", li, 6.4, 3.4)):
+        args = (atoms.positions, atoms.cell, atoms.pbc, r)
+        nat = timed_calls(lambda: neighbor_list(*args, bond_r=bond_r))
+        ref = timed_calls(lambda: neighbor_list_numpy(*args, bond_r=bond_r))
+        dd = same_edge_sets(nat[2], ref[2])
+        row = {"structure": tag, "n_atoms": len(atoms), "r": r, "bond_r": bond_r,
+               "n_edges": nat[2].num_edges, "n_bonds": int(nat[2].bond_mask.sum()),
+               "native_first_ms": nat[0] * 1e3, "native_ms": nat[1] * 1e3,
+               "numpy_first_ms": ref[0] * 1e3, "numpy_ms": ref[1] * 1e3,
+               "speedup": ref[1] / nat[1], "max_distance_diff": dd}
+        log(f"[host-graph] search {json.dumps(row)}")
+        if tag == "si16384":
+            nls[bond_r > 0] = nat[2]
+    for bonds in (False, True):
+        nl = nls[bonds]
+        r, bond_r = (6.5, 3.5) if bonds else (5.5, 0.0)
+        for P in (2, 4):
+            plan = lambda impl: build_plan(nl, si.cell, si.pbc, P, r, bond_r, bonds, impl=impl)
+            nat, ref = timed_calls(lambda: plan("native")), timed_calls(lambda: plan("numpy"))
+            same_plans(nat[2], ref[2])
+            row = {"P": P, "bonds": bonds, "n_edges": nl.num_edges,
+                   "halo_rows": [int(m[-1] - m[1 + P]) for m in nat[2].node_markers],
+                   "native_first_ms": nat[0] * 1e3, "native_ms": nat[1] * 1e3,
+                   "numpy_first_ms": ref[0] * 1e3, "numpy_ms": ref[1] * 1e3,
+                   "speedup": ref[1] / nat[1]}
+            log(f"[host-graph] plan {json.dumps(row)}")
+    log(f"[host-graph] native searches and plans equal numpy's; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# ---------------------------------------------------------------------------
 # slab graph parallelism: P partitions as one flattened graph on one card
 # ---------------------------------------------------------------------------
 
 PARALLEL_CALCS = 6  # per potential: the first calculate (host build) + 5 warm ones
-PARALLEL_MD_STEPS = 10
+PARALLEL_MD_STEPS = 20
 
 
 def parallel_geometries(atoms, rng):
@@ -1997,10 +2273,15 @@ def phase_parallel_escn(torch):
 
 def phase_parallel_md(torch):
     """``[parallel-md]``: PARALLEL_MD_STEPS nvt_bussi steps (MD_KW) of
-    TensorNet at TENSORNET_KW on the 16384-atom crystal at P = 2, then the
-    same steps from the same seed at P = 1: the drivers run unchanged on a
-    P > 1 potential, whose skin invalidations are rebuilt on the host (the
-    JAX package's rule); per-step energies and the last positions agree."""
+    TensorNet at TENSORNET_KW on the 16384-atom crystal at P = 2 (the
+    default ``async_rebuild``: skin invalidations adopt a graph the worker
+    built in the background), then the same steps from the same seed at
+    P = 2 with ``async_rebuild=False`` (every invalidation rebuilt on the
+    host in the step) and at P = 1 (device refreshes). The drivers run
+    unchanged on a P > 1 potential; per-step energies and the last
+    positions and forces agree at the float32 bar. Prints the prefetch
+    hits, the adopted steps' wait and ms against hits, and hit ms with a
+    background build in flight against hits without one."""
     import numpy as np
 
     from distmlip_tpu_torch.calculators import DistPotential
@@ -2011,9 +2292,10 @@ def phase_parallel_md(torch):
     params = model.init(0)
     layers = TENSORNET_KW["num_layers"]
     runs = {}
-    for P in (2, 1):
-        tag = f"parallel-md P={P}"
-        pot = DistPotential(model, params, device="cuda", skin=0.5, num_partitions=P)
+    for P, async_rebuild in ((2, True), (2, False), (1, True)):
+        tag = f"parallel-md P={P}" + ("" if async_rebuild else " async_rebuild=False")
+        pot = DistPotential(model, params, device="cuda", skin=0.5, num_partitions=P,
+                            async_rebuild=async_rebuild)
         structure = bench_atoms(TENSORNET_REPS)
         probe, step_s, launches, peak = run_md(torch, pot, structure, PARALLEL_MD_STEPS, tag)
         n_calc, segs = len(probe.calls), 2 if P > 1 else 1
@@ -2026,19 +2308,30 @@ def phase_parallel_md(torch):
                                  f"derivation {expected}")
         if P > 1 and pot.rebuild_on_device_count:
             raise AssertionError(f"[{tag}] refreshed a P>1 graph on the device")
+        if P > 1 and async_rebuild and not pot.prefetch_hits:
+            raise AssertionError(f"[{tag}] no invalidation adopted a background build")
         summary = md_summary(pot, probe, step_s, peak, launches, expected)
         log(f"[{tag}] {json.dumps(summary)}")
-        runs[P] = (structure[0].positions.copy(),
-                   np.array([c["result"]["energy"] for c in probe.calls]), launches)
+        runs[(P, async_rebuild)] = (
+            structure[0].positions.copy(),
+            np.array([c["result"]["energy"] for c in probe.calls]),
+            probe.calls[-1]["result"]["forces"], launches)
+        pot.close()
         del pot, probe
         torch.cuda.empty_cache()
-    (x2, e2, launches), (x1, e1, _) = runs[2], runs[1]
-    d = {"max_dx_A": float(np.abs(x2 - x1).max()),
-         "max_rel_dE": float((np.abs(e2 - e1) / np.abs(e1)).max())}
-    log(f"[parallel-md] P=2 vs P=1 over {PARALLEL_MD_STEPS} steps: {json.dumps(d)}")
-    if not (d["max_dx_A"] < 1e-4 and d["max_rel_dE"] < 1e-5):
-        raise AssertionError("[parallel-md] P=2 trajectory departs from P=1")
-    return launches
+
+    def deltas(a, b):
+        (xa, ea, fa, _), (xb, eb, fb, _) = runs[a], runs[b]
+        return {"max_dx_A": float(np.abs(xa - xb).max()),
+                "max_rel_dE": float((np.abs(ea - eb) / np.abs(eb)).max()),
+                "max_dF_last": float(np.abs(fa - fb).max())}
+
+    for other, what in (((1, True), "P=2 vs P=1"), ((2, False), "P=2 vs P=2 async_rebuild=False")):
+        d = deltas((2, True), other)
+        log(f"[parallel-md] {what} over {PARALLEL_MD_STEPS} steps: {json.dumps(d)}")
+        if not (d["max_dx_A"] < 1e-4 and d["max_rel_dE"] < 1e-5 and d["max_dF_last"] < 1e-4):
+            raise AssertionError(f"[parallel-md] {what}: the trajectories depart")
+    return runs[(2, True)][3]
 
 
 # ---------------------------------------------------------------------------
@@ -2535,6 +2828,7 @@ def main() -> int:
     from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
                                            MACEConfig, TensorNet, TensorNetConfig)
 
+    phase_host_graph(torch)
     max_err, timed, _ = phase_kernels(torch)
     edge_errs, edge_timed = phase_edge_aggregate_kernels(torch)
     chg_errs, chg_timed, proj_err, proj_timed = phase_chgnet_kernels(torch)
@@ -2545,6 +2839,8 @@ def main() -> int:
     so3._pack_index.cache_clear()
     torch.cuda.empty_cache()
     launches = phase_main_path(torch)
+    torch.cuda.empty_cache()
+    zbl_launches, zbl_width1 = phase_main_zbl(torch)
     torch.cuda.empty_cache()
     tn_launches = phase_tensornet(torch)
     torch.cuda.empty_cache()
@@ -2613,6 +2909,8 @@ def main() -> int:
         "library_ms": headline["library_ms"], "shape": headline["shape"],
         "per_shape": timed + [seg_escn],
         "escn_launches": escn_launches["segment_sum"],
+        # MACE with zbl=True: its launches, and the width-1 pair-term call
+        "zbl_launches": zbl_launches["segment_sum"], "zbl_width1": zbl_width1,
     }]
     for which in ("embed", "interaction"):
         name = f"tensornet_{which}_aggregate"

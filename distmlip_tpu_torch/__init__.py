@@ -10,7 +10,9 @@ package imports ``torch`` and numpy only: never ``jax`` and nothing of
 Entry points (``DistPotential``) run on CUDA unless the caller passes
 ``device="cpu"``; without a card they raise instead of falling back.
 The TPU Pallas kernels on the evaluated path are rewritten as CUDA C++ for
-``sm_90a`` (``kernels/csrc``), built with ``nvcc`` at first use.
+``sm_90a`` (``kernels/csrc``), built with ``nvcc`` at first use; the host
+neighbor search and slab partitioner are C++/OpenMP (``neighbors/src``),
+built with g++ at first use.
 
 Dtype policy (reference: DistMLIP/__init__.py:9-33): a process-global
 default float/int width for host-side graph arrays. Only float32 compute is

@@ -24,11 +24,19 @@ also builds the bond and line graphs at ``bond_cutoff + skin``. With
 ``compute_magmom=True`` the magmoms ride the energy forward as an aux
 output (the fused site readout, ``model.energy_and_aux_fn``).
 
-Not ported yet (queued in ROADMAP.md): the background prefetch rebuild,
-telemetry records, the contract audit, the separate-forward site readout
-(``fused_site_readout=False``), a compute dtype other than float32, the
-automatic partition count, partitions placed on several cards, and block
-plans.
+Where the device refresh cannot serve the skin cache's invalidations (P >
+1, a bond graph), the background prefetch rebuild (``async_rebuild``, on by
+default as in the JAX package) builds the next graph on a worker thread
+once ``prefetch_frac`` of the skin budget is spent, and the invalidation
+adopts it when the structure is the same: the native search releases the
+GIL, and on a card the worker uploads on its own stream, which the
+adopting step waits on in device order, not on the host. A changed cell
+(a relaxation with the cell) never hits the cache, so it never starts one.
+
+Not ported yet (queued in ROADMAP.md): telemetry records, the contract
+audit, the separate-forward site readout (``fused_site_readout=False``), a
+compute dtype other than float32, the automatic partition count,
+partitions placed on several cards, and block plans.
 
 Per-system conditioning (eSCN's charge, spin and dataset) is read from
 ``atoms.info`` (the ASE convention), range-checked against the model's
@@ -39,6 +47,8 @@ charge rebuilds.
 from __future__ import annotations
 
 import time
+import weakref
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -52,6 +62,16 @@ from ..partition import (CapacityPolicy, build_partitioned_graph, build_plan,
                          device_refresh_graph)
 from ..utils.checkpoint import params_from_numpy
 from .atoms import EV_A3_TO_GPA, Atoms, map_species, max_displacement
+
+
+def _same_structure(numbers0, cell0, pbc0, system0, atoms: Atoms) -> bool:
+    """Whether ``atoms`` has these species, cell, pbc and conditioning
+    scalars."""
+    return (len(numbers0) == len(atoms)
+            and np.array_equal(numbers0, atoms.numbers)
+            and np.array_equal(cell0, atoms.cell)
+            and np.array_equal(pbc0, atoms.pbc)
+            and system0 == atoms_system(atoms))
 
 
 def atoms_system(atoms: Atoms) -> dict:
@@ -110,6 +130,25 @@ class DistPotential:
         (counted in ``rebuild_overflow_count``). False always rebuilds on
         the host, and so does "auto" at P > 1, by the JAX package's rule
         (``_device_refresh_eligible``); True at P > 1 raises.
+    async_rebuild : with ``skin > 0``, build the next graph on a worker
+        thread once ``prefetch_frac`` of the skin budget (skin/2 of
+        displacement) is spent, whenever the device refresh cannot serve
+        the invalidation; the invalidating step adopts it if the structure
+        (species, cell, pbc, conditioning scalars) is unchanged and the
+        atoms are still within the skin budget of the build's snapshot,
+        else abandons it (not joined) and rebuilds itself. On a card the
+        worker uploads from pinned buffers on its own stream and records an
+        event; adoption makes the current stream wait on it. Adopted builds
+        count in ``prefetch_hits`` (and in ``rebuild_count``); the time the
+        step waited for an unfinished build is
+        ``last_timings["prefetch_wait_s"]``. ``close()`` releases the worker.
+    prefetch_frac : fraction of the skin budget spent before the prefetch
+        starts (default 0.5).
+    prefetch_hbm_frac : the device-memory guard of the prefetch, which
+        holds two graphs on the card at once: it is skipped (counted in
+        ``prefetch_skipped_hbm``) when the card's used memory plus the
+        cached graph's tensor bytes would pass ``min(2 x prefetch_hbm_frac,
+        0.9)`` of its memory (``torch.cuda.mem_get_info``). Never on the CPU.
     """
 
     def __init__(
@@ -127,6 +166,9 @@ class DistPotential:
         kernels: bool = True,
         device=None,
         device_rebuild: bool | str = "auto",
+        async_rebuild: bool = True,
+        prefetch_frac: float = 0.5,
+        prefetch_hbm_frac: float = 1.0 / 3.0,
     ):
         num_partitions = 1 if num_partitions is None else num_partitions
         if (isinstance(num_partitions, bool)
@@ -198,8 +240,19 @@ class DistPotential:
         self.last_build_fresh = False
         # seconds of the last calculate()'s phases: neighbor_s (host build,
         # or the cache check), partition_s (cache install or positions
-        # upload), rebuild_s (the device refresh), device_s (the potential)
+        # upload), rebuild_s (the device refresh), prefetch_wait_s (the
+        # wait for an adopted background build), device_s (the potential)
         self.last_timings: dict = {}
+        # background prefetch rebuild (skin > 0 only): one worker builds
+        # the next graph while the device steps on the current one
+        self.async_rebuild = bool(async_rebuild) and self.skin > 0.0
+        self.prefetch_frac = float(prefetch_frac)
+        self.prefetch_hbm_frac = float(prefetch_hbm_frac)
+        self._executor = None
+        self._upload_stream = None  # the worker's CUDA stream
+        self._prefetch = None       # (future, snapshot atoms) in flight
+        self.prefetch_hits = 0      # invalidations served by a background build
+        self.prefetch_skipped_hbm = 0  # prefetches vetoed by the memory guard
 
     def _species(self, numbers: np.ndarray) -> np.ndarray:
         return map_species(numbers, self.species_map)
@@ -213,7 +266,11 @@ class DistPotential:
         return (self.device_rebuild and self.skin > 0.0 and self.num_partitions == 1
                 and not self.use_bond_graph)
 
-    def _build_graph(self, atoms: Atoms):
+    def _build_graph(self, atoms: Atoms, background: bool = False):
+        """Host build and upload. ``background`` (the prefetch worker):
+        the result is ``(graph, host, event)``, and on a card the upload is
+        asynchronous on the worker's stream, ``event`` recorded after it
+        (None off CUDA); otherwise ``(graph, host)``."""
         r_build = self.cutoff + self.skin
         b_build = (self.bond_cutoff + self.skin) if self.use_bond_graph else 0.0
         nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r_build, bond_r=b_build)
@@ -247,17 +304,25 @@ class DistPotential:
                 graph.e_cap, positions=atoms.positions,
                 min_cell_cap=self._cell_cap_floor, dtype=graph.lattice.dtype)
             self._nbr_spec = (static, as_device_arrays(arrays, self.device))
-        return graph.to(self.device), host
+        if not background:
+            return graph.to(self.device), host
+        if self.device.type != "cuda":
+            return graph.to(self.device), host, None
+        with torch.cuda.stream(self._upload_stream):
+            graph = graph.to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(self._upload_stream)
+        return graph, host, event
 
     def _structure_matches(self, atoms: Atoms) -> bool:
         """The cached graph's structure (species, cell, pbc, conditioning
         scalars) is ``atoms``'."""
-        _, _, _, numbers0, cell0, pbc0, system0 = self._cache
-        return (len(numbers0) == len(atoms)
-                and np.array_equal(numbers0, atoms.numbers)
-                and np.array_equal(cell0, atoms.cell)
-                and np.array_equal(pbc0, atoms.pbc)
-                and system0 == atoms_system(atoms))
+        return _same_structure(*self._cache[3:], atoms)
+
+    def _disp_frac(self, build_positions, positions) -> float:
+        """The largest displacement from the build positions as a fraction
+        of the skin/2 budget (>= 1: the build no longer holds)."""
+        return max_displacement(positions, build_positions) / (0.5 * self.skin)
 
     def _cache_valid(self, atoms: Atoms) -> bool:
         """The cached graph holds while the structure (and its conditioning
@@ -266,7 +331,106 @@ class DistPotential:
         if self.skin <= 0.0 or self._cache is None:
             return False
         return (self._structure_matches(atoms)
-                and max_displacement(atoms.positions, self._cache[2]) < 0.5 * self.skin)
+                and self._disp_frac(self._cache[2], atoms.positions) < 1.0)
+
+    def _install_cache(self, graph, host, atoms: Atoms) -> None:
+        self._cache = (graph, host, atoms.positions.copy(), atoms.numbers.copy(),
+                       atoms.cell.copy(), atoms.pbc.copy(), atoms_system(atoms))
+
+    # ---- background prefetch rebuild ----
+
+    def _get_executor(self) -> ThreadPoolExecutor:
+        if self._executor is None:
+            if self.device.type == "cuda":
+                self._upload_stream = torch.cuda.Stream(device=self.device)
+            self._executor = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="distmlip-rebuild")
+            # the worker goes with the potential: no idle thread per
+            # abandoned potential, none holding up the interpreter's exit
+            weakref.finalize(self, self._executor.shutdown, wait=False,
+                             cancel_futures=True)
+        return self._executor
+
+    def close(self) -> None:
+        """Release the background-rebuild worker (also done when the
+        potential is collected); a later prefetch starts a new one."""
+        if self._executor is not None:
+            self._executor.shutdown(wait=False, cancel_futures=True)
+            self._executor = None
+            self._prefetch = None
+
+    def _hbm_usage_frac(self) -> float | None:
+        """Used share of the card's memory (all processes), None off CUDA."""
+        if self.device.type != "cuda":
+            return None
+        free, total = torch.cuda.mem_get_info(self.device)
+        return (total - free) / total
+
+    def _estimate_prefetch_frac(self) -> float | None:
+        """The share of the card's memory a prefetched graph adds: the
+        cached graph's tensor bytes (the next build has its capacities
+        until a cap grows). None off CUDA or without a cached graph."""
+        if self.device.type != "cuda" or self._cache is None:
+            return None
+        nbytes = sum(t.numel() * t.element_size() for t in self._cache[0].tensors())
+        return nbytes / torch.cuda.mem_get_info(self.device)[1]
+
+    def _maybe_prefetch(self, atoms: Atoms) -> None:
+        """Start a background build of ``atoms``' graph once
+        ``prefetch_frac`` of the skin budget is spent
+        (``distmlip_tpu/calculators/calculator.py:483-528``): never while
+        the device refresh serves invalidations, never twice at once, and
+        not when the memory guard vetoes it."""
+        if (not self.async_rebuild or self._prefetch is not None
+                or self._device_refresh_eligible()):
+            return
+        if self._disp_frac(self._cache[2], atoms.positions) < self.prefetch_frac:
+            return
+        used = self._hbm_usage_frac()
+        if used is not None and used + self._estimate_prefetch_frac() > min(
+                2.0 * self.prefetch_hbm_frac, 0.9):
+            self.prefetch_skipped_hbm += 1
+            return
+        snapshot = atoms.copy()
+        future = self._get_executor().submit(self._build_graph, snapshot, True)
+        self._prefetch = (future, snapshot)
+
+    def _adopt_prefetch(self, atoms: Atoms):
+        """The background build, if it serves ``atoms``: the same structure
+        and conditioning scalars as its snapshot, and every atom within the
+        snapshot's skin budget. Returns ``(graph, host, snapshot)`` or None.
+        A build that cannot serve is abandoned, not joined: its result is
+        dropped with the Future when it ends (a synchronous build may run
+        meanwhile; the capacity policy is locked). A failed build is
+        dropped with a warning and the step rebuilds."""
+        if self._prefetch is None:
+            return None
+        future, snap = self._prefetch
+        self._prefetch = None
+        if not (_same_structure(snap.numbers, snap.cell, snap.pbc, atoms_system(snap), atoms)
+                and self._disp_frac(snap.positions, atoms.positions) < 1.0):
+            future.cancel()  # frees it if it has not started
+            return None
+        try:
+            graph, host, event = future.result()
+        except Exception as e:  # noqa: BLE001 - speculative work; the step rebuilds
+            import warnings
+
+            warnings.warn(f"background graph rebuild failed ({e!r}); rebuilding "
+                          "synchronously", stacklevel=4)
+            return None
+        if event is not None:
+            # order the adopting stream after the worker's upload, on the
+            # card; the tensors were allocated on the worker's stream, so
+            # the allocator must not hand their blocks out again before
+            # this stream is done with them
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(event)
+            for t in graph.tensors():
+                t.record_stream(stream)
+        self.prefetch_hits += 1
+        self.rebuild_count += 1
+        return graph, host, snap
 
     def _positions(self, host, graph, atoms: Atoms) -> torch.Tensor:
         """``atoms.positions`` as the graph's (P, N_cap, 3) tensor on the device."""
@@ -315,37 +479,59 @@ class DistPotential:
         host.stats["n_edges"] = n_edges
         self._install_refreshed(graph2, atoms.positions)
         self.last_timings = {"neighbor_s": 0.0, "partition_s": t1 - t0,
-                             "rebuild_s": t2 - t1}
+                             "rebuild_s": t2 - t1, "prefetch_wait_s": 0.0}
         return graph2, host, positions
 
     def _prepare(self, atoms: Atoms):
-        """Build, refresh or reuse the graph; returns (graph, host,
-        positions) ready for the potential."""
+        """Build, refresh, adopt or reuse the graph; returns (graph, host,
+        positions) ready for the potential. ``last_build_fresh``: whether
+        the graph was built at these positions (not for a cache hit or an
+        adopted prefetch, whose skin budget is partly spent)."""
         t0 = time.perf_counter()
+        prefetch_wait = 0.0
         if not self._cache_valid(atoms):
             # same structure, positions past the skin budget: rebuild the
             # edges on the device instead of on the host
             refreshed = self._try_device_refresh(atoms)
             if refreshed is not None:
                 return refreshed
-            graph, host = self._build_graph(atoms)
-            self.rebuild_count += 1
-            self.last_build_fresh = True
-            t1 = time.perf_counter()
-            if self.skin > 0.0:
-                self._cache = (graph, host, atoms.positions.copy(),
-                               atoms.numbers.copy(), atoms.cell.copy(),
-                               atoms.pbc.copy(), atoms_system(atoms))
-            self.last_timings = {"neighbor_s": t1 - t0,
-                                 "partition_s": time.perf_counter() - t1}
-            return graph, host, graph.positions
+            t_adopt = time.perf_counter()
+            adopted = self._adopt_prefetch(atoms)
+            prefetch_wait = time.perf_counter() - t_adopt
+            if adopted is None:
+                graph, host = self._build_graph(atoms)
+                self.rebuild_count += 1
+                self.last_build_fresh = True
+                t1 = time.perf_counter()
+                if self.skin > 0.0:
+                    self._install_cache(graph, host, atoms)
+                self.last_timings = {"neighbor_s": t1 - t0 - prefetch_wait,
+                                     "partition_s": time.perf_counter() - t1,
+                                     "prefetch_wait_s": prefetch_wait}
+                return graph, host, graph.positions
+            # the rebuild was done by the worker: this step uploads the
+            # positions, as a cache hit does
+            graph, host, snap = adopted
+            self._install_cache(graph, host, snap)
         self.last_build_fresh = False
+        self._maybe_prefetch(atoms)
         graph, host = self._cache[:2]
         t1 = time.perf_counter()
         positions = self._positions(host, graph, atoms)
-        self.last_timings = {"neighbor_s": t1 - t0,
-                             "partition_s": time.perf_counter() - t1}
+        self.last_timings = {"neighbor_s": t1 - t0 - prefetch_wait,
+                             "partition_s": time.perf_counter() - t1,
+                             "prefetch_wait_s": prefetch_wait}
         return graph, host, positions
+
+    def partition_report(self, atoms: Atoms) -> str:
+        """Partition balance of ``atoms`` at the model's cutoff: owned,
+        halo and edge counts per partition (bonds and lines with a bond
+        graph), from a fresh search and plan
+        (``distmlip_tpu/calculators/calculator.py:976-984``)."""
+        nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, self.cutoff,
+                           bond_r=self.bond_cutoff if self.use_bond_graph else 0.0)
+        return build_plan(nl, atoms.cell, atoms.pbc, self.num_partitions, self.cutoff,
+                          self.bond_cutoff, self.use_bond_graph).summary()
 
     def calculate(self, atoms: Atoms) -> dict:
         """Energy (eV), forces (eV/Å), stress (eV/Å^3, ASE sign convention),

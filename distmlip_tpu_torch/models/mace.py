@@ -26,8 +26,14 @@ interaction; in PyTorch that outer checkpoint would re-run every inner
 chunk forward a second time in the backward, so the port keeps only the
 per-chunk checkpoints (which bound the same per-edge memory).
 
-Not ported yet (raise ``NotImplementedError``): ``zbl=True`` (needs
-``models/pair.py``) and ``dtype="bfloat16"``; both are queued in ROADMAP.md.
+With ``zbl=True`` the ZBL screened pair repulsion of MACE-MP-0b
+(``models/pair.py`` ``zbl_edge_energy``, half per directed edge) joins the
+interaction energies inside scale/shift; its per-atom edge sum is one
+``aggregate_edges`` call at width 1, so it launches the segment-sum kernel
+once more per calculate (per edge segment of a split graph).
+
+Not ported yet (raises ``NotImplementedError``): ``dtype="bfloat16"``,
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -67,8 +73,10 @@ class MACEConfig:
     avg_num_neighbors: float = 14.0
     num_heads: int = 1        # multi-head readouts (per-head E0s/scale/
     head: int = 0             # shift/readout columns); ``head`` is evaluated
-    zbl: bool = False         # ZBL pair repulsion: not ported yet
-    atomic_numbers: tuple | None = None  # species index -> Z (for ZBL)
+    zbl: bool = False         # ZBL screened pair repulsion under the
+                              # learned potential (MACE-MP-0b)
+    atomic_numbers: tuple | None = None  # species index -> Z (for ZBL);
+                                         # None: species index + 1
     remat: bool = True        # checkpoint each edge/node chunk
     edge_chunk: int = 32768   # edges per chunk of the density projection
                               # (0 disables chunking)
@@ -147,9 +155,6 @@ class MACE:
             raise ValueError(
                 f"head={c.head} out of range for num_heads={c.num_heads}"
             )
-        if c.zbl:
-            raise NotImplementedError(
-                "MACE zbl=True needs models/pair.py, queued in ROADMAP.md")
         if c.dtype != "float32":
             raise NotImplementedError(
                 f"MACE dtype={c.dtype!r}: only float32 is ported; bfloat16 "
@@ -204,6 +209,9 @@ class MACE:
             "shift": torch.zeros((cfg.num_heads,)),
             "interactions": [],
         }
+        if cfg.zbl:
+            params["zbl"] = {"a_exp": torch.tensor(0.300),
+                             "a_prefactor": torch.tensor(0.4543)}
         for t in range(cfg.num_interactions):
             n_paths = len(self.msg_paths[t])
             in_ls, out_ls = self.h_ls_in[t], self.h_ls_out[t]
@@ -319,6 +327,11 @@ class MACE:
         head = cfg.head
         e_site = params["species_ref"]["w"][head][z]
         acc = torch.zeros(positions.shape[0], dtype=dtype, device=positions.device)
+        if cfg.zbl:
+            # ZBL joins the interaction energies inside scale * (...) +
+            # shift, as upstream ScaleShiftMACE sums pair_node_energy into
+            # them (distmlip_tpu/models/mace.py:353-360)
+            acc = acc + self._zbl_site(params, lg, d)
         interactions = as_list(params["interactions"])
         for t, inter in enumerate(interactions):
             h = self._interaction(inter, h, lg=lg, edges=edges, K=K, z=z, t=t,
@@ -335,6 +348,25 @@ class MACE:
             acc = acc + r_out
 
         return e_site + params["scale"][head] * acc + params["shift"][head]
+
+    def _zbl_site(self, params, lg, d):
+        """Per-atom ZBL pair repulsion, half per directed edge
+        (``distmlip_tpu/models/mace.py:385-407``): one width-1 segment sum
+        of the masked edge energies onto their dst atoms."""
+        from .pair import zbl_edge_energy
+
+        cfg = self.cfg
+        if cfg.atomic_numbers is not None:
+            z_of = torch.as_tensor(np.asarray(cfg.atomic_numbers, dtype=np.int32),
+                                   device=d.device)
+        else:
+            z_of = torch.arange(1, cfg.num_species + 1, dtype=torch.int32, device=d.device)
+        z_num = z_of[lg.species]
+        e_edge = zbl_edge_energy(z_num[lg.edge_src], z_num[lg.edge_dst], d,
+                                 a_exp=params["zbl"]["a_exp"],
+                                 a_prefactor=params["zbl"]["a_prefactor"], p=cfg.cutoff_p)
+        e_edge = torch.where(lg.edge_mask, e_edge, torch.zeros_like(e_edge))
+        return 0.5 * lg.aggregate_edges(e_edge[:, None])[:, 0]
 
     def _interaction(self, inter, h, *, lg, edges, K, z, t, consts, U_t):
         """One MACE interaction: density projection + symmetric contraction +

@@ -106,7 +106,7 @@ class PartitionedGraph:
     batch_size: int = 0
     struct_id: Any = None
 
-    def to(self, device) -> "PartitionedGraph":
+    def to(self, device, non_blocking: bool = False) -> "PartitionedGraph":
         """A copy whose array fields (system scalars, flat view and a packed
         batch's ``struct_id`` too) are torch tensors on ``device`` (dtypes
         kept: int32 ids and scalars, bool masks, the build's float dtype;
@@ -115,15 +115,22 @@ class PartitionedGraph:
         At P > 1 only the fields the flattened graph reads move
         (``FLAT_DEVICE_FIELDS`` and ``flat``): the stacked edge, bond-graph
         and halo-table arrays stay where they are, since ``flat`` holds
-        them in the layout the device runs."""
+        them in the layout the device runs.
+
+        ``non_blocking`` (a CUDA ``device``): each host array is copied into
+        pinned memory and uploaded asynchronously on the current stream;
+        the caller orders later use after it (an event)."""
         import torch
 
         def conv(x):
             if x is None:
                 return None
             if isinstance(x, torch.Tensor):
-                return x.to(device)
-            return torch.as_tensor(np.asarray(x)).to(device)
+                return x.to(device, non_blocking=non_blocking)
+            t = torch.as_tensor(np.asarray(x))
+            if non_blocking:
+                return t.pin_memory().to(device, non_blocking=True)
+            return t.to(device)
 
         system = (None if self.system is None
                   else {k: conv(v) for k, v in self.system.items()})
@@ -132,6 +139,16 @@ class PartitionedGraph:
         return dataclasses.replace(
             self, system=system, flat=flat,
             **{k: conv(getattr(self, k)) for k in fields})
+
+
+    def tensors(self):
+        """Every torch tensor the graph holds (array fields, system
+        scalars, the flat view)."""
+        import torch
+
+        out = [getattr(self, k) for k in ARRAY_FIELDS]
+        out += list((self.system or {}).values()) + list((self.flat or {}).values())
+        return [t for t in out if isinstance(t, torch.Tensor)]
 
 
 @dataclass

@@ -16,8 +16,10 @@ partition (a node that reaches two peers raises: lower P); to/from halo
 sections are index-aligned between the two sides of every pair, so the
 halo exchange is a slot-to-slot copy.
 
-Not ported (ROADMAP.md): the native C++ partitioner (queue A item 2) and
-block plans over a grid of blocks (queue A item 4).
+The native C++/OpenMP partitioner (``neighbors/native.py``,
+``neighbors/src/partition.cpp``) builds the same plans array for array;
+``build_plan`` takes it by default. Not ported (ROADMAP.md): block plans
+over a grid of blocks (queue A, A4).
 """
 
 from __future__ import annotations
@@ -121,22 +123,18 @@ def build_plan(
     neighbor list marks within ``bond_r`` (``nl.bond_mask``), with their
     halo sections at P > 1.
 
-    ``impl``: ``"auto"`` and ``"numpy"`` both take the numpy path (the JAX
-    package's ``"auto"`` prefers its native partitioner, whose plans equal
-    the numpy ones); ``"native"`` raises ``NotImplementedError``: the
-    native partitioner is ROADMAP.md queue A item 2. ``grid`` (a block
-    decomposition) raises ``NotImplementedError`` too (queue A item 4).
+    ``impl``: ``"auto"`` and ``"native"`` take the native C++
+    partitioner, ``"numpy"`` the numpy path; their plans are equal array
+    for array (P = 1 builds the one-partition plan on either). ``grid``
+    (a block decomposition) raises ``NotImplementedError`` (ROADMAP.md
+    queue A, A4).
     """
-    if impl == "native":
-        raise NotImplementedError(
-            "impl='native': the native C++ partitioner is not ported "
-            "(ROADMAP.md queue A item 2); impl='numpy' builds the same plan")
-    if impl not in ("auto", "numpy"):
+    if impl not in ("auto", "native", "numpy"):
         raise ValueError(f"impl={impl!r}: expected 'auto', 'numpy' or 'native'")
     if grid is not None:
         raise NotImplementedError(
             f"grid={tuple(grid)}: block plans are not ported (ROADMAP.md queue "
-            "A item 4); slab plans take num_partitions alone")
+            "A, A4); slab plans take num_partitions alone")
     lattice = np.asarray(lattice, dtype=np.float64)
     n = nl.wrapped_cart.shape[0]
     P = int(num_partitions)
@@ -151,6 +149,8 @@ def build_plan(
 
     frac = geometry.cart_to_frac(nl.wrapped_cart, lattice)
     walls = make_walls(frac[:, axis], P)
+    if impl != "numpy":
+        return _build_plan_native(nl, frac[:, axis], axis, walls, P, use_bond_graph)
     node_part = which_partition(walls, frac[:, axis])
 
     # --- border classification: src must be visible wherever its edges land ---
@@ -216,6 +216,61 @@ def build_plan(
 
     if use_bond_graph:
         _build_bond_graph(plan, nl)
+    return plan
+
+
+def _build_plan_native(nl, frac_axis, axis, walls, P, use_bond_graph) -> PartitionPlan:
+    """The slab plan from the native partitioner
+    (``distmlip_tpu/partition/partitioner.py:224-281``): the C++ side returns
+    the per-partition layout; the fields it does not return (``g2l``,
+    ``edge_offsets``, ``nodes_to_partition``, ``bond_needs_in_line``) are
+    derived here as the numpy path derives them."""
+    from ..neighbors import native
+
+    try:
+        parts = native.native_partition(nl.src, nl.dst, frac_axis, walls, P,
+                                        nl.bond_mask if use_bond_graph else None,
+                                        use_bond_graph)
+    except native.MultiPeerNode as e:
+        raise PartitionError(str(e)) from e
+    n = nl.wrapped_cart.shape[0]
+    plan = PartitionPlan(P, axis, walls, which_partition(walls, frac_axis),
+                         np.full(n, -1, dtype=np.int64))
+    for d in parts:
+        gids, markers = d["global_ids"], d["node_markers"]
+        g2l = np.full(n, -1, dtype=np.int64)
+        g2l[gids] = np.arange(len(gids))
+        plan.global_ids.append(gids)
+        plan.node_markers.append(markers)
+        plan.g2l.append(g2l)
+        plan.edge_ids.append(d["edge_ids"])
+        plan.src_local.append(d["src_local"])
+        plan.dst_local.append(d["dst_local"])
+        plan.edge_offsets.append(nl.offsets[d["edge_ids"]])
+        for q in range(P):
+            plan.nodes_to_partition[gids[markers[1 + q]:markers[2 + q]]] = q
+    if use_bond_graph:
+        W = np.nonzero(nl.bond_mask)[0]
+        if np.any(nl.src[W] == nl.dst[W]):
+            import warnings
+
+            warnings.warn(
+                "Found self-loop edge within bond cutoff (cell smaller than bond "
+                "graph cutoff); line-graph results may be incorrect.",
+                stacklevel=3,
+            )
+        plan.has_bond_graph = True
+        for d in parts:
+            needs_in_line = np.zeros(len(d["bond_global_edge"]), dtype=bool)
+            needs_in_line[:int(d["bond_markers"][1 + P])] = True  # pure + to sections
+            plan.bond_markers.append(d["bond_markers"])
+            plan.bond_global_edge.append(d["bond_global_edge"])
+            plan.bond_needs_in_line.append(needs_in_line)
+            plan.line_src.append(d["line_src"])
+            plan.line_dst.append(d["line_dst"])
+            plan.line_center_local.append(d["line_center"])
+            plan.bond_mapping_edge.append(d["bm_edge"])
+            plan.bond_mapping_bond.append(d["bm_bond"])
     return plan
 
 

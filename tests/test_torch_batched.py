@@ -3,8 +3,8 @@ against the JAX package's.
 
 - ``BucketPolicy`` / ``FixedCaps``: rung for rung and byte estimate for byte
   estimate (pure Python on both sides).
-- ``pack_structures``: array for array (numpy on both sides; the JAX pack's
-  neighbor search set to the numpy one, as the port's), with and without
+- ``pack_structures``: array for array (both packs search with their
+  native FPIS, one C++ source, so edges come in one order), with and without
   CHGNet's bond and line graphs, on a batch with a 1-atom structure that
   has no edge and an empty padded slot (3 structures in 4 slots).
 - The sentinel slot: padded node rows carry ``struct_id == batch_size``;
@@ -33,7 +33,6 @@ import numpy as np
 import pytest
 import torch
 
-import distmlip_tpu.partition.batch as jbatch
 from distmlip_tpu.calculators import Atoms as JAtoms
 from distmlip_tpu.calculators import BatchedMD as JBatchedMD
 from distmlip_tpu.calculators import BatchedPotential as JBatchedPotential
@@ -44,7 +43,6 @@ from distmlip_tpu.models import PairConfig as JPairConfig
 from distmlip_tpu.models import PairPotential as JPairPotential
 from distmlip_tpu.models import TensorNet as JTensorNet
 from distmlip_tpu.models import TensorNetConfig as JTensorNetConfig
-from distmlip_tpu.neighbors import neighbor_list_numpy as jax_nl
 from distmlip_tpu.neighbors.device import build_packed_spec as jax_packed_spec
 from distmlip_tpu.neighbors.device import device_packed_neighbor_list as jax_packed_nl
 from distmlip_tpu.partition import BucketPolicy as JBucketPolicy
@@ -125,13 +123,6 @@ def _assert_results(res, refs, magmoms=False):
             np.testing.assert_allclose(r["magmoms"], ref["magmoms"], atol=1e-4)
 
 
-def _jax_numpy_search(monkeypatch):
-    """The JAX pack's neighbor search set to the numpy one (the port's)."""
-    monkeypatch.setattr(jbatch, "neighbor_list",
-                        lambda pos, cell, pbc, r, bond_r=0.0, num_threads=None:
-                        jax_nl(pos, cell, pbc, r, bond_r=bond_r))
-
-
 # ---------------------------------------------------------------------------
 # BucketPolicy / FixedCaps
 # ---------------------------------------------------------------------------
@@ -182,8 +173,8 @@ def test_fixed_caps_match_jax():
 
 
 @pytest.mark.parametrize("bond_graph", [False, True], ids=["plain", "bond_graph"])
-def test_pack_structures_matches_jax(monkeypatch, bond_graph):
-    _jax_numpy_search(monkeypatch)
+def test_pack_structures_matches_jax(bond_graph):
+    # both packs search with their native FPIS, which order edges alike
     structs = _mixed(1, noise=0.1)
     kw = dict(cutoff=3.2, bond_cutoff=2.6 if bond_graph else 0.0,
               use_bond_graph=bond_graph, skin=0.5)

@@ -1211,3 +1211,79 @@ def test_packed_kernels_on_card_match_plain(card):
                                       weights=lw)
 
     launched("chgnet_line_aggregate", line)
+
+
+@pytest.mark.cuda
+def test_prefetch_adopted_on_the_side_stream_on_card(card, monkeypatch):
+    """The background prefetch rebuild of a P = 2 TensorNet on the card: the
+    worker uploads on its own stream and records an event after the upload;
+    the invalidating step adopts the build, making its stream wait on that
+    event, and agrees with a fresh build on the card and with the CPU
+    within the float32 bar."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+
+    model = TensorNet(TensorNetConfig(num_species=4, units=16, num_rbf=8, cutoff=3.0))
+    params = model.init(0)
+    waited = []
+    wait_event = torch.cuda.Stream.wait_event
+
+    def spy(stream, event):
+        waited.append((stream, event))
+        return wait_event(stream, event)
+
+    monkeypatch.setattr(torch.cuda.Stream, "wait_event", spy)
+    atoms = _long_cell()
+    pot = DistPotential(model, params, device=card, skin=0.5, num_partitions=2)
+    pot.calculate(atoms)
+    moved = atoms.copy()
+    moved.positions[0, 0] += 0.15  # 0.6 of the 0.25 Å budget: starts the build
+    pot.calculate(moved)
+    graph, _, event = pot._prefetch[0].result(timeout=120)
+    assert isinstance(event, torch.cuda.Event)
+    assert pot._upload_stream != torch.cuda.current_stream(card)
+    assert all(t.is_cuda for t in graph.tensors())
+    moved.positions[0, 0] += 0.15  # past the build's budget, inside the snapshot's
+    res = pot.calculate(moved)
+    assert pot.prefetch_hits == 1 and pot.rebuild_count == 2
+    assert [e for s, e in waited] == [event]
+    assert waited[0][0] == torch.cuda.current_stream(card)
+    pot.close()
+    for ref in (DistPotential(model, params, device=card, num_partitions=2).calculate(moved),
+                DistPotential(model, params, device="cpu", num_partitions=2).calculate(moved)):
+        assert abs(res["energy"] - ref["energy"]) < 1e-5 * abs(ref["energy"])
+        np.testing.assert_allclose(res["forces"], ref["forces"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(res["stress"], ref["stress"], rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mace_zbl_on_card_matches_plain(card):
+    """MACE with ``zbl=True`` on the card: the pair term's width-1 edge sum
+    launches the segment-sum kernel once per calculate beside the density
+    projection's n_interactions x 2K; the result agrees with
+    ``kernels=False`` on the card and with the CPU."""
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    rng = np.random.default_rng(7)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lat = geometry.make_supercell(unit, np.eye(3) * 3.0, (2, 2, 2))
+    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.1, (32, 3))
+    atoms = Atoms(numbers=rng.integers(0, 4, 32), positions=cart, cell=lat)
+    model = MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2, hidden_lmax=1,
+                            correlation=2, cutoff=3.2, edge_chunk=128, zbl=True,
+                            atomic_numbers=(14, 14, 8, 8)))
+    params = model.init(0)
+    pot = DistPotential(model, params, device=card)
+    before = launch_counts["segment_sum"]
+    gpu = pot.calculate(atoms)
+    k = chunk_layout(pot.last_stats["e_cap"], model.cfg.edge_chunk)[2]
+    assert launch_counts["segment_sum"] - before == model.cfg.num_interactions * 2 * k + 1
+    for ref in (DistPotential(model, params, device=card, kernels=False).calculate(atoms),
+                DistPotential(model, params, device="cpu").calculate(atoms)):
+        assert abs(gpu["energy"] - ref["energy"]) < 1e-5 * abs(ref["energy"])
+        np.testing.assert_allclose(gpu["forces"], ref["forces"], rtol=0, atol=1e-4)
+        np.testing.assert_allclose(gpu["stress"], ref["stress"], rtol=0, atol=1e-4)

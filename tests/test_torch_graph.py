@@ -87,13 +87,25 @@ def test_neighbor_list_and_p1_graph_bit_for_bit(name):
 
 
 def test_p_gt_1_and_bond_graph_raise():
-    """What is not ported raises: the native partitioner and block plans
-    (grid=), with a bond graph too; slab plans at P>1 build (their parity
-    is tests/test_torch_partition.py), and so does a P=1 bond graph."""
+    """What is not ported raises: block plans (grid=), with a bond graph
+    too; slab plans at P>1 build (their parity is
+    tests/test_torch_partition.py), and so does a P=1 bond graph. The
+    native partitioner (``impl="native"``) builds the numpy plan, with and
+    without bonds (every field: tests/test_torch_native.py)."""
     cart, lat, spec, r = STRUCTS["crystal"]
     nl = port_nl(cart, lat, [1, 1, 1], r, bond_r=3.0)
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        build_plan(nl, lat, [1, 1, 1], 2, r, impl="native")
+    long_cart, long_lat, _ = make_crystal(np.random.default_rng(4), reps=(2, 2, 6), a=4.0)
+    long_nl = port_nl(long_cart, long_lat, [1, 1, 1], 3.5, bond_r=2.5)
+    for bonds in (False, True):
+        native = build_plan(long_nl, long_lat, [1, 1, 1], 2, 3.5, 2.5, bonds, impl="native")
+        ref = build_plan(long_nl, long_lat, [1, 1, 1], 2, 3.5, 2.5, bonds, impl="numpy")
+        for name in ("global_ids", "node_markers", "edge_ids", "src_local", "dst_local",
+                     "bond_global_edge", "line_src", "line_dst", "line_center_local"):
+            assert len(getattr(native, name)) == len(getattr(ref, name))
+            for a, b in zip(getattr(native, name), getattr(ref, name)):
+                np.testing.assert_array_equal(a, b, err_msg=name)
+        np.testing.assert_array_equal(native.nodes_to_partition, ref.nodes_to_partition)
+        assert native.has_bond_graph == ref.has_bond_graph == bonds
     with pytest.raises(NotImplementedError, match="block plans"):
         build_plan(nl, lat, [1, 1, 1], 2, r, 3.0, use_bond_graph=True, grid=(2, 1, 1))
     with pytest.raises(NotImplementedError, match="block plans"):

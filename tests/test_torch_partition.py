@@ -170,8 +170,9 @@ def test_flat_view_is_the_stacked_graph_side_by_side(P, bond):
 
 def test_slab_errors_match_jax():
     """Slabs thinner than the cutoff, and a node reaching two peers (slab
-    width between R and 2 R at P = 4), raise PartitionError on both sides
-    with the same message; P < 1 raises too."""
+    width between R and 2 R at P = 4), raise PartitionError on both numpy
+    paths with the same message (the native partitioners name the node
+    alone: tests/test_torch_native.py); P < 1 raises too."""
     rng = np.random.default_rng(5)
     lat = np.eye(3) * 16.0
     cart = rng.random((200, 3)) @ lat
@@ -182,7 +183,7 @@ def test_slab_errors_match_jax():
             with pytest.raises(JPartitionError, match=match) as je:
                 jax_build_plan(a, lat, [1, 1, 1], P, R, impl="numpy")
             with pytest.raises(PartitionError, match=match) as te:
-                build_plan(b, lat, [1, 1, 1], P, R)
+                build_plan(b, lat, [1, 1, 1], P, R, impl="numpy")
         assert str(je.value) == str(te.value)
     with pytest.raises(PartitionError, match=">= 1"):
         build_plan(b, lat, [1, 1, 1], 0, R)

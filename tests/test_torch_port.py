@@ -95,8 +95,9 @@ def test_build_needs_nvcc_and_never_runs_at_import(monkeypatch):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="pair.py"):
-        MACE(MACEConfig(**TINY, zbl=True))
+    # zbl=True is ported (tests/test_torch_mace_zbl.py): it builds, with its
+    # two ZBL parameters
+    assert set(MACE(MACEConfig(**TINY, zbl=True)).init(0)["zbl"]) == {"a_exp", "a_prefactor"}
     with pytest.raises(NotImplementedError, match="float32"):
         MACE(MACEConfig(**TINY, dtype="bfloat16"))
     model = MACE(MACEConfig(**TINY))
