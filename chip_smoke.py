@@ -55,7 +55,13 @@ Phases (each failure raises, so the exit code is non-zero):
    without assuming round to nearest, and the plain side. Its bound is the
    3xTF32 one (3 x operations at 495 TFLOP/s), with the float32-core one
    beside it; the weight packing is timed alone. The segment sum also at
-   eSCN's (32768, 25 * 128) row width;
+   eSCN's (32768, 25 * 128) row width, and across a width sweep (1, 2, 3,
+   4, 8, 16, 31, 32, 33, 100, 800 and 3200 floats, int32 and int64 ids
+   checked) on one chunk's ids and mask. Every timed shape of the segment
+   sum and of the row projection carries its call ms (CUDA events over
+   back-to-back calls), the kernel alone (``torch.profiler`` device time),
+   the host µs per call (host clock, no sync) and the library call timed
+   the same three ways (``distmlip_tpu_torch/tools/kernel_ab.py``);
 2b. the host graph build (``[host-graph]``) — the native C++/OpenMP
    neighbor search (built by g++, its first call apart) against the numpy
    search on bench.py's 16,384-atom Si crystal at 5.5 Å and at 6.5 / 3.5
@@ -165,6 +171,11 @@ import subprocess
 import sys
 import time
 
+try:  # the timing helpers and the main path's edge-chunk case, shared with kernel_ab.py
+    from distmlip_tpu_torch.tools.kernel_ab import cuda_ms, library_split, slice_case, split
+except ImportError as e:
+    sys.exit(f"chip_smoke: run from the root of a checkout ({e})")
+
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12         # TF32 in the tensor cores, dense
@@ -194,39 +205,6 @@ CHGNET_REPS = 16
 
 def log(*args):
     print(*args, flush=True)
-
-
-def cuda_ms(torch, fn, iters=20, warmup=3):
-    """Mean milliseconds of ``fn`` on the card (CUDA events)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def slice_case(torch, gen, e, trailing, n_rows=2560, per_row=47, pad=3000,
-               interior_masked=200):
-    """dst-sorted ids as one edge chunk of the main path: ~47 edges per dst
-    row over a contiguous block of rows, a repeated-tail padding block
-    (mask false), some masked interior rows."""
-    real = e - pad
-    rows = -(-real // per_row)
-    ids = torch.sort(torch.randint(0, rows, (real,), generator=gen,
-                                   device="cuda"))[0] + (n_rows - rows) // 2
-    ids = torch.cat([ids, ids[-1:].expand(pad)]).to(torch.int32)
-    mask = torch.ones(e, dtype=torch.bool, device="cuda")
-    mask[real:] = False
-    mask[torch.randint(0, real, (interior_masked,), generator=gen,
-                       device="cuda")] = False
-    data = torch.randn((e,) + trailing, generator=gen, device="cuda")
-    return data, ids, mask, n_rows
 
 
 def check_segment_sum(torch, data, ids, mask, n):
@@ -260,28 +238,36 @@ def bound(nbytes, ops, flops=H100_FP32_FLOPS):
 
 
 def time_segment_sum(torch, data, ids, mask, n):
+    """The segment sum's call ms (CUDA events), kernel-alone ms (profiler),
+    host µs per call, plain ms, and one ``index_add_`` of the masked rows
+    timed the same ways; its bytes bound."""
     from distmlip_tpu_torch.kernels import segment_sum_cuda, segment_sum_reference
 
     e = data.shape[0]
     w = data[0].numel()
-    ms = cuda_ms(torch, lambda: segment_sum_cuda(data, ids, n, mask))
+    timed = split(torch, lambda: segment_sum_cuda(data, ids, n, mask), "segment_sum")
     plain_ms = cuda_ms(torch, lambda: segment_sum_reference(data, ids, n, mask))
     masked = torch.where(mask.reshape((e,) + (1,) * (data.ndim - 1)), data, 0.0)
     out = torch.zeros((n,) + tuple(data.shape[1:]), device="cuda")
     ids_long = ids.long()
-    library_ms = cuda_ms(torch, lambda: out.index_add_(0, ids_long, masked))
+    timed.update(library_split(torch, lambda: out.index_add_(0, ids_long, masked)))
     n_valid = int(mask.sum())
     # bytes the function must move: each valid data row read once (masked
     # rows need not be read), ids and mask read once, the output written once
     nbytes = n_valid * w * 4 + e * ids.element_size() + e + n * w * 4
     bound_ms, bound_by = bound(nbytes, n_valid * w)
-    return {"shape": [e] + list(data.shape[1:]), "n_segments": n,
-            "valid_rows": n_valid, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes}
+    return {"shape": [e] + list(data.shape[1:]), "width": w, "n_segments": n,
+            "valid_rows": n_valid, **timed, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+
+
+SEGMENT_WIDTHS = (1, 2, 3, 4, 8, 16, 31, 32, 33, 100, 800, 3200)
 
 
 def phase_kernels(torch):
+    """B1 at MACE's two edge-chunk shapes, across the width sweep (the
+    narrow mapping up to 16 columns, a warp per 32-column chunk past that)
+    on one chunk's ids and mask, then the edge cases."""
     gen = torch.Generator(device="cuda").manual_seed(1234)
     errs, timed = [], []
     for q in (16, 40):  # the two interactions' Q; C = 128
@@ -289,6 +275,15 @@ def phase_kernels(torch):
         errs.append(check_segment_sum(torch, *case))
         timed.append(time_segment_sum(torch, *case))
         log(f"[kernels] segment_sum {timed[-1]['shape']}: {json.dumps(timed[-1])}")
+        del case
+    sweep = []
+    _, ids, mask, n = slice_case(torch, gen, 32768, (1,))
+    for w in SEGMENT_WIDTHS:
+        data = torch.randn((32768, w), generator=gen, device="cuda")
+        errs.append(check_segment_sum(torch, data, ids, mask, n))
+        errs.append(check_segment_sum(torch, data, ids.long(), mask, n))
+        sweep.append(time_segment_sum(torch, data, ids, mask, n))
+        log(f"[kernels] segment_sum width {w}: {json.dumps(sweep[-1])}")
     # edge cases: E not a multiple of any block, empty rows, W = 1,
     # all-masked, and the padding-only chunk (every row masked, one dst row)
     data, ids, mask, n = slice_case(torch, gen, 1003, (5,), n_rows=300, pad=17,
@@ -303,7 +298,7 @@ def phase_kernels(torch):
     pad_time = time_segment_sum(torch, pad_data, pad_ids, pad_mask, 2560)
     log(f"[kernels] segment_sum padding-only chunk: {json.dumps(pad_time)}")
     log(f"[kernels] all cases agree with the plain version; max |err| {max(errs)}")
-    return max(errs), timed, pad_time
+    return max(errs), timed, sweep
 
 
 def tensornet_graph(torch):
@@ -749,22 +744,23 @@ def check_projection(torch, x, w, b):
 
 
 def time_projection(torch, x, w, b):
-    """Kernel, plain and library (one ``addmm``) times of one row
-    projection, and its bound: x, W, the bias read once and the table
-    written once; 2 R K M + R M operations."""
+    """Call ms, kernel-alone ms, host µs, plain ms and library (one
+    ``addmm``, timed the same ways) of one row projection, and its bound:
+    x, W, the bias read once and the table written once; 2 R K M + R M
+    operations."""
     from distmlip_tpu_torch import kernels as K
 
     rows, k = x.shape
     m = w.shape[1]
-    ms = cuda_ms(torch, lambda: K.chgnet_row_projection_cuda(x, w, b))
+    timed = split(torch, lambda: K.chgnet_row_projection_cuda(x, w, b), "row_projection")
     plain_ms = cuda_ms(torch, lambda: K.chgnet_row_projection_reference(x, w, b))
     bias = torch.zeros(m, device="cuda") if b is None else b
-    library_ms = cuda_ms(torch, lambda: torch.addmm(bias, x, w))
+    timed.update(library_split(torch, lambda: torch.addmm(bias, x, w)))
     nbytes = (rows * k + k * m + m + rows * m) * 4
     bound_ms, bound_by = bound(nbytes, 2 * rows * k * m + rows * m)
-    return {"shape": [rows, k, m], "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "torch.addmm", "bound_ms": bound_ms, "bound_by": bound_by,
-            "bytes": nbytes}
+    return {"shape": [rows, k, m], **timed, "plain_ms": plain_ms, "library": "torch.addmm",
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "plan": K.chgnet_projection_plan(rows, k, m)}
 
 
 def chgnet_sub_case(torch, gen, which, e, rows, c, h, n_node=None):
@@ -1181,8 +1177,8 @@ def phase_main_zbl(torch):
     default would read index i as Z = i + 1) on the 2048-atom crystal, as
     ``[main]``: one calculate plus STEPS moves, launches derived, against
     ``kernels=False`` on the card at the repo's bar. The pair term's edge
-    sum is one segment sum of width 1 per calculate (the kernel's
-    one-float-per-row path). Si's nearest neighbours there (2.76 Å) lie
+    sum is one segment sum of width 1 per calculate (the kernel's narrow
+    mapping: a warp per dst row). Si's nearest neighbours there (2.76 Å) lie
     beyond twice silicon's covalent radius (2.22 Å), where the pair term is
     exactly 0; so the width-1 call alone at that graph's own dst ids and
     mask (kernel against plain, its time beside the plain version's,
@@ -2796,12 +2792,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this run needs "
               "an NVIDIA card", file=sys.stderr)
         return 2
-    try:
-        from distmlip_tpu_torch.device import resolve_device
-        from distmlip_tpu_torch.kernels import build
-    except ImportError as e:
-        print(f"chip_smoke: run from the root of a checkout ({e})", file=sys.stderr)
-        return 2
+    from distmlip_tpu_torch.device import resolve_device
+    from distmlip_tpu_torch.kernels import build
 
     t_start = time.perf_counter()
     resolve_device("cuda")
@@ -2829,7 +2821,7 @@ def main() -> int:
                                            MACEConfig, TensorNet, TensorNetConfig)
 
     phase_host_graph(torch)
-    max_err, timed, _ = phase_kernels(torch)
+    max_err, timed, sweep = phase_kernels(torch)
     edge_errs, edge_timed = phase_edge_aggregate_kernels(torch)
     chg_errs, chg_timed, proj_err, proj_timed = phase_chgnet_kernels(torch)
     so2_err, so2_timed, seg_escn = phase_so2_kernels(torch)
@@ -2903,11 +2895,14 @@ def main() -> int:
     kernels = [{
         "name": "segment_sum", "route": "cuda", "source": SOURCES["segment_sum"],
         "replaces": REPLACES["segment_sum"], "launches": launches["segment_sum"],
-        "max_abs_err": max_err, "ms": headline["ms"], "kernel_ms": headline["ms"],
-        "plain_ms": headline["plain_ms"],
+        "max_abs_err": max_err, "ms": headline["ms"], "kernel_ms": headline["kernel_ms"],
+        "host_us": headline["host_us"], "plain_ms": headline["plain_ms"],
         "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
-        "library_ms": headline["library_ms"], "shape": headline["shape"],
-        "per_shape": timed + [seg_escn],
+        "library_ms": headline["library_ms"],
+        "library_kernel_ms": headline["library_kernel_ms"], "shape": headline["shape"],
+        # MACE's two chunk shapes, eSCN's row width and the width-1 ZBL sum on
+        # the crystal graph, then the width sweep on one chunk's ids and mask
+        "per_shape": timed + [seg_escn, zbl_width1], "width_sweep": sweep,
         "escn_launches": escn_launches["segment_sum"],
         # MACE with zbl=True: its launches, and the width-1 pair-term call
         "zbl_launches": zbl_launches["segment_sum"], "zbl_width1": zbl_width1,
@@ -2949,9 +2944,10 @@ def main() -> int:
     kernels.append({
         "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
         "launches": chg_launches[name], "max_abs_err": proj_err, "ms": t["ms"],
+        "kernel_ms": t["kernel_ms"], "host_us": t["host_us"],
         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-        "library_ms": t["library_ms"], "library": t["library"], "shape": t["shape"],
-        "per_shape": proj_timed,
+        "library_ms": t["library_ms"], "library_kernel_ms": t["library_kernel_ms"],
+        "library": t["library"], "shape": t["shape"], "per_shape": proj_timed,
     })
     kernels.append({
         "name": "so2_conv", "route": "cuda", "source": SOURCES["so2_conv"],

@@ -38,13 +38,15 @@ Every TPU kernel of the JAX package has its CUDA counterpart here.
 from .dispatch import (Gather, fused_edge_aggregate, fused_segment_sum,  # noqa: F401
                        fused_so2_conv, recompute_chunks, so2_packed_weights)
 from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
-                             TENSORNET_EMBED, TENSORNET_INTERACTION, EdgeMessage,
+                             PROJECTION_MAX_K, PROJECTION_MAX_M, TENSORNET_EMBED,
+                             TENSORNET_INTERACTION, EdgeMessage,
                              chgnet_aggregate_error_bound,
                              chgnet_atom_conv_aggregate_cuda,
                              chgnet_atom_conv_aggregate_reference,
                              chgnet_line_aggregate_cuda,
                              chgnet_line_aggregate_reference, chgnet_pack_weights,
-                             chgnet_projection_error_bound, chgnet_row_projection_cuda,
+                             chgnet_projection_error_bound, chgnet_projection_plan,
+                             chgnet_row_projection_cuda,
                              chgnet_row_projection_reference, chgnet_row_tables,
                              src_order, tensornet_embed_aggregate_cuda,
                              tensornet_embed_aggregate_reference, tensornet_full,

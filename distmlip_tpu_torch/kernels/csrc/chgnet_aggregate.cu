@@ -576,121 +576,293 @@ int launch(const Args& a, int64_t n_edges, void* stream) {
 // ---------------------------------------------------------------------------
 // The row projection: y (rows, m) = x (rows, k) W (k, m) [+ bias (m)], the
 // layer-1 products of the gathered segments taken once per node or bond
-// row. A register-tiled FMA GEMM as in so2_conv.cu: 128 x 128 output tiles
-// (blockIdx.x walks the row tiles), 8-deep slices of x (transposed) and W
-// double-buffered through shared memory, 8 x 8 outputs per thread in two
-// 4 x 4 quadrants 64 apart. k is C (<= 64), m a multiple of 4.
+// row; k is C (at most 64), m a multiple of 4 up to 256 (two segments'
+// [core | gate] blocks side by side at H = 64).
+//
+// What bounds it: float32 FMAs (2 rows k m operations; 0.116 ms for the
+// bond table (236,032, 64) @ (64, 256) against 0.090 ms of its bytes) or,
+// at the 19,712-row atom tables, a few microseconds of either. No TF32: the
+// port's float32 bar. The design is a persistent GEMM with W resident:
+//   - about two blocks per SM walk the row tiles (tile t, t + grid, ...);
+//     each loads the whole W panel (k4 x MT floats, 64 KB at 64 x 256,
+//     zero-padded to MT columns and k4 = k rounded up to 4 rows) into shared
+//     memory once, with cp.async, and the bias beside it;
+//   - the x tiles (TR rows x k4, the whole depth in one tile: no per-slice
+//     barrier) are double-buffered: tile t + grid lands by cp.async while
+//     tile t computes;
+//   - a warp owns 4 RT rows x 64 columns of the tile, a lane RT rows 4
+//     apart x 8 columns (two float4 quads 32 apart): a warp's shared loads
+//     read x 2 deep as float2 from 4 rows (4 banks apart, no conflict) and W
+//     as float4 from 8 quads, RT + 4 loads for 16 RT FMAs every 2 k;
+//   - the tile height TR = 4 RT x (8 warps / (MT / 64)) is chosen at launch
+//     from RT in {5, 8} so that the tiles fill the SMs evenly (proj_plan):
+//     19,712 rows make 493 tiles of 40 at MT 256 (3.7 a SM, against 308 of
+//     64: 2.3, where a third of the SMs would run a third tile alone), while
+//     the 236,032-row bond table takes RT 8, whose rows cost less (fewer
+//     shared loads a FMA); at 128 registers a thread its k loop runs
+//     unrolled 32 deep (64 and 16 measured slower), RT 5's 4 deep;
+//   - the epilogue adds the bias and stores float4s.
+// x rows need k % 4 == 0 and 16-byte alignment for the 16-byte copies; else
+// each float is copied alone (4 bytes). Rows past the end read as zeros and
+// are not stored. Every y element of [0, rows) x [0, m) is written.
 
-constexpr int kPM = 128;
-constexpr int kPN = 128;
-constexpr int kPK = 8;
 constexpr int kPThreads = 256;
+constexpr int kPMaxK = 64;
+constexpr int kPMaxM = 256;
+// the tile heights the plan chooses from, as rows a thread
+#define PROJ_ROWS_PER_THREAD 5, 8
+constexpr int kPRowsPerThread[] = {PROJ_ROWS_PER_THREAD};
 
-template <bool VEC4>
-__device__ __forceinline__ void load_x(const float* __restrict__ row, bool live, int k_dim,
-                                       int k, float (&v)[4]) {
+// rows a tile: 4 RT rows a warp, 8 warps over MT / 64 column strips
+__host__ __device__ constexpr int proj_tile_rows(int mt, int rt) {
+  return 4 * rt * (kPThreads / 32) / (mt / 64);
+}
+
+// shared floats of one block: W (k4, MT), the bias (MT), two x tiles (TR, k4 + 4)
+__host__ __device__ constexpr int proj_smem_floats(int mt, int tr, int k4) {
+  return k4 * mt + mt + 2 * tr * (k4 + 4);
+}
+
+template <int MT, int RT, bool VEC4>
+__device__ __forceinline__ void proj_load_tile(float* __restrict__ xs, const float* __restrict__ x,
+                                               int64_t rows, int k_dim, int k4, int64_t r0) {
+  constexpr int TR = proj_tile_rows(MT, RT);
+  const int ks = k4 + 4;
   if constexpr (VEC4) {
-    if (live && k < k_dim) {
-      const float4 t = __ldg(reinterpret_cast<const float4*>(row + k));
-      v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-    } else {
-      v[0] = v[1] = v[2] = v[3] = 0.0f;
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = live && k + i < k_dim ? __ldg(row + k + i) : 0.0f;
-  }
-}
-
-__device__ __forceinline__ void load_w(const float* __restrict__ w, int k_dim, int m, int k,
-                                       int j, float (&v)[4]) {
-  if (k < k_dim && j < m) {
-    const float4 t = __ldg(reinterpret_cast<const float4*>(w + static_cast<int64_t>(k) * m + j));
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    v[0] = v[1] = v[2] = v[3] = 0.0f;
-  }
-}
-
-template <bool VEC4>
-__global__ void __launch_bounds__(kPThreads)
-chgnet_row_projection_kernel(const float* __restrict__ x, int64_t rows, int k_dim,
-                             const float* __restrict__ w, int m, const float* __restrict__ bias,
-                             float* __restrict__ y) {
-  __shared__ __align__(16) float As[2][kPK][kPM];
-  __shared__ __align__(16) float Bs[2][kPK][kPN];
-  const int tid = threadIdx.x;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kPM;
-  const int n0 = static_cast<int>(blockIdx.y) * kPN;
-  const int a_row = tid >> 1;
-  const int a_k = (tid & 1) * 4;
-  const int b_k = tid >> 5;
-  const int b_j = (tid & 31) * 4;
-  const bool a_live = m0 + a_row < rows;
-  const float* __restrict__ a_base = x + (a_live ? m0 + a_row : 0) * k_dim;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  }
-  const int nk = (k_dim + kPK - 1) / kPK;
-  float ra[4], rb[4];
-  load_x<VEC4>(a_base, a_live, k_dim, a_k, ra);
-  load_w(w, k_dim, m, b_k, n0 + b_j, rb);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) As[0][a_k + i][a_row] = ra[i];
-  *reinterpret_cast<float4*>(&Bs[0][b_k][b_j]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
-  __syncthreads();
-
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    const bool more = kt + 1 < nk;
-    if (more) {
-      const int k0 = (kt + 1) * kPK;
-      load_x<VEC4>(a_base, a_live, k_dim, k0 + a_k, ra);
-      load_w(w, k_dim, m, k0 + b_k, n0 + b_j, rb);
-    }
-#pragma unroll
-    for (int k = 0; k < kPK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4 + 64]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4 + 64]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    const int q4 = k4 / 4;
+    for (int i = threadIdx.x; i < TR * q4; i += kPThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      float* dst = xs + r * ks + c;
+      if (r0 + r < rows) {
+        cp_async16(dst, x + (r0 + r) * k_dim + c);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
     }
-    if (more) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) As[cur ^ 1][a_k + i][a_row] = ra[i];
-      *reinterpret_cast<float4*>(&Bs[cur ^ 1][b_k][b_j]) = make_float4(rb[0], rb[1], rb[2], rb[3]);
+  } else {
+    for (int i = threadIdx.x; i < TR * k4; i += kPThreads) {
+      const int r = i / k4, c = i - r * k4;
+      float* dst = xs + r * ks + c;
+      if (r0 + r < rows && c < k_dim) {
+        cp_async4(dst, x + (r0 + r) * k_dim + c);
+      } else {
+        *dst = 0.0f;
+      }
     }
-    __syncthreads();
   }
+}
+
+// Two k steps of a lane's RT x 8 outputs: x of its RT rows (4 apart, row
+// stride ks) at k and k + 1, W's rows k and k + 1 at its two column quads.
+template <int MT, int RT>
+__device__ __forceinline__ void proj_k_step(float (&acc)[RT][8], const float* __restrict__ xt,
+                                            const float* __restrict__ wt, int ks, int k) {
+  float2 a[RT];
+#pragma unroll
+  for (int i = 0; i < RT; ++i) a[i] = *reinterpret_cast<const float2*>(xt + 4 * i * ks + k);
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk) {
+    const float4 b0 = *reinterpret_cast<const float4*>(wt + (k + kk) * MT);
+    const float4 b1 = *reinterpret_cast<const float4*>(wt + (k + kk) * MT + 32);
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+      const float av = kk == 0 ? a[i].x : a[i].y;
+      acc[i][0] = fmaf(av, b0.x, acc[i][0]);
+      acc[i][1] = fmaf(av, b0.y, acc[i][1]);
+      acc[i][2] = fmaf(av, b0.z, acc[i][2]);
+      acc[i][3] = fmaf(av, b0.w, acc[i][3]);
+      acc[i][4] = fmaf(av, b1.x, acc[i][4]);
+      acc[i][5] = fmaf(av, b1.y, acc[i][5]);
+      acc[i][6] = fmaf(av, b1.z, acc[i][6]);
+      acc[i][7] = fmaf(av, b1.w, acc[i][7]);
+    }
+  }
+}
+
+template <int MT, int RT, bool VEC4, int KT>
+__global__ void __launch_bounds__(kPThreads, 2)
+chgnet_row_projection_kernel(const float* __restrict__ x, int64_t rows, int k_dim,
+                             const float* __restrict__ w, int m, const float* __restrict__ bias,
+                             float* __restrict__ y, int64_t n_tiles) {
+  constexpr int WC = MT / 64;            // warps across the columns, 64 columns each
+  constexpr int TR = proj_tile_rows(MT, RT);
+  extern __shared__ float4 proj_smem4[];
+  float* __restrict__ ws = reinterpret_cast<float*>(proj_smem4);
+  const int k4 = KT > 0 ? KT : (k_dim + 3) & ~3;
+  const int ks = k4 + 4;  // x tile row stride: 16-byte rows, 4 banks apart
+  float* __restrict__ bs = ws + k4 * MT;
+  float* __restrict__ xs[2] = {bs + MT, bs + MT + TR * ks};
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  // a lane's rows: row0 + 4 i (i < RT); its columns: col0 + {0..3} and col0 + 32 + {0..3}.
+  // A warp's x reads are 4 rows (one wavefront, 4 banks apart), its W reads 8 float4s.
+  const int row0 = (warp / WC) * 4 * RT + (lane >> 3);
+  const int col0 = (warp % WC) * 64 + (lane & 7) * 4;
+
+  // W (zero past k_dim rows and m columns) and the bias, with the first tile
+  for (int i = tid; i < k4 * (MT / 4); i += kPThreads) {
+    const int k = i / (MT / 4), j = (i - k * (MT / 4)) * 4;
+    float* dst = ws + k * MT + j;
+    if (k < k_dim && j < m) {
+      cp_async16(dst, w + static_cast<int64_t>(k) * m + j);
+    } else {
+      *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+  for (int j = tid; j < MT; j += kPThreads) bs[j] = bias != nullptr && j < m ? __ldg(bias + j) : 0.0f;
+  int64_t tile = blockIdx.x;
+  proj_load_tile<MT, RT, VEC4>(xs[0], x, rows, k_dim, k4, tile * TR);
+  cp_async_commit();
+
+  for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
+    const int64_t next = tile + gridDim.x;
+    if (next < n_tiles) proj_load_tile<MT, RT, VEC4>(xs[buf ^ 1], x, rows, k_dim, k4, next * TR);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and W) landed; the next may still be in flight
+    __syncthreads();
+
+    const float* __restrict__ xt = xs[buf] + row0 * ks;
+    const float* __restrict__ wt = ws + col0;
+    float acc[RT][8];
+#pragma unroll
+    for (int i = 0; i < RT; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+    }
+    if constexpr (KT > 0) {  // K = 64 at 8 rows a thread: 32 deep unrolled
+#pragma unroll 16
+      for (int k = 0; k < KT; k += 2) proj_k_step<MT, RT>(acc, xt, wt, ks, k);
+    } else {
+#pragma unroll 2
+      for (int k = 0; k < k4; k += 2) proj_k_step<MT, RT>(acc, xt, wt, ks, k);
+    }
+    __syncthreads();  // every read of xs[buf] is done before the next prefetch lands there
 
 #pragma unroll
-  for (int jh = 0; jh < 2; ++jh) {
-    const int n = n0 + tx * 4 + jh * 64;
-    if (n >= m) continue;
-    const float4 b = bias != nullptr ? __ldg(reinterpret_cast<const float4*>(bias + n))
-                                     : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    for (int h = 0; h < 2; ++h) {
+      const int n = col0 + 32 * h;
+      if (n >= m) continue;
+      const float4 b = *reinterpret_cast<const float4*>(bs + n);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int64_t r = m0 + ty * 4 + (i & 3) + (i >> 2) * 64;
-      if (r >= rows) continue;
-      *reinterpret_cast<float4*>(y + r * m + n) =
-          make_float4(acc[i][jh * 4] + b.x, acc[i][jh * 4 + 1] + b.y, acc[i][jh * 4 + 2] + b.z,
-                      acc[i][jh * 4 + 3] + b.w);
+      for (int i = 0; i < RT; ++i) {
+        const int64_t r = tile * TR + row0 + 4 * i;
+        if (r >= rows) continue;
+        *reinterpret_cast<float4*>(y + r * m + n) =
+            make_float4(acc[i][4 * h] + b.x, acc[i][4 * h + 1] + b.y, acc[i][4 * h + 2] + b.z,
+                        acc[i][4 * h + 3] + b.w);
+      }
     }
   }
+  cp_async_wait<0>();
+}
+
+// The launch's plan: MT (128 or 256), RT, rows a tile, the SMs, tiles, blocks.
+struct ProjPlan {
+  int mt, rt, tile_rows, sms;
+  int64_t tiles, blocks;
+};
+
+// Blocks a SM holds on the current device. The shared-memory limit is a
+// per-device attribute, so it is set on every call (as the conv launches do).
+template <int MT, int RT, bool VEC4, int KT>
+cudaError_t proj_occupancy(int k4, int* per_sm) {
+  constexpr int TR = proj_tile_rows(MT, RT);
+  auto kernel = chgnet_row_projection_kernel<MT, RT, VEC4, KT>;
+  const int bytes = proj_smem_floats(MT, TR, k4) * static_cast<int>(sizeof(float));
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kPThreads, bytes);
+}
+
+// A row's relative cost at each tile height (kernel time per row at large
+// row counts on an H100, PERF.md: tools/kernel_ab.py --variants).
+constexpr double proj_row_cost(int rt) { return rt == 5 ? 1.0 : 0.96; }
+
+// The tile height whose busiest SM gets the least work: ceil(tiles / SMs)
+// tiles of TR rows, each row at proj_row_cost; SMs of the current device.
+cudaError_t proj_plan(int64_t rows, int m, ProjPlan* plan) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  plan->sms = sms;
+  plan->mt = m <= 128 ? 128 : 256;
+  int rt = 0;
+  double best = 0.0;
+  for (const int r : kPRowsPerThread) {
+    const int tr = proj_tile_rows(plan->mt, r);
+    const double c =
+        static_cast<double>(((rows + tr - 1) / tr + sms - 1) / sms) * tr * proj_row_cost(r);
+    if (rt == 0 || c < best) rt = r, best = c;
+  }
+  plan->rt = rt;
+  plan->tile_rows = proj_tile_rows(plan->mt, rt);
+  plan->tiles = (rows + plan->tile_rows - 1) / plan->tile_rows;
+  return cudaSuccess;
+}
+
+struct ProjArgs {
+  const float* x;
+  int64_t rows;
+  int k_dim;
+  const float* w;
+  int m;
+  const float* bias;
+  float* y;  // null: plan only
+  bool vec4;
+};
+
+template <int MT, int RT, bool VEC4, int KT>
+cudaError_t proj_run(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
+  constexpr int TR = proj_tile_rows(MT, RT);
+  const int k4 = (a.k_dim + 3) & ~3;
+  int per_sm = 0;
+  const cudaError_t err = proj_occupancy<MT, RT, VEC4, KT>(k4, &per_sm);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int64_t slots = static_cast<int64_t>(per_sm) * p->sms;
+  p->blocks = p->tiles < slots ? p->tiles : slots;
+  if (a.y == nullptr) return cudaSuccess;
+  chgnet_row_projection_kernel<MT, RT, VEC4, KT>
+      <<<static_cast<unsigned>(p->blocks), kPThreads,
+         proj_smem_floats(MT, TR, k4) * sizeof(float), s>>>(a.x, a.rows, a.k_dim, a.w, a.m,
+                                                           a.bias, a.y, p->tiles);
+  return cudaGetLastError();
+}
+
+// K = 64 at RT 8 takes the compile-time depth; the rest a runtime loop (for
+// RT 5 at K = 64 too: it measured faster at the 19,712 x 256 atom table).
+template <int MT, int RT>
+cudaError_t proj_dispatch_k(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
+  if constexpr (RT == 8) {
+    if ((a.k_dim + 3) / 4 == kPMaxK / 4) {
+      return a.vec4 ? proj_run<MT, RT, true, kPMaxK>(a, p, s)
+                    : proj_run<MT, RT, false, kPMaxK>(a, p, s);
+    }
+  }
+  return a.vec4 ? proj_run<MT, RT, true, 0>(a, p, s) : proj_run<MT, RT, false, 0>(a, p, s);
+}
+
+template <int MT, int RT, int... MORE>
+cudaError_t proj_dispatch_rt(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
+  if (p->rt == RT) return proj_dispatch_k<MT, RT>(a, p, s);
+  if constexpr (sizeof...(MORE) > 0) {
+    return proj_dispatch_rt<MT, MORE...>(a, p, s);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t proj_dispatch(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
+  return p->mt == 128 ? proj_dispatch_rt<128, PROJ_ROWS_PER_THREAD>(a, p, s)
+                      : proj_dispatch_rt<256, PROJ_ROWS_PER_THREAD>(a, p, s);
+}
+
+cudaError_t proj_check(int64_t rows, int k_dim, int m) {
+  if (rows < 0 || k_dim < 1 || k_dim > kPMaxK || m < 4 || m > kPMaxM || m % 4 != 0)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -703,26 +875,45 @@ extern "C" int distmlip_chgnet_aggregate_smem_bytes(int channels, int hidden) {
   return nw == 0 ? -1 : Layout(channels, hidden, nw).bytes();
 }
 
-// Row projection. x (rows, k) float32 contiguous; w (k, m) with m % 4 == 0;
-// bias (m) or null; y (rows, m). 16-byte aligned w, bias and y, and x when
-// k % 4 == 0. Launches on `stream`, does not synchronise, and returns the
-// launch's cudaError_t (0 = success).
+// Row projection. x (rows, k) float32 contiguous, 1 <= k <= 64; w (k, m)
+// with m % 4 == 0 and m <= 256; bias (m) or null; y (rows, m). 16-byte
+// aligned w, bias and y; x too when k % 4 == 0 (else the 4-byte copies).
+// The launch chooses the tile height (proj_plan). Launches on `stream`, does not synchronise, and returns the launch's
+// cudaError_t (0 = success); cudaErrorInvalidValue for a shape it does not
+// take.
 extern "C" int distmlip_chgnet_row_projection_f32(const float* x, int64_t rows, int k_dim,
                                                   const float* w, int m, const float* bias,
                                                   float* y, void* stream) {
-  if (rows <= 0 || m <= 0) return 0;
-  if (k_dim < 1 || m % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t row_tiles = (rows + kPM - 1) / kPM;
-  if (row_tiles > 2147483647LL || (m + kPN - 1) / kPN > 65535)
-    return static_cast<int>(cudaErrorInvalidConfiguration);
-  const dim3 grid(static_cast<unsigned>(row_tiles), static_cast<unsigned>((m + kPN - 1) / kPN));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (k_dim % 4 == 0) {
-    chgnet_row_projection_kernel<true><<<grid, kPThreads, 0, st>>>(x, rows, k_dim, w, m, bias, y);
-  } else {
-    chgnet_row_projection_kernel<false><<<grid, kPThreads, 0, st>>>(x, rows, k_dim, w, m, bias, y);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = proj_check(rows, k_dim, m);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows == 0) return 0;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (misaligned(w) || misaligned(bias) || misaligned(y))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  ProjPlan plan{};
+  err = proj_plan(rows, m, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ProjArgs a{x, rows, k_dim, w, m, bias, y, k_dim % 4 == 0 && !misaligned(x)};
+  return static_cast<int>(proj_dispatch(a, &plan, static_cast<cudaStream_t>(stream)));
+}
+
+// The row projection's launch plan at (rows, k, m) on the current device:
+// out[0] rows a tile, out[1] tiles, out[2] blocks of the persistent grid,
+// out[3] rows per thread. Returns a cudaError_t (0 = success).
+extern "C" int distmlip_chgnet_row_projection_plan(int64_t rows, int k_dim, int m,
+                                                   int64_t* out) {
+  cudaError_t err = proj_check(rows, k_dim, m);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ProjPlan plan{};
+  err = proj_plan(rows, m, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ProjArgs a{nullptr, rows, k_dim, nullptr, m, nullptr, nullptr, k_dim % 4 == 0};
+  err = proj_dispatch(a, &plan, nullptr);
+  out[0] = plan.tile_rows;
+  out[1] = plan.tiles;
+  out[2] = plan.blocks;
+  out[3] = plan.rt;
+  return static_cast<int>(err);
 }
 
 // Atom conv. p_src: the src segment's partial rows (row stride src_stride

@@ -55,7 +55,7 @@ import torch.nn.functional as F
 
 from ..ops.nn import gated_mlp_flat
 from ..ops.segment import masked_segment_sum
-from .segment import csr_row_offsets, launch_counts
+from .segment import csr_row_offsets, current_stream_ptr, launch_counts
 
 EMBED = "tensornet_embed_aggregate"
 INTERACTION = "tensornet_interaction_aggregate"
@@ -397,6 +397,7 @@ _TAIL = [_I64, _I64, _I, _I, _P]  # n_rows, n_edges, C, H, stream
 _CHGNET_ARGTYPES = {
     "distmlip_chgnet_aggregate_smem_bytes": [_I, _I],
     "distmlip_chgnet_row_projection_f32": [_P, _I64, _I, _P, _I, _P, _P, _P],
+    "distmlip_chgnet_row_projection_plan": [_I64, _I, _I, _P],
     "distmlip_chgnet_atom_conv_f32": _TABLE * 2 + [_P] * 9 + _TAIL,
     "distmlip_chgnet_line_conv_f32": _TABLE * 2 + [_P] + _TABLE + [_P] * 7 + _TAIL,
 }
@@ -618,10 +619,23 @@ def _chgnet_fn(symbol: str):
     return fn
 
 
+PROJECTION_MAX_K = 64    # the row projection's W panel (K x M floats) is
+PROJECTION_MAX_M = 256   # resident in shared memory: 64 KB at 64 x 256
+
+
+def _projection_shape_error(name, k, m):
+    return ValueError(f"{name}: takes 1 <= K <= {PROJECTION_MAX_K} and M a multiple of 4 "
+                      f"up to {PROJECTION_MAX_M} (W resident in shared memory), got K={k}, "
+                      f"M={m}")
+
+
 def chgnet_row_projection_cuda(x, w, bias=None):
-    """Launch the row projection kernel: ``x`` (R, K), ``w`` (K, M) with M
-    a multiple of 4, ``bias`` (M,) or None, float32 contiguous on one card.
-    Returns (R, M) float32 ``x @ w (+ bias)``."""
+    """Launch the row projection kernel: ``x`` (R, K), ``w`` (K, M) with
+    1 <= K <= 64 and M a multiple of 4 up to 256, ``bias`` (M,) or None,
+    float32 contiguous on one card, ``w`` and ``bias`` 16-byte aligned.
+    Returns (R, M) float32 ``x @ w (+ bias)``; the launch chooses its row
+    tile (``chgnet_projection_plan``). Raises ``ValueError`` for a shape
+    past the kernel's shared memory."""
     name = PROJECTION
     _require_cuda(name, x, 2)
     rows, k = x.shape
@@ -630,22 +644,43 @@ def chgnet_row_projection_cuda(x, w, bias=None):
     _require_cuda(name, w, 2)
     m = w.shape[1]
     _check(name, w, (k, m), dev)
-    if m % 4 or k == 0:
-        raise ValueError(f"{name}: takes K >= 1 and M a multiple of 4, got K={k}, M={m}")
     if bias is not None:
         _check(name, bias, (m,), dev)
+    if not (1 <= k <= PROJECTION_MAX_K and 4 <= m <= PROJECTION_MAX_M and m % 4 == 0):
+        raise _projection_shape_error(name, k, m)
+    b_ptr = 0 if bias is None else bias.data_ptr()
+    if w.data_ptr() % 16 or b_ptr % 16:
+        raise ValueError(f"{name}: w and bias must be 16-byte aligned")
     y = torch.empty((rows, m), dtype=torch.float32, device=dev)
     if rows == 0:
         return y
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _chgnet_fn("distmlip_chgnet_row_projection_f32")(
-            x.data_ptr(), rows, k, w.data_ptr(), m,
-            None if bias is None else bias.data_ptr(), y.data_ptr(), stream)
+    args = (x.data_ptr(), rows, k, w.data_ptr(), m, b_ptr or None, y.data_ptr(),
+            current_stream_ptr(dev))
+    fn = _chgnet_fn("distmlip_chgnet_row_projection_f32")
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
     launch_counts[name] += 1
     return y
+
+
+def chgnet_projection_plan(rows: int, k: int, m: int, device=None):
+    """The row projection's launch plan at (rows, K, M) on ``device`` (a
+    card): ``{"tile_rows", "tiles", "blocks", "rows_per_thread"}``, the
+    persistent grid walking ``tiles`` row tiles with ``blocks`` blocks.
+    The tile height (5 or 8 rows a thread) follows from the row count."""
+    if not (1 <= k <= PROJECTION_MAX_K and 4 <= m <= PROJECTION_MAX_M and m % 4 == 0):
+        raise _projection_shape_error(PROJECTION, k, m)
+    out = (ctypes.c_int64 * 4)()
+    with torch.cuda.device(device):
+        err = _chgnet_fn("distmlip_chgnet_row_projection_plan")(rows, k, m, out)
+    if err != 0:
+        raise RuntimeError(f"{PROJECTION} plan failed: cudaError_t {err}")
+    return dict(zip(("tile_rows", "tiles", "blocks", "rows_per_thread"), out))
 
 
 def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segment_ids,

@@ -2,10 +2,11 @@
 plain PyTorch version.
 
 Replaces ``distmlip_tpu/kernels/segment.py::pallas_segment_sum``. The
-kernel (``csrc/segment_sum.cu``) walks each dst row's contiguous edge range
-given as CSR offsets; this wrapper computes those offsets on the device
-(``csr_row_offsets``, shared with the edge-aggregate kernels), checks what
-the kernel takes, and launches it on PyTorch's current stream.
+kernel (``csrc/segment_sum.cu``) finds each dst row's contiguous edge range
+in the sorted ids itself, so this wrapper only checks what the kernel
+takes, allocates the output and launches one kernel on PyTorch's current
+stream. ``csr_row_offsets`` stays for the edge-aggregate kernels and the
+graph builder.
 
 ``segment_sum_cuda`` takes CUDA tensors only and raises on anything else;
 ``segment_sum_reference`` is the plain version (``masked_segment_sum``),
@@ -16,6 +17,7 @@ used on the CPU and by the on-card comparison. The dispatcher
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -51,19 +53,31 @@ def segment_sum_reference(data, segment_ids, num_segments: int, mask=None):
     return masked_segment_sum(data, segment_ids, num_segments, mask)
 
 
-def _lib():
-    from .build import load
+def current_stream_ptr(device) -> int:
+    """The raw ``cudaStream_t`` of PyTorch's current stream on ``device`` (a
+    card), without building a ``torch.cuda.Stream`` object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
-    fn = load("segment_sum").distmlip_segment_sum_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_void_p]
-    return fn
+
+_fn = None
+
+
+def _lib():
+    global _fn
+    if _fn is None:
+        from .build import load
+
+        fn = load("segment_sum").distmlip_segment_sum_f32
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                       ctypes.c_void_p]
+        _fn = fn
+    return _fn
 
 
 def segment_sum_cuda(data, segment_ids, num_segments: int, mask=None):
-    """Launch the CUDA segment-sum kernel.
+    """Launch the CUDA segment-sum kernel: one launch, no offsets tensor.
 
     ``data`` (E, ...) float32, contiguous; ``segment_ids`` (E,) int32/int64,
     nondecreasing (the dst-sorted layout contract — not checked, it would
@@ -78,35 +92,33 @@ def segment_sum_cuda(data, segment_ids, num_segments: int, mask=None):
         raise TypeError(f"segment_sum_cuda: data must be float32, got {data.dtype}")
     if data.ndim < 1 or not data.is_contiguous():
         raise ValueError("segment_sum_cuda: data must be a contiguous (E, ...) tensor")
+    dev = data.device
     e = data.shape[0]
     if (segment_ids.ndim != 1 or segment_ids.shape[0] != e
             or segment_ids.dtype not in (torch.int32, torch.int64)
-            or segment_ids.device != data.device):
+            or segment_ids.device != dev):
         raise ValueError("segment_sum_cuda: segment_ids must be (E,) int32/int64 "
                          "on data's device")
     if mask is not None and (mask.ndim != 1 or mask.shape[0] != e
-                             or mask.dtype != torch.bool
-                             or mask.device != data.device):
+                             or mask.dtype != torch.bool or mask.device != dev):
         raise ValueError("segment_sum_cuda: mask must be (E,) bool on data's device")
     num_segments = int(num_segments)
     if num_segments < 0:
         raise ValueError(f"num_segments={num_segments} must be >= 0")
-    out_shape = (num_segments,) + tuple(data.shape[1:])
-    width = data[0].numel() if e else 0
+    trailing = data.shape[1:]
+    width = math.prod(trailing)
     if e == 0 or num_segments == 0 or width == 0:
-        return torch.zeros(out_shape, dtype=data.dtype, device=data.device)
-    with torch.cuda.device(data.device):
-        m = None if mask is None else mask.contiguous()
-        # no mask clamp: the kernel skips fully masked tiles itself, and the
-        # clamp's extra small launches cost more host time than it saves
-        row_ptr = csr_row_offsets(segment_ids, num_segments)
-        out = torch.empty(out_shape, dtype=data.dtype, device=data.device)
-        vec = 4 if (width % 4 == 0 and data.data_ptr() % 16 == 0
-                    and out.data_ptr() % 16 == 0) else 1
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        err = _lib()(data.data_ptr(), row_ptr.data_ptr(),
-                     None if m is None else m.data_ptr(), out.data_ptr(),
-                     num_segments, width, vec, stream)
+        return torch.zeros((num_segments,) + tuple(trailing), dtype=data.dtype, device=dev)
+    ids = segment_ids.contiguous()
+    m = None if mask is None else mask.contiguous()
+    out = torch.empty((num_segments,) + tuple(trailing), dtype=data.dtype, device=dev)
+    args = (data.data_ptr(), ids.data_ptr(), ids.element_size(),
+            None if m is None else m.data_ptr(), out.data_ptr(), e, num_segments, width)
+    if dev.index == torch.cuda.current_device():
+        err = _lib()(*args, current_stream_ptr(dev))
+    else:
+        with torch.cuda.device(dev):
+            err = _lib()(*args, current_stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError_t {err}")
     launch_counts["segment_sum"] += 1

@@ -1287,3 +1287,209 @@ def test_mace_zbl_on_card_matches_plain(card):
         assert abs(gpu["energy"] - ref["energy"]) < 1e-5 * abs(ref["energy"])
         np.testing.assert_allclose(gpu["forces"], ref["forces"], rtol=0, atol=1e-4)
         np.testing.assert_allclose(gpu["stress"], ref["stress"], rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the segment sum fitted to its width, one launch a call, and the row
+# projection with W resident in shared memory
+# ---------------------------------------------------------------------------
+
+# row widths in floats: the narrow mapping (a warp per dst row, lanes split
+# into edge and column groups) up to 16 columns, floats or float4s; the
+# column mapping (a warp per row and 32-column chunk) past that
+SEGMENT_WIDTHS = (1, 2, 3, 4, 8, 16, 31, 32, 33, 100, 800, 3200)
+
+
+def _segment_sum_on_card(card, data, ids, n, mask):
+    """The kernel against its plain version within 2 k u sum|x| (k = the
+    largest row's valid-edge count, u = 2^-24), exactly one launch."""
+    from distmlip_tpu_torch.kernels import (launch_counts, segment_sum_cuda,
+                                            segment_sum_reference)
+
+    before = launch_counts["segment_sum"]
+    got = segment_sum_cuda(data, ids, n, mask)
+    torch.cuda.synchronize()
+    assert launch_counts["segment_sum"] == before + 1
+    want = segment_sum_reference(data, ids, n, mask)
+    ids_np, k = ids.cpu().numpy(), 1
+    keep = (ids_np >= 0) & (ids_np < n) & (True if mask is None else mask.cpu().numpy())
+    if keep.any():
+        k = max(int(np.bincount(ids_np[keep], minlength=n).max()), 1)
+    bound = 2 * k * 2.0 ** -24 * segment_sum_reference(data.abs(), ids, n, mask)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= bound + 1e-30).all())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("width", SEGMENT_WIDTHS)
+def test_segment_sum_widths_on_card(card, width, id_dtype):
+    """Every mapping of the kernel against its plain version: ~10 edges a
+    row with empty rows, masked interior edges and a padded tail."""
+    ids, mask, n = sorted_case(20 + width, 500, 60, 40, 30, hi=50)
+    data = torch.from_numpy(case_data(20 + width, len(ids), (width,))).to(card)
+    ti = torch.from_numpy(ids.astype(id_dtype)).to(card)
+    _segment_sum_on_card(card, data, ti, n, torch.from_numpy(mask).to(card))
+    _segment_sum_on_card(card, data, ti, n, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 3, 100, 3200])
+@pytest.mark.parametrize("case", ["ids_out_of_range", "empty_rows", "all_masked",
+                                  "nan_in_masked_rows", "long_padded_tail", "unaligned"])
+def test_segment_sum_edge_cases_on_card(card, case, width):
+    """Ids outside [0, N) are dropped; empty rows and an all-masked input
+    give zeros; NaN in masked rows never reaches a sum; a padded tail of
+    thousands of masked edges on the last real row; data and mask views
+    that start off a 16-byte boundary."""
+    ids, mask, n = sorted_case(40 + width, 400, 50, 20, 25)
+    if case == "ids_out_of_range":
+        ids = np.sort(np.concatenate([ids, np.full(7, -3), np.full(9, n + 2)])).astype(np.int32)
+        mask = np.ones(len(ids), bool)
+    elif case == "empty_rows":
+        ids, mask, n = sorted_case(40 + width, 300, 200, 10, 5, hi=30)
+    elif case == "all_masked":
+        mask[:] = False
+    elif case == "long_padded_tail":
+        ids, mask, n = sorted_case(40 + width, 300, 40, 9000, 3)
+    data = case_data(40 + width, len(ids), (width,))
+    if case == "nan_in_masked_rows":
+        data[~mask] = np.nan
+    t = torch.from_numpy(data).to(card)
+    tm = torch.from_numpy(mask).to(card)
+    if case == "unaligned":
+        buf = torch.zeros(t.numel() + 1, device=card)
+        buf[1:] = t.reshape(-1)
+        t = buf[1:].view(t.shape)
+        mbuf = torch.zeros(len(mask) + 3, dtype=torch.bool, device=card)
+        mbuf[3:] = tm
+        tm = mbuf[3:]
+    got = _segment_sum_on_card(card, t, torch.from_numpy(ids).to(card), n, tm)
+    if case in ("all_masked", "empty_rows"):
+        present = np.zeros(n, bool)
+        present[ids[mask]] = True
+        assert not bool(got[torch.from_numpy(~present).to(card)].any())
+
+
+@pytest.mark.cuda
+def test_segment_sum_is_deterministic_on_card(card):
+    """Two calls give the same bits: fixed-order sums, no atomics."""
+    from distmlip_tpu_torch.kernels import segment_sum_cuda
+
+    ids, mask, n = sorted_case(60, 3000, 40, 100, 50)
+    ti, tm = torch.from_numpy(ids).to(card), torch.from_numpy(mask).to(card)
+    for width in (1, 16, 800):
+        data = torch.from_numpy(case_data(60, len(ids), (width,))).to(card)
+        assert torch.equal(segment_sum_cuda(data, ti, n, tm), segment_sum_cuda(data, ti, n, tm))
+
+
+def _projection_on_card(card, rows, k, m, bias=True, seed=0):
+    """The row projection kernel against ``x @ w + b`` within
+    ``chgnet_projection_error_bound``, exactly one launch."""
+    from distmlip_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(800 + seed)
+    x = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32)).to(card)
+    w = torch.from_numpy((rng.normal(size=(k, m)) / np.sqrt(k)).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(card) if bias else None
+    before = K.launch_counts["chgnet_row_projection"]
+    got = K.chgnet_row_projection_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert K.launch_counts["chgnet_row_projection"] == before + 1
+    want = K.chgnet_row_projection_reference(x, w, b)
+    bound = K.chgnet_projection_error_bound(x, w, b)
+    assert got.shape == (rows, m) and bool(((got - want).abs() <= bound + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 256])
+def test_row_projection_atom_tables_on_card(card, m):
+    """CHGNet's atom tables on the main path: 19,712 rows of 64."""
+    _projection_on_card(card, 19712, 64, m)
+
+
+def _rows_at_height(card, m, rows_per_thread, case):
+    """The fewest rows of the form j tiles + d (d = 0, -1 or +1; more than
+    two passes of the persistent grid for ``past_the_grid``) at which the
+    launch plan picks ``rows_per_thread`` rows a thread, and that plan. A
+    tile is 4 RT rows a warp, 8 warps over M / 64 column strips."""
+    from distmlip_tpu_torch import kernels as K
+
+    tile = 32 * rows_per_thread // ((128 if m <= 128 else 256) // 64)
+    d = {"tile": 0, "tile-1": -1, "tile+1": 1, "past_the_grid": tile // 2}[case]
+    for j in range(1, 8192):
+        n = j * tile + d
+        plan = K.chgnet_projection_plan(n, 64, m, card)
+        if plan["rows_per_thread"] != rows_per_thread:
+            continue
+        if case != "past_the_grid" or plan["tiles"] > 2 * plan["blocks"]:
+            return n, plan
+    raise AssertionError(f"the plan never picks {rows_per_thread} rows a thread at M={m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows_per_thread", [5, 8])
+@pytest.mark.parametrize("m", [128, 256])
+@pytest.mark.parametrize("rows", ["tile", "tile-1", "tile+1", "past_the_grid"])
+def test_row_projection_tiles_on_card(card, rows, m, rows_per_thread):
+    """Rows a whole number of tiles, a tile +- 1, and more rows than the
+    persistent grid covers in one pass, at each tile height, reached through
+    row counts at which the launch plan picks that height."""
+    n, plan = _rows_at_height(card, m, rows_per_thread, rows)
+    tile = plan["tile_rows"]
+    assert plan["rows_per_thread"] == rows_per_thread and plan["tiles"] == -(-n // tile)
+    _projection_on_card(card, n, 64, m, seed=n)
+
+
+@pytest.mark.cuda
+def test_row_projection_plan_heights_on_card(card):
+    """The tile height follows the row count: 5 rows a thread at the
+    19,712-row atom tables, 8 at the 236,032-row bond table (and +- 1)."""
+    from distmlip_tpu_torch import kernels as K
+
+    if torch.cuda.get_device_properties(card).multi_processor_count != 132:
+        pytest.skip("the plan's choices at these shapes are for the H100's 132 SMs")
+    for rows, m, rt in ((19712, 128, 5), (19712, 256, 5), (236031, 256, 8),
+                        (236032, 256, 8), (236033, 256, 8)):
+        assert K.chgnet_projection_plan(rows, 64, m, card)["rows_per_thread"] == rt, (rows, m)
+
+
+@pytest.mark.cuda
+def test_row_projection_on_a_second_card(card):
+    """The projection on one card, then on another with the first one
+    current and with the other current: the shared-memory limit and the SM
+    count are the device's own, not the first launch's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA cards")
+    _projection_on_card(torch.device("cuda", 0), 19712, 64, 256)
+    with torch.cuda.device(0):
+        _projection_on_card(torch.device("cuda", 1), 19712, 64, 256, seed=1)
+    with torch.cuda.device(1):
+        _projection_on_card(torch.device("cuda", 1), 236032, 64, 256, seed=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,m,bias", [(7, 24, True), (7, 256, False), (64, 4, True),
+                                      (16, 256, True), (1, 8, False), (64, 132, True)])
+def test_row_projection_shapes_on_card(card, k, m, bias):
+    """K not a multiple of 4 (the 4-byte copies), M = 4, M = 256, M past
+    128 but not 256."""
+    _projection_on_card(card, 1003, k, m, bias, seed=k * 1000 + m)
+
+
+@pytest.mark.cuda
+def test_row_projection_refuses_what_it_does_not_take_on_card(card):
+    """K past 64 or M past 256 (W would not fit shared memory), M not a
+    multiple of 4, and a misaligned w raise ValueError before any launch."""
+    from distmlip_tpu_torch import kernels as K
+
+    x = torch.zeros((10, 64), device=card)
+    before = dict(K.launch_counts)
+    for xs, ws in (((10, 65), (65, 8)), ((10, 64), (64, 260)), ((10, 64), (64, 6))):
+        with pytest.raises(ValueError):
+            K.chgnet_row_projection_cuda(torch.zeros(xs, device=card), torch.zeros(ws, device=card))
+    with pytest.raises(ValueError):
+        K.chgnet_row_projection_cuda(x, torch.zeros(64 * 8 + 1, device=card)[1:].view(64, 8))
+    assert K.launch_counts == before
