@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with one NVIDIA card (H100):
 Phases (each failure raises, so the exit code is non-zero):
 
 1. environment — the card's name, power limit and UUID (``nvidia-smi``) and
-   the host name, torch and CUDA versions, both TF32 flags (off: this port
-   computes in float32);
+   the host name, torch and CUDA versions, both TF32 flags (off: float32
+   math stays float32) and the bf16 reduced-precision reduction flag (off:
+   bf16 products accumulate in fp32);
 2. build — ``nvcc`` compiles every kernel under
    ``distmlip_tpu_torch/kernels/csrc`` (one process per source, in
    parallel) into ``build/kernels``, and prints each kernel's registers,
@@ -157,6 +158,33 @@ Phases (each failure raises, so the exit code is non-zero):
    round's against ``DistPotential``. Launch counts derived per calculate,
    as above.
 
+12. bfloat16 compute (``compute_dtype="bfloat16"``, MACE and eSCN):
+   ``[kernels] segment_sum bf16`` (B1's bf16 instantiation at MACE's two
+   chunk shapes and eSCN's rows, the width sweep with int32 and int64 ids,
+   all-masked and the padding-only chunk; tolerance one bf16 ulp over the
+   fp32 sums' bound, e + 2^-7 (|y| + e); library call ``index_add_`` of the
+   rows upcast to float32; bound at 2 bytes an element) and
+   ``[kernels] so2_conv bf16`` (B3's bf16 wgmma kernel at (32768, 25, 128),
+   forward and backward route, and the small and ragged cases, within
+   ``so2_conv_error_bound``'s bf16 form; library call the five cuBLAS bf16
+   products on pre-packed operands; bound at 989 TFLOP/s); ``[main-bf16]``
+   (MACE at bench.py's bf16 configuration) and ``[main-escn-bf16]`` (eSCN
+   at example 05's, with its conditioning) on the 2048-atom crystal, 4
+   calculates, launches derived as the float32 paths' on the bf16 kernels,
+   against ``kernels=False`` on the card and against the port's float32
+   (the bars below), step ms and peak beside float32's; ``[md-bf16]`` (MACE, 20
+   ``nvt_bussi`` steps of 0.35 fs) and ``[batched-mace-bf16]`` (B = 1 and
+   8, against ``DistPotential`` and ``kernels=False`` at the bf16 bar).
+   The bf16 bars: the kernels' route within rel dE < 1e-3 and max |dF| <
+   0.1 max |F| of the plain one, and no further from float32 than the
+   plain route is (x 1.25 + 0.005 max |F|): each route rounds the same
+   fp32 sums at other bf16 ulps where they straddle a boundary, and the
+   model carries the flips on, so the two bf16 routes differ by bf16
+   noise, which their distances from float32 measure; both within rel dE
+   < 2e-2 and max |dF| < 0.3 max |F| of float32 (a sanity bar: at these
+   widths bf16 itself is 0.5% in energy and ~14% in max force from float32
+   on the card, PERF.md §6).
+
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
 card, or outside a checkout, it exits non-zero and prints no result.
@@ -179,6 +207,7 @@ except ImportError as e:
 H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12         # TF32 in the tensor cores, dense
+H100_BF16_FLOPS = 989e12         # bf16 in the tensor cores, dense
 REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             "tensornet_embed_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "tensornet_interaction_aggregate": "distmlip_tpu/kernels/segment.py:224",
@@ -187,7 +216,11 @@ REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             "chgnet_atom_conv_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "chgnet_line_aggregate": "distmlip_tpu/kernels/segment.py:224",
             "chgnet_row_projection": "distmlip_tpu/kernels/segment.py:224",
-            "so2_conv": "distmlip_tpu/kernels/so3.py:89"}
+            "so2_conv": "distmlip_tpu/kernels/so3.py:89",
+            # the same TPU kernels at bf16 data (their VMEM scratch and
+            # dots in data.dtype, fp32 accumulation)
+            "segment_sum_bf16": "distmlip_tpu/kernels/segment.py:142",
+            "so2_conv_bf16": "distmlip_tpu/kernels/so3.py:89"}
 SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "tensornet_embed_aggregate": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "tensornet_interaction_aggregate":
@@ -197,7 +230,9 @@ SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "chgnet_atom_conv_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
            "chgnet_line_aggregate": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
            "chgnet_row_projection": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
-           "so2_conv": "distmlip_tpu_torch/kernels/csrc/so2_conv.cu"}
+           "so2_conv": "distmlip_tpu_torch/kernels/csrc/so2_conv.cu",
+           "segment_sum_bf16": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
+           "so2_conv_bf16": "distmlip_tpu_torch/kernels/csrc/so2_conv.cu"}
 STEPS = 3
 TENSORNET_REPS = 16  # bench.py's default structure: 16384 atoms
 CHGNET_REPS = 16
@@ -209,8 +244,10 @@ def log(*args):
 
 def check_segment_sum(torch, data, ids, mask, n):
     """Kernel vs plain on one input; returns max |kernel - plain|. float32
-    in two summation orders: each output may differ by up to 2 k u sum|x|
-    (k = the largest row's edge count, u = 2^-24)."""
+    in two summation orders: each output may differ by up to e = 2 k u
+    sum|x| (k = the largest row's edge count, u = 2^-24). bfloat16 rows:
+    both sides sum in fp32 (within e) and round once to bf16 (8 significant
+    bits), so e + 2^-7 (|y| + e), y the fp32 sum: one bf16 ulp."""
     from distmlip_tpu_torch.kernels import segment_sum_cuda, segment_sum_reference
 
     got = segment_sum_cuda(data, ids, n, mask)
@@ -220,7 +257,11 @@ def check_segment_sum(torch, data, ids, mask, n):
         raise AssertionError(f"segment_sum shape/dtype {got.shape} {got.dtype} "
                              f"vs {want.shape} {want.dtype}")
     k = max(int(torch.bincount(ids.long(), minlength=n).max()), 1)
-    bound = 2 * k * 2.0 ** -24 * segment_sum_reference(data.abs(), ids, n, mask)
+    bound = 2 * k * 2.0 ** -24 * segment_sum_reference(data.float().abs(), ids, n, mask)
+    if data.dtype == torch.bfloat16:
+        y = segment_sum_reference(data.float(), ids, n, mask)
+        bound = bound + 2.0 ** -7 * (y.abs() + bound)
+    got, want = got.float(), want.float()
     err = (got - want).abs()
     if not bool((err <= bound + 1e-30).all()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"segment_sum disagrees with its plain version: max "
@@ -240,23 +281,28 @@ def bound(nbytes, ops, flops=H100_FP32_FLOPS):
 def time_segment_sum(torch, data, ids, mask, n):
     """The segment sum's call ms (CUDA events), kernel-alone ms (profiler),
     host µs per call, plain ms, and one ``index_add_`` of the masked rows
-    timed the same ways; its bytes bound."""
+    (float32: bf16 rows upcast beforehand, an fp32 accumulation as the
+    kernel's) timed the same ways; its bytes bound at the rows' element
+    size."""
     from distmlip_tpu_torch.kernels import segment_sum_cuda, segment_sum_reference
 
     e = data.shape[0]
     w = data[0].numel()
     timed = split(torch, lambda: segment_sum_cuda(data, ids, n, mask), "segment_sum")
     plain_ms = cuda_ms(torch, lambda: segment_sum_reference(data, ids, n, mask))
-    masked = torch.where(mask.reshape((e,) + (1,) * (data.ndim - 1)), data, 0.0)
+    masked = torch.where(mask.reshape((e,) + (1,) * (data.ndim - 1)), data.float(), 0.0)
     out = torch.zeros((n,) + tuple(data.shape[1:]), device="cuda")
     ids_long = ids.long()
     timed.update(library_split(torch, lambda: out.index_add_(0, ids_long, masked)))
+    del masked, out
     n_valid = int(mask.sum())
     # bytes the function must move: each valid data row read once (masked
     # rows need not be read), ids and mask read once, the output written once
-    nbytes = n_valid * w * 4 + e * ids.element_size() + e + n * w * 4
+    es = data.element_size()
+    nbytes = n_valid * w * es + e * ids.element_size() + e + n * w * es
     bound_ms, bound_by = bound(nbytes, n_valid * w)
-    return {"shape": [e] + list(data.shape[1:]), "width": w, "n_segments": n,
+    return {"shape": [e] + list(data.shape[1:]), "dtype": str(data.dtype).split(".")[-1],
+            "width": w, "n_segments": n,
             "valid_rows": n_valid, **timed, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
 
@@ -298,6 +344,38 @@ def phase_kernels(torch):
     pad_time = time_segment_sum(torch, pad_data, pad_ids, pad_mask, 2560)
     log(f"[kernels] segment_sum padding-only chunk: {json.dumps(pad_time)}")
     log(f"[kernels] all cases agree with the plain version; max |err| {max(errs)}")
+    return max(errs), timed, sweep
+
+
+def phase_kernels_bf16(torch):
+    """``[kernels] segment_sum bf16``: B1's bf16 instantiation at MACE's two
+    edge-chunk shapes and eSCN's rows (bf16 rows), across the width sweep
+    on one chunk's ids and mask (int32 and int64 ids), then all-masked and
+    the padding-only chunk; each against its plain bf16 version."""
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    errs, timed = [], []
+    for trailing in ((16, 128), (40, 128), (25, 128)):
+        data, ids, mask, n = slice_case(torch, gen, 32768, trailing)
+        data = data.bfloat16()
+        errs.append(check_segment_sum(torch, data, ids, mask, n))
+        timed.append(time_segment_sum(torch, data, ids, mask, n))
+        log(f"[kernels] segment_sum bf16 {timed[-1]['shape']}: {json.dumps(timed[-1])}")
+        del data
+    sweep = []
+    _, ids, mask, n = slice_case(torch, gen, 32768, (1,))
+    for w in SEGMENT_WIDTHS:
+        data = torch.randn((32768, w), generator=gen, device="cuda").bfloat16()
+        errs.append(check_segment_sum(torch, data, ids, mask, n))
+        errs.append(check_segment_sum(torch, data, ids.long(), mask, n))
+        sweep.append(time_segment_sum(torch, data, ids, mask, n))
+        log(f"[kernels] segment_sum bf16 width {w}: {json.dumps(sweep[-1])}")
+    errs.append(check_segment_sum(torch, data, ids, torch.zeros_like(mask), n))
+    pad_ids = torch.full((32768,), 2047, dtype=torch.int32, device="cuda")
+    pad_data = torch.randn((32768, 40 * 128), generator=gen, device="cuda").bfloat16()
+    errs.append(check_segment_sum(torch, pad_data, pad_ids,
+                                  torch.zeros(32768, dtype=torch.bool, device="cuda"), 2560))
+    log(f"[kernels] segment_sum bf16: all cases agree with the plain version; max |err| "
+        f"{max(errs)}")
     return max(errs), timed, sweep
 
 
@@ -884,7 +962,7 @@ def check_so2(torch, h, weights, m_idx, c):
     perm_t = torch.as_tensor(perm, device="cuda").long()
     inv_t = torch.as_tensor(inv, device="cuda").long()
     g = torch.randn(h.shape, generator=torch.Generator(device="cuda").manual_seed(h.shape[0]),
-                    device="cuda")
+                    device="cuda").to(h.dtype)
     wt = dispatch._so2_transposed_weights(weights, segments)
     checks = []
     got = K.so2_conv_cuda(h, weights, segments, c, perm, packed=packed)
@@ -902,8 +980,8 @@ def check_so2(torch, h, weights, m_idx, c):
         if got.shape != want.shape or got.dtype != want.dtype:
             raise AssertionError(f"so2_conv {route} shape/dtype {got.shape} {got.dtype} vs "
                                  f"{want.shape} {want.dtype}")
-        err = (got - want).abs()
-        if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
+        err = (got.float() - want.float()).abs()
+        if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got.float()).all()):
             raise AssertionError(f"so2_conv {route} disagrees with its plain version: "
                                  f"max |err| {float(err.max())}, max tolerance "
                                  f"{float(tol.max())}")
@@ -917,14 +995,18 @@ def time_so2(torch, h, weights, m_idx, c, iters=20):
     """Kernel, plain and library times of one SO(2) convolution. The kernel
     is timed on weights packed beforehand, as the model calls it (the
     packing, once per layer, is timed alone: ``pack_ms``, both directions),
-    and on the backward's route (the transposed set, ``backward_ms``). The
-    plain version is the dispatcher's ``kernels=False`` path (the reference
+    and on the backward's route (the transposed set, ``backward_ms``); at
+    the main shape (``iters`` >= 20) also the kernel alone (``kernel_ms``,
+    profiler) and the host µs a call (``host_us``). The plain version is
+    the dispatcher's ``kernels=False`` path (the reference
     on the packed rows, permuted in and out); the library call is the five
     cuBLAS float32 products on operands already packed in the complex-pair
     form ([f+ | f-] and [[Wr, Wi], [-Wi, Wr]] built beforehand): the GEMM
     work alone. ``bound_ms`` is the kernel's route, 3xTF32: three TF32
     products per float32 product at the tensor cores' rate;
-    ``bound_ms_fp32_cores`` the same work as float32 FMAs."""
+    ``bound_ms_fp32_cores`` the same work as float32 FMAs; in bf16 the
+    bound is the operations at 989 TFLOP/s and the library call the five
+    cuBLAS bf16 products."""
     from distmlip_tpu_torch import kernels as K
     from distmlip_tpu_torch.kernels import dispatch
 
@@ -933,6 +1015,10 @@ def time_so2(torch, h, weights, m_idx, c, iters=20):
     packed = K.pack_so2_weights(weights, segments, c)
     ms = cuda_ms(torch, lambda: K.so2_conv_cuda(h, weights, segments, c, perm,
                                                 packed=packed), iters=iters)
+    # the kernel alone (profiler) and the host µs a call, at the main shape
+    alone = (split(torch, lambda: K.so2_conv_cuda(h, weights, segments, c, perm,
+                                                 packed=packed), "so2_conv")
+             if iters >= 20 else {})
     wt = dispatch._so2_transposed_weights(weights, segments)
     back = packed.transposed()
     backward_ms = cuda_ms(torch, lambda: K.so2_conv_cuda(h, wt, segments, c, perm,
@@ -959,18 +1045,25 @@ def time_so2(torch, h, weights, m_idx, c, iters=20):
     widths = [nl * c * (1 if m == 0 else 2) for m, _, nl in segments]
     ops = 2 * e * sum(w * w for w in widths)
     # h read once, the output written once, the weights read once
-    nbytes = 2 * h.numel() * 4 + sum(w.numel() for w in weights) * 4
+    es = h.element_size()
+    nbytes = 2 * h.numel() * es + sum(w.numel() for w in weights) * es
+    out = {"e": e, "s": h.shape[1], "channels": c, "dtype": str(h.dtype).split(".")[-1],
+           "widths": widths, "ms": ms, "kernel_ms": alone.get("kernel_ms"),
+           "host_us": alone.get("host_us"), "backward_ms": backward_ms, "pack_ms": pack_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, "ops": ops, "bytes": nbytes}
+    if h.dtype == torch.bfloat16:
+        bound_ms, bound_by = bound(nbytes, ops, H100_BF16_FLOPS)
+        return dict(out, library="five cuBLAS bf16 products (fp32 accumulation) on "
+                                 "pre-packed [f+|f-] and [[Wr,Wi],[-Wi,Wr]]",
+                    bound_ms=bound_ms, bound_by=bound_by,
+                    bound_route="bf16 tensor cores (ops / 989e12)")
     bound_ms, bound_by = bound(nbytes, 3 * ops, H100_TF32_FLOPS)
     fp32_ms, fp32_by = bound(nbytes, ops)
-    return {"e": e, "s": h.shape[1], "channels": c, "widths": widths, "ms": ms,
-            "backward_ms": backward_ms, "pack_ms": pack_ms,
-            "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": "five cuBLAS float32 products on pre-packed [f+|f-] and "
-                       "[[Wr,Wi],[-Wi,Wr]]",
-            "bound_ms": bound_ms, "bound_by": bound_by,
-            "bound_route": "3xTF32 tensor cores (3 x ops / 495e12)",
-            "bound_ms_fp32_cores": fp32_ms, "bound_by_fp32_cores": fp32_by,
-            "ops": ops, "bytes": nbytes}
+    return dict(out, library="five cuBLAS float32 products on pre-packed [f+|f-] and "
+                             "[[Wr,Wi],[-Wi,Wr]]",
+                bound_ms=bound_ms, bound_by=bound_by,
+                bound_route="3xTF32 tensor cores (3 x ops / 495e12)",
+                bound_ms_fp32_cores=fp32_ms, bound_by_fp32_cores=fp32_by)
 
 
 def phase_so2_kernels(torch):
@@ -1009,6 +1102,38 @@ def phase_so2_kernels(torch):
     log(f"[kernels] segment_sum at eSCN's row width: {json.dumps(seg_time)} "
         f"(max |err| {seg_err})")
     return err, headline, seg_time
+
+
+def phase_so2_kernels_bf16(torch):
+    """``[kernels] so2_conv bf16``: B3's bf16 kernel at the eSCN path's chunk
+    shape (32768, 25, 128), forward and the backward's route, then E of 1,
+    37 and 1003 at l_max 1, 2, 4, 6 and C 8, 16, 128 and 7 (the TMA rows,
+    the 16-byte and the element copies), each against its plain bf16
+    version within ``so2_conv_error_bound``'s bf16 form; times against the
+    bf16 cuBLAS products and the bf16 tensor-core bound."""
+    from distmlip_tpu_torch.tools.workload import ESCN_KW
+
+    gen = torch.Generator(device="cuda").manual_seed(86420)
+    c, l_max, chunk = ESCN_KW["channels"], ESCN_KW["l_max"], ESCN_KW["edge_chunk"]
+    h, weights, m_idx = so2_case(torch, gen, chunk, l_max, c)
+    h, weights = h.bfloat16(), [w.bfloat16() for w in weights]
+    found = [check_so2(torch, h, weights, m_idx, c)]
+    headline = time_so2(torch, h, weights, m_idx, c)
+    log(f"[kernels] so2_conv bf16 {[chunk, (l_max + 1) ** 2, c]}: {json.dumps(headline)}")
+    del h, weights
+    torch.cuda.empty_cache()
+    for e in (1, 37, 1003):
+        for lm in (1, 2, 4, 6):
+            for cc in (8, 16, 128, 7):
+                if cc == 7 and lm not in (1, 4):
+                    continue
+                h, weights, mi = so2_case(torch, gen, e, lm, cc)
+                found.append(check_so2(torch, h.bfloat16(), [w.bfloat16() for w in weights],
+                                       mi, cc))
+    err, ratio = max(f[0] for f in found), max(f[1] for f in found)
+    log(f"[kernels] so2_conv bf16: all {len(found)} cases agree with the plain version, "
+        f"forward and backward route; max |err| {err}, max |err| / tolerance {ratio}")
+    return err, headline
 
 
 def check_result(res, n_atoms):
@@ -1242,7 +1367,9 @@ def phase_main_zbl(torch):
             e_zbl_close = zbl_energy(torch, small, p)
     d_close = {k: worst_deltas([outs["kernels"]], [outs[k]]) for k in ("plain", "cpu")}
     log(f"[main-zbl] 32 Si at a = 3.1 Å (ZBL {e_zbl_close:.6f} eV of "
-        f"{outs['kernels']['energy']:.6f} eV): card kernels vs {json.dumps(d_close)}")
+        f"{outs['kernels']['energy']:.6f} eV): card kernels vs {json.dumps(d_close)}; "
+        f"energies {json.dumps({k: v['energy'] for k, v in outs.items()})}, threads "
+        f"{torch.get_num_threads()}")
     if not (all(within_bar(d) for d in d_close.values()) and e_zbl_close > 0.0):
         raise AssertionError("[main-zbl] the close-packed structure disagrees with its plain "
                              "references, or its ZBL term is 0")
@@ -1393,6 +1520,112 @@ def phase_escn(torch):
     summary["edge_chunks"] = K
     summary["rebuilds"] = pot.rebuild_count
     log(f"[main-escn] {json.dumps(summary)}")
+    return launches
+
+
+def phase_main_bf16(torch, family):
+    """``[main-bf16]`` (MACE at MACE_BF16_KW, bench.py's configuration) or
+    ``[main-escn-bf16]`` (eSCN at ESCN_BF16_KW, example 05's, with ESCN_INFO)
+    on the 2048-atom crystal: ``drive``'s 4 calculates with the launch
+    counts derived as the float32 paths' but on the bf16 kernels; the same
+    geometries through ``kernels=False`` (bf16) and the port's float32 on
+    the card. Both bf16 routes within rel dE < 2e-2 and max |dF| < 0.3 max
+    |F| of float32 (bf16's own distance at these widths, a sanity bar), the
+    kernels' route within rel dE < 1e-3 and max |dF| < 0.1 max |F| of the
+    plain one and no further from float32 than it (x 1.25 + 0.005 max |F|);
+    step ms and peak beside float32's."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import ESCN, ESCNConfig, MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import (ESCN_BF16_KW, ESCN_INFO, ESCN_KW,
+                                                   MACE_BF16_KW, MACE_KW, bench_atoms)
+
+    mace = family == "mace"
+    tag = "main-bf16" if mace else "main-escn-bf16"
+    cls, cfg, kw16, kw32 = ((MACE, MACEConfig, MACE_BF16_KW, MACE_KW) if mace
+                            else (ESCN, ESCNConfig, ESCN_BF16_KW, ESCN_KW))
+    model = cls(cfg(**kw16))
+    params = model.init(0)
+    atoms, rng = bench_atoms()
+    if not mace:
+        params["species_ref"]["w"] = torch.randn((kw16["num_species"],),
+                                                 generator=torch.Generator().manual_seed(0))
+        atoms.info = dict(ESCN_INFO)
+    pot = DistPotential(model, params, device="cuda", skin=0.5)
+    geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
+    stats = pot.last_stats
+    K = chunk_layout(stats["e_cap"], kw16["edge_chunk"])[2]
+    n_calc = 1 + STEPS
+    expected = {k: 0 for k in launches}
+    if mace:
+        expected["segment_sum_bf16"] = n_calc * kw16["num_interactions"] * 2 * K
+    else:
+        expected["so2_conv_bf16"] = n_calc * kw16["num_layers"] * 3 * K
+        expected["segment_sum_bf16"] = n_calc * (1 + kw16["num_layers"]) * 2 * K
+    log(f"[{tag}] launches derived as the float32 path's, on the bf16 kernels (K={K}): "
+        f"{json.dumps({k: v for k, v in expected.items() if v})}; counted {launches}")
+    if launches != expected:
+        raise AssertionError(f"[{tag}] kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+    def run(p):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, secs = [], []
+        for pos in geometries:
+            atoms.positions = pos.copy()
+            t = time.perf_counter()
+            res.append(p.calculate(atoms))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+        return res, secs, torch.cuda.max_memory_allocated()
+
+    def deltas(a_list, b_list):
+        n = len(atoms)
+        return {"dE_per_atom": max(abs(a["energy"] - b["energy"]) / n
+                                   for a, b in zip(a_list, b_list)),
+                "rel_dE": max(abs(a["energy"] - b["energy"]) / abs(b["energy"])
+                              for a, b in zip(a_list, b_list)),
+                "dF_rel": max(float(np.abs(a["forces"] - b["forces"]).max()
+                                    / np.abs(b["forces"]).max()) for a, b in zip(a_list, b_list)),
+                "dS_rel": max(float(np.abs(a["stress"] - b["stress"]).max()
+                                    / np.abs(b["stress"]).max()) for a, b in zip(a_list, b_list))}
+
+    before = dict(launch_counts)
+    plain, ref_step_s, ref_peak = run(DistPotential(model, params, device="cuda", skin=0.5,
+                                                    kernels=False))
+    if dict(launch_counts) != before:
+        raise AssertionError(f"[{tag}] the kernels=False reference launched a kernel")
+    f32, f32_s, f32_peak = run(DistPotential(cls(cfg(**kw32)), params, device="cuda",
+                                             skin=0.5))
+    # bf16 against bf16: the two routes round the segment sums' fp32 values
+    # at other ulps where they straddle a rounding boundary, and the model
+    # carries those flips on; the measure of that noise is how far each
+    # route lies from the float32 result
+    vs_plain, vs32, plain_vs32 = deltas(results, plain), deltas(results, f32), deltas(plain, f32)
+    summary = summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results, launches,
+                        expected)
+    summary.update(edge_chunks=K, vs_plain=vs_plain, vs_float32=vs32,
+                   plain_vs_float32=plain_vs32, float32={
+                       "first_calculate_ms": f32_s[0] * 1e3,
+                       "step_ms": [x * 1e3 for x in f32_s[1:]],
+                       "atoms_per_s": len(atoms) / (sum(f32_s[1:]) / len(f32_s[1:])),
+                       "max_memory_allocated_bytes": f32_peak})
+    log(f"[{tag}] {json.dumps(summary)}")
+    # both routes within bf16's own distance from float32 at these widths
+    # (PERF.md §6: the JAX package's bf16 path is as far from its
+    # float32 at MACE-MP-0-medium widths), and the kernels' route no further
+    # from float32 than the plain route (25% and 0.5% of max |F| of slack)
+    if not (vs32["rel_dE"] < 2e-2 and vs32["dF_rel"] < 0.3
+            and plain_vs32["rel_dE"] < 2e-2 and plain_vs32["dF_rel"] < 0.3):
+        raise AssertionError(f"[{tag}] bf16 departs from the port's float32 past bf16's "
+                             f"noise: kernels {vs32}, plain {plain_vs32}")
+    if not (vs_plain["rel_dE"] < 1e-3 and vs_plain["dF_rel"] < 0.1
+            and vs32["dF_rel"] <= 1.25 * plain_vs32["dF_rel"] + 0.005):
+        raise AssertionError(f"[{tag}] the bf16 kernels' route departs from the plain "
+                             f"route: {vs_plain}; from float32 {vs32} against {plain_vs32}")
     return launches
 
 
@@ -1680,6 +1913,33 @@ def phase_md(torch):
     summary["vs_fresh_host_graph"], summary["pairs_in_band"] = check_md(
         "md", probe, atoms, fresh, MACE_KW["cutoff"] + 0.5)
     log(f"[md] {json.dumps(summary)}")
+    return launches
+
+
+MD_BF16_STEPS = 20
+
+
+def phase_md_bf16(torch):
+    """``[md-bf16]``: MACE at MACE_BF16_KW on the 2048-atom crystal,
+    MD_BF16_STEPS nvt_bussi steps of MACE_MD_TIMESTEP: the bf16 segment sum
+    on every calculate, the trajectory finite."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import MACE_BF16_KW, bench_atoms
+
+    model = MACE(MACEConfig(**MACE_BF16_KW))
+    pot = DistPotential(model, model.init(0), device="cuda", skin=0.5)
+    probe, step_s, launches, peak = run_md(torch, pot, bench_atoms(), MD_BF16_STEPS, "md-bf16",
+                                           timestep=MACE_MD_TIMESTEP)
+    expected = {k: 0 for k in launches}
+    expected["segment_sum_bf16"] = sum(
+        MACE_BF16_KW["num_interactions"] * 2 * chunk_layout(c["e_cap"], MACE_BF16_KW["edge_chunk"])[2]
+        for c in probe.calls)
+    if launches != expected:
+        raise AssertionError(f"[md-bf16] kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+    log(f"[md-bf16] {json.dumps(md_summary(pot, probe, step_s, peak, launches, expected))}")
     return launches
 
 
@@ -2491,6 +2751,82 @@ def phase_batched(torch, family):
     return total, errs
 
 
+def phase_batched_mace_bf16(torch):
+    """``[batched-mace-bf16]``: ``BatchedPotential`` over MACE at
+    MACE_BF16_KW at B = 1 and 8 on the 32-atom pool, one warm calculate and
+    BATCH_STEPS moves, launches of the bf16 segment sum derived per
+    calculate; each structure at the last geometry against ``DistPotential``
+    on it alone and against ``kernels=False`` within rel dE < 1e-3 and max
+    |dF| < 0.1 of the largest force."""
+    from distmlip_tpu_torch.calculators import BatchedPotential, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import MACE_BF16_KW, batched_pool
+
+    model = MACE(MACEConfig(**MACE_BF16_KW))
+    params = model.init(0)
+    pool, rng = batched_pool(8)
+    total = {k: 0 for k in launch_counts}
+    for name, structs in (("B1", pool[:1]), ("B8", pool)):
+        pot = BatchedPotential(model, params, device="cuda", skin=0.5)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in launch_counts:
+            launch_counts[k] = 0
+        results, step_s, stats = [], [], []
+        for step in range(1 + BATCH_STEPS):
+            if step:
+                for a in structs:
+                    a.positions += rng.normal(0, 0.01, a.positions.shape)
+            t = time.perf_counter()
+            results.append(pot.calculate(structs))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+            stats.append(dict(pot.last_stats))
+        launches = dict(launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        expected = {k: 0 for k in launches}
+        expected["segment_sum_bf16"] = sum(
+            MACE_BF16_KW["num_interactions"] * 2 * chunk_layout(st["e_cap"],
+                                                                MACE_BF16_KW["edge_chunk"])[2]
+            for st in stats)
+        if launches != expected or pot.rebuild_count != 1:
+            raise AssertionError(f"[batched-mace-bf16] {name}: launches {launches} against "
+                                 f"{expected}, {pot.rebuild_count} builds")
+        for res in results:
+            for r, a in zip(res, structs):
+                check_result(r, len(a))
+        for k, v in launches.items():
+            total[k] += v
+        single = DistPotential(model, params, device="cuda")
+        refs = {"single": [single.calculate(a) for a in structs]}
+        before = dict(launch_counts)
+        refs["plain"] = BatchedPotential(model, params, device="cuda",
+                                         kernels=False).calculate(structs)
+        if dict(launch_counts) != before:
+            raise AssertionError("[batched-mace-bf16] the kernels=False reference launched")
+        steady = statistics.median(step_s[1:])
+        run = {"structures": len(structs), "bucket_key": stats[-1]["bucket_key"],
+               "compile_count": pot.compile_count, "first_calculate_ms": step_s[0] * 1e3,
+               "step_ms": [x * 1e3 for x in step_s[1:]], "step_ms_median": steady * 1e3,
+               "structures_per_s": len(structs) / steady, "max_memory_allocated_bytes": peak,
+               "launches": launches}
+        for what, ref in refs.items():
+            d = worst_deltas(results[-1], ref)
+            f_scale = max(float(abs(r["forces"]).max()) for r in ref)
+            run[f"vs_{what}"] = dict(d, max_F=f_scale)
+            # bf16 against bf16 in other chunk layouts: the JAX package's
+            # bf16 bar (its float32 one measures this noise in [main-bf16])
+            if not (d["rel_dE"] < 1e-3 and d["max_dF"] < 0.1 * f_scale):
+                raise AssertionError(f"[batched-mace-bf16] {name}: the batch departs from "
+                                     f"{what} past the bf16 bar: {d}")
+        log(f"[batched-mace-bf16] {name}: {json.dumps(run)}")
+        del pot, single
+        torch.cuda.empty_cache()
+    return total
+
+
 def phase_batched_md(torch):
     """``[batched-md]``: ``BatchedMD`` with TensorNet at TENSORNET_KW on the
     8 x 32-atom pool, ``nvt_berendsen`` at targets alternating 300 / 600 K
@@ -2807,7 +3143,8 @@ def main() -> int:
         f"CUDA {torch.version.cuda}, card {torch.cuda.get_device_name(0)}, "
         f"count {torch.cuda.device_count()}")
     log(f"[env] allow_tf32: matmul {torch.backends.cuda.matmul.allow_tf32}, "
-        f"cudnn {torch.backends.cudnn.allow_tf32}")
+        f"cudnn {torch.backends.cudnn.allow_tf32}; bf16 reduced-precision reduction "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
 
     seconds = build.build()
     for name, s in seconds.items():
@@ -2822,9 +3159,11 @@ def main() -> int:
 
     phase_host_graph(torch)
     max_err, timed, sweep = phase_kernels(torch)
+    bf16_err, bf16_timed, bf16_sweep = phase_kernels_bf16(torch)
     edge_errs, edge_timed = phase_edge_aggregate_kernels(torch)
     chg_errs, chg_timed, proj_err, proj_timed = phase_chgnet_kernels(torch)
     so2_err, so2_timed, seg_escn = phase_so2_kernels(torch)
+    so2_bf16_err, so2_bf16_timed = phase_so2_kernels_bf16(torch)
     # the packing's gather tables of the shapes above: each path below
     # counts only its own in its peak memory
     from distmlip_tpu_torch.kernels import so3
@@ -2839,6 +3178,10 @@ def main() -> int:
     chg_launches = phase_chgnet(torch)
     torch.cuda.empty_cache()
     escn_launches = phase_escn(torch)
+    torch.cuda.empty_cache()
+    bf16_launches = phase_main_bf16(torch, "mace")
+    torch.cuda.empty_cache()
+    escn_bf16_launches = phase_main_bf16(torch, "escn")
     torch.cuda.empty_cache()
     phase_small_reference(torch, MACE(MACEConfig(
         num_species=4, channels=16, l_max=3, a_lmax=3, hidden_lmax=1, correlation=3,
@@ -2862,8 +3205,10 @@ def main() -> int:
     md_tn_launches = phase_md_tensornet(torch)
     torch.cuda.empty_cache()
     relax_launches = phase_relax_chgnet(torch)
+    torch.cuda.empty_cache()
+    md_bf16_launches = phase_md_bf16(torch)
     md_launches = {k: md_launches[k] + md_tn_launches[k] + relax_launches[k]
-                   for k in md_launches}
+                   + md_bf16_launches[k] for k in md_launches}
     # slab graph parallelism: each phase counts its own launches
     par_launches, par_errs = {k: 0 for k in md_launches}, {}
     for phase in (phase_parallel_tensornet, phase_parallel_chgnet, phase_parallel_mace,
@@ -2886,7 +3231,7 @@ def main() -> int:
             bat_launches[k] += v
         for k, v in errs.items():
             bat_errs[k] = max(bat_errs.get(k, 0.0), v)
-    for phase in (phase_batched_md, phase_batched_relax, phase_serve):
+    for phase in (phase_batched_mace_bf16, phase_batched_md, phase_batched_relax, phase_serve):
         torch.cuda.empty_cache()
         for k, v in phase(torch).items():
             bat_launches[k] += v
@@ -2959,6 +3304,31 @@ def main() -> int:
         "bound_route": so2_timed["bound_route"],
         "bound_ms_fp32_cores": so2_timed["bound_ms_fp32_cores"],
         "backward_ms": so2_timed["backward_ms"], "pack_ms": so2_timed["pack_ms"],
+        "kernel_ms": so2_timed["kernel_ms"], "host_us": so2_timed["host_us"],
+    })
+    headline = bf16_timed[1]  # the (32768, 40, 128) chunk of interaction 1, bf16 rows
+    kernels.append({
+        "name": "segment_sum_bf16", "route": "cuda", "source": SOURCES["segment_sum_bf16"],
+        "replaces": REPLACES["segment_sum_bf16"],
+        "launches": bf16_launches["segment_sum_bf16"],
+        "max_abs_err": bf16_err, "ms": headline["ms"], "kernel_ms": headline["kernel_ms"],
+        "host_us": headline["host_us"], "plain_ms": headline["plain_ms"],
+        "bound_ms": headline["bound_ms"], "bound_by": headline["bound_by"],
+        "library_ms": headline["library_ms"],
+        "library_kernel_ms": headline["library_kernel_ms"],
+        "library": "index_add_ of the masked rows upcast to float32",
+        "shape": headline["shape"], "per_shape": bf16_timed, "width_sweep": bf16_sweep,
+        "escn_launches": escn_bf16_launches["segment_sum_bf16"],
+    })
+    t = so2_bf16_timed
+    kernels.append({
+        "name": "so2_conv_bf16", "route": "cuda", "source": SOURCES["so2_conv_bf16"],
+        "replaces": REPLACES["so2_conv_bf16"], "launches": escn_bf16_launches["so2_conv_bf16"],
+        "max_abs_err": so2_bf16_err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": t["library"], "shape": [t["e"], t["s"], t["channels"]],
+        "bound_route": t["bound_route"], "backward_ms": t["backward_ms"],
+        "pack_ms": t["pack_ms"], "kernel_ms": t["kernel_ms"], "host_us": t["host_us"],
     })
     for k in kernels:  # each kernel's launches in [md], [md-tensornet], [relax-chgnet]
         k["md_launches"] = md_launches[k["name"]]

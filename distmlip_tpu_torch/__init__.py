@@ -15,8 +15,10 @@ neighbor search and slab partitioner are C++/OpenMP (``neighbors/src``),
 built with g++ at first use.
 
 Dtype policy (reference: DistMLIP/__init__.py:9-33): a process-global
-default float/int width for host-side graph arrays. Only float32 compute is
-ported so far; bfloat16 raises.
+default float/int width for host-side graph arrays, and a global compute
+dtype (``set_compute_dtype``) that ``DistPotential`` applies to models with
+a compute-dtype switch: MACE and eSCN run bfloat16; TensorNet and CHGNet
+raise at it (ROADMAP.md A6b); the pair potential ignores it.
 """
 
 from __future__ import annotations

@@ -105,6 +105,11 @@ class BatchedPotential:
                 f"compute_magmom is a CHGNet-family capability")
         self.device = resolve_device(device)
         self.model = model
+        # the model's compute dtype (cfg.dtype: "float32" or "bfloat16", as
+        # the JAX batched engine inherits it from the model); it keys the
+        # bytes model and the dispatched buckets. The packed graph holds
+        # float32 geometry either way, so the skin cache needs no dtype key.
+        self.compute_dtype = getattr(model.cfg, "dtype", "float32")
         self.params = params_from_numpy(params, self.device)
         self.species_map = species_map
         self.caps = caps or BucketPolicy()
@@ -217,7 +222,7 @@ class BatchedPotential:
     def estimate_batch_bytes(self, total_atoms: int) -> int | None:
         """Device peak estimate for a batch of ``total_atoms`` atoms from the
         calibrated bytes model (None before the first calibration)."""
-        return self.caps.estimate_batch_bytes(total_atoms)
+        return self.caps.estimate_batch_bytes(total_atoms, self.compute_dtype)
 
     def calculate(self, structures) -> list:
         """One result dict per input structure: energy (eV), forces (eV/Å),
@@ -268,7 +273,7 @@ class BatchedPotential:
             high = torch.cuda.max_memory_allocated(self.device)
         graph, host, positions, reused, refreshed, rebuild_s, (t0, t1, t2) = \
             self._prepare_batch(structures)
-        key = host.stats["bucket_key"]
+        key = (host.stats["bucket_key"], self.compute_dtype)
         out = self._potential(self.params, graph, positions)
         energies = out["energies"].double().cpu().numpy()
         forces = host.gather_per_structure(out["forces"].cpu().numpy())
@@ -280,7 +285,7 @@ class BatchedPotential:
             # this call raised the high-water mark: its own peak is the new one
             batch_peak = torch.cuda.max_memory_allocated(self.device) - base
             self.caps.calibrate_bytes(self.caps.get("nodes", int(host.n_atoms.sum())),
-                                      batch_peak)
+                                      batch_peak, self.compute_dtype)
         self._buckets.add(key)
         results = []
         for b in range(len(structures)):

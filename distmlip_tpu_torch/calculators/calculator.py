@@ -33,10 +33,15 @@ GIL, and on a card the worker uploads on its own stream, which the
 adopting step waits on in device order, not on the host. A changed cell
 (a relaxation with the cell) never hits the cache, so it never starts one.
 
+``compute_dtype="bfloat16"`` rebuilds MACE or eSCN at bf16 compute (their
+B1 and B3 kernels' bf16 instantiations on the card); energies, forces and
+stress come out in float32 all the same. TensorNet and CHGNet in bf16 raise
+(ROADMAP.md A6b).
+
 Not ported yet (queued in ROADMAP.md): telemetry records, the contract
-audit, the separate-forward site readout (``fused_site_readout=False``), a
-compute dtype other than float32, the automatic partition count,
-partitions placed on several cards, and block plans.
+audit, the separate-forward site readout (``fused_site_readout=False``),
+the automatic partition count, partitions placed on several cards, and
+block plans.
 
 Per-system conditioning (eSCN's charge, spin and dataset) is read from
 ``atoms.info`` (the ASE convention), range-checked against the model's
@@ -46,6 +51,7 @@ charge rebuilds.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import weakref
 from concurrent.futures import ThreadPoolExecutor
@@ -97,6 +103,33 @@ def validate_system(cfg, system: dict) -> None:
         raise ValueError(f"dataset {system['dataset']} outside [0, {cfg.num_datasets})")
 
 
+def with_compute_dtype(model, compute_dtype=None):
+    """``model``, or a copy of it rebuilt at ``compute_dtype``
+    (``distmlip_tpu/calculators/calculator.py:139-162``).
+
+    ``None`` takes the process-global switch (``set_compute_dtype``), but
+    only for models that honour ``cfg.dtype`` (``supports_compute_dtype``);
+    others ignore it and stay float32, as in the JAX package. An explicit
+    dtype a model does not honour raises ``ValueError``; a different dtype
+    rebuilds the model with ``dataclasses.replace(cfg, dtype=...)``, whose
+    constructor raises where the dtype is not ported yet (TensorNet and
+    CHGNet in bfloat16, ROADMAP.md A6b)."""
+    supported = getattr(model, "supports_compute_dtype", False)
+    if compute_dtype is None:
+        from .. import _compute_dtype as global_dtype
+
+        if global_dtype != "float32" and supported:
+            compute_dtype = global_dtype
+    if compute_dtype is None or compute_dtype == getattr(model.cfg, "dtype", None):
+        return model
+    if not supported:
+        raise ValueError(
+            f"{type(model).__name__} does not implement a compute-dtype switch (its "
+            f"energy_fn ignores cfg.dtype); compute_dtype={compute_dtype!r} would "
+            "silently run float32")
+    return type(model)(dataclasses.replace(model.cfg, dtype=compute_dtype))
+
+
 class DistPotential:
     """Potential over a model + parameter tree, on one device.
 
@@ -115,6 +148,11 @@ class DistPotential:
     skin : Verlet skin (Å) of the graph cache; 0 rebuilds every call.
     compute_magmom : also return ``"magmoms"`` (N,), from the same forward
         (needs ``model.energy_and_aux_fn``; CHGNet).
+    compute_dtype : "float32" or "bfloat16" rebuilds the model at that
+        compute dtype (MACE and eSCN take bfloat16: features, messages and
+        GEMMs in bf16, geometry, energies, forces and stress in float32);
+        None follows the global ``set_compute_dtype`` for models that honour
+        it (``with_compute_dtype``).
     fused_site_readout : only True is ported: the magmoms ride the energy
         forward.
     kernels : True runs the CUDA kernels on a CUDA device; False runs their
@@ -175,12 +213,7 @@ class DistPotential:
                 or not isinstance(num_partitions, (int, np.integer)) or num_partitions < 1):
             raise ValueError(f"num_partitions must be an int >= 1, got {num_partitions!r}")
         num_partitions = int(num_partitions)
-        if compute_dtype is None:
-            from .. import _compute_dtype as compute_dtype  # the global switch
-        if compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={compute_dtype!r}: only float32 is ported; "
-                "bfloat16 is queued in ROADMAP.md")
+        model = with_compute_dtype(model, compute_dtype)
         if not isinstance(kernels, bool):
             raise TypeError(f"kernels must be True or False, got {kernels!r}")
         if not (isinstance(device_rebuild, bool) or device_rebuild == "auto"):
@@ -201,6 +234,7 @@ class DistPotential:
                 f"readout); compute_magmom is a CHGNet-family capability")
         self.device = resolve_device(device)
         self.model = model
+        self.compute_dtype = getattr(model.cfg, "dtype", "float32")
         self.params = params_from_numpy(params, self.device)
         self.num_partitions = num_partitions
         self.species_map = species_map

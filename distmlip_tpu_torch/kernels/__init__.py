@@ -1,9 +1,9 @@
 """Hand-written CUDA kernels for the message-passing hot path.
 
 - :mod:`segment` — ``segment_sum_cuda`` (the wrapper of
-  ``csrc/segment_sum.cu``, replacing the TPU ``pallas_segment_sum``), its
-  plain version ``segment_sum_reference``, the shared CSR row offsets and
-  the launch counts of every kernel.
+  ``csrc/segment_sum.cu``, replacing the TPU ``pallas_segment_sum``; float32
+  and a bf16 instantiation), its plain version ``segment_sum_reference``,
+  the shared CSR row offsets and the launch counts of every kernel.
 - :mod:`edge_aggregate` — ``tensornet_embed_aggregate_cuda``,
   ``tensornet_interaction_aggregate_cuda`` (on compact I/A/S node rows,
   ``tensornet_full`` assembling a 3x3 from them) and
@@ -23,8 +23,8 @@
   replacing the TPU ``so2_conv_pallas`` of eSCN), its plain version
   ``so2_conv_reference``, the packed per-|m| layout ``packed_m_layout``,
   the kernel's weight packing ``pack_so2_weights`` (K-major blocks split
-  into TF32 hi and lo by ``tf32_round``) and the derived kernel tolerance
-  ``so2_conv_error_bound``.
+  into TF32 hi and lo by ``tf32_round``; one bf16 buffer for the bf16
+  kernel) and the derived kernel tolerance ``so2_conv_error_bound``.
 - :mod:`dispatch` — ``fused_segment_sum``, ``fused_edge_aggregate`` (with
   its ``Gather`` marker and the ``recompute_chunks`` count of its plain
   backward) and ``fused_so2_conv`` (with

@@ -1,4 +1,5 @@
-// Masked segment sum of dst-sorted rows, (E, W) -> (N, W), float32, sm_90a.
+// Masked segment sum of dst-sorted rows, (E, W) -> (N, W), float32 or
+// bfloat16 in and out, float32 accumulation, sm_90a.
 //
 // Replaces distmlip_tpu/kernels/segment.py::pallas_segment_sum (body
 // _segment_sum_kernel). The TPU kernel owns a tile of 128 dst rows per grid
@@ -42,9 +43,23 @@
 //   - ids outside [0, N) fall outside every row's range and are dropped.
 // Offsets into data and out are 64-bit: E * W passes 2^31 once edge chunks
 // are large or off.
+//
+// bfloat16 (the models' compute_dtype="bfloat16"): the same two kernels,
+// templated on the element type. Rows load as __nv_bfloat162 pairs (one
+// pair a lane, or two pairs 32 apart on the wider path: a warp load is 128
+// contiguous bytes, a chunk 128 columns) or single __nv_bfloat16 values
+// where the width is odd, converted by the intrinsics; the accumulator is
+// float32 in registers in the same fixed order, and each output element is
+// rounded to bfloat16 once (__float2bfloat16_rn), as the TPU kernel keeps an
+// fp32 accumulator and stores in data.dtype
+// (distmlip_tpu/kernels/segment.py:183, :217). The bound halves on the data
+// and output terms: 2 bytes an element.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -53,7 +68,7 @@ constexpr int kThreads = 32 * kWarps;
 constexpr int kGranulesRows = 16;  // 16-byte mask loads a lane per step, narrow rows: 8192 edges
 constexpr int kGranulesCols = 8;   // the same, wider rows (more warps a row): 4096 edges
 constexpr int kInFlight = 4;       // edge rows loaded before they are added (wider rows)
-constexpr int kColsPerLane = 2;    // columns (floats or float4s) a lane, wider rows
+constexpr int kColsPerLane = 2;    // loads (1, 2 or 4 elements) a lane, wider rows
 constexpr unsigned kFull = 0xffffffffu;
 
 // [lower_bound(ids, row), lower_bound(ids, row + 1)) over ids[0, n), both
@@ -141,34 +156,46 @@ __device__ __forceinline__ void for_valid_groups(const uint8_t* __restrict__ mas
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void add_row(const float* __restrict__ p, float (&acc)[VEC]) {
-  if constexpr (VEC == 4) {
+// Adds VEC consecutive elements at p (VEC-aligned) into acc, in float32.
+template <typename T, int VEC>
+__device__ __forceinline__ void add_row(const T* __restrict__ p, float (&acc)[VEC]) {
+  if constexpr (std::is_same_v<T, float> && VEC == 4) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
     acc[0] += t.x;
     acc[1] += t.y;
     acc[2] += t.z;
     acc[3] += t.w;
-  } else {
+  } else if constexpr (std::is_same_v<T, float>) {
     acc[0] += __ldg(p);
+  } else if constexpr (VEC == 2) {
+    const float2 t = __bfloat1622float2(__ldg(reinterpret_cast<const __nv_bfloat162*>(p)));
+    acc[0] += t.x;
+    acc[1] += t.y;
+  } else {
+    acc[0] += __bfloat162float(__ldg(p));
   }
 }
 
-template <int VEC>
-__device__ __forceinline__ void store_row(float* __restrict__ p, const float (&acc)[VEC]) {
-  if constexpr (VEC == 4) {
+// Stores acc at p, rounded once to T (round to nearest even).
+template <typename T, int VEC>
+__device__ __forceinline__ void store_row(T* __restrict__ p, const float (&acc)[VEC]) {
+  if constexpr (std::is_same_v<T, float> && VEC == 4) {
     *reinterpret_cast<float4*>(p) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else {
+  } else if constexpr (std::is_same_v<T, float>) {
     p[0] = acc[0];
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(acc[0], acc[1]);
+  } else {
+    p[0] = __float2bfloat16_rn(acc[0]);
   }
 }
 
 // Narrow rows: one warp per dst row; LPE lanes per edge (a power of two,
 // at least the row's columns), 32 / LPE edges a warp step.
-template <typename Id, int VEC, int LPE>
+template <typename T, typename Id, int VEC, int LPE>
 __global__ void __launch_bounds__(kThreads)
-segment_sum_kernel_rows(const float* __restrict__ data, const Id* __restrict__ ids,
-                        const uint8_t* __restrict__ mask, float* __restrict__ out,
+segment_sum_kernel_rows(const T* __restrict__ data, const Id* __restrict__ ids,
+                        const uint8_t* __restrict__ mask, T* __restrict__ out,
                         int64_t n_edges, int64_t n_rows, int64_t width) {
   constexpr int kEdges = 32 / LPE;
   const int lane = threadIdx.x & 31;
@@ -187,7 +214,7 @@ segment_sum_kernel_rows(const float* __restrict__ data, const Id* __restrict__ i
 #pragma unroll 4
     for (int t = 0; t < LPE; ++t) {
       const int o = t * kEdges + slot;
-      if (active && (bits >> o & 1u)) add_row<VEC>(data + (base + o) * width + col, acc);
+      if (active && (bits >> o & 1u)) add_row<T, VEC>(data + (base + o) * width + col, acc);
     }
   };
   for_valid_groups<kGranulesRows>(mask, e0, e1, lane, body);
@@ -196,15 +223,15 @@ segment_sum_kernel_rows(const float* __restrict__ data, const Id* __restrict__ i
 #pragma unroll
     for (int c = 0; c < VEC; ++c) acc[c] += __shfl_xor_sync(kFull, acc[c], off);
   }
-  if (slot == 0 && active) store_row<VEC>(out + row * width + col, acc);
+  if (slot == 0 && active) store_row<T, VEC>(out + row * width + col, acc);
 }
 
 // Wider rows: one warp per (dst row, chunk of 32 CPL columns), the chunks
 // of a row in consecutive warps; lane l takes columns l, l + 32, ...
-template <typename Id, int VEC>
+template <typename T, typename Id, int VEC>
 __global__ void __launch_bounds__(kThreads)
-segment_sum_kernel_cols(const float* __restrict__ data, const Id* __restrict__ ids,
-                        const uint8_t* __restrict__ mask, float* __restrict__ out,
+segment_sum_kernel_cols(const T* __restrict__ data, const Id* __restrict__ ids,
+                        const uint8_t* __restrict__ mask, T* __restrict__ out,
                         int64_t n_edges, int64_t n_rows, int64_t width, int64_t chunks) {
   constexpr int CPL = kColsPerLane;
   const int lane = threadIdx.x & 31;
@@ -221,7 +248,7 @@ segment_sum_kernel_cols(const float* __restrict__ data, const Id* __restrict__ i
 #pragma unroll
     for (int c = 0; c < VEC; ++c) acc[j][c] = 0.0f;
   }
-  const float* __restrict__ base_col = data + col;
+  const T* __restrict__ base_col = data + col;
   auto body = [&](int64_t base, unsigned bits) {
     while (bits != 0u) {
       int64_t e[kInFlight];
@@ -240,7 +267,7 @@ segment_sum_kernel_cols(const float* __restrict__ data, const Id* __restrict__ i
 #pragma unroll
           for (int c = 0; c < VEC; ++c) v[q][j][c] = 0.0f;
           if (q < n && col + 32 * VEC * j < width) {
-            add_row<VEC>(base_col + e[q] * width + 32 * VEC * j, v[q][j]);
+            add_row<T, VEC>(base_col + e[q] * width + 32 * VEC * j, v[q][j]);
           }
         }
       }
@@ -259,12 +286,12 @@ segment_sum_kernel_cols(const float* __restrict__ data, const Id* __restrict__ i
   for_valid_groups<kGranulesCols>(mask, e0, e1, lane, body);
 #pragma unroll
   for (int j = 0; j < CPL; ++j) {
-    if (col + 32 * VEC * j < width) store_row<VEC>(out + row * width + col + 32 * VEC * j, acc[j]);
+    if (col + 32 * VEC * j < width) store_row<T, VEC>(out + row * width + col + 32 * VEC * j, acc[j]);
   }
 }
 
-template <typename Id, int VEC>
-cudaError_t launch(const float* data, const Id* ids, const uint8_t* mask, float* out,
+template <typename T, typename Id, int VEC>
+cudaError_t launch(const T* data, const Id* ids, const uint8_t* mask, T* out,
                    int64_t n_edges, int64_t n_rows, int64_t width, cudaStream_t s) {
   const int64_t cols = width / VEC;
   if (cols <= 16) {
@@ -272,33 +299,51 @@ cudaError_t launch(const float* data, const Id* ids, const uint8_t* mask, float*
     if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
     const unsigned g = static_cast<unsigned>(blocks);
     if (cols == 1) {
-      segment_sum_kernel_rows<Id, VEC, 1><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
+      segment_sum_kernel_rows<T, Id, VEC, 1><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
     } else if (cols == 2) {
-      segment_sum_kernel_rows<Id, VEC, 2><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
+      segment_sum_kernel_rows<T, Id, VEC, 2><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
     } else if (cols <= 4) {
-      segment_sum_kernel_rows<Id, VEC, 4><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
+      segment_sum_kernel_rows<T, Id, VEC, 4><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
     } else if (cols <= 8) {
-      segment_sum_kernel_rows<Id, VEC, 8><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
+      segment_sum_kernel_rows<T, Id, VEC, 8><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
     } else {
-      segment_sum_kernel_rows<Id, VEC, 16><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
+      segment_sum_kernel_rows<T, Id, VEC, 16><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
     }
   } else {
     const int64_t chunks = (cols + 32 * kColsPerLane - 1) / (32 * kColsPerLane);
     const int64_t blocks = (n_rows * chunks + kWarps - 1) / kWarps;
     if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-    segment_sum_kernel_cols<Id, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+    segment_sum_kernel_cols<T, Id, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
         data, ids, mask, out, n_edges, n_rows, width, chunks);
   }
   return cudaGetLastError();
 }
 
-template <typename Id>
-cudaError_t launch_ids(const float* data, const Id* ids, const uint8_t* mask, float* out,
+// Elements a load: float4 (float32) or a bfloat162 pair where the width
+// allows it and both pointers are aligned to the vector, else one.
+template <typename T, typename Id>
+cudaError_t launch_ids(const T* data, const Id* ids, const uint8_t* mask, T* out,
                        int64_t n_edges, int64_t n_rows, int64_t width, cudaStream_t s) {
-  const bool vec4 = width % 4 == 0 && reinterpret_cast<uintptr_t>(data) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(out) % 16 == 0;
-  return vec4 ? launch<Id, 4>(data, ids, mask, out, n_edges, n_rows, width, s)
-              : launch<Id, 1>(data, ids, mask, out, n_edges, n_rows, width, s);
+  constexpr int kVec = std::is_same_v<T, float> ? 4 : 2;
+  constexpr uintptr_t kAlign = kVec * sizeof(T);
+  const bool vec = width % kVec == 0 && reinterpret_cast<uintptr_t>(data) % kAlign == 0 &&
+                   reinterpret_cast<uintptr_t>(out) % kAlign == 0;
+  return vec ? launch<T, Id, kVec>(data, ids, mask, out, n_edges, n_rows, width, s)
+             : launch<T, Id, 1>(data, ids, mask, out, n_edges, n_rows, width, s);
+}
+
+template <typename T>
+int segment_sum(const T* data, const void* ids, int id_bytes, const uint8_t* mask, T* out,
+                int64_t n_edges, int64_t n_rows, int64_t width, void* stream) {
+  if (n_rows <= 0 || width <= 0) return 0;
+  if (n_edges < 0 || (id_bytes != 4 && id_bytes != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      id_bytes == 4
+          ? launch_ids(data, static_cast<const int32_t*>(ids), mask, out, n_edges, n_rows, width, s)
+          : launch_ids(data, static_cast<const long long*>(ids), mask, out, n_edges, n_rows, width, s);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -311,13 +356,14 @@ cudaError_t launch_ids(const float* data, const Id* ids, const uint8_t* mask, fl
 extern "C" int distmlip_segment_sum_f32(const float* data, const void* ids, int id_bytes,
                                         const uint8_t* mask, float* out, int64_t n_edges,
                                         int64_t n_rows, int64_t width, void* stream) {
-  if (n_rows <= 0 || width <= 0) return 0;
-  if (n_edges < 0 || (id_bytes != 4 && id_bytes != 8))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      id_bytes == 4
-          ? launch_ids(data, static_cast<const int32_t*>(ids), mask, out, n_edges, n_rows, width, s)
-          : launch_ids(data, static_cast<const long long*>(ids), mask, out, n_edges, n_rows, width, s);
-  return static_cast<int>(err);
+  return segment_sum(data, ids, id_bytes, mask, out, n_edges, n_rows, width, stream);
+}
+
+// The same with data and out bfloat16 (accumulated in float32, each output
+// element rounded once).
+extern "C" int distmlip_segment_sum_bf16(const __nv_bfloat16* data, const void* ids,
+                                         int id_bytes, const uint8_t* mask, __nv_bfloat16* out,
+                                         int64_t n_edges, int64_t n_rows, int64_t width,
+                                         void* stream) {
+  return segment_sum(data, ids, id_bytes, mask, out, n_edges, n_rows, width, stream);
 }

@@ -69,8 +69,28 @@
 //   width are masked, and every output element is written exactly once.
 // - ptxas (-Xptxas -v, CUDA 12.8): 128 registers, no spills; 230,660 bytes
 //   of dynamic shared memory.
+//
+// bfloat16 (so2_conv_bf16_kernel, distmlip_so2_conv_bf16; the models'
+// compute_dtype="bfloat16"): h, the weights and the output in bf16, as the
+// Pallas body takes its operands in h's dtype with
+// preferred_element_type=f32 (so3.py:133-150). bf16 products are exact in
+// fp32, so no split: ONE wgmma.mma_async m64n128k16 .f32.bf16.bf16 per 16
+// contraction entries, the same plus/minus block products, fp32
+// accumulators, and each output rounded to bf16 once
+// (__floats2bfloat162_rn). The layout of the fp32 kernel carries over with
+// 2-byte entries: a 128-byte swizzled row is 64 bf16 entries, so a stage
+// holds 64 contraction entries (B 128 x 64: 16 KB, A 192 x 64: 24 KB), five
+// stages; the packed weights are one bf16 buffer (no hi/lo, B^T K-major per
+// segment, rows padded to 64 entries), 4.75 MB a layer at l_max 4, C 128;
+// A enters wgmma from registers as bf16 pairs (the m64nNk16 A fragment:
+// rows r, r + 8, entry pairs 2t and 2t + 8 of each 16). A reaches shared
+// memory as one TMA box (C % 64 == 0), by 16-byte cp.async (C % 8 == 0) or
+// element by element (any other C). Bound at l_max 4, C 128: 155.7 GFLOP a
+// (32768, 25, 128) chunk at 989 TFLOP/s, 0.157 ms; its 0.42 GB of rows at
+// 3.35 TB/s, 0.125 ms: operations.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -407,6 +427,233 @@ so2_conv_kernel(const __grid_constant__ Params p) {
   }
 }
 
+// ---- bfloat16: one wgmma a product, no split ----
+
+constexpr int kBK16 = 64;                             // bf16 entries per stage: 128 bytes
+constexpr int kStages16 = 5;
+constexpr int kBTileBytes16 = kBN * kBK16 * 2;        // 16 KB
+constexpr int kAStageBytes16 = kBM * kBK16 * 2;       // 24 KB
+constexpr int kSmemBytes16 =
+    1024 + kStages16 * (kBTileBytes16 + kAStageBytes16) + 2 * kStages16 * 8 + kMaxRows * 4;
+
+// How the bf16 edge rows reach shared memory: a TMA box when C % 64 == 0,
+// 16-byte cp.async when C % 8 == 0, else element by element from the
+// producer warp (plain loads and shared stores, released by its arrival).
+enum ABf16Mode { kBfTma = 0, kBfCopy16 = 1, kBfCopy2 = 2 };
+
+struct ParamsBf16 {
+  CUtensorMap maps[kMaxSeg];  // per segment: its packed bf16 block
+  CUtensorMap h_map;          // h as (C, S, E), for kBfTma
+  const uint16_t* h;          // bf16 bit patterns
+  uint16_t* out;
+  int64_t e;
+  int s;
+  int c;
+  int n_seg;
+  Segment seg[kMaxSeg];
+  int rows[kMaxRows];
+};
+
+// Entry offset of (r, k) of a 128-byte-swizzled tile of 64-entry bf16 rows,
+// as TMA writes it: the 16-byte chunk index XOR the row mod 8.
+__device__ __forceinline__ int swz16(int r, int k) {
+  return r * kBK16 + ((((k >> 3) ^ (r & 7))) << 3) + (k & 7);
+}
+
+// d (64 x 128 fp32, this warpgroup's) += A (64 x 16 bf16, registers) B
+// (from shared memory through `desc`, 16 x 128 K-major bf16).
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                           uint64_t desc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint16_t to_bf16_bits(float x) {
+  const __nv_bfloat16 v = __float2bfloat16_rn(x);
+  return *reinterpret_cast<const uint16_t*>(&v);
+}
+
+// The fp32 kernel's schedule and roles (producer warp, 3 consumer
+// warpgroups, full/empty barriers, no block-wide barrier after the set-up)
+// on bf16 tiles.
+template <int AMODE>
+__global__ void __launch_bounds__(kThreads, 1)
+so2_conv_bf16_kernel(const __grid_constant__ ParamsBf16 p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* b_ring = smem;  // kStages16 x B tile
+  uint16_t* a_ring = reinterpret_cast<uint16_t*>(smem + kStages16 * kBTileBytes16);
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + kStages16 * (kBTileBytes16 + kAStageBytes16));
+  uint64_t* empty = full + kStages16;
+  int* s_rows = reinterpret_cast<int*>(empty + kStages16);
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  if (tid < p.s) s_rows[tid] = p.rows[tid];
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages16; ++i) {
+      mbar_init(&full[i], 33);                 // the producer's 32 lanes + its TMA bytes
+      mbar_init(&empty[i], kConsumers / 32);   // every consumer warp done with the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+
+  int si = 0;
+  while (si + 1 < p.n_seg && static_cast<int>(blockIdx.x) >= p.seg[si + 1].tile0) ++si;
+  const Segment sg = p.seg[si];
+  const int c = p.c;
+  const int width = sg.width;
+  const int n0 = (static_cast<int>(blockIdx.x) - sg.tile0) * kBN;
+  const int64_t m0 = static_cast<int64_t>(blockIdx.y) * kBM;
+  const int64_t ld = static_cast<int64_t>(p.s) * c;  // entries per edge row
+  const int nk = (width + kBK16 - 1) / kBK16;
+  __syncthreads();  // s_rows and the barriers are ready; the roles part here for good
+
+  if (warp == kConsumers / 32) {
+    // ---- producer warp: keeps the ring full, kStages16 slices ahead ----
+    for (int kt = 0; kt < nk; ++kt) {
+      const int stage = kt % kStages16;
+      if (kt >= kStages16) mbar_wait(&empty[stage], (kt / kStages16 - 1) & 1);
+      const int k0 = kt * kBK16;
+      uint64_t* bar = &full[stage];
+      uint16_t* as = a_ring + stage * (kBM * kBK16);
+      if (lane == 0) {
+        mbar_expect_tx(bar, kBTileBytes16 + (AMODE == kBfTma ? kAStageBytes16 : 0));
+        tma_load_2d(b_ring + stage * kBTileBytes16, &p.maps[si], bar, k0, n0);
+        if constexpr (AMODE == kBfTma) {
+          tma_load_3d(as, &p.h_map, bar, k0 % c, s_rows[sg.row0 + k0 / c],
+                      static_cast<int>(m0));
+        }
+      }
+      if constexpr (AMODE == kBfCopy16) {
+        for (int chunk = lane; chunk < kBM * kBK16 / 8; chunk += 32) {
+          const int r = chunk >> 3;
+          const int kc = (chunk & 7) * 8;
+          const int k = k0 + kc;
+          const bool live = m0 + r < p.e && k < width;
+          const uint16_t* src = live ? p.h + (m0 + r) * ld +
+                                           static_cast<int64_t>(s_rows[sg.row0 + k / c]) * c +
+                                           k % c
+                                     : p.h;
+          cp_async16(reinterpret_cast<float*>(as + swz16(r, kc)),
+                     reinterpret_cast<const float*>(src), live);
+        }
+        cp_async_arrive(bar);
+      } else if constexpr (AMODE == kBfCopy2) {
+        for (int idx = lane; idx < kBM * kBK16; idx += 32) {
+          const int r = idx >> 6;
+          const int kk = idx & 63;
+          const int k = k0 + kk;
+          const bool live = m0 + r < p.e && k < width;
+          as[swz16(r, kk)] =
+              live ? p.h[(m0 + r) * ld + static_cast<int64_t>(s_rows[sg.row0 + k / c]) * c +
+                         k % c]
+                   : uint16_t{0};
+        }
+        mbar_arrive(bar);  // release: the stores above are seen by the consumers' wait
+      } else {
+        cp_async_arrive(bar);
+      }
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 edge rows x 128 columns each ----
+  // A fragment of m64nNk16 bf16 (as mma.m16n8k16's per warp): register q
+  // holds the entry pair (2 fc, 2 fc + 1) + 8 (q >> 1) of row fr + 8 (q & 1)
+  const int fr = (warp >> 2) * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int fc = lane & 3;
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+
+  for (int kt = 0; kt < nk; ++kt) {
+    const int stage = kt % kStages16;
+    mbar_wait(&full[stage], (kt / kStages16) & 1);
+    const uint16_t* as = a_ring + stage * (kBM * kBK16);
+    uint32_t a[4][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        a[j][q] = *reinterpret_cast<const uint32_t*>(
+            as + swz16(fr + (q & 1) * 8, j * 16 + 2 * fc + (q >> 1) * 8));
+      }
+    }
+    const uint64_t d = sw128_desc(b_ring + stage * kBTileBytes16);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // k steps of 16 entries = 32 bytes = 2 descriptor units
+      wgmma_bf16(acc, a[j], d + 2 * j);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[stage]);
+  }
+  fence_acc(acc);
+
+  // accumulator j*4 + {0, 1, 2, 3}: (row fr, columns 8j + 2fc, +1) and
+  // (row fr + 8, the same columns), each rounded to bf16 once
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int64_t edge = m0 + fr + half * 8;
+    if (edge >= p.e) continue;
+    uint16_t* __restrict__ out_row = p.out + edge * ld;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int n = n0 + j * 8 + 2 * fc;
+      const float v0 = acc[j * 4 + half * 2];
+      const float v1 = acc[j * 4 + half * 2 + 1];
+      if constexpr (AMODE != kBfCopy2) {  // C % 8 == 0: columns n, n + 1 share a row
+        if (n < width) {
+          uint16_t* dst = out_row + static_cast<int64_t>(s_rows[sg.row0 + n / c]) * c + n % c;
+          *reinterpret_cast<uint32_t*>(dst) = pack_bf16x2(v0, v1);
+        }
+      } else {
+        if (n < width) {
+          out_row[static_cast<int64_t>(s_rows[sg.row0 + n / c]) * c + n % c] = to_bf16_bits(v0);
+        }
+        if (n + 1 < width) {
+          out_row[static_cast<int64_t>(s_rows[sg.row0 + (n + 1) / c]) * c + (n + 1) % c] =
+              to_bf16_bits(v1);
+        }
+      }
+    }
+  }
+}
+
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -511,5 +758,83 @@ extern "C" int distmlip_so2_conv_f32(const float* h, float* out, int64_t e, int 
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   kernel<<<grid, kThreads, kSmemBytes, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same convolution in bfloat16: h, out (e, s, c) bf16 contiguous on the
+// current device; packed: the (1, total) bf16 buffer of so3.py
+// pack_so2_weights(dtype=bfloat16), segment i's block at entry offset
+// block_off[i], (npad, kpad) row-major with npad = width rounded up to 128
+// and kpad = width rounded up to 64, holding B^T (K-major), zero past the
+// width. vec == 8 requires c % 8 == 0 and 16-byte aligned h and out. The
+// other arguments and the return codes are distmlip_so2_conv_f32's.
+extern "C" int distmlip_so2_conv_bf16(const void* h, void* out, int64_t e, int s, int c,
+                                      int n_seg, const int* seg_m, const int* seg_row0,
+                                      const int* seg_nl, const void* packed,
+                                      const int64_t* block_off, const int* rows, int vec,
+                                      void* stream) {
+  if (e <= 0) return 0;
+  if (n_seg < 1 || n_seg > kMaxSeg || s < 1 || s > kMaxRows || c < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -1;
+  ParamsBf16 p = {};
+  p.h = static_cast<const uint16_t*>(h);
+  p.out = static_cast<uint16_t*>(out);
+  p.e = e;
+  p.s = s;
+  p.c = c;
+  p.n_seg = n_seg;
+  const uint16_t* w = static_cast<const uint16_t*>(packed);
+  int tiles = 0;
+  for (int i = 0; i < n_seg; ++i) {
+    Segment& sg = p.seg[i];
+    sg.width = seg_nl[i] * c * (seg_m[i] == 0 ? 1 : 2);
+    const int npad = (sg.width + kBN - 1) / kBN * kBN;
+    const int kpad = (sg.width + kBK16 - 1) / kBK16 * kBK16;
+    sg.row0 = seg_row0[i];
+    sg.tile0 = tiles;
+    tiles += npad / kBN;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(kpad), static_cast<cuuint64_t>(npad)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(kpad) * 2};
+    const cuuint32_t box[2] = {kBK16, kBN};
+    const cuuint32_t elem_strides[2] = {1, 1};
+    const CUresult r = encode(&p.maps[i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                              const_cast<uint16_t*>(w + block_off[i]), dims, strides, box,
+                              elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return -2;
+  }
+  const int amode = c % 64 == 0 && vec == 8 ? kBfTma : vec == 8 ? kBfCopy16 : kBfCopy2;
+  if (amode == kBfTma) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(c), static_cast<cuuint64_t>(s),
+                                static_cast<cuuint64_t>(e)};
+    const cuuint64_t strides[2] = {static_cast<cuuint64_t>(c) * 2,
+                                   static_cast<cuuint64_t>(s) * c * 2};
+    const cuuint32_t box[3] = {kBK16, 1, kBM};
+    const cuuint32_t elem_strides[3] = {1, 1, 1};
+    const CUresult r = encode(&p.h_map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+                              const_cast<void*>(h), dims, strides, box, elem_strides,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+    if (r != CUDA_SUCCESS) return -2;
+  }
+  for (int i = 0; i < s; ++i) p.rows[i] = rows[i];
+  const int64_t row_tiles = (e + kBM - 1) / kBM;
+  if (row_tiles > 65535 || tiles < 1) {
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  }
+  const dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(row_tiles));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto kernel = amode == kBfTma      ? so2_conv_bf16_kernel<kBfTma>
+                : amode == kBfCopy16 ? so2_conv_bf16_kernel<kBfCopy16>
+                                     : so2_conv_bf16_kernel<kBfCopy2>;
+  const cudaError_t attr =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes16);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<grid, kThreads, kSmemBytes16, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,9 @@ launches the kernel or raises.
   the transpose of a masked segment sum, the gather ``g[ids] * mask``
   (``distmlip_tpu/kernels/dispatch.py:220-240``), written in
   differentiable torch ops so a later double backward (force-loss
-  training) works.
+  training) works. bfloat16 data launches the kernel's bf16 instantiation
+  (fp32 accumulation, one rounding); the gather backward is exact in bf16
+  and comes out in data's dtype.
 - ``fused_so2_conv`` (``distmlip_tpu/kernels/dispatch.py:613``) is one
   too: forward the SO(2)-convolution kernel, which reads and writes the
   model's coefficient order through a row table (no permuted copy). The
@@ -19,7 +21,10 @@ launches the kernel or raises.
   weight cotangents, only when asked for (the force program asks for
   none), and the whole backward on the plain path are the VJP of
   ``so2_conv_reference`` in differentiable torch ops, as the JAX
-  package's custom VJP (``:650-657``).
+  package's custom VJP (``:650-657``). The route follows ``h``'s dtype:
+  bfloat16 launches the bf16 kernel on bf16 packed weights, and its plain
+  products (the reference, the weight cotangents) are taken in fp32 and
+  rounded once.
 - ``fused_edge_aggregate`` (``distmlip_tpu/kernels/dispatch.py:306``) is
   one too: forward the fused gather -> message -> masked dst sum. Backward:
   a message with a kernel backward (TensorNet's interaction) launches it
@@ -45,7 +50,7 @@ from typing import Any
 
 import torch
 
-from ..ops.segment import masked_segment_sum
+from ..ops.segment import _HALF_DTYPES, masked_segment_sum
 from .edge_aggregate import EdgeMessage
 from .segment import segment_sum_cuda, segment_sum_reference
 from .so3 import (pack_so2_weights, packed_m_layout, so2_conv_cuda,
@@ -66,12 +71,13 @@ class _SegmentSum(torch.autograd.Function):
         fn = segment_sum_cuda if use_kernel else segment_sum_reference
         out = fn(data, segment_ids, num_segments, mask)
         ctx.save_for_backward(segment_ids, mask)
+        ctx.dtype = data.dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
         segment_ids, mask = ctx.saved_tensors
-        gd = g.index_select(0, segment_ids)
+        gd = g.to(ctx.dtype).index_select(0, segment_ids)
         if mask is not None:
             gd = gd * mask.reshape(mask.shape + (1,) * (gd.ndim - 1)).to(gd.dtype)
         return gd, None, None, None, None
@@ -291,6 +297,10 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
         else:
             kinds.append(None)
             arrs.append(item)
+    if use_kernel and any(a.dtype in _HALF_DTYPES for a in arrs):
+        raise NotImplementedError(
+            f"fused_edge_aggregate: half-precision inputs to the {message.name!r} kernel: "
+            "bfloat16 for the B2 kernels (TensorNet, CHGNet) is ROADMAP.md A6b")
     return _EdgeAggregate.apply(message, tuple(kinds), len(weights), use_kernel, chunk,
                                 num_segments, segment_ids, mask, *arrs, *weights, *idxs)
 
@@ -378,7 +388,14 @@ def _so2_vjp(h, weights, g, perm, inv, segments, channels, need_h, need_w):
         m > 0:  gf+ = g+ Wr^T + g- Wi^T,       gWr = f+^T g+ + f-^T g-
                 gf- = g- Wr^T - g+ Wi^T,       gWi = f+^T g- - f-^T g+
     ``need_w`` flags each weight; one not needed gets ``None`` and costs
-    nothing, and the input rows are gathered only when a weight is."""
+    nothing, and the input rows are gathered only when a weight is.
+    Half-precision operands take these products in fp32 and each cotangent
+    is rounded once to its operand's dtype, as the kernel's route does."""
+    if g.dtype in _HALF_DTYPES:
+        gh, gws = _so2_vjp(h.float(), [w.float() for w in weights], g.float(), perm, inv,
+                           segments, channels, need_h, need_w)
+        return (None if gh is None else gh.to(h.dtype),
+                [None if x is None else x.to(w.dtype) for x, w in zip(gws, weights)])
     e, c = g.shape[0], channels
     gp = g.index_select(1, perm)
     hp = h.index_select(1, perm) if any(need_w) else None

@@ -8,10 +8,13 @@ takes, allocates the output and launches one kernel on PyTorch's current
 stream. ``csr_row_offsets`` stays for the edge-aggregate kernels and the
 graph builder.
 
-``segment_sum_cuda`` takes CUDA tensors only and raises on anything else;
-``segment_sum_reference`` is the plain version (``masked_segment_sum``),
-used on the CPU and by the on-card comparison. The dispatcher
-(``kernels/dispatch.py``) chooses between them.
+``segment_sum_cuda`` takes CUDA tensors only, float32 or bfloat16 (a
+second instantiation of the same kernels: fp32 accumulation, each output
+rounded to bf16 once), and raises on anything else;
+``segment_sum_reference`` is the plain version (``masked_segment_sum``,
+which accumulates half data in fp32 and rounds once too), used on the CPU
+and by the on-card comparison. The dispatcher (``kernels/dispatch.py``)
+chooses between them.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..ops.segment import masked_segment_sum
 # launches of each kernel of the package, by name: one per kernel launch,
 # and only there (a run resets them to 0 to show the main path went through
 # the kernels). kernels/edge_aggregate.py adds its own names.
-launch_counts = {"segment_sum": 0}
+launch_counts = {"segment_sum": 0, "segment_sum_bf16": 0}
 
 
 def csr_row_offsets(segment_ids, num_segments: int, mask=None):
@@ -59,37 +62,40 @@ def current_stream_ptr(device) -> int:
     return torch._C._cuda_getCurrentRawStream(device.index)
 
 
-_fn = None
+_fns: dict = {}
+_SYMBOLS = {torch.float32: "distmlip_segment_sum_f32",
+            torch.bfloat16: "distmlip_segment_sum_bf16"}
 
 
-def _lib():
-    global _fn
-    if _fn is None:
+def _lib(dtype):
+    fn = _fns.get(dtype)
+    if fn is None:
         from .build import load
 
-        fn = load("segment_sum").distmlip_segment_sum_f32
+        fn = getattr(load("segment_sum"), _SYMBOLS[dtype])
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                        ctypes.c_void_p]
-        _fn = fn
-    return _fn
+        _fns[dtype] = fn
+    return fn
 
 
 def segment_sum_cuda(data, segment_ids, num_segments: int, mask=None):
     """Launch the CUDA segment-sum kernel: one launch, no offsets tensor.
 
-    ``data`` (E, ...) float32, contiguous; ``segment_ids`` (E,) int32/int64,
-    nondecreasing (the dst-sorted layout contract — not checked, it would
-    cost a device sync); ``mask`` (E,) bool or None. All on one CUDA
-    device. Returns (num_segments, ...) float32. Raises on anything the
-    kernel does not take, and when the launch is refused.
+    ``data`` (E, ...) float32 or bfloat16, contiguous; ``segment_ids``
+    (E,) int32/int64, nondecreasing (the dst-sorted layout contract — not
+    checked, it would cost a device sync); ``mask`` (E,) bool or None. All
+    on one CUDA device. Returns (num_segments, ...) in ``data``'s dtype,
+    accumulated in float32. Raises on anything the kernel does not take,
+    and when the launch is refused.
     """
     if not (isinstance(data, torch.Tensor) and data.is_cuda):
         raise ValueError("segment_sum_cuda takes CUDA tensors; use "
                          "segment_sum_reference for tensors on the CPU")
-    if data.dtype != torch.float32:
-        raise TypeError(f"segment_sum_cuda: data must be float32, got {data.dtype}")
+    if data.dtype not in _SYMBOLS:
+        raise TypeError(f"segment_sum_cuda: data must be float32 or bfloat16, got {data.dtype}")
     if data.ndim < 1 or not data.is_contiguous():
         raise ValueError("segment_sum_cuda: data must be a contiguous (E, ...) tensor")
     dev = data.device
@@ -114,12 +120,13 @@ def segment_sum_cuda(data, segment_ids, num_segments: int, mask=None):
     out = torch.empty((num_segments,) + tuple(trailing), dtype=data.dtype, device=dev)
     args = (data.data_ptr(), ids.data_ptr(), ids.element_size(),
             None if m is None else m.data_ptr(), out.data_ptr(), e, num_segments, width)
+    fn = _lib(data.dtype)
     if dev.index == torch.cuda.current_device():
-        err = _lib()(*args, current_stream_ptr(dev))
+        err = fn(*args, current_stream_ptr(dev))
     else:
         with torch.cuda.device(dev):
-            err = _lib()(*args, current_stream_ptr(dev))
+            err = fn(*args, current_stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError_t {err}")
-    launch_counts["segment_sum"] += 1
+    launch_counts["segment_sum" if data.dtype == torch.float32 else "segment_sum_bf16"] += 1
     return out

@@ -20,9 +20,16 @@ block of each segment, K-major and split into TF32 hi and lo parts,
 packed on the device once per layer by ``pack_so2_weights``; the same
 packing, untransposed, is the operand of the backward's input cotangent.
 
-``so2_conv_cuda`` takes CUDA tensors only and raises on anything else;
-``so2_conv_reference`` is the plain version, used on the CPU and by the
-on-card comparison. The dispatcher (``kernels/dispatch.py``
+In bfloat16 (the models' ``compute_dtype="bfloat16"``) the kernel takes
+bf16 rows and one bf16 weight buffer (no split: a bf16 product is exact in
+fp32), accumulates in fp32 on the tensor cores and rounds each output to
+bf16 once, as the Pallas body does (``preferred_element_type=f32``, one
+``astype`` on the way out).
+
+``so2_conv_cuda`` takes CUDA tensors only, float32 or bfloat16, and raises
+on anything else; ``so2_conv_reference`` is the plain version (for bf16
+inputs: the same products in fp32, rounded once), used on the CPU and by
+the on-card comparison. The dispatcher (``kernels/dispatch.py``
 ``fused_so2_conv``) chooses between them.
 """
 
@@ -35,9 +42,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.segment import _HALF_DTYPES
 from .segment import launch_counts
 
 launch_counts["so2_conv"] = 0
+launch_counts["so2_conv_bf16"] = 0
 
 
 def packed_m_layout(m_idx: dict) -> tuple:
@@ -67,8 +76,14 @@ def so2_conv_reference(h_packed, weights, segments, channels: int):
 
     ``weights`` is ``[W0, W1r, W1i, W2r, W2i, ...]`` (one (d, d) matrix
     per m=0 block, a real/imag pair per m > 0, ``d = nl * C``). Returns
-    the packed-layout output.
+    the packed-layout output. Half-precision inputs are computed in fp32
+    and rounded once to their dtype (the kernels' and the Pallas body's
+    arithmetic).
     """
+    if h_packed.dtype in _HALF_DTYPES:
+        out = so2_conv_reference(h_packed.float(), [w.float() for w in weights], segments,
+                                 channels)
+        return out.to(h_packed.dtype)
     e = h_packed.shape[0]
     c = channels
     out = []
@@ -114,13 +129,25 @@ def so2_conv_error_bound(h_packed, weights, segments, channels: int):
 
     The plain side's float32 dot products are within about k u T of the
     exact value in any summation order (the pair's two length-d products
-    and their add within (d + 1) u T)."""
+    and their add within (d + 1) u T).
+
+    bfloat16 inputs: products of bf16 values are exact in fp32, so there
+    is no split term; one wgmma instruction per 16 entries adds 17
+    addends, 36 u T each: the two fp32 sums differ by at most
+    ``e = (36 ceil(k / 16) + k) u T``. Each side then rounds to bf16 once
+    (to nearest: 8 significant bits, within 2^-8 of its value), so the two
+    bf16 outputs differ by at most ``e + 2^-7 (|y| + e)`` (one bf16 ulp
+    where the two fp32 values straddle a rounding boundary), with ``y`` the
+    plain side's fp32 value."""
     u = 2.0 ** -24
+    half = h_packed.dtype in _HALF_DTYPES
     e, c = h_packed.shape[0], channels
-    ha = h_packed.abs()
-    wa = [w.abs() for w in weights]
+    ha = h_packed.float().abs()
+    wa = [w.float().abs() for w in weights]
 
     def factor(k):
+        if half:
+            return (36 * -(-k // 16) + k) * u
         return (60 * -(-k // 8) + k + 13) * u
 
     out = []
@@ -137,7 +164,11 @@ def so2_conv_error_bound(h_packed, weights, segments, channels: int):
         wi += 2
         out.append(((fp @ wr + fm @ wim) * factor(2 * d)).reshape(e, nl, c))
         out.append(((fp @ wim + fm @ wr) * factor(2 * d)).reshape(e, nl, c))
-    return torch.cat(out, dim=1)
+    bound = torch.cat(out, dim=1)
+    if half:
+        y = so2_conv_reference(h_packed.float(), [w.float() for w in weights], segments, c)
+        bound = bound + 2.0 ** -7 * (y.abs() + bound)
+    return bound
 
 
 def tf32_round(x):
@@ -164,29 +195,35 @@ def so2_block_matrices(weights, segments):
     return blocks
 
 
-def _block_layout(segments, channels: int):
-    """Per segment ``(offset, width, npad, kpad)`` in each half of the
-    packed buffer (floats), and the half's size: width rounded up to the
-    kernel's 128 output columns (npad) and to its 32 contraction entries
-    (kpad)."""
+def _k_block(dtype) -> int:
+    """Contraction entries in one 128-byte swizzled row of the kernel's
+    stage: 32 float32 entries, 64 bfloat16 ones."""
+    return 64 if dtype == torch.bfloat16 else 32
+
+
+def _block_layout(segments, channels: int, k_block: int = 32):
+    """Per segment ``(offset, width, npad, kpad)`` in each part of the
+    packed buffer (entries), and the part's size: width rounded up to the
+    kernel's 128 output columns (npad) and to its ``k_block`` contraction
+    entries a stage (kpad: 32 in float32, 64 in bfloat16)."""
     layout, off = [], 0
     for m, _, nl in segments:
         w = nl * channels * (1 if m == 0 else 2)
-        npad, kpad = -(-w // 128) * 128, -(-w // 32) * 32
+        npad, kpad = -(-w // 128) * 128, -(-w // k_block) * k_block
         layout.append((off, w, npad, kpad))
         off += npad * kpad
     return tuple(layout), off
 
 
 @functools.lru_cache(maxsize=4)
-def _pack_index(segments: tuple, channels: int, backward: bool, device):
+def _pack_index(segments: tuple, channels: int, backward: bool, device, k_block: int = 32):
     """Gather table of the packing, made once per layout and device (the
     last 4 kept; a model uses one): entry i of direction r's buffer half
     takes ``src[index[r, i]]``, with ``src`` the flattened weights, then the
     same negated, then one zero (the padding). Direction 0 is each segment's K-major block B^T (element
     (n, k) = B[k, n]); direction 1, when ``backward``, is B itself, the
     K-major form of the transposed set's block."""
-    layout, total = _block_layout(segments, channels)
+    layout, total = _block_layout(segments, channels, k_block)
     sizes = [(nl * channels) ** 2 for m, _, nl in segments for _ in range(1 if m == 0 else 2)]
     w_off = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
     n_w = int(sum(sizes))
@@ -220,7 +257,8 @@ class PackedSO2Weights:
     ``fwd`` is a (2, total) float32 buffer, the TF32 hi parts then the lo
     parts, holding per segment at ``layout[i][0]`` the K-major block B^T
     ((npad, kpad) row-major, zero past the width): the operand of
-    ``y = f B``. ``bwd`` holds B the same way: the operand of the input
+    ``y = f B``. In bfloat16 it is a (1, total) bf16 buffer of the blocks
+    themselves (kpad a multiple of 64). ``bwd`` holds B the same way: the operand of the input
     cotangent ``g B^T``, which is the same convolution on the transposed
     weight set (W0^T; Wr^T and -Wi^T per m). ``transposed()`` swaps the
     two. ``bwd`` is None when no backward was asked for."""
@@ -239,49 +277,62 @@ def pack_so2_weights(weights, segments, channels: int, backward: bool = True):
     """Pack ``[W0, W1r, W1i, ...]`` for the kernel: once per layer, on the
     weights' device, in a dozen plain torch ops (one gather through
     ``_pack_index``, then the TF32 split); no gradient flows through it,
-    the dispatcher keeps the weights themselves for their cotangents."""
+    the dispatcher keeps the weights themselves for their cotangents.
+    bfloat16 weights pack into one bf16 buffer, no split."""
+    dtype = weights[0].dtype
+    k_block = _k_block(dtype)
     with torch.no_grad():
         flat = torch.cat([w.detach().float().reshape(-1) for w in weights])
         src = torch.cat([flat, -flat, flat.new_zeros(1)])
-        index = _pack_index(tuple(segments), int(channels), bool(backward), flat.device)
+        index = _pack_index(tuple(segments), int(channels), bool(backward), flat.device,
+                            k_block)
         blocks = src.index_select(0, index).view(2 if backward else 1, -1)
-        hi = tf32_round(blocks)
-        packed = torch.stack([hi, tf32_round(blocks - hi)], dim=1)
-    layout = _block_layout(segments, channels)[0]
+        if dtype == torch.bfloat16:
+            packed = blocks.to(torch.bfloat16)[:, None]
+        else:
+            hi = tf32_round(blocks)
+            packed = torch.stack([hi, tf32_round(blocks - hi)], dim=1)
+    layout = _block_layout(segments, channels, k_block)[0]
     return PackedSO2Weights(packed[0], packed[1] if backward else None, layout)
 
 
-def _lib():
+_SYMBOLS = {torch.float32: "distmlip_so2_conv_f32", torch.bfloat16: "distmlip_so2_conv_bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(dtype):
     from .build import load
 
-    fn = load("so2_conv").distmlip_so2_conv_f32
+    fn = getattr(load("so2_conv"), _SYMBOLS[dtype])
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+    if dtype == torch.float32:
+        args.append(ctypes.c_int64)  # the size of one part (hi, lo) of the buffer
+    fn.argtypes = args + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     return fn
 
 
 def so2_conv_cuda(h, weights, segments, channels: int, rows, packed=None):
     """Launch the CUDA SO(2)-convolution kernel.
 
-    ``h``: (E, S, C) float32, contiguous, on a CUDA device. ``weights``:
-    ``[W0, W1r, W1i, ...]`` as in ``so2_conv_reference``, (d, d) float32 on
-    ``h``'s device. ``segments``: ``packed_m_layout``'s. ``rows``: host
-    (S,) ints, packed row i read from and written to row ``rows[i]`` of
-    ``h`` and the output: the ``perm`` of ``packed_m_layout`` for the
-    model's (e3nn) order, so no permuted copy is made; ``range(S)`` for
-    packed input. ``packed``: the weights' ``pack_so2_weights`` (the kernel
-    reads its ``fwd`` buffer); packed here when not given. Returns
-    (E, S, C) float32 in ``h``'s order. Raises on anything the kernel does
+    ``h``: (E, S, C) float32 or bfloat16, contiguous, on a CUDA device.
+    ``weights``: ``[W0, W1r, W1i, ...]`` as in ``so2_conv_reference``,
+    (d, d) in ``h``'s dtype on ``h``'s device. ``segments``:
+    ``packed_m_layout``'s. ``rows``: host (S,) ints, packed row i read from
+    and written to row ``rows[i]`` of ``h`` and the output: the ``perm`` of
+    ``packed_m_layout`` for the model's (e3nn) order, so no permuted copy
+    is made; ``range(S)`` for packed input. ``packed``: the weights'
+    ``pack_so2_weights`` (the kernel reads its ``fwd`` buffer); packed here
+    when not given. Returns (E, S, C) in ``h``'s dtype and order (bf16:
+    accumulated in fp32, rounded once). Raises on anything the kernel does
     not take, and when the launch is refused.
     """
     if not (isinstance(h, torch.Tensor) and h.is_cuda):
         raise ValueError("so2_conv_cuda takes CUDA tensors; use so2_conv_reference "
                          "for tensors on the CPU")
-    if h.dtype != torch.float32:
-        raise TypeError(f"so2_conv_cuda: h must be float32, got {h.dtype}")
+    if h.dtype not in _SYMBOLS:
+        raise TypeError(f"so2_conv_cuda: h must be float32 or bfloat16, got {h.dtype}")
     if h.ndim != 3 or not h.is_contiguous():
         raise ValueError("so2_conv_cuda: h must be a contiguous (E, S, C) tensor")
     e, s, c = h.shape
@@ -305,8 +356,8 @@ def so2_conv_cuda(h, weights, segments, channels: int, rows, packed=None):
                          f"got {len(weights)}")
     for w, d in zip(weights, dims):
         if (not isinstance(w, torch.Tensor) or w.device != h.device
-                or w.dtype != torch.float32 or tuple(w.shape) != (d, d)):
-            raise ValueError(f"so2_conv_cuda: each weight must be a ({d}, {d}) float32 "
+                or w.dtype != h.dtype or tuple(w.shape) != (d, d)):
+            raise ValueError(f"so2_conv_cuda: each weight must be a ({d}, {d}) {h.dtype} "
                              f"tensor on h's device")
     rows = np.asarray(rows, dtype=np.int32)
     if rows.shape != (s,) or not np.array_equal(np.sort(rows), np.arange(s)):
@@ -316,24 +367,29 @@ def so2_conv_cuda(h, weights, segments, channels: int, rows, packed=None):
         raise ValueError("so2_conv_cuda: at most 7 |m| segments (l_max <= 6)")
     if packed is None:
         packed = pack_so2_weights(weights, segments, c, backward=False)
-    layout, total = _block_layout(segments, c)
+    layout, total = _block_layout(segments, c, _k_block(h.dtype))
+    parts = 2 if h.dtype == torch.float32 else 1
     buf = packed.fwd
-    if (packed.layout != layout or buf.device != h.device or buf.dtype != torch.float32
-            or tuple(buf.shape) != (2, total) or not buf.is_contiguous()
+    if (packed.layout != layout or buf.device != h.device or buf.dtype != h.dtype
+            or tuple(buf.shape) != (parts, total) or not buf.is_contiguous()
             or buf.data_ptr() % 16 != 0):
         raise ValueError("so2_conv_cuda: packed weights do not match the segments, "
-                         "the channels or h's device")
+                         "the channels, h's dtype or h's device")
     out = torch.empty_like(h)
     if e == 0:
         return out
-    vec = 4 if (c % 4 == 0 and h.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0) else 1
+    # elements a 16-byte copy of the edge rows: 4 float32, 8 bfloat16
+    per16 = 16 // h.element_size()
+    vec = per16 if (c % per16 == 0 and h.data_ptr() % 16 == 0
+                    and out.data_ptr() % 16 == 0) else 1
     i32 = lambda xs: (ctypes.c_int * len(xs))(*xs)  # noqa: E731
     offsets = (ctypes.c_int64 * n_seg)(*(blk[0] for blk in layout))
+    head = (h.data_ptr(), out.data_ptr(), e, s, c, n_seg, i32(seg_m), i32(seg_row0),
+            i32(seg_nl), buf.data_ptr())
+    size = (total,) if parts == 2 else ()
     with torch.cuda.device(h.device):
         stream = torch.cuda.current_stream(h.device).cuda_stream
-        err = _lib()(h.data_ptr(), out.data_ptr(), e, s, c, n_seg, i32(seg_m),
-                     i32(seg_row0), i32(seg_nl), buf.data_ptr(), total, offsets,
-                     i32(rows.tolist()), vec, stream)
+        err = _lib(h.dtype)(*head, *size, offsets, i32(rows.tolist()), vec, stream)
     if err == -1:
         raise RuntimeError("so2_conv kernel: the CUDA driver has no cuTensorMapEncodeTiled")
     if err == -2:
@@ -341,5 +397,5 @@ def so2_conv_cuda(h, weights, segments, channels: int, rows, packed=None):
                            "packed weights or of h)")
     if err != 0:
         raise RuntimeError(f"so2_conv kernel launch failed: cudaError_t {err}")
-    launch_counts["so2_conv"] += 1
+    launch_counts["so2_conv" if h.dtype == torch.float32 else "so2_conv_bf16"] += 1
     return out

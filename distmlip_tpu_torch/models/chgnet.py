@@ -28,7 +28,10 @@ MD) are masked out of every basis and message (``in_r``, ``b_real``,
 ``line_ok``), as the JAX model does.
 
 Not ported yet (raises ``NotImplementedError``): ``dtype="bfloat16"``,
-queued in ROADMAP.md.
+ROADMAP.md A6b (its B2 kernels' bf16 variants and the fp32-view gathers of
+the JAX dispatcher). The model declares the compute-dtype switch, as the
+JAX one does, so the global ``set_compute_dtype("bfloat16")`` reaches this
+raise instead of silently running float32.
 """
 
 from __future__ import annotations
@@ -84,11 +87,13 @@ class CHGNetConfig:
 
 
 class CHGNet:
+    supports_compute_dtype = True  # cfg.dtype is the JAX model's switch
+
     def __init__(self, config: CHGNetConfig = CHGNetConfig()):
         if config.dtype != "float32":
             raise NotImplementedError(
                 f"CHGNet dtype={config.dtype!r}: only float32 is ported; "
-                "bfloat16 is queued in ROADMAP.md")
+                "bfloat16 for TensorNet and CHGNet is ROADMAP.md A6b")
         self.cfg = config
 
     # ---- parameters ----

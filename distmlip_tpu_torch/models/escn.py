@@ -33,8 +33,17 @@ non-reentrant ``torch.utils.checkpoint``, so the backward holds one chunk's
 rotated features and Wigner blocks at a time and re-runs the chunk body
 (one more SO(2) and segment-sum launch per chunk).
 
-Not ported (raise ``NotImplementedError``): ``dtype="bfloat16"`` and
-``l_max > 6``.
+``dtype="bfloat16"`` (``distmlip_tpu/models/escn.py:170-190``, ``:263-372``,
+``:452-454``): the parameters are cast to bf16 except ``species_ref`` and
+``energy_mlp`` (``ops/nn.cast_params_subtrees``), so features, messages,
+the rotations (each Wigner block cast at its use), the SO(2) kernel's
+bf16 route and the MOLE mix run in bf16, while geometry (``rhat``, the
+fp32 Wigner core) and the energy readout and sum stay in the positions'
+dtype. The segment sums accumulate in fp32 and round to bf16 once, and
+the per-edge gather of the sender rows accumulates its gradient in fp32
+(``ops/nn.gather_rows``).
+
+Not ported (raises ``NotImplementedError``): ``l_max > 6``.
 """
 
 from __future__ import annotations
@@ -47,7 +56,8 @@ import torch
 from ..kernels.dispatch import fused_segment_sum, fused_so2_conv, so2_packed_weights
 from ..ops import radial
 from ..ops.chunk import chunk_layout, scan_accumulate
-from ..ops.nn import linear, linear_init, mlp, mlp_init
+from ..ops.nn import cast_params_subtrees, gather_rows, linear, linear_init, mlp, mlp_init
+from ..ops.segment import masked_segment_sum
 from ..ops.so3_e3nn import CoeffLayout, wigner_blocks_from_edges
 from ..utils.checkpoint import as_list
 
@@ -75,7 +85,7 @@ class ESCNConfig:
                                 # Wigner blocks are rebuilt per chunk
                                 # (0 disables chunking)
     remat: bool = True          # checkpoint each edge chunk
-    dtype: str = "float32"
+    dtype: str = "float32"      # compute dtype: "float32" or "bfloat16"
 
     @property
     def sphere_dim(self) -> int:
@@ -92,14 +102,14 @@ def _l_slices(l_max):
 
 
 class ESCN:
+    supports_compute_dtype = True  # energy_fn honours cfg.dtype="bfloat16"
+
     def __init__(self, config: ESCNConfig = ESCNConfig()):
         if config.l_max > 6:
             raise NotImplementedError(
                 "l_max > 6: extend the SH tables backing ops/so3_e3nn.jd_np")
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={config.dtype!r}: only float32 is ported; eSCN bfloat16 "
-                "is queued in ROADMAP.md")
+        if config.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"eSCN dtype={config.dtype!r}: float32 or bfloat16")
         self.cfg = config
         # per |m|, the stacked indices of the (l, +m) / (l, -m) pair over
         # l = m..l_max: the complex pairs the SO(2) convolutions mix
@@ -150,15 +160,25 @@ class ESCN:
         cfg = self.cfg
         C, S, L = cfg.channels, cfg.sphere_dim, cfg.l_max
         batched_gate = cfg.num_experts > 1 and lg.struct_id is not None and lg.batch_size > 0
-        dev, dtype = positions.device, positions.dtype
+        # compute dtype for features and the SO(2) GEMMs; geometry and the
+        # energy readout and sum stay in the positions dtype
+        dev, acc_dtype = positions.device, positions.dtype
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else acc_dtype
+        if cfg.dtype == "bfloat16":
+            # species_ref (reference energies) and the energy readout stay
+            # fp32 so the energy path keeps full precision
+            params = cast_params_subtrees(params, dtype,
+                                          keep_fp32=("species_ref", "energy_mlp"))
 
         vec = lg.edge_vectors(positions)
         emask = lg.edge_mask
         d = torch.linalg.norm(
             torch.where(emask[:, None], vec, torch.ones_like(vec)), dim=-1)
+        # rhat stays in the positions dtype: the Wigner core builds its trig
+        # chains in fp32 and D is cast per use in rotate()
         rhat = vec / torch.clamp(d, min=1e-9)[:, None]
-        env = radial.polynomial_cutoff(d, cfg.cutoff) * emask
-        bessel = radial.spherical_bessel_basis(d, cfg.cutoff, cfg.num_bessel)
+        env = (radial.polynomial_cutoff(d, cfg.cutoff) * emask).to(dtype)
+        bessel = radial.spherical_bessel_basis(d, cfg.cutoff, cfg.num_bessel).to(dtype)
         sl = _l_slices(L)
 
         def rotate(hvecs, D, to_edge=False, add_scalar=None):
@@ -168,7 +188,8 @@ class ESCN:
             # are joined, sparing a full-size copy
             parts = []
             for l in range(L + 1):
-                Dl = D[l].transpose(1, 2) if to_edge else D[l]
+                Dl = D[l].to(hvecs.dtype)
+                Dl = Dl.transpose(1, 2) if to_edge else Dl
                 parts.append(torch.bmm(Dl, hvecs[:, sl[l], :]))
             if add_scalar is not None:
                 parts[0] = parts[0] + add_scalar[:, None, :]
@@ -231,11 +252,11 @@ class ESCN:
                 params["target_emb"]["w"].index_select(0, z.index_select(0, dstc)),
             ], dim=-1)
             w_deg = linear(params["edge_deg"], x_edge).reshape(-1, L + 1, C)
-            y = torch.cat([D[l][:, :, l:l + 1] * w_deg[:, l:l + 1, :]
+            y = torch.cat([D[l][:, :, l:l + 1].to(dtype) * w_deg[:, l:l + 1, :]
                            for l in range(L + 1)], dim=1)
             return y * envc[:, None, None]
 
-        inv_avg = 1.0 / cfg.avg_num_neighbors
+        inv_avg = torch.tensor(1.0 / cfg.avg_num_neighbors, dtype=dtype, device=dev)
         h = h + edge_scan(deg_chunk) * inv_avg
         h = lg.halo_exchange(h)
 
@@ -246,8 +267,9 @@ class ESCN:
         if batched_gate:
             owned = lg.owned_mask.to(dtype)[:, None]
             B, sid = lg.batch_size, lg.struct_id.long()
-            comp_sum = lg.psum(zemb.new_zeros((B + 1, C)).index_add(0, sid, zemb * owned)[:B])
-            count = lg.psum(owned.new_zeros(B + 1).index_add(0, sid, owned[:, 0])[:B])
+            # per-structure sums accumulate in fp32 (a bf16 count stops at 256)
+            comp_sum = lg.psum(masked_segment_sum(zemb * owned, sid, B + 1)[:B])
+            count = lg.psum(masked_segment_sum(owned[:, 0], sid, B + 1)[:B])
             gate_in = torch.cat([comp_sum / torch.clamp(count, min=1.0)[:, None],
                                  csd.expand(B, C)], dim=-1)
             mole = torch.softmax(mlp(params["mole_gate"], gate_in), dim=-1)  # (B, E)
@@ -283,7 +305,7 @@ class ESCN:
                 g_e = mlp(layer["edge_mlp"], ef) * envc[:, None]  # (E_c, C)
                 # rotate into the edge frame, the edge scalars injected into
                 # the l=0 row
-                h_rot = rotate(h.index_select(0, srcc), D, to_edge=True, add_scalar=g_e)
+                h_rot = rotate(gather_rows(h, srcc), D, to_edge=True, add_scalar=g_e)
                 conv = lambda k: fused_so2_conv(  # noqa: E731
                     h_rot, ws_sets[k], self.m_idx, C, kernels=lg.kernels, packed=packs[k])
                 if batched_gate:
@@ -305,5 +327,8 @@ class ESCN:
                              agg[:, 1:] * gates[:, None, :]], dim=1)
             h = lg.halo_exchange(h + upd)
 
-        e_atom = mlp(params["energy_mlp"], h[:, 0, :])[:, 0]
-        return e_atom + params["species_ref"]["w"].index_select(0, z)
+        # the energy readout and sum in the positions dtype (bf16 is too
+        # coarse for them): the JAX package's bf16 scalars times its fp32
+        # readout weights promote to fp32
+        e_atom = mlp(params["energy_mlp"], h[:, 0, :].to(acc_dtype))[:, 0]
+        return e_atom + params["species_ref"]["w"].index_select(0, z).to(acc_dtype)

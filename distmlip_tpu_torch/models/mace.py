@@ -32,8 +32,14 @@ interaction energies inside scale/shift; its per-atom edge sum is one
 ``aggregate_edges`` call at width 1, so it launches the segment-sum kernel
 once more per calculate (per edge segment of a split graph).
 
-Not ported yet (raises ``NotImplementedError``): ``dtype="bfloat16"``,
-queued in ROADMAP.md.
+``dtype="bfloat16"`` (``distmlip_tpu/models/mace.py:320-383``, ``:410-445``,
+``:492-580``): features, messages and every GEMM of the interactions run in
+bf16 (the bessel/envelope features, the spherical harmonics, ``h``, the
+interaction's parameters, the projection and coupling tables, ``1/avg``);
+geometry, the site energies, ``scale``/``shift``, the readouts and ZBL stay
+in the positions' dtype. The segment sums accumulate in fp32 and round to
+bf16 once (the bf16 kernel on the card), and the per-edge gather of the
+sender rows accumulates its gradient in fp32 (``ops/nn.gather_rows``).
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ import torch
 from ..kernels.dispatch import fused_segment_sum
 from ..ops import radial
 from ..ops.chunk import chunk_layout, remat_wrap, scan_accumulate
-from ..ops.nn import linear, linear_init, linear_init_vp, mlp, mlp_init, mlp_init_vp
+from ..ops.nn import (cast_params_subtrees, gather_rows, linear, linear_init, linear_init_vp,
+                      mlp, mlp_init, mlp_init_vp)
 from ..ops.so3 import real_clebsch_gordan, spherical_harmonics, symmetric_coupling_basis
 from ..utils.checkpoint import as_list
 
@@ -81,7 +88,7 @@ class MACEConfig:
     edge_chunk: int = 32768   # edges per chunk of the density projection
                               # (0 disables chunking)
     node_chunk: int = 4096    # nodes per chunk of the symmetric contraction
-    dtype: str = "float32"
+    dtype: str = "float32"   # compute dtype: "float32" or "bfloat16"
 
 
 def _triangle(l1, l2, l3):
@@ -148,6 +155,8 @@ def _projection_tables(h_ls, l_max, paths):
 
 
 class MACE:
+    supports_compute_dtype = True  # energy_fn honours cfg.dtype="bfloat16"
+
     def __init__(self, config: MACEConfig = MACEConfig()):
         self.cfg = config
         c = config
@@ -155,10 +164,8 @@ class MACE:
             raise ValueError(
                 f"head={c.head} out of range for num_heads={c.num_heads}"
             )
-        if c.dtype != "float32":
-            raise NotImplementedError(
-                f"MACE dtype={c.dtype!r}: only float32 is ported; bfloat16 "
-                "is queued in ROADMAP.md")
+        if c.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"MACE dtype={c.dtype!r}: float32 or bfloat16")
         self.h_ls0 = [0]
         self.h_ls = list(range(c.hidden_lmax + 1))
         self.a_ls = list(range(c.a_lmax + 1))
@@ -293,7 +300,11 @@ class MACE:
     def energy_fn(self, params, lg, positions):
         cfg = self.cfg
         C = cfg.channels
-        dtype = positions.dtype
+        # geometry stays in the positions dtype; features and messages run
+        # in the compute dtype; per-atom energy terms accumulate in the
+        # positions dtype (bf16 has too few mantissa bits for them)
+        acc_dtype = positions.dtype
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else acc_dtype
         per_t, U_t = self._consts(positions.device, dtype)
 
         vec = lg.edge_vectors(positions)
@@ -301,14 +312,14 @@ class MACE:
         d = torch.linalg.norm(
             torch.where(emask[:, None], vec, torch.ones_like(vec)), dim=-1)
         rhat = vec / torch.clamp(d, min=1e-9)[:, None]
-        env = radial.polynomial_cutoff(d, cfg.cutoff, p=cfg.cutoff_p) * emask
+        env = (radial.polynomial_cutoff(d, cfg.cutoff, p=cfg.cutoff_p) * emask).to(dtype)
         # envelope multiplies the bessel features BEFORE the radial MLP
         # (upstream's RadialEmbeddingBlock); the bias-free MLP maps 0 -> 0
         bessel = (radial.spherical_bessel_basis(d, cfg.cutoff, cfg.num_bessel)
-                  * env[:, None])
+                  * env[:, None]).to(dtype)
         Y_full = torch.cat(
             [spherical_harmonics(l, rhat) for l in range(cfg.l_max + 1)],
-            dim=-1)                                        # (E, S_Y)
+            dim=-1).to(dtype)                              # (E, S_Y)
 
         # edge-chunk layout, shared by every interaction, aligned to the
         # interior/frontier split: every chunk's dst stays sorted (the
@@ -321,12 +332,12 @@ class MACE:
                  Y_full[rows], bessel[rows])
 
         z = lg.species
-        h = {0: params["species_emb"]["w"][z][:, None, :]}
+        h = {0: params["species_emb"]["w"][z][:, None, :].to(dtype)}
         h = self._unpack(lg.halo_exchange(self._pack(h)), [0], C)
 
         head = cfg.head
-        e_site = params["species_ref"]["w"][head][z]
-        acc = torch.zeros(positions.shape[0], dtype=dtype, device=positions.device)
+        e_site = params["species_ref"]["w"][head][z].to(acc_dtype)
+        acc = torch.zeros(positions.shape[0], dtype=acc_dtype, device=positions.device)
         if cfg.zbl:
             # ZBL joins the interaction energies inside scale * (...) +
             # shift, as upstream ScaleShiftMACE sums pair_node_energy into
@@ -338,8 +349,10 @@ class MACE:
                                   consts=per_t[t], U_t=U_t)
             h = self._unpack(lg.halo_exchange(self._pack(h)), self.h_ls_out[t], C)
 
-            # invariant readout (head column selected)
-            scalars = h[0][:, 0, :]
+            # invariant readout (head column selected), in the positions
+            # dtype on the uncast readout weights: the JAX package's bf16
+            # scalars times its fp32 weights promote to fp32
+            scalars = h[0][:, 0, :].to(acc_dtype)
             readout = as_list(inter["readout"])
             if t == cfg.num_interactions - 1:
                 r_out = mlp(readout, scalars)[:, head]
@@ -347,7 +360,9 @@ class MACE:
                 r_out = linear(readout[0], scalars)[:, head]
             acc = acc + r_out
 
-        return e_site + params["scale"][head] * acc + params["shift"][head]
+        scale = params["scale"][head].to(acc_dtype)
+        shift = params["shift"][head].to(acc_dtype)
+        return e_site + scale * acc + shift
 
     def _zbl_site(self, params, lg, d):
         """Per-atom ZBL pair repulsion, half per directed edge
@@ -373,6 +388,10 @@ class MACE:
         linear update."""
         cfg = self.cfg
         C = cfg.channels
+        dtype = h[0].dtype
+        # the whole interaction in the compute dtype: its parameters cast
+        # (a no-op in float32)
+        inter = cast_params_subtrees(inter, dtype)
         n_nodes = h[0].shape[0]
         h_ls = self.h_ls_in[t]
         out_ls = self.h_ls_out[t]
@@ -394,7 +413,7 @@ class MACE:
             # is channel-free and tiny; contracting it with h_src over m
             # costs S_h multiply-adds per (q, c)
             T = torch.einsum("en,mnq->emq", Yc, Wp3)
-            M = torch.einsum("emq,emc->eqc", T, hu[srcc])  # (E_c, Q, C)
+            M = torch.einsum("emq,emc->eqc", T, gather_rows(hu, srcc))  # (E_c, Q, C)
             M = M * Rc[:, q_path, :]                       # per-path radial
             return fused_segment_sum(M, dstc, n_nodes, maskc,
                                      indices_are_sorted=True,
@@ -402,7 +421,7 @@ class MACE:
 
         A_all = scan_accumulate(chunk_body, edges, K, remat=cfg.remat)
         # per-path output mixing on nodes (upstream's post-conv_tp linear)
-        inv_avg = 1.0 / cfg.avg_num_neighbors
+        inv_avg = torch.tensor(1.0 / cfg.avg_num_neighbors, dtype=dtype, device=A_all.device)
         A = {
             l: torch.einsum(
                 "npmc,pcd->nmd",

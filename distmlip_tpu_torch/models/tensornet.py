@@ -23,7 +23,10 @@ JAX package give the same energies:
   scaled by ``data_std`` plus per-species reference energies.
 
 Not ported yet (raises ``NotImplementedError``): ``dtype="bfloat16"``,
-queued in ROADMAP.md.
+ROADMAP.md A6b (its B2 kernels' bf16 variants and the fp32-view gathers of
+the JAX dispatcher). The model declares the compute-dtype switch, as the
+JAX one does, so the global ``set_compute_dtype("bfloat16")`` reaches this
+raise instead of silently running float32.
 """
 
 from __future__ import annotations
@@ -125,11 +128,13 @@ def _matmul3(P, Q):
 
 
 class TensorNet:
+    supports_compute_dtype = True  # cfg.dtype is the JAX model's switch
+
     def __init__(self, config: TensorNetConfig = TensorNetConfig()):
         if config.dtype != "float32":
             raise NotImplementedError(
                 f"TensorNet dtype={config.dtype!r}: only float32 is ported; "
-                "bfloat16 is queued in ROADMAP.md")
+                "bfloat16 for TensorNet and CHGNet is ROADMAP.md A6b")
         self.cfg = config
 
     # ---- parameters ----

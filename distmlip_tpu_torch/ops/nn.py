@@ -2,9 +2,10 @@
 
 Models are functions over nested-dict parameter trees of tensors (the JAX
 package's pytree layout, so weights carry across by path): ``linear``,
-``mlp``, ``gated_mlp``, ``layernorm``, ``embedding`` and ``gather_rows``
-match ``distmlip_tpu/ops/nn.py:36,100,110-123,129-158``. The init helpers
-draw from a ``torch.Generator`` so a seed fixes the weights.
+``mlp``, ``gated_mlp``, ``layernorm``, ``embedding``, ``gather_rows`` and
+``cast_params_subtrees`` match ``distmlip_tpu/ops/nn.py:36,48-61,100,
+110-158``. The init helpers draw from a ``torch.Generator`` so a seed fixes
+the weights.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.checkpoint import as_list
+from .segment import _HALF_DTYPES
 
 
 def linear(p, x):
@@ -126,9 +128,50 @@ def layernorm(p, x, eps: float = 1e-5):
     return (x - mu) / torch.sqrt(var + eps) * p["g"] + p["b"]
 
 
+def cast_params_subtrees(params: dict, dtype, keep_fp32: tuple = ()) -> dict:
+    """The floating leaves of a parameter dict cast to ``dtype``, the named
+    top-level subtrees left as they are (precision-critical pieces such as
+    species reference energies and readout heads). The bfloat16 compute
+    switch of the models; the tree's own leaves are not changed."""
+    def cast(tree):
+        if isinstance(tree, dict):
+            return {k: cast(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(cast(v) for v in tree)
+        if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+            return tree.to(dtype)
+        return tree
+
+    return {k: (v if k in keep_fp32 else cast(v)) for k, v in params.items()}
+
+
+class _HalfGather(torch.autograd.Function):
+    """Rows of a half-precision table whose gradient accumulates in fp32:
+    the forward gather is exact in the table's dtype; the backward
+    scatter-adds the cotangent rows in fp32 and rounds once to the table's
+    dtype (a half-precision scatter-add would round at every contribution).
+    The backward is differentiable torch ops, so a double backward works."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n = table.shape[0]
+        return table.index_select(0, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        acc = g.new_zeros((ctx.n,) + tuple(g.shape[1:]), dtype=torch.float32)
+        return acc.index_add(0, idx, g.float()).to(g.dtype), None
+
+
 def gather_rows(table, idx):
-    """Rows ``idx`` of ``table`` (float32 here: the JAX package's fp32
-    gradient view for half tables belongs to the bf16 path, not ported)."""
+    """Rows ``idx`` of ``table`` (``distmlip_tpu/ops/nn.py:140-154``). A
+    half-precision table's gradient accumulates in fp32 and rounds once,
+    as the JAX package's gather through an fp32 view does; the forward
+    values are the same bits either way."""
+    if table.dtype in _HALF_DTYPES:
+        return _HalfGather.apply(table, idx)
     return table.index_select(0, idx)
 
 

@@ -148,7 +148,9 @@ class BucketPolicy:
     :meth:`estimate_batch_bytes`
     answers what a batch of N atoms would cost, for the scheduler's bytes
     budget (``serve.scheduler.plan_batch``). Shapes stay history-free; only
-    the bytes estimates learn.
+    the bytes estimates learn. The bytes model is kept per compute dtype
+    (``dtype``, the model's ``cfg.dtype``): a bfloat16 model's peaks are
+    not a float32 one's, and one policy may serve both.
     """
 
     def __init__(self, base: int = 128, growth: float = 2.0 ** 0.5,
@@ -158,7 +160,7 @@ class BucketPolicy:
         self.base = int(base)
         self.growth = float(growth)
         self.multiple = int(multiple)
-        self._bytes_by_cap: dict[int, int] = {}
+        self._bytes_by_cap: dict[tuple, int] = {}  # (dtype, node rung) -> peak
         self._bytes_lock = threading.Lock()
 
     def get(self, name: str, needed: int) -> int:
@@ -166,26 +168,31 @@ class BucketPolicy:
 
     # ---- bytes model (memory-aware batching) ----
 
-    def calibrate_bytes(self, node_cap: int, peak_bytes: int) -> None:
+    def calibrate_bytes(self, node_cap: int, peak_bytes: int, dtype: str = "float32") -> None:
         """Record a measured device peak for a batch whose node rung is
-        ``node_cap``; keeps the WORST peak per rung."""
+        ``node_cap`` under compute dtype ``dtype``; keeps the WORST peak
+        per rung."""
         node_cap, peak_bytes = int(node_cap), int(peak_bytes)
         if node_cap <= 0 or peak_bytes <= 0:
             return
         with self._bytes_lock:
-            prev = self._bytes_by_cap.get(node_cap, 0)
+            prev = self._bytes_by_cap.get((dtype, node_cap), 0)
             if peak_bytes > prev:
-                self._bytes_by_cap[node_cap] = peak_bytes
+                self._bytes_by_cap[(dtype, node_cap)] = peak_bytes
 
-    def has_calibrated_rung(self, total_atoms: int) -> bool:
+    def _rungs(self, dtype: str) -> dict:
+        return {c: b for (d, c), b in self._bytes_by_cap.items() if d == dtype}
+
+    def has_calibrated_rung(self, total_atoms: int, dtype: str = "float32") -> bool:
         """Whether ``total_atoms``'s own node rung has a MEASURED peak (not
-        an extrapolation). Hard admission decisions key on this: rejecting
-        on a guess could keep a rung from ever being measured."""
+        an extrapolation) under ``dtype``. Hard admission decisions key on
+        this: rejecting on a guess could keep a rung from ever being
+        measured."""
         cap = self.get("nodes", max(int(total_atoms), 1))
         with self._bytes_lock:
-            return cap in self._bytes_by_cap
+            return (dtype, cap) in self._bytes_by_cap
 
-    def estimate_batch_bytes(self, total_atoms: int) -> int | None:
+    def estimate_batch_bytes(self, total_atoms: int, dtype: str = "float32") -> int | None:
         """Estimated device peak of a batch of ``total_atoms`` atoms.
 
         The measured peak of its rung when that rung ran before (never
@@ -193,16 +200,16 @@ class BucketPolicy:
         that errs up: with two or more measured rungs an affine fit
         ``resident + k * cap`` through the extreme rungs, with one a
         linear scaling floored at the observed peak. None before any
-        measurement (callers then skip the budget check)."""
+        measurement under ``dtype`` (callers then skip the budget check)."""
         cap = self.get("nodes", max(int(total_atoms), 1))
         with self._bytes_lock:
-            exact = self._bytes_by_cap.get(cap)
+            rungs = self._rungs(dtype)
+            exact = rungs.get(cap)
             if exact is not None:
-                return max(b for c, b in self._bytes_by_cap.items()
-                           if c <= cap)
-            if not self._bytes_by_cap:
+                return max(b for c, b in rungs.items() if c <= cap)
+            if not rungs:
                 return None
-            pts = sorted(self._bytes_by_cap.items())
+            pts = sorted(rungs.items())
             floor = min(b for _, b in pts)
             if len(pts) >= 2:
                 (c_lo, b_lo), (c_hi, b_hi) = pts[0], pts[-1]

@@ -330,7 +330,7 @@ class ServeEngine:
         if self.max_batch_atoms is not None and n > self.max_batch_atoms:
             return
         exact = getattr(getattr(self.potential, "caps", None), "has_calibrated_rung", None)
-        if exact is None or not exact(n):
+        if exact is None or not exact(n, getattr(self.potential, "compute_dtype", "float32")):
             return
         est = self.potential.estimate_batch_bytes(n)
         if est is not None and est > budget:
@@ -425,7 +425,8 @@ class ServeEngine:
             plan = plan_batch([r.n_atoms for r in normal],
                               policy=getattr(self.potential, "caps", None),
                               max_batch=self.max_batch, window=limit,
-                              bytes_budget=self._memory_budget())
+                              bytes_budget=self._memory_budget(),
+                              dtype=getattr(self.potential, "compute_dtype", "float32"))
             chosen = set(plan.take)
             for i, r in enumerate(normal):
                 if i in chosen:

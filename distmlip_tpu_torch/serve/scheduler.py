@@ -13,6 +13,8 @@ bucket bound (``BucketPolicy.max_rungs``).
 
 from __future__ import annotations
 
+import functools
+
 from dataclasses import dataclass, field
 
 from ..partition.capacity import BucketPolicy
@@ -54,6 +56,7 @@ def plan_batch(
     max_batch: int = 8,
     window: int = 64,
     bytes_budget: int | None = None,
+    dtype: str = "float32",
 ) -> BatchPlan:
     """Greedy bucket-aware micro-batch selection.
 
@@ -95,7 +98,8 @@ def plan_batch(
     submit, but a request admitted BEFORE the model calibrated can
     become an over-budget head later). Until the model has any
     calibration the check is a no-op — the first batch through a fresh
-    engine calibrates it.
+    engine calibrates it. ``dtype`` selects the bytes model of that compute
+    dtype (the potential's ``compute_dtype``).
     """
     policy = policy or BucketPolicy()
     plan = BatchPlan()
@@ -104,6 +108,8 @@ def plan_batch(
     est = getattr(policy, "estimate_batch_bytes", None)
     if bytes_budget is None:
         est = None
+    elif est is not None:
+        est = functools.partial(est, dtype=dtype)
     total = int(sizes[0])
     cap = policy.get("nodes", total)
     plan.take.append(0)
@@ -118,7 +124,7 @@ def plan_batch(
             # (rejecting on guesses would livelock the lane: see
             # BucketPolicy.has_calibrated_rung)
             exact = getattr(policy, "has_calibrated_rung", None)
-            plan.over_budget = bool(exact and exact(total))
+            plan.over_budget = bool(exact and exact(total, dtype))
             return plan
     for i in range(1, min(len(sizes), window)):
         n = len(plan.take)

@@ -2,7 +2,10 @@
 
 - MACE at the MACE-MP-0-medium widths (the values of ``bench_mace_config``
   in ``tools/bench_common.py``, copied as literals), float32, full remat,
-  edge chunks of 32768 and node chunks of 4096.
+  edge chunks of 32768 and node chunks of 4096. ``MACE_BF16_KW`` is the
+  same at ``dtype="bfloat16"``: bench.py's own configuration, whose
+  headline MD metric runs at ``BENCH_DTYPE=bfloat16`` by default
+  (``bench.py:266``, its batched phase too, ``:348``).
 - TensorNet at the matgl TensorNet-MatPES-PBE layout (89 species, 64
   channels, 32 RBF, 2 layers, cutoff 5.0 Å; the full-size layout that
   ``tests/test_convert_tensornet.py:228-240`` converts), float32.
@@ -18,7 +21,8 @@
   1, dataset 2) set on the atoms. Two changes from the example:
   ``num_species=95`` (the config's default) in place of 8, so Si (Z = 14)
   needs no species map (only the embedding tables' row counts change);
-  and float32 in place of bfloat16, which the port does not have yet.
+  and float32 in place of the example's bfloat16. ``ESCN_BF16_KW`` is the
+  same at ``dtype="bfloat16"``: the example's own precision.
 
 The batched and serving phases run on bench.py's batched/serving pool
 (``batched_pool``: copies of the 32-atom reps=2 crystal, each with its own
@@ -49,6 +53,8 @@ ESCN_KW = dict(num_species=95, channels=128, l_max=4, num_layers=2, num_experts=
                cutoff=5.0, avg_num_neighbors=40.0, num_bessel=8, edge_channels=32,
                edge_chunk=32768, remat=True)
 ESCN_INFO = {"charge": 1, "spin": 1, "dataset": 2}
+MACE_BF16_KW = dict(MACE_KW, dtype="bfloat16")
+ESCN_BF16_KW = dict(ESCN_KW, dtype="bfloat16")
 
 
 def bench_atoms(reps: int = 8, seed: int = 0):

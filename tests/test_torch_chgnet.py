@@ -48,6 +48,7 @@ from distmlip_tpu_torch.partition import CapacityPolicy, build_partitioned_graph
 from distmlip_tpu_torch.tools.workload import CHGNET_KW
 from distmlip_tpu_torch.utils import load_params, params_from_numpy
 from tests.utils import make_crystal
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = dict(num_species=4, units=16, num_rbf=6, num_angle=4, num_blocks=3, cutoff=3.2,
            bond_cutoff=2.6)

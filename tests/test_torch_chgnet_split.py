@@ -32,6 +32,7 @@ from distmlip_tpu_torch.kernels import (chgnet_aggregate_error_bound,
 from distmlip_tpu_torch.ops.segment import masked_segment_sum
 from tests.test_torch_cuda import chgnet_rows, sorted_case
 from tests.test_torch_edge_aggregate import _jax_chgnet, _jax_gated
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 WIDTHS = [(8, 12), (16, 10)]
 

@@ -1493,3 +1493,293 @@ def test_row_projection_refuses_what_it_does_not_take_on_card(card):
     with pytest.raises(ValueError):
         K.chgnet_row_projection_cuda(x, torch.zeros(64 * 8 + 1, device=card)[1:].view(64, 8))
     assert K.launch_counts == before
+
+
+# ---------------------------------------------------------------------------
+# bfloat16 (compute_dtype="bfloat16"): B1 and B3's bf16 kernels
+# ---------------------------------------------------------------------------
+
+def bf16_segment_bound(data, ids, n, mask):
+    """|kernel - plain| for bf16 rows: both sum the same bf16 values in fp32
+    (orders differ: e = 2 k u T, k the largest row's valid-edge count, T the
+    sum of |terms|), then round once to bf16 (8 significant bits, each
+    within 2^-8 of its value): e + 2^-7 (|y| + e), one bf16 ulp where the
+    two fp32 sums straddle a rounding boundary, y the plain side's sum."""
+    from distmlip_tpu_torch.kernels import segment_sum_reference
+
+    ids_np = ids.cpu().numpy()
+    keep = (ids_np >= 0) & (ids_np < n) & (True if mask is None else mask.cpu().numpy())
+    k = max(int(np.bincount(ids_np[keep], minlength=n).max()), 1) if keep.any() else 1
+    e = 2 * k * 2.0 ** -24 * segment_sum_reference(data.float().abs(), ids, n, mask)
+    y = segment_sum_reference(data.float(), ids, n, mask)
+    return e + 2.0 ** -7 * (y.abs() + e)
+
+
+def _segment_sum_bf16_on_card(card, data, ids, n, mask):
+    from distmlip_tpu_torch.kernels import (launch_counts, segment_sum_cuda,
+                                            segment_sum_reference)
+
+    before = dict(launch_counts)
+    got = segment_sum_cuda(data, ids, n, mask)
+    torch.cuda.synchronize()
+    assert launch_counts["segment_sum_bf16"] == before["segment_sum_bf16"] + 1
+    assert launch_counts["segment_sum"] == before["segment_sum"]
+    want = segment_sum_reference(data, ids, n, mask)
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    bound = bf16_segment_bound(data, ids, n, mask)
+    assert bool(((got.float() - want.float()).abs() <= bound + 1e-30).all())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("width", SEGMENT_WIDTHS)
+def test_segment_sum_bf16_widths_on_card(card, width, id_dtype):
+    """The bf16 kernel at every mapping (pairs where the width is even,
+    single values where it is odd) against its plain version: fp32 sums of
+    the same bf16 rows, each rounded once."""
+    ids, mask, n = sorted_case(20 + width, 500, 60, 40, 30, hi=50)
+    data = torch.from_numpy(case_data(20 + width, len(ids), (width,))).to(card)
+    ti = torch.from_numpy(ids.astype(id_dtype)).to(card)
+    _segment_sum_bf16_on_card(card, data.bfloat16(), ti, n, torch.from_numpy(mask).to(card))
+    _segment_sum_bf16_on_card(card, data.bfloat16(), ti, n, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [1, 2, 3, 100, 3200])
+@pytest.mark.parametrize("case", ["all_masked", "nan_in_masked_rows", "long_padded_tail",
+                                  "unaligned", "many_edges"])
+def test_segment_sum_bf16_edge_cases_on_card(card, case, width):
+    """All masked gives zeros; NaN in masked rows never reaches a sum; a
+    9000-edge padded tail; a view off a 4-byte boundary (single values);
+    rows of ~500 edges, where a bf16 accumulator would lose ~5 bits and the
+    fp32 one keeps the sum within one bf16 rounding."""
+    ids, mask, n = sorted_case(70 + width, 400, 50, 20, 25)
+    if case == "long_padded_tail":
+        ids, mask, n = sorted_case(70 + width, 300, 40, 9000, 3)
+    elif case == "many_edges":
+        ids, mask, n = sorted_case(70 + width, 20000, 40, 10, 100)
+    elif case == "all_masked":
+        mask[:] = False
+    data = case_data(70 + width, len(ids), (width,))
+    if case == "nan_in_masked_rows":
+        data[~mask] = np.nan
+    t = torch.from_numpy(data).to(card).bfloat16()
+    if case == "unaligned":
+        buf = torch.zeros(t.numel() + 1, dtype=torch.bfloat16, device=card)
+        buf[1:] = t.reshape(-1)
+        t = buf[1:].view(t.shape)
+    got = _segment_sum_bf16_on_card(card, t, torch.from_numpy(ids).to(card), n,
+                                    torch.from_numpy(mask).to(card))
+    if case == "all_masked":
+        assert not bool(got.any())
+    if case == "many_edges":
+        exact = torch.zeros((n, width), dtype=torch.float64, device=card)
+        keep = torch.from_numpy(mask).to(card)
+        ik = torch.from_numpy(ids).to(card).long()[keep]
+        exact.index_add_(0, ik, t.double()[keep])
+        terms = torch.zeros_like(exact).index_add_(0, ik, t.double()[keep].abs())
+        # one bf16 rounding of the exact sum, plus the fp32 sum's own error
+        k = int(np.bincount(ids[mask], minlength=n).max())
+        tol = 2.0 ** -8 * exact.abs() + 2 * k * 2.0 ** -24 * terms
+        assert bool(((got.double() - exact).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+def test_segment_sum_bf16_backward_and_refusals_on_card(card):
+    """The Function's backward keeps data's dtype (the gather g[ids] * mask
+    is exact in bf16); float16 and float64 are refused."""
+    from distmlip_tpu_torch.kernels import fused_segment_sum, segment_sum_cuda
+
+    ids = torch.tensor([0, 0, 2, 2, 2], dtype=torch.int32, device=card)
+    data = torch.arange(10, dtype=torch.bfloat16, device=card).reshape(5, 2)
+    m = torch.tensor([True, False, True, True, False], device=card)
+    d = data.clone().requires_grad_(True)
+    out = fused_segment_sum(d, ids, 4, m, indices_are_sorted=True)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float().cpu(), torch.tensor(
+        [[0.0, 1.0], [0.0, 0.0], [10.0, 12.0], [0.0, 0.0]]))
+    (g,) = torch.autograd.grad(out.float().sum(), d)
+    assert g.dtype == torch.bfloat16
+    torch.testing.assert_close(g.float(), m[:, None].float().expand(5, 2))
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="bfloat16"):
+            segment_sum_cuda(data.to(dt), ids, 4, None)
+
+
+def _so2_bf16_case_on_card(card, name):
+    h, weights, perm, inv, segments, c, m_idx = _so2_case_on_card(card, name)
+    return h.bfloat16(), [w.bfloat16() for w in weights], perm, inv, segments, c, m_idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SO2_CASES))
+def test_so2_conv_bf16_kernel_matches_plain_on_card(card, name):
+    """The bf16 SO(2) kernel (one bf16 wgmma a product, fp32 accumulation,
+    one rounding) vs its plain version (the same products in fp32, rounded
+    once) within ``so2_conv_error_bound``'s bf16 form, in the packed order
+    and through the row table. C 128 takes the TMA rows, C 8 and 16 the
+    16-byte copies, C 7 the element copies."""
+    from distmlip_tpu_torch import kernels as K
+
+    h, weights, perm, inv, segments, c, _ = _so2_bf16_case_on_card(card, name)
+    hp = h[:, torch.as_tensor(perm, device=card).long()].contiguous()
+    bound = K.so2_conv_error_bound(hp, weights, segments, c)
+    before = dict(K.launch_counts)
+    got = K.so2_conv_cuda(hp, weights, segments, c, np.arange(h.shape[1]))
+    want = K.so2_conv_reference(hp, weights, segments, c)
+    torch.cuda.synchronize()
+    assert K.launch_counts["so2_conv_bf16"] == before["so2_conv_bf16"] + 1
+    assert K.launch_counts["so2_conv"] == before["so2_conv"]
+    assert got.shape == want.shape == h.shape and got.dtype == want.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got.float()).all())
+    assert bool(((got.float() - want.float()).abs() <= bound + 1e-30).all()), name
+    got_src = K.so2_conv_cuda(h, weights, segments, c, perm)
+    inv_t = torch.as_tensor(inv, device=card).long()
+    assert bool(((got_src.float() - want[:, inv_t].float()).abs()
+                 <= bound[:, inv_t] + 1e-30).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(SO2_CASES))
+def test_so2_conv_bf16_backward_route_on_card(card, name):
+    """bf16 backward route: the kernel on the transposed weight set with the
+    swapped bf16 buffers against the plain VJP's input cotangent, which for
+    bf16 also takes its products in fp32 and rounds once."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import dispatch
+
+    h, weights, perm, inv, segments, c, m_idx = _so2_bf16_case_on_card(card, name)
+    g = torch.from_numpy(np.random.default_rng(7).normal(size=h.shape).astype(np.float32))
+    g = g.to(card).bfloat16()
+    perm_t = torch.as_tensor(perm, device=card).long()
+    inv_t = torch.as_tensor(inv, device=card).long()
+    packed = K.pack_so2_weights(weights, segments, c)
+    assert packed.fwd.dtype == torch.bfloat16 and packed.fwd.shape[0] == 1
+    wt = dispatch._so2_transposed_weights(weights, segments)
+    got = K.so2_conv_cuda(g, wt, segments, c, perm, packed=packed.transposed())
+    want = dispatch._so2_vjp(h, weights, g, perm_t, inv_t, segments, c, True,
+                             [False] * len(weights))[0]
+    bound = K.so2_conv_error_bound(g[:, perm_t], wt, segments, c)[:, inv_t]
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert bool(((got.float() - want.float()).abs() <= bound + 1e-30).all()), name
+    hl = h.clone().requires_grad_(True)
+    before = K.launch_counts["so2_conv_bf16"]
+    (gh,) = torch.autograd.grad(K.fused_so2_conv(hl, weights, m_idx, c, packed=packed), hl, g)
+    assert K.launch_counts["so2_conv_bf16"] == before + 2
+    torch.testing.assert_close(gh, got, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_so2_conv_bf16_refuses_mixed_dtypes_on_card(card):
+    """bf16 h with float32 weights, or a float32 packing, raises before a
+    launch; the wrapper takes float32 or bfloat16 only."""
+    from distmlip_tpu_torch import kernels as K
+
+    h, weights, perm, _, segments, c, _ = _so2_case_on_card(card, "e37_lmax2_c16")
+    before = dict(K.launch_counts)
+    with pytest.raises(ValueError, match="weight"):
+        K.so2_conv_cuda(h.bfloat16(), weights, segments, c, perm)
+    with pytest.raises(ValueError, match="packed weights"):
+        K.so2_conv_cuda(h.bfloat16(), [w.bfloat16() for w in weights], segments, c, perm,
+                        packed=K.pack_so2_weights(weights, segments, c))
+    with pytest.raises(TypeError, match="bfloat16"):
+        K.so2_conv_cuda(h.half(), [w.half() for w in weights], segments, c, perm)
+    assert K.launch_counts == before
+
+
+def _bf16_model(family):
+    from distmlip_tpu_torch.models import ESCN, ESCNConfig, MACE, MACEConfig
+
+    if family == "mace":
+        return MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2, hidden_lmax=1,
+                               correlation=2, cutoff=3.0, edge_chunk=128, dtype="bfloat16"))
+    return ESCN(ESCNConfig(num_species=4, channels=16, l_max=2, num_layers=2, num_bessel=6,
+                           num_experts=4, cutoff=3.0, avg_num_neighbors=12.0, edge_chunk=128,
+                           dtype="bfloat16"))
+
+
+def _bf16_close(got, want, tag):
+    """bf16 against bf16 across the kernel and plain routes, or the card and
+    the CPU (each rounds its bf16 values at other ulps where the fp32 sums
+    straddle a boundary, and the model carries the flips on): the bf16 bar
+    of ``tests/test_torch_bf16.py``, |dE| / atom <= 1e-3 eV and max |dF|,
+    |dS| <= 0.05 of the largest."""
+    n = len(want["forces"])
+    assert abs(got["energy"] - want["energy"]) <= 1e-3 * n, tag
+    f_scale = np.abs(want["forces"]).max()
+    assert np.abs(got["forces"] - want["forces"]).max() <= 0.05 * f_scale, tag
+    s_scale = np.abs(want["stress"]).max()
+    assert np.abs(got["stress"] - want["stress"]).max() <= 0.05 * s_scale, tag
+    assert got["forces"].dtype == np.float32 and isinstance(got["energy"], float)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 2])
+@pytest.mark.parametrize("family", ["mace", "escn"])
+def test_bf16_on_card_launches_the_bf16_kernels(card, family, P):
+    """``DistPotential(compute_dtype="bfloat16")`` on the card launches the
+    bf16 kernels, and only them, as many times as the float32 path launches
+    its own (per segment and edge chunk), and agrees with ``kernels=False``
+    on the card and with the CPU's plain bf16 path."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    atoms = _long_cell()
+    if family == "escn":
+        atoms.info = {"charge": 1, "spin": 2, "dataset": 3}
+    model = _bf16_model(family)
+    f32 = type(model)(type(model.cfg)(**dict(vars(model.cfg), dtype="float32")))
+    params = model.init(0)
+    pot = DistPotential(f32, params, device=card, num_partitions=P, compute_dtype="bfloat16")
+    assert pot.model.cfg.dtype == "bfloat16" and pot.compute_dtype == "bfloat16"
+    before = dict(launch_counts)
+    gpu = pot.calculate(atoms)
+    got = {k: launch_counts[k] - before[k] for k in launch_counts}
+    st = pot.last_stats
+    k = (chunk_layout(2 * st["e_cap"], model.cfg.edge_chunk, 2 * st["e_split"])[2] if P == 2
+         else chunk_layout(st["e_cap"], model.cfg.edge_chunk)[2])
+    want = {name: 0 for name in got}
+    if family == "mace":
+        want["segment_sum_bf16"] = model.cfg.num_interactions * 2 * k
+    else:
+        want.update(so2_conv_bf16=model.cfg.num_layers * 3 * k,
+                    segment_sum_bf16=(1 + model.cfg.num_layers) * 2 * k)
+    assert got == want
+    plain = DistPotential(model, params, device=card, num_partitions=P, kernels=False)
+    _bf16_close(gpu, plain.calculate(atoms), "kernels vs plain on the card")
+    assert {k: launch_counts[k] - before[k] for k in launch_counts} == want
+    cpu = DistPotential(model, params, device="cpu", num_partitions=P).calculate(atoms)
+    _bf16_close(gpu, cpu, "card vs CPU")
+
+
+@pytest.mark.cuda
+def test_bf16_batched_mace_on_card(card):
+    """``BatchedPotential`` over a bf16 MACE on the card: the bf16 segment
+    sum per chunk, the bytes model calibrated under "bfloat16" only, and
+    each structure with edges within the bf16 bar of the CPU's plain bf16
+    path."""
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    structs = _packed_batch()
+    model = _bf16_model("mace")
+    params = model.init(0)
+    pot = BatchedPotential(model, params, device=card, skin=0.5)
+    before = dict(launch_counts)
+    torch.cuda.reset_peak_memory_stats()
+    gpu = pot.calculate(structs)
+    got = {k: launch_counts[k] - before[k] for k in launch_counts}
+    k = chunk_layout(pot.last_stats["e_cap"], model.cfg.edge_chunk)[2]
+    assert got == dict({n: 0 for n in got}, segment_sum_bf16=model.cfg.num_interactions * 2 * k)
+    n = sum(len(a) for a in structs)
+    assert pot.caps.has_calibrated_rung(n, "bfloat16")
+    assert not pot.caps.has_calibrated_rung(n, "float32")
+    cpu = BatchedPotential(model, params, device="cpu").calculate(structs)
+    for g, c, a in zip(gpu, cpu, structs):
+        if len(a) > 1:  # the lone atom has no edge: nothing to compare
+            _bf16_close(g, c, "batched card vs CPU")

@@ -37,6 +37,7 @@ from distmlip_tpu_torch.parallel import make_potential_fn
 from distmlip_tpu_torch.partition import (CapacityPolicy, build_partitioned_graph,
                                           build_plan, device_refresh_graph, refresh_edges)
 from tests.utils import make_crystal
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 TRICLINIC = np.array([[8.0, 0, 0], [2.5, 7.0, 0], [1.5, -2.0, 6.5]])
 

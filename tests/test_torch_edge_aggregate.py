@@ -55,6 +55,7 @@ from distmlip_tpu_torch.kernels import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,
                                         tensornet_interaction_error_bound)
 from tests.test_torch_cuda import (CHGNET_CASES, EDGE_AGG_CASES, chgnet_inputs,
                                    embed_inputs, interaction_inputs, sorted_case)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 N_NODE = 23
 

@@ -47,6 +47,7 @@ from distmlip_tpu_torch.partition import CapacityPolicy, build_partitioned_graph
 from distmlip_tpu_torch.tools.workload import ESCN_INFO, ESCN_KW
 from distmlip_tpu_torch.utils import load_params, params_from_numpy
 from tests.utils import make_crystal
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = dict(num_species=4, channels=16, l_max=2, num_layers=2, num_bessel=6, num_experts=4,
            cutoff=3.2, avg_num_neighbors=12.0)
@@ -271,8 +272,15 @@ def test_out_of_range_conditioning_raises(info, match):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        ESCN(ESCNConfig(**dict(CFG, dtype="bfloat16")))
+    # bfloat16 is ported (tests/test_torch_bf16*.py): it builds and runs,
+    # energies and forces in float32
+    bf16 = DistPotential(ESCN(ESCNConfig(**dict(CFG, dtype="bfloat16"))),
+                         ESCN(ESCNConfig(**CFG)).init(0), device="cpu")
+    res = bf16.calculate(_atoms(_structure(), INFO))
+    assert np.isfinite(res["energy"]) and res["forces"].dtype == np.float32
+    assert np.isfinite(res["forces"]).all() and bf16.compute_dtype == "bfloat16"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        ESCN(ESCNConfig(**dict(CFG, dtype="float16")))
     with pytest.raises(NotImplementedError, match="l_max > 6"):
         ESCN(ESCNConfig(**dict(CFG, l_max=7)))
     model = ESCN(ESCNConfig(**CFG))

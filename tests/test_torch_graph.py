@@ -36,6 +36,7 @@ from distmlip_tpu_torch.partition import (CapacityPolicy, PartitionError,
                                           build_partitioned_graph, build_plan)
 from distmlip_tpu_torch.partition.graph import ARRAY_FIELDS
 from tests.utils import make_crystal
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 def _structures():

@@ -37,6 +37,7 @@ from distmlip_tpu_torch.ops.segment import masked_segment_sum
 from distmlip_tpu_torch.parallel import halo, local_graph_from_stacked
 from distmlip_tpu_torch.partition import (CapacityPolicy, build_partitioned_graph,
                                           build_plan)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 R, BOND_R = 3.0, 2.0
 

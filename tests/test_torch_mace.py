@@ -28,6 +28,7 @@ from distmlip_tpu_torch.calculators import Atoms, DistPotential
 from distmlip_tpu_torch.models import MACE, MACEConfig
 from distmlip_tpu_torch.utils import load_params, params_from_numpy
 from tests.utils import make_crystal
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = dict(num_species=4, channels=16, l_max=3, a_lmax=3, hidden_lmax=1,
            correlation=3, num_interactions=2, num_bessel=6, radial_mlp=16,

@@ -35,6 +35,7 @@ from distmlip_tpu_torch.calculators import (ENSEMBLES, Atoms, DistPotential,
                                             TrajectoryObserver)
 from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
 from tests.utils import make_crystal
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 class SpringPotential:

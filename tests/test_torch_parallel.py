@@ -33,6 +33,7 @@ from distmlip_tpu_torch import geometry, models
 from distmlip_tpu_torch.calculators import Atoms, DistPotential, MolecularDynamics
 from distmlip_tpu_torch.neighbors import neighbor_list
 from distmlip_tpu_torch.partition import build_plan
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 # family -> (model class name, config, potential keywords, atoms.info)
 FAMILIES = {

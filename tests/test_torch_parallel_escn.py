@@ -10,6 +10,7 @@ the identity, and a gate computed per partition would show here.
 import pytest
 
 from tests.test_torch_parallel import cases, check_family_at  # noqa: F401
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("P", [2, 3, 4])

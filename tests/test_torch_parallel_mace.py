@@ -11,6 +11,7 @@ import pytest
 
 from distmlip_tpu_torch.ops.chunk import chunk_layout
 from tests.test_torch_parallel import FAMILIES, cases, check_family_at  # noqa: F401
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("P", [2, 3, 4])

@@ -26,6 +26,7 @@ from distmlip_tpu_torch.neighbors import neighbor_list_numpy as port_nl
 from distmlip_tpu_torch.partition import (CapacityPolicy, PartitionError,
                                           build_partitioned_graph, build_plan)
 from distmlip_tpu_torch.partition.graph import ARRAY_FIELDS
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 R, BOND_R = 3.0, 2.0
 PLAN_LISTS = ("global_ids", "node_markers", "g2l", "edge_ids", "src_local", "dst_local",

@@ -24,6 +24,7 @@ from distmlip_tpu_torch.device import resolve_device
 from distmlip_tpu_torch.kernels import build
 from distmlip_tpu_torch.models import MACE, MACEConfig
 from distmlip_tpu_torch.ops.chunk import remat_wrap
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(distmlip_tpu_torch.__file__)
@@ -98,8 +99,10 @@ def test_unported_options_raise():
     # zbl=True is ported (tests/test_torch_mace_zbl.py): it builds, with its
     # two ZBL parameters
     assert set(MACE(MACEConfig(**TINY, zbl=True)).init(0)["zbl"]) == {"a_exp", "a_prefactor"}
-    with pytest.raises(NotImplementedError, match="float32"):
-        MACE(MACEConfig(**TINY, dtype="bfloat16"))
+    # bfloat16 is ported (tests/test_torch_bf16*.py): MACE builds at it
+    assert MACE(MACEConfig(**TINY, dtype="bfloat16")).cfg.dtype == "bfloat16"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        MACE(MACEConfig(**TINY, dtype="float16"))
     model = MACE(MACEConfig(**TINY))
     # P>1 runs (tests/test_torch_parallel*.py); what it does not take raises
     with pytest.raises(ValueError, match="device_rebuild=True"):
@@ -107,8 +110,9 @@ def test_unported_options_raise():
                       device_rebuild=True)
     with pytest.raises(ValueError, match="num_partitions"):
         DistPotential(model, model.init(0), num_partitions=0, device="cpu")
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        DistPotential(model, model.init(0), compute_dtype="bfloat16", device="cpu")
+    # compute_dtype="bfloat16" rebuilds the model at it and runs
+    bf16 = DistPotential(model, model.init(0), compute_dtype="bfloat16", device="cpu")
+    assert bf16.model.cfg.dtype == "bfloat16" and model.cfg.dtype == "float32"
     with pytest.raises(NotImplementedError, match="checkpoint"):
         remat_wrap(lambda x: x, "dots")
     with pytest.raises(ValueError):
@@ -116,11 +120,11 @@ def test_unported_options_raise():
     with pytest.raises(ValueError):
         set_default_dtype("float", 16)
     # the process-global compute dtype is read when a potential is built:
-    # bfloat16 raises instead of silently running float32
+    # MACE runs at bfloat16 under it
     set_compute_dtype("bfloat16")
     try:
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            DistPotential(model, model.init(0), device="cpu")
+        pot = DistPotential(model, model.init(0), device="cpu")
+        assert pot.model.cfg.dtype == "bfloat16" and pot.compute_dtype == "bfloat16"
     finally:
         set_compute_dtype("float32")
     assert DistPotential(model, model.init(0), device="cpu").kernels is True

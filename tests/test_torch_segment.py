@@ -24,6 +24,7 @@ from distmlip_tpu.ops.segment import masked_segment_sum as jax_masked_segment_su
 from distmlip_tpu_torch.kernels import (fused_segment_sum, launch_counts,
                                         segment_sum_cuda, segment_sum_reference)
 from tests.test_torch_cuda import CASES, case_data, sorted_case
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 ATOL = 1e-5
 

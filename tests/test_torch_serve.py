@@ -25,6 +25,7 @@ from distmlip_tpu_torch.models import PairConfig, PairPotential
 from distmlip_tpu_torch.partition import BucketPolicy
 from distmlip_tpu_torch.serve import (EngineClosed, ServeEngine, ServeRejected, plan_batch,
                                       run_closed_loop, run_open_loop)
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 pytestmark = pytest.mark.serve
 

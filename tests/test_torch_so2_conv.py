@@ -25,6 +25,7 @@ from distmlip_tpu_torch import kernels as K
 from distmlip_tpu_torch.kernels import dispatch
 from distmlip_tpu_torch.ops.so3_e3nn import CoeffLayout
 from tests.test_torch_cuda import so2_inputs
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("l_max", range(7))

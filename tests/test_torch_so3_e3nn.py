@@ -19,6 +19,7 @@ import torch
 
 from distmlip_tpu.ops import so3_e3nn as J
 from distmlip_tpu_torch.ops import so3_e3nn as T
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("l", range(7))

@@ -32,6 +32,7 @@ from distmlip_tpu_torch.parallel import halo
 from distmlip_tpu_torch.tools.workload import TENSORNET_KW
 from distmlip_tpu_torch.utils import load_params, params_from_numpy
 from tests.utils import make_crystal
+from tests.torch_threads import one_intra_op_thread  # noqa: F401
 
 CFG = dict(num_species=4, units=16, num_rbf=8, num_layers=2, cutoff=4.0)
 
