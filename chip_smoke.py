@@ -158,7 +158,7 @@ Phases (each failure raises, so the exit code is non-zero):
    round's against ``DistPotential``. Launch counts derived per calculate,
    as above.
 
-12. bfloat16 compute (``compute_dtype="bfloat16"``, MACE and eSCN):
+12. bfloat16 compute (``compute_dtype="bfloat16"``, MACE, eSCN, TensorNet):
    ``[kernels] segment_sum bf16`` (B1's bf16 instantiation at MACE's two
    chunk shapes and eSCN's rows, the width sweep with int32 and int64 ids,
    all-masked and the padding-only chunk; tolerance one bf16 ulp over the
@@ -175,6 +175,21 @@ Phases (each failure raises, so the exit code is non-zero):
    (the bars below), step ms and peak beside float32's; ``[md-bf16]`` (MACE, 20
    ``nvt_bussi`` steps of 0.35 fs) and ``[batched-mace-bf16]`` (B = 1 and
    8, against ``DistPotential`` and ``kernels=False`` at the bf16 bar).
+   TensorNet at bf16 (``TENSORNET_BF16_KW``, the MatPES layout):
+   ``[kernels] tensornet bf16`` (the bf16 embed, interaction and
+   interaction backward on the 16,384-atom graph, E 917,504, C 64, against
+   their plain bf16 versions within ``tensornet_embed_error_bound`` /
+   ``tensornet_interaction_error_bound`` /
+   ``tensornet_interaction_backward_error_bound`` at bf16 data, all masked
+   writing zeros, the padding-only tail and two small cases; call ms,
+   kernel alone, host µs, the bound at 2 bytes an element, ``index_add_``
+   of the built message upcast to float32), ``[main-tensornet-bf16]`` (4
+   calculates at 16,384 atoms, launches derived as the float32 path's,
+   the first calculate's ms logged alone), ``[md-tensornet-bf16]``
+   (MD_BF16_STEPS ``nvt_bussi`` steps with the device refresh, refreshes
+   counted, their pair sets checked), ``[parallel-tensornet-bf16]`` (P = 2
+   against P = 1 and ``kernels=False``, the kernels on the flattened
+   graph's segments) and ``[batched-tensornet-bf16]`` (B = 1 and 8).
    The bf16 bars: the kernels' route within rel dE < 1e-3 and max |dF| <
    0.1 max |F| of the plain one, and no further from float32 than the
    plain route is (x 1.25 + 0.005 max |F|): each route rounds the same
@@ -220,7 +235,10 @@ REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             # the same TPU kernels at bf16 data (their VMEM scratch and
             # dots in data.dtype, fp32 accumulation)
             "segment_sum_bf16": "distmlip_tpu/kernels/segment.py:142",
-            "so2_conv_bf16": "distmlip_tpu/kernels/so3.py:89"}
+            "so2_conv_bf16": "distmlip_tpu/kernels/so3.py:89",
+            "tensornet_embed_aggregate_bf16": "distmlip_tpu/kernels/segment.py:224",
+            "tensornet_interaction_aggregate_bf16": "distmlip_tpu/kernels/segment.py:224",
+            "tensornet_interaction_backward_bf16": "distmlip_tpu/kernels/dispatch.py:482"}
 SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "tensornet_embed_aggregate": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "tensornet_interaction_aggregate":
@@ -232,7 +250,12 @@ SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "chgnet_row_projection": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
            "so2_conv": "distmlip_tpu_torch/kernels/csrc/so2_conv.cu",
            "segment_sum_bf16": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
-           "so2_conv_bf16": "distmlip_tpu_torch/kernels/csrc/so2_conv.cu"}
+           "so2_conv_bf16": "distmlip_tpu_torch/kernels/csrc/so2_conv.cu",
+           "tensornet_embed_aggregate_bf16": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
+           "tensornet_interaction_aggregate_bf16":
+               "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
+           "tensornet_interaction_backward_bf16":
+               "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu"}
 STEPS = 3
 TENSORNET_REPS = 16  # bench.py's default structure: 16384 atoms
 CHGNET_REPS = 16
@@ -415,29 +438,28 @@ def check_edge_aggregate(torch, which, arrays, ids, mask, n):
     """Kernel vs plain on one input; returns max |kernel - plain|.
     Per output element |kernel - plain| <= 2 (k + 3) u T: k is the row's
     valid-edge count, u = 2^-24, T the exact sum of |terms| (the plain
-    version on |inputs|; for the interaction
+    version on |inputs|; ``kernels.tensornet_embed_error_bound`` and
     ``kernels.tensornet_interaction_error_bound``, whose T takes the lower
-    triangle's terms from the upper one)."""
+    triangle's terms from the upper one). bf16 inputs: the bounds' bf16
+    form, the plain route's r bf16 roundings of each message entry (r = 6
+    embed, 4 interaction) over T, then one bf16 ulp of the result,
+    e + 2^-7 (|y| + e)."""
     from distmlip_tpu_torch import kernels as K
 
-    cuda, ref = {
-        "embed": (K.tensornet_embed_aggregate_cuda, K.tensornet_embed_aggregate_reference),
+    cuda, ref, bound_fn = {
+        "embed": (K.tensornet_embed_aggregate_cuda, K.tensornet_embed_aggregate_reference,
+                  K.tensornet_embed_error_bound),
         "interaction": (K.tensornet_interaction_aggregate_cuda,
-                        K.tensornet_interaction_aggregate_reference)}[which]
+                        K.tensornet_interaction_aggregate_reference,
+                        K.tensornet_interaction_error_bound)}[which]
     got = cuda(*arrays, ids, n, mask)
     want = ref(*arrays, ids, n, mask)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{which} shape/dtype {got.shape} {got.dtype} "
                              f"vs {want.shape} {want.dtype}")
-    if which == "interaction":
-        tol = K.tensornet_interaction_error_bound(*arrays, ids, n, mask)
-    else:
-        t = ref(*[x.abs() for x in arrays], ids, n, mask)
-        valid = ids.long() if mask is None else ids.long()[mask]
-        k = torch.bincount(valid, minlength=n)[:n].to(torch.float32)
-        tol = 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * t
-    err = (got - want).abs()
+    tol = bound_fn(*arrays, ids, n, mask)
+    err = (got.float() - want.float()).abs()
     if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{which} disagrees with its plain version: max |err| "
                              f"{float(err.max())}, max tolerance {float(tol.max())}")
@@ -445,6 +467,11 @@ def check_edge_aggregate(torch, which, arrays, ids, mask, n):
 
 
 def time_edge_aggregate(torch, which, arrays, ids, mask, n):
+    """A TensorNet forward kernel's call ms (CUDA events), the kernel alone
+    (profiler) and the host µs a call, its plain version's ms, one
+    ``index_add_`` of the built message (bf16 upcast to float32
+    beforehand: an fp32 accumulation as the kernel's), and the bound at
+    the inputs' element size (index and mask bytes unchanged)."""
     from distmlip_tpu_torch import kernels as K
 
     cuda, ref, message = {
@@ -453,16 +480,18 @@ def time_edge_aggregate(torch, which, arrays, ids, mask, n):
         "interaction": (K.tensornet_interaction_aggregate_cuda,
                         K.tensornet_interaction_aggregate_reference,
                         K.TENSORNET_INTERACTION.fn)}[which]
-    ms = cuda_ms(torch, lambda: cuda(*arrays, ids, n, mask))
+    timed = split(torch, lambda: cuda(*arrays, ids, n, mask), f"tensornet_{which}_kernel")
+    half = arrays[0].dtype == torch.bfloat16
     plain_ms = cuda_ms(torch, lambda: ref(*arrays, ids, n, mask), iters=5)
     e = ids.shape[0]
     c = arrays[0].shape[1]
+    es = arrays[0].element_size()
     if which == "embed":
         msg = message(*arrays)
     else:
         src = arrays[4]
         msg = message(arrays[0], *(x.index_select(0, src) for x in arrays[1:4]))
-    masked = torch.where(mask[:, None, None, None], msg, 0.0).reshape(e, 9 * c)
+    masked = torch.where(mask[:, None, None, None], msg.float(), 0.0).reshape(e, 9 * c)
     del msg
     out = torch.zeros((n, 9 * c), device="cuda")
     ids_long = ids.long()
@@ -470,23 +499,24 @@ def time_edge_aggregate(torch, which, arrays, ids, mask, n):
     library_ms = cuda_ms(torch, lambda: out.index_add_(0, ids_long, masked))
     del masked, out
     n_valid = int(mask.sum())
-    io = e * ids.element_size() + e + n * 9 * c * 4  # ids, mask, output
+    io = e * ids.element_size() + e + n * 9 * c * es  # ids, mask, output
     if which == "embed":
-        nbytes = n_valid * (4 * c + 18) * 4 + io
+        nbytes = n_valid * (4 * c + 18) * es + io
         ops = n_valid * c * (9 * 6 + 3)
     else:
         # f and src of each valid edge, each gathered src row's 10 C
         # compact floats once; 10 multiply-adds per (edge, channel) and
         # 9 adds per (row, channel) to assemble the 3x3
         n_src = int(torch.unique(arrays[4][mask]).numel())
-        nbytes = n_valid * (3 * c * 4 + arrays[4].element_size()) + n_src * 10 * c * 4 + io
+        nbytes = n_valid * (3 * c * es + arrays[4].element_size()) + n_src * 10 * c * es + io
         ops = n_valid * c * 10 * 2 + n * c * 9
     bound_ms, bound_by = bound(nbytes, ops)
-    out = {"which": which, "e": e, "valid_edges": n_valid, "channels": c,
-           "n_segments": n, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "library": "index_add_ of the materialised "
-           "(E, 9C) message: the scatter alone", "bound_ms": bound_ms,
-           "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+    out = {"which": which, "dtype": str(arrays[0].dtype).split(".")[-1], "e": e,
+           "valid_edges": n_valid, "channels": c, "n_segments": n, **timed,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library": "index_add_ of the materialised (E, 9C) message"
+           + (" upcast to float32" if half else "") + ": the scatter alone",
+           "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
     if which == "interaction":
         out["unique_src_rows"] = n_src
     return out
@@ -510,7 +540,7 @@ def check_interaction_backward(torch, g, arrays, ids, mask):
         if x.shape != y.shape or x.dtype != y.dtype:
             raise AssertionError(f"interaction backward {name} shape/dtype {x.shape} "
                                  f"{x.dtype} vs {y.shape} {y.dtype}")
-        err = (x - y).abs()
+        err = (x.float() - y.float()).abs()
         if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"interaction backward {name} disagrees with its plain "
                                  f"version: max |err| {float(err.max())}, max tolerance "
@@ -532,7 +562,8 @@ def time_interaction_backward(torch, g, arrays, ids, mask):
 
     f, node_i, node_a, node_s, src = arrays
     n_node = node_i.shape[0]
-    ms = cuda_ms(torch, lambda: K.tensornet_interaction_backward_cuda(g, *arrays, ids, mask))
+    timed = split(torch, lambda: K.tensornet_interaction_backward_cuda(g, *arrays, ids, mask),
+                  "tensornet_interaction_bwd_kernel")
     sort_ms = cuda_ms(torch, lambda: K.src_order(src, n_node, mask))
 
     def plain():
@@ -553,17 +584,19 @@ def time_interaction_backward(torch, g, arrays, ids, mask):
     n_dst = int(torch.unique(ids[mask]).numel())
     # f of each valid edge read, d f of every edge written, each gathered g
     # row and x row read once, d x written, src, dst ids and mask read
-    nbytes = (n_valid * 3 * c * 4 + e * 3 * c * 4 + n_dst * 9 * c * 4 + n_src * 10 * c * 4
-              + n_node * 10 * c * 4 + e * (src.element_size() + ids.element_size() + 1))
+    es = f.element_size()
+    nbytes = ((n_valid * 3 * c + e * 3 * c + n_dst * 9 * c + n_src * 10 * c
+               + n_node * 10 * c) * es + e * (src.element_size() + ids.element_size() + 1))
     # per valid (edge, channel): 8 adds for t, u, v; 10 multiply-adds into
     # d x; 1 + 5 + 11 for d f's three columns
     ops = n_valid * c * (8 + 20 + 17)
     bound_ms, bound_by = bound(nbytes, ops)
-    return {"e": e, "valid_edges": n_valid, "channels": c, "n_node": n_node, "ms": ms,
+    return {"dtype": str(f.dtype).split(".")[-1], "e": e, "valid_edges": n_valid,
+            "channels": c, "n_node": n_node, **timed,
             "sort_ms": sort_ms, "plain_ms": plain_ms,
             "plain": "the chunked recompute (dispatch._edge_aggregate_bwd)",
             "library_ms": library_ms, "library": "index_add_ of the materialised (E, 10C) "
-            "node-row cotangent by src: the scatter alone", "bound_ms": bound_ms,
+            "float32 node-row cotangent by src: the scatter alone", "bound_ms": bound_ms,
             "bound_by": bound_by, "bytes": nbytes, "ops": ops}
 
 
@@ -619,6 +652,64 @@ def phase_edge_aggregate_kernels(torch):
             f"max |err| {max(errs[which])}")
     log(f"[kernels] tensornet interaction backward: all cases agree with the plain "
         f"version; max |err| {max(errs['backward'])}")
+    return {w: max(v) for w, v in errs.items()}, timed
+
+
+def phase_edge_aggregate_kernels_bf16(torch):
+    """``[kernels] tensornet bf16``: the bf16 instantiations of the embed,
+    the interaction and the interaction's backward on the TensorNet path's
+    graph (C = 64) at bf16 inputs, each against its plain bf16 version
+    within its bound's bf16 form, then all masked (every output zero: the
+    plain version's zeros within a bound of 0), the
+    padding-only tail on one dst row, and two small cases (C = 7 with E not
+    a multiple of any block, C = 300 past one block of threads)."""
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW
+
+    gen = torch.Generator(device="cuda").manual_seed(4322)
+    ids, src, mask, n = tensornet_graph(torch)
+    c = TENSORNET_KW["units"]
+
+    def bf16(arrays):
+        return [x.bfloat16() if x.is_floating_point() else x for x in arrays]
+
+    errs, timed = {}, {}
+    for which in ("embed", "interaction"):
+        arrays = bf16(edge_inputs(torch, gen, which, ids.shape[0], c, n, src))
+        errs[which] = [check_edge_aggregate(torch, which, arrays, ids, mask, n)]
+        timed[which] = time_edge_aggregate(torch, which, arrays, ids, mask, n)
+        log(f"[kernels] tensornet bf16 {which}: {json.dumps(timed[which])}")
+        # all masked: the plain version is zeros and the bound 0
+        errs[which].append(check_edge_aggregate(torch, which, arrays, ids,
+                                                torch.zeros_like(mask), n))
+        one_row = torch.full_like(ids, int(ids[-1]))
+        last5 = torch.arange(len(ids), device="cuda") >= len(ids) - 5
+        errs[which].append(check_edge_aggregate(torch, which, arrays, one_row, last5, n))
+        if which == "interaction":
+            g = torch.randn((n, 3, 3, c), generator=gen, device="cuda").bfloat16()
+            errs["backward"] = [check_interaction_backward(torch, g, arrays, ids, mask)]
+            torch.cuda.empty_cache()
+            timed["backward"] = time_interaction_backward(torch, g, arrays, ids, mask)
+            log(f"[kernels] tensornet bf16 interaction backward: "
+                f"{json.dumps(timed['backward'])}")
+            errs["backward"].append(check_interaction_backward(torch, g, arrays, ids,
+                                                               torch.zeros_like(mask)))
+        del arrays
+        torch.cuda.empty_cache()
+        for e, rows, cc in ((1003, 300, 7), (90, 13, 300)):
+            sub_ids = torch.sort(torch.randint(0, rows, (e,), generator=gen,
+                                               device="cuda"))[0].to(torch.int32)
+            sub_mask = torch.rand(e, generator=gen, device="cuda") > 0.1
+            sub_mask[-17:] = False
+            sub_ids[-17:] = sub_ids[-18]
+            sub = bf16(edge_inputs(torch, gen, which, e, cc, 37))
+            errs[which].append(check_edge_aggregate(torch, which, sub, sub_ids, sub_mask, rows))
+            if which == "interaction":
+                sub_g = torch.randn((rows, 3, 3, cc), generator=gen, device="cuda").bfloat16()
+                errs["backward"].append(check_interaction_backward(torch, sub_g, sub, sub_ids,
+                                                                   sub_mask))
+    torch.cuda.empty_cache()
+    log(f"[kernels] tensornet bf16: all cases agree with the plain bf16 versions; max |err| "
+        f"{json.dumps({w: max(v) for w, v in errs.items()})}")
     return {w: max(v) for w, v in errs.items()}, timed
 
 
@@ -1526,10 +1617,12 @@ def phase_escn(torch):
 def phase_main_bf16(torch, family):
     """``[main-bf16]`` (MACE at MACE_BF16_KW, bench.py's configuration) or
     ``[main-escn-bf16]`` (eSCN at ESCN_BF16_KW, example 05's, with ESCN_INFO)
-    on the 2048-atom crystal: ``drive``'s 4 calculates with the launch
-    counts derived as the float32 paths' but on the bf16 kernels; the same
-    geometries through ``kernels=False`` (bf16) and the port's float32 on
-    the card. Both bf16 routes within rel dE < 2e-2 and max |dF| < 0.3 max
+    on the 2048-atom crystal, or ``[main-tensornet-bf16]`` (TensorNet at
+    TENSORNET_BF16_KW on the 16384-atom one): ``drive``'s 4 calculates with
+    the launch counts derived as the float32 paths' but on the bf16 kernels
+    (TensorNet: the embed's plain backward chunks too, keyed by its
+    message); the same geometries through ``kernels=False`` (bf16) and the
+    port's float32 on the card. Both bf16 routes within rel dE < 2e-2 and max |dF| < 0.3 max
     |F| of float32 (bf16's own distance at these widths, a sanity bar), the
     kernels' route within rel dE < 1e-3 and max |dF| < 0.1 max |F| of the
     plain one and no further from float32 than it (x 1.25 + 0.005 max |F|);
@@ -1537,39 +1630,59 @@ def phase_main_bf16(torch, family):
     import numpy as np
 
     from distmlip_tpu_torch.calculators import DistPotential
-    from distmlip_tpu_torch.kernels import launch_counts
-    from distmlip_tpu_torch.models import ESCN, ESCNConfig, MACE, MACEConfig
+    from distmlip_tpu_torch.kernels import launch_counts, recompute_chunks
+    from distmlip_tpu_torch.kernels.dispatch import DEFAULT_BWD_CHUNK
+    from distmlip_tpu_torch.models import (ESCN, ESCNConfig, MACE, MACEConfig, TensorNet,
+                                           TensorNetConfig)
     from distmlip_tpu_torch.ops.chunk import chunk_layout
     from distmlip_tpu_torch.tools.workload import (ESCN_BF16_KW, ESCN_INFO, ESCN_KW,
-                                                   MACE_BF16_KW, MACE_KW, bench_atoms)
+                                                   MACE_BF16_KW, MACE_KW, TENSORNET_BF16_KW,
+                                                   TENSORNET_KW, bench_atoms)
 
-    mace = family == "mace"
-    tag = "main-bf16" if mace else "main-escn-bf16"
-    cls, cfg, kw16, kw32 = ((MACE, MACEConfig, MACE_BF16_KW, MACE_KW) if mace
-                            else (ESCN, ESCNConfig, ESCN_BF16_KW, ESCN_KW))
+    tag, cls, cfg, kw16, kw32 = {
+        "mace": ("main-bf16", MACE, MACEConfig, MACE_BF16_KW, MACE_KW),
+        "escn": ("main-escn-bf16", ESCN, ESCNConfig, ESCN_BF16_KW, ESCN_KW),
+        "tensornet": ("main-tensornet-bf16", TensorNet, TensorNetConfig, TENSORNET_BF16_KW,
+                      TENSORNET_KW)}[family]
     model = cls(cfg(**kw16))
     params = model.init(0)
-    atoms, rng = bench_atoms()
-    if not mace:
+    atoms, rng = bench_atoms(TENSORNET_REPS if family == "tensornet" else 8)
+    if family == "escn":
         params["species_ref"]["w"] = torch.randn((kw16["num_species"],),
                                                  generator=torch.Generator().manual_seed(0))
         atoms.info = dict(ESCN_INFO)
     pot = DistPotential(model, params, device="cuda", skin=0.5)
     geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
+    chunks = dict(recompute_chunks)  # reset by drive; read just after it
     stats = pot.last_stats
-    K = chunk_layout(stats["e_cap"], kw16["edge_chunk"])[2]
     n_calc = 1 + STEPS
     expected = {k: 0 for k in launches}
-    if mace:
-        expected["segment_sum_bf16"] = n_calc * kw16["num_interactions"] * 2 * K
+    chunks_expected = {}  # MACE and eSCN run no edge aggregation
+    if family == "tensornet":
+        K = None
+        layers = kw16["num_layers"]
+        expected["tensornet_embed_aggregate_bf16"] = n_calc
+        expected["tensornet_interaction_aggregate_bf16"] = n_calc * layers
+        expected["tensornet_interaction_backward_bf16"] = n_calc * layers
+        # the embed's backward is still the plain chunked recompute
+        chunks_expected = {"tensornet_embed_aggregate":
+                           n_calc * -(-stats["e_cap"] // DEFAULT_BWD_CHUNK)}
+        log(f"[{tag}] first calculate (host graph build and the first bf16 TensorNet "
+            f"calculate of the process): {step_s[0] * 1e3:.1f} ms")
     else:
+        K = chunk_layout(stats["e_cap"], kw16["edge_chunk"])[2]
+    if family == "mace":
+        expected["segment_sum_bf16"] = n_calc * kw16["num_interactions"] * 2 * K
+    elif family == "escn":
         expected["so2_conv_bf16"] = n_calc * kw16["num_layers"] * 3 * K
         expected["segment_sum_bf16"] = n_calc * (1 + kw16["num_layers"]) * 2 * K
     log(f"[{tag}] launches derived as the float32 path's, on the bf16 kernels (K={K}): "
-        f"{json.dumps({k: v for k, v in expected.items() if v})}; counted {launches}")
-    if launches != expected:
-        raise AssertionError(f"[{tag}] kernel launch counts {launches} differ from the "
-                             f"derivation {expected}")
+        f"{json.dumps({k: v for k, v in expected.items() if v})}; counted {launches}; "
+        f"plain backward chunks {chunks}")
+    if launches != expected or chunks != chunks_expected:
+        raise AssertionError(f"[{tag}] kernel launch counts {launches} or plain backward "
+                             f"chunks {chunks} differ from the derivation {expected}, "
+                             f"{chunks_expected}")
     def run(p):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1607,7 +1720,7 @@ def phase_main_bf16(torch, family):
     vs_plain, vs32, plain_vs32 = deltas(results, plain), deltas(results, f32), deltas(plain, f32)
     summary = summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results, launches,
                         expected)
-    summary.update(edge_chunks=K, vs_plain=vs_plain, vs_float32=vs32,
+    summary.update(edge_chunks=K, recompute_chunks=chunks, vs_plain=vs_plain, vs_float32=vs32,
                    plain_vs_float32=plain_vs32, float32={
                        "first_calculate_ms": f32_s[0] * 1e3,
                        "step_ms": [x * 1e3 for x in f32_s[1:]],
@@ -1940,6 +2053,40 @@ def phase_md_bf16(torch):
         raise AssertionError(f"[md-bf16] kernel launch counts {launches} differ from the "
                              f"derivation {expected}")
     log(f"[md-bf16] {json.dumps(md_summary(pot, probe, step_s, peak, launches, expected))}")
+    return launches
+
+
+def phase_md_tensornet_bf16(torch):
+    """``[md-tensornet-bf16]``: TensorNet at TENSORNET_BF16_KW on the
+    16384-atom crystal, MD_BF16_STEPS nvt_bussi steps with the device
+    refresh (``device_rebuild="auto"``): the three bf16 kernels on every
+    calculate, at least one refresh, each refreshed graph's pairs against a
+    float64 host search, step ms by outcome."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.tools.workload import TENSORNET_BF16_KW, bench_atoms
+
+    model = TensorNet(TensorNetConfig(**TENSORNET_BF16_KW))
+    pot = DistPotential(model, model.init(0), device="cuda", skin=0.5, device_rebuild="auto")
+    structure = bench_atoms(TENSORNET_REPS)
+    probe, step_s, launches, peak = run_md(torch, pot, structure, MD_BF16_STEPS,
+                                           "md-tensornet-bf16")
+    n_calc, layers = len(probe.calls), TENSORNET_BF16_KW["num_layers"]
+    expected = {k: 0 for k in launches}
+    expected["tensornet_embed_aggregate_bf16"] = n_calc
+    expected["tensornet_interaction_aggregate_bf16"] = n_calc * layers
+    expected["tensornet_interaction_backward_bf16"] = n_calc * layers
+    if launches != expected:
+        raise AssertionError(f"[md-tensornet-bf16] kernel launch counts {launches} differ "
+                             f"from the derivation {expected}")
+    refreshes = [c for c in probe.calls if c["kind"] == "refresh"]
+    if not refreshes:
+        raise AssertionError("[md-tensornet-bf16] no device refresh")
+    summary = md_summary(pot, probe, step_s, peak, launches, expected)
+    summary["pairs_in_band"] = [pair_set_check(c, structure[0].pbc,
+                                               TENSORNET_BF16_KW["cutoff"] + 0.5)
+                                for c in refreshes]
+    log(f"[md-tensornet-bf16] {json.dumps(summary)}")
     return launches
 
 
@@ -2403,25 +2550,98 @@ def phase_parallel_tensornet(torch):
                           lambda lg: tensornet_segment_checks(torch, lg, c))
 
 
-def tensornet_segment_checks(torch, lg, c):
+def tensornet_segment_checks(torch, lg, c, dtype=None):
     """The three TensorNet kernels against their plain versions on each
     sorted segment of ``lg`` at its real ids and masks, random rows of
-    width ``c``; returns the worst error by kernel."""
+    width ``c`` (in ``dtype``, float32 by default); returns the worst error
+    by kernel (bf16 names carry ``_bf16``)."""
     gen = torch.Generator(device="cuda").manual_seed(97)
+    dtype = dtype or torch.float32
+    suffix = "_bf16" if dtype == torch.bfloat16 else ""
     errs = {}
     for _, sl in _segments(lg):
         ids, src, mask = lg.edge_dst[sl], lg.edge_src[sl], lg.edge_mask[sl]
         for which in ("embed", "interaction"):
-            arrays = edge_inputs(torch, gen, which, ids.shape[0], c, lg.n_cap, src)
-            name = f"tensornet_{which}_aggregate"
+            arrays = [x.to(dtype) if x.is_floating_point() else x
+                      for x in edge_inputs(torch, gen, which, ids.shape[0], c, lg.n_cap, src)]
+            name = f"tensornet_{which}_aggregate{suffix}"
             errs[name] = max(errs.get(name, 0.0),
                              check_edge_aggregate(torch, which, arrays, ids, mask, lg.n_cap))
-        g = torch.randn((lg.n_cap, 3, 3, c), generator=gen, device="cuda")
-        errs["tensornet_interaction_backward"] = max(
-            errs.get("tensornet_interaction_backward", 0.0),
-            check_interaction_backward(torch, g, arrays, ids, mask))
+        g = torch.randn((lg.n_cap, 3, 3, c), generator=gen, device="cuda").to(dtype)
+        name = f"tensornet_interaction_backward{suffix}"
+        errs[name] = max(errs.get(name, 0.0),
+                         check_interaction_backward(torch, g, arrays, ids, mask))
         del arrays, g
     return errs
+
+
+BF16_PARALLEL_CALCS = 3
+
+
+def phase_parallel_tensornet_bf16(torch):
+    """``[parallel-tensornet-bf16]``: TensorNet at TENSORNET_BF16_KW on the
+    16384-atom crystal at P = 2 (the two partitions as one flattened graph
+    on the card) against P = 1 and against P = 2 with ``kernels=False``, on
+    the first BF16_PARALLEL_CALCS geometries of ``parallel_geometries``, at
+    the bf16 bar (rel dE < 1e-3, max |dF| < 0.1 max |F|, max |dS| < 0.1
+    max |S|: the bf16 routes round at other ulps, partitions split the
+    sums). Launches per calculate at P = 2: the embed, each layer's
+    interaction and its backward once per segment; then the three bf16
+    kernels on the flattened graph's segments."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+    from distmlip_tpu_torch.tools.workload import TENSORNET_BF16_KW, bench_atoms
+
+    model = TensorNet(TensorNetConfig(**TENSORNET_BF16_KW))
+    params = model.init(0)
+    layers, c = TENSORNET_BF16_KW["num_layers"], TENSORNET_BF16_KW["units"]
+    atoms, rng = bench_atoms(TENSORNET_REPS)
+    geometries = parallel_geometries(atoms, rng)[:BF16_PARALLEL_CALCS]
+    ref1, s1, _ = run_calcs(torch, DistPotential(model, params, device="cuda", skin=0.5),
+                            atoms, geometries)
+    torch.cuda.empty_cache()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    pot = DistPotential(model, params, device="cuda", skin=0.5, num_partitions=2)
+    res, s2, peak2 = run_calcs(torch, pot, atoms, geometries)
+    launches = dict(launch_counts)
+    n = len(geometries)
+    expected = {k: 0 for k in launches}
+    expected.update(tensornet_embed_aggregate_bf16=2 * n,
+                    tensornet_interaction_aggregate_bf16=2 * layers * n,
+                    tensornet_interaction_backward_bf16=2 * layers * n)
+    if launches != expected:
+        raise AssertionError(f"[parallel-tensornet-bf16] kernel launch counts {launches} "
+                             f"differ from the derivation {expected}")
+    seg_errs = tensornet_segment_checks(torch, local_graph_from_stacked(pot._cache[0]), c,
+                                        torch.bfloat16)
+    stats = dict(pot.last_stats)
+    del pot
+    torch.cuda.empty_cache()
+    before = dict(launch_counts)
+    refp, sp, _ = run_calcs(torch, DistPotential(model, params, device="cuda", skin=0.5,
+                                                 num_partitions=2, kernels=False),
+                            atoms, geometries)
+    if dict(launch_counts) != before:
+        raise AssertionError("[parallel-tensornet-bf16] the kernels=False reference launched")
+    f_scale = max(float(abs(r["forces"]).max()) for r in ref1)
+    s_scale = max(float(abs(r["stress"]).max()) for r in ref1)
+    vs = {"p1": worst_deltas(res, ref1), "plain": worst_deltas(res, refp)}
+    summary = {"n_atoms": len(atoms), "num_partitions": 2, "e_split": stats["e_split"],
+               "e_cap": stats["e_cap"], "step_ms": [x * 1e3 for x in s2[1:]],
+               "p1_step_ms": [x * 1e3 for x in s1[1:]],
+               "plain_step_ms": [x * 1e3 for x in sp[1:]], "max_memory_allocated_bytes": peak2,
+               "max_F": f_scale, "max_S": s_scale, "vs_p1": vs["p1"], "vs_plain": vs["plain"],
+               "launches": launches, "segments_max_abs_err": seg_errs}
+    log(f"[parallel-tensornet-bf16] {json.dumps(summary)}")
+    for what, d in vs.items():
+        if not (d["rel_dE"] < 1e-3 and d["max_dF"] < 0.1 * f_scale
+                and d["max_dS"] < 0.1 * s_scale):
+            raise AssertionError(f"[parallel-tensornet-bf16] P = 2 departs from {what} past "
+                                 f"the bf16 bar: {d}")
+    return launches, seg_errs
 
 
 def phase_parallel_chgnet(torch):
@@ -2751,20 +2971,36 @@ def phase_batched(torch, family):
     return total, errs
 
 
-def phase_batched_mace_bf16(torch):
-    """``[batched-mace-bf16]``: ``BatchedPotential`` over MACE at
-    MACE_BF16_KW at B = 1 and 8 on the 32-atom pool, one warm calculate and
-    BATCH_STEPS moves, launches of the bf16 segment sum derived per
-    calculate; each structure at the last geometry against ``DistPotential``
-    on it alone and against ``kernels=False`` within rel dE < 1e-3 and max
-    |dF| < 0.1 of the largest force."""
+def phase_batched_bf16(torch, family):
+    """``[batched-mace-bf16]`` / ``[batched-tensornet-bf16]``:
+    ``BatchedPotential`` over MACE at MACE_BF16_KW or TensorNet at
+    TENSORNET_BF16_KW at B = 1 and 8 on the 32-atom pool, one warm
+    calculate and BATCH_STEPS moves, launches of the bf16 kernels derived
+    per calculate; each structure at the last geometry against
+    ``DistPotential`` on it alone and against ``kernels=False`` within rel
+    dE < 1e-3 and max |dF| < 0.1 of the largest force."""
     from distmlip_tpu_torch.calculators import BatchedPotential, DistPotential
     from distmlip_tpu_torch.kernels import launch_counts
-    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.models import MACE, MACEConfig, TensorNet, TensorNetConfig
     from distmlip_tpu_torch.ops.chunk import chunk_layout
-    from distmlip_tpu_torch.tools.workload import MACE_BF16_KW, batched_pool
+    from distmlip_tpu_torch.tools.workload import (MACE_BF16_KW, TENSORNET_BF16_KW,
+                                                   batched_pool)
 
-    model = MACE(MACEConfig(**MACE_BF16_KW))
+    tag = f"batched-{family}-bf16"
+    if family == "mace":
+        model = MACE(MACEConfig(**MACE_BF16_KW))
+
+        def per_calc(st):
+            return {"segment_sum_bf16": MACE_BF16_KW["num_interactions"] * 2 * chunk_layout(
+                st["e_cap"], MACE_BF16_KW["edge_chunk"])[2]}
+    else:
+        model = TensorNet(TensorNetConfig(**TENSORNET_BF16_KW))
+        layers = TENSORNET_BF16_KW["num_layers"]
+
+        def per_calc(st):
+            return {"tensornet_embed_aggregate_bf16": 1,
+                    "tensornet_interaction_aggregate_bf16": layers,
+                    "tensornet_interaction_backward_bf16": layers}
     params = model.init(0)
     pool, rng = batched_pool(8)
     total = {k: 0 for k in launch_counts}
@@ -2786,13 +3022,9 @@ def phase_batched_mace_bf16(torch):
             stats.append(dict(pot.last_stats))
         launches = dict(launch_counts)
         peak = torch.cuda.max_memory_allocated()
-        expected = {k: 0 for k in launches}
-        expected["segment_sum_bf16"] = sum(
-            MACE_BF16_KW["num_interactions"] * 2 * chunk_layout(st["e_cap"],
-                                                                MACE_BF16_KW["edge_chunk"])[2]
-            for st in stats)
+        expected = {k: sum(per_calc(st).get(k, 0) for st in stats) for k in launches}
         if launches != expected or pot.rebuild_count != 1:
-            raise AssertionError(f"[batched-mace-bf16] {name}: launches {launches} against "
+            raise AssertionError(f"[{tag}] {name}: launches {launches} against "
                                  f"{expected}, {pot.rebuild_count} builds")
         for res in results:
             for r, a in zip(res, structs):
@@ -2805,7 +3037,7 @@ def phase_batched_mace_bf16(torch):
         refs["plain"] = BatchedPotential(model, params, device="cuda",
                                          kernels=False).calculate(structs)
         if dict(launch_counts) != before:
-            raise AssertionError("[batched-mace-bf16] the kernels=False reference launched")
+            raise AssertionError(f"[{tag}] the kernels=False reference launched")
         steady = statistics.median(step_s[1:])
         run = {"structures": len(structs), "bucket_key": stats[-1]["bucket_key"],
                "compile_count": pot.compile_count, "first_calculate_ms": step_s[0] * 1e3,
@@ -2819,9 +3051,9 @@ def phase_batched_mace_bf16(torch):
             # bf16 against bf16 in other chunk layouts: the JAX package's
             # bf16 bar (its float32 one measures this noise in [main-bf16])
             if not (d["rel_dE"] < 1e-3 and d["max_dF"] < 0.1 * f_scale):
-                raise AssertionError(f"[batched-mace-bf16] {name}: the batch departs from "
+                raise AssertionError(f"[{tag}] {name}: the batch departs from "
                                      f"{what} past the bf16 bar: {d}")
-        log(f"[batched-mace-bf16] {name}: {json.dumps(run)}")
+        log(f"[{tag}] {name}: {json.dumps(run)}")
         del pot, single
         torch.cuda.empty_cache()
     return total
@@ -3164,6 +3396,7 @@ def main() -> int:
     chg_errs, chg_timed, proj_err, proj_timed = phase_chgnet_kernels(torch)
     so2_err, so2_timed, seg_escn = phase_so2_kernels(torch)
     so2_bf16_err, so2_bf16_timed = phase_so2_kernels_bf16(torch)
+    tn_bf16_errs, tn_bf16_timed = phase_edge_aggregate_kernels_bf16(torch)
     # the packing's gather tables of the shapes above: each path below
     # counts only its own in its peak memory
     from distmlip_tpu_torch.kernels import so3
@@ -3182,6 +3415,8 @@ def main() -> int:
     bf16_launches = phase_main_bf16(torch, "mace")
     torch.cuda.empty_cache()
     escn_bf16_launches = phase_main_bf16(torch, "escn")
+    torch.cuda.empty_cache()
+    tn_bf16_launches = phase_main_bf16(torch, "tensornet")
     torch.cuda.empty_cache()
     phase_small_reference(torch, MACE(MACEConfig(
         num_species=4, channels=16, l_max=3, a_lmax=3, hidden_lmax=1, correlation=3,
@@ -3207,12 +3442,14 @@ def main() -> int:
     relax_launches = phase_relax_chgnet(torch)
     torch.cuda.empty_cache()
     md_bf16_launches = phase_md_bf16(torch)
+    torch.cuda.empty_cache()
+    md_tn_bf16_launches = phase_md_tensornet_bf16(torch)
     md_launches = {k: md_launches[k] + md_tn_launches[k] + relax_launches[k]
-                   + md_bf16_launches[k] for k in md_launches}
+                   + md_bf16_launches[k] + md_tn_bf16_launches[k] for k in md_launches}
     # slab graph parallelism: each phase counts its own launches
     par_launches, par_errs = {k: 0 for k in md_launches}, {}
     for phase in (phase_parallel_tensornet, phase_parallel_chgnet, phase_parallel_mace,
-                  phase_parallel_escn):
+                  phase_parallel_escn, phase_parallel_tensornet_bf16):
         torch.cuda.empty_cache()
         launched, errs = phase(torch)
         for k, v in launched.items():
@@ -3231,7 +3468,9 @@ def main() -> int:
             bat_launches[k] += v
         for k, v in errs.items():
             bat_errs[k] = max(bat_errs.get(k, 0.0), v)
-    for phase in (phase_batched_mace_bf16, phase_batched_md, phase_batched_relax, phase_serve):
+    for phase in (lambda t: phase_batched_bf16(t, "mace"),
+                  lambda t: phase_batched_bf16(t, "tensornet"), phase_batched_md,
+                  phase_batched_relax, phase_serve):
         torch.cuda.empty_cache()
         for k, v in phase(torch).items():
             bat_launches[k] += v
@@ -3258,7 +3497,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": tn_launches[name],
-            "max_abs_err": edge_errs[which], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": edge_errs[which], "ms": t["ms"], "kernel_ms": t["kernel_ms"],
+            "host_us": t["host_us"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": [t["e"], 3, 3, t["channels"]], "n_segments": t["n_segments"],
@@ -3267,7 +3507,7 @@ def main() -> int:
     kernels.append({
         "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
         "launches": tn_launches[name], "max_abs_err": edge_errs["backward"], "ms": t["ms"],
-        "plain_ms": t["plain_ms"], "plain": t["plain"], "bound_ms": t["bound_ms"],
+        "kernel_ms": t["kernel_ms"], "host_us": t["host_us"], "plain_ms": t["plain_ms"], "plain": t["plain"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"], "library": t["library"],
         "shape": [t["e"], t["channels"], 3], "n_node": t["n_node"], "sort_ms": t["sort_ms"],
     })
@@ -3330,6 +3570,18 @@ def main() -> int:
         "bound_route": t["bound_route"], "backward_ms": t["backward_ms"],
         "pack_ms": t["pack_ms"], "kernel_ms": t["kernel_ms"], "host_us": t["host_us"],
     })
+    for which, name in (("embed", "tensornet_embed_aggregate_bf16"),
+                        ("interaction", "tensornet_interaction_aggregate_bf16"),
+                        ("backward", "tensornet_interaction_backward_bf16")):
+        t = tn_bf16_timed[which]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": tn_bf16_launches[name], "max_abs_err": tn_bf16_errs[which],
+            "ms": t["ms"], "kernel_ms": t["kernel_ms"], "host_us": t["host_us"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "shape": [t["e"], t["channels"]], "valid_edges": t["valid_edges"],
+        })
     for k in kernels:  # each kernel's launches in [md], [md-tensornet], [relax-chgnet]
         k["md_launches"] = md_launches[k["name"]]
         # ... in the [parallel-*] phases, and its worst error against its

@@ -8,9 +8,12 @@
   ``tensornet_interaction_aggregate_cuda`` (on compact I/A/S node rows,
   ``tensornet_full`` assembling a 3x3 from them) and
   ``tensornet_interaction_backward_cuda`` (both cotangents in one pass over
-  the edges in ``src_order``), the wrappers of ``csrc/edge_aggregate.cu``,
-  with their tolerances ``tensornet_interaction_error_bound`` and
-  ``tensornet_interaction_backward_error_bound``; and ``chgnet_atom_conv_aggregate_cuda`` and
+  the edges in ``src_order``), the wrappers of ``csrc/edge_aggregate.cu``
+  (float32, and a bf16 instantiation counted under ``*_bf16``), with their
+  tolerances ``tensornet_embed_error_bound``,
+  ``tensornet_interaction_error_bound`` and
+  ``tensornet_interaction_backward_error_bound`` (float32 and bf16 data);
+  and ``chgnet_atom_conv_aggregate_cuda`` and
   ``chgnet_line_aggregate_cuda`` (of ``csrc/chgnet_aggregate.cu``, with
   its row projection ``chgnet_row_projection_cuda``), which replace the TPU
   ``pallas_edge_aggregate`` at TensorNet's and CHGNet's call sites; their
@@ -49,7 +52,8 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              chgnet_row_projection_cuda,
                              chgnet_row_projection_reference, chgnet_row_tables,
                              src_order, tensornet_embed_aggregate_cuda,
-                             tensornet_embed_aggregate_reference, tensornet_full,
+                             tensornet_embed_aggregate_reference, tensornet_embed_error_bound,
+                             tensornet_full,
                              tensornet_interaction_aggregate_cuda,
                              tensornet_interaction_aggregate_reference,
                              tensornet_interaction_backward_cuda,

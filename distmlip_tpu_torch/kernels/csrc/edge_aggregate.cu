@@ -1,6 +1,6 @@
 // TensorNet's two edge aggregations, per-edge message built in registers
-// and summed onto dst-sorted rows, and the interaction's backward. float32,
-// sm_90a.
+// and summed onto dst-sorted rows, and the interaction's backward. float32 or
+// bfloat16 in and out, float32 arithmetic, sm_90a.
 //
 // Replaces distmlip_tpu/kernels/segment.py::pallas_edge_aggregate (body
 // _edge_aggregate_kernel, in-kernel gather _gather_rows) at TensorNet's two
@@ -54,13 +54,38 @@
 //     padding cannot leak into a sum; their d f rows are written as zeros;
 //   - every output row is written, empty rows as zeros;
 //   - offsets are 64-bit; src ids of valid edges must lie in [0, N_node).
+//
+// bfloat16: the same three kernels, templated on the storage type T. Every
+// load converts to float32 in registers (__bfloat162float), the arithmetic
+// and its order are the float32 instantiation's, the accumulators are
+// float32, and each output element (a dst row's sum, a d f entry, a src
+// row's d i, d a or d s sum over its src-sorted edges) is rounded to
+// bfloat16 once (__float2bfloat16_rn). That is the TPU kernel's contract
+// at bf16 data (VMEM blocks in the data's dtype, an fp32 accumulator, the
+// output in the message's dtype: distmlip_tpu/kernels/segment.py:309-317)
+// and, for the backward, the JAX dispatcher's fp32 node-cotangent carry
+// rounded once (distmlip_tpu/kernels/dispatch.py:566-584). One bf16 load a
+// lane: a warp reads 64 contiguous bytes of a row where float32 reads 128.
+// The byte bound halves on the float terms; index and mask bytes stay.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
+
+// storage <-> registers: a float32 or bfloat16 element read as float32, a
+// float32 value stored rounded once to the storage type
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
 // thread -> (dst row, channel); false for the idle threads of the last block
 // or of a partial channel slab
@@ -77,12 +102,13 @@ __device__ __forceinline__ bool valid_edge(const uint8_t* __restrict__ mask,
   return mask == nullptr || mask[e] != 0;
 }
 
-__device__ __forceinline__ void store_row(float* __restrict__ out, int64_t row,
+template <typename T>
+__device__ __forceinline__ void store_row(T* __restrict__ out, int64_t row,
                                           int channels, int c,
                                           const float (&acc)[9]) {
-  float* __restrict__ dst = out + row * 9 * static_cast<int64_t>(channels) + c;
+  T* __restrict__ dst = out + row * 9 * static_cast<int64_t>(channels) + c;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) dst[static_cast<int64_t>(k) * channels] = acc[k];
+  for (int k = 0; k < 9; ++k) store(dst + static_cast<int64_t>(k) * channels, acc[k]);
 }
 
 // ---- embed --------------------------------------------------------------
@@ -91,20 +117,21 @@ struct EmbedEdge {
   float z, w1, w2, w3, a[9], s[9];
 };
 
+template <typename T>
 __device__ __forceinline__ void embed_load(
-    EmbedEdge& v, const float* __restrict__ z, const float* __restrict__ w1,
-    const float* __restrict__ w2, const float* __restrict__ w3,
-    const float* __restrict__ a_e, const float* __restrict__ s_e, int64_t e,
+    EmbedEdge& v, const T* __restrict__ z, const T* __restrict__ w1,
+    const T* __restrict__ w2, const T* __restrict__ w3,
+    const T* __restrict__ a_e, const T* __restrict__ s_e, int64_t e,
     int channels, int c) {
   const int64_t o = e * channels + c;
-  v.z = __ldg(z + o);
-  v.w1 = __ldg(w1 + o);
-  v.w2 = __ldg(w2 + o);
-  v.w3 = __ldg(w3 + o);
+  v.z = load(z + o);
+  v.w1 = load(w1 + o);
+  v.w2 = load(w2 + o);
+  v.w3 = load(w3 + o);
 #pragma unroll
   for (int k = 0; k < 9; ++k) {
-    v.a[k] = __ldg(a_e + e * 9 + k);
-    v.s[k] = __ldg(s_e + e * 9 + k);
+    v.a[k] = load(a_e + e * 9 + k);
+    v.s[k] = load(s_e + e * 9 + k);
   }
 }
 
@@ -116,13 +143,13 @@ __device__ __forceinline__ void embed_add(float (&acc)[9], const EmbedEdge& v) {
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tensornet_embed_kernel(const float* __restrict__ z, const float* __restrict__ w1,
-                       const float* __restrict__ w2, const float* __restrict__ w3,
-                       const float* __restrict__ a_e,
-                       const float* __restrict__ s_e,
+tensornet_embed_kernel(const T* __restrict__ z, const T* __restrict__ w1,
+                       const T* __restrict__ w2, const T* __restrict__ w3,
+                       const T* __restrict__ a_e, const T* __restrict__ s_e,
                        const int64_t* __restrict__ row_ptr,
-                       const uint8_t* __restrict__ mask, float* __restrict__ out,
+                       const uint8_t* __restrict__ mask, T* __restrict__ out,
                        int64_t n_rows, int channels, int tpr) {
   int64_t row;
   int c;
@@ -166,28 +193,30 @@ struct InteractionEdge {
   float f[3], x[10];  // x: i, a01, a02, a12, s00, s11, s22, s01, s02, s12
 };
 
+template <typename T>
 __device__ __forceinline__ void compact_load(float (&x)[10],
-                                             const float* __restrict__ node_i,
-                                             const float* __restrict__ node_a,
-                                             const float* __restrict__ node_s,
+                                             const T* __restrict__ node_i,
+                                             const T* __restrict__ node_a,
+                                             const T* __restrict__ node_s,
                                              int64_t j, int channels, int c) {
   const int64_t ch = channels;
-  x[0] = __ldg(node_i + j * ch + c);
+  x[0] = load(node_i + j * ch + c);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) x[1 + k] = __ldg(node_a + (j * 3 + k) * ch + c);
+  for (int k = 0; k < 3; ++k) x[1 + k] = load(node_a + (j * 3 + k) * ch + c);
 #pragma unroll
-  for (int k = 0; k < 6; ++k) x[4 + k] = __ldg(node_s + (j * 6 + k) * ch + c);
+  for (int k = 0; k < 6; ++k) x[4 + k] = load(node_s + (j * 6 + k) * ch + c);
 }
 
+template <typename T>
 __device__ __forceinline__ void interaction_load(
-    InteractionEdge& v, const float* __restrict__ f,
-    const float* __restrict__ node_i, const float* __restrict__ node_a,
-    const float* __restrict__ node_s, const int32_t* __restrict__ src,
+    InteractionEdge& v, const T* __restrict__ f,
+    const T* __restrict__ node_i, const T* __restrict__ node_a,
+    const T* __restrict__ node_s, const int32_t* __restrict__ src,
     int64_t e, int channels, int c) {
-  const float* __restrict__ fe = f + e * 3 * channels + 3 * c;
-  v.f[0] = __ldg(fe);
-  v.f[1] = __ldg(fe + 1);
-  v.f[2] = __ldg(fe + 2);
+  const T* __restrict__ fe = f + e * 3 * channels + 3 * c;
+  v.f[0] = load(fe);
+  v.f[1] = load(fe + 1);
+  v.f[2] = load(fe + 2);
   compact_load(v.x, node_i, node_a, node_s, __ldg(src + e), channels, c);
 }
 
@@ -200,15 +229,16 @@ __device__ __forceinline__ void interaction_add(float (&acc)[10],
   for (int k = 4; k < 10; ++k) acc[k] += v.f[2] * v.x[k];
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-tensornet_interaction_kernel(const float* __restrict__ f,
-                             const float* __restrict__ node_i,
-                             const float* __restrict__ node_a,
-                             const float* __restrict__ node_s,
+tensornet_interaction_kernel(const T* __restrict__ f,
+                             const T* __restrict__ node_i,
+                             const T* __restrict__ node_a,
+                             const T* __restrict__ node_s,
                              const int32_t* __restrict__ src,
                              const int64_t* __restrict__ row_ptr,
                              const uint8_t* __restrict__ mask,
-                             float* __restrict__ out, int64_t n_rows,
+                             T* __restrict__ out, int64_t n_rows,
                              int channels, int tpr) {
   int64_t row;
   int c;
@@ -275,26 +305,28 @@ struct BackwardEdge {
   float f[3], g[9];
 };
 
+template <typename T>
 __device__ __forceinline__ void backward_load(BackwardEdge& v,
-                                              const float* __restrict__ g,
-                                              const float* __restrict__ f,
+                                              const T* __restrict__ g,
+                                              const T* __restrict__ f,
                                               const int64_t* __restrict__ perm,
                                               const int32_t* __restrict__ dst,
                                               int64_t e, int channels, int c) {
   v.p = __ldg(perm + e);
-  const float* __restrict__ fe = f + v.p * 3 * channels + 3 * c;
-  v.f[0] = __ldg(fe);
-  v.f[1] = __ldg(fe + 1);
-  v.f[2] = __ldg(fe + 2);
-  const float* __restrict__ gd =
+  const T* __restrict__ fe = f + v.p * 3 * channels + 3 * c;
+  v.f[0] = load(fe);
+  v.f[1] = load(fe + 1);
+  v.f[2] = load(fe + 2);
+  const T* __restrict__ gd =
       g + static_cast<int64_t>(__ldg(dst + v.p)) * 9 * channels + c;
 #pragma unroll
-  for (int k = 0; k < 9; ++k) v.g[k] = __ldg(gd + static_cast<int64_t>(k) * channels);
+  for (int k = 0; k < 9; ++k) v.g[k] = load(gd + static_cast<int64_t>(k) * channels);
 }
 
+template <typename T>
 __device__ __forceinline__ void backward_add(float (&acc)[10], const float (&x)[10],
                                              const BackwardEdge& v,
-                                             float* __restrict__ d_f, int channels,
+                                             T* __restrict__ d_f, int channels,
                                              int c) {
   const float* g = v.g;  // k = 3 i + j
   const float t = g[0] + g[4] + g[8];
@@ -311,23 +343,24 @@ __device__ __forceinline__ void backward_add(float (&acc)[10], const float (&x)[
   float ds = w[0] * x[4];
 #pragma unroll
   for (int k = 1; k < 6; ++k) ds += w[k] * x[4 + k];
-  float* __restrict__ out = d_f + v.p * 3 * channels + 3 * c;
-  out[0] = t * x[0];
-  out[1] = da;
-  out[2] = ds;
+  T* __restrict__ out = d_f + v.p * 3 * channels + 3 * c;
+  store(out, t * x[0]);
+  store(out + 1, da);
+  store(out + 2, ds);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, kBwdMinBlocks)
-tensornet_interaction_bwd_kernel(const float* __restrict__ g,
-                                 const float* __restrict__ f,
-                                 const float* __restrict__ node_i,
-                                 const float* __restrict__ node_a,
-                                 const float* __restrict__ node_s,
+tensornet_interaction_bwd_kernel(const T* __restrict__ g,
+                                 const T* __restrict__ f,
+                                 const T* __restrict__ node_i,
+                                 const T* __restrict__ node_a,
+                                 const T* __restrict__ node_s,
                                  const int64_t* __restrict__ perm,
                                  const int32_t* __restrict__ dst,
                                  const int64_t* __restrict__ row_ptr,
-                                 float* __restrict__ d_f, float* __restrict__ d_i,
-                                 float* __restrict__ d_a, float* __restrict__ d_s,
+                                 T* __restrict__ d_f, T* __restrict__ d_i,
+                                 T* __restrict__ d_a, T* __restrict__ d_s,
                                  int64_t n_rows, int64_t n_edges, int channels,
                                  int tpr, int64_t row_blocks) {
   if (static_cast<int64_t>(blockIdx.x) >= row_blocks) {
@@ -340,7 +373,7 @@ tensornet_interaction_bwd_kernel(const float* __restrict__ g,
     for (int64_t k = (static_cast<int64_t>(blockIdx.x) - row_blocks) * kThreads + threadIdx.x;
          k < total; k += stride) {
       const int64_t e = start + k / width;
-      d_f[__ldg(perm + e) * width + k % width] = 0.0f;
+      store(d_f + __ldg(perm + e) * width + k % width, 0.0f);
     }
     return;
   }
@@ -369,11 +402,11 @@ tensornet_interaction_bwd_kernel(const float* __restrict__ g,
     backward_add(acc, x, v, d_f, channels, c);
   }
   const int64_t ch = channels;
-  d_i[row * ch + c] = acc[0];
+  store(d_i + row * ch + c, acc[0]);
 #pragma unroll
-  for (int k = 0; k < 3; ++k) d_a[(row * 3 + k) * ch + c] = acc[1 + k];
+  for (int k = 0; k < 3; ++k) store(d_a + (row * 3 + k) * ch + c, acc[1 + k]);
 #pragma unroll
-  for (int k = 0; k < 6; ++k) d_s[(row * 6 + k) * ch + c] = acc[4 + k];
+  for (int k = 0; k < 6; ++k) store(d_s + (row * 6 + k) * ch + c, acc[4 + k]);
 }
 
 // launch shape: tpr threads per row (channels rounded up to a warp, at most
@@ -390,60 +423,40 @@ int launch_shape(int64_t n_rows, int channels, dim3& grid, int& tpr) {
   return 0;
 }
 
-}  // namespace
-
-// z, w1, w2, w3 (E, C); a_e, s_e (E, 9); row_ptr (n_rows + 1) int64; mask
-// (E) bytes or null; out (n_rows, 9, C). float32, contiguous, on the current
-// device. Launches on `stream`, does not synchronise, and returns the
-// launch's cudaError_t (0 = success).
-extern "C" int distmlip_tensornet_embed_f32(
-    const float* z, const float* w1, const float* w2, const float* w3,
-    const float* a_e, const float* s_e, const int64_t* row_ptr,
-    const uint8_t* mask, float* out, int64_t n_rows, int channels,
-    void* stream) {
+template <typename T>
+int launch_embed(const T* z, const T* w1, const T* w2, const T* w3, const T* a_e,
+                 const T* s_e, const int64_t* row_ptr, const uint8_t* mask, T* out,
+                 int64_t n_rows, int channels, void* stream) {
   dim3 grid;
   int tpr;
   const int shape = launch_shape(n_rows, channels, grid, tpr);
   if (shape < 0) return 0;
   if (shape > 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  tensornet_embed_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  tensornet_embed_kernel<T><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       z, w1, w2, w3, a_e, s_e, row_ptr, mask, out, n_rows, channels, tpr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f (E, C, 3); node_i (N_node, C), node_a (N_node, 3, C), node_s
-// (N_node, 6, C); src (E) int32; row_ptr (n_rows + 1) int64; mask (E) bytes
-// or null; out (n_rows, 9, C). float32, contiguous, on the current device.
-// Launches on `stream`, does not synchronise, and returns the launch's
-// cudaError_t (0 = success).
-extern "C" int distmlip_tensornet_interaction_f32(
-    const float* f, const float* node_i, const float* node_a,
-    const float* node_s, const int32_t* src, const int64_t* row_ptr,
-    const uint8_t* mask, float* out, int64_t n_rows, int channels,
-    void* stream) {
+template <typename T>
+int launch_interaction(const T* f, const T* node_i, const T* node_a, const T* node_s,
+                       const int32_t* src, const int64_t* row_ptr, const uint8_t* mask,
+                       T* out, int64_t n_rows, int channels, void* stream) {
   dim3 grid;
   int tpr;
   const int shape = launch_shape(n_rows, channels, grid, tpr);
   if (shape < 0) return 0;
   if (shape > 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  tensornet_interaction_kernel<<<grid, kThreads, 0,
-                                 static_cast<cudaStream_t>(stream)>>>(
+  tensornet_interaction_kernel<T><<<grid, kThreads, 0,
+                                    static_cast<cudaStream_t>(stream)>>>(
       f, node_i, node_a, node_s, src, row_ptr, mask, out, n_rows, channels, tpr);
   return static_cast<int>(cudaGetLastError());
 }
 
-// g (n_dst, 9, C); f (E, C, 3); node_i, node_a, node_s as above (n_rows
-// src rows); perm (E) int64, the edges in src order with the masked ones
-// last; dst (E) int32, indexed by edge; row_ptr (n_rows + 1) int64 into
-// perm, row_ptr[n_rows] the first masked position; outputs d_f (E, C, 3),
-// d_i, d_a, d_s shaped as the node arrays. float32, contiguous, on the
-// current device. Launches on `stream`, does not synchronise, and returns
-// the launch's cudaError_t (0 = success).
-extern "C" int distmlip_tensornet_interaction_bwd_f32(
-    const float* g, const float* f, const float* node_i, const float* node_a,
-    const float* node_s, const int64_t* perm, const int32_t* dst,
-    const int64_t* row_ptr, float* d_f, float* d_i, float* d_a, float* d_s,
-    int64_t n_rows, int64_t n_edges, int channels, void* stream) {
+template <typename T>
+int launch_interaction_bwd(const T* g, const T* f, const T* node_i, const T* node_a,
+                           const T* node_s, const int64_t* perm, const int32_t* dst,
+                           const int64_t* row_ptr, T* d_f, T* d_i, T* d_a, T* d_s,
+                           int64_t n_rows, int64_t n_edges, int channels, void* stream) {
   dim3 grid;
   int tpr;
   const int shape = launch_shape(n_rows, channels, grid, tpr);
@@ -456,9 +469,79 @@ extern "C" int distmlip_tensornet_interaction_bwd_f32(
   tail = tail < 1 ? 1 : (tail > 1056 ? 1056 : tail);
   if (row_blocks + tail > 2147483647LL) return static_cast<int>(cudaErrorInvalidConfiguration);
   grid.x = static_cast<unsigned>(row_blocks + tail);
-  tensornet_interaction_bwd_kernel<<<grid, kThreads, 0,
-                                     static_cast<cudaStream_t>(stream)>>>(
+  tensornet_interaction_bwd_kernel<T><<<grid, kThreads, 0,
+                                        static_cast<cudaStream_t>(stream)>>>(
       g, f, node_i, node_a, node_s, perm, dst, row_ptr, d_f, d_i, d_a, d_s,
       n_rows, n_edges, channels, tpr, row_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The C interface: each function in float32 (_f32) and bfloat16 (_bf16,
+// every float tensor of the call bfloat16). Inputs and outputs contiguous on
+// the current device. Each launches one kernel on `stream`, does not
+// synchronise, and returns the launch's cudaError_t (0 = success).
+
+// z, w1, w2, w3 (E, C); a_e, s_e (E, 9); row_ptr (n_rows + 1) int64; mask
+// (E) bytes or null; out (n_rows, 9, C).
+extern "C" int distmlip_tensornet_embed_f32(
+    const float* z, const float* w1, const float* w2, const float* w3,
+    const float* a_e, const float* s_e, const int64_t* row_ptr,
+    const uint8_t* mask, float* out, int64_t n_rows, int channels,
+    void* stream) {
+  return launch_embed(z, w1, w2, w3, a_e, s_e, row_ptr, mask, out, n_rows, channels, stream);
+}
+
+extern "C" int distmlip_tensornet_embed_bf16(
+    const __nv_bfloat16* z, const __nv_bfloat16* w1, const __nv_bfloat16* w2,
+    const __nv_bfloat16* w3, const __nv_bfloat16* a_e, const __nv_bfloat16* s_e,
+    const int64_t* row_ptr, const uint8_t* mask, __nv_bfloat16* out, int64_t n_rows,
+    int channels, void* stream) {
+  return launch_embed(z, w1, w2, w3, a_e, s_e, row_ptr, mask, out, n_rows, channels, stream);
+}
+
+// f (E, C, 3); node_i (N_node, C), node_a (N_node, 3, C), node_s
+// (N_node, 6, C); src (E) int32; row_ptr (n_rows + 1) int64; mask (E) bytes
+// or null; out (n_rows, 9, C).
+extern "C" int distmlip_tensornet_interaction_f32(
+    const float* f, const float* node_i, const float* node_a,
+    const float* node_s, const int32_t* src, const int64_t* row_ptr,
+    const uint8_t* mask, float* out, int64_t n_rows, int channels,
+    void* stream) {
+  return launch_interaction(f, node_i, node_a, node_s, src, row_ptr, mask, out, n_rows,
+                            channels, stream);
+}
+
+extern "C" int distmlip_tensornet_interaction_bf16(
+    const __nv_bfloat16* f, const __nv_bfloat16* node_i, const __nv_bfloat16* node_a,
+    const __nv_bfloat16* node_s, const int32_t* src, const int64_t* row_ptr,
+    const uint8_t* mask, __nv_bfloat16* out, int64_t n_rows, int channels,
+    void* stream) {
+  return launch_interaction(f, node_i, node_a, node_s, src, row_ptr, mask, out, n_rows,
+                            channels, stream);
+}
+
+// g (n_dst, 9, C); f (E, C, 3); node_i, node_a, node_s as above (n_rows
+// src rows); perm (E) int64, the edges in src order with the masked ones
+// last; dst (E) int32, indexed by edge; row_ptr (n_rows + 1) int64 into
+// perm, row_ptr[n_rows] the first masked position; outputs d_f (E, C, 3),
+// d_i, d_a, d_s shaped as the node arrays.
+extern "C" int distmlip_tensornet_interaction_bwd_f32(
+    const float* g, const float* f, const float* node_i, const float* node_a,
+    const float* node_s, const int64_t* perm, const int32_t* dst,
+    const int64_t* row_ptr, float* d_f, float* d_i, float* d_a, float* d_s,
+    int64_t n_rows, int64_t n_edges, int channels, void* stream) {
+  return launch_interaction_bwd(g, f, node_i, node_a, node_s, perm, dst, row_ptr, d_f, d_i,
+                                d_a, d_s, n_rows, n_edges, channels, stream);
+}
+
+extern "C" int distmlip_tensornet_interaction_bwd_bf16(
+    const __nv_bfloat16* g, const __nv_bfloat16* f, const __nv_bfloat16* node_i,
+    const __nv_bfloat16* node_a, const __nv_bfloat16* node_s, const int64_t* perm,
+    const int32_t* dst, const int64_t* row_ptr, __nv_bfloat16* d_f, __nv_bfloat16* d_i,
+    __nv_bfloat16* d_a, __nv_bfloat16* d_s, int64_t n_rows, int64_t n_edges, int channels,
+    void* stream) {
+  return launch_interaction_bwd(g, f, node_i, node_a, node_s, perm, dst, row_ptr, d_f, d_i,
+                                d_a, d_s, n_rows, n_edges, channels, stream);
 }

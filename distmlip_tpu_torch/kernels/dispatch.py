@@ -33,7 +33,13 @@ launches the kernel or raises.
   and on the plain path, the JAX package's chunked recompute
   (``_edge_aggregate_bwd``, ``:482``) in differentiable torch ops, by
   semantics and not as a fallback. ``recompute_chunks`` counts that
-  recompute's chunks per message. The message is an ``EdgeMessage`` (a
+  recompute's chunks per message. bfloat16 inputs launch a message's bf16
+  kernels where it has them (``EdgeMessage.bf16``: TensorNet's) and raise
+  on the kernel route where it does not (CHGNet's, ROADMAP.md A6b); the
+  recompute keeps the JAX dispatcher's fp32 views: half node rows gather
+  with an fp32-accumulating transpose (``ops.nn.gather_rows``, as the
+  message cotangent's gather) and their cotangents sum in fp32, rounded
+  once after the last chunk (``:528-584``). The message is an ``EdgeMessage`` (a
   torch function plus its kernels), not an arbitrary callable, because a
   CUDA kernel cannot run a Python function; an edge MLP's weights, which
   the JAX dispatcher hoists from the closure, are explicit ``weights``.
@@ -50,6 +56,7 @@ from typing import Any
 
 import torch
 
+from ..ops.nn import gather_rows
 from ..ops.segment import _HALF_DTYPES, masked_segment_sum
 from .edge_aggregate import EdgeMessage
 from .segment import segment_sum_cuda, segment_sum_reference
@@ -183,13 +190,22 @@ def _edge_aggregate_bwd(message, kinds, arrs, weights, idxs, segment_ids, mask, 
     weight not needed gets ``None`` and costs nothing (the force program
     asks for no weight gradient). The working set is one chunk of messages.
     Under grad mode (double backward) the graph of this computation is
-    kept. Each chunk adds one to ``recompute_chunks[message.name]``."""
+    kept. Each chunk adds one to ``recompute_chunks[message.name]``.
+
+    Half-precision inputs follow the JAX dispatcher's fp32-view rules
+    (``:528-584``): node cotangents accumulate in fp32 across the chunks
+    and round once at the end (the ``node_cts0`` carry), and the chunk's
+    gathered node rows and message cotangent go through ``gather_rows``,
+    whose transpose (reached by a double backward) sums in fp32. The
+    weights' cotangents sum in the weights' own dtype (``:573-575``)."""
     fn = message.fn
     create = torch.is_grad_enabled()
     n_in = len(arrs)
     e = segment_ids.shape[0]
     edge_cts = {k: [] for k, kind in enumerate(kinds) if kind is None and needs[k]}
-    node_cts = {k: torch.zeros_like(a) for k, (a, kind) in enumerate(zip(arrs, kinds))
+    node_cts = {k: torch.zeros(a.shape, device=a.device, dtype=torch.float32
+                               if a.dtype in _HALF_DTYPES else a.dtype)
+                for k, (a, kind) in enumerate(zip(arrs, kinds))
                 if kind is not None and needs[k]}
     w_cts = {j: None for j in range(len(weights)) if needs[n_in + j]}
     want = [k for k in range(n_in) if needs[k]]
@@ -200,11 +216,11 @@ def _edge_aggregate_bwd(message, kinds, arrs, weights, idxs, segment_ids, mask, 
             sl = slice(s, min(s + chunk, e))
             rows = []
             for k, (a, kind) in enumerate(zip(arrs, kinds)):
-                r = a[sl] if kind is None else a.index_select(0, idxs[kind][sl])
+                r = a[sl] if kind is None else gather_rows(a, idxs[kind][sl])
                 if needs[k] and not create:
                     r = r.detach().requires_grad_(True)
                 rows.append(r)
-            gm = g.index_select(0, segment_ids[sl])
+            gm = gather_rows(g, segment_ids[sl])
             if mask is not None:
                 m = mask[sl].to(gm.dtype)
                 gm = gm * m.reshape(m.shape + (1,) * (gm.ndim - 1))
@@ -218,9 +234,10 @@ def _edge_aggregate_bwd(message, kinds, arrs, weights, idxs, segment_ids, mask, 
                 if kinds[k] is None:
                     edge_cts[k].append(ct)
                 elif create:  # keep the graph: out of place
-                    node_cts[k] = node_cts[k].index_add(0, idxs[kinds[k]][sl], ct)
+                    node_cts[k] = node_cts[k].index_add(0, idxs[kinds[k]][sl],
+                                                        ct.to(node_cts[k].dtype))
                 else:
-                    node_cts[k].index_add_(0, idxs[kinds[k]][sl], ct)
+                    node_cts[k].index_add_(0, idxs[kinds[k]][sl], ct.to(node_cts[k].dtype))
             for j, ct in zip(w_cts, cts[len(want):]):
                 if ct is not None:
                     w_cts[j] = ct if w_cts[j] is None else w_cts[j] + ct
@@ -231,7 +248,7 @@ def _edge_aggregate_bwd(message, kinds, arrs, weights, idxs, segment_ids, mask, 
         elif kinds[k] is None:
             out.append(torch.cat(edge_cts[k]))
         else:
-            out.append(node_cts[k])
+            out.append(node_cts[k].to(arrs[k].dtype))
     for j, w in enumerate(weights):
         if j not in w_cts:
             out.append(None)
@@ -261,7 +278,10 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
     plain version for CPU tensors. A message with no kernel raises on CUDA
     tensors with ``kernels=True``. Unsorted ids, or no edges or rows, take
     the plain path, as the JAX dispatcher routes them to XLA (``:338-344``).
-    ``bwd_chunk`` bounds the backward's edge chunk.
+    ``bwd_chunk`` bounds the backward's edge chunk. bfloat16 inputs on the
+    kernel route launch the message's bf16 kernels (``message.bf16``), or
+    raise where it has none: no half input is upcast or sent to the plain
+    version there.
     """
     if not isinstance(message, EdgeMessage):
         raise TypeError("fused_edge_aggregate: message must be an EdgeMessage "
@@ -297,10 +317,13 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
         else:
             kinds.append(None)
             arrs.append(item)
-    if use_kernel and any(a.dtype in _HALF_DTYPES for a in arrs):
+    half = {a.dtype for a in (*arrs, *weights) if a.dtype in _HALF_DTYPES}
+    if use_kernel and half and not (message.bf16 and half == {torch.bfloat16}):
         raise NotImplementedError(
-            f"fused_edge_aggregate: half-precision inputs to the {message.name!r} kernel: "
-            "bfloat16 for the B2 kernels (TensorNet, CHGNet) is ROADMAP.md A6b")
+            f"fused_edge_aggregate: {'/'.join(map(str, sorted(half, key=str)))} inputs "
+            f"to the {message.name!r} kernel, which takes float32"
+            f"{' or bfloat16' if message.bf16 else ''}: bfloat16 for CHGNet's B2 kernels "
+            "is ROADMAP.md A6b")
     return _EdgeAggregate.apply(message, tuple(kinds), len(weights), use_kernel, chunk,
                                 num_segments, segment_ids, mask, *arrs, *weights, *idxs)
 

@@ -28,7 +28,12 @@ kernel, in ``csrc/edge_aggregate.cu`` (TensorNet) and
 
 All sum the message onto the dst-sorted rows under the validity mask:
 ``(num_segments, 3, 3, C)`` for TensorNet, ``(num_segments, C)`` for
-CHGNet. CHGNet's messages take the gated MLP's tensors as ``weights``
+CHGNet. TensorNet's three kernels also take bfloat16 (every float tensor
+of a call one dtype; a mix raises): a second instantiation of the same
+kernels that reads bf16, computes and accumulates in fp32 and rounds each
+output element once, counted apart (``*_bf16`` launch counts); the
+messages' ``bf16`` field says which kernels take it (CHGNet's do not yet:
+ROADMAP.md A6b). CHGNet's messages take the gated MLP's tensors as ``weights``
 (``ops.nn.gated_mlp_weights``: core w1, b1, w2, b2, then the gate's), one
 hidden layer for the kernels. The ``*_cuda`` wrappers take CUDA tensors
 only and raise on anything else; the ``*_reference`` versions build the
@@ -54,7 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.nn import gated_mlp_flat
-from ..ops.segment import masked_segment_sum
+from ..ops.segment import _HALF_DTYPES, masked_segment_sum
 from .segment import csr_row_offsets, current_stream_ptr, launch_counts
 
 EMBED = "tensornet_embed_aggregate"
@@ -63,8 +68,10 @@ INTERACTION_BWD = "tensornet_interaction_backward"
 ATOM_CONV = "chgnet_atom_conv_aggregate"
 LINE_CONV = "chgnet_line_aggregate"
 PROJECTION = "chgnet_row_projection"
+BF16 = "_bf16"  # suffix of a kernel's bf16 launch count
 launch_counts.update({EMBED: 0, INTERACTION: 0, INTERACTION_BWD: 0, ATOM_CONV: 0,
-                      LINE_CONV: 0, PROJECTION: 0})
+                      LINE_CONV: 0, PROJECTION: 0, EMBED + BF16: 0, INTERACTION + BF16: 0,
+                      INTERACTION_BWD + BF16: 0})
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +172,15 @@ def _backward_terms(f, i_s, a_s, s_s, t, u, v):
     return d_f, f[:, :, 0] * t, f[:, None, :, 1] * u, f[:, None, :, 2] * v
 
 
+def _src_sum(node, src, ct):
+    """The per-edge cotangent rows ``ct`` summed onto ``node``'s rows at
+    ``src``: half-precision rows accumulate in fp32 and round once (the JAX
+    dispatcher's ``node_cts0`` carry), float32 rows as they are."""
+    acc_dtype = torch.float32 if node.dtype in _HALF_DTYPES else node.dtype
+    acc = torch.zeros(node.shape, dtype=acc_dtype, device=node.device)
+    return acc.index_add(0, src, ct.to(acc_dtype)).to(node.dtype)
+
+
 def tensornet_interaction_backward_reference(g, f, node_i, node_a, node_s, src,
                                              segment_ids, mask=None):
     """Plain version of the interaction's backward: from g (num_segments,
@@ -172,19 +188,57 @@ def tensornet_interaction_backward_reference(g, f, node_i, node_a, node_s, src,
     return (d f (E, C, 3), d i, d a, d s shaped as the node rows). With
     t, u, v the projections of g[dst] (``_projections``): d f = (t i,
     u . a, v . s) per edge (zero on masked edges), and d i, d a, d s the
-    sums of f0 t, f1 u, f2 v onto the src rows. Differentiable torch ops."""
+    sums of f0 t, f1 u, f2 v onto the src rows. bfloat16 inputs take the
+    JAX dispatcher's semantics: the per-edge terms in bf16 ops (the VJP of
+    the bf16 message), the node-row sums in fp32, rounded once.
+    Differentiable torch ops."""
     t, u, v = _projections(_g_rows(g, segment_ids, mask))
     d_f, ci, ca, cs = _backward_terms(f, node_i.index_select(0, src),
                                       node_a.index_select(0, src),
                                       node_s.index_select(0, src), t, u, v)
-    return (d_f, torch.zeros_like(node_i).index_add(0, src, ci),
-            torch.zeros_like(node_a).index_add(0, src, ca),
-            torch.zeros_like(node_s).index_add(0, src, cs))
+    return (d_f, _src_sum(node_i, src, ci), _src_sum(node_a, src, ca),
+            _src_sum(node_s, src, cs))
 
 
 def _edge_counts(ids, n, mask, dtype):
     valid = ids.long() if mask is None else ids.long()[mask]
     return torch.bincount(valid, minlength=n)[:n].to(dtype)
+
+
+BF16_UNIT = 2.0 ** -8  # a bf16 rounding: 8 significant bits, round to nearest
+
+
+def _bf16_bound(e, y, r, t):
+    """A float32 bound ``e`` on |kernel - plain| widened to bf16 data: the
+    plain bf16 route rounds each term up to ``r`` times (each within
+    ``BF16_UNIT`` of the |terms| ``t`` under it, first order) where the
+    kernel holds it in fp32, and each side rounds its fp32 result once,
+    so one bf16 ulp of the result more: ``e' + 2^-7 (|y| + e')`` with
+    ``e' = e + r 2^-8 t`` and ``y`` the float32 value (two roundings of
+    2^-8 each, as ``check_segment_sum`` in chip_smoke.py)."""
+    e = e + r * BF16_UNIT * t
+    return e + 2 * BF16_UNIT * (y.abs() + e)
+
+
+def tensornet_embed_error_bound(zij, w1, w2, w3, a_e, s_e, segment_ids,
+                                num_segments: int, mask=None):
+    """Per output element, a bound on |kernel - plain| of the embed:
+    2 (k + 3) u T in float32 (k the dst row's valid-edge count, u = 2^-24,
+    T the plain version on |inputs|; each side within (k + 2) u T: a
+    message entry is at most five roundings, the dst sum k - 1 more).
+    bfloat16 inputs: the plain route rounds a message entry in bf16 up to
+    five times (``W2 A``, the sum, ``W3 S``, the sum, the product with
+    ``Z``), six with second-order slack; ``_bf16_bound``."""
+    half = zij.dtype in _HALF_DTYPES
+    xs = [x.float() for x in (zij, w1, w2, w3, a_e, s_e)]
+    t = tensornet_embed_aggregate_reference(*(x.abs() for x in xs), segment_ids,
+                                            num_segments, mask)
+    k = _edge_counts(segment_ids, num_segments, mask, t.dtype)
+    bound = 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * t
+    if not half:
+        return bound
+    y = tensornet_embed_aggregate_reference(*xs, segment_ids, num_segments, mask)
+    return _bf16_bound(bound, y, 6, t)
 
 
 def tensornet_interaction_error_bound(f, node_i, node_a, node_s, src, segment_ids,
@@ -195,13 +249,20 @@ def tensornet_interaction_error_bound(f, node_i, node_a, node_s, src, segment_id
     taken from the upper, where the plain version subtracts). Each side is
     within (k + 2) u T: a message entry is two products and a sum, the dst
     sum k - 1 more roundings; the kernel sums the compact components and
-    assembles the 3x3 once (one more)."""
+    assembles the 3x3 once (one more). bfloat16 inputs: the plain route
+    rounds those three in bf16, four with second-order slack;
+    ``_bf16_bound``."""
+    half = f.dtype in _HALF_DTYPES
+    xs = [x.float() for x in (f, node_i, node_a, node_s)]
     t = tensornet_interaction_aggregate_reference(
-        f.abs(), node_i.abs(), node_a.abs(), node_s.abs(), src, segment_ids,
-        num_segments, mask)
+        *(x.abs() for x in xs), src, segment_ids, num_segments, mask)
     t = torch.maximum(t, t.transpose(1, 2))
     k = _edge_counts(segment_ids, num_segments, mask, t.dtype)
-    return 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * t
+    bound = 2 * (k + 3).reshape(-1, 1, 1, 1) * 2.0 ** -24 * t
+    if not half:
+        return bound
+    y = tensornet_interaction_aggregate_reference(*xs, src, segment_ids, num_segments, mask)
+    return _bf16_bound(bound, y, 4, t)
 
 
 def tensornet_interaction_backward_error_bound(g, f, node_i, node_a, node_s, src,
@@ -211,7 +272,12 @@ def tensornet_interaction_backward_error_bound(g, f, node_i, node_a, node_s, src
     same computation on |inputs| with every difference a sum): for d x, k
     is the src row's valid-edge count (a term is at most three roundings,
     the sum k - 1 more); for d f's three columns k = 1, 3, 6, the length of
-    the dot product (at most 2, 4 and 7 roundings)."""
+    the dot product (at most 2, 4 and 7 roundings). bfloat16 inputs: the
+    plain route rounds a term in bf16 before its fp32 sum up to three times
+    (t's two sums and the product with f0 or i), four with second-order
+    slack; ``_bf16_bound``."""
+    half = g.dtype in _HALF_DTYPES
+    g, f, node_i, node_a, node_s = (x.float() for x in (g, f, node_i, node_a, node_s))
     n_node = node_i.shape[0]
     t, u, v = _projections(_g_rows(g.abs(), segment_ids, mask), 1.0)
     d_f, ci, ca, cs = _backward_terms(f.abs(), node_i.abs().index_select(0, src),
@@ -220,10 +286,16 @@ def tensornet_interaction_backward_error_bound(g, f, node_i, node_a, node_s, src
     k = _edge_counts(src, n_node, mask, t.dtype)
     scale = 2 * 2.0 ** -24
     kf = torch.tensor([1.0, 3.0, 6.0], dtype=t.dtype, device=t.device)
-    return (scale * (kf + 3) * d_f,
-            scale * (k + 3)[:, None] * torch.zeros_like(node_i).index_add(0, src, ci),
-            scale * (k + 3)[:, None, None] * torch.zeros_like(node_a).index_add(0, src, ca),
-            scale * (k + 3)[:, None, None] * torch.zeros_like(node_s).index_add(0, src, cs))
+    terms = (d_f, _src_sum(node_i, src, ci), _src_sum(node_a, src, ca),
+             _src_sum(node_s, src, cs))
+    bounds = (scale * (kf + 3) * terms[0], scale * (k + 3)[:, None] * terms[1],
+              scale * (k + 3)[:, None, None] * terms[2],
+              scale * (k + 3)[:, None, None] * terms[3])
+    if not half:
+        return bounds
+    ys = tensornet_interaction_backward_reference(g, f, node_i, node_a, node_s, src,
+                                                  segment_ids, mask)
+    return tuple(_bf16_bound(b, y, 4, tt) for b, y, tt in zip(bounds, ys, terms))
 
 
 def chgnet_atom_conv_aggregate_reference(node_src, src, node_dst, dst, edge, abw,
@@ -424,10 +496,13 @@ def _require_cuda(name, x, ndim):
         raise ValueError(f"{name}: expected a {ndim}-d tensor, got {x.ndim}-d")
 
 
-def _check(name, x, shape, device):
+def _check(name, x, shape, device, dtype=torch.float32):
+    """``x`` a contiguous CUDA tensor of ``shape`` on ``device`` in
+    ``dtype``, the call's one float dtype: a mix raises, nothing is cast."""
     _require_cuda(name, x, len(shape))
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: inputs must be float32, got {x.dtype}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: every float input of the call must be {dtype} "
+                        f"(one dtype a call), got {x.dtype}")
     if tuple(x.shape) != tuple(shape) or not x.is_contiguous() or x.device != device:
         raise ValueError(f"{name}: expected a contiguous {tuple(shape)} tensor on "
                          f"{device}, got {tuple(x.shape)} on {x.device}")
@@ -439,15 +514,29 @@ def _check_index(name, what, x, e, device, dtypes=(torch.int32, torch.int64)):
                          f"{'/'.join(str(d) for d in dtypes)} on {device}")
 
 
+# TensorNet's kernels by float dtype: the C symbol's suffix and the launch
+# count's
+_TENSORNET_DTYPES = {torch.float32: ("_f32", ""), torch.bfloat16: ("_bf16", BF16)}
+
+
+def _tensornet_dtype(name, x):
+    """The call's float dtype, from its first float tensor: float32 or
+    bfloat16."""
+    if x.dtype not in _TENSORNET_DTYPES:
+        raise TypeError(f"{name}: takes float32 or bfloat16, got {x.dtype}")
+    return x.dtype
+
+
 def _launch(name, symbol, out, tensors, row_ptr, mask, channels):
+    symbol_suffix, count_suffix = _TENSORNET_DTYPES[out.dtype]
     stream = torch.cuda.current_stream(out.device).cuda_stream
     ptrs = [t.data_ptr() for t in tensors]
-    err = _fn(symbol, len(ptrs) + 3)(
+    err = _fn(symbol + symbol_suffix, len(ptrs) + 3)(
         *ptrs, row_ptr.data_ptr(), None if mask is None else mask.data_ptr(),
         out.data_ptr(), out.shape[0], channels, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launch_counts[name] += 1
+    launch_counts[name + count_suffix] += 1
     return out
 
 
@@ -462,35 +551,36 @@ def _ids_and_mask(name, segment_ids, mask, e, device):
 def tensornet_embed_aggregate_cuda(zij, w1, w2, w3, a_e, s_e, segment_ids,
                                    num_segments: int, mask=None):
     """Launch the embed kernel: ``zij, w1, w2, w3`` (E, C) and ``a_e, s_e``
-    (E, 3, 3, 1), float32 contiguous; ``segment_ids`` (E,) nondecreasing
-    (not checked: it would cost a device sync); ``mask`` (E,) bool or None.
-    Returns (num_segments, 3, 3, C) float32."""
+    (E, 3, 3, 1), contiguous, all float32 or all bfloat16; ``segment_ids``
+    (E,) nondecreasing (not checked: it would cost a device sync); ``mask``
+    (E,) bool or None. Returns (num_segments, 3, 3, C) in the inputs'
+    dtype, accumulated in float32."""
     name = EMBED
     _require_cuda(name, zij, 2)
     e, channels = zij.shape
-    dev = zij.device
+    dev, dtype = zij.device, _tensornet_dtype(name, zij)
     for x in (zij, w1, w2, w3):
-        _check(name, x, (e, channels), dev)
+        _check(name, x, (e, channels), dev, dtype)
     for x in (a_e, s_e):
-        _check(name, x, (e, 3, 3, 1), dev)
+        _check(name, x, (e, 3, 3, 1), dev, dtype)
     mask = _ids_and_mask(name, segment_ids, mask, e, dev)
     num_segments = int(num_segments)
-    out = torch.empty((num_segments, 3, 3, channels), dtype=torch.float32, device=dev)
+    out = torch.empty((num_segments, 3, 3, channels), dtype=dtype, device=dev)
     if e == 0 or num_segments == 0 or channels == 0:
         return out.zero_()
     with torch.cuda.device(dev):
         row_ptr = csr_row_offsets(segment_ids, num_segments, mask)
-        return _launch(name, "distmlip_tensornet_embed_f32", out,
+        return _launch(name, "distmlip_tensornet_embed", out,
                        (zij, w1, w2, w3, a_e, s_e), row_ptr, mask, channels)
 
 
-def _check_compact(name, node_i, node_a, node_s, channels, device):
+def _check_compact(name, node_i, node_a, node_s, channels, device, dtype):
     """The compact node rows (N, C), (N, 3, C), (N, 6, C); returns N."""
     _require_cuda(name, node_i, 2)
     n_node = node_i.shape[0]
-    _check(name, node_i, (n_node, channels), device)
-    _check(name, node_a, (n_node, 3, channels), device)
-    _check(name, node_s, (n_node, 6, channels), device)
+    _check(name, node_i, (n_node, channels), device, dtype)
+    _check(name, node_a, (n_node, 3, channels), device, dtype)
+    _check(name, node_s, (n_node, 6, channels), device, dtype)
     if n_node >= 2 ** 31:
         raise ValueError(f"{name}: {n_node} node rows exceed int32 src ids")
     return n_node
@@ -501,26 +591,26 @@ def tensornet_interaction_aggregate_cuda(f, node_i, node_a, node_s, src,
                                          mask=None):
     """Launch the interaction kernel: ``f`` (E, C, 3) and the compact node
     rows ``node_i`` (N_node, C), ``node_a`` (N_node, 3, C), ``node_s``
-    (N_node, 6, C), float32 contiguous; ``src`` (E,) int32/int64 row ids
-    into the node rows (in range on every valid edge); ``segment_ids`` (E,)
-    nondecreasing; ``mask`` (E,) bool or None. Returns (num_segments, 3, 3,
-    C) float32."""
+    (N_node, 6, C), contiguous, all float32 or all bfloat16; ``src`` (E,)
+    int32/int64 row ids into the node rows (in range on every valid edge);
+    ``segment_ids`` (E,) nondecreasing; ``mask`` (E,) bool or None. Returns
+    (num_segments, 3, 3, C) in the inputs' dtype, accumulated in float32."""
     name = INTERACTION
     _require_cuda(name, f, 3)
     e, channels = f.shape[0], f.shape[1]
-    dev = f.device
-    _check(name, f, (e, channels, 3), dev)
-    _check_compact(name, node_i, node_a, node_s, channels, dev)
+    dev, dtype = f.device, _tensornet_dtype(name, f)
+    _check(name, f, (e, channels, 3), dev, dtype)
+    _check_compact(name, node_i, node_a, node_s, channels, dev, dtype)
     _check_index(name, "src", src, e, dev)
     mask = _ids_and_mask(name, segment_ids, mask, e, dev)
     num_segments = int(num_segments)
-    out = torch.empty((num_segments, 3, 3, channels), dtype=torch.float32, device=dev)
+    out = torch.empty((num_segments, 3, 3, channels), dtype=dtype, device=dev)
     if e == 0 or num_segments == 0 or channels == 0:
         return out.zero_()
     with torch.cuda.device(dev):
         src32 = src.to(torch.int32).contiguous()
         row_ptr = csr_row_offsets(segment_ids, num_segments, mask)
-        return _launch(name, "distmlip_tensornet_interaction_f32", out,
+        return _launch(name, "distmlip_tensornet_interaction", out,
                        (f, node_i, node_a, node_s, src32), row_ptr, mask, channels)
 
 
@@ -540,17 +630,19 @@ def tensornet_interaction_backward_cuda(g, f, node_i, node_a, node_s, src,
     """Launch the interaction's backward kernel: ``g`` (num_segments, 3, 3,
     C), the cotangent of the forward's output; the forward's ``f``, compact
     node rows, ``src``, ``segment_ids`` and ``mask`` as
-    ``tensornet_interaction_aggregate_cuda`` takes them. float32
-    contiguous. Returns (d f (E, C, 3), d i, d a, d s shaped as the node
-    rows), with the edges ordered by ``src_order``."""
+    ``tensornet_interaction_aggregate_cuda`` takes them. Contiguous, all
+    float32 or all bfloat16. Returns (d f (E, C, 3), d i, d a, d s shaped
+    as the node rows) in the inputs' dtype, with the edges ordered by
+    ``src_order``; each d f entry and each src row's sum computed in float32
+    and rounded once."""
     name = INTERACTION_BWD
     _require_cuda(name, f, 3)
     e, channels = f.shape[0], f.shape[1]
-    dev = f.device
-    _check(name, f, (e, channels, 3), dev)
-    n_node = _check_compact(name, node_i, node_a, node_s, channels, dev)
+    dev, dtype = f.device, _tensornet_dtype(name, f)
+    _check(name, f, (e, channels, 3), dev, dtype)
+    n_node = _check_compact(name, node_i, node_a, node_s, channels, dev, dtype)
     _require_cuda(name, g, 4)
-    _check(name, g, (g.shape[0], 3, 3, channels), dev)
+    _check(name, g, (g.shape[0], 3, 3, channels), dev, dtype)
     _check_index(name, "src", src, e, dev)
     mask = _ids_and_mask(name, segment_ids, mask, e, dev)
     if e >= 2 ** 31:
@@ -562,18 +654,19 @@ def tensornet_interaction_backward_cuda(g, f, node_i, node_a, node_s, src,
         perm, row_ptr = src_order(src, n_node, mask)
         dst32 = segment_ids.to(torch.int32).contiguous()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _interaction_bwd_fn()(
+        symbol_suffix, count_suffix = _TENSORNET_DTYPES[dtype]
+        err = _interaction_bwd_fn(symbol_suffix)(
             g.data_ptr(), f.data_ptr(), node_i.data_ptr(), node_a.data_ptr(),
             node_s.data_ptr(), perm.data_ptr(), dst32.data_ptr(), row_ptr.data_ptr(),
             *(x.data_ptr() for x in out), n_node, e, channels, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launch_counts[name] += 1
+    launch_counts[name + count_suffix] += 1
     return tuple(out)
 
 
-def _interaction_bwd_fn():
-    symbol = "distmlip_tensornet_interaction_bwd_f32"
+def _interaction_bwd_fn(suffix):
+    symbol = "distmlip_tensornet_interaction_bwd" + suffix
     fn = _fns.get(symbol)
     if fn is None:
         from .build import load
@@ -799,13 +892,15 @@ class EdgeMessage:
     needs)``, when given, launches the kernel of the backward: the
     cotangents of the inputs, then of the weights (``None`` where ``needs``
     is False); the dispatcher takes it after a forward that launched the
-    kernel, outside grad mode.
+    kernel, outside grad mode. ``bf16``: whether the kernels take bfloat16
+    inputs; the dispatcher raises for bf16 on the kernel route otherwise.
     """
 
     name: str
     fn: Callable
     cuda: Callable | None = None
     backward: Callable | None = None
+    bf16: bool = False
 
 
 def _no_weights(name, weights):
@@ -869,8 +964,8 @@ def _line_conv_cuda(items, weights, segment_ids, num_segments, mask):
         tuple(w.contiguous() for w in weights), segment_ids, num_segments, mask)
 
 
-TENSORNET_EMBED = EdgeMessage(EMBED, tensornet_embed_message, _embed_cuda)
+TENSORNET_EMBED = EdgeMessage(EMBED, tensornet_embed_message, _embed_cuda, bf16=True)
 TENSORNET_INTERACTION = EdgeMessage(INTERACTION, tensornet_interaction_message,
-                                    _interaction_cuda, _interaction_backward_cuda)
+                                    _interaction_cuda, _interaction_backward_cuda, bf16=True)
 CHGNET_ATOM_CONV = EdgeMessage(ATOM_CONV, chgnet_atom_message, _atom_conv_cuda)
 CHGNET_LINE_CONV = EdgeMessage(LINE_CONV, chgnet_line_message, _line_conv_cuda)

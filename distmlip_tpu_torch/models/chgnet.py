@@ -28,10 +28,12 @@ MD) are masked out of every basis and message (``in_r``, ``b_real``,
 ``line_ok``), as the JAX model does.
 
 Not ported yet (raises ``NotImplementedError``): ``dtype="bfloat16"``,
-ROADMAP.md A6b (its B2 kernels' bf16 variants and the fp32-view gathers of
-the JAX dispatcher). The model declares the compute-dtype switch, as the
-JAX one does, so the global ``set_compute_dtype("bfloat16")`` reaches this
-raise instead of silently running float32.
+ROADMAP.md A6b's second half (the bf16 variants of its B2 kernels and of
+the row projection, and ``_trunk``'s dtype policy; the dispatcher's
+fp32-view rules are in place since TensorNet's bf16). The model declares
+the compute-dtype switch, as the JAX one does, so the global
+``set_compute_dtype("bfloat16")`` reaches this raise instead of silently
+running float32.
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ class CHGNet:
         if config.dtype != "float32":
             raise NotImplementedError(
                 f"CHGNet dtype={config.dtype!r}: only float32 is ported; "
-                "bfloat16 for TensorNet and CHGNet is ROADMAP.md A6b")
+                "bfloat16 for CHGNet is ROADMAP.md A6b")
         self.cfg = config
 
     # ---- parameters ----

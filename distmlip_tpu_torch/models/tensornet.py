@@ -22,11 +22,17 @@ JAX package give the same energies:
 - readout: decompose -> per-channel norms -> LayerNorm -> linear -> MLP,
   scaled by ``data_std`` plus per-species reference energies.
 
-Not ported yet (raises ``NotImplementedError``): ``dtype="bfloat16"``,
-ROADMAP.md A6b (its B2 kernels' bf16 variants and the fp32-view gathers of
-the JAX dispatcher). The model declares the compute-dtype switch, as the
-JAX one does, so the global ``set_compute_dtype("bfloat16")`` reaches this
-raise instead of silently running float32.
+``dtype="bfloat16"`` (``distmlip_tpu/models/tensornet.py:132-202``): the
+features, messages and GEMMs run in bf16 (the parameters cast but for
+``species_ref``, ``out_norm``, ``linear``, ``final`` and ``data_std``);
+geometry (``vec``, ``d``) stays in the positions' dtype and is cast after
+use (``rhat``, ``env``, ``rbf``); the invariants are cast back to the
+positions' dtype before the readout stack. Both edge aggregations and the
+interaction's backward launch their kernels' bf16 instantiations on the
+card (fp32 accumulation, one rounding); the per-edge gathers of the
+species rows accumulate their gradient in fp32 (``ops.nn.gather_rows``);
+the 3x3 products, an einsum in the JAX package, take their sums in fp32
+and round once.
 """
 
 from __future__ import annotations
@@ -38,7 +44,9 @@ import torch.nn.functional as F
 
 from ..kernels import TENSORNET_EMBED, TENSORNET_INTERACTION, Gather, tensornet_full
 from ..ops import radial
-from ..ops.nn import embedding, layernorm, layernorm_init, linear, linear_init, mlp, mlp_init
+from ..ops.nn import (cast_params_subtrees, embedding, gather_rows, layernorm, layernorm_init,
+                      linear, linear_init, mlp, mlp_init)
+from ..ops.segment import _HALF_DTYPES
 from ..utils.checkpoint import as_list
 
 
@@ -50,7 +58,7 @@ class TensorNetConfig:
     num_layers: int = 2
     cutoff: float = 5.0
     final_hidden: tuple | None = None  # final_layer.gated dims, default (units, units)
-    dtype: str = "float32"
+    dtype: str = "float32"    # compute dtype: "float32" or "bfloat16"
 
     @property
     def _final_hidden(self):
@@ -120,21 +128,27 @@ def _matmul3(P, Q):
     ``einsum("nijc,njkc->nikc")`` as three broadcast multiply-adds. The
     einsum runs as one tiny matrix product per (node, channel), ~1.8 ms a
     call at 16384 atoms on an H100 80GB HBM3 at 700 W
-    (``tools/step_profile.py``, PERF.md)."""
+    (``tools/step_profile.py``, PERF.md). Half-precision factors multiply
+    and sum in fp32 and round once, as the JAX package's einsum does."""
+    if P.dtype in _HALF_DTYPES:
+        return _matmul3(P.float(), Q.float()).to(P.dtype)
     out = P[:, :, 0, None, :] * Q[:, None, 0, :, :]
     for j in (1, 2):
         out = out + P[:, :, j, None, :] * Q[:, None, j, :, :]
     return out
 
 
+# the parameter subtrees that stay float32 at a bf16 compute dtype: the
+# reference energies and the readout stack (distmlip_tpu/models/tensornet.py:139-143)
+KEEP_FP32 = ("species_ref", "out_norm", "linear", "final", "data_std")
+
+
 class TensorNet:
-    supports_compute_dtype = True  # cfg.dtype is the JAX model's switch
+    supports_compute_dtype = True  # energy_fn honours cfg.dtype="bfloat16"
 
     def __init__(self, config: TensorNetConfig = TensorNetConfig()):
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                f"TensorNet dtype={config.dtype!r}: only float32 is ported; "
-                "bfloat16 for TensorNet and CHGNet is ROADMAP.md A6b")
+        if config.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"TensorNet dtype={config.dtype!r}: float32 or bfloat16")
         self.cfg = config
 
     # ---- parameters ----
@@ -173,21 +187,27 @@ class TensorNet:
         """Per-atom energies (n_cap,) of the local graph."""
         cfg = self.cfg
         C = cfg.units
+        # features and GEMMs in the compute dtype; geometry and the readout
+        # stack in the positions' dtype
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else positions.dtype
+        if cfg.dtype == "bfloat16":
+            params = cast_params_subtrees(params, dtype, keep_fp32=KEEP_FP32)
         vec = lg.edge_vectors(positions)
         emask = lg.edge_mask[:, None]
         d = torch.linalg.norm(torch.where(emask, vec, torch.ones_like(vec)), dim=-1)
-        rhat = vec / torch.clamp(d, min=1e-9)[:, None]
-        env = radial.cosine_cutoff(d, cfg.cutoff) * lg.edge_mask.to(d.dtype)
-        rbf = radial.spherical_bessel_basis(d, cfg.cutoff, cfg.num_rbf)
+        rhat = (vec / torch.clamp(d, min=1e-9)[:, None]).to(dtype)
+        env = (radial.cosine_cutoff(d, cfg.cutoff) * lg.edge_mask.to(d.dtype)).to(dtype)
+        rbf = radial.spherical_bessel_basis(d, cfg.cutoff, cfg.num_rbf).to(dtype)
 
         # --- tensor embedding (torchmd-net TensorEmbedding) ---
-        eye = torch.eye(3, dtype=d.dtype, device=d.device)[:, :, None]  # (3, 3, 1)
+        eye = torch.eye(3, dtype=dtype, device=d.device)[:, :, None]    # (3, 3, 1)
         A_e = _vector_to_skew(rhat)[..., None]                          # (E, 3, 3, 1)
         S_e = (rhat[:, :, None] * rhat[:, None, :])[..., None] - eye / 3.0
 
         z = embedding(params["species_emb"], lg.species)                # (N, C)
+        # gather_rows: a bf16 z's gradient sums its edges' rows in fp32
         Zij = linear(params["emb2"], torch.cat(
-            [z.index_select(0, lg.edge_src), z.index_select(0, lg.edge_dst)], dim=-1))
+            [gather_rows(z, lg.edge_src), gather_rows(z, lg.edge_dst)], dim=-1))
         dist_proj = as_list(params["dist_proj"])
         W1 = linear(dist_proj[0], rbf) * env[:, None]                   # (E, C)
         W2 = linear(dist_proj[1], rbf) * env[:, None]
@@ -214,9 +234,11 @@ class TensorNet:
             X = self._interaction(lp, lg, X, rbf, env)
             X = lg.halo_exchange(X)
 
-        # --- invariant readout (reference dist_forward :131-151) ---
+        # --- invariant readout (reference dist_forward :131-151), in the
+        # positions' dtype on the float32 readout stack ---
         I, A, S = decompose(X)
-        inv = torch.cat([tensor_norm(I), tensor_norm(A), tensor_norm(S)], dim=-1)
+        inv = torch.cat([tensor_norm(I), tensor_norm(A), tensor_norm(S)],
+                        dim=-1).to(positions.dtype)
         x = linear(params["linear"], layernorm(params["out_norm"], inv))
         e_atom = mlp(as_list(params["final"]), x)[:, 0]
         e_ref = params["species_ref"]["w"][lg.species.long(), 0]

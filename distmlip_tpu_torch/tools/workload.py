@@ -9,6 +9,9 @@
 - TensorNet at the matgl TensorNet-MatPES-PBE layout (89 species, 64
   channels, 32 RBF, 2 layers, cutoff 5.0 Å; the full-size layout that
   ``tests/test_convert_tensornet.py:228-240`` converts), float32.
+  ``TENSORNET_BF16_KW`` is the same at ``dtype="bfloat16"``: the
+  reference's own compute-dtype switch on that layout
+  (``distmlip_tpu/models/tensornet.py:129``).
 - CHGNet at the matgl MPtrj layout (89 species, 64 units, 31 RBF,
   max_f 4, 4 blocks, cutoff 6.0 Å, bond cutoff 3.0 Å; the full-size layout
   that ``tests/test_convert_chgnet.py:328-342`` converts), float32.
@@ -55,6 +58,7 @@ ESCN_KW = dict(num_species=95, channels=128, l_max=4, num_layers=2, num_experts=
 ESCN_INFO = {"charge": 1, "spin": 1, "dataset": 2}
 MACE_BF16_KW = dict(MACE_KW, dtype="bfloat16")
 ESCN_BF16_KW = dict(ESCN_KW, dtype="bfloat16")
+TENSORNET_BF16_KW = dict(TENSORNET_KW, dtype="bfloat16")
 
 
 def bench_atoms(reps: int = 8, seed: int = 0):

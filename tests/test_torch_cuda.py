@@ -1691,11 +1691,15 @@ def test_so2_conv_bf16_refuses_mixed_dtypes_on_card(card):
 
 
 def _bf16_model(family):
-    from distmlip_tpu_torch.models import ESCN, ESCNConfig, MACE, MACEConfig
+    from distmlip_tpu_torch.models import (ESCN, ESCNConfig, MACE, MACEConfig, TensorNet,
+                                           TensorNetConfig)
 
     if family == "mace":
         return MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2, hidden_lmax=1,
                                correlation=2, cutoff=3.0, edge_chunk=128, dtype="bfloat16"))
+    if family == "tensornet":
+        return TensorNet(TensorNetConfig(num_species=4, units=16, num_rbf=8, cutoff=3.0,
+                                         dtype="bfloat16"))
     return ESCN(ESCNConfig(num_species=4, channels=16, l_max=2, num_layers=2, num_bessel=6,
                            num_experts=4, cutoff=3.0, avg_num_neighbors=12.0, edge_chunk=128,
                            dtype="bfloat16"))
@@ -1718,7 +1722,7 @@ def _bf16_close(got, want, tag):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", [1, 2])
-@pytest.mark.parametrize("family", ["mace", "escn"])
+@pytest.mark.parametrize("family", ["mace", "escn", "tensornet"])
 def test_bf16_on_card_launches_the_bf16_kernels(card, family, P):
     """``DistPotential(compute_dtype="bfloat16")`` on the card launches the
     bf16 kernels, and only them, as many times as the float32 path launches
@@ -1740,12 +1744,19 @@ def test_bf16_on_card_launches_the_bf16_kernels(card, family, P):
     gpu = pot.calculate(atoms)
     got = {k: launch_counts[k] - before[k] for k in launch_counts}
     st = pot.last_stats
-    k = (chunk_layout(2 * st["e_cap"], model.cfg.edge_chunk, 2 * st["e_split"])[2] if P == 2
-         else chunk_layout(st["e_cap"], model.cfg.edge_chunk)[2])
     want = {name: 0 for name in got}
+    if family == "tensornet":  # once per sorted segment: P of them here
+        layers = model.cfg.num_layers
+        want.update(tensornet_embed_aggregate_bf16=P,
+                    tensornet_interaction_aggregate_bf16=layers * P,
+                    tensornet_interaction_backward_bf16=layers * P)
+    elif P == 2:
+        k = chunk_layout(2 * st["e_cap"], model.cfg.edge_chunk, 2 * st["e_split"])[2]
+    else:
+        k = chunk_layout(st["e_cap"], model.cfg.edge_chunk)[2]
     if family == "mace":
         want["segment_sum_bf16"] = model.cfg.num_interactions * 2 * k
-    else:
+    elif family == "escn":
         want.update(so2_conv_bf16=model.cfg.num_layers * 3 * k,
                     segment_sum_bf16=(1 + model.cfg.num_layers) * 2 * k)
     assert got == want
@@ -1783,3 +1794,116 @@ def test_bf16_batched_mace_on_card(card):
     for g, c, a in zip(gpu, cpu, structs):
         if len(a) > 1:  # the lone atom has no edge: nothing to compare
             _bf16_close(g, c, "batched card vs CPU")
+
+
+def _edge_case_bf16_on_card(card, name, which):
+    """``_edge_case_on_card``'s inputs rounded to bf16 once."""
+    arrays, ti, tm, ids, mask, n = _edge_case_on_card(card, name, which)
+    return ([x.bfloat16() if x.is_floating_point() else x for x in arrays], ti, tm, ids, mask,
+            n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["embed", "interaction"])
+@pytest.mark.parametrize("name", sorted(EDGE_AGG_CASES))
+def test_edge_aggregate_bf16_kernels_match_plain_on_card(card, name, which):
+    """TensorNet's bf16 embed and interaction kernels (bf16 loads, fp32
+    arithmetic and accumulation, one rounding an output element) vs their
+    plain bf16 versions (the message in bf16 ops, the sum in fp32), within
+    ``tensornet_embed_error_bound`` / ``tensornet_interaction_error_bound``
+    at bf16 data; one ``*_bf16`` launch a call and no float32 one; all
+    masked gives zeros."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, ti, tm, ids, mask, n = _edge_case_bf16_on_card(card, name, which)
+    if which == "embed":
+        cuda, ref = K.tensornet_embed_aggregate_cuda, K.tensornet_embed_aggregate_reference
+        bound_fn, count = K.tensornet_embed_error_bound, "tensornet_embed_aggregate"
+    else:
+        cuda = K.tensornet_interaction_aggregate_cuda
+        ref = K.tensornet_interaction_aggregate_reference
+        bound_fn, count = K.tensornet_interaction_error_bound, "tensornet_interaction_aggregate"
+    before = dict(K.launch_counts)
+    got = cuda(*arrays, ti, n, tm)
+    want = ref(*arrays, ti, n, tm)
+    torch.cuda.synchronize()
+    assert K.launch_counts[count + "_bf16"] == before[count + "_bf16"] + 1
+    assert K.launch_counts[count] == before[count]
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    bound = bound_fn(*arrays, ti, n, tm)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= bound + 1e-30).all()) and bool(torch.isfinite(got).all()), name
+    assert not cuda(*arrays, ti, n, torch.zeros_like(tm)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(EDGE_AGG_CASES))
+def test_interaction_backward_bf16_kernel_matches_plain_on_card(card, name):
+    """The bf16 backward kernel (d f per edge and each src row's d i, d a,
+    d s summed in fp32 over its src-sorted edges, each rounded once) vs its
+    plain bf16 version (the JAX dispatcher's semantics), within
+    ``tensornet_interaction_backward_error_bound`` at bf16 data; masked
+    edges' d f rows zero; deterministic."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, ti, tm, ids, mask, n = _edge_case_bf16_on_card(card, name, "interaction")
+    c = arrays[0].shape[1]
+    g = torch.from_numpy(np.random.default_rng(9).normal(size=(n, 3, 3, c)).astype(
+        np.float32)).to(card).bfloat16()
+    count = "tensornet_interaction_backward_bf16"
+    before = K.launch_counts[count]
+    got = K.tensornet_interaction_backward_cuda(g, *arrays, ti, tm)
+    want = K.tensornet_interaction_backward_reference(g, *arrays, ti, tm)
+    torch.cuda.synchronize()
+    assert K.launch_counts[count] == before + 1
+    bounds = K.tensornet_interaction_backward_error_bound(g, *arrays, ti, tm)
+    for x, y, b in zip(got, want, bounds):
+        assert x.shape == y.shape and x.dtype == y.dtype == torch.bfloat16
+        assert bool(((x.float() - y.float()).abs() <= b + 1e-30).all()), name
+    assert not got[0][~tm].any()
+    for x, y in zip(K.tensornet_interaction_backward_cuda(g, *arrays, ti, tm), got):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_bf16_b2_routes_and_refusals_on_card(card):
+    """bf16 through the dispatcher on the card: TensorNet's interaction
+    launches its bf16 forward and backward kernels (no plain recompute,
+    no float32 launch) and agrees with ``kernels=False``; a call mixing
+    float32 and bf16 raises before any launch, as does float16; CHGNet's
+    messages raise naming A6b on bf16."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, ti, tm, ids, mask, n = _edge_case_bf16_on_card(card, "empty_rows", "interaction")
+    f, node_i, node_a, node_s, src = arrays
+    leaves = [x.clone().requires_grad_(True) for x in (f, node_i, node_a, node_s)]
+    inputs = lambda xs: [xs[0]] + [K.Gather(x, src) for x in xs[1:]]  # noqa: E731
+    before = dict(K.launch_counts)
+    out = K.fused_edge_aggregate(K.TENSORNET_INTERACTION, inputs(leaves), ti, n, tm)
+    got = torch.autograd.grad(out.float().square().sum(), leaves)
+    launched = {k: K.launch_counts[k] - before[k] for k in before}
+    assert launched == dict({k: 0 for k in launched}, tensornet_interaction_aggregate_bf16=1,
+                            tensornet_interaction_backward_bf16=1)
+    plain = K.fused_edge_aggregate(K.TENSORNET_INTERACTION, inputs(leaves), ti, n, tm,
+                                   kernels=False)
+    want = torch.autograd.grad(plain.float().square().sum(), leaves)
+    for a, b in zip([out] + list(got), [plain] + list(want)):
+        a, b = a.detach().float(), b.detach().float()
+        assert float((a - b).abs().max()) <= 0.02 * float(b.abs().max())
+    assert out.dtype == torch.bfloat16 and all(x.dtype == torch.bfloat16 for x in got)
+    before = dict(K.launch_counts)
+    with pytest.raises(TypeError, match="one dtype"):
+        K.fused_edge_aggregate(K.TENSORNET_INTERACTION, inputs([f.float(), node_i, node_a,
+                                                                node_s]), ti, n, tm)
+    with pytest.raises(NotImplementedError):
+        K.fused_edge_aggregate(K.TENSORNET_INTERACTION,
+                               inputs([x.half() for x in (f, node_i, node_a, node_s)]), ti, n, tm)
+    carrays, weights, cti, ctm, cn = _chgnet_case_on_card(card, "repeated_tail_padding", "atom")
+    node_src, src_c, node_dst, dst_c, edge, abw = carrays
+    with pytest.raises(NotImplementedError, match="A6b"):
+        K.fused_edge_aggregate(
+            K.CHGNET_ATOM_CONV, [K.Gather(node_src.bfloat16(), src_c),
+                                 K.Gather(node_dst.bfloat16(), dst_c), edge.bfloat16(),
+                                 abw.bfloat16()], cti, cn, ctm,
+            weights=tuple(w.bfloat16() for w in weights))
+    assert dict(K.launch_counts) == before

@@ -29,7 +29,7 @@ from distmlip_tpu_torch.calculators import Atoms, DistPotential
 from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
 from distmlip_tpu_torch.models.tensornet import decompose, decompose_compact, expand_compact
 from distmlip_tpu_torch.parallel import halo
-from distmlip_tpu_torch.tools.workload import TENSORNET_KW
+from distmlip_tpu_torch.tools.workload import TENSORNET_BF16_KW, TENSORNET_KW
 from distmlip_tpu_torch.utils import load_params, params_from_numpy
 from tests.utils import make_crystal
 from tests.torch_threads import one_intra_op_thread  # noqa: F401
@@ -201,8 +201,13 @@ def test_compact_rows_expand_to_decompose_bit_for_bit():
 
 
 def test_unported_options_and_workload():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        TensorNet(TensorNetConfig(**CFG, dtype="bfloat16"))
+    """The compute dtypes the model takes (bfloat16:
+    ``tests/test_torch_bf16_tensornet.py`` holds it against the JAX
+    package), and the workloads' MatPES layout at both."""
+    assert TensorNet(TensorNetConfig(**CFG, dtype="bfloat16")).cfg.dtype == "bfloat16"
+    with pytest.raises(ValueError, match="float16"):
+        TensorNet(TensorNetConfig(**CFG, dtype="float16"))
     # the MatPES layout tests/test_convert_tensornet.py:228-240 converts
     assert TENSORNET_KW == dict(num_species=89, units=64, num_rbf=32, num_layers=2,
                                 cutoff=5.0)
+    assert TENSORNET_BF16_KW == dict(TENSORNET_KW, dtype="bfloat16")
