@@ -158,7 +158,8 @@ Phases (each failure raises, so the exit code is non-zero):
    round's against ``DistPotential``. Launch counts derived per calculate,
    as above.
 
-12. bfloat16 compute (``compute_dtype="bfloat16"``, MACE, eSCN, TensorNet):
+12. bfloat16 compute (``compute_dtype="bfloat16"``, MACE, eSCN, TensorNet,
+   CHGNet):
    ``[kernels] segment_sum bf16`` (B1's bf16 instantiation at MACE's two
    chunk shapes and eSCN's rows, the width sweep with int32 and int64 ids,
    all-masked and the padding-only chunk; tolerance one bf16 ulp over the
@@ -190,6 +191,18 @@ Phases (each failure raises, so the exit code is non-zero):
    counted, their pair sets checked), ``[parallel-tensornet-bf16]`` (P = 2
    against P = 1 and ``kernels=False``, the kernels on the flattened
    graph's segments) and ``[batched-tensornet-bf16]`` (B = 1 and 8).
+   CHGNet at bf16 (``CHGNET_BF16_KW``, the MPtrj layout, magmoms):
+   ``[kernels] chgnet bf16`` (the bf16 atom conv and line conv on
+   ``[kernels] chgnet``'s cases with every input and weight in bf16,
+   within ``chgnet_aggregate_error_bound``'s bf16 form; the bf16 row
+   projection at the wrappers' shapes, K = 6 and 7 too; call ms, kernel
+   alone, host µs, the bound at 2 bytes an element, ``index_add_`` of the
+   message upcast to float32 and ``addmm`` on the bf16 operands),
+   ``[main-chgnet-bf16]`` (4 calculates at 16,384 atoms, launches derived
+   as ``[main-chgnet]``'s on the bf16 kernels and each conv's plain
+   backward chunks, magmoms within 0.05 max |m| of the plain route),
+   ``[relax-chgnet-bf16]`` (``[relax-chgnet]``'s 30 FIRE steps with the
+   cell), ``[parallel-chgnet-bf16]`` and ``[batched-chgnet-bf16]``.
    The bf16 bars: the kernels' route within rel dE < 1e-3 and max |dF| <
    0.1 max |F| of the plain one, and no further from float32 than the
    plain route is (x 1.25 + 0.005 max |F|): each route rounds the same
@@ -238,7 +251,10 @@ REPLACES = {"segment_sum": "distmlip_tpu/kernels/segment.py:142",
             "so2_conv_bf16": "distmlip_tpu/kernels/so3.py:89",
             "tensornet_embed_aggregate_bf16": "distmlip_tpu/kernels/segment.py:224",
             "tensornet_interaction_aggregate_bf16": "distmlip_tpu/kernels/segment.py:224",
-            "tensornet_interaction_backward_bf16": "distmlip_tpu/kernels/dispatch.py:482"}
+            "tensornet_interaction_backward_bf16": "distmlip_tpu/kernels/dispatch.py:482",
+            "chgnet_atom_conv_aggregate_bf16": "distmlip_tpu/kernels/segment.py:224",
+            "chgnet_line_aggregate_bf16": "distmlip_tpu/kernels/segment.py:224",
+            "chgnet_row_projection_bf16": "distmlip_tpu/kernels/segment.py:224"}
 SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "tensornet_embed_aggregate": "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "tensornet_interaction_aggregate":
@@ -255,7 +271,11 @@ SOURCES = {"segment_sum": "distmlip_tpu_torch/kernels/csrc/segment_sum.cu",
            "tensornet_interaction_aggregate_bf16":
                "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
            "tensornet_interaction_backward_bf16":
-               "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu"}
+               "distmlip_tpu_torch/kernels/csrc/edge_aggregate.cu",
+           "chgnet_atom_conv_aggregate_bf16":
+               "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
+           "chgnet_line_aggregate_bf16": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu",
+           "chgnet_row_projection_bf16": "distmlip_tpu_torch/kernels/csrc/chgnet_aggregate.cu"}
 STEPS = 3
 TENSORNET_REPS = 16  # bench.py's default structure: 16384 atoms
 CHGNET_REPS = 16
@@ -798,7 +818,12 @@ def check_chgnet(torch, which, arrays, weights, ids, mask, n):
     """Kernel vs plain on one input, within the derived bound
     ``chgnet_aggregate_error_bound`` (for each side: (K + 2) u on each dot
     product's sum of |terms|, activation slopes and ulps, the gating
-    products, k u on the dst sum; |kernel - plain| <= twice that). Returns
+    products, k u on the dst sum; |kernel - plain| <= twice that; at bf16
+    data the plain route's r = 8 (7) bf16 roundings of each message entry
+    over ``chgnet_message_terms``, one more of slack, and one bf16 ulp of
+    the result). A bf16 call is also held bit for bit against the float32
+    kernel on the upcast inputs, rounded to bf16: it makes the float32
+    kernel's FMAs in its order on the same values and rounds once. Returns
     (max |kernel - plain|, max |kernel - plain| / bound)."""
     from distmlip_tpu_torch.kernels import chgnet_aggregate_error_bound
 
@@ -812,20 +837,34 @@ def check_chgnet(torch, which, arrays, weights, ids, mask, n):
     x, abw = chgnet_rows(torch, which, arrays)
     tol = chgnet_aggregate_error_bound(x, abw, weights, ids, n, mask)
     del x
-    err = (got - want).abs()
+    err = (got.float() - want.float()).abs()
     if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"chgnet {which} disagrees with its plain version: max "
                              f"|err| {float(err.max())}, max tolerance {float(tol.max())}")
+    if got.dtype == torch.bfloat16:
+        f32_arrays, f32_weights = float_case(arrays, weights)
+        f32 = cuda(*f32_arrays, f32_weights, ids, n, mask).bfloat16()
+        if not torch.equal(got, f32):
+            raise AssertionError(f"chgnet {which} bf16 differs from the float32 kernel on the "
+                                 f"upcast inputs in {int((got != f32).sum())} elements")
     if not err.numel():
         return 0.0, 0.0
     return float(err.max()), float((err / (tol + 1e-30)).max())
 
 
 def time_chgnet(torch, which, arrays, weights, ids, mask, n):
+    """A CHGNet wrapper's call ms (CUDA events; its row projections
+    included), the per-edge kernel alone (profiler) and the host µs a call,
+    its plain version's ms, one ``index_add_`` of the built message (bf16
+    upcast to float32 beforehand: an fp32 accumulation as the kernel's),
+    and the bound at the inputs' element size (ids and mask unchanged) and
+    the peak rate for their type (bf16: the tensor cores; the float32 CUDA
+    cores' operations time beside it, as ``fp32_core_ops_ms``)."""
     from distmlip_tpu_torch import kernels as K
 
     cuda, ref, _ = _chgnet_fns(which)
-    ms = cuda_ms(torch, lambda: cuda(*arrays, weights, ids, n, mask))
+    timed = split(torch, lambda: cuda(*arrays, weights, ids, n, mask),
+                  f"chgnet_{which}_conv_kernel")
     plain_ms = cuda_ms(torch, lambda: ref(*arrays, weights, ids, n, mask), iters=5)
     e, c = ids.shape[0], arrays[4].shape[1]
     h = weights[0].shape[1]
@@ -833,7 +872,7 @@ def time_chgnet(torch, which, arrays, weights, ids, mask, n):
     msg = (K.CHGNET_ATOM_CONV if which == "atom" else K.CHGNET_LINE_CONV).fn(
         *x.split(c, dim=-1), *(() if abw is None else (abw,)), weights=weights)
     del x
-    masked = torch.where(mask[:, None], msg, 0.0)
+    masked = torch.where(mask[:, None], msg.float(), 0.0)
     del msg
     out = torch.zeros((n, c), device="cuda")
     ids_long = ids.long()
@@ -861,22 +900,27 @@ def time_chgnet(torch, which, arrays, weights, ids, mask, n):
                         + (3 if which == "atom" else 2) * c))
     # bytes: each node row used by a valid edge read once, the valid edges'
     # per-edge rows and gather ids, all ids and the mask, the weights, the
-    # output written once
+    # output written once; float data at its element size (2 for bf16)
+    es = arrays[4].element_size()
     if which == "atom":
         node_rows = int(torch.unique(torch.cat(gathers)).numel())
-        per_edge = 2 * c * 4 + 2 * 4
+        per_edge = (1 if arrays[5] is None else 2) * c * es + 2 * 4
     else:
         node_rows = (int(torch.unique(torch.cat(gathers[:2])).numel())
                      + rows_per_segment[2])
-        per_edge = c * 4 + 3 * 4
+        per_edge = c * es + 3 * 4
     w_floats = sum(w.numel() for w in weights)
-    nbytes = (node_rows * c * 4 + n_valid * per_edge + e * (ids.element_size() + 1)
-              + w_floats * 4 + n * c * 4)
-    bound_ms, bound_by = bound(nbytes, ops)
-    return {"which": which, "e": e, "valid_edges": n_valid, "channels": c, "hidden": h,
-            "in_dim": k1, "n_segments": n, "ms": ms, "plain_ms": plain_ms,
+    nbytes = (node_rows * c * es + n_valid * per_edge + e * (ids.element_size() + 1)
+              + w_floats * es + n * c * es)
+    half = es == 2
+    bound_ms, bound_by = bound(nbytes, ops, H100_BF16_FLOPS if half else H100_FP32_FLOPS)
+    return {"which": which, "dtype": str(arrays[4].dtype).split(".")[-1], "e": e,
+            "valid_edges": n_valid, "channels": c, "hidden": h, "in_dim": k1,
+            "n_segments": n, **timed, "plain_ms": plain_ms,
             "library_ms": library_ms, "library": "index_add_ of the materialised (E, C) "
-            "message: the scatter alone", "bound_ms": bound_ms, "bound_by": bound_by,
+            "message" + (" upcast to float32" if half else "") + ": the scatter alone",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **({"fp32_core_ops_ms": ops / H100_FP32_FLOPS * 1e3} if half else {}),
             "bytes": nbytes, "ops": ops, "gathered_rows": rows_per_segment}
 
 
@@ -898,7 +942,8 @@ def projection_inputs(which, arrays, weights):
 def check_projection(torch, x, w, b):
     """The row projection kernel vs ``x @ w + b`` within
     ``chgnet_projection_error_bound`` (2 (K + 2) u on each dot product's sum
-    of |terms|); returns max |kernel - plain|."""
+    of |terms|), and at bf16 rows bit for bit against the float32 kernel on
+    the upcast rows; returns max |kernel - plain|."""
     from distmlip_tpu_torch import kernels as K
 
     got = K.chgnet_row_projection_cuda(x, w, b)
@@ -909,26 +954,40 @@ def check_projection(torch, x, w, b):
     if not bool((err <= tol + 1e-30).all()) or got.shape != want.shape:
         raise AssertionError(f"row projection disagrees with its plain version: max |err| "
                              f"{float(err.max())}, max tolerance {float(tol.max())}")
+    if x.dtype == torch.bfloat16 and not torch.equal(
+            got, K.chgnet_row_projection_cuda(x.float(), w, b)):
+        raise AssertionError("bf16 row projection differs from the float32 kernel on the "
+                             "upcast rows")
     return float(err.max()) if err.numel() else 0.0
 
 
 def time_projection(torch, x, w, b):
     """Call ms, kernel-alone ms, host µs, plain ms and library (one
-    ``addmm``, timed the same ways) of one row projection, and its bound:
-    x, W, the bias read once and the table written once; 2 R K M + R M
-    operations."""
+    ``addmm``, timed the same ways; on bf16 rows ``addmm`` on the bf16
+    operands, the tensor cores) of one row projection, and its bound:
+    x (at its element size), W, the bias read once and the table written
+    once; 2 R K M + R M operations at the peak rate for x's type (float32
+    on the CUDA cores; bf16 on the tensor cores, the CUDA cores' time beside
+    it as ``fp32_core_ops_ms``)."""
     from distmlip_tpu_torch import kernels as K
 
     rows, k = x.shape
     m = w.shape[1]
     timed = split(torch, lambda: K.chgnet_row_projection_cuda(x, w, b), "row_projection")
     plain_ms = cuda_ms(torch, lambda: K.chgnet_row_projection_reference(x, w, b))
-    bias = torch.zeros(m, device="cuda") if b is None else b
-    timed.update(library_split(torch, lambda: torch.addmm(bias, x, w)))
-    nbytes = (rows * k + k * m + m + rows * m) * 4
-    bound_ms, bound_by = bound(nbytes, 2 * rows * k * m + rows * m)
-    return {"shape": [rows, k, m], **timed, "plain_ms": plain_ms, "library": "torch.addmm",
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+    bias = (torch.zeros(m, device="cuda") if b is None else b).to(x.dtype)
+    wl = w.to(x.dtype)
+    timed.update(library_split(torch, lambda: torch.addmm(bias, x, wl)))
+    nbytes = rows * k * x.element_size() + (k * m + m + rows * m) * 4
+    ops = 2 * rows * k * m + rows * m
+    half = x.dtype == torch.bfloat16
+    bound_ms, bound_by = bound(nbytes, ops, H100_BF16_FLOPS if half else H100_FP32_FLOPS)
+    return {"shape": [rows, k, m], "dtype": str(x.dtype).split(".")[-1], **timed,
+            "plain_ms": plain_ms,
+            "library": "torch.addmm" + (" on the bf16 operands" if half else ""),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **({"fp32_core_ops_ms": ops / H100_FP32_FLOPS * 1e3} if half else {}),
+            "bytes": nbytes,
             "plan": K.chgnet_projection_plan(rows, k, m)}
 
 
@@ -946,6 +1005,53 @@ def chgnet_sub_case(torch, gen, which, e, rows, c, h, n_node=None):
     return sub, sub_w, sub_ids, sub_mask, rows
 
 
+def chgnet_kernel_cases(torch, gen, which, lg, in_r, line_ok, c):
+    """One CHGNet kernel's cases at the CHGNet path's shapes: its graph, its
+    real dst ids and masks, random inputs and weights at C = H = ``c``;
+    then all masked, the padding-only tail on one dst row, E not a
+    multiple of any block, empty dst rows, C = 7 and 16, H != C, NaN in
+    the node (bond) rows no valid edge gathers, distinct tensors at the two
+    gathered ends, and (atom conv) no abw. Returns the cases, the first
+    being the path's own."""
+    if which == "atom":
+        ids, mask, n = lg.edge_dst, in_r, lg.n_cap
+        arrays, weights = chgnet_inputs(torch, gen, which, ids.shape[0], c, c, n,
+                                        (lg.edge_src, lg.edge_dst))
+    else:
+        ids, mask, n = lg.line_dst, line_ok, lg.b_cap
+        arrays, weights = chgnet_inputs(torch, gen, which, ids.shape[0], c, c,
+                                        (lg.b_cap, lg.n_cap),
+                                        (lg.line_src, lg.line_dst, lg.line_center))
+    cases = [(arrays, weights, ids, mask, n)]
+    # a fully masked input, and the padding-only tail on one dst row
+    one_row = torch.full_like(ids, int(ids[-1]))
+    last5 = torch.arange(len(ids), device="cuda") >= len(ids) - 5
+    cases += [(arrays, weights, ids, torch.zeros_like(mask), n),
+              (arrays, weights, one_row, torch.zeros_like(mask), n),
+              (arrays, weights, one_row, last5, n)]
+    # E not a multiple of any block, empty dst rows, C = 7 and 16, H != C
+    for e, rows, cc, hh in ((1003, 300, 7, 7), (517, 45, 16, 16), (300, 900, 64, 64),
+                            (90, 13, 16, 12), (517, 45, 64, 32), (333, 41, 24, 64)):
+        cases.append(chgnet_sub_case(torch, gen, which, e, rows, cc, hh))
+    # NaN in the node (bond) rows no valid edge gathers
+    sub, sub_w, sub_ids, sub_mask, rows = chgnet_sub_case(
+        torch, gen, which, 700, 40, c, c, 2000 if which == "atom" else (2000, 2000))
+    gathers = {0: (1, 3)} if which == "atom" else {0: (1, 3), 5: (6,)}
+    for k, idx in gathers.items():
+        used = torch.zeros(sub[k].shape[0], dtype=torch.bool, device="cuda")
+        for i in idx:
+            used[sub[i][sub_mask].long()] = True
+        sub[k][~used] = float("nan")
+    cases.append((sub, sub_w, sub_ids, sub_mask, rows))
+    # distinct tensors at the two gathered ends (two projection passes)
+    sub, sub_w, sub_ids, sub_mask, rows = chgnet_sub_case(torch, gen, which, 600, 50, c, c)
+    sub[2] = torch.randn(sub[0].shape, generator=gen, device="cuda")
+    cases.append((sub, sub_w, sub_ids, sub_mask, rows))
+    if which == "atom":  # no per-edge weights
+        cases.append((arrays[:5] + [None], weights, ids, mask, n))
+    return cases
+
+
 def phase_chgnet_kernels(torch):
     """Both CHGNet kernels at the CHGNet path's shapes (its graph, its real
     dst ids and masks, C = H = 64), then the edge cases; the row projection
@@ -958,42 +1064,8 @@ def phase_chgnet_kernels(torch):
     errs, ratios, timed = {}, {}, {}
     proj_errs, proj_timed = [], []
     for which in ("atom", "line"):
-        if which == "atom":
-            ids, mask, n = lg.edge_dst, in_r, lg.n_cap
-            arrays, weights = chgnet_inputs(torch, gen, which, ids.shape[0], c, c, n,
-                                            (lg.edge_src, lg.edge_dst))
-        else:
-            ids, mask, n = lg.line_dst, line_ok, lg.b_cap
-            arrays, weights = chgnet_inputs(torch, gen, which, ids.shape[0], c, c,
-                                            (lg.b_cap, lg.n_cap),
-                                            (lg.line_src, lg.line_dst, lg.line_center))
-        cases = [(arrays, weights, ids, mask, n)]
-        # a fully masked input, and the padding-only tail on one dst row
-        one_row = torch.full_like(ids, int(ids[-1]))
-        last5 = torch.arange(len(ids), device="cuda") >= len(ids) - 5
-        cases += [(arrays, weights, ids, torch.zeros_like(mask), n),
-                  (arrays, weights, one_row, torch.zeros_like(mask), n),
-                  (arrays, weights, one_row, last5, n)]
-        # E not a multiple of any block, empty dst rows, C = 7 and 16, H != C
-        for e, rows, cc, hh in ((1003, 300, 7, 7), (517, 45, 16, 16), (300, 900, 64, 64),
-                                (90, 13, 16, 12), (517, 45, 64, 32), (333, 41, 24, 64)):
-            cases.append(chgnet_sub_case(torch, gen, which, e, rows, cc, hh))
-        # NaN in the node (bond) rows no valid edge gathers
-        sub, sub_w, sub_ids, sub_mask, rows = chgnet_sub_case(
-            torch, gen, which, 700, 40, c, c, 2000 if which == "atom" else (2000, 2000))
-        gathers = {0: (1, 3)} if which == "atom" else {0: (1, 3), 5: (6,)}
-        for k, idx in gathers.items():
-            used = torch.zeros(sub[k].shape[0], dtype=torch.bool, device="cuda")
-            for i in idx:
-                used[sub[i][sub_mask].long()] = True
-            sub[k][~used] = float("nan")
-        cases.append((sub, sub_w, sub_ids, sub_mask, rows))
-        # distinct tensors at the two gathered ends (two projection passes)
-        sub, sub_w, sub_ids, sub_mask, rows = chgnet_sub_case(torch, gen, which, 600, 50, c, c)
-        sub[2] = torch.randn(sub[0].shape, generator=gen, device="cuda")
-        cases.append((sub, sub_w, sub_ids, sub_mask, rows))
-        if which == "atom":  # no per-edge weights
-            cases.append((arrays[:5] + [None], weights, ids, mask, n))
+        cases = chgnet_kernel_cases(torch, gen, which, lg, in_r, line_ok, c)
+        arrays, weights, ids, mask, n = cases[0]
         found = [check_chgnet(torch, which, *case) for case in cases]
         errs[which] = max(f[0] for f in found)
         ratios[which] = max(f[1] for f in found)
@@ -1017,6 +1089,79 @@ def phase_chgnet_kernels(torch):
         proj_errs.append(check_projection(torch, x, w, b))
     log(f"[kernels] chgnet row projection: all {len(proj_errs)} cases agree with the plain "
         f"version; max |err| {max(proj_errs)}")
+    return errs, timed, max(proj_errs), proj_timed
+
+
+def float_case(arrays, weights):
+    """A bf16 case's float tensors upcast to float32 (exactly); the same
+    tensor at both gathered ends stays one tensor."""
+    out, seen = [], {}
+    for x in arrays:
+        out.append(x if x is None or not x.is_floating_point()
+                   else seen.setdefault(id(x), x.float()))
+    return out, [w.float() for w in weights]
+
+
+def bf16_case(case):
+    """A CHGNet case with its float tensors (inputs and weights) rounded to
+    bf16 once; the same tensor at both gathered ends stays one tensor."""
+    arrays, weights, ids, mask, n = case
+    out, seen = [], {}
+    for x in arrays:
+        if x is None or not x.is_floating_point():
+            out.append(x)
+        else:
+            out.append(seen.setdefault(id(x), x.bfloat16()))
+    return out, [w.bfloat16() for w in weights], ids, mask, n
+
+
+def phase_chgnet_kernels_bf16(torch):
+    """``[kernels] chgnet bf16``: the bf16 variants of both CHGNet kernels on
+    ``phase_chgnet_kernels``' cases (the path's graph and masks at C = H =
+    64, then the edge cases) with every float input and weight rounded to
+    bf16, each against its plain bf16 version within
+    ``chgnet_aggregate_error_bound``'s bf16 form; the bf16 row projection at
+    the shapes the wrappers give it (bf16 rows, float32 packed weights and
+    table) against its plain version, plus K = 6 and K = 7 (plain loads);
+    every bf16 call also bit for bit against the float32 kernel on the
+    upcast inputs. Times: call, kernel alone, host µs, plain, the bound at 2
+    bytes an element and the bf16 tensor-core rate, ``index_add_`` of the message upcast to float32 (convs) and
+    ``addmm`` on the bf16 operands (projection)."""
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW
+
+    gen = torch.Generator(device="cuda").manual_seed(2469)
+    lg, in_r, line_ok = chgnet_graph(torch)
+    c = CHGNET_KW["units"]
+    errs, ratios, timed = {}, {}, {}
+    proj_errs, proj_timed = [], []
+    for which in ("atom", "line"):
+        cases = [bf16_case(case)
+                 for case in chgnet_kernel_cases(torch, gen, which, lg, in_r, line_ok, c)]
+        arrays, weights, ids, mask, n = cases[0]
+        found = [check_chgnet(torch, which, *case) for case in cases]
+        errs[which] = max(f[0] for f in found)
+        ratios[which] = max(f[1] for f in found)
+        timed[which] = time_chgnet(torch, which, arrays, weights, ids, mask, n)
+        proj = projection_inputs(which, arrays, weights)
+        proj_errs += [check_projection(torch, *p) for p in proj]
+        shapes = [time_projection(torch, *p) for p in proj]
+        proj_timed += shapes
+        timed[which]["projection_ms"] = sum(t["ms"] for t in shapes)
+        log(f"[kernels] chgnet bf16 {which}: {json.dumps(timed[which])}")
+        for t in shapes:
+            log(f"[kernels] chgnet bf16 {which} row projection {t['shape']}: {json.dumps(t)}")
+        log(f"[kernels] chgnet bf16 {which}: all {len(cases)} cases agree with the plain "
+            f"bf16 version; max |err| {errs[which]}, max |err| / tolerance {ratios[which]}")
+        del arrays, weights, cases
+        torch.cuda.empty_cache()
+    for rows, k, m, has_bias in ((1, 8, 48, True), (517, 7, 24, True), (300, 6, 24, True),
+                                 (300, 16, 64, False)):
+        x = torch.randn((rows, k), generator=gen, device="cuda").bfloat16()
+        w = torch.randn((k, m), generator=gen, device="cuda") / k ** 0.5
+        b = torch.randn(m, generator=gen, device="cuda") if has_bias else None
+        proj_errs.append(check_projection(torch, x, w, b))
+    log(f"[kernels] chgnet bf16 row projection: all {len(proj_errs)} cases agree with the "
+        f"plain version; max |err| {max(proj_errs)}")
     return errs, timed, max(proj_errs), proj_timed
 
 
@@ -1618,40 +1763,52 @@ def phase_main_bf16(torch, family):
     """``[main-bf16]`` (MACE at MACE_BF16_KW, bench.py's configuration) or
     ``[main-escn-bf16]`` (eSCN at ESCN_BF16_KW, example 05's, with ESCN_INFO)
     on the 2048-atom crystal, or ``[main-tensornet-bf16]`` (TensorNet at
-    TENSORNET_BF16_KW on the 16384-atom one): ``drive``'s 4 calculates with
-    the launch counts derived as the float32 paths' but on the bf16 kernels
-    (TensorNet: the embed's plain backward chunks too, keyed by its
-    message); the same geometries through ``kernels=False`` (bf16) and the
-    port's float32 on the card. Both bf16 routes within rel dE < 2e-2 and max |dF| < 0.3 max
+    TENSORNET_BF16_KW) or ``[main-chgnet-bf16]`` (CHGNet at CHGNET_BF16_KW
+    with magmoms, ``[main-chgnet]``'s readout terms) on the 16384-atom one:
+    ``drive``'s 4 calculates with the launch counts derived as the float32
+    paths' but on the bf16 kernels (TensorNet: the embed's plain backward
+    chunks too, keyed by its message; CHGNet: every conv's, ceil(e_cap /
+    32768) a atom conv and ceil(l_cap / 32768) a line conv); the same
+    geometries through ``kernels=False`` (bf16) and the port's float32 on
+    the card. Both bf16 routes within rel dE < 2e-2 and max |dF| < 0.3 max
     |F| of float32 (bf16's own distance at these widths, a sanity bar), the
-    kernels' route within rel dE < 1e-3 and max |dF| < 0.1 max |F| of the
-    plain one and no further from float32 than it (x 1.25 + 0.005 max |F|);
-    step ms and peak beside float32's."""
+    kernels' route within rel dE < 1e-3 and max |dF| < 0.1 max |F| (and max
+    |dm| < 0.05 max |m|) of the plain one and no further from float32 than
+    it (x 1.25 + 0.005 max |F|); step ms and peak beside float32's."""
     import numpy as np
 
     from distmlip_tpu_torch.calculators import DistPotential
     from distmlip_tpu_torch.kernels import launch_counts, recompute_chunks
     from distmlip_tpu_torch.kernels.dispatch import DEFAULT_BWD_CHUNK
-    from distmlip_tpu_torch.models import (ESCN, ESCNConfig, MACE, MACEConfig, TensorNet,
-                                           TensorNetConfig)
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
+                                           MACEConfig, TensorNet, TensorNetConfig)
     from distmlip_tpu_torch.ops.chunk import chunk_layout
-    from distmlip_tpu_torch.tools.workload import (ESCN_BF16_KW, ESCN_INFO, ESCN_KW,
-                                                   MACE_BF16_KW, MACE_KW, TENSORNET_BF16_KW,
-                                                   TENSORNET_KW, bench_atoms)
+    from distmlip_tpu_torch.tools.workload import (CHGNET_BF16_KW, CHGNET_KW, ESCN_BF16_KW,
+                                                   ESCN_INFO, ESCN_KW, MACE_BF16_KW, MACE_KW,
+                                                   TENSORNET_BF16_KW, TENSORNET_KW,
+                                                   bench_atoms)
 
     tag, cls, cfg, kw16, kw32 = {
         "mace": ("main-bf16", MACE, MACEConfig, MACE_BF16_KW, MACE_KW),
         "escn": ("main-escn-bf16", ESCN, ESCNConfig, ESCN_BF16_KW, ESCN_KW),
         "tensornet": ("main-tensornet-bf16", TensorNet, TensorNetConfig, TENSORNET_BF16_KW,
-                      TENSORNET_KW)}[family]
+                      TENSORNET_KW),
+        "chgnet": ("main-chgnet-bf16", CHGNet, CHGNetConfig, CHGNET_BF16_KW,
+                   CHGNET_KW)}[family]
     model = cls(cfg(**kw16))
     params = model.init(0)
-    atoms, rng = bench_atoms(TENSORNET_REPS if family == "tensornet" else 8)
+    atoms, rng = bench_atoms({"tensornet": TENSORNET_REPS, "chgnet": CHGNET_REPS}.get(family, 8))
+    pot_kw = {}
     if family == "escn":
         params["species_ref"]["w"] = torch.randn((kw16["num_species"],),
                                                  generator=torch.Generator().manual_seed(0))
         atoms.info = dict(ESCN_INFO)
-    pot = DistPotential(model, params, device="cuda", skin=0.5)
+    elif family == "chgnet":  # [main-chgnet]'s readout terms, off their defaults
+        params["species_ref"]["w"] = torch.randn((kw16["num_species"], 1),
+                                                 generator=torch.Generator().manual_seed(0))
+        params["data_std"] = torch.tensor(1.3)
+        pot_kw = {"compute_magmom": True}
+    pot = DistPotential(model, params, device="cuda", skin=0.5, **pot_kw)
     geometries, results, step_s, launches, peak = drive(torch, pot, atoms, rng)
     chunks = dict(recompute_chunks)  # reset by drive; read just after it
     stats = pot.last_stats
@@ -1669,6 +1826,19 @@ def phase_main_bf16(torch, family):
                            n_calc * -(-stats["e_cap"] // DEFAULT_BWD_CHUNK)}
         log(f"[{tag}] first calculate (host graph build and the first bf16 TensorNet "
             f"calculate of the process): {step_s[0] * 1e3:.1f} ms")
+    elif family == "chgnet":
+        K = None
+        blocks = kw16["num_blocks"]
+        expected["chgnet_atom_conv_aggregate_bf16"] = n_calc * blocks
+        expected["chgnet_line_aggregate_bf16"] = n_calc * (blocks - 1)
+        expected["chgnet_row_projection_bf16"] = n_calc * (blocks + 2 * (blocks - 1))
+        # no backward kernel: each conv's backward is the plain chunked
+        # recompute over its edges (lines)
+        chunks_expected = {
+            "chgnet_atom_conv_aggregate":
+                n_calc * blocks * -(-stats["e_cap"] // DEFAULT_BWD_CHUNK),
+            "chgnet_line_aggregate":
+                n_calc * (blocks - 1) * -(-stats["l_cap"] // DEFAULT_BWD_CHUNK)}
     else:
         K = chunk_layout(stats["e_cap"], kw16["edge_chunk"])[2]
     if family == "mace":
@@ -1697,22 +1867,27 @@ def phase_main_bf16(torch, family):
 
     def deltas(a_list, b_list):
         n = len(atoms)
-        return {"dE_per_atom": max(abs(a["energy"] - b["energy"]) / n
-                                   for a, b in zip(a_list, b_list)),
-                "rel_dE": max(abs(a["energy"] - b["energy"]) / abs(b["energy"])
-                              for a, b in zip(a_list, b_list)),
-                "dF_rel": max(float(np.abs(a["forces"] - b["forces"]).max()
-                                    / np.abs(b["forces"]).max()) for a, b in zip(a_list, b_list)),
-                "dS_rel": max(float(np.abs(a["stress"] - b["stress"]).max()
-                                    / np.abs(b["stress"]).max()) for a, b in zip(a_list, b_list))}
+        d = {"dE_per_atom": max(abs(a["energy"] - b["energy"]) / n
+                                for a, b in zip(a_list, b_list)),
+             "rel_dE": max(abs(a["energy"] - b["energy"]) / abs(b["energy"])
+                           for a, b in zip(a_list, b_list)),
+             "dF_rel": max(float(np.abs(a["forces"] - b["forces"]).max()
+                                 / np.abs(b["forces"]).max()) for a, b in zip(a_list, b_list)),
+             "dS_rel": max(float(np.abs(a["stress"] - b["stress"]).max()
+                                 / np.abs(b["stress"]).max()) for a, b in zip(a_list, b_list))}
+        if "magmoms" in b_list[0]:
+            d["dm_rel"] = max(float(np.abs(a["magmoms"] - b["magmoms"]).max()
+                                    / np.abs(b["magmoms"]).max())
+                              for a, b in zip(a_list, b_list))
+        return d
 
     before = dict(launch_counts)
     plain, ref_step_s, ref_peak = run(DistPotential(model, params, device="cuda", skin=0.5,
-                                                    kernels=False))
+                                                    kernels=False, **pot_kw))
     if dict(launch_counts) != before:
         raise AssertionError(f"[{tag}] the kernels=False reference launched a kernel")
     f32, f32_s, f32_peak = run(DistPotential(cls(cfg(**kw32)), params, device="cuda",
-                                             skin=0.5))
+                                             skin=0.5, **pot_kw))
     # bf16 against bf16: the two routes round the segment sums' fp32 values
     # at other ulps where they straddle a rounding boundary, and the model
     # carries those flips on; the measure of that noise is how far each
@@ -1736,6 +1911,7 @@ def phase_main_bf16(torch, family):
         raise AssertionError(f"[{tag}] bf16 departs from the port's float32 past bf16's "
                              f"noise: kernels {vs32}, plain {plain_vs32}")
     if not (vs_plain["rel_dE"] < 1e-3 and vs_plain["dF_rel"] < 0.1
+            and vs_plain.get("dm_rel", 0.0) < 0.05
             and vs32["dF_rel"] <= 1.25 * plain_vs32["dF_rel"] + 0.005):
         raise AssertionError(f"[{tag}] the bf16 kernels' route departs from the plain "
                              f"route: {vs_plain}; from float32 {vs32} against {plain_vs32}")
@@ -1873,15 +2049,23 @@ def pair_set_check(call, pbc, r_build):
     return max(band_got, band_want)
 
 
-def fresh_host_check(fresh, atoms, calls, tag):
+def fresh_host_check(fresh, atoms, calls, tag, bf16=False):
     """Each given frame through ``fresh`` (a skin=0 potential: a host-built
-    graph at every call), held to the float32 bar."""
+    graph at every call), held to the float32 bar; at ``bf16`` to the bf16
+    bar (rel dE < 1e-3, max |dF| and |dS| < 0.1, max |dm| < 0.05 of the
+    largest): the two graphs order and pad their edges differently, so
+    their fp32 sums round to bf16 at other ulps."""
     import numpy as np
 
     worst = {"rel_dE": 0.0, "max_dF": 0.0, "max_dS": 0.0}
+    scale = {"max_dF": 0.0, "max_dS": 0.0, "max_dm": 0.0}
     for call in calls:
         atoms.positions, atoms.cell = call["positions"].copy(), call["cell"].copy()
         ref, res = fresh.calculate(atoms), call["result"]
+        scale["max_dF"] = max(scale["max_dF"], float(np.abs(ref["forces"]).max()))
+        scale["max_dS"] = max(scale["max_dS"], float(np.abs(ref["stress"]).max()))
+        if "magmoms" in ref:
+            scale["max_dm"] = max(scale["max_dm"], float(np.abs(ref["magmoms"]).max()))
         worst["rel_dE"] = max(worst["rel_dE"],
                               abs(res["energy"] - ref["energy"]) / abs(ref["energy"]))
         worst["max_dF"] = max(worst["max_dF"], float(np.abs(res["forces"] - ref["forces"]).max()))
@@ -1891,8 +2075,15 @@ def fresh_host_check(fresh, atoms, calls, tag):
                                   float(np.abs(res["magmoms"] - ref["magmoms"]).max()))
     log(f"[{tag}] against a fresh host-built graph (skin=0) at {len(calls)} frames: "
         f"{json.dumps(worst)}")
-    if not (worst["rel_dE"] < 1e-5 and worst["max_dF"] < 1e-4 and worst["max_dS"] < 1e-4
-            and worst.get("max_dm", 0.0) < 1e-4):
+    if bf16:
+        ok = (worst["rel_dE"] < 1e-3 and worst["max_dF"] < 0.1 * scale["max_dF"]
+              and worst["max_dS"] < 0.1 * scale["max_dS"]
+              and worst.get("max_dm", 0.0) <= 0.05 * scale["max_dm"])
+        worst["scales"] = scale
+    else:
+        ok = (worst["rel_dE"] < 1e-5 and worst["max_dF"] < 1e-4 and worst["max_dS"] < 1e-4
+              and worst.get("max_dm", 0.0) < 1e-4)
+    if not ok:
         raise AssertionError(f"{tag}: disagrees with a fresh host-built graph")
     return worst
 
@@ -2148,20 +2339,23 @@ def relax_structure():
     return Atoms(numbers=np.full(len(cart), 3), positions=cart, cell=lattice * 1.02)
 
 
-def phase_relax_chgnet(torch):
+def phase_relax_chgnet(torch, bf16=False):
     """``[relax-chgnet]``: CHGNet at CHGNET_KW with magmoms on
     ``examples/02_relax_chgnet.py``'s structure (864 Li, cell x 1.02, 0.08 Å
     noise, seed 1): FIRE with the cell relaxed, 30 steps. Every step
-    changes the cell, so every calculate is a host rebuild."""
+    changes the cell, so every calculate is a host rebuild. ``bf16``:
+    ``[relax-chgnet-bf16]``, the same at CHGNET_BF16_KW, launches on the
+    bf16 kernels, the last frame against a fresh graph at the bf16 bar."""
     import numpy as np
 
     from distmlip_tpu_torch.calculators import DistPotential, Relaxer
     from distmlip_tpu_torch.kernels import launch_counts
     from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
-    from distmlip_tpu_torch.tools.workload import CHGNET_KW
+    from distmlip_tpu_torch.tools.workload import CHGNET_BF16_KW, CHGNET_KW
 
+    tag, suffix = ("relax-chgnet-bf16", "_bf16") if bf16 else ("relax-chgnet", "")
     atoms = relax_structure()
-    model = CHGNet(CHGNetConfig(**CHGNET_KW))
+    model = CHGNet(CHGNetConfig(**(CHGNET_BF16_KW if bf16 else CHGNET_KW)))
     params = model.init(0)
     pot = DistPotential(model, params, device="cuda", skin=0.4, compute_magmom=True)
     probe = Probe(pot)
@@ -2177,22 +2371,22 @@ def phase_relax_chgnet(torch):
     peak = torch.cuda.max_memory_allocated()
     n_calc, blocks = len(probe.calls), CHGNET_KW["num_blocks"]
     if n_calc != out.nsteps + (0 if out.converged else 1):
-        raise AssertionError(f"[relax-chgnet] {n_calc} calculates for {out.nsteps} steps")
+        raise AssertionError(f"[{tag}] {n_calc} calculates for {out.nsteps} steps")
     expected = {k: 0 for k in launches}
-    expected["chgnet_atom_conv_aggregate"] = n_calc * blocks
-    expected["chgnet_line_aggregate"] = n_calc * (blocks - 1)
-    expected["chgnet_row_projection"] = n_calc * (blocks + 2 * (blocks - 1))
-    log(f"[relax-chgnet] launches: {n_calc} calculates x ({blocks} atom convs + {blocks - 1} "
+    expected["chgnet_atom_conv_aggregate" + suffix] = n_calc * blocks
+    expected["chgnet_line_aggregate" + suffix] = n_calc * (blocks - 1)
+    expected["chgnet_row_projection" + suffix] = n_calc * (blocks + 2 * (blocks - 1))
+    log(f"[{tag}] launches: {n_calc} calculates x ({blocks} atom convs + {blocks - 1} "
         f"line convs + {blocks + 2 * (blocks - 1)} row projections); counted {launches}")
     if launches != expected:
-        raise AssertionError(f"[relax-chgnet] kernel launch counts {launches} differ from "
+        raise AssertionError(f"[{tag}] kernel launch counts {launches} differ from "
                              f"the derivation {expected}")
     if pot.rebuild_on_device_count or pot.rebuild_count != n_calc:
-        raise AssertionError(f"[relax-chgnet] {pot.rebuild_count} builds for {n_calc} "
+        raise AssertionError(f"[{tag}] {pot.rebuild_count} builds for {n_calc} "
                              f"calculates, {pot.rebuild_on_device_count} on the device: every "
                              f"calculate of a cell relaxation is a host rebuild")
     fresh = DistPotential(model, params, device="cuda", skin=0.0, compute_magmom=True)
-    worst = fresh_host_check(fresh, atoms.copy(), [probe.calls[-1]], "relax-chgnet")
+    worst = fresh_host_check(fresh, atoms.copy(), [probe.calls[-1]], tag, bf16)
     ms = [c["s"] * 1e3 for c in probe.calls[1:]]
     summary = {
         "n_atoms": len(atoms), "converged": out.converged, "nsteps": out.nsteps,
@@ -2210,7 +2404,7 @@ def phase_relax_chgnet(torch):
         "max_memory_allocated_bytes": peak, "vs_fresh_host_graph": worst,
         "launches": launches, "launches_expected": expected,
     }
-    log(f"[relax-chgnet] {json.dumps(summary)}")
+    log(f"[{tag}] {json.dumps(summary)}")
     return launches
 
 
@@ -2578,56 +2772,82 @@ def tensornet_segment_checks(torch, lg, c, dtype=None):
 BF16_PARALLEL_CALCS = 3
 
 
-def phase_parallel_tensornet_bf16(torch):
-    """``[parallel-tensornet-bf16]``: TensorNet at TENSORNET_BF16_KW on the
-    16384-atom crystal at P = 2 (the two partitions as one flattened graph
-    on the card) against P = 1 and against P = 2 with ``kernels=False``, on
-    the first BF16_PARALLEL_CALCS geometries of ``parallel_geometries``, at
-    the bf16 bar (rel dE < 1e-3, max |dF| < 0.1 max |F|, max |dS| < 0.1
-    max |S|: the bf16 routes round at other ulps, partitions split the
-    sums). Launches per calculate at P = 2: the embed, each layer's
-    interaction and its backward once per segment; then the three bf16
-    kernels on the flattened graph's segments."""
+def phase_parallel_bf16(torch, family):
+    """``[parallel-tensornet-bf16]`` (TensorNet at TENSORNET_BF16_KW) or
+    ``[parallel-chgnet-bf16]`` (CHGNet at CHGNET_BF16_KW with magmoms and
+    ``[main-chgnet]``'s readout terms) on the 16384-atom crystal at P = 2
+    (the two partitions as one flattened graph on the card) against P = 1
+    and against P = 2 with ``kernels=False``, on the first
+    BF16_PARALLEL_CALCS geometries of ``parallel_geometries``, at the bf16
+    bar (rel dE < 1e-3, max |dF| < 0.1 max |F|, max |dS| < 0.1 max |S|,
+    max |dm| < 0.05 max |m|: the bf16 routes round at other ulps,
+    partitions split the sums). Launches per calculate at P = 2: TensorNet's
+    embed, each layer's interaction and its backward once per segment;
+    CHGNet's atom conv once per segment, the line conv once (one segment),
+    the row projections as ``[parallel-chgnet]``'s. Then the bf16 kernels
+    on the flattened graph's segments."""
     from distmlip_tpu_torch.calculators import DistPotential
     from distmlip_tpu_torch.kernels import launch_counts
-    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig, TensorNet, TensorNetConfig
     from distmlip_tpu_torch.parallel import local_graph_from_stacked
-    from distmlip_tpu_torch.tools.workload import TENSORNET_BF16_KW, bench_atoms
+    from distmlip_tpu_torch.tools.workload import (CHGNET_BF16_KW, TENSORNET_BF16_KW,
+                                                   bench_atoms)
 
-    model = TensorNet(TensorNetConfig(**TENSORNET_BF16_KW))
-    params = model.init(0)
-    layers, c = TENSORNET_BF16_KW["num_layers"], TENSORNET_BF16_KW["units"]
-    atoms, rng = bench_atoms(TENSORNET_REPS)
+    tag = f"parallel-{family}-bf16"
+    pot_kw = {}
+    if family == "tensornet":
+        kw = TENSORNET_BF16_KW
+        model = TensorNet(TensorNetConfig(**kw))
+        params = model.init(0)
+        layers = kw["num_layers"]
+        per_calc = dict(tensornet_embed_aggregate_bf16=2,
+                        tensornet_interaction_aggregate_bf16=2 * layers,
+                        tensornet_interaction_backward_bf16=2 * layers)
+        checks = tensornet_segment_checks
+        reps = TENSORNET_REPS
+    else:
+        kw = CHGNET_BF16_KW
+        model = CHGNet(CHGNetConfig(**kw))
+        params = model.init(0)
+        params["species_ref"]["w"] = torch.randn((kw["num_species"], 1),
+                                                 generator=torch.Generator().manual_seed(0))
+        params["data_std"] = torch.tensor(1.3)
+        blocks = kw["num_blocks"]
+        per_calc = dict(chgnet_atom_conv_aggregate_bf16=2 * blocks,
+                        chgnet_line_aggregate_bf16=blocks - 1,
+                        chgnet_row_projection_bf16=3 * blocks + 2 * (blocks - 1))
+        checks = chgnet_segment_checks
+        pot_kw = {"compute_magmom": True}
+        reps = CHGNET_REPS
+    c = kw["units"]
+    atoms, rng = bench_atoms(reps)
     geometries = parallel_geometries(atoms, rng)[:BF16_PARALLEL_CALCS]
-    ref1, s1, _ = run_calcs(torch, DistPotential(model, params, device="cuda", skin=0.5),
-                            atoms, geometries)
+    ref1, s1, _ = run_calcs(torch, DistPotential(model, params, device="cuda", skin=0.5,
+                                                 **pot_kw), atoms, geometries)
     torch.cuda.empty_cache()
     for k in launch_counts:
         launch_counts[k] = 0
-    pot = DistPotential(model, params, device="cuda", skin=0.5, num_partitions=2)
+    pot = DistPotential(model, params, device="cuda", skin=0.5, num_partitions=2, **pot_kw)
     res, s2, peak2 = run_calcs(torch, pot, atoms, geometries)
     launches = dict(launch_counts)
     n = len(geometries)
-    expected = {k: 0 for k in launches}
-    expected.update(tensornet_embed_aggregate_bf16=2 * n,
-                    tensornet_interaction_aggregate_bf16=2 * layers * n,
-                    tensornet_interaction_backward_bf16=2 * layers * n)
+    expected = {k: n * per_calc.get(k, 0) for k in launches}
     if launches != expected:
-        raise AssertionError(f"[parallel-tensornet-bf16] kernel launch counts {launches} "
-                             f"differ from the derivation {expected}")
-    seg_errs = tensornet_segment_checks(torch, local_graph_from_stacked(pot._cache[0]), c,
-                                        torch.bfloat16)
+        raise AssertionError(f"[{tag}] kernel launch counts {launches} differ from the "
+                             f"derivation {expected}")
+    seg_errs = checks(torch, local_graph_from_stacked(pot._cache[0]), c, torch.bfloat16)
     stats = dict(pot.last_stats)
     del pot
     torch.cuda.empty_cache()
     before = dict(launch_counts)
     refp, sp, _ = run_calcs(torch, DistPotential(model, params, device="cuda", skin=0.5,
-                                                 num_partitions=2, kernels=False),
+                                                 num_partitions=2, kernels=False, **pot_kw),
                             atoms, geometries)
     if dict(launch_counts) != before:
-        raise AssertionError("[parallel-tensornet-bf16] the kernels=False reference launched")
+        raise AssertionError(f"[{tag}] the kernels=False reference launched")
     f_scale = max(float(abs(r["forces"]).max()) for r in ref1)
     s_scale = max(float(abs(r["stress"]).max()) for r in ref1)
+    m_scale = max(float(abs(r["magmoms"]).max()) for r in ref1) if pot_kw else 0.0
     vs = {"p1": worst_deltas(res, ref1), "plain": worst_deltas(res, refp)}
     summary = {"n_atoms": len(atoms), "num_partitions": 2, "e_split": stats["e_split"],
                "e_cap": stats["e_cap"], "step_ms": [x * 1e3 for x in s2[1:]],
@@ -2635,12 +2855,13 @@ def phase_parallel_tensornet_bf16(torch):
                "plain_step_ms": [x * 1e3 for x in sp[1:]], "max_memory_allocated_bytes": peak2,
                "max_F": f_scale, "max_S": s_scale, "vs_p1": vs["p1"], "vs_plain": vs["plain"],
                "launches": launches, "segments_max_abs_err": seg_errs}
-    log(f"[parallel-tensornet-bf16] {json.dumps(summary)}")
+    if pot_kw:
+        summary["max_m"] = m_scale
+    log(f"[{tag}] {json.dumps(summary)}")
     for what, d in vs.items():
         if not (d["rel_dE"] < 1e-3 and d["max_dF"] < 0.1 * f_scale
-                and d["max_dS"] < 0.1 * s_scale):
-            raise AssertionError(f"[parallel-tensornet-bf16] P = 2 departs from {what} past "
-                                 f"the bf16 bar: {d}")
+                and d["max_dS"] < 0.1 * s_scale and d.get("max_dm", 0.0) <= 0.05 * m_scale):
+            raise AssertionError(f"[{tag}] P = 2 departs from {what} past the bf16 bar: {d}")
     return launches, seg_errs
 
 
@@ -2671,27 +2892,34 @@ def phase_parallel_chgnet(torch):
                           lambda lg: chgnet_segment_checks(torch, lg, c))
 
 
-def chgnet_segment_checks(torch, lg, c):
+def chgnet_segment_checks(torch, lg, c, dtype=None):
     """Both CHGNet kernels (their row projections inside) against their
     plain versions at ``lg``'s real ids and masks: the atom conv on each
     sorted edge segment, the line conv on the line graph; random rows and
-    weights at C = H = ``c``. Returns the worst error by kernel."""
+    weights at C = H = ``c`` (in ``dtype``, float32 by default). Returns
+    the worst error by kernel (bf16 names carry ``_bf16``)."""
     cgen = torch.Generator(device="cuda").manual_seed(98)
+    half = dtype == torch.bfloat16
+    suffix = "_bf16" if half else ""
     n = lg.n_cap
     errs = {}
+    atom, line = "chgnet_atom_conv_aggregate" + suffix, "chgnet_line_aggregate" + suffix
     for name, sl in _segments(lg):
         ids, src, mask = lg.edge_dst[sl], lg.edge_src[sl], lg.edge_mask[sl]
         arrays, weights = chgnet_inputs(torch, cgen, "atom", ids.shape[0], c, c, n, (src, ids))
         if name == "frontier":  # v after the exchange at src, before it at dst
             arrays[2] = torch.randn(arrays[0].shape, generator=cgen, device="cuda")
-        errs["chgnet_atom_conv_aggregate"] = max(
-            errs.get("chgnet_atom_conv_aggregate", 0.0),
-            check_chgnet(torch, "atom", arrays, weights, ids, mask, n)[0])
+        if half:
+            arrays, weights, *_ = bf16_case((arrays, weights, ids, mask, n))
+        errs[atom] = max(errs.get(atom, 0.0),
+                         check_chgnet(torch, "atom", arrays, weights, ids, mask, n)[0])
         del arrays
     arrays, weights = chgnet_inputs(torch, cgen, "line", lg.line_dst.shape[0], c, c,
                                     (lg.b_cap, n), (lg.line_src, lg.line_dst, lg.line_center))
-    errs["chgnet_line_aggregate"] = check_chgnet(
-        torch, "line", arrays, weights, lg.line_dst, lg.line_mask, lg.b_cap)[0]
+    if half:
+        arrays, weights, *_ = bf16_case((arrays, weights, None, None, None))
+    errs[line] = check_chgnet(torch, "line", arrays, weights, lg.line_dst, lg.line_mask,
+                              lg.b_cap)[0]
     return errs
 
 
@@ -2972,40 +3200,58 @@ def phase_batched(torch, family):
 
 
 def phase_batched_bf16(torch, family):
-    """``[batched-mace-bf16]`` / ``[batched-tensornet-bf16]``:
-    ``BatchedPotential`` over MACE at MACE_BF16_KW or TensorNet at
-    TENSORNET_BF16_KW at B = 1 and 8 on the 32-atom pool, one warm
-    calculate and BATCH_STEPS moves, launches of the bf16 kernels derived
-    per calculate; each structure at the last geometry against
-    ``DistPotential`` on it alone and against ``kernels=False`` within rel
-    dE < 1e-3 and max |dF| < 0.1 of the largest force."""
+    """``[batched-mace-bf16]`` / ``[batched-tensornet-bf16]`` /
+    ``[batched-chgnet-bf16]``: ``BatchedPotential`` over MACE at
+    MACE_BF16_KW, TensorNet at TENSORNET_BF16_KW or CHGNet at CHGNET_BF16_KW
+    (with magmoms and ``[main-chgnet]``'s readout terms) at B = 1 and 8 on
+    the 32-atom pool, one warm calculate and BATCH_STEPS moves, launches of
+    the bf16 kernels derived per calculate; each structure at the last
+    geometry against ``DistPotential`` on it alone and against
+    ``kernels=False`` within rel dE < 1e-3, max |dF| < 0.1 of the largest
+    force and max |dm| < 0.05 of the largest magmom."""
     from distmlip_tpu_torch.calculators import BatchedPotential, DistPotential
     from distmlip_tpu_torch.kernels import launch_counts
-    from distmlip_tpu_torch.models import MACE, MACEConfig, TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, MACE, MACEConfig, TensorNet,
+                                           TensorNetConfig)
     from distmlip_tpu_torch.ops.chunk import chunk_layout
-    from distmlip_tpu_torch.tools.workload import (MACE_BF16_KW, TENSORNET_BF16_KW,
-                                                   batched_pool)
+    from distmlip_tpu_torch.tools.workload import (CHGNET_BF16_KW, MACE_BF16_KW,
+                                                   TENSORNET_BF16_KW, batched_pool)
 
     tag = f"batched-{family}-bf16"
+    pot_kw = {}
     if family == "mace":
         model = MACE(MACEConfig(**MACE_BF16_KW))
+        params = model.init(0)
 
         def per_calc(st):
             return {"segment_sum_bf16": MACE_BF16_KW["num_interactions"] * 2 * chunk_layout(
                 st["e_cap"], MACE_BF16_KW["edge_chunk"])[2]}
-    else:
+    elif family == "tensornet":
         model = TensorNet(TensorNetConfig(**TENSORNET_BF16_KW))
+        params = model.init(0)
         layers = TENSORNET_BF16_KW["num_layers"]
 
         def per_calc(st):
             return {"tensornet_embed_aggregate_bf16": 1,
                     "tensornet_interaction_aggregate_bf16": layers,
                     "tensornet_interaction_backward_bf16": layers}
-    params = model.init(0)
+    else:
+        model = CHGNet(CHGNetConfig(**CHGNET_BF16_KW))
+        params = model.init(0)
+        params["species_ref"]["w"] = torch.randn((CHGNET_BF16_KW["num_species"], 1),
+                                                 generator=torch.Generator().manual_seed(0))
+        params["data_std"] = torch.tensor(1.3)
+        blocks = CHGNET_BF16_KW["num_blocks"]
+        pot_kw = {"compute_magmom": True}
+
+        def per_calc(st):
+            return {"chgnet_atom_conv_aggregate_bf16": blocks,
+                    "chgnet_line_aggregate_bf16": blocks - 1,
+                    "chgnet_row_projection_bf16": blocks + 2 * (blocks - 1)}
     pool, rng = batched_pool(8)
     total = {k: 0 for k in launch_counts}
     for name, structs in (("B1", pool[:1]), ("B8", pool)):
-        pot = BatchedPotential(model, params, device="cuda", skin=0.5)
+        pot = BatchedPotential(model, params, device="cuda", skin=0.5, **pot_kw)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for k in launch_counts:
@@ -3031,11 +3277,11 @@ def phase_batched_bf16(torch, family):
                 check_result(r, len(a))
         for k, v in launches.items():
             total[k] += v
-        single = DistPotential(model, params, device="cuda")
+        single = DistPotential(model, params, device="cuda", **pot_kw)
         refs = {"single": [single.calculate(a) for a in structs]}
         before = dict(launch_counts)
-        refs["plain"] = BatchedPotential(model, params, device="cuda",
-                                         kernels=False).calculate(structs)
+        refs["plain"] = BatchedPotential(model, params, device="cuda", kernels=False,
+                                         **pot_kw).calculate(structs)
         if dict(launch_counts) != before:
             raise AssertionError(f"[{tag}] the kernels=False reference launched")
         steady = statistics.median(step_s[1:])
@@ -3047,10 +3293,12 @@ def phase_batched_bf16(torch, family):
         for what, ref in refs.items():
             d = worst_deltas(results[-1], ref)
             f_scale = max(float(abs(r["forces"]).max()) for r in ref)
+            m_scale = max(float(abs(r["magmoms"]).max()) for r in ref) if pot_kw else 0.0
             run[f"vs_{what}"] = dict(d, max_F=f_scale)
             # bf16 against bf16 in other chunk layouts: the JAX package's
             # bf16 bar (its float32 one measures this noise in [main-bf16])
-            if not (d["rel_dE"] < 1e-3 and d["max_dF"] < 0.1 * f_scale):
+            if not (d["rel_dE"] < 1e-3 and d["max_dF"] < 0.1 * f_scale
+                    and d.get("max_dm", 0.0) <= 0.05 * m_scale):
                 raise AssertionError(f"[{tag}] {name}: the batch departs from "
                                      f"{what} past the bf16 bar: {d}")
         log(f"[{tag}] {name}: {json.dumps(run)}")
@@ -3397,6 +3645,8 @@ def main() -> int:
     so2_err, so2_timed, seg_escn = phase_so2_kernels(torch)
     so2_bf16_err, so2_bf16_timed = phase_so2_kernels_bf16(torch)
     tn_bf16_errs, tn_bf16_timed = phase_edge_aggregate_kernels_bf16(torch)
+    (chg_bf16_errs, chg_bf16_timed, chg_bf16_proj_err,
+     chg_bf16_proj_timed) = phase_chgnet_kernels_bf16(torch)
     # the packing's gather tables of the shapes above: each path below
     # counts only its own in its peak memory
     from distmlip_tpu_torch.kernels import so3
@@ -3417,6 +3667,8 @@ def main() -> int:
     escn_bf16_launches = phase_main_bf16(torch, "escn")
     torch.cuda.empty_cache()
     tn_bf16_launches = phase_main_bf16(torch, "tensornet")
+    torch.cuda.empty_cache()
+    chg_bf16_launches = phase_main_bf16(torch, "chgnet")
     torch.cuda.empty_cache()
     phase_small_reference(torch, MACE(MACEConfig(
         num_species=4, channels=16, l_max=3, a_lmax=3, hidden_lmax=1, correlation=3,
@@ -3444,12 +3696,16 @@ def main() -> int:
     md_bf16_launches = phase_md_bf16(torch)
     torch.cuda.empty_cache()
     md_tn_bf16_launches = phase_md_tensornet_bf16(torch)
+    torch.cuda.empty_cache()
+    relax_bf16_launches = phase_relax_chgnet(torch, bf16=True)
     md_launches = {k: md_launches[k] + md_tn_launches[k] + relax_launches[k]
-                   + md_bf16_launches[k] + md_tn_bf16_launches[k] for k in md_launches}
+                   + md_bf16_launches[k] + md_tn_bf16_launches[k] + relax_bf16_launches[k]
+                   for k in md_launches}
     # slab graph parallelism: each phase counts its own launches
     par_launches, par_errs = {k: 0 for k in md_launches}, {}
     for phase in (phase_parallel_tensornet, phase_parallel_chgnet, phase_parallel_mace,
-                  phase_parallel_escn, phase_parallel_tensornet_bf16):
+                  phase_parallel_escn, lambda t: phase_parallel_bf16(t, "tensornet"),
+                  lambda t: phase_parallel_bf16(t, "chgnet")):
         torch.cuda.empty_cache()
         launched, errs = phase(torch)
         for k, v in launched.items():
@@ -3469,7 +3725,8 @@ def main() -> int:
         for k, v in errs.items():
             bat_errs[k] = max(bat_errs.get(k, 0.0), v)
     for phase in (lambda t: phase_batched_bf16(t, "mace"),
-                  lambda t: phase_batched_bf16(t, "tensornet"), phase_batched_md,
+                  lambda t: phase_batched_bf16(t, "tensornet"),
+                  lambda t: phase_batched_bf16(t, "chgnet"), phase_batched_md,
                   phase_batched_relax, phase_serve):
         torch.cuda.empty_cache()
         for k, v in phase(torch).items():
@@ -3517,7 +3774,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name], "launches": chg_launches[name],
-            "max_abs_err": chg_errs[which], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "max_abs_err": chg_errs[which], "ms": t["ms"], "kernel_ms": t["kernel_ms"],
+            "host_us": t["host_us"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": [t["e"], t["channels"]], "hidden": t["hidden"],
@@ -3582,6 +3840,28 @@ def main() -> int:
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": [t["e"], t["channels"]], "valid_edges": t["valid_edges"],
         })
+    for which, name in (("atom", "chgnet_atom_conv_aggregate_bf16"),
+                        ("line", "chgnet_line_aggregate_bf16")):
+        t = chg_bf16_timed[which]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": chg_bf16_launches[name], "max_abs_err": chg_bf16_errs[which],
+            "ms": t["ms"], "kernel_ms": t["kernel_ms"], "host_us": t["host_us"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "library": t["library"],
+            "shape": [t["e"], t["channels"]], "hidden": t["hidden"],
+            "valid_edges": t["valid_edges"], "projection_ms": t["projection_ms"],
+        })
+    name = "chgnet_row_projection_bf16"
+    t = max(chg_bf16_proj_timed, key=lambda p: p["shape"][0])  # the bond table
+    kernels.append({
+        "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+        "launches": chg_bf16_launches[name], "max_abs_err": chg_bf16_proj_err, "ms": t["ms"],
+        "kernel_ms": t["kernel_ms"], "host_us": t["host_us"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library_kernel_ms": t["library_kernel_ms"], "library": t["library"],
+        "shape": t["shape"], "per_shape": chg_bf16_proj_timed,
+    })
     for k in kernels:  # each kernel's launches in [md], [md-tensornet], [relax-chgnet]
         k["md_launches"] = md_launches[k["name"]]
         # ... in the [parallel-*] phases, and its worst error against its

@@ -17,8 +17,8 @@ built with g++ at first use.
 Dtype policy (reference: DistMLIP/__init__.py:9-33): a process-global
 default float/int width for host-side graph arrays, and a global compute
 dtype (``set_compute_dtype``) that ``DistPotential`` applies to models with
-a compute-dtype switch: MACE, eSCN and TensorNet run bfloat16; CHGNet
-raises at it (ROADMAP.md A6b); the pair potential ignores it.
+a compute-dtype switch: MACE, eSCN, TensorNet and CHGNet run bfloat16;
+the pair potential ignores it.
 """
 
 from __future__ import annotations

@@ -33,10 +33,10 @@ GIL, and on a card the worker uploads on its own stream, which the
 adopting step waits on in device order, not on the host. A changed cell
 (a relaxation with the cell) never hits the cache, so it never starts one.
 
-``compute_dtype="bfloat16"`` rebuilds MACE, eSCN or TensorNet at bf16
-compute (their B1, B3 and B2 kernels' bf16 instantiations on the card);
-energies, forces and stress come out in float32 all the same. CHGNet in
-bf16 raises (ROADMAP.md A6b).
+``compute_dtype="bfloat16"`` rebuilds MACE, eSCN, TensorNet or CHGNet at
+bf16 compute (their B1, B3 and B2 kernels' bf16 instantiations on the
+card); energies, forces, stress and CHGNet's magmoms come out in float32
+all the same.
 
 Not ported yet (queued in ROADMAP.md): telemetry records, the contract
 audit, the separate-forward site readout (``fused_site_readout=False``),
@@ -112,8 +112,7 @@ def with_compute_dtype(model, compute_dtype=None):
     others ignore it and stay float32, as in the JAX package. An explicit
     dtype a model does not honour raises ``ValueError``; a different dtype
     rebuilds the model with ``dataclasses.replace(cfg, dtype=...)``, whose
-    constructor raises where the dtype is not ported yet (CHGNet in
-    bfloat16, ROADMAP.md A6b)."""
+    constructor raises on a dtype it does not take."""
     supported = getattr(model, "supports_compute_dtype", False)
     if compute_dtype is None:
         from .. import _compute_dtype as global_dtype
@@ -149,9 +148,9 @@ class DistPotential:
     compute_magmom : also return ``"magmoms"`` (N,), from the same forward
         (needs ``model.energy_and_aux_fn``; CHGNet).
     compute_dtype : "float32" or "bfloat16" rebuilds the model at that
-        compute dtype (MACE, eSCN and TensorNet take bfloat16: features,
-        messages and GEMMs in bf16, geometry, energies, forces and stress in
-        float32; CHGNet raises, ROADMAP.md A6b);
+        compute dtype (MACE, eSCN, TensorNet and CHGNet take bfloat16:
+        features, messages and GEMMs in bf16, geometry, energies, forces,
+        stress and magmoms in float32);
         None follows the global ``set_compute_dtype`` for models that honour
         it (``with_compute_dtype``).
     fused_site_readout : only True is ported: the magmoms ride the energy

@@ -15,7 +15,9 @@
   ``tensornet_interaction_backward_error_bound`` (float32 and bf16 data);
   and ``chgnet_atom_conv_aggregate_cuda`` and
   ``chgnet_line_aggregate_cuda`` (of ``csrc/chgnet_aggregate.cu``, with
-  its row projection ``chgnet_row_projection_cuda``), which replace the TPU
+  its row projection ``chgnet_row_projection_cuda``; float32 and bf16
+  variants, the tolerance ``chgnet_aggregate_error_bound`` with the bf16
+  message's ``chgnet_message_terms``), which replace the TPU
   ``pallas_edge_aggregate`` at TensorNet's and CHGNet's call sites; their
   ``*_reference`` plain versions, the CHGNet weight packing
   ``chgnet_pack_weights`` and table plan ``chgnet_row_tables``, and the
@@ -47,7 +49,8 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              chgnet_atom_conv_aggregate_cuda,
                              chgnet_atom_conv_aggregate_reference,
                              chgnet_line_aggregate_cuda,
-                             chgnet_line_aggregate_reference, chgnet_pack_weights,
+                             chgnet_line_aggregate_reference, chgnet_message_terms,
+                             chgnet_pack_weights,
                              chgnet_projection_error_bound, chgnet_projection_plan,
                              chgnet_row_projection_cuda,
                              chgnet_row_projection_reference, chgnet_row_tables,

@@ -1,5 +1,6 @@
 // CHGNet's two fused edge aggregations: a gated MLP per edge, summed onto
-// dst-sorted rows, float32, sm_90a.
+// dst-sorted rows, float32 or bfloat16 in and out, float32 arithmetic,
+// sm_90a.
 //
 // Replaces distmlip_tpu/kernels/segment.py::pallas_edge_aggregate (body
 // _edge_aggregate_kernel, in-kernel gather _gather_rows) at CHGNet's two
@@ -68,9 +69,29 @@
 //   - every output row is written, empty rows as zeros;
 //   - offsets are 64-bit, edge ids 32-bit; gathered row ids of valid edges
 //     must lie in range.
+//
+// bfloat16: the same kernels, templated on the storage type T of the
+// per-edge rows (the edge or angle row, abw) and of the output; the row
+// projection's T is that of its node or bond rows. Everything else is the
+// float32 kernel's: the layer-1 tables are float32 (the projection reads
+// bf16 rows and writes fp32), the packed weights are float32 (the wrapper
+// upcasts bf16 weights, exactly), so the shared weight region and every FMA
+// are unchanged. A bf16 edge row is staged as bf16 (16-byte cp.async of 8
+// values when C % 8 == 0 and the rows 16-byte aligned; else plain loads),
+// in the float32 tile buffer's first half, and converted to float32 as layer 1 reads it (8 bytes
+// for 4 values). abw is read as bf16 and converted. The hidden and output
+// tiles and the segmented reduction stay float32, and each output element
+// is rounded to bf16 once, when its row is written. That is the TPU
+// kernel's contract at bf16 data: blocks in the data's dtype, an fp32
+// accumulator, the output in the message's dtype
+// (distmlip_tpu/kernels/segment.py:300-317). The float32 instantiations
+// compile to the untemplated kernels' code (tools/sass_compare.py).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -85,6 +106,38 @@ constexpr int kRowCost = 4;             // a row's weight against a candidate ed
 
 __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 
+template <typename T>
+constexpr bool kIsFloat = std::is_same<T, float>::value;
+
+// storage <-> registers: a float32 or bfloat16 element read as float32, a
+// float32 value stored rounded once to the storage type
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(__ldg(p));
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// four consecutive elements of a shared-memory row as float32 (16 bytes of
+// float32, 8 of bf16)
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+// two consecutive elements (8 bytes of float32, 4 of bf16)
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
 // rows of per-row layer-1 partial products (2hp floats each) in a table
 struct Table {
   const float* base;    // the first row's first column of this segment's block
@@ -92,18 +145,19 @@ struct Table {
   int64_t stride;       // floats per table row
 };
 
+template <typename T>
 struct Args {
   Table staged;         // src: staged through shared memory with cp.async
   Table direct[2];      // dst (and the line conv's center): read directly
-  const float* edge;    // (E, C) the per-edge segment
-  const float* abw;     // (E, C) per-edge multiplier, or null
+  const T* edge;        // (E, C) the per-edge segment
+  const T* abw;         // (E, C) per-edge multiplier, or null
   const float* w1e;     // (cp, 2hp) W1's edge block, [core | gate]
   const float* w2;      // (hp, 2cp) [W2c | W2g]
   const float* b2;      // (2cp) [b2c | b2g]
   const int64_t* row_ptr;  // (n_rows + 1)
   const int32_t* seg_ids;  // (E) dst row of each edge
   const uint8_t* mask;     // (E) or null
-  float* out;              // (n_rows, C)
+  T* out;                  // (n_rows, C)
   int64_t n_rows;
   int channels;
   int hidden;
@@ -117,7 +171,8 @@ struct Layout {
     hp = round4(h);
     w1s = 2 * hp;  // row stride of W1's edge block and of a partial row
     w2s = 2 * cp;  // row stride of [W2c | W2g] and of the output tile
-    xs = cp + 4;   // row stride of the edge rows in a tile buffer
+    xs = cp + 4;   // row stride of the edge rows in a tile buffer (bf16: cp + 8
+                   // values, Dims::xsb, in the same region)
     hs = w1s + 4;  // row stride of the hidden tile (padded like xs: other banks)
     // one tile buffer: the edge rows (8, xs) and the staged partial rows
     // (8, 2hp); the hidden tile and then the output tile are written over it
@@ -156,8 +211,10 @@ __device__ __forceinline__ void cp_async_wait() {
 // One 4-deep step of a lane's 4 x 8 tile: for its edges t (rows x + t xs),
 //   acc[t][0..3] += x_t[k..k+3] . Wa[k..k+3][0..3]
 //   acc[t][4..7] += x_t[k..k+3] . Wb[k..k+3][0..3]
-// with wa, wb the weights' row k at the lane's two column groups.
-__device__ __forceinline__ void fma_step(float (&acc)[4][8], const float* __restrict__ x, int xs,
+// with wa, wb the weights' row k at the lane's two column groups; x float32
+// or bf16 (converted as it is read).
+template <typename X>
+__device__ __forceinline__ void fma_step(float (&acc)[4][8], const X* __restrict__ x, int xs,
                                          const float* __restrict__ wa,
                                          const float* __restrict__ wb, int ws) {
   float4 pa[4], pb[4];
@@ -168,7 +225,7 @@ __device__ __forceinline__ void fma_step(float (&acc)[4][8], const float* __rest
   }
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    const float4 v = *reinterpret_cast<const float4*>(x + t * xs);
+    const float4 v = load4(x + t * xs);
     const float xv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -216,6 +273,7 @@ struct Dims {
   __device__ int w1s() const { return 2 * hp(); }
   __device__ int w2s() const { return 2 * cp(); }
   __device__ int xs() const { return cp() + 4; }
+  __device__ int xsb() const { return cp() + 8; }  // bf16 edge rows: 16-byte rows
   __device__ int hs() const { return w1s() + 4; }
 };
 
@@ -228,8 +286,8 @@ struct Screen {
   int row, src, d0, d1;  // its dst row and gather ids
 };
 
-template <int NDIR>
-__device__ __forceinline__ void prefetch_batch(const Args& a, Screen& sc, int lane) {
+template <typename T, int NDIR>
+__device__ __forceinline__ void prefetch_batch(const Args<T>& a, Screen& sc, int lane) {
   const int64_t e = sc.cand + lane;
   const bool in = e < sc.e_end;
   sc.ok = in && (a.mask == nullptr || a.mask[e] != 0);
@@ -252,9 +310,9 @@ struct WarpMem {
 
 // Fill the ring until it holds a tile (or the range is screened), move the
 // next tile into buffer s, start its copies and return its edge count.
-template <int NDIR, bool VEC, int CP, int HP>
-__device__ int take_tile(const Args& a, const Layout& L, const WarpMem& m, int s, Screen& sc,
-                         int lane) {
+template <typename T, int NDIR, bool VEC, int CP, int HP>
+__device__ int take_tile(const Args<T>& a, const Layout& L, const WarpMem& m, int s,
+                         Screen& sc, int lane) {
   const Dims<CP, HP> D(L);
   int* ring_e = m.ring;
   int* ring_r = ring_e + kRing;
@@ -274,7 +332,7 @@ __device__ int take_tile(const Args& a, const Layout& L, const WarpMem& m, int s
     }
     sc.count += __popc(ballot);
     sc.cand += 32;
-    prefetch_batch<NDIR>(a, sc, lane);  // lands while the tile computes
+    prefetch_batch<T, NDIR>(a, sc, lane);  // lands while the tile computes
   }
   __syncwarp();
   const int n = sc.count < kEPW ? sc.count : kEPW;
@@ -296,19 +354,38 @@ __device__ int take_tile(const Args& a, const Layout& L, const WarpMem& m, int s
     const int64_t r = ring_s[(sc.head + i) % kRing];
     cp_async16(ps + i * D.w1s() + 4 * q, a.staged.base + r * a.staged.stride + 4 * q);
   }
-  if (VEC) {
-    const int qx = C / 4;
-    for (int t = lane; t < n * qx; t += 32) {
-      const int i = t / qx, q = t - i * qx;
-      const int64_t e = ring_e[(sc.head + i) % kRing];
-      cp_async16(x + i * D.xs() + 4 * q, a.edge + e * C + 4 * q);
+  if constexpr (kIsFloat<T>) {
+    if (VEC) {
+      const int qx = C / 4;
+      for (int t = lane; t < n * qx; t += 32) {
+        const int i = t / qx, q = t - i * qx;
+        const int64_t e = ring_e[(sc.head + i) % kRing];
+        cp_async16(x + i * D.xs() + 4 * q, a.edge + e * C + 4 * q);
+      }
+    } else {
+      for (int t = lane; t < n * D.cp(); t += 32) {
+        const int i = t / D.cp(), c = t - i * D.cp();
+        const int64_t e = ring_e[(sc.head + i) % kRing];
+        if (c < C) cp_async4(x + i * D.xs() + c, a.edge + e * C + c);
+        else x[i * D.xs() + c] = 0.0f;  // zero padding up to cp
+      }
     }
   } else {
-    for (int t = lane; t < n * D.cp(); t += 32) {
-      const int i = t / D.cp(), c = t - i * D.cp();
-      const int64_t e = ring_e[(sc.head + i) % kRing];
-      if (c < C) cp_async4(x + i * D.xs() + c, a.edge + e * C + c);
-      else x[i * D.xs() + c] = 0.0f;  // zero padding up to cp
+    // bf16 edge rows of cp values at stride xsb (the padding up to cp zero)
+    __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(x);
+    if (VEC) {  // C % 8 == 0 and 16-byte aligned rows: 8 values a copy
+      const int qx = C / 8;
+      for (int t = lane; t < n * qx; t += 32) {
+        const int i = t / qx, q = t - i * qx;
+        const int64_t e = ring_e[(sc.head + i) % kRing];
+        cp_async16(xb + i * D.xsb() + 8 * q, a.edge + e * C + 8 * q);
+      }
+    } else {  // plain loads (a cp.async copies 4 bytes at least)
+      for (int t = lane; t < n * D.cp(); t += 32) {
+        const int i = t / D.cp(), c = t - i * D.cp();
+        const int64_t e = ring_e[(sc.head + i) % kRing];
+        xb[i * D.xsb() + c] = c < C ? a.edge[e * C + c] : __float2bfloat16_rn(0.0f);
+      }
     }
   }
   cp_async_commit();
@@ -317,13 +394,14 @@ __device__ int take_tile(const Args& a, const Layout& L, const WarpMem& m, int s
   return n;
 }
 
-// flush the running sums into row `cur` and move on
-__device__ __forceinline__ void flush_row(const Args& a, int64_t& cur, float (&acc_row)[2],
+// flush the running sums into row `cur` (rounded once to T) and move on
+template <typename T>
+__device__ __forceinline__ void flush_row(const Args<T>& a, int64_t& cur, float (&acc_row)[2],
                                           int lane) {
 #pragma unroll
   for (int g = 0; g < 2; ++g) {
     const int c = lane + 32 * g;
-    if (c < a.channels) a.out[cur * a.channels + c] = acc_row[g];
+    if (c < a.channels) store(a.out + cur * a.channels + c, acc_row[g]);
     acc_row[g] = 0.0f;
   }
   ++cur;
@@ -341,8 +419,8 @@ __device__ __forceinline__ void flush_row(const Args& a, int64_t& cur, float (&a
 // shared-memory load of a step is two wavefronts: 12 loads for 128 FMAs.
 // In layer 2 quarter-warps 0-1 take the core channels and 2-3 the gate
 // channels: c and c + 32 with c = 16 (q % 2) + 4 (j / 2).
-template <int NDIR, int CP, int HP>
-__device__ void run_tile(const Args& a, const Layout& L, const float* smem, const WarpMem& m,
+template <typename T, int NDIR, int CP, int HP>
+__device__ void run_tile(const Args<T>& a, const Layout& L, const float* smem, const WarpMem& m,
                          int s, int n, int lane, int64_t& cur, float (&acc_row)[2]) {
   const Dims<CP, HP> D(L);
   const int C = a.channels;
@@ -383,10 +461,19 @@ __device__ void run_tile(const Args& a, const Layout& L, const float* smem, cons
       }
     }
     const float* w1e = smem + u;
+    if constexpr (kIsFloat<T>) {
 #pragma unroll 4
-    for (int k = 0; k < D.cp(); k += 4) {
-      fma_step(acc, x + g * D.xs() + k, 2 * D.xs(), w1e + k * D.w1s(),
-               w1e + k * D.w1s() + D.hp(), D.w1s());
+      for (int k = 0; k < D.cp(); k += 4) {
+        fma_step(acc, x + g * D.xs() + k, 2 * D.xs(), w1e + k * D.w1s(),
+                 w1e + k * D.w1s() + D.hp(), D.w1s());
+      }
+    } else {
+      const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
+#pragma unroll 4
+      for (int k = 0; k < D.cp(); k += 4) {
+        fma_step(acc, xb + g * D.xsb() + k, 2 * D.xsb(), w1e + k * D.w1s(),
+                 w1e + k * D.w1s() + D.hp(), D.w1s());
+      }
     }
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
@@ -415,7 +502,7 @@ __device__ void run_tile(const Args& a, const Layout& L, const float* smem, cons
     for (int r = 0; r < 2; ++r) {
       const int c = lane + 32 * r;
       ab[i][r] = a.abw != nullptr && i < n && c < C
-                     ? __ldg(a.abw + static_cast<int64_t>(te[i]) * C + c)
+                     ? load(a.abw + static_cast<int64_t>(te[i]) * C + c)
                      : 1.0f;
     }
   }
@@ -472,8 +559,8 @@ __device__ void run_tile(const Args& a, const Layout& L, const float* smem, cons
   }
 }
 
-template <int NDIR, bool VEC, int CP, int HP>
-__device__ __forceinline__ void gated_aggregate(const Args& a) {
+template <typename T, int NDIR, bool VEC, int CP, int HP>
+__device__ __forceinline__ void gated_aggregate(const Args<T>& a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int nw = blockDim.x >> 5;
@@ -504,18 +591,18 @@ __device__ __forceinline__ void gated_aggregate(const Args& a) {
   Screen sc{};
   sc.cand = a.row_ptr[ra];
   sc.e_end = a.row_ptr[rb];
-  prefetch_batch<NDIR>(a, sc, lane);
+  prefetch_batch<T, NDIR>(a, sc, lane);
 
   int64_t cur = ra;               // the row the walk is in
   float acc_row[2] = {0.0f, 0.0f};  // its running sums of channels lane, lane + 32
   int s = 0;
-  int n = take_tile<NDIR, VEC, CP, HP>(a, L, m, s, sc, lane);
+  int n = take_tile<T, NDIR, VEC, CP, HP>(a, L, m, s, sc, lane);
   while (n > 0) {
     // the next tile's rows fly while this one computes
-    const int n_next = take_tile<NDIR, VEC, CP, HP>(a, L, m, s ^ 1, sc, lane);
+    const int n_next = take_tile<T, NDIR, VEC, CP, HP>(a, L, m, s ^ 1, sc, lane);
     cp_async_wait<1>();
     __syncwarp();
-    run_tile<NDIR, CP, HP>(a, L, smem, m, s, n, lane, cur, acc_row);
+    run_tile<T, NDIR, CP, HP>(a, L, smem, m, s, n, lane, cur, acc_row);
     __syncwarp();
     s ^= 1;
     n = n_next;
@@ -524,16 +611,17 @@ __device__ __forceinline__ void gated_aggregate(const Args& a) {
   while (cur < rb) flush_row(a, cur, acc_row, lane);
 }
 
-// VEC: C % 4 == 0 (16-byte copies of the edge rows). CP, HP: the padded
-// widths as constants (64, 64: matgl's), or 0 for any.
-template <bool VEC, int CP, int HP>
-__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_atom_conv_kernel(const Args a) {
-  gated_aggregate<1, VEC, CP, HP>(a);
+// VEC: 16-byte copies of the edge rows (C % 4 == 0 for float32, C % 8 == 0
+// and 16-byte aligned rows for bf16). CP, HP: the padded widths as
+// constants (64, 64: matgl's), or 0 for any.
+template <typename T, bool VEC, int CP, int HP>
+__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_atom_conv_kernel(const Args<T> a) {
+  gated_aggregate<T, 1, VEC, CP, HP>(a);
 }
 
-template <bool VEC, int CP, int HP>
-__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_line_conv_kernel(const Args a) {
-  gated_aggregate<2, VEC, CP, HP>(a);
+template <typename T, bool VEC, int CP, int HP>
+__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_line_conv_kernel(const Args<T> a) {
+  gated_aggregate<T, 2, VEC, CP, HP>(a);
 }
 
 // Warps per block that the shared memory holds at (C, H), at most
@@ -546,8 +634,8 @@ int pick_warps(int channels, int hidden) {
   return 0;
 }
 
-template <int NDIR>
-int launch(const Args& a, int64_t n_edges, void* stream) {
+template <typename T, int NDIR>
+int launch(const Args<T>& a, int64_t n_edges, void* stream) {
   if (a.n_rows <= 0 || a.channels <= 0) return 0;
   const int nw = pick_warps(a.channels, a.hidden);
   if (nw == 0 || n_edges >= 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
@@ -560,13 +648,16 @@ int launch(const Args& a, int64_t n_edges, void* stream) {
   const int64_t want = (n_edges + a.n_rows * kRowCost + 256LL * nw - 1) / (256LL * nw);
   const int64_t blocks = want < sms ? (want > 0 ? want : 1) : sms;
   const int bytes = Layout(a.channels, a.hidden, nw).bytes();
-  const bool vec = a.channels % 4 == 0;
-  const bool matgl = a.channels == 64 && a.hidden == 64;
+  const bool vec = kIsFloat<T> ? a.channels % 4 == 0
+                               : a.channels % 8 == 0 && reinterpret_cast<uintptr_t>(a.edge) % 16 == 0;
+  const bool matgl = vec && a.channels == 64 && a.hidden == 64;
   auto kernel = NDIR == 1
-      ? (matgl ? chgnet_atom_conv_kernel<true, 64, 64>
-               : vec ? chgnet_atom_conv_kernel<true, 0, 0> : chgnet_atom_conv_kernel<false, 0, 0>)
-      : (matgl ? chgnet_line_conv_kernel<true, 64, 64>
-               : vec ? chgnet_line_conv_kernel<true, 0, 0> : chgnet_line_conv_kernel<false, 0, 0>);
+      ? (matgl ? chgnet_atom_conv_kernel<T, true, 64, 64>
+               : vec ? chgnet_atom_conv_kernel<T, true, 0, 0>
+                     : chgnet_atom_conv_kernel<T, false, 0, 0>)
+      : (matgl ? chgnet_line_conv_kernel<T, true, 64, 64>
+               : vec ? chgnet_line_conv_kernel<T, true, 0, 0>
+                     : chgnet_line_conv_kernel<T, false, 0, 0>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), 32 * nw, bytes, static_cast<cudaStream_t>(stream)>>>(a);
@@ -605,6 +696,11 @@ int launch(const Args& a, int64_t n_edges, void* stream) {
 // x rows need k % 4 == 0 and 16-byte alignment for the 16-byte copies; else
 // each float is copied alone (4 bytes). Rows past the end read as zeros and
 // are not stored. Every y element of [0, rows) x [0, m) is written.
+//
+// bf16 x (the bf16 model's node and bond rows): the tile holds bf16 rows of
+// k4 + 8 values (16-byte copies of 8 when k % 8 == 0; else plain loads),
+// read as bf16 pairs and converted; W, the bias, the
+// FMAs and y stay float32, so the tables keep one float32 rounding.
 
 constexpr int kPThreads = 256;
 constexpr int kPMaxK = 64;
@@ -623,30 +719,60 @@ __host__ __device__ constexpr int proj_smem_floats(int mt, int tr, int k4) {
   return k4 * mt + mt + 2 * tr * (k4 + 4);
 }
 
-template <int MT, int RT, bool VEC4>
-__device__ __forceinline__ void proj_load_tile(float* __restrict__ xs, const float* __restrict__ x,
+template <typename T, int MT, int RT, bool VEC4>
+__device__ __forceinline__ void proj_load_tile(float* __restrict__ xs, const T* __restrict__ x,
                                                int64_t rows, int k_dim, int k4, int64_t r0) {
   constexpr int TR = proj_tile_rows(MT, RT);
-  const int ks = k4 + 4;
-  if constexpr (VEC4) {
-    const int q4 = k4 / 4;
-    for (int i = threadIdx.x; i < TR * q4; i += kPThreads) {
-      const int r = i / q4, c = (i - r * q4) * 4;
-      float* dst = xs + r * ks + c;
-      if (r0 + r < rows) {
-        cp_async16(dst, x + (r0 + r) * k_dim + c);
-      } else {
-        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if constexpr (kIsFloat<T>) {
+    const int ks = k4 + 4;
+    if constexpr (VEC4) {
+      const int q4 = k4 / 4;
+      for (int i = threadIdx.x; i < TR * q4; i += kPThreads) {
+        const int r = i / q4, c = (i - r * q4) * 4;
+        float* dst = xs + r * ks + c;
+        if (r0 + r < rows) {
+          cp_async16(dst, x + (r0 + r) * k_dim + c);
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+    } else {
+      for (int i = threadIdx.x; i < TR * k4; i += kPThreads) {
+        const int r = i / k4, c = i - r * k4;
+        float* dst = xs + r * ks + c;
+        if (r0 + r < rows && c < k_dim) {
+          cp_async4(dst, x + (r0 + r) * k_dim + c);
+        } else {
+          *dst = 0.0f;
+        }
       }
     }
   } else {
-    for (int i = threadIdx.x; i < TR * k4; i += kPThreads) {
-      const int r = i / k4, c = i - r * k4;
-      float* dst = xs + r * ks + c;
-      if (r0 + r < rows && c < k_dim) {
-        cp_async4(dst, x + (r0 + r) * k_dim + c);
-      } else {
-        *dst = 0.0f;
+    __nv_bfloat16* __restrict__ xb = reinterpret_cast<__nv_bfloat16*>(xs);
+    const int ks = k4 + 8;  // rows of 16-byte multiples, 4 banks apart at k4 = 64
+    if constexpr (VEC4) {  // k % 8 == 0: 8 values a copy
+      const int q8 = k4 / 8;
+      for (int i = threadIdx.x; i < TR * q8; i += kPThreads) {
+        const int r = i / q8, c = (i - r * q8) * 8;
+        __nv_bfloat16* dst = xb + r * ks + c;
+        if (r0 + r < rows) {
+          cp_async16(dst, x + (r0 + r) * k_dim + c);
+        } else {
+          *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+    } else {  // plain loads, two values a thread (a cp.async copies 4 bytes at least)
+      const int q2 = k4 / 2;
+      for (int i = threadIdx.x; i < TR * q2; i += kPThreads) {
+        const int r = i / q2, c = (i - r * q2) * 2;
+        __nv_bfloat16* dst = xb + r * ks + c;
+        if (r0 + r < rows && c < k_dim) {
+          const T* src = x + (r0 + r) * k_dim + c;
+          dst[0] = src[0];
+          dst[1] = c + 1 < k_dim ? src[1] : __float2bfloat16_rn(0.0f);
+        } else {
+          *reinterpret_cast<uint32_t*>(dst) = 0u;
+        }
       }
     }
   }
@@ -654,12 +780,12 @@ __device__ __forceinline__ void proj_load_tile(float* __restrict__ xs, const flo
 
 // Two k steps of a lane's RT x 8 outputs: x of its RT rows (4 apart, row
 // stride ks) at k and k + 1, W's rows k and k + 1 at its two column quads.
-template <int MT, int RT>
-__device__ __forceinline__ void proj_k_step(float (&acc)[RT][8], const float* __restrict__ xt,
+template <typename T, int MT, int RT>
+__device__ __forceinline__ void proj_k_step(float (&acc)[RT][8], const T* __restrict__ xt,
                                             const float* __restrict__ wt, int ks, int k) {
   float2 a[RT];
 #pragma unroll
-  for (int i = 0; i < RT; ++i) a[i] = *reinterpret_cast<const float2*>(xt + 4 * i * ks + k);
+  for (int i = 0; i < RT; ++i) a[i] = load2(xt + 4 * i * ks + k);
 #pragma unroll
   for (int kk = 0; kk < 2; ++kk) {
     const float4 b0 = *reinterpret_cast<const float4*>(wt + (k + kk) * MT);
@@ -679,9 +805,9 @@ __device__ __forceinline__ void proj_k_step(float (&acc)[RT][8], const float* __
   }
 }
 
-template <int MT, int RT, bool VEC4, int KT>
+template <typename T, int MT, int RT, bool VEC4, int KT>
 __global__ void __launch_bounds__(kPThreads, 2)
-chgnet_row_projection_kernel(const float* __restrict__ x, int64_t rows, int k_dim,
+chgnet_row_projection_kernel(const T* __restrict__ x, int64_t rows, int k_dim,
                              const float* __restrict__ w, int m, const float* __restrict__ bias,
                              float* __restrict__ y, int64_t n_tiles) {
   constexpr int WC = MT / 64;            // warps across the columns, 64 columns each
@@ -711,17 +837,19 @@ chgnet_row_projection_kernel(const float* __restrict__ x, int64_t rows, int k_di
   }
   for (int j = tid; j < MT; j += kPThreads) bs[j] = bias != nullptr && j < m ? __ldg(bias + j) : 0.0f;
   int64_t tile = blockIdx.x;
-  proj_load_tile<MT, RT, VEC4>(xs[0], x, rows, k_dim, k4, tile * TR);
+  proj_load_tile<T, MT, RT, VEC4>(xs[0], x, rows, k_dim, k4, tile * TR);
   cp_async_commit();
 
   for (int buf = 0; tile < n_tiles; tile += gridDim.x, buf ^= 1) {
     const int64_t next = tile + gridDim.x;
-    if (next < n_tiles) proj_load_tile<MT, RT, VEC4>(xs[buf ^ 1], x, rows, k_dim, k4, next * TR);
+    if (next < n_tiles)
+      proj_load_tile<T, MT, RT, VEC4>(xs[buf ^ 1], x, rows, k_dim, k4, next * TR);
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and W) landed; the next may still be in flight
     __syncthreads();
 
-    const float* __restrict__ xt = xs[buf] + row0 * ks;
+    const int xst = kIsFloat<T> ? ks : k4 + 8;  // the x tile's row stride in values
+    const T* __restrict__ xt = reinterpret_cast<const T*>(xs[buf]) + row0 * xst;
     const float* __restrict__ wt = ws + col0;
     float acc[RT][8];
 #pragma unroll
@@ -731,10 +859,10 @@ chgnet_row_projection_kernel(const float* __restrict__ x, int64_t rows, int k_di
     }
     if constexpr (KT > 0) {  // K = 64 at 8 rows a thread: 32 deep unrolled
 #pragma unroll 16
-      for (int k = 0; k < KT; k += 2) proj_k_step<MT, RT>(acc, xt, wt, ks, k);
+      for (int k = 0; k < KT; k += 2) proj_k_step<T, MT, RT>(acc, xt, wt, xst, k);
     } else {
 #pragma unroll 2
-      for (int k = 0; k < k4; k += 2) proj_k_step<MT, RT>(acc, xt, wt, ks, k);
+      for (int k = 0; k < k4; k += 2) proj_k_step<T, MT, RT>(acc, xt, wt, xst, k);
     }
     __syncthreads();  // every read of xs[buf] is done before the next prefetch lands there
 
@@ -764,10 +892,10 @@ struct ProjPlan {
 
 // Blocks a SM holds on the current device. The shared-memory limit is a
 // per-device attribute, so it is set on every call (as the conv launches do).
-template <int MT, int RT, bool VEC4, int KT>
+template <typename T, int MT, int RT, bool VEC4, int KT>
 cudaError_t proj_occupancy(int k4, int* per_sm) {
   constexpr int TR = proj_tile_rows(MT, RT);
-  auto kernel = chgnet_row_projection_kernel<MT, RT, VEC4, KT>;
+  auto kernel = chgnet_row_projection_kernel<T, MT, RT, VEC4, KT>;
   const int bytes = proj_smem_floats(MT, TR, k4) * static_cast<int>(sizeof(float));
   const cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -802,8 +930,9 @@ cudaError_t proj_plan(int64_t rows, int m, ProjPlan* plan) {
   return cudaSuccess;
 }
 
+template <typename T>
 struct ProjArgs {
-  const float* x;
+  const T* x;
   int64_t rows;
   int k_dim;
   const float* w;
@@ -813,18 +942,18 @@ struct ProjArgs {
   bool vec4;
 };
 
-template <int MT, int RT, bool VEC4, int KT>
-cudaError_t proj_run(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
+template <typename T, int MT, int RT, bool VEC4, int KT>
+cudaError_t proj_run(const ProjArgs<T>& a, ProjPlan* p, cudaStream_t s) {
   constexpr int TR = proj_tile_rows(MT, RT);
   const int k4 = (a.k_dim + 3) & ~3;
   int per_sm = 0;
-  const cudaError_t err = proj_occupancy<MT, RT, VEC4, KT>(k4, &per_sm);
+  const cudaError_t err = proj_occupancy<T, MT, RT, VEC4, KT>(k4, &per_sm);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int64_t slots = static_cast<int64_t>(per_sm) * p->sms;
   p->blocks = p->tiles < slots ? p->tiles : slots;
   if (a.y == nullptr) return cudaSuccess;
-  chgnet_row_projection_kernel<MT, RT, VEC4, KT>
+  chgnet_row_projection_kernel<T, MT, RT, VEC4, KT>
       <<<static_cast<unsigned>(p->blocks), kPThreads,
          proj_smem_floats(MT, TR, k4) * sizeof(float), s>>>(a.x, a.rows, a.k_dim, a.w, a.m,
                                                            a.bias, a.y, p->tiles);
@@ -833,36 +962,92 @@ cudaError_t proj_run(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
 
 // K = 64 at RT 8 takes the compile-time depth; the rest a runtime loop (for
 // RT 5 at K = 64 too: it measured faster at the 19,712 x 256 atom table).
-template <int MT, int RT>
-cudaError_t proj_dispatch_k(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
+template <typename T, int MT, int RT>
+cudaError_t proj_dispatch_k(const ProjArgs<T>& a, ProjPlan* p, cudaStream_t s) {
   if constexpr (RT == 8) {
     if ((a.k_dim + 3) / 4 == kPMaxK / 4) {
-      return a.vec4 ? proj_run<MT, RT, true, kPMaxK>(a, p, s)
-                    : proj_run<MT, RT, false, kPMaxK>(a, p, s);
+      return a.vec4 ? proj_run<T, MT, RT, true, kPMaxK>(a, p, s)
+                    : proj_run<T, MT, RT, false, kPMaxK>(a, p, s);
     }
   }
-  return a.vec4 ? proj_run<MT, RT, true, 0>(a, p, s) : proj_run<MT, RT, false, 0>(a, p, s);
+  return a.vec4 ? proj_run<T, MT, RT, true, 0>(a, p, s) : proj_run<T, MT, RT, false, 0>(a, p, s);
 }
 
-template <int MT, int RT, int... MORE>
-cudaError_t proj_dispatch_rt(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
-  if (p->rt == RT) return proj_dispatch_k<MT, RT>(a, p, s);
+template <typename T, int MT, int RT, int... MORE>
+cudaError_t proj_dispatch_rt(const ProjArgs<T>& a, ProjPlan* p, cudaStream_t s) {
+  if (p->rt == RT) return proj_dispatch_k<T, MT, RT>(a, p, s);
   if constexpr (sizeof...(MORE) > 0) {
-    return proj_dispatch_rt<MT, MORE...>(a, p, s);
+    return proj_dispatch_rt<T, MT, MORE...>(a, p, s);
   } else {
     return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t proj_dispatch(const ProjArgs& a, ProjPlan* p, cudaStream_t s) {
-  return p->mt == 128 ? proj_dispatch_rt<128, PROJ_ROWS_PER_THREAD>(a, p, s)
-                      : proj_dispatch_rt<256, PROJ_ROWS_PER_THREAD>(a, p, s);
+template <typename T>
+cudaError_t proj_dispatch(const ProjArgs<T>& a, ProjPlan* p, cudaStream_t s) {
+  return p->mt == 128 ? proj_dispatch_rt<T, 128, PROJ_ROWS_PER_THREAD>(a, p, s)
+                      : proj_dispatch_rt<T, 256, PROJ_ROWS_PER_THREAD>(a, p, s);
 }
 
 cudaError_t proj_check(int64_t rows, int k_dim, int m) {
   if (rows < 0 || k_dim < 1 || k_dim > kPMaxK || m < 4 || m > kPMaxM || m % 4 != 0)
     return cudaErrorInvalidValue;
   return cudaSuccess;
+}
+
+// The projection's launch: checks, the plan, the dispatch. vec4: 16-byte
+// copies of x rows (k % 4 == 0 for float32, k % 8 == 0 for bf16, and
+// 16-byte aligned x).
+template <typename T>
+int proj_launch(const T* x, int64_t rows, int k_dim, const float* w, int m, const float* bias,
+                float* y, void* stream) {
+  cudaError_t err = proj_check(rows, k_dim, m);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows == 0) return 0;
+  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
+  if (misaligned(w) || misaligned(bias) || misaligned(y))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  ProjPlan plan{};
+  err = proj_plan(rows, m, &plan);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ProjArgs<T> a{x, rows, k_dim, w, m, bias, y,
+                      k_dim % (kIsFloat<T> ? 4 : 8) == 0 && !misaligned(x)};
+  return static_cast<int>(proj_dispatch(a, &plan, static_cast<cudaStream_t>(stream)));
+}
+
+template <typename T>
+int atom_conv(const float* p_src, int64_t src_stride, const int32_t* src, const float* p_dst,
+              int64_t dst_stride, const int32_t* dst, const T* edge, const T* abw,
+              const float* w1e, const float* w2, const float* b2, const int64_t* row_ptr,
+              const int32_t* seg_ids, const uint8_t* mask, T* out, int64_t n_rows,
+              int64_t n_edges, int channels, int hidden, void* stream) {
+  Args<T> a{};
+  a.staged = {p_src, src, src_stride};
+  a.direct[0] = {p_dst, dst, dst_stride};
+  a.direct[1] = a.direct[0];
+  a.edge = edge; a.abw = abw;
+  a.w1e = w1e; a.w2 = w2; a.b2 = b2;
+  a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
+  a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
+  return launch<T, 1>(a, n_edges, stream);
+}
+
+template <typename T>
+int line_conv(const float* p_src, int64_t src_stride, const int32_t* line_src,
+              const float* p_dst, int64_t dst_stride, const int32_t* line_dst, const T* angle,
+              const float* p_ctr, int64_t ctr_stride, const int32_t* center, const float* w1e,
+              const float* w2, const float* b2, const int64_t* row_ptr, const int32_t* seg_ids,
+              const uint8_t* mask, T* out, int64_t n_rows, int64_t n_edges, int channels,
+              int hidden, void* stream) {
+  Args<T> a{};
+  a.staged = {p_src, line_src, src_stride};
+  a.direct[0] = {p_dst, line_dst, dst_stride};
+  a.direct[1] = {p_ctr, center, ctr_stride};
+  a.edge = angle; a.abw = nullptr;
+  a.w1e = w1e; a.w2 = w2; a.b2 = b2;
+  a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
+  a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
+  return launch<T, 2>(a, n_edges, stream);
 }
 
 }  // namespace
@@ -884,17 +1069,15 @@ extern "C" int distmlip_chgnet_aggregate_smem_bytes(int channels, int hidden) {
 extern "C" int distmlip_chgnet_row_projection_f32(const float* x, int64_t rows, int k_dim,
                                                   const float* w, int m, const float* bias,
                                                   float* y, void* stream) {
-  cudaError_t err = proj_check(rows, k_dim, m);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows == 0) return 0;
-  const auto misaligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 != 0; };
-  if (misaligned(w) || misaligned(bias) || misaligned(y))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  ProjPlan plan{};
-  err = proj_plan(rows, m, &plan);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const ProjArgs a{x, rows, k_dim, w, m, bias, y, k_dim % 4 == 0 && !misaligned(x)};
-  return static_cast<int>(proj_dispatch(a, &plan, static_cast<cudaStream_t>(stream)));
+  return proj_launch(x, rows, k_dim, w, m, bias, y, stream);
+}
+
+// The same with x (rows, k) bfloat16 contiguous: W, the bias and y float32,
+// the products in float32.
+extern "C" int distmlip_chgnet_row_projection_bf16(const __nv_bfloat16* x, int64_t rows,
+                                                   int k_dim, const float* w, int m,
+                                                   const float* bias, float* y, void* stream) {
+  return proj_launch(x, rows, k_dim, w, m, bias, y, stream);
 }
 
 // The row projection's launch plan at (rows, k, m) on the current device:
@@ -907,7 +1090,7 @@ extern "C" int distmlip_chgnet_row_projection_plan(int64_t rows, int k_dim, int 
   ProjPlan plan{};
   err = proj_plan(rows, m, &plan);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const ProjArgs a{nullptr, rows, k_dim, nullptr, m, nullptr, nullptr, k_dim % 4 == 0};
+  const ProjArgs<float> a{nullptr, rows, k_dim, nullptr, m, nullptr, nullptr, k_dim % 4 == 0};
   err = proj_dispatch(a, &plan, nullptr);
   out[0] = plan.tile_rows;
   out[1] = plan.tiles;
@@ -930,15 +1113,20 @@ extern "C" int distmlip_chgnet_atom_conv_f32(
     const float* w1e, const float* w2, const float* b2, const int64_t* row_ptr,
     const int32_t* seg_ids, const uint8_t* mask, float* out, int64_t n_rows,
     int64_t n_edges, int channels, int hidden, void* stream) {
-  Args a{};
-  a.staged = {p_src, src, src_stride};
-  a.direct[0] = {p_dst, dst, dst_stride};
-  a.direct[1] = a.direct[0];
-  a.edge = edge; a.abw = abw;
-  a.w1e = w1e; a.w2 = w2; a.b2 = b2;
-  a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
-  a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
-  return launch<1>(a, n_edges, stream);
+  return atom_conv(p_src, src_stride, src, p_dst, dst_stride, dst, edge, abw, w1e, w2, b2,
+                   row_ptr, seg_ids, mask, out, n_rows, n_edges, channels, hidden, stream);
+}
+
+// The same with edge, abw and out bfloat16; the tables and packed weights
+// float32.
+extern "C" int distmlip_chgnet_atom_conv_bf16(
+    const float* p_src, int64_t src_stride, const int32_t* src, const float* p_dst,
+    int64_t dst_stride, const int32_t* dst, const __nv_bfloat16* edge,
+    const __nv_bfloat16* abw, const float* w1e, const float* w2, const float* b2,
+    const int64_t* row_ptr, const int32_t* seg_ids, const uint8_t* mask, __nv_bfloat16* out,
+    int64_t n_rows, int64_t n_edges, int channels, int hidden, void* stream) {
+  return atom_conv(p_src, src_stride, src, p_dst, dst_stride, dst, edge, abw, w1e, w2, b2,
+                   row_ptr, seg_ids, mask, out, n_rows, n_edges, channels, hidden, stream);
 }
 
 // Line conv. p_src, p_dst: the bond segments' partial rows gathered at
@@ -952,13 +1140,20 @@ extern "C" int distmlip_chgnet_line_conv_f32(
     int64_t ctr_stride, const int32_t* center, const float* w1e, const float* w2,
     const float* b2, const int64_t* row_ptr, const int32_t* seg_ids, const uint8_t* mask,
     float* out, int64_t n_rows, int64_t n_edges, int channels, int hidden, void* stream) {
-  Args a{};
-  a.staged = {p_src, line_src, src_stride};
-  a.direct[0] = {p_dst, line_dst, dst_stride};
-  a.direct[1] = {p_ctr, center, ctr_stride};
-  a.edge = angle; a.abw = nullptr;
-  a.w1e = w1e; a.w2 = w2; a.b2 = b2;
-  a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
-  a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
-  return launch<2>(a, n_edges, stream);
+  return line_conv(p_src, src_stride, line_src, p_dst, dst_stride, line_dst, angle, p_ctr,
+                   ctr_stride, center, w1e, w2, b2, row_ptr, seg_ids, mask, out, n_rows,
+                   n_edges, channels, hidden, stream);
+}
+
+// The same with angle and out bfloat16.
+extern "C" int distmlip_chgnet_line_conv_bf16(
+    const float* p_src, int64_t src_stride, const int32_t* line_src, const float* p_dst,
+    int64_t dst_stride, const int32_t* line_dst, const __nv_bfloat16* angle,
+    const float* p_ctr, int64_t ctr_stride, const int32_t* center, const float* w1e,
+    const float* w2, const float* b2, const int64_t* row_ptr, const int32_t* seg_ids,
+    const uint8_t* mask, __nv_bfloat16* out, int64_t n_rows, int64_t n_edges, int channels,
+    int hidden, void* stream) {
+  return line_conv(p_src, src_stride, line_src, p_dst, dst_stride, line_dst, angle, p_ctr,
+                   ctr_stride, center, w1e, w2, b2, row_ptr, seg_ids, mask, out, n_rows,
+                   n_edges, channels, hidden, stream);
 }

@@ -34,15 +34,17 @@ launches the kernel or raises.
   (``_edge_aggregate_bwd``, ``:482``) in differentiable torch ops, by
   semantics and not as a fallback. ``recompute_chunks`` counts that
   recompute's chunks per message. bfloat16 inputs launch a message's bf16
-  kernels where it has them (``EdgeMessage.bf16``: TensorNet's) and raise
-  on the kernel route where it does not (CHGNet's, ROADMAP.md A6b); the
-  recompute keeps the JAX dispatcher's fp32 views: half node rows gather
-  with an fp32-accumulating transpose (``ops.nn.gather_rows``, as the
-  message cotangent's gather) and their cotangents sum in fp32, rounded
-  once after the last chunk (``:528-584``). The message is an ``EdgeMessage`` (a
-  torch function plus its kernels), not an arbitrary callable, because a
-  CUDA kernel cannot run a Python function; an edge MLP's weights, which
-  the JAX dispatcher hoists from the closure, are explicit ``weights``.
+  kernels where it has them (``EdgeMessage.bf16``: TensorNet's and
+  CHGNet's) and raise on the kernel route where it does not, as float16
+  does (a call mixing float32 and bf16 raises in the kernel's wrapper);
+  the recompute keeps the JAX dispatcher's fp32 views: half node rows
+  gather with an fp32-accumulating transpose (``ops.nn.gather_rows``, as
+  the message cotangent's gather) and their cotangents sum in fp32,
+  rounded once after the last chunk (``:528-584``). The message is an
+  ``EdgeMessage`` (a torch function plus its kernels), not an arbitrary
+  callable, because a CUDA kernel cannot run a Python function; an edge
+  MLP's weights, which the JAX dispatcher hoists from the closure, are
+  explicit ``weights``.
   The JAX package's VMEM budget and its pre-gather route have no
   counterpart: the kernels gather node rows from global memory at every
   size.
@@ -322,8 +324,7 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
         raise NotImplementedError(
             f"fused_edge_aggregate: {'/'.join(map(str, sorted(half, key=str)))} inputs "
             f"to the {message.name!r} kernel, which takes float32"
-            f"{' or bfloat16' if message.bf16 else ''}: bfloat16 for CHGNet's B2 kernels "
-            "is ROADMAP.md A6b")
+            f"{' or bfloat16' if message.bf16 else ''}")
     return _EdgeAggregate.apply(message, tuple(kinds), len(weights), use_kernel, chunk,
                                 num_segments, segment_ids, mask, *arrs, *weights, *idxs)
 

@@ -28,12 +28,14 @@ kernel, in ``csrc/edge_aggregate.cu`` (TensorNet) and
 
 All sum the message onto the dst-sorted rows under the validity mask:
 ``(num_segments, 3, 3, C)`` for TensorNet, ``(num_segments, C)`` for
-CHGNet. TensorNet's three kernels also take bfloat16 (every float tensor
-of a call one dtype; a mix raises): a second instantiation of the same
-kernels that reads bf16, computes and accumulates in fp32 and rounds each
-output element once, counted apart (``*_bf16`` launch counts); the
-messages' ``bf16`` field says which kernels take it (CHGNet's do not yet:
-ROADMAP.md A6b). CHGNet's messages take the gated MLP's tensors as ``weights``
+CHGNet. Every kernel also takes bfloat16 (every float tensor of a call one
+dtype; a mix raises): a second instantiation of the same kernel that reads
+bf16, computes and accumulates in fp32 and rounds each output element
+once, counted apart (``*_bf16`` launch counts); the messages' ``bf16``
+field says that their kernels take it. CHGNet's row projection reads bf16
+node rows and writes its tables in float32, and the gated MLP's weights
+reach its kernels upcast to float32 (exact). CHGNet's messages take the
+gated MLP's tensors as ``weights``
 (``ops.nn.gated_mlp_weights``: core w1, b1, w2, b2, then the gate's), one
 hidden layer for the kernels. The ``*_cuda`` wrappers take CUDA tensors
 only and raise on anything else; the ``*_reference`` versions build the
@@ -71,7 +73,8 @@ PROJECTION = "chgnet_row_projection"
 BF16 = "_bf16"  # suffix of a kernel's bf16 launch count
 launch_counts.update({EMBED: 0, INTERACTION: 0, INTERACTION_BWD: 0, ATOM_CONV: 0,
                       LINE_CONV: 0, PROJECTION: 0, EMBED + BF16: 0, INTERACTION + BF16: 0,
-                      INTERACTION_BWD + BF16: 0})
+                      INTERACTION_BWD + BF16: 0, ATOM_CONV + BF16: 0, LINE_CONV + BF16: 0,
+                      PROJECTION + BF16: 0})
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +203,11 @@ def tensornet_interaction_backward_reference(g, f, node_i, node_a, node_s, src,
             _src_sum(node_s, src, cs))
 
 
+def _full(x):
+    """``x`` upcast to float32 when it is half precision, else as it is."""
+    return x.float() if x is not None and x.dtype in _HALF_DTYPES else x
+
+
 def _edge_counts(ids, n, mask, dtype):
     valid = ids.long() if mask is None else ids.long()[mask]
     return torch.bincount(valid, minlength=n)[:n].to(dtype)
@@ -315,6 +323,34 @@ def chgnet_line_aggregate_reference(bond_src, line_src, bond_dst, line_dst, angl
     return masked_segment_sum(msg, segment_ids, num_segments, mask)
 
 
+def chgnet_message_terms(x, abw, weights):
+    """Per message entry (E, C), the sensitivity-weighted sum of |terms| T
+    of the gated MLP (one hidden layer: its 8 ``weights``) on the concat
+    rows ``x`` (E, K1), times ``abw`` (E, C) when given, in ``x``'s dtype:
+    a relative change of at most d at any one op of the message (a dot
+    product, a bias, an activation, the gate product, the abw product)
+    moves the entry by at most d T, first order.
+    Layer by layer, per branch (core c, gate g): A1 = |x| |W1| + |b1|
+    bounds the pre-activation's terms, TH = 1.1 A1 the hidden values and
+    the effect of a layer-1 change (silu's slope is at most 1.1), T2 = TH
+    |W2| + |b2| the same for layer 2; the outputs TOc = 1.1 T2c and TOg =
+    0.25 T2g + |og| (sigmoid's slope is at most 0.25, its value at most
+    1); the message T = |og| TOc + |oc| TOg. Along a branch a change at
+    each of the three layer-1 ops moves z2 by at most d T2, at each of the
+    two layer-2 ops too, so six ops move the branch's output by at most
+    6 d TO; the gate product and the abw product add one each."""
+    w1c, b1c, w2c, b2c, w1g, b1g, w2g, b2g = weights
+
+    def t2(w1, b1, w2, b2):
+        return (1.1 * (x.abs() @ w1.abs() + b1.abs())) @ w2.abs() + b2.abs()
+
+    oc = F.silu(F.silu(x @ w1c + b1c) @ w2c + b2c)
+    og = torch.sigmoid(F.silu(x @ w1g + b1g) @ w2g + b2g)
+    t = (og.abs() * 1.1 * t2(w1c, b1c, w2c, b2c)
+         + oc.abs() * (0.25 * t2(w1g, b1g, w2g, b2g) + og.abs()))
+    return t if abw is None else t * abw.abs()
+
+
 def chgnet_aggregate_error_bound(x, abw, weights, segment_ids, num_segments: int,
                                  mask=None):
     """Per output element, a bound on |kernel - plain| of a CHGNet
@@ -328,7 +364,20 @@ def chgnet_aggregate_error_bound(x, abw, weights, segment_ids, num_segments: int
     and ``sigmoid`` have slopes of at most 1.1 and 0.25 and add 4 u of
     their value; a product adds 2 u; the dst sum of k messages adds
     k u sum|m|. So B = sum_e dm_e + k u sum_e |m_e|, propagated layer by
-    layer below, and |kernel - plain| <= 2 B."""
+    layer below, and |kernel - plain| <= 2 B.
+
+    bfloat16 data (``x`` in bf16; the weights in bf16 or float32): the
+    kernel keeps the float32 computation on the same values; the plain
+    route rounds a message entry to bf16 after each of its ops, along the
+    core or the gate branch the layer-1 dot, its bias, silu, the layer-2
+    dot, its bias, silu or sigmoid, then the gate product and the abw
+    product: r = 8 roundings (7 without abw), one more for second-order
+    slack, each within 2^-8 of T (``chgnet_message_terms``) summed over
+    the row's valid edges; then one bf16 ulp of the result on each side
+    (``_bf16_bound``)."""
+    half_data = x.dtype in _HALF_DTYPES
+    x, abw = _full(x), _full(abw)
+    weights = [_full(w) for w in weights]
     u = 2.0 ** -24
     k1 = x.shape[1]
     ax = x.abs()
@@ -355,7 +404,12 @@ def chgnet_aggregate_error_bound(x, abw, weights, segment_ids, num_segments: int
     b = (masked_segment_sum(dm, segment_ids, num_segments, mask)
          + (k[:, None] + 1).to(m.dtype) * u
          * masked_segment_sum(m.abs(), segment_ids, num_segments, mask))
-    return 2 * b
+    if not half_data:
+        return 2 * b
+    y = masked_segment_sum(m, segment_ids, num_segments, mask)
+    t = masked_segment_sum(chgnet_message_terms(x, abw, weights), segment_ids,
+                           num_segments, mask)
+    return _bf16_bound(2 * b, y, (8 if abw is not None else 7) + 1, t)
 
 
 # ---------------------------------------------------------------------------
@@ -396,8 +450,11 @@ def chgnet_pack_weights(weights, n_seg: int, edge_seg: int, channels: int) -> Ch
     - ``w2``: ``[W2c | 0 | W2g | 0]`` (hp, 2 cp), rows past H zero;
     - ``b2``: ``[b2c | 0 | b2g | 0]`` (2 cp,).
 
-    Plain torch ops on the weights' device; every result is contiguous."""
-    w1c, b1c, w2c, b2c, w1g, b1g, w2g, b2g = weights
+    Plain torch ops on the weights' device; every result is contiguous and
+    float32 (bfloat16 weights upcast, which is exact: the kernels' shared
+    weights and products stay the float32 kernel's); float64 weights stay
+    float64."""
+    w1c, b1c, w2c, b2c, w1g, b1g, w2g, b2g = (_full(w) for w in weights)
     c, h = channels, w1c.shape[1]
     cp, hp = _round4(c), _round4(h)
 
@@ -442,19 +499,26 @@ def chgnet_row_tables(nodes, packed: ChgnetPacked, project):
 
 
 def chgnet_row_projection_reference(x, w, bias=None):
-    """Plain version of the row projection: ``x @ w (+ bias)``."""
-    y = x @ w
-    return y if bias is None else y + bias
+    """Plain version of the row projection: ``x @ w (+ bias)``; a bfloat16
+    ``x`` (and ``w``, ``bias``) is upcast to float32 first, so the product
+    is the float32 one of the same values and the table keeps one float32
+    rounding."""
+    y = _full(x) @ _full(w)
+    return y if bias is None else y + _full(bias)
 
 
 def chgnet_projection_error_bound(x, w, bias=None):
     """Per element, a bound on |kernel - plain| of the row projection: each
     side's dot product of length K plus its bias is within (K + 2) u of its
-    sum of |terms| (any summation order; u = 2^-24), so twice that."""
+    sum of |terms| (any summation order; u = 2^-24), so twice that. A
+    bfloat16 ``x`` changes nothing: both sides take the float32 product of
+    the same (exactly upcast) values and write float32, so no bf16 rounding
+    lies between them."""
+    x, w = _full(x), _full(w)
     k = x.shape[1]
     t = x.abs() @ w.abs()
     if bias is not None:
-        t = t + bias.abs()
+        t = t + _full(bias).abs()
     return 2 * (k + 2) * 2.0 ** -24 * t
 
 
@@ -468,11 +532,14 @@ _TABLE = [_P, _I64, _P]  # partial rows, row stride, gather ids
 _TAIL = [_I64, _I64, _I, _I, _P]  # n_rows, n_edges, C, H, stream
 _CHGNET_ARGTYPES = {
     "distmlip_chgnet_aggregate_smem_bytes": [_I, _I],
-    "distmlip_chgnet_row_projection_f32": [_P, _I64, _I, _P, _I, _P, _P, _P],
     "distmlip_chgnet_row_projection_plan": [_I64, _I, _I, _P],
-    "distmlip_chgnet_atom_conv_f32": _TABLE * 2 + [_P] * 9 + _TAIL,
-    "distmlip_chgnet_line_conv_f32": _TABLE * 2 + [_P] + _TABLE + [_P] * 7 + _TAIL,
 }
+for _suffix in ("_f32", "_bf16"):
+    _CHGNET_ARGTYPES.update({
+        "distmlip_chgnet_row_projection" + _suffix: [_P, _I64, _I, _P, _I, _P, _P, _P],
+        "distmlip_chgnet_atom_conv" + _suffix: _TABLE * 2 + [_P] * 9 + _TAIL,
+        "distmlip_chgnet_line_conv" + _suffix: _TABLE * 2 + [_P] + _TABLE + [_P] * 7 + _TAIL,
+    })
 
 
 def _fn(symbol: str, n_ptr: int):
@@ -514,21 +581,20 @@ def _check_index(name, what, x, e, device, dtypes=(torch.int32, torch.int64)):
                          f"{'/'.join(str(d) for d in dtypes)} on {device}")
 
 
-# TensorNet's kernels by float dtype: the C symbol's suffix and the launch
-# count's
-_TENSORNET_DTYPES = {torch.float32: ("_f32", ""), torch.bfloat16: ("_bf16", BF16)}
+# the kernels by float dtype: the C symbol's suffix and the launch count's
+_DTYPES = {torch.float32: ("_f32", ""), torch.bfloat16: ("_bf16", BF16)}
 
 
-def _tensornet_dtype(name, x):
+def _call_dtype(name, x):
     """The call's float dtype, from its first float tensor: float32 or
     bfloat16."""
-    if x.dtype not in _TENSORNET_DTYPES:
+    if x.dtype not in _DTYPES:
         raise TypeError(f"{name}: takes float32 or bfloat16, got {x.dtype}")
     return x.dtype
 
 
 def _launch(name, symbol, out, tensors, row_ptr, mask, channels):
-    symbol_suffix, count_suffix = _TENSORNET_DTYPES[out.dtype]
+    symbol_suffix, count_suffix = _DTYPES[out.dtype]
     stream = torch.cuda.current_stream(out.device).cuda_stream
     ptrs = [t.data_ptr() for t in tensors]
     err = _fn(symbol + symbol_suffix, len(ptrs) + 3)(
@@ -558,7 +624,7 @@ def tensornet_embed_aggregate_cuda(zij, w1, w2, w3, a_e, s_e, segment_ids,
     name = EMBED
     _require_cuda(name, zij, 2)
     e, channels = zij.shape
-    dev, dtype = zij.device, _tensornet_dtype(name, zij)
+    dev, dtype = zij.device, _call_dtype(name, zij)
     for x in (zij, w1, w2, w3):
         _check(name, x, (e, channels), dev, dtype)
     for x in (a_e, s_e):
@@ -598,7 +664,7 @@ def tensornet_interaction_aggregate_cuda(f, node_i, node_a, node_s, src,
     name = INTERACTION
     _require_cuda(name, f, 3)
     e, channels = f.shape[0], f.shape[1]
-    dev, dtype = f.device, _tensornet_dtype(name, f)
+    dev, dtype = f.device, _call_dtype(name, f)
     _check(name, f, (e, channels, 3), dev, dtype)
     _check_compact(name, node_i, node_a, node_s, channels, dev, dtype)
     _check_index(name, "src", src, e, dev)
@@ -638,7 +704,7 @@ def tensornet_interaction_backward_cuda(g, f, node_i, node_a, node_s, src,
     name = INTERACTION_BWD
     _require_cuda(name, f, 3)
     e, channels = f.shape[0], f.shape[1]
-    dev, dtype = f.device, _tensornet_dtype(name, f)
+    dev, dtype = f.device, _call_dtype(name, f)
     _check(name, f, (e, channels, 3), dev, dtype)
     n_node = _check_compact(name, node_i, node_a, node_s, channels, dev, dtype)
     _require_cuda(name, g, 4)
@@ -654,7 +720,7 @@ def tensornet_interaction_backward_cuda(g, f, node_i, node_a, node_s, src,
         perm, row_ptr = src_order(src, n_node, mask)
         dst32 = segment_ids.to(torch.int32).contiguous()
         stream = torch.cuda.current_stream(dev).cuda_stream
-        symbol_suffix, count_suffix = _TENSORNET_DTYPES[dtype]
+        symbol_suffix, count_suffix = _DTYPES[dtype]
         err = _interaction_bwd_fn(symbol_suffix)(
             g.data_ptr(), f.data_ptr(), node_i.data_ptr(), node_a.data_ptr(),
             node_s.data_ptr(), perm.data_ptr(), dst32.data_ptr(), row_ptr.data_ptr(),
@@ -678,19 +744,20 @@ def _interaction_bwd_fn(suffix):
     return fn
 
 
-def _check_gated_weights(name, weights, k1, channels, device):
+def _check_gated_weights(name, weights, k1, channels, device, dtype=torch.float32):
     """The gated MLP's 8 tensors with one hidden layer: w1 (K1, H), b1 (H),
-    w2 (H, C), b2 (C), for the core and then the gate. Returns H."""
+    w2 (H, C), b2 (C), for the core and then the gate, in the call's
+    ``dtype``. Returns H."""
     if len(weights) != 8:
         raise ValueError(f"{name}: the kernel takes a gated MLP with exactly one "
                          f"hidden layer (8 tensors), got {len(weights)} tensors")
     hidden = weights[0].shape[1] if weights[0].ndim == 2 else 0
     for half in (0, 4):
         w1, b1, w2, b2 = weights[half:half + 4]
-        _check(name, w1, (k1, hidden), device)
-        _check(name, b1, (hidden,), device)
-        _check(name, w2, (hidden, channels), device)
-        _check(name, b2, (channels,), device)
+        _check(name, w1, (k1, hidden), device, dtype)
+        _check(name, b1, (hidden,), device, dtype)
+        _check(name, w2, (hidden, channels), device, dtype)
+        _check(name, b2, (channels,), device, dtype)
     return hidden
 
 
@@ -723,19 +790,25 @@ def _projection_shape_error(name, k, m):
 
 
 def chgnet_row_projection_cuda(x, w, bias=None):
-    """Launch the row projection kernel: ``x`` (R, K), ``w`` (K, M) with
-    1 <= K <= 64 and M a multiple of 4 up to 256, ``bias`` (M,) or None,
-    float32 contiguous on one card, ``w`` and ``bias`` 16-byte aligned.
-    Returns (R, M) float32 ``x @ w (+ bias)``; the launch chooses its row
-    tile (``chgnet_projection_plan``). Raises ``ValueError`` for a shape
-    past the kernel's shared memory."""
+    """Launch the row projection kernel: ``x`` (R, K) float32 or bfloat16,
+    ``w`` (K, M) with 1 <= K <= 64 and M a multiple of 4 up to 256,
+    ``bias`` (M,) or None, ``w`` and ``bias`` float32 (the packed weights,
+    ``chgnet_pack_weights``), contiguous on one card and 16-byte aligned.
+    Returns (R, M) float32 ``x @ w (+ bias)``: a bf16 ``x`` is read as
+    bf16 and multiplied in float32 (launch count ``*_bf16``); the launch
+    chooses its row tile (``chgnet_projection_plan``). Raises
+    ``ValueError`` for a shape past the kernel's shared memory."""
     name = PROJECTION
     _require_cuda(name, x, 2)
     rows, k = x.shape
-    dev = x.device
-    _check(name, x, (rows, k), dev)
+    dev, dtype = x.device, _call_dtype(name, x)
+    _check(name, x, (rows, k), dev, dtype)
     _require_cuda(name, w, 2)
     m = w.shape[1]
+    for t in (w,) if bias is None else (w, bias):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: w and bias are the packed float32 weights, got "
+                            f"{t.dtype}")
     _check(name, w, (k, m), dev)
     if bias is not None:
         _check(name, bias, (m,), dev)
@@ -749,7 +822,8 @@ def chgnet_row_projection_cuda(x, w, bias=None):
         return y
     args = (x.data_ptr(), rows, k, w.data_ptr(), m, b_ptr or None, y.data_ptr(),
             current_stream_ptr(dev))
-    fn = _chgnet_fn("distmlip_chgnet_row_projection_f32")
+    symbol_suffix, count_suffix = _DTYPES[dtype]
+    fn = _chgnet_fn("distmlip_chgnet_row_projection" + symbol_suffix)
     if dev.index == torch.cuda.current_device():
         err = fn(*args)
     else:
@@ -757,7 +831,7 @@ def chgnet_row_projection_cuda(x, w, bias=None):
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launch_counts[name] += 1
+    launch_counts[name + count_suffix] += 1
     return y
 
 
@@ -779,11 +853,13 @@ def chgnet_projection_plan(rows: int, k: int, m: int, device=None):
 def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segment_ids,
                    num_segments, mask, channels, hidden, device):
     """Project the gathered segments' rows (``gathered``: (node rows, int32
-    ids) per gathered segment, in segment order), then launch the per-edge
-    kernel with the tables, the edge rows at ``edge_seg`` and ``extra``
-    (abw) after the segments."""
+    ids) per gathered segment, in segment order) into float32 tables, then
+    launch the per-edge kernel of ``edge``'s dtype with the tables, the
+    edge rows at ``edge_seg`` and ``extra`` (abw) after the segments; the
+    output in that dtype."""
     e = segment_ids.shape[0]
-    out = torch.empty((num_segments, channels), dtype=torch.float32, device=device)
+    symbol_suffix, count_suffix = _DTYPES[edge.dtype]
+    out = torch.empty((num_segments, channels), dtype=edge.dtype, device=device)
     if e == 0 or num_segments == 0 or channels == 0:
         return out.zero_()
     if e >= 2 ** 31 - 1:
@@ -806,13 +882,13 @@ def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segme
         ids32 = segment_ids.to(torch.int32).contiguous()
         row_ptr = csr_row_offsets(segment_ids, num_segments, mask)
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _chgnet_fn(symbol)(
+        err = _chgnet_fn(symbol + symbol_suffix)(
             *ptrs, *extra, packed.w1e.data_ptr(), packed.w2.data_ptr(), packed.b2.data_ptr(),
             row_ptr.data_ptr(), ids32.data_ptr(), None if mask is None else mask.data_ptr(),
             out.data_ptr(), num_segments, e, channels, hidden, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launch_counts[name] += 1
+    launch_counts[name + count_suffix] += 1
     return out
 
 
@@ -822,23 +898,25 @@ def chgnet_atom_conv_aggregate_cuda(node_src, src, node_dst, dst, edge, abw, wei
     gathered at ``src``, ``dst`` (E,) int32/int64; ``edge`` (E, C);
     ``abw`` (E, C) or None; ``weights`` the gated MLP's 8 tensors with
     w1 (3C, H); ``segment_ids`` (E,) nondecreasing (not checked: it would
-    cost a device sync); ``mask`` (E,) bool or None. float32 contiguous,
-    C and H at most 64. One row projection (two when ``node_src`` and
-    ``node_dst`` are different tensors), then the per-edge kernel. Returns
-    (num_segments, C) float32."""
+    cost a device sync); ``mask`` (E,) bool or None. Contiguous, all
+    float32 or all bfloat16 (a bf16 call: float32 tables and weights
+    inside, fp32 arithmetic, each output rounded once), C and H at most 64.
+    One row projection (two when ``node_src`` and ``node_dst`` are
+    different tensors), then the per-edge kernel. Returns (num_segments,
+    C) in the inputs' dtype."""
     name = ATOM_CONV
     _require_cuda(name, edge, 2)
     e, channels = edge.shape
-    dev = edge.device
+    dev, dtype = edge.device, _call_dtype(name, edge)
     for x in (edge,) + (() if abw is None else (abw,)):
-        _check(name, x, (e, channels), dev)
+        _check(name, x, (e, channels), dev, dtype)
     for x in (node_src, node_dst):
-        _check(name, x, (x.shape[0], channels), dev)
+        _check(name, x, (x.shape[0], channels), dev, dtype)
     src32 = _index32(name, "src", src, e, dev)
     dst32 = src32 if dst is src else _index32(name, "dst", dst, e, dev)
     mask = _ids_and_mask(name, segment_ids, mask, e, dev)
-    hidden = _check_gated_weights(name, weights, 3 * channels, channels, dev)
-    return _launch_chgnet(name, "distmlip_chgnet_atom_conv_f32", 2,
+    hidden = _check_gated_weights(name, weights, 3 * channels, channels, dev, dtype)
+    return _launch_chgnet(name, "distmlip_chgnet_atom_conv", 2,
                           [(node_src, src32), (node_dst, dst32)], edge,
                           [None if abw is None else abw.data_ptr()], weights, segment_ids,
                           int(num_segments), mask, channels, hidden, dev)
@@ -851,23 +929,24 @@ def chgnet_line_aggregate_cuda(bond_src, line_src, bond_dst, line_dst, angle, no
     gathered at ``line_src``, ``line_dst`` (L,) int32/int64; ``angle``
     (L, C); ``node`` (N, C) gathered at ``center`` (L,); ``weights`` the
     gated MLP's 8 tensors with w1 (4C, H); ``segment_ids`` (L,)
-    nondecreasing; ``mask`` (L,) bool or None. float32 contiguous, C and H
-    at most 64. Two row projections (the bond rows, one pass when
-    ``bond_src`` and ``bond_dst`` are one tensor, and the atom rows), then
-    the per-edge kernel. Returns (num_segments, C) float32."""
+    nondecreasing; ``mask`` (L,) bool or None. Contiguous, all float32 or
+    all bfloat16 (as the atom conv), C and H at most 64. Two row
+    projections (the bond rows, one pass when ``bond_src`` and
+    ``bond_dst`` are one tensor, and the atom rows), then the per-edge
+    kernel. Returns (num_segments, C) in the inputs' dtype."""
     name = LINE_CONV
     _require_cuda(name, angle, 2)
     e, channels = angle.shape
-    dev = angle.device
-    _check(name, angle, (e, channels), dev)
+    dev, dtype = angle.device, _call_dtype(name, angle)
+    _check(name, angle, (e, channels), dev, dtype)
     for x in (bond_src, bond_dst, node):
-        _check(name, x, (x.shape[0], channels), dev)
+        _check(name, x, (x.shape[0], channels), dev, dtype)
     ls32 = _index32(name, "line_src", line_src, e, dev)
     ld32 = _index32(name, "line_dst", line_dst, e, dev)
     ctr32 = _index32(name, "center", center, e, dev)
     mask = _ids_and_mask(name, segment_ids, mask, e, dev)
-    hidden = _check_gated_weights(name, weights, 4 * channels, channels, dev)
-    return _launch_chgnet(name, "distmlip_chgnet_line_conv_f32", 2,
+    hidden = _check_gated_weights(name, weights, 4 * channels, channels, dev, dtype)
+    return _launch_chgnet(name, "distmlip_chgnet_line_conv", 2,
                           [(bond_src, ls32), (bond_dst, ld32), (node, ctr32)], angle, [],
                           weights, segment_ids, int(num_segments), mask, channels, hidden,
                           dev)
@@ -967,5 +1046,5 @@ def _line_conv_cuda(items, weights, segment_ids, num_segments, mask):
 TENSORNET_EMBED = EdgeMessage(EMBED, tensornet_embed_message, _embed_cuda, bf16=True)
 TENSORNET_INTERACTION = EdgeMessage(INTERACTION, tensornet_interaction_message,
                                     _interaction_cuda, _interaction_backward_cuda, bf16=True)
-CHGNET_ATOM_CONV = EdgeMessage(ATOM_CONV, chgnet_atom_message, _atom_conv_cuda)
-CHGNET_LINE_CONV = EdgeMessage(LINE_CONV, chgnet_line_message, _line_conv_cuda)
+CHGNET_ATOM_CONV = EdgeMessage(ATOM_CONV, chgnet_atom_message, _atom_conv_cuda, bf16=True)
+CHGNET_LINE_CONV = EdgeMessage(LINE_CONV, chgnet_line_message, _line_conv_cuda, bf16=True)

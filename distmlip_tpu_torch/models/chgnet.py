@@ -27,13 +27,17 @@ Skin-shell edges and bonds (beyond the cutoffs, kept for graph reuse in
 MD) are masked out of every basis and message (``in_r``, ``b_real``,
 ``line_ok``), as the JAX model does.
 
-Not ported yet (raises ``NotImplementedError``): ``dtype="bfloat16"``,
-ROADMAP.md A6b's second half (the bf16 variants of its B2 kernels and of
-the row projection, and ``_trunk``'s dtype policy; the dispatcher's
-fp32-view rules are in place since TensorNet's bf16). The model declares
-the compute-dtype switch, as the JAX one does, so the global
-``set_compute_dtype("bfloat16")`` reaches this raise instead of silently
-running float32.
+``dtype="bfloat16"`` (``distmlip_tpu/models/chgnet.py:190-310``): the
+features, messages and GEMMs run in bf16, the parameters cast but for the
+basis frequencies, ``sitewise``, ``final``, ``species_ref`` and
+``data_std``; geometry (``vec``, ``d``, the bond geometry, the cosines and
+``theta``) stays in the positions' dtype, and the bases ``rbf``, ``rbf3``
+and the Fourier expansion are cast after their masks. The sitewise readout
+takes the features in float32 and ``_trunk`` returns them in float32, so
+the readouts and the magmoms are float32. On the card both aggregations
+launch the bf16 variants of their kernels (bf16 rows in, fp32 arithmetic
+and accumulation, one rounding an output element; the row projections'
+tables fp32); the chunked backward keeps the JAX dispatcher's fp32 views.
 """
 
 from __future__ import annotations
@@ -44,8 +48,8 @@ import torch
 
 from ..kernels import CHGNET_ATOM_CONV, CHGNET_LINE_CONV, Gather, fused_edge_aggregate
 from ..ops import radial
-from ..ops.nn import (embedding, gated_mlp, gated_mlp_init, gated_mlp_weights, linear,
-                      linear_init, mlp, mlp_init)
+from ..ops.nn import (cast_params_subtrees, embedding, gated_mlp, gated_mlp_init,
+                      gated_mlp_weights, linear, linear_init, mlp, mlp_init)
 from ..utils.checkpoint import as_list
 
 
@@ -69,7 +73,7 @@ class CHGNetConfig:
     final_hidden: tuple | None = None        # default (units, units)
     num_site_targets: int = 1                # sitewise_readout width (magmom)
     use_bond_graph: bool = True
-    dtype: str = "float32"
+    dtype: str = "float32"    # compute dtype: "float32" or "bfloat16"
 
     @property
     def angle_dim(self) -> int:
@@ -88,14 +92,19 @@ class CHGNetConfig:
         return self.final_hidden if self.final_hidden is not None else (self.units, self.units)
 
 
+# the parameter subtrees that stay float32 at a bf16 compute dtype: the basis
+# frequencies, the readout heads and the reference energies
+# (distmlip_tpu/models/chgnet.py:196-204)
+KEEP_FP32 = ("freq_bond", "freq_three", "freq_angle", "sitewise", "final", "species_ref",
+             "data_std")
+
+
 class CHGNet:
-    supports_compute_dtype = True  # cfg.dtype is the JAX model's switch
+    supports_compute_dtype = True  # _trunk honours cfg.dtype="bfloat16"
 
     def __init__(self, config: CHGNetConfig = CHGNetConfig()):
-        if config.dtype != "float32":
-            raise NotImplementedError(
-                f"CHGNet dtype={config.dtype!r}: only float32 is ported; "
-                "bfloat16 for CHGNet is ROADMAP.md A6b")
+        if config.dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"CHGNet dtype={config.dtype!r}: float32 or bfloat16")
         self.cfg = config
 
     # ---- parameters ----
@@ -181,6 +190,12 @@ class CHGNet:
         BEFORE it, matgl's ordering)."""
         cfg = self.cfg
         C = cfg.units
+        # features and GEMMs in the compute dtype; geometry, the basis
+        # frequencies and the readout heads in the positions' dtype
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else positions.dtype
+        fp = params
+        if cfg.dtype == "bfloat16":
+            params = cast_params_subtrees(params, dtype, keep_fp32=KEEP_FP32)
         atom_blocks = as_list(params["atom_blocks"])
         bond_blocks = as_list(params["bond_blocks"])
 
@@ -191,7 +206,8 @@ class CHGNet:
         # skin-shell edges (cutoff < d <= cutoff + skin) are not in matgl's
         # graph: masked out of the basis and of every message
         in_r = lg.edge_mask & (d <= cfg.cutoff)
-        rbf = self._expansion(d, params["freq_bond"], cfg.cutoff) * in_r[:, None].to(d.dtype)
+        rbf = (self._expansion(d, fp["freq_bond"], cfg.cutoff)
+               * in_r[:, None].to(d.dtype)).to(dtype)
 
         v = embedding(params["atom_emb"], lg.species.long())          # (N, C)
         e = mlp(as_list(params["bond_emb"]), rbf)                      # (E, C)
@@ -210,8 +226,8 @@ class CHGNet:
             # are excluded like skin-shell edges
             b_real = (b_d > 1e-6) & (b_d <= cfg.bond_cutoff)
             rbf3 = self._expansion(torch.where(b_d > 1e-6, b_d, torch.ones_like(b_d)),
-                                   params["freq_three"], cfg.bond_cutoff)
-            rbf3 = rbf3 * b_real[:, None].to(rbf3.dtype)
+                                   fp["freq_three"], cfg.bond_cutoff)
+            rbf3 = (rbf3 * b_real[:, None].to(rbf3.dtype)).to(dtype)
             tbw = linear(params["three_bond_w"], rbf3) if "three_bond_w" in params else None
 
             # a line edge is live only when both bonds are real
@@ -227,7 +243,7 @@ class CHGNet:
             cos_t = torch.clamp(cos_t, -1.0 + 1e-6, 1.0 - 1e-6)
             theta = torch.arccos(cos_t)
             a = mlp(as_list(params["angle_emb"]),
-                    radial.matgl_fourier_expansion(theta, params["freq_angle"]))  # (L, C)
+                    radial.matgl_fourier_expansion(theta, fp["freq_angle"]).to(dtype))  # (L, C)
             b = torch.zeros((lg.b_cap, C), dtype=e.dtype, device=e.device)
         else:
             vx = lg.halo_exchange(v)
@@ -249,12 +265,12 @@ class CHGNet:
             else:
                 vx = lg.halo_exchange(v)
 
-        # sitewise readout BEFORE the last atom conv
-        site = linear(params["sitewise"], vx)
+        # sitewise readout BEFORE the last atom conv, on the float32 head
+        site = linear(fp["sitewise"], vx.to(positions.dtype))
 
         # final atom conv; the readouts use owned rows only
         v, e = self._atom_conv(atom_blocks[-1], lg, v, vx, e, abw, bbw, in_r)
-        return v, site
+        return v.to(positions.dtype), site
 
     # ---- layers ----
     def _atom_conv(self, blk, lg, v, vx, e, abw, bbw, in_r):

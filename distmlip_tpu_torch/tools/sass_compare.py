@@ -11,7 +11,8 @@ Compiles each source to a cubin with the port's flags (``kernels/build.py``,
 ``-cubin`` in place of ``-shared``), disassembles it (``cuobjdump -sass``)
 and, for every kernel of the first source, finds the kernel of the second
 whose demangled name matches up to its template arguments (``float``
-instantiations are matched to untemplated kernels), then prints the
+instantiations are matched to untemplated kernels, and a leading
+``float`` storage type to the same kernel without it), then prints the
 instruction counts and whether the instruction text is the same with
 addresses and encodings stripped. A kernel whose code a change must not
 move (a float32 instantiation beside a new bfloat16 one) shows
@@ -55,10 +56,15 @@ def sass(source: str, workdir: str) -> dict:
 
 def base_name(name: str) -> tuple:
     """(kernel name without return type, namespace or arguments, its
-    template argument, ``float`` where it has none)."""
-    head = name.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
-    m = re.match(r"(\w+)(?:<(.+)>)?$", head.split("::")[-1])
-    return m.group(1), m.group(2) or "float"
+    template arguments, ``float`` where it has none). A leading ``float``
+    storage-type argument is dropped from a longer list, so
+    ``k<float, true, 64>`` matches the untyped ``k<true, 64>``."""
+    head = name.replace("(anonymous namespace)::", "").split("(")[0]
+    m = re.match(r"(?:void )?(?:\w+::)*(\w+)(?:<(.+)>)?$", head.strip())
+    args = m.group(2) or "float"
+    if args.startswith("float, "):
+        args = args[len("float, "):]
+    return m.group(1), args
 
 
 def main(argv=None) -> int:

@@ -15,6 +15,9 @@
 - CHGNet at the matgl MPtrj layout (89 species, 64 units, 31 RBF,
   max_f 4, 4 blocks, cutoff 6.0 Å, bond cutoff 3.0 Å; the full-size layout
   that ``tests/test_convert_chgnet.py:328-342`` converts), float32.
+  ``CHGNET_BF16_KW`` is the same at ``dtype="bfloat16"``: the reference's
+  own compute-dtype switch on that layout
+  (``distmlip_tpu/models/chgnet.py:179``).
 
 - eSCN at the repo's single-chip eSCN/UMA configuration
   (``examples/05_scale_ladder.py:188-190``: channels 128, l_max 4, 2
@@ -59,6 +62,7 @@ ESCN_INFO = {"charge": 1, "spin": 1, "dataset": 2}
 MACE_BF16_KW = dict(MACE_KW, dtype="bfloat16")
 ESCN_BF16_KW = dict(ESCN_KW, dtype="bfloat16")
 TENSORNET_BF16_KW = dict(TENSORNET_KW, dtype="bfloat16")
+CHGNET_BF16_KW = dict(CHGNET_KW, dtype="bfloat16")
 
 
 def bench_atoms(reps: int = 8, seed: int = 0):

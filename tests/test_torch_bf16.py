@@ -1,5 +1,5 @@
-"""bfloat16 compute for MACE, eSCN and TensorNet: the port against the JAX
-package's ``compute_dtype="bfloat16"`` path, on the CPU.
+"""bfloat16 compute for MACE, eSCN, TensorNet and CHGNet: the port against
+the JAX package's ``compute_dtype="bfloat16"`` path, on the CPU.
 
 Numerical contract (the JAX package's): features, messages and GEMMs in
 bf16; geometry, site energies and the energy sum in float32; every scatter
@@ -28,17 +28,18 @@ stress by autograd w.r.t. float32 positions and strain.
   bar (``tests/test_calculators.py``: 5e-3 eV/atom, dF_rel < 0.1; for
   TensorNet its matgl-family bar, 1e-2 eV/atom and dF_rel < 0.15).
 - (e) Routing: the global switch leaves models without a compute-dtype
-  switch (the pair potential) in float32 and reaches MACE, eSCN and
-  TensorNet; CHGNet raises naming ROADMAP.md A6b, at the model and where a
-  bf16 tensor reaches one of its kernels, while TensorNet's bf16 tensors
-  take their kernels' bf16 launch route.
+  switch (the pair potential) in float32 and reaches MACE, eSCN, TensorNet
+  and CHGNet; TensorNet's and CHGNet's bf16 tensors take their kernels'
+  bf16 launch route (CHGNet's row projections reading bf16 rows into
+  float32 tables), and float16 or a call mixing float32 and bf16 raises.
 
 Both packages get the same seeded float32 parameters as numpy arrays
 (``params_from_numpy``); each model casts them inside its energy function.
 One JAX evaluation per model and P, shared by the module. (c) and (d) run
 in ``tests/test_torch_bf16_mace.py`` and ``tests/test_torch_bf16_escn.py``
-through the helpers here, and TensorNet's in
-``tests/test_torch_bf16_tensornet.py``, one file per family so that the
+through the helpers here, TensorNet's in
+``tests/test_torch_bf16_tensornet.py`` and CHGNet's (with magmoms) in
+``tests/test_torch_bf16_chgnet.py``, one file per family so that the
 families' JAX compiles (~30 s each) run on separate test workers.
 """
 
@@ -85,6 +86,9 @@ FAMILIES = {
     # tests/test_calculators.py:563-565's bf16 widths
     "tensornet": ("TensorNet", dict(num_species=8, units=16, num_rbf=6, num_layers=2,
                                     cutoff=3.4), {}),
+    # tests/test_calculators.py:567-569's bf16 widths
+    "chgnet": ("CHGNet", dict(num_species=8, units=16, num_rbf=6, num_angle=4, num_blocks=2,
+                              cutoff=3.4, bond_cutoff=2.8), {}),
 }
 SPECIES_MAP = np.arange(0, 10, dtype=np.int32) - 1  # Z - 1
 
@@ -180,40 +184,53 @@ def test_bf16_packing_and_the_kernel_route(monkeypatch):
 
 
 def test_b2_kernels_refuse_bf16(monkeypatch):
-    """A bf16 tensor on a CHGNet B2 kernel's route raises, naming A6b, and
-    is never rounded up to float32 silently; TensorNet's bf16 tensors take
-    their kernels' bf16 launch route (the bf16 C symbol, a bf16 output,
-    the ``*_bf16`` launch count), and a call that mixes float32 and bf16
-    raises. The C functions are stood in by a recorder (the wrappers run as
-    on the card, up to the launch)."""
+    """bf16 tensors on a B2 kernel's route take its bf16 launch route,
+    TensorNet's and CHGNet's alike (the bf16 C symbol, a bf16 output, the
+    ``*_bf16`` launch count; CHGNet's row projections the bf16 symbol too,
+    once per distinct gathered tensor) and are never rounded up to float32
+    silently; float16, and a call that mixes float32 and bf16, still raise.
+    The C functions are stood in by a recorder (the wrappers run as on the
+    card, up to the launch)."""
     from distmlip_tpu_torch.kernels import edge_aggregate
 
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: None)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda dev=None: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(edge_aggregate, "current_stream_ptr", lambda dev: 0)
     symbols = []
 
     def fake(symbol, n_ptr=None):
+        if symbol == "distmlip_chgnet_aggregate_smem_bytes":
+            return lambda *args: 1024
         return lambda *args: symbols.append(symbol) or 0
 
     monkeypatch.setattr(edge_aggregate, "_fn", fake)
+    monkeypatch.setattr(edge_aggregate, "_chgnet_fn", fake)
     monkeypatch.setattr(edge_aggregate, "_interaction_bwd_fn",
                         lambda suffix: fake("distmlip_tensornet_interaction_bwd" + suffix))
     e, c = 8, 4
     ids = torch.zeros(e, dtype=torch.int32)
     bf = lambda *shape: torch.zeros(shape, dtype=torch.bfloat16)  # noqa: E731
     weights = tuple(bf(*s) for s in ((3 * c, c), (c,), (c, c), (c,)) * 2)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        K.fused_edge_aggregate(K.CHGNET_ATOM_CONV, [K.Gather(bf(3, c), ids), K.Gather(
-            bf(3, c), ids), bf(e, c)], ids, 2, weights=weights)
-    with pytest.raises(NotImplementedError, match="A6b"):
-        K.fused_edge_aggregate(K.CHGNET_LINE_CONV, [K.Gather(bf(3, c), ids), K.Gather(
-            bf(3, c), ids), bf(e, c), K.Gather(bf(3, c), ids)], ids, 2,
-            weights=tuple(w if w.ndim == 1 or w.shape[0] != 3 * c else bf(4 * c, c)
-                          for w in weights))
-    assert symbols == []
+    line_weights = tuple(w if w.ndim == 1 or w.shape[0] != 3 * c else bf(4 * c, c)
+                         for w in weights)
     before = dict(K.launch_counts)
+    v = bf(3, c).requires_grad_(True)
+    atom = K.fused_edge_aggregate(K.CHGNET_ATOM_CONV, [K.Gather(v, ids), K.Gather(v, ids),
+                                                       bf(e, c), bf(e, c)], ids, 2,
+                                  weights=weights)
+    (gv,) = torch.autograd.grad(atom.float().sum(), (v,))  # the plain chunked recompute
+    b = bf(5, c)  # one bond tensor at both ends, as the model passes it
+    line = K.fused_edge_aggregate(K.CHGNET_LINE_CONV, [K.Gather(b, ids), K.Gather(b, ids),
+                                                       bf(e, c), K.Gather(bf(3, c), ids)],
+                                  ids, 2, weights=line_weights)
+    assert atom.dtype == line.dtype == gv.dtype == torch.bfloat16
+    assert symbols == ["distmlip_chgnet_row_projection_bf16", "distmlip_chgnet_atom_conv_bf16",
+                       "distmlip_chgnet_row_projection_bf16",
+                       "distmlip_chgnet_row_projection_bf16", "distmlip_chgnet_line_conv_bf16"]
+    symbols.clear()
     embed = [bf(e, c) for _ in range(4)] + [bf(e, 3, 3, 1) for _ in range(2)]
     out = K.fused_edge_aggregate(K.TENSORNET_EMBED, embed, ids, 2)
     f, node_i, node_a, node_s = (bf(e, c, 3).requires_grad_(True), bf(3, c).requires_grad_(True),
@@ -228,11 +245,29 @@ def test_b2_kernels_refuse_bf16(monkeypatch):
     got = {k: K.launch_counts[k] - before[k] for k in before}
     assert got == dict({k: 0 for k in got}, tensornet_embed_aggregate_bf16=1,
                        tensornet_interaction_aggregate_bf16=1,
-                       tensornet_interaction_backward_bf16=1)
+                       tensornet_interaction_backward_bf16=1,
+                       chgnet_atom_conv_aggregate_bf16=1, chgnet_line_aggregate_bf16=1,
+                       chgnet_row_projection_bf16=3)
+    symbols.clear()
     with pytest.raises(TypeError, match="one dtype"):
         K.fused_edge_aggregate(K.TENSORNET_EMBED, embed[:5] + [embed[5].float()], ids, 2)
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         K.fused_edge_aggregate(K.TENSORNET_EMBED, [x.half() for x in embed], ids, 2)
+    with pytest.raises(TypeError, match="one dtype"):  # float32 abw beside bf16 rows
+        K.fused_edge_aggregate(K.CHGNET_ATOM_CONV, [K.Gather(v, ids), K.Gather(v, ids),
+                                                    bf(e, c), bf(e, c).float()], ids, 2,
+                               weights=weights)
+    with pytest.raises(TypeError, match="one dtype"):  # float32 weights beside bf16 rows
+        K.fused_edge_aggregate(K.CHGNET_ATOM_CONV, [K.Gather(v, ids), K.Gather(v, ids),
+                                                    bf(e, c), bf(e, c)], ids, 2,
+                               weights=tuple(w.float() for w in weights))
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        K.fused_edge_aggregate(K.CHGNET_LINE_CONV, [K.Gather(bf(5, c).half(), ids), K.Gather(
+            bf(5, c).half(), ids), bf(e, c).half(), K.Gather(bf(3, c).half(), ids)], ids, 2,
+            weights=tuple(w.half() for w in line_weights))
+    with pytest.raises(TypeError, match="packed float32"):
+        K.chgnet_row_projection_cuda(bf(3, c), bf(c, 8))
+    assert symbols == []
 
 
 # ---- the ops the models cast and gather with --------------------------------
@@ -289,7 +324,7 @@ def _jax_params(family):
     rng = np.random.default_rng(7)
     ref = params["species_ref"]["w"]
     params["species_ref"]["w"] = (-1.0 - rng.random(ref.shape)).astype(ref.dtype)
-    if family == "tensornet":
+    if family in ("tensornet", "chgnet"):
         # the random readout gives forces of a few meV/Å; a data_std off its
         # default of 1 lifts them past the comparison's 1e-2 floor
         params["data_std"] = np.array(10.0, np.float32)
@@ -304,7 +339,8 @@ def _models(family):
 
 @pytest.fixture(scope="module")
 def results():
-    """Per (family, side, dtype, P): energy, forces, stress, made once."""
+    """Per (family, side, dtype, P): energy, forces, stress (and CHGNet's
+    magmoms, from the same forward), made once."""
     out = {}
 
     def get(family, side, dtype, P):
@@ -315,19 +351,21 @@ def results():
             params, (cart, lat, numbers) = out[family]
             info = dict(FAMILIES[family][2])
             jmodel, model = _models(family)
+            kw = {"compute_magmom": True} if family == "chgnet" else {}
             if side == "jax":
                 pot = JDistPotential(jmodel, params, num_partitions=P, species_map=SPECIES_MAP,
-                                     kernels=False, compute_dtype=dtype)
+                                     kernels=False, compute_dtype=dtype, **kw)
                 res = pot.calculate(JAtoms(numbers=numbers, positions=cart, cell=lat,
                                            info=info))
             else:
                 pot = DistPotential(model, params, num_partitions=P, species_map=SPECIES_MAP,
-                                    device="cpu", compute_dtype=dtype)
+                                    device="cpu", compute_dtype=dtype, **kw)
                 assert pot.model.cfg.dtype == dtype
                 res = pot.calculate(Atoms(numbers=numbers, positions=cart.copy(), cell=lat,
                                           info=info))
                 assert pot.last_stats["num_partitions"] == P
-            out[key] = {k: res[k] for k in ("energy", "forces", "stress")}
+            out[key] = {k: np.asarray(res[k]) if k == "magmoms" else res[k]
+                        for k in ("energy", "forces", "stress", "magmoms") if k in res}
         return out[key]
 
     return get
@@ -367,6 +405,13 @@ def check_matches_jax(results, family, P):
                   f"bar {2 * f:.3g} (twice it) in place of {b}")
     got = _deltas(port, ref, n)
     assert all(g <= b for g, b in zip(got, bars)), (got, bars, floor)
+    if "magmoms" in ref:  # CHGNet: max |dm| <= 0.05 max |m|, or twice JAX's own gap
+        def dm(a, b):
+            return float(np.abs(a["magmoms"] - b["magmoms"]).max() / np.abs(b["magmoms"]).max())
+
+        assert np.isfinite(port["magmoms"]).all() and np.abs(ref["magmoms"]).max() > 1e-3
+        m_floor = dm(results(family, "jax", "bfloat16", 1), results(family, "jax", "bfloat16", 2))
+        assert dm(port, ref) <= max(0.05, 2 * m_floor), (dm(port, ref), m_floor)
 
 
 def check_against_float32(results, family, de_bar=5e-3, df_bar=0.1):
@@ -401,7 +446,7 @@ def _small_structures(family, seed=5):
     return out
 
 
-@pytest.mark.parametrize("family", ["mace", "escn", "tensornet"])
+@pytest.mark.parametrize("family", ["mace", "escn", "tensornet", "chgnet"])
 def test_bf16_batched_matches_dist_potential(family):
     """``BatchedPotential`` over a bf16 model (it runs the model's own
     dtype, as the JAX engine inherits it) against ``DistPotential`` at bf16
@@ -464,9 +509,9 @@ def test_compute_dtype_routing():
                                             num_blocks=2))
     with pytest.raises(ValueError, match="compute"):
         DistPotential(pair, pair.init(), device="cpu", compute_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="A6b"):
-        with_compute_dtype(chg, "bfloat16")
-    for model in (mace, tn):
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        with_compute_dtype(chg, "float16")
+    for model in (mace, tn, chg):
         assert with_compute_dtype(model, "bfloat16").cfg.dtype == "bfloat16"
         assert with_compute_dtype(model, "float32") is model
     # the global switch, as the JAX package's DistPotential reads it
@@ -477,11 +522,9 @@ def test_compute_dtype_routing():
         pot = DistPotential(pair, pair.init(), device="cpu")
         assert pot.model is pair and pot.compute_dtype == "float32"
         assert JDistPotential(jpair, jpair.init(), num_partitions=1).model is jpair
-        for model in (mace, tn):
+        for model in (mace, tn, chg):
             pot = DistPotential(model, model.init(0), device="cpu")
             assert pot.model.cfg.dtype == pot.compute_dtype == "bfloat16"
-        with pytest.raises(NotImplementedError, match="A6b"):
-            DistPotential(chg, chg.init(0), device="cpu")
     finally:
         distmlip_tpu_torch.set_compute_dtype("float32")
         distmlip_tpu.set_compute_dtype("float32")

@@ -292,8 +292,10 @@ def test_magmoms_ride_the_energy_forward(jax_case):
 
 
 def test_unported_options_and_workload():
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        CHGNet(CHGNetConfig(**CFG, dtype="bfloat16"))
+    # bfloat16 is ported (tests/test_torch_bf16_chgnet.py); other dtypes raise
+    assert CHGNet(CHGNetConfig(**CFG, dtype="bfloat16")).cfg.dtype == "bfloat16"
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        CHGNet(CHGNetConfig(**CFG, dtype="float16"))
     model = CHGNet(CHGNetConfig(**CFG))
     with pytest.raises(NotImplementedError, match="fused_site_readout"):
         DistPotential(model, model.init(0), device="cpu", compute_magmom=True,

@@ -1691,9 +1691,12 @@ def test_so2_conv_bf16_refuses_mixed_dtypes_on_card(card):
 
 
 def _bf16_model(family):
-    from distmlip_tpu_torch.models import (ESCN, ESCNConfig, MACE, MACEConfig, TensorNet,
-                                           TensorNetConfig)
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
+                                           MACEConfig, TensorNet, TensorNetConfig)
 
+    if family == "chgnet":
+        return CHGNet(CHGNetConfig(num_species=4, units=16, num_rbf=6, num_blocks=3, cutoff=3.0,
+                                   bond_cutoff=2.6, dtype="bfloat16"))
     if family == "mace":
         return MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2, hidden_lmax=1,
                                correlation=2, cutoff=3.0, edge_chunk=128, dtype="bfloat16"))
@@ -1710,7 +1713,7 @@ def _bf16_close(got, want, tag):
     the CPU (each rounds its bf16 values at other ulps where the fp32 sums
     straddle a boundary, and the model carries the flips on): the bf16 bar
     of ``tests/test_torch_bf16.py``, |dE| / atom <= 1e-3 eV and max |dF|,
-    |dS| <= 0.05 of the largest."""
+    |dS| (and CHGNet's |dm|) <= 0.05 of the largest."""
     n = len(want["forces"])
     assert abs(got["energy"] - want["energy"]) <= 1e-3 * n, tag
     f_scale = np.abs(want["forces"]).max()
@@ -1718,11 +1721,15 @@ def _bf16_close(got, want, tag):
     s_scale = np.abs(want["stress"]).max()
     assert np.abs(got["stress"] - want["stress"]).max() <= 0.05 * s_scale, tag
     assert got["forces"].dtype == np.float32 and isinstance(got["energy"], float)
+    if "magmoms" in want:
+        m_scale = np.abs(want["magmoms"]).max()
+        assert np.abs(got["magmoms"] - want["magmoms"]).max() <= 0.05 * m_scale, tag
+        assert got["magmoms"].dtype == np.float32
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", [1, 2])
-@pytest.mark.parametrize("family", ["mace", "escn", "tensornet"])
+@pytest.mark.parametrize("family", ["mace", "escn", "tensornet", "chgnet"])
 def test_bf16_on_card_launches_the_bf16_kernels(card, family, P):
     """``DistPotential(compute_dtype="bfloat16")`` on the card launches the
     bf16 kernels, and only them, as many times as the float32 path launches
@@ -1738,7 +1745,9 @@ def test_bf16_on_card_launches_the_bf16_kernels(card, family, P):
     model = _bf16_model(family)
     f32 = type(model)(type(model.cfg)(**dict(vars(model.cfg), dtype="float32")))
     params = model.init(0)
-    pot = DistPotential(f32, params, device=card, num_partitions=P, compute_dtype="bfloat16")
+    kw = {"compute_magmom": True} if family == "chgnet" else {}
+    pot = DistPotential(f32, params, device=card, num_partitions=P, compute_dtype="bfloat16",
+                        **kw)
     assert pot.model.cfg.dtype == "bfloat16" and pot.compute_dtype == "bfloat16"
     before = dict(launch_counts)
     gpu = pot.calculate(atoms)
@@ -1750,6 +1759,12 @@ def test_bf16_on_card_launches_the_bf16_kernels(card, family, P):
         want.update(tensornet_embed_aggregate_bf16=P,
                     tensornet_interaction_aggregate_bf16=layers * P,
                     tensornet_interaction_backward_bf16=layers * P)
+    elif family == "chgnet":  # the atom conv once per segment, the line graph one
+        blocks = model.cfg.num_blocks
+        want.update(chgnet_atom_conv_aggregate_bf16=P * blocks,
+                    chgnet_line_aggregate_bf16=blocks - 1,
+                    chgnet_row_projection_bf16=(1 if P == 1 else 3) * blocks
+                    + 2 * (blocks - 1))
     elif P == 2:
         k = chunk_layout(2 * st["e_cap"], model.cfg.edge_chunk, 2 * st["e_split"])[2]
     else:
@@ -1760,10 +1775,10 @@ def test_bf16_on_card_launches_the_bf16_kernels(card, family, P):
         want.update(so2_conv_bf16=model.cfg.num_layers * 3 * k,
                     segment_sum_bf16=(1 + model.cfg.num_layers) * 2 * k)
     assert got == want
-    plain = DistPotential(model, params, device=card, num_partitions=P, kernels=False)
+    plain = DistPotential(model, params, device=card, num_partitions=P, kernels=False, **kw)
     _bf16_close(gpu, plain.calculate(atoms), "kernels vs plain on the card")
     assert {k: launch_counts[k] - before[k] for k in launch_counts} == want
-    cpu = DistPotential(model, params, device="cpu", num_partitions=P).calculate(atoms)
+    cpu = DistPotential(model, params, device="cpu", num_partitions=P, **kw).calculate(atoms)
     _bf16_close(gpu, cpu, "card vs CPU")
 
 
@@ -1865,13 +1880,155 @@ def test_interaction_backward_bf16_kernel_matches_plain_on_card(card, name):
         assert torch.equal(x, y)
 
 
+def _chgnet_case_bf16_on_card(card, name, which, n_node=23):
+    """``_chgnet_case_on_card``'s inputs and weights rounded to bf16 once,
+    the node (bond) tensor one at both gathered ends, as the model passes
+    it."""
+    seed, e, n, pad, im, hi, c, h = CHGNET_CASES[name]
+    ids, mask, n = sorted_case(seed, e, n, pad, im, hi)
+    arrays, weights = chgnet_inputs(seed, which, len(ids), c, h, n_node=n_node)
+    to = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    t = [to(x).bfloat16() if x.dtype == np.float32 else to(x) for x in arrays]
+    t[2] = t[0]
+    return t, [to(w).bfloat16() for w in weights], to(ids), to(mask), n
+
+
+def _upcast(arrays, weights):
+    """A bf16 case's float tensors upcast to float32 (exactly); one tensor
+    at both gathered ends stays one tensor."""
+    seen = {}
+    up = [x if x is None or not x.is_floating_point() else seen.setdefault(id(x), x.float())
+          for x in arrays]
+    return up, [w.float() for w in weights]
+
+
+def _chgnet_bf16_check(which, arrays, weights, ti, tm, n, projections):
+    """One bf16 call of a CHGNet kernel against its plain bf16 version
+    within ``chgnet_aggregate_error_bound``'s bf16 form: a bf16 output, one
+    ``*_bf16`` launch and ``projections`` bf16 row projections, no float32
+    launch. Then bit for bit against the float32 kernel on the upcast
+    inputs, rounded to bf16: the bf16 kernel makes the float32 kernel's
+    FMAs in its order on the same values and rounds once."""
+    from distmlip_tpu_torch import kernels as K
+
+    if which == "atom":
+        cuda, ref = K.chgnet_atom_conv_aggregate_cuda, K.chgnet_atom_conv_aggregate_reference
+        count = "chgnet_atom_conv_aggregate_bf16"
+    else:
+        cuda, ref = K.chgnet_line_aggregate_cuda, K.chgnet_line_aggregate_reference
+        count = "chgnet_line_aggregate_bf16"
+    before = dict(K.launch_counts)
+    got = cuda(*arrays, weights, ti, n, tm)
+    want = ref(*arrays, weights, ti, n, tm)
+    torch.cuda.synchronize()
+    launched = {k: K.launch_counts[k] - before[k] for k in before}
+    assert launched == dict({k: 0 for k in launched}, **{count: 1},
+                            chgnet_row_projection_bf16=projections)
+    f32_arrays, f32_weights = _upcast(arrays, weights)
+    assert torch.equal(got, cuda(*f32_arrays, f32_weights, ti, n, tm).bfloat16())
+    assert got.shape == want.shape == (n, arrays[4].shape[1])
+    assert got.dtype == want.dtype == torch.bfloat16
+    x, abw = chgnet_rows(which, arrays)
+    bound = K.chgnet_aggregate_error_bound(x, abw, weights, ti, n, tm)
+    err = (got.float() - want.float()).abs()
+    assert bool(torch.isfinite(got).all()) and bool((err <= bound + 1e-30).all()), float(
+        (err / (bound + 1e-30)).max())
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["atom", "line"])
+@pytest.mark.parametrize("name", sorted(CHGNET_CASES))
+def test_chgnet_bf16_kernels_match_plain_on_card(card, name, which):
+    """Both CHGNet bf16 kernels (bf16 rows, float32 tables and weights, fp32
+    arithmetic, one rounding an output element) vs their plain bf16
+    versions (the message in bf16 ops, the sum in fp32) on the shared
+    cases (and bit for bit against the float32 kernel on the upcast inputs):
+    C % 8 == 0 takes the 16-byte copies, C = 4 and C = 7 the plain loads;
+    empty rows; one launch a call; all masked gives zeros; the
+    atom conv without abw."""
+    from distmlip_tpu_torch import kernels as K
+
+    arrays, weights, ti, tm, n = _chgnet_case_bf16_on_card(card, name, which)
+    proj = 1 if which == "atom" else 2
+    _chgnet_bf16_check(which, arrays, weights, ti, tm, n, proj)
+    cuda = (K.chgnet_atom_conv_aggregate_cuda if which == "atom"
+            else K.chgnet_line_aggregate_cuda)
+    assert not cuda(*arrays, weights, ti, n, torch.zeros_like(tm)).any()
+    if which == "atom":
+        _chgnet_bf16_check(which, arrays[:5] + [None], weights, ti, tm, n, proj)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["atom", "line"])
+def test_chgnet_bf16_kernels_nonfinite_masked_on_card(card, which):
+    """NaN in the masked and padded edges' per-edge rows (edge and abw, or
+    the angle rows) and in the node (bond) rows no valid edge gathers: never
+    read into a sum, so the output stays finite and within the bound of the
+    plain version, which screens them with a select; then distinct tensors
+    at the two gathered ends, one bf16 projection pass each."""
+    arrays, weights, ti, tm, n = _chgnet_case_bf16_on_card(card, "matgl_widths", which,
+                                                           n_node=2000)
+    for k in ((4, 5) if which == "atom" else (4,)):
+        arrays[k][~tm] = float("nan")
+    gathers = {0: (1, 3)} if which == "atom" else {0: (1, 3), 5: (6,)}
+    for k, idx in gathers.items():
+        used = torch.zeros(arrays[k].shape[0], dtype=torch.bool, device=card)
+        for i in idx:
+            used[arrays[i][tm].long()] = True
+        assert not bool(used.all())
+        arrays[k][~used] = float("nan")
+    proj = 1 if which == "atom" else 2
+    _chgnet_bf16_check(which, arrays, weights, ti, tm, n, proj)
+    arrays, weights, ti, tm, n = _chgnet_case_bf16_on_card(card, "hidden_32_channels_64", which)
+    arrays[2] = (arrays[0].flip(0) * 0.5).contiguous()
+    _chgnet_bf16_check(which, arrays, weights, ti, tm, n, proj + 1)
+
+
+# the row projection's cases at bf16 rows, plus an even K that is not a
+# multiple of 8 (plain loads, as K = 7)
+PROJECTION_BF16_CASES = dict(PROJECTION_CASES, k6=(300, 6, 24, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(PROJECTION_BF16_CASES))
+def test_chgnet_row_projection_bf16_matches_plain_on_card(card, name):
+    """The bf16 row projection (bf16 rows; W, the bias and the table
+    float32) vs its plain version, the float32 product of the same values,
+    within ``chgnet_projection_error_bound``, and bit for bit against the
+    float32 kernel on the upcast rows; one ``*_bf16`` launch and no float32
+    one: K % 8 == 0 takes the 16-byte copies, K = 6 and 7 the plain loads.
+    A bf16 W is refused (the packed weights are float32)."""
+    from distmlip_tpu_torch import kernels as K
+
+    rows, k, m, has_bias = PROJECTION_BF16_CASES[name]
+    rng = np.random.default_rng(800 + rows)
+    x = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32)).to(card).bfloat16()
+    w = torch.from_numpy((rng.normal(size=(k, m)) / np.sqrt(k)).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(card) if has_bias else None
+    before = dict(K.launch_counts)
+    got = K.chgnet_row_projection_cuda(x, w, b)
+    torch.cuda.synchronize()
+    launched = {key: K.launch_counts[key] - before[key] for key in before}
+    assert launched == dict({key: 0 for key in launched}, chgnet_row_projection_bf16=1)
+    want = K.chgnet_row_projection_reference(x, w, b)
+    bound = K.chgnet_projection_error_bound(x, w, b)
+    assert got.shape == (rows, m) and got.dtype == want.dtype == torch.float32
+    assert bool(((got - want).abs() <= bound + 1e-30).all())
+    assert torch.equal(got, K.chgnet_row_projection_cuda(x.float(), w, b))
+    with pytest.raises(TypeError, match="packed float32"):
+        K.chgnet_row_projection_cuda(x, w.bfloat16(), b)
+
+
 @pytest.mark.cuda
 def test_bf16_b2_routes_and_refusals_on_card(card):
     """bf16 through the dispatcher on the card: TensorNet's interaction
     launches its bf16 forward and backward kernels (no plain recompute,
-    no float32 launch) and agrees with ``kernels=False``; a call mixing
-    float32 and bf16 raises before any launch, as does float16; CHGNet's
-    messages raise naming A6b on bf16."""
+    no float32 launch) and agrees with ``kernels=False``; CHGNet's atom conv
+    launches its bf16 kernel and one bf16 row projection (its backward the
+    plain chunked recompute) and agrees with ``kernels=False``; a call
+    mixing float32 and bf16 raises before any launch, as does float16, for
+    both families."""
     from distmlip_tpu_torch import kernels as K
 
     arrays, ti, tm, ids, mask, n = _edge_case_bf16_on_card(card, "empty_rows", "interaction")
@@ -1899,11 +2056,31 @@ def test_bf16_b2_routes_and_refusals_on_card(card):
         K.fused_edge_aggregate(K.TENSORNET_INTERACTION,
                                inputs([x.half() for x in (f, node_i, node_a, node_s)]), ti, n, tm)
     carrays, weights, cti, ctm, cn = _chgnet_case_on_card(card, "repeated_tail_padding", "atom")
-    node_src, src_c, node_dst, dst_c, edge, abw = carrays
-    with pytest.raises(NotImplementedError, match="A6b"):
-        K.fused_edge_aggregate(
-            K.CHGNET_ATOM_CONV, [K.Gather(node_src.bfloat16(), src_c),
-                                 K.Gather(node_dst.bfloat16(), dst_c), edge.bfloat16(),
-                                 abw.bfloat16()], cti, cn, ctm,
-            weights=tuple(w.bfloat16() for w in weights))
+    node_src, src_c, _, dst_c, edge, abw = carrays
+    cleaves = [x.bfloat16().requires_grad_(True) for x in (node_src, edge, abw)]
+    bw = tuple(w.bfloat16() for w in weights)
+
+    def chgnet(xs, kernels=True, ws=bw):
+        v, e_, a_ = xs
+        return K.fused_edge_aggregate(K.CHGNET_ATOM_CONV, [K.Gather(v, src_c), K.Gather(v, dst_c),
+                                                           e_, a_], cti, cn, ctm,
+                                      kernels=kernels, weights=ws)
+
+    with pytest.raises(TypeError, match="one dtype"):
+        chgnet(cleaves, ws=tuple(weights))
+    with pytest.raises(NotImplementedError):
+        chgnet([x.detach().half() for x in cleaves], ws=tuple(w.half() for w in weights))
     assert dict(K.launch_counts) == before
+    K.recompute_chunks.clear()
+    out = chgnet(cleaves)
+    got = torch.autograd.grad(out.float().square().sum(), cleaves)
+    launched = {k: K.launch_counts[k] - before[k] for k in before}
+    assert launched == dict({k: 0 for k in launched}, chgnet_atom_conv_aggregate_bf16=1,
+                            chgnet_row_projection_bf16=1)
+    assert K.recompute_chunks == {"chgnet_atom_conv_aggregate": 1}
+    plain = chgnet(cleaves, kernels=False)
+    want = torch.autograd.grad(plain.float().square().sum(), cleaves)
+    for a, b in zip([out] + list(got), [plain] + list(want)):
+        a, b = a.detach().float(), b.detach().float()
+        assert float((a - b).abs().max()) <= 0.02 * float(b.abs().max())
+    assert out.dtype == torch.bfloat16 and all(x.dtype == torch.bfloat16 for x in got)
