@@ -165,10 +165,12 @@ Phases (each failure raises, so the exit code is non-zero):
    all-masked and the padding-only chunk; tolerance one bf16 ulp over the
    fp32 sums' bound, e + 2^-7 (|y| + e); library call ``index_add_`` of the
    rows upcast to float32; bound at 2 bytes an element) and
-   ``[kernels] so2_conv bf16`` (B3's bf16 wgmma kernel at (32768, 25, 128),
-   forward and backward route, and the small and ragged cases, within
-   ``so2_conv_error_bound``'s bf16 form; library call the five cuBLAS bf16
-   products on pre-packed operands; bound at 989 TFLOP/s); ``[main-bf16]``
+   ``[kernels] so2_conv bf16`` (B3's bf16 kernel, persistent 128 x 256
+   tiles, at (32768, 25, 128), forward and backward
+   route, and the small and ragged cases, within ``so2_conv_error_bound``'s
+   bf16 form; its plan and L2 -> shared-memory bytes a call beside the
+   first design's; library call the five cuBLAS bf16 products on
+   pre-packed operands; bound at 989 TFLOP/s); ``[main-bf16]``
    (MACE at bench.py's bf16 configuration) and ``[main-escn-bf16]`` (eSCN
    at example 05's, with its conditioning) on the 2048-atom crystal, 4
    calculates, launches derived as the float32 paths' on the bf16 kernels,
@@ -194,10 +196,14 @@ Phases (each failure raises, so the exit code is non-zero):
    CHGNet at bf16 (``CHGNET_BF16_KW``, the MPtrj layout, magmoms):
    ``[kernels] chgnet bf16`` (the bf16 atom conv and line conv on
    ``[kernels] chgnet``'s cases with every input and weight in bf16,
-   within ``chgnet_aggregate_error_bound``'s bf16 form; the bf16 row
-   projection at the wrappers' shapes, K = 6 and 7 too; call ms, kernel
-   alone, host µs, the bound at 2 bytes an element, ``index_add_`` of the
-   message upcast to float32 and ``addmm`` on the bf16 operands),
+   within ``chgnet_aggregate_error_bound``'s bf16 form, and bit for bit
+   against the float32 per-edge kernel on the upcast inputs and the same
+   tables; the bf16 row projection on the tensor cores at the wrappers'
+   shapes, K = 6 and 7 too, within its own bar, with its plan and L2 ->
+   shared-memory bytes; call ms, kernel alone, host µs, the bound at 2
+   bytes an element, ``index_add_`` of the message upcast to float32, the
+   projection's same-function ``addmm`` to a float32 table and ``addmm`` to
+   a bf16 table),
    ``[main-chgnet-bf16]`` (4 calculates at 16,384 atoms, launches derived
    as ``[main-chgnet]``'s on the bf16 kernels and each conv's plain
    backward chunks, magmoms within 0.05 max |m| of the plain route),
@@ -226,9 +232,11 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 try:  # the timing helpers and the main path's edge-chunk case, shared with kernel_ab.py
-    from distmlip_tpu_torch.tools.kernel_ab import cuda_ms, library_split, slice_case, split
+    from distmlip_tpu_torch.tools.kernel_ab import (cuda_ms, library_split,
+                                                    projection_library_call, slice_case, split)
 except ImportError as e:
     sys.exit(f"chip_smoke: run from the root of a checkout ({e})")
 
@@ -814,6 +822,15 @@ def _chgnet_fns(which):
             "chgnet_line_aggregate")
 
 
+def bf16_tables(x, w, bias):
+    """The bf16 call's row projection, for a float32 call on upcast bf16
+    inputs (the same values, exactly): both calls' per-edge kernels then
+    read one set of float32 tables."""
+    from distmlip_tpu_torch.kernels import chgnet_row_projection_cuda
+
+    return chgnet_row_projection_cuda(x.bfloat16(), w.bfloat16(), bias)
+
+
 def check_chgnet(torch, which, arrays, weights, ids, mask, n):
     """Kernel vs plain on one input, within the derived bound
     ``chgnet_aggregate_error_bound`` (for each side: (K + 2) u on each dot
@@ -821,11 +838,14 @@ def check_chgnet(torch, which, arrays, weights, ids, mask, n):
     products, k u on the dst sum; |kernel - plain| <= twice that; at bf16
     data the plain route's r = 8 (7) bf16 roundings of each message entry
     over ``chgnet_message_terms``, one more of slack, and one bf16 ulp of
-    the result). A bf16 call is also held bit for bit against the float32
-    kernel on the upcast inputs, rounded to bf16: it makes the float32
-    kernel's FMAs in its order on the same values and rounds once. Returns
-    (max |kernel - plain|, max |kernel - plain| / bound)."""
-    from distmlip_tpu_torch.kernels import chgnet_aggregate_error_bound
+    the result). A bf16 call's per-edge kernel is also held bit for bit
+    against the float32 per-edge kernel on the upcast inputs and the same
+    float32 tables (the float32 call given the bf16 projection,
+    ``bf16_tables``, in the place of
+    ``edge_aggregate.chgnet_row_projection_cuda``), rounded to bf16: it makes the float32 kernel's FMAs
+    in its order on the same values and rounds once. Returns (max |kernel
+    - plain|, max |kernel - plain| / bound)."""
+    from distmlip_tpu_torch.kernels import chgnet_aggregate_error_bound, edge_aggregate
 
     cuda, ref, _ = _chgnet_fns(which)
     got = cuda(*arrays, weights, ids, n, mask)
@@ -843,10 +863,12 @@ def check_chgnet(torch, which, arrays, weights, ids, mask, n):
                              f"|err| {float(err.max())}, max tolerance {float(tol.max())}")
     if got.dtype == torch.bfloat16:
         f32_arrays, f32_weights = float_case(arrays, weights)
-        f32 = cuda(*f32_arrays, f32_weights, ids, n, mask).bfloat16()
+        with mock.patch.object(edge_aggregate, "chgnet_row_projection_cuda", bf16_tables):
+            f32 = cuda(*f32_arrays, f32_weights, ids, n, mask).bfloat16()
         if not torch.equal(got, f32):
             raise AssertionError(f"chgnet {which} bf16 differs from the float32 kernel on the "
-                                 f"upcast inputs in {int((got != f32).sum())} elements")
+                                 f"upcast inputs and the same tables in "
+                                 f"{int((got != f32).sum())} elements")
     if not err.numel():
         return 0.0, 0.0
     return float(err.max()), float((err / (tol + 1e-30)).max())
@@ -941,9 +963,10 @@ def projection_inputs(which, arrays, weights):
 
 def check_projection(torch, x, w, b):
     """The row projection kernel vs ``x @ w + b`` within
-    ``chgnet_projection_error_bound`` (2 (K + 2) u on each dot product's sum
-    of |terms|), and at bf16 rows bit for bit against the float32 kernel on
-    the upcast rows; returns max |kernel - plain|."""
+    ``chgnet_projection_error_bound`` (float32: 2 (K + 2) u on each dot
+    product's sum of |terms|; bf16 rows and blocks on the tensor cores:
+    (36 ceil(K / 16) + K + 2) u), and the same bits on a second call;
+    returns max |kernel - plain|."""
     from distmlip_tpu_torch import kernels as K
 
     got = K.chgnet_row_projection_cuda(x, w, b)
@@ -954,41 +977,47 @@ def check_projection(torch, x, w, b):
     if not bool((err <= tol + 1e-30).all()) or got.shape != want.shape:
         raise AssertionError(f"row projection disagrees with its plain version: max |err| "
                              f"{float(err.max())}, max tolerance {float(tol.max())}")
-    if x.dtype == torch.bfloat16 and not torch.equal(
-            got, K.chgnet_row_projection_cuda(x.float(), w, b)):
-        raise AssertionError("bf16 row projection differs from the float32 kernel on the "
-                             "upcast rows")
+    if not torch.equal(got, K.chgnet_row_projection_cuda(x, w, b)):
+        raise AssertionError(f"row projection ({x.dtype}) differs between two calls")
     return float(err.max()) if err.numel() else 0.0
 
 
 def time_projection(torch, x, w, b):
-    """Call ms, kernel-alone ms, host µs, plain ms and library (one
-    ``addmm``, timed the same ways; on bf16 rows ``addmm`` on the bf16
-    operands, the tensor cores) of one row projection, and its bound:
-    x (at its element size), W, the bias read once and the table written
-    once; 2 R K M + R M operations at the peak rate for x's type (float32
-    on the CUDA cores; bf16 on the tensor cores, the CUDA cores' time beside
-    it as ``fp32_core_ops_ms``)."""
+    """Call ms, kernel-alone ms, host µs, plain ms and library (one PyTorch
+    call of the same function, timed the same ways: ``addmm`` in float32;
+    on bf16 rows ``projection_library_call``, bf16 operands and a float32
+    table, with ``addmm`` to a bf16 table beside it as
+    ``library_bf16_out_ms``) of one row projection, and its bound: x and W
+    at their element size, the bias read once and the float32 table
+    written once; 2 R K M + R M operations at the peak rate for x's type
+    (float32 on the CUDA cores; bf16 on the tensor cores, the CUDA cores'
+    time beside it as ``fp32_core_ops_ms``). The plan (bf16: with its L2 ->
+    shared-memory bytes) from ``chgnet_projection_plan``."""
     from distmlip_tpu_torch import kernels as K
 
     rows, k = x.shape
     m = w.shape[1]
     timed = split(torch, lambda: K.chgnet_row_projection_cuda(x, w, b), "row_projection")
     plain_ms = cuda_ms(torch, lambda: K.chgnet_row_projection_reference(x, w, b))
-    bias = (torch.zeros(m, device="cuda") if b is None else b).to(x.dtype)
-    wl = w.to(x.dtype)
-    timed.update(library_split(torch, lambda: torch.addmm(bias, x, wl)))
-    nbytes = rows * k * x.element_size() + (k * m + m + rows * m) * 4
-    ops = 2 * rows * k * m + rows * m
     half = x.dtype == torch.bfloat16
+    bias = torch.zeros(m, device="cuda") if b is None else b
+    if half:
+        library, call = projection_library_call(torch, x, w, bias)
+        timed.update(library_split(torch, call))
+        timed["library_bf16_out_ms"] = cuda_ms(
+            torch, lambda: torch.addmm(bias.bfloat16(), x, w))
+    else:
+        library = "torch.addmm"
+        timed.update(library_split(torch, lambda: torch.addmm(bias, x, w)))
+    nbytes = rows * k * x.element_size() + k * m * w.element_size() + (m + rows * m) * 4
+    ops = 2 * rows * k * m + rows * m
     bound_ms, bound_by = bound(nbytes, ops, H100_BF16_FLOPS if half else H100_FP32_FLOPS)
     return {"shape": [rows, k, m], "dtype": str(x.dtype).split(".")[-1], **timed,
-            "plain_ms": plain_ms,
-            "library": "torch.addmm" + (" on the bf16 operands" if half else ""),
+            "plain_ms": plain_ms, "library": library,
             "bound_ms": bound_ms, "bound_by": bound_by,
             **({"fp32_core_ops_ms": ops / H100_FP32_FLOPS * 1e3} if half else {}),
             "bytes": nbytes,
-            "plan": K.chgnet_projection_plan(rows, k, m)}
+            "plan": K.chgnet_projection_plan(rows, k, m, dtype=x.dtype)}
 
 
 def chgnet_sub_case(torch, gen, which, e, rows, c, h, n_node=None):
@@ -1120,13 +1149,16 @@ def phase_chgnet_kernels_bf16(torch):
     ``phase_chgnet_kernels``' cases (the path's graph and masks at C = H =
     64, then the edge cases) with every float input and weight rounded to
     bf16, each against its plain bf16 version within
-    ``chgnet_aggregate_error_bound``'s bf16 form; the bf16 row projection at
-    the shapes the wrappers give it (bf16 rows, float32 packed weights and
-    table) against its plain version, plus K = 6 and K = 7 (plain loads);
-    every bf16 call also bit for bit against the float32 kernel on the
-    upcast inputs. Times: call, kernel alone, host µs, plain, the bound at 2
-    bytes an element and the bf16 tensor-core rate, ``index_add_`` of the message upcast to float32 (convs) and
-    ``addmm`` on the bf16 operands (projection)."""
+    ``chgnet_aggregate_error_bound``'s bf16 form, each also bit for bit
+    against the float32 per-edge kernel on the upcast inputs and the same
+    tables; the bf16 row projection (bf16 rows and packed blocks on the
+    tensor cores, a float32 table) at the shapes the wrappers give it
+    against its plain version within its own bar, plus K = 6 and K = 7
+    (plain loads), with its plan and L2 -> shared-memory bytes. Times:
+    call, kernel alone, host µs, plain, the bound at 2 bytes an element and
+    the bf16 tensor-core rate, ``index_add_`` of the message upcast to
+    float32 (convs), the same function's ``addmm`` to a float32 table and
+    ``addmm`` to a bf16 table (projection)."""
     from distmlip_tpu_torch.tools.workload import CHGNET_KW
 
     gen = torch.Generator(device="cuda").manual_seed(2469)
@@ -1157,11 +1189,14 @@ def phase_chgnet_kernels_bf16(torch):
     for rows, k, m, has_bias in ((1, 8, 48, True), (517, 7, 24, True), (300, 6, 24, True),
                                  (300, 16, 64, False)):
         x = torch.randn((rows, k), generator=gen, device="cuda").bfloat16()
-        w = torch.randn((k, m), generator=gen, device="cuda") / k ** 0.5
+        w = (torch.randn((k, m), generator=gen, device="cuda") / k ** 0.5).bfloat16()
         b = torch.randn(m, generator=gen, device="cuda") if has_bias else None
         proj_errs.append(check_projection(torch, x, w, b))
     log(f"[kernels] chgnet bf16 row projection: all {len(proj_errs)} cases agree with the "
         f"plain version; max |err| {max(proj_errs)}")
+    t = max(proj_timed, key=lambda p: p["shape"][0])
+    log(f"[kernels] chgnet bf16 row projection plan at {t['shape']}: "
+        f"{json.dumps(t['plan'])} (L2 -> shared {t['plan']['l2_bytes']} bytes a call)")
     return errs, timed, max(proj_errs), proj_timed
 
 
@@ -1283,7 +1318,13 @@ def time_so2(torch, h, weights, m_idx, c, iters=20):
     # h read once, the output written once, the weights read once
     es = h.element_size()
     nbytes = 2 * h.numel() * es + sum(w.numel() for w in weights) * es
+    if h.dtype == torch.bfloat16:  # the launch plan and what it brings from L2
+        plan = K.so2_bf16_plan(e, segments, c)
+        first = K.so2_bf16_l2_bytes(e, widths, 192, 128)
+        plan.update(l2_bytes=plan["l2_bytes_a"] + plan["l2_bytes_b"],
+                    l2_bytes_first_design=first[0] + first[1])
     out = {"e": e, "s": h.shape[1], "channels": c, "dtype": str(h.dtype).split(".")[-1],
+           **({"plan": plan} if h.dtype == torch.bfloat16 else {}),
            "widths": widths, "ms": ms, "kernel_ms": alone.get("kernel_ms"),
            "host_us": alone.get("host_us"), "backward_ms": backward_ms, "pack_ms": pack_ms,
            "plain_ms": plain_ms, "library_ms": library_ms, "ops": ops, "bytes": nbytes}
@@ -1356,6 +1397,15 @@ def phase_so2_kernels_bf16(torch):
     found = [check_so2(torch, h, weights, m_idx, c)]
     headline = time_so2(torch, h, weights, m_idx, c)
     log(f"[kernels] so2_conv bf16 {[chunk, (l_max + 1) ** 2, c]}: {json.dumps(headline)}")
+    plan = headline["plan"]
+    # the rate at which the kernel alone filled shared memory from L2
+    rate = (f"{plan['l2_bytes'] / headline['kernel_ms'] / 1e9:.3f} TB/s"
+            if headline["kernel_ms"] else "not measured")
+    log(f"[kernels] so2_conv bf16 plan: {plan['tile_rows']} x {plan['tile_cols']} tiles, "
+        f"{plan['tiles']} tiles on {plan['blocks']} blocks; L2 -> shared "
+        f"{plan['l2_bytes']} bytes a call (A {plan['l2_bytes_a']}, B {plan['l2_bytes_b']}; "
+        f"the first design's 192 x 128 tiles: {plan['l2_bytes_first_design']}), "
+        f"{rate} over the kernel alone")
     del h, weights
     torch.cuda.empty_cache()
     for e in (1, 37, 1003):

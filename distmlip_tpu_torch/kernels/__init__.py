@@ -29,7 +29,9 @@
   ``so2_conv_reference``, the packed per-|m| layout ``packed_m_layout``,
   the kernel's weight packing ``pack_so2_weights`` (K-major blocks split
   into TF32 hi and lo by ``tf32_round``; one bf16 buffer for the bf16
-  kernel) and the derived kernel tolerance ``so2_conv_error_bound``.
+  kernel) and the derived kernel tolerance ``so2_conv_error_bound``; the
+  bf16 kernel's launch plan ``so2_bf16_plan`` and its L2 traffic
+  ``so2_bf16_l2_bytes``.
 - :mod:`dispatch` — ``fused_segment_sum``, ``fused_edge_aggregate`` (with
   its ``Gather`` marker and the ``recompute_chunks`` count of its plain
   backward) and ``fused_so2_conv`` (with
@@ -66,5 +68,5 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
 from .segment import (csr_row_offsets, launch_counts,  # noqa: F401
                       segment_sum_cuda, segment_sum_reference)
 from .so3 import (PackedSO2Weights, pack_so2_weights, packed_m_layout,  # noqa: F401
-                  so2_block_matrices, so2_conv_cuda, so2_conv_error_bound,
-                  so2_conv_reference, tf32_round)
+                  so2_bf16_l2_bytes, so2_bf16_plan, so2_block_matrices, so2_conv_cuda,
+                  so2_conv_error_bound, so2_conv_reference, tf32_round)

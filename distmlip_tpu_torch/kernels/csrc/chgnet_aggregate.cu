@@ -70,13 +70,13 @@
 //   - offsets are 64-bit, edge ids 32-bit; gathered row ids of valid edges
 //     must lie in range.
 //
-// bfloat16: the same kernels, templated on the storage type T of the
-// per-edge rows (the edge or angle row, abw) and of the output; the row
-// projection's T is that of its node or bond rows. Everything else is the
-// float32 kernel's: the layer-1 tables are float32 (the projection reads
-// bf16 rows and writes fp32), the packed weights are float32 (the wrapper
-// upcasts bf16 weights, exactly), so the shared weight region and every FMA
-// are unchanged. A bf16 edge row is staged as bf16 (16-byte cp.async of 8
+// bfloat16: the same per-edge kernels, templated on the storage type T of
+// the per-edge rows (the edge or angle row, abw) and of the output.
+// Everything else is the float32 kernel's: the layer-1 tables are float32
+// (written by the bf16 row projection, a tensor-core kernel of its own,
+// below), the per-edge packed weights are float32 (the wrapper upcasts bf16
+// weights, exactly), so the shared weight region and every FMA are
+// unchanged. A bf16 edge row is staged as bf16 (16-byte cp.async of 8
 // values when C % 8 == 0 and the rows 16-byte aligned; else plain loads),
 // in the float32 tile buffer's first half, and converted to float32 as layer 1 reads it (8 bytes
 // for 4 values). abw is read as bf16 and converted. The hidden and output
@@ -130,12 +130,9 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
-// two consecutive elements (8 bytes of float32, 4 of bf16)
+// two consecutive float32 elements (8 bytes)
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 // rows of per-row layer-1 partial products (2hp floats each) in a table
@@ -697,10 +694,8 @@ int launch(const Args<T>& a, int64_t n_edges, void* stream) {
 // each float is copied alone (4 bytes). Rows past the end read as zeros and
 // are not stored. Every y element of [0, rows) x [0, m) is written.
 //
-// bf16 x (the bf16 model's node and bond rows): the tile holds bf16 rows of
-// k4 + 8 values (16-byte copies of 8 when k % 8 == 0; else plain loads),
-// read as bf16 pairs and converted; W, the bias, the
-// FMAs and y stay float32, so the tables keep one float32 rounding.
+// Its storage type T is float only: bf16 rows take the tensor-core kernel
+// below (chgnet_row_projection_bf16_kernel).
 
 constexpr int kPThreads = 256;
 constexpr int kPMaxK = 64;
@@ -723,56 +718,26 @@ template <typename T, int MT, int RT, bool VEC4>
 __device__ __forceinline__ void proj_load_tile(float* __restrict__ xs, const T* __restrict__ x,
                                                int64_t rows, int k_dim, int k4, int64_t r0) {
   constexpr int TR = proj_tile_rows(MT, RT);
-  if constexpr (kIsFloat<T>) {
-    const int ks = k4 + 4;
-    if constexpr (VEC4) {
-      const int q4 = k4 / 4;
-      for (int i = threadIdx.x; i < TR * q4; i += kPThreads) {
-        const int r = i / q4, c = (i - r * q4) * 4;
-        float* dst = xs + r * ks + c;
-        if (r0 + r < rows) {
-          cp_async16(dst, x + (r0 + r) * k_dim + c);
-        } else {
-          *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        }
-      }
-    } else {
-      for (int i = threadIdx.x; i < TR * k4; i += kPThreads) {
-        const int r = i / k4, c = i - r * k4;
-        float* dst = xs + r * ks + c;
-        if (r0 + r < rows && c < k_dim) {
-          cp_async4(dst, x + (r0 + r) * k_dim + c);
-        } else {
-          *dst = 0.0f;
-        }
+  const int ks = k4 + 4;
+  if constexpr (VEC4) {
+    const int q4 = k4 / 4;
+    for (int i = threadIdx.x; i < TR * q4; i += kPThreads) {
+      const int r = i / q4, c = (i - r * q4) * 4;
+      float* dst = xs + r * ks + c;
+      if (r0 + r < rows) {
+        cp_async16(dst, x + (r0 + r) * k_dim + c);
+      } else {
+        *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
       }
     }
   } else {
-    __nv_bfloat16* __restrict__ xb = reinterpret_cast<__nv_bfloat16*>(xs);
-    const int ks = k4 + 8;  // rows of 16-byte multiples, 4 banks apart at k4 = 64
-    if constexpr (VEC4) {  // k % 8 == 0: 8 values a copy
-      const int q8 = k4 / 8;
-      for (int i = threadIdx.x; i < TR * q8; i += kPThreads) {
-        const int r = i / q8, c = (i - r * q8) * 8;
-        __nv_bfloat16* dst = xb + r * ks + c;
-        if (r0 + r < rows) {
-          cp_async16(dst, x + (r0 + r) * k_dim + c);
-        } else {
-          *reinterpret_cast<float4*>(dst) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-        }
-      }
-    } else {  // plain loads, two values a thread (a cp.async copies 4 bytes at least)
-      const int q2 = k4 / 2;
-      for (int i = threadIdx.x; i < TR * q2; i += kPThreads) {
-        const int r = i / q2, c = (i - r * q2) * 2;
-        __nv_bfloat16* dst = xb + r * ks + c;
-        if (r0 + r < rows && c < k_dim) {
-          const T* src = x + (r0 + r) * k_dim + c;
-          dst[0] = src[0];
-          dst[1] = c + 1 < k_dim ? src[1] : __float2bfloat16_rn(0.0f);
-        } else {
-          *reinterpret_cast<uint32_t*>(dst) = 0u;
-        }
+    for (int i = threadIdx.x; i < TR * k4; i += kPThreads) {
+      const int r = i / k4, c = i - r * k4;
+      float* dst = xs + r * ks + c;
+      if (r0 + r < rows && c < k_dim) {
+        cp_async4(dst, x + (r0 + r) * k_dim + c);
+      } else {
+        *dst = 0.0f;
       }
     }
   }
@@ -1015,6 +980,252 @@ int proj_launch(const T* x, int64_t rows, int k_dim, const float* w, int m, cons
   return static_cast<int>(proj_dispatch(a, &plan, static_cast<cudaStream_t>(stream)));
 }
 
+// ---------------------------------------------------------------------------
+// The row projection at bf16 rows (the bf16 model's node and bond rows):
+// y (rows, m) float32 = x (rows, k) bf16 @ W (k, m) bf16 [+ bias (m)
+// float32], the products on the tensor cores (mma.sync m16n8k16, bf16
+// products exact in fp32, fp32 accumulators), so the tables the per-edge
+// kernels read stay float32. Also a part of segment.py:224's body (layer 1
+// of the gathered segments), taken once per row.
+//
+// What bounds it: bytes. At the bond table (236,032, 64) @ (64, 256) it
+// reads 30.2 MB of x and writes 241.7 MB of table, 0.081 ms at 3.35 TB/s,
+// against 0.008 ms of bf16 tensor-core work; 89% of the bytes are the
+// float32 table it writes. (The float32 kernel above, run on bf16 rows,
+// took the products as float32 FMAs on the CUDA cores: 0.116 ms of
+// operations alone.) Design:
+//   - a persistent grid of one block an SM walks the row tiles (t, t +
+//     grid, ...). W is staged once a block into shared memory, transposed
+//     (W^T, k contiguous, zero past k and m, k padded to whole k16 steps),
+//     and stays there; each warp takes its B fragments from it into
+//     registers once: a warp owns a 64-column strip, 8 n8 tiles x
+//     ceil(k / 16) k16 steps (64 registers at k = 64), for the whole walk;
+//   - the x tiles come through a ring of 4 stages by 16-byte cp.async (k %
+//     8 == 0 and 16-byte aligned x; plain loads otherwise), each row padded
+//     with zeros to whole k16 steps and by 16 bytes more, so the 8 rows an
+//     ldmatrix reads lie in different banks; one block barrier a tile;
+//   - a warp takes 2 m16 tiles of its row block, each with one ldmatrix.x4
+//     of A and 8 mma a k16 step. One shuffle a value swaps lane pairs'
+//     halves, so each lane holds 4 consecutive columns of one row, adds the
+//     bias and writes them as one 16-byte store (a warp instruction fills
+//     16 whole 32-byte sectors). Nothing waits on the stores: they drain
+//     while the warp computes its next m16 tile and the block its next tile.
+// A tile is 64 rows at m > 128 (4 column strips x 2 row blocks of 32), 128
+// rows otherwise (2 x 4). Rows past the end are computed from stale rows and
+// not stored; every y element of [0, rows) x [0, m) is written.
+
+constexpr int kQThreads = 256;
+constexpr int kQStages = 4;
+
+// rows a tile at MT columns a block: MT / 64 column strips, 8 warps, 32 rows a warp
+__host__ __device__ constexpr int qtile_rows(int mt) { return 32 * (kQThreads / 32) / (mt / 64); }
+// bf16 values a shared row at KS k16 steps: 16 bytes of padding, so the rows
+// an ldmatrix reads (and a warp's B fragment loads) fall in different banks
+__host__ __device__ constexpr int qrow(int ks) { return 16 * ks + 8; }
+// shared bytes of a block: W^T (MT rows), the bias (MT floats), the ring
+__host__ __device__ constexpr int qsmem_bytes(int mt, int ks) {
+  return mt * qrow(ks) * 2 + mt * 4 + kQStages * qtile_rows(mt) * qrow(ks) * 2;
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&a)[4], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s)
+               : "memory");
+}
+
+// d (16 x 8 fp32) += A (16 x 16 bf16) B (16 x 8 bf16), the fragments of
+// mma.m16n8k16's row and col layouts
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// One x tile of TR rows into a ring stage: 16-byte copies of the rows' k
+// values (VEC; the padding columns keep the zeros written at the start), or
+// plain loads of every column, zeros past k and past the last row.
+template <int MT, int KS, bool VEC>
+__device__ __forceinline__ void qload_tile(__nv_bfloat16* __restrict__ xs,
+                                           const __nv_bfloat16* __restrict__ x, int64_t rows,
+                                           int k_dim, int64_t r0) {
+  constexpr int TR = qtile_rows(MT), R = qrow(KS), KP = 16 * KS;
+  if constexpr (VEC) {
+    const int q8 = k_dim / 8;
+    for (int i = threadIdx.x; i < TR * q8; i += kQThreads) {
+      const int r = i / q8, c = (i - r * q8) * 8;
+      if (r0 + r < rows) cp_async16(xs + r * R + c, x + (r0 + r) * k_dim + c);
+    }
+  } else {
+    for (int i = threadIdx.x; i < TR * KP; i += kQThreads) {
+      const int r = i / KP, c = i - r * KP;
+      xs[r * R + c] = r0 + r < rows && c < k_dim ? x[(r0 + r) * k_dim + c]
+                                                 : __float2bfloat16_rn(0.0f);
+    }
+  }
+}
+
+template <int MT, int KS, bool VEC>
+__global__ void __launch_bounds__(kQThreads, 1)
+chgnet_row_projection_bf16_kernel(const __nv_bfloat16* __restrict__ x, int64_t rows, int k_dim,
+                                  const __nv_bfloat16* __restrict__ w, int m,
+                                  const float* __restrict__ bias, float* __restrict__ y,
+                                  int64_t n_tiles) {
+  constexpr int WC = MT / 64, TR = qtile_rows(MT), R = qrow(KS), KP = 16 * KS;
+  extern __shared__ float4 q_smem4[];
+  __nv_bfloat16* __restrict__ wt = reinterpret_cast<__nv_bfloat16*>(q_smem4);
+  float* __restrict__ bs = reinterpret_cast<float*>(wt + MT * R);
+  __nv_bfloat16* __restrict__ ring = reinterpret_cast<__nv_bfloat16*>(bs + MT);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+
+  // W^T and the bias, once; the ring zeroed, so the columns past k_dim that
+  // the copies never write read as zeros
+  for (int i = tid; i < KP * MT; i += kQThreads) {
+    const int k = i / MT, n = i - k * MT;
+    wt[n * R + k] = k < k_dim && n < m ? w[static_cast<int64_t>(k) * m + n]
+                                       : __float2bfloat16_rn(0.0f);
+  }
+  for (int j = tid; j < MT; j += kQThreads) bs[j] = bias != nullptr && j < m ? __ldg(bias + j) : 0.0f;
+  for (int i = tid; i < kQStages * TR * R / 8; i += kQThreads) {
+    reinterpret_cast<float4*>(ring)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  __syncthreads();
+
+  // the warp's B fragments for the whole walk: b[s][j] holds W rows 16 s +
+  // 2 q (+1) and + 8 (+9) of column 64 strip + 8 j + g
+  const int strip = warp % WC, block = warp / WC;
+  const int g = lane >> 2, q = lane & 3;
+  uint32_t b[KS][8][2];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const __nv_bfloat16* p = wt + (strip * 64 + j * 8 + g) * R + s * 16 + 2 * q;
+      b[s][j][0] = *reinterpret_cast<const uint32_t*>(p);
+      b[s][j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+    }
+  }
+
+  int64_t tile = blockIdx.x;
+#pragma unroll
+  for (int s = 0; s < kQStages - 1; ++s) {  // the block's first tiles into the ring
+    const int64_t t = tile + s * static_cast<int64_t>(gridDim.x);
+    if (t < n_tiles) qload_tile<MT, KS, VEC>(ring + s * TR * R, x, rows, k_dim, t * TR);
+    cp_async_commit();
+  }
+  const bool odd = q & 1;  // an odd lane writes row g + 8, an even lane row g
+  for (int it = 0; tile < n_tiles; tile += gridDim.x, ++it) {
+    cp_async_wait<kQStages - 2>();  // this tile landed
+    __syncthreads();                // for every thread; and the stage loaded below is free
+    const int64_t ahead = tile + static_cast<int64_t>(kQStages - 1) * gridDim.x;
+    if (ahead < n_tiles) {
+      qload_tile<MT, KS, VEC>(ring + ((it + kQStages - 1) % kQStages) * TR * R, x, rows, k_dim,
+                              ahead * TR);
+    }
+    cp_async_commit();
+    const __nv_bfloat16* xt = ring + (it % kQStages) * TR * R;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+      const int rb = (block * 2 + mt) * 16;
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+#pragma unroll
+      for (int s = 0; s < KS; ++s) {
+        uint32_t a[4];
+        ldmatrix_x4(a, xt + (rb + (lane & 15)) * R + s * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mma_bf16(acc[j], a, b[s][j]);
+      }
+      // acc[j]: (row g, columns 2q, 2q + 1), (row g + 8, the same). The pair
+      // (2p, 2p + 1) swaps halves: the even lane takes row g, columns 4p..4p+3,
+      // the odd lane row g + 8, the same columns.
+      const int64_t r = tile * TR + rb + g + (odd ? 8 : 0);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float s0 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][0] : acc[j][2], 1);
+        const float s1 = __shfl_xor_sync(0xffffffffu, odd ? acc[j][1] : acc[j][3], 1);
+        const int n = strip * 64 + j * 8 + 2 * (q & 2);
+        if (r < rows && n < m) {
+          const float4 bb = *reinterpret_cast<const float4*>(bs + n);
+          *reinterpret_cast<float4*>(y + r * m + n) =
+              odd ? make_float4(s0 + bb.x, s1 + bb.y, acc[j][2] + bb.z, acc[j][3] + bb.w)
+                  : make_float4(acc[j][0] + bb.x, acc[j][1] + bb.y, s0 + bb.z, s1 + bb.w);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The bf16 projection's plan: columns a block (MT), k16 steps, rows a tile,
+// the SMs, tiles, blocks.
+struct QPlan {
+  int mt, ks, tile_rows, sms;
+  int64_t tiles, blocks;
+};
+
+struct QArgs {
+  const __nv_bfloat16* x;
+  int64_t rows;
+  int k_dim;
+  const __nv_bfloat16* w;
+  int m;
+  const float* bias;
+  float* y;  // null: plan only
+  bool vec;
+};
+
+template <int MT, int KS, bool VEC>
+cudaError_t qrun(const QArgs& a, QPlan* p, cudaStream_t s) {
+  constexpr int bytes = qsmem_bytes(MT, KS);
+  auto kernel = chgnet_row_projection_bf16_kernel<MT, KS, VEC>;
+  // a per-device attribute: set on every call
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  p->tile_rows = qtile_rows(MT);
+  p->tiles = (a.rows + p->tile_rows - 1) / p->tile_rows;
+  p->blocks = p->tiles < p->sms ? p->tiles : p->sms;
+  if (a.y == nullptr || p->tiles == 0) return cudaSuccess;
+  kernel<<<static_cast<unsigned>(p->blocks), kQThreads, bytes, s>>>(a.x, a.rows, a.k_dim, a.w,
+                                                                    a.m, a.bias, a.y, p->tiles);
+  return cudaGetLastError();
+}
+
+template <int MT, int KS>
+cudaError_t qrun_vec(const QArgs& a, QPlan* p, cudaStream_t s) {
+  return a.vec ? qrun<MT, KS, true>(a, p, s) : qrun<MT, KS, false>(a, p, s);
+}
+
+template <int MT>
+cudaError_t qdispatch_ks(const QArgs& a, QPlan* p, cudaStream_t s) {
+  switch (p->ks) {
+    case 1: return qrun_vec<MT, 1>(a, p, s);
+    case 2: return qrun_vec<MT, 2>(a, p, s);
+    case 3: return qrun_vec<MT, 3>(a, p, s);
+    default: return qrun_vec<MT, 4>(a, p, s);
+  }
+}
+
+// Checks, the plan (MT from m, the k16 steps from k, the SMs of the current
+// device) and, when a.y is given, the launch.
+cudaError_t qlaunch(const QArgs& a, QPlan* p, cudaStream_t s) {
+  cudaError_t err = proj_check(a.rows, a.k_dim, a.m);
+  if (err != cudaSuccess) return err;
+  int device = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&p->sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  p->mt = a.m <= 128 ? 128 : 256;
+  p->ks = (a.k_dim + 15) / 16;
+  return p->mt == 128 ? qdispatch_ks<128>(a, p, s) : qdispatch_ks<256>(a, p, s);
+}
+
 template <typename T>
 int atom_conv(const float* p_src, int64_t src_stride, const int32_t* src, const float* p_dst,
               int64_t dst_stride, const int32_t* dst, const T* edge, const T* abw,
@@ -1072,12 +1283,37 @@ extern "C" int distmlip_chgnet_row_projection_f32(const float* x, int64_t rows, 
   return proj_launch(x, rows, k_dim, w, m, bias, y, stream);
 }
 
-// The same with x (rows, k) bfloat16 contiguous: W, the bias and y float32,
-// the products in float32.
+// The same at bf16 rows on the tensor cores: x (rows, k) and w (k, m)
+// bfloat16 contiguous, 1 <= k <= 64, m % 4 == 0 and m <= 256; bias (m)
+// float32 or null; y (rows, m) float32, 16-byte aligned; x 16-byte aligned
+// and k % 8 == 0 take the 16-byte copies, anything else plain loads. As
+// distmlip_chgnet_row_projection_f32 otherwise.
 extern "C" int distmlip_chgnet_row_projection_bf16(const __nv_bfloat16* x, int64_t rows,
-                                                   int k_dim, const float* w, int m,
+                                                   int k_dim, const __nv_bfloat16* w, int m,
                                                    const float* bias, float* y, void* stream) {
-  return proj_launch(x, rows, k_dim, w, m, bias, y, stream);
+  if (reinterpret_cast<uintptr_t>(y) % 16 != 0) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
+  QPlan plan{};
+  const QArgs a{x, rows, k_dim, w, m, bias, y,
+                k_dim % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0};
+  return static_cast<int>(qlaunch(a, &plan, static_cast<cudaStream_t>(stream)));
+}
+
+// The bf16 projection's launch plan at (rows, k, m) on the current device:
+// out[0] rows a tile, out[1] tiles, out[2] blocks of the persistent grid,
+// out[3] k16 steps, out[4] columns a block. Returns a cudaError_t.
+extern "C" int distmlip_chgnet_row_projection_bf16_plan(int64_t rows, int k_dim, int m,
+                                                        int64_t* out) {
+  QPlan plan{};
+  const QArgs a{nullptr, rows, k_dim, nullptr, m, nullptr, nullptr, k_dim % 8 == 0};
+  const cudaError_t err = qlaunch(a, &plan, nullptr);
+  out[0] = plan.tile_rows;
+  out[1] = plan.tiles;
+  out[2] = plan.blocks;
+  out[3] = plan.ks;
+  out[4] = plan.mt;
+  return static_cast<int>(err);
 }
 
 // The row projection's launch plan at (rows, k, m) on the current device:

@@ -32,9 +32,10 @@ CHGNet. Every kernel also takes bfloat16 (every float tensor of a call one
 dtype; a mix raises): a second instantiation of the same kernel that reads
 bf16, computes and accumulates in fp32 and rounds each output element
 once, counted apart (``*_bf16`` launch counts); the messages' ``bf16``
-field says that their kernels take it. CHGNet's row projection reads bf16
-node rows and writes its tables in float32, and the gated MLP's weights
-reach its kernels upcast to float32 (exact). CHGNet's messages take the
+field says that their kernels take it. CHGNet's row projection multiplies
+bf16 node rows by the bf16 packed blocks on the tensor cores and writes
+its tables in float32; the per-edge kernels get the rest of the gated
+MLP's weights upcast to float32 (exact). CHGNet's messages take the
 gated MLP's tensors as ``weights``
 (``ops.nn.gated_mlp_weights``: core w1, b1, w2, b2, then the gate's), one
 hidden layer for the kernels. The ``*_cuda`` wrappers take CUDA tensors
@@ -451,9 +452,11 @@ def chgnet_pack_weights(weights, n_seg: int, edge_seg: int, channels: int) -> Ch
     - ``b2``: ``[b2c | 0 | b2g | 0]`` (2 cp,).
 
     Plain torch ops on the weights' device; every result is contiguous and
-    float32 (bfloat16 weights upcast, which is exact: the kernels' shared
-    weights and products stay the float32 kernel's); float64 weights stay
-    float64."""
+    float32 (bfloat16 weights upcast, which is exact: the per-edge kernels'
+    shared weights and products stay the float32 kernel's), except that
+    bfloat16 weights keep ``blocks`` in bfloat16, the operand of the bf16
+    row projection's tensor-core products (the same values); float64
+    weights stay float64."""
     w1c, b1c, w2c, b2c, w1g, b1g, w2g, b2g = (_full(w) for w in weights)
     c, h = channels, w1c.shape[1]
     cp, hp = _round4(c), _round4(h)
@@ -467,8 +470,9 @@ def chgnet_pack_weights(weights, n_seg: int, edge_seg: int, channels: int) -> Ch
 
     blocks = [side_by_side(w1c[s * c:(s + 1) * c], w1g[s * c:(s + 1) * c], hp)
               for s in range(n_seg)]
+    rows_dtype = torch.bfloat16 if weights[0].dtype == torch.bfloat16 else w1c.dtype
     return ChgnetPacked(
-        blocks=[b for s, b in enumerate(blocks) if s != edge_seg],
+        blocks=[b.to(rows_dtype) for s, b in enumerate(blocks) if s != edge_seg],
         b1=side_by_side(b1c, b1g, hp),
         w1e=pad(blocks[edge_seg], 2 * hp, cp),
         w2=pad(side_by_side(w2c, w2g, cp), 2 * cp, hp),
@@ -508,17 +512,31 @@ def chgnet_row_projection_reference(x, w, bias=None):
 
 
 def chgnet_projection_error_bound(x, w, bias=None):
-    """Per element, a bound on |kernel - plain| of the row projection: each
-    side's dot product of length K plus its bias is within (K + 2) u of its
-    sum of |terms| (any summation order; u = 2^-24), so twice that. A
-    bfloat16 ``x`` changes nothing: both sides take the float32 product of
-    the same (exactly upcast) values and write float32, so no bf16 rounding
-    lies between them."""
+    """Per element, a bound on |kernel - plain| of the row projection, with
+    u = 2^-24 and T the sum of |terms| (``|x| @ |w| + |bias|``).
+
+    float32 ``x``: each side's dot product of length K plus its bias is
+    within (K + 2) u T of the exact value (any summation order), so
+    ``2 (K + 2) u T``.
+
+    bfloat16 ``x`` (and ``w``): the kernel takes the products on the tensor
+    cores, one mma instruction per 16 entries; bf16 products are exact in
+    fp32, and the bound does not assume round to nearest: each
+    instruction's 17 addends (16 products and the accumulator) may be
+    aligned to the largest and truncated, and its sum truncated, each
+    losing less than one ulp (2u of a magnitude of at most T): 36 u T an
+    instruction. The bias add rounds once more. The plain side's float32
+    dot product is within K u T, its bias add u T. So
+    ``(36 ceil(K / 16) + K + 2) u T``; both sides write float32, so no
+    bf16 rounding lies between them."""
+    half = x.dtype in _HALF_DTYPES
     x, w = _full(x), _full(w)
     k = x.shape[1]
     t = x.abs() @ w.abs()
     if bias is not None:
         t = t + _full(bias).abs()
+    if half:
+        return (36 * -(-k // 16) + k + 2) * 2.0 ** -24 * t
     return 2 * (k + 2) * 2.0 ** -24 * t
 
 
@@ -533,6 +551,7 @@ _TAIL = [_I64, _I64, _I, _I, _P]  # n_rows, n_edges, C, H, stream
 _CHGNET_ARGTYPES = {
     "distmlip_chgnet_aggregate_smem_bytes": [_I, _I],
     "distmlip_chgnet_row_projection_plan": [_I64, _I, _I, _P],
+    "distmlip_chgnet_row_projection_bf16_plan": [_I64, _I, _I, _P],
 }
 for _suffix in ("_f32", "_bf16"):
     _CHGNET_ARGTYPES.update({
@@ -779,8 +798,8 @@ def _chgnet_fn(symbol: str):
     return fn
 
 
-PROJECTION_MAX_K = 64    # the row projection's W panel (K x M floats) is
-PROJECTION_MAX_M = 256   # resident in shared memory: 64 KB at 64 x 256
+PROJECTION_MAX_K = 64    # the row projection's W panel is resident in shared
+PROJECTION_MAX_M = 256   # memory: 64 KB at 64 x 256 in float32, 36 KB in bf16
 
 
 def _projection_shape_error(name, k, m):
@@ -791,13 +810,17 @@ def _projection_shape_error(name, k, m):
 
 def chgnet_row_projection_cuda(x, w, bias=None):
     """Launch the row projection kernel: ``x`` (R, K) float32 or bfloat16,
-    ``w`` (K, M) with 1 <= K <= 64 and M a multiple of 4 up to 256,
-    ``bias`` (M,) or None, ``w`` and ``bias`` float32 (the packed weights,
-    ``chgnet_pack_weights``), contiguous on one card and 16-byte aligned.
-    Returns (R, M) float32 ``x @ w (+ bias)``: a bf16 ``x`` is read as
-    bf16 and multiplied in float32 (launch count ``*_bf16``); the launch
-    chooses its row tile (``chgnet_projection_plan``). Raises
-    ``ValueError`` for a shape past the kernel's shared memory."""
+    ``w`` (K, M) in ``x``'s dtype (the packed blocks,
+    ``chgnet_pack_weights``) with 1 <= K <= 64 and M a multiple of 4 up to
+    256, ``bias`` (M,) float32 or None, contiguous on one card, ``w`` and
+    ``bias`` 16-byte aligned. Returns (R, M) float32 ``x @ w (+ bias)``:
+    float32 FMAs for float32 ``x``; for bf16 ``x`` the bf16 products on the
+    tensor cores, accumulated in fp32 (launch count ``*_bf16``, its own
+    bar in ``chgnet_projection_error_bound``). The launch chooses its plan
+    (``chgnet_projection_plan``). Raises ``TypeError`` for a ``w`` of
+    another dtype than ``x`` or a bias that is not float32 (nothing is
+    rounded quietly), ``ValueError`` for a shape past the kernel's shared
+    memory."""
     name = PROJECTION
     _require_cuda(name, x, 2)
     rows, k = x.shape
@@ -805,11 +828,12 @@ def chgnet_row_projection_cuda(x, w, bias=None):
     _check(name, x, (rows, k), dev, dtype)
     _require_cuda(name, w, 2)
     m = w.shape[1]
-    for t in (w,) if bias is None else (w, bias):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: w and bias are the packed float32 weights, got "
-                            f"{t.dtype}")
-    _check(name, w, (k, m), dev)
+    if w.dtype != dtype:
+        raise TypeError(f"{name}: w must be the packed blocks in x's dtype {dtype}, got "
+                        f"{w.dtype}")
+    if bias is not None and bias.dtype != torch.float32:
+        raise TypeError(f"{name}: the bias is the packed float32 b1, got {bias.dtype}")
+    _check(name, w, (k, m), dev, dtype)
     if bias is not None:
         _check(name, bias, (m,), dev)
     if not (1 <= k <= PROJECTION_MAX_K and 4 <= m <= PROJECTION_MAX_M and m % 4 == 0):
@@ -835,28 +859,43 @@ def chgnet_row_projection_cuda(x, w, bias=None):
     return y
 
 
-def chgnet_projection_plan(rows: int, k: int, m: int, device=None):
+def chgnet_projection_plan(rows: int, k: int, m: int, device=None, dtype=torch.float32):
     """The row projection's launch plan at (rows, K, M) on ``device`` (a
-    card): ``{"tile_rows", "tiles", "blocks", "rows_per_thread"}``, the
-    persistent grid walking ``tiles`` row tiles with ``blocks`` blocks.
-    The tile height (5 or 8 rows a thread) follows from the row count."""
+    card), the persistent grid walking ``tiles`` row tiles with ``blocks``
+    blocks. float32: ``{"tile_rows", "tiles", "blocks",
+    "rows_per_thread"}``, the tile height (5 or 8 rows a thread) following
+    from the row count. bfloat16 (the tensor-core kernel): ``{"tile_rows",
+    "tiles", "blocks", "k16_steps", "block_columns"}`` and
+    ``"l2_bytes"``, what the call brings from L2 (or HBM) into shared
+    memory: every x row once (2 K bytes) and W (K M bf16) and the bias
+    once a block."""
     if not (1 <= k <= PROJECTION_MAX_K and 4 <= m <= PROJECTION_MAX_M and m % 4 == 0):
         raise _projection_shape_error(PROJECTION, k, m)
-    out = (ctypes.c_int64 * 4)()
+    half = dtype == torch.bfloat16
+    keys = (("tile_rows", "tiles", "blocks", "k16_steps", "block_columns") if half
+            else ("tile_rows", "tiles", "blocks", "rows_per_thread"))
+    out = (ctypes.c_int64 * len(keys))()
+    symbol = ("distmlip_chgnet_row_projection_bf16_plan" if half
+              else "distmlip_chgnet_row_projection_plan")
     with torch.cuda.device(device):
-        err = _chgnet_fn("distmlip_chgnet_row_projection_plan")(rows, k, m, out)
+        err = _chgnet_fn(symbol)(rows, k, m, out)
     if err != 0:
         raise RuntimeError(f"{PROJECTION} plan failed: cudaError_t {err}")
-    return dict(zip(("tile_rows", "tiles", "blocks", "rows_per_thread"), out))
+    plan = dict(zip(keys, out))
+    if half:
+        plan["l2_bytes"] = 2 * rows * k + plan["blocks"] * (2 * k * m + 4 * m)
+    return plan
 
 
 def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segment_ids,
                    num_segments, mask, channels, hidden, device):
     """Project the gathered segments' rows (``gathered``: (node rows, int32
-    ids) per gathered segment, in segment order) into float32 tables, then
-    launch the per-edge kernel of ``edge``'s dtype with the tables, the
-    edge rows at ``edge_seg`` and ``extra`` (abw) after the segments; the
-    output in that dtype."""
+    ids) per gathered segment, in segment order) into float32 tables with
+    this module's ``chgnet_row_projection_cuda``, looked up at call time
+    (the card checks put another projection in its place to give a float32
+    call the bf16 call's tables), then launch the per-edge kernel
+    of ``edge``'s dtype with the tables, the edge rows at ``edge_seg`` and
+    ``extra`` (abw) after the segments; the output in that dtype."""
     e = segment_ids.shape[0]
     symbol_suffix, count_suffix = _DTYPES[edge.dtype]
     out = torch.empty((num_segments, channels), dtype=edge.dtype, device=device)

@@ -24,7 +24,9 @@ In bfloat16 (the models' ``compute_dtype="bfloat16"``) the kernel takes
 bf16 rows and one bf16 weight buffer (no split: a bf16 product is exact in
 fp32), accumulates in fp32 on the tensor cores and rounds each output to
 bf16 once, as the Pallas body does (``preferred_element_type=f32``, one
-``astype`` on the way out).
+``astype`` on the way out). Its schedule is its own: a persistent grid of
+128 x 256 output tiles (``so2_bf16_plan``; ``so2_bf16_l2_bytes`` counts
+what a plan brings from L2 into shared memory).
 
 ``so2_conv_cuda`` takes CUDA tensors only, float32 or bfloat16, and raises
 on anything else; ``so2_conv_reference`` is the plain version (for bf16
@@ -297,6 +299,58 @@ def pack_so2_weights(weights, segments, channels: int, backward: bool = True):
 
 
 _SYMBOLS = {torch.float32: "distmlip_so2_conv_f32", torch.bfloat16: "distmlip_so2_conv_bf16"}
+
+
+def so2_bf16_l2_bytes(e: int, widths, tile_rows: int = 128, tile_cols: int = 256) -> tuple:
+    """(A bytes, B bytes) that the bf16 kernel brings from L2 (or HBM) into
+    shared memory for one call at E edge rows and the segments' ``widths``
+    (d for m = 0, 2d for m > 0), for an output tile of ``tile_rows`` x
+    ``tile_cols``: A, each segment's E x width bf16 entries once per column
+    tile of the segment (rows past E are TMA zero fill, not read); B, each
+    segment's packed block (width rounded up to 128 rows of width rounded
+    up to 64 entries) once per row tile. The first bf16 design (192 x 128
+    tiles) moved 2.03 GB at (32768, 25, 128); this one (128 x 256) 1.85 GB."""
+    row_tiles = -(-e // tile_rows)
+    a = sum(2 * e * w * -(-w // tile_cols) for w in widths)
+    b = sum(2 * row_tiles * -(-w // 128) * 128 * -(-w // 64) * 64 for w in widths)
+    return a, b
+
+
+def so2_bf16_plan(e: int, segments, channels: int, device=None) -> dict:
+    """The bf16 kernel's launch plan at E edge rows, ``segments`` and C on
+    ``device`` (a card), as ``so2_conv_cuda`` launches it on contiguous,
+    16-byte aligned h: ``tile_rows`` x ``tile_cols`` output tiles,
+    ``row_tiles`` x ``col_tiles`` tiles walked as ``tiles`` (row tile,
+    column tile) pairs by ``blocks`` blocks (one an SM at most),
+    ``a_mode`` (0 TMA, 1 16-byte copies, 2 element copies), ``stages``; and
+    ``l2_bytes_a`` / ``l2_bytes_b`` (``so2_bf16_l2_bytes``)."""
+    keys = ("tile_rows", "tile_cols", "row_tiles", "col_tiles", "tiles", "blocks", "a_mode",
+            "stages")
+    seg_m = [int(m) for m, _, _ in segments]
+    seg_nl = [int(nl) for _, _, nl in segments]
+    out = (ctypes.c_int64 * len(keys))()
+    fn = _plan_fn()
+    with torch.cuda.device(device):
+        err = fn(e, channels, len(seg_m), (ctypes.c_int * len(seg_m))(*seg_m),
+                 (ctypes.c_int * len(seg_nl))(*seg_nl), 8 if channels % 8 == 0 else 1, out)
+    if err != 0:
+        raise RuntimeError(f"so2_conv bf16 plan failed: cudaError_t {err}")
+    plan = dict(zip(keys, out))
+    widths = [nl * channels * (1 if m == 0 else 2) for m, nl in zip(seg_m, seg_nl)]
+    plan["l2_bytes_a"], plan["l2_bytes_b"] = so2_bf16_l2_bytes(
+        e, widths, plan["tile_rows"], plan["tile_cols"])
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_fn():
+    from .build import load
+
+    fn = load("so2_conv").distmlip_so2_conv_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p]
+    return fn
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,8 +1,9 @@
-"""Time the segment sum (B1) and the CHGNet row projection of one checkout on
-the card, at the shapes the main paths give them, split three ways.
+"""Time the segment sum (B1), the CHGNet row projection and the SO(2)
+convolution (B3) of one checkout on the card, at the shapes the main paths
+give them, split three ways.
 
     python distmlip_tpu_torch/tools/kernel_ab.py [--root DIR] [--label L]
-        [--out FILE]
+        [--out FILE] [--steps N]
 
 ``--root`` names the checkout whose ``distmlip_tpu_torch`` is imported (by
 default the one holding this file), so one process per checkout, in turns
@@ -19,8 +20,9 @@ each shape it prints one JSON line:
 - ``host_us``: host microseconds per call, the host clock over 200 calls
   with no sync between them;
 - the same for one PyTorch call that computes the same function
-  (``index_add_`` of the masked rows; ``addmm``): ``library_ms``,
-  ``library_kernel_ms``, ``library_host_us``.
+  (``index_add_`` of the masked rows; ``addmm``, on bf16 rows with a
+  float32 output; B3: the five cuBLAS products on pre-packed operands):
+  ``library_ms``, ``library_kernel_ms``, ``library_host_us``.
 
 Shapes: B1 at width 1 on the crystal graph of the MACE path (2048 Si,
 cutoff 5 Å, skin 0.5: its own dst ids and mask, the pair term's sum with
@@ -28,17 +30,33 @@ cutoff 5 Å, skin 0.5: its own dst ids and mask, the pair term's sum with
 (32768, 40 x 128) and eSCN's (32768, 25 x 128), each chunk with ~47 edges
 a row, a 3000-edge padding tail and 200 masked edges; the row projection at
 CHGNet's atom tables (19,712, 64) @ (64, 128) and (64, 256) and its bond
-table (236,032, 64) @ (64, 256). ``chip_smoke.py`` imports ``cuda_ms``,
-``slice_case``, ``split`` and ``library_split`` from here, so its
-``[kernels]`` lines time the same cases the same ways. Needs a card; exits
-non-zero without one.
+table (236,032, 64) @ (64, 256), on float32 rows and on bf16 rows (with
+bf16 packed blocks when the checkout's ``chgnet_projection_plan`` takes a
+``dtype``, the tensor-core kernel's; float32 blocks otherwise, as an older
+checkout's bf16 projection took them); B3 at eSCN's chunk (32768, 25, 128),
+l_max 4, in float32 and bf16, forward and on the backward's route (the
+transposed weight set, ``backward_ms`` and ``backward_kernel_ms``), on
+weights packed once. ``chip_smoke.py`` imports ``cuda_ms``,
+``slice_case``, ``split``, ``library_split`` and
+``projection_library_call`` from here, so its ``[kernels]`` lines time the
+same cases the same ways.
+
+``--steps N`` times, in place of the kernels, the eSCN and CHGNet main
+paths end to end, in bfloat16 and in float32, as ``chip_smoke.py``'s ``[main-escn-bf16]`` and
+``[main-chgnet-bf16]`` build them (the same structures, seeds and readout
+terms; ``DistPotential`` with the checkout's kernels): one calculate that
+builds the graph, then N MD-like calculates (``step_ms``, host clock to
+the card's sync, and their median). Needs a card; exits non-zero without
+one.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
+import statistics
 import sys
 import time
 
@@ -73,24 +91,29 @@ def host_us(torch, fn, iters=200, warmup=5):
     return (t1 - t0) / iters * 1e6
 
 
-def device_split(torch, fn, key=None, iters=20):
+def device_split(torch, fn, key=None, iters=20, tries=2):
     """(ms per call of the kernels whose name holds ``key``, ms per call of
     every kernel) under ``torch.profiler``; ``key`` None gives the total
-    twice."""
+    twice. A window in which the profiler recorded no device time at all
+    (it sometimes drops one) is profiled again, up to ``tries`` times, then
+    reads (None, None): not measured, never 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    total = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
-    own = (total if key is None else
-           sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3 / iters)
-    return own, total
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        total = sum(e.self_device_time_total for e in kernels) / 1e3 / iters
+        if total > 0:
+            own = (total if key is None else
+                   sum(e.self_device_time_total for e in kernels if key in e.key) / 1e3 / iters)
+            return own, total
+    return None, None
 
 
 def split(torch, fn, key):
@@ -155,16 +178,116 @@ def time_segment_sum(torch, name, data, ids, mask, n):
     return row
 
 
-def time_projection(torch, rows, k, m, gen):
+def projection_library_call(torch, x, w, bias):
+    """(name, fn): one PyTorch call of the bf16 row projection's function,
+    bf16 operands into a float32 table with the float32 bias: ``addmm``
+    with ``out_dtype`` (``aten::addmm.dtype``)."""
+    return ("torch.addmm(bias, x, w, out_dtype=torch.float32)",
+            lambda: torch.addmm(bias, x, w, out_dtype=torch.float32))
+
+
+def time_projection(torch, rows, k, m, gen, dtype=None):
     from distmlip_tpu_torch import kernels as K
 
-    x = torch.randn((rows, k), generator=gen, device="cuda")
+    dtype = dtype or torch.float32
+    x = torch.randn((rows, k), generator=gen, device="cuda").to(dtype)
     w = torch.randn((k, m), generator=gen, device="cuda") / k ** 0.5
     b = torch.randn(m, generator=gen, device="cuda")
-    row = {"kernel": "chgnet_row_projection", "shape": [rows, k, m]}
+    row = {"kernel": "chgnet_row_projection", "dtype": str(dtype).split(".")[-1],
+           "shape": [rows, k, m]}
+    if dtype == torch.bfloat16:
+        if "dtype" in inspect.signature(K.chgnet_projection_plan).parameters:
+            w = w.bfloat16()  # the tensor-core kernel takes the packed blocks in bf16
+        row["w_dtype"] = str(w.dtype).split(".")[-1]
+        name, call = projection_library_call(torch, x, w.bfloat16(), b)
+        row["library"] = name
+    else:
+        call = lambda: torch.addmm(b, x, w)  # noqa: E731
     row.update(split(torch, lambda: K.chgnet_row_projection_cuda(x, w, b), "row_projection"))
-    row.update(library_split(torch, lambda: torch.addmm(b, x, w)))
+    row.update(library_split(torch, call))
+    if dtype == torch.bfloat16:
+        row["library_bf16_out_ms"] = cuda_ms(torch, lambda: torch.addmm(
+            b.bfloat16(), x, w.bfloat16()))
     return row
+
+
+def time_so2(torch, gen, dtype):
+    """B3 at eSCN's chunk, forward and on the backward's route, beside the
+    five cuBLAS products on pre-packed operands ([f+ | f-] and [[Wr, Wi],
+    [-Wi, Wr]] built beforehand: the GEMM work alone)."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import dispatch
+    from distmlip_tpu_torch.ops.so3_e3nn import CoeffLayout
+
+    e, l_max, c = 32768, 4, 128
+    lay = CoeffLayout(l_max)
+    m_idx = {m: (lay.plus_idx[m], lay.minus_idx[m]) for m in range(l_max + 1)}
+    h = torch.randn((e, (l_max + 1) ** 2, c), generator=gen, device="cuda").to(dtype)
+    weights = [(torch.randn((d, d), generator=gen, device="cuda") / d ** 0.5).to(dtype)
+               for m in range(l_max + 1)
+               for d in [(l_max + 1 - m) * c] * (1 if m == 0 else 2)]
+    perm, _, segments = K.packed_m_layout(m_idx)
+    packed = K.pack_so2_weights(weights, segments, c)
+    back, wt = packed.transposed(), dispatch._so2_transposed_weights(weights, segments)
+    row = {"kernel": "so2_conv", "dtype": str(dtype).split(".")[-1], "shape": [e, 25, c]}
+    row.update(split(torch, lambda: K.so2_conv_cuda(h, weights, segments, c, perm,
+                                                    packed=packed), "so2_conv"))
+    bwd = lambda: K.so2_conv_cuda(h, wt, segments, c, perm, packed=back)  # noqa: E731
+    row["backward_ms"] = cuda_ms(torch, bwd)
+    row["backward_kernel_ms"] = device_split(torch, bwd, "so2_conv")[0]
+    hp = h[:, torch.as_tensor(perm, device="cuda").long()]
+    operands, wi = [], 0
+    for m, start, nl in segments:
+        d = nl * c
+        if m == 0:
+            operands.append((hp[:, start:start + nl].reshape(e, d).contiguous(), weights[wi]))
+            wi += 1
+        else:
+            wr, wim = weights[wi], weights[wi + 1]
+            wi += 2
+            blk = torch.cat([torch.cat([wr, wim], 1), torch.cat([-wim, wr], 1)], 0)
+            operands.append((hp[:, start:start + 2 * nl].reshape(e, 2 * d).contiguous(), blk))
+    del hp
+    row.update(library_split(torch, lambda: [torch.matmul(a, b) for a, b in operands]))
+    row["library"] = "five cuBLAS products on pre-packed operands"
+    return row
+
+
+def time_steps(torch, family, dtype, steps):
+    """One calculate, then ``steps`` MD-like calculates (0.01 Å moves) of
+    the eSCN (2048 atoms, example 05's conditioning) or CHGNet (16384
+    atoms, magmoms, off-default readout terms) main path in ``dtype``, as
+    ``chip_smoke.py`` builds them."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig, ESCN, ESCNConfig
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW, ESCN_INFO, ESCN_KW, bench_atoms
+
+    cls, cfg, kw, reps = {"escn": (ESCN, ESCNConfig, ESCN_KW, 8),
+                          "chgnet": (CHGNet, CHGNetConfig, CHGNET_KW, 16)}[family]
+    kw = dict(kw, dtype=str(dtype).split(".")[-1])
+    model = cls(cfg(**kw))
+    params = model.init(0)
+    atoms, rng = bench_atoms(reps)
+    shape = (kw["num_species"],) if family == "escn" else (kw["num_species"], 1)
+    params["species_ref"]["w"] = torch.randn(shape, generator=torch.Generator().manual_seed(0))
+    pot_kw = {}
+    if family == "escn":
+        atoms.info = dict(ESCN_INFO)
+    else:
+        params["data_std"] = torch.tensor(1.3)
+        pot_kw = {"compute_magmom": True}
+    pot = DistPotential(model, params, device="cuda", skin=0.5, **pot_kw)
+    secs = []
+    for step in range(1 + steps):
+        if step:
+            atoms.positions += rng.normal(0, 0.01, atoms.positions.shape)
+        t = time.perf_counter()
+        pot.calculate(atoms)
+        torch.cuda.synchronize()
+        secs.append((time.perf_counter() - t) * 1e3)
+    return {"kernel": "steps", "family": family, "dtype": kw["dtype"], "n_atoms": len(atoms),
+            "first_calculate_ms": secs[0], "step_ms": secs[1:],
+            "median_step_ms": statistics.median(secs[1:]), "rebuilds": pot.rebuild_count}
 
 
 def main(argv=None) -> int:
@@ -172,6 +295,8 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=None, help="checkout to import (default: this one)")
     ap.add_argument("--label", default="", help="tag printed on every line")
     ap.add_argument("--out", default=None, help="also append the lines to this file")
+    ap.add_argument("--steps", type=int, default=0,
+                    help="time N calculates of the eSCN and CHGNet main paths instead")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.root or os.path.join(os.path.dirname(__file__), "..", ".."))
     sys.path.insert(0, root)
@@ -186,30 +311,43 @@ def main(argv=None) -> int:
 
     if not os.path.abspath(distmlip_tpu_torch.__file__).startswith(root):
         raise RuntimeError(f"imported {distmlip_tpu_torch.__file__}, not {root}'s package")
-    rows = [{"kernel": "build", "seconds": build.build(["segment_sum", "chgnet_aggregate"])}]
-    gen = torch.Generator(device="cuda").manual_seed(1234)
-    dst, mask, n_cap = crystal_graph(torch)
-    data = torch.randn((dst.shape[0], 1), generator=gen, device="cuda")
-    rows.append(time_segment_sum(torch, "zbl_width1", data, dst, mask, n_cap))
-    # the same graph cut at its last valid edge: what the last row's masked
-    # padding tail costs
-    cut = int(torch.nonzero(mask).max()) + 1
-    rows.append(time_segment_sum(torch, "zbl_width1_cut", data[:cut].contiguous(),
-                                 dst[:cut].contiguous(), mask[:cut].contiguous(), n_cap))
-    for name, trailing in (("mace_16x128", (16, 128)), ("mace_40x128", (40, 128)),
-                           ("escn_25x128", (25, 128))):
-        rows.append(time_segment_sum(torch, name, *slice_case(torch, gen, 32768, trailing)))
-        torch.cuda.empty_cache()
-    for r, k, m in ((19712, 64, 128), (19712, 64, 256), (236032, 64, 256)):
-        rows.append(time_projection(torch, r, k, m, gen))
     smi = os.popen("nvidia-smi --query-gpu=name,power.limit --format=csv,noheader").read()
-    for row in rows:
+
+    def emit(row):
         row.update(label=args.label, card=smi.strip())
         line = json.dumps(row)
         print(line, flush=True)
         if args.out:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
+
+    emit({"kernel": "build",
+          "seconds": build.build(["segment_sum", "chgnet_aggregate", "so2_conv"])})
+    if args.steps:
+        for family in ("escn", "chgnet"):
+            for dtype in (torch.bfloat16, torch.float32):
+                emit(time_steps(torch, family, dtype, args.steps))
+                torch.cuda.empty_cache()
+        return 0
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    dst, mask, n_cap = crystal_graph(torch)
+    data = torch.randn((dst.shape[0], 1), generator=gen, device="cuda")
+    emit(time_segment_sum(torch, "zbl_width1", data, dst, mask, n_cap))
+    # the same graph cut at its last valid edge: what the last row's masked
+    # padding tail costs
+    cut = int(torch.nonzero(mask).max()) + 1
+    emit(time_segment_sum(torch, "zbl_width1_cut", data[:cut].contiguous(),
+                          dst[:cut].contiguous(), mask[:cut].contiguous(), n_cap))
+    for name, trailing in (("mace_16x128", (16, 128)), ("mace_40x128", (40, 128)),
+                           ("escn_25x128", (25, 128))):
+        emit(time_segment_sum(torch, name, *slice_case(torch, gen, 32768, trailing)))
+        torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        for r, k, m in ((19712, 64, 128), (19712, 64, 256), (236032, 64, 256)):
+            emit(time_projection(torch, r, k, m, gen, dtype))
+    for dtype in (torch.float32, torch.bfloat16):
+        emit(time_so2(torch, gen, dtype))
+        torch.cuda.empty_cache()
     return 0
 
 

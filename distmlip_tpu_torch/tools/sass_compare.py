@@ -79,10 +79,13 @@ def main(argv=None) -> int:
     for name, body in sorted(old.items()):
         key = base_name(name)
         match = new_by.get(key)
+        if match is None:  # a kernel the change removed or renamed: listed, not compared
+            print(f"{key[0]}<{key[1]}>: only in the first source, {len(body)} instructions")
+            continue
         same = match == body
         differ |= not same
         print(f"{key[0]}<{key[1]}>: {len(body)} instructions, the second source "
-              f"{'none' if match is None else len(match)}, identical: {same}")
+              f"{len(match)}, identical: {same}")
     for key, body in sorted(new_by.items()):
         if key not in {base_name(n) for n in old}:
             print(f"{key[0]}<{key[1]}>: only in the second source, {len(body)} instructions")

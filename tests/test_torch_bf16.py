@@ -188,7 +188,8 @@ def test_b2_kernels_refuse_bf16(monkeypatch):
     TensorNet's and CHGNet's alike (the bf16 C symbol, a bf16 output, the
     ``*_bf16`` launch count; CHGNet's row projections the bf16 symbol too,
     once per distinct gathered tensor) and are never rounded up to float32
-    silently; float16, and a call that mixes float32 and bf16, still raise.
+    silently; float16, a call that mixes float32 and bf16, and a bf16
+    projection given float32 blocks or a bf16 bias, still raise.
     The C functions are stood in by a recorder (the wrappers run as on the
     card, up to the launch)."""
     from distmlip_tpu_torch.kernels import edge_aggregate
@@ -265,8 +266,10 @@ def test_b2_kernels_refuse_bf16(monkeypatch):
         K.fused_edge_aggregate(K.CHGNET_LINE_CONV, [K.Gather(bf(5, c).half(), ids), K.Gather(
             bf(5, c).half(), ids), bf(e, c).half(), K.Gather(bf(3, c).half(), ids)], ids, 2,
             weights=tuple(w.half() for w in line_weights))
-    with pytest.raises(TypeError, match="packed float32"):
-        K.chgnet_row_projection_cuda(bf(3, c), bf(c, 8))
+    with pytest.raises(TypeError, match="x's dtype"):  # float32 blocks beside bf16 rows
+        K.chgnet_row_projection_cuda(bf(3, c), bf(c, 8).float())
+    with pytest.raises(TypeError, match="float32 b1"):
+        K.chgnet_row_projection_cuda(bf(3, c), bf(c, 8), bf(8))
     assert symbols == []
 
 

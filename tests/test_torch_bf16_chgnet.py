@@ -41,9 +41,10 @@ the chunked backward's node cotangents through fp32 views.
 - (e) 5 FIRE steps with the cell relaxed (``examples/02_relax_chgnet.py``'s
   ``Relaxer``) from the same start: bf16 energies within 1e-2 eV/atom of
   float32's at every step.
-- (f) The row projection's plain version on bf16 rows (float32 weights and
-  table) against the float64 product, within one side's float32 bound
-  (K + 2) 2^-24 T; the weight packing upcasts bf16 weights exactly.
+- (f) The row projection's plain version on bf16 rows (bf16 packed blocks,
+  a float32 table) against the float64 product, within one side's float32
+  bound (K + 2) 2^-24 T; the weight packing keeps the blocks bf16 and
+  upcasts the rest exactly; the bar of the tensor-core kernel's bf16 form.
 
 The kernels themselves run only on a card (``tests/test_torch_cuda.py``).
 """
@@ -338,9 +339,10 @@ def test_row_projection_plain_bf16_against_float64():
     _, weights = chgnet_inputs(12, "atom", 4, c, h)
     wb = [_bf16(w) for w in weights]
     packed = chgnet_pack_weights(wb, 3, 2, c)
-    for got, want in ((packed.blocks[0][:, :h], wb[0][:c]), (packed.w2[:h, :c], wb[2]),
-                      (packed.b1[:h], wb[1])):
-        assert got.dtype == torch.float32 and torch.equal(got, want.float())
+    for got, want, dtype in ((packed.blocks[0][:, :h], wb[0][:c], torch.bfloat16),
+                             (packed.w2[:h, :c], wb[2], torch.float32),
+                             (packed.b1[:h], wb[1], torch.float32)):
+        assert got.dtype == dtype and torch.equal(got.float(), want.float())
     x = _bf16(rng.normal(size=(rows, c)).astype(np.float32))
     w = torch.cat(packed.blocks, -1)
     for bias in (None, torch.nn.functional.pad(packed.b1, (0, packed.b1.shape[0]))):
@@ -349,8 +351,10 @@ def test_row_projection_plain_bf16_against_float64():
         exact = x.double() @ w.double() + (0.0 if bias is None else bias.double())
         t = x.double().abs() @ w.double().abs() + (0.0 if bias is None else bias.double().abs())
         assert bool(((y.double() - exact).abs() <= (c + 2) * 2.0 ** -24 * t).all())
-        assert torch.equal(chgnet_projection_error_bound(x, w, bias),
-                           chgnet_projection_error_bound(x.float(), w, bias))
+        # the kernel's side takes its products on the tensor cores: its own bar
+        torch.testing.assert_close(chgnet_projection_error_bound(x, w, bias),
+                                   chgnet_projection_error_bound(x.float(), w.float(), bias)
+                                   * (36 + c + 2) / (2 * (c + 2)), rtol=1e-6, atol=0)
 
 
 def test_workload_chgnet_bf16_configuration():

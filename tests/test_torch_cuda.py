@@ -13,6 +13,8 @@ which hold the port's plain versions against the JAX package on the same
 cases.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -1902,14 +1904,30 @@ def _upcast(arrays, weights):
     return up, [w.float() for w in weights]
 
 
+def _bf16_tables(x, w, bias):
+    """The bf16 call's row projection for a float32 call on upcast bf16
+    inputs: the same (exactly representable) values through the bf16
+    tensor-core kernel, so both calls' per-edge kernels read one set of
+    float32 tables."""
+    from distmlip_tpu_torch import kernels as K
+
+    return K.chgnet_row_projection_cuda(x.bfloat16(), w.bfloat16(), bias)
+
+
 def _chgnet_bf16_check(which, arrays, weights, ti, tm, n, projections):
     """One bf16 call of a CHGNet kernel against its plain bf16 version
     within ``chgnet_aggregate_error_bound``'s bf16 form: a bf16 output, one
     ``*_bf16`` launch and ``projections`` bf16 row projections, no float32
-    launch. Then bit for bit against the float32 kernel on the upcast
-    inputs, rounded to bf16: the bf16 kernel makes the float32 kernel's
-    FMAs in its order on the same values and rounds once."""
+    launch. Then the bf16 per-edge kernel bit for bit against the float32
+    per-edge kernel on the upcast inputs and the same float32 tables (the
+    float32 call given the bf16 projection in the place of
+    ``edge_aggregate.chgnet_row_projection_cuda``), rounded to bf16: the bf16
+    kernel makes the float32 kernel's FMAs in its order on the same values
+    and rounds once. (The tables themselves come from the tensor cores in
+    another summation order than the float32 projection's; the projection
+    is held to its own bar in ``test_chgnet_row_projection_bf16_*``.)"""
     from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import edge_aggregate
 
     if which == "atom":
         cuda, ref = K.chgnet_atom_conv_aggregate_cuda, K.chgnet_atom_conv_aggregate_reference
@@ -1925,7 +1943,9 @@ def _chgnet_bf16_check(which, arrays, weights, ti, tm, n, projections):
     assert launched == dict({k: 0 for k in launched}, **{count: 1},
                             chgnet_row_projection_bf16=projections)
     f32_arrays, f32_weights = _upcast(arrays, weights)
-    assert torch.equal(got, cuda(*f32_arrays, f32_weights, ti, n, tm).bfloat16())
+    with mock.patch.object(edge_aggregate, "chgnet_row_projection_cuda", _bf16_tables):
+        f32 = cuda(*f32_arrays, f32_weights, ti, n, tm)
+    assert torch.equal(got, f32.bfloat16())
     assert got.shape == want.shape == (n, arrays[4].shape[1])
     assert got.dtype == want.dtype == torch.bfloat16
     x, abw = chgnet_rows(which, arrays)
@@ -1993,18 +2013,20 @@ PROJECTION_BF16_CASES = dict(PROJECTION_CASES, k6=(300, 6, 24, True))
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", sorted(PROJECTION_BF16_CASES))
 def test_chgnet_row_projection_bf16_matches_plain_on_card(card, name):
-    """The bf16 row projection (bf16 rows; W, the bias and the table
-    float32) vs its plain version, the float32 product of the same values,
-    within ``chgnet_projection_error_bound``, and bit for bit against the
-    float32 kernel on the upcast rows; one ``*_bf16`` launch and no float32
-    one: K % 8 == 0 takes the 16-byte copies, K = 6 and 7 the plain loads.
-    A bf16 W is refused (the packed weights are float32)."""
+    """The bf16 row projection (bf16 rows and W, bf16 products on the
+    tensor cores, the bias and the table float32) vs its plain version, the
+    float32 product of the same values, within
+    ``chgnet_projection_error_bound``'s bf16 form, bitwise the same on a
+    second call; one ``*_bf16`` launch and no float32 one: K % 8 == 0 takes
+    the 16-byte copies, K = 6 and 7 the plain loads. A float32 W with bf16
+    rows is refused (nothing is rounded quietly)."""
     from distmlip_tpu_torch import kernels as K
 
     rows, k, m, has_bias = PROJECTION_BF16_CASES[name]
     rng = np.random.default_rng(800 + rows)
     x = torch.from_numpy(rng.normal(size=(rows, k)).astype(np.float32)).to(card).bfloat16()
     w = torch.from_numpy((rng.normal(size=(k, m)) / np.sqrt(k)).astype(np.float32)).to(card)
+    w = w.bfloat16()
     b = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(card) if has_bias else None
     before = dict(K.launch_counts)
     got = K.chgnet_row_projection_cuda(x, w, b)
@@ -2015,9 +2037,9 @@ def test_chgnet_row_projection_bf16_matches_plain_on_card(card, name):
     bound = K.chgnet_projection_error_bound(x, w, b)
     assert got.shape == (rows, m) and got.dtype == want.dtype == torch.float32
     assert bool(((got - want).abs() <= bound + 1e-30).all())
-    assert torch.equal(got, K.chgnet_row_projection_cuda(x.float(), w, b))
-    with pytest.raises(TypeError, match="packed float32"):
-        K.chgnet_row_projection_cuda(x, w.bfloat16(), b)
+    assert torch.equal(got, K.chgnet_row_projection_cuda(x, w, b))
+    with pytest.raises(TypeError, match="x's dtype"):
+        K.chgnet_row_projection_cuda(x, w.float(), b)
 
 
 @pytest.mark.cuda
@@ -2084,3 +2106,170 @@ def test_bf16_b2_routes_and_refusals_on_card(card):
         a, b = a.detach().float(), b.detach().float()
         assert float((a - b).abs().max()) <= 0.02 * float(b.abs().max())
     assert out.dtype == torch.bfloat16 and all(x.dtype == torch.bfloat16 for x in got)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 kernels on the tensor cores: the row projection's shapes and
+# persistent grid; B3 bf16's plan, A modes and persistent grid
+# ---------------------------------------------------------------------------
+
+def _projection_bf16_on_card(card, rows, k, m, bias, seed, offset=0):
+    """One bf16 row projection against its plain version within
+    ``chgnet_projection_error_bound``'s bf16 form, one launch (none at 0
+    rows); x is a view ``offset`` elements into its buffer (an odd offset
+    is off the 16-byte boundary: the plain loads)."""
+    from distmlip_tpu_torch import kernels as K
+
+    rng = np.random.default_rng(seed)
+    buf = torch.from_numpy(rng.normal(size=rows * k + offset).astype(np.float32)).to(card)
+    x = buf.bfloat16()[offset:].view(rows, k)
+    w = torch.from_numpy((rng.normal(size=(k, m)) / np.sqrt(k)).astype(np.float32)).to(card)
+    w = w.bfloat16()
+    b = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(card) if bias else None
+    before = K.launch_counts["chgnet_row_projection_bf16"]
+    got = K.chgnet_row_projection_cuda(x, w, b)
+    torch.cuda.synchronize()
+    assert K.launch_counts["chgnet_row_projection_bf16"] == before + (1 if rows else 0)
+    want = K.chgnet_row_projection_reference(x, w, b)
+    bound = K.chgnet_projection_error_bound(x, w, b)
+    assert got.shape == (rows, m) and got.dtype == torch.float32
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= bound + 1e-30).all()), (rows, k, m, bias, offset)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 128, 132, 256])
+@pytest.mark.parametrize("k", [1, 6, 7, 16, 63, 64])
+def test_chgnet_row_projection_bf16_shapes_on_card(card, k, m):
+    """The bf16 projection at K from 1 to 64 (one to four k16 steps, K % 8
+    != 0 on the plain loads), M from 4 to 256 (both column plans), rows 0,
+    1 and a tile +- 1, with and without bias, on aligned and unaligned
+    views of x."""
+    from distmlip_tpu_torch import kernels as K
+
+    tile = K.chgnet_projection_plan(1, k, m, card, torch.bfloat16)["tile_rows"]
+    assert tile == (64 if m > 128 else 128)
+    for rows in (0, 1, tile - 1, tile + 1):
+        for bias in (True, False):
+            for offset in (0, 3):
+                _projection_bf16_on_card(card, rows, k, m, bias, 10 * rows + k + m, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [128, 256])
+def test_chgnet_row_projection_bf16_persistent_grid_on_card(card, m):
+    """The persistent grid at 1, grid - 1, grid and grid + 1 tiles and past
+    two rounds, whole and with a ragged last tile (the plan's tiles and
+    blocks checked); the bond table's shape; the same bits on a second
+    call."""
+    from distmlip_tpu_torch import kernels as K
+
+    plan = K.chgnet_projection_plan(10 ** 6, 64, m, card, torch.bfloat16)
+    tile, grid = plan["tile_rows"], plan["blocks"]
+    assert grid == torch.cuda.get_device_properties(card).multi_processor_count
+    for tiles in (1, grid - 1, grid, grid + 1, 2 * grid + 3):
+        for rows in (tiles * tile, tiles * tile - 5):
+            p = K.chgnet_projection_plan(rows, 64, m, card, torch.bfloat16)
+            assert p["tiles"] == tiles and p["blocks"] == min(tiles, grid)
+            _projection_bf16_on_card(card, rows, 64, m, True, rows)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.normal(size=(236032, 64)).astype(np.float32)).to(card).bfloat16()
+    w = torch.from_numpy(rng.normal(size=(64, m)).astype(np.float32) / 8).to(card).bfloat16()
+    b = torch.from_numpy(rng.normal(size=m).astype(np.float32)).to(card)
+    got = K.chgnet_row_projection_cuda(x, w, b)
+    assert torch.equal(got, K.chgnet_row_projection_cuda(x, w, b))
+    bound = K.chgnet_projection_error_bound(x, w, b)
+    assert bool(((got - K.chgnet_row_projection_reference(x, w, b)).abs() <= bound).all())
+
+
+def _so2_one_segment(card, e, c, seed):
+    """h (E, 1, C) bf16 and one m = 0 block W0 (C, C): a single column tile
+    at C <= 256, so the walk's tiles are the row-tile pairs."""
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.normal(size=(e, 1, c)).astype(np.float32)).to(card).bfloat16()
+    w0 = torch.from_numpy((rng.normal(size=(c, c)) / np.sqrt(c)).astype(np.float32))
+    return h, [w0.to(card).bfloat16()], ((0, 0, 1),)
+
+
+@pytest.mark.cuda
+def test_so2_conv_bf16_plan_on_card(card):
+    """The bf16 plan at eSCN's chunk: 128 x 256 tiles, the TMA rows, 13
+    column tiles x 256 row tiles walked by a grid of one block an SM, 1.85
+    GB from L2 (the first design's 192 x 128 tiles: 2.03 GB); one row tile
+    is 13 tiles on 13 blocks; C 8 and 7 take the copies."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.ops.so3_e3nn import CoeffLayout
+
+    lay = CoeffLayout(4)
+    _, _, segments = K.packed_m_layout({m: (lay.plus_idx[m], lay.minus_idx[m])
+                                        for m in range(5)})
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    plan = K.so2_bf16_plan(32768, segments, 128, card)
+    assert (plan["tile_rows"], plan["tile_cols"], plan["a_mode"]) == (128, 256, 0)
+    assert (plan["row_tiles"], plan["col_tiles"], plan["tiles"]) == (256, 13, 256 * 13)
+    assert plan["blocks"] == sms
+    assert plan["l2_bytes_a"] + plan["l2_bytes_b"] == 1_845_493_760
+    one = K.so2_bf16_plan(128, segments, 128, card)
+    assert (one["row_tiles"], one["tiles"], one["blocks"]) == (1, 13, 13)
+    assert K.so2_bf16_plan(300, segments, 8, card)["a_mode"] == 1
+    assert K.so2_bf16_plan(300, segments, 7, card)["a_mode"] == 2
+
+
+@pytest.mark.cuda
+def test_so2_conv_bf16_persistent_grid_on_card(card):
+    """B3 bf16's persistent walk at 1, grid - 1, grid and grid + 1 tiles
+    (row tiles of one column tile), whole and with a ragged last tile:
+    within the bf16 bound, the same bits on a second call."""
+    from distmlip_tpu_torch import kernels as K
+
+    c = 128
+    h, w, segments = _so2_one_segment(card, 1, c, 0)
+    grid = K.so2_bf16_plan(10 ** 7, segments, c, card)["blocks"]
+    for tiles in (1, grid - 1, grid, grid + 1):
+        for e in (128 * tiles, 128 * tiles - 37):
+            plan = K.so2_bf16_plan(e, segments, c, card)
+            assert plan["tiles"] == tiles and plan["blocks"] == min(tiles, grid)
+            h, w, _ = _so2_one_segment(card, e, c, e)
+            got = K.so2_conv_cuda(h, w, segments, c, [0])
+            want = K.so2_conv_reference(h, w, segments, c)
+            bound = K.so2_conv_error_bound(h, w, segments, c)
+            torch.cuda.synchronize()
+            assert bool(((got.float() - want.float()).abs() <= bound + 1e-30).all()), e
+            assert torch.equal(got, K.so2_conv_cuda(h, w, segments, c, [0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [64, 8, 7])
+@pytest.mark.parametrize("l_max", [1, 2, 4, 6])
+def test_so2_conv_bf16_a_modes_on_card(card, l_max, c):
+    """Every A mode of B3 bf16 (C 64: TMA boxes; 8: 16-byte copies; 7:
+    element copies) at l_max 1, 2, 4, 6, E = 300 (three row tiles, the
+    last ragged), forward through the row table and the
+    backward's route on the transposed weights, against the plain forward
+    and the plain VJP's input cotangent within the bf16 bound."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import dispatch
+
+    h, weights, m_idx = so2_inputs(40 + l_max, 300, l_max, c)
+    h = torch.from_numpy(h).to(card).bfloat16()
+    weights = [torch.from_numpy(x).to(card).bfloat16() for x in weights]
+    perm, inv, segments = K.packed_m_layout(m_idx)
+    assert K.so2_bf16_plan(300, segments, c, card)["a_mode"] == {64: 0, 8: 1, 7: 2}[c]
+    perm_t = torch.as_tensor(perm, device=card).long()
+    inv_t = torch.as_tensor(inv, device=card).long()
+    got = K.so2_conv_cuda(h, weights, segments, c, perm)
+    hp = h[:, perm_t]
+    want = K.so2_conv_reference(hp, weights, segments, c)[:, inv_t]
+    bound = K.so2_conv_error_bound(hp, weights, segments, c)[:, inv_t]
+    assert bool(((got.float() - want.float()).abs() <= bound + 1e-30).all())
+    g = torch.from_numpy(np.random.default_rng(l_max).normal(size=h.shape).astype(
+        np.float32)).to(card).bfloat16()
+    packed = K.pack_so2_weights(weights, segments, c)
+    wt = dispatch._so2_transposed_weights(weights, segments)
+    got = K.so2_conv_cuda(g, wt, segments, c, perm, packed=packed.transposed())
+    want = dispatch._so2_vjp(h, weights, g, perm_t, inv_t, segments, c, True,
+                             [False] * len(weights))[0]
+    bound = K.so2_conv_error_bound(g[:, perm_t], wt, segments, c)[:, inv_t]
+    torch.cuda.synchronize()
+    assert bool(((got.float() - want.float()).abs() <= bound + 1e-30).all())
