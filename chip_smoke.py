@@ -194,16 +194,20 @@ Phases (each failure raises, so the exit code is non-zero):
    against P = 1 and ``kernels=False``, the kernels on the flattened
    graph's segments) and ``[batched-tensornet-bf16]`` (B = 1 and 8).
    CHGNet at bf16 (``CHGNET_BF16_KW``, the MPtrj layout, magmoms):
-   ``[kernels] chgnet bf16`` (the bf16 atom conv and line conv on
-   ``[kernels] chgnet``'s cases with every input and weight in bf16,
-   within ``chgnet_aggregate_error_bound``'s bf16 form, and bit for bit
-   against the float32 per-edge kernel on the upcast inputs and the same
-   tables; the bf16 row projection on the tensor cores at the wrappers'
+   ``[kernels] chgnet bf16`` (the bf16 atom conv and line conv, their
+   per-edge products on the tensor cores, on ``[kernels] chgnet``'s cases
+   with every input and weight in bf16, within
+   ``chgnet_aggregate_error_bound``'s bf16 form, within
+   ``chgnet_tensor_core_error_bound`` of the float32 per-edge kernel on
+   the upcast inputs and the same tables, and bit for bit on a second
+   call; the bf16 row projection on the tensor cores at the wrappers'
    shapes, K = 6 and 7 too, within its own bar, with its plan and L2 ->
    shared-memory bytes; call ms, kernel alone, host µs, the bound at 2
    bytes an element, ``index_add_`` of the message upcast to float32, the
    projection's same-function ``addmm`` to a float32 table and ``addmm`` to
-   a bf16 table),
+   a bf16 table; for each conv the float32 kernel's times in the same run,
+   its floors (its own bytes, the SFU, the tensor cores), its plan and its
+   host µs by part),
    ``[main-chgnet-bf16]`` (4 calculates at 16,384 atoms, launches derived
    as ``[main-chgnet]``'s on the bf16 kernels and each conv's plain
    backward chunks, magmoms within 0.05 max |m| of the plain route),
@@ -235,8 +239,9 @@ import time
 from unittest import mock
 
 try:  # the timing helpers and the main path's edge-chunk case, shared with kernel_ab.py
-    from distmlip_tpu_torch.tools.kernel_ab import (cuda_ms, library_split,
-                                                    projection_library_call, slice_case, split)
+    from distmlip_tpu_torch.tools.kernel_ab import (chgnet_graph, chgnet_inputs, cuda_ms,
+                                                    library_split, projection_library_call,
+                                                    slice_case, split)
 except ImportError as e:
     sys.exit(f"chip_smoke: run from the root of a checkout ({e})")
 
@@ -741,67 +746,6 @@ def phase_edge_aggregate_kernels_bf16(torch):
     return {w: max(v) for w, v in errs.items()}, timed
 
 
-def chgnet_graph(torch):
-    """The CHGNet path's graph on the card (bench.py's crystal at
-    CHGNET_REPS, built at cutoff + skin and bond_cutoff + skin) as a
-    LocalGraph, with the model's masks: ``in_r`` (edges within the cutoff)
-    and ``line_ok`` (lines whose two bonds lie within the bond cutoff)."""
-    from distmlip_tpu_torch.neighbors import neighbor_list
-    from distmlip_tpu_torch.parallel import local_graph_from_stacked
-    from distmlip_tpu_torch.partition import (CapacityPolicy, build_partitioned_graph,
-                                              build_plan)
-    from distmlip_tpu_torch.tools.workload import CHGNET_KW, bench_atoms
-
-    atoms, _ = bench_atoms(CHGNET_REPS)
-    r, br = CHGNET_KW["cutoff"] + 0.5, CHGNET_KW["bond_cutoff"] + 0.5
-    nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r, bond_r=br)
-    plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r, br, True)
-    g, _ = build_partitioned_graph(plan, nl, atoms.numbers, atoms.cell,
-                                   caps=CapacityPolicy())
-    g = g.to("cuda")
-    lg = local_graph_from_stacked(g)
-    vec = lg.edge_vectors(g.positions[0])
-    d = torch.linalg.norm(torch.where(lg.edge_mask[:, None], vec, torch.ones_like(vec)),
-                          dim=-1)
-    in_r = lg.edge_mask & (d <= CHGNET_KW["cutoff"])
-    b_d = lg.edge_to_bond(d[:, None], torch.zeros((lg.b_cap, 1), device="cuda"))[:, 0]
-    b_real = (b_d > 1e-6) & (b_d <= CHGNET_KW["bond_cutoff"])
-    line_ok = lg.line_mask & b_real[lg.line_src] & b_real[lg.line_dst]
-    return lg, in_r, line_ok
-
-
-def chgnet_inputs(torch, gen, which, e, c, h, n_node, idx=None):
-    """Random inputs of one CHGNet message at (E, C), hidden width H, in the
-    order of its plain version up to ``weights``: ``n_node`` rows of the
-    node array (atom conv) or (bond rows, atom rows) (line conv); ``idx``
-    gives the gather ids (src, dst) or (line_src, line_dst, center), random
-    otherwise. The gated MLP's 8 weights at a linear init's scale."""
-    def r(*shape):
-        return torch.randn(shape, generator=gen, device="cuda")
-
-    def ids(k, rows):
-        if idx is not None:
-            return idx[k]
-        return torch.randint(0, rows, (e,), generator=gen, device="cuda",
-                             dtype=torch.int32)
-
-    if which == "atom":
-        node = r(n_node, c)
-        arrays = [node, ids(0, n_node), node, ids(1, n_node), r(e, c), r(e, c)]
-        k1 = 3 * c
-    else:
-        n_bond, n_atom = n_node
-        bond = r(n_bond, c)
-        arrays = [bond, ids(0, n_bond), bond, ids(1, n_bond), r(e, c), r(n_atom, c),
-                  ids(2, n_atom)]
-        k1 = 4 * c
-    weights = []
-    for _ in range(2):
-        weights += [r(k1, h) / k1 ** 0.5, r(h) / k1 ** 0.5, r(h, c) / h ** 0.5,
-                    r(c) / h ** 0.5]
-    return arrays, weights
-
-
 def chgnet_rows(torch, which, arrays):
     """The concat rows (E, K1) of a CHGNet message and its abw (or None)."""
     if which == "atom":
@@ -838,14 +782,18 @@ def check_chgnet(torch, which, arrays, weights, ids, mask, n):
     products, k u on the dst sum; |kernel - plain| <= twice that; at bf16
     data the plain route's r = 8 (7) bf16 roundings of each message entry
     over ``chgnet_message_terms``, one more of slack, and one bf16 ulp of
-    the result). A bf16 call's per-edge kernel is also held bit for bit
-    against the float32 per-edge kernel on the upcast inputs and the same
-    float32 tables (the float32 call given the bf16 projection,
-    ``bf16_tables``, in the place of
-    ``edge_aggregate.chgnet_row_projection_cuda``), rounded to bf16: it makes the float32 kernel's FMAs
-    in its order on the same values and rounds once. Returns (max |kernel
-    - plain|, max |kernel - plain| / bound)."""
-    from distmlip_tpu_torch.kernels import chgnet_aggregate_error_bound, edge_aggregate
+    the result). A bf16 call's tensor-core kernel is also held against the
+    float32 per-edge kernel on the upcast inputs and the same float32
+    tables (the float32 call given the bf16 projection, ``bf16_tables``, in
+    the place of ``edge_aggregate.chgnet_row_projection_cuda``) within
+    ``chgnet_tensor_core_error_bound`` (the float32 kernel's own 2 b, each
+    mma layer's truncating k16 accumulation, the hidden's one bf16
+    rounding, one bf16 ulp of the output), and against itself on a second
+    call, bit for bit. Returns (max |kernel - plain|, max |kernel - plain| /
+    bound, and for bf16 max |kernel - float32 kernel| / its bar, else
+    None)."""
+    from distmlip_tpu_torch.kernels import (chgnet_aggregate_error_bound,
+                                            chgnet_tensor_core_error_bound, edge_aggregate)
 
     cuda, ref, _ = _chgnet_fns(which)
     got = cuda(*arrays, weights, ids, n, mask)
@@ -856,7 +804,6 @@ def check_chgnet(torch, which, arrays, weights, ids, mask, n):
                              f"vs {want.shape} {want.dtype}")
     x, abw = chgnet_rows(torch, which, arrays)
     tol = chgnet_aggregate_error_bound(x, abw, weights, ids, n, mask)
-    del x
     err = (got.float() - want.float()).abs()
     if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"chgnet {which} disagrees with its plain version: max "
@@ -864,14 +811,29 @@ def check_chgnet(torch, which, arrays, weights, ids, mask, n):
     if got.dtype == torch.bfloat16:
         f32_arrays, f32_weights = float_case(arrays, weights)
         with mock.patch.object(edge_aggregate, "chgnet_row_projection_cuda", bf16_tables):
-            f32 = cuda(*f32_arrays, f32_weights, ids, n, mask).bfloat16()
-        if not torch.equal(got, f32):
-            raise AssertionError(f"chgnet {which} bf16 differs from the float32 kernel on the "
-                                 f"upcast inputs and the same tables in "
-                                 f"{int((got != f32).sum())} elements")
+            f32 = cuda(*f32_arrays, f32_weights, ids, n, mask)
+        bar = chgnet_tensor_core_error_bound(x, abw, weights, ids, n, mask)
+        tc_err = (got.float() - f32).abs()
+        if not bool((tc_err <= bar + 1e-30).all()):
+            raise AssertionError(f"chgnet {which} bf16 is off the float32 kernel on the upcast "
+                                 f"inputs and the same tables by {float(tc_err.max())}, past "
+                                 f"its bar in {int((tc_err > bar + 1e-30).sum())} elements")
+        if not torch.equal(got, cuda(*arrays, weights, ids, n, mask)):
+            raise AssertionError(f"chgnet {which} bf16 differs between two calls")
+    del x
+    tc_ratio = (float((tc_err / (bar + 1e-30)).max()) if got.dtype == torch.bfloat16
+                and err.numel() else None)
     if not err.numel():
-        return 0.0, 0.0
-    return float(err.max()), float((err / (tol + 1e-30)).max())
+        return 0.0, 0.0, tc_ratio
+    return float(err.max()), float((err / (tol + 1e-30)).max()), tc_ratio
+
+
+def max_sm_clock_hz():
+    """The card's largest SM clock (``nvidia-smi``'s clocks.max.sm), in Hz."""
+    mhz = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.split()[0]
+    return float(mhz) * 1e6
 
 
 def time_chgnet(torch, which, arrays, weights, ids, mask, n):
@@ -881,12 +843,17 @@ def time_chgnet(torch, which, arrays, weights, ids, mask, n):
     upcast to float32 beforehand: an fp32 accumulation as the kernel's),
     and the bound at the inputs' element size (ids and mask unchanged) and
     the peak rate for their type (bf16: the tensor cores; the float32 CUDA
-    cores' operations time beside it, as ``fp32_core_ops_ms``)."""
+    cores' operations time beside it, as ``fp32_core_ops_ms``). bf16 also:
+    the float32 wrapper on the upcast inputs in the same run
+    (``float32_kernel``), the per-edge kernel's floors (``floors``: its
+    gathered bytes, the SFU's activations, the tensor cores' products) and
+    its launch plan, and the host µs of ``_launch_chgnet`` by part
+    (``host_split_us``)."""
     from distmlip_tpu_torch import kernels as K
 
     cuda, ref, _ = _chgnet_fns(which)
-    timed = split(torch, lambda: cuda(*arrays, weights, ids, n, mask),
-                  f"chgnet_{which}_conv_kernel")
+    key = f"chgnet_{which}_conv"  # the per-edge kernel, float32 or bf16, not the projection
+    timed = split(torch, lambda: cuda(*arrays, weights, ids, n, mask), key)
     plain_ms = cuda_ms(torch, lambda: ref(*arrays, weights, ids, n, mask), iters=5)
     e, c = ids.shape[0], arrays[4].shape[1]
     h = weights[0].shape[1]
@@ -936,6 +903,14 @@ def time_chgnet(torch, which, arrays, weights, ids, mask, n):
               + w_floats * es + n * c * es)
     half = es == 2
     bound_ms, bound_by = bound(nbytes, ops, H100_BF16_FLOPS if half else H100_FP32_FLOPS)
+    if half:
+        f32_arrays, f32_weights = float_case(arrays, weights)
+        timed["float32_kernel"] = split(
+            torch, lambda: cuda(*f32_arrays, f32_weights, ids, n, mask), key)
+        del f32_arrays
+        timed["floors"] = chgnet_floors(torch, which, c, h, n_valid, e, n, rows_per_segment)
+        timed["plan"] = K.chgnet_aggregate_plan(c, h, n, e)
+        timed["host_split_us"] = host_split(torch, lambda: cuda(*arrays, weights, ids, n, mask))
     return {"which": which, "dtype": str(arrays[4].dtype).split(".")[-1], "e": e,
             "valid_edges": n_valid, "channels": c, "hidden": h, "in_dim": k1,
             "n_segments": n, **timed, "plain_ms": plain_ms,
@@ -944,6 +919,73 @@ def time_chgnet(torch, which, arrays, weights, ids, mask, n):
             "bound_ms": bound_ms, "bound_by": bound_by,
             **({"fp32_core_ops_ms": ops / H100_FP32_FLOPS * 1e3} if half else {}),
             "bytes": nbytes, "ops": ops, "gathered_rows": rows_per_segment}
+
+
+def chgnet_floors(torch, which, c, h, n_valid, e, n, rows_per_segment):
+    """The bf16 per-edge kernel's floors at this run's inputs (ms): its own
+    bytes (each float32 table row the valid edges gather read once, 2 hp
+    floats, the valid edges' bf16 rows and gather ids, every edge's dst id
+    and mask byte, the bf16 output; ``table_bytes_no_reuse`` counts a table
+    row per gathered segment and valid edge instead), the SFU (2 (H + C)
+    activations a valid edge, one MUFU operation each through tanh.approx,
+    16 a clock an SM at the card's largest SM clock; ``sfu_exact_ms`` the
+    two of an exact expf and division) and the tensor cores (4 C H
+    multiply-adds a valid edge at 989 TFLOP/s)."""
+    hp = -(-h // 4) * 4
+    table_bytes = sum(rows_per_segment) * 2 * hp * 4
+    per_edge = (2 if which == "atom" else 1) * c * 2 + len(rows_per_segment) * 4
+    nbytes = table_bytes + n_valid * per_edge + e * 5 + n * c * 2
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sfu_ms = n_valid * 2 * (h + c) / (sms * 16 * max_sm_clock_hz()) * 1e3
+    return {"bytes": nbytes, "table_bytes": table_bytes,
+            "table_bytes_no_reuse": n_valid * len(rows_per_segment) * 2 * hp * 4,
+            "bytes_ms": nbytes / H100_BYTES_PER_S * 1e3,
+            "sfu_ms": sfu_ms, "sfu_exact_ms": 2 * sfu_ms,
+            "tensor_core_ms": n_valid * 8 * c * h / H100_BF16_FLOPS * 1e3}
+
+
+def host_split(torch, call, iters=200):
+    """Host µs per call of a CHGNet wrapper (no sync) and of its parts inside
+    ``edge_aggregate._launch_chgnet``: the weight packing, the row
+    projections (their wrappers and launches), the CSR offsets, the C launch
+    of the per-edge kernel; ``checks`` is the rest (the wrappers' checks,
+    the int32 ids, the output's allocation)."""
+    from distmlip_tpu_torch.kernels import edge_aggregate
+
+    spent = {"packing": 0.0, "projections": 0.0, "csr_offsets": 0.0, "launch": 0.0}
+    chgnet_fn = edge_aggregate._chgnet_fn
+
+    def timed(part, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            spent[part] += time.perf_counter() - t0
+            return out
+        return run
+
+    def timed_fn(symbol):
+        fn = chgnet_fn(symbol)
+        return timed("launch", fn) if "_conv_" in symbol else fn
+
+    for _ in range(5):
+        call()
+    torch.cuda.synchronize()
+    with mock.patch.object(edge_aggregate, "chgnet_pack_weights",
+                           timed("packing", edge_aggregate.chgnet_pack_weights)), \
+            mock.patch.object(edge_aggregate, "chgnet_row_tables",
+                              timed("projections", edge_aggregate.chgnet_row_tables)), \
+            mock.patch.object(edge_aggregate, "csr_row_offsets",
+                              timed("csr_offsets", edge_aggregate.csr_row_offsets)), \
+            mock.patch.object(edge_aggregate, "_chgnet_fn", timed_fn):
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            call()
+        total = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    out = {k: v / iters * 1e6 for k, v in spent.items()}
+    out["checks"] = total / iters * 1e6 - sum(out.values())
+    out["total"] = total / iters * 1e6
+    return out
 
 
 def projection_inputs(which, arrays, weights):
@@ -1088,7 +1130,7 @@ def phase_chgnet_kernels(torch):
     from distmlip_tpu_torch.tools.workload import CHGNET_KW
 
     gen = torch.Generator(device="cuda").manual_seed(2468)
-    lg, in_r, line_ok = chgnet_graph(torch)
+    lg, in_r, line_ok = chgnet_graph(torch, CHGNET_REPS)
     c = CHGNET_KW["units"]
     errs, ratios, timed = {}, {}, {}
     proj_errs, proj_timed = [], []
@@ -1145,13 +1187,17 @@ def bf16_case(case):
 
 
 def phase_chgnet_kernels_bf16(torch):
-    """``[kernels] chgnet bf16``: the bf16 variants of both CHGNet kernels on
+    """``[kernels] chgnet bf16``: the bf16 variants of both CHGNet kernels
+    (the per-edge products on the tensor cores) on
     ``phase_chgnet_kernels``' cases (the path's graph and masks at C = H =
     64, then the edge cases) with every float input and weight rounded to
     bf16, each against its plain bf16 version within
-    ``chgnet_aggregate_error_bound``'s bf16 form, each also bit for bit
-    against the float32 per-edge kernel on the upcast inputs and the same
-    tables; the bf16 row projection (bf16 rows and packed blocks on the
+    ``chgnet_aggregate_error_bound``'s bf16 form, each also within
+    ``chgnet_tensor_core_error_bound`` of the float32 per-edge kernel on the
+    upcast inputs and the same tables and bit for bit against a second
+    call; each kernel's time beside the float32 kernel's in the same run,
+    its floors (bytes, SFU, tensor cores), its plan (warps, blocks, shared
+    bytes) and its host µs by part; the bf16 row projection (bf16 rows and packed blocks on the
     tensor cores, a float32 table) at the shapes the wrappers give it
     against its plain version within its own bar, plus K = 6 and K = 7
     (plain loads), with its plan and L2 -> shared-memory bytes. Times:
@@ -1162,7 +1208,7 @@ def phase_chgnet_kernels_bf16(torch):
     from distmlip_tpu_torch.tools.workload import CHGNET_KW
 
     gen = torch.Generator(device="cuda").manual_seed(2469)
-    lg, in_r, line_ok = chgnet_graph(torch)
+    lg, in_r, line_ok = chgnet_graph(torch, CHGNET_REPS)
     c = CHGNET_KW["units"]
     errs, ratios, timed = {}, {}, {}
     proj_errs, proj_timed = [], []
@@ -1173,6 +1219,7 @@ def phase_chgnet_kernels_bf16(torch):
         found = [check_chgnet(torch, which, *case) for case in cases]
         errs[which] = max(f[0] for f in found)
         ratios[which] = max(f[1] for f in found)
+        tc_ratio = max(f[2] for f in found if f[2] is not None)
         timed[which] = time_chgnet(torch, which, arrays, weights, ids, mask, n)
         proj = projection_inputs(which, arrays, weights)
         proj_errs += [check_projection(torch, *p) for p in proj]
@@ -1183,7 +1230,9 @@ def phase_chgnet_kernels_bf16(torch):
         for t in shapes:
             log(f"[kernels] chgnet bf16 {which} row projection {t['shape']}: {json.dumps(t)}")
         log(f"[kernels] chgnet bf16 {which}: all {len(cases)} cases agree with the plain "
-            f"bf16 version; max |err| {errs[which]}, max |err| / tolerance {ratios[which]}")
+            f"bf16 version; max |err| {errs[which]}, max |err| / tolerance {ratios[which]}; "
+            f"with the float32 kernel on the same tables, max |err| / bar {tc_ratio}")
+        timed[which]["float32_bar_ratio"] = tc_ratio
         del arrays, weights, cases
         torch.cuda.empty_cache()
     for rows, k, m, has_bias in ((1, 8, 48, True), (517, 7, 24, True), (300, 6, 24, True),
@@ -2374,21 +2423,6 @@ def phase_md_tensornet(torch):
     return out[True]
 
 
-def relax_structure():
-    """``examples/02_relax_chgnet.py``'s structure: 864 Li (fcc a = 3.6 Å,
-    6 x 6 x 6 cells), 0.08 Å noise from seed 1, the cell stretched by 2%."""
-    import numpy as np
-
-    from distmlip_tpu_torch import geometry
-    from distmlip_tpu_torch.calculators import Atoms
-
-    rng = np.random.default_rng(1)
-    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
-    frac, lattice = geometry.make_supercell(unit, np.eye(3) * 3.6, (6, 6, 6))
-    cart = geometry.frac_to_cart(frac, lattice) + rng.normal(0, 0.08, (len(frac), 3))
-    return Atoms(numbers=np.full(len(cart), 3), positions=cart, cell=lattice * 1.02)
-
-
 def phase_relax_chgnet(torch, bf16=False):
     """``[relax-chgnet]``: CHGNet at CHGNET_KW with magmoms on
     ``examples/02_relax_chgnet.py``'s structure (864 Li, cell x 1.02, 0.08 Å
@@ -2401,6 +2435,7 @@ def phase_relax_chgnet(torch, bf16=False):
     from distmlip_tpu_torch.calculators import DistPotential, Relaxer
     from distmlip_tpu_torch.kernels import launch_counts
     from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
+    from distmlip_tpu_torch.tools.kernel_ab import relax_structure
     from distmlip_tpu_torch.tools.workload import CHGNET_BF16_KW, CHGNET_KW
 
     tag, suffix = ("relax-chgnet-bf16", "_bf16") if bf16 else ("relax-chgnet", "")
@@ -2550,6 +2585,7 @@ def phase_host_graph(torch):
     each, on the threads the knob resolves to (all cores by default)."""
     from distmlip_tpu_torch.neighbors import native, neighbor_list, neighbor_list_numpy
     from distmlip_tpu_torch.partition import build_plan
+    from distmlip_tpu_torch.tools.kernel_ab import relax_structure
     from distmlip_tpu_torch.tools.workload import bench_atoms
 
     t_phase = time.perf_counter()
@@ -3901,6 +3937,8 @@ def main() -> int:
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": [t["e"], t["channels"]], "hidden": t["hidden"],
             "valid_edges": t["valid_edges"], "projection_ms": t["projection_ms"],
+            "float32_kernel": t["float32_kernel"], "float32_bar_ratio": t["float32_bar_ratio"],
+            "host_split_us": t["host_split_us"],
         })
     name = "chgnet_row_projection_bf16"
     t = max(chg_bf16_proj_timed, key=lambda p: p["shape"][0])  # the bond table

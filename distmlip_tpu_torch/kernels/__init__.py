@@ -16,8 +16,11 @@
   and ``chgnet_atom_conv_aggregate_cuda`` and
   ``chgnet_line_aggregate_cuda`` (of ``csrc/chgnet_aggregate.cu``, with
   its row projection ``chgnet_row_projection_cuda``; float32 and bf16
-  variants, the tolerance ``chgnet_aggregate_error_bound`` with the bf16
-  message's ``chgnet_message_terms``), which replace the TPU
+  variants, the bf16 ones on the tensor cores, the tolerance
+  ``chgnet_aggregate_error_bound`` with the bf16 message's
+  ``chgnet_message_terms``, the bf16 kernels' bar against the float32
+  kernels ``chgnet_tensor_core_error_bound`` and their launch plan
+  ``chgnet_aggregate_plan``), which replace the TPU
   ``pallas_edge_aggregate`` at TensorNet's and CHGNet's call sites; their
   ``*_reference`` plain versions, the CHGNet weight packing
   ``chgnet_pack_weights`` and table plan ``chgnet_row_tables``, and the
@@ -47,7 +50,7 @@ from .dispatch import (Gather, fused_edge_aggregate, fused_segment_sum,  # noqa:
 from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              PROJECTION_MAX_K, PROJECTION_MAX_M, TENSORNET_EMBED,
                              TENSORNET_INTERACTION, EdgeMessage,
-                             chgnet_aggregate_error_bound,
+                             chgnet_aggregate_error_bound, chgnet_aggregate_plan,
                              chgnet_atom_conv_aggregate_cuda,
                              chgnet_atom_conv_aggregate_reference,
                              chgnet_line_aggregate_cuda,
@@ -56,7 +59,7 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              chgnet_projection_error_bound, chgnet_projection_plan,
                              chgnet_row_projection_cuda,
                              chgnet_row_projection_reference, chgnet_row_tables,
-                             src_order, tensornet_embed_aggregate_cuda,
+                             chgnet_tensor_core_error_bound, src_order, tensornet_embed_aggregate_cuda,
                              tensornet_embed_aggregate_reference, tensornet_embed_error_bound,
                              tensornet_full,
                              tensornet_interaction_aggregate_cuda,

@@ -1,5 +1,5 @@
 // CHGNet's two fused edge aggregations: a gated MLP per edge, summed onto
-// dst-sorted rows, float32 or bfloat16 in and out, float32 arithmetic,
+// dst-sorted rows, float32 or bfloat16 in and out, fp32 accumulation,
 // sm_90a.
 //
 // Replaces distmlip_tpu/kernels/segment.py::pallas_edge_aggregate (body
@@ -20,24 +20,33 @@
 // with W in the JAX layout (in, out). Every segment of the concat row is C
 // wide; C and the hidden width H are runtime ints, at most 64 each.
 //
-// What bounds it on an H100: float32 operations. Layer 1 is linear, so it
-// distributes over the concat: [v[src] | v[dst] | e] W1 = (v W1_0)[src] +
-// (v W1_1)[dst] + e W1_2. A gathered segment's product belongs to its node
-// or bond row, not to the edge, and is taken once per row by
-// chgnet_row_projection_kernel below (the wrapper packs W1's row block of
-// each segment as [core | gate], (C, 2hp), and folds the layer-1 bias into
-// the first segment's table). The per-edge kernel then does only per-edge
-// work: the edge segment's product (C -> 2H), layer 2 of core and gate
-// (H -> C each) and the gating, 32,768 FLOP per edge at C = H = 64 against
-// 65,536 (atom) and 81,920 (line) for the whole concat row. No tensor cores:
-// TF32 would break the float32 parity bar of this port. Beside the FMAs the
-// products keep shared memory busy (12 loads per 128 FMAs), and each edge
-// takes 256 activations, each an exact expf and a division.
+// Layer 1 is linear, so it distributes over the concat: [v[src] | v[dst] |
+// e] W1 = (v W1_0)[src] + (v W1_1)[dst] + e W1_2. A gathered segment's
+// product belongs to its node or bond row, not to the edge, and is taken
+// once per row by a row projection below (chgnet_row_projection_kernel on
+// float32 rows, chgnet_row_projection_bf16_kernel on the tensor cores for
+// bf16 rows), into float32 tables: the wrapper packs W1's row block of each
+// segment as [core | gate], (C, 2hp), and folds the layer-1 bias into the
+// first segment's table. The per-edge kernels then do only per-edge work:
+// the edge segment's product (C -> 2H), layer 2 of core and gate (H -> C
+// each) and the gating, 32,768 FLOP per edge at C = H = 64 against 65,536
+// (atom) and 81,920 (line) for the whole concat row. There are two of them
+// on one walk of the edges (below):
+//   - float32 data (chgnet_{atom,line}_conv_kernel): the products as
+//     float32 FMAs on the CUDA cores; TF32 would break the float32 parity
+//     bar of this port;
+//   - bfloat16 data (chgnet_{atom,line}_conv_bf16_kernel, after the
+//     projections): the products on the tensor cores, mma.sync bf16 with
+//     fp32 accumulators, the hidden layer kept in registers.
 //
-// Design of the per-edge kernel. One block of up to 12 warps per SM stages
-// W1's edge block (cp, 2hp) and [W2c | W2g] (hp, 2cp) once in shared
-// memory (64 KB at C = H = 64); everything else is per warp, and no warp
-// waits on another after the weights are staged:
+// The float32 kernel. What bounds it: float32 operations. Beside the FMAs
+// the products keep shared memory busy (12 loads per 128 FMAs), and each
+// edge takes 256 activations, each an exact expf and a division.
+//
+// Its design. One block of up to 12 warps per SM stages W1's edge block
+// (cp, 2hp) and [W2c | W2g] (hp, 2cp) once in shared memory (64 KB at C = H
+// = 64); everything else is per warp, and no warp waits on another after
+// the weights are staged:
 //   - each warp owns a contiguous range of dst rows, cut so that every warp
 //     gets about the same number of candidate edges plus 4 per row (a
 //     32-way search of row_ptr); its rows are written by it alone, in edge
@@ -62,30 +71,14 @@
 //     tile's messages in edge order and writes a row when the walk passes
 //     it (empty rows as zeros).
 //
-// Semantics (those of the plain versions in kernels/edge_aggregate.py):
+// Semantics of both (those of the plain versions in
+// kernels/edge_aggregate.py):
 //   - masked edges are never read and never added, so non-finite padding
 //     (or a non-finite node row that only masked edges gather) cannot leak
 //     into a sum;
 //   - every output row is written, empty rows as zeros;
 //   - offsets are 64-bit, edge ids 32-bit; gathered row ids of valid edges
 //     must lie in range.
-//
-// bfloat16: the same per-edge kernels, templated on the storage type T of
-// the per-edge rows (the edge or angle row, abw) and of the output.
-// Everything else is the float32 kernel's: the layer-1 tables are float32
-// (written by the bf16 row projection, a tensor-core kernel of its own,
-// below), the per-edge packed weights are float32 (the wrapper upcasts bf16
-// weights, exactly), so the shared weight region and every FMA are
-// unchanged. A bf16 edge row is staged as bf16 (16-byte cp.async of 8
-// values when C % 8 == 0 and the rows 16-byte aligned; else plain loads),
-// in the float32 tile buffer's first half, and converted to float32 as layer 1 reads it (8 bytes
-// for 4 values). abw is read as bf16 and converted. The hidden and output
-// tiles and the segmented reduction stay float32, and each output element
-// is rounded to bf16 once, when its row is written. That is the TPU
-// kernel's contract at bf16 data: blocks in the data's dtype, an fp32
-// accumulator, the output in the message's dtype
-// (distmlip_tpu/kernels/segment.py:300-317). The float32 instantiations
-// compile to the untemplated kernels' code (tools/sass_compare.py).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -109,27 +102,6 @@ __host__ __device__ inline int round4(int x) { return (x + 3) & ~3; }
 template <typename T>
 constexpr bool kIsFloat = std::is_same<T, float>::value;
 
-// storage <-> registers: a float32 or bfloat16 element read as float32, a
-// float32 value stored rounded once to the storage type
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-// four consecutive elements of a shared-memory row as float32 (16 bytes of
-// float32, 8 of bf16)
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
 // two consecutive float32 elements (8 bytes)
 __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
@@ -142,19 +114,18 @@ struct Table {
   int64_t stride;       // floats per table row
 };
 
-template <typename T>
 struct Args {
   Table staged;         // src: staged through shared memory with cp.async
   Table direct[2];      // dst (and the line conv's center): read directly
-  const T* edge;        // (E, C) the per-edge segment
-  const T* abw;         // (E, C) per-edge multiplier, or null
+  const float* edge;    // (E, C) the per-edge segment
+  const float* abw;     // (E, C) per-edge multiplier, or null
   const float* w1e;     // (cp, 2hp) W1's edge block, [core | gate]
   const float* w2;      // (hp, 2cp) [W2c | W2g]
   const float* b2;      // (2cp) [b2c | b2g]
   const int64_t* row_ptr;  // (n_rows + 1)
   const int32_t* seg_ids;  // (E) dst row of each edge
   const uint8_t* mask;     // (E) or null
-  T* out;                  // (n_rows, C)
+  float* out;              // (n_rows, C)
   int64_t n_rows;
   int channels;
   int hidden;
@@ -168,8 +139,7 @@ struct Layout {
     hp = round4(h);
     w1s = 2 * hp;  // row stride of W1's edge block and of a partial row
     w2s = 2 * cp;  // row stride of [W2c | W2g] and of the output tile
-    xs = cp + 4;   // row stride of the edge rows in a tile buffer (bf16: cp + 8
-                   // values, Dims::xsb, in the same region)
+    xs = cp + 4;   // row stride of the edge rows in a tile buffer
     hs = w1s + 4;  // row stride of the hidden tile (padded like xs: other banks)
     // one tile buffer: the edge rows (8, xs) and the staged partial rows
     // (8, 2hp); the hidden tile and then the output tile are written over it
@@ -208,10 +178,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // One 4-deep step of a lane's 4 x 8 tile: for its edges t (rows x + t xs),
 //   acc[t][0..3] += x_t[k..k+3] . Wa[k..k+3][0..3]
 //   acc[t][4..7] += x_t[k..k+3] . Wb[k..k+3][0..3]
-// with wa, wb the weights' row k at the lane's two column groups; x float32
-// or bf16 (converted as it is read).
-template <typename X>
-__device__ __forceinline__ void fma_step(float (&acc)[4][8], const X* __restrict__ x, int xs,
+// with wa, wb the weights' row k at the lane's two column groups.
+__device__ __forceinline__ void fma_step(float (&acc)[4][8], const float* __restrict__ x, int xs,
                                          const float* __restrict__ wa,
                                          const float* __restrict__ wb, int ws) {
   float4 pa[4], pb[4];
@@ -222,7 +190,7 @@ __device__ __forceinline__ void fma_step(float (&acc)[4][8], const X* __restrict
   }
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    const float4 v = load4(x + t * xs);
+    const float4 v = *reinterpret_cast<const float4*>(x + t * xs);
     const float xv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
@@ -270,7 +238,6 @@ struct Dims {
   __device__ int w1s() const { return 2 * hp(); }
   __device__ int w2s() const { return 2 * cp(); }
   __device__ int xs() const { return cp() + 4; }
-  __device__ int xsb() const { return cp() + 8; }  // bf16 edge rows: 16-byte rows
   __device__ int hs() const { return w1s() + 4; }
 };
 
@@ -283,8 +250,9 @@ struct Screen {
   int row, src, d0, d1;  // its dst row and gather ids
 };
 
-template <typename T, int NDIR>
-__device__ __forceinline__ void prefetch_batch(const Args<T>& a, Screen& sc, int lane) {
+// Load the next batch's mask, dst rows and gather ids (a: Args or TcArgs).
+template <int NDIR, typename A>
+__device__ __forceinline__ void prefetch_batch(const A& a, Screen& sc, int lane) {
   const int64_t e = sc.cand + lane;
   const bool in = e < sc.e_end;
   sc.ok = in && (a.mask == nullptr || a.mask[e] != 0);
@@ -307,9 +275,9 @@ struct WarpMem {
 
 // Fill the ring until it holds a tile (or the range is screened), move the
 // next tile into buffer s, start its copies and return its edge count.
-template <typename T, int NDIR, bool VEC, int CP, int HP>
-__device__ int take_tile(const Args<T>& a, const Layout& L, const WarpMem& m, int s,
-                         Screen& sc, int lane) {
+template <int NDIR, bool VEC, int CP, int HP>
+__device__ int take_tile(const Args& a, const Layout& L, const WarpMem& m, int s, Screen& sc,
+                         int lane) {
   const Dims<CP, HP> D(L);
   int* ring_e = m.ring;
   int* ring_r = ring_e + kRing;
@@ -329,7 +297,7 @@ __device__ int take_tile(const Args<T>& a, const Layout& L, const WarpMem& m, in
     }
     sc.count += __popc(ballot);
     sc.cand += 32;
-    prefetch_batch<T, NDIR>(a, sc, lane);  // lands while the tile computes
+    prefetch_batch<NDIR>(a, sc, lane);  // lands while the tile computes
   }
   __syncwarp();
   const int n = sc.count < kEPW ? sc.count : kEPW;
@@ -351,38 +319,19 @@ __device__ int take_tile(const Args<T>& a, const Layout& L, const WarpMem& m, in
     const int64_t r = ring_s[(sc.head + i) % kRing];
     cp_async16(ps + i * D.w1s() + 4 * q, a.staged.base + r * a.staged.stride + 4 * q);
   }
-  if constexpr (kIsFloat<T>) {
-    if (VEC) {
-      const int qx = C / 4;
-      for (int t = lane; t < n * qx; t += 32) {
-        const int i = t / qx, q = t - i * qx;
-        const int64_t e = ring_e[(sc.head + i) % kRing];
-        cp_async16(x + i * D.xs() + 4 * q, a.edge + e * C + 4 * q);
-      }
-    } else {
-      for (int t = lane; t < n * D.cp(); t += 32) {
-        const int i = t / D.cp(), c = t - i * D.cp();
-        const int64_t e = ring_e[(sc.head + i) % kRing];
-        if (c < C) cp_async4(x + i * D.xs() + c, a.edge + e * C + c);
-        else x[i * D.xs() + c] = 0.0f;  // zero padding up to cp
-      }
+  if (VEC) {
+    const int qx = C / 4;
+    for (int t = lane; t < n * qx; t += 32) {
+      const int i = t / qx, q = t - i * qx;
+      const int64_t e = ring_e[(sc.head + i) % kRing];
+      cp_async16(x + i * D.xs() + 4 * q, a.edge + e * C + 4 * q);
     }
   } else {
-    // bf16 edge rows of cp values at stride xsb (the padding up to cp zero)
-    __nv_bfloat16* xb = reinterpret_cast<__nv_bfloat16*>(x);
-    if (VEC) {  // C % 8 == 0 and 16-byte aligned rows: 8 values a copy
-      const int qx = C / 8;
-      for (int t = lane; t < n * qx; t += 32) {
-        const int i = t / qx, q = t - i * qx;
-        const int64_t e = ring_e[(sc.head + i) % kRing];
-        cp_async16(xb + i * D.xsb() + 8 * q, a.edge + e * C + 8 * q);
-      }
-    } else {  // plain loads (a cp.async copies 4 bytes at least)
-      for (int t = lane; t < n * D.cp(); t += 32) {
-        const int i = t / D.cp(), c = t - i * D.cp();
-        const int64_t e = ring_e[(sc.head + i) % kRing];
-        xb[i * D.xsb() + c] = c < C ? a.edge[e * C + c] : __float2bfloat16_rn(0.0f);
-      }
+    for (int t = lane; t < n * D.cp(); t += 32) {
+      const int i = t / D.cp(), c = t - i * D.cp();
+      const int64_t e = ring_e[(sc.head + i) % kRing];
+      if (c < C) cp_async4(x + i * D.xs() + c, a.edge + e * C + c);
+      else x[i * D.xs() + c] = 0.0f;  // zero padding up to cp
     }
   }
   cp_async_commit();
@@ -391,14 +340,13 @@ __device__ int take_tile(const Args<T>& a, const Layout& L, const WarpMem& m, in
   return n;
 }
 
-// flush the running sums into row `cur` (rounded once to T) and move on
-template <typename T>
-__device__ __forceinline__ void flush_row(const Args<T>& a, int64_t& cur, float (&acc_row)[2],
+// flush the running sums into row `cur` and move on
+__device__ __forceinline__ void flush_row(const Args& a, int64_t& cur, float (&acc_row)[2],
                                           int lane) {
 #pragma unroll
   for (int g = 0; g < 2; ++g) {
     const int c = lane + 32 * g;
-    if (c < a.channels) store(a.out + cur * a.channels + c, acc_row[g]);
+    if (c < a.channels) a.out[cur * a.channels + c] = acc_row[g];
     acc_row[g] = 0.0f;
   }
   ++cur;
@@ -416,8 +364,8 @@ __device__ __forceinline__ void flush_row(const Args<T>& a, int64_t& cur, float 
 // shared-memory load of a step is two wavefronts: 12 loads for 128 FMAs.
 // In layer 2 quarter-warps 0-1 take the core channels and 2-3 the gate
 // channels: c and c + 32 with c = 16 (q % 2) + 4 (j / 2).
-template <typename T, int NDIR, int CP, int HP>
-__device__ void run_tile(const Args<T>& a, const Layout& L, const float* smem, const WarpMem& m,
+template <int NDIR, int CP, int HP>
+__device__ void run_tile(const Args& a, const Layout& L, const float* smem, const WarpMem& m,
                          int s, int n, int lane, int64_t& cur, float (&acc_row)[2]) {
   const Dims<CP, HP> D(L);
   const int C = a.channels;
@@ -458,19 +406,10 @@ __device__ void run_tile(const Args<T>& a, const Layout& L, const float* smem, c
       }
     }
     const float* w1e = smem + u;
-    if constexpr (kIsFloat<T>) {
 #pragma unroll 4
-      for (int k = 0; k < D.cp(); k += 4) {
-        fma_step(acc, x + g * D.xs() + k, 2 * D.xs(), w1e + k * D.w1s(),
-                 w1e + k * D.w1s() + D.hp(), D.w1s());
-      }
-    } else {
-      const __nv_bfloat16* xb = reinterpret_cast<const __nv_bfloat16*>(x);
-#pragma unroll 4
-      for (int k = 0; k < D.cp(); k += 4) {
-        fma_step(acc, xb + g * D.xsb() + k, 2 * D.xsb(), w1e + k * D.w1s(),
-                 w1e + k * D.w1s() + D.hp(), D.w1s());
-      }
+    for (int k = 0; k < D.cp(); k += 4) {
+      fma_step(acc, x + g * D.xs() + k, 2 * D.xs(), w1e + k * D.w1s(),
+               w1e + k * D.w1s() + D.hp(), D.w1s());
     }
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
@@ -499,7 +438,7 @@ __device__ void run_tile(const Args<T>& a, const Layout& L, const float* smem, c
     for (int r = 0; r < 2; ++r) {
       const int c = lane + 32 * r;
       ab[i][r] = a.abw != nullptr && i < n && c < C
-                     ? load(a.abw + static_cast<int64_t>(te[i]) * C + c)
+                     ? __ldg(a.abw + static_cast<int64_t>(te[i]) * C + c)
                      : 1.0f;
     }
   }
@@ -556,8 +495,8 @@ __device__ void run_tile(const Args<T>& a, const Layout& L, const float* smem, c
   }
 }
 
-template <typename T, int NDIR, bool VEC, int CP, int HP>
-__device__ __forceinline__ void gated_aggregate(const Args<T>& a) {
+template <int NDIR, bool VEC, int CP, int HP>
+__device__ __forceinline__ void gated_aggregate(const Args& a) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int nw = blockDim.x >> 5;
@@ -588,18 +527,18 @@ __device__ __forceinline__ void gated_aggregate(const Args<T>& a) {
   Screen sc{};
   sc.cand = a.row_ptr[ra];
   sc.e_end = a.row_ptr[rb];
-  prefetch_batch<T, NDIR>(a, sc, lane);
+  prefetch_batch<NDIR>(a, sc, lane);
 
   int64_t cur = ra;               // the row the walk is in
   float acc_row[2] = {0.0f, 0.0f};  // its running sums of channels lane, lane + 32
   int s = 0;
-  int n = take_tile<T, NDIR, VEC, CP, HP>(a, L, m, s, sc, lane);
+  int n = take_tile<NDIR, VEC, CP, HP>(a, L, m, s, sc, lane);
   while (n > 0) {
     // the next tile's rows fly while this one computes
-    const int n_next = take_tile<T, NDIR, VEC, CP, HP>(a, L, m, s ^ 1, sc, lane);
+    const int n_next = take_tile<NDIR, VEC, CP, HP>(a, L, m, s ^ 1, sc, lane);
     cp_async_wait<1>();
     __syncwarp();
-    run_tile<T, NDIR, CP, HP>(a, L, smem, m, s, n, lane, cur, acc_row);
+    run_tile<NDIR, CP, HP>(a, L, smem, m, s, n, lane, cur, acc_row);
     __syncwarp();
     s ^= 1;
     n = n_next;
@@ -608,17 +547,16 @@ __device__ __forceinline__ void gated_aggregate(const Args<T>& a) {
   while (cur < rb) flush_row(a, cur, acc_row, lane);
 }
 
-// VEC: 16-byte copies of the edge rows (C % 4 == 0 for float32, C % 8 == 0
-// and 16-byte aligned rows for bf16). CP, HP: the padded widths as
-// constants (64, 64: matgl's), or 0 for any.
-template <typename T, bool VEC, int CP, int HP>
-__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_atom_conv_kernel(const Args<T> a) {
-  gated_aggregate<T, 1, VEC, CP, HP>(a);
+// VEC: C % 4 == 0 (16-byte copies of the edge rows). CP, HP: the padded
+// widths as constants (64, 64: matgl's), or 0 for any.
+template <bool VEC, int CP, int HP>
+__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_atom_conv_kernel(const Args a) {
+  gated_aggregate<1, VEC, CP, HP>(a);
 }
 
-template <typename T, bool VEC, int CP, int HP>
-__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_line_conv_kernel(const Args<T> a) {
-  gated_aggregate<T, 2, VEC, CP, HP>(a);
+template <bool VEC, int CP, int HP>
+__global__ void __launch_bounds__(kMaxThreads, 1) chgnet_line_conv_kernel(const Args a) {
+  gated_aggregate<2, VEC, CP, HP>(a);
 }
 
 // Warps per block that the shared memory holds at (C, H), at most
@@ -631,8 +569,8 @@ int pick_warps(int channels, int hidden) {
   return 0;
 }
 
-template <typename T, int NDIR>
-int launch(const Args<T>& a, int64_t n_edges, void* stream) {
+template <int NDIR>
+int launch(const Args& a, int64_t n_edges, void* stream) {
   if (a.n_rows <= 0 || a.channels <= 0) return 0;
   const int nw = pick_warps(a.channels, a.hidden);
   if (nw == 0 || n_edges >= 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
@@ -645,22 +583,18 @@ int launch(const Args<T>& a, int64_t n_edges, void* stream) {
   const int64_t want = (n_edges + a.n_rows * kRowCost + 256LL * nw - 1) / (256LL * nw);
   const int64_t blocks = want < sms ? (want > 0 ? want : 1) : sms;
   const int bytes = Layout(a.channels, a.hidden, nw).bytes();
-  const bool vec = kIsFloat<T> ? a.channels % 4 == 0
-                               : a.channels % 8 == 0 && reinterpret_cast<uintptr_t>(a.edge) % 16 == 0;
-  const bool matgl = vec && a.channels == 64 && a.hidden == 64;
+  const bool vec = a.channels % 4 == 0;
+  const bool matgl = a.channels == 64 && a.hidden == 64;
   auto kernel = NDIR == 1
-      ? (matgl ? chgnet_atom_conv_kernel<T, true, 64, 64>
-               : vec ? chgnet_atom_conv_kernel<T, true, 0, 0>
-                     : chgnet_atom_conv_kernel<T, false, 0, 0>)
-      : (matgl ? chgnet_line_conv_kernel<T, true, 64, 64>
-               : vec ? chgnet_line_conv_kernel<T, true, 0, 0>
-                     : chgnet_line_conv_kernel<T, false, 0, 0>);
+      ? (matgl ? chgnet_atom_conv_kernel<true, 64, 64>
+               : vec ? chgnet_atom_conv_kernel<true, 0, 0> : chgnet_atom_conv_kernel<false, 0, 0>)
+      : (matgl ? chgnet_line_conv_kernel<true, 64, 64>
+               : vec ? chgnet_line_conv_kernel<true, 0, 0> : chgnet_line_conv_kernel<false, 0, 0>);
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<static_cast<unsigned>(blocks), 32 * nw, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
-
 // ---------------------------------------------------------------------------
 // The row projection: y (rows, m) = x (rows, k) W (k, m) [+ bias (m)], the
 // layer-1 products of the gathered segments taken once per node or bond
@@ -1226,49 +1160,647 @@ cudaError_t qlaunch(const QArgs& a, QPlan* p, cudaStream_t s) {
   return p->mt == 128 ? qdispatch_ks<128>(a, p, s) : qdispatch_ks<256>(a, p, s);
 }
 
-template <typename T>
-int atom_conv(const float* p_src, int64_t src_stride, const int32_t* src, const float* p_dst,
-              int64_t dst_stride, const int32_t* dst, const T* edge, const T* abw,
-              const float* w1e, const float* w2, const float* b2, const int64_t* row_ptr,
-              const int32_t* seg_ids, const uint8_t* mask, T* out, int64_t n_rows,
-              int64_t n_edges, int channels, int hidden, void* stream) {
-  Args<T> a{};
+// ---------------------------------------------------------------------------
+// The per-edge kernels at bf16 data (the bf16 model's edge and angle rows,
+// abw and output; float32 tables from the bf16 projection; bf16 packed
+// weights): the same function and the same walk as the float32 kernels
+// above (each warp a contiguous range of dst rows cut by find_row,
+// candidates screened with a ballot into a ring one batch ahead, the src
+// partial rows and the bf16 edge rows staged by cp.async into a second
+// buffer while a tile computes, the dst and center partial rows read
+// directly, each dst row summed in edge order by one warp and written once),
+// with the per-edge products on the tensor cores. That is the TPU kernel's
+// contract at bf16 data: blocks in the data's dtype, an fp32 accumulator,
+// the output in the message's dtype (distmlip_tpu/kernels/segment.py:
+// 300-317), and the gated MLP of distmlip_tpu/ops/nn.py:119-122, whose bf16
+// linear (:36) hands layer 2 a bf16 hidden.
+//
+// A tile is 16 edges (one m16) of one warp; a lane (g, q) = (lane / 4,
+// lane % 4) holds rows g and g + 8 of each accumulator tile, columns 2q and
+// 2q + 1 of its n8 tile (mma.m16n8k16's C fragment):
+//   1. layer 1's accumulators (16 edges x 2 x 16 ht hidden units, core and
+//      gate) start from the gathered partial rows, read as float2s in the
+//      fragment layout: the dst and center rows from global memory, loaded
+//      at the end of the tile before (so they land while the walk takes
+//      the next tile), then the staged src rows from shared memory (a row
+//      stride of 8 mod 32 words puts a fragment's 8 rows in different
+//      banks);
+//   2. the edge segment's product: A the staged bf16 edge rows (ldmatrix.x4;
+//      16 ks1 + 8 values a row, so an ldmatrix's 8 rows fall in different
+//      banks), B W1e^T in bf16, resident in shared memory and zero-padded to
+//      whole k16 steps, mma.sync.m16n8k16.f32.bf16.bf16.f32;
+//   3. silu in fp32 (through tanh.approx, step 4), then one rounding of the
+//      hidden to bf16: two adjacent n8 accumulator tiles are, lane for lane,
+//      the A fragment of one k16 step, so the hidden becomes layer 2's A
+//      operand in registers and never passes through shared memory. This
+//      is the only rounding the kernel adds to the float32 kernel's
+//      arithmetic, and the reference's bf16 linear makes it too;
+//   4. layer 2, core and gate, from b2 (fp32) with B W2^T in bf16, resident;
+//      silu and sigmoid in fp32 through tanh.approx.f32 (one MUFU operation
+//      each, where the exact expf and division take two and, with their
+//      range reduction and Newton steps, held the kernel at about twice its
+//      time), the gate product and abw (bf16 pairs read in the fragment
+//      layout before layer 1, so they land meanwhile);
+//   5. the fp32 message (16 x C) into the warp's buffer, over the partial
+//      rows the tile has consumed; then the segmented row sum in edge order
+//      as in the float32 kernel, each output element rounded once to bf16
+//      when its row is written.
+//
+// What bounds it on an H100. Not the products: 32,768 FLOP an edge is 0.03
+// ms for the atom conv (885,410 valid edges) and 0.07 ms for the line conv
+// (2,162,688 valid lines) at 989 TFLOP/s. Two floors remain:
+//   - the SFU: 256 activations an edge (128 silu in layer 1, 64 silu and 64
+//     sigmoid in layer 2), one MUFU operation each through tanh.approx: at
+//     132 SMs x 16 a clock x 1.98 GHz, 0.054 ms (atom conv) and 0.132 ms
+//     (line conv); an exact expf and a division would take twice that;
+//   - gathered bytes: the line conv gathers the float32 bond table, (236,032,
+//     4 x 64) floats at the path's shapes (242 MB, past the 50 MB L2), at
+//     both ends; the staged src rows (512 B each) come in no order, up to
+//     1.1 GB, 0.33 ms. The atom table (19,712 rows, 20 MB) stays in L2.
+// mma.sync and not wgmma: the tensor-core work is far below both floors even
+// at mma.sync's rate, and each warp walks its own CSR range; a wgmma 64-row
+// tile would tie four warps' ranges together to buy a rate this kernel does
+// not need.
+//
+// Shared memory: W1e^T, W2^T and b2 once a block (37 KB at C = H = 64), and
+// per warp two 16-edge buffers of bf16 edge rows and float32 partial rows
+// (22 KB) with the ring: 8 warps a block at matgl's widths (225 KB), one
+// block an SM.
+
+constexpr int kTcEdges = 16;            // edges a tile: one m16
+constexpr int kTcWarps = 8;             // warps a block at most
+constexpr int kTcRing = kTcEdges + 32;  // a tile's leftovers plus one screened batch
+constexpr int kTcKS1 = kMaxWidth / 16;  // the most k16 steps of layer 1 (C)
+constexpr int kTcHT = kMaxWidth / 16;   // the most k16 steps of layer 2 (H)
+constexpr int kTcCT = kMaxWidth / 8;    // the most n8 tiles of a layer-2 half (C)
+
+__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+
+// The bf16 kernels' arguments: Args with bf16 per-edge rows and output, and
+// the bf16 transposed weights.
+struct TcArgs {
+  Table staged;                 // src: staged through shared memory with cp.async
+  Table direct[2];              // dst (and the line conv's center): read directly
+  const __nv_bfloat16* edge;    // (E, C) the per-edge segment
+  const __nv_bfloat16* abw;     // (E, C) per-edge multiplier, or null
+  const __nv_bfloat16* w1e;     // (32 ht, 16 ks1) W1e^T: core units, then gate units
+  const __nv_bfloat16* w2;      // (16 ct, 16 ht) W2^T: core channels, then gate channels
+  const float* b2;              // (2cp) [b2c | b2g]
+  const int64_t* row_ptr;       // (n_rows + 1)
+  const int32_t* seg_ids;       // (E) dst row of each edge
+  const uint8_t* mask;          // (E) or null
+  __nv_bfloat16* out;           // (n_rows, C)
+  int64_t n_rows;
+  int channels;
+  int hidden;
+};
+
+// The bf16 kernels' widths and shared-memory layout (4-byte words, every
+// region 16-byte aligned) at C channels and H hidden units. KS1, HT, CT:
+// the k16 steps of C and of H and the n8 tiles of C as constants (4, 4, 8
+// at matgl's C = H = 64), or 0 for the launch's.
+template <int KS1 = 0, int HT = 0, int CT = 0>
+struct TcLayout {
+  int ks1_, ht_, ct_, hp_, warps;
+  __host__ __device__ TcLayout(int c, int h, int nw)
+      : ks1_((c + 15) / 16), ht_((h + 15) / 16), ct_((c + 7) / 8), hp_(round4(h)), warps(nw) {}
+  __host__ __device__ int ks1() const { return KS1 > 0 ? KS1 : ks1_; }
+  __host__ __device__ int ht() const { return HT > 0 ? HT : ht_; }
+  __host__ __device__ int ct() const { return CT > 0 ? CT : ct_; }
+  // the tables' half width (H rounded up to 4)
+  __host__ __device__ int hp() const { return HT > 0 ? 16 * HT : hp_; }
+  // bf16 row strides of the edge rows and W1e^T, and of W2^T: 8 values
+  // past whole k16 steps
+  __host__ __device__ int xs() const { return 16 * ks1() + 8; }
+  __host__ __device__ int w2s() const { return 16 * ht() + 8; }
+  // float row strides of the staged src partial rows (2hp used) and of the
+  // message tile (8 ct used): 8 mod 32
+  __host__ __device__ int ps() const { return round_up(2 * hp(), 32) + 8; }
+  __host__ __device__ int ms() const { return round_up(8 * ct(), 32) + 8; }
+  __host__ __device__ int o_w2() const { return 16 * ht() * xs(); }         // after W1e^T
+  __host__ __device__ int o_b2() const { return o_w2() + 8 * ct() * w2s(); }  // after W2^T
+  __host__ __device__ int o_warp() const { return round4(o_b2() + 16 * ct()); }
+  // one tile buffer: the edge rows (16 x xs bf16), then the partial rows,
+  // over which the message tile is written
+  __host__ __device__ int slot() const { return 8 * xs() + kTcEdges * imax(ps(), ms()); }
+  // two tile buffers, the ring (edge, row, src, dst, center) and each
+  // buffer's tile metadata (edge, row, dst, center)
+  __host__ __device__ int per_warp() const {
+    return round4(2 * slot() + 5 * kTcRing + 2 * 4 * kTcEdges);
+  }
+  __host__ __device__ int bytes() const { return 4 * (o_warp() + warps * per_warp()); }
+};
+
+// The warp's own region of shared memory.
+struct TcWarpMem {
+  float* buf;  // two tile buffers of slot() words
+  int* ring;   // ring_e, ring_r, ring_s, ring_d0, ring_d1: kTcRing each
+  int* meta;   // per buffer: edge, row, dst, center: kTcEdges each
+  template <class L>
+  __device__ __nv_bfloat16* edges(const L& l, int s) const {
+    return reinterpret_cast<__nv_bfloat16*>(buf + s * l.slot());
+  }
+  template <class L>
+  __device__ float* rows(const L& l, int s) const {
+    return buf + s * l.slot() + 8 * l.xs();
+  }
+  __device__ int* tile(int s, int field) const { return meta + (s * 4 + field) * kTcEdges; }
+};
+
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&a)[2], const __nv_bfloat16* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(a[0]), "=r"(a[1])
+               : "r"(s)
+               : "memory");
+}
+
+// silu and sigmoid through tanh.approx.f32, one MUFU operation each (the
+// exact expf and division take two and hold the kernel): sigmoid(z) = 1/2 +
+// tanh(z / 2) / 2 and silu(z) = z sigmoid(z) = h + h tanh(h), h = z / 2.
+// tanh.approx's absolute error (at most 2^-10.987 by the PTX ISA,
+// edge_aggregate.TANH_ERR) enters chgnet_tensor_core_error_bound as a term
+// of its own.
+__device__ __forceinline__ float tanh_approx(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float silu_tc(float z) {
+  const float h = 0.5f * z;
+  return fmaf(h, tanh_approx(h), h);
+}
+__device__ __forceinline__ float sigmoid_tc(float z) {
+  return fmaf(0.5f, tanh_approx(0.5f * z), 0.5f);
+}
+
+// two fp32 values rounded once to bf16, packed as an mma operand register
+// (lo at the lower index)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Fill the ring until it holds a tile (or the range is screened), move the
+// next tile into buffer s, start its copies and return its edge count.
+template <int NDIR, bool VEC, class L>
+__device__ int tc_take_tile(const TcArgs& a, const L& lay, const TcWarpMem& m, int s,
+                            Screen& sc, int lane) {
+  int* ring_e = m.ring;
+  int* ring_r = ring_e + kTcRing;
+  int* ring_s = ring_r + kTcRing;
+  int* ring_d0 = ring_s + kTcRing;
+  int* ring_d1 = ring_d0 + kTcRing;
+  __syncwarp();  // every lane is done with the ring entries of the last tile
+  while (sc.count < kTcEdges && sc.cand < sc.e_end) {
+    const unsigned ballot = __ballot_sync(0xffffffffu, sc.ok);
+    if (sc.ok) {
+      const int pos = (sc.head + sc.count + __popc(ballot & ((1u << lane) - 1u))) % kTcRing;
+      ring_e[pos] = static_cast<int>(sc.cand + lane);
+      ring_r[pos] = sc.row;
+      ring_s[pos] = sc.src;
+      ring_d0[pos] = sc.d0;
+      ring_d1[pos] = sc.d1;
+    }
+    sc.count += __popc(ballot);
+    sc.cand += 32;
+    prefetch_batch<NDIR>(a, sc, lane);  // lands while the tile computes
+  }
+  __syncwarp();
+  const int n = sc.count < kTcEdges ? sc.count : kTcEdges;
+  if (lane < n) {
+    const int pos = (sc.head + lane) % kTcRing;
+    m.tile(s, 0)[lane] = ring_e[pos];
+    m.tile(s, 1)[lane] = ring_r[pos];
+    m.tile(s, 2)[lane] = ring_d0[pos];
+    m.tile(s, 3)[lane] = ring_d1[pos];
+  }
+  // the src partial rows (2hp floats, 16-byte chunks)
+  float* ps = m.rows(lay, s);
+  const int qp = lay.hp() / 2;
+  for (int t = lane; t < n * qp; t += 32) {
+    const int i = t / qp, q = t - i * qp;
+    const int64_t r = ring_s[(sc.head + i) % kTcRing];
+    cp_async16(ps + i * lay.ps() + 4 * q, a.staged.base + r * a.staged.stride + 4 * q);
+  }
+  // the bf16 edge rows; the columns from C to whole k16 steps stay zero
+  __nv_bfloat16* x = m.edges(lay, s);
+  const int C = a.channels;
+  if (VEC) {  // C % 8 == 0 and 16-byte aligned rows: 8 values a copy
+    const int qx = C / 8;
+    for (int t = lane; t < n * qx; t += 32) {
+      const int i = t / qx, q = t - i * qx;
+      const int64_t e = ring_e[(sc.head + i) % kTcRing];
+      cp_async16(x + i * lay.xs() + 8 * q, a.edge + e * C + 8 * q);
+    }
+  } else {  // plain loads (a cp.async copies 4 bytes at least)
+    for (int t = lane; t < n * C; t += 32) {
+      const int i = t / C, c = t - i * C;
+      const int64_t e = ring_e[(sc.head + i) % kTcRing];
+      x[i * lay.xs() + c] = a.edge[e * C + c];
+    }
+  }
+  cp_async_commit();
+  sc.head = (sc.head + n) % kTcRing;
+  sc.count -= n;
+  return n;
+}
+
+// flush the running sums into row `cur` (rounded once to bf16) and move on
+__device__ __forceinline__ void tc_flush_row(const TcArgs& a, int64_t& cur, float (&acc_row)[2],
+                                             int lane) {
+#pragma unroll
+  for (int g = 0; g < 2; ++g) {
+    const int c = lane + 32 * g;
+    if (c < a.channels) a.out[cur * a.channels + c] = __float2bfloat16_rn(acc_row[g]);
+    acc_row[g] = 0.0f;
+  }
+  ++cur;
+}
+
+// Layer 1's accumulators of the tile in buffer s (n edges) from its
+// directly read partial rows, the dst row's (+ the center's): acc[h][j] is
+// n8 tile j of the core (h 0) or the gate (h 1), zero past the rows and
+// columns. Called a tile ahead, at the end of the one before, so that the
+// loads land while the walk takes the next tile.
+template <int NDIR, class L>
+__device__ __forceinline__ void tc_direct_rows(const TcArgs& a, const L& lay, const TcWarpMem& m,
+                                               int s, int n, int lane,
+                                               float (&acc)[2][2 * kTcHT][4]) {
+  const int g = lane >> 2, q = lane & 3;
+  const bool v0 = g < n, v1 = g + 8 < n;
+  const int ht = lay.ht(), hp = lay.hp();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < 2 * kTcHT; ++j) acc[h][j][0] = acc[h][j][1] = acc[h][j][2] = acc[h][j][3] = 0.0f;
+  }
+#pragma unroll
+  for (int d = 0; d < NDIR; ++d) {
+    const int* ti = m.tile(s, 2 + d);
+    const float* r0 = a.direct[d].base + static_cast<int64_t>(v0 ? ti[g] : 0) * a.direct[d].stride;
+    const float* r1 =
+        a.direct[d].base + static_cast<int64_t>(v1 ? ti[g + 8] : 0) * a.direct[d].stride;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 2 * kTcHT; ++j) {
+        const int col = h * hp + 8 * j + 2 * q;
+        if (j >= 2 * ht || 8 * j + 2 * q >= hp) continue;
+        if (v0) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(r0 + col));
+          acc[h][j][0] += v.x;
+          acc[h][j][1] += v.y;
+        }
+        if (v1) {
+          const float2 v = __ldg(reinterpret_cast<const float2*>(r1 + col));
+          acc[h][j][2] += v.x;
+          acc[h][j][3] += v.y;
+        }
+      }
+    }
+  }
+}
+
+// One tile of n <= 16 edges whose staged rows are in buffer s (steps 1-5 of
+// the note above), acc holding its direct rows' sums (tc_direct_rows); at
+// its end acc takes the next tile's (buffer s ^ 1, n_next edges). w1t, w2t,
+// b2s: the block's resident weights.
+template <int NDIR, bool VEC, class L>
+__device__ __forceinline__ void tc_run_tile(const TcArgs& a, const L& lay, const __nv_bfloat16* w1t,
+                            const __nv_bfloat16* w2t, const float* b2s, const TcWarpMem& m, int s,
+                            int n, int n_next, int lane, int64_t& cur, float (&acc_row)[2],
+                            float (&acc)[2][2 * kTcHT][4]) {
+  const int g = lane >> 2, q = lane & 3;
+  const bool v0 = g < n, v1 = g + 8 < n;  // the lane's two rows hold edges
+  const int C = a.channels;
+  const int ht = lay.ht(), ct = lay.ct(), hp = lay.hp();
+  const int* te = m.tile(s, 0);
+  const int* tr = m.tile(s, 1);
+  const __nv_bfloat16* x = m.edges(lay, s);
+  float* rows = m.rows(lay, s);
+
+  // abw at the lane's rows and columns, in flight during both layers
+  __nv_bfloat162 ab[kTcCT][2];
+  const __nv_bfloat16 one = __float2bfloat16_rn(1.0f);
+#pragma unroll
+  for (int j = 0; j < kTcCT; ++j) {
+    ab[j][0] = ab[j][1] = __halves2bfloat162(one, one);
+    const int col = 8 * j + 2 * q;
+    if (a.abw == nullptr || j >= ct || col >= C) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (!(r ? v1 : v0)) continue;
+      const __nv_bfloat16* p = a.abw + static_cast<int64_t>(te[g + 8 * r]) * C + col;
+      if (VEC) {
+        ab[j][r] = __ldg(reinterpret_cast<const __nv_bfloat162*>(p));
+      } else {
+        ab[j][r] = __halves2bfloat162(__ldg(p), col + 1 < C ? __ldg(p + 1) : one);
+      }
+    }
+  }
+
+  // 1. layer 1's accumulators: the direct rows' sums (loaded a tile ahead)
+  //    plus the staged src partial rows, which carry the layer-1 bias
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < 2 * kTcHT; ++j) {
+      const int col = 8 * j + 2 * q;
+      if (j >= 2 * ht || col >= hp) continue;
+      const float* p = rows + h * hp + col;
+      if (v0) {
+        const float2 v = *reinterpret_cast<const float2*>(p + g * lay.ps());
+        acc[h][j][0] += v.x;
+        acc[h][j][1] += v.y;
+      }
+      if (v1) {
+        const float2 v = *reinterpret_cast<const float2*>(p + (g + 8) * lay.ps());
+        acc[h][j][2] += v.x;
+        acc[h][j][3] += v.y;
+      }
+    }
+  }
+
+  // 2. + e W1e on the tensor cores
+#pragma unroll
+  for (int k = 0; k < kTcKS1; ++k) {
+    if (k >= lay.ks1()) continue;
+    uint32_t af[4];
+    ldmatrix_x4(af, x + (lane & 15) * lay.xs() + 16 * k + 8 * (lane >> 4));
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < 2 * kTcHT; j += 2) {
+        if (j >= 2 * ht) continue;
+        uint32_t bf[4];
+        ldmatrix_x4(bf, w1t + (16 * ht * h + 8 * j + (lane & 7) + 8 * (lane >> 4)) * lay.xs() +
+                            16 * k + 8 * ((lane >> 3) & 1));
+        const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+        mma_bf16(acc[h][j], af, b0);
+        mma_bf16(acc[h][j + 1], af, b1);
+      }
+    }
+  }
+
+  // 3. silu in fp32, one rounding to bf16: layer 2's A fragments
+  uint32_t hf[2][kTcHT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int t = 0; t < kTcHT; ++t) {
+      hf[h][t][0] = hf[h][t][1] = hf[h][t][2] = hf[h][t][3] = 0u;
+      if (t >= ht) continue;
+      hf[h][t][0] = pack_bf16(silu_tc(acc[h][2 * t][0]), silu_tc(acc[h][2 * t][1]));
+      hf[h][t][1] = pack_bf16(silu_tc(acc[h][2 * t][2]), silu_tc(acc[h][2 * t][3]));
+      hf[h][t][2] = pack_bf16(silu_tc(acc[h][2 * t + 1][0]), silu_tc(acc[h][2 * t + 1][1]));
+      hf[h][t][3] = pack_bf16(silu_tc(acc[h][2 * t + 1][2]), silu_tc(acc[h][2 * t + 1][3]));
+    }
+  }
+
+  // 4. layer 2 from b2: o[h][j] is n8 tile j of the core (h 0) or gate (h 1)
+  //    output channels
+  float o[2][kTcCT][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < kTcCT; ++j) {
+      const float2 b = j < ct ? *reinterpret_cast<const float2*>(b2s + 8 * ct * h + 8 * j + 2 * q)
+                              : make_float2(0.0f, 0.0f);
+      o[h][j][0] = o[h][j][2] = b.x;
+      o[h][j][1] = o[h][j][3] = b.y;
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int t = 0; t < kTcHT; ++t) {
+      if (t >= ht) continue;
+#pragma unroll
+      for (int j = 0; j < kTcCT; j += 2) {
+        if (j >= ct) continue;
+        const __nv_bfloat16* p = w2t + (8 * ct * h + 8 * j + (lane & 7)) * lay.w2s() + 16 * t +
+                                 8 * ((lane >> 3) & 1);
+        if (j + 1 < ct) {  // two n8 tiles: rows 8 on at lanes 16-31
+          uint32_t bf[4];
+          ldmatrix_x4(bf, p + 8 * (lane >> 4) * lay.w2s());
+          const uint32_t b0[2] = {bf[0], bf[1]}, b1[2] = {bf[2], bf[3]};
+          mma_bf16(o[h][j], hf[h][t], b0);
+          mma_bf16(o[h][j + 1], hf[h][t], b1);
+        } else {  // the last of an odd count
+          uint32_t b0[2];
+          ldmatrix_x2(b0, p);
+          mma_bf16(o[h][j], hf[h][t], b0);
+        }
+      }
+    }
+  }
+
+  // 5. the message silu(core) sigmoid(gate) abw in fp32, into the tile's
+  //    rows (every lane is done reading the partial rows), then the
+  //    segmented sum in edge order
+  __syncwarp();
+  float* msg = rows;
+#pragma unroll
+  for (int j = 0; j < kTcCT; ++j) {
+    if (j >= ct) continue;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float2 w = __bfloat1622float2(ab[j][r]);
+      const float m0 = silu_tc(o[0][j][2 * r]) * sigmoid_tc(o[1][j][2 * r]) * w.x;
+      const float m1 = silu_tc(o[0][j][2 * r + 1]) * sigmoid_tc(o[1][j][2 * r + 1]) * w.y;
+      *reinterpret_cast<float2*>(msg + (g + 8 * r) * lay.ms() + 8 * j + 2 * q) =
+          make_float2(m0, m1);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < kTcEdges; ++i) {
+    if (i < n) {
+      const int64_t r = tr[i];
+      while (cur < r) tc_flush_row(a, cur, acc_row, lane);
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        const int c = lane + 32 * k;
+        if (c < C) acc_row[k] += msg[i * lay.ms() + c];
+      }
+    }
+  }
+  tc_direct_rows<NDIR>(a, lay, m, s ^ 1, n_next, lane, acc);
+}
+
+template <int NDIR, bool VEC, int KS1, int HT, int CT>
+__device__ __forceinline__ void gated_aggregate_tc(const TcArgs& a) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int nw = blockDim.x >> 5;
+  const TcLayout<KS1, HT, CT> lay(a.channels, a.hidden, nw);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __nv_bfloat16* w1t = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* w2t = reinterpret_cast<__nv_bfloat16*>(smem + lay.o_w2());
+  float* b2s = smem + lay.o_b2();
+
+  // the weights, packed and zero-padded by the wrapper: W1e^T (32 ht rows of
+  // 16 ks1 values) and W2^T (16 ct rows of 16 ht) by 16-byte copies into the
+  // padded rows; b2 as [core | gate] halves of 8 ct, zeros past C
+  const int q1 = 2 * lay.ks1(), q2 = 2 * lay.ht();
+  for (int i = tid; i < 32 * lay.ht() * q1; i += blockDim.x) {
+    const int r = i / q1, c = i - r * q1;
+    *reinterpret_cast<uint4*>(w1t + r * lay.xs() + 8 * c) =
+        __ldg(reinterpret_cast<const uint4*>(a.w1e) + i);
+  }
+  for (int i = tid; i < 16 * lay.ct() * q2; i += blockDim.x) {
+    const int r = i / q2, c = i - r * q2;
+    *reinterpret_cast<uint4*>(w2t + r * lay.w2s() + 8 * c) =
+        __ldg(reinterpret_cast<const uint4*>(a.w2) + i);
+  }
+  const int cp = round4(a.channels);
+  for (int i = tid; i < 16 * lay.ct(); i += blockDim.x) {
+    const int h = i / (8 * lay.ct()), c = i - h * 8 * lay.ct();
+    b2s[i] = c < a.channels ? __ldg(a.b2 + h * cp + c) : 0.0f;
+  }
+
+  TcWarpMem m;
+  m.buf = smem + lay.o_warp() + warp * lay.per_warp();
+  m.ring = reinterpret_cast<int*>(m.buf + 2 * lay.slot());
+  m.meta = m.ring + 5 * kTcRing;
+  // both buffers' edge rows zeroed: the columns past C, which no copy
+  // writes, read as zeros
+  for (int s = 0; s < 2; ++s) {
+    uint4* x = reinterpret_cast<uint4*>(m.edges(lay, s));
+    for (int i = lane; i < kTcEdges * lay.xs() / 8; i += 32) x[i] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+
+  // this warp's rows [ra, rb): equal shares of candidate edges + kRowCost per row
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * nw;
+  const int64_t w = static_cast<int64_t>(blockIdx.x) * nw + warp;
+  const int64_t total = a.row_ptr[a.n_rows] + kRowCost * a.n_rows;
+  const int64_t ra = w == 0 ? 0 : find_row(a.row_ptr, a.n_rows, w * total / n_warps, lane);
+  const int64_t rb = w + 1 == n_warps ? a.n_rows
+                                      : find_row(a.row_ptr, a.n_rows, (w + 1) * total / n_warps, lane);
+  if (ra >= rb) return;
+  Screen sc{};
+  sc.cand = a.row_ptr[ra];
+  sc.e_end = a.row_ptr[rb];
+  prefetch_batch<NDIR>(a, sc, lane);
+
+  int64_t cur = ra;                 // the row the walk is in
+  float acc_row[2] = {0.0f, 0.0f};  // its running sums of channels lane, lane + 32
+  int s = 0;
+  int n = tc_take_tile<NDIR, VEC>(a, lay, m, s, sc, lane);
+  float acc[2][2 * kTcHT][4];  // layer 1's accumulators, begun a tile ahead
+  __syncwarp();
+  tc_direct_rows<NDIR>(a, lay, m, s, n, lane, acc);
+  while (n > 0) {
+    // the next tile's rows fly while this one computes
+    const int n_next = tc_take_tile<NDIR, VEC>(a, lay, m, s ^ 1, sc, lane);
+    cp_async_wait<1>();
+    __syncwarp();
+    tc_run_tile<NDIR, VEC>(a, lay, w1t, w2t, b2s, m, s, n, n_next, lane, cur, acc_row, acc);
+    __syncwarp();
+    s ^= 1;
+    n = n_next;
+  }
+  cp_async_wait<0>();
+  while (cur < rb) tc_flush_row(a, cur, acc_row, lane);
+}
+
+// VEC: C % 8 == 0 and 16-byte aligned edge (and abw) rows: 16-byte copies
+// and pair loads. KS1, HT, CT: the widths as constants (4, 4, 8: matgl's C
+// = H = 64), or 0 for any.
+template <bool VEC, int KS1, int HT, int CT>
+__global__ void __launch_bounds__(32 * kTcWarps, 1) chgnet_atom_conv_bf16_kernel(const TcArgs a) {
+  gated_aggregate_tc<1, VEC, KS1, HT, CT>(a);
+}
+
+template <bool VEC, int KS1, int HT, int CT>
+__global__ void __launch_bounds__(32 * kTcWarps, 1) chgnet_line_conv_bf16_kernel(const TcArgs a) {
+  gated_aggregate_tc<2, VEC, KS1, HT, CT>(a);
+}
+
+// The bf16 kernels' launch plan: warps a block (as many as shared memory
+// holds, at most kTcWarps), blocks (one an SM, fewer for small inputs: ~256
+// candidates a warp) and shared bytes a block.
+struct TcPlan {
+  int warps, blocks, bytes;
+};
+
+cudaError_t tc_plan(int channels, int hidden, int64_t n_rows, int64_t n_edges, TcPlan* p) {
+  p->warps = 0;
+  if (channels < 1 || hidden < 1 || channels > kMaxWidth || hidden > kMaxWidth ||
+      n_edges >= 2147483647LL)
+    return cudaErrorInvalidValue;
+  for (int nw = kTcWarps; nw >= 1 && p->warps == 0; --nw) {
+    if (TcLayout<>(channels, hidden, nw).bytes() <= kSmemLimit) p->warps = nw;
+  }
+  if (p->warps == 0) return cudaErrorInvalidValue;
+  p->bytes = TcLayout<>(channels, hidden, p->warps).bytes();
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int64_t want = (n_edges + n_rows * kRowCost + 256LL * p->warps - 1) / (256LL * p->warps);
+  p->blocks = static_cast<int>(want < sms ? (want > 0 ? want : 1) : sms);
+  return cudaSuccess;
+}
+
+template <int NDIR>
+int tc_launch(const TcArgs& a, int64_t n_edges, void* stream) {
+  if (a.n_rows <= 0 || a.channels <= 0) return 0;
+  TcPlan p{};
+  cudaError_t err = tc_plan(a.channels, a.hidden, a.n_rows, n_edges, &p);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto aligned = [](const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; };
+  if (!aligned(a.w1e) || !aligned(a.w2)) return static_cast<int>(cudaErrorMisalignedAddress);
+  const bool vec = a.channels % 8 == 0 && aligned(a.edge) && (a.abw == nullptr || aligned(a.abw));
+  const bool matgl = vec && a.channels == 64 && a.hidden == 64;
+  auto kernel = NDIR == 1 ? (matgl ? chgnet_atom_conv_bf16_kernel<true, 4, 4, 8>
+                             : vec ? chgnet_atom_conv_bf16_kernel<true, 0, 0, 0>
+                                   : chgnet_atom_conv_bf16_kernel<false, 0, 0, 0>)
+                          : (matgl ? chgnet_line_conv_bf16_kernel<true, 4, 4, 8>
+                             : vec ? chgnet_line_conv_bf16_kernel<true, 0, 0, 0>
+                                   : chgnet_line_conv_bf16_kernel<false, 0, 0, 0>);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned>(p.blocks), 32 * p.warps, p.bytes,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-edge kernels' arguments: A is Args (float32 data, float32 packed
+// weights) or TcArgs (bf16 data, bf16 transposed weights).
+template <class A, typename T, typename W>
+A conv_args(const float* p_src, int64_t src_stride, const int32_t* src, const float* p_dst,
+            int64_t dst_stride, const int32_t* dst, const float* p_ctr, int64_t ctr_stride,
+            const int32_t* ctr, const T* edge, const T* abw, const W* w1e, const W* w2,
+            const float* b2, const int64_t* row_ptr, const int32_t* seg_ids,
+            const uint8_t* mask, T* out, int64_t n_rows, int channels, int hidden) {
+  A a{};
   a.staged = {p_src, src, src_stride};
   a.direct[0] = {p_dst, dst, dst_stride};
-  a.direct[1] = a.direct[0];
+  a.direct[1] = {p_ctr, ctr, ctr_stride};
   a.edge = edge; a.abw = abw;
   a.w1e = w1e; a.w2 = w2; a.b2 = b2;
   a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
   a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
-  return launch<T, 1>(a, n_edges, stream);
-}
-
-template <typename T>
-int line_conv(const float* p_src, int64_t src_stride, const int32_t* line_src,
-              const float* p_dst, int64_t dst_stride, const int32_t* line_dst, const T* angle,
-              const float* p_ctr, int64_t ctr_stride, const int32_t* center, const float* w1e,
-              const float* w2, const float* b2, const int64_t* row_ptr, const int32_t* seg_ids,
-              const uint8_t* mask, T* out, int64_t n_rows, int64_t n_edges, int channels,
-              int hidden, void* stream) {
-  Args<T> a{};
-  a.staged = {p_src, line_src, src_stride};
-  a.direct[0] = {p_dst, line_dst, dst_stride};
-  a.direct[1] = {p_ctr, center, ctr_stride};
-  a.edge = angle; a.abw = nullptr;
-  a.w1e = w1e; a.w2 = w2; a.b2 = b2;
-  a.row_ptr = row_ptr; a.seg_ids = seg_ids; a.mask = mask; a.out = out;
-  a.n_rows = n_rows; a.channels = channels; a.hidden = hidden;
-  return launch<T, 2>(a, n_edges, stream);
+  return a;
 }
 
 }  // namespace
 
-// Shared memory a launch of either per-edge kernel takes (bytes) at C
-// channels and H hidden units; -1 when C or H is past 64 or the weights and
-// one warp's buffers do not fit a block.
-extern "C" int distmlip_chgnet_aggregate_smem_bytes(int channels, int hidden) {
-  const int nw = pick_warps(channels, hidden);
-  return nw == 0 ? -1 : Layout(channels, hidden, nw).bytes();
+// The bf16 per-edge kernels' launch plan at (C, H, n_rows, n_edges) on the
+// current device: out[0] warps a block, out[1] blocks, out[2] shared bytes a
+// block. Returns a cudaError_t (0 = success).
+extern "C" int distmlip_chgnet_aggregate_bf16_plan(int channels, int hidden, int64_t n_rows,
+                                                   int64_t n_edges, int64_t* out) {
+  TcPlan plan{};
+  const cudaError_t err = tc_plan(channels, hidden, n_rows, n_edges, &plan);
+  out[0] = plan.warps;
+  out[1] = plan.blocks;
+  out[2] = plan.bytes;
+  return static_cast<int>(err);
 }
 
 // Row projection. x (rows, k) float32 contiguous, 1 <= k <= 64; w (k, m)
@@ -1349,20 +1881,27 @@ extern "C" int distmlip_chgnet_atom_conv_f32(
     const float* w1e, const float* w2, const float* b2, const int64_t* row_ptr,
     const int32_t* seg_ids, const uint8_t* mask, float* out, int64_t n_rows,
     int64_t n_edges, int channels, int hidden, void* stream) {
-  return atom_conv(p_src, src_stride, src, p_dst, dst_stride, dst, edge, abw, w1e, w2, b2,
-                   row_ptr, seg_ids, mask, out, n_rows, n_edges, channels, hidden, stream);
+  return launch<1>(conv_args<Args>(p_src, src_stride, src, p_dst, dst_stride, dst, p_dst,
+                                   dst_stride, dst, edge, abw, w1e, w2, b2, row_ptr, seg_ids,
+                                   mask, out, n_rows, channels, hidden),
+                   n_edges, stream);
 }
 
-// The same with edge, abw and out bfloat16; the tables and packed weights
-// float32.
+// The same at bf16 data on the tensor cores: edge, abw and out bfloat16;
+// the tables and b2 float32; w1e_t (32 ht, 16 ks1) and w2_t (16 ct, 16 ht)
+// bfloat16, W1e^T and W2^T packed by chgnet_pack_weights (ks1, ht: C and H
+// in whole k16 steps, ct: C in whole n8 tiles), 16-byte aligned.
 extern "C" int distmlip_chgnet_atom_conv_bf16(
     const float* p_src, int64_t src_stride, const int32_t* src, const float* p_dst,
     int64_t dst_stride, const int32_t* dst, const __nv_bfloat16* edge,
-    const __nv_bfloat16* abw, const float* w1e, const float* w2, const float* b2,
-    const int64_t* row_ptr, const int32_t* seg_ids, const uint8_t* mask, __nv_bfloat16* out,
-    int64_t n_rows, int64_t n_edges, int channels, int hidden, void* stream) {
-  return atom_conv(p_src, src_stride, src, p_dst, dst_stride, dst, edge, abw, w1e, w2, b2,
-                   row_ptr, seg_ids, mask, out, n_rows, n_edges, channels, hidden, stream);
+    const __nv_bfloat16* abw, const __nv_bfloat16* w1e_t, const __nv_bfloat16* w2_t,
+    const float* b2, const int64_t* row_ptr, const int32_t* seg_ids, const uint8_t* mask,
+    __nv_bfloat16* out, int64_t n_rows, int64_t n_edges, int channels, int hidden,
+    void* stream) {
+  return tc_launch<1>(conv_args<TcArgs>(p_src, src_stride, src, p_dst, dst_stride, dst, p_dst,
+                                        dst_stride, dst, edge, abw, w1e_t, w2_t, b2, row_ptr,
+                                        seg_ids, mask, out, n_rows, channels, hidden),
+                      n_edges, stream);
 }
 
 // Line conv. p_src, p_dst: the bond segments' partial rows gathered at
@@ -1376,20 +1915,26 @@ extern "C" int distmlip_chgnet_line_conv_f32(
     int64_t ctr_stride, const int32_t* center, const float* w1e, const float* w2,
     const float* b2, const int64_t* row_ptr, const int32_t* seg_ids, const uint8_t* mask,
     float* out, int64_t n_rows, int64_t n_edges, int channels, int hidden, void* stream) {
-  return line_conv(p_src, src_stride, line_src, p_dst, dst_stride, line_dst, angle, p_ctr,
-                   ctr_stride, center, w1e, w2, b2, row_ptr, seg_ids, mask, out, n_rows,
-                   n_edges, channels, hidden, stream);
+  return launch<2>(conv_args<Args>(p_src, src_stride, line_src, p_dst, dst_stride, line_dst,
+                                   p_ctr, ctr_stride, center, angle,
+                                   static_cast<const float*>(nullptr), w1e, w2, b2, row_ptr,
+                                   seg_ids, mask, out, n_rows, channels, hidden),
+                   n_edges, stream);
 }
 
-// The same with angle and out bfloat16.
+// The same at bf16 data on the tensor cores: angle and out bfloat16, w1e_t
+// and w2_t as the bf16 atom conv takes them.
 extern "C" int distmlip_chgnet_line_conv_bf16(
     const float* p_src, int64_t src_stride, const int32_t* line_src, const float* p_dst,
     int64_t dst_stride, const int32_t* line_dst, const __nv_bfloat16* angle,
-    const float* p_ctr, int64_t ctr_stride, const int32_t* center, const float* w1e,
-    const float* w2, const float* b2, const int64_t* row_ptr, const int32_t* seg_ids,
-    const uint8_t* mask, __nv_bfloat16* out, int64_t n_rows, int64_t n_edges, int channels,
-    int hidden, void* stream) {
-  return line_conv(p_src, src_stride, line_src, p_dst, dst_stride, line_dst, angle, p_ctr,
-                   ctr_stride, center, w1e, w2, b2, row_ptr, seg_ids, mask, out, n_rows,
-                   n_edges, channels, hidden, stream);
+    const float* p_ctr, int64_t ctr_stride, const int32_t* center,
+    const __nv_bfloat16* w1e_t, const __nv_bfloat16* w2_t, const float* b2,
+    const int64_t* row_ptr, const int32_t* seg_ids, const uint8_t* mask, __nv_bfloat16* out,
+    int64_t n_rows, int64_t n_edges, int channels, int hidden, void* stream) {
+  return tc_launch<2>(conv_args<TcArgs>(p_src, src_stride, line_src, p_dst, dst_stride,
+                                        line_dst, p_ctr, ctr_stride, center, angle,
+                                        static_cast<const __nv_bfloat16*>(nullptr), w1e_t, w2_t,
+                                        b2, row_ptr, seg_ids, mask, out, n_rows, channels,
+                                        hidden),
+                      n_edges, stream);
 }

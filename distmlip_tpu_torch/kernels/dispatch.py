@@ -60,7 +60,7 @@ import torch
 
 from ..ops.nn import gather_rows
 from ..ops.segment import _HALF_DTYPES, masked_segment_sum
-from .edge_aggregate import EdgeMessage
+from .edge_aggregate import EdgeMessage, screen_masked_rows
 from .segment import segment_sum_cuda, segment_sum_reference
 from .so3 import (pack_so2_weights, packed_m_layout, so2_conv_cuda,
                   so2_conv_reference)
@@ -154,7 +154,8 @@ class _EdgeAggregate(torch.autograd.Function):
         if use_kernel:
             out = message.cuda(items, weights, segment_ids, num_segments, mask)
         else:
-            out = masked_segment_sum(message.fn(*_rows(items), weights=weights),
+            rows = screen_masked_rows(mask, *_rows(items))
+            out = masked_segment_sum(message.fn(*rows, weights=weights),
                                      segment_ids, num_segments, mask)
         ctx.save_for_backward(segment_ids, mask, *tensors)
         ctx.message, ctx.kinds, ctx.n_weights, ctx.chunk = message, kinds, n_weights, chunk
@@ -273,7 +274,10 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
     returns their gradients when asked for them and nothing otherwise
     (the JAX dispatcher's hoisted consts and ``diff_params``, ``:377-399``).
     The result is ``sum_{e: dst[e] = n} mask[e] * message.fn(rows)[e]``
-    with ``masked_segment_sum``'s padding semantics.
+    with ``masked_segment_sum``'s padding semantics. The plain route zeroes
+    the masked edges' rows before ``message.fn`` (``screen_masked_rows``),
+    as the kernels never read them, so no non-finite value there reaches a
+    valid edge's message.
 
     Sorted ids with edges and rows go through the autograd Function: the
     message's CUDA kernel for CUDA tensors unless ``kernels=False``, the
@@ -294,8 +298,8 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
     weights = tuple(weights)
     num_segments = int(num_segments)
     if not indices_are_sorted or segment_ids.shape[0] == 0 or num_segments == 0:
-        rows = [i.node.index_select(0, i.idx) if isinstance(i, Gather) else i
-                for i in inputs]
+        rows = screen_masked_rows(mask, *[i.node.index_select(0, i.idx)
+                                          if isinstance(i, Gather) else i for i in inputs])
         return masked_segment_sum(message.fn(*rows, weights=weights), segment_ids,
                                   num_segments, mask)
     use_kernel = kernels is not False and segment_ids.is_cuda

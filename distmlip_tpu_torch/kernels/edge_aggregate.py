@@ -32,10 +32,14 @@ CHGNet. Every kernel also takes bfloat16 (every float tensor of a call one
 dtype; a mix raises): a second instantiation of the same kernel that reads
 bf16, computes and accumulates in fp32 and rounds each output element
 once, counted apart (``*_bf16`` launch counts); the messages' ``bf16``
-field says that their kernels take it. CHGNet's row projection multiplies
-bf16 node rows by the bf16 packed blocks on the tensor cores and writes
-its tables in float32; the per-edge kernels get the rest of the gated
-MLP's weights upcast to float32 (exact). CHGNet's messages take the
+field says that their kernels take it. CHGNet's bf16 kernels are their
+own tensor-core kernels: the row projection multiplies bf16 node rows by
+the bf16 packed blocks and writes its tables in float32; the per-edge
+kernels take the edge segment's layer 1 and layer 2 as bf16 products with
+fp32 accumulators, the hidden rounded once to bf16 between them (as the
+bf16 ``linear`` of the reference does), and are held to
+``chgnet_tensor_core_error_bound`` against the float32 kernels on the same
+tables. CHGNet's messages take the
 gated MLP's tensors as ``weights``
 (``ops.nn.gated_mlp_weights``: core w1, b1, w2, b2, then the gate's), one
 hidden layer for the kernels. The ``*_cuda`` wrappers take CUDA tensors
@@ -307,20 +311,37 @@ def tensornet_interaction_backward_error_bound(g, f, node_i, node_a, node_s, src
     return tuple(_bf16_bound(b, y, 4, tt) for b, y, tt in zip(bounds, ys, terms))
 
 
+def screen_masked_rows(mask, *rows):
+    """Per-edge rows (E, ...) with the masked edges' rows zeroed, as the
+    kernels never read them: no non-finite value of a masked edge enters a
+    message's arithmetic (the CPU's bf16 matrix product at an odd width was
+    seen to carry a NaN row into its neighbour's result). The plain
+    versions here and the dispatcher's plain route take their rows through
+    it; None stays None, and no mask leaves the rows as they are."""
+    if mask is None:
+        return rows
+    return tuple(None if r is None else
+                 torch.where(mask.reshape(mask.shape + (1,) * (r.ndim - 1)), r,
+                             torch.zeros((), dtype=r.dtype, device=r.device))
+                 for r in rows)
+
+
 def chgnet_atom_conv_aggregate_reference(node_src, src, node_dst, dst, edge, abw,
                                          weights, segment_ids, num_segments: int,
                                          mask=None):
-    msg = chgnet_atom_message(node_src.index_select(0, src), node_dst.index_select(0, dst),
-                              edge, abw, weights=weights)
+    msg = chgnet_atom_message(*screen_masked_rows(mask, node_src.index_select(0, src),
+                                                  node_dst.index_select(0, dst), edge, abw),
+                              weights=weights)
     return masked_segment_sum(msg, segment_ids, num_segments, mask)
 
 
 def chgnet_line_aggregate_reference(bond_src, line_src, bond_dst, line_dst, angle, node,
                                     center, weights, segment_ids, num_segments: int,
                                     mask=None):
-    msg = chgnet_line_message(bond_src.index_select(0, line_src),
+    rows = screen_masked_rows(mask, bond_src.index_select(0, line_src),
                               bond_dst.index_select(0, line_dst), angle,
-                              node.index_select(0, center), weights=weights)
+                              node.index_select(0, center))
+    msg = chgnet_line_message(*rows, weights=weights)
     return masked_segment_sum(msg, segment_ids, num_segments, mask)
 
 
@@ -413,6 +434,76 @@ def chgnet_aggregate_error_bound(x, abw, weights, segment_ids, num_segments: int
     return _bf16_bound(2 * b, y, (8 if abw is not None else 7) + 1, t)
 
 
+# the absolute error of tanh.approx.f32 over its whole range, as the PTX ISA
+# gives it, by which the bf16 per-edge kernels take silu and sigmoid
+TANH_ERR = 2.0 ** -10.987
+
+
+def _mma_unit(k: int) -> float:
+    """A tensor-core layer's relative error bound on its sum of |terms|, k
+    the contraction length, as ``chgnet_projection_error_bound`` counts it:
+    (36 ceil(k / 16) + k + 2) u, each mma instruction's 17 addends aligned
+    and truncated and its sum truncated (36 u an instruction), plus a
+    float32 dot product of length k and a bias add."""
+    return (36 * -(-k // 16) + k + 2) * 2.0 ** -24
+
+
+def chgnet_tensor_core_error_bound(x, abw, weights, segment_ids, num_segments: int,
+                                   mask=None):
+    """Per output element, a bound on |bf16 tensor-core kernel - float32
+    kernel| of a CHGNet aggregation at bf16 data, the float32 kernel run on
+    the upcast inputs and the same float32 tables: ``x`` (E, K1) the concat
+    rows, ``abw`` (E, C) or None, the gated MLP's 8 ``weights`` (bf16 or
+    their float32 upcast). The sum of, propagated layer by layer as
+    ``chgnet_aggregate_error_bound`` propagates its terms (silu's slope at
+    most 1.1, sigmoid's 0.25):
+
+    - the float32 kernel's own bound, 2 b (``chgnet_aggregate_error_bound``
+      in float32), which covers both sides' float32 roundings;
+    - each tensor-core layer's truncating k16 accumulation on its sum of
+      |terms| (``_mma_unit``: layer 1 over the edge segment, k = C, on
+      ``|x| |W1| + |b1|``; layer 2, k = H, on ``|h| |W2| + |b2|``);
+    - the hidden's one rounding to bf16, 2^-8 |h| carried through |W2|;
+    - the approximated activations: the kernel takes sigmoid(z) as 1/2 +
+      tanh(z / 2) / 2 and silu(z) as h + h tanh(h), h = z / 2, with
+      tanh.approx.f32 (absolute error at most ``TANH_ERR``, 2^-10.987), so
+      sigmoid is off by at most TANH_ERR / 2 and silu by TANH_ERR |z| / 2,
+      at both layers;
+    - one bf16 ulp of each output (``_bf16_bound`` with no bf16 rounding of
+      the terms: e + 2^-7 (|y| + e)).
+
+    The hidden and activation terms are at most about 1.5 x 2^-8 of
+    ``chgnet_message_terms``, so the bar stays well inside the bf16 form of
+    ``chgnet_aggregate_error_bound`` (8 or 9 such roundings), which the
+    kernel is also held to against the plain bf16 route."""
+    x, abw = _full(x), _full(abw)
+    weights = [_full(w) for w in weights]
+    channels, hidden = weights[2].shape[1], weights[0].shape[1]
+    ax = x.abs()
+
+    def branch(w1, b1, w2, b2):
+        dz1 = _mma_unit(channels) * (ax @ w1.abs() + b1.abs())
+        z1 = x @ w1 + b1
+        h = F.silu(z1)
+        dh = 1.1 * dz1 + TANH_ERR / 2 * (z1.abs() + dz1)
+        dh = dh + BF16_UNIT * (h.abs() + dh)
+        dz2 = dh @ w2.abs() + _mma_unit(hidden) * ((h.abs() + dh) @ w2.abs() + b2.abs())
+        return h @ w2 + b2, dz2
+
+    zc, dzc = branch(*weights[:4])
+    zg, dzg = branch(*weights[4:])
+    oc, og = F.silu(zc), torch.sigmoid(zg)
+    doc = 1.1 * dzc + TANH_ERR / 2 * (zc.abs() + dzc)
+    dog = 0.25 * dzg + TANH_ERR / 2
+    m = oc * og
+    dm = og.abs() * doc + oc.abs() * dog + doc * dog
+    if abw is not None:
+        m, dm = m * abw, dm * abw.abs()
+    e = (chgnet_aggregate_error_bound(x, abw, weights, segment_ids, num_segments, mask)
+         + masked_segment_sum(dm, segment_ids, num_segments, mask))
+    return _bf16_bound(e, masked_segment_sum(m, segment_ids, num_segments, mask), 0, 0.0)
+
+
 # ---------------------------------------------------------------------------
 # the layer-1 split of the CHGNet kernels (plain torch: the wrappers and the
 # CPU tests run the same packing and table plan)
@@ -421,8 +512,8 @@ def chgnet_aggregate_error_bound(x, abw, weights, segment_ids, num_segments: int
 CHGNET_MAX_WIDTH = 64  # C and H the CHGNet kernels take
 
 
-def _round4(x: int) -> int:
-    return (x + 3) // 4 * 4
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
 
 
 class ChgnetPacked(NamedTuple):
@@ -431,8 +522,8 @@ class ChgnetPacked(NamedTuple):
 
     blocks: list   # per gathered segment: its (C, 2 hp) layer-1 block
     b1: torch.Tensor   # (2 hp,)
-    w1e: torch.Tensor  # (cp, 2 hp) the edge segment's layer-1 block
-    w2: torch.Tensor   # (hp, 2 cp)
+    w1e: torch.Tensor  # the edge segment's layer-1 block (cp, 2 hp); bf16: (2 h16, c16) W1e^T
+    w2: torch.Tensor   # (hp, 2 cp); bf16: (2 c8, h16) W2^T
     b2: torch.Tensor   # (2 cp,)
 
 
@@ -451,15 +542,23 @@ def chgnet_pack_weights(weights, n_seg: int, edge_seg: int, channels: int) -> Ch
     - ``w2``: ``[W2c | 0 | W2g | 0]`` (hp, 2 cp), rows past H zero;
     - ``b2``: ``[b2c | 0 | b2g | 0]`` (2 cp,).
 
+    bfloat16 weights give as ``w1e`` and ``w2`` the bf16 per-edge kernels'
+    tensor-core operands instead, with c16 and h16 the widths rounded up to
+    whole k16 steps and c8 C rounded up to 8, zero padding:
+
+    - ``w1e``: the edge segment's block transposed, ``[W1c_e^T ; W1g_e^T]``
+      (2 h16, c16): hidden units (core, then gate) by input channels;
+    - ``w2``: ``[W2c^T ; W2g^T]`` (2 c8, h16): output channels (core, then
+      gate) by hidden units.
+
     Plain torch ops on the weights' device; every result is contiguous and
-    float32 (bfloat16 weights upcast, which is exact: the per-edge kernels'
-    shared weights and products stay the float32 kernel's), except that
-    bfloat16 weights keep ``blocks`` in bfloat16, the operand of the bf16
-    row projection's tensor-core products (the same values); float64
-    weights stay float64."""
+    float32, except that bfloat16 weights keep ``blocks`` in bfloat16, the
+    operand of the bf16 row projection's tensor-core products, and give
+    ``w1e`` and ``w2`` in bfloat16 (the same values; the biases upcast,
+    which is exact); float64 weights stay float64."""
     w1c, b1c, w2c, b2c, w1g, b1g, w2g, b2g = (_full(w) for w in weights)
     c, h = channels, w1c.shape[1]
-    cp, hp = _round4(c), _round4(h)
+    cp, hp = _round_up(c, 4), _round_up(h, 4)
 
     def pad(t, cols, rows=None):  # zeros up to (rows, cols); no copy when none are needed
         extra = (0, cols - t.shape[-1]) + (() if rows is None else (0, rows - t.shape[0]))
@@ -470,13 +569,20 @@ def chgnet_pack_weights(weights, n_seg: int, edge_seg: int, channels: int) -> Ch
 
     blocks = [side_by_side(w1c[s * c:(s + 1) * c], w1g[s * c:(s + 1) * c], hp)
               for s in range(n_seg)]
-    rows_dtype = torch.bfloat16 if weights[0].dtype == torch.bfloat16 else w1c.dtype
+    half = weights[0].dtype == torch.bfloat16
+    rows_dtype = torch.bfloat16 if half else w1c.dtype
+    if half:
+        c16, h16, c8 = _round_up(c, 16), _round_up(h, 16), _round_up(c, 8)
+        edge = slice(edge_seg * c, (edge_seg + 1) * c)
+        w1e = torch.cat([pad(w1c[edge].t(), c16, h16), pad(w1g[edge].t(), c16, h16)])
+        w2 = torch.cat([pad(w2c.t(), h16, c8), pad(w2g.t(), h16, c8)])
+        w1e, w2 = w1e.to(torch.bfloat16).contiguous(), w2.to(torch.bfloat16).contiguous()
+    else:
+        w1e = pad(blocks[edge_seg], 2 * hp, cp)
+        w2 = pad(side_by_side(w2c, w2g, cp), 2 * cp, hp)
     return ChgnetPacked(
         blocks=[b.to(rows_dtype) for s, b in enumerate(blocks) if s != edge_seg],
-        b1=side_by_side(b1c, b1g, hp),
-        w1e=pad(blocks[edge_seg], 2 * hp, cp),
-        w2=pad(side_by_side(w2c, w2g, cp), 2 * cp, hp),
-        b2=side_by_side(b2c, b2g, cp))
+        b1=side_by_side(b1c, b1g, hp), w1e=w1e, w2=w2, b2=side_by_side(b2c, b2g, cp))
 
 
 def chgnet_row_tables(nodes, packed: ChgnetPacked, project):
@@ -549,7 +655,7 @@ _P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 _TABLE = [_P, _I64, _P]  # partial rows, row stride, gather ids
 _TAIL = [_I64, _I64, _I, _I, _P]  # n_rows, n_edges, C, H, stream
 _CHGNET_ARGTYPES = {
-    "distmlip_chgnet_aggregate_smem_bytes": [_I, _I],
+    "distmlip_chgnet_aggregate_bf16_plan": [_I, _I, _I64, _I64, _P],
     "distmlip_chgnet_row_projection_plan": [_I64, _I, _I, _P],
     "distmlip_chgnet_row_projection_bf16_plan": [_I64, _I, _I, _P],
 }
@@ -887,6 +993,22 @@ def chgnet_projection_plan(rows: int, k: int, m: int, device=None, dtype=torch.f
     return plan
 
 
+def chgnet_aggregate_plan(channels: int, hidden: int, n_rows: int, n_edges: int,
+                          device=None):
+    """The bf16 per-edge kernels' launch plan at (C, H) over ``n_rows`` dst
+    rows and ``n_edges`` edges on ``device`` (a card): ``{"warps",
+    "blocks", "smem_bytes"}``, warps a block (as many as one block's shared
+    memory holds, at most 8), blocks (one an SM, fewer for small inputs)
+    and shared bytes a block."""
+    out = (ctypes.c_int64 * 3)()
+    with torch.cuda.device(device):
+        err = _chgnet_fn("distmlip_chgnet_aggregate_bf16_plan")(channels, hidden, n_rows,
+                                                                n_edges, out)
+    if err != 0:
+        raise RuntimeError(f"chgnet bf16 plan failed: cudaError_t {err}")
+    return dict(zip(("warps", "blocks", "smem_bytes"), out))
+
+
 def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segment_ids,
                    num_segments, mask, channels, hidden, device):
     """Project the gathered segments' rows (``gathered``: (node rows, int32
@@ -895,7 +1017,8 @@ def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segme
     (the card checks put another projection in its place to give a float32
     call the bf16 call's tables), then launch the per-edge kernel
     of ``edge``'s dtype with the tables, the edge rows at ``edge_seg`` and
-    ``extra`` (abw) after the segments; the output in that dtype."""
+    ``extra`` (abw) after the segments (bf16: the tensor-core kernel, with
+    the packed transposes as ``w1e`` and ``w2``); the output in that dtype."""
     e = segment_ids.shape[0]
     symbol_suffix, count_suffix = _DTYPES[edge.dtype]
     out = torch.empty((num_segments, channels), dtype=edge.dtype, device=device)
@@ -903,9 +1026,9 @@ def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segme
         return out.zero_()
     if e >= 2 ** 31 - 1:
         raise ValueError(f"{name}: {e} edges exceed the kernel's int32 edge ids")
-    if _chgnet_fn("distmlip_chgnet_aggregate_smem_bytes")(channels, hidden) < 0:
-        raise ValueError(f"{name}: C={channels}, H={hidden} is too wide: the kernel takes C "
-                         f"and H up to {CHGNET_MAX_WIDTH}, with W1's edge block and "
+    if channels > CHGNET_MAX_WIDTH or not 1 <= hidden <= CHGNET_MAX_WIDTH:
+        raise ValueError(f"{name}: C={channels}, H={hidden} is too wide: the kernels take C "
+                         f"and H from 1 to {CHGNET_MAX_WIDTH}, with W1's edge block and "
                          "[W2c | W2g] in one block's shared memory")
     with torch.cuda.device(device):
         packed = chgnet_pack_weights(weights, len(gathered) + 1, edge_seg, channels)
@@ -938,8 +1061,9 @@ def chgnet_atom_conv_aggregate_cuda(node_src, src, node_dst, dst, edge, abw, wei
     ``abw`` (E, C) or None; ``weights`` the gated MLP's 8 tensors with
     w1 (3C, H); ``segment_ids`` (E,) nondecreasing (not checked: it would
     cost a device sync); ``mask`` (E,) bool or None. Contiguous, all
-    float32 or all bfloat16 (a bf16 call: float32 tables and weights
-    inside, fp32 arithmetic, each output rounded once), C and H at most 64.
+    float32 or all bfloat16 (a bf16 call: float32 tables, the per-edge
+    products on the tensor cores with fp32 accumulators, the hidden rounded
+    once to bf16, each output rounded once), C and H at most 64.
     One row projection (two when ``node_src`` and ``node_dst`` are
     different tensors), then the per-edge kernel. Returns (num_segments,
     C) in the inputs' dtype."""

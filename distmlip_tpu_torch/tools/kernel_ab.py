@@ -1,6 +1,6 @@
-"""Time the segment sum (B1), the CHGNet row projection and the SO(2)
-convolution (B3) of one checkout on the card, at the shapes the main paths
-give them, split three ways.
+"""Time the segment sum (B1), the CHGNet row projection, the CHGNet convs
+and the SO(2) convolution (B3) of one checkout on the card, at the shapes
+the main paths give them, split three ways.
 
     python distmlip_tpu_torch/tools/kernel_ab.py [--root DIR] [--label L]
         [--out FILE] [--steps N]
@@ -41,13 +41,23 @@ weights packed once. ``chip_smoke.py`` imports ``cuda_ms``,
 ``projection_library_call`` from here, so its ``[kernels]`` lines time the
 same cases the same ways.
 
+The CHGNet atom and line convs at the CHGNet path's graph (16,384 atoms,
+its real ids and masks; random rows and weights at C = H = 64), float32
+and bf16: ``ms``, ``kernel_ms`` (the per-edge kernel alone), ``host_us``.
+``--kernels`` picks groups of rows (``segment_sum``, ``projection``,
+``so2``, ``chgnet_conv``; all by default).
+
 ``--steps N`` times, in place of the kernels, the eSCN and CHGNet main
-paths end to end, in bfloat16 and in float32, as ``chip_smoke.py``'s ``[main-escn-bf16]`` and
-``[main-chgnet-bf16]`` build them (the same structures, seeds and readout
-terms; ``DistPotential`` with the checkout's kernels): one calculate that
-builds the graph, then N MD-like calculates (``step_ms``, host clock to
-the card's sync, and their median). Needs a card; exits non-zero without
-one.
+paths end to end (``--families`` picks them), in bfloat16 and in float32,
+as ``chip_smoke.py``'s ``[main-escn-bf16]`` and ``[main-chgnet-bf16]``
+build them (the same structures, seeds and readout terms; ``DistPotential``
+with the checkout's kernels): one calculate that builds the graph, then N
+MD-like calculates (``step_ms``, host clock to the card's sync, and their
+median), then one under ``torch.profiler`` (its kernels' device ms and the
+top ops by device and by host time). The family ``relax`` is
+``[relax-chgnet]`` and ``[relax-chgnet-bf16]``: 30 FIRE steps with the cell
+on 864 Li, each calculate a host rebuild (``calculate_ms`` and their
+median). Needs a card; exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -146,6 +156,67 @@ def slice_case(torch, gen, e, trailing, n_rows=2560, per_row=47, pad=3000,
     return data, ids, mask, n_rows
 
 
+def chgnet_graph(torch, reps=16):
+    """The CHGNet path's graph on the card (bench.py's crystal at ``reps``,
+    16,384 atoms, built at cutoff + skin and bond_cutoff + skin) as a
+    LocalGraph, with the model's masks: ``in_r`` (edges within the cutoff)
+    and ``line_ok`` (lines whose two bonds lie within the bond cutoff)."""
+    from distmlip_tpu_torch.neighbors import neighbor_list
+    from distmlip_tpu_torch.parallel import local_graph_from_stacked
+    from distmlip_tpu_torch.partition import (CapacityPolicy, build_partitioned_graph,
+                                              build_plan)
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW, bench_atoms
+
+    atoms, _ = bench_atoms(reps)
+    r, br = CHGNET_KW["cutoff"] + 0.5, CHGNET_KW["bond_cutoff"] + 0.5
+    nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r, bond_r=br)
+    plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r, br, True)
+    g, _ = build_partitioned_graph(plan, nl, atoms.numbers, atoms.cell,
+                                   caps=CapacityPolicy())
+    g = g.to("cuda")
+    lg = local_graph_from_stacked(g)
+    vec = lg.edge_vectors(g.positions[0])
+    d = torch.linalg.norm(torch.where(lg.edge_mask[:, None], vec, torch.ones_like(vec)),
+                          dim=-1)
+    in_r = lg.edge_mask & (d <= CHGNET_KW["cutoff"])
+    b_d = lg.edge_to_bond(d[:, None], torch.zeros((lg.b_cap, 1), device="cuda"))[:, 0]
+    b_real = (b_d > 1e-6) & (b_d <= CHGNET_KW["bond_cutoff"])
+    line_ok = lg.line_mask & b_real[lg.line_src] & b_real[lg.line_dst]
+    return lg, in_r, line_ok
+
+
+def chgnet_inputs(torch, gen, which, e, c, h, n_node, idx=None):
+    """Random inputs of one CHGNet message at (E, C), hidden width H, in the
+    order of its plain version up to ``weights``: ``n_node`` rows of the
+    node array (atom conv) or (bond rows, atom rows) (line conv); ``idx``
+    gives the gather ids (src, dst) or (line_src, line_dst, center), random
+    otherwise. The gated MLP's 8 weights at a linear init's scale."""
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def ids(k, rows):
+        if idx is not None:
+            return idx[k]
+        return torch.randint(0, rows, (e,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    if which == "atom":
+        node = r(n_node, c)
+        arrays = [node, ids(0, n_node), node, ids(1, n_node), r(e, c), r(e, c)]
+        k1 = 3 * c
+    else:
+        n_bond, n_atom = n_node
+        bond = r(n_bond, c)
+        arrays = [bond, ids(0, n_bond), bond, ids(1, n_bond), r(e, c), r(n_atom, c),
+                  ids(2, n_atom)]
+        k1 = 4 * c
+    weights = []
+    for _ in range(2):
+        weights += [r(k1, h) / k1 ** 0.5, r(h) / k1 ** 0.5, r(h, c) / h ** 0.5,
+                    r(c) / h ** 0.5]
+    return arrays, weights
+
+
 def crystal_graph(torch):
     """dst ids, mask and n_cap of the MACE path's graph (2048 Si, cutoff 5
     Å, skin 0.5), built by the checkout's own ``DistPotential`` (a narrow
@@ -211,6 +282,42 @@ def time_projection(torch, rows, k, m, gen, dtype=None):
     return row
 
 
+def time_chgnet_convs(torch, gen):
+    """The CHGNet atom and line convs (their row projections included in the
+    call; the per-edge kernel alone by the profiler) at the CHGNet path's
+    graph, real ids and masks, random rows and weights at C = H = 64, in
+    float32 and in bf16 (the same values rounded once)."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW
+
+    lg, in_r, line_ok = chgnet_graph(torch)
+    c = CHGNET_KW["units"]
+    rows = []
+    for which in ("atom", "line"):
+        if which == "atom":
+            cuda, ids, mask, n = K.chgnet_atom_conv_aggregate_cuda, lg.edge_dst, in_r, lg.n_cap
+            arrays, weights = chgnet_inputs(torch, gen, which, ids.shape[0], c, c, n,
+                                            (lg.edge_src, lg.edge_dst))
+        else:
+            cuda, ids, mask, n = K.chgnet_line_aggregate_cuda, lg.line_dst, line_ok, lg.b_cap
+            arrays, weights = chgnet_inputs(torch, gen, which, ids.shape[0], c, c,
+                                            (lg.b_cap, lg.n_cap),
+                                            (lg.line_src, lg.line_dst, lg.line_center))
+        for dtype in (torch.float32, torch.bfloat16):
+            seen = {}
+            xs = [x if x is None or not x.is_floating_point()
+                  else seen.setdefault(id(x), x.to(dtype)) for x in arrays]
+            ws = [w.to(dtype) for w in weights]
+            row = {"kernel": f"chgnet_{which}_conv", "dtype": str(dtype).split(".")[-1],
+                   "e": ids.shape[0], "valid": int(mask.sum()), "channels": c}
+            row.update(split(torch, lambda: cuda(*xs, ws, ids, n, mask),
+                             f"chgnet_{which}_conv"))
+            rows.append(row)
+            del xs, seen
+        torch.cuda.empty_cache()
+    return rows
+
+
 def time_so2(torch, gen, dtype):
     """B3 at eSCN's chunk, forward and on the backward's route, beside the
     five cuBLAS products on pre-packed operands ([f+ | f-] and [[Wr, Wi],
@@ -253,11 +360,56 @@ def time_so2(torch, gen, dtype):
     return row
 
 
+def relax_structure():
+    """``examples/02_relax_chgnet.py``'s structure: 864 Li (fcc a = 3.6 Å,
+    6 x 6 x 6 cells), 0.08 Å noise from seed 1, the cell stretched by 2%."""
+    import numpy as np
+
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms
+
+    rng = np.random.default_rng(1)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lattice = geometry.make_supercell(unit, np.eye(3) * 3.6, (6, 6, 6))
+    cart = geometry.frac_to_cart(frac, lattice) + rng.normal(0, 0.08, (len(frac), 3))
+    return Atoms(numbers=np.full(len(cart), 3), positions=cart, cell=lattice * 1.02)
+
+
+def profile_calculate(torch, pot, atoms, top=8):
+    """One calculate under ``torch.profiler`` (CPU and CUDA): its wall ms
+    (the profiler's overhead included), the device's kernel ms (the sum of
+    the kernels' self device time), and the ``top`` ops by self device time
+    and by self CPU time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        pot.calculate(atoms)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    ev = prof.key_averages()
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+
+    def rows(events, key):
+        events = sorted(events, key=lambda e: getattr(e, key), reverse=True)[:top]
+        return [{"name": e.key[:100], "calls": e.count, "ms": getattr(e, key) / 1e3}
+                for e in events]
+
+    return {"wall_ms": wall,
+            "device_kernel_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "top_device": rows(kernels, "self_device_time_total"),
+            "top_cpu": rows([e for e in ev if e.device_type == DeviceType.CPU],
+                            "self_cpu_time_total")}
+
+
 def time_steps(torch, family, dtype, steps):
     """One calculate, then ``steps`` MD-like calculates (0.01 Å moves) of
     the eSCN (2048 atoms, example 05's conditioning) or CHGNet (16384
     atoms, magmoms, off-default readout terms) main path in ``dtype``, as
-    ``chip_smoke.py`` builds them."""
+    ``chip_smoke.py`` builds them, then one more calculate under the
+    profiler (``profiled``, see ``profile_calculate``)."""
     from distmlip_tpu_torch.calculators import DistPotential
     from distmlip_tpu_torch.models import CHGNet, CHGNetConfig, ESCN, ESCNConfig
     from distmlip_tpu_torch.tools.workload import CHGNET_KW, ESCN_INFO, ESCN_KW, bench_atoms
@@ -285,9 +437,44 @@ def time_steps(torch, family, dtype, steps):
         pot.calculate(atoms)
         torch.cuda.synchronize()
         secs.append((time.perf_counter() - t) * 1e3)
+    atoms.positions += rng.normal(0, 0.01, atoms.positions.shape)
+    profiled = profile_calculate(torch, pot, atoms)
     return {"kernel": "steps", "family": family, "dtype": kw["dtype"], "n_atoms": len(atoms),
             "first_calculate_ms": secs[0], "step_ms": secs[1:],
-            "median_step_ms": statistics.median(secs[1:]), "rebuilds": pot.rebuild_count}
+            "median_step_ms": statistics.median(secs[1:]), "rebuilds": pot.rebuild_count,
+            "profiled": profiled}
+
+
+def time_relax(torch, dtype, steps=30):
+    """``chip_smoke.py``'s ``[relax-chgnet]`` (``[relax-chgnet-bf16]`` at
+    bf16): CHGNet at the MPtrj layout with magmoms on ``relax_structure``,
+    FIRE with the cell relaxed for ``steps`` steps (fmax 1e-4, smax 1e-5:
+    it runs them all), a host rebuild at every calculate. Each calculate's
+    ms (host clock; the results come back to the host), their median past
+    the first."""
+    from distmlip_tpu_torch.calculators import DistPotential, Relaxer
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW
+
+    kw = dict(CHGNET_KW, dtype=str(dtype).split(".")[-1])
+    model = CHGNet(CHGNetConfig(**kw))
+    pot = DistPotential(model, model.init(0), device="cuda", skin=0.4, compute_magmom=True)
+    secs = []
+
+    class Timed:
+        def calculate(self, atoms):
+            t = time.perf_counter()
+            out = pot.calculate(atoms)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t) * 1e3)
+            return out
+
+    out = Relaxer(Timed(), optimizer="fire", relax_cell=True, fmax=1e-4, smax=1e-5).relax(
+        relax_structure(), steps=steps)
+    return {"kernel": "relax", "family": "chgnet", "dtype": kw["dtype"], "nsteps": out.nsteps,
+            "first_calculate_ms": secs[0], "calculate_ms": secs[1:],
+            "median_calculate_ms": statistics.median(secs[1:]),
+            "rebuilds": pot.rebuild_count}
 
 
 def main(argv=None) -> int:
@@ -297,7 +484,12 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also append the lines to this file")
     ap.add_argument("--steps", type=int, default=0,
                     help="time N calculates of the eSCN and CHGNet main paths instead")
+    ap.add_argument("--families", default="escn,chgnet",
+                    help="the paths --steps times (comma-separated: escn, chgnet, relax)")
+    ap.add_argument("--kernels", default="segment_sum,projection,so2,chgnet_conv",
+                    help="the groups of kernel rows to time (comma-separated)")
     args = ap.parse_args(argv)
+    groups = args.kernels.split(",")
     root = os.path.abspath(args.root or os.path.join(os.path.dirname(__file__), "..", ".."))
     sys.path.insert(0, root)
 
@@ -321,33 +513,42 @@ def main(argv=None) -> int:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
 
-    emit({"kernel": "build",
-          "seconds": build.build(["segment_sum", "chgnet_aggregate", "so2_conv"])})
+    sources = {"segment_sum": "segment_sum", "projection": "chgnet_aggregate",
+               "so2": "so2_conv", "chgnet_conv": "chgnet_aggregate"}
+    emit({"kernel": "build", "seconds": build.build(
+        sorted(set(sources.values()) if args.steps else {sources[g] for g in groups}))})
     if args.steps:
-        for family in ("escn", "chgnet"):
+        for family in args.families.split(","):
             for dtype in (torch.bfloat16, torch.float32):
-                emit(time_steps(torch, family, dtype, args.steps))
+                emit(time_relax(torch, dtype) if family == "relax"
+                     else time_steps(torch, family, dtype, args.steps))
                 torch.cuda.empty_cache()
         return 0
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    dst, mask, n_cap = crystal_graph(torch)
-    data = torch.randn((dst.shape[0], 1), generator=gen, device="cuda")
-    emit(time_segment_sum(torch, "zbl_width1", data, dst, mask, n_cap))
-    # the same graph cut at its last valid edge: what the last row's masked
-    # padding tail costs
-    cut = int(torch.nonzero(mask).max()) + 1
-    emit(time_segment_sum(torch, "zbl_width1_cut", data[:cut].contiguous(),
-                          dst[:cut].contiguous(), mask[:cut].contiguous(), n_cap))
-    for name, trailing in (("mace_16x128", (16, 128)), ("mace_40x128", (40, 128)),
-                           ("escn_25x128", (25, 128))):
-        emit(time_segment_sum(torch, name, *slice_case(torch, gen, 32768, trailing)))
-        torch.cuda.empty_cache()
-    for dtype in (torch.float32, torch.bfloat16):
-        for r, k, m in ((19712, 64, 128), (19712, 64, 256), (236032, 64, 256)):
-            emit(time_projection(torch, r, k, m, gen, dtype))
-    for dtype in (torch.float32, torch.bfloat16):
-        emit(time_so2(torch, gen, dtype))
-        torch.cuda.empty_cache()
+    if "segment_sum" in groups:
+        dst, mask, n_cap = crystal_graph(torch)
+        data = torch.randn((dst.shape[0], 1), generator=gen, device="cuda")
+        emit(time_segment_sum(torch, "zbl_width1", data, dst, mask, n_cap))
+        # the same graph cut at its last valid edge: what the last row's
+        # masked padding tail costs
+        cut = int(torch.nonzero(mask).max()) + 1
+        emit(time_segment_sum(torch, "zbl_width1_cut", data[:cut].contiguous(),
+                              dst[:cut].contiguous(), mask[:cut].contiguous(), n_cap))
+        for name, trailing in (("mace_16x128", (16, 128)), ("mace_40x128", (40, 128)),
+                               ("escn_25x128", (25, 128))):
+            emit(time_segment_sum(torch, name, *slice_case(torch, gen, 32768, trailing)))
+            torch.cuda.empty_cache()
+    if "projection" in groups:
+        for dtype in (torch.float32, torch.bfloat16):
+            for r, k, m in ((19712, 64, 128), (19712, 64, 256), (236032, 64, 256)):
+                emit(time_projection(torch, r, k, m, gen, dtype))
+    if "so2" in groups:
+        for dtype in (torch.float32, torch.bfloat16):
+            emit(time_so2(torch, gen, dtype))
+            torch.cuda.empty_cache()
+    if "chgnet_conv" in groups:
+        for row in time_chgnet_convs(torch, gen):
+            emit(row)
     return 0
 
 

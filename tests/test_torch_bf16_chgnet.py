@@ -340,7 +340,7 @@ def test_row_projection_plain_bf16_against_float64():
     wb = [_bf16(w) for w in weights]
     packed = chgnet_pack_weights(wb, 3, 2, c)
     for got, want, dtype in ((packed.blocks[0][:, :h], wb[0][:c], torch.bfloat16),
-                             (packed.w2[:h, :c], wb[2], torch.float32),
+                             (packed.w2[:c, :h].t(), wb[2], torch.bfloat16),
                              (packed.b1[:h], wb[1], torch.float32)):
         assert got.dtype == dtype and torch.equal(got.float(), want.float())
     x = _bf16(rng.normal(size=(rows, c)).astype(np.float32))

@@ -41,8 +41,9 @@ def _bf16(rng, shape, scale=1.0):
 @pytest.mark.parametrize("c,h", [(16, 12), (7, 5), (64, 64)])
 def test_pack_weights_keeps_bf16_blocks(n_seg, c, h):
     """bf16 weights pack into bf16 row-projection blocks equal to the
-    float32 packing of the same (upcast) weights; the per-edge kernels'
-    parts (b1, w1e, w2, b2) stay float32 and equal too."""
+    float32 packing of the same (upcast) weights; the biases (b1, b2) stay
+    float32 and equal too; the per-edge kernels' w1e and w2 are their bf16
+    transposes (the values: ``tests/test_torch_bf16_chgnet_tensor_cores.py``)."""
     rng = np.random.default_rng(n_seg * 100 + c)
     shapes = ((n_seg * c, h), (h,), (h, c), (c,)) * 2
     wb = [_bf16(rng, s) for s in shapes]
@@ -52,9 +53,14 @@ def test_pack_weights_keeps_bf16_blocks(n_seg, c, h):
     for g, w in zip(got.blocks, want.blocks):
         assert g.dtype == torch.bfloat16 and w.dtype == torch.float32
         assert g.is_contiguous() and torch.equal(g.float(), w)
-    for name in ("b1", "w1e", "w2", "b2"):
+    for name in ("b1", "b2"):
         g, w = getattr(got, name), getattr(want, name)
         assert g.dtype == torch.float32 and torch.equal(g, w), name
+    up = lambda x, m: -(-x // m) * m  # noqa: E731
+    assert got.w1e.dtype == got.w2.dtype == torch.bfloat16
+    assert got.w1e.shape == (2 * up(h, 16), up(c, 16)) and got.w2.shape == (2 * up(c, 8), up(h, 16))
+    assert torch.equal(got.w1e[:h, :c].float().t(), want.w1e[:c, :h])
+    assert torch.equal(got.w2[:c, :h].float().t(), want.w2[:h, :c])
 
 
 # ---- the bar of the tensor-core products ---------------------------------------
@@ -66,12 +72,13 @@ def _fp32_truncate(v):
     return np.trunc(v / ulp) * ulp
 
 
-def truncating_k16_product(x, w):
+def truncating_k16_product(x, w, acc=None):
     """x (R, K) @ w (K, M) as the bar lets an mma instruction take it: per
     16 entries, the 16 exact products and the fp32 accumulator aligned to
     the largest of the 17 and truncated to its ulp, summed exactly, the sum
-    truncated to fp32. float64 numpy in, float32-valued float64 out."""
-    acc = np.zeros((x.shape[0], w.shape[1]))
+    truncated to fp32. The accumulator starts from ``acc`` (R, M) fp32
+    values, zeros when None. float64 numpy in, float32-valued float64 out."""
+    acc = np.zeros((x.shape[0], w.shape[1])) if acc is None else np.array(acc, np.float64)
     for k0 in range(0, x.shape[1], 16):
         prods = x[:, k0:k0 + 16, None] * w[None, k0:k0 + 16, :]  # exact: 8 x 8 bits
         addends = np.concatenate([acc[:, None, :], prods], axis=1)

@@ -1918,14 +1918,14 @@ def _chgnet_bf16_check(which, arrays, weights, ti, tm, n, projections):
     """One bf16 call of a CHGNet kernel against its plain bf16 version
     within ``chgnet_aggregate_error_bound``'s bf16 form: a bf16 output, one
     ``*_bf16`` launch and ``projections`` bf16 row projections, no float32
-    launch. Then the bf16 per-edge kernel bit for bit against the float32
-    per-edge kernel on the upcast inputs and the same float32 tables (the
-    float32 call given the bf16 projection in the place of
-    ``edge_aggregate.chgnet_row_projection_cuda``), rounded to bf16: the bf16
-    kernel makes the float32 kernel's FMAs in its order on the same values
-    and rounds once. (The tables themselves come from the tensor cores in
-    another summation order than the float32 projection's; the projection
-    is held to its own bar in ``test_chgnet_row_projection_bf16_*``.)"""
+    launch. Then the bf16 per-edge kernel (its products on the tensor
+    cores) against the float32 per-edge kernel on the upcast inputs and the
+    same float32 tables (the float32 call given the bf16 projection in the
+    place of ``edge_aggregate.chgnet_row_projection_cuda``) within
+    ``chgnet_tensor_core_error_bound``, and bit for bit against a second
+    call. (The tables themselves come from the tensor cores in another
+    summation order than the float32 projection's; the projection is held
+    to its own bar in ``test_chgnet_row_projection_bf16_*``.)"""
     from distmlip_tpu_torch import kernels as K
     from distmlip_tpu_torch.kernels import edge_aggregate
 
@@ -1942,13 +1942,16 @@ def _chgnet_bf16_check(which, arrays, weights, ti, tm, n, projections):
     launched = {k: K.launch_counts[k] - before[k] for k in before}
     assert launched == dict({k: 0 for k in launched}, **{count: 1},
                             chgnet_row_projection_bf16=projections)
+    assert torch.equal(got, cuda(*arrays, weights, ti, n, tm))
     f32_arrays, f32_weights = _upcast(arrays, weights)
     with mock.patch.object(edge_aggregate, "chgnet_row_projection_cuda", _bf16_tables):
         f32 = cuda(*f32_arrays, f32_weights, ti, n, tm)
-    assert torch.equal(got, f32.bfloat16())
     assert got.shape == want.shape == (n, arrays[4].shape[1])
     assert got.dtype == want.dtype == torch.bfloat16
     x, abw = chgnet_rows(which, arrays)
+    bar = K.chgnet_tensor_core_error_bound(x, abw, weights, ti, n, tm)
+    err = (got.float() - f32).abs()
+    assert bool((err <= bar + 1e-30).all()), float((err / (bar + 1e-30)).max())
     bound = K.chgnet_aggregate_error_bound(x, abw, weights, ti, n, tm)
     err = (got.float() - want.float()).abs()
     assert bool(torch.isfinite(got).all()) and bool((err <= bound + 1e-30).all()), float(
@@ -1960,10 +1963,11 @@ def _chgnet_bf16_check(which, arrays, weights, ti, tm, n, projections):
 @pytest.mark.parametrize("which", ["atom", "line"])
 @pytest.mark.parametrize("name", sorted(CHGNET_CASES))
 def test_chgnet_bf16_kernels_match_plain_on_card(card, name, which):
-    """Both CHGNet bf16 kernels (bf16 rows, float32 tables and weights, fp32
-    arithmetic, one rounding an output element) vs their plain bf16
-    versions (the message in bf16 ops, the sum in fp32) on the shared
-    cases (and bit for bit against the float32 kernel on the upcast inputs):
+    """Both CHGNet bf16 kernels (bf16 rows, float32 tables, the per-edge
+    products on the tensor cores, fp32 accumulation, one rounding an output
+    element) vs their plain bf16 versions (the message in bf16 ops, the sum
+    in fp32) on the shared cases (and within their bar of the float32
+    kernel on the upcast inputs):
     C % 8 == 0 takes the 16-byte copies, C = 4 and C = 7 the plain loads;
     empty rows; one launch a call; all masked gives zeros; the
     atom conv without abw."""
@@ -2003,6 +2007,71 @@ def test_chgnet_bf16_kernels_nonfinite_masked_on_card(card, which):
     arrays, weights, ti, tm, n = _chgnet_case_bf16_on_card(card, "hidden_32_channels_64", which)
     arrays[2] = (arrays[0].flip(0) * 0.5).contiguous()
     _chgnet_bf16_check(which, arrays, weights, ti, tm, n, proj + 1)
+
+
+# the bf16 tensor-core kernels' own cases, as CHGNET_CASES: C and H that
+# are not multiples of 16 (the widths padded to whole k16 steps, C to whole
+# n8 tiles: an odd count of them takes ldmatrix.x2), fewer edges than a
+# 16-edge tile
+CHGNET_TC_CASES = {
+    "c4_h4": (21, 300, 37, 20, 5, None, 4, 4),
+    "c7_h5": (22, 517, 45, 3, 9, None, 7, 5),
+    "c20_h36": (23, 600, 50, 20, 10, None, 20, 36),
+    "c36_h20": (24, 400, 41, 7, 5, None, 36, 20),
+    "c40_h64": (25, 333, 30, 5, 4, None, 40, 64),
+    "fewer_edges_than_a_tile": (26, 11, 4, 2, 1, None, 64, 64),
+}
+
+
+def _chgnet_tc_case(card, which, seed, ids, mask, n, c, h):
+    arrays, weights = chgnet_inputs(seed, which, len(ids), c, h)
+    to = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    t = [to(x).bfloat16() if x.dtype == np.float32 else to(x) for x in arrays]
+    t[2] = t[0]
+    return t, [to(w).bfloat16() for w in weights], to(ids), to(mask), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["atom", "line"])
+@pytest.mark.parametrize("name", sorted(CHGNET_TC_CASES) + ["range_ends_mid_tile"])
+def test_chgnet_bf16_tensor_core_cases_on_card(card, name, which):
+    """The bf16 tensor-core kernels on their own edge cases, each against the
+    plain bf16 version and within ``chgnet_tensor_core_error_bound`` of the
+    float32 kernel, two calls bit for bit, all masked giving zeros:
+    ``CHGNET_TC_CASES``, and warp ranges that end mid-tile (3000 one-edge
+    rows, one row of 10,000 edges, 3000 one-edge rows: the row cut puts the
+    long row in one warp, the others' ranges end in partial tiles)."""
+    from distmlip_tpu_torch import kernels as K
+
+    if name == "range_ends_mid_tile":
+        rng = np.random.default_rng(27)
+        ids = np.concatenate([np.arange(3000), np.full(10000, 3000),
+                              np.arange(3001, 6001)]).astype(np.int32)
+        mask = rng.random(len(ids)) > 0.05
+        t, tw, ti, tm, n = _chgnet_tc_case(card, which, 27, ids, mask, 6001, 64, 64)
+    else:
+        seed, e, n, pad, im, hi, c, h = CHGNET_TC_CASES[name]
+        ids, mask, n = sorted_case(seed, e, n, pad, im, hi)
+        t, tw, ti, tm, n = _chgnet_tc_case(card, which, seed, ids, mask, n, c, h)
+    proj = 1 if which == "atom" else 2
+    _chgnet_bf16_check(which, t, tw, ti, tm, n, proj)
+    cuda = (K.chgnet_atom_conv_aggregate_cuda if which == "atom"
+            else K.chgnet_line_aggregate_cuda)
+    assert not cuda(*t, tw, ti, n, torch.zeros_like(tm)).any()
+    if which == "atom":
+        _chgnet_bf16_check(which, t[:5] + [None], tw, ti, tm, n, proj)
+
+
+def test_chgnet_tc_cases_are_what_they_say():
+    """CHGNET_TC_CASES (on the CPU): widths off whole k16 steps and an odd
+    n8 tile count among them, and a case of fewer valid edges than a
+    tile."""
+    widths = [(v[6], v[7]) for v in CHGNET_TC_CASES.values()]
+    assert any(c % 16 and h % 16 for c, h in widths)
+    assert any(-(-c // 8) % 2 for c, _ in widths)
+    seed, e, n, pad, im, hi, c, h = CHGNET_TC_CASES["fewer_edges_than_a_tile"]
+    ids, mask, n = sorted_case(seed, e, n, pad, im, hi)
+    assert 0 < mask.sum() < 16
 
 
 # the row projection's cases at bf16 rows, plus an even K that is not a
