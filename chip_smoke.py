@@ -160,11 +160,12 @@ Phases (each failure raises, so the exit code is non-zero):
 
 12. bfloat16 compute (``compute_dtype="bfloat16"``, MACE, eSCN, TensorNet,
    CHGNet):
-   ``[kernels] segment_sum bf16`` (B1's bf16 instantiation at MACE's two
+   ``[kernels] segment_sum bf16`` (B1's bf16 kernels at MACE's two
    chunk shapes and eSCN's rows, the width sweep with int32 and int64 ids,
    all-masked and the padding-only chunk; tolerance one bf16 ulp over the
    fp32 sums' bound, e + 2^-7 (|y| + e); library call ``index_add_`` of the
-   rows upcast to float32; bound at 2 bytes an element) and
+   rows upcast to float32; bound at 2 bytes an element; each timed line
+   with the plan its call took and the share of the bound) and
    ``[kernels] so2_conv bf16`` (B3's bf16 kernel, persistent 128 x 256
    tiles, at (32768, 25, 128), forward and backward
    route, and the small and ragged cases, within ``so2_conv_error_bound``'s
@@ -184,9 +185,10 @@ Phases (each failure raises, so the exit code is non-zero):
    their plain bf16 versions within ``tensornet_embed_error_bound`` /
    ``tensornet_interaction_error_bound`` /
    ``tensornet_interaction_backward_error_bound`` at bf16 data, all masked
-   writing zeros, the padding-only tail and two small cases; call ms,
+   writing zeros, the padding-only tail and three small cases; call ms,
    kernel alone, host µs, the bound at 2 bytes an element, ``index_add_``
-   of the built message upcast to float32), ``[main-tensornet-bf16]`` (4
+   of the built message upcast to float32; the backward's plan and share
+   of the bound), ``[main-tensornet-bf16]`` (4
    calculates at 16,384 atoms, launches derived as the float32 path's,
    the first calculate's ms logged alone), ``[md-tensornet-bf16]``
    (MD_BF16_STEPS ``nvt_bussi`` steps with the device refresh, refreshes
@@ -239,13 +241,15 @@ import time
 from unittest import mock
 
 try:  # the timing helpers and the main path's edge-chunk case, shared with kernel_ab.py
-    from distmlip_tpu_torch.tools.kernel_ab import (chgnet_graph, chgnet_inputs, cuda_ms,
+    from distmlip_tpu_torch.tools.kernel_ab import (H100_BYTES_PER_S, chgnet_graph,
+                                                    chgnet_inputs, cuda_ms, edge_inputs,
+                                                    interaction_backward_cost,
                                                     library_split, projection_library_call,
-                                                    slice_case, split)
+                                                    segment_sum_bytes, slice_case, split,
+                                                    tensornet_graph)
 except ImportError as e:
     sys.exit(f"chip_smoke: run from the root of a checkout ({e})")
 
-H100_BYTES_PER_S = 3.35e12       # HBM3, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12          # float32 outside the tensor cores
 H100_TF32_FLOPS = 495e12         # TF32 in the tensor cores, dense
 H100_BF16_FLOPS = 989e12         # bf16 in the tensor cores, dense
@@ -352,10 +356,7 @@ def time_segment_sum(torch, data, ids, mask, n):
     timed.update(library_split(torch, lambda: out.index_add_(0, ids_long, masked)))
     del masked, out
     n_valid = int(mask.sum())
-    # bytes the function must move: each valid data row read once (masked
-    # rows need not be read), ids and mask read once, the output written once
-    es = data.element_size()
-    nbytes = n_valid * w * es + e * ids.element_size() + e + n * w * es
+    nbytes = segment_sum_bytes(data, ids, mask, n)
     bound_ms, bound_by = bound(nbytes, n_valid * w)
     return {"shape": [e] + list(data.shape[1:]), "dtype": str(data.dtype).split(".")[-1],
             "width": w, "n_segments": n,
@@ -403,11 +404,22 @@ def phase_kernels(torch):
     return max(errs), timed, sweep
 
 
+def with_plan(timed, plan):
+    """A timed case for its log line: the plan its call took and the kernel
+    alone's share of the bound (bound ms / kernel ms)."""
+    share = (timed["bound_ms"] / timed["kernel_ms"]) if timed.get("kernel_ms") else None
+    return {**timed, "plan": plan, "bound_share": share}
+
+
 def phase_kernels_bf16(torch):
-    """``[kernels] segment_sum bf16``: B1's bf16 instantiation at MACE's two
+    """``[kernels] segment_sum bf16``: B1's bf16 kernels at MACE's two
     edge-chunk shapes and eSCN's rows (bf16 rows), across the width sweep
     on one chunk's ids and mask (int32 and int64 ids), then all-masked and
-    the padding-only chunk; each against its plain bf16 version."""
+    the padding-only chunk; each against its plain bf16 version. Each timed
+    line also prints the plan the call took (``kernels.segment_sum_bf16_plan``)
+    and the kernel's share of its bound."""
+    from distmlip_tpu_torch import kernels as K
+
     gen = torch.Generator(device="cuda").manual_seed(4321)
     errs, timed = [], []
     for trailing in ((16, 128), (40, 128), (25, 128)):
@@ -415,7 +427,8 @@ def phase_kernels_bf16(torch):
         data = data.bfloat16()
         errs.append(check_segment_sum(torch, data, ids, mask, n))
         timed.append(time_segment_sum(torch, data, ids, mask, n))
-        log(f"[kernels] segment_sum bf16 {timed[-1]['shape']}: {json.dumps(timed[-1])}")
+        log(f"[kernels] segment_sum bf16 {timed[-1]['shape']}: "
+            f"{json.dumps(with_plan(timed[-1], K.segment_sum_bf16_plan(data, ids)))}")
         del data
     sweep = []
     _, ids, mask, n = slice_case(torch, gen, 32768, (1,))
@@ -424,7 +437,8 @@ def phase_kernels_bf16(torch):
         errs.append(check_segment_sum(torch, data, ids, mask, n))
         errs.append(check_segment_sum(torch, data, ids.long(), mask, n))
         sweep.append(time_segment_sum(torch, data, ids, mask, n))
-        log(f"[kernels] segment_sum bf16 width {w}: {json.dumps(sweep[-1])}")
+        log(f"[kernels] segment_sum bf16 width {w}: "
+            f"{json.dumps(with_plan(sweep[-1], K.segment_sum_bf16_plan(data, ids)))}")
     errs.append(check_segment_sum(torch, data, ids, torch.zeros_like(mask), n))
     pad_ids = torch.full((32768,), 2047, dtype=torch.int32, device="cuda")
     pad_data = torch.randn((32768, 40 * 128), generator=gen, device="cuda").bfloat16()
@@ -433,38 +447,6 @@ def phase_kernels_bf16(torch):
     log(f"[kernels] segment_sum bf16: all cases agree with the plain version; max |err| "
         f"{max(errs)}")
     return max(errs), timed, sweep
-
-
-def tensornet_graph(torch):
-    """dst ids, src ids and mask of the TensorNet path's graph (bench.py's
-    crystal at TENSORNET_REPS, built at cutoff + skin), on the card."""
-    from distmlip_tpu_torch.neighbors import neighbor_list
-    from distmlip_tpu_torch.partition import (CapacityPolicy, build_partitioned_graph,
-                                              build_plan)
-    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
-
-    atoms, _ = bench_atoms(TENSORNET_REPS)
-    r = TENSORNET_KW["cutoff"] + 0.5
-    nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r)
-    plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r)
-    g, _ = build_partitioned_graph(plan, nl, atoms.numbers, atoms.cell,
-                                   caps=CapacityPolicy())
-    to = lambda x: torch.as_tensor(x[0]).to("cuda")  # noqa: E731
-    return to(g.edge_dst), to(g.edge_src), to(g.edge_mask), g.n_cap
-
-
-def edge_inputs(torch, gen, which, e, c, n_node, src=None):
-    """Random inputs of one TensorNet message at (E, C): the embed's
-    Z, W1, W2, W3 (E, C) and A_e, S_e (E, 3, 3, 1); the interaction's
-    f (E, C, 3), the compact node rows i (N_node, C), a (N_node, 3, C),
-    s (N_node, 6, C) and src."""
-    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
-    if which == "embed":
-        return [r(e, c) for _ in range(4)] + [r(e, 3, 3, 1) for _ in range(2)]
-    if src is None:
-        src = torch.randint(0, n_node, (e,), generator=gen, device="cuda",
-                            dtype=torch.int32)
-    return [r(e, c, 3), r(n_node, c), r(n_node, 3, c), r(n_node, 6, c), src]
 
 
 def check_edge_aggregate(torch, which, arrays, ids, mask, n):
@@ -613,16 +595,7 @@ def time_interaction_backward(torch, g, arrays, ids, mask):
     library_ms = cuda_ms(torch, lambda: out.index_add_(0, src_long, rows))
     del rows, out
     n_valid = int(mask.sum())
-    n_src = int(torch.unique(src[mask]).numel())
-    n_dst = int(torch.unique(ids[mask]).numel())
-    # f of each valid edge read, d f of every edge written, each gathered g
-    # row and x row read once, d x written, src, dst ids and mask read
-    es = f.element_size()
-    nbytes = ((n_valid * 3 * c + e * 3 * c + n_dst * 9 * c + n_src * 10 * c
-               + n_node * 10 * c) * es + e * (src.element_size() + ids.element_size() + 1))
-    # per valid (edge, channel): 8 adds for t, u, v; 10 multiply-adds into
-    # d x; 1 + 5 + 11 for d f's three columns
-    ops = n_valid * c * (8 + 20 + 17)
+    nbytes, ops = interaction_backward_cost(torch, f, src, ids, mask, n_node)
     bound_ms, bound_by = bound(nbytes, ops)
     return {"dtype": str(f.dtype).split(".")[-1], "e": e, "valid_edges": n_valid,
             "channels": c, "n_node": n_node, **timed,
@@ -639,7 +612,7 @@ def phase_edge_aggregate_kernels(torch):
     from distmlip_tpu_torch.tools.workload import TENSORNET_KW
 
     gen = torch.Generator(device="cuda").manual_seed(4321)
-    ids, src, mask, n = tensornet_graph(torch)
+    ids, src, mask, n = tensornet_graph(torch, TENSORNET_REPS)
     c = TENSORNET_KW["units"]
     errs, timed = {}, {}
     for which in ("embed", "interaction"):
@@ -689,17 +662,21 @@ def phase_edge_aggregate_kernels(torch):
 
 
 def phase_edge_aggregate_kernels_bf16(torch):
-    """``[kernels] tensornet bf16``: the bf16 instantiations of the embed,
-    the interaction and the interaction's backward on the TensorNet path's
-    graph (C = 64) at bf16 inputs, each against its plain bf16 version
-    within its bound's bf16 form, then all masked (every output zero: the
-    plain version's zeros within a bound of 0), the
-    padding-only tail on one dst row, and two small cases (C = 7 with E not
-    a multiple of any block, C = 300 past one block of threads)."""
+    """``[kernels] tensornet bf16``: the bf16 embed, interaction and
+    interaction backward on the TensorNet path's graph (C = 64) at bf16
+    inputs, each against its plain bf16 version within its bound's bf16
+    form, then all masked (every output zero: the plain version's zeros
+    within a bound of 0), the padding-only tail on one dst row, and three
+    small cases (C = 7 with E not a multiple of any block, C = 65 on the
+    backward's single-channel path, C = 300 past one block of threads).
+    The backward's line also prints its plan
+    (``kernels.tensornet_interaction_backward_bf16_plan``) and share of the
+    bound."""
+    from distmlip_tpu_torch import kernels as K
     from distmlip_tpu_torch.tools.workload import TENSORNET_KW
 
     gen = torch.Generator(device="cuda").manual_seed(4322)
-    ids, src, mask, n = tensornet_graph(torch)
+    ids, src, mask, n = tensornet_graph(torch, TENSORNET_REPS)
     c = TENSORNET_KW["units"]
 
     def bf16(arrays):
@@ -722,13 +699,14 @@ def phase_edge_aggregate_kernels_bf16(torch):
             errs["backward"] = [check_interaction_backward(torch, g, arrays, ids, mask)]
             torch.cuda.empty_cache()
             timed["backward"] = time_interaction_backward(torch, g, arrays, ids, mask)
+            plan = K.tensornet_interaction_backward_bf16_plan(g, *arrays[:4])
             log(f"[kernels] tensornet bf16 interaction backward: "
-                f"{json.dumps(timed['backward'])}")
+                f"{json.dumps(with_plan(timed['backward'], plan))}")
             errs["backward"].append(check_interaction_backward(torch, g, arrays, ids,
                                                                torch.zeros_like(mask)))
         del arrays
         torch.cuda.empty_cache()
-        for e, rows, cc in ((1003, 300, 7), (90, 13, 300)):
+        for e, rows, cc in ((1003, 300, 7), (90, 13, 300), (517, 45, 65)):
             sub_ids = torch.sort(torch.randint(0, rows, (e,), generator=gen,
                                                device="cuda"))[0].to(torch.int32)
             sub_mask = torch.rand(e, generator=gen, device="cuda") > 0.1

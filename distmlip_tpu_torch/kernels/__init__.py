@@ -2,14 +2,16 @@
 
 - :mod:`segment` — ``segment_sum_cuda`` (the wrapper of
   ``csrc/segment_sum.cu``, replacing the TPU ``pallas_segment_sum``; float32
-  and a bf16 instantiation), its plain version ``segment_sum_reference``,
+  and bf16, the bf16 plan ``segment_sum_bf16_plan``), its plain version
+  ``segment_sum_reference``,
   the shared CSR row offsets and the launch counts of every kernel.
 - :mod:`edge_aggregate` — ``tensornet_embed_aggregate_cuda``,
   ``tensornet_interaction_aggregate_cuda`` (on compact I/A/S node rows,
   ``tensornet_full`` assembling a 3x3 from them) and
   ``tensornet_interaction_backward_cuda`` (both cotangents in one pass over
-  the edges in ``src_order``), the wrappers of ``csrc/edge_aggregate.cu``
-  (float32, and a bf16 instantiation counted under ``*_bf16``), with their
+  the edges in ``src_order``; its bf16 kernel's plan
+  ``tensornet_interaction_backward_bf16_plan``), the wrappers of
+  ``csrc/edge_aggregate.cu`` (float32 and bf16, counted under ``*_bf16``), with their
   tolerances ``tensornet_embed_error_bound``,
   ``tensornet_interaction_error_bound`` and
   ``tensornet_interaction_backward_error_bound`` (float32 and bf16 data);
@@ -64,12 +66,13 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              tensornet_full,
                              tensornet_interaction_aggregate_cuda,
                              tensornet_interaction_aggregate_reference,
+                             tensornet_interaction_backward_bf16_plan,
                              tensornet_interaction_backward_cuda,
                              tensornet_interaction_backward_error_bound,
                              tensornet_interaction_backward_reference,
                              tensornet_interaction_error_bound)
 from .segment import (csr_row_offsets, launch_counts,  # noqa: F401
-                      segment_sum_cuda, segment_sum_reference)
+                      segment_sum_bf16_plan, segment_sum_cuda, segment_sum_reference)
 from .so3 import (PackedSO2Weights, pack_so2_weights, packed_m_layout,  # noqa: F401
                   so2_bf16_l2_bytes, so2_bf16_plan, so2_block_matrices, so2_conv_cuda,
                   so2_conv_error_bound, so2_conv_reference, tf32_round)

@@ -26,8 +26,9 @@
 // rows (see below): the TPU's (8, 128) tile made the full 3x3 free, but here
 // every gathered float is L2 traffic.
 //
-// Design. One thread owns one (dst row, channel) and the matrix entries of
-// it, accumulated in registers in edge order: no atomics, deterministic.
+// Design (all but the bf16 backward, below). One thread owns one (dst row,
+// channel) and the matrix entries of it, accumulated in registers in edge
+// order: no atomics, deterministic.
 // A block holds 256 / tpr rows of tpr threads (tpr = C rounded up to a warp,
 // at most 256; 4 rows of 64 at TensorNet's C = 64); grid.y walks channel
 // slabs when C > 256. Every load along the channel axis is coalesced: a warp
@@ -55,18 +56,21 @@
 //   - every output row is written, empty rows as zeros;
 //   - offsets are 64-bit; src ids of valid edges must lie in [0, N_node).
 //
-// bfloat16: the same three kernels, templated on the storage type T. Every
-// load converts to float32 in registers (__bfloat162float), the arithmetic
-// and its order are the float32 instantiation's, the accumulators are
-// float32, and each output element (a dst row's sum, a d f entry, a src
-// row's d i, d a or d s sum over its src-sorted edges) is rounded to
-// bfloat16 once (__float2bfloat16_rn). That is the TPU kernel's contract
-// at bf16 data (VMEM blocks in the data's dtype, an fp32 accumulator, the
-// output in the message's dtype: distmlip_tpu/kernels/segment.py:309-317)
-// and, for the backward, the JAX dispatcher's fp32 node-cotangent carry
-// rounded once (distmlip_tpu/kernels/dispatch.py:566-584). One bf16 load a
-// lane: a warp reads 64 contiguous bytes of a row where float32 reads 128.
-// The byte bound halves on the float terms; index and mask bytes stay.
+// bfloat16: the embed and the interaction are the same two kernels,
+// templated on the storage type T; the backward has a kernel of its own
+// (tensornet_interaction_bwd_kernel_bf16, below). Every load converts to
+// float32 in registers, the arithmetic and its order are the float32
+// kernels', the accumulators are float32, and each output element (a dst
+// row's sum, a d f entry, a src row's d i, d a or d s sum over its
+// src-sorted edges) is rounded to bfloat16 once (round to nearest even).
+// That is the TPU kernel's contract at bf16 data (VMEM blocks in the data's
+// dtype, an fp32 accumulator, the output in the message's dtype:
+// distmlip_tpu/kernels/segment.py:309-317) and, for the backward, the JAX
+// dispatcher's fp32 node-cotangent carry rounded once
+// (distmlip_tpu/kernels/dispatch.py:566-584). The forwards take one bf16
+// load a lane (a warp reads 64 contiguous bytes of a row where float32
+// reads 128); the backward a channel pair a lane (128 bytes a warp). The
+// byte bound halves on the float terms; index and mask bytes stay.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -292,11 +296,12 @@ tensornet_interaction_kernel(const T* __restrict__ f,
 // edge's d f row; nothing of size (E, 9 C) is written. Blocks past the row
 // grid write the zero d f rows of the masked edges.
 
-// Two edges in flight and at most 64 registers (four blocks per SM): the
-// loads perm -> dst -> g depend on each other, so warps in flight matter
-// more than edges in flight. On the H100 at the TensorNet path's graph this
-// ran faster than four edges at 110 registers (two blocks per SM); deeper
-// unrolls or a tighter register cap spilled or lost occupancy.
+// The float32 kernel: two edges in flight and at most 64 registers (four
+// blocks per SM): the loads perm -> dst -> g depend on each other, so warps
+// in flight matter more than edges in flight. On the H100 at the TensorNet
+// path's graph this ran faster than four edges at 110 registers (two blocks
+// per SM); deeper unrolls or a tighter register cap spilled or lost
+// occupancy.
 constexpr int kBwdInFlight = 2;
 constexpr int kBwdMinBlocks = 4;
 
@@ -409,6 +414,266 @@ tensornet_interaction_bwd_kernel(const T* __restrict__ g,
   for (int k = 0; k < 6; ++k) store(d_s + (row * 6 + k) * ch + c, acc[4 + k]);
 }
 
+// ---- interaction, backward, bfloat16 ---------------------------------------
+//
+// The same cotangents at bf16 data, its own kernel. The float32 kernel's
+// bf16 instantiation issued, per edge and thread, the perm -> dst -> g chain
+// and 16 memory instructions of 2 bytes each (32 a row at C = 64): the same
+// instructions as float32 for half the bytes, with the chain's latency
+// exposed. Here a warp owns one (src row, slab of 32 CPT channels): CPT = 2
+// (a lane takes a channel pair, 64 channels a warp) where C is even and
+// every array is 4-byte aligned, so g's 9 entries are 9 loads of 128
+// contiguous bytes a warp and a lane's f and d f entries 6 contiguous bf16
+// (3 pair loads, 3 pair stores); CPT = 1 (one channel a lane) otherwise,
+// e.g. odd C, where an f row starts at a 2-byte boundary; C past 32 CPT
+// takes more slabs on grid.y. The warp loads its row's edge indices 32 at a
+// time (perm[e..e+31] coalesced, then dst at those edges) and passes them to
+// the lanes by shuffles, so each edge's g row is known without two
+// dependent loads an edge; the g and f rows of kBwdBf16InFlight edges are
+// loaded before any is used. Each channel's t, u, v, its d x sums in src-sorted edge order and
+// the three d f dot products are the float32 kernel's expressions
+// (backward_terms, as backward_add), so every output equals the float32
+// kernel's on the upcast inputs rounded once, bit for bit, as the bf16
+// instantiation's did. Blocks before the row grid write the masked edges'
+// zero d f rows (a warp an edge, their perm ids loaded 32 at a time), so
+// they overlap the rows' work.
+//
+// Measured (tools/kernel_ab.py, kernel alone by the profiler, NVIDIA H100
+// 80GB HBM3 at 700 W, the TensorNet path's graph: E 917,504, C 64; PERF.md
+// section 6): 0.3042-0.3048 ms, 70% of the 0.215 ms bytes bound, where the
+// bf16 instantiation took 0.4424. What holds it past the bound: the g
+// gathers come from L2, 0.88 GB a call (2.9 TB/s at 0.304 ms) beside the
+// 0.72 GB the bound counts. Edges in flight x the register cap (kernel
+// alone, one call): four edges at 128 registers (two blocks an SM) 0.304;
+// the same without a cap, 147 registers and one block an SM, 0.395; two
+// edges (116 registers) 0.331; eight (206) 0.355-0.361, capped at 128
+// (spills) 0.520; caps of 80 registers (three blocks, spills) 0.352-0.354
+// at two edges and 0.578-0.582 at four; 64 (four blocks) at two edges
+// 0.452-0.454.
+
+constexpr int kBwdBf16Warps = 8;     // warps a block: 8 src rows (or slabs) a block
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBwdBf16InFlight = 4;  // edges whose g and f rows are loaded before any is used
+constexpr int kBwdBf16MinBlocks = 2; // blocks an SM the registers must allow: 128 a thread
+
+// the float32 kernel's arithmetic for one channel of one edge (backward_add):
+// f0 t, f1 u, f2 v added into acc, d f's three entries returned in df
+__device__ __forceinline__ void backward_terms(const float (&g)[9], const float (&fe)[3],
+                                               const float (&x)[10], float (&acc)[10],
+                                               float (&df)[3]) {
+  const float t = g[0] + g[4] + g[8];
+  const float u[3] = {g[1] - g[3], g[2] - g[6], g[5] - g[7]};
+  const float w[6] = {g[0], g[4], g[8], g[1] + g[3], g[2] + g[6], g[5] + g[7]};
+  acc[0] += fe[0] * t;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) acc[1 + k] += fe[1] * u[k];
+#pragma unroll
+  for (int k = 0; k < 6; ++k) acc[4 + k] += fe[2] * w[k];
+  float da = u[0] * x[1];
+#pragma unroll
+  for (int k = 1; k < 3; ++k) da += u[k] * x[1 + k];
+  float ds = w[0] * x[4];
+#pragma unroll
+  for (int k = 1; k < 6; ++k) ds += w[k] * x[4 + k];
+  df[0] = t * x[0];
+  df[1] = da;
+  df[2] = ds;
+}
+
+// CPT bf16 at p (4-byte aligned for CPT 2) as raw 32-bit words and floats
+__device__ __forceinline__ unsigned load_raw2(const __nv_bfloat16* p) {
+  return __ldg(reinterpret_cast<const unsigned*>(p));
+}
+__device__ __forceinline__ float lo_bf16(unsigned w) { return __uint_as_float(w << 16); }
+__device__ __forceinline__ float hi_bf16(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+template <int CPT>
+__device__ __forceinline__ void load_channels(const __nv_bfloat16* p, float (&v)[CPT]) {
+  if constexpr (CPT == 2) {
+    const unsigned w = load_raw2(p);
+    v[0] = lo_bf16(w);
+    v[1] = hi_bf16(w);
+  } else {
+    v[0] = __bfloat162float(__ldg(p));
+  }
+}
+
+template <int CPT>
+__device__ __forceinline__ void store_channels(__nv_bfloat16* p, const float (&v)[CPT]) {
+  if constexpr (CPT == 2) {
+    *reinterpret_cast<unsigned*>(p) = pack_bf16x2(v[0], v[1]);
+  } else {
+    *p = __float2bfloat16_rn(v[0]);
+  }
+}
+
+// one edge's rows for the lane's CPT channels, as raw words: g's 9 entries
+// (CPT 2: a pair each) and f's 3 CPT contiguous entries
+template <int CPT>
+struct BwdRows {
+  unsigned g[9];
+  unsigned f[CPT == 2 ? 3 : 2];
+};
+
+template <int CPT>
+__device__ __forceinline__ void bwd_rows_load(BwdRows<CPT>& r, const __nv_bfloat16* __restrict__ gd,
+                                              const __nv_bfloat16* __restrict__ fe, int channels) {
+  if constexpr (CPT == 2) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) r.g[k] = load_raw2(gd + static_cast<int64_t>(k) * channels);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r.f[k] = load_raw2(fe + 2 * k);
+  } else {
+    const unsigned short* gs = reinterpret_cast<const unsigned short*>(gd);
+    const unsigned short* fs = reinterpret_cast<const unsigned short*>(fe);
+#pragma unroll
+    for (int k = 0; k < 9; ++k) r.g[k] = __ldg(gs + static_cast<int64_t>(k) * channels);
+    r.f[0] = __ldg(fs) | static_cast<unsigned>(__ldg(fs + 1)) << 16;
+    r.f[1] = __ldg(fs + 2);
+  }
+}
+
+template <int CPT>
+__global__ void __launch_bounds__(32 * kBwdBf16Warps, kBwdBf16MinBlocks)
+tensornet_interaction_bwd_kernel_bf16(
+    const __nv_bfloat16* __restrict__ g, const __nv_bfloat16* __restrict__ f,
+    const __nv_bfloat16* __restrict__ node_i, const __nv_bfloat16* __restrict__ node_a,
+    const __nv_bfloat16* __restrict__ node_s, const int64_t* __restrict__ perm,
+    const int32_t* __restrict__ dst, const int64_t* __restrict__ row_ptr,
+    __nv_bfloat16* __restrict__ d_f, __nv_bfloat16* __restrict__ d_i,
+    __nv_bfloat16* __restrict__ d_a, __nv_bfloat16* __restrict__ d_s, int64_t n_rows,
+    int64_t n_edges, int channels, int64_t tail_blocks) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t ch = channels;
+  if (static_cast<int64_t>(blockIdx.x) < tail_blocks) {
+    // the masked edges, sorted past the last row: zero d f rows, a warp an edge
+    if (blockIdx.y != 0) return;
+    const int64_t start = row_ptr[n_rows];
+    const int64_t warps = tail_blocks * kBwdBf16Warps;
+    for (int64_t m0 = (static_cast<int64_t>(blockIdx.x) * kBwdBf16Warps + warp) * 32;
+         start + m0 < n_edges; m0 += warps * 32) {
+      const int nb = n_edges - start - m0 < 32 ? static_cast<int>(n_edges - start - m0) : 32;
+      const int64_t mine = lane < nb ? __ldg(perm + start + m0 + lane) : 0;
+      for (int k = 0; k < nb; ++k) {
+        const int64_t p = __shfl_sync(kFull, mine, k);
+        if constexpr (CPT == 2) {  // 3 C even: the row is 4-byte aligned
+          unsigned* row = reinterpret_cast<unsigned*>(d_f + p * 3 * ch);
+          for (int64_t w = lane; w < 3 * ch / 2; w += 32) row[w] = 0u;
+        } else {
+          for (int64_t w = lane; w < 3 * ch; w += 32) d_f[p * 3 * ch + w] = __float2bfloat16_rn(0.0f);
+        }
+      }
+    }
+    return;
+  }
+  const int64_t row = (static_cast<int64_t>(blockIdx.x) - tail_blocks) * kBwdBf16Warps + warp;
+  if (row >= n_rows) return;  // whole warps; no block barrier
+  const int c = (static_cast<int>(blockIdx.y) * 32 + lane) * CPT;  // the lane's first channel
+  const bool on = c < channels;  // CPT 2: C is even, so c + 1 < C too
+
+  float x[CPT][10], acc[CPT][10];
+  if (on) {
+    float v[CPT];
+    load_channels<CPT>(node_i + row * ch + c, v);
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) x[q][0] = v[q];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      load_channels<CPT>(node_a + (row * 3 + k) * ch + c, v);
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) x[q][1 + k] = v[q];
+    }
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      load_channels<CPT>(node_s + (row * 6 + k) * ch + c, v);
+#pragma unroll
+      for (int q = 0; q < CPT; ++q) x[q][4 + k] = v[q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+    for (int k = 0; k < 10; ++k) acc[q][k] = 0.0f;
+  }
+
+  const int64_t e_end = row_ptr[row + 1];
+  for (int64_t eb = row_ptr[row]; eb < e_end; eb += 32) {
+    const int nb = e_end - eb < 32 ? static_cast<int>(e_end - eb) : 32;
+    const int64_t my_p = lane < nb ? __ldg(perm + eb + lane) : 0;
+    const int32_t my_d = lane < nb ? __ldg(dst + my_p) : 0;
+    for (int k = 0; k < nb; k += kBwdBf16InFlight) {
+      int64_t p[kBwdBf16InFlight];
+      BwdRows<CPT> r[kBwdBf16InFlight];
+#pragma unroll
+      for (int q = 0; q < kBwdBf16InFlight; ++q) {
+        p[q] = __shfl_sync(kFull, my_p, k + q);  // lanes past nb: unused
+        const int32_t d = __shfl_sync(kFull, my_d, k + q);
+        if (on && k + q < nb) {
+          bwd_rows_load<CPT>(r[q], g + static_cast<int64_t>(d) * 9 * ch + c,
+                             f + (p[q] * ch + c) * 3, channels);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kBwdBf16InFlight; ++q) {
+        if (!(on && k + q < nb)) continue;
+        float gq[CPT][9], fq[CPT][3], df[CPT][3];
+#pragma unroll
+        for (int kk = 0; kk < 9; ++kk) {
+          if constexpr (CPT == 2) {
+            gq[0][kk] = lo_bf16(r[q].g[kk]);
+            gq[1][kk] = hi_bf16(r[q].g[kk]);
+          } else {
+            gq[0][kk] = lo_bf16(r[q].g[kk]);
+          }
+        }
+        // f's entries (c, 0..2), then (c + 1, 0..2): the words hold them in order
+        fq[0][0] = lo_bf16(r[q].f[0]);
+        fq[0][1] = hi_bf16(r[q].f[0]);
+        fq[0][2] = lo_bf16(r[q].f[1]);
+        if constexpr (CPT == 2) {
+          fq[1][0] = hi_bf16(r[q].f[1]);
+          fq[1][1] = lo_bf16(r[q].f[2]);
+          fq[1][2] = hi_bf16(r[q].f[2]);
+        }
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) backward_terms(gq[cc], fq[cc], x[cc], acc[cc], df[cc]);
+        __nv_bfloat16* out = d_f + (p[q] * ch + c) * 3;
+        if constexpr (CPT == 2) {
+          unsigned* o = reinterpret_cast<unsigned*>(out);
+          o[0] = pack_bf16x2(df[0][0], df[0][1]);
+          o[1] = pack_bf16x2(df[0][2], df[1][0]);
+          o[2] = pack_bf16x2(df[1][1], df[1][2]);
+        } else {
+#pragma unroll
+          for (int kk = 0; kk < 3; ++kk) out[kk] = __float2bfloat16_rn(df[0][kk]);
+        }
+      }
+    }
+  }
+  if (!on) return;
+  float v[CPT];
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) v[q] = acc[q][0];
+  store_channels<CPT>(d_i + row * ch + c, v);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) v[q] = acc[q][1 + k];
+    store_channels<CPT>(d_a + (row * 3 + k) * ch + c, v);
+  }
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) v[q] = acc[q][4 + k];
+    store_channels<CPT>(d_s + (row * 6 + k) * ch + c, v);
+  }
+}
+
 // launch shape: tpr threads per row (channels rounded up to a warp, at most
 // kThreads), kThreads / tpr rows per block, channel slabs on grid.y
 int launch_shape(int64_t n_rows, int channels, dim3& grid, int& tpr) {
@@ -474,6 +739,54 @@ int launch_interaction_bwd(const T* g, const T* f, const T* node_i, const T* nod
       g, f, node_i, node_a, node_s, perm, dst, row_ptr, d_f, d_i, d_a, d_s,
       n_rows, n_edges, channels, tpr, row_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The bf16 backward's launch, worked out once from its arguments: CPT 2
+// where C is even and every array (the 5 inputs, the 4 outputs) is 4-byte
+// aligned, else 1; blocks [0, tail) write the masked rows, then
+// ceil(n_rows / 8) blocks of src rows; grid.y the 32 CPT-channel slabs.
+// The launch takes it and distmlip_tensornet_interaction_bwd_bf16_plan
+// reports it, so the two cannot differ.
+struct BwdBf16Route {
+  const void* kernel;
+  dim3 grid;
+  int cpt;
+  int64_t slabs;
+  int64_t tail;
+};
+
+cudaError_t bwd_bf16_route(const void* const (&arrays)[9], int64_t n_rows, int64_t n_edges,
+                           int channels, BwdBf16Route& r) {
+  bool pairs = channels % 2 == 0;
+  for (const void* a : arrays) pairs = pairs && reinterpret_cast<uintptr_t>(a) % 4 == 0;
+  r.cpt = pairs ? 2 : 1;
+  r.kernel = pairs ? reinterpret_cast<const void*>(tensornet_interaction_bwd_kernel_bf16<2>)
+                   : reinterpret_cast<const void*>(tensornet_interaction_bwd_kernel_bf16<1>);
+  const int64_t row_blocks = (n_rows + kBwdBf16Warps - 1) / kBwdBf16Warps;
+  r.slabs = (channels + 32 * r.cpt - 1) / (32 * r.cpt);
+  // a warp takes 32 masked edges a turn; the tail's blocks loop over the rest
+  r.tail = (n_edges + 32 * kBwdBf16Warps - 1) / (32 * kBwdBf16Warps);
+  r.tail = r.tail < 1 ? 1 : (r.tail > 1056 ? 1056 : r.tail);
+  if (row_blocks + r.tail > 2147483647LL || r.slabs > 65535) return cudaErrorInvalidConfiguration;
+  r.grid = dim3(static_cast<unsigned>(row_blocks + r.tail), static_cast<unsigned>(r.slabs));
+  return cudaSuccess;
+}
+
+int launch_interaction_bwd_bf16(const __nv_bfloat16* g, const __nv_bfloat16* f,
+                                const __nv_bfloat16* node_i, const __nv_bfloat16* node_a,
+                                const __nv_bfloat16* node_s, const int64_t* perm,
+                                const int32_t* dst, const int64_t* row_ptr, __nv_bfloat16* d_f,
+                                __nv_bfloat16* d_i, __nv_bfloat16* d_a, __nv_bfloat16* d_s,
+                                int64_t n_rows, int64_t n_edges, int channels, void* stream) {
+  if (n_rows <= 0 || channels <= 0) return 0;
+  const void* const arrays[9] = {g, f, node_i, node_a, node_s, d_f, d_i, d_a, d_s};
+  BwdBf16Route r;
+  const cudaError_t err = bwd_bf16_route(arrays, n_rows, n_edges, channels, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&g,   &f,   &node_i, &node_a, &node_s,  &perm,     &dst,     &row_ptr,
+                  &d_f, &d_i, &d_a,    &d_s,    &n_rows,  &n_edges,  &channels, &r.tail};
+  return static_cast<int>(cudaLaunchKernel(r.kernel, r.grid, dim3(32 * kBwdBf16Warps), args, 0,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -542,6 +855,31 @@ extern "C" int distmlip_tensornet_interaction_bwd_bf16(
     const int32_t* dst, const int64_t* row_ptr, __nv_bfloat16* d_f, __nv_bfloat16* d_i,
     __nv_bfloat16* d_a, __nv_bfloat16* d_s, int64_t n_rows, int64_t n_edges, int channels,
     void* stream) {
-  return launch_interaction_bwd(g, f, node_i, node_a, node_s, perm, dst, row_ptr, d_f, d_i,
-                                d_a, d_s, n_rows, n_edges, channels, stream);
+  return launch_interaction_bwd_bf16(g, f, node_i, node_a, node_s, perm, dst, row_ptr, d_f,
+                                     d_i, d_a, d_s, n_rows, n_edges, channels, stream);
+}
+
+// The plan distmlip_tensornet_interaction_bwd_bf16 takes for `channels` with
+// its arrays at g, f, node_i, node_a, node_s and d_f, d_i, d_a, d_s (an
+// output null: a fresh allocation, aligned): plan[0] channels a lane (2:
+// pairs, 1: the single-channel path), [1] channels a warp, [2] warps a src
+// row (the slabs), [3] edges in flight a warp, [4] edge indices loaded a
+// warp turn, [5] warps a block, [6] registers a thread of the kernel.
+// Returns a cudaError_t.
+extern "C" int distmlip_tensornet_interaction_bwd_bf16_plan(
+    const __nv_bfloat16* g, const __nv_bfloat16* f, const __nv_bfloat16* node_i,
+    const __nv_bfloat16* node_a, const __nv_bfloat16* node_s, const __nv_bfloat16* d_f,
+    const __nv_bfloat16* d_i, const __nv_bfloat16* d_a, const __nv_bfloat16* d_s,
+    int channels, int64_t* plan) {
+  if (channels <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const void* const arrays[9] = {g, f, node_i, node_a, node_s, d_f, d_i, d_a, d_s};
+  BwdBf16Route r;
+  cudaError_t err = bwd_bf16_route(arrays, 1, 1, channels, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr{};
+  err = cudaFuncGetAttributes(&attr, r.kernel);
+  const int64_t p[7] = {r.cpt, 32 * r.cpt, r.slabs, kBwdBf16InFlight, 32, kBwdBf16Warps,
+                        attr.numRegs};
+  for (int k = 0; k < 7; ++k) plan[k] = p[k];
+  return static_cast<int>(err);
 }

@@ -44,16 +44,46 @@
 // Offsets into data and out are 64-bit: E * W passes 2^31 once edge chunks
 // are large or off.
 //
-// bfloat16 (the models' compute_dtype="bfloat16"): the same two kernels,
-// templated on the element type. Rows load as __nv_bfloat162 pairs (one
-// pair a lane, or two pairs 32 apart on the wider path: a warp load is 128
-// contiguous bytes, a chunk 128 columns) or single __nv_bfloat16 values
-// where the width is odd, converted by the intrinsics; the accumulator is
-// float32 in registers in the same fixed order, and each output element is
-// rounded to bfloat16 once (__float2bfloat16_rn), as the TPU kernel keeps an
-// fp32 accumulator and stores in data.dtype
+// bfloat16 (the models' compute_dtype="bfloat16"): each output element is
+// its column's valid edges added in edge order into one float32 accumulator
+// and rounded to bfloat16 once (round to nearest even), as the TPU kernel
+// keeps an fp32 accumulator and stores in data.dtype
 // (distmlip_tpu/kernels/segment.py:183, :217). The bound halves on the data
-// and output terms: 2 bytes an element.
+// and output terms: 2 bytes an element. Two routes, by the row:
+//   - rows wider than 32 columns, the width a multiple of 8, data and out
+//     16-byte aligned (MACE's 2048 and 5120, eSCN's 3200):
+//     segment_sum_bf16_row_kernel, one block per dst row. Warp 0 finds the
+//     row's edge range (row_bounds) and walks the mask once, staging the
+//     valid edges' offsets in edge order in shared memory (up to 1024 a
+//     round; a 512-edge window with no valid edge costs one 16-byte mask
+//     load a lane, so the repeated-tail padding stays a few wide loads);
+//     then every warp of the block adds them into its own columns. A lane
+//     reads 8 bf16 (one uint4) twice, 256 columns apart: a warp owns 512
+//     columns (1 KB of an edge row, as the float32 kernel's two float4s),
+//     so 3200 columns take 7 warps, 5120 take 10 and 2048 take 4, and each
+//     row pays one search and one mask walk where the shared template paid
+//     one per warp (25 / 40 / 16 warps a row on bf16 pairs);
+//   - everything else takes the shared template above on bf16 pairs (one a
+//     lane, or two 32 apart on the wider path) or single values, as before:
+//     at 32 columns or fewer the narrow kernel splits a warp into edge slots
+//     and adds the slots by a shuffle tree whose shape follows the lanes an
+//     edge takes, so 16-byte lanes there would either leave three lanes in
+//     four idle or change the tree's order; a misaligned view or a width
+//     that is not a multiple of 8 cannot take 16-byte loads.
+// Both routes add each column's edges in the same order as the shared
+// template on pairs did, so the output is bit for bit that kernel's
+// (tools/kernel_ab.py prints a digest of each output to show it).
+// Measured (tools/kernel_ab.py, kernel alone by the profiler, NVIDIA H100
+// 80GB HBM3 at 700 W; 32768 edge rows, ~47 edges a non-empty dst row, 2560
+// dst rows; PERF.md section 6): 0.0867 / 0.1231 / 0.0541 ms at 3200 / 5120
+// / 2048 columns, 71% / 80% / 73% of the bytes bound, where the shared
+// template on pairs took 0.1361 / 0.2056 / 0.0924. Other choices, measured
+// in the same run: one uint4 a lane (twice the warps a row) 0.0847 /
+// 0.1408 / 0.0574; two a lane with eight edge rows in flight (125
+// registers against 86) 0.0842 / 0.1306 / 0.0575; one a lane, eight in
+// flight 0.0927 / 0.1685 / 0.0555. Two a lane and four in flight is the
+// fastest at 5120 and 2048 and within 3% at 3200, so they are the
+// constants kBf16ColsPerLane and kBf16InFlight.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -290,46 +320,263 @@ segment_sum_kernel_cols(const T* __restrict__ data, const Id* __restrict__ ids,
   }
 }
 
-template <typename T, typename Id, int VEC>
-cudaError_t launch(const T* data, const Id* ids, const uint8_t* mask, T* out,
-                   int64_t n_edges, int64_t n_rows, int64_t width, cudaStream_t s) {
-  const int64_t cols = width / VEC;
-  if (cols <= 16) {
-    const int64_t blocks = (n_rows + kWarps - 1) / kWarps;
-    if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-    const unsigned g = static_cast<unsigned>(blocks);
-    if (cols == 1) {
-      segment_sum_kernel_rows<T, Id, VEC, 1><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
-    } else if (cols == 2) {
-      segment_sum_kernel_rows<T, Id, VEC, 2><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
-    } else if (cols <= 4) {
-      segment_sum_kernel_rows<T, Id, VEC, 4><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
-    } else if (cols <= 8) {
-      segment_sum_kernel_rows<T, Id, VEC, 8><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
-    } else {
-      segment_sum_kernel_rows<T, Id, VEC, 16><<<g, kThreads, 0, s>>>(data, ids, mask, out, n_edges, n_rows, width);
-    }
-  } else {
-    const int64_t chunks = (cols + 32 * kColsPerLane - 1) / (32 * kColsPerLane);
-    const int64_t blocks = (n_rows * chunks + kWarps - 1) / kWarps;
-    if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
-    segment_sum_kernel_cols<T, Id, VEC><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        data, ids, mask, out, n_edges, n_rows, width, chunks);
+// ---- bfloat16 rows of 16-byte lanes: one block per dst row ---------------
+
+constexpr int kBf16MaxWarps = 16;     // warps a block (a row's column chunks; more take grid.y)
+constexpr int kBf16ListCap = 1024;    // valid edges staged in shared memory a round
+constexpr int kBf16Windows = 8;       // 512-edge mask windows loaded a producer step
+constexpr int kBf16ColsPerLane = 2;   // uint4 loads a lane, 256 columns apart
+constexpr int kBf16InFlight = 4;      // edge rows loaded before they are added
+
+// 8 bf16 (one uint4) added into acc in float32: a bf16 is the top half of
+// its float, so the conversion is exact.
+__device__ __forceinline__ void add8(float (&acc)[8], const uint4& v) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    acc[2 * k] += __uint_as_float(w[k] << 16);
+    acc[2 * k + 1] += __uint_as_float(w[k] & 0xffff0000u);
   }
-  return cudaGetLastError();
 }
 
-// Elements a load: float4 (float32) or a bfloat162 pair where the width
-// allows it and both pointers are aligned to the vector, else one.
+__device__ __forceinline__ unsigned pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Warp-wide: stages the valid edges of [ws, e1) into list as offsets from
+// e0, in edge order, until the list could overflow; G mask windows of 512
+// edges a step, all loads in flight before any is tested, and a window with
+// no valid edge costs no store. Returns the count; ws moves to the first
+// window not staged, and done tells whether it reached e1. Every lane ends
+// with the same values.
+template <int G>
+__device__ __forceinline__ int stage_valid_edges(const uint8_t* __restrict__ mask, int64_t& ws,
+                                                 int64_t e0, int64_t e1, int lane,
+                                                 uint32_t* __restrict__ list, bool& done) {
+  int n = 0;
+  while (ws < e1) {
+    unsigned bits[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) bits[j] = granule_bits(mask, ws + 512 * j + 16 * lane, e0, e1);
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      if (__ballot_sync(kFull, bits[j] != 0u) == 0u) continue;
+      const int c = __popc(bits[j]);
+      int incl = c;  // inclusive scan of the lanes' counts: lane order is edge order
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(kFull, incl, d);
+        if (lane >= d) incl += t;
+      }
+      const int total = __shfl_sync(kFull, incl, 31);
+      if (n + total > kBf16ListCap) {  // resume at this window next round
+        ws += 512 * j;
+        done = false;
+        return n;
+      }
+      // e - e0 modulo 2^32: the window may start before e0, where no bit is set
+      const uint32_t first = static_cast<uint32_t>(ws + 512 * j + 16 * lane - e0);
+      int pos = n + incl - c;
+      for (unsigned m = bits[j]; m != 0u; m &= m - 1u) list[pos++] = first + (__ffs(m) - 1);
+      n += total;
+    }
+    ws += 512 * G;
+  }
+  done = true;
+  return n;
+}
+
+// One block per dst row (blockIdx.x), its warps over chunks of 32 CPL
+// vectors of the row (CPL = kBf16ColsPerLane; chunk blockIdx.y * warps +
+// warp); lane l takes vectors chunk * 32 CPL + 32 j + l, j < CPL. Warp 0
+// searches and stages; after a barrier every warp adds the staged edges
+// into its columns, kBf16InFlight edge rows loaded before any is added;
+// rows of more than kBf16ListCap valid edges take more rounds, the
+// accumulators staying in registers.
+template <typename Id>
+__global__ void __launch_bounds__(32 * kBf16MaxWarps)
+segment_sum_bf16_row_kernel(const __nv_bfloat16* __restrict__ data, const Id* __restrict__ ids,
+                            const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
+                            int64_t n_edges, int64_t width) {
+  __shared__ uint32_t list[kBf16ListCap];
+  __shared__ int64_t s_e0;
+  __shared__ int s_n, s_done;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row = blockIdx.x;
+  const int64_t chunk = static_cast<int64_t>(blockIdx.y) * (blockDim.x >> 5) + warp;
+  const int64_t col = (chunk * 32 * kBf16ColsPerLane + lane) * 8;  // the lane's first column
+  bool on[kBf16ColsPerLane];
+#pragma unroll
+  for (int j = 0; j < kBf16ColsPerLane; ++j) on[j] = col + 256 * j < width;
+
+  int64_t e0 = 0, e1 = 0, ws = 0;
+  if (warp == 0) {
+    row_bounds(ids, n_edges, row, lane, e0, e1);
+    const int64_t align = static_cast<int64_t>(reinterpret_cast<uintptr_t>(mask) & 15u);
+    ws = ((e0 + align) & ~int64_t{15}) - align;
+  }
+  float acc[kBf16ColsPerLane][8];
+#pragma unroll
+  for (int j = 0; j < kBf16ColsPerLane; ++j) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[j][c] = 0.0f;
+  }
+  const __nv_bfloat16* __restrict__ base_col = data + col;
+  for (;;) {
+    if (warp == 0) {
+      bool done;
+      const int n = stage_valid_edges<kBf16Windows>(mask, ws, e0, e1, lane, list, done);
+      if (lane == 0) {
+        s_e0 = e0;
+        s_n = n;
+        s_done = done;
+      }
+    }
+    __syncthreads();
+    const int n = s_n;
+    const bool done = s_done != 0;
+    const __nv_bfloat16* __restrict__ rows = base_col + s_e0 * width;
+    for (int i = 0; i < n; i += kBf16InFlight) {
+      uint4 v[kBf16InFlight][kBf16ColsPerLane];
+#pragma unroll
+      for (int q = 0; q < kBf16InFlight; ++q) {
+        if (i + q < n) {
+          const __nv_bfloat16* __restrict__ p = rows + static_cast<int64_t>(list[i + q]) * width;
+#pragma unroll
+          for (int j = 0; j < kBf16ColsPerLane; ++j) {
+            if (on[j]) v[q][j] = __ldg(reinterpret_cast<const uint4*>(p + 256 * j));
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kBf16InFlight; ++q) {
+        if (i + q < n) {
+#pragma unroll
+          for (int j = 0; j < kBf16ColsPerLane; ++j) {
+            if (on[j]) add8(acc[j], v[q][j]);
+          }
+        }
+      }
+    }
+    if (done) break;
+    __syncthreads();  // every warp is past the list before warp 0 restages it
+  }
+#pragma unroll
+  for (int j = 0; j < kBf16ColsPerLane; ++j) {
+    if (on[j]) {
+      const float* a = acc[j];
+      *reinterpret_cast<uint4*>(out + row * width + col + 256 * j) =
+          make_uint4(pack_bf16x2(a[0], a[1]), pack_bf16x2(a[2], a[3]),
+                     pack_bf16x2(a[4], a[5]), pack_bf16x2(a[6], a[7]));
+    }
+  }
+}
+
+// How a call runs, worked out once from its arguments: the instantiation,
+// its grid and the figures of its plan. The launch takes it and
+// distmlip_segment_sum_bf16_plan reports it, so the two cannot differ.
+struct Route {
+  const void* kernel;
+  dim3 grid;
+  unsigned threads;
+  int path;               // 0 bf16 rows of 16-byte lanes; the shared template:
+                          // 1 narrow on vectors, 2 narrow on single values,
+                          // 3 wide on vectors, 4 wide on single values
+  int vec;                // elements a load
+  int64_t cols_a_warp;
+  int64_t warps_a_row;
+  int64_t in_flight;      // edge rows loaded a warp before any is added
+                          // (narrow: edges a warp step)
+  int64_t searches_a_row;
+  int64_t chunks;         // the wide kernel's column chunks a row
+};
+
+// The shared template's route on VEC-element loads: narrow rows (up to 16
+// vectors) a warp a row, LPE lanes an edge; wider rows a warp a chunk of
+// 32 kColsPerLane vectors.
+template <typename T, typename Id, int VEC>
+cudaError_t route_vec(int64_t n_rows, int64_t width, Route& r) {
+  const int64_t cols = width / VEC;
+  r.threads = kThreads;
+  r.vec = VEC;
+  int64_t blocks;
+  if (cols <= 16) {
+    const int lpe = cols <= 1 ? 1 : cols <= 2 ? 2 : cols <= 4 ? 4 : cols <= 8 ? 8 : 16;
+    const void* by_lpe[] = {reinterpret_cast<const void*>(segment_sum_kernel_rows<T, Id, VEC, 1>),
+                            reinterpret_cast<const void*>(segment_sum_kernel_rows<T, Id, VEC, 2>),
+                            reinterpret_cast<const void*>(segment_sum_kernel_rows<T, Id, VEC, 4>),
+                            reinterpret_cast<const void*>(segment_sum_kernel_rows<T, Id, VEC, 8>),
+                            reinterpret_cast<const void*>(segment_sum_kernel_rows<T, Id, VEC, 16>)};
+    r.kernel = by_lpe[__builtin_ctz(lpe)];
+    blocks = (n_rows + kWarps - 1) / kWarps;
+    r.path = VEC > 1 ? 1 : 2;
+    r.cols_a_warp = width;
+    r.warps_a_row = 1;
+    r.in_flight = 32 / lpe;
+    r.searches_a_row = 1;
+    r.chunks = 0;
+  } else {
+    r.kernel = reinterpret_cast<const void*>(segment_sum_kernel_cols<T, Id, VEC>);
+    r.chunks = (cols + 32 * kColsPerLane - 1) / (32 * kColsPerLane);
+    blocks = (n_rows * r.chunks + kWarps - 1) / kWarps;
+    r.path = VEC > 1 ? 3 : 4;
+    r.cols_a_warp = 32 * kColsPerLane * VEC;
+    r.warps_a_row = r.chunks;
+    r.in_flight = kInFlight;
+    r.searches_a_row = r.chunks;
+  }
+  if (blocks > 2147483647LL) return cudaErrorInvalidConfiguration;
+  r.grid = dim3(static_cast<unsigned>(blocks));
+  return cudaSuccess;
+}
+
+// bf16 rows wider than 32 columns, the width a multiple of 8, data and out
+// 16-byte aligned take segment_sum_bf16_row_kernel: a warp a chunk of 256
+// kBf16ColsPerLane columns, up to kBf16MaxWarps a block, more chunks on
+// grid.y. Everything else takes the shared template on float4 (float32)
+// or bfloat162 pairs where the width and both pointers allow, else single
+// values.
 template <typename T, typename Id>
-cudaError_t launch_ids(const T* data, const Id* ids, const uint8_t* mask, T* out,
-                       int64_t n_edges, int64_t n_rows, int64_t width, cudaStream_t s) {
+cudaError_t route(const T* data, const T* out, int64_t n_rows, int64_t width, Route& r) {
+  const uintptr_t d = reinterpret_cast<uintptr_t>(data), o = reinterpret_cast<uintptr_t>(out);
+  if constexpr (std::is_same_v<T, __nv_bfloat16>) {
+    if (width > 32 && width % 8 == 0 && d % 16 == 0 && o % 16 == 0) {
+      const int64_t chunks = (width / 8 + 32 * kBf16ColsPerLane - 1) / (32 * kBf16ColsPerLane);
+      const int64_t warps = chunks < kBf16MaxWarps ? chunks : kBf16MaxWarps;
+      const int64_t slabs = (chunks + warps - 1) / warps;
+      if (n_rows > 2147483647LL || slabs > 65535) return cudaErrorInvalidConfiguration;
+      r.kernel = reinterpret_cast<const void*>(segment_sum_bf16_row_kernel<Id>);
+      r.grid = dim3(static_cast<unsigned>(n_rows), static_cast<unsigned>(slabs));
+      r.threads = static_cast<unsigned>(32 * warps);
+      r.path = 0;
+      r.vec = 8;
+      r.cols_a_warp = 256 * kBf16ColsPerLane;
+      r.warps_a_row = warps * slabs;
+      r.in_flight = kBf16InFlight;
+      r.searches_a_row = slabs;
+      r.chunks = chunks;
+      return cudaSuccess;
+    }
+  }
   constexpr int kVec = std::is_same_v<T, float> ? 4 : 2;
   constexpr uintptr_t kAlign = kVec * sizeof(T);
-  const bool vec = width % kVec == 0 && reinterpret_cast<uintptr_t>(data) % kAlign == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % kAlign == 0;
-  return vec ? launch<T, Id, kVec>(data, ids, mask, out, n_edges, n_rows, width, s)
-             : launch<T, Id, 1>(data, ids, mask, out, n_edges, n_rows, width, s);
+  const bool vec = width % kVec == 0 && d % kAlign == 0 && o % kAlign == 0;
+  return vec ? route_vec<T, Id, kVec>(n_rows, width, r) : route_vec<T, Id, 1>(n_rows, width, r);
+}
+
+template <typename T, typename Id>
+cudaError_t launch(const T* data, const Id* ids, const uint8_t* mask, T* out, int64_t n_edges,
+                   int64_t n_rows, int64_t width, cudaStream_t s) {
+  Route r;
+  const cudaError_t err = route<T, Id>(data, out, n_rows, width, r);
+  if (err != cudaSuccess) return err;
+  // the row kernel takes (data, ids, mask, out, n_edges, width), the shared
+  // template (data, ids, mask, out, n_edges, n_rows, width[, chunks])
+  void* shared[] = {&data, &ids, &mask, &out, &n_edges, &n_rows, &width, &r.chunks};
+  void* rows[] = {&data, &ids, &mask, &out, &n_edges, &width};
+  return cudaLaunchKernel(r.kernel, r.grid, dim3(r.threads), r.path == 0 ? rows : shared, 0, s);
 }
 
 template <typename T>
@@ -341,8 +588,8 @@ int segment_sum(const T* data, const void* ids, int id_bytes, const uint8_t* mas
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       id_bytes == 4
-          ? launch_ids(data, static_cast<const int32_t*>(ids), mask, out, n_edges, n_rows, width, s)
-          : launch_ids(data, static_cast<const long long*>(ids), mask, out, n_edges, n_rows, width, s);
+          ? launch(data, static_cast<const int32_t*>(ids), mask, out, n_edges, n_rows, width, s)
+          : launch(data, static_cast<const long long*>(ids), mask, out, n_edges, n_rows, width, s);
   return static_cast<int>(err);
 }
 
@@ -366,4 +613,27 @@ extern "C" int distmlip_segment_sum_bf16(const __nv_bfloat16* data, const void* 
                                          int64_t n_edges, int64_t n_rows, int64_t width,
                                          void* stream) {
   return segment_sum(data, ids, id_bytes, mask, out, n_edges, n_rows, width, stream);
+}
+
+// The plan distmlip_segment_sum_bf16 takes for bf16 rows of `width` at
+// `data` and `out` (null: a fresh allocation, aligned) with ids of
+// `id_bytes`: plan[0] the path (Route::path), [1] elements a load, [2]
+// columns a warp, [3] warps a dst row, [4] edge rows in flight a warp
+// (narrow: edges a warp step), [5] row searches a dst row, [6] registers a
+// thread of the kernel. Returns a cudaError_t.
+extern "C" int distmlip_segment_sum_bf16_plan(const __nv_bfloat16* data,
+                                              const __nv_bfloat16* out, int64_t width,
+                                              int id_bytes, int64_t* plan) {
+  if (width <= 0 || (id_bytes != 4 && id_bytes != 8))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Route r;
+  cudaError_t err = id_bytes == 4 ? route<__nv_bfloat16, int32_t>(data, out, 1, width, r)
+                                  : route<__nv_bfloat16, long long>(data, out, 1, width, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes attr{};
+  err = cudaFuncGetAttributes(&attr, r.kernel);
+  const int64_t p[7] = {r.path,      r.vec,           r.cols_a_warp, r.warps_a_row,
+                        r.in_flight, r.searches_a_row, attr.numRegs};
+  for (int k = 0; k < 7; ++k) plan[k] = p[k];
+  return static_cast<int>(err);
 }

@@ -869,6 +869,33 @@ def _interaction_bwd_fn(suffix):
     return fn
 
 
+def tensornet_interaction_backward_bf16_plan(g, f, node_i, node_a, node_s):
+    """The plan ``tensornet_interaction_backward_cuda`` takes for bf16
+    inputs on the card (its outputs allocated fresh, as the wrapper does),
+    from the kernel library's own routing (the launch's): channels a lane
+    (2 where C is even and every array 4-byte aligned, else 1), channels a
+    warp, warps a src row, edges in flight a warp, edge indices loaded a
+    warp turn, warps a block and the kernel's registers a thread."""
+    if not (f.is_cuda and f.dtype == torch.bfloat16):
+        raise ValueError("tensornet_interaction_backward_bf16_plan takes bf16 CUDA tensors")
+    from .build import load
+
+    fn = load("edge_aggregate").distmlip_tensornet_interaction_bwd_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P] * 9 + [_I, _P]
+    plan = (ctypes.c_int64 * 7)()
+    err = fn(*(x.data_ptr() for x in (g, f, node_i, node_a, node_s)), None, None, None, None,
+             f.shape[1], plan)
+    if err != 0:
+        raise RuntimeError(f"tensornet_interaction_backward_bf16_plan failed: "
+                           f"cudaError_t {err}")
+    keys = ("channels_a_lane", "channels_a_warp", "warps_a_row", "edges_in_flight",
+            "indices_a_turn", "warps_a_block", "registers")
+    out = dict(zip(keys, plan))
+    out["path"] = "channel pairs" if out["channels_a_lane"] == 2 else "single channels"
+    return out
+
+
 def _check_gated_weights(name, weights, k1, channels, device, dtype=torch.float32):
     """The gated MLP's 8 tensors with one hidden layer: w1 (K1, H), b1 (H),
     w2 (H, C), b2 (C), for the core and then the gate, in the call's

@@ -8,9 +8,10 @@ takes, allocates the output and launches one kernel on PyTorch's current
 stream. ``csr_row_offsets`` stays for the edge-aggregate kernels and the
 graph builder.
 
-``segment_sum_cuda`` takes CUDA tensors only, float32 or bfloat16 (a
-second instantiation of the same kernels: fp32 accumulation, each output
-rounded to bf16 once), and raises on anything else;
+``segment_sum_cuda`` takes CUDA tensors only, float32 or bfloat16 (fp32
+accumulation, each output rounded to bf16 once; rows wider than 32 columns
+on 16-byte lanes, one block a dst row, ``segment_sum_bf16_plan``), and
+raises on anything else;
 ``segment_sum_reference`` is the plain version (``masked_segment_sum``,
 which accumulates half data in fp32 and rounds once too), used on the CPU
 and by the on-card comparison. The dispatcher (``kernels/dispatch.py``)
@@ -130,3 +131,36 @@ def segment_sum_cuda(data, segment_ids, num_segments: int, mask=None):
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError_t {err}")
     launch_counts["segment_sum" if data.dtype == torch.float32 else "segment_sum_bf16"] += 1
     return out
+
+
+_BF16_PATHS = {0: "rows of 16-byte lanes, a block a dst row",
+               1: "narrow, pairs", 2: "narrow, single values",
+               3: "wide, pairs", 4: "wide, single values"}
+
+
+def segment_sum_bf16_plan(data, segment_ids=None, out=None):
+    """The plan ``segment_sum_cuda`` takes for bf16 ``data`` (E, ...) on the
+    card, from the kernel library's own routing (the launch's): the path,
+    elements a load, columns a warp, warps a dst row, edge rows in flight a
+    warp (narrow: edges a warp step), row searches a dst row and the
+    kernel's registers a thread. ``segment_ids`` gives the id width (int32
+    when None); ``out`` the output (None: a fresh allocation, aligned)."""
+    if not (isinstance(data, torch.Tensor) and data.is_cuda and data.dtype == torch.bfloat16):
+        raise ValueError("segment_sum_bf16_plan takes a bf16 CUDA tensor")
+    from .build import load
+
+    fn = load("segment_sum").distmlip_segment_sum_bf16_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_void_p]
+    plan = (ctypes.c_int64 * 7)()
+    id_bytes = 4 if segment_ids is None else segment_ids.element_size()
+    err = fn(data.data_ptr(), None if out is None else out.data_ptr(),
+             math.prod(data.shape[1:]), id_bytes, plan)
+    if err != 0:
+        raise RuntimeError(f"segment_sum_bf16_plan failed: cudaError_t {err}")
+    keys = ("path", "elements_a_load", "columns_a_warp", "warps_a_row", "edges_in_flight",
+            "searches_a_row", "registers")
+    result = dict(zip(keys, plan))
+    result["path"] = _BF16_PATHS[result["path"]]
+    return result

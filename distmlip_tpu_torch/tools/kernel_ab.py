@@ -1,6 +1,6 @@
-"""Time the segment sum (B1), the CHGNet row projection, the CHGNet convs
-and the SO(2) convolution (B3) of one checkout on the card, at the shapes
-the main paths give them, split three ways.
+"""Time the segment sum (B1), the TensorNet kernels, the CHGNet row
+projection, the CHGNet convs and the SO(2) convolution (B3) of one checkout
+on the card, at the shapes the main paths give them, split three ways.
 
     python distmlip_tpu_torch/tools/kernel_ab.py [--root DIR] [--label L]
         [--out FILE] [--steps N]
@@ -28,7 +28,9 @@ Shapes: B1 at width 1 on the crystal graph of the MACE path (2048 Si,
 cutoff 5 Å, skin 0.5: its own dst ids and mask, the pair term's sum with
 ``zbl=True``; and the same cut at its last valid edge), at MACE's two edge-chunk shapes (32768, 16 x 128) and
 (32768, 40 x 128) and eSCN's (32768, 25 x 128), each chunk with ~47 edges
-a row, a 3000-edge padding tail and 200 masked edges; the row projection at
+a row, a 3000-edge padding tail and 200 masked edges, in float32 and on
+bf16 rows (with ``bound_ms``, the bytes bound at the rows' element size,
+and the checkout's bf16 ``plan`` where it has one); the row projection at
 CHGNet's atom tables (19,712, 64) @ (64, 128) and (64, 256) and its bond
 table (236,032, 64) @ (64, 256), on float32 rows and on bf16 rows (with
 bf16 packed blocks when the checkout's ``chgnet_projection_plan`` takes a
@@ -44,8 +46,16 @@ same cases the same ways.
 The CHGNet atom and line convs at the CHGNet path's graph (16,384 atoms,
 its real ids and masks; random rows and weights at C = H = 64), float32
 and bf16: ``ms``, ``kernel_ms`` (the per-edge kernel alone), ``host_us``.
-``--kernels`` picks groups of rows (``segment_sum``, ``projection``,
-``so2``, ``chgnet_conv``; all by default).
+The TensorNet embed, interaction and interaction backward at the TensorNet
+path's graph (16,384 atoms, its real ids, src ids and mask; random inputs
+at C = 64), float32 and bf16; the backward through its wrapper (the src
+sort and CSR offsets included) and as its C launch alone on the sorted
+edges (``no_sort_ms``), with ``bound_ms`` and the bf16 ``plan``.
+Every row of the ``segment_sum`` and ``tensornet`` groups prints
+``digest``, the sha256 of its output bytes on the fixed-seed inputs, so two
+checkouts' outputs compare bit for bit.
+``--kernels`` picks groups of rows (``segment_sum``, ``tensornet``,
+``projection``, ``so2``, ``chgnet_conv``; all by default).
 
 ``--steps N`` times, in place of the kernels, the eSCN and CHGNet main
 paths end to end (``--families`` picks them), in bfloat16 and in float32,
@@ -136,6 +146,45 @@ def library_split(torch, fn):
     own, _ = device_split(torch, fn)
     return {"library_ms": cuda_ms(torch, fn), "library_kernel_ms": own,
             "library_host_us": host_us(torch, fn)}
+
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes, in order: equal digests, equal bits."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        t = t.detach().contiguous().cpu()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return h.hexdigest()
+
+
+H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
+
+
+def segment_sum_bytes(data, ids, mask, n):
+    """Bytes B1 must move: each valid data row read once (masked rows need
+    not be read), ids and mask read once, the output written once."""
+    e, w, es = data.shape[0], data[0].numel(), data.element_size()
+    n_valid = int(mask.sum())
+    return n_valid * w * es + e * ids.element_size() + e + n * w * es
+
+
+def interaction_backward_cost(torch, f, src, ids, mask, n_node):
+    """(bytes, operations) of TensorNet's interaction backward: f of each
+    valid edge read, d f of every edge written, each gathered g row and x
+    row read once, d x written, src, dst ids and mask read; per valid
+    (edge, channel) 8 adds for t, u, v, 10 multiply-adds into d x and
+    1 + 5 + 11 for d f's three columns."""
+    e, c, es = f.shape[0], f.shape[1], f.element_size()
+    n_valid = int(mask.sum())
+    n_src = int(torch.unique(src[mask]).numel())
+    n_dst = int(torch.unique(ids[mask]).numel())
+    nbytes = ((n_valid * 3 * c + e * 3 * c + n_dst * 9 * c + n_src * 10 * c
+               + n_node * 10 * c) * es + e * (src.element_size() + ids.element_size() + 1))
+    return nbytes, n_valid * c * (8 + 20 + 17)
 
 
 def slice_case(torch, gen, e, trailing, n_rows=2560, per_row=47, pad=3000,
@@ -236,17 +285,120 @@ def crystal_graph(torch):
 
 
 def time_segment_sum(torch, name, data, ids, mask, n):
-    from distmlip_tpu_torch.kernels import segment_sum_cuda
+    """B1 on one input: the three times, the bytes bound at the rows'
+    element size, the output's digest, ``index_add_`` of the masked rows
+    (float32: bf16 rows upcast beforehand) and, on bf16 rows, the
+    checkout's plan where it has one."""
+    from distmlip_tpu_torch import kernels as K
 
     e = data.shape[0]
-    masked = torch.where(mask.reshape((e,) + (1,) * (data.ndim - 1)), data, 0.0)
+    masked = torch.where(mask.reshape((e,) + (1,) * (data.ndim - 1)), data.float(), 0.0)
     out = torch.zeros((n,) + tuple(data.shape[1:]), device="cuda")
     ids_long = ids.long()
-    row = {"kernel": "segment_sum", "case": name, "shape": list(data.shape),
-           "ids": str(ids.dtype), "n_segments": n, "valid": int(mask.sum())}
-    row.update(split(torch, lambda: segment_sum_cuda(data, ids, n, mask), "segment_sum"))
+    row = {"kernel": "segment_sum", "case": name, "dtype": str(data.dtype).split(".")[-1],
+           "shape": list(data.shape), "ids": str(ids.dtype), "n_segments": n,
+           "valid": int(mask.sum()),
+           "bound_ms": segment_sum_bytes(data, ids, mask, n) / H100_BYTES_PER_S * 1e3,
+           "digest": digest(K.segment_sum_cuda(data, ids, n, mask))}
+    if data.dtype == torch.bfloat16 and hasattr(K, "segment_sum_bf16_plan"):
+        row["plan"] = K.segment_sum_bf16_plan(data, ids)
+    row.update(split(torch, lambda: K.segment_sum_cuda(data, ids, n, mask), "segment_sum"))
     row.update(library_split(torch, lambda: out.index_add_(0, ids_long, masked)))
     return row
+
+
+def tensornet_graph(torch, reps=16):
+    """dst ids, src ids, mask and n_cap of the TensorNet path's graph
+    (bench.py's crystal at ``reps``, 16,384 atoms, built at cutoff +
+    skin), on the card."""
+    from distmlip_tpu_torch.neighbors import neighbor_list
+    from distmlip_tpu_torch.partition import (CapacityPolicy, build_partitioned_graph,
+                                              build_plan)
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
+
+    atoms, _ = bench_atoms(reps)
+    r = TENSORNET_KW["cutoff"] + 0.5
+    nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r)
+    plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r)
+    g, _ = build_partitioned_graph(plan, nl, atoms.numbers, atoms.cell,
+                                   caps=CapacityPolicy())
+    to = lambda x: torch.as_tensor(x[0]).to("cuda")  # noqa: E731
+    return to(g.edge_dst), to(g.edge_src), to(g.edge_mask), g.n_cap
+
+
+def edge_inputs(torch, gen, which, e, c, n_node, src=None):
+    """Random inputs of one TensorNet message at (E, C): the embed's
+    Z, W1, W2, W3 (E, C) and A_e, S_e (E, 3, 3, 1); the interaction's
+    f (E, C, 3), the compact node rows i (N_node, C), a (N_node, 3, C),
+    s (N_node, 6, C) and src."""
+    r = lambda *shape: torch.randn(shape, generator=gen, device="cuda")  # noqa: E731
+    if which == "embed":
+        return [r(e, c) for _ in range(4)] + [r(e, 3, 3, 1) for _ in range(2)]
+    if src is None:
+        src = torch.randint(0, n_node, (e,), generator=gen, device="cuda",
+                            dtype=torch.int32)
+    return [r(e, c, 3), r(n_node, c), r(n_node, 3, c), r(n_node, 6, c), src]
+
+
+def time_tensornet(torch, gen):
+    """The TensorNet embed, interaction and interaction backward at the
+    TensorNet path's graph (C = 64, random inputs), float32 and bf16 (the
+    same values rounded once): the three times and the output's digest;
+    the backward also as its C launch alone on the edges sorted beforehand
+    (``no_sort_ms``), its bound and the bf16 plan."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.kernels import edge_aggregate as EA
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW
+
+    ids, src, mask, n = tensornet_graph(torch)
+    c = TENSORNET_KW["units"]
+    inputs = {"embed": edge_inputs(torch, gen, "embed", ids.shape[0], c, n, src),
+              "interaction": edge_inputs(torch, gen, "interaction", ids.shape[0], c, n, src)}
+    g32 = torch.randn((n, 3, 3, c), generator=gen, device="cuda")
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        for which, cuda in (("embed", K.tensornet_embed_aggregate_cuda),
+                            ("interaction", K.tensornet_interaction_aggregate_cuda)):
+            xs = [x.to(dtype) if x.is_floating_point() else x for x in inputs[which]]
+            row = {"kernel": f"tensornet_{which}", "dtype": tag, "e": ids.shape[0],
+                   "valid": int(mask.sum()), "channels": c,
+                   "digest": digest(cuda(*xs, ids, n, mask))}
+            row.update(split(torch, lambda: cuda(*xs, ids, n, mask),
+                             f"tensornet_{which}_kernel"))
+            rows.append(row)
+        xs = [x.to(dtype) if x.is_floating_point() else x for x in inputs["interaction"]]
+        g = g32.to(dtype)
+        f, node_i, node_a, node_s, _ = xs
+        nbytes, _ = interaction_backward_cost(torch, f, src, ids, mask, node_i.shape[0])
+        row = {"kernel": "tensornet_interaction_backward", "dtype": tag, "e": ids.shape[0],
+               "valid": int(mask.sum()), "channels": c,
+               "bound_ms": nbytes / H100_BYTES_PER_S * 1e3,
+               "digest": digest(*K.tensornet_interaction_backward_cuda(g, *xs, ids, mask))}
+        if dtype == torch.bfloat16 and hasattr(K, "tensornet_interaction_backward_bf16_plan"):
+            row["plan"] = K.tensornet_interaction_backward_bf16_plan(g, *xs[:4])
+        row.update(split(torch, lambda: K.tensornet_interaction_backward_cuda(g, *xs, ids, mask),
+                         "tensornet_interaction_bwd_kernel"))
+        # the C launch alone, on the edges sorted and the outputs allocated beforehand
+        perm, row_ptr = K.src_order(src, node_i.shape[0], mask)
+        dst32 = ids.to(torch.int32).contiguous()
+        outs = [torch.empty_like(x) for x in (f, node_i, node_a, node_s)]
+        suffix = "_f32" if dtype == torch.float32 else "_bf16"
+        head = [x.data_ptr() for x in (g, f, node_i, node_a, node_s, perm, dst32, row_ptr)]
+        head += [x.data_ptr() for x in outs]
+        tail = [node_i.shape[0], f.shape[0], c]
+        launch = EA._interaction_bwd_fn(suffix)
+
+        def no_sort():
+            err = launch(*head, *tail, torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"interaction backward launch failed: cudaError_t {err}")
+
+        row["no_sort_ms"] = cuda_ms(torch, no_sort)
+        rows.append(row)
+        del xs, outs, g
+        torch.cuda.empty_cache()
+    return rows
 
 
 def projection_library_call(torch, x, w, bias):
@@ -486,7 +638,7 @@ def main(argv=None) -> int:
                     help="time N calculates of the eSCN and CHGNet main paths instead")
     ap.add_argument("--families", default="escn,chgnet",
                     help="the paths --steps times (comma-separated: escn, chgnet, relax)")
-    ap.add_argument("--kernels", default="segment_sum,projection,so2,chgnet_conv",
+    ap.add_argument("--kernels", default="segment_sum,tensornet,projection,so2,chgnet_conv",
                     help="the groups of kernel rows to time (comma-separated)")
     args = ap.parse_args(argv)
     groups = args.kernels.split(",")
@@ -513,8 +665,9 @@ def main(argv=None) -> int:
             with open(args.out, "a") as f:
                 f.write(line + "\n")
 
-    sources = {"segment_sum": "segment_sum", "projection": "chgnet_aggregate",
-               "so2": "so2_conv", "chgnet_conv": "chgnet_aggregate"}
+    sources = {"segment_sum": "segment_sum", "tensornet": "edge_aggregate",
+               "projection": "chgnet_aggregate", "so2": "so2_conv",
+               "chgnet_conv": "chgnet_aggregate"}
     emit({"kernel": "build", "seconds": build.build(
         sorted(set(sources.values()) if args.steps else {sources[g] for g in groups}))})
     if args.steps:
@@ -534,10 +687,18 @@ def main(argv=None) -> int:
         cut = int(torch.nonzero(mask).max()) + 1
         emit(time_segment_sum(torch, "zbl_width1_cut", data[:cut].contiguous(),
                               dst[:cut].contiguous(), mask[:cut].contiguous(), n_cap))
+        emit(time_segment_sum(torch, "zbl_width1", data.bfloat16(), dst, mask, n_cap))
         for name, trailing in (("mace_16x128", (16, 128)), ("mace_40x128", (40, 128)),
                                ("escn_25x128", (25, 128))):
-            emit(time_segment_sum(torch, name, *slice_case(torch, gen, 32768, trailing)))
+            case = slice_case(torch, gen, 32768, trailing)
+            emit(time_segment_sum(torch, name, *case))
+            bf16 = (case[0].bfloat16(),) + case[1:]
+            emit(time_segment_sum(torch, name, *bf16))
+            del case, bf16
             torch.cuda.empty_cache()
+    if "tensornet" in groups:
+        for row in time_tensornet(torch, gen):
+            emit(row)
     if "projection" in groups:
         for dtype in (torch.float32, torch.bfloat16):
             for r, k, m in ((19712, 64, 128), (19712, 64, 256), (236032, 64, 256)):

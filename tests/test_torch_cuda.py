@@ -13,6 +13,8 @@ which hold the port's plain versions against the JAX package on the same
 cases.
 """
 
+import contextlib
+import signal
 from unittest import mock
 
 import numpy as np
@@ -2342,3 +2344,267 @@ def test_so2_conv_bf16_a_modes_on_card(card, l_max, c):
     bound = K.so2_conv_error_bound(g[:, perm_t], wt, segments, c)[:, inv_t]
     torch.cuda.synchronize()
     assert bool(((got.float() - want.float()).abs() <= bound + 1e-30).all())
+
+
+# ---------------------------------------------------------------------------
+# bfloat16: B1's row kernel on 16-byte lanes and TensorNet's bf16 backward
+# kernel (channel pairs a lane, edge indices loaded by the warp)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def time_limit(seconds):
+    """Fails the enclosed code past ``seconds`` of wall time (SIGALRM: the
+    card tests run in one process)."""
+    def expire(signum, frame):
+        raise TimeoutError(f"past its {seconds} s limit")
+
+    old = signal.signal(signal.SIGALRM, expire)
+    signal.setitimer(signal.ITIMER_REAL, seconds)
+    try:
+        yield
+    finally:
+        signal.setitimer(signal.ITIMER_REAL, 0)
+        signal.signal(signal.SIGALRM, old)
+
+
+def sequential_bf16_sum(data, ids, n, mask):
+    """B1's bf16 output as its column paths form it: each column's valid
+    edges (ids in [0, n), mask true) added one at a time in edge order into
+    a float32 accumulator, rounded once to bf16. Step k adds every row's
+    k-th valid edge (one ``index_add_`` of distinct rows: one float32
+    addition an element)."""
+    ids_np = ids.cpu().numpy().astype(np.int64)
+    keep = (ids_np >= 0) & (ids_np < n)
+    if mask is not None:
+        keep &= mask.cpu().numpy()
+    idx = np.nonzero(keep)[0]
+    rows = ids_np[idx]
+    rank = np.arange(len(rows)) - np.searchsorted(rows, rows, side="left")
+    acc = torch.zeros((n,) + tuple(data.shape[1:]), dtype=torch.float32, device=data.device)
+    flat = data.float()
+    for k in range(int(rank.max()) + 1 if len(rank) else 0):
+        sel = idx[rank == k]
+        acc.index_add_(0, torch.from_numpy(ids_np[sel]).to(data.device),
+                       flat[torch.from_numpy(sel).to(data.device)])
+    return acc.bfloat16()
+
+
+ROW_PATH = "rows of 16-byte lanes, a block a dst row"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("id_dtype", ["int32", "int64"])
+@pytest.mark.parametrize("width", [8, 24, 128, 136, 2048, 3200, 5120])
+def test_segment_sum_bf16_vector_path_on_card(card, width, id_dtype):
+    """bf16 rows at widths that are multiples of 8: past 32 columns the row
+    kernel (16-byte lanes, one block a dst row) takes them and equals, bit
+    for bit, each column's valid edges added in edge order in float32 and
+    rounded once; at 8 and 24 the narrow pair kernel keeps its shuffle tree.
+    Both within the bf16 bound of the plain version."""
+    from distmlip_tpu_torch.kernels import segment_sum_bf16_plan
+
+    with time_limit(60):
+        ids, mask, n = sorted_case(90 + width, 3000, 80, 200, 40, hi=70)
+        data = torch.from_numpy(case_data(90 + width, len(ids), (width,))).to(card).bfloat16()
+        ti = torch.from_numpy(ids.astype(id_dtype)).to(card)
+        tm = torch.from_numpy(mask).to(card)
+        plan = segment_sum_bf16_plan(data, ti)
+        assert plan["path"] == (ROW_PATH if width > 32 else "narrow, pairs"), plan
+        got = _segment_sum_bf16_on_card(card, data, ti, n, tm)
+        if width > 32:
+            assert plan["elements_a_load"] == 8 and plan["searches_a_row"] == 1
+            assert torch.equal(got, sequential_bf16_sum(data, ti, n, tm))
+            assert torch.equal(_segment_sum_bf16_on_card(card, data, ti, n, None),
+                               sequential_bf16_sum(data, ti, n, None))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,path", [(1, "wide, single values"), (2, "wide, pairs"),
+                                         (8, ROW_PATH)])
+@pytest.mark.parametrize("width", [136, 3200])
+def test_segment_sum_bf16_misaligned_views_on_card(card, width, offset, path):
+    """A view off a 16-byte boundary never takes the 16-byte loads: one
+    element off takes single values, two elements off bf16 pairs, eight
+    (16 bytes, aligned again) the row kernel; every route adds each
+    column's edges in edge order, so all three equal the sequential sum bit
+    for bit."""
+    from distmlip_tpu_torch.kernels import segment_sum_bf16_plan
+
+    with time_limit(60):
+        ids, mask, n = sorted_case(110 + width, 1500, 50, 100, 30)
+        t = torch.from_numpy(case_data(110 + width, len(ids), (width,))).to(card).bfloat16()
+        buf = torch.zeros(t.numel() + offset, dtype=torch.bfloat16, device=card)
+        buf[offset:] = t.reshape(-1)
+        view = buf[offset:].view(t.shape)
+        assert segment_sum_bf16_plan(view)["path"] == path
+        ti, tm = torch.from_numpy(ids).to(card), torch.from_numpy(mask).to(card)
+        got = _segment_sum_bf16_on_card(card, view, ti, n, tm)
+        assert torch.equal(got, sequential_bf16_sum(t, ti, n, tm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [264, 8448])
+def test_segment_sum_bf16_row_kernel_long_rows_on_card(card, width):
+    """Rows of thousands of valid edges (more than one round of 1024 staged
+    edges) broken by masked stretches past 512 edges (windows skipped with
+    no data load), ids outside [0, N), a width whose last warp holds one
+    vector (264) and one past 16 warps (8448: a second slab on grid.y):
+    bit for bit the sequential sum."""
+    with time_limit(120):
+        rng = np.random.default_rng(width)
+        ids = np.sort(np.concatenate([np.full(3, -2), rng.integers(0, 6, 7000),
+                                      np.full(2600, 6), np.full(5, 9)])).astype(np.int32)
+        mask = rng.random(len(ids)) > 0.2
+        mask[np.nonzero(ids == 6)[0][:1500]] = False  # a masked stretch inside row 6
+        data = torch.from_numpy(case_data(7, len(ids), (width,))).to(card).bfloat16()
+        ti, tm = torch.from_numpy(ids).to(card), torch.from_numpy(mask).to(card)
+        got = _segment_sum_bf16_on_card(card, data, ti, 8, tm)
+        assert torch.equal(got, sequential_bf16_sum(data, ti, 8, tm))
+
+
+@pytest.mark.cuda
+def test_segment_sum_bf16_padding_only_chunk_on_card(card):
+    """The padding-only chunk (every edge masked, one dst id) gives zeros;
+    with its last five edges valid, their sum on that row; two calls equal
+    bit for bit."""
+    from distmlip_tpu_torch.kernels import segment_sum_cuda
+
+    with time_limit(60):
+        e = 8192
+        ids = torch.full((e,), 2047, dtype=torch.int32, device=card)
+        data = torch.from_numpy(case_data(8, e, (3200,))).to(card).bfloat16()
+        none = torch.zeros(e, dtype=torch.bool, device=card)
+        got = _segment_sum_bf16_on_card(card, data, ids, 2560, none)
+        assert not bool(got.any())
+        last5 = torch.arange(e, device=card) >= e - 5
+        got = _segment_sum_bf16_on_card(card, data, ids, 2560, last5)
+        assert torch.equal(got, sequential_bf16_sum(data, ids, 2560, last5))
+        assert torch.equal(got, segment_sum_cuda(data, ids, 2560, last5))
+
+
+def _backward_bf16_case(card, c, e=3000, n_node=23, n=40, pad=100, masked=50):
+    """A bf16 backward case: ~e / n_node edges a src row (several turns of
+    32 edge indices), dst-sorted ids with a padded tail and masked edges."""
+    ids, mask, n = sorted_case(130 + c, e, n, pad, masked)
+    arrays = interaction_inputs(130 + c, len(ids), n_node, c)
+    to = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    t = [to(x).bfloat16() if x.dtype == np.float32 else to(x) for x in arrays]
+    g = to(np.random.default_rng(c).normal(size=(n, 3, 3, c)).astype(np.float32)).bfloat16()
+    return g, t, to(ids), to(mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,pairs", [(7, False), (64, True), (65, False), (300, True)])
+def test_interaction_backward_bf16_channels_on_card(card, c, pairs):
+    """The bf16 backward at C = 7, 64, 65, 300: channel pairs where C is
+    even (64 channels a warp, 300 on grid.y slabs), one channel a lane where
+    it is odd. Within the bf16 bound of the plain version; equal bit for bit
+    to the float32 kernel on the upcast inputs rounded once (the same
+    arithmetic in the same order); NaN in masked f rows changes nothing
+    (never read: d f zero there, d x finite); two calls equal; all masked
+    writes zeros."""
+    from distmlip_tpu_torch import kernels as K
+
+    with time_limit(60):
+        g, arrays, ti, tm = _backward_bf16_case(card, c)
+        plan = K.tensornet_interaction_backward_bf16_plan(g, *arrays[:4])
+        assert plan["channels_a_lane"] == (2 if pairs else 1)
+        assert plan["warps_a_row"] == -(-c // (64 if pairs else 32))
+        before = dict(K.launch_counts)
+        got = K.tensornet_interaction_backward_cuda(g, *arrays, ti, tm)
+        torch.cuda.synchronize()
+        launched = {k: K.launch_counts[k] - before[k] for k in before}
+        assert launched == dict({k: 0 for k in launched}, tensornet_interaction_backward_bf16=1)
+        want = K.tensornet_interaction_backward_reference(g, *arrays, ti, tm)
+        bounds = K.tensornet_interaction_backward_error_bound(g, *arrays, ti, tm)
+        for x, y, b in zip(got, want, bounds):
+            assert x.dtype == y.dtype == torch.bfloat16 and x.shape == y.shape
+            assert bool(((x.float() - y.float()).abs() <= b + 1e-30).all())
+        f32 = K.tensornet_interaction_backward_cuda(
+            g.float(), *(x.float() if x.is_floating_point() else x for x in arrays), ti, tm)
+        for x, y in zip(got, f32):
+            assert torch.equal(x, y.bfloat16())
+        nan_f = arrays[0].clone()
+        nan_f[~tm] = float("nan")
+        again = K.tensornet_interaction_backward_cuda(g, nan_f, *arrays[1:], ti, tm)
+        for x, y in zip(again, got):
+            assert torch.equal(x, y)
+        assert not bool(again[0][~tm].any())
+        assert all(bool(torch.isfinite(x.float()).all()) for x in again[1:])
+        none = torch.zeros_like(tm)
+        for x in K.tensornet_interaction_backward_cuda(g, *arrays, ti, none):
+            assert not bool(x.any())
+
+
+@pytest.mark.cuda
+def test_interaction_backward_bf16_misaligned_view_on_card(card):
+    """An f view one element off a 4-byte boundary takes the single-channel
+    path at even C and gives the same bits as the aligned call."""
+    from distmlip_tpu_torch import kernels as K
+
+    with time_limit(60):
+        g, arrays, ti, tm = _backward_bf16_case(card, 64)
+        f = arrays[0]
+        buf = torch.zeros(f.numel() + 1, dtype=torch.bfloat16, device=card)
+        buf[1:] = f.reshape(-1)
+        view = buf[1:].view(f.shape)
+        assert K.tensornet_interaction_backward_bf16_plan(g, view, *arrays[1:4])[
+            "channels_a_lane"] == 1
+        got = K.tensornet_interaction_backward_cuda(g, view, *arrays[1:], ti, tm)
+        for x, y in zip(got, K.tensornet_interaction_backward_cuda(g, *arrays, ti, tm)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mace", "escn", "tensornet"])
+def test_bf16_main_paths_take_the_new_kernels_on_card(card, family):
+    """MACE, eSCN and TensorNet at bf16 through ``DistPotential`` on the
+    card: the launch counts are the float32 paths' (one B1 call per
+    interaction and chunk, twice with remat; TensorNet's backward once a
+    layer), every bf16 B1 call takes the row kernel on 16-byte lanes and
+    every backward the channel-pair path."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import dispatch, edge_aggregate
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    with time_limit(180):
+        atoms = _long_cell()
+        if family == "escn":
+            atoms.info = {"charge": 1, "spin": 2, "dataset": 3}
+        model = _bf16_model(family)
+        pot = DistPotential(model, model.init(0), device=card)
+        paths = []
+        real_sum = dispatch.segment_sum_cuda
+        real_bwd = edge_aggregate.tensornet_interaction_backward_cuda
+
+        def spy_sum(data, *a, **kw):
+            paths.append(("B1", K.segment_sum_bf16_plan(data, a[0] if a else None)["path"]))
+            return real_sum(data, *a, **kw)
+
+        def spy_bwd(g, f, *a, **kw):
+            paths.append(("bwd", K.tensornet_interaction_backward_bf16_plan(g, f, *a[:3])[
+                "path"]))
+            return real_bwd(g, f, *a, **kw)
+
+        before = dict(K.launch_counts)
+        with mock.patch.object(dispatch, "segment_sum_cuda", spy_sum), \
+                mock.patch.object(edge_aggregate, "tensornet_interaction_backward_cuda",
+                                  spy_bwd):
+            pot.calculate(atoms)
+        got = {k: K.launch_counts[k] - before[k] for k in before if K.launch_counts[k] > before[k]}
+        if family == "tensornet":
+            layers = model.cfg.num_layers
+            assert got == {"tensornet_embed_aggregate_bf16": 1,
+                           "tensornet_interaction_aggregate_bf16": layers,
+                           "tensornet_interaction_backward_bf16": layers}
+            assert paths == [("bwd", "channel pairs")] * layers
+            return
+        k = chunk_layout(pot.last_stats["e_cap"], model.cfg.edge_chunk)[2]
+        if family == "mace":
+            want = {"segment_sum_bf16": model.cfg.num_interactions * 2 * k}
+        else:
+            want = {"segment_sum_bf16": (1 + model.cfg.num_layers) * 2 * k,
+                    "so2_conv_bf16": model.cfg.num_layers * 3 * k}
+        assert got == want
+        assert paths == [("B1", ROW_PATH)] * want["segment_sum_bf16"]
