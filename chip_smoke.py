@@ -232,6 +232,7 @@ card, or outside a checkout, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import socket
 import statistics
@@ -458,7 +459,8 @@ def check_edge_aggregate(torch, which, arrays, ids, mask, n):
     triangle's terms from the upper one). bf16 inputs: the bounds' bf16
     form, the plain route's r bf16 roundings of each message entry (r = 6
     embed, 4 interaction) over T, then one bf16 ulp of the result,
-    e + 2^-7 (|y| + e)."""
+    e + 2^-7 (|y| + e); and bit for bit the float32 kernel on the upcast
+    inputs, rounded once (the bf16 kernels' arithmetic and order are its)."""
     from distmlip_tpu_torch import kernels as K
 
     cuda, ref, bound_fn = {
@@ -478,6 +480,11 @@ def check_edge_aggregate(torch, which, arrays, ids, mask, n):
     if not bool((err <= tol + 1e-30).all()) or not bool(torch.isfinite(got).all()):
         raise AssertionError(f"{which} disagrees with its plain version: max |err| "
                              f"{float(err.max())}, max tolerance {float(tol.max())}")
+    if got.dtype == torch.bfloat16:
+        up = [x.float() if x.is_floating_point() else x for x in arrays]
+        if not torch.equal(got, cuda(*up, ids, n, mask).bfloat16()):
+            raise AssertionError(f"bf16 {which} differs from the float32 kernel on the upcast "
+                                 "inputs rounded once")
     return float(err.max()) if err.numel() else 0.0
 
 
@@ -486,7 +493,10 @@ def time_edge_aggregate(torch, which, arrays, ids, mask, n):
     (profiler) and the host µs a call, its plain version's ms, one
     ``index_add_`` of the built message (bf16 upcast to float32
     beforehand: an fp32 accumulation as the kernel's), and the bound at
-    the inputs' element size (index and mask bytes unchanged)."""
+    the inputs' element size (index and mask bytes unchanged). The
+    interaction's line adds its L2 gather (each valid edge's 10 compact
+    words a channel) and the rate the kernel alone draws it at; a bf16
+    call's, the wrapper's host µs by part (``host_split``)."""
     from distmlip_tpu_torch import kernels as K
 
     cuda, ref, message = {
@@ -534,6 +544,13 @@ def time_edge_aggregate(torch, which, arrays, ids, mask, n):
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
     if which == "interaction":
         out["unique_src_rows"] = n_src
+        # every valid edge's 10 compact words a channel, gathered through L2
+        out["l2_gather_bytes"] = n_valid * 10 * c * es
+        if timed.get("kernel_ms"):
+            out["l2_gather_tb_s"] = out["l2_gather_bytes"] / timed["kernel_ms"] / 1e9
+    if half:
+        out["host_split_us"] = host_split(torch, lambda: cuda(*arrays, ids, n, mask),
+                                          TENSORNET_HOST_PARTS)
     return out
 
 
@@ -665,29 +682,44 @@ def phase_edge_aggregate_kernels_bf16(torch):
     """``[kernels] tensornet bf16``: the bf16 embed, interaction and
     interaction backward on the TensorNet path's graph (C = 64) at bf16
     inputs, each against its plain bf16 version within its bound's bf16
-    form, then all masked (every output zero: the plain version's zeros
-    within a bound of 0), the padding-only tail on one dst row, and three
-    small cases (C = 7 with E not a multiple of any block, C = 65 on the
-    backward's single-channel path, C = 300 past one block of threads).
-    The backward's line also prints its plan
-    (``kernels.tensornet_interaction_backward_bf16_plan``) and share of the
-    bound."""
+    form (the forwards also bit for bit against the float32 kernel on the
+    upcast inputs, rounded once), then all masked (every output zero: the
+    plain version's zeros within a bound of 0), the padding-only tail on
+    one dst row, three small cases (C = 7 with E not a multiple of any
+    block, C = 65 on the single-channel paths, C = 300 past one block of
+    threads), the forwards' first input viewed one bf16 element off a
+    4-byte boundary (the single-channel path at C = 64) and two (channel
+    pairs), and NaN in the masked edges' rows. Each timed line also prints
+    its plan (``kernels.tensornet_embed_bf16_plan``,
+    ``tensornet_interaction_bf16_plan``,
+    ``tensornet_interaction_backward_bf16_plan``) and share of the bound;
+    the forwards' the wrapper's host µs by part, the interaction's its L2
+    gather and rate."""
     from distmlip_tpu_torch import kernels as K
     from distmlip_tpu_torch.tools.workload import TENSORNET_KW
 
     gen = torch.Generator(device="cuda").manual_seed(4322)
     ids, src, mask, n = tensornet_graph(torch, TENSORNET_REPS)
     c = TENSORNET_KW["units"]
+    plans = {"embed": K.tensornet_embed_bf16_plan,
+             "interaction": K.tensornet_interaction_bf16_plan}
 
     def bf16(arrays):
         return [x.bfloat16() if x.is_floating_point() else x for x in arrays]
+
+    def view(x, off):
+        """``x`` ``off`` elements into a buffer of its dtype"""
+        buf = torch.zeros(x.numel() + off, dtype=x.dtype, device="cuda")
+        buf[off:] = x.reshape(-1)
+        return buf[off:].view(x.shape)
 
     errs, timed = {}, {}
     for which in ("embed", "interaction"):
         arrays = bf16(edge_inputs(torch, gen, which, ids.shape[0], c, n, src))
         errs[which] = [check_edge_aggregate(torch, which, arrays, ids, mask, n)]
         timed[which] = time_edge_aggregate(torch, which, arrays, ids, mask, n)
-        log(f"[kernels] tensornet bf16 {which}: {json.dumps(timed[which])}")
+        log(f"[kernels] tensornet bf16 {which}: "
+            f"{json.dumps(with_plan(timed[which], plans[which](*arrays[:4], n)))}")
         # all masked: the plain version is zeros and the bound 0
         errs[which].append(check_edge_aggregate(torch, which, arrays, ids,
                                                 torch.zeros_like(mask), n))
@@ -706,7 +738,7 @@ def phase_edge_aggregate_kernels_bf16(torch):
                                                                torch.zeros_like(mask)))
         del arrays
         torch.cuda.empty_cache()
-        for e, rows, cc in ((1003, 300, 7), (90, 13, 300), (517, 45, 65)):
+        for e, rows, cc in ((1003, 300, 7), (90, 13, 300), (517, 45, 65), (2000, 40, 64)):
             sub_ids = torch.sort(torch.randint(0, rows, (e,), generator=gen,
                                                device="cuda"))[0].to(torch.int32)
             sub_mask = torch.rand(e, generator=gen, device="cuda") > 0.1
@@ -714,10 +746,20 @@ def phase_edge_aggregate_kernels_bf16(torch):
             sub_ids[-17:] = sub_ids[-18]
             sub = bf16(edge_inputs(torch, gen, which, e, cc, 37))
             errs[which].append(check_edge_aggregate(torch, which, sub, sub_ids, sub_mask, rows))
-            if which == "interaction":
+            if which == "interaction" and cc != 64:
                 sub_g = torch.randn((rows, 3, 3, cc), generator=gen, device="cuda").bfloat16()
                 errs["backward"].append(check_interaction_backward(torch, sub_g, sub, sub_ids,
                                                                    sub_mask))
+        # the C = 64 case: views off a 4-byte boundary, then NaN in the masked rows
+        for off, lanes in ((1, 1), (2, 2)):
+            moved = [view(sub[0], off)] + sub[1:]
+            if plans[which](*moved[:4], rows)["channels_a_lane"] != lanes:
+                raise AssertionError(f"bf16 {which}: a view {off} off took the wrong path")
+            errs[which].append(check_edge_aggregate(torch, which, moved, sub_ids, sub_mask,
+                                                    rows))
+        for x in (sub[:6] if which == "embed" else sub[:1]):
+            x[~sub_mask] = float("nan")
+        errs[which].append(check_edge_aggregate(torch, which, sub, sub_ids, sub_mask, rows))
     torch.cuda.empty_cache()
     log(f"[kernels] tensornet bf16: all cases agree with the plain bf16 versions; max |err| "
         f"{json.dumps({w: max(v) for w, v in errs.items()})}")
@@ -888,7 +930,8 @@ def time_chgnet(torch, which, arrays, weights, ids, mask, n):
         del f32_arrays
         timed["floors"] = chgnet_floors(torch, which, c, h, n_valid, e, n, rows_per_segment)
         timed["plan"] = K.chgnet_aggregate_plan(c, h, n, e)
-        timed["host_split_us"] = host_split(torch, lambda: cuda(*arrays, weights, ids, n, mask))
+        timed["host_split_us"] = host_split(torch, lambda: cuda(*arrays, weights, ids, n, mask),
+                                         CHGNET_HOST_PARTS)
     return {"which": which, "dtype": str(arrays[4].dtype).split(".")[-1], "e": e,
             "valid_edges": n_valid, "channels": c, "hidden": h, "in_dim": k1,
             "n_segments": n, **timed, "plain_ms": plain_ms,
@@ -922,16 +965,20 @@ def chgnet_floors(torch, which, c, h, n_valid, e, n, rows_per_segment):
             "tensor_core_ms": n_valid * 8 * c * h / H100_BF16_FLOPS * 1e3}
 
 
-def host_split(torch, call, iters=200):
-    """Host µs per call of a CHGNet wrapper (no sync) and of its parts inside
-    ``edge_aggregate._launch_chgnet``: the weight packing, the row
-    projections (their wrappers and launches), the CSR offsets, the C launch
-    of the per-edge kernel; ``checks`` is the rest (the wrappers' checks,
-    the int32 ids, the output's allocation)."""
+def host_split(torch, call, parts, iters=200):
+    """Host µs per call of a kernel wrapper (no sync) and of its parts:
+    each of ``parts`` is (name, attribute of ``kernels.edge_aggregate``,
+    symbol test): the attribute's calls are timed as the part while
+    ``call`` runs, or, with a symbol test, the attribute looks up a C
+    function and the calls of the functions whose symbol passes are timed;
+    ``checks`` is the rest (the wrapper's checks, index casts, the output's
+    allocation). CHGNet's parts (``CHGNET_HOST_PARTS``): the weight
+    packing, the row projections (their wrappers and launches), the CSR
+    offsets and the C launch of the per-edge kernel; TensorNet's
+    (``TENSORNET_HOST_PARTS``): the CSR offsets and the C launch."""
     from distmlip_tpu_torch.kernels import edge_aggregate
 
-    spent = {"packing": 0.0, "projections": 0.0, "csr_offsets": 0.0, "launch": 0.0}
-    chgnet_fn = edge_aggregate._chgnet_fn
+    spent = {name: 0.0 for name, _, _ in parts}
 
     def timed(part, fn):
         def run(*args, **kw):
@@ -941,20 +988,21 @@ def host_split(torch, call, iters=200):
             return out
         return run
 
-    def timed_fn(symbol):
-        fn = chgnet_fn(symbol)
-        return timed("launch", fn) if "_conv_" in symbol else fn
+    def timed_lookup(part, lookup, test):
+        def get(symbol, *args):
+            fn = lookup(symbol, *args)
+            return timed(part, fn) if test(symbol) else fn
+        return get
 
     for _ in range(5):
         call()
     torch.cuda.synchronize()
-    with mock.patch.object(edge_aggregate, "chgnet_pack_weights",
-                           timed("packing", edge_aggregate.chgnet_pack_weights)), \
-            mock.patch.object(edge_aggregate, "chgnet_row_tables",
-                              timed("projections", edge_aggregate.chgnet_row_tables)), \
-            mock.patch.object(edge_aggregate, "csr_row_offsets",
-                              timed("csr_offsets", edge_aggregate.csr_row_offsets)), \
-            mock.patch.object(edge_aggregate, "_chgnet_fn", timed_fn):
+    with contextlib.ExitStack() as stack:
+        for name, attr, test in parts:
+            real = getattr(edge_aggregate, attr)
+            stack.enter_context(mock.patch.object(
+                edge_aggregate, attr,
+                timed(name, real) if test is None else timed_lookup(name, real, test)))
         t0 = time.perf_counter()
         for _ in range(iters):
             call()
@@ -964,6 +1012,14 @@ def host_split(torch, call, iters=200):
     out["checks"] = total / iters * 1e6 - sum(out.values())
     out["total"] = total / iters * 1e6
     return out
+
+
+CHGNET_HOST_PARTS = (("packing", "chgnet_pack_weights", None),
+                     ("projections", "chgnet_row_tables", None),
+                     ("csr_offsets", "csr_row_offsets", None),
+                     ("launch", "_chgnet_fn", lambda symbol: "_conv_" in symbol))
+TENSORNET_HOST_PARTS = (("csr_offsets", "csr_row_offsets", None),
+                        ("launch", "_fn", lambda symbol: True))
 
 
 def projection_inputs(which, arrays, weights):
@@ -3903,6 +3959,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"], "library": t["library"],
             "shape": [t["e"], t["channels"]], "valid_edges": t["valid_edges"],
+            # the forwards: the wrapper's host µs by part, and the
+            # interaction's L2 gather rate (measured in this run)
+            **{k: t[k] for k in ("host_split_us", "l2_gather_tb_s") if k in t},
         })
     for which, name in (("atom", "chgnet_atom_conv_aggregate_bf16"),
                         ("line", "chgnet_line_aggregate_bf16")):

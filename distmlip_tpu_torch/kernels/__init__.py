@@ -10,7 +10,9 @@
   ``tensornet_full`` assembling a 3x3 from them) and
   ``tensornet_interaction_backward_cuda`` (both cotangents in one pass over
   the edges in ``src_order``; its bf16 kernel's plan
-  ``tensornet_interaction_backward_bf16_plan``), the wrappers of
+  ``tensornet_interaction_backward_bf16_plan``; the bf16 forwards' plans
+  ``tensornet_embed_bf16_plan`` and ``tensornet_interaction_bf16_plan``),
+  the wrappers of
   ``csrc/edge_aggregate.cu`` (float32 and bf16, counted under ``*_bf16``), with their
   tolerances ``tensornet_embed_error_bound``,
   ``tensornet_interaction_error_bound`` and
@@ -62,14 +64,15 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              chgnet_row_projection_cuda,
                              chgnet_row_projection_reference, chgnet_row_tables,
                              chgnet_tensor_core_error_bound, src_order, tensornet_embed_aggregate_cuda,
-                             tensornet_embed_aggregate_reference, tensornet_embed_error_bound,
-                             tensornet_full,
+                             tensornet_embed_aggregate_reference, tensornet_embed_bf16_plan,
+                             tensornet_embed_error_bound, tensornet_full,
                              tensornet_interaction_aggregate_cuda,
                              tensornet_interaction_aggregate_reference,
                              tensornet_interaction_backward_bf16_plan,
                              tensornet_interaction_backward_cuda,
                              tensornet_interaction_backward_error_bound,
                              tensornet_interaction_backward_reference,
+                             tensornet_interaction_bf16_plan,
                              tensornet_interaction_error_bound)
 from .segment import (csr_row_offsets, launch_counts,  # noqa: F401
                       segment_sum_bf16_plan, segment_sum_cuda, segment_sum_reference)

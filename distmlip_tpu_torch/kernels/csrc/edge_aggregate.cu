@@ -26,7 +26,7 @@
 // rows (see below): the TPU's (8, 128) tile made the full 3x3 free, but here
 // every gathered float is L2 traffic.
 //
-// Design (all but the bf16 backward, below). One thread owns one (dst row,
+// Design (the float32 kernels; the bf16 ones below). One thread owns one (dst row,
 // channel) and the matrix entries of it, accumulated in registers in edge
 // order: no atomics, deterministic.
 // A block holds 256 / tpr rows of tpr threads (tpr = C rounded up to a warp,
@@ -56,21 +56,23 @@
 //   - every output row is written, empty rows as zeros;
 //   - offsets are 64-bit; src ids of valid edges must lie in [0, N_node).
 //
-// bfloat16: the embed and the interaction are the same two kernels,
-// templated on the storage type T; the backward has a kernel of its own
-// (tensornet_interaction_bwd_kernel_bf16, below). Every load converts to
-// float32 in registers, the arithmetic and its order are the float32
-// kernels', the accumulators are float32, and each output element (a dst
-// row's sum, a d f entry, a src row's d i, d a or d s sum over its
-// src-sorted edges) is rounded to bfloat16 once (round to nearest even).
-// That is the TPU kernel's contract at bf16 data (VMEM blocks in the data's
-// dtype, an fp32 accumulator, the output in the message's dtype:
+// bfloat16: each of the three has a kernel of its own (below the float32
+// ones): a warp owns one (row, slab of 32 CPT channels), CPT = 2 (a channel
+// pair a lane) where C is even and every array the lanes index by channel
+// is 4-byte aligned, else 1; the row's edge indices come 32 at a time, loaded
+// by the warp and passed by shuffles; several edges' rows are loaded before
+// any is used. Every load converts to float32 in registers, the arithmetic
+// and its order are the float32 kernels' (embed_add, interaction_add,
+// backward_terms), the accumulators are float32, and each output element (a
+// dst row's sum, a d f entry, a src row's d i, d a or d s sum over its
+// src-sorted edges) is rounded to bfloat16 once (round to nearest even), so
+// it equals the float32 kernel's on the upcast inputs rounded once, bit for
+// bit. That is the TPU kernel's contract at bf16 data (VMEM blocks in the
+// data's dtype, an fp32 accumulator, the output in the message's dtype:
 // distmlip_tpu/kernels/segment.py:309-317) and, for the backward, the JAX
 // dispatcher's fp32 node-cotangent carry rounded once
-// (distmlip_tpu/kernels/dispatch.py:566-584). The forwards take one bf16
-// load a lane (a warp reads 64 contiguous bytes of a row where float32
-// reads 128); the backward a channel pair a lane (128 bytes a warp). The
-// byte bound halves on the float terms; index and mask bytes stay.
+// (distmlip_tpu/kernels/dispatch.py:566-584). The byte bound halves on the
+// float terms; index and mask bytes stay.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,16 +82,10 @@ namespace {
 
 constexpr int kThreads = 256;
 
-// storage <-> registers: a float32 or bfloat16 element read as float32, a
-// float32 value stored rounded once to the storage type
+// storage <-> registers of the float32 kernels (templated on the storage
+// type; the bf16 kernels below have their own loads)
 __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(__ldg(p));
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 // thread -> (dst row, channel); false for the idle threads of the last block
 // or of a partial channel slab
@@ -674,6 +670,307 @@ tensornet_interaction_bwd_kernel_bf16(
   }
 }
 
+// ---- embed and interaction, forward, bfloat16 -----------------------------
+//
+// The two forwards at bf16 data, kernels of their own. The float32 kernels'
+// bf16 instantiation took one 2-byte load a lane: the same instructions as
+// float32 for half the bytes. Per edge, each thread of the embed issued 22
+// loads (Z, W1, W2, W3 and 18 broadcast loads of the same 36 bytes of A_e
+// and S_e), gated by a mask byte loaded first; each of the interaction a
+// dependent chain mask -> src -> 10 gathered compact words, and 3 loads of f.
+// Issue rate and exposed latency held both (the float32 interaction draws
+// its gathers through L2 at ~6.6 TB/s, the bf16 one at ~2.8).
+//
+// Here a warp owns one (dst row, slab of 32 CPT channels), as the bf16
+// backward does: CPT = 2 (a channel pair a lane, 64 channels a warp) where C
+// is even and every array the lanes index by channel is 4-byte aligned, so
+// each row of Z, W, a compact node row or the output is one 4-byte word a
+// lane (128 bytes a warp) and an f row 6 contiguous bf16 (3 words); CPT = 1
+// (one channel a lane, 2-byte loads) otherwise. Past 32 CPT channels more
+// slabs go on grid.y. A turn takes the row's next 32 edges: the warp loads
+// their mask bytes (and the interaction their src ids) coalesced, one edge a
+// lane, and a ballot gives the valid ones; the src ids reach the lanes by
+// shuffles. A few valid edges (kEmbedBf16InFlight, kInteractionBf16InFlight)
+// have their rows loaded before any is added. The embed's 18 geometric
+// scalars of the turn's 32 edges are two spans of 32 x 9 bf16 at an 18-byte
+// row stride (rows not 4-byte aligned):
+// the warp reads each with 16-byte loads from its aligned-down base, drops
+// the bytes outside the span, and stages the values as float32 in shared
+// memory, 20 floats an edge (16-byte rows), from which every lane reads an
+// edge's 18 by five broadcast 16-byte loads. A turn with no valid edge loads
+// nothing more. Masked edges are never added (nor their Z, W, f or node rows
+// read); the staged scalars of a masked edge are never read.
+//
+// Each channel's sums run over its valid edges in edge order through
+// embed_add / interaction_add on the float32 values, the 3x3 is assembled
+// as the float32 kernel does, and each output is rounded once (a bf16 pair
+// a lane at CPT 2): the float32 kernel's output on the upcast inputs,
+// rounded once, bit for bit.
+//
+// Floors on an H100 at the TensorNet path's graph (E 917,504, ~0.77 M valid
+// edges, C = 64): the embed's bytes, 0.133 ms; the interaction's bytes,
+// 0.103 ms, and its L2 gather of 10 compact rows an edge (0.99 GB a call),
+// ~0.15 ms at the 6.6 TB/s the float32 kernel draws.
+
+// Each kernel's block (warps: dst rows, or slabs, a block), valid edges
+// whose rows are loaded before any is added, and blocks an SM the registers
+// must allow (the register cap: 65,536 / (32 x warps x min blocks) a
+// thread): the embed 4 edges at 80 registers (3 blocks, 24 warps an SM), the
+// interaction 2 edges at 64 (4 blocks, 32 warps). Warps an SM, not edges
+// in flight, led (kernel alone on the H100: PERF.md section 6, PR 19).
+constexpr int kEmbedBf16Warps = 8;
+constexpr int kEmbedBf16InFlight = 4;
+constexpr int kEmbedBf16MinBlocks = 3;
+constexpr int kInteractionBf16Warps = 8;
+constexpr int kInteractionBf16InFlight = 2;
+constexpr int kInteractionBf16MinBlocks = 4;
+constexpr int kGeoStride = 20;  // staged floats an embed edge: A_e's 9, S_e's 9, 2 unused
+
+// CPT bf16 at p as one raw word: a pair (4-byte aligned) or one value in
+// the low half
+template <int CPT>
+__device__ __forceinline__ unsigned load_word(const __nv_bfloat16* p) {
+  if constexpr (CPT == 2) {
+    return load_raw2(p);
+  } else {
+    return __ldg(reinterpret_cast<const unsigned short*>(p));
+  }
+}
+
+// channel cc of a word load_word<CPT> returned, as float32
+__device__ __forceinline__ float word_channel(unsigned w, int cc) {
+  return cc == 0 ? lo_bf16(w) : hi_bf16(w);
+}
+
+// The turn's valid edges among [eb, eb + nb): lane l tests edge eb + l
+__device__ __forceinline__ unsigned turn_ballot(const uint8_t* __restrict__ mask, int64_t eb,
+                                                int nb, int lane) {
+  const bool v = lane < nb && (mask == nullptr || __ldg(mask + eb + lane) != 0);
+  return __ballot_sync(kFull, v);
+}
+
+// The next valid edge of a turn (its lane, -1 when none is left), taken off
+// `valid`; the same for every lane, so edges come in edge order
+__device__ __forceinline__ int next_edge(unsigned& valid) {
+  const int k = __ffs(static_cast<int>(valid)) - 1;
+  valid &= valid - 1;
+  return k;
+}
+
+// Stage the 9 bf16 scalars of the nb edges from eb of x (rows of 9) into
+// geo[k][j0 .. j0 + 8] as float32: 16-byte loads from the span's
+// aligned-down base, a lane a vector, the values outside the span dropped.
+__device__ __forceinline__ void stage_scalars(float (*geo)[kGeoStride],
+                                              const __nv_bfloat16* __restrict__ x, int64_t eb,
+                                              int nb, int lane, int j0) {
+  const uintptr_t start = reinterpret_cast<uintptr_t>(x + eb * 9);
+  const uintptr_t base = start & ~static_cast<uintptr_t>(15);
+  const int lead = static_cast<int>(start - base) / 2;  // values before the span, 0..7
+  const int n = nb * 9;
+  const int vectors = (lead + n + 7) / 8;
+  const uint4* __restrict__ p = reinterpret_cast<const uint4*>(base);
+  for (int v = lane; v < vectors; v += 32) {
+    const uint4 q = __ldg(p + v);
+    const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int t = 8 * v + i - lead;
+      if (t >= 0 && t < n) geo[t / 9][j0 + t % 9] = word_channel(w[i / 2], i % 2);
+    }
+  }
+}
+
+template <int CPT>
+__global__ void __launch_bounds__(32 * kEmbedBf16Warps, kEmbedBf16MinBlocks)
+tensornet_embed_kernel_bf16(const __nv_bfloat16* __restrict__ z,
+                            const __nv_bfloat16* __restrict__ w1,
+                            const __nv_bfloat16* __restrict__ w2,
+                            const __nv_bfloat16* __restrict__ w3,
+                            const __nv_bfloat16* __restrict__ a_e,
+                            const __nv_bfloat16* __restrict__ s_e,
+                            const int64_t* __restrict__ row_ptr,
+                            const uint8_t* __restrict__ mask, __nv_bfloat16* __restrict__ out,
+                            int64_t n_rows, int channels) {
+  __shared__ __align__(16) float stage[kEmbedBf16Warps][32][kGeoStride];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kEmbedBf16Warps + warp;
+  if (row >= n_rows) return;  // whole warps; the stage is the warp's own
+  const int c = (static_cast<int>(blockIdx.y) * 32 + lane) * CPT;  // the lane's first channel
+  const bool on = c < channels;  // CPT 2: C is even, so c + 1 < C too
+  const int64_t ch = channels;
+  float (*geo)[kGeoStride] = stage[warp];
+  const __nv_bfloat16* __restrict__ rows[4] = {z, w1, w2, w3};
+
+  float acc[CPT][9];
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) acc[q][k] = 0.0f;
+  }
+  const int64_t e_end = row_ptr[row + 1];
+  for (int64_t eb = row_ptr[row]; eb < e_end; eb += 32) {
+    const int nb = e_end - eb < 32 ? static_cast<int>(e_end - eb) : 32;
+    unsigned valid = turn_ballot(mask, eb, nb, lane);
+    if (valid == 0) continue;
+    stage_scalars(geo, a_e, eb, nb, lane, 0);
+    stage_scalars(geo, s_e, eb, nb, lane, 9);
+    __syncwarp();
+    while (valid != 0) {
+      int k[kEmbedBf16InFlight];
+      unsigned w[kEmbedBf16InFlight][4];
+#pragma unroll
+      for (int q = 0; q < kEmbedBf16InFlight; ++q) {
+        k[q] = next_edge(valid);
+        if (on && k[q] >= 0) {
+          const int64_t o = (eb + k[q]) * ch + c;
+#pragma unroll
+          for (int r = 0; r < 4; ++r) w[q][r] = load_word<CPT>(rows[r] + o);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kEmbedBf16InFlight; ++q) {
+        if (!(on && k[q] >= 0)) continue;
+        const float4* g = reinterpret_cast<const float4*>(geo[k[q]]);
+        float s[kGeoStride];
+#pragma unroll
+        for (int j = 0; j < kGeoStride / 4; ++j) {
+          const float4 v = g[j];
+          s[4 * j] = v.x;
+          s[4 * j + 1] = v.y;
+          s[4 * j + 2] = v.z;
+          s[4 * j + 3] = v.w;
+        }
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+          EmbedEdge v;
+          v.z = word_channel(w[q][0], cc);
+          v.w1 = word_channel(w[q][1], cc);
+          v.w2 = word_channel(w[q][2], cc);
+          v.w3 = word_channel(w[q][3], cc);
+#pragma unroll
+          for (int j = 0; j < 9; ++j) {
+            v.a[j] = s[j];
+            v.s[j] = s[9 + j];
+          }
+          embed_add(acc[cc], v);
+        }
+      }
+    }
+    __syncwarp();  // every lane has read the stage before the next turn writes it
+  }
+  if (!on) return;
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    float v[CPT];
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) v[q] = acc[q][k];
+    store_channels<CPT>(out + (row * 9 + k) * ch + c, v);
+  }
+}
+
+// one edge's rows for the lane's CPT channels, as raw words: f's 3 CPT
+// contiguous entries (CPT 2: (c, 0..2), (c + 1, 0..2) in 3 words; CPT 1:
+// one a word) and the 10 compact words of its src row (i, a, s)
+struct FwdRows {
+  unsigned f[3], x[10];
+};
+
+template <int CPT>
+__device__ __forceinline__ void interaction_rows_load(
+    FwdRows& r, const __nv_bfloat16* __restrict__ f, const __nv_bfloat16* __restrict__ node_i,
+    const __nv_bfloat16* __restrict__ node_a, const __nv_bfloat16* __restrict__ node_s,
+    int64_t e, int64_t j, int64_t ch, int c) {
+  const __nv_bfloat16* __restrict__ fe = f + (e * ch + c) * 3;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.f[k] = load_word<CPT>(fe + CPT * k);
+  r.x[0] = load_word<CPT>(node_i + j * ch + c);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) r.x[1 + k] = load_word<CPT>(node_a + (j * 3 + k) * ch + c);
+#pragma unroll
+  for (int k = 0; k < 6; ++k) r.x[4 + k] = load_word<CPT>(node_s + (j * 6 + k) * ch + c);
+}
+
+template <int CPT>
+__global__ void __launch_bounds__(32 * kInteractionBf16Warps, kInteractionBf16MinBlocks)
+tensornet_interaction_kernel_bf16(const __nv_bfloat16* __restrict__ f,
+                                  const __nv_bfloat16* __restrict__ node_i,
+                                  const __nv_bfloat16* __restrict__ node_a,
+                                  const __nv_bfloat16* __restrict__ node_s,
+                                  const int32_t* __restrict__ src,
+                                  const int64_t* __restrict__ row_ptr,
+                                  const uint8_t* __restrict__ mask,
+                                  __nv_bfloat16* __restrict__ out, int64_t n_rows,
+                                  int channels) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = static_cast<int64_t>(blockIdx.x) * kInteractionBf16Warps + (threadIdx.x >> 5);
+  if (row >= n_rows) return;  // whole warps; no block barrier
+  const int c = (static_cast<int>(blockIdx.y) * 32 + lane) * CPT;  // the lane's first channel
+  const bool on = c < channels;  // CPT 2: C is even, so c + 1 < C too
+  const int64_t ch = channels;
+
+  float acc[CPT][10];
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) {
+#pragma unroll
+    for (int k = 0; k < 10; ++k) acc[q][k] = 0.0f;
+  }
+  const int64_t e_end = row_ptr[row + 1];
+  for (int64_t eb = row_ptr[row]; eb < e_end; eb += 32) {
+    const int nb = e_end - eb < 32 ? static_cast<int>(e_end - eb) : 32;
+    const int32_t my_src = lane < nb ? __ldg(src + eb + lane) : 0;
+    unsigned valid = turn_ballot(mask, eb, nb, lane);
+    while (valid != 0) {
+      int k[kInteractionBf16InFlight];
+      FwdRows r[kInteractionBf16InFlight];
+#pragma unroll
+      for (int q = 0; q < kInteractionBf16InFlight; ++q) {
+        k[q] = next_edge(valid);
+        const int32_t j = __shfl_sync(kFull, my_src, k[q] < 0 ? 0 : k[q]);
+        if (on && k[q] >= 0) {
+          interaction_rows_load<CPT>(r[q], f, node_i, node_a, node_s, eb + k[q], j, ch, c);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kInteractionBf16InFlight; ++q) {
+        if (!(on && k[q] >= 0)) continue;
+#pragma unroll
+        for (int cc = 0; cc < CPT; ++cc) {
+          InteractionEdge v;
+#pragma unroll
+          for (int kk = 0; kk < 3; ++kk) {
+            // CPT 2: entry kk of channel cc is value 3 cc + kk of the 6
+            v.f[kk] = CPT == 2 ? word_channel(r[q].f[(3 * cc + kk) / 2], (3 * cc + kk) % 2)
+                               : lo_bf16(r[q].f[kk]);
+          }
+#pragma unroll
+          for (int kk = 0; kk < 10; ++kk) v.x[kk] = word_channel(r[q].x[kk], cc);
+          interaction_add(acc[cc], v);
+        }
+      }
+    }
+  }
+  if (!on) return;
+  float full[CPT][9];
+#pragma unroll
+  for (int q = 0; q < CPT; ++q) {
+    const float* a = acc[q];
+    // k = 3 i + j: diagonal i + s_pp, upper a_pq + s_pq, lower s_pq - a_pq
+    const float fq[9] = {a[0] + a[4], a[1] + a[7], a[2] + a[8],
+                         a[7] - a[1], a[0] + a[5], a[3] + a[9],
+                         a[8] - a[2], a[9] - a[3], a[0] + a[6]};
+#pragma unroll
+    for (int k = 0; k < 9; ++k) full[q][k] = fq[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) {
+    float v[CPT];
+#pragma unroll
+    for (int q = 0; q < CPT; ++q) v[q] = full[q][k];
+    store_channels<CPT>(out + (row * 9 + k) * ch + c, v);
+  }
+}
+
 // launch shape: tpr threads per row (channels rounded up to a warp, at most
 // kThreads), kThreads / tpr rows per block, channel slabs on grid.y
 int launch_shape(int64_t n_rows, int channels, dim3& grid, int& tpr) {
@@ -789,6 +1086,99 @@ int launch_interaction_bwd_bf16(const __nv_bfloat16* g, const __nv_bfloat16* f,
                                            static_cast<cudaStream_t>(stream)));
 }
 
+// The bf16 forwards' launch, worked out once from the arrays the lanes
+// index by channel (embed: Z, W1, W2, W3 and the output; interaction: f,
+// the three compact node arrays and the output; A_e and S_e are read from an
+// aligned-down base and do not enter): CPT 2 where C is even and each of
+// them is 4-byte aligned, else 1; ceil(n_rows / 8) blocks of dst rows;
+// grid.y the 32 CPT-channel slabs. The launch takes it and the *_plan C
+// entries report it, so the two cannot differ.
+struct FwdBf16Route {
+  const void* kernel;
+  dim3 grid;
+  int cpt;
+  int64_t slabs;
+  int warps;      // a block
+  int in_flight;  // edges a warp
+};
+
+template <int N>
+cudaError_t fwd_bf16_route(const void* const (&arrays)[N], const void* pairs_kernel,
+                           const void* single_kernel, int warps, int in_flight,
+                           int64_t n_rows, int channels, FwdBf16Route& r) {
+  bool pairs = channels % 2 == 0;
+  for (const void* a : arrays) pairs = pairs && reinterpret_cast<uintptr_t>(a) % 4 == 0;
+  r.cpt = pairs ? 2 : 1;
+  r.kernel = pairs ? pairs_kernel : single_kernel;
+  r.warps = warps;
+  r.in_flight = in_flight;
+  const int64_t blocks = (n_rows + warps - 1) / warps;
+  r.slabs = (channels + 32 * r.cpt - 1) / (32 * r.cpt);
+  if (blocks > 2147483647LL || r.slabs > 65535) return cudaErrorInvalidConfiguration;
+  r.grid = dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(r.slabs));
+  return cudaSuccess;
+}
+
+cudaError_t embed_bf16_route(const void* z, const void* w1, const void* w2, const void* w3,
+                             const void* out, int64_t n_rows, int channels, FwdBf16Route& r) {
+  const void* const arrays[5] = {z, w1, w2, w3, out};
+  return fwd_bf16_route(arrays, reinterpret_cast<const void*>(tensornet_embed_kernel_bf16<2>),
+                        reinterpret_cast<const void*>(tensornet_embed_kernel_bf16<1>),
+                        kEmbedBf16Warps, kEmbedBf16InFlight, n_rows, channels, r);
+}
+
+cudaError_t interaction_bf16_route(const void* f, const void* node_i, const void* node_a,
+                                   const void* node_s, const void* out, int64_t n_rows,
+                                   int channels, FwdBf16Route& r) {
+  const void* const arrays[5] = {f, node_i, node_a, node_s, out};
+  return fwd_bf16_route(arrays,
+                        reinterpret_cast<const void*>(tensornet_interaction_kernel_bf16<2>),
+                        reinterpret_cast<const void*>(tensornet_interaction_kernel_bf16<1>),
+                        kInteractionBf16Warps, kInteractionBf16InFlight, n_rows, channels, r);
+}
+
+int launch_embed_bf16(const __nv_bfloat16* z, const __nv_bfloat16* w1, const __nv_bfloat16* w2,
+                      const __nv_bfloat16* w3, const __nv_bfloat16* a_e,
+                      const __nv_bfloat16* s_e, const int64_t* row_ptr, const uint8_t* mask,
+                      __nv_bfloat16* out, int64_t n_rows, int channels, void* stream) {
+  if (n_rows <= 0 || channels <= 0) return 0;
+  FwdBf16Route r;
+  const cudaError_t err = embed_bf16_route(z, w1, w2, w3, out, n_rows, channels, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&z, &w1, &w2, &w3, &a_e, &s_e, &row_ptr, &mask, &out, &n_rows, &channels};
+  return static_cast<int>(cudaLaunchKernel(r.kernel, r.grid, dim3(32 * r.warps), args, 0,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+int launch_interaction_bf16(const __nv_bfloat16* f, const __nv_bfloat16* node_i,
+                            const __nv_bfloat16* node_a, const __nv_bfloat16* node_s,
+                            const int32_t* src, const int64_t* row_ptr, const uint8_t* mask,
+                            __nv_bfloat16* out, int64_t n_rows, int channels, void* stream) {
+  if (n_rows <= 0 || channels <= 0) return 0;
+  FwdBf16Route r;
+  const cudaError_t err = interaction_bf16_route(f, node_i, node_a, node_s, out, n_rows,
+                                                 channels, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  void* args[] = {&f, &node_i, &node_a, &node_s, &src, &row_ptr, &mask, &out, &n_rows,
+                  &channels};
+  return static_cast<int>(cudaLaunchKernel(r.kernel, r.grid, dim3(32 * r.warps), args, 0,
+                                           static_cast<cudaStream_t>(stream)));
+}
+
+// plan[0] channels a lane (2: pairs, 1: the single-channel path), [1]
+// channels a warp, [2] warps a dst row (the slabs), [3] edges in flight a
+// warp, [4] edge indices loaded a warp turn, [5] warps a block, [6]
+// registers a thread of the kernel, [7] blocks (grid.x), [8] static shared
+// bytes a block
+cudaError_t fwd_bf16_plan(const FwdBf16Route& r, int64_t* plan) {
+  cudaFuncAttributes attr{};
+  const cudaError_t err = cudaFuncGetAttributes(&attr, r.kernel);
+  const int64_t p[9] = {r.cpt, 32 * r.cpt, r.slabs, r.in_flight, 32, r.warps,
+                        attr.numRegs, r.grid.x, static_cast<int64_t>(attr.sharedSizeBytes)};
+  for (int k = 0; k < 9; ++k) plan[k] = p[k];
+  return err;
+}
+
 }  // namespace
 
 // The C interface: each function in float32 (_f32) and bfloat16 (_bf16,
@@ -811,7 +1201,8 @@ extern "C" int distmlip_tensornet_embed_bf16(
     const __nv_bfloat16* w3, const __nv_bfloat16* a_e, const __nv_bfloat16* s_e,
     const int64_t* row_ptr, const uint8_t* mask, __nv_bfloat16* out, int64_t n_rows,
     int channels, void* stream) {
-  return launch_embed(z, w1, w2, w3, a_e, s_e, row_ptr, mask, out, n_rows, channels, stream);
+  return launch_embed_bf16(z, w1, w2, w3, a_e, s_e, row_ptr, mask, out, n_rows, channels,
+                           stream);
 }
 
 // f (E, C, 3); node_i (N_node, C), node_a (N_node, 3, C), node_s
@@ -831,8 +1222,8 @@ extern "C" int distmlip_tensornet_interaction_bf16(
     const __nv_bfloat16* node_s, const int32_t* src, const int64_t* row_ptr,
     const uint8_t* mask, __nv_bfloat16* out, int64_t n_rows, int channels,
     void* stream) {
-  return launch_interaction(f, node_i, node_a, node_s, src, row_ptr, mask, out, n_rows,
-                            channels, stream);
+  return launch_interaction_bf16(f, node_i, node_a, node_s, src, row_ptr, mask, out, n_rows,
+                                 channels, stream);
 }
 
 // g (n_dst, 9, C); f (E, C, 3); node_i, node_a, node_s as above (n_rows
@@ -882,4 +1273,35 @@ extern "C" int distmlip_tensornet_interaction_bwd_bf16_plan(
                         attr.numRegs};
   for (int k = 0; k < 7; ++k) plan[k] = p[k];
   return static_cast<int>(err);
+}
+
+// The plans distmlip_tensornet_embed_bf16 and distmlip_tensornet_interaction_bf16
+// take for `channels` and n_rows dst rows with their arrays at the given
+// addresses (out null: a fresh allocation, aligned), from the launch's own
+// route: plan[0] channels a lane (2: pairs, 1: the single-channel path), [1]
+// channels a warp, [2] warps a dst row (the slabs), [3] edges in flight a
+// warp, [4] edge indices loaded a warp turn, [5] warps a block, [6]
+// registers a thread of the kernel, [7] blocks of dst rows, [8] static
+// shared bytes a block (the embed's staged scalars). Returns a cudaError_t.
+extern "C" int distmlip_tensornet_embed_bf16_plan(
+    const __nv_bfloat16* z, const __nv_bfloat16* w1, const __nv_bfloat16* w2,
+    const __nv_bfloat16* w3, const __nv_bfloat16* out, int64_t n_rows, int channels,
+    int64_t* plan) {
+  if (channels <= 0 || n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  FwdBf16Route r;
+  const cudaError_t err = embed_bf16_route(z, w1, w2, w3, out, n_rows, channels, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(fwd_bf16_plan(r, plan));
+}
+
+extern "C" int distmlip_tensornet_interaction_bf16_plan(
+    const __nv_bfloat16* f, const __nv_bfloat16* node_i, const __nv_bfloat16* node_a,
+    const __nv_bfloat16* node_s, const __nv_bfloat16* out, int64_t n_rows, int channels,
+    int64_t* plan) {
+  if (channels <= 0 || n_rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  FwdBf16Route r;
+  const cudaError_t err = interaction_bf16_route(f, node_i, node_a, node_s, out, n_rows,
+                                                 channels, r);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(fwd_bf16_plan(r, plan));
 }

@@ -29,10 +29,13 @@ kernel, in ``csrc/edge_aggregate.cu`` (TensorNet) and
 All sum the message onto the dst-sorted rows under the validity mask:
 ``(num_segments, 3, 3, C)`` for TensorNet, ``(num_segments, C)`` for
 CHGNet. Every kernel also takes bfloat16 (every float tensor of a call one
-dtype; a mix raises): a second instantiation of the same kernel that reads
-bf16, computes and accumulates in fp32 and rounds each output element
-once, counted apart (``*_bf16`` launch counts); the messages' ``bf16``
-field says that their kernels take it. CHGNet's bf16 kernels are their
+dtype; a mix raises): a bf16 kernel of its own that reads bf16, computes
+and accumulates in fp32 and rounds each output element once, counted
+apart (``*_bf16`` launch counts); the messages' ``bf16`` field says that
+their kernels take it. TensorNet's bf16 kernels (a warp a row, a channel
+pair a lane; ``tensornet_*_bf16_plan`` reports a call's route) add in the
+float32 kernels' order, so their outputs are the float32 kernels' on the
+upcast inputs, rounded once. CHGNet's bf16 kernels are their
 own tensor-core kernels: the row projection multiplies bf16 node rows by
 the bf16 packed blocks and writes its tables in float32; the per-edge
 kernels take the edge segment's layer 1 and layer 2 as bf16 products with
@@ -894,6 +897,55 @@ def tensornet_interaction_backward_bf16_plan(g, f, node_i, node_a, node_s):
     out = dict(zip(keys, plan))
     out["path"] = "channel pairs" if out["channels_a_lane"] == 2 else "single channels"
     return out
+
+
+_FWD_PLAN_KEYS = ("channels_a_lane", "channels_a_warp", "warps_a_row", "edges_in_flight",
+                  "indices_a_turn", "warps_a_block", "registers", "blocks", "shared_bytes")
+
+
+def _forward_bf16_plan(name, symbol, arrays, num_segments):
+    """The plan of a bf16 forward's launch from the kernel library's route
+    for ``arrays`` (the four the lanes index by channel; the output a fresh
+    allocation, aligned) and ``num_segments`` dst rows."""
+    x = arrays[0]
+    if not (isinstance(x, torch.Tensor) and x.is_cuda and x.dtype == torch.bfloat16):
+        raise ValueError(f"{name} takes bf16 CUDA tensors")
+    from .build import load
+
+    fn = getattr(load("edge_aggregate"), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = [_P] * 5 + [_I64, _I, _P]
+    plan = (ctypes.c_int64 * len(_FWD_PLAN_KEYS))()
+    err = fn(*(a.data_ptr() for a in arrays), None, max(int(num_segments), 1), x.shape[1],
+             plan)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: cudaError_t {err}")
+    out = dict(zip(_FWD_PLAN_KEYS, plan))
+    out["path"] = "channel pairs" if out["channels_a_lane"] == 2 else "single channels"
+    return out
+
+
+def tensornet_embed_bf16_plan(zij, w1, w2, w3, num_segments: int = 1):
+    """The plan ``tensornet_embed_aggregate_cuda`` takes for bf16 inputs on
+    the card (its output allocated fresh, as the wrapper does), from the
+    kernel library's own routing (the launch's): channels a lane (2 where C
+    is even and Z, W1, W2, W3 are 4-byte aligned, else 1), channels a warp,
+    warps a dst row, edges in flight a warp, edge indices loaded a warp
+    turn, warps a block, the kernel's registers a thread, blocks for
+    ``num_segments`` dst rows and the static shared bytes a block (the
+    staged geometric scalars)."""
+    return _forward_bf16_plan("tensornet_embed_bf16_plan", "distmlip_tensornet_embed_bf16_plan",
+                              (zij, w1, w2, w3), num_segments)
+
+
+def tensornet_interaction_bf16_plan(f, node_i, node_a, node_s, num_segments: int = 1):
+    """The plan ``tensornet_interaction_aggregate_cuda`` takes for bf16
+    inputs on the card, as ``tensornet_embed_bf16_plan`` reports it: channel
+    pairs where C is even and f and the compact node rows are 4-byte
+    aligned, else single channels; no shared memory."""
+    return _forward_bf16_plan("tensornet_interaction_bf16_plan",
+                              "distmlip_tensornet_interaction_bf16_plan",
+                              (f, node_i, node_a, node_s), num_segments)
 
 
 def _check_gated_weights(name, weights, k1, channels, device, dtype=torch.float32):

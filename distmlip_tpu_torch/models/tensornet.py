@@ -28,8 +28,8 @@ features, messages and GEMMs run in bf16 (the parameters cast but for
 geometry (``vec``, ``d``) stays in the positions' dtype and is cast after
 use (``rhat``, ``env``, ``rbf``); the invariants are cast back to the
 positions' dtype before the readout stack. Both edge aggregations and the
-interaction's backward launch their kernels' bf16 instantiations on the
-card (fp32 accumulation, one rounding); the per-edge gathers of the
+interaction's backward launch their bf16 kernels on the card (fp32
+accumulation, one rounding); the per-edge gathers of the
 species rows accumulate their gradient in fp32 (``ops.nn.gather_rows``);
 the 3x3 products, an einsum in the JAX package, take their sums in fp32
 and round once.

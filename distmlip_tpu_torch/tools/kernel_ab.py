@@ -48,9 +48,10 @@ its real ids and masks; random rows and weights at C = H = 64), float32
 and bf16: ``ms``, ``kernel_ms`` (the per-edge kernel alone), ``host_us``.
 The TensorNet embed, interaction and interaction backward at the TensorNet
 path's graph (16,384 atoms, its real ids, src ids and mask; random inputs
-at C = 64), float32 and bf16; the backward through its wrapper (the src
+at C = 64), float32 and bf16, each bf16 row with the checkout's ``plan``
+where it has one; the backward through its wrapper (the src
 sort and CSR offsets included) and as its C launch alone on the sorted
-edges (``no_sort_ms``), with ``bound_ms`` and the bf16 ``plan``.
+edges (``no_sort_ms``), with ``bound_ms``.
 Every row of the ``segment_sum`` and ``tensornet`` groups prints
 ``digest``, the sha256 of its output bytes on the fixed-seed inputs, so two
 checkouts' outputs compare bit for bit.
@@ -364,6 +365,9 @@ def time_tensornet(torch, gen):
             row = {"kernel": f"tensornet_{which}", "dtype": tag, "e": ids.shape[0],
                    "valid": int(mask.sum()), "channels": c,
                    "digest": digest(cuda(*xs, ids, n, mask))}
+            plan = getattr(K, f"tensornet_{which}_bf16_plan", None)
+            if dtype == torch.bfloat16 and plan is not None:
+                row["plan"] = plan(*xs[:4], n)
             row.update(split(torch, lambda: cuda(*xs, ids, n, mask),
                              f"tensornet_{which}_kernel"))
             rows.append(row)

@@ -2562,7 +2562,7 @@ def test_bf16_main_paths_take_the_new_kernels_on_card(card, family):
     card: the launch counts are the float32 paths' (one B1 call per
     interaction and chunk, twice with remat; TensorNet's backward once a
     layer), every bf16 B1 call takes the row kernel on 16-byte lanes and
-    every backward the channel-pair path."""
+    TensorNet's embed, interactions and backward the channel-pair path."""
     from distmlip_tpu_torch import kernels as K
     from distmlip_tpu_torch.calculators import DistPotential
     from distmlip_tpu_torch.kernels import dispatch, edge_aggregate
@@ -2587,10 +2587,22 @@ def test_bf16_main_paths_take_the_new_kernels_on_card(card, family):
                 "path"]))
             return real_bwd(g, f, *a, **kw)
 
+        def spy_forward(which, real, plan):
+            def spy(*a, **kw):
+                paths.append((which, plan(*a[:4])["path"]))
+                return real(*a, **kw)
+            return spy
+
+        forwards = {name: spy_forward(which, getattr(edge_aggregate, name), plan)
+                    for which, name, plan in (
+                        ("embed", "tensornet_embed_aggregate_cuda", K.tensornet_embed_bf16_plan),
+                        ("interaction", "tensornet_interaction_aggregate_cuda",
+                         K.tensornet_interaction_bf16_plan))}
         before = dict(K.launch_counts)
         with mock.patch.object(dispatch, "segment_sum_cuda", spy_sum), \
                 mock.patch.object(edge_aggregate, "tensornet_interaction_backward_cuda",
-                                  spy_bwd):
+                                  spy_bwd), \
+                mock.patch.multiple(edge_aggregate, **forwards):
             pot.calculate(atoms)
         got = {k: K.launch_counts[k] - before[k] for k in before if K.launch_counts[k] > before[k]}
         if family == "tensornet":
@@ -2598,7 +2610,9 @@ def test_bf16_main_paths_take_the_new_kernels_on_card(card, family):
             assert got == {"tensornet_embed_aggregate_bf16": 1,
                            "tensornet_interaction_aggregate_bf16": layers,
                            "tensornet_interaction_backward_bf16": layers}
-            assert paths == [("bwd", "channel pairs")] * layers
+            assert sorted(paths) == sorted([("bwd", "channel pairs")] * layers
+                                           + [("embed", "channel pairs")]
+                                           + [("interaction", "channel pairs")] * layers)
             return
         k = chunk_layout(pot.last_stats["e_cap"], model.cfg.edge_chunk)[2]
         if family == "mace":
@@ -2608,3 +2622,156 @@ def test_bf16_main_paths_take_the_new_kernels_on_card(card, family):
                     "so2_conv_bf16": model.cfg.num_layers * 3 * k}
         assert got == want
         assert paths == [("B1", ROW_PATH)] * want["segment_sum_bf16"]
+
+
+# ---------------------------------------------------------------------------
+# bfloat16: TensorNet's embed and interaction forwards (a warp a dst row, a
+# channel pair a lane, edge indices and masks loaded by the warp)
+# ---------------------------------------------------------------------------
+
+FORWARDS = {"embed": ("tensornet_embed_aggregate", "tensornet_embed_bf16_plan"),
+            "interaction": ("tensornet_interaction_aggregate", "tensornet_interaction_bf16_plan")}
+
+
+def _forward_bf16_case(card, which, c, seed=0, e=3000, n=40, pad=100, masked=50, hi=None):
+    """A bf16 forward case: ~e / n edges a dst row (several turns of 32 edge
+    indices), dst-sorted ids with a padded tail and masked interior edges;
+    the inputs drawn in float32 and rounded to bf16 once."""
+    ids, mask, n = sorted_case(170 + seed, e, n, pad, masked, hi)
+    draw = embed_inputs if which == "embed" else (
+        lambda s, ee, cc: interaction_inputs(s, ee, 23, cc))
+    to = lambda x: torch.from_numpy(x).to(card)  # noqa: E731
+    arrays = [to(x).bfloat16() if x.dtype == np.float32 else to(x)
+              for x in draw(170 + seed, len(ids), c)]
+    return arrays, to(ids), to(mask), n
+
+
+def _forward_bf16_call(which, arrays, ti, n, tm):
+    """One bf16 forward call; checks that it launched its bf16 kernel once
+    and nothing else."""
+    from distmlip_tpu_torch import kernels as K
+
+    count = FORWARDS[which][0]
+    cuda = getattr(K, count + "_cuda")
+    before = dict(K.launch_counts)
+    got = cuda(*arrays, ti, n, tm)
+    torch.cuda.synchronize()
+    launched = {k: K.launch_counts[k] - before[k] for k in before}
+    assert launched == dict({k: 0 for k in launched}, **{count + "_bf16": 1})
+    return got
+
+
+def _forward_float32_bits(which, arrays, ti, n, tm):
+    """The float32 kernel on the upcast inputs, rounded once to bf16."""
+    from distmlip_tpu_torch import kernels as K
+
+    cuda = getattr(K, FORWARDS[which][0] + "_cuda")
+    up = [x.float() if x.is_floating_point() else x for x in arrays]
+    return cuda(*up, ti, n, tm).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,pairs", [(7, False), (64, True), (65, False), (300, True)])
+@pytest.mark.parametrize("which", ["embed", "interaction"])
+def test_tensornet_forward_bf16_channels_on_card(card, which, c, pairs):
+    """The bf16 embed and interaction at C = 7, 64, 65, 300: channel pairs
+    where C is even (64 channels a warp, 300 on grid.y slabs), one channel a
+    lane where it is odd, as the plan reports. Bit for bit the float32
+    kernel on the upcast inputs rounded once (the same arithmetic in the same
+    order); within the bf16 bound of the plain version; the ten empty dst
+    rows (ids in [0, 30) of 40) are zeros; NaN in the masked edges' rows changes nothing (never read); two
+    calls equal; all masked gives zeros."""
+    from distmlip_tpu_torch import kernels as K
+
+    with time_limit(60):
+        arrays, ti, tm, n = _forward_bf16_case(card, which, c, seed=c, hi=30)
+        plan = getattr(K, FORWARDS[which][1])(*arrays[:4], n)
+        assert plan["channels_a_lane"] == (2 if pairs else 1)
+        assert plan["channels_a_warp"] == 32 * plan["channels_a_lane"]
+        assert plan["warps_a_row"] == -(-c // (64 if pairs else 32))
+        assert plan["blocks"] == -(-n // plan["warps_a_block"])
+        assert plan["path"] == ("channel pairs" if pairs else "single channels")
+        got = _forward_bf16_call(which, arrays, ti, n, tm)
+        assert got.dtype == torch.bfloat16 and got.shape == (n, 3, 3, c)
+        assert torch.equal(got, _forward_float32_bits(which, arrays, ti, n, tm))
+        ref = getattr(K, FORWARDS[which][0] + "_reference")(*arrays, ti, n, tm)
+        bound = getattr(K, {"embed": "tensornet_embed_error_bound",
+                            "interaction": "tensornet_interaction_error_bound"}[which])(
+            *arrays, ti, n, tm)
+        assert bool(((got.float() - ref.float()).abs() <= bound + 1e-30).all())
+        empty = torch.ones(n, dtype=torch.bool, device=card)
+        empty[ti[tm].long()] = False
+        assert bool(empty.any()) and not bool(got[empty].any())
+        nan = [x.clone() if x.is_floating_point() else x for x in arrays]
+        for x in (nan[:4] + nan[4:6]) if which == "embed" else nan[:1]:
+            x[~tm] = float("nan")
+        assert torch.equal(_forward_bf16_call(which, nan, ti, n, tm), got)
+        assert torch.equal(_forward_bf16_call(which, arrays, ti, n, tm), got)
+        none = _forward_bf16_call(which, arrays, ti, n, torch.zeros_like(tm))
+        assert not bool(none.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,pairs", [(1, False), (2, True)])
+@pytest.mark.parametrize("which", ["embed", "interaction"])
+def test_tensornet_forward_bf16_views_on_card(card, which, offset, pairs):
+    """A first input viewed ``offset`` bf16 elements into its buffer: one
+    element off a 4-byte boundary takes the single-channel path at even C,
+    two keep channel pairs; both give the aligned call's bits. The embed's
+    A_e and S_e viewed 1 and 3 elements off (read from an aligned-down base)
+    keep the route and the bits."""
+    from distmlip_tpu_torch import kernels as K
+
+    def view(x, off):
+        buf = torch.zeros(x.numel() + off, dtype=x.dtype, device=card)
+        buf[off:] = x.reshape(-1)
+        return buf[off:].view(x.shape)
+
+    with time_limit(60):
+        arrays, ti, tm, n = _forward_bf16_case(card, which, 64, seed=offset)
+        want = _forward_bf16_call(which, arrays, ti, n, tm)
+        moved = [view(arrays[0], offset)] + arrays[1:]
+        plan = getattr(K, FORWARDS[which][1])(*moved[:4], n)
+        assert plan["channels_a_lane"] == (2 if pairs else 1)
+        assert torch.equal(_forward_bf16_call(which, moved, ti, n, tm), want)
+        if which == "embed":
+            geo = arrays[:4] + [view(arrays[4], 1), view(arrays[5], 3)]
+            assert getattr(K, FORWARDS[which][1])(*geo[:4], n)[
+                "channels_a_lane"] == 2
+            assert torch.equal(_forward_bf16_call(which, geo, ti, n, tm), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["embed", "interaction"])
+def test_tensornet_forward_bf16_long_rows_on_card(card, which):
+    """Rows of thousands of edges (hundreds of turns of 32) broken by masked
+    stretches longer than a turn, at C = 64 and 300: bit for bit the float32
+    kernel on the upcast inputs rounded once."""
+    with time_limit(120):
+        for c in (64, 300):
+            arrays, ti, tm, n = _forward_bf16_case(card, which, c, seed=7, e=9000, n=3,
+                                                   pad=40, masked=0)
+            rows = ti.cpu().numpy()
+            first = np.nonzero(rows == 1)[0]
+            stretch = torch.zeros_like(tm)
+            stretch[int(first[100]):int(first[100]) + 500] = True  # 500 masked edges in row 1
+            tm = tm & ~stretch
+            got = _forward_bf16_call(which, arrays, ti, n, tm)
+            assert torch.equal(got, _forward_float32_bits(which, arrays, ti, n, tm))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["embed", "interaction"])
+def test_tensornet_forward_bf16_padding_only_tail_on_card(card, which):
+    """Every edge on the last dst row: all masked gives zeros (the clamped
+    CSR offsets walk nothing); its last five valid, their sum on that row
+    only, bit for bit the float32 kernel's rounded once."""
+    with time_limit(60):
+        arrays, ti, tm, n = _forward_bf16_case(card, which, 64, seed=9, e=4000, n=50)
+        one_row = torch.full_like(ti, n - 1)
+        none = torch.zeros_like(tm)
+        assert not bool(_forward_bf16_call(which, arrays, one_row, n, none).any())
+        last5 = torch.arange(len(ti), device=card) >= len(ti) - 5
+        got = _forward_bf16_call(which, arrays, one_row, n, last5)
+        assert torch.equal(got, _forward_float32_bits(which, arrays, one_row, n, last5))
+        assert not bool(got[:-1].any()) and bool(got[-1].any())
