@@ -225,6 +225,26 @@ Phases (each failure raises, so the exit code is non-zero):
    widths bf16 itself is 0.5% in energy and ~14% in max force from float32
    on the card, PERF.md §6).
 
+13. pretrained-weight ingestion and the UMA family: ``[kernels] segment_sum
+   escn_md`` (B1 at ESCNMD's edge-scan rows, (32768, 9, 128) at the UMA-S
+   widths, float32 and bf16, on one chunk's ids at the UMA graph's mean
+   edges a dst row, with the columns of phase 3); ``[uma]`` (ESCNMD at the
+   widths of fairchem's published UMA-S backbone, ``tools/workload.py``
+   ``UMA_KW``: 128 sphere channels, lmax = mmax = 2, 4 layers, 32 experts,
+   cutoff 6 Å; a synthetic fairchem-named state dict from
+   ``tests/torch_upstream_dicts.py`` converted by ``models/convert.py``'s
+   ``from_torch`` with zero unmapped tensors) through
+   ``UMAPredictor(task_name="omat")`` with charge 1 and spin 1 on the
+   2048-atom crystal: ``drive``'s 4 calculates, B1's launches against
+   (1 + num_layers) x 2K per calculate, step ms, peak, e_cap and K, and
+   ``kernels=False`` within the float32 bar; ``[uma-bf16]`` the same at
+   bf16 within the bf16 bars below, against its plain route and
+   ``[uma]``'s float32 results; ``[convert]`` (the MACE-MP-0-medium,
+   TensorNet-MatPES and CHGNet-MPtrj synthetic dicts converted with zero
+   unmapped tensors, each evaluated once on the 256-atom crystal with its
+   launches derived per calculate, against ``kernels=False`` at the float32
+   bar). Each logs its seconds.
+
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
 card, or outside a checkout, it exits non-zero and prints no result.
@@ -1517,9 +1537,10 @@ def check_result(res, n_atoms):
         raise AssertionError("non-finite or misshapen magmoms")
 
 
-def drive(torch, pot, atoms, rng):
-    """One calculate plus STEPS MD-like moves through ``pot``, with every
-    launch count, and the chunk counts of the edge aggregations' plain
+def drive(torch, pot, atoms, rng, calculate=None):
+    """One calculate plus STEPS MD-like moves through ``pot`` (or through
+    ``calculate``, an entry point over it such as ``UMAPredictor``'s), with
+    every launch count, and the chunk counts of the edge aggregations' plain
     backward (``kernels.recompute_chunks``), set to 0 just before; the
     launches are read just after. Returns the geometries, results, per-step
     seconds, launches and peak memory."""
@@ -1536,7 +1557,7 @@ def drive(torch, pot, atoms, rng):
             atoms.positions += rng.normal(0, 0.01, atoms.positions.shape)
         geometries.append(atoms.positions.copy())
         t = time.perf_counter()
-        res = pot.calculate(atoms)
+        res = (calculate or pot.calculate)(atoms)
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t)
         results.append(res)
@@ -1892,6 +1913,41 @@ def phase_escn(torch):
     return launches
 
 
+def result_deltas(n, a_list, b_list):
+    """The worst of each difference of results ``a_list`` from ``b_list``
+    (one per geometry) on ``n`` atoms: dE per atom, rel dE, and max |dF|,
+    |dS| (and |dm|) over the largest of ``b``'s."""
+    import numpy as np
+
+    pairs = list(zip(a_list, b_list))
+    d = {"dE_per_atom": max(abs(a["energy"] - b["energy"]) / n for a, b in pairs),
+         "rel_dE": max(abs(a["energy"] - b["energy"]) / abs(b["energy"]) for a, b in pairs),
+         "dF_rel": max(float(np.abs(a["forces"] - b["forces"]).max()
+                             / np.abs(b["forces"]).max()) for a, b in pairs),
+         "dS_rel": max(float(np.abs(a["stress"] - b["stress"]).max()
+                             / np.abs(b["stress"]).max()) for a, b in pairs)}
+    if "magmoms" in b_list[0]:
+        d["dm_rel"] = max(float(np.abs(a["magmoms"] - b["magmoms"]).max()
+                                / np.abs(b["magmoms"]).max()) for a, b in pairs)
+    return d
+
+
+def bf16_within_bars(tag, vs_plain, vs32, plain_vs32):
+    """The bf16 bars (module docstring, phase 12): both routes within rel dE
+    < 2e-2 and max |dF| < 0.3 max |F| of float32, the kernels' route within
+    rel dE < 1e-3 and max |dF| < 0.1 max |F| (max |dm| < 0.05 max |m|) of
+    the plain one and no further from float32 than it (x 1.25 + 0.005)."""
+    if not (vs32["rel_dE"] < 2e-2 and vs32["dF_rel"] < 0.3
+            and plain_vs32["rel_dE"] < 2e-2 and plain_vs32["dF_rel"] < 0.3):
+        raise AssertionError(f"[{tag}] bf16 departs from the port's float32 past bf16's "
+                             f"noise: kernels {vs32}, plain {plain_vs32}")
+    if not (vs_plain["rel_dE"] < 1e-3 and vs_plain["dF_rel"] < 0.1
+            and vs_plain.get("dm_rel", 0.0) < 0.05
+            and vs32["dF_rel"] <= 1.25 * plain_vs32["dF_rel"] + 0.005):
+        raise AssertionError(f"[{tag}] the bf16 kernels' route departs from the plain "
+                             f"route: {vs_plain}; from float32 {vs32} against {plain_vs32}")
+
+
 def phase_main_bf16(torch, family):
     """``[main-bf16]`` (MACE at MACE_BF16_KW, bench.py's configuration) or
     ``[main-escn-bf16]`` (eSCN at ESCN_BF16_KW, example 05's, with ESCN_INFO)
@@ -1908,8 +1964,6 @@ def phase_main_bf16(torch, family):
     kernels' route within rel dE < 1e-3 and max |dF| < 0.1 max |F| (and max
     |dm| < 0.05 max |m|) of the plain one and no further from float32 than
     it (x 1.25 + 0.005 max |F|); step ms and peak beside float32's."""
-    import numpy as np
-
     from distmlip_tpu_torch.calculators import DistPotential
     from distmlip_tpu_torch.kernels import launch_counts, recompute_chunks
     from distmlip_tpu_torch.kernels.dispatch import DEFAULT_BWD_CHUNK
@@ -1998,22 +2052,6 @@ def phase_main_bf16(torch, family):
             secs.append(time.perf_counter() - t)
         return res, secs, torch.cuda.max_memory_allocated()
 
-    def deltas(a_list, b_list):
-        n = len(atoms)
-        d = {"dE_per_atom": max(abs(a["energy"] - b["energy"]) / n
-                                for a, b in zip(a_list, b_list)),
-             "rel_dE": max(abs(a["energy"] - b["energy"]) / abs(b["energy"])
-                           for a, b in zip(a_list, b_list)),
-             "dF_rel": max(float(np.abs(a["forces"] - b["forces"]).max()
-                                 / np.abs(b["forces"]).max()) for a, b in zip(a_list, b_list)),
-             "dS_rel": max(float(np.abs(a["stress"] - b["stress"]).max()
-                                 / np.abs(b["stress"]).max()) for a, b in zip(a_list, b_list))}
-        if "magmoms" in b_list[0]:
-            d["dm_rel"] = max(float(np.abs(a["magmoms"] - b["magmoms"]).max()
-                                    / np.abs(b["magmoms"]).max())
-                              for a, b in zip(a_list, b_list))
-        return d
-
     before = dict(launch_counts)
     plain, ref_step_s, ref_peak = run(DistPotential(model, params, device="cuda", skin=0.5,
                                                     kernels=False, **pot_kw))
@@ -2025,7 +2063,9 @@ def phase_main_bf16(torch, family):
     # at other ulps where they straddle a rounding boundary, and the model
     # carries those flips on; the measure of that noise is how far each
     # route lies from the float32 result
-    vs_plain, vs32, plain_vs32 = deltas(results, plain), deltas(results, f32), deltas(plain, f32)
+    vs_plain, vs32, plain_vs32 = (result_deltas(len(atoms), results, plain),
+                                  result_deltas(len(atoms), results, f32),
+                                  result_deltas(len(atoms), plain, f32))
     summary = summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results, launches,
                         expected)
     summary.update(edge_chunks=K, recompute_chunks=chunks, vs_plain=vs_plain, vs_float32=vs32,
@@ -2039,16 +2079,247 @@ def phase_main_bf16(torch, family):
     # (PERF.md §6: the JAX package's bf16 path is as far from its
     # float32 at MACE-MP-0-medium widths), and the kernels' route no further
     # from float32 than the plain route (25% and 0.5% of max |F| of slack)
-    if not (vs32["rel_dE"] < 2e-2 and vs32["dF_rel"] < 0.3
-            and plain_vs32["rel_dE"] < 2e-2 and plain_vs32["dF_rel"] < 0.3):
-        raise AssertionError(f"[{tag}] bf16 departs from the port's float32 past bf16's "
-                             f"noise: kernels {vs32}, plain {plain_vs32}")
-    if not (vs_plain["rel_dE"] < 1e-3 and vs_plain["dF_rel"] < 0.1
-            and vs_plain.get("dm_rel", 0.0) < 0.05
-            and vs32["dF_rel"] <= 1.25 * plain_vs32["dF_rel"] + 0.005):
-        raise AssertionError(f"[{tag}] the bf16 kernels' route departs from the plain "
-                             f"route: {vs_plain}; from float32 {vs32} against {plain_vs32}")
+    bf16_within_bars(tag, vs_plain, vs32, plain_vs32)
     return launches
+
+
+def phase_segment_sum_escn_md(torch):
+    """``[kernels] segment_sum escn_md``: B1 at ESCNMD's edge-scan rows,
+    (32768, (lmax+1)^2, C) = (32768, 9, 128) at the UMA-S widths, in float32
+    and bf16 (1152 bf16 columns: the row kernel), on one chunk's dst-sorted
+    ids at the ``[uma]`` graph's mean edges a dst row (bench.py's crystal at
+    the cutoff + 0.5 Å skin), each against its plain version."""
+    from distmlip_tpu_torch import kernels as K
+    from distmlip_tpu_torch.neighbors import neighbor_list
+    from distmlip_tpu_torch.tools.workload import UMA_KW, bench_atoms
+
+    t0 = time.perf_counter()
+    atoms, _ = bench_atoms()
+    nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, UMA_KW["cutoff"] + 0.5)
+    per_row = round(len(nl.src) / len(atoms))
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    rows = ((UMA_KW["lmax"] + 1) ** 2, UMA_KW["sphere_channels"])
+    data, ids, mask, n = slice_case(torch, gen, UMA_KW["edge_chunk"], rows, per_row=per_row)
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        d = data.to(dtype)
+        err = check_segment_sum(torch, d, ids, mask, n)
+        t = {**time_segment_sum(torch, d, ids, mask, n), "max_abs_err": err,
+             "edges_per_row": per_row}
+        if dtype == torch.bfloat16:
+            t = with_plan(t, K.segment_sum_bf16_plan(d, ids))
+        out[t["dtype"]] = t
+        log(f"[kernels] segment_sum escn_md {t['dtype']} {t['shape']}: {json.dumps(t)}")
+    log(f"[kernels] segment_sum escn_md: both dtypes agree with the plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def upstream_dicts():
+    """``tests/torch_upstream_dicts.py`` of this checkout, loaded by its
+    path: ``tests/`` has no ``__init__.py``, and a regular ``tests``
+    package installed on the machine would win over it as an import."""
+    import importlib.util
+    import os
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_upstream_dicts.py")
+    spec = importlib.util.spec_from_file_location("torch_upstream_dicts", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def uma_params(torch):
+    """UMA-S parameters as a user gets them from a checkpoint: a synthetic
+    fairchem-named state dict at ``UMA_KW``'s widths (32 experts stacked on
+    each SO(2) weight; ``tests/torch_upstream_dicts.py``, numpy seed 0)
+    through the port's ``from_torch`` onto ``ESCNMD(UMA_KW).init(0)``, with
+    zero unmapped tensors; ``species_ref`` (not in a fairchem checkpoint)
+    off its zero default, so a dropped term would show."""
+    import numpy as np
+
+    from distmlip_tpu_torch.models import ESCNMD, ESCNMDConfig
+    from distmlip_tpu_torch.models.convert import from_torch
+    from distmlip_tpu_torch.tools.workload import UMA_KW
+
+    t0 = time.perf_counter()
+    model = ESCNMD(ESCNMDConfig(**UMA_KW))
+    sd = upstream_dicts().escn_state_dict(model.cfg, np.random.default_rng(0))
+    t1 = time.perf_counter()
+    params, report = from_torch("escn", sd, model.init(0), model=model)
+    if report["unused_torch"] or report["mapped"] != len(sd):
+        raise AssertionError(f"[uma] conversion left tensors unmapped: {report}")
+    n_values = sum(int(np.prod(np.shape(v))) for v in sd.values())
+    params["species_ref"]["w"] = torch.randn((UMA_KW["max_num_elements"],),
+                                             generator=torch.Generator().manual_seed(0))
+    log(f"[uma] {len(sd)} fairchem-named tensors ({n_values} values) built in "
+        f"{t1 - t0:.2f} s, converted by from_torch in {time.perf_counter() - t1:.2f} s, "
+        f"0 unmapped")
+    return params
+
+
+def phase_uma(torch):
+    """``[uma]`` and ``[uma-bf16]``: ESCNMD at the UMA-S widths (``UMA_KW``)
+    with converted parameters (``uma_params``), driven through
+    ``UMAPredictor(task_name="omat", device="cuda", skin=0.5)`` with charge
+    1 and spin 1 on the 2048-atom crystal: ``drive``'s 4 calculates, B1's
+    launches against (1 edge-degree pass + num_layers) x 2K per calculate
+    (K edge chunks forward and K recomputes of the checkpointed chunk bodies
+    in the backward; the SO(2) and FFN products are plain matrix products,
+    as outside Pallas in the JAX package), then the same geometries through
+    a ``kernels=False`` predictor on the card: float32 within the repo's
+    bar; bf16 (``UMA_BF16_KW``) within the bf16 bars against its plain
+    route and the float32 results. Returns both runs' launches."""
+    from distmlip_tpu_torch.calculators import UMAPredictor
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import ESCNMD, ESCNMDConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import UMA_BF16_KW, UMA_INFO, UMA_KW, bench_atoms
+
+    params = uma_params(torch)
+    launched, f32 = {}, None
+    for tag, kw in (("uma", UMA_KW), ("uma-bf16", UMA_BF16_KW)):
+        t0 = time.perf_counter()
+        model = ESCNMD(ESCNMDConfig(**kw))
+        atoms, rng = bench_atoms()
+        atoms.info = dict(UMA_INFO)
+        pred = UMAPredictor(model, params, task_name="omat", device="cuda", skin=0.5)
+        geometries, results, step_s, launches, peak = drive(torch, pred.potential, atoms, rng,
+                                                            calculate=pred.calculate)
+        stats = pred.potential.last_stats
+        K = chunk_layout(stats["e_cap"], kw["edge_chunk"])[2]
+        n_calc, layers = 1 + STEPS, kw["num_layers"]
+        key = "segment_sum_bf16" if kw.get("dtype") == "bfloat16" else "segment_sum"
+        expected = {k: 0 for k in launches}
+        expected[key] = n_calc * (1 + layers) * 2 * K
+        log(f"[{tag}] launches: {n_calc} calculates x (1 edge-degree pass + {layers} layers) "
+            f"x (K={K} forward chunks + K={K} backward recomputes of the checkpointed chunk "
+            f"bodies) for {key} = {expected[key]}; counted "
+            f"{ {k: v for k, v in launches.items() if v} } (e_cap {stats['e_cap']}, edge_chunk "
+            f"{kw['edge_chunk']}; task omat -> dataset {pred.dataset_id})")
+        if launches != expected:
+            raise AssertionError(f"[{tag}] kernel launch counts {launches} differ from the "
+                                 f"derivation {expected}")
+        ref = UMAPredictor(model, params, task_name="omat", device="cuda", skin=0.5,
+                           kernels=False)
+        if key == "segment_sum":
+            _, ref_step_s, ref_peak = compare_with_plain(torch, ref, atoms, geometries,
+                                                         results, tag)
+            f32 = (geometries, results, step_s, peak)
+            extra = {}
+        else:
+            if any(not (a == b).all() for a, b in zip(geometries, f32[0])):
+                raise AssertionError(f"[{tag}] geometries differ from [uma]'s")
+            before = dict(launch_counts)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            plain, ref_step_s = [], []
+            for pos in geometries:
+                atoms.positions = pos.copy()
+                t = time.perf_counter()
+                plain.append(ref.calculate(atoms))
+                torch.cuda.synchronize()
+                ref_step_s.append(time.perf_counter() - t)
+            ref_peak = torch.cuda.max_memory_allocated()
+            if dict(launch_counts) != before:
+                raise AssertionError(f"[{tag}] the kernels=False reference launched a kernel")
+            n = len(atoms)
+            vs_plain, vs32, plain_vs32 = (result_deltas(n, results, plain),
+                                          result_deltas(n, results, f32[1]),
+                                          result_deltas(n, plain, f32[1]))
+            bf16_within_bars(tag, vs_plain, vs32, plain_vs32)
+            extra = {"vs_plain": vs_plain, "vs_float32": vs32, "plain_vs_float32": plain_vs32,
+                     "float32": {"step_ms": [x * 1e3 for x in f32[2][1:]],
+                                 "max_memory_allocated_bytes": f32[3]}}
+        summary = summarize(atoms, stats, step_s, peak, ref_step_s, ref_peak, results, launches,
+                            expected)
+        summary.update(edge_chunks=K, peak_gb=peak / 1e9, rebuilds=pred.potential.rebuild_count,
+                       phase_s=time.perf_counter() - t0, **extra)
+        log(f"[{tag}] {json.dumps(summary)}")
+        launched[tag] = launches
+    return launched
+
+
+CONVERT_REPS = 4  # bench.py's crystal at 256 atoms: full widths, fewer atoms
+
+
+def phase_convert(torch):
+    """``[convert]``: the MACE-MP-0-medium, TensorNet-MatPES and CHGNet-MPtrj
+    synthetic upstream dicts (``tests/torch_upstream_dicts.py``, numpy seed
+    0) through the port's ``from_torch`` with ``model=`` (constants checked),
+    zero unmapped tensors; each converted model evaluated once on the card
+    (kernels; CHGNet with magmoms) on the 256-atom crystal, launches counted
+    against the per-calculate derivation of its main path, and against a
+    ``kernels=False`` potential at the repo's float32 bar. Returns the
+    launches of the three calculates together."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts, recompute_chunks
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, MACE, MACEConfig, TensorNet,
+                                           TensorNetConfig)
+    from distmlip_tpu_torch.models.convert import from_torch
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW, TENSORNET_KW, bench_atoms
+
+    upstream = upstream_dicts()
+
+    # MACE-MP-0-medium (tests/test_convert.py:183-194)
+    mp0 = dict(num_species=89, channels=128, l_max=3, a_lmax=3, hidden_lmax=1, correlation=3,
+               num_interactions=2, num_bessel=8, radial_mlp=64, cutoff=6.0, cutoff_p=5,
+               avg_num_neighbors=35.0)
+    cases = (
+        ("mace", MACE(MACEConfig(**mp0)), lambda m, rng: upstream.mace_state_dict(m, rng), {}),
+        ("tensornet", TensorNet(TensorNetConfig(**TENSORNET_KW)),
+         lambda m, rng: upstream.tensornet_state_dict(m.cfg, rng), {}),
+        ("chgnet", CHGNet(CHGNetConfig(**CHGNET_KW)),
+         lambda m, rng: upstream.chgnet_state_dict(m.cfg, rng), {"compute_magmom": True}))
+    total = {k: 0 for k in launch_counts}
+    for family, model, build_dict, pot_kw in cases:
+        t0 = time.perf_counter()
+        sd = build_dict(model, np.random.default_rng(0))
+        params, report = from_torch(family, sd, model.init(0), model=model)
+        if report["unused_torch"] or report["mapped"] != len(sd):
+            raise AssertionError(f"[convert] {family}: tensors unmapped: {report}")
+        t_conv = time.perf_counter() - t0
+        atoms, _ = bench_atoms(CONVERT_REPS)
+        pot = DistPotential(model, params, device="cuda", **pot_kw)
+        torch.cuda.synchronize()
+        for k in launch_counts:
+            launch_counts[k] = 0
+        recompute_chunks.clear()
+        t1 = time.perf_counter()
+        res = pot.calculate(atoms)
+        torch.cuda.synchronize()
+        calc_s = time.perf_counter() - t1
+        launches = dict(launch_counts)
+        check_result(res, len(atoms))
+        stats = pot.last_stats
+        expected = {k: 0 for k in launches}
+        if family == "mace":
+            K = chunk_layout(stats["e_cap"], model.cfg.edge_chunk)[2]
+            expected["segment_sum"] = mp0["num_interactions"] * 2 * K
+        elif family == "tensornet":
+            expected["tensornet_embed_aggregate"] = 1
+            expected["tensornet_interaction_aggregate"] = TENSORNET_KW["num_layers"]
+            expected["tensornet_interaction_backward"] = TENSORNET_KW["num_layers"]
+        else:
+            blocks = CHGNET_KW["num_blocks"]
+            expected["chgnet_atom_conv_aggregate"] = blocks
+            expected["chgnet_line_aggregate"] = blocks - 1
+            expected["chgnet_row_projection"] = blocks + 2 * (blocks - 1)
+        if launches != expected:
+            raise AssertionError(f"[convert] {family}: kernel launch counts {launches} differ "
+                                 f"from the derivation {expected}")
+        ref = DistPotential(model, params, device="cuda", kernels=False, **pot_kw)
+        worst, _, _ = compare_with_plain(torch, ref, atoms, [atoms.positions.copy()], [res],
+                                         f"convert-{family}")
+        log(f"[convert] {family}: {len(sd)} tensors, 0 unmapped, converted in {t_conv:.2f} s; "
+            f"{json.dumps({'n_atoms': len(atoms), 'e_cap': stats['e_cap'], 'energy': res['energy'], 'max_abs_force': float(np.abs(res['forces']).max()), 'calculate_s': calc_s, 'launches': {k: v for k, v in launches.items() if v}, 'vs_plain': worst, 'phase_s': time.perf_counter() - t0})}")
+        for k, v in launches.items():
+            total[k] += v
+    return total
 
 
 def small_structure(a=4.0, noise=0.05, n_species=3):
@@ -3765,6 +4036,7 @@ def main() -> int:
     so2_err, so2_timed, seg_escn = phase_so2_kernels(torch)
     so2_bf16_err, so2_bf16_timed = phase_so2_kernels_bf16(torch)
     tn_bf16_errs, tn_bf16_timed = phase_edge_aggregate_kernels_bf16(torch)
+    seg_escn_md = phase_segment_sum_escn_md(torch)
     (chg_bf16_errs, chg_bf16_timed, chg_bf16_proj_err,
      chg_bf16_proj_timed) = phase_chgnet_kernels_bf16(torch)
     # the packing's gather tables of the shapes above: each path below
@@ -3789,6 +4061,14 @@ def main() -> int:
     tn_bf16_launches = phase_main_bf16(torch, "tensornet")
     torch.cuda.empty_cache()
     chg_bf16_launches = phase_main_bf16(torch, "chgnet")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    uma_launches = phase_uma(torch)
+    log(f"[uma] both phases: {time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    convert_launches = phase_convert(torch)
+    log(f"[convert] {time.perf_counter() - t_phase:.1f} s")
     torch.cuda.empty_cache()
     phase_small_reference(torch, MACE(MACEConfig(
         num_species=4, channels=16, l_max=3, a_lmax=3, hidden_lmax=1, correlation=3,
@@ -3863,8 +4143,11 @@ def main() -> int:
         "library_kernel_ms": headline["library_kernel_ms"], "shape": headline["shape"],
         # MACE's two chunk shapes, eSCN's row width and the width-1 ZBL sum on
         # the crystal graph, then the width sweep on one chunk's ids and mask
-        "per_shape": timed + [seg_escn, zbl_width1], "width_sweep": sweep,
-        "escn_launches": escn_launches["segment_sum"],
+        "per_shape": timed + [seg_escn, zbl_width1, seg_escn_md["float32"]],
+        "width_sweep": sweep, "escn_launches": escn_launches["segment_sum"],
+        # ESCNMD at the UMA-S widths ([uma]): its launches, its row shape
+        "uma_launches": uma_launches["uma"]["segment_sum"],
+        "escn_md_case": seg_escn_md["float32"],
         # MACE with zbl=True: its launches, and the width-1 pair-term call
         "zbl_launches": zbl_launches["segment_sum"], "zbl_width1": zbl_width1,
     }]
@@ -3935,8 +4218,10 @@ def main() -> int:
         "library_ms": headline["library_ms"],
         "library_kernel_ms": headline["library_kernel_ms"],
         "library": "index_add_ of the masked rows upcast to float32",
-        "shape": headline["shape"], "per_shape": bf16_timed, "width_sweep": bf16_sweep,
-        "escn_launches": escn_bf16_launches["segment_sum_bf16"],
+        "shape": headline["shape"], "per_shape": bf16_timed + [seg_escn_md["bfloat16"]],
+        "width_sweep": bf16_sweep, "escn_launches": escn_bf16_launches["segment_sum_bf16"],
+        "uma_launches": uma_launches["uma-bf16"]["segment_sum_bf16"],
+        "escn_md_case": seg_escn_md["bfloat16"],
     })
     t = so2_bf16_timed
     kernels.append({
@@ -3997,6 +4282,8 @@ def main() -> int:
         # against its plain version on the packed graphs (where checked)
         k["batched_launches"] = bat_launches[k["name"]]
         k["batched_packed_max_abs_err"] = bat_errs.get(k["name"])
+        # ... in [convert]'s three converted models
+        k["convert_launches"] = convert_launches[k["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -590,3 +590,31 @@ class DistPotential:
             result["magmoms"] = host.gather_owned(m, len(atoms))
         self.last_timings["device_s"] = time.perf_counter() - t0
         return result
+
+
+# UMA/fairchem task routing: task name -> the dataset-conditioning index
+# fed to the csd embedding (``distmlip_tpu/calculators/calculator.py:1024``)
+UMA_TASK_DATASETS = {"omol": 0, "omat": 1, "oc20": 2, "odac": 3}
+
+
+class UMAPredictor:
+    """A task-routed entry for the eSCN/UMA family
+    (``distmlip_tpu/calculators/calculator.py:1027-1051``): the task name
+    selects the dataset-conditioning index, set in ``atoms.info`` where the
+    caller left it out; charge and spin are read from ``atoms.info`` as
+    ever. All three feed the model's csd embedding and MOLE gate. Every
+    other keyword argument (``device=``, ``num_partitions=``, ``skin=``,
+    ``kernels=``, ...) goes to ``DistPotential``."""
+
+    def __init__(self, model, params, task_name: str = "omat", **kwargs):
+        if task_name not in UMA_TASK_DATASETS:
+            raise ValueError(
+                f"unknown task {task_name!r}; have {sorted(UMA_TASK_DATASETS)}")
+        self.task_name = task_name
+        self.dataset_id = UMA_TASK_DATASETS[task_name]
+        self.potential = DistPotential(model, params, **kwargs)
+
+    def calculate(self, atoms: Atoms) -> dict:
+        atoms = atoms.copy()
+        atoms.info.setdefault("dataset", self.dataset_id)
+        return self.potential.calculate(atoms)

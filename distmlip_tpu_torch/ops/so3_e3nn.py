@@ -116,15 +116,20 @@ def edge_angles(rhat, eps: float = 1e-4):
     return alpha, beta
 
 
-def wigner_blocks_from_edges(l_max: int, rhat):
+def wigner_blocks_from_edges(l_max: int, rhat, gamma=None):
     """Per-l lab-from-edge Wigner blocks for a batch of edge directions.
 
     Returns ``[D_0, ..., D_lmax]`` with ``D_l``: (E, 2l+1, 2l+1), built in
     at least float32 whatever ``rhat``'s dtype (the trig chains compound).
     ``D_l @ f_edge`` rotates edge-frame coefficients to the lab frame;
-    ``D_l.T @ f_lab`` rotates into the edge frame. The gauge angle about
-    the edge axis is fixed at 0: the SO(2) convolutions are exactly
-    gauge-covariant, so any gauge gives the same model output.
+    ``D_l.T @ f_lab`` rotates into the edge frame.
+
+    ``gamma`` (default None, meaning 0) is the per-edge gauge angle, the
+    residual rotation about the edge axis: D(alpha, beta, gamma) = X(alpha)
+    J X(beta) J X(gamma) (``distmlip_tpu/ops/so3_e3nn.py:125-157``). The
+    models fix it at 0: the SO(2) convolutions are exactly gauge-covariant,
+    so any gauge gives the same model output (``tests/test_torch_escn_md.py``
+    holds that under random and fairchem-style per-edge angles).
     """
     wdt = torch.promote_types(rhat.dtype, torch.float32)
     alpha, beta = edge_angles(rhat.to(wdt))
@@ -133,7 +138,10 @@ def wigner_blocks_from_edges(l_max: int, rhat):
         J = _jd_tensor(l, wdt, rhat.device)
         Xa = _z_rot(l, alpha)
         Xb = _z_rot(l, beta)
-        out.append(Xa @ J @ Xb @ J)
+        D = Xa @ J @ Xb @ J
+        if gamma is not None:
+            D = D @ _z_rot(l, torch.as_tensor(gamma, dtype=wdt, device=rhat.device))
+        out.append(D)
     return out
 
 

@@ -2,7 +2,8 @@
 smoke workload (``tools/workload.py``).
 
     python -m distmlip_tpu_torch.tools.step_profile
-        [--model mace|tensornet|chgnet|escn] [--reps N] [--num-partitions P]
+        [--model mace|tensornet|chgnet|escn|uma|uma-bf16] [--reps N]
+        [--num-partitions P]
         [--out DIR]
 
 ``--model mace`` (the default) runs MACE at the MACE-MP-0-medium widths on
@@ -10,7 +11,10 @@ smoke workload (``tools/workload.py``).
 layout on 16384 atoms (reps 16); ``--model chgnet`` runs CHGNet at the
 MPtrj layout on 16384 atoms (reps 16) with magmoms; ``--model escn`` runs
 eSCN at the single-chip UMA widths (channels 128, l_max 4, 8 experts) on
-2048 atoms (reps 8) with the workload's charge, spin and dataset.
+2048 atoms (reps 8) with the workload's charge, spin and dataset;
+``--model uma`` runs ESCNMD at the UMA-S widths (``UMA_KW``, random weights
+from seed 0) on 2048 atoms with charge 1, spin 1 and the omat task's
+dataset, ``uma-bf16`` the same at ``UMA_BF16_KW``.
 ``--num-partitions P`` splits the structure into P slabs, run on the card
 as one flattened graph (``parallel/halo.py``).
 
@@ -45,11 +49,11 @@ def _top(events, key, n):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=("mace", "tensornet", "chgnet", "escn"),
-                    default="mace")
+    ap.add_argument("--model", choices=("mace", "tensornet", "chgnet", "escn", "uma",
+                                        "uma-bf16"), default="mace")
     ap.add_argument("--reps", type=int, default=None,
-                    help="crystal repeats (4 reps^3 atoms); default 8 for mace "
-                         "and escn, 16 for tensornet and chgnet")
+                    help="crystal repeats (4 reps^3 atoms); default 8 for mace, "
+                         "escn and uma, 16 for tensornet and chgnet")
     ap.add_argument("--num-partitions", type=int, default=1,
                     help="slabs of the structure (default 1)")
     ap.add_argument("--out", default=None,
@@ -65,11 +69,11 @@ def main(argv=None) -> int:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from ..calculators import DistPotential
-    from ..models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE, MACEConfig,
-                          TensorNet, TensorNetConfig)
+    from ..calculators import UMA_TASK_DATASETS, DistPotential
+    from ..models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, ESCNMD, ESCNMDConfig, MACE,
+                          MACEConfig, TensorNet, TensorNetConfig)
     from .workload import (CHGNET_KW, ESCN_INFO, ESCN_KW, MACE_KW, TENSORNET_KW,
-                           bench_atoms)
+                           UMA_BF16_KW, UMA_INFO, UMA_KW, bench_atoms)
 
     P = args.num_partitions
     out_dir = args.out or os.path.join("build", "step_profile",
@@ -83,11 +87,16 @@ def main(argv=None) -> int:
     elif args.model == "chgnet":
         model, reps = CHGNet(CHGNetConfig(**CHGNET_KW)), args.reps or 16
         extra = {"compute_magmom": True}
-    else:
+    elif args.model == "escn":
         model, reps = ESCN(ESCNConfig(**ESCN_KW)), args.reps or 8
+    else:
+        kw = UMA_BF16_KW if args.model == "uma-bf16" else UMA_KW
+        model, reps = ESCNMD(ESCNMDConfig(**kw)), args.reps or 8
     atoms, rng = bench_atoms(reps)
     if args.model == "escn":
         atoms.info = dict(ESCN_INFO)
+    elif args.model.startswith("uma"):
+        atoms.info = dict(UMA_INFO, dataset=UMA_TASK_DATASETS["omat"])
     pot = DistPotential(model, model.init(0), device="cuda", skin=0.5, num_partitions=P,
                         **extra)
 
@@ -126,7 +135,8 @@ def main(argv=None) -> int:
     kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
     own = {}  # the port's kernels, by their __global__ names
     for e in kernels:
-        for name in ("segment_sum_kernel", "tensornet_embed_kernel",
+        for name in ("segment_sum_kernel", "segment_sum_bf16_row_kernel",
+                     "tensornet_embed_kernel",
                      "tensornet_interaction_kernel", "tensornet_interaction_bwd_kernel",
                      "chgnet_atom_conv_kernel",
                      "chgnet_line_conv_kernel", "chgnet_row_projection_kernel",

@@ -29,6 +29,15 @@
   needs no species map (only the embedding tables' row counts change);
   and float32 in place of the example's bfloat16. ``ESCN_BF16_KW`` is the
   same at ``dtype="bfloat16"``: the example's own precision.
+- ESCNMD (the fairchem-parameterized eSCN that UMA checkpoints convert
+  onto) at the widths of fairchem's published UMA-S (``uma_sm``) backbone:
+  sphere channels 128, lmax = mmax = 2, 4 layers, hidden and edge channels
+  128, 64 gaussians, 32 MOLE experts, cutoff 6.0 Å, 100 elements, 4
+  datasets (the four tasks ``UMA_TASK_DATASETS`` routes); the config's
+  default charge/spin tables and avg_degree 14, edge chunks of 32768 and
+  remat; float32. ``UMA_INFO`` (charge 1, spin 1) is set on the atoms and
+  the ``omat`` task routes the dataset. ``UMA_BF16_KW`` is the same at
+  ``dtype="bfloat16"``.
 
 The batched and serving phases run on bench.py's batched/serving pool
 (``batched_pool``: copies of the 32-atom reps=2 crystal, each with its own
@@ -59,6 +68,11 @@ ESCN_KW = dict(num_species=95, channels=128, l_max=4, num_layers=2, num_experts=
                cutoff=5.0, avg_num_neighbors=40.0, num_bessel=8, edge_channels=32,
                edge_chunk=32768, remat=True)
 ESCN_INFO = {"charge": 1, "spin": 1, "dataset": 2}
+UMA_KW = dict(max_num_elements=100, sphere_channels=128, lmax=2, mmax=2, num_layers=4,
+              hidden_channels=128, edge_channels=128, num_distance_basis=64, num_experts=32,
+              cutoff=6.0, num_datasets=4, edge_chunk=32768, remat=True)
+UMA_INFO = {"charge": 1, "spin": 1}
+UMA_BF16_KW = dict(UMA_KW, dtype="bfloat16")
 MACE_BF16_KW = dict(MACE_KW, dtype="bfloat16")
 ESCN_BF16_KW = dict(ESCN_KW, dtype="bfloat16")
 TENSORNET_BF16_KW = dict(TENSORNET_KW, dtype="bfloat16")
