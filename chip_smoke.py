@@ -245,6 +245,31 @@ Phases (each failure raises, so the exit code is non-zero):
    launches derived per calculate, against ``kernels=False`` at the float32
    bar). Each logs its seconds.
 
+14. the device-resident MD loop and the ensemble: ``[device-md]``
+   (TensorNet at the MatPES layout on the 16,384-atom crystal, skin 0.5,
+   40 NVE steps of 2 fs from 600 K Maxwell-Boltzmann velocities) runs
+   ``DeviceMD`` with the in-loop refresh (at least one refresh), then with
+   the host rebuild (``device_rebuild=False`` on the potential), in two
+   chunks of 5 and 35 steps, then ``MolecularDynamics`` (NVE) from the same
+   start, then the first 5 steps with ``kernels=False`` (positions within
+   1e-4 Å). Each DeviceMD run prints ms a step by chunk, host reads and
+   synchronizing CUDA calls a step inside its chunks
+   (``torch.cuda.set_sync_debug_mode("warn")``, by the line that made
+   them), refreshes, overflows, and device memory after each chunk, which
+   must not grow; launches derived as 1 embed + L interactions + L
+   interaction backwards per force evaluation (one a step, one at each
+   chunk's start); at most one host read a step plus one a refresh and one
+   a chunk. ``[device-md-mace]``: the same for MACE at the
+   MACE-MP-0-medium widths on the 2048-atom crystal at 0.35 fs, B1
+   launches num_interactions x 2K per evaluation. ``[ensemble]``:
+   ``EnsemblePotential`` over 3 MACE members (seeds 0-2) on the 2048-atom
+   crystal, then 2 CHGNet members with magmoms on the 16,384-atom one,
+   stacked and sequential, 3 calculates each (ms and peak per route),
+   launches derived per member and calculate, each member against a lone
+   ``DistPotential`` and the two routes against each other at the float32
+   bar. The kernels line gains each kernel's ``device_md_launches`` (the
+   DeviceMD runs) and ``ensemble_launches``.
+
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
 card, or outside a checkout, it exits non-zero and prints no result.
@@ -3992,6 +4017,395 @@ def phase_serve(torch):
     return total
 
 
+# ---------------------------------------------------------------------------
+# DeviceMD (the device-resident MD loop) and EnsemblePotential
+# ---------------------------------------------------------------------------
+
+DEVICE_MD_STEPS = 40
+DEVICE_MD_FIRST = 5   # steps of the first chunk: memory and agreement read after it
+SYNC_WORDS = "synchroniz"  # in torch's sync-debug warning
+
+
+def nonzero(counts):
+    return {k: v for k, v in counts.items() if v}
+
+
+def count_chunk_syncs(torch, md):
+    """Wraps ``md``'s two chunk steppers so that each call runs under
+    ``torch.cuda.set_sync_debug_mode("warn")``, and counts every
+    synchronizing CUDA call inside it (the loop's own reads and any inside
+    the kernel wrappers) by the Python line that made it. Returns the tally:
+    ``chunks``, ``syncs`` and ``sites``."""
+    import collections
+    import os
+    import warnings
+
+    tally = {"chunks": 0, "syncs": 0, "sites": collections.Counter()}
+
+    def wrap(fn):
+        def counted(*args, **kw):
+            tally["chunks"] += 1
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    return fn(*args, **kw)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                    for w in caught:
+                        if SYNC_WORDS in str(w.message):
+                            tally["syncs"] += 1
+                            tally["sites"][f"{os.path.basename(w.filename)}:{w.lineno}"] += 1
+        return counted
+
+    md._device_chunk = wrap(md._device_chunk)
+    md._host_chunk = wrap(md._host_chunk)
+    return tally
+
+
+def run_device_md(torch, pot, structure, tag, timestep):
+    """``DeviceMD`` (NVE) over ``pot`` from Maxwell-Boltzmann velocities at
+    MD_KW's 600 K drawn from the structure's seeded generator (as
+    ``run_md``): a chunk of DEVICE_MD_FIRST steps, then one of the rest of
+    DEVICE_MD_STEPS. Every launch count is set to 0 just before the first
+    chunk and read just after the last; the syncs inside the chunks are
+    counted (``count_chunk_syncs``). Fails on a non-finite state, on more
+    host reads than one a step plus one a refresh and one a chunk (the host
+    stepper's uncommitted trial step), and on device memory that grows from
+    the first chunk to the second. Returns the driver, the positions after
+    the first chunk and a summary."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DeviceMD
+    from distmlip_tpu_torch.kernels import launch_counts
+
+    atoms, rng = structure
+    atoms.set_maxwell_boltzmann_velocities(MD_KW["temperature"], rng=rng)
+    md = DeviceMD(pot, atoms, timestep=timestep)
+    tally = count_chunk_syncs(torch, md)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    chunks = []
+    for n in (DEVICE_MD_FIRST, DEVICE_MD_STEPS - DEVICE_MD_FIRST):
+        done, reads, refreshes = md.steps_done, md.host_reads, md.rebuilds_on_device
+        t = time.perf_counter()
+        md.run(n)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        chunks.append({"steps": md.steps_done - done, "ms_per_step": seconds * 1e3 / n,
+                       "host_reads": md.host_reads - reads,
+                       "refreshes": md.rebuilds_on_device - refreshes,
+                       "allocated_bytes": torch.cuda.memory_allocated(),
+                       "peak_bytes": torch.cuda.max_memory_allocated()})
+        torch.cuda.reset_peak_memory_stats()
+        if not chunks[1:]:
+            pos_first = atoms.positions.copy()
+    launches = dict(launch_counts)
+    if not (np.isfinite(atoms.positions).all() and np.isfinite(atoms.velocities).all()
+            and np.isfinite(md.results["energy"])) or md.steps_done != DEVICE_MD_STEPS:
+        raise AssertionError(f"[{tag}] {md.steps_done} steps, or a non-finite state")
+    steps = md.steps_done
+    summary = {
+        "n_atoms": len(atoms), "steps": steps, "device_rebuild": md.device_rebuild,
+        "ms_per_step": sum(c["ms_per_step"] * c["steps"] for c in chunks) / steps,
+        "chunks": chunks, "chunk_calls": tally["chunks"],
+        "force_evaluations": steps + tally["chunks"],
+        "host_reads": md.host_reads, "host_reads_per_step": md.host_reads / steps,
+        "syncs": tally["syncs"], "syncs_per_step": tally["syncs"] / steps,
+        "sync_sites": dict(tally["sites"].most_common()),
+        "rebuilds": md.rebuilds, "rebuilds_on_device": md.rebuilds_on_device,
+        "rebuild_overflows": md.rebuild_overflows,
+        "energy": md.results["energy"], "kinetic": md.results["kinetic"],
+        "launches": launches,
+    }
+    if md.host_reads > steps + md.rebuilds_on_device + tally["chunks"]:
+        raise AssertionError(f"[{tag}] {md.host_reads} host reads in {steps} steps")
+    first, rest = chunks
+    if (rest["allocated_bytes"] > first["allocated_bytes"] + (64 << 20)
+            or rest["peak_bytes"] > 1.05 * first["peak_bytes"] + (64 << 20)):
+        raise AssertionError(f"[{tag}] device memory grew from step {DEVICE_MD_FIRST} to "
+                             f"{steps}: {first} -> {rest}")
+    return md, pos_first, summary
+
+
+def device_md_phase(torch, tag, model, params, structure_fn, timestep, expected_for,
+                    min_refreshes=0):
+    """The runs of ``[device-md]`` and ``[device-md-mace]``: ``DeviceMD``
+    with the in-loop refresh, ``DeviceMD`` with the host rebuild
+    (``device_rebuild=False`` on the potential; DeviceMD's "auto" takes it),
+    ``MolecularDynamics`` (NVE) from the same start, all at skin 0.5 on the
+    card, then the first DEVICE_MD_FIRST steps with ``kernels=False`` (the
+    positions within 1e-4 Å). ``expected_for(evaluations, launches, e_cap)``
+    derives the launches; the derivation holds without overflows, which
+    would change the caps. The in-loop run must refresh ``min_refreshes``
+    times or more. Returns the DeviceMD runs' launches."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DeviceMD, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in launch_counts}
+    report = {}
+    for name, device_rebuild in (("in-loop refresh", "auto"), ("host rebuild", False)):
+        pot = DistPotential(model, params, device="cuda", skin=0.5,
+                            device_rebuild=device_rebuild)
+        md, pos_first, summary = run_device_md(torch, pot, structure_fn(), tag, timestep)
+        e_cap = pot._cache[0].e_cap
+        expected = expected_for(summary["force_evaluations"], summary["launches"], e_cap)
+        log(f"[{tag}] {name}: launches over {summary['force_evaluations']} force "
+            f"evaluations ({summary['steps']} steps + {summary['chunk_calls']} chunk starts) "
+            f"= {nonzero(expected)}; counted {nonzero(summary['launches'])}")
+        if md.rebuild_overflows or summary["launches"] != expected:
+            raise AssertionError(f"[{tag}] {name}: launches {summary['launches']} differ "
+                                 f"from the derivation {expected}, or a capacity overflowed "
+                                 f"({md.rebuild_overflows})")
+        if md.device_rebuild != (device_rebuild == "auto") or (
+                md.device_rebuild and md.rebuilds_on_device < min_refreshes):
+            raise AssertionError(f"[{tag}] {name}: device_rebuild {md.device_rebuild}, "
+                                 f"{md.rebuilds_on_device} in-loop refreshes")
+        summary["e_cap"] = e_cap
+        report[name] = summary
+        for k, v in summary["launches"].items():
+            total[k] += v
+        if name == "in-loop refresh":
+            kernel_first, kernel_last = pos_first, md.atoms.positions.copy()
+        log(f"[{tag}] {name}: {json.dumps(summary)}")
+        del md, pot
+        torch.cuda.empty_cache()
+
+    pot = DistPotential(model, params, device="cuda", skin=0.5)
+    probe, step_s, launches, peak = run_md(torch, pot, structure_fn(), DEVICE_MD_STEPS,
+                                           f"{tag} MolecularDynamics", ensemble="nve",
+                                           timestep=timestep)
+    expected = expected_for(len(probe.calls), launches, pot._cache[0].e_cap)
+    if launches != expected:
+        raise AssertionError(f"[{tag}] MolecularDynamics launches {launches} differ from "
+                             f"the derivation {expected}")
+    host_md = md_summary(pot, probe, step_s, peak, launches, expected)
+    host_md["ms_per_step"] = sum(step_s) * 1e3 / len(step_s)
+    # float64 host integrator against the float32 device one: reported only
+    host_md["max_dx_vs_device_md_after_40"] = float(
+        np.abs(probe.calls[-1]["positions"] - kernel_last).max())
+    log(f"[{tag}] MolecularDynamics: {json.dumps(host_md)}")
+    del pot, probe
+    torch.cuda.empty_cache()
+
+    atoms, rng = structure_fn()
+    atoms.set_maxwell_boltzmann_velocities(MD_KW["temperature"], rng=rng)
+    before = dict(launch_counts)
+    t = time.perf_counter()
+    DeviceMD(DistPotential(model, params, device="cuda", skin=0.5, kernels=False), atoms,
+             timestep=timestep).run(DEVICE_MD_FIRST)
+    plain_ms = (time.perf_counter() - t) * 1e3 / DEVICE_MD_FIRST
+    dx = float(np.abs(atoms.positions - kernel_first).max())
+    if dict(launch_counts) != before:
+        raise AssertionError(f"[{tag}] the kernels=False run launched a kernel")
+    log(f"[{tag}] first {DEVICE_MD_FIRST} steps, kernels vs plain on the card: max |dx| "
+        f"{dx:.3e} Å (bar 1e-4); plain {plain_ms:.1f} ms a step")
+    if not dx < 1e-4:
+        raise AssertionError(f"[{tag}] kernels and plain positions differ by {dx} Å")
+    # all 40 steps, and the second chunk's alone (no host build, no first call)
+    steps_ms = {k: [v["ms_per_step"], v["chunks"][1]["ms_per_step"]] for k, v in report.items()}
+    steps_ms["MolecularDynamics"] = [host_md["ms_per_step"],
+                                     sum(step_s[DEVICE_MD_FIRST:]) * 1e3 / len(step_s[DEVICE_MD_FIRST:])]
+    log(f"[{tag}] ms a step (all steps, steps {DEVICE_MD_FIRST + 1}-{DEVICE_MD_STEPS}): "
+        f"{json.dumps(steps_ms)}; phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def phase_device_md(torch):
+    """``[device-md]``: TensorNet at TENSORNET_KW on the 16,384-atom
+    crystal, DEVICE_MD_STEPS NVE steps of 2 fs (``device_md_phase``); at
+    least one in-loop refresh. Launches derived: 1 embed + L interactions +
+    L interaction backwards per force evaluation (one a step, one at each
+    chunk's start)."""
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+    from distmlip_tpu_torch.tools.workload import TENSORNET_KW, bench_atoms
+
+    model = TensorNet(TensorNetConfig(**TENSORNET_KW))
+    layers = TENSORNET_KW["num_layers"]
+
+    def expected_for(evaluations, launches, e_cap):
+        want = {k: 0 for k in launches}
+        want.update(tensornet_embed_aggregate=evaluations,
+                    tensornet_interaction_aggregate=layers * evaluations,
+                    tensornet_interaction_backward=layers * evaluations)
+        return want
+
+    return device_md_phase(torch, "device-md", model, model.init(0),
+                           lambda: bench_atoms(TENSORNET_REPS), MD_KW["timestep"],
+                           expected_for, min_refreshes=1)
+
+
+def phase_device_md_mace(torch):
+    """``[device-md-mace]``: MACE at MACE_KW on the 2048-atom crystal, the
+    same runs at MACE_MD_TIMESTEP. Launches derived: num_interactions x 2K
+    segment sums per force evaluation (K edge chunks of e_cap, forward and
+    the checkpointed recompute)."""
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import MACE_KW, bench_atoms
+
+    model = MACE(MACEConfig(**MACE_KW))
+
+    def expected_for(evaluations, launches, e_cap):
+        want = {k: 0 for k in launches}
+        want["segment_sum"] = evaluations * MACE_KW["num_interactions"] * 2 * chunk_layout(
+            e_cap, MACE_KW["edge_chunk"])[2]
+        return want
+
+    return device_md_phase(torch, "device-md-mace", model, model.init(0), bench_atoms,
+                           MACE_MD_TIMESTEP, expected_for)
+
+
+ENSEMBLE_CALCS = 3  # per route: the first calculate (host build) and 2 moves of 0.01 Å
+
+
+def ensemble_bar(tag, got, want):
+    """Energy, forces, and the stress and magmoms where both have them, at
+    the float32 bar of PERF.md §2; returns the deltas."""
+    import numpy as np
+
+    d = {"rel_dE": abs(got["energy"] - want["energy"]) / abs(want["energy"]),
+         "max_dF": float(np.abs(got["forces"] - want["forces"]).max())}
+    for key, k in (("max_dS", "stress"), ("max_dm", "magmoms")):
+        if k in got and k in want:
+            d[key] = float(np.abs(got[k] - want[k]).max())
+    if not all(v < (1e-5 if k == "rel_dE" else 1e-4) for k, v in d.items()):
+        raise AssertionError(f"[ensemble] {tag}: {d}")
+    return d
+
+
+def ensemble_member(res, m):
+    """Member ``m`` of an ensemble result (no per-member stress: the result
+    surface keeps the mean)."""
+    out = {"energy": res["energies"][m], "forces": res["forces_all"][m]}
+    if "magmoms_all" in res:
+        out["magmoms"] = res["magmoms_all"][m]
+    return out
+
+
+def ensemble_family(torch, tag, model, members, structure, per_calc, **kw):
+    """``EnsemblePotential`` over ``members`` on the card, stacked then
+    sequential, ENSEMBLE_CALCS calculates each at the same geometries (the
+    launch counts set to 0 before each route's first, read after its last,
+    against ``per_calc(e_cap)`` x members x calculates); each member of the
+    stacked route's last result against a lone ``DistPotential`` on its
+    parameters (and the mean stress against the lone stresses' mean), and
+    against the sequential route's. Returns the launches of both routes."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DistPotential, EnsemblePotential
+    from distmlip_tpu_torch.kernels import launch_counts
+
+    atoms, rng = structure
+    geometries = [atoms.positions.copy()]
+    for _ in range(ENSEMBLE_CALCS - 1):
+        geometries.append(geometries[-1] + rng.normal(0, 0.01, atoms.positions.shape))
+    total = {k: 0 for k in launch_counts}
+    routes, last = {}, {}
+    for stacked in (True, False):
+        name = "stacked" if stacked else "sequential"
+        ens = EnsemblePotential(model, members, stacked=stacked, device="cuda", skin=0.5, **kw)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in launch_counts:
+            launch_counts[k] = 0
+        ms = []
+        for pos in geometries:
+            atoms.positions = pos.copy()
+            t = time.perf_counter()
+            res = ens.calculate(atoms)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            check_result(res, len(atoms))
+            if not (np.isfinite(res["forces_var"]).all() and res["energy_var"] > 0):
+                raise AssertionError(f"[ensemble] {tag} {name}: variances")
+        launches = dict(launch_counts)
+        e_cap = ens.last_stats["e_cap"]
+        expected = {k: 0 for k in launches}
+        for k, v in per_calc(e_cap).items():
+            expected[k] = v * len(members) * ENSEMBLE_CALCS
+        log(f"[ensemble] {tag} {name}: launches {ENSEMBLE_CALCS} calculates x "
+            f"{len(members)} members x {per_calc(e_cap)} = {nonzero(expected)}; counted "
+            f"{nonzero(launches)}")
+        if launches != expected:
+            raise AssertionError(f"[ensemble] {tag} {name}: launches {launches} differ from "
+                                 f"the derivation {expected}")
+        routes[name] = {"calculate_ms": ms,
+                        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                        "rebuild_count": sum(m.rebuild_count for m in ens.members),
+                        "e_cap": e_cap}
+        last[name] = res
+        for k, v in launches.items():
+            total[k] += v
+        del ens
+        torch.cuda.empty_cache()
+
+    before = dict(launch_counts)
+    vs_lone, vs_seq, lone_stress = [], [], []
+    for m, params in enumerate(members):
+        lone = DistPotential(model, params, device="cuda", skin=0.5, **kw).calculate(atoms)
+        lone_stress.append(lone["stress"])
+        vs_lone.append(ensemble_bar(f"{tag} member {m} vs lone", ensemble_member(
+            last["stacked"], m), lone))
+        vs_seq.append(ensemble_bar(f"{tag} member {m} stacked vs sequential", ensemble_member(
+            last["stacked"], m), ensemble_member(last["sequential"], m)))
+        torch.cuda.empty_cache()
+    for k in launch_counts:  # the lone potentials' launches are not the ensemble's
+        launch_counts[k] = before[k]
+    stress = {"max_dS_mean_vs_lone": float(np.abs(
+        last["stacked"]["stress"] - np.mean(lone_stress, axis=0)).max())}
+    if not stress["max_dS_mean_vs_lone"] < 1e-4:
+        raise AssertionError(f"[ensemble] {tag}: mean stress {stress}")
+    summary = {"n_atoms": len(atoms), "members": len(members), **routes,
+               "vs_lone": vs_lone, "stacked_vs_sequential": vs_seq,
+               "means": ensemble_bar(f"{tag} means", last["stacked"], last["sequential"]),
+               **stress, "energy_var": last["stacked"]["energy_var"],
+               "forces_var_max": float(last["stacked"]["forces_var"].max())}
+    log(f"[ensemble] {tag}: {json.dumps(summary)}")
+    return total
+
+
+def phase_ensemble(torch):
+    """``[ensemble]``: 3 MACE members at MACE_KW (weights from seeds 0, 1,
+    2) on the 2048-atom crystal, then 2 CHGNet members at CHGNET_KW with
+    magmoms (seeds 0 and 1, readout terms off their defaults) on the
+    16,384-atom crystal (``ensemble_family``). Launches derived per member
+    and calculate as ``[main]``'s and ``[main-chgnet]``'s."""
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig, MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.tools.workload import CHGNET_KW, MACE_KW, bench_atoms
+
+    t_phase = time.perf_counter()
+    model = MACE(MACEConfig(**MACE_KW))
+    total = ensemble_family(
+        torch, "mace", model, [model.init(s) for s in range(3)], bench_atoms(),
+        lambda e_cap: {"segment_sum": MACE_KW["num_interactions"] * 2 * chunk_layout(
+            e_cap, MACE_KW["edge_chunk"])[2]})
+    model = CHGNet(CHGNetConfig(**CHGNET_KW))
+    members = []
+    for s in range(2):
+        params = model.init(s)
+        gen = torch.Generator().manual_seed(s)
+        params["species_ref"]["w"] = torch.randn((CHGNET_KW["num_species"], 1), generator=gen)
+        params["data_std"] = torch.tensor(1.3)
+        members.append(params)
+    blocks = CHGNET_KW["num_blocks"]
+    launched = ensemble_family(
+        torch, "chgnet", model, members, bench_atoms(CHGNET_REPS),
+        lambda e_cap: {"chgnet_atom_conv_aggregate": blocks,
+                       "chgnet_line_aggregate": blocks - 1,
+                       "chgnet_row_projection": blocks + 2 * (blocks - 1)},
+        compute_magmom=True)
+    for k, v in launched.items():
+        total[k] += v
+    log(f"[ensemble] {time.perf_counter() - t_phase:.1f} s")
+    return total
+
 def main() -> int:
     import torch
 
@@ -4101,6 +4515,16 @@ def main() -> int:
     md_launches = {k: md_launches[k] + md_tn_launches[k] + relax_launches[k]
                    + md_bf16_launches[k] + md_tn_bf16_launches[k] + relax_bf16_launches[k]
                    for k in md_launches}
+    # the device-resident MD loop and the ensemble: each phase counts its own
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    dmd_tn_launches = phase_device_md(torch)
+    torch.cuda.empty_cache()
+    dmd_mace_launches = phase_device_md_mace(torch)
+    device_md_launches = {k: dmd_tn_launches[k] + dmd_mace_launches[k] for k in md_launches}
+    torch.cuda.empty_cache()
+    ensemble_launches = phase_ensemble(torch)
+    log(f"[device-md] [device-md-mace] [ensemble]: {time.perf_counter() - t_phase:.1f} s")
     # slab graph parallelism: each phase counts its own launches
     par_launches, par_errs = {k: 0 for k in md_launches}, {}
     for phase in (phase_parallel_tensornet, phase_parallel_chgnet, phase_parallel_mace,
@@ -4284,6 +4708,10 @@ def main() -> int:
         k["batched_packed_max_abs_err"] = bat_errs.get(k["name"])
         # ... in [convert]'s three converted models
         k["convert_launches"] = convert_launches[k["name"]]
+        # ... in the DeviceMD runs of [device-md] and [device-md-mace], and in
+        # [ensemble]'s stacked and sequential calculates
+        k["device_md_launches"] = device_md_launches[k["name"]]
+        k["ensemble_launches"] = ensemble_launches[k["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -38,6 +38,12 @@ bf16 compute (their B1, B3 and B2 kernels' bf16 instantiations on the
 card); energies, forces, stress and CHGNet's magmoms come out in float32
 all the same.
 
+``EnsemblePotential`` evaluates several parameter sets of one model on one
+graph (the mean, variance and per-member results); ``calculators/
+device_md.py``'s ``DeviceMD`` steps MD with its state on the device and
+puts its refreshed graphs back into this skin cache (``_mark_cache_stale``,
+``_install_refreshed``).
+
 Not ported yet (queued in ROADMAP.md): telemetry records, the contract
 audit, the separate-forward site readout (``fused_site_readout=False``),
 the automatic partition count, partitions placed on several cards, and
@@ -472,9 +478,25 @@ class DistPotential:
         return torch.as_tensor(
             host.scatter_global(atoms.positions.astype(dtype), graph.n_cap)).to(self.device)
 
+    def _mark_cache_stale(self) -> None:
+        """Spend the skin cache's Verlet budget but KEEP the cached graph, so
+        the next ``_prepare`` refreshes it on the device (structure
+        unchanged): its build positions become ``inf``. Where the device
+        refresh cannot serve (``_device_refresh_eligible`` false, or no
+        cell-list spec) the cache is dropped and the next call rebuilds on
+        the host (``distmlip_tpu/calculators/calculator.py:599-611``)."""
+        if self._cache is None:
+            return
+        if not (self._device_refresh_eligible() and self._nbr_spec is not None):
+            self._cache = None
+            return
+        graph, host, pos0, *rest = self._cache
+        self._cache = (graph, host, np.full_like(pos0, np.inf), *rest)
+
     def _install_refreshed(self, graph, build_positions) -> None:
         """Swap a device-refreshed graph (same structure, same shapes) into
-        the skin cache with the positions it was rebuilt at."""
+        the skin cache with the positions it was rebuilt at (the
+        potential's own refresh and ``DeviceMD``'s in-loop one)."""
         _g, host, _pos0, numbers, cell, pbc, system = self._cache
         self._cache = (graph, host, np.array(build_positions, dtype=np.float64),
                        numbers, cell, pbc, system)
@@ -618,3 +640,135 @@ class UMAPredictor:
         atoms = atoms.copy()
         atoms.info.setdefault("dataset", self.dataset_id)
         return self.potential.calculate(atoms)
+
+
+def _check_same_tree(a, b, path: str = "params") -> None:
+    """Raise unless two parameter trees have the same keys, list lengths,
+    tensor shapes and dtypes."""
+    if isinstance(a, dict) != isinstance(b, dict) or isinstance(a, list) != isinstance(b, list):
+        raise ValueError(f"ensemble member trees differ at {path}: {type(a).__name__} "
+                         f"against {type(b).__name__}")
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise ValueError(f"ensemble member trees differ at {path}: keys "
+                             f"{sorted(set(a) ^ set(b))} are not in both")
+        for k in a:
+            _check_same_tree(a[k], b[k], f"{path}/{k}")
+    elif isinstance(a, list):
+        if len(a) != len(b):
+            raise ValueError(f"ensemble member trees differ at {path}: lengths {len(a)} "
+                             f"and {len(b)}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _check_same_tree(x, y, f"{path}/{i}")
+    elif (a is None) != (b is None) or (a is not None and (
+            a.shape != b.shape or a.dtype != b.dtype)):
+        raise ValueError(f"ensemble member trees differ at {path}: "
+                         f"{None if a is None else (tuple(a.shape), a.dtype)} against "
+                         f"{None if b is None else (tuple(b.shape), b.dtype)}")
+
+
+class EnsemblePotential:
+    """Uncertainty over an ensemble of parameter sets of one model
+    (``distmlip_tpu/calculators/calculator.py:1053-1189``): the mean,
+    variance and per-member stack of energies, forces and stresses (and
+    CHGNet's magmoms with ``compute_magmom=True``).
+
+    ``stacked=True`` (the default) prepares and uploads ONE graph and the
+    positions (the first member's ``DistPotential``, built from
+    ``kwargs``), then runs each member's parameters through that
+    potential's force program in turn on the device, with no host sync
+    between members, and brings the members' results back in one stack
+    and one device-to-host copy. The JAX package vmaps the members into one
+    program; the port does not use ``torch.func.vmap``: the kernels'
+    ``autograd.Function``s have no vmap rule, and ``torch.autograd.grad``
+    does not run under vmap. The member trees must have the same keys and
+    shapes. ``stacked=False`` runs one ``DistPotential`` per member.
+
+    Every member shares one ``CapacityPolicy`` (``kwargs["caps"]``, made
+    here when not given). ``last_stats`` is the graph's stats plus
+    ``member_count``; ``last_timings`` the first member's.
+    """
+
+    def __init__(self, model, params_list, stacked: bool | None = None, **kwargs):
+        if not params_list:
+            raise ValueError("params_list must be non-empty")
+        kwargs.setdefault("caps", CapacityPolicy())
+        base = DistPotential(model, params_list[0], **kwargs)
+        self.stacked = True if stacked is None else bool(stacked)
+        self.member_count = len(params_list)
+        self.last_stats: dict = {}
+        self.last_timings: dict = {}
+        self.compute_stress = base.compute_stress
+        if self.stacked:
+            self.members = [base]
+            self.params_list = [base.params] + [params_from_numpy(p, base.device)
+                                                for p in params_list[1:]]
+            for i, p in enumerate(self.params_list[1:], 1):
+                _check_same_tree(base.params, p, f"params_list[{i}]")
+        else:
+            self.members = [base] + [DistPotential(model, p, **kwargs)
+                                     for p in params_list[1:]]
+
+    def _stacked_results(self, atoms: Atoms):
+        """Per-member energies (M,), forces (M, N, 3), stresses (M, 3, 3)
+        and magmoms (M, N) or None, from one graph."""
+        base = self.members[0]
+        validate_system(base.model.cfg, atoms_system(atoms))
+        graph, host, positions = base._prepare(atoms)
+        t0 = time.perf_counter()
+        outs = [base._potential(p, graph, positions) for p in self.params_list]
+        parts = [("energy", outs[0]["energy"]), ("forces", outs[0]["forces"]),
+                 ("stress", outs[0]["stress"])]
+        if "aux" in outs[0]:
+            parts.append(("magmoms", outs[0]["aux"]["magmoms"]))
+
+        def row(out):
+            return torch.cat([(out["aux"]["magmoms"] if k == "magmoms" else out[k])
+                              .reshape(-1).to(torch.float64) for k, _ in parts])
+
+        # one stack, one device-to-host copy (float64 holds every member
+        # value exactly; each part goes back to its own dtype)
+        block = torch.stack([row(o) for o in outs]).cpu().numpy()
+        base.last_timings["device_s"] = time.perf_counter() - t0
+        got, start = {}, 0
+        for k, t in parts:
+            size = t.numel()
+            got[k] = block[:, start:start + size].reshape((-1,) + tuple(t.shape)).astype(
+                np.float32 if t.dtype == torch.float32 else np.float64)
+            start += size
+        n = len(atoms)
+        energies = np.array([float(e) for e in got["energy"]])
+        forces = np.stack([host.gather_owned(f, n) for f in got["forces"]])
+        magmoms = (np.stack([host.gather_owned(m, n) for m in got["magmoms"]])
+                   if "magmoms" in got else None)
+        return energies, forces, got["stress"], magmoms, dict(host.stats)
+
+    def calculate(self, atoms: Atoms) -> dict:
+        base = self.members[0]
+        if self.stacked:
+            energies, forces, stresses, magmoms, stats = self._stacked_results(atoms)
+        else:
+            results = [m.calculate(atoms) for m in self.members]
+            energies = np.array([r["energy"] for r in results])
+            forces = np.stack([r["forces"] for r in results])
+            stresses = np.stack([r["stress"] for r in results])
+            magmoms = (np.stack([r["magmoms"] for r in results])
+                       if "magmoms" in results[0] else None)
+            stats = dict(base.last_stats)
+        result = {
+            "energy": float(energies.mean()),
+            "free_energy": float(energies.mean()),
+            "forces": forces.mean(axis=0),
+            "stress": stresses.mean(axis=0),
+            "energy_var": float(energies.var()),
+            "forces_var": forces.var(axis=0),
+            "energies": energies,
+            "forces_all": forces,
+        }
+        if magmoms is not None:
+            result["magmoms"] = magmoms.mean(axis=0)
+            result["magmoms_all"] = magmoms
+        stats["member_count"] = self.member_count
+        self.last_stats = stats
+        self.last_timings = dict(base.last_timings)
+        return result

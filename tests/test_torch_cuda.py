@@ -2775,3 +2775,150 @@ def test_tensornet_forward_bf16_padding_only_tail_on_card(card, which):
         got = _forward_bf16_call(which, arrays, one_row, n, last5)
         assert torch.equal(got, _forward_float32_bits(which, arrays, one_row, n, last5))
         assert not bool(got[:-1].any()) and bool(got[-1].any())
+
+
+ESCN_MD_CFG = dict(max_num_elements=10, sphere_channels=16, lmax=2, mmax=1, num_layers=2,
+                   hidden_channels=16, edge_channels=8, num_distance_basis=12, cutoff=3.5,
+                   avg_degree=12.0, num_experts=3, edge_chunk=64)
+
+
+def _close(got, want, tag):
+    """The repo's float32 bar: rel dE < 1e-5, max |dF|, |dS|, |dm| < 1e-4."""
+    assert abs(got["energy"] - want["energy"]) < 1e-5 * abs(want["energy"]), tag
+    for k in ("forces", "stress", "magmoms"):
+        if k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-4, err_msg=tag)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("P", [1, 2])
+def test_escn_md_on_card_matches_plain(card, P, dtype):
+    """``ESCNMD`` (3 MOLE experts, mmax 1, edge chunks of 64, so K > 1)
+    through ``UMAPredictor`` on the card against ``kernels=False`` on the
+    card, with charge and spin set: B1 launches (1 + num_layers) x 2K per
+    calculate (the edge-degree pass and each layer, once per chunk and once
+    more in the backward's recompute of the checkpointed chunk body), the
+    count of ``tests/test_torch_escn_md.py``'s
+    ``test_segment_sum_calls_per_calculate``."""
+    from distmlip_tpu_torch.calculators import UMAPredictor
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import ESCNMD, ESCNMDConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    atoms = _long_cell(n_species=3)
+    atoms.info = {"charge": 1, "spin": 2}
+    model = ESCNMD(ESCNMDConfig(**ESCN_MD_CFG, dtype=dtype))
+    params = model.init(0)
+    pred = UMAPredictor(model, params, task_name="oc20", device=card, num_partitions=P)
+    before = dict(launch_counts)
+    gpu = pred.calculate(atoms)
+    got = {k: launch_counts[k] - before[k] for k in launch_counts}
+    st = pred.potential.last_stats
+    if P == 2:
+        k = chunk_layout(2 * st["e_cap"], ESCN_MD_CFG["edge_chunk"], 2 * st["e_split"])[2]
+    else:
+        k = chunk_layout(st["e_cap"], ESCN_MD_CFG["edge_chunk"])[2]
+    assert k > 1
+    name = "segment_sum" if dtype == "float32" else "segment_sum_bf16"
+    want = {n: 0 for n in got}
+    want[name] = (1 + ESCN_MD_CFG["num_layers"]) * 2 * k
+    assert got == want
+    plain = UMAPredictor(model, params, task_name="oc20", device=card, num_partitions=P,
+                         kernels=False).calculate(atoms)
+    assert {n: launch_counts[n] - before[n] for n in launch_counts} == want
+    if dtype == "float32":
+        _close(gpu, plain, f"ESCNMD P={P}")
+    else:
+        _bf16_close(gpu, plain, f"ESCNMD bf16 P={P}")
+
+
+def _light_cell():
+    """32 rattled fcc Li atoms (a = 3.5 Å) with 1000 K velocities from a
+    seed: a 0.3 Å skin is spent within a few 1 fs steps."""
+    from distmlip_tpu_torch import geometry
+    from distmlip_tpu_torch.calculators import Atoms
+
+    rng = np.random.default_rng(4)
+    unit = np.array([[0, 0, 0], [0.5, 0.5, 0], [0.5, 0, 0.5], [0, 0.5, 0.5]])
+    frac, lat = geometry.make_supercell(unit, np.eye(3) * 3.5, (2, 2, 2))
+    cart = geometry.frac_to_cart(frac, lat) + rng.normal(0, 0.05, (len(frac), 3))
+    atoms = Atoms(numbers=np.full(len(cart), 3), positions=cart, cell=lat)
+    atoms.set_maxwell_boltzmann_velocities(1000.0, rng=np.random.default_rng(5))
+    return atoms
+
+
+@pytest.mark.cuda
+def test_device_md_on_card_matches_plain(card):
+    """10 ``DeviceMD`` steps of a small TensorNet with the in-loop refresh
+    on the card (kernels) against ``kernels=False`` on the card: the same
+    refreshes, positions within 1e-4 Å; one host read a step plus one a
+    refresh; B2 launches 1 embed + L interactions + L backwards per force
+    evaluation, one evaluation per step and one at the chunk's start."""
+    from distmlip_tpu_torch.calculators import DeviceMD, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import TensorNet, TensorNetConfig
+
+    model = TensorNet(TensorNetConfig(num_species=4, units=16, num_rbf=8, cutoff=3.0))
+    params = model.init(0)
+    params["data_std"] = torch.tensor(10.0)  # forces of eV/Å, not meV/Å
+    runs = []
+    for kernels in (True, False):
+        atoms = _light_cell()
+        md = DeviceMD(DistPotential(model, params, device=card, skin=0.3, kernels=kernels),
+                      atoms, timestep=1.0)
+        before = dict(launch_counts)
+        md.run(10)
+        runs.append((md, atoms, {k: launch_counts[k] - before[k] for k in launch_counts}))
+    (md, atoms, got), (ref, ref_atoms, plain_launches) = runs
+    assert md.device_rebuild and md.steps_done == 10 and md.rebuilds_on_device >= 1
+    assert [md.rebuilds, md.rebuilds_on_device, md.rebuild_overflows] == [
+        ref.rebuilds, ref.rebuilds_on_device, ref.rebuild_overflows]
+    assert md.host_reads == 10 + md.rebuilds_on_device
+    evaluations, layers = 11, model.cfg.num_layers
+    want = {k: 0 for k in got}
+    want.update(tensornet_embed_aggregate=evaluations,
+                tensornet_interaction_aggregate=layers * evaluations,
+                tensornet_interaction_backward=layers * evaluations)
+    assert got == want and not any(plain_launches.values())
+    np.testing.assert_allclose(atoms.positions, ref_atoms.positions, rtol=0, atol=1e-4)
+    assert abs(md.results["energy"] - ref.results["energy"]) < 1e-5 * abs(ref.results["energy"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["mace", "chgnet"])
+def test_ensemble_on_card_stacked_matches_sequential(card, family):
+    """``EnsemblePotential`` on the card: the stacked route (one graph, the
+    members through one force program in turn) against the sequential one
+    (a ``DistPotential`` per member) within the float32 bar, member by
+    member, and M times one member's launches."""
+    from distmlip_tpu_torch.calculators import EnsemblePotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import CHGNet, CHGNetConfig, MACE, MACEConfig
+
+    atoms = _long_cell()
+    if family == "mace":
+        model = MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2, hidden_lmax=1,
+                                correlation=2, cutoff=3.0, edge_chunk=128))
+        members, kw = [model.init(s) for s in range(3)], {}
+    else:
+        model = CHGNet(CHGNetConfig(num_species=4, units=16, num_rbf=6, num_blocks=3,
+                                    cutoff=3.0, bond_cutoff=2.6))
+        members, kw = [model.init(s) for s in range(2)], {"compute_magmom": True}
+    counts = []
+    results = []
+    for stacked in (True, False):
+        ens = EnsemblePotential(model, members, stacked=stacked, device=card, **kw)
+        before = dict(launch_counts)
+        results.append(ens.calculate(atoms))
+        counts.append({k: launch_counts[k] - before[k] for k in launch_counts})
+    assert counts[0] == counts[1] and sum(counts[0].values()) > 0
+    got, want = results
+    for m in range(len(members)):
+        one = {"energy": got["energies"][m], "forces": got["forces_all"][m]}
+        ref = {"energy": want["energies"][m], "forces": want["forces_all"][m]}
+        if "magmoms_all" in want:
+            one["magmoms"], ref["magmoms"] = got["magmoms_all"][m], want["magmoms_all"][m]
+        _close(one, ref, f"{family} member {m}")
+    _close(got, want, f"{family} means")
+    assert got["energy_var"] > 0
