@@ -270,6 +270,23 @@ Phases (each failure raises, so the exit code is non-zero):
    bar. The kernels line gains each kernel's ``device_md_launches`` (the
    DeviceMD runs) and ``ensemble_launches``.
 
+15. training (``phase_train``): ``[train]`` (MACE at the MACE-MP-0-medium
+   widths), ``[train-tensornet]``, ``[train-chgnet]``, ``[train-escn]`` and
+   ``[train-bf16]`` (MACE at bench.py's bf16 configuration, loss scale
+   2^15) through ``train.Trainer`` on bench.py's train set (8 x 108-atom
+   Si labelled by a teacher of the same architecture from seed 1, student
+   from seed 0, Adam 1e-3, micro-batch 4; MACE also accumulation 4 at
+   micro-batch 1): the first step's loss terms and parameter gradient with
+   the kernels against ``kernels=False`` (float32: rel 1e-5, rel L2 1e-4;
+   bf16: no further from the float32 model than the plain bf16 route);
+   three timed steps after a warm one (step ms, examples/s, peak and the
+   measured ``est_peak_bytes``, skipped steps, fp32 master weights), their
+   launches by role (forward, force backward, parameter backward) held to
+   ``train_expected``; MACE's checkpoint after step 2 restored into a fresh
+   ``Trainer`` for step 3 (largest parameter difference from the unbroken
+   run). The kernels line gains ``train_launches`` and
+   ``train_launches_by_role``.
+
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
 card, or outside a checkout, it exits non-zero and prints no result.
@@ -4406,6 +4423,411 @@ def phase_ensemble(torch):
     log(f"[ensemble] {time.perf_counter() - t_phase:.1f} s")
     return total
 
+TRAIN_STEPS = 3   # timed optimizer steps after a warm one (bench.py's BENCH_TRAIN_STEPS)
+TRAIN_LR = 1e-3   # Adam, as bench.py's train phase
+
+
+def train_setup(torch, family):
+    """(model, student params, teacher params, atoms.info, TrainConfig
+    kwargs, loader kwargs) of one training phase at its full published width: the student
+    from seed 0, the teacher from seed 1 (CHGNet's and eSCN's readout terms
+    off their defaults, as ``batched_family``)."""
+    from distmlip_tpu_torch.models import (CHGNet, CHGNetConfig, ESCN, ESCNConfig, MACE,
+                                           MACEConfig, TensorNet, TensorNetConfig)
+    from distmlip_tpu_torch.tools.workload import (CHGNET_KW, ESCN_INFO, ESCN_KW,
+                                                   MACE_BF16_KW, MACE_KW, TENSORNET_KW)
+
+    info, cfg, lk = {}, {}, {}
+    if family == "mace":
+        model = MACE(MACEConfig(**MACE_KW))
+    elif family == "mace-bf16":
+        model, cfg = MACE(MACEConfig(**MACE_BF16_KW)), {"precision": "bf16"}
+    elif family == "tensornet":
+        model = TensorNet(TensorNetConfig(**TENSORNET_KW))
+    elif family == "chgnet":
+        model = CHGNet(CHGNetConfig(**CHGNET_KW))
+        lk = {"use_bond_graph": True, "bond_cutoff": CHGNET_KW["bond_cutoff"]}
+    else:
+        model, info = ESCN(ESCNConfig(**ESCN_KW)), dict(ESCN_INFO)
+    params = []
+    for seed in (0, 1):
+        p = model.init(seed)
+        gen = torch.Generator().manual_seed(seed)
+        if family == "chgnet":
+            p["species_ref"]["w"] = torch.randn((CHGNET_KW["num_species"], 1), generator=gen)
+            p["data_std"] = torch.tensor(1.3)
+        elif family == "escn":
+            p["species_ref"]["w"] = torch.randn((ESCN_KW["num_species"],), generator=gen)
+        params.append(p)
+    return model, params[0], params[1], info, cfg, lk
+
+
+class RoleCounter:
+    """Launch counts by the part of a train step that made them, from
+    snapshots of ``launch_counts`` around each outermost
+    ``torch.autograd.grad`` call (one made inside a backward, as the
+    chunked recompute's, belongs to the call around it):
+    ``forward`` (before a force gradient: the energy forward),
+    ``force_backward`` (inside ``grad(..., create_graph=True)``: the force
+    program's backward with its graph kept, B3's input cotangent and the
+    checkpointed chunks' recompute) and ``parameter_backward`` (inside the
+    parameter gradient: the double backward, B3's launch on the transposed
+    weight set and its own backward)."""
+
+    ROLES = ("forward", "force_backward", "parameter_backward")
+
+    def __init__(self, torch, counts):
+        self.torch, self.counts = torch, counts
+        self.roles = {r: {k: 0 for k in counts} for r in self.ROLES}
+
+    def _add(self, role, since):
+        for k, v in self.counts.items():
+            self.roles[role][k] += v - since[k]
+
+    def __enter__(self):
+        real = self.torch.autograd.grad
+        self._last = dict(self.counts)
+        self._depth = 0
+
+        def grad(*a, **k):
+            if self._depth:  # a grad inside a backward (the chunked recompute)
+                return real(*a, **k)
+            self._add("forward", self._last)
+            before = dict(self.counts)
+            self._depth += 1
+            try:
+                out = real(*a, **k)
+            finally:
+                self._depth -= 1
+            self._add("force_backward" if k.get("create_graph") else "parameter_backward",
+                      before)
+            self._last = dict(self.counts)
+            return out
+
+        self._patch = mock.patch.object(self.torch.autograd, "grad", grad)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+        self._add("forward", self._last)  # nothing should land here
+        return False
+
+    def nonzero(self):
+        return {r: nonzero(c) for r, c in self.roles.items()}
+
+
+def first_step(torch, model, params, batch, kernels, cfg):
+    """The first optimizer step's loss terms and accumulated parameter
+    gradient (before the update) from a fresh master copy of ``params`` on
+    the card: the packed loss over each micro-batch of ``batch`` and its
+    parameter gradient, summed in fp32 and averaged, as the step does."""
+    import functools
+
+    from distmlip_tpu_torch.train import init_train_state, make_packed_loss_fn
+    from distmlip_tpu_torch.train.step import param_leaves
+
+    state = init_train_state(functools.partial(torch.optim.SGD, lr=0.0), params,
+                             config=cfg, device="cuda")
+    loss_fn = make_packed_loss_fn(model.energy_fn, config=cfg, kernels=kernels)
+    leaves = param_leaves(state.params)
+    g_sum = [torch.zeros_like(p) for p in leaves]
+    comps_sum = None
+    for graph, tgt in zip(batch.graphs, batch.targets):
+        loss, comps = loss_fn(state.params, graph, tgt)
+        for acc, g in zip(g_sum, torch.autograd.grad(loss, leaves, allow_unused=True)):
+            if g is not None:
+                acc.add_(g.float())
+        comps_sum = comps if comps_sum is None else {
+            k: comps_sum[k] + v for k, v in comps.items()}
+    n = len(batch.graphs)
+    vec = torch.cat([g.reshape(-1) for g in g_sum]) / n
+    return {k: float(v) / n for k, v in comps_sum.items()}, vec.double().cpu()
+
+
+def train_expected(family, model, e_cap, passes):
+    """Launches by role over ``passes`` micro-batch passes at edge
+    capacity ``e_cap``, derived from the code: MACE's B1 runs
+    num_interactions x K in the forward, again in the force backward
+    (remat's recompute of each checkpointed chunk) and again in the
+    parameter backward (the recompute once more); TensorNet launches its
+    embed and L interactions forward, the interaction's backward kernel in
+    the parameter backward (the forward Function's backward runs there
+    outside grad mode) and nothing in the force backward (the chunked
+    plain recompute); CHGNet launches its convs and row projections
+    forward only; eSCN's B3 runs L x K x experts forward, twice that in
+    the force backward (recompute and input cotangent) and three times in
+    the parameter backward (the transposed launch's own backward, the
+    input cotangent again, the recompute again), and its B1 (1 + L) x K in
+    each."""
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+
+    cfg, n = model.cfg, passes
+    if family in ("mace", "mace-bf16"):
+        per = cfg.num_interactions * chunk_layout(e_cap, cfg.edge_chunk)[2] * n
+        b1 = "segment_sum_bf16" if family == "mace-bf16" else "segment_sum"
+        return {r: {b1: per} for r in RoleCounter.ROLES}
+    if family == "tensornet":
+        L = cfg.num_layers
+        return {"forward": {"tensornet_embed_aggregate": n,
+                            "tensornet_interaction_aggregate": L * n},
+                "force_backward": {},
+                "parameter_backward": {"tensornet_interaction_backward": L * n}}
+    if family == "chgnet":
+        b = cfg.num_blocks
+        return {"forward": {"chgnet_atom_conv_aggregate": b * n,
+                            "chgnet_line_aggregate": (b - 1) * n,
+                            "chgnet_row_projection": (b + 2 * (b - 1)) * n},
+                "force_backward": {}, "parameter_backward": {}}
+    K = chunk_layout(e_cap, cfg.edge_chunk)[2]
+    so2, b1 = cfg.num_layers * K * cfg.num_experts * n, (1 + cfg.num_layers) * K * n
+    return {"forward": {"so2_conv": so2, "segment_sum": b1},
+            "force_backward": {"so2_conv": 2 * so2, "segment_sum": b1},
+            "parameter_backward": {"so2_conv": 3 * so2, "segment_sum": b1}}
+
+
+def rel_l2(a, b):
+    return float((a - b).norm() / b.norm())
+
+
+# [train-bf16]'s first step, the bf16 kernel route against the plain bf16
+# route at MACE_BF16_KW: five card runs measured the gradient 1.6e-3 to
+# 2.7e-3 apart (rel L2) and the loss 5.3e-5 to 4.5e-4 apart (rel; the plain
+# route's index_add_ atomics move it run to run); the bars are ~4x the
+# largest of each
+BF16_TRAIN_GRAD_TOL = 1e-2
+BF16_TRAIN_LOSS_TOL = 2e-3
+
+
+def train_parity(torch, tag, model, params, batch, cfg, ref=None):
+    """The same first step with ``kernels=True`` and ``kernels=False`` from
+    one copy of the state. float32: loss terms within rel 1e-5 and the
+    gradient vector within rel L2 1e-4 (both routes float32; the kernels
+    sum in another order). bf16 (``ref``: the float32 model of the same
+    widths): the kernel route no further from float32 than the plain route
+    is, x 1.25 + 1e-3, in the loss and in the gradient (each bf16 route
+    rounds the same fp32 sums at other bf16 ulps, which their distances
+    from float32 measure, as PERF.md §6's bf16 bars), and beside that the
+    kernel route against the plain bf16 route directly: the gradient within
+    rel L2 BF16_TRAIN_GRAD_TOL and the loss within rel BF16_TRAIN_LOSS_TOL
+    (the distance to float32 alone, ~0.11, would hide an added error of a
+    few per cent). Returns the deltas."""
+    comps_k, g_k = first_step(torch, model, params, batch, True, cfg)
+    comps_p, g_p = first_step(torch, model, params, batch, False, cfg)
+    out = {"loss_kernels": comps_k["loss"], "loss_plain": comps_p["loss"],
+           "grad_rel_l2": rel_l2(g_k, g_p),
+           "grad_norm": float(g_p.norm())}
+    if not (torch.isfinite(g_k).all() and torch.isfinite(g_p).all()):
+        raise AssertionError(f"[{tag}] non-finite first-step gradient: {out}")
+    if ref is None:
+        for k in ("loss", "energy", "force", "stress"):
+            out[f"rel_d{k}"] = abs(comps_k[k] - comps_p[k]) / max(abs(comps_p[k]), 1e-30)
+        bad = [k for k in ("loss", "energy", "force", "stress")
+               if abs(comps_k[k] - comps_p[k]) > 1e-5 * abs(comps_p[k])]
+        if bad or not out["grad_rel_l2"] < 1e-4:
+            raise AssertionError(f"[{tag}] kernels vs plain, first step: {out}")
+        return out
+    from distmlip_tpu_torch.train import TrainConfig
+
+    comps_32, g_32 = first_step(torch, ref, params, batch, False, TrainConfig())
+    out.update(loss_float32=comps_32["loss"], grad_kernels_vs_float32=rel_l2(g_k, g_32),
+               grad_plain_vs_float32=rel_l2(g_p, g_32))
+    dl_k = abs(comps_k["loss"] - comps_32["loss"])
+    dl_p = abs(comps_p["loss"] - comps_32["loss"])
+    out.update(loss_kernels_vs_float32=dl_k, loss_plain_vs_float32=dl_p,
+               loss_rel_kernels_vs_plain=abs(comps_k["loss"] - comps_p["loss"])
+               / abs(comps_p["loss"]))
+    if not (dl_k <= 1.25 * dl_p + 1e-3 * abs(comps_32["loss"])
+            and out["grad_kernels_vs_float32"]
+            <= 1.25 * out["grad_plain_vs_float32"] + 1e-3
+            and out["grad_rel_l2"] <= BF16_TRAIN_GRAD_TOL
+            and out["loss_rel_kernels_vs_plain"] <= BF16_TRAIN_LOSS_TOL):
+        raise AssertionError(f"[{tag}] bf16 kernels vs plain, first step: {out}")
+    return out
+
+
+def timed_training(torch, tag, model, student, samples, cutoff, B, A, cfg, lk):
+    """A ``Trainer`` on the card at micro-batch B and accumulation A (Adam
+    at TRAIN_LR, bench.py's ``hbm_budget_frac`` 0.95): its measured step
+    peak (``est_peak_bytes``), one warm step, then TRAIN_STEPS steps with
+    every launch count set to 0 just before and the peak reset, counted by
+    role. Returns the summary and the launches."""
+    import functools
+
+    import numpy as np
+
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.train import TrainConfig, Trainer
+    from distmlip_tpu_torch.train.step import param_leaves
+
+    t0 = time.perf_counter()
+    trainer = Trainer(model.energy_fn, student,
+                      functools.partial(torch.optim.Adam, lr=TRAIN_LR), samples, cutoff,
+                      micro_batch_size=B, config=TrainConfig(accum_steps=A, **cfg),
+                      hbm_budget_frac=0.95, device="cuda", loader_kwargs=lk)
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    trainer.fit(steps=1)  # warm
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    with RoleCounter(torch, launch_counts) as roles:
+        t0 = time.perf_counter()
+        hist = trainer.fit(steps=TRAIN_STEPS)[-TRAIN_STEPS:]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    peak = torch.cuda.max_memory_allocated()
+    skipped = sum(int(h["skipped"]) for h in trainer.history)
+    masters = {p.dtype for p in param_leaves(trainer.state.params)
+               + param_leaves(trainer.state.ema_params)}
+    summary = {
+        "micro_batch": B, "accum": A, "steps": TRAIN_STEPS,
+        "n_atoms_per_step": B * A * len(samples[0].forces),
+        "step_ms": [h["step_s"] * 1e3 for h in hist],
+        "step_ms_median": statistics.median(h["step_s"] * 1e3 for h in hist),
+        "examples_per_s": A * B * TRAIN_STEPS / dt,
+        "first_step_s": first_s, "trainer_setup_s": setup_s,
+        "max_memory_allocated_bytes": peak, "est_peak_bytes": trainer.est_peak_bytes,
+        "tier_peak_bytes": trainer.tier_peak_bytes, "skipped": skipped,
+        "e_cap": trainer.loader.caps.as_dict()["edges"],
+        "loss": [h["loss"] for h in hist], "loss_scale": hist[-1]["loss_scale"],
+        "launches_per_step": {k: v / TRAIN_STEPS for k, v in nonzero(launches).items()},
+        "launches_by_role": roles.nonzero(),
+        "master_dtypes": sorted(str(d) for d in masters),
+    }
+    trainer.close()
+    if skipped or not all(np.isfinite(h["loss"]) for h in trainer.history):
+        raise AssertionError(f"[{tag}] a skipped or non-finite step: {summary}")
+    if masters != {torch.float32}:
+        raise AssertionError(f"[{tag}] master weights not fp32: {masters}")
+    log(f"[{tag}] B {B} x A {A}: {json.dumps(summary)}")
+    return summary, launches, roles
+
+
+RESUME_TOL = 1e-5  # absolute, on weights of O(0.1-1): float32 roundoff of one step, ~lr / 100
+
+
+def train_resume(torch, tag, model, student, samples, cutoff, lk):
+    """Checkpoint after step 2, restore into a fresh ``Trainer``, take step
+    3, and hold it to the unbroken run's step 3: master and EMA weights
+    within RESUME_TOL absolute (on the card ``index_add_`` adds with
+    atomics, so the two agree to roundoff, not bit for bit: measured
+    2.4-4.8e-7), the loss within rel 1e-5, and the step, loss scale, its
+    good-step count and the loader cursor equal. An Adam step moves an
+    element by about lr = 1e-3, so a restore that kept the fresh weights or
+    lost the moments lands near lr away; a third trainer that takes its
+    step without the restore shows the bar tells the two apart."""
+    import functools
+    import tempfile
+
+    from distmlip_tpu_torch.train import TrainConfig, Trainer
+    from distmlip_tpu_torch.train.step import param_leaves
+
+    def make(directory):
+        return Trainer(model.energy_fn, student,
+                       functools.partial(torch.optim.Adam, lr=TRAIN_LR), samples, cutoff,
+                       micro_batch_size=4, config=TrainConfig(), hbm_budget_frac=0.95,
+                       checkpoint_dir=directory, device="cuda", loader_kwargs=lk)
+
+    def max_diff(a, b, name):
+        return max(float((x.detach() - y.detach()).abs().max()) for x, y in zip(
+            param_leaves(getattr(a.state, name)), param_leaves(getattr(b.state, name))))
+
+    def scalars(t):
+        return [int(t.state.step), float(t.state.loss_scale), int(t.state.good_steps)]
+
+    with tempfile.TemporaryDirectory() as d:
+        t1 = make(d)
+        t1.fit(steps=2)
+        path = t1.save_checkpoint()
+        t1.train_step()
+        t2 = make(d)
+        restored = t2.restore(path)
+        t2.train_step()
+        t3 = make(d)
+        t3.train_step()  # the control: step 3 without the restore
+        l1, l2 = t1.history[-1]["loss"], t2.history[-1]["loss"]
+        out = {"restored_step": restored,
+               "max_param_diff": max_diff(t1, t2, "params"),
+               "max_ema_diff": max_diff(t1, t2, "ema_params"),
+               "max_param_diff_unrestored": max_diff(t1, t3, "params"),
+               "loss_step3": [l1, l2], "loss_rel_diff": abs(l1 - l2) / abs(l1),
+               "step_scale_good": [scalars(t1), scalars(t2)],
+               "cursor": [t1.loader.state(), t2.loader.state()], "tol": RESUME_TOL}
+        for t in (t1, t2, t3):
+            t.close()
+    if (restored != 2 or out["cursor"][0] != out["cursor"][1]
+            or out["step_scale_good"][0] != out["step_scale_good"][1]
+            or not out["max_param_diff"] <= RESUME_TOL
+            or not out["max_ema_diff"] <= RESUME_TOL
+            or not out["loss_rel_diff"] <= 1e-5
+            or not out["max_param_diff_unrestored"] > 10 * RESUME_TOL):
+        raise AssertionError(f"[{tag}] resume: {out}")
+    log(f"[{tag}] resume after step 2: {json.dumps(out)}")
+    return out
+
+
+def phase_train(torch, family):
+    """``[train]`` (MACE at MACE_KW), ``[train-tensornet]``,
+    ``[train-chgnet]``, ``[train-escn]`` and ``[train-bf16]`` (MACE at
+    MACE_BF16_KW, ``precision="bf16"``, loss scale 2^15): bench.py's train
+    set (8 x 108-atom Si) labelled by a teacher of the same architecture
+    (seed 1) through ``BatchedPotential``; the student from seed 0, Adam
+    1e-3. The first step with kernels against ``kernels=False``
+    (``train_parity``); ``timed_training`` at micro-batch 4 (and for
+    MACE also accumulation 4 at micro-batch 1, as bench.py), its launches
+    by role held to ``train_expected``; MACE also ``train_resume``.
+    Returns the timed runs' launches, and their launches by role."""
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.tools.workload import MACE_KW, train_samples
+    from distmlip_tpu_torch.train import PackedBatchLoader, TrainConfig
+
+    import numpy as np
+
+    t_phase = time.perf_counter()
+    tag = {"mace": "train", "mace-bf16": "train-bf16"}.get(family, f"train-{family}")
+    model, student, teacher, info, cfg, lk = train_setup(torch, family)
+    cutoff = float(model.cfg.cutoff)
+    t0 = time.perf_counter()
+    samples = train_samples(model, teacher, info)
+    log(f"[{tag}] labels: {len(samples)} x {len(samples[0].forces)} atoms in "
+        f"{time.perf_counter() - t0:.1f} s; max |F| {max(float(np.abs(s.forces).max()) for s in samples):.4g}")
+    loader = PackedBatchLoader(samples, cutoff, micro_batch_size=4, shuffle=False, prefetch=0,
+                               **lk)
+    batch = loader.next_batch().to("cuda")
+    loader.close()
+    ref = MACE(MACEConfig(**MACE_KW)) if family == "mace-bf16" else None
+    parity = train_parity(torch, tag, model, student, batch, TrainConfig(**cfg), ref)
+    log(f"[{tag}] first step, kernels vs plain: {json.dumps(parity)}")
+    del batch
+    torch.cuda.empty_cache()
+    total = {}
+    roles_total = {r: {k: 0 for k in launch_counts} for r in RoleCounter.ROLES}
+    runs = [(4, 1), (1, 4)] if family == "mace" else [(4, 1)]
+    for B, A in runs:
+        summary, launches, roles = timed_training(torch, tag, model, student, samples, cutoff,
+                                                  B, A, cfg, lk)
+        want = train_expected(family, model, summary["e_cap"], TRAIN_STEPS * A)
+        if roles.nonzero() != want:
+            raise AssertionError(f"[{tag}] launches by role {roles.nonzero()} differ from "
+                                 f"the derivation {want}")
+        log(f"[{tag}] B {B} x A {A}: launches by role as derived: {json.dumps(want)}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for r, counts in roles.roles.items():
+            for k, v in counts.items():
+                roles_total[r][k] += v
+        torch.cuda.empty_cache()
+    if family == "mace":
+        train_resume(torch, tag, model, student, samples, cutoff, lk)
+    log(f"[{tag}] {time.perf_counter() - t_phase:.1f} s")
+    return total, roles_total
+
+
 def main() -> int:
     import torch
 
@@ -4525,6 +4947,19 @@ def main() -> int:
     torch.cuda.empty_cache()
     ensemble_launches = phase_ensemble(torch)
     log(f"[device-md] [device-md-mace] [ensemble]: {time.perf_counter() - t_phase:.1f} s")
+    # training: each phase counts its own timed steps' launches, by role too
+    t_phase = time.perf_counter()
+    train_launches = {k: 0 for k in md_launches}
+    train_roles = {r: {k: 0 for k in md_launches} for r in RoleCounter.ROLES}
+    for family in ("mace", "tensornet", "chgnet", "escn", "mace-bf16"):
+        torch.cuda.empty_cache()
+        launched, roles = phase_train(torch, family)
+        for k, v in launched.items():
+            train_launches[k] += v
+        for r, counts in roles.items():
+            for k, v in counts.items():
+                train_roles[r][k] += v
+    log(f"[train*]: {time.perf_counter() - t_phase:.1f} s")
     # slab graph parallelism: each phase counts its own launches
     par_launches, par_errs = {k: 0 for k in md_launches}, {}
     for phase in (phase_parallel_tensornet, phase_parallel_chgnet, phase_parallel_mace,
@@ -4712,6 +5147,10 @@ def main() -> int:
         # [ensemble]'s stacked and sequential calculates
         k["device_md_launches"] = device_md_launches[k["name"]]
         k["ensemble_launches"] = ensemble_launches[k["name"]]
+        # ... in the [train*] phases' timed steps, and by the part of the
+        # step that launched it (RoleCounter)
+        k["train_launches"] = train_launches[k["name"]]
+        k["train_launches_by_role"] = {r: c[k["name"]] for r, c in train_roles.items()}
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -17,7 +17,9 @@ gradient flows back through the exchange to each atom's owner row.
 ``make_batched_potential_fn`` is the batched counterpart
 (``distmlip_tpu/parallel/runtime.py:421``, ``mesh=None``): per-structure
 energies, forces and strain gradients of a block-diagonally packed batch
-(``partition/batch.py``) from one autograd pass.
+(``partition/batch.py``) from one autograd pass. ``make_packed_energy_fn``
+(``:290``) is the same energy program with nothing detached, for the
+training loss.
 
 Model contract:
     model_energy_fn(params, lg: LocalGraph, positions) -> per-atom energies
@@ -105,6 +107,58 @@ def make_potential_fn(model_energy_fn, *, compute_stress: bool = True, kernels: 
     return potential
 
 
+def _packed_energy(model_energy_fn, *, kernels: bool, aux: bool):
+    """``(params, graph, positions, strain) -> (energies, aux_out)`` over a
+    packed batch: per-structure energies (batch_size,) with every input's
+    graph kept (positions, strain and the parameters), the body of
+    ``make_batched_potential_fn`` and ``make_packed_energy_fn``."""
+
+    def packed_energy(params, graph, positions, strain):
+        if graph.num_partitions != 1 or graph.batch_size < 1 or graph.struct_id is None:
+            raise ValueError(
+                "a packed energy requires a single-partition packed graph (got "
+                f"P={graph.num_partitions}, batch_size={graph.batch_size}); build it "
+                "with pack_structures()")
+        lg = local_graph_from_stacked(graph, kernels=kernels)
+        dtype = positions.dtype
+        B = graph.batch_size
+        # padded rows carry the sentinel slot B: clamp it onto the last slot
+        # for the gathers below (those rows are masked everywhere)
+        sid = torch.clamp(lg.struct_id.long(), max=B - 1)
+        sym = 0.5 * (strain + strain.transpose(-1, -2)).to(dtype)
+        defm = torch.eye(3, dtype=dtype, device=positions.device)[None] + sym
+        pos = torch.einsum("ni,nij->nj", positions[0], defm.index_select(0, sid))
+        esid = sid.index_select(0, lg.edge_dst.long())
+        lg.edge_offset = torch.einsum("ei,eij->ej", lg.edge_offset.to(dtype),
+                                      defm.index_select(0, esid))
+        lg.lattice = None
+        out = model_energy_fn(params, lg, pos)
+        e_atoms, aux_out = out if aux else (out, None)
+        return lg.structure_sum(e_atoms.reshape(-1).to(dtype)), aux_out
+
+    return packed_energy
+
+
+def make_packed_energy_fn(model_energy_fn, *, kernels: bool = True):
+    """Per-structure energies of a packed batch with the parameters
+    differentiable (``distmlip_tpu/parallel/runtime.py:290-325``, the
+    ``mesh=None`` path): ``(params, graph, positions, strain) ->
+    (batch_size,)``.
+
+    ``graph`` is a ``pack_structures`` graph of tensors, ``positions``
+    (1, N_cap, 3) and ``strain`` the per-structure (batch_size, 3, 3)
+    symmetric strain. Nothing is detached: the training loss
+    (``train/step.py``) takes the force and strain gradients with
+    ``create_graph=True`` and then the parameter gradient through them. A
+    graph with P > 1 raises, as the batched potential does."""
+    body = _packed_energy(model_energy_fn, kernels=kernels, aux=False)
+
+    def packed_energy(params, graph, positions, strain):
+        return body(params, graph, positions, strain)[0]
+
+    return packed_energy
+
+
 def make_batched_potential_fn(model_energy_fn, *, compute_stress: bool = True,
                               aux: bool = False, mesh=None, kernels: bool = True):
     """(params, graph, positions) -> dict over a packed batch
@@ -136,29 +190,7 @@ def make_batched_potential_fn(model_energy_fn, *, compute_stress: bool = True,
             "make_batched_potential_fn(mesh=...): the 2-D (batch x spatial) mesh "
             "placement is not ported (ROADMAP.md A7); the batched engine runs on one "
             "device")
-
-    def batched_energy(params, graph, positions, strain):
-        if graph.num_partitions != 1 or graph.batch_size < 1 or graph.struct_id is None:
-            raise ValueError(
-                "make_batched_potential_fn requires a single-partition packed graph (got "
-                f"P={graph.num_partitions}, batch_size={graph.batch_size}); build it "
-                "with pack_structures()")
-        lg = local_graph_from_stacked(graph, kernels=kernels)
-        dtype = positions.dtype
-        B = graph.batch_size
-        # padded rows carry the sentinel slot B: clamp it onto the last slot
-        # for the gathers below (those rows are masked everywhere)
-        sid = torch.clamp(lg.struct_id.long(), max=B - 1)
-        sym = 0.5 * (strain + strain.transpose(-1, -2)).to(dtype)
-        defm = torch.eye(3, dtype=dtype, device=positions.device)[None] + sym
-        pos = torch.einsum("ni,nij->nj", positions[0], defm.index_select(0, sid))
-        esid = sid.index_select(0, lg.edge_dst.long())
-        lg.edge_offset = torch.einsum("ei,eij->ej", lg.edge_offset.to(dtype),
-                                      defm.index_select(0, esid))
-        lg.lattice = None
-        out = model_energy_fn(params, lg, pos)
-        e_atoms, aux_out = out if aux else (out, None)
-        return lg.structure_sum(e_atoms.reshape(-1).to(dtype)), aux_out
+    batched_energy = _packed_energy(model_energy_fn, kernels=kernels, aux=aux)
 
     def potential(params, graph, positions):
         positions = positions.detach().requires_grad_(True)

@@ -81,13 +81,34 @@ class PackedHostData:
     def num_structures(self) -> int:
         return len(self.n_atoms)
 
+    @property
+    def structure_slots(self) -> np.ndarray:
+        """(B,) slot of each structure in the runtime's ``energies`` (the
+        identity on one device)."""
+        return np.arange(self.num_structures, dtype=np.int64)
+
     def scatter_positions(self, positions_list, dtype=np.float32) -> np.ndarray:
         """Per-structure (n_b, 3) positions -> the packed (1, N_cap, 3)
         (padded rows zero)."""
-        out = np.zeros((1, self.n_cap, 3), dtype=dtype)
-        for b, pos in enumerate(positions_list):
+        return self.scatter_per_atom(positions_list, dtype=dtype)
+
+    def scatter_per_atom(self, arrays, dtype=np.float32) -> np.ndarray:
+        """Per-structure per-atom arrays (n_b, ...) of one trailing shape ->
+        the packed (1, N_cap, ...) layout (padded rows zero): positions,
+        force targets, any node-aligned label."""
+        trail = np.shape(np.asarray(arrays[0]))[1:]
+        out = np.zeros((1, self.n_cap) + trail, dtype=dtype)
+        for b, arr in enumerate(arrays):
             s = self.node_offsets[b]
-            out[0, s:s + len(pos)] = pos
+            out[0, s:s + len(arr)] = arr
+        return out
+
+    def atom_slots(self) -> np.ndarray:
+        """(1, N_cap) int32 slot of each node row; padded rows carry the
+        ``batch_size`` sentinel, one past the last slot."""
+        out = np.full((1, self.n_cap), self.batch_size, dtype=np.int32)
+        for b in range(self.num_structures):
+            out[0, self.node_offsets[b]:self.node_offsets[b + 1]] = b
         return out
 
     def gather_per_structure(self, packed: np.ndarray) -> list:
@@ -122,11 +143,13 @@ def pack_structures(structures, cutoff: float, bond_cutoff: float = 0.0,
                     use_bond_graph: bool = False, caps: BucketPolicy | None = None,
                     species_fn=None, dtype=np.float32, skin: float = 0.0,
                     system: dict | None = None, spatial_parts: int = 1,
-                    batch_parts: int = 1) -> tuple[PartitionedGraph, PackedHostData]:
+                    batch_parts: int = 1,
+                    num_threads: int | None = None) -> tuple[PartitionedGraph, PackedHostData]:
     """Pack a list of ``Atoms`` into one block-diagonal ``PartitionedGraph``
     (host numpy; ``graph.to(device)`` uploads it).
 
-    ``caps`` (default a shared ``BucketPolicy``) quantizes every capacity
+    ``num_threads`` caps the native neighbor search's threads (default:
+    its own rule). ``caps`` (default a shared ``BucketPolicy``) quantizes every capacity
     onto its ladder and the batch slots onto powers of two. ``species_fn``
     maps atomic numbers to model species (default: identity). ``skin``
     builds at ``cutoff + skin`` for the skin cache. ``system``
@@ -153,7 +176,8 @@ def pack_structures(structures, cutoff: float, bond_cutoff: float = 0.0,
     # --- per-structure single-partition plans (dst-sorted per block) ---
     blocks = []
     for atoms in structures:
-        nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r_build, bond_r=b_build)
+        nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r_build, bond_r=b_build,
+                           num_threads=num_threads)
         plan = build_plan(nl, atoms.cell, atoms.pbc, 1, r_build, b_build, use_bond_graph)
         cell = np.asarray(atoms.cell, dtype=np.float64)
         ne = len(plan.src_local[0])

@@ -18,6 +18,12 @@ dataset, ``uma-bf16`` the same at ``UMA_BF16_KW``.
 ``--num-partitions P`` splits the structure into P slabs, run on the card
 as one flattened graph (``parallel/halo.py``).
 
+``--train`` profiles one optimizer step of ``train.Trainer`` instead (MACE,
+TensorNet, CHGNet or eSCN at the workload widths, bench.py's train set of
+8 x 108-atom Si labelled by a teacher from seed 1, micro-batch 4,
+Adam 1e-3): two warm steps, then one step under the
+CPU + CUDA profile, split as part 2 below; ``--reps`` is ignored.
+
 1. The first ``calculate`` (cold: CUDA context, library handles, the graph
    build and upload) under a CPU-only profile: its wall time and the ops
    that take the most host time.
@@ -47,6 +53,85 @@ def _top(events, key, n):
              "ms": getattr(e, key) / 1e3} for e in rows if getattr(e, key) > 0]
 
 
+def _device_split(torch, prof, wall_s, out_dir) -> dict:
+    """Wall and device time of a profiled step, the device's busy share,
+    the port's own kernels' device time and share, and the top ops and
+    kernels by device time; writes the Chrome trace and the table."""
+    from torch.autograd import DeviceType
+
+    ev = prof.key_averages()
+    trace = os.path.join(out_dir, "step_profile_warm.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    # device work = kernels, memcpys and memsets on the card's timeline
+    device_ms = sum(e["dur"] for e in events
+                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
+    # device-side kernel rows only: op rows repeat their kernels' time
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    own = {}  # the port's kernels, by their __global__ names
+    for e in kernels:
+        for name in ("segment_sum_kernel", "segment_sum_bf16_row_kernel",
+                     "tensornet_embed_kernel",
+                     "tensornet_interaction_kernel", "tensornet_interaction_bwd_kernel",
+                     "chgnet_atom_conv_kernel",
+                     "chgnet_line_conv_kernel", "chgnet_row_projection_kernel",
+                     "so2_conv_kernel"):
+            if name in e.key:
+                row = own.setdefault(name, {"calls": 0, "ms": 0.0})
+                row["calls"] += e.count
+                row["ms"] += e.self_device_time_total / 1e3
+    for row in own.values():
+        row["device_share"] = row["ms"] / device_ms if device_ms else 0.0
+    with open(os.path.join(out_dir, "step_profile_warm.txt"), "w") as f:
+        f.write(ev.table(sort_by="self_device_time_total", row_limit=80))
+    return {
+        "wall_ms": wall_s * 1e3, "device_ms": device_ms,
+        "device_busy_share": device_ms / (wall_s * 1e3),
+        "own_kernels": own,
+        "top_ops_device_inclusive": _top(
+            [e for e in ev if e.key.startswith("aten::")], "device_time_total", 20),
+        "top_kernels": _top(kernels, "self_device_time_total", 25),
+        "card": torch.cuda.get_device_name(0),
+    }
+
+
+def _profile_train(torch, family, model, out_dir) -> int:
+    """One ``Trainer`` step (module docstring) under the CPU + CUDA profile."""
+    import functools
+
+    micro_batch = 4
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..train import Trainer
+    from .workload import CHGNET_KW, ESCN_INFO, train_samples
+
+    if family.startswith("uma"):
+        print("step_profile: --train takes mace, tensornet, chgnet or escn", file=sys.stderr)
+        return 2
+    teacher = model.init(1)
+    samples = train_samples(model, teacher, ESCN_INFO if family == "escn" else None)
+    lk = ({"use_bond_graph": True, "bond_cutoff": CHGNET_KW["bond_cutoff"]}
+          if family == "chgnet" else {})
+    trainer = Trainer(model.energy_fn, model.init(0),
+                      functools.partial(torch.optim.Adam, lr=1e-3), samples,
+                      float(model.cfg.cutoff), micro_batch_size=micro_batch,
+                      hbm_budget_frac=0.95, device="cuda", loader_kwargs=lk)
+    trainer.fit(steps=2)  # warm, outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        m = trainer.train_step()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    print(json.dumps({"part": "train_step", "model": family, "micro_batch": micro_batch,
+                      "n_atoms": micro_batch * len(samples[0].forces), "loss": m["loss"],
+                      "est_peak_bytes": trainer.est_peak_bytes,
+                      **_device_split(torch, prof, wall_s, out_dir)}))
+    trainer.close()
+    return 0
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=("mace", "tensornet", "chgnet", "escn", "uma",
@@ -56,6 +141,8 @@ def main(argv=None) -> int:
                          "escn and uma, 16 for tensornet and chgnet")
     ap.add_argument("--num-partitions", type=int, default=1,
                     help="slabs of the structure (default 1)")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one train step (train.Trainer) instead of an MD step")
     ap.add_argument("--out", default=None,
                     help="directory for trace and tables (default "
                          "build/step_profile/<model>, with _p<P> at P > 1)")
@@ -66,7 +153,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("step_profile: needs an NVIDIA card", file=sys.stderr)
         return 2
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from ..calculators import UMA_TASK_DATASETS, DistPotential
@@ -77,7 +163,8 @@ def main(argv=None) -> int:
 
     P = args.num_partitions
     out_dir = args.out or os.path.join("build", "step_profile",
-                                       args.model + (f"_p{P}" if P > 1 else ""))
+                                       args.model + (f"_p{P}" if P > 1 else "")
+                                       + ("_train" if args.train else ""))
     os.makedirs(out_dir, exist_ok=True)
     extra = {}
     if args.model == "mace":
@@ -92,6 +179,8 @@ def main(argv=None) -> int:
     else:
         kw = UMA_BF16_KW if args.model == "uma-bf16" else UMA_KW
         model, reps = ESCNMD(ESCNMDConfig(**kw)), args.reps or 8
+    if args.train:
+        return _profile_train(torch, args.model, model, out_dir)
     atoms, rng = bench_atoms(reps)
     if args.model == "escn":
         atoms.info = dict(ESCN_INFO)
@@ -123,43 +212,8 @@ def main(argv=None) -> int:
         warm_s = time.perf_counter() - t
     if pot.rebuild_count != 1:
         raise AssertionError("the profiled step rebuilt the graph")
-    ev = warm.key_averages()
-    trace = os.path.join(out_dir, "step_profile_warm.json")
-    warm.export_chrome_trace(trace)
-    with open(trace) as f:
-        events = json.load(f)["traceEvents"]
-    # device work = kernels, memcpys and memsets on the card's timeline
-    device_ms = sum(e["dur"] for e in events
-                    if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")) / 1e3
-    # device-side kernel rows only: op rows repeat their kernels' time
-    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
-    own = {}  # the port's kernels, by their __global__ names
-    for e in kernels:
-        for name in ("segment_sum_kernel", "segment_sum_bf16_row_kernel",
-                     "tensornet_embed_kernel",
-                     "tensornet_interaction_kernel", "tensornet_interaction_bwd_kernel",
-                     "chgnet_atom_conv_kernel",
-                     "chgnet_line_conv_kernel", "chgnet_row_projection_kernel",
-                     "so2_conv_kernel"):
-            if name in e.key:
-                row = own.setdefault(name, {"calls": 0, "ms": 0.0})
-                row["calls"] += e.count
-                row["ms"] += e.self_device_time_total / 1e3
-    for row in own.values():
-        row["device_share"] = row["ms"] / device_ms if device_ms else 0.0
-    print(json.dumps({
-        "part": "warm_step", "model": args.model, "num_partitions": P,
-        "n_atoms": len(atoms),
-        "wall_ms": warm_s * 1e3, "device_ms": device_ms,
-        "device_busy_share": device_ms / (warm_s * 1e3),
-        "own_kernels": own,
-        "top_ops_device_inclusive": _top(
-            [e for e in ev if e.key.startswith("aten::")], "device_time_total", 20),
-        "top_kernels": _top(kernels, "self_device_time_total", 25),
-        "card": torch.cuda.get_device_name(0),
-    }))
-    with open(os.path.join(out_dir, "step_profile_warm.txt"), "w") as f:
-        f.write(ev.table(sort_by="self_device_time_total", row_limit=80))
+    print(json.dumps({"part": "warm_step", "model": args.model, "num_partitions": P,
+                      "n_atoms": len(atoms), **_device_split(torch, warm, warm_s, out_dir)}))
     return 0
 
 

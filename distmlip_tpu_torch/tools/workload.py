@@ -45,6 +45,11 @@ The batched and serving phases run on bench.py's batched/serving pool
 reps 2, 3 and 4 plus one atom alone in a 12 Å box (``mixed_batch``: 32,
 108, 256 and 1 atoms; the lone atom has no edge).
 
+The training phases run on bench.py's train set (``batched_pool(8,
+reps=3)``: 8 copies of the 108-atom crystal, each with its own 0.04 Å
+noise, ``bench.py:518-531``), labelled by a teacher of the same
+architecture through ``BatchedPotential`` (``train_samples``).
+
 All single-structure phases run on bench.py's perturbed Si crystal (lattice 3.9 Å per 4-atom
 cell, 0.04 Å noise, seed 0): ``reps=8`` gives 2048 atoms; bench.py's own
 default is reps=16 (16384 atoms). MACE and eSCN run at reps=8, cut from
@@ -116,3 +121,21 @@ def mixed_batch(seed: int = 1):
     out = [batched_pool(1, reps, seed + reps)[0][0] for reps in (2, 3, 4)]
     out.append(Atoms(numbers=[14], positions=[[0.3, 0.2, 0.1]], cell=np.eye(3) * 12.0))
     return out
+
+
+def train_samples(model, teacher, info=None, n: int = 8, reps: int = 3, seed: int = 0,
+                  device="cuda"):
+    """bench.py's train set (``batched_pool(n, reps)``) labelled with the
+    energies, forces and stresses of ``model`` at the ``teacher``
+    parameters through ``BatchedPotential`` on ``device``; ``info`` (the
+    conditioning dict) is set on every structure. Returns ``list[Sample]``."""
+    from ..calculators import BatchedPotential
+    from ..train import Sample
+
+    pool, _ = batched_pool(n, reps, seed)
+    for a in pool:
+        a.info = dict(info or {})
+    results = BatchedPotential(model, teacher, device=device).calculate(pool)
+    return [Sample(a, float(r["energy"]), np.asarray(r["forces"], dtype=np.float32),
+                   np.asarray(r["stress"], dtype=np.float32))
+            for a, r in zip(pool, results)]

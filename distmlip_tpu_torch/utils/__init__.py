@@ -1,3 +1,3 @@
-from .checkpoint import as_list, load_params, params_from_numpy
+from .checkpoint import AsyncSaver, as_list, load_params, params_from_numpy, save_params
 
-__all__ = ["as_list", "load_params", "params_from_numpy"]
+__all__ = ["AsyncSaver", "as_list", "load_params", "params_from_numpy", "save_params"]
