@@ -286,6 +286,20 @@ Phases (each failure raises, so the exit code is non-zero):
    ``Trainer`` for step 3 (largest parameter difference from the unbroken
    run). The kernels line gains ``train_launches`` and
    ``train_launches_by_role``.
+16. telemetry and observability: ``[telemetry]`` (``phase_telemetry``:
+   ``[md]``'s MACE workload without and with a telemetry hub under
+   deterministic algorithms, positions bit for bit, one checked record per
+   calculate, the JSONL's report; the hub's cost on warm steps attached and
+   detached in turn; ``DeviceMD`` without and with the hub: the same
+   trajectory and syncs, one ``md_chunk`` record a chunk),
+   ``[telemetry-serve]`` (``ServeEngine`` at B = 8 with the obs hub: every
+   request trace complete, the metrics scraped from localhost parsed, the
+   SLO feed and the records) and ``[attribution]`` (one warm MACE step and
+   one eSCN step under ``torch.profiler``: ``obs.attribution``'s
+   ``custom_kernel`` bucket within 2% of ``step_profile.device_split``'s
+   own-kernel time from the same capture, B1 on MACE and B1 and B3 on eSCN,
+   the device time by layer). The kernels line gains
+   ``telemetry_launches``.
 
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -4828,6 +4842,421 @@ def phase_train(torch, family):
     return total, roles_total
 
 
+# ---------------------------------------------------------------------------
+# telemetry and observability: records, spans, metrics, attribution
+# ---------------------------------------------------------------------------
+
+TELEMETRY_MD_STEPS = 10    # MolecularDynamics steps of each [telemetry] run
+TELEMETRY_TIMED = 12       # interleaved warm calculates with and without the hub
+TELEMETRY_DMD_STEPS = 20   # DeviceMD steps of each [telemetry] run, two chunks
+ATTRIBUTION_TOL = 0.02     # custom_kernel against step_profile's own-kernel time
+
+
+def telemetry_hub(tag):
+    """A hub with an AggregatingSink and a JsonlSink under build/telemetry/,
+    and a list the records also land in."""
+    import os
+
+    from distmlip_tpu_torch.telemetry import (AggregatingSink, JsonlSink, Telemetry,
+                                              TelemetrySink)
+
+    class Keep(TelemetrySink):
+        def __init__(self):
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    os.makedirs(os.path.join("build", "telemetry"), exist_ok=True)
+    path = os.path.join("build", "telemetry", f"{tag}.jsonl")
+    keep = Keep()
+    return Telemetry([AggregatingSink(), JsonlSink(path), keep]), keep, path
+
+
+def check_calculate_records(tag, records, n_calls, n_atoms):
+    """The fields a DistPotential record must carry on the card (a broken
+    record is not swallowed: this fails the phase)."""
+    import numpy as np
+
+    if len(records) != n_calls:
+        raise AssertionError(f"[{tag}] {len(records)} records for {n_calls} calculates")
+    for r in records:
+        mem = r.device_memory
+        bad = [
+            r.kind != "calculate", r.n_atoms != n_atoms, r.num_partitions != 1,
+            not 0 < r.node_occupancy <= 1, not 0 < r.edge_occupancy <= 1,
+            r.kernel_mode != "cuda", not 0 < r.kernel_coverage <= 1,
+            not all(f"dev0_{k}" in mem for k in ("bytes_in_use", "peak_bytes_in_use",
+                                                 "bytes_limit")),
+            not 0 < r.mfu < 1, not r.flops_per_step > 0,
+            not all(k in r.timings for k in ("neighbor_s", "partition_s", "device_s",
+                                             "total_s")),
+            not np.isfinite(list(r.timings.values())).all(),
+            r.graph_reused == r.rebuild,
+        ]
+        if any(bad):
+            raise AssertionError(f"[{tag}] record {r.step} fails check "
+                                 f"{[i for i, b in enumerate(bad) if b]}: {r.to_json()}")
+    if not (records[0].compiled and records[0].compile_kind == "fresh"
+            and records[0].rebuild and not any(r.compiled for r in records[1:])):
+        raise AssertionError(f"[{tag}] compile flags: "
+                             f"{[(r.compiled, r.compile_kind) for r in records]}")
+
+
+def deterministic_runs(torch):
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
+    bit-for-bit comparisons (``index_select``'s backward adds rows with
+    atomics otherwise); yields the set of warnings about ops that have no
+    deterministic version."""
+    import contextlib
+    import warnings
+
+    @contextlib.contextmanager
+    def ctx():
+        was = torch.are_deterministic_algorithms_enabled()
+        seen = set()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                yield seen
+                seen.update(str(w.message).split("\n")[0][:160] for w in caught
+                            if "deterministic" in str(w.message))
+        finally:
+            torch.use_deterministic_algorithms(was)
+    return ctx()
+
+
+def count_run_syncs(torch, fn):
+    """Runs ``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` and
+    counts the synchronizing CUDA calls it made; returns (result, count)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(SYNC_WORDS in str(w.message) for w in caught)
+
+
+def phase_telemetry(torch):
+    """``[telemetry]``: ``[md]``'s workload (MACE at MACE_KW on the 2048-atom
+    crystal, skin 0.5, nvt_bussi at MACE_MD_TIMESTEP) for TELEMETRY_MD_STEPS
+    steps without a hub and with one (AggregatingSink + JsonlSink), under
+    deterministic algorithms: positions and velocities equal bit for bit,
+    one record per calculate with its fields checked
+    (``check_calculate_records``); then TELEMETRY_TIMED warm calculates with
+    the hub attached and detached in turn (the step time each way) and the
+    host cost of building and emitting one record; then ``DeviceMD`` for
+    TELEMETRY_DMD_STEPS steps in two chunks without and with the hub: the
+    same trajectory bit for bit, one ``md_chunk`` record a chunk, and at
+    most one more sync a chunk with the hub. Launch counts from just before
+    the first run to just after the last. Returns the launches and the warm
+    potential with its structure."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DeviceMD, DistPotential, MolecularDynamics
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.telemetry import AggregatingSink, Telemetry, report
+    from distmlip_tpu_torch.tools.workload import MACE_KW, bench_atoms
+
+    t_phase = time.perf_counter()
+    model = MACE(MACEConfig(**MACE_KW))
+    params = model.init(0)
+    for k in launch_counts:
+        launch_counts[k] = 0
+    runs = {}
+    with deterministic_runs(torch) as nondet:
+        for hub in (False, True):
+            atoms, rng = bench_atoms()
+            atoms.set_maxwell_boltzmann_velocities(MD_KW["temperature"], rng=rng)
+            tel, keep, path = telemetry_hub("md") if hub else (None, None, None)
+            pot = DistPotential(model, params, device="cuda", skin=0.5)
+            md = MolecularDynamics(atoms, pot, **{**MD_KW, "timestep": MACE_MD_TIMESTEP},
+                                   telemetry=tel)
+            md.run(TELEMETRY_MD_STEPS)
+            runs[hub] = (atoms, pot, tel, keep, path)
+    (a0, pot0, _, _, _), (a1, pot, tel, keep, path) = runs[False], runs[True]
+    same = (np.array_equal(a0.positions, a1.positions)
+            and np.array_equal(a0.velocities, a1.velocities))
+    log(f"[telemetry] {TELEMETRY_MD_STEPS} MD steps with and without the hub, deterministic "
+        f"algorithms: positions and velocities equal bit for bit: {same}; max |dx| "
+        f"{float(np.abs(a0.positions - a1.positions).max()):.3e} Å; ops without a "
+        f"deterministic version: {sorted(nondet)}")
+    if not same:
+        raise AssertionError("[telemetry] the run with a hub moved the atoms differently")
+    check_calculate_records("telemetry", keep.records, pot._step_counter, len(a1))
+    tel.close()
+    rep = report.aggregate(report.read_jsonl(path))
+    if rep.n_records != len(keep.records):
+        raise AssertionError(f"[telemetry] the JSONL holds {rep.n_records} records")
+    log("[telemetry] report of the JSONL:\n" + rep.render())
+    del pot0, runs
+
+    # the hub's cost on a warm step: attached and detached in turn
+    tel2, keep2, _ = telemetry_hub("timed")
+    rng = np.random.default_rng(5)
+    ms = {False: [], True: []}
+    for i in range(TELEMETRY_TIMED):
+        for hub in ((False, True) if i % 2 else (True, False)):
+            pot.telemetry = tel2 if hub else None
+            a1.positions = a1.positions + rng.normal(0, 0.002, a1.positions.shape)
+            t = time.perf_counter()
+            pot.calculate(a1)
+            ms[hub].append((time.perf_counter() - t) * 1e3)
+    host = pot._cache[1]
+    pot.telemetry = Telemetry([AggregatingSink()])
+    t = time.perf_counter()
+    for _ in range(200):
+        pot._emit_record("calculate", host, 0.1, routes={"kernel": 0, "plain": 0})
+    emit_us = (time.perf_counter() - t) / 200 * 1e6
+    pot.telemetry = None
+    # the record's parts: the device-memory snapshot (one nested allocator
+    # query) against memory_allocated + max_memory_allocated, the FLOP model
+    from distmlip_tpu_torch.utils.flops import model_flop_estimate
+    from distmlip_tpu_torch.utils.memory import device_memory_stats
+
+    def per_call_us(fn, n=200):
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e6
+
+    parts_us = {
+        "device_memory_stats": per_call_us(device_memory_stats),
+        "memory_allocated+max_memory_allocated": per_call_us(
+            lambda: (torch.cuda.memory_allocated(0), torch.cuda.max_memory_allocated(0))),
+        "mem_get_info": per_call_us(lambda: torch.cuda.mem_get_info(0)),
+        "model_flop_estimate": per_call_us(
+            lambda: model_flop_estimate(model, len(a1), pot.last_stats["n_edges"])),
+    }
+    timed = {"step_ms_median_without_hub": median(ms[False]),
+             "step_ms_median_with_hub": median(ms[True]),
+             "hub_overhead_ms": median(ms[True]) - median(ms[False]),
+             "record_host_us": emit_us, "record_parts_us": parts_us,
+             "steps_each": TELEMETRY_TIMED,
+             "mfu_median": median([r.mfu for r in keep2.records]),
+             "flops_per_step": keep2.records[-1].flops_per_step,
+             "device_s_median": median([r.timings["device_s"] for r in keep2.records]),
+             "kernel_coverage": keep2.records[-1].kernel_coverage}
+    log(f"[telemetry] warm step with and without the hub: {json.dumps(timed)}")
+    if len(keep2.records) != TELEMETRY_TIMED:
+        raise AssertionError(f"[telemetry] {len(keep2.records)} records for "
+                             f"{TELEMETRY_TIMED} calculates with the hub")
+
+    # DeviceMD: chunk records at the chunk end, no sync inside the chunk
+    dmd = {}
+    with deterministic_runs(torch):
+        for hub in (False, True):
+            atoms, rng = bench_atoms()
+            atoms.set_maxwell_boltzmann_velocities(MD_KW["temperature"], rng=rng)
+            tel3, keep3, _ = telemetry_hub("device_md") if hub else (None, None, None)
+            p = DistPotential(model, params, device="cuda", skin=0.5)
+            md = DeviceMD(p, atoms, timestep=MACE_MD_TIMESTEP, telemetry=tel3)
+            syncs = 0
+            for n in (TELEMETRY_DMD_STEPS // 2, TELEMETRY_DMD_STEPS - TELEMETRY_DMD_STEPS // 2):
+                _, c = count_run_syncs(torch, lambda n=n: md.run(n))
+                syncs += c
+            dmd[hub] = {"atoms": atoms, "syncs_in_run": syncs, "host_reads": md.host_reads,
+                        "refreshes": md.rebuilds_on_device,
+                        "records": keep3.records if hub else None}
+            del p, md
+    d0, d1 = dmd[False], dmd[True]
+    same = np.array_equal(d0["atoms"].positions, d1["atoms"].positions)
+    recs = d1["records"]
+    summary = {k: [d0[k], d1[k]] for k in ("syncs_in_run", "host_reads", "refreshes")}
+    summary.update(same_positions=same, md_chunk_records=len(recs),
+                   steps_in_records=[r.extra.get("steps_done") for r in recs])
+    log(f"[telemetry] DeviceMD without / with the hub (syncs counted over each whole "
+        f"run() call, chunk starts and ends included): {json.dumps(summary)}")
+    if not (same and d1["host_reads"] == d0["host_reads"]
+            and d1["syncs_in_run"] <= d0["syncs_in_run"] + len(recs) and len(recs) >= 2
+            and all(r.kind == "md_chunk" for r in recs)
+            and sum(r.extra["steps_done"] for r in recs) == TELEMETRY_DMD_STEPS
+            and all(r.kernel_mode == "cuda" and r.device_memory for r in recs)):
+        raise AssertionError(f"[telemetry] DeviceMD with the hub: {summary}")
+    launches = dict(launch_counts)
+    log(f"[telemetry] launches {nonzero(launches)}; phase {time.perf_counter() - t_phase:.1f} s")
+    if not launches["segment_sum"]:
+        raise AssertionError("[telemetry] B1 was not launched")
+    return launches, pot, a1, timed
+
+
+def phase_telemetry_serve(torch):
+    """``[telemetry-serve]``: ``ServeEngine(BatchedPotential(MACE), fallback=
+    DistPotential(MACE), max_batch=8)`` with a telemetry hub and the obs hub
+    installed (tracer, metrics, an SLO and the flight recorder under
+    build/telemetry/): two bursts of the 8-structure pool and the 2048-atom
+    crystal on the fallback lane. Every request trace must be complete (one
+    terminal each), the metrics scraped over HTTP from localhost must parse
+    and count every completion, and each batch must leave a ``serve_batch``
+    record beside the potential's ``batched_calculate`` one."""
+    import urllib.request
+
+    from distmlip_tpu_torch import obs
+    from distmlip_tpu_torch.calculators import BatchedPotential, DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.serve import ServeEngine
+    from distmlip_tpu_torch.tools.workload import batched_pool, bench_atoms
+
+    t_phase = time.perf_counter()
+    model, params, _, _, _, _ = batched_family(torch, "mace")
+    pool, _ = batched_pool(8, seed=4)
+    big = bench_atoms()[0]
+    tel, keep, path = telemetry_hub("serve")
+    hub = obs.Observability.enable(slo=obs.SLOConfig(latency_s=30.0),
+                                   flight_dir="build/telemetry/incidents")
+    server = obs.MetricsServer(hub.metrics, port=0)
+    try:
+        for k in launch_counts:
+            launch_counts[k] = 0
+        engine = ServeEngine(BatchedPotential(model, params, device="cuda", skin=0.5),
+                             fallback=DistPotential(model, params, device="cuda", skin=0.5),
+                             max_batch=8, max_wait_s=0.005, admission="block",
+                             max_batch_atoms=SERVE_MAX_BATCH_ATOMS, telemetry=tel,
+                             start=False)
+        futs = [engine.submit(a) for a in pool]
+        engine.start()
+        futs += [engine.submit(a) for a in pool + [big]]
+        results = [f.result(timeout=600) for f in futs]
+        if not engine.drain(timeout=600):
+            raise AssertionError("[telemetry-serve] drain() timed out")
+        engine.close()
+        launches = dict(launch_counts)
+        for r, a in zip(results, pool + pool + [big]):
+            check_result(r, len(a))
+        with urllib.request.urlopen(server.url, timeout=30) as resp:
+            scraped = obs.parse_exposition(resp.read().decode())
+        spans = hub.tracer.spans()
+        trace = obs.request_trace_summary(spans)
+        paths = obs.critical_path_summary(spans)
+    finally:
+        server.close()
+        obs.uninstall()
+    tel.close()
+    n = len(futs)
+    serve_recs = [r for r in keep.records if r.kind in ("serve_batch", "serve_fallback")]
+    batch_recs = [r for r in keep.records if r.kind == "batched_calculate"]
+    summary = {
+        "requests": n, "trace": trace, "coverage_p50": paths.get("coverage_p50"),
+        "critical_path_ms_p50": {k: v["p50"] * 1e3 for k, v in paths["components"].items()},
+        "completed_metric": scraped.get("distmlip_serve_completed_total"),
+        "batches_metric": scraped.get("distmlip_serve_batches_total"),
+        "slo": hub.slo.snapshot(), "serve_records": len(serve_recs),
+        "batched_records": len(batch_recs),
+        "batch_sizes": [r.batch_size for r in serve_recs],
+        "kernel_modes": sorted({r.kernel_mode for r in batch_recs}),
+        "launches": nonzero(launches),
+    }
+    log(f"[telemetry-serve] {json.dumps(summary)}")
+    served = sum(r.batch_size for r in serve_recs)
+    if not (trace["requests"] == n and trace["complete"] == n
+            and trace["terminal_violation_count"] == 0
+            and summary["completed_metric"] == n and served == n
+            and len(batch_recs) == sum(r.kind == "serve_batch" for r in serve_recs)
+            and summary["kernel_modes"] == ["cuda"]
+            and hub.slo.snapshot()["engine"]["good"] == n
+            and all(r.trace_id for r in serve_recs) and launches["segment_sum"]):
+        raise AssertionError(f"[telemetry-serve] {summary}")
+    log(f"[telemetry-serve] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def profile_step(torch, pot, atoms, rng, tag):
+    """One warm calculate (skin-cache hit) of ``pot`` under a CPU + CUDA
+    ``torch.profiler`` capture; the Chrome trace through ``obs.attribution``
+    and ``step_profile.device_split``, whose own-kernel device time (from
+    ``key_averages``) the ``custom_kernel`` bucket must match within
+    ATTRIBUTION_TOL. Returns the summary."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.obs import attribution
+    from distmlip_tpu_torch.tools.step_profile import device_split
+
+    out_dir = os.path.join("build", "telemetry", tag)
+    os.makedirs(out_dir, exist_ok=True)
+    atoms.positions = atoms.positions + rng.normal(0, 0.002, atoms.positions.shape)
+    pot.calculate(atoms)  # warm, outside the capture
+    atoms.positions = atoms.positions + rng.normal(0, 0.002, atoms.positions.shape)
+    builds = pot.rebuild_count
+    before = dict(launch_counts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        pot.calculate(atoms)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t
+    launched = {k: v - before[k] for k, v in launch_counts.items() if v != before[k]}
+    split = device_split(torch, prof, wall_s, out_dir)
+    bd = attribution.attribute_trace(os.path.join(out_dir, "step_profile_warm.json"),
+                                     program=tag)
+    kernel_ms = bd.by_category.get("custom_kernel", 0.0) * 1e3
+    out = {"wall_ms": split["wall_ms"], "device_ms": split["device_ms"],
+           "attributed_ms": bd.total_s * 1e3, "custom_kernel_ms": kernel_ms,
+           "custom_kernel_share": bd.fraction("custom_kernel"),
+           "step_profile_own_kernels_ms": split["own_kernels_ms"],
+           "own_kernels": split["own_kernels"],
+           "by_category_ms": split["by_category_ms"], "by_layer_ms": split["by_layer_ms"],
+           "launches": launched, "n_events": bd.n_events}
+    log(f"[attribution] {tag}: {json.dumps(out)}")
+    log(f"[attribution] {tag}:\n{bd.render(top_scopes=12)}")
+    if pot.rebuild_count != builds:
+        raise AssertionError(f"[attribution] {tag}: the profiled step rebuilt the graph")
+    own = split["own_kernels_ms"]
+    if not (own > 0 and abs(kernel_ms - own) <= ATTRIBUTION_TOL * own):
+        raise AssertionError(f"[attribution] {tag}: custom_kernel {kernel_ms:.4f} ms against "
+                             f"step_profile's {own:.4f} ms")
+    if abs(bd.total_s * 1e3 - split["device_ms"]) > ATTRIBUTION_TOL * split["device_ms"]:
+        raise AssertionError(f"[attribution] {tag}: attributed {bd.total_s * 1e3:.3f} ms of "
+                             f"{split['device_ms']:.3f} ms of device time")
+    return out
+
+
+def phase_attribution(torch, mace_pot, mace_atoms):
+    """``[attribution]``: one warm step of ``[telemetry]``'s MACE potential
+    and one of eSCN at ESCN_KW on the 2048-atom crystal (ESCN_INFO), each
+    under the profiler (``profile_step``): the ``custom_kernel`` bucket must
+    hold B1 on MACE and B1 and B3 on eSCN, and each layer scope must carry
+    device time. Launch counts: the two profiled steps (and eSCN's warm
+    calculates). Returns the launches and the summaries."""
+    import numpy as np
+
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import ESCN, ESCNConfig
+    from distmlip_tpu_torch.tools.workload import ESCN_INFO, ESCN_KW, bench_atoms
+
+    t_phase = time.perf_counter()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    rng = np.random.default_rng(11)
+    mace = profile_step(torch, mace_pot, mace_atoms, rng, "mace")
+    model = ESCN(ESCNConfig(**ESCN_KW))
+    pot = DistPotential(model, model.init(0), device="cuda", skin=0.5)
+    atoms = bench_atoms()[0]
+    atoms.info = dict(ESCN_INFO)
+    pot.calculate(atoms)
+    escn = profile_step(torch, pot, atoms, rng, "escn")
+    launches = dict(launch_counts)
+    want = {"mace": ({"segment_sum"}, ("mace/interaction0", "mace/interaction1")),
+            "escn": ({"segment_sum", "so2_conv"}, ("escn/layer0", "escn/layer1"))}
+    for tag, got in (("mace", mace), ("escn", escn)):
+        kernels, layers = want[tag]
+        if set(got["launches"]) != kernels or not all(
+                got["by_layer_ms"].get(layer, 0.0) > 0 for layer in layers):
+            raise AssertionError(f"[attribution] {tag}: launches {got['launches']}, layers "
+                                 f"{got['by_layer_ms']}")
+    log(f"[attribution] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"mace": mace, "escn": escn}
+
+
 def main() -> int:
     import torch
 
@@ -4990,6 +5419,19 @@ def main() -> int:
         torch.cuda.empty_cache()
         for k, v in phase(torch).items():
             bat_launches[k] += v
+    # telemetry and observability: each phase counts its own launches
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    tel_launches, tel_pot, tel_atoms, _ = phase_telemetry(torch)
+    torch.cuda.empty_cache()
+    for k, v in phase_telemetry_serve(torch).items():
+        tel_launches[k] += v
+    torch.cuda.empty_cache()
+    attr_launches, _ = phase_attribution(torch, tel_pot, tel_atoms)
+    for k, v in attr_launches.items():
+        tel_launches[k] += v
+    del tel_pot
+    log(f"[telemetry] [telemetry-serve] [attribution]: {time.perf_counter() - t_phase:.1f} s")
 
     headline = timed[-1]  # the (32768, 40, 128) chunk of interaction 1
     kernels = [{
@@ -5151,6 +5593,8 @@ def main() -> int:
         # step that launched it (RoleCounter)
         k["train_launches"] = train_launches[k["name"]]
         k["train_launches_by_role"] = {r: c[k["name"]] for r, c in train_roles.items()}
+        # ... in [telemetry], [telemetry-serve] and [attribution]
+        k["telemetry_launches"] = tel_launches[k["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,7 +3,8 @@ Hopper card.
 
 Mirrors the JAX package's module layout (``geometry``, ``neighbors``,
 ``partition``, ``ops``, ``kernels``, ``parallel``, ``models``,
-``calculators``, ``utils``) so each counterpart is easy to find. This
+``calculators``, ``serve``, ``train``, ``telemetry``, ``obs``, ``utils``)
+so each counterpart is easy to find. This
 package imports ``torch`` and numpy only: never ``jax`` and nothing of
 ``distmlip_tpu`` (it keeps its own copies of the numpy modules it needs).
 

@@ -18,8 +18,17 @@ Capacities come from a geometric ``BucketPolicy``, so a stream of varied
 batches runs at a small fixed set of padded shapes (``compile_count``, the
 distinct shape buckets dispatched).
 
-Not ported (each raises when asked for, naming its ROADMAP.md item): the 2-D
-mesh placement (``mesh=``, A7), telemetry records (``telemetry=``, A12).
+With a telemetry hub (``telemetry=``, or ``attach_telemetry``, which
+``BatchedRelaxer``, ``BatchedMD`` and the serving engine route theirs
+through) every ``calculate`` emits one ``batched_calculate`` record
+(``distmlip_tpu/calculators/batched.py:552-597``): the bucket key, batch
+size, padding waste and slot occupancy, the cache and rebuild flags, the
+kernel routing and the device memory. A first dispatch at a new bucket goes
+into the compile log (``obs.profiling``, site ``batched_bucket``).
+
+Not ported (raises when asked for, naming its ROADMAP.md item): the 2-D
+mesh placement (``mesh=``, A7). The record's ``est_peak_bytes`` stays 0:
+the JAX package takes it from its static memory planner (A13).
 """
 
 from __future__ import annotations
@@ -31,11 +40,18 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.dispatch import kernel_routing, route_counts
 from ..neighbors.device import as_device_arrays
+from ..obs import profiling as obs_profiling
+from ..obs import runtime as obsrt
 from ..parallel import make_batched_potential_fn
 from ..partition import (BucketPolicy, build_packed_refresh_spec, device_refresh_packed,
                          pack_structures)
+from ..telemetry import StepRecord, annotate
+from ..telemetry.record import STEP_RECORD_FIELDS
+from ..telemetry.trace import tracing_enabled
 from ..utils.checkpoint import params_from_numpy
+from ..utils.memory import device_memory_stats
 from .atoms import AMU_A2_FS2_TO_EV, EV_A3_TO_GPA, KB, map_species, max_displacement
 from .calculator import atoms_system, validate_system
 from .relax import RelaxResult
@@ -90,10 +106,6 @@ class BatchedPotential:
             raise NotImplementedError(
                 "BatchedPotential(mesh=...): the 2-D (batch x spatial) mesh placement is "
                 "not ported (ROADMAP.md A7); the batched engine runs on one device")
-        if telemetry is not None:
-            raise NotImplementedError(
-                "BatchedPotential(telemetry=...): telemetry records are not ported "
-                "(ROADMAP.md A12)")
         if not isinstance(kernels, bool):
             raise TypeError(f"kernels must be True or False, got {kernels!r}")
         if not (isinstance(device_rebuild, bool) or device_rebuild == "auto"):
@@ -144,6 +156,18 @@ class BatchedPotential:
         # one potential: calculate() serializes on this lock so the skin
         # cache (check, then use) is never torn
         self._lock = threading.RLock()
+        # telemetry hub or None; with None no record is ever built
+        self.telemetry = telemetry
+        self._step_counter = 0
+        self._last_compile_count = 0
+        self._last_compile_s = 0.0
+        self._last_compile_kind = ""
+
+    def attach_telemetry(self, telemetry) -> None:
+        """The potential's own hub wins; drivers route their
+        ``telemetry=`` through here."""
+        if telemetry is not None and self.telemetry is None:
+            self.telemetry = telemetry
 
     @property
     def compile_count(self) -> int:
@@ -184,14 +208,16 @@ class BatchedPotential:
             [a.positions.astype(np.float32) for a in structures])).to(self.device)
 
     def _build(self, structures):
-        graph, host = pack_structures(
-            structures, self.cutoff, self.bond_cutoff, self.use_bond_graph, caps=self.caps,
-            species_fn=self._species, skin=self.skin)
+        with annotate("distmlip/batch_pack"):
+            graph, host = pack_structures(
+                structures, self.cutoff, self.bond_cutoff, self.use_bond_graph,
+                caps=self.caps, species_fn=self._species, skin=self.skin)
         self.rebuild_count += 1
         # built lazily at the first refresh: a churning stream (every
         # serving batch different) never pays for it
         self._refresh_spec = None
-        return graph.to(self.device), host
+        with annotate("distmlip/graph_upload"):
+            return graph.to(self.device), host
 
     def _try_device_refresh(self, structures):
         """Rebuild the cached pack's edges on the device at the current
@@ -204,9 +230,10 @@ class BatchedPotential:
             self._refresh_spec = (static, as_device_arrays(arrays, self.device))
         positions = self._upload_positions(host, structures)
         static, arrays = self._refresh_spec
-        graph2, n_edges, overflow = device_refresh_packed(static, arrays, graph, positions)
-        # the refresh's one device-to-host copy: the count and the flag
-        n_edges, overflow = torch.stack([n_edges, overflow.to(n_edges.dtype)]).tolist()
+        with annotate("distmlip/device_rebuild"):
+            graph2, n_edges, overflow = device_refresh_packed(static, arrays, graph, positions)
+            # the refresh's one device-to-host copy: the count and the flag
+            n_edges, overflow = torch.stack([n_edges, overflow.to(n_edges.dtype)]).tolist()
         if overflow:
             self.rebuild_overflow_count += 1
             return None
@@ -274,8 +301,17 @@ class BatchedPotential:
         graph, host, positions, reused, refreshed, rebuild_s, (t0, t1, t2) = \
             self._prepare_batch(structures)
         key = (host.stats["bucket_key"], self.compute_dtype)
-        out = self._potential(self.params, graph, positions)
-        energies = out["energies"].double().cpu().numpy()
+        routes = dict(route_counts) if self.telemetry is not None else None
+        ann_name = "distmlip/batched_potential"
+        if tracing_enabled():
+            # under a serving batch the ambient trace id names the range,
+            # lining the device timeline up with the host spans
+            tid = obsrt.current_trace_id()
+            if tid is not None:
+                ann_name = f"{ann_name}[trace={tid}]"
+        with annotate(ann_name):
+            out = self._potential(self.params, graph, positions)
+            energies = out["energies"].double().cpu().numpy()
         forces = host.gather_per_structure(out["forces"].cpu().numpy())
         strain_grad = out["strain_grad"].cpu().numpy()
         magmoms = (host.gather_per_structure(out["aux"]["magmoms"].cpu().numpy())
@@ -286,6 +322,7 @@ class BatchedPotential:
             batch_peak = torch.cuda.max_memory_allocated(self.device) - base
             self.caps.calibrate_bytes(self.caps.get("nodes", int(host.n_atoms.sum())),
                                       batch_peak, self.compute_dtype)
+        new_bucket = key not in self._buckets
         self._buckets.add(key)
         results = []
         for b in range(len(structures)):
@@ -305,7 +342,61 @@ class BatchedPotential:
             batch_size=len(structures), rebuild_count=int(not reused),
             rebuild_on_device=int(refreshed), rebuild_overflow_count=self.rebuild_overflow_count,
             batch_peak_bytes=batch_peak)
+        # compile log: the first dispatch at a bucket (a rare event, logged
+        # with or without a hub, as the JAX package logs its compiles)
+        self._last_compile_s, self._last_compile_kind = 0.0, ""
+        if new_bucket:
+            self._last_compile_s = t3 - t2
+            self._last_compile_kind = obs_profiling.KIND_FRESH
+            obs_profiling.record_compile(site="batched_bucket", kind=obs_profiling.KIND_FRESH,
+                                         wall_s=self._last_compile_s,
+                                         bucket_key=host.stats["bucket_key"])
+        if self.telemetry is not None:
+            kernel_mode, kernel_coverage = kernel_routing(routes)
+            self.last_stats.update(kernel_mode=kernel_mode, kernel_coverage=kernel_coverage)
+            self._emit_record(host, len(structures), reused, refreshed, t3 - t0)
+        else:
+            self._step_counter += 1
         return results
+
+    def _emit_record(self, host, n_structures: int, reused: bool, refreshed: bool,
+                     total_s: float, kind: str = "batched_calculate",
+                     member_count: int = 0) -> None:
+        """One ``StepRecord`` of the last calculate
+        (``distmlip_tpu/calculators/batched.py:546-597``); the caller
+        checks that a hub is attached."""
+        self._step_counter += 1
+        tel = self.telemetry
+        if tel is None or not tel.wants_records():
+            return
+        cache_size = self.compile_count
+        compiled = cache_size > self._last_compile_count
+        self._last_compile_count = cache_size
+        # under a serving dispatch the ambient context is the serve.batch
+        # span, so this record and the exported span tree share ids
+        ctx = obsrt.current_ctx()
+        rec = StepRecord(
+            step=self._step_counter, kind=kind, member_count=member_count,
+            trace_id=ctx[0] if ctx is not None else "",
+            span_id=ctx[1] if ctx is not None else "",
+            timings=dict(self.last_timings),
+            compile_cache_size=cache_size, compiled=compiled,
+            compile_s=self._last_compile_s, compile_kind=self._last_compile_kind,
+            graph_reused=reused, rebuild=not reused,
+            rebuild_count=int(not reused), rebuild_on_device=int(refreshed),
+            rebuild_overflow_count=self.rebuild_overflow_count,
+            structures_per_sec=n_structures / total_s if total_s > 0 else 0.0,
+            kernel_mode=self.last_stats.get("kernel_mode", ""),
+            kernel_coverage=self.last_stats.get("kernel_coverage", 0.0),
+            device_memory=device_memory_stats() if self.device.type == "cuda" else {})
+        for k, v in (host.stats or {}).items():
+            # non-field stats (n_lines, batch_slots) ride extra
+            if k in STEP_RECORD_FIELDS:
+                setattr(rec, k, v)
+            else:
+                rec.extra[k] = v
+        rec.batch_size = n_structures  # real structures, not padded slots
+        tel.emit(rec)
 
 
 def _segment_ids(n_atoms) -> np.ndarray:
@@ -343,9 +434,7 @@ class BatchedRelaxer:
         if optimizer not in _BATCH_OPTIMIZERS:
             raise ValueError(f"optimizer {optimizer!r} not in {_BATCH_OPTIMIZERS}")
         if telemetry is not None:
-            raise NotImplementedError(
-                "BatchedRelaxer(telemetry=...): telemetry records are not ported "
-                "(ROADMAP.md A12)")
+            potential.attach_telemetry(telemetry)
         self.potential = potential
         self.optimizer = optimizer
         self.fmax = fmax
@@ -447,8 +536,7 @@ class BatchedMD:
             raise ValueError(f"ensemble {ensemble!r} not in {_BATCH_ENSEMBLES} "
                              f"(batched MD is fixed-cell)")
         if telemetry is not None:
-            raise NotImplementedError(
-                "BatchedMD(telemetry=...): telemetry records are not ported (ROADMAP.md A12)")
+            potential.attach_telemetry(telemetry)
         self.atoms_list = [a.copy() for a in structures]
         self.potential = potential
         self.ensemble = ensemble

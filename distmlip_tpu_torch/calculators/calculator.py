@@ -44,10 +44,23 @@ device_md.py``'s ``DeviceMD`` steps MD with its state on the device and
 puts its refreshed graphs back into this skin cache (``_mark_cache_stale``,
 ``_install_refreshed``).
 
-Not ported yet (queued in ROADMAP.md): telemetry records, the contract
-audit, the separate-forward site readout (``fused_site_readout=False``),
-the automatic partition count, partitions placed on several cards, and
-block plans.
+With a telemetry hub attached (``telemetry=``, or ``attach_telemetry``
+from the MD, relax and DeviceMD drivers) every ``calculate`` emits one
+``StepRecord`` (``_emit_record``): the phase timings it already takes,
+the graph's shape, occupancy and halo volumes from the host build, the
+cache and rebuild flags, the device memory, the kernel routing of the step
+and ``mfu``. With none attached a step pays one ``None`` check and builds
+no record. The host phases run under ``telemetry.annotate`` ranges
+(``distmlip/neighbor_build``, ``distmlip/partition``,
+``distmlip/graph_upload``, ``distmlip/positions_upload``,
+``distmlip/device_rebuild``, ``distmlip/potential``), no-ops unless tracing
+is on.
+
+Not ported yet (queued in ROADMAP.md): the contract audit and the static
+memory plan behind a record's ``collective_count``, contract counts and
+``est_peak_bytes`` (A13), the separate-forward site readout
+(``fused_site_readout=False``), the automatic partition count, partitions
+placed on several cards, and block plans.
 
 Per-system conditioning (eSCN's charge, spin and dataset) is read from
 ``atoms.info`` (the ASE convention), range-checked against the model's
@@ -66,13 +79,20 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..kernels.dispatch import kernel_routing, route_counts
 from ..neighbors import neighbor_list
 from ..neighbors.device import (as_device_arrays, build_cell_list_spec,
                                 grow_caps_after_overflow)
 from ..parallel import make_potential_fn
+from ..obs import profiling as obs_profiling
+from ..obs import runtime as obsrt
 from ..partition import (CapacityPolicy, build_partitioned_graph, build_plan,
-                         device_refresh_graph)
+                         device_refresh_graph, graph_build_stats)
+from ..telemetry import StepRecord, annotate
+from ..telemetry.record import STEP_RECORD_FIELDS
 from ..utils.checkpoint import params_from_numpy
+from ..utils.flops import mfu, model_flop_estimate
+from ..utils.memory import device_memory_stats
 from .atoms import EV_A3_TO_GPA, Atoms, map_species, max_displacement
 
 
@@ -193,6 +213,11 @@ class DistPotential:
         ``prefetch_skipped_hbm``) when the card's used memory plus the
         cached graph's tensor bytes would pass ``min(2 x prefetch_hbm_frac,
         0.9)`` of its memory (``torch.cuda.mem_get_info``). Never on the CPU.
+    telemetry : a ``telemetry.Telemetry`` hub or None; with one, every
+        ``calculate`` emits a ``StepRecord`` (module docstring). Its
+        ``collective_count``, ``contract_*_count`` and ``est_peak_bytes``
+        stay 0: the JAX package reads them from an audit of the traced
+        step program, which waits for the static analysis (ROADMAP.md A13).
     """
 
     def __init__(
@@ -213,6 +238,7 @@ class DistPotential:
         async_rebuild: bool = True,
         prefetch_frac: float = 0.5,
         prefetch_hbm_frac: float = 1.0 / 3.0,
+        telemetry=None,
     ):
         num_partitions = 1 if num_partitions is None else num_partitions
         if (isinstance(num_partitions, bool)
@@ -293,6 +319,24 @@ class DistPotential:
         self._prefetch = None       # (future, snapshot atoms) in flight
         self.prefetch_hits = 0      # invalidations served by a background build
         self.prefetch_skipped_hbm = 0  # prefetches vetoed by the memory guard
+        # telemetry hub or None; with None no record is ever built
+        self.telemetry = telemetry
+        self._step_counter = 0
+        # cache/rebuild/adoption flags of the last _prepare (record fields)
+        self._prepare_flags: dict = {}
+        # (record kind, capacity bucket) pairs the records have seen: the
+        # first record on one is the JAX package's fresh compile (its
+        # executable cache misses there)
+        self._buckets: set = set()
+        self._skipped_seen = 0      # prefetch_skipped_hbm at the last record
+
+    def attach_telemetry(self, telemetry) -> None:
+        """Attach a telemetry hub unless one is already installed (the
+        potential's own hub wins; ``MolecularDynamics``, ``Relaxer`` and
+        ``DeviceMD`` route their ``telemetry=`` here,
+        ``distmlip_tpu/calculators/calculator.py:274-280``)."""
+        if telemetry is not None and self.telemetry is None:
+            self.telemetry = telemetry
 
     def _species(self, numbers: np.ndarray) -> np.ndarray:
         return map_species(numbers, self.species_map)
@@ -313,14 +357,17 @@ class DistPotential:
         (None off CUDA); otherwise ``(graph, host)``."""
         r_build = self.cutoff + self.skin
         b_build = (self.bond_cutoff + self.skin) if self.use_bond_graph else 0.0
-        nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r_build, bond_r=b_build)
-        plan = build_plan(nl, atoms.cell, atoms.pbc, self.num_partitions, r_build, b_build,
-                          self.use_bond_graph)
-        graph, host = build_partitioned_graph(
-            plan, nl, self._species(atoms.numbers), atoms.cell, caps=self.caps,
-            system=atoms_system(atoms))
-        host.stats = {"n_atoms": len(atoms), "num_partitions": graph.num_partitions,
-                      "n_cap": graph.n_cap, "e_cap": graph.e_cap, "e_split": graph.e_split,
+        with annotate("distmlip/neighbor_build"):
+            nl = neighbor_list(atoms.positions, atoms.cell, atoms.pbc, r_build, bond_r=b_build)
+        with annotate("distmlip/partition"):
+            plan = build_plan(nl, atoms.cell, atoms.pbc, self.num_partitions, r_build,
+                              b_build, self.use_bond_graph)
+            graph, host = build_partitioned_graph(
+                plan, nl, self._species(atoms.numbers), atoms.cell, caps=self.caps,
+                system=atoms_system(atoms))
+        # the record's graph fields (the JAX package's build stats) beside
+        # the port's own keys
+        host.stats = {**graph_build_stats(graph, len(atoms)), "e_split": graph.e_split,
                       "n_edges": int(graph.edge_mask.sum())}
         if graph.num_partitions > 1:
             owned = plan.owned_counts
@@ -344,8 +391,12 @@ class DistPotential:
                 graph.e_cap, positions=atoms.positions,
                 min_cell_cap=self._cell_cap_floor, dtype=graph.lattice.dtype)
             self._nbr_spec = (static, as_device_arrays(arrays, self.device))
+        # the graph's capacity bucket, for the records' compile flag
+        host.bucket = (graph.num_partitions, graph.n_cap, graph.e_cap, graph.b_cap,
+                       host.stats.get("l_cap", 0))
         if not background:
-            return graph.to(self.device), host
+            with annotate("distmlip/graph_upload"):
+                return graph.to(self.device), host
         if self.device.type != "cuda":
             return graph.to(self.device), host, None
         with torch.cuda.stream(self._upload_stream):
@@ -514,12 +565,14 @@ class DistPotential:
             return None
         graph, host = self._cache[:2]
         t0 = time.perf_counter()
-        positions = self._positions(host, graph, atoms)
+        with annotate("distmlip/positions_upload"):
+            positions = self._positions(host, graph, atoms)
         t1 = time.perf_counter()
         static, arrays = self._nbr_spec
-        graph2, n_edges, overflow = device_refresh_graph(static, arrays, graph, positions)
-        # the refresh's one device-to-host copy: the count and the flag
-        n_edges, overflow = torch.stack([n_edges, overflow.to(n_edges.dtype)]).tolist()
+        with annotate("distmlip/device_rebuild"):
+            graph2, n_edges, overflow = device_refresh_graph(static, arrays, graph, positions)
+            # the refresh's one device-to-host copy: the count and the flag
+            n_edges, overflow = torch.stack([n_edges, overflow.to(n_edges.dtype)]).tolist()
         t2 = time.perf_counter()
         if overflow:
             self.rebuild_overflow_count += 1
@@ -532,10 +585,17 @@ class DistPotential:
         self.rebuild_count += 1
         self.rebuild_on_device_count += 1
         self.last_build_fresh = True
+        # the refreshed edge count, in the port's key and the record's
+        # fields (the JAX package keeps its build-time count here)
         host.stats["n_edges"] = n_edges
+        host.stats["n_edges_per_part"] = [n_edges]
+        host.stats["edge_occupancy"] = n_edges / graph.e_cap if graph.e_cap else 0.0
         self._install_refreshed(graph2, atoms.positions)
         self.last_timings = {"neighbor_s": 0.0, "partition_s": t1 - t0,
                              "rebuild_s": t2 - t1, "prefetch_wait_s": 0.0}
+        self._prepare_flags = {"graph_reused": False, "rebuild": True,
+                               "prefetch_adopted": False, "rebuild_count": 1,
+                               "rebuild_on_device": 1}
         return graph2, host, positions
 
     def _prepare(self, atoms: Atoms):
@@ -564,16 +624,24 @@ class DistPotential:
                 self.last_timings = {"neighbor_s": t1 - t0 - prefetch_wait,
                                      "partition_s": time.perf_counter() - t1,
                                      "prefetch_wait_s": prefetch_wait}
+                self._prepare_flags = {"graph_reused": False, "rebuild": True,
+                                       "prefetch_adopted": False, "rebuild_count": 1}
                 return graph, host, graph.positions
             # the rebuild was done by the worker: this step uploads the
             # positions, as a cache hit does
             graph, host, snap = adopted
             self._install_cache(graph, host, snap)
+            self._prepare_flags = {"graph_reused": False, "rebuild": True,
+                                   "prefetch_adopted": True, "rebuild_count": 1}
+        else:
+            self._prepare_flags = {"graph_reused": True, "rebuild": False,
+                                   "prefetch_adopted": False}
         self.last_build_fresh = False
         self._maybe_prefetch(atoms)
         graph, host = self._cache[:2]
         t1 = time.perf_counter()
-        positions = self._positions(host, graph, atoms)
+        with annotate("distmlip/positions_upload"):
+            positions = self._positions(host, graph, atoms)
         self.last_timings = {"neighbor_s": t1 - t0 - prefetch_wait,
                              "partition_s": time.perf_counter() - t1,
                              "prefetch_wait_s": prefetch_wait}
@@ -592,11 +660,14 @@ class DistPotential:
     def calculate(self, atoms: Atoms) -> dict:
         """Energy (eV), forces (eV/Å), stress (eV/Å^3, ASE sign convention),
         and magmoms (N,) with ``compute_magmom``."""
+        t_start = time.perf_counter()
         validate_system(self.model.cfg, atoms_system(atoms))
         graph, host, positions = self._prepare(atoms)
         t0 = time.perf_counter()
-        out = self._potential(self.params, graph, positions)
-        energy = float(out["energy"])
+        routes = dict(route_counts) if self.telemetry is not None else None
+        with annotate("distmlip/potential"):
+            out = self._potential(self.params, graph, positions)
+            energy = float(out["energy"])
         forces = host.gather_owned(out["forces"].detach().cpu().numpy(), len(atoms))
         stress = out["stress"].detach().cpu().numpy()
         self.last_stats = dict(host.stats)
@@ -611,7 +682,69 @@ class DistPotential:
             m = out["aux"]["magmoms"].cpu().numpy()
             result["magmoms"] = host.gather_owned(m, len(atoms))
         self.last_timings["device_s"] = time.perf_counter() - t0
+        if self.telemetry is not None:
+            self._emit_record("calculate", host, time.perf_counter() - t_start,
+                              routes=routes)
+        else:
+            self._step_counter += 1
         return result
+
+    def _emit_record(self, kind: str, host, total_s: float, extra_timings: dict | None = None,
+                     routes: dict | None = None, **extra) -> None:
+        """Build and emit a ``StepRecord``
+        (``distmlip_tpu/calculators/calculator.py:801-900``); the caller
+        checks that a hub is attached. ``routes``: a snapshot of
+        ``kernels.route_counts`` from before the step's force program, for
+        the kernel routing fields. StepRecord fields passed in ``extra``
+        (DeviceMD's per-chunk rebuild counts) land on the record, the rest
+        in its ``extra``. No device sync: every number was read by the step
+        already, or is a host-side allocator counter."""
+        self._step_counter += 1
+        tel = self.telemetry
+        if tel is None or not tel.wants_records():
+            return
+        timings = {**self.last_timings, "total_s": total_s, **(extra_timings or {})}
+        stats = host.stats if host is not None else {}
+        # a step on a capacity bucket not seen before: the JAX package's
+        # fresh compile, with the dispatch's wall time as its cost
+        bucket = getattr(host, "bucket", None)
+        compiled = bucket is not None and (kind, bucket) not in self._buckets
+        compile_s = 0.0
+        if compiled:
+            self._buckets.add((kind, bucket))
+            compile_s = float(timings.get("device_s", 0.0))
+            obs_profiling.record_compile(site="dist_potential", kind=obs_profiling.KIND_FRESH,
+                                         wall_s=compile_s, bucket_key=kind)
+        fields = {k: extra.pop(k) for k in list(extra) if k in STEP_RECORD_FIELDS}
+        flags = {**self._prepare_flags, **fields}
+        overflow_count = flags.pop("rebuild_overflow_count", self.rebuild_overflow_count)
+        kernel_mode, kernel_coverage = kernel_routing(routes) if routes is not None else ("", 0.0)
+        ctx = obsrt.current_ctx()
+        rec = StepRecord(
+            step=self._step_counter, kind=kind, timings=timings,
+            trace_id=ctx[0] if ctx is not None else "",
+            span_id=ctx[1] if ctx is not None else "",
+            compile_cache_size=sum(1 for k, _ in self._buckets if k == kind),
+            compiled=compiled, compile_s=compile_s,
+            compile_kind=obs_profiling.KIND_FRESH if compiled else "",
+            device_memory=device_memory_stats() if self.device.type == "cuda" else {},
+            halo_mode="coalesced",
+            prefetch_skipped_hbm=self.prefetch_skipped_hbm > self._skipped_seen,
+            rebuild_overflow_count=overflow_count,
+            kernel_mode=kernel_mode, kernel_coverage=kernel_coverage,
+            extra=extra, **flags)
+        self._skipped_seen = self.prefetch_skipped_hbm
+        for k, v in stats.items():
+            if k in STEP_RECORD_FIELDS:
+                setattr(rec, k, v)
+        # analytic cost model: FLOPs of the step and model FLOP utilization
+        # at the compute dtype's peak (0 on the CPU, where no peak is known)
+        n_edges = sum(rec.n_edges_per_part)
+        rec.flops_per_step = model_flop_estimate(self.model, rec.n_atoms, n_edges,
+                                                 stats.get("n_lines", 0))
+        rec.mfu = (mfu(rec.flops_per_step, timings.get("device_s", 0.0), 1,
+                       dtype=self.compute_dtype) if self.device.type == "cuda" else 0.0)
+        tel.emit(rec)
 
 
 # UMA/fairchem task routing: task name -> the dataset-conditioning index
@@ -686,7 +819,11 @@ class EnsemblePotential:
 
     Every member shares one ``CapacityPolicy`` (``kwargs["caps"]``, made
     here when not given). ``last_stats`` is the graph's stats plus
-    ``member_count``; ``last_timings`` the first member's.
+    ``member_count``; ``last_timings`` the first member's. A telemetry hub
+    (``kwargs["telemetry"]`` or ``attach_telemetry``) is shared by every
+    member; each ensemble step emits one ``ensemble_calculate`` record (and,
+    sequential, each member its own ``calculate`` record), as
+    ``distmlip_tpu/calculators/calculator.py:1105-1113`` and ``:1170-1188``.
     """
 
     def __init__(self, model, params_list, stacked: bool | None = None, **kwargs):
@@ -709,14 +846,25 @@ class EnsemblePotential:
             self.members = [base] + [DistPotential(model, p, **kwargs)
                                      for p in params_list[1:]]
 
+    @property
+    def telemetry(self):
+        return self.members[0].telemetry
+
+    def attach_telemetry(self, telemetry) -> None:
+        """The first attached hub wins; every member shares it."""
+        for m in self.members:
+            m.attach_telemetry(telemetry)
+
     def _stacked_results(self, atoms: Atoms):
         """Per-member energies (M,), forces (M, N, 3), stresses (M, 3, 3)
-        and magmoms (M, N) or None, from one graph."""
+        and magmoms (M, N) or None, from one graph, and the graph's host
+        data."""
         base = self.members[0]
         validate_system(base.model.cfg, atoms_system(atoms))
         graph, host, positions = base._prepare(atoms)
         t0 = time.perf_counter()
-        outs = [base._potential(p, graph, positions) for p in self.params_list]
+        with annotate("distmlip/potential"):
+            outs = [base._potential(p, graph, positions) for p in self.params_list]
         parts = [("energy", outs[0]["energy"]), ("forces", outs[0]["forces"]),
                  ("stress", outs[0]["stress"])]
         if "aux" in outs[0]:
@@ -741,12 +889,16 @@ class EnsemblePotential:
         forces = np.stack([host.gather_owned(f, n) for f in got["forces"]])
         magmoms = (np.stack([host.gather_owned(m, n) for m in got["magmoms"]])
                    if "magmoms" in got else None)
-        return energies, forces, got["stress"], magmoms, dict(host.stats)
+        return energies, forces, got["stress"], magmoms, host
 
     def calculate(self, atoms: Atoms) -> dict:
+        t_start = time.perf_counter()
         base = self.members[0]
+        routes = dict(route_counts) if base.telemetry is not None else None
+        host = None
         if self.stacked:
-            energies, forces, stresses, magmoms, stats = self._stacked_results(atoms)
+            energies, forces, stresses, magmoms, host = self._stacked_results(atoms)
+            stats = dict(host.stats)
         else:
             results = [m.calculate(atoms) for m in self.members]
             energies = np.array([r["energy"] for r in results])
@@ -771,4 +923,7 @@ class EnsemblePotential:
         stats["member_count"] = self.member_count
         self.last_stats = stats
         self.last_timings = dict(base.last_timings)
+        if base.telemetry is not None:
+            base._emit_record("ensemble_calculate", host, time.perf_counter() - t_start,
+                              routes=routes, member_count=self.member_count)
         return result

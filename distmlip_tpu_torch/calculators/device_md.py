@@ -33,6 +33,13 @@ energies per step. ``host_reads`` counts these reads. A step without any
 host read would need the step captured as a CUDA graph with a conditional
 node (ROADMAP.md queue A item 3).
 
+With a telemetry hub (``telemetry=``, routed to the potential by
+``attach_telemetry``) each chunk emits one ``md_chunk`` record at its end
+(``distmlip_tpu/calculators/device_md.py:434-469``): ``device_s`` covers
+the chunk's steps, ``steps_done`` and the chunk's rebuild counts ride the
+record. It is built from what the chunk end already read back, so it adds
+no sync inside the chunk.
+
 Optional Berendsen velocity rescaling (``temperature`` and ``taut``) gives
 NVT; NVE is the default. The JAX package's ``DISTMLIP_DEVICE_REBUILD=0`` is
 the explicit ``device_rebuild=False`` here: the port has no env switches.
@@ -40,8 +47,12 @@ the explicit ``device_rebuild=False`` here: the port has no env switches.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
+
+from ..kernels.dispatch import route_counts
 
 from ..neighbors.device import (as_device_arrays, build_cell_list_spec,
                                 grow_caps_after_overflow)
@@ -126,8 +137,7 @@ class DeviceMD:
                  cell_capacity: int | None = None,
                  telemetry=None):
         if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry hubs are not ported (ROADMAP.md queue A item 8, A12)")
+            getattr(potential, "attach_telemetry", lambda t: None)(telemetry)
         if potential.skin <= 0.0:
             raise ValueError("DeviceMD requires DistPotential(skin > 0)")
         if not (isinstance(device_rebuild, bool) or device_rebuild == "auto"):
@@ -254,6 +264,8 @@ class DeviceMD:
         max_chunk = int(max_chunk or steps)
         overflow_stalls = 0
         while remaining > 0:
+            t_chunk = time.perf_counter()
+            routes = dict(route_counts) if pot.telemetry is not None else None
             on_device = pot.rebuild_on_device_count
             graph, host, positions = pot._prepare(atoms)
             # a fresh graph was built at these positions (on the host, or
@@ -277,10 +289,18 @@ class DeviceMD:
             integ = _Integrator(self.dt, pot.skin, graph.owned_mask, masses, len(atoms),
                                 self.taut, float(self.temperature or 0.0))
             n = min(remaining, max_chunk)
+            def emit_chunk(t_dev, t_done, **fields):
+                if pot.telemetry is not None:
+                    pot._emit_record("md_chunk", host, time.perf_counter() - t_chunk,
+                                     extra_timings={"device_s": t_done - t_dev},
+                                     routes=routes, steps_total=self.steps_done, **fields)
+
             if self.device_rebuild:
                 self._ensure_spec(graph)
+                t_dev = time.perf_counter()
                 (graph_f, ref_f, pos_f, vel_f, done, e_f, ke, overflow, refreshes,
                  edges_needed) = self._device_chunk(integ, graph, positions, ref, vel, n)
+                t_done = time.perf_counter()
                 self.rebuilds_on_device += refreshes
                 atoms.positions = _gather(host, pos_f, len(atoms))
                 atoms.velocities = _gather(host, vel_f, len(atoms))
@@ -308,9 +328,22 @@ class DeviceMD:
                             raise RuntimeError(
                                 "device neighbor rebuild overflowed repeatedly without "
                                 "progress; capacities are not converging")
+                emit_chunk(t_dev, t_done, steps_done=done,
+                           rebuild_count=refreshes + int(fresh),
+                           rebuild_on_device=refreshes + int(fresh and fresh_on_device),
+                           rebuild_overflow_count=self.rebuild_overflows,
+                           chunk_overflow=bool(overflow))
                 continue
+            t_dev = time.perf_counter()
             pos_f, vel_f, done, e_f, ke = self._host_chunk(integ, graph, positions, ref, vel, n)
+            t_done = time.perf_counter()
+            chunk_fields = dict(steps_done=done, rebuild_count=int(fresh),
+                                rebuild_on_device=int(fresh and fresh_on_device))
             if done == 0:
+                # the wasted dispatch is recorded either way: repeated
+                # zero-progress retries are what the records should show
+                emit_chunk(t_dev, t_done, zero_progress=True, fresh_build=fresh,
+                           **chunk_fields)
                 if not fresh:
                     # a warm cache arrived with its skin budget spent: rebuild
                     # at the current positions (on the device where the
@@ -330,6 +363,8 @@ class DeviceMD:
             self.steps_done += done
             remaining -= done
             self.results = {"energy": self.energies[-1], "kinetic": float(ke)}
+            # one record per chunk: device_s covers its `done` steps
+            emit_chunk(t_dev, t_done, **chunk_fields)
 
 
 def _np_dtype(graph):

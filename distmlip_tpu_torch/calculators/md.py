@@ -95,9 +95,9 @@ class MolecularDynamics:
         if ensemble not in ENSEMBLES:
             raise ValueError(f"ensemble {ensemble!r} not in {ENSEMBLES}")
         if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry hubs are not ported (ROADMAP.md queue A item "
-                "'Telemetry and observability')")
+            # the potential's own hub wins (attach_telemetry's rule): every
+            # step's calculate emits its record into it
+            getattr(potential, "attach_telemetry", lambda t: None)(telemetry)
         if ensemble.startswith("npt") and not getattr(potential, "compute_stress", True):
             raise ValueError(
                 "NPT ensembles need stresses: build the potential with "

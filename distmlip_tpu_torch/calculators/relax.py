@@ -69,9 +69,9 @@ class Relaxer:
         if optimizer not in _OPTIMIZERS:
             raise ValueError(f"optimizer {optimizer!r} not in {_OPTIMIZERS}")
         if telemetry is not None:
-            raise NotImplementedError(
-                "telemetry hubs are not ported (ROADMAP.md queue A item "
-                "'Telemetry and observability')")
+            # the potential's own hub wins (attach_telemetry's rule): every
+            # step's calculate emits its record into it
+            getattr(potential, "attach_telemetry", lambda t: None)(telemetry)
         if cell_filter not in ("unit", "exp"):
             raise ValueError(f"cell_filter {cell_filter!r} not in ('unit', 'exp')")
         self.potential = potential

@@ -50,7 +50,8 @@ Every TPU kernel of the JAX package has its CUDA counterpart here.
 """
 
 from .dispatch import (Gather, fused_edge_aggregate, fused_segment_sum,  # noqa: F401
-                       fused_so2_conv, recompute_chunks, so2_packed_weights)
+                       fused_so2_conv, kernel_routing, recompute_chunks, route_counts,
+                       so2_packed_weights)
 from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              PROJECTION_MAX_K, PROJECTION_MAX_M, TENSORNET_EMBED,
                              TENSORNET_INTERACTION, EdgeMessage,

@@ -9,7 +9,9 @@ plain C interface (no PyTorch headers, so a build takes seconds):
 The output lands in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``) under a name keyed by a hash of the source and the flags,
 so a changed source rebuilds and an unchanged one is reused. ``ptxas``'s
-register/spill report is kept beside it as ``<name>-<hash>.log``.
+register/spill report is kept beside it as ``<name>-<hash>.log``. Each
+build that ran goes into the compile log (``obs.profiling``, site
+``kernel_build``, the source's name as its bucket key).
 Nothing here runs at import time; CPU-only hosts never need ``nvcc``.
 """
 
@@ -22,6 +24,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from ..obs.profiling import KIND_FRESH, record_compile
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(
@@ -84,6 +88,8 @@ def build(names=None) -> dict[str, float]:
             errors.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, lib)
+        record_compile("kernel_build", KIND_FRESH, seconds[name], bucket_key=name,
+                       executable_bytes=os.path.getsize(lib))
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds

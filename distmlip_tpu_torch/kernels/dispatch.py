@@ -73,6 +73,30 @@ DEFAULT_BWD_CHUNK = 32768
 # a run resets them to 0 to show which backwards took the kernel route
 recompute_chunks: dict = {}
 
+# forward routing of the three dispatchers' calls: "kernel" (a hand-written
+# kernel launches) or "plain" (its plain PyTorch version runs). Telemetry
+# reads the difference over a step for the records' kernel_mode and
+# kernel_coverage (the JAX package's trace-time KernelCounter); one int add
+# a call, nothing else.
+route_counts = {"kernel": 0, "plain": 0}
+
+
+def _route(use_kernel: bool) -> None:
+    route_counts["kernel" if use_kernel else "plain"] += 1
+
+
+def kernel_routing(before: dict | None = None) -> tuple[str, float]:
+    """``(kernel_mode, kernel_coverage)`` of the calls routed since the
+    snapshot ``before`` (a copy of ``route_counts``): "cuda" when any
+    launched a hand-written kernel, "plain" when all took the plain
+    versions, "" when none were routed; the coverage is the kernel share."""
+    before = before or {"kernel": 0, "plain": 0}
+    k = route_counts["kernel"] - before["kernel"]
+    total = k + route_counts["plain"] - before["plain"]
+    if total <= 0:
+        return "", 0.0
+    return ("cuda" if k else "plain"), k / total
+
 
 class _SegmentSum(torch.autograd.Function):
     @staticmethod
@@ -106,8 +130,10 @@ def fused_segment_sum(data, segment_ids, num_segments: int, mask=None,
     if mask is not None and mask.dtype != torch.bool:
         raise TypeError(f"fused_segment_sum: mask must be bool, got {mask.dtype}")
     if not indices_are_sorted:
+        _route(False)
         return masked_segment_sum(data, segment_ids, num_segments, mask)
     use_kernel = kernels is not False and data.is_cuda
+    _route(use_kernel)
     return _SegmentSum.apply(data, segment_ids, mask, int(num_segments),
                              use_kernel)
 
@@ -300,6 +326,7 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
     if not indices_are_sorted or segment_ids.shape[0] == 0 or num_segments == 0:
         rows = screen_masked_rows(mask, *[i.node.index_select(0, i.idx)
                                           if isinstance(i, Gather) else i for i in inputs])
+        _route(False)
         return masked_segment_sum(message.fn(*rows, weights=weights), segment_ids,
                                   num_segments, mask)
     use_kernel = kernels is not False and segment_ids.is_cuda
@@ -329,6 +356,7 @@ def fused_edge_aggregate(message, inputs, segment_ids, num_segments: int,
             f"fused_edge_aggregate: {'/'.join(map(str, sorted(half, key=str)))} inputs "
             f"to the {message.name!r} kernel, which takes float32"
             f"{' or bfloat16' if message.bf16 else ''}")
+    _route(use_kernel)
     return _EdgeAggregate.apply(message, tuple(kinds), len(weights), use_kernel, chunk,
                                 num_segments, segment_ids, mask, *arrs, *weights, *idxs)
 
@@ -487,6 +515,7 @@ def fused_so2_conv(h, weights, m_idx: dict, channels: int, kernels: bool = True,
     perm_np, inv_np, segments = packed_m_layout(m_idx)
     perm, inv = _row_tables(tuple(perm_np.tolist()), tuple(inv_np.tolist()), h.device)
     use_kernel = kernels is not False and h.is_cuda and h.shape[0] > 0
+    _route(use_kernel)
     if use_kernel and packed is None:
         packed = pack_so2_weights(weights, segments, int(channels),
                                   backward=h.requires_grad)

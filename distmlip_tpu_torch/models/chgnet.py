@@ -50,6 +50,7 @@ from ..kernels import CHGNET_ATOM_CONV, CHGNET_LINE_CONV, Gather, fused_edge_agg
 from ..ops import radial
 from ..ops.nn import (cast_params_subtrees, embedding, gated_mlp, gated_mlp_init,
                       gated_mlp_weights, linear, linear_init, mlp, mlp_init)
+from ..telemetry.trace import scope
 from ..utils.checkpoint import as_list
 
 
@@ -157,9 +158,10 @@ class CHGNet:
 
     # ---- forward ----
     def _readout(self, params, lg, v):
-        e_atom = mlp(as_list(params["final"]), v)[:, 0]
-        e_ref = params["species_ref"]["w"][lg.species.long(), 0]
-        return params["data_std"] * e_atom + e_ref
+        with scope("chgnet/readout"):
+            e_atom = mlp(as_list(params["final"]), v)[:, 0]
+            e_ref = params["species_ref"]["w"][lg.species.long(), 0]
+            return params["data_std"] * e_atom + e_ref
 
     def energy_fn(self, params, lg, positions):
         """Per-atom energies (n_cap,) of the local graph."""
@@ -250,26 +252,29 @@ class CHGNet:
 
         # --- message-passing blocks ---
         for i in range(cfg.num_blocks - 1):
-            v, e = self._atom_conv(atom_blocks[i], lg, v, vx, e, abw, bbw, in_r)
-            if use_bg:
-                b = lg.edge_to_bond(e, b)
-                (vx,), (b,) = lg.exchange_all((v,), (b,))
-                blk = bond_blocks[i]
-                b = self._bond_node_conv(blk, lg, vx, b, a, tbw, line_ok)
-                e = lg.bond_to_edge(b, e)
-                if i + 2 < cfg.num_blocks:
-                    # after the last bond block nothing reads b or a: no
-                    # exchange and no angle update there
-                    _, (b,) = lg.exchange_all((), (b,))
-                    a = self._angle_conv(blk, lg, vx, b, a, line_ok)
-            else:
-                vx = lg.halo_exchange(v)
+            with scope(f"chgnet/block{i}"):
+                v, e = self._atom_conv(atom_blocks[i], lg, v, vx, e, abw, bbw, in_r)
+                if use_bg:
+                    b = lg.edge_to_bond(e, b)
+                    (vx,), (b,) = lg.exchange_all((v,), (b,))
+                    blk = bond_blocks[i]
+                    b = self._bond_node_conv(blk, lg, vx, b, a, tbw, line_ok)
+                    e = lg.bond_to_edge(b, e)
+                    if i + 2 < cfg.num_blocks:
+                        # after the last bond block nothing reads b or a: no
+                        # exchange and no angle update there
+                        _, (b,) = lg.exchange_all((), (b,))
+                        a = self._angle_conv(blk, lg, vx, b, a, line_ok)
+                else:
+                    vx = lg.halo_exchange(v)
 
         # sitewise readout BEFORE the last atom conv, on the float32 head
-        site = linear(fp["sitewise"], vx.to(positions.dtype))
+        with scope("chgnet/site_readout"):
+            site = linear(fp["sitewise"], vx.to(positions.dtype))
 
         # final atom conv; the readouts use owned rows only
-        v, e = self._atom_conv(atom_blocks[-1], lg, v, vx, e, abw, bbw, in_r)
+        with scope(f"chgnet/block{cfg.num_blocks - 1}"):
+            v, e = self._atom_conv(atom_blocks[-1], lg, v, vx, e, abw, bbw, in_r)
         return v.to(positions.dtype), site
 
     # ---- layers ----

@@ -59,6 +59,7 @@ from ..ops.chunk import chunk_layout, scan_accumulate
 from ..ops.nn import cast_params_subtrees, gather_rows, linear, linear_init, mlp, mlp_init
 from ..ops.segment import masked_segment_sum
 from ..ops.so3_e3nn import CoeffLayout, wigner_blocks_from_edges
+from ..telemetry.trace import scope
 from ..utils.checkpoint import as_list
 
 
@@ -282,53 +283,55 @@ class ESCN:
         else:
             mole = torch.ones((1,), dtype=dtype, device=dev)
 
-        for layer in as_list(params["layers"]):
-            so2 = layer["so2"]
-            per_m = lambda f: [f(so2["m0"])] + [  # noqa: E731
-                f(so2[f"m{m}{part}"]) for m in range(1, L + 1) for part in "ri"]
-            if batched_gate:
-                # one weight set per expert: the gate mixes their outputs
-                ws_sets = [per_m(lambda Wk, k=k: Wk[k]) for k in range(cfg.num_experts)]
-            else:
-                # mix experts ONCE in weight space per layer; the SO(2) kernel
-                # then runs every per-|m| product on the mixed weights
-                ws_sets = [per_m(lambda Wk: torch.einsum("k,kab->ab", mole, Wk))]
-            # the kernel's form of each weight set, once per layer for every
-            # chunk, forward and backward (None on the plain path)
-            packs = [so2_packed_weights(ws, self.m_idx, C, kernels=lg.kernels)
-                     for ws in ws_sets]
-
-            def so2_chunk(srcc, dstc, D, besc, envc, layer=layer, ws_sets=ws_sets,
-                          packs=packs, h=h):
-                ef = torch.cat([besc, zemb.index_select(0, srcc),
-                                zemb.index_select(0, dstc)], dim=-1)
-                g_e = mlp(layer["edge_mlp"], ef) * envc[:, None]  # (E_c, C)
-                # rotate into the edge frame, the edge scalars injected into
-                # the l=0 row
-                h_rot = rotate(gather_rows(h, srcc), D, to_edge=True, add_scalar=g_e)
-                conv = lambda k: fused_so2_conv(  # noqa: E731
-                    h_rot, ws_sets[k], self.m_idx, C, kernels=lg.kernels, packed=packs[k])
+        for i, layer in enumerate(as_list(params["layers"])):
+            with scope(f"escn/layer{i}"):
+                so2 = layer["so2"]
+                per_m = lambda f: [f(so2["m0"])] + [  # noqa: E731
+                    f(so2[f"m{m}{part}"]) for m in range(1, L + 1) for part in "ri"]
                 if batched_gate:
-                    # the edge's structure gate (dst rows are real atoms)
-                    mole_e = mole.index_select(
-                        0, torch.clamp(lg.struct_id.index_select(0, dstc).long(),
-                                       max=lg.batch_size - 1))
-                    y = sum(mole_e[:, k, None, None] * conv(k) for k in range(len(ws_sets)))
+                    # one weight set per expert: the gate mixes their outputs
+                    ws_sets = [per_m(lambda Wk, k=k: Wk[k]) for k in range(cfg.num_experts)]
                 else:
-                    y = conv(0)
-                return rotate(y, D) * envc[:, None, None]
+                    # mix experts ONCE in weight space per layer; the SO(2) kernel
+                    # then runs every per-|m| product on the mixed weights
+                    ws_sets = [per_m(lambda Wk: torch.einsum("k,kab->ab", mole, Wk))]
+                # the kernel's form of each weight set, once per layer for every
+                # chunk, forward and backward (None on the plain path)
+                packs = [so2_packed_weights(ws, self.m_idx, C, kernels=lg.kernels)
+                         for ws in ws_sets]
 
-            agg = edge_scan(so2_chunk) * inv_avg
+                def so2_chunk(srcc, dstc, D, besc, envc, layer=layer, ws_sets=ws_sets,
+                              packs=packs, h=h):
+                    ef = torch.cat([besc, zemb.index_select(0, srcc),
+                                    zemb.index_select(0, dstc)], dim=-1)
+                    g_e = mlp(layer["edge_mlp"], ef) * envc[:, None]  # (E_c, C)
+                    # rotate into the edge frame, the edge scalars injected into
+                    # the l=0 row
+                    h_rot = rotate(gather_rows(h, srcc), D, to_edge=True, add_scalar=g_e)
+                    conv = lambda k: fused_so2_conv(  # noqa: E731
+                        h_rot, ws_sets[k], self.m_idx, C, kernels=lg.kernels, packed=packs[k])
+                    if batched_gate:
+                        # the edge's structure gate (dst rows are real atoms)
+                        mole_e = mole.index_select(
+                            0, torch.clamp(lg.struct_id.index_select(0, dstc).long(),
+                                           max=lg.batch_size - 1))
+                        y = sum(mole_e[:, k, None, None] * conv(k) for k in range(len(ws_sets)))
+                    else:
+                        y = conv(0)
+                    return rotate(y, D) * envc[:, None, None]
 
-            # gated nonlinearity: scalars via MLP, higher l scaled by gates
-            s = agg[:, 0, :]
-            gates = torch.sigmoid(mlp(layer["gate_mlp"], s))
-            upd = torch.cat([mlp(layer["scalar_mlp"], s)[:, None],
-                             agg[:, 1:] * gates[:, None, :]], dim=1)
-            h = lg.halo_exchange(h + upd)
+                agg = edge_scan(so2_chunk) * inv_avg
+
+                # gated nonlinearity: scalars via MLP, higher l scaled by gates
+                s = agg[:, 0, :]
+                gates = torch.sigmoid(mlp(layer["gate_mlp"], s))
+                upd = torch.cat([mlp(layer["scalar_mlp"], s)[:, None],
+                                 agg[:, 1:] * gates[:, None, :]], dim=1)
+                h = lg.halo_exchange(h + upd)
 
         # the energy readout and sum in the positions dtype (bf16 is too
         # coarse for them): the JAX package's bf16 scalars times its fp32
         # readout weights promote to fp32
-        e_atom = mlp(params["energy_mlp"], h[:, 0, :].to(acc_dtype))[:, 0]
-        return e_atom + params["species_ref"]["w"].index_select(0, z).to(acc_dtype)
+        with scope("escn/readout"):
+            e_atom = mlp(params["energy_mlp"], h[:, 0, :].to(acc_dtype))[:, 0]
+            return e_atom + params["species_ref"]["w"].index_select(0, z).to(acc_dtype)

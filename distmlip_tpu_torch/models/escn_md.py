@@ -62,6 +62,7 @@ from ..ops import radial
 from ..ops.chunk import chunk_layout, scan_accumulate
 from ..ops.nn import cast_params_subtrees, gather_rows
 from ..ops.so3_e3nn import CoeffLayout, wigner_blocks_from_edges
+from ..telemetry.trace import scope
 from ..utils.checkpoint import as_list
 
 
@@ -446,30 +447,32 @@ class ESCNMD:
         h = h + edge_scan(deg_chunk) * inv_deg
         h = lg.halo_exchange(h)
 
-        for blk in as_list(params["blocks"]):
-            # the message path reads the NORMALISED features with the system
-            # embedding re-injected into the scalars; the residual keeps h
-            hn = self._rms_norm_sh(blk["norm1"]["w"], h)
-            hn = torch.cat([hn[:, :1] + csd[None, None, :], hn[:, 1:]], dim=1)
-            W1, W2 = mixed(blk["so2_1"]), mixed(blk["so2_2"])
+        for i, blk in enumerate(as_list(params["blocks"])):
+            with scope(f"escn_md/block{i}"):
+                # the message path reads the NORMALISED features with the system
+                # embedding re-injected into the scalars; the residual keeps h
+                hn = self._rms_norm_sh(blk["norm1"]["w"], h)
+                hn = torch.cat([hn[:, :1] + csd[None, None, :], hn[:, 1:]], dim=1)
+                W1, W2 = mixed(blk["so2_1"]), mixed(blk["so2_2"])
 
-            def so2_chunk(srcc, dstc, D, gaussc, envc, blk=blk, hn=hn, W1=W1, W2=W2):
-                rad = _rad_apply(blk["so2_1"]["rad"], edge_scalars(srcc, dstc, gaussc))
-                fr = torch.cat([rotate_in(gather_rows(hn, srcc), D),
-                                rotate_in(gather_rows(hn, dstc), D)], dim=-1)
-                y, gates = self._so2_conv(blk["so2_1"], W1, fr, rad, 2 * C, H)
-                y = self._gate_act(y, gates)
-                y, _ = self._so2_conv(blk["so2_2"], W2, y, None, H, C)
-                return rotate_out(y, D) * envc[:, None, None]
+                def so2_chunk(srcc, dstc, D, gaussc, envc, blk=blk, hn=hn, W1=W1, W2=W2):
+                    rad = _rad_apply(blk["so2_1"]["rad"], edge_scalars(srcc, dstc, gaussc))
+                    fr = torch.cat([rotate_in(gather_rows(hn, srcc), D),
+                                    rotate_in(gather_rows(hn, dstc), D)], dim=-1)
+                    y, gates = self._so2_conv(blk["so2_1"], W1, fr, rad, 2 * C, H)
+                    y = self._gate_act(y, gates)
+                    y, _ = self._so2_conv(blk["so2_2"], W2, y, None, H, C)
+                    return rotate_out(y, D) * envc[:, None, None]
 
-            h = h + edge_scan(so2_chunk) * inv_deg
-            # FFN with pre-norm and residual
-            h = h + self._ffn(blk["ff"], self._rms_norm_sh(blk["ff_norm"]["w"], h))
-            h = lg.halo_exchange(h)
+                h = h + edge_scan(so2_chunk) * inv_deg
+                # FFN with pre-norm and residual
+                h = h + self._ffn(blk["ff"], self._rms_norm_sh(blk["ff_norm"]["w"], h))
+                h = lg.halo_exchange(h)
 
-        h = self._rms_norm_sh(params["norm"]["w"], h)
-        s = h[:, 0, :].to(acc_dtype)
-        head = params["energy_head"]
-        e = F.linear(F.silu(F.linear(s, head["lin1"]["w"], head["lin1"]["b"])),
-                     head["lin2"]["w"], head["lin2"]["b"])[:, 0]
-        return e + params["species_ref"]["w"].index_select(0, z).to(acc_dtype)
+        with scope("escn_md/readout"):
+            h = self._rms_norm_sh(params["norm"]["w"], h)
+            s = h[:, 0, :].to(acc_dtype)
+            head = params["energy_head"]
+            e = F.linear(F.silu(F.linear(s, head["lin1"]["w"], head["lin1"]["b"])),
+                         head["lin2"]["w"], head["lin2"]["b"])[:, 0]
+            return e + params["species_ref"]["w"].index_select(0, z).to(acc_dtype)

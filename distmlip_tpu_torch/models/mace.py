@@ -56,6 +56,7 @@ from ..ops.chunk import chunk_layout, remat_wrap, scan_accumulate
 from ..ops.nn import (cast_params_subtrees, gather_rows, linear, linear_init, linear_init_vp,
                       mlp, mlp_init, mlp_init_vp)
 from ..ops.so3 import real_clebsch_gordan, spherical_harmonics, symmetric_coupling_basis
+from ..telemetry.trace import scope
 from ..utils.checkpoint import as_list
 
 
@@ -345,20 +346,22 @@ class MACE:
             acc = acc + self._zbl_site(params, lg, d)
         interactions = as_list(params["interactions"])
         for t, inter in enumerate(interactions):
-            h = self._interaction(inter, h, lg=lg, edges=edges, K=K, z=z, t=t,
-                                  consts=per_t[t], U_t=U_t)
-            h = self._unpack(lg.halo_exchange(self._pack(h)), self.h_ls_out[t], C)
+            with scope(f"mace/interaction{t}"):
+                h = self._interaction(inter, h, lg=lg, edges=edges, K=K, z=z, t=t,
+                                      consts=per_t[t], U_t=U_t)
+                h = self._unpack(lg.halo_exchange(self._pack(h)), self.h_ls_out[t], C)
 
             # invariant readout (head column selected), in the positions
             # dtype on the uncast readout weights: the JAX package's bf16
             # scalars times its fp32 weights promote to fp32
-            scalars = h[0][:, 0, :].to(acc_dtype)
-            readout = as_list(inter["readout"])
-            if t == cfg.num_interactions - 1:
-                r_out = mlp(readout, scalars)[:, head]
-            else:
-                r_out = linear(readout[0], scalars)[:, head]
-            acc = acc + r_out
+            with scope(f"mace/readout{t}"):
+                scalars = h[0][:, 0, :].to(acc_dtype)
+                readout = as_list(inter["readout"])
+                if t == cfg.num_interactions - 1:
+                    r_out = mlp(readout, scalars)[:, head]
+                else:
+                    r_out = linear(readout[0], scalars)[:, head]
+                acc = acc + r_out
 
         scale = params["scale"][head].to(acc_dtype)
         shift = params["shift"][head].to(acc_dtype)

@@ -47,6 +47,7 @@ from ..ops import radial
 from ..ops.nn import (cast_params_subtrees, embedding, gather_rows, layernorm, layernorm_init,
                       linear, linear_init, mlp, mlp_init)
 from ..ops.segment import _HALF_DTYPES
+from ..telemetry.trace import scope
 from ..utils.checkpoint import as_list
 
 
@@ -204,45 +205,48 @@ class TensorNet:
         A_e = _vector_to_skew(rhat)[..., None]                          # (E, 3, 3, 1)
         S_e = (rhat[:, :, None] * rhat[:, None, :])[..., None] - eye / 3.0
 
-        z = embedding(params["species_emb"], lg.species)                # (N, C)
-        # gather_rows: a bf16 z's gradient sums its edges' rows in fp32
-        Zij = linear(params["emb2"], torch.cat(
-            [gather_rows(z, lg.edge_src), gather_rows(z, lg.edge_dst)], dim=-1))
-        dist_proj = as_list(params["dist_proj"])
-        W1 = linear(dist_proj[0], rbf) * env[:, None]                   # (E, C)
-        W2 = linear(dist_proj[1], rbf) * env[:, None]
-        W3 = linear(dist_proj[2], rbf) * env[:, None]
+        with scope("tensornet/embedding"):
+            z = embedding(params["species_emb"], lg.species)                # (N, C)
+            # gather_rows: a bf16 z's gradient sums its edges' rows in fp32
+            Zij = linear(params["emb2"], torch.cat(
+                [gather_rows(z, lg.edge_src), gather_rows(z, lg.edge_dst)], dim=-1))
+            dist_proj = as_list(params["dist_proj"])
+            W1 = linear(dist_proj[0], rbf) * env[:, None]                   # (E, C)
+            W2 = linear(dist_proj[1], rbf) * env[:, None]
+            W3 = linear(dist_proj[2], rbf) * env[:, None]
 
-        X = lg.aggregate_edge_messages(
-            TENSORNET_EMBED, (Zij, W1, W2, W3, A_e, S_e), mask=lg.edge_mask)
+            X = lg.aggregate_edge_messages(
+                TENSORNET_EMBED, (Zij, W1, W2, W3, A_e, S_e), mask=lg.edge_mask)
 
-        norm = layernorm(params["init_norm"], tensor_norm(X))
-        for lin in as_list(params["emb_lin_scalar"]):
-            norm = F.silu(linear(lin, norm))
-        norm = norm.reshape(-1, C, 3)  # torchmd-net's (C, 3) unflatten order
-        emb_lin_tensor = as_list(params["emb_lin_tensor"])
-        I, A, S = decompose(X)
-        I = _mix(emb_lin_tensor[0], I)
-        A = _mix(emb_lin_tensor[1], A)
-        S = _mix(emb_lin_tensor[2], S)
-        X = (I * norm[:, None, None, :, 0] + A * norm[:, None, None, :, 1]
-             + S * norm[:, None, None, :, 2])
-        X = lg.halo_exchange(X)
+            norm = layernorm(params["init_norm"], tensor_norm(X))
+            for lin in as_list(params["emb_lin_scalar"]):
+                norm = F.silu(linear(lin, norm))
+            norm = norm.reshape(-1, C, 3)  # torchmd-net's (C, 3) unflatten order
+            emb_lin_tensor = as_list(params["emb_lin_tensor"])
+            I, A, S = decompose(X)
+            I = _mix(emb_lin_tensor[0], I)
+            A = _mix(emb_lin_tensor[1], A)
+            S = _mix(emb_lin_tensor[2], S)
+            X = (I * norm[:, None, None, :, 0] + A * norm[:, None, None, :, 1]
+                 + S * norm[:, None, None, :, 2])
+            X = lg.halo_exchange(X)
 
         # --- interaction layers ---
-        for lp in as_list(params["layers"]):
-            X = self._interaction(lp, lg, X, rbf, env)
-            X = lg.halo_exchange(X)
+        for i, lp in enumerate(as_list(params["layers"])):
+            with scope(f"tensornet/interaction{i}"):
+                X = self._interaction(lp, lg, X, rbf, env)
+                X = lg.halo_exchange(X)
 
         # --- invariant readout (reference dist_forward :131-151), in the
         # positions' dtype on the float32 readout stack ---
-        I, A, S = decompose(X)
-        inv = torch.cat([tensor_norm(I), tensor_norm(A), tensor_norm(S)],
-                        dim=-1).to(positions.dtype)
-        x = linear(params["linear"], layernorm(params["out_norm"], inv))
-        e_atom = mlp(as_list(params["final"]), x)[:, 0]
-        e_ref = params["species_ref"]["w"][lg.species.long(), 0]
-        return params["data_std"] * e_atom + e_ref
+        with scope("tensornet/readout"):
+            I, A, S = decompose(X)
+            inv = torch.cat([tensor_norm(I), tensor_norm(A), tensor_norm(S)],
+                            dim=-1).to(positions.dtype)
+            x = linear(params["linear"], layernorm(params["out_norm"], inv))
+            e_atom = mlp(as_list(params["final"]), x)[:, 0]
+            e_ref = params["species_ref"]["w"][lg.species.long(), 0]
+            return params["data_std"] * e_atom + e_ref
 
     def _interaction(self, lp, lg, X, rbf, env):
         """torchmd-net TensorNetInteraction (O(3) group): radial edge gates,

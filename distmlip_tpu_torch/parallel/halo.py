@@ -30,6 +30,7 @@ from typing import Any
 import torch
 
 from ..kernels.dispatch import Gather, fused_edge_aggregate, fused_segment_sum
+from ..telemetry.trace import scope
 
 
 def _copy_rows(feats, send, recv):
@@ -100,14 +101,16 @@ class LocalGraph:
         owners' rows: the identity at P=1."""
         if self.halo_send is None:
             return feats
-        return _copy_rows(feats, self.halo_send, self.halo_recv)
+        with scope("halo/exchange"):
+            return _copy_rows(feats, self.halo_send, self.halo_recv)
 
     def bond_halo_exchange(self, feats):
         """Refresh the halo rows of a bond-node feature array: the identity
         at P=1 and without a bond graph."""
         if self.bond_halo_send is None or not self.has_bond_graph:
             return feats
-        return _copy_rows(feats, self.bond_halo_send, self.bond_halo_recv)
+        with scope("halo/bond_exchange"):
+            return _copy_rows(feats, self.bond_halo_send, self.bond_halo_recv)
 
     def exchange_all(self, node_feats=(), bond_feats=()):
         """Refresh several node and bond feature arrays at one sync point

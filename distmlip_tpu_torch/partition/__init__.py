@@ -4,7 +4,7 @@ from .batch import (PackedHostData, bucket_key, build_packed_refresh_spec,
 from .capacity import (BucketPolicy, CapacityPolicy, FixedCaps, fixed_caps_for_batches,
                        geometric_bucket, round_capacity)
 from .graph import (HostGraphData, PartitionedGraph, build_partitioned_graph,
-                    device_refresh_graph, refresh_edges)
+                    device_refresh_graph, graph_build_stats, refresh_edges)
 from .partitioner import PartitionError, build_plan
 from .plan import PartitionPlan
 
@@ -17,6 +17,7 @@ __all__ = [
     "build_partitioned_graph",
     "refresh_edges",
     "device_refresh_graph",
+    "graph_build_stats",
     "CapacityPolicy",
     "BucketPolicy",
     "FixedCaps",

@@ -536,6 +536,47 @@ def build_partitioned_graph(
     return graph, host
 
 
+def graph_build_stats(graph: PartitionedGraph, n_atoms: int) -> dict:
+    """Shape, occupancy and halo-volume stats of a host-side (numpy) graph,
+    under the telemetry record's field names
+    (``distmlip_tpu/partition/graph.py:525-566``). Read at build time,
+    before the upload, so they cost a few numpy sums and no device read.
+    The partitions share one card, so the placement is ``[1, P]``."""
+    P = graph.num_partitions
+    nodes = np.asarray(graph.node_mask).sum(axis=1)
+    edge_mask = np.asarray(graph.edge_mask)
+    edges = edge_mask.sum(axis=1)
+    frontier = edge_mask[:, graph.e_split:].sum(axis=1)
+
+    def per_part(mask, fn):
+        return ([int(x) for x in fn(np.asarray(mask)).sum(axis=(0, 2))]
+                if mask is not None and np.asarray(mask).size else [0] * P)
+
+    stats = {
+        "n_atoms": int(n_atoms),
+        "num_partitions": P,
+        "n_cap": graph.n_cap,
+        "e_cap": graph.e_cap,
+        "b_cap": graph.b_cap,
+        "n_nodes_per_part": [int(x) for x in nodes],
+        "n_edges_per_part": [int(x) for x in edges],
+        "node_occupancy": float(nodes.max() / graph.n_cap) if graph.n_cap else 0.0,
+        "edge_occupancy": float(edges.max() / graph.e_cap) if graph.e_cap else 0.0,
+        # fraction of real edges that read a halo row (worst partition)
+        "frontier_edge_frac": float(
+            (frontier / np.maximum(edges, 1)).max()) if len(edges) else 0.0,
+        "halo_send_per_part": per_part(graph.halo_send_mask, lambda m: m),
+        "halo_recv_per_part": per_part(graph.halo_recv_idx, lambda r: r < graph.n_cap),
+        "spatial_parts": P,
+        "batch_parts": 1,
+        "mesh_shape": [1, P],
+    }
+    if graph.has_bond_graph:
+        stats["bond_halo_send_per_part"] = per_part(graph.bond_halo_send_mask, lambda m: m)
+        stats["n_lines"] = int(np.asarray(graph.line_mask).sum())
+    return stats
+
+
 def refresh_edges(graph: PartitionedGraph, edge_src, edge_dst, edge_offset,
                   n_edges) -> PartitionedGraph:
     """Shape-preserving edge swap (``distmlip_tpu/partition/graph.py:440``).

@@ -30,8 +30,13 @@ CPU + CUDA profile, split as part 2 below; ``--reps`` is ignored.
 2. One warm step (skin-cache hit) under a CPU + CUDA profile: its wall
    time, the device time by op and by kernel, the device's busy share of
    the step (kernel, memcpy and memset time on the trace's device timeline
-   over wall time; one stream, so they do not overlap), and the share of
-   device time in each of the port's own kernels.
+   over wall time; one stream, so they do not overlap), the share of
+   device time in each of the port's own kernels (``obs.attribution``'s
+   ``PORT_KERNEL_RE``), and the step's device time by layer: the exported
+   trace through ``obs.attribution`` (``by_category``, with the port's
+   kernels in ``custom_kernel``, and ``by_layer`` over the models' named
+   scopes, ``"mace/interaction0"``, ``"halo/exchange"``, ..., each layer's
+   backward folded in).
 
 Prints one JSON line per part and writes the warm step's Chrome trace and
 both profile tables under ``--out``. Needs a card; exits non-zero without
@@ -53,11 +58,13 @@ def _top(events, key, n):
              "ms": getattr(e, key) / 1e3} for e in rows if getattr(e, key) > 0]
 
 
-def _device_split(torch, prof, wall_s, out_dir) -> dict:
+def device_split(torch, prof, wall_s, out_dir) -> dict:
     """Wall and device time of a profiled step, the device's busy share,
     the port's own kernels' device time and share, and the top ops and
     kernels by device time; writes the Chrome trace and the table."""
     from torch.autograd import DeviceType
+
+    from ..obs.attribution import PORT_KERNEL_RE, attribute_trace, by_layer
 
     ev = prof.key_averages()
     trace = os.path.join(out_dir, "step_profile_warm.json")
@@ -71,24 +78,22 @@ def _device_split(torch, prof, wall_s, out_dir) -> dict:
     kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
     own = {}  # the port's kernels, by their __global__ names
     for e in kernels:
-        for name in ("segment_sum_kernel", "segment_sum_bf16_row_kernel",
-                     "tensornet_embed_kernel",
-                     "tensornet_interaction_kernel", "tensornet_interaction_bwd_kernel",
-                     "chgnet_atom_conv_kernel",
-                     "chgnet_line_conv_kernel", "chgnet_row_projection_kernel",
-                     "so2_conv_kernel"):
-            if name in e.key:
-                row = own.setdefault(name, {"calls": 0, "ms": 0.0})
-                row["calls"] += e.count
-                row["ms"] += e.self_device_time_total / 1e3
+        m = PORT_KERNEL_RE.search(e.key)
+        if m:
+            row = own.setdefault(m.group(0), {"calls": 0, "ms": 0.0})
+            row["calls"] += e.count
+            row["ms"] += e.self_device_time_total / 1e3
     for row in own.values():
         row["device_share"] = row["ms"] / device_ms if device_ms else 0.0
+    bd = attribute_trace(trace, program="step")
     with open(os.path.join(out_dir, "step_profile_warm.txt"), "w") as f:
         f.write(ev.table(sort_by="self_device_time_total", row_limit=80))
     return {
         "wall_ms": wall_s * 1e3, "device_ms": device_ms,
         "device_busy_share": device_ms / (wall_s * 1e3),
-        "own_kernels": own,
+        "own_kernels": own, "own_kernels_ms": sum(r["ms"] for r in own.values()),
+        "by_category_ms": {k: v * 1e3 for k, v in bd.by_category.items()},
+        "by_layer_ms": {k: v * 1e3 for k, v in by_layer(bd).items()},
         "top_ops_device_inclusive": _top(
             [e for e in ev if e.key.startswith("aten::")], "device_time_total", 20),
         "top_kernels": _top(kernels, "self_device_time_total", 25),
@@ -127,7 +132,7 @@ def _profile_train(torch, family, model, out_dir) -> int:
     print(json.dumps({"part": "train_step", "model": family, "micro_batch": micro_batch,
                       "n_atoms": micro_batch * len(samples[0].forces), "loss": m["loss"],
                       "est_peak_bytes": trainer.est_peak_bytes,
-                      **_device_split(torch, prof, wall_s, out_dir)}))
+                      **device_split(torch, prof, wall_s, out_dir)}))
     trainer.close()
     return 0
 
@@ -213,7 +218,7 @@ def main(argv=None) -> int:
     if pot.rebuild_count != 1:
         raise AssertionError("the profiled step rebuilt the graph")
     print(json.dumps({"part": "warm_step", "model": args.model, "num_partitions": P,
-                      "n_atoms": len(atoms), **_device_split(torch, warm, warm_s, out_dir)}))
+                      "n_atoms": len(atoms), **device_split(torch, warm, warm_s, out_dir)}))
     return 0
 
 

@@ -2,7 +2,8 @@
 
 ``Trainer`` owns the loader (deterministic, prefetching), the accumulated
 step, periodic held-out eval on the EMA weights, resumable async
-checkpoints, best-model tracking and the per-step ``history``.
+checkpoints, best-model tracking, the per-step ``history`` and, with a
+telemetry hub, one ``TrainRecord`` a step.
 
 Micro-batch sizing against the card's memory: the JAX package plans a
 step's peak statically over its jaxpr; the port measures it. For each
@@ -25,6 +26,8 @@ import time
 import torch
 
 from ..device import resolve_device
+from ..obs import profiling as obs_profiling
+from ..telemetry import TrainRecord
 from ..utils.memory import device_bytes_limit
 from .checkpoint import TrainCheckpointer
 from .data import PackedBatchLoader
@@ -87,7 +90,12 @@ class Trainer:
     hbm_budget_bytes / hbm_budget_frac:
         the memory gate (module docstring).
     telemetry:
-        must be None: telemetry hubs are not ported (ROADMAP.md A12).
+        a ``telemetry.Telemetry`` hub or None; with one, every optimizer
+        step emits a ``TrainRecord`` (losses, grad norm, loss scale, skipped
+        flag, examples/s, tier, padding waste, edge balance, the tier's
+        measured peak), ``distmlip_tpu/train/loop.py:262-301``. A step on a
+        tier not stepped before goes into the compile log
+        (``obs.profiling``, site ``train_step``) either way.
     device:
         where the step runs (default CUDA; ``"cpu"`` for the plain path).
     """
@@ -99,9 +107,7 @@ class Trainer:
                  hbm_budget_bytes: int | None = None, hbm_budget_frac: float = 0.8,
                  telemetry=None, seed: int = 0, kernels: bool = True,
                  loader_kwargs: dict | None = None, scheduler=None, device=None):
-        if telemetry is not None:
-            raise NotImplementedError(
-                "Trainer(telemetry=...): telemetry hubs are not ported (ROADMAP.md A12)")
+        self.telemetry = telemetry
         self.device = resolve_device(device)
         self.config = config
         self.eval_every = int(eval_every)
@@ -217,10 +223,18 @@ class Trainer:
         batch = self.loader.next_batch()
         dev = batch.to(self.device)
         t_data = time.perf_counter() - t0
+        new_tier = batch.meta["bucket_key"] not in self._stepped
         self._stepped.add(batch.meta["bucket_key"])
         self.state, metrics = self.step_fn(self.state, dev.graphs, dev.targets)
         m = {k: float(v) for k, v in metrics.items()}
         dt = time.perf_counter() - t0
+        # compile log: the first step on a tier (its wall time, first-use
+        # work included), the JAX step's jit compile
+        compile_s, compile_kind = 0.0, ""
+        if new_tier:
+            compile_s, compile_kind = dt - t_data, obs_profiling.KIND_FRESH
+            obs_profiling.record_compile(site="train_step", kind=compile_kind,
+                                         wall_s=compile_s, bucket_key=batch.meta["bucket_key"])
         epoch = int(batch.meta.get("epoch", 0))
         step_no = int(m.pop("step"))
         # cadence keys on the APPLIED-step transition: a skipped step
@@ -243,8 +257,36 @@ class Trainer:
         if self.checkpointer is not None and self._due(step_no, batch,
                                                        self.checkpoint_every, advanced):
             self.checkpointer.save(self.state, self.loader.state(), step=step_no)
+        if self.telemetry is not None:
+            self._emit_record(m, batch, step_no, t_data, dt, compile_s, compile_kind)
         self.history.append(m)
         return m
+
+    def _emit_record(self, m, batch, step_no, t_data, dt, compile_s, compile_kind) -> None:
+        """One ``TrainRecord`` of the step just taken, from the host metrics
+        it already read back (no device read of its own)."""
+        tier = m["tier"]
+        # the tier's measured peak (falling back to the run max), and the
+        # headroom from the same number, so the record is self-consistent
+        tier_est = self.tier_peak_bytes.get(tier, self.est_peak_bytes)
+        self.telemetry.emit(TrainRecord(
+            step=step_no, epoch=m["epoch"],
+            timings={"data_s": t_data, "device_s": dt - t_data, "total_s": dt},
+            loss=m["loss"], loss_energy=m["energy"], loss_force=m["force"],
+            loss_stress=m["stress"], val_loss=m.get("val_loss", float("nan")),
+            grad_norm=m["grad_norm"], loss_scale=m["loss_scale"], skipped=bool(m["skipped"]),
+            accum_steps=self.config.accum_steps,
+            micro_batch_size=self.loader.micro_batch_size,
+            examples_per_sec=m["examples_per_sec"],
+            batch_size=batch.meta.get("n_structures", 0),
+            n_atoms=batch.meta.get("n_atoms", 0),
+            bucket_key=batch.meta.get("bucket_key", ""),
+            tier=tier, padding_waste_frac=m["padding_waste_frac"],
+            edge_balance=m["edge_balance"],
+            est_peak_bytes=tier_est,
+            hbm_headroom_frac=(1.0 - tier_est / self.hbm_budget_bytes
+                               if self.hbm_budget_bytes and tier_est else 0.0),
+            compile_s=compile_s, compile_kind=compile_kind, compiled=bool(compile_kind)))
 
     def _due(self, step_no: int, batch, every: int, advanced: bool) -> bool:
         if every > 0:

@@ -1,10 +1,12 @@
-"""Analytic per-model FLOP estimates (``distmlip_tpu/utils/flops.py``,
-the arithmetic copied term for term).
+"""Analytic per-model FLOP estimates and MFU accounting
+(``distmlip_tpu/utils/flops.py``, the arithmetic copied term for term).
 
 Chip-independent cost model: given a model and the live graph shape
 (atoms / edges / line-graph edges per step), estimate the floating-point
 work of one full potential evaluation (energy + forces [+ stress]); the
-trainer's ``model_cost_fn`` packs batches by it. Everything here is an
+trainer's ``model_cost_fn`` packs batches by it, and the telemetry ``mfu``
+field divides it by device time x the card's peak rate for the step's
+compute dtype (``peak_flops_per_device``). Everything here is an
 ESTIMATE —
 dominant GEMM terms only, elementwise/gather glue ignored — intended for
 trending and cross-run comparison, not absolute accounting (expect ~±20%).
@@ -21,6 +23,13 @@ Conventions:
 from __future__ import annotations
 
 FWD_BWD_FACTOR = 3.0  # forward + ~2x forward for the reverse pass
+
+# peak dense FLOP/s of one card by device-name substring and compute dtype:
+# float32 outside the tensor cores, bf16 in them (H100 SXM, the rates
+# chip_smoke.py's bounds use). The JAX package's table holds TPUs.
+_PEAK_TABLE = (
+    ("H100", {"float32": 67e12, "bfloat16": 989e12}),
+)
 
 
 def _mlp_flops(dims, rows: float) -> float:
@@ -162,3 +171,34 @@ def model_flop_estimate(model, n_atoms: float, n_edges: float,
         factor += 1.0  # full remat re-runs the forward inside the backward
     return factor * fwd
 
+
+
+def peak_flops_per_device(dtype: str = "float32", device_name: str | None = None,
+                          default: float = 0.0) -> float:
+    """Peak dense FLOP/s of one card for work in ``dtype`` ("float32" or
+    "bfloat16"), looked up by ``device_name`` (default: the name of CUDA
+    device 0); ``default`` (0.0) without a card or for an unknown one, so a
+    downstream ``mfu`` stays 0 instead of fabricated. The JAX package's
+    ``DISTMLIP_PEAK_FLOPS`` variable is not read: pass ``peak=`` to ``mfu``
+    instead."""
+    if device_name is None:
+        import torch
+
+        if not torch.cuda.is_available():
+            return default
+        device_name = torch.cuda.get_device_name(0)
+    for key, peaks in _PEAK_TABLE:
+        if key in device_name:
+            return peaks.get(dtype, default)
+    return default
+
+
+def mfu(flops_per_step: float, device_s: float, n_devices: int,
+        peak: float | None = None, dtype: str = "float32") -> float:
+    """Model FLOP utilization in [0, 1]; 0.0 whenever any input is unknown
+    (on the CPU the peak is unknown)."""
+    if peak is None:
+        peak = peak_flops_per_device(dtype)
+    if flops_per_step <= 0 or device_s <= 0 or peak <= 0 or n_devices <= 0:
+        return 0.0
+    return flops_per_step / (device_s * n_devices * peak)

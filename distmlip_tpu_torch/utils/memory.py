@@ -22,10 +22,32 @@ def device_memory_stats() -> dict:
         return {}
     out = {}
     for i in range(torch.cuda.device_count()):
-        out[f"dev{i}_bytes_in_use"] = int(torch.cuda.memory_allocated(i))
-        out[f"dev{i}_peak_bytes_in_use"] = int(torch.cuda.max_memory_allocated(i))
-        out[f"dev{i}_bytes_limit"] = int(torch.cuda.mem_get_info(i)[1])
+        limit = int(torch.cuda.mem_get_info(i)[1])
+        # one allocator query for both counters, read from its nested form:
+        # memory_allocated and max_memory_allocated each build and flatten
+        # the whole stats dict, which a telemetry record a step would pay
+        # twice (chip_smoke.py [telemetry] times both ways)
+        alloc = torch.cuda.memory_stats_as_nested_dict(i).get("allocated_bytes", {}).get("all", {})
+        out[f"dev{i}_bytes_in_use"] = int(alloc.get("current", 0))
+        out[f"dev{i}_peak_bytes_in_use"] = int(alloc.get("peak", 0))
+        out[f"dev{i}_bytes_limit"] = limit
     return out
+
+
+def hbm_usage_frac(stats: dict | None = None) -> float | None:
+    """Worst card's ``bytes_in_use / bytes_limit``, or None without a
+    limit (the CPU). ``stats`` lets callers reuse one snapshot (and the
+    report parse recorded ``device_memory`` dicts, of either package)."""
+    stats = device_memory_stats() if stats is None else stats
+    worst = None
+    for k, used in stats.items():
+        if not k.endswith("_bytes_in_use") or "peak" in k:
+            continue
+        limit = stats.get(k.replace("_bytes_in_use", "_bytes_limit"), 0)
+        if limit > 0:
+            frac = used / limit
+            worst = frac if worst is None else max(worst, frac)
+    return worst
 
 
 def measured_peak_bytes(stats: dict | None = None) -> int | None:
@@ -49,4 +71,5 @@ def device_bytes_limit(stats: dict | None = None) -> int | None:
     return min(limits) if limits else None
 
 
-__all__ = ["device_memory_stats", "device_bytes_limit", "measured_peak_bytes"]
+__all__ = ["device_memory_stats", "device_bytes_limit", "hbm_usage_frac",
+           "measured_peak_bytes"]

@@ -302,8 +302,13 @@ def test_unported_options_raise():
     model = PairPotential()
     with pytest.raises(NotImplementedError, match="A7"):
         BatchedPotential(model, model.init(), device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        BatchedPotential(model, model.init(), device="cpu", telemetry=object())
+    # telemetry= (A12) is ported: the hub is the potential's
+    from distmlip_tpu_torch.telemetry import AggregatingSink, Telemetry
+
+    hub = Telemetry([AggregatingSink()])
+    pot = BatchedPotential(model, model.init(), device="cpu", telemetry=hub)
+    pot.calculate(_port_atoms(_mixed(4)))
+    assert pot.telemetry is hub and hub.sinks[0].n_records == 1
     with pytest.raises(ValueError, match="energy_and_aux_fn"):
         BatchedPotential(model, model.init(), device="cpu", compute_magmom=True)
     atoms = _port_atoms(_mixed(8))

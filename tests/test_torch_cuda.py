@@ -3034,3 +3034,83 @@ def test_train_step_on_card_matches_plain(card, family):
     # 1.1e-3 apart (rel L2) and the losses equal; the distance to float32
     # alone (~8e-3 here) would let an added error of that size through
     assert d_kp <= 5e-3 and dl_kp <= 1e-3, (d_kp, dl_kp)
+
+
+@pytest.mark.cuda
+def test_telemetry_record_on_card(card):
+    """A small MACE's calculates on the card with a hub: one record each,
+    the kernels' routing (``kernel_mode`` "cuda"), the card's memory under
+    the JAX key names, 0 < mfu < 1; the numbers equal a run without the hub
+    under deterministic algorithms."""
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.telemetry import Telemetry, TelemetrySink
+
+    class Keep(TelemetrySink):
+        def __init__(self):
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    model = MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2, hidden_lmax=1,
+                            correlation=2, cutoff=3.0, edge_chunk=64))
+    params = model.init(0)
+    out = []
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for hub in (None, Telemetry([Keep()])):
+            pot = DistPotential(model, params, device=card, skin=0.3, telemetry=hub)
+            atoms = _light_cell()
+            res = [pot.calculate(atoms)]
+            atoms.positions = atoms.positions + 0.01
+            res.append(pot.calculate(atoms))
+            out.append((res, hub))
+    finally:
+        torch.use_deterministic_algorithms(was)
+    (plain, _), (got, hub) = out
+    for a, b in zip(plain, got):
+        assert a["energy"] == b["energy"] and np.array_equal(a["forces"], b["forces"])
+    recs = hub.sinks[0].records
+    assert len(recs) == 2 and recs[0].rebuild and recs[1].graph_reused
+    for r in recs:
+        assert r.kernel_mode == "cuda" and 0 < r.kernel_coverage <= 1
+        assert {"dev0_bytes_in_use", "dev0_peak_bytes_in_use", "dev0_bytes_limit"} <= set(
+            r.device_memory)
+        assert 0 < r.mfu < 1 and r.flops_per_step > 0 and r.n_atoms == len(atoms)
+
+
+@pytest.mark.cuda
+def test_attribution_of_a_captured_step(card, tmp_path):
+    """One warm calculate of a small MACE under a CPU + CUDA profile: the
+    Chrome trace's ``custom_kernel`` bucket equals the B1 kernels' device
+    time from ``key_averages`` (within 2%), and the interaction scopes and
+    their backward carry device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from distmlip_tpu_torch.calculators import DistPotential
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.obs import attribution
+
+    model = MACE(MACEConfig(num_species=4, channels=16, l_max=2, a_lmax=2, hidden_lmax=1,
+                            correlation=2, cutoff=3.0, edge_chunk=64))
+    pot = DistPotential(model, model.init(0), device=card, skin=0.3)
+    atoms = _light_cell()
+    pot.calculate(atoms)
+    atoms.positions = atoms.positions + 0.01
+    pot.calculate(atoms)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pot.calculate(atoms)
+        torch.cuda.synchronize()
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    own = sum(e.self_device_time_total for e in prof.key_averages()
+              if attribution.is_port_kernel(e.key)) * 1e-6
+    bd = attribution.attribute(0.0, trace=path, program="mace")
+    assert own > 0 and abs(bd.by_category["custom_kernel"] - own) <= 0.02 * own
+    layers = attribution.by_layer(bd)
+    assert layers.get("mace/interaction0", 0) > 0 and layers.get("mace/interaction1", 0) > 0
+    assert any(k.endswith("/backward") for k in bd.by_scope)
+    assert bd.by_category.get("gradient_transpose", 0) > 0

@@ -166,8 +166,12 @@ def test_stall_guard_and_refusals():
     with pytest.raises(ValueError, match="skin > 0"):
         DeviceMD(pot, _lj_atoms(Atoms))
     _, pot = _lj_pair(1, 0.4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        DeviceMD(pot, _lj_atoms(Atoms), telemetry=object())
+    # telemetry= (A12) is ported: the hub goes to the potential
+    from distmlip_tpu_torch.telemetry import AggregatingSink, Telemetry
+
+    hub = Telemetry([AggregatingSink()])
+    DeviceMD(pot, _lj_atoms(Atoms), telemetry=hub)
+    assert pot.telemetry is hub
     with pytest.raises(TypeError, match="device_rebuild"):
         DeviceMD(pot, _lj_atoms(Atoms), device_rebuild="yes")
     assert DeviceMD(pot, _lj_atoms(Atoms)).device_rebuild

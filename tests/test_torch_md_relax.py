@@ -139,11 +139,36 @@ def test_relaxer_traj_file_matches_jax(tmp_path, fmax, interval, converged):
 
 
 def test_telemetry_hub_is_refused():
-    atoms, pot = _spring_case(Atoms)
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        MolecularDynamics(atoms, pot, telemetry=object())
-    with pytest.raises(NotImplementedError, match="telemetry"):
-        Relaxer(pot, telemetry=object())
+    """Once refused, a hub is now routed to the potential (its own hub
+    wins); a potential without ``attach_telemetry`` just runs."""
+    from distmlip_tpu_torch.telemetry import Telemetry, TelemetrySink
+
+    class Keep(TelemetrySink):
+        def __init__(self):
+            self.records = []
+
+        def emit(self, record):
+            self.records.append(record)
+
+    atoms, spring = _spring_case(Atoms)
+    MolecularDynamics(atoms, spring, telemetry=Telemetry([Keep()])).run(1)
+    Relaxer(spring, telemetry=Telemetry([Keep()]))
+    cart, lat, _ = make_crystal(np.random.default_rng(0), reps=(2, 2, 2), a=3.4, noise=0.05)
+    model = TensorNet(TensorNetConfig(num_species=4, units=8, num_rbf=4, cutoff=3.0))
+    for drive in ("md", "relax"):
+        keep = Keep()
+        hub = Telemetry([keep])
+        pot = DistPotential(model, model.init(0), device="cpu", skin=0.3)
+        atoms = Atoms(numbers=np.full(len(cart), 3), positions=cart.copy(), cell=lat)
+        if drive == "md":
+            MolecularDynamics(atoms, pot, ensemble="nve", telemetry=hub).run(2)
+        else:
+            Relaxer(pot, telemetry=hub).relax(atoms, steps=2)
+        assert pot.telemetry is hub and len(keep.records) == pot._step_counter
+        assert pot._step_counter >= (3 if drive == "md" else 1)
+        assert {r.kind for r in keep.records} == {"calculate"}
+        pot.attach_telemetry(Telemetry([Keep()]))  # the first hub stays
+        assert pot.telemetry is hub
 
 
 # ---------------------------------------------------------------------------

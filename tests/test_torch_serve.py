@@ -402,9 +402,21 @@ def test_drain_and_close(rng, pair):
 
 
 def test_unported_options_raise(pair):
+    """telemetry= (A12) is ported: the engine keeps the hub and attaches it
+    to its potential; each batch emits a serve_batch record."""
+    from distmlip_tpu_torch.telemetry import AggregatingSink, Telemetry
+
     model, params = pair
-    with pytest.raises(NotImplementedError, match="A12"):
-        ServeEngine(batched(model, params), telemetry=object(), start=False)
+    hub = Telemetry([AggregatingSink()])
+    pot = batched(model, params)
+    engine = ServeEngine(pot, telemetry=hub, start=False)
+    assert engine.telemetry is hub and pot.telemetry is hub
+    fut = engine.submit(make_structure(np.random.default_rng(0)))
+    engine.start()
+    assert engine.drain(timeout=60)
+    fut.result()
+    engine.close()
+    assert hub.sinks[0].n_records == 2  # batched_calculate + serve_batch
 
 
 def test_load_drivers(rng, pair):

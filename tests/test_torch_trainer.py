@@ -328,8 +328,14 @@ def test_memory_gate_sizing_and_refusal(samples, monkeypatch):
 
 
 def test_trainer_refusals(samples):
-    with pytest.raises(NotImplementedError, match="A12"):
-        _trainer(samples[0], telemetry=object())
+    # telemetry= (A12) is ported: one TrainRecord a step
+    from distmlip_tpu_torch.telemetry import AggregatingSink, Telemetry
+
+    hub = Telemetry([AggregatingSink()])
+    t = _trainer(samples[0], telemetry=hub)
+    t.fit(steps=1)
+    assert t.telemetry is hub and hub.sinks[0].n_records == 1
+    t.close()
     with pytest.raises(NotImplementedError, match="A4"):
         _trainer(samples[0], mesh=object())
     with pytest.raises(ValueError, match="zero1=True"):
