@@ -300,6 +300,21 @@ Phases (each failure raises, so the exit code is non-zero):
    own-kernel time from the same capture, B1 on MACE and B1 and B3 on eSCN,
    the device time by layer). The kernels line gains
    ``telemetry_launches``.
+17. the serving fleet and the active-learning loop: ``[fleet]``
+   (``phase_fleet``: two ``BatchedPotential(MACE)`` replicas on the one
+   card behind ``make_fleet``; the engine alone, one replica and two in
+   turns on long bursts of [serve]'s pool;
+   a chaos burst of 48 with ``kill_replica("r0")`` mid-burst, every result
+   against the plain path, B1's launches by replica against each
+   calculate's e_cap; a duplicate round served by the result cache alone;
+   each replica's measured peak and budget; the wedge drill through
+   ``ReplicaHealth``) and ``[active]`` (``phase_active``: a 3-member
+   ``EnsembleBatchedPotential`` against three lone plain potentials, then an
+   ``ActiveLoop`` over a two-replica fleet: escalations buffered with the
+   committee's labels, ``finetune_now()`` on the card, ``swap_now()``
+   mid-burst with no lost request, no new bucket, the model id rolled and
+   the post-swap results at the new weights). The kernels line gains
+   ``fleet_launches`` and ``active_launches``.
 
 Prints one ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name/power
 line, then ``{"ok": true, "device": {...}}`` as the last line. Without a
@@ -377,6 +392,22 @@ CHGNET_REPS = 16
 
 def log(*args):
     print(*args, flush=True)
+
+
+def reset_peak():
+    """Reset the card's allocated high-water mark (``device.reset_peak``)."""
+    from distmlip_tpu_torch.device import reset_peak as reset
+
+    reset()
+
+
+def peak_allocated():
+    """The card's allocated high-water mark since ``reset_peak``, across the
+    resets by which a batched calculate or a trainer's measured step reads
+    its own peak (``device.peak_allocated``)."""
+    from distmlip_tpu_torch.device import peak_allocated as peak
+
+    return peak()
 
 
 def check_segment_sum(torch, data, ids, mask, n):
@@ -1604,7 +1635,7 @@ def drive(torch, pot, atoms, rng, calculate=None):
 
     geometries, results, step_s = [], [], []
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for k in launch_counts:
         launch_counts[k] = 0
     recompute_chunks.clear()
@@ -1618,7 +1649,7 @@ def drive(torch, pot, atoms, rng, calculate=None):
         step_s.append(time.perf_counter() - t)
         results.append(res)
     launches = dict(launch_counts)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak_allocated()
     for res in results:
         check_result(res, len(atoms))
     if pot.rebuild_count != 1:
@@ -1639,7 +1670,7 @@ def compare_with_plain(torch, ref_pot, atoms, geometries, results, tag):
     if "magmoms" in results[0]:
         worst["max_dm"] = 0.0
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     step_s = []
     for pos, res in zip(geometries, results):
         atoms.positions = pos.copy()
@@ -1656,7 +1687,7 @@ def compare_with_plain(torch, ref_pot, atoms, geometries, results, tag):
         if "max_dm" in worst:
             worst["max_dm"] = max(worst["max_dm"],
                                   float(np.abs(res["magmoms"] - ref["magmoms"]).max()))
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak_allocated()
     if dict(launch_counts) != before:
         raise AssertionError("the kernels=False reference launched a kernel")
     log(f"[{tag}] kernels vs plain on the card over {len(geometries)} geometries: "
@@ -2098,7 +2129,7 @@ def phase_main_bf16(torch, family):
                              f"{chunks_expected}")
     def run(p):
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         res, secs = [], []
         for pos in geometries:
             atoms.positions = pos.copy()
@@ -2106,7 +2137,7 @@ def phase_main_bf16(torch, family):
             res.append(p.calculate(atoms))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t)
-        return res, secs, torch.cuda.max_memory_allocated()
+        return res, secs, peak_allocated()
 
     before = dict(launch_counts)
     plain, ref_step_s, ref_peak = run(DistPotential(model, params, device="cuda", skin=0.5,
@@ -2269,7 +2300,7 @@ def phase_uma(torch):
                 raise AssertionError(f"[{tag}] geometries differ from [uma]'s")
             before = dict(launch_counts)
             torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
+            reset_peak()
             plain, ref_step_s = [], []
             for pos in geometries:
                 atoms.positions = pos.copy()
@@ -2277,7 +2308,7 @@ def phase_uma(torch):
                 plain.append(ref.calculate(atoms))
                 torch.cuda.synchronize()
                 ref_step_s.append(time.perf_counter() - t)
-            ref_peak = torch.cuda.max_memory_allocated()
+            ref_peak = peak_allocated()
             if dict(launch_counts) != before:
                 raise AssertionError(f"[{tag}] the kernels=False reference launched a kernel")
             n = len(atoms)
@@ -2568,7 +2599,7 @@ def run_md(torch, pot, atoms, steps, tag, **kw):
     atoms.set_maxwell_boltzmann_velocities(MD_KW["temperature"], rng=rng)
     probe = Probe(pot)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for k in launch_counts:
         launch_counts[k] = 0
     md = MolecularDynamics(atoms, probe, **{**MD_KW, **kw})
@@ -2580,7 +2611,7 @@ def run_md(torch, pot, atoms, steps, tag, **kw):
         if probe.pending is not None:
             probe.take_pending()
     launches = dict(launch_counts)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak_allocated()
     if not np.isfinite(atoms.velocities).all():
         raise AssertionError(f"{tag}: non-finite velocities")
     if (pot.device_rebuild and pot.rebuild_count - 1 - pot.rebuild_on_device_count
@@ -2806,7 +2837,7 @@ def phase_relax_chgnet(torch, bf16=False):
     pot = DistPotential(model, params, device="cuda", skin=0.4, compute_magmom=True)
     probe = Probe(pot)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for k in launch_counts:
         launch_counts[k] = 0
     t = time.perf_counter()
@@ -2814,7 +2845,7 @@ def phase_relax_chgnet(torch, bf16=False):
         atoms, steps=RELAX_STEPS)
     wall = time.perf_counter() - t
     launches = dict(launch_counts)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak_allocated()
     n_calc, blocks = len(probe.calls), CHGNET_KW["num_blocks"]
     if n_calc != out.nsteps + (0 if out.converged else 1):
         raise AssertionError(f"[{tag}] {n_calc} calculates for {out.nsteps} steps")
@@ -3009,7 +3040,7 @@ def run_calcs(torch, pot, atoms, geometries):
     memory from just before."""
     results, step_s = [], []
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for pos in geometries:
         atoms.positions = pos.copy()
         t = time.perf_counter()
@@ -3021,7 +3052,7 @@ def run_calcs(torch, pot, atoms, geometries):
     if pot.rebuild_count != 1:
         raise AssertionError(f"graph rebuilt after the first calculate ({pot.rebuild_count} "
                              f"builds)")
-    return results, step_s, torch.cuda.max_memory_allocated()
+    return results, step_s, peak_allocated()
 
 
 def worst_deltas(results, refs, border=None):
@@ -3582,7 +3613,7 @@ def phase_batched(torch, family):
             a.info = dict(info)
         pot = BatchedPotential(model, params, device="cuda", skin=0.5, **kw)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for k in launch_counts:
             launch_counts[k] = 0
         results, step_s, stats = [], [], []
@@ -3597,7 +3628,7 @@ def phase_batched(torch, family):
             results.append(res)
             stats.append(dict(pot.last_stats))
         launches = dict(launch_counts)
-        peak = torch.cuda.max_memory_allocated()
+        peak = peak_allocated()
         expected = {k: sum(per_calc(st).get(k, 0) for st in stats) for k in launches}
         log(f"[{tag}] {name}: launches per calculate {json.dumps(per_calc(stats[-1]))} x "
             f"{len(stats)} calculates; counted {launches}")
@@ -3700,7 +3731,7 @@ def phase_batched_bf16(torch, family):
     for name, structs in (("B1", pool[:1]), ("B8", pool)):
         pot = BatchedPotential(model, params, device="cuda", skin=0.5, **pot_kw)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for k in launch_counts:
             launch_counts[k] = 0
         results, step_s, stats = [], [], []
@@ -3714,7 +3745,7 @@ def phase_batched_bf16(torch, family):
             step_s.append(time.perf_counter() - t)
             stats.append(dict(pot.last_stats))
         launches = dict(launch_counts)
-        peak = torch.cuda.max_memory_allocated()
+        peak = peak_allocated()
         expected = {k: sum(per_calc(st).get(k, 0) for st in stats) for k in launches}
         if launches != expected or pot.rebuild_count != 1:
             raise AssertionError(f"[{tag}] {name}: launches {launches} against "
@@ -3780,7 +3811,7 @@ def phase_batched_md(torch):
         a.set_maxwell_boltzmann_velocities(t, rng=rng)
     pot = BatchedPotential(model, params, device="cuda", skin=0.5)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for k in launch_counts:
         launch_counts[k] = 0
     md = BatchedMD(pool, pot, ensemble="nvt_berendsen", timestep=2.0, temperature=temps)
@@ -3798,7 +3829,7 @@ def phase_batched_md(torch):
             refresh_ms.append(pot.last_timings["rebuild_s"] * 1e3)
             frames.append(([a.positions.copy() for a in md.atoms_list], md.results))
     launches = dict(launch_counts)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak_allocated()
     frames.append(([a.positions.copy() for a in md.atoms_list], md.results))
     n_calc, layers = 1 + BATCHED_MD_STEPS, TENSORNET_KW["num_layers"]
     expected = {k: 0 for k in launches}
@@ -3879,13 +3910,13 @@ def phase_batched_relax(torch):
 
     pot.calculate = timed
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for k in launch_counts:
         launch_counts[k] = 0
     out = BatchedRelaxer(pot, optimizer="fire", fmax=0.05).relax(pool,
                                                                  steps=BATCHED_RELAX_STEPS)
     launches = dict(launch_counts)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak_allocated()
     expected = {k: sum(per_calc(st).get(k, 0) for _, st in calls) for k in launches}
     log(f"[batched-relax] launches: {len(calls)} calculates x {json.dumps(per_calc({}))}; "
         f"counted {launches}")
@@ -3966,7 +3997,7 @@ def phase_serve(torch):
             return p
 
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for k in launch_counts:
             launch_counts[k] = 0
         pot = recorded(BatchedPotential(model, params, device="cuda", skin=0.5))
@@ -3997,7 +4028,7 @@ def phase_serve(torch):
         if not engine.drain(timeout=600):
             raise AssertionError("[serve] drain() timed out")
         launches = dict(launch_counts)
-        peak = torch.cuda.max_memory_allocated()
+        peak = peak_allocated()
         snap = engine.stats.snapshot()
         compiles = engine.compile_count
         engine.close()
@@ -4115,7 +4146,7 @@ def run_device_md(torch, pot, structure, tag, timestep):
     md = DeviceMD(pot, atoms, timestep=timestep)
     tally = count_chunk_syncs(torch, md)
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for k in launch_counts:
         launch_counts[k] = 0
     chunks = []
@@ -4129,8 +4160,8 @@ def run_device_md(torch, pot, structure, tag, timestep):
                        "host_reads": md.host_reads - reads,
                        "refreshes": md.rebuilds_on_device - refreshes,
                        "allocated_bytes": torch.cuda.memory_allocated(),
-                       "peak_bytes": torch.cuda.max_memory_allocated()})
-        torch.cuda.reset_peak_memory_stats()
+                       "peak_bytes": peak_allocated()})
+        reset_peak()
         if not chunks[1:]:
             pos_first = atoms.positions.copy()
     launches = dict(launch_counts)
@@ -4342,7 +4373,7 @@ def ensemble_family(torch, tag, model, members, structure, per_calc, **kw):
         name = "stacked" if stacked else "sequential"
         ens = EnsemblePotential(model, members, stacked=stacked, device="cuda", skin=0.5, **kw)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        reset_peak()
         for k in launch_counts:
             launch_counts[k] = 0
         ms = []
@@ -4367,7 +4398,7 @@ def ensemble_family(torch, tag, model, members, structure, per_calc, **kw):
             raise AssertionError(f"[ensemble] {tag} {name}: launches {launches} differ from "
                                  f"the derivation {expected}")
         routes[name] = {"calculate_ms": ms,
-                        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                        "max_memory_allocated_bytes": peak_allocated(),
                         "rebuild_count": sum(m.rebuild_count for m in ens.members),
                         "e_cap": e_cap}
         last[name] = res
@@ -4684,7 +4715,7 @@ def timed_training(torch, tag, model, student, samples, cutoff, B, A, cfg, lk):
     trainer.fit(steps=1)  # warm
     first_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    reset_peak()
     for k in launch_counts:
         launch_counts[k] = 0
     with RoleCounter(torch, launch_counts) as roles:
@@ -4693,7 +4724,7 @@ def timed_training(torch, tag, model, student, samples, cutoff, B, A, cfg, lk):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     launches = dict(launch_counts)
-    peak = torch.cuda.max_memory_allocated()
+    peak = peak_allocated()
     skipped = sum(int(h["skipped"]) for h in trainer.history)
     masters = {p.dtype for p in param_leaves(trainer.state.params)
                + param_leaves(trainer.state.ema_params)}
@@ -5257,6 +5288,585 @@ def phase_attribution(torch, mace_pot, mace_atoms):
     return launches, {"mace": mace, "escn": escn}
 
 
+# ---------------------------------------------------------------------------
+# the serving fleet and the active-learning loop
+# ---------------------------------------------------------------------------
+
+FLEET_REQUESTS = 48       # [fleet]'s chaos burst of unique structures; r0 killed after half
+FLEET_MAX_BATCH = 8
+FLEET_WEDGE_REQUESTS = 6
+FLEET_TIMED_REQUESTS = 384   # each timed burst of [fleet]'s throughput turns: 2-5 s on the card
+FLEET_TIMED_ROUNDS = 3
+ACTIVE_REQUESTS = 32      # each of [active]'s two bursts
+ACTIVE_SWAP_AT = 8        # the swap runs after this many of the second burst's submits
+ACTIVE_FINETUNE_STEPS = 6
+
+
+class EnergyCalls:
+    """Every call of a model's energy function (one pass of the force
+    program, wherever it runs: a serving replica, the ensemble lane, the
+    trainer) with its graph's edge capacity, and whether it ran inside a
+    training step on its thread (``Trainer.train_step`` or the memory gate's
+    measured step, ``estimate_step_peak_bytes``; an eval inside a step is
+    not one). Installed on the model before the potentials are made, as
+    their force programs bind the function then.
+
+    MACE launches B1 num_interactions x K (the edge chunks of e_cap) in the
+    forward, the same again in the force backward (remat's recompute of each
+    checkpointed chunk), and in a training step the same again in the
+    parameter backward (``train_expected``)."""
+
+    def __init__(self, model):
+        import threading
+
+        self.calls = []
+        self.recording = False
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+        real = model.energy_fn
+
+        def energy_fn(params, lg, *args, **kwargs):
+            if self.recording:
+                stack = getattr(self._tls, "stack", None)
+                with self._lock:
+                    self.calls.append((int(lg.e_cap), bool(stack and stack[-1])))
+            return real(params, lg, *args, **kwargs)
+
+        model.energy_fn = energy_fn
+
+    def _scoped(self, fn, training):
+        def run(*args, **kwargs):
+            stack = self._tls.__dict__.setdefault("stack", [])
+            stack.append(training)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stack.pop()
+        return run
+
+    @contextlib.contextmanager
+    def training_marked(self):
+        from distmlip_tpu_torch.train import loop as train_loop
+
+        T = train_loop.Trainer
+        with mock.patch.object(T, "train_step", self._scoped(T.train_step, True)), \
+                mock.patch.object(T, "evaluate", self._scoped(T.evaluate, False)), \
+                mock.patch.object(train_loop, "estimate_step_peak_bytes",
+                                  self._scoped(train_loop.estimate_step_peak_bytes, True)):
+            yield self
+
+    def expected_b1(self, model):
+        """B1 launches of the recorded calls (``mace_b1``)."""
+        return sum(mace_b1(model, e, train) for e, train in self.calls)
+
+
+def mace_b1(model, e_cap, training=False):
+    """B1 launches of one MACE energy call at ``e_cap``, by
+    ``train_expected``'s roles: the forward and the force backward, and the
+    parameter backward too in a training step."""
+    roles = train_expected("mace", model, e_cap, 1)
+    return sum(roles[r]["segment_sum"] for r in RoleCounter.ROLES
+               if training or r != "parameter_backward")
+
+
+def replica_recorder(launch_counts, log):
+    """A ``BatchedPotential`` factory hook: wraps the potential's device
+    phase (which runs under the card's phase lock, so no other replica
+    launches meanwhile) to log each calculate's e_cap, the B1 launches it
+    made and its measured batch peak."""
+    def install(pot):
+        real = pot._run_on_device
+
+        def run(structures, plan):
+            before = launch_counts["segment_sum"]
+            out = real(structures, plan)
+            log.append((out[0].stats["e_cap"], launch_counts["segment_sum"] - before, out[-1]))
+            return out
+        pot._run_on_device = run
+        return pot
+    return install
+
+
+def fleet_wedge_drill(torch, model, params, structures):
+    """A replica whose potential blocks on an event (its scheduler alive, a
+    batch in flight, no progress) is SUSPECT at the first look past the
+    stall budget and confirmed WEDGED only after ``max_reprobes`` further
+    looks past the backoff; its queue and its in-flight request then go to
+    the healthy replica, and every Future resolves. The wedged replica's
+    potential raises once released (it never reaches the card)."""
+    import threading
+
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.fleet import FleetRouter, Replica, ReplicaHealth
+    from distmlip_tpu_torch.serve import ServeEngine
+
+    class Clock:
+        t = 1000.0
+
+        def __call__(self):
+            return self.t
+
+    clock, gate = Clock(), threading.Event()
+    wedged_pot = BatchedPotential(model, params, device="cuda")
+
+    def stuck(structures):
+        gate.wait(600)
+        raise RuntimeError("the wedged replica was released after its failover")
+
+    wedged_pot.calculate = stuck
+    wedged = ServeEngine(wedged_pot, max_batch=1, max_wait_s=0.001, clock=clock)
+    healthy = ServeEngine(BatchedPotential(model, params, device="cuda"), max_batch=4,
+                          max_wait_s=0.005)
+    router = FleetRouter([Replica(wedged, "r0"), Replica(healthy, "r1")], max_outstanding=3)
+    monitor = ReplicaHealth(router, stall_budget_s=30.0, max_reprobes=2, backoff_s=1.0,
+                            clock=clock)
+    futs = [router.submit(a) for a in structures]
+    deadline = time.time() + 60
+    while wedged.health_snapshot()["inflight"] == 0 and time.time() < deadline:
+        clock.t += 0.01
+        time.sleep(0.01)
+    queued = wedged.health_snapshot()["queue_depth"]
+    verdicts = []
+    for dt in (31.0, 0.5, 1.5, 1.5):   # past the stall budget, inside the backoff, twice past
+        clock.t += dt
+        verdicts.append(monitor.poll_once()["r0"])
+        if verdicts[-1] != "wedged" and not router.replicas["r0"].alive:
+            raise AssertionError("[fleet] the wedged replica was failed over before its "
+                                 "re-probes confirmed the wedge")
+    results = [f.result(timeout=600) for f in futs]
+    gate.set()
+    out = {"verdicts": verdicts, "queued_on_wedged": queued,
+           "redispatches": router.stats.redispatches, "failed": router.stats.failed,
+           "failovers": monitor.failovers}
+    monitor.close()
+    router.close()
+    if verdicts != ["suspect", "suspect", "suspect", "wedged"] or router.replicas["r0"].alive:
+        raise AssertionError(f"[fleet] wedge drill: {out}")
+    if out["failed"] or out["redispatches"] < 1 or len(results) != len(structures):
+        raise AssertionError(f"[fleet] wedge drill lost or failed requests: {out}")
+    for r, a in zip(results, structures):
+        check_result(r, len(a))
+    return out
+
+
+def fleet_throughput(model, params, caps, ekw):
+    """One engine alone (``ServeEngine(BatchedPotential)``), one replica
+    behind the router and two, all alive at once on the card, no result
+    cache: each warmed by a burst of 2 x SERVE_REQUESTS, then
+    FLEET_TIMED_ROUNDS open-loop bursts of FLEET_TIMED_REQUESTS over
+    [serve]'s 8-structure pool each, in turns (the order reversed every
+    other round). Returns each surface's runs and each round's ratios to
+    the engine alone."""
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.fleet import make_fleet
+    from distmlip_tpu_torch.serve import ServeEngine, run_open_loop
+    from distmlip_tpu_torch.tools.workload import batched_pool
+
+    def potential(i=0):
+        return BatchedPotential(model, params, device="cuda", caps=caps, skin=0.5)
+
+    pool, _ = batched_pool(8, seed=4)
+    surfaces = {"engine": ServeEngine(potential(), **ekw)}
+    for n in (1, 2):
+        surfaces[f"{n}_replica" + ("s" if n > 1 else "")] = make_fleet(
+            n, potential, engine_kwargs=ekw, result_cache=None, model_id="mace")
+    for surface in surfaces.values():
+        run_open_loop(surface, pool, 2 * SERVE_REQUESTS, rate_hz=0.0)   # warm
+    runs = {name: [] for name in surfaces}
+    order = list(surfaces)
+    for r in range(FLEET_TIMED_ROUNDS):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            rep = run_open_loop(surfaces[name], pool, FLEET_TIMED_REQUESTS, rate_hz=0.0)
+            if rep.n_ok != FLEET_TIMED_REQUESTS:
+                raise AssertionError(f"[fleet] {name}: a timed request failed: "
+                                     f"{rep.summary()}")
+            runs[name].append(dict(rep.summary(), structures_per_sec=rep.structures_per_sec,
+                                   wall_s=rep.wall_s))
+    for surface in surfaces.values():
+        surface.close()
+    ratios = {name: [a["structures_per_sec"] / e["structures_per_sec"]
+                     for a, e in zip(runs[name], runs["engine"])]
+              for name in surfaces if name != "engine"}
+    return runs, ratios
+
+
+def phase_fleet(torch):
+    """``[fleet]``: ``make_fleet(2, ...)`` over ``BatchedPotential(MACE)``
+    replicas (MACE_KW, skin 0.5, one shared ``BucketPolicy``) on the one
+    card, max_batch 8. First the throughput turns (``fleet_throughput``):
+    the engine alone, one replica behind the router and two, structures/s
+    and p50/p95/p99 side by side, round by round. Then the main path,
+    counted: a burst of FLEET_REQUESTS unique pool structures from two
+    tenants (weights 3:1, "screening" under a token bucket), with
+    ``kill_replica("r0")`` after half (once r0 has served a batch): every
+    accepted Future resolves, none fails, the quota's rejects are counted, every result is held against
+    ``DistPotential(kernels=False)`` at the float32 bar, and B1's launches
+    equal, replica by replica, ``mace_b1`` of each of its calculates'
+    e_cap (logged under the card's phase lock). A duplicate round then hits
+    the cache >= 90% with no replica dispatch and no launch. Each replica's
+    measured batch peak (every batch measures its own) and budget are
+    printed. Last, the wedge drill (``fleet_wedge_drill``), not counted."""
+    from distmlip_tpu_torch.calculators import BatchedPotential, DistPotential
+    from distmlip_tpu_torch.fleet import ResultCache, TenantConfig, make_fleet
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.partition import BucketPolicy
+    from distmlip_tpu_torch.serve import ServeRejected
+    from distmlip_tpu_torch.tools.workload import batched_pool
+
+    t_phase = time.perf_counter()
+    model, params, _, _, _, _ = batched_family(torch, "mace")
+    caps = BucketPolicy()
+    ekw = dict(max_batch=FLEET_MAX_BATCH, max_wait_s=0.005, max_queue=4096)
+
+    def expected(log):
+        return sum(mace_b1(model, e) for e, _, _ in log)
+
+    t0 = time.perf_counter()
+    runs, ratios = fleet_throughput(model, params, caps, ekw)
+    torch.cuda.empty_cache()
+    log(f"[fleet] throughput turns ({FLEET_TIMED_ROUNDS} rounds of {FLEET_TIMED_REQUESTS} "
+        f"requests over [serve]'s 8 structures, B <= {FLEET_MAX_BATCH}, no result cache, "
+        f"{time.perf_counter() - t0:.1f} s): {json.dumps(runs)}")
+    log(f"[fleet] structures/s over the engine alone, round by round: {json.dumps(ratios)}; "
+        f"medians { {k: statistics.median(v) for k, v in ratios.items()} }")
+
+    uniq, _ = batched_pool(FLEET_REQUESTS, seed=6)
+    logs = {"r0": [], "r1": []}
+
+    def factory(i):
+        pot = BatchedPotential(model, params, device="cuda", caps=caps, skin=0.5)
+        return replica_recorder(launch_counts, logs[f"r{i}"])(pot)
+
+    tenants = {"interactive": TenantConfig(weight=3.0),
+               "screening": TenantConfig(weight=1.0, rate_hz=1.0, burst=32.0)}
+    torch.cuda.synchronize()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    router = make_fleet(2, factory, engine_kwargs=ekw, result_cache=ResultCache(),
+                        model_id="mace-mp0-medium", tenants=tenants)
+    futs, rejected, reclaimed = [], 0, None
+    t0 = time.perf_counter()
+    for i, a in enumerate(uniq):
+        if i == FLEET_REQUESTS // 2:
+            # killed mid-burst once it has served a batch, so both replicas'
+            # launches are held to their derivations
+            deadline = time.perf_counter() + 600
+            while (not logs["r0"] and time.perf_counter() < deadline):
+                time.sleep(0.001)
+            reclaimed = router.kill_replica("r0")
+        try:
+            futs.append((a, router.submit(a, tenant="interactive" if i % 4 == 0
+                                          else "screening")))
+        except ServeRejected:
+            rejected += 1
+    results = [f.result(timeout=600) for _, f in futs]
+    if not router.drain(timeout=600):
+        raise AssertionError("[fleet] drain() timed out")
+    burst_s = time.perf_counter() - t0
+    launches = dict(launch_counts)
+    snap = router.snapshot()
+    counted = {rid: sum(n for _, n, _ in lg) for rid, lg in logs.items()}
+    derived = {rid: expected(lg) for rid, lg in logs.items()}
+    stats = snap["stats"]
+    log(f"[fleet] chaos burst: {len(futs)} accepted, {rejected} over the screening quota, "
+        f"r0 killed after {FLEET_REQUESTS // 2} ({reclaimed} reclaimed), {burst_s:.3f} s; "
+        f"stats {json.dumps(stats)}; calculates by replica "
+        f"{ {rid: len(lg) for rid, lg in logs.items()} }; B1 by replica counted {counted}, "
+        f"derived {derived} (mace_b1 of each calculate's e_cap); launches "
+        f"{nonzero(launches)}")
+    if stats["failed"] or stats["completed"] != len(futs) or stats["failovers"] != 1:
+        raise AssertionError(f"[fleet] the chaos burst lost or failed requests: {stats}")
+    if not (rejected > 0 and stats["quota_rejected"] == rejected):
+        raise AssertionError(f"[fleet] quota rejects {rejected} vs {stats['quota_rejected']}")
+    if counted != derived or launches["segment_sum"] != sum(derived.values()) or any(
+            v for k, v in launches.items() if k != "segment_sum"):
+        raise AssertionError("[fleet] B1 launches differ from the derivation")
+    if not all(lg for lg in logs.values()):
+        raise AssertionError("[fleet] a replica served nothing before the kill")
+    for r, (a, _) in zip(results, futs):
+        check_result(r, len(a))
+    ref_pot = DistPotential(model, params, device="cuda", kernels=False)
+    vs_plain = worst_deltas(results, [ref_pot.calculate(a) for a, _ in futs])
+    del ref_pot
+    log(f"[fleet] every result against DistPotential(kernels=False): {json.dumps(vs_plain)}")
+    if not within_bar(vs_plain):
+        raise AssertionError("[fleet] a fleet result disagrees with the plain path")
+
+    before = dict(launch_counts)
+    disp = {rid: r["dispatched_total"] for rid, r in snap["replicas"].items()}
+    hits0 = router.cache.hits
+    dup = [router.submit(a, tenant="interactive") for a, _ in futs]
+    dup_res = [f.result(timeout=600) for f in dup]
+    hit_rate = (router.cache.hits - hits0) / len(dup)
+    disp_after = {rid: r["dispatched_total"] for rid, r in router.snapshot()["replicas"].items()}
+    log(f"[fleet] duplicate round: hit rate {hit_rate:.3f}, dispatches {disp} -> {disp_after}, "
+        f"launches moved {nonzero({k: launch_counts[k] - before[k] for k in before})}")
+    if hit_rate < 0.9 or disp_after != disp or dict(launch_counts) != before:
+        raise AssertionError("[fleet] the duplicate round reached a replica")
+    if any(d["energy"] != r["energy"] for d, r in zip(dup_res, results)):
+        raise AssertionError("[fleet] a cache hit differs from the served result")
+    budgets = {}
+    for rid, rep in router.replicas.items():
+        peaks = [p for _, _, p in logs[rid] if p]
+        budgets[rid] = {"measured_batch_peak_bytes": max(peaks) if peaks else None,
+                        "hbm_budget_bytes": rep.engine.potential.hbm_budget_bytes}
+    room = int(0.8 * torch.cuda.mem_get_info()[1])
+    log(f"[fleet] replicas' measured batch peaks and budgets: {json.dumps(budgets)}; "
+        f"0.8 of the card {room}")
+    if sum(b["hbm_budget_bytes"] for b in budgets.values()) > room:
+        raise AssertionError("[fleet] the replicas' budgets sum past the card's room")
+    router.close()
+    del router
+    torch.cuda.empty_cache()
+    wedge = fleet_wedge_drill(torch, model, params, uniq[:FLEET_WEDGE_REQUESTS])
+    log(f"[fleet] wedge drill: {json.dumps(wedge)}")
+    log(f"[fleet] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def variance_bar(got, refs):
+    """The float32 bar carried through the ensemble statistics: members
+    within rel dE 1e-5 and |dF| 1e-4 of their lone plain runs move a
+    variance by at most 2 sigma d + d^2."""
+    import numpy as np
+
+    e = np.array([r["energy"] for r in refs])
+    f = np.stack([r["forces"] for r in refs])
+    de = 1e-5 * float(np.abs(e).max())
+    d_evar = abs(got["energy_var"] - e.var())
+    d_fvar = np.abs(got["forces_var"] - f.var(axis=0))
+    ok = (d_evar <= 2 * e.std() * de + de * de
+          and bool((d_fvar <= 2 * f.std(axis=0) * 1e-4 + 1e-8).all()))
+    return ok, {"d_energy_var": float(d_evar), "energy_var": float(e.var()),
+                "max_d_forces_var": float(d_fvar.max())}
+
+
+def phase_active(torch):
+    """``[active]``: ``EnsembleBatchedPotential`` of MACE at MACE_KW with 3
+    members (member 0 the serving weights from seed 0, members 1-2 from
+    seeds 1-2). ``calculate_with_variance`` on a pool batch is held against
+    three lone ``BatchedPotential(kernels=False)``: each member's stack and
+    the means at the float32 bar, the variances within what that bar moves
+    them; three identical members give a variance at float32 roundoff.
+    Then the main path, counted: an ``ActiveLoop`` over a two-replica fleet
+    (result cache, shared ``BucketPolicy``) takes a burst of ACTIVE_REQUESTS
+    at sample rate 0.25, evaluates and buffers the escalations with the
+    committee's labels (held against the plain members), ``finetune_now()``
+    runs ``run_finetune`` on the card for ACTIVE_FINETUNE_STEPS Adam steps
+    (the memory gate's measured step, the steps and the holdout evals:
+    B1 forward and under the double backward), then, with every batch size
+    of the second burst's cell warmed on each replica, ``swap_now()`` of
+    perturbed weights runs mid-burst. No request is lost, no replica's
+    ``compile_count`` moves across the swap burst, the ``model_id`` rolls,
+    formerly cached structures are recomputed, and every request submitted
+    after the swap equals a fresh ``BatchedPotential(kernels=False)`` at the
+    new weights. B1's launches equal the derivation over every energy call
+    (``EnergyCalls``). Prints the fine-tune's ms a step and measured peak,
+    and the swap's wall time."""
+    import numpy as np
+
+    from distmlip_tpu_torch.active import (ActiveLoop, EnsembleBatchedPotential,
+                                           EscalationPolicy, FineTuneTrigger, ReplayBuffer,
+                                           TriggerPolicy)
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.fleet import ResultCache, make_fleet
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.partition import BucketPolicy
+    from distmlip_tpu_torch.telemetry import Telemetry
+    from distmlip_tpu_torch.tools.load_test import perturbed
+    from distmlip_tpu_torch.tools.workload import MACE_KW, batched_pool
+
+    t_phase = time.perf_counter()
+    model, params, _, _, _, _ = batched_family(torch, "mace")
+    members = [params, model.init(1), model.init(2)]
+    calls = EnergyCalls(model)
+    ens = EnsembleBatchedPotential(model, members, device="cuda", skin=0.5)
+    batch, _ = batched_pool(4, seed=8)
+    out = ens.calculate_with_variance(batch)
+    # the plain members on the same packed graph (the same skin)
+    refs = [BatchedPotential(model, m, device="cuda", kernels=False, skin=0.5).calculate(batch)
+            for m in members]
+    stacks, var_ok, var_d = [], True, []
+    for b, res in enumerate(out):
+        check_result(res, len(batch[b]))
+        for m in range(3):
+            stacks.append(worst_deltas([{"energy": res["energies"][m],
+                                         "forces": res["forces_all"][m],
+                                         "stress": refs[m][b]["stress"]}], [refs[m][b]]))
+        mean = {"energy": float(np.mean([refs[m][b]["energy"] for m in range(3)])),
+                "forces": np.mean([refs[m][b]["forces"] for m in range(3)], axis=0),
+                "stress": np.mean([refs[m][b]["stress"] for m in range(3)], axis=0)}
+        stacks.append(worst_deltas([res], [mean]))
+        ok, d = variance_bar(res, [refs[m][b] for m in range(3)])
+        var_ok, var_d = var_ok and ok, var_d + [d]
+    worst = {k: max(s[k] for s in stacks) for k in stacks[0]}
+    same = EnsembleBatchedPotential(model, [params] * 3, device="cuda").calculate_with_variance(
+        batch[:2])
+    e_scale = max(abs(s["energy"]) for s in same)
+    f_scale = max(float(np.abs(s["forces"]).max()) for s in same)
+    roundoff = {"energy_std": max(float(np.sqrt(s["energy_var"])) for s in same),
+                "max_forces_std": max(float(np.sqrt(s["forces_var"].max())) for s in same)}
+    log(f"[active] ensemble lane (3 members, {len(batch)} structures) against three lone "
+        f"plain potentials: stacks and means {json.dumps(worst)}; variances {json.dumps(var_d)}; "
+        f"three identical members: {json.dumps(roundoff)} (|E| {e_scale:.3f}, max |F| "
+        f"{f_scale:.3f})")
+    if not (within_bar(worst) and var_ok):
+        raise AssertionError("[active] the ensemble lane disagrees with the plain members")
+    if roundoff["energy_std"] > 1e-6 * e_scale or roundoff["max_forces_std"] > 1e-5 * max(
+            f_scale, 1.0):
+        raise AssertionError("[active] identical members' variance is above float32 roundoff")
+    del refs, same
+    torch.cuda.empty_cache()
+
+    caps = BucketPolicy()
+    ekw = dict(max_batch=FLEET_MAX_BATCH, max_wait_s=0.005, max_queue=4096)
+    records = []
+
+    class Keep:
+        def emit(self, rec):
+            records.append(rec)
+
+        def close(self):
+            pass
+
+    tel = Telemetry([Keep()])
+    router = make_fleet(2, lambda i: BatchedPotential(model, params, device="cuda", caps=caps,
+                                                      skin=0.5),
+                        engine_kwargs=ekw, result_cache=ResultCache(),
+                        model_id="mace-mp0-medium")
+    loop = ActiveLoop(router, ens, ReplayBuffer(capacity=256),
+                      policy=EscalationPolicy(sample_rate=0.25),
+                      trigger=FineTuneTrigger(TriggerPolicy(min_buffer=1 << 30)),
+                      finetune_kwargs={"steps": ACTIVE_FINETUNE_STEPS, "learning_rate": 1e-3},
+                      telemetry=tel, seed=0)
+    burst1, _ = batched_pool(ACTIVE_REQUESTS, seed=9)
+    base, _ = batched_pool(1, seed=10)
+    rng = np.random.default_rng(10)
+    burst2 = []
+    for _ in range(ACTIVE_REQUESTS):
+        a = base[0].copy()
+        a.positions = a.positions + rng.normal(0, 0.01, a.positions.shape)
+        burst2.append(a)
+    lane_batches = []   # the escalation batches, as the ensemble lane packed them
+    lane = ens.calculate_with_variance
+
+    def recorded_lane(structures):
+        lane_batches.append(list(structures))
+        return lane(structures)
+
+    ens.calculate_with_variance = recorded_lane
+    torch.cuda.synchronize()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    calls.calls.clear()
+    calls.recording = True
+    with calls.training_marked():
+        futs = [loop.submit(a) for a in burst1]
+        first = [f.result(timeout=600) for f in futs]
+        router.drain(timeout=600)
+        evaluated = loop.pump()
+        samples = loop.buffer.to_samples()
+        t0 = time.perf_counter()
+        report = loop.finetune_now()
+        finetune_s = time.perf_counter() - t0
+        for rep in router.replicas.values():   # every batch size of burst2's cell
+            for b in range(1, FLEET_MAX_BATCH + 1):
+                warm = [rep.engine.submit(a) for a in burst2[:b]]
+                rep.engine.drain(timeout=600)
+                for f in warm:
+                    f.result(timeout=600)
+        snap = router.snapshot()
+        compiles = {rid: r["compile_count"] for rid, r in snap["replicas"].items()}
+        hits0, model_id0 = router.cache.hits, router.model_id
+        new_params = perturbed(ens.params, 1e-3, 3)
+        futs2, after = [], []
+        for i, a in enumerate(burst2):
+            if i == ACTIVE_SWAP_AT:
+                t0 = time.perf_counter()
+                swap = loop.swap_now(new_params)
+                swap_s = time.perf_counter() - t0
+            (after if i >= ACTIVE_SWAP_AT else futs2).append((a, loop.submit(a)))
+        disp0 = sum(r["dispatched_total"] for r in router.snapshot()["replicas"].values())
+        recomputed = [(a, router.submit(a)) for a in burst1[:4]]   # cached before the swap
+        second = [f.result(timeout=600) for _, f in futs2 + after + recomputed]
+        router.drain(timeout=600)
+        loop.pump()
+    calls.recording = False
+    launches = dict(launch_counts)
+    derived = calls.expected_b1(model)
+    snap = router.snapshot()
+    stats = loop.snapshot()["stats"]
+    steps = [r for r in records if r.kind == "train_step"]
+    step_ms = [1e3 * r.timings["total_s"] for r in steps]
+    finetune = {k: report[k] for k in ("shipped", "val_before", "val_after", "steps", "n_train",
+                                       "n_holdout")}
+    finetune.update(wall_s=finetune_s, step_ms=step_ms,
+                    median_step_ms=statistics.median(step_ms) if step_ms else None,
+                    measured_step_peak_bytes=max((r.est_peak_bytes for r in steps), default=0))
+    log(f"[active] loop stats {json.dumps(stats)}; fine-tune on the card {json.dumps(finetune)}; "
+        f"swap {swap_s * 1e3:.3f} ms ({model_id0} -> {router.model_id}); compile counts "
+        f"{compiles} -> { {rid: r['compile_count'] for rid, r in snap['replicas'].items()} }; "
+        f"router {json.dumps(snap['stats'])}")
+    n_train = sum(1 for _, t in calls.calls if t)
+    log(f"[active] B1 counted {launches['segment_sum']}, derived {derived} over "
+        f"{len(calls.calls)} energy calls ({n_train} in training steps); launches "
+        f"{nonzero(launches)}")
+    lost = (len(first) + len(second) != 2 * ACTIVE_REQUESTS + len(recomputed)
+            or snap["stats"]["failed"])
+    if lost or evaluated < 1 or stats["buffered"] != stats["escalated"] or len(samples) < 2:
+        raise AssertionError(f"[active] the loop lost requests or escalations: {stats}")
+    if len(steps) != ACTIVE_FINETUNE_STEPS:
+        raise AssertionError(f"[active] {len(steps)} fine-tune steps recorded")
+    if {rid: r["compile_count"] for rid, r in snap["replicas"].items()} != compiles:
+        raise AssertionError("[active] a replica's compile_count moved across the swap burst")
+    if router.model_id == model_id0 or swap["model_id"] != router.model_id:
+        raise AssertionError("[active] the swap did not roll the model id")
+    disp1 = sum(r["dispatched_total"] for r in snap["replicas"].values())
+    if router.cache.hits != hits0 or disp1 < disp0 + len(recomputed):
+        raise AssertionError("[active] a formerly cached structure was served from the cache")
+    if launches["segment_sum"] != derived or any(v for k, v in launches.items()
+                                                  if k != "segment_sum"):
+        raise AssertionError("[active] B1 launches differ from the derivation")
+    # checks after the counted run: the committee's labels (the plain members
+    # 1-2 on the first escalation batch, packed as the lane packed it) and the
+    # post-swap results
+    from distmlip_tpu_torch.fleet import structure_key
+
+    first_lane = lane_batches[0]
+    committee = [BatchedPotential(model, m, device="cuda", kernels=False, skin=0.5).calculate(
+        first_lane) for m in members[1:]]
+    by_key = {structure_key(s.atoms): s for s in samples}
+    labelled = [(by_key[structure_key(a)], c0, c1) for a, c0, c1 in zip(first_lane, *committee)
+                if structure_key(a) in by_key]
+    labels = worst_deltas(
+        [{"energy": s.energy, "forces": s.forces, "stress": np.zeros((3, 3))}
+         for s, _, _ in labelled],
+        [{"energy": (c0["energy"] + c1["energy"]) / 2, "forces": (c0["forces"] + c1["forces"]) / 2,
+          "stress": np.zeros((3, 3))} for _, c0, c1 in labelled])
+    if len(labelled) != len(first_lane):
+        raise AssertionError("[active] an escalated structure is missing from the buffer")
+    fresh = BatchedPotential(model, new_params, device="cuda", kernels=False, skin=0.5)
+    post = [a for a, _ in after + recomputed]
+    post_refs = []
+    for i in range(0, len(post), FLEET_MAX_BATCH):
+        post_refs += fresh.calculate(post[i:i + FLEET_MAX_BATCH])
+    n_before = len(futs2)
+    vs_new = worst_deltas(second[n_before:], post_refs)
+    for r, a in zip(first + second, burst1 + [a for a, _ in futs2 + after + recomputed]):
+        check_result(r, len(a))
+    log(f"[active] buffered labels against the plain committee: {json.dumps(labels)}; "
+        f"{len(post)} post-swap results against a fresh plain potential at the new weights: "
+        f"{json.dumps(vs_new)}")
+    if not (within_bar(labels) and within_bar(vs_new)):
+        raise AssertionError("[active] a label or a post-swap result is outside the bar")
+    router.close()
+    tel.close()
+    del router, loop, ens, fresh
+    torch.cuda.empty_cache()
+    log(f"[active] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -5432,6 +6042,13 @@ def main() -> int:
         tel_launches[k] += v
     del tel_pot
     log(f"[telemetry] [telemetry-serve] [attribution]: {time.perf_counter() - t_phase:.1f} s")
+    # the serving fleet and the active-learning loop: each phase counts its own
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fleet_launches = phase_fleet(torch)
+    torch.cuda.empty_cache()
+    active_launches = phase_active(torch)
+    log(f"[fleet] [active]: {time.perf_counter() - t_phase:.1f} s")
 
     headline = timed[-1]  # the (32768, 40, 128) chunk of interaction 1
     kernels = [{
@@ -5595,6 +6212,10 @@ def main() -> int:
         k["train_launches_by_role"] = {r: c[k["name"]] for r, c in train_roles.items()}
         # ... in [telemetry], [telemetry-serve] and [attribution]
         k["telemetry_launches"] = tel_launches[k["name"]]
+        # ... in [fleet]'s chaos burst and duplicate round, and in [active]'s
+        # loop (replicas, the ensemble lane, the fine-tune, the swap burst)
+        k["fleet_launches"] = fleet_launches[k["name"]]
+        k["active_launches"] = active_launches[k["name"]]
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

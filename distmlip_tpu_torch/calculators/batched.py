@@ -33,13 +33,14 @@ the JAX package takes it from its static memory planner (A13).
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import begin_peak_measurement, device_phase, device_phase_key, resolve_device
 from ..kernels.dispatch import kernel_routing, route_counts
 from ..neighbors.device import as_device_arrays
 from ..obs import profiling as obs_profiling
@@ -55,6 +56,37 @@ from ..utils.memory import device_memory_stats
 from .atoms import AMU_A2_FS2_TO_EV, EV_A3_TO_GPA, KB, map_species, max_displacement
 from .calculator import atoms_system, validate_system
 from .relax import RelaxResult
+
+
+@contextlib.contextmanager
+def device_turn(device):
+    """Hold ``device``'s phase lock (``device.device_phase``) for the body;
+    yields the seconds spent waiting for another participant's turn to end
+    (0.0 when the lock was free)."""
+    lock = device_phase(device)
+    wait_s = 0.0
+    if not lock.acquire(blocking=False):
+        t = time.perf_counter()
+        lock.acquire()
+        wait_s = time.perf_counter() - t
+    try:
+        yield wait_s
+    finally:
+        lock.release()
+
+
+def batch_timings(t0, t1, t2, t3, rebuild_s, wait_s) -> dict:
+    """A calculate's ``last_timings``: host build (less a device refresh and
+    the wait for the device), upload, device, total; ``rebuild_s`` when the
+    edges were refreshed on the device, ``device_wait_s`` when another
+    replica held the device."""
+    out = {"neighbor_s": (t1 - t0) - (rebuild_s or 0.0) - wait_s, "partition_s": t2 - t1,
+           "device_s": t3 - t2, "total_s": t3 - t0}
+    if rebuild_s is not None:
+        out["rebuild_s"] = rebuild_s
+    if wait_s:
+        out["device_wait_s"] = wait_s
+    return out
 
 
 class BatchedPotential:
@@ -84,17 +116,25 @@ class BatchedPotential:
     plain PyTorch versions (never taken silently). ``device``: "cuda" (the
     default, also for None) or "cpu"; CUDA without a card raises.
 
-    Memory-aware batching: on CUDA a calculate that raises the allocator's
-    high-water mark (``torch.cuda.max_memory_allocated``, never reset here)
-    has its own peak measured, over what was allocated when it started, and
+    Memory-aware batching: on CUDA every calculate measures its own peak
+    (the allocator's high-water mark is reset as its device phase starts,
+    ``device.begin_peak_measurement``), over what was allocated then, and
     that increment calibrates the ``BucketPolicy`` bytes model
-    (``estimate_batch_bytes``); a calculate under an earlier, higher peak
-    is not measured, and its rung is estimated from the measured ones. The
+    (``estimate_batch_bytes``), which keeps each rung's worst. The
     serving engine's admission and ``plan_batch`` read the model against
     ``hbm_budget_bytes``, the room for one batch's working set: by default
     0.8 of the card's total memory less what is allocated when the
     potential is made, None on the CPU (no budget check). The JAX package
     calibrates from its static planner instead (ROADMAP.md A13).
+
+    Potentials sharing one card (a fleet's replicas, each on its own
+    scheduler thread): the device phase of a calculate (upload, force
+    program, copy back, the peak read) runs under the card's phase lock
+    (``device.device_phase``), so a measured peak never counts another
+    participant's allocations; the host pack runs outside it.
+    ``share_device_budget`` shrinks the budgets of replicas whose budgets
+    would otherwise sum past the card's room, and ``device_room_left`` is
+    what a trainer on the same card may plan against.
     """
 
     def __init__(self, model, params, species_map: np.ndarray | None = None,
@@ -207,11 +247,14 @@ class BatchedPotential:
         return torch.as_tensor(host.scatter_positions(
             [a.positions.astype(np.float32) for a in structures])).to(self.device)
 
-    def _build(self, structures):
+    def _pack(self, structures):
+        """The packed graph on the host (the host phase of a repack)."""
         with annotate("distmlip/batch_pack"):
-            graph, host = pack_structures(
+            return pack_structures(
                 structures, self.cutoff, self.bond_cutoff, self.use_bond_graph,
                 caps=self.caps, species_fn=self._species, skin=self.skin)
+
+    def _upload(self, graph, host):
         self.rebuild_count += 1
         # built lazily at the first refresh: a churning stream (every
         # serving batch different) never pays for it
@@ -261,24 +304,37 @@ class BatchedPotential:
         with self._lock:
             return self._calculate_locked(structures)
 
-    def _prepare_batch(self, structures):
-        """Build, refresh or reuse the packed graph and upload the positions.
-        Returns ``(graph, host, positions, reused, refreshed, rebuild_s,
-        (t0, t1, t2))``."""
+    def _plan_batch(self, structures):
+        """The host phase of a calculate, run outside the device lock:
+        whether the cached pack is reused, refreshed on the device or
+        repacked, and the host pack when repacking. Returns ``(t0, reused,
+        refresh, packed)``."""
         t0 = time.perf_counter()
         reused = self._cache_valid(structures)
+        refresh = (not reused and self._device_refresh_eligible()
+                   and self._structures_match(structures))
+        packed = None if reused or refresh else self._pack(structures)
+        return t0, reused, refresh, packed
+
+    def _prepare_batch(self, structures, plan):
+        """Build, refresh or reuse the packed graph and upload the positions
+        (the device side of ``plan``, from ``_plan_batch``). Returns
+        ``(graph, host, positions, reused, refreshed, rebuild_s, (t0, t1,
+        t2))``."""
+        t0, reused, refresh, packed = plan
         refreshed, rebuild_s, positions = False, 0.0, None
         if reused:
             graph, host, _ = self._cache
         else:
             graph = host = None
-            if self._device_refresh_eligible() and self._structures_match(structures):
+            if refresh:
                 out = self._try_device_refresh(structures)
                 if out is not None:
                     graph, host, positions, rebuild_s = out
                     refreshed = True
             if graph is None:
-                graph, host = self._build(structures)
+                graph, host = self._upload(*(packed if packed is not None
+                                             else self._pack(structures)))
                 if self.skin > 0.0:
                     self._cache = (graph, host, [(a.numbers.copy(), a.cell.copy(),
                                                   a.pbc.copy(), atoms_system(a))
@@ -289,18 +345,20 @@ class BatchedPotential:
         t2 = time.perf_counter()
         return graph, host, positions, reused, refreshed, rebuild_s, (t0, t1, t2)
 
-    def _calculate_locked(self, structures) -> list:
-        # the packer raises when the structures' conditioning disagrees
-        validate_system(self.model.cfg, atoms_system(structures[0]))
+    def _run_on_device(self, structures, plan):
+        """The device phase of a calculate (the caller holds the device
+        lock): upload, force program, copy back, and the bytes model's
+        calibration from this call's own peak. Every device tensor of the
+        call dies before it returns; only the skin cache outlives it.
+        ``routes`` is the dispatcher's route counts before the force program
+        (None without a hub), for the record's kernel coverage."""
         cuda = self.device.type == "cuda"
         if cuda:
-            # allocations are made in program order on this thread, so these
-            # host-side counters need no synchronization
-            base = torch.cuda.memory_allocated(self.device)
-            high = torch.cuda.max_memory_allocated(self.device)
-        graph, host, positions, reused, refreshed, rebuild_s, (t0, t1, t2) = \
-            self._prepare_batch(structures)
-        key = (host.stats["bucket_key"], self.compute_dtype)
+            # under the device lock no other participant allocates, so the
+            # process-wide counters, reset here, read this call's work alone
+            base = begin_peak_measurement(self.device)
+        graph, host, positions, reused, refreshed, rebuild_s, times = \
+            self._prepare_batch(structures, plan)
         routes = dict(route_counts) if self.telemetry is not None else None
         ann_name = "distmlip/batched_potential"
         if tracing_enabled():
@@ -316,12 +374,23 @@ class BatchedPotential:
         strain_grad = out["strain_grad"].cpu().numpy()
         magmoms = (host.gather_per_structure(out["aux"]["magmoms"].cpu().numpy())
                    if "aux" in out else None)
+        del out, graph, positions
         batch_peak = None
-        if cuda and torch.cuda.max_memory_allocated(self.device) > high:
-            # this call raised the high-water mark: its own peak is the new one
-            batch_peak = torch.cuda.max_memory_allocated(self.device) - base
+        if cuda:
+            batch_peak = int(torch.cuda.max_memory_allocated(self.device)) - base
             self.caps.calibrate_bytes(self.caps.get("nodes", int(host.n_atoms.sum())),
                                       batch_peak, self.compute_dtype)
+        return (host, reused, refreshed, rebuild_s, times, routes, energies, forces,
+                strain_grad, magmoms, batch_peak)
+
+    def _calculate_locked(self, structures) -> list:
+        # the packer raises when the structures' conditioning disagrees
+        validate_system(self.model.cfg, atoms_system(structures[0]))
+        plan = self._plan_batch(structures)
+        with device_turn(self.device) as wait_s:
+            (host, reused, refreshed, rebuild_s, (t0, t1, t2), routes, energies, forces,
+             strain_grad, magmoms, batch_peak) = self._run_on_device(structures, plan)
+        key = (host.stats["bucket_key"], self.compute_dtype)
         new_bucket = key not in self._buckets
         self._buckets.add(key)
         results = []
@@ -333,10 +402,8 @@ class BatchedPotential:
                 res["magmoms"] = magmoms[b]
             results.append(res)
         t3 = time.perf_counter()
-        self.last_timings = {"neighbor_s": (t1 - t0) - rebuild_s, "partition_s": t2 - t1,
-                             "device_s": t3 - t2, "total_s": t3 - t0}
-        if refreshed:
-            self.last_timings["rebuild_s"] = rebuild_s
+        self.last_timings = batch_timings(t0, t1, t2, t3, rebuild_s if refreshed else None,
+                                          wait_s)
         self.last_stats = dict(host.stats or {})
         self.last_stats.update(
             batch_size=len(structures), rebuild_count=int(not reused),
@@ -397,6 +464,49 @@ class BatchedPotential:
                 rec.extra[k] = v
         rec.batch_size = n_structures  # real structures, not padded slots
         tel.emit(rec)
+
+
+def _budgets_by_card(potentials) -> dict:
+    """The distinct CUDA potentials with a budget, by card."""
+    by_device: dict = {}
+    for pot in potentials:
+        dev = getattr(pot, "device", None)
+        if (dev is not None and dev.type == "cuda"
+                and getattr(pot, "hbm_budget_bytes", None) is not None):
+            pots = by_device.setdefault(device_phase_key(dev), [])
+            if all(p is not pot for p in pots):
+                pots.append(pot)
+    return by_device
+
+
+def share_device_budget(potentials) -> None:
+    """Make the memory budgets of CUDA potentials that share a card sum to
+    at most the card's room for working sets (0.8 of its memory less what
+    is allocated now, the weights of every replica included). Where they
+    would sum past it, the room is split in proportion to the budgets they
+    asked for, so no budget grows; budgets already within it stay as they
+    are. Potentials on the CPU (no budget) are left alone."""
+    for pots in _budgets_by_card(potentials).values():
+        dev = pots[0].device
+        room = max(int(0.8 * torch.cuda.mem_get_info(dev)[1]
+                       - torch.cuda.memory_allocated(dev)), 0)
+        asked = sum(p.hbm_budget_bytes for p in pots)
+        if asked > room:
+            for p in pots:
+                p.hbm_budget_bytes = room * p.hbm_budget_bytes // asked
+
+
+def device_room_left(device, potentials) -> int | None:
+    """The card's total memory less the working-set budgets of the CUDA
+    potentials in ``potentials`` on ``device``: the budget a trainer on the
+    same card (``Trainer(hbm_budget_bytes=...)``) plans against, so that
+    its step and the serving batches fit together. None on the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    pots = _budgets_by_card(potentials).get(device_phase_key(device), [])
+    return max(int(torch.cuda.mem_get_info(device)[1])
+               - sum(p.hbm_budget_bytes for p in pots), 0)
 
 
 def _segment_ids(n_atoms) -> np.ndarray:

@@ -75,7 +75,7 @@ from .edge_aggregate import (CHGNET_ATOM_CONV, CHGNET_LINE_CONV,  # noqa: F401
                              tensornet_interaction_backward_reference,
                              tensornet_interaction_bf16_plan,
                              tensornet_interaction_error_bound)
-from .segment import (csr_row_offsets, launch_counts,  # noqa: F401
+from .segment import (count_launch, csr_row_offsets, launch_counts,  # noqa: F401
                       segment_sum_bf16_plan, segment_sum_cuda, segment_sum_reference)
 from .so3 import (PackedSO2Weights, pack_so2_weights, packed_m_layout,  # noqa: F401
                   so2_bf16_l2_bytes, so2_bf16_plan, so2_block_matrices, so2_conv_cuda,

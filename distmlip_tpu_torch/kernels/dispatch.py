@@ -53,6 +53,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import functools
+import threading
 from dataclasses import dataclass
 from typing import Any
 
@@ -81,8 +82,12 @@ recompute_chunks: dict = {}
 route_counts = {"kernel": 0, "plain": 0}
 
 
+_route_lock = threading.Lock()
+
+
 def _route(use_kernel: bool) -> None:
-    route_counts["kernel" if use_kernel else "plain"] += 1
+    with _route_lock:  # serving replicas route from their own threads
+        route_counts["kernel" if use_kernel else "plain"] += 1
 
 
 def kernel_routing(before: dict | None = None) -> tuple[str, float]:
@@ -256,7 +261,8 @@ def _edge_aggregate_bwd(message, kinds, arrs, weights, idxs, segment_ids, mask, 
             targets = [rows[k] for k in want] + [ws[j] for j in w_cts]
             cts = torch.autograd.grad(fn(*rows, weights=ws), targets, gm,
                                       create_graph=create, allow_unused=True)
-            recompute_chunks[message.name] = recompute_chunks.get(message.name, 0) + 1
+            with _route_lock:
+                recompute_chunks[message.name] = recompute_chunks.get(message.name, 0) + 1
             for k, ct in zip(want, cts):
                 if ct is None:
                     ct = torch.zeros_like(rows[k])

@@ -70,7 +70,7 @@ import torch.nn.functional as F
 
 from ..ops.nn import gated_mlp_flat
 from ..ops.segment import _HALF_DTYPES, masked_segment_sum
-from .segment import csr_row_offsets, current_stream_ptr, launch_counts
+from .segment import count_launch, csr_row_offsets, current_stream_ptr, launch_counts
 
 EMBED = "tensornet_embed_aggregate"
 INTERACTION = "tensornet_interaction_aggregate"
@@ -730,7 +730,7 @@ def _launch(name, symbol, out, tensors, row_ptr, mask, channels):
         out.data_ptr(), out.shape[0], channels, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launch_counts[name + count_suffix] += 1
+    count_launch(name + count_suffix)
     return out
 
 
@@ -855,7 +855,7 @@ def tensornet_interaction_backward_cuda(g, f, node_i, node_a, node_s, src,
             *(x.data_ptr() for x in out), n_node, e, channels, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launch_counts[name + count_suffix] += 1
+    count_launch(name + count_suffix)
     return tuple(out)
 
 
@@ -1040,7 +1040,7 @@ def chgnet_row_projection_cuda(x, w, bias=None):
             err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launch_counts[name + count_suffix] += 1
+    count_launch(name + count_suffix)
     return y
 
 
@@ -1129,7 +1129,7 @@ def _launch_chgnet(name, symbol, edge_seg, gathered, edge, extra, weights, segme
             out.data_ptr(), num_segments, e, channels, hidden, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {err}")
-    launch_counts[name + count_suffix] += 1
+    count_launch(name + count_suffix)
     return out
 
 

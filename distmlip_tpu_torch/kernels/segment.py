@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -31,6 +32,16 @@ from ..ops.segment import masked_segment_sum
 # and only there (a run resets them to 0 to show the main path went through
 # the kernels). kernels/edge_aggregate.py adds its own names.
 launch_counts = {"segment_sum": 0, "segment_sum_bf16": 0}
+# serving replicas launch from their own scheduler threads, and ``+= 1`` on
+# a dict entry is a read-modify-write that can lose a count when two threads
+# interleave: every count goes through count_launch
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``launch_counts`` (thread-safe)."""
+    with _count_lock:
+        launch_counts[name] += 1
 
 
 def csr_row_offsets(segment_ids, num_segments: int, mask=None):
@@ -129,7 +140,7 @@ def segment_sum_cuda(data, segment_ids, num_segments: int, mask=None):
             err = fn(*args, current_stream_ptr(dev))
     if err != 0:
         raise RuntimeError(f"segment_sum kernel launch failed: cudaError_t {err}")
-    launch_counts["segment_sum" if data.dtype == torch.float32 else "segment_sum_bf16"] += 1
+    count_launch("segment_sum" if data.dtype == torch.float32 else "segment_sum_bf16")
     return out
 
 

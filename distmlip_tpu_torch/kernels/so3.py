@@ -45,7 +45,7 @@ import numpy as np
 import torch
 
 from ..ops.segment import _HALF_DTYPES
-from .segment import launch_counts
+from .segment import count_launch, launch_counts
 
 launch_counts["so2_conv"] = 0
 launch_counts["so2_conv_bf16"] = 0
@@ -451,5 +451,5 @@ def so2_conv_cuda(h, weights, segments, channels: int, rows, packed=None):
                            "packed weights or of h)")
     if err != 0:
         raise RuntimeError(f"so2_conv kernel launch failed: cudaError_t {err}")
-    launch_counts["so2_conv" if h.dtype == torch.float32 else "so2_conv_bf16"] += 1
+    count_launch("so2_conv" if h.dtype == torch.float32 else "so2_conv_bf16")
     return out

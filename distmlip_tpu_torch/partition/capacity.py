@@ -143,8 +143,8 @@ class BucketPolicy:
 
     The policy also carries the bytes model of the memory-aware batching:
     :meth:`calibrate_bytes` records a measured device peak per node rung
-    (``BatchedPotential`` feeds it a calculate's peak over what was
-    allocated when it started, wherever it could measure one), and
+    (``BatchedPotential`` feeds it each CUDA calculate's own peak over
+    what was allocated when it started), and
     :meth:`estimate_batch_bytes`
     answers what a batch of N atoms would cost, for the scheduler's bytes
     budget (``serve.scheduler.plan_batch``). Shapes stay history-free; only

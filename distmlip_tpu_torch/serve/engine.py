@@ -49,8 +49,14 @@ and the first deadline miss triggers a flight-recorder capture. The request
 context crosses to the scheduler thread on the request object; spans there
 are emitted against it.
 
-Not ported: the lane built on a mesh's spatial axis (A7), and the fleet
-router around engines with its hooks (A10).
+Fleet hooks (``distmlip_tpu/serve/engine.py:259-345``): ``extract_pending()``
+hands every queued, undispatched request to the fleet router for
+re-dispatch on another replica (their Futures stay unresolved), and
+``health_snapshot()`` gives the replica monitor the queue depth, the
+in-flight batches, the scheduler's liveness and the age of its last
+dispatch progress (``fleet.ReplicaHealth``).
+
+Not ported: the lane built on a mesh's spatial axis (A7).
 """
 
 from __future__ import annotations
@@ -220,6 +226,9 @@ class ServeEngine:
         self._draining = 0
         self._closed = False     # submit() gate
         self._closing = False    # scheduler exit signal
+        # last time the scheduler finished a dispatch round (or sat with an
+        # empty queue): the wedge signal health_snapshot() serves
+        self._last_progress = self._clock()
         self._thread: threading.Thread | None = None
         if start:
             self.start()
@@ -253,10 +262,46 @@ class ServeEngine:
         with self._cv:
             self._cv.notify_all()
 
+    def extract_pending(self) -> list:
+        """Reclaim every request NOT yet dispatched, for re-dispatch
+        elsewhere (the fleet router's failover).
+
+        Pops the whole queue at once and returns the ``_Request`` objects in
+        dispatch order (priority, deadline, submission), each with its
+        ``atoms``, ``properties``, ``priority``, ``deadline_abs``,
+        ``t_submit`` and its UNRESOLVED ``future``. The engine then takes no
+        new submission (as if closed); batches in flight still complete and
+        resolve their own Futures. Unlike ``close(drain=False)`` nothing
+        returned here is failed: the caller owns it."""
+        with self._cv:
+            self._closed = True     # no new submit races the handoff
+            reqs = []
+            while self._pending:
+                reqs.append(heapq.heappop(self._pending))
+            self._cv.notify_all()   # blocked submitters see _closed and raise
+        return reqs
+
     @property
     def scheduler_alive(self) -> bool:
+        """The scheduler thread exists and is still serving."""
         t = self._thread
         return t is not None and t.is_alive()
+
+    def health_snapshot(self) -> dict:
+        """One consistent health sample for a replica monitor: queue depth,
+        batches in flight, liveness, and how long ago (on the engine clock)
+        the scheduler last made dispatch progress. A wedged engine shows
+        queued or in-flight work with a growing ``last_progress_age_s``
+        while ``scheduler_alive`` stays True."""
+        with self._cv:
+            return {
+                "queue_depth": len(self._pending),
+                "inflight": self._inflight,
+                "scheduler_alive": self.scheduler_alive,
+                "last_progress_age_s": self._clock() - self._last_progress,
+                "completed": self.stats.completed,
+                "failed": self.stats.failed,
+            }
 
     def drain(self, timeout: float | None = None) -> bool:
         """Dispatch everything queued (bypassing max-wait) and wait until the
@@ -404,6 +449,7 @@ class ServeEngine:
         while True:
             with self._cv:
                 while not self._pending and not self._closing:
+                    self._last_progress = self._clock()  # idle = healthy
                     self._cv.wait(timeout=0.05)
                 if not self._pending and self._closing:
                     return
@@ -436,6 +482,7 @@ class ServeEngine:
             finally:
                 with self._cv:
                     self._inflight -= 1
+                    self._last_progress = self._clock()
                     self._cv.notify_all()
 
     def _provably_late(self, req: _Request, now: float) -> bool:

@@ -8,8 +8,9 @@ telemetry hub, one ``TrainRecord`` a step.
 Micro-batch sizing against the card's memory: the JAX package plans a
 step's peak statically over its jaxpr; the port measures it. For each
 frozen capacity tier, one step runs on a throwaway copy of the state (no
-update kept) with the allocator's high-water mark reset before it, and
-``torch.cuda.max_memory_allocated`` read after it
+update kept) with the allocator's high-water mark reset before it
+(``device.begin_peak_measurement``), and ``torch.cuda.max_memory_allocated``
+read after it
 (:func:`estimate_step_peak_bytes`). ``micro_batch_size="auto"`` halves a
 power-of-two candidate until every tier's peak fits ``hbm_budget_frac`` of
 the budget (default ``utils.memory.device_bytes_limit()``, the card's
@@ -25,7 +26,7 @@ import time
 
 import torch
 
-from ..device import resolve_device
+from ..device import begin_peak_measurement, device_phase, resolve_device
 from ..obs import profiling as obs_profiling
 from ..telemetry import TrainRecord
 from ..utils.memory import device_bytes_limit
@@ -38,24 +39,27 @@ from .step import (TrainConfig, clone_state, init_train_state, make_accum_train_
 def estimate_step_peak_bytes(step_fn, state, batch, device) -> int | None:
     """The measured peak of one train step on ``device``: the step runs on
     ``clone_state(state)`` (the update is thrown away) after
-    ``torch.cuda.reset_peak_memory_stats``; returns
+    ``device.begin_peak_measurement``; returns
     ``torch.cuda.max_memory_allocated``, or None on the CPU. A step that
     runs out of memory reads as an infinite peak."""
     device = torch.device(device)
     if device.type != "cuda":
         return None
-    dev_batch = batch.to(device)
-    copy = clone_state(state)
-    torch.cuda.synchronize(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    try:
-        step_fn(copy, dev_batch.graphs, dev_batch.targets)
+    # under the card's phase lock: the reset and the read bracket this step
+    # alone, never a serving replica's measured batch on the same card
+    with device_phase(device):
+        dev_batch = batch.to(device)
+        copy = clone_state(state)
         torch.cuda.synchronize(device)
-        peak = int(torch.cuda.max_memory_allocated(device))
-    except torch.cuda.OutOfMemoryError:
-        peak = math.inf
-    del copy, dev_batch
-    torch.cuda.empty_cache()
+        begin_peak_measurement(device)
+        try:
+            step_fn(copy, dev_batch.graphs, dev_batch.targets)
+            torch.cuda.synchronize(device)
+            peak = int(torch.cuda.max_memory_allocated(device))
+        except torch.cuda.OutOfMemoryError:
+            peak = math.inf
+        del copy, dev_batch
+        torch.cuda.empty_cache()
     return peak
 
 
@@ -221,12 +225,17 @@ class Trainer:
         metrics dict (floats; reading them waits for the card)."""
         t0 = time.perf_counter()
         batch = self.loader.next_batch()
-        dev = batch.to(self.device)
-        t_data = time.perf_counter() - t0
-        new_tier = batch.meta["bucket_key"] not in self._stepped
-        self._stepped.add(batch.meta["bucket_key"])
-        self.state, metrics = self.step_fn(self.state, dev.graphs, dev.targets)
-        m = {k: float(v) for k, v in metrics.items()}
+        # the device work under the card's phase lock (``device.device_phase``):
+        # a serving replica on the same card never measures this step's
+        # allocations as its own
+        with device_phase(self.device):
+            dev = batch.to(self.device)
+            t_data = time.perf_counter() - t0
+            new_tier = batch.meta["bucket_key"] not in self._stepped
+            self._stepped.add(batch.meta["bucket_key"])
+            self.state, metrics = self.step_fn(self.state, dev.graphs, dev.targets)
+            m = {k: float(v) for k, v in metrics.items()}
+            del dev, metrics
         dt = time.perf_counter() - t0
         # compile log: the first step on a tier (its wall time, first-use
         # work included), the JAX step's jit compile
@@ -311,8 +320,9 @@ class Trainer:
             raise ValueError("Trainer was built without val_samples")
         params = (self.state.ema_params if self.config.ema_decay > 0.0
                   else self.state.params)
-        comps = self.eval_fn(params, self._val_batch.graphs, self._val_batch.targets)
-        return {k: float(v) for k, v in comps.items()}
+        with device_phase(self.device):
+            comps = self.eval_fn(params, self._val_batch.graphs, self._val_batch.targets)
+            return {k: float(v) for k, v in comps.items()}
 
     # ---- checkpoint plumbing ----
 

@@ -3,7 +3,9 @@
 The same functions over the CUDA caching allocator: ``bytes_in_use`` is
 ``torch.cuda.memory_allocated``, ``peak_bytes_in_use``
 ``torch.cuda.max_memory_allocated`` (the high-water mark since the process
-started or since the last ``torch.cuda.reset_peak_memory_stats``) and
+started or since the last reset: every batched calculate and a trainer's
+measured step reset it, ``device.begin_peak_measurement``; the mark across
+those is ``device.peak_allocated``) and
 ``bytes_limit`` the card's total memory from ``torch.cuda.mem_get_info``.
 Without a card every function degrades to ``{}`` / ``None``, as the JAX
 versions do on a backend that reports no limit. With one, an error of the

@@ -3114,3 +3114,186 @@ def test_attribution_of_a_captured_step(card, tmp_path):
     assert layers.get("mace/interaction0", 0) > 0 and layers.get("mace/interaction1", 0) > 0
     assert any(k.endswith("/backward") for k in bd.by_scope)
     assert bd.by_category.get("gradient_transpose", 0) > 0
+
+
+# the fleet and the active lane on the card: a small MACE with edge chunks
+# of 128 (K > 1), the 64-atom long cell and rattled copies of it
+FLEET_MACE = dict(num_species=4, channels=16, l_max=2, a_lmax=2, hidden_lmax=1,
+                  correlation=2, cutoff=3.0, edge_chunk=128)
+
+
+def _fleet_pool(n):
+    base = _long_cell()
+    rng = np.random.default_rng(5)
+    out = []
+    for _ in range(n):
+        a = base.copy()
+        a.positions = a.positions + rng.normal(0, 0.02, a.positions.shape)
+        out.append(a)
+    return out
+
+
+@pytest.mark.cuda
+def test_fleet_replicas_share_the_card(card):
+    """Two replicas on one card, each on its own scheduler thread, sharing
+    one ``BucketPolicy``: the launch counts add up to the sum over every
+    calculate's own (2 interactions x 2K for its e_cap); the bytes model
+    they calibrate equals a lone potential's over the same structures (no
+    replica's measured peak counts the other's work); the budgets sum to at
+    most the card's room."""
+    import threading
+
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.fleet import ResultCache, make_fleet
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.ops.chunk import chunk_layout
+    from distmlip_tpu_torch.partition import BucketPolicy
+
+    model = MACE(MACEConfig(**FLEET_MACE))
+    params = model.init(0)
+    pool = _fleet_pool(16)
+    caps = BucketPolicy()
+    e_caps, lock = [], threading.Lock()
+
+    def factory(i):
+        pot = BatchedPotential(model, params, device=card, caps=caps)
+        real = pot.calculate
+
+        def call(structures):
+            out = real(structures)
+            with lock:
+                e_caps.append(pot.last_stats["e_cap"])
+            return out
+        pot.calculate = call
+        return pot
+
+    router = make_fleet(2, factory, engine_kwargs=dict(max_batch=1, max_wait_s=0.001),
+                        result_cache=ResultCache(), model_id="mace")
+    pots = [r.engine.potential for r in router.replicas.values()]
+    assert sum(p.hbm_budget_bytes for p in pots) <= 0.8 * torch.cuda.mem_get_info(card)[1]
+    for rep in router.replicas.values():   # each scheduler thread's first-use work
+        rep.engine.submit(pool[0]).result(timeout=600)
+    torch.cuda.synchronize(card)
+    caps._bytes_by_cap.clear()
+    torch.cuda.reset_peak_memory_stats(card)
+    e_caps.clear()
+    for k in launch_counts:
+        launch_counts[k] = 0
+    for f in [router.submit(a) for a in pool]:
+        assert np.isfinite(f.result(timeout=600)["energy"])
+    router.drain(timeout=600)
+    launched = dict(launch_counts)
+    measured = dict(caps._bytes_by_cap)
+    assert all(r["dispatched_total"] > 1 for r in router.snapshot()["replicas"].values())
+    router.close()
+    want = sum(2 * 2 * chunk_layout(e, FLEET_MACE["edge_chunk"])[2] for e in e_caps)
+    assert len(e_caps) == len(pool) and launched["segment_sum"] == want
+    lone_caps = BucketPolicy()
+    lone = BatchedPotential(model, params, device=card, caps=lone_caps)
+    lone.calculate([pool[0]])
+    torch.cuda.synchronize(card)
+    lone_caps._bytes_by_cap.clear()
+    torch.cuda.reset_peak_memory_stats(card)
+    for a in pool:
+        lone.calculate([a])
+    assert measured and measured == lone_caps._bytes_by_cap
+
+
+@pytest.mark.cuda
+def test_replica_calibrates_after_a_finetune(card):
+    """A fine-tune on the card between a replica's batches leaves the
+    allocator's mark far above a batch's; the replica's next batch on a new
+    bucket still measures its own peak and calibrates its rung, and
+    ``device.peak_allocated`` still reads the fine-tune's mark."""
+    from distmlip_tpu_torch.active import run_finetune
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.device import peak_allocated, reset_peak
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.partition import BucketPolicy
+    from distmlip_tpu_torch.train import Sample
+
+    model = MACE(MACEConfig(**FLEET_MACE))
+    params = model.init(0)
+    pool = _fleet_pool(8)
+    caps = BucketPolicy()
+    pot = BatchedPotential(model, params, device=card, caps=caps)
+    reset_peak(card)
+    base = torch.cuda.memory_allocated(card)
+    pot.calculate(pool[:1])
+    first = pot.last_stats["batch_peak_bytes"]
+    assert first > 0 and caps.has_calibrated_rung(len(pool[0]))
+    rng = np.random.default_rng(3)
+    samples = [Sample(a, float(rng.normal()), rng.normal(0, 0.1, (len(a), 3)).astype(np.float32),
+                      np.zeros((3, 3), np.float32)) for a in pool]
+    run_finetune(model, params, samples, steps=1, micro_batch_size=4, device=card)
+    high = peak_allocated(card)
+    assert high > base + first
+    n = 3 * len(pool[0])
+    assert not caps.has_calibrated_rung(n)
+    pot.calculate(pool[:3])
+    assert pot.last_stats["batch_peak_bytes"] > 0 and caps.has_calibrated_rung(n)
+    assert peak_allocated(card) >= high
+
+
+@pytest.mark.cuda
+def test_ensemble_lane_on_card_matches_plain(card):
+    """``EnsembleBatchedPotential.calculate_with_variance`` with the kernels
+    against ``kernels=False`` on the card, member by member, within the
+    float32 bar, and M times one member's launches."""
+    from distmlip_tpu_torch.active import EnsembleBatchedPotential
+    from distmlip_tpu_torch.kernels import launch_counts
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+
+    model = MACE(MACEConfig(**FLEET_MACE))
+    members = [model.init(s) for s in range(3)]
+    pool = _fleet_pool(3)
+    out = []
+    counts = []
+    for kernels in (True, False):
+        ens = EnsembleBatchedPotential(model, members, device=card, kernels=kernels)
+        before = dict(launch_counts)
+        out.append(ens.calculate_with_variance(pool))
+        counts.append({k: launch_counts[k] - before[k] for k in launch_counts})
+    assert counts[0]["segment_sum"] > 0 and not any(counts[1].values())
+    one = EnsembleBatchedPotential(model, members[:1], device=card)
+    before = dict(launch_counts)
+    one.calculate_with_variance(pool)
+    assert counts[0]["segment_sum"] == 3 * (launch_counts["segment_sum"]
+                                            - before["segment_sum"])
+    for got, want in zip(*out):
+        for m in range(3):
+            _close({"energy": got["energies"][m], "forces": got["forces_all"][m]},
+                   {"energy": want["energies"][m], "forces": want["forces_all"][m]},
+                   f"member {m}")
+        _close(got, want, "means")
+
+
+@pytest.mark.cuda
+def test_hot_swap_on_card(card):
+    """A hot swap into a live engine on the card: no new serving bucket,
+    the weights land on the card as a copy, and the post-swap result
+    equals a fresh potential at the new weights within the float32 bar."""
+    from distmlip_tpu_torch.active import hot_swap_engine
+    from distmlip_tpu_torch.calculators import BatchedPotential
+    from distmlip_tpu_torch.models import MACE, MACEConfig
+    from distmlip_tpu_torch.serve import ServeEngine
+
+    model = MACE(MACEConfig(**FLEET_MACE))
+    p0, p1 = model.init(0), model.init(1)
+    # batches of one: every request lands in the bucket the warm round made
+    engine = ServeEngine(BatchedPotential(model, p0, device=card), max_batch=1,
+                         max_wait_s=0.001)
+    pool = _fleet_pool(4)
+    for f in [engine.submit(a) for a in pool]:
+        f.result(timeout=600)
+    compiles = engine.compile_count
+    report = hot_swap_engine(engine, p1)
+    got = [engine.submit(a).result(timeout=600) for a in pool]
+    assert report["compile_count"] == engine.compile_count == compiles
+    leaf = engine.potential.params["species_emb"]["w"]
+    assert leaf.is_cuda and leaf.data_ptr() != p1["species_emb"]["w"].data_ptr()
+    ref = BatchedPotential(model, p1, device=card).calculate(pool)
+    for a, b in zip(got, ref):
+        _close(a, b, "post-swap")
+    engine.close()
